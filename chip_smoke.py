@@ -1,0 +1,672 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's SRTP media path on one NVIDIA GPU.
+
+    python3 chip_smoke.py        (from the repository root; one card)
+
+Builds the port's CUDA kernels from `libjitsi_tpu_torch/csrc/`, checks
+them on known answers and byte for byte against their plain PyTorch
+versions at the main path's shapes (timing both with CUDA events), then
+drives the main path — the `SrtpStreamTable` protect/unprotect path with
+10,240 installed streams and a `MediaLoop` echo bridge over UDP
+loopback — and shows through the launch counters that it ran on kernels
+C and D and on no plain version.  Every phase prints one JSON line; the
+card's `nvidia-smi` name and power limit come before the last line, and
+the last line is {"ok": true, "device": {...}}.  Any failure exits
+nonzero before that line.  Without a CUDA device the script prints no
+result and exits 2.  It imports neither JAX nor the JAX package.
+
+Bounds: `bound_ms` is the larger of the bytes the function must move
+(each input read once, each output written once) over 3.35 TB/s and the
+operations its work needs on this run's data over the INT32 pipe's rate,
+16.7 Tops/s (132 SMs x 64 lanes x 1.98 GHz, H100 SXM).  Operations are
+the fewest sm_90 instructions of the kinds only that pipe runs (LOP3
+logic, SHF shifts and rotates, PRMT byte moves); adds are left out
+because they can issue as IMAD on the FP32 pipe, and with them counted
+at the 128-lane issue rate the total still binds later.  Per unit:
+
+  SHA-1 compression  432 = 80 rounds x 3 (rotl5, f as one LOP3, rotl30)
+                         + 64 schedule words x 3 (two LOP3, rotl1)
+  AES block, T-table 24*nr + 12 = 4 (first key XOR)
+                         + (nr-1) rounds x 24 (16 table indices at one
+                           instruction each, 8 LOP3 for the XORs)
+                         + 32 (last round: 16 S-box indices, 12 PRMT to
+                           pack the bytes, 4 key XORs)
+  CTR window XOR     4 per 16-byte keystream block
+
+Shared-memory loads and byte swaps are not counted, and an index costs
+two instructions in practice, so the bound lies below what any kernel
+of the T-table form can reach; a bitsliced AES needs more logic per
+block than this.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import hmac
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SHA1_BLOCK_OPS = 80 * 3 + 64 * 3
+CTR_XOR_OPS = 4
+
+
+def aes_block_ops(nr: int) -> int:
+    return 4 + 24 * (nr - 1) + 32
+
+
+N_STREAMS = 10_240
+BATCH = 4096
+MIX = ((100, 0.6), (400, 0.3), (950, 0.1))    # payload bytes, share
+TAG = 10
+HDR = 12
+# packets 10,240 streams at 20 ms ptime send in the loop's 1 ms window
+ECHO_BURST = N_STREAMS // 20
+ECHO_ROUNDS = 4
+SOURCES = {
+    "aes_encrypt": ("libjitsi_tpu_torch/csrc/aes_encrypt.cu",
+                    "libjitsi_tpu/kernels/aes_bitsliced.py:548"),
+    "hmac_sha1": ("libjitsi_tpu_torch/csrc/hmac_sha1.cu",
+                  "libjitsi_tpu/kernels/sha1.py:230"),
+    "srtp_protect_cm": ("libjitsi_tpu_torch/csrc/srtp_cm.cu",
+                        "libjitsi_tpu/transform/srtp/kernel.py:59"),
+    "srtp_unprotect_cm": ("libjitsi_tpu_torch/csrc/srtp_cm.cu",
+                          "libjitsi_tpu/transform/srtp/kernel.py:113"),
+}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def require(cond, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    kbuild.library()
+    emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
+
+    known_answers(torch, dev)
+    sass_counts(kbuild)
+    rows = kernels_vs_plain(torch, dev)
+    kbuild.reset_counts()
+    table = table_path(torch, dev)
+    echo_loop(torch, dev, table)
+    launches, plain = dict(kbuild.launches), dict(kbuild.plain_calls)
+    emit("main_path_counts", launches=launches, plain_calls=plain)
+    require(launches["srtp_protect_cm"] > 0
+            and launches["srtp_unprotect_cm"] > 0,
+            "main path did not launch kernels C and D")
+    require(sum(plain.values()) == 0, "a plain version ran on the main path")
+    kernels = []
+    for name, (src, ref) in SOURCES.items():
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": ref,
+            "launches": launches[name],
+            "launches_per_batch": table["launches_per_batch"][name],
+            "main_path": name.startswith("srtp"),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "shape": r["shape"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(", ".join(smi), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------- helpers
+
+def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
+    """Mean milliseconds per call of `fn` over `reps` back-to-back calls,
+    measured with CUDA events after `warm` untimed calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def max_abs_err(torch, outs_a, outs_b) -> int:
+    err = 0
+    for a, b in zip(outs_a, outs_b):
+        require(a.shape == b.shape, "shape mismatch against plain version")
+        err = max(err, int((a.long() - b.long()).abs().max().item())
+                  if a.numel() else 0)
+    return err
+
+
+def production_lengths(rng, n: int) -> np.ndarray:
+    sizes = np.array([m[0] for m in MIX])
+    return sizes[rng.choice(len(MIX), n, p=[m[1] for m in MIX])]
+
+
+# ------------------------------------------------------------ 2. answers
+
+def known_answers(torch, dev) -> None:
+    from libjitsi_tpu_torch.kernels import aes, sha1
+    from libjitsi_tpu_torch.transform.srtp import kernel as sk
+    from libjitsi_tpu_torch.transform.srtp.kdf import derive_session_keys
+
+    def t(x):
+        return torch.as_tensor(np.array(x)).to(dev)
+
+    pt = np.frombuffer(bytes.fromhex("00112233445566778899aabbccddeeff"),
+                       np.uint8)[None]
+    fips = {}
+    for name, key, ct in (
+            ("C.1", "000102030405060708090a0b0c0d0e0f",
+             "69c4e0d86a7b0430d8cdb78070b4c55a"),
+            ("C.3", "000102030405060708090a0b0c0d0e0f"
+             "101112131415161718191a1b1c1d1e1f",
+             "8ea2b7ca516745bfeafc49904b496089")):
+        got = aes.aes_encrypt(t(aes.expand_key(bytes.fromhex(key))[None]),
+                              t(pt)).cpu().numpy()
+        fips[name] = bytes(got[0]) == bytes.fromhex(ct)
+    require(all(fips.values()), f"FIPS-197 through kernel A: {fips}")
+
+    # RFC 3711 B.2: the AES-CM keystream is kernel C's ciphertext of zeros
+    rk = aes.expand_key(bytes.fromhex("2B7E151628AED2A6ABF7158809CF4F3C"))
+    iv = np.frombuffer(bytes.fromhex("F0F1F2F3F4F5F6F7F8F9FAFBFCFD0000"),
+                       np.uint8)[None]
+    width = HDR + 48 + TAG
+    out, _ = sk.srtp_protect(
+        t(rk[None]), t(np.zeros((1, 2, 5), np.int32)), t(np.zeros(1, np.int32)),
+        t(np.zeros((1, width), np.uint8)), t(np.array([HDR + 48], np.int32)),
+        t(np.array([HDR], np.int32)), t(iv), t(np.zeros(1, np.int32)), TAG)
+    b2 = bytes(out.cpu().numpy()[0, HDR:HDR + 48]) == bytes.fromhex(
+        "E03EAD0935C95E80E166B16DD92B4EB4D23513162B02D0F72A43A2FE4A5F97AB"
+        "41E95B3BB0A2E8DD477901E4FCA894C0")
+    require(b2, "RFC 3711 B.2 keystream through kernel C")
+    # RFC 3711 B.3 key derivation (host NumPy AES)
+    ks = derive_session_keys(bytes.fromhex("E1F97A0D3E018BE0D64FA32C06DE4139"),
+                             bytes.fromhex("0EC675AD498AFEEBB6960B3AABE6"))
+    b3 = (ks.rtp_enc.hex() == "c61e7a93744f39ee10734afe3ff7a087"
+          and ks.rtp_salt.hex() == "30cbbc08863d8c85d49db34a9ae1"
+          and ks.rtp_auth.hex() == "cebe321f6ff7716b6fd4ab49af256a156d38baa4")
+    require(b3, "RFC 3711 B.3 key derivation")
+
+    rfc2202 = [(b"\x0b" * 20, b"Hi There"),
+               (b"Jefe", b"what do ya want for nothing?"),
+               (b"\xaa" * 20, b"\xdd" * 50),
+               (bytes(range(1, 26)), b"\xcd" * 50),
+               (b"\x0c" * 20, b"Test With Truncation"),
+               (b"\xaa" * 80,
+                b"Test Using Larger Than Block-Size Key - Hash Key First"),
+               (b"\xaa" * 80, b"Test Using Larger Than Block-Size Key and "
+                              b"Larger Than One Block-Size Data")]
+    want = ["b617318655057264e28bc0b6fb378c8ef146be00",
+            "effcdf6ae5eb2fa2d27416d5f184df9c259a7c79",
+            "125d7342b9ac11cd91a39af48aa17b4f63f175d3",
+            "4c9007f4026250c6bc8414f9bf50c86c2d7235da",
+            "4c1a03424b55e07fe7f27be1d58bb9324a9a5a04",
+            "aa4ae5e15272d00e95705637ce8a3b55ed402112",
+            "e8e99d0f45237d786d6bbaa7965c7808bbff1a91"]
+    rng = np.random.default_rng(64)
+    keys = [k for k, _ in rfc2202] + [rng.integers(0, 256, 20, np.uint8)
+                                      .tobytes() for _ in range(64)]
+    msgs = [m for _, m in rfc2202] + [rng.integers(0, 256, int(n), np.uint8)
+                                      .tobytes()
+                                      for n in rng.integers(0, 1504, 64)]
+    data = np.zeros((len(msgs), 1504), np.uint8)
+    for i, m in enumerate(msgs):
+        data[i, :len(m)] = np.frombuffer(m, np.uint8)
+    mid = np.stack([sha1.hmac_precompute(k) for k in keys]).view(np.int32)
+    tags = sha1.hmac_sha1(t(mid), t(data), t(np.array([len(m) for m in msgs],
+                                                      np.int32))).cpu().numpy()
+    rfc_ok = [bytes(tags[i]).hex() == w for i, w in enumerate(want)]
+    std_ok = [bytes(tags[i]) == hmac.new(keys[i], msgs[i], hashlib.sha1)
+              .digest() for i in range(len(rfc2202), len(msgs))]
+    require(all(rfc_ok), f"RFC 2202 through kernel B: {rfc_ok}")
+    require(all(std_ok), "64 random rows of kernel B against stdlib hmac")
+    emit("known_answers", fips197=fips, rfc3711_b2=b2, rfc3711_b3=b3,
+         rfc2202=len(rfc_ok), stdlib_hmac_rows=len(std_ok))
+
+
+def sass_counts(kbuild) -> None:
+    """Static count of the INT32-pipe instructions the bounds count
+    (LOP3, SHF, PRMT) in each built kernel, read with `cuobjdump -sass`.
+    Kernel A is straight-line code for one block, so its count must not
+    fall below the bound's count for a block."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", kbuild.build()], check=True,
+                          capture_output=True, text=True,
+                          timeout=120).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : .*?(" + "|".join(kbuild.KERNELS)
+                      + r")_kernel(?:ILi(\d+)E)?", line)
+        if m:
+            cur = m.group(1) + (f" nr={m.group(2)}" if m.group(2) else "")
+            counts[cur] = 0
+        elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?"
+                              r"(LOP3|SHF|PRMT)\b", line):
+            counts[cur] += 1
+    for nr in (10, 14):
+        require(counts.get(f"aes_encrypt nr={nr}", 0) >= aes_block_ops(nr),
+                f"kernel A (nr={nr}) issues fewer INT32-pipe instructions "
+                f"than its bound counts: {counts}")
+    emit("sass", int32_pipe_static=counts,
+         bound_per_unit={"sha1_compression": SHA1_BLOCK_OPS,
+                         "aes_block nr=10": aes_block_ops(10),
+                         "aes_block nr=14": aes_block_ops(14)})
+
+
+# ------------------------------------------------- 3. kernels vs plain
+
+def kernels_vs_plain(torch, dev) -> dict:
+    from libjitsi_tpu_torch.core.packet import bucket_by_size
+    from libjitsi_tpu_torch.kernels import aes, sha1
+    from libjitsi_tpu_torch.transform.srtp import kernel as sk
+
+    rng = np.random.default_rng(3)
+    rows = {}
+
+    def record(name, shape, outs_k, outs_p, ms, plain_ms, nbytes, ops,
+               main=True):
+        err = max_abs_err(torch, outs_k, outs_p)
+        require(err == 0, f"{name} {shape} differs from its plain version")
+        b_ms, b_by = bound(nbytes, ops)
+        line = dict(name=name, shape=shape, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    bytes=nbytes, ops=ops)
+        emit("kernel_vs_plain", **line)
+        if main:
+            rows[name] = line
+
+    # A: 65,536 blocks, AES-128 (the table default) and AES-256
+    for key_len in (16, 32):
+        n = 65536
+        rk = torch.as_tensor(aes.expand_keys_batch(
+            rng.integers(0, 256, (n, key_len), np.uint8))).to(dev)
+        blocks = torch.as_tensor(rng.integers(0, 256, (n, 16),
+                                              np.uint8)).to(dev)
+        nr = rk.shape[1] - 1
+        k = aes.aes_encrypt(rk, blocks)
+        p = aes.aes_encrypt_plain(rk, blocks)
+        record("aes_encrypt", f"{n}x16 AES-{key_len * 8}", [k], [p],
+               cuda_ms(torch, lambda: aes.aes_encrypt(rk, blocks), 200),
+               cuda_ms(torch, lambda: aes.aes_encrypt_plain(rk, blocks), 5),
+               n * (16 + (nr + 1) * 16 + 16), n * aes_block_ops(nr),
+               main=key_len == 16)
+
+    # B: 4,096 x 1,504, the production mix of MAC message lengths
+    n, width = 4096, 1504
+    lens = np.minimum(production_lengths(rng, n) + HDR + 4, width)
+    mid = torch.as_tensor(sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (n, 20), np.uint8)).view(np.int32)).to(dev)
+    data = torch.as_tensor(rng.integers(0, 256, (n, width), np.uint8)).to(dev)
+    ln = torch.as_tensor(lens.astype(np.int32)).to(dev)
+    blocks = int(((lens + 9 + 63) // 64).sum()) + n
+    record("hmac_sha1", f"{n}x{width} mixed lengths",
+           [sha1.hmac_sha1(mid, data, ln)], [sha1.hmac_sha1_plain(mid, data,
+                                                                 ln)],
+           cuda_ms(torch, lambda: sha1.hmac_sha1(mid, data, ln), 50),
+           cuda_ms(torch, lambda: sha1.hmac_sha1_plain(mid, data, ln), 2, 1),
+           int(lens.sum()) + n * (40 + 4 + 20), blocks * SHA1_BLOCK_OPS)
+
+    # C and D: the bench headline shape, then the three launches the
+    # table path makes for one 4,096-packet production-mix batch: the
+    # parts `bucket_by_size` gives, row counts padded to a row class by
+    # repeating real rows, each width its size class plus 32 bytes
+    tab_rk = torch.as_tensor(aes.expand_keys_batch(
+        rng.integers(0, 256, (N_STREAMS, 16), np.uint8))).to(dev)
+    tab_mid = torch.as_tensor(sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (N_STREAMS, 20), np.uint8)).view(
+            np.int32)).to(dev)
+    n = 65536
+    cases = [("65536x192 len 172 (bench headline)",
+              rng.integers(0, N_STREAMS, n),
+              rng.integers(0, 256, (n, 192), np.uint8),
+              np.full(n, 160 + HDR, np.int32), False)]
+    mix = _mix_batch(rng, rng.permutation(N_STREAMS)[:BATCH], 1000, 0)
+    parts = []
+    for _rows, part, n_real in bucket_by_size(mix):
+        n = len(part.length)
+        parts.append(f"{n}x{part.capacity} ({n_real} real rows)")
+        cases.append((f"{n}x{part.capacity}, {n_real} real rows (table "
+                      f"path)", part.stream, part.data, part.length, True))
+    totals = {"srtp_protect_cm": [0.0, 0.0, 0, 0],
+              "srtp_unprotect_cm": [0.0, 0.0, 0, 0]}
+    for label, stream, raw, length, main in cases:
+        n, width = raw.shape
+        args = [tab_rk, tab_mid,
+                torch.as_tensor(stream.astype(np.int32)).to(dev),
+                torch.as_tensor(raw).to(dev),
+                torch.as_tensor(length.astype(np.int32)).to(dev),
+                torch.full((n,), HDR, dtype=torch.int32, device=dev),
+                torch.as_tensor(rng.integers(0, 256, (n, 16),
+                                             np.uint8)).to(dev),
+                torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, n)
+                                .astype(np.int32)).to(dev)]
+        ks_blocks = int(((length - HDR + 15) // 16).sum())
+        mac_blocks = int(((length + 4 + 9 + 63) // 64).sum()) + n
+        ops = (ks_blocks * (aes_block_ops(10) + CTR_XOR_OPS)
+               + mac_blocks * SHA1_BLOCK_OPS)
+        keys = len(np.unique(stream)) * (11 * 16 + 40)
+        nbytes = 2 * n * width + n * (5 * 4 + 16) + keys
+        reps = 50 if n * width < 4e7 else 20
+        kp = sk.srtp_protect(*args, TAG)
+        pp = sk.srtp_protect_plain(*args, TAG)
+        ms_p = cuda_ms(torch, lambda: sk.srtp_protect(*args, TAG), reps)
+        pms_p = cuda_ms(torch, lambda: sk.srtp_protect_plain(*args, TAG), 2, 1)
+        record("srtp_protect_cm", label, list(kp), list(pp), ms_p, pms_p,
+               nbytes, ops, main=False)
+        uargs = args[:3] + [kp[0], kp[1]] + args[5:]
+        ku = sk.srtp_unprotect(*uargs, TAG)
+        pu = sk.srtp_unprotect_plain(*uargs, TAG)
+        require(bool(ku[2].all()), f"kernel D rejected genuine rows ({label})")
+        ms_u = cuda_ms(torch, lambda: sk.srtp_unprotect(*uargs, TAG), reps)
+        pms_u = cuda_ms(torch, lambda: sk.srtp_unprotect_plain(*uargs, TAG),
+                        2, 1)
+        record("srtp_unprotect_cm", label, list(ku), list(pu), ms_u, pms_u,
+               nbytes, ops, main=False)
+        if main:
+            for name, ms, pms in (("srtp_protect_cm", ms_p, pms_p),
+                                  ("srtp_unprotect_cm", ms_u, pms_u)):
+                acc = totals[name]
+                acc[0] += ms
+                acc[1] += pms
+                acc[2] += nbytes
+                acc[3] += ops
+    for name, (ms, pms, nbytes, ops) in totals.items():
+        b_ms, b_by = bound(nbytes, ops)
+        rows[name] = dict(name=name, max_abs_err=0, ms=ms, plain_ms=pms,
+                          bound_ms=b_ms, bound_by=b_by,
+                          shape=f"one {BATCH}-packet production-mix batch "
+                                f"as the table buckets it, "
+                                f"{len(parts)} launches: "
+                                + " + ".join(parts))
+    return rows
+
+
+# --------------------------------------------------------- 4. table path
+
+def _mix_batch(rng, streams, seq: int, ts: int):
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+
+    lens = production_lengths(rng, len(streams))
+    payloads = [rng.integers(0, 256, int(k), np.uint8).tobytes()
+                for k in lens]
+    return rtp_header.build(payloads, [seq] * len(streams),
+                            [ts] * len(streams), (0x10000 + streams).tolist(),
+                            [96] * len(streams), stream=streams.tolist())
+
+
+def profile_table(torch, tx, rx, batch) -> None:
+    """One production-mix batch through protect, then unprotect, each
+    under torch.profiler: its host-clock time, the table's spans
+    (host work is the call's span less its upload, kernel and download
+    spans) and the card's busy time by kernel and copy.  Device fields
+    are null if the profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    arg = batch
+    for table, direction in ((tx, "protect_rtp"), (rx, "unprotect_rtp")):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = getattr(table, direction)(arg)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans, device = {}, {}
+        for e in prof.events():
+            if e.name.startswith("srtp."):
+                if e.device_type == DeviceType.CPU:
+                    spans[e.name] = spans.get(e.name, 0.0) + \
+                        e.cpu_time_total / 1e3
+            elif e.device_type == DeviceType.CUDA:
+                m = re.search(r"(\w+)_kernel", e.name)
+                key = m.group(1) if m else e.name
+                device[key] = device.get(key, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3
+        parts = ("srtp.upload", "srtp.kernel", "srtp.download")
+        busy = sum(device.values()) if device else None
+        emit("profile", direction=direction, wall_ms=wall_ms,
+             spans_ms=spans, host_ms=spans.get("srtp." + direction, 0.0)
+             - sum(spans.get(k, 0.0) for k in parts),
+             device_ms=device, device_busy_ms=busy,
+             device_idle_share=None if busy is None else 1 - busy / wall_ms)
+        if direction == "protect_rtp":
+            arg = res
+        else:
+            require(res[1].all(), "a genuine row failed under the profiler")
+
+
+def table_path(torch, dev) -> dict:
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.kernels.aes import ctr_keystream_np, expand_key
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.kdf import derive_session_keys
+
+    rng = np.random.default_rng(9)
+    mks = rng.integers(0, 256, (N_STREAMS, 16), np.uint8)
+    mss = rng.integers(0, 256, (N_STREAMS, 14), np.uint8)
+    t0 = time.perf_counter()
+    tx = SrtpStreamTable(N_STREAMS, device=dev)
+    rx = SrtpStreamTable(N_STREAMS, device=dev)
+    tx.add_streams(np.arange(N_STREAMS), mks, mss)
+    rx.add_streams(np.arange(N_STREAMS), mks, mss)
+    install_s = time.perf_counter() - t0
+    prot_s, unprot_s = [], []
+    sent = []
+    before = dict(kbuild.launches)
+    for k in range(8):
+        streams = rng.permutation(N_STREAMS)[:BATCH]
+        batch = _mix_batch(rng, streams, 1000 + k, k * 960)
+        t1 = time.perf_counter()
+        wire = tx.protect_rtp(batch)
+        t2 = time.perf_counter()
+        dec, ok = rx.unprotect_rtp(wire)
+        t3 = time.perf_counter()
+        prot_s.append(t2 - t1)
+        unprot_s.append(t3 - t2)
+        require(ok.all(), f"batch {k}: {int((~ok).sum())} genuine rows failed")
+        require(dec.to_payloads() == batch.to_payloads(),
+                f"batch {k}: decrypted bytes differ from the sent packets")
+        sent.append((batch, wire))
+    per_batch = {k: (kbuild.launches[k] - before[k]) / len(sent)
+                 for k in before}
+    # independent oracle: tags and keystream of 16 wire packets from the
+    # stdlib HMAC and the host NumPy AES with the derived session keys
+    batch, wire = sent[0]
+    for i in range(16):
+        sid = int(batch.stream[i])
+        ks = derive_session_keys(mks[sid].tobytes(), mss[sid].tobytes())
+        n = int(wire.length[i])
+        pkt = wire.data[i, :n].tobytes()
+        tag = hmac.new(ks.rtp_auth, pkt[:-TAG] + bytes(4),
+                       hashlib.sha1).digest()[:TAG]
+        require(tag == pkt[-TAG:], "wire tag differs from stdlib HMAC")
+        salt = np.zeros(16, np.uint8)
+        salt[:14] = np.frombuffer(ks.rtp_salt, np.uint8)
+        iv = salt.copy()
+        iv[4:8] ^= np.frombuffer((0x10000 + sid).to_bytes(4, "big"), np.uint8)
+        iv[12:14] ^= np.frombuffer(int(1000).to_bytes(2, "big"), np.uint8)
+        stream_ = ctr_keystream_np(expand_key(ks.rtp_enc), iv, n - TAG - HDR)
+        clear = np.frombuffer(pkt[HDR:-TAG], np.uint8) ^ stream_
+        require(np.array_equal(clear, batch.data[i, HDR:n - TAG]),
+                "wire ciphertext differs from the host NumPy AES-CM")
+    profile_table(torch, tx, rx, _mix_batch(
+        rng, rng.permutation(N_STREAMS)[:BATCH], 1500, 50 * 960))
+    # a 1% tampered subset of a fresh batch: exactly those rows fail
+    streams = rng.permutation(N_STREAMS)[:BATCH]
+    batch = _mix_batch(rng, streams, 2000, 99 * 960)
+    wire = tx.protect_rtp(batch)
+    bad = rng.choice(BATCH, BATCH // 100, replace=False)
+    tampered = PacketBatch(wire.data.copy(), wire.length.copy(),
+                           wire.stream.copy())
+    tampered.data[bad, HDR + 1] ^= 0x5A
+    dec, ok = rx.unprotect_rtp(tampered)
+    want = np.ones(BATCH, bool)
+    want[bad] = False
+    require(np.array_equal(ok, want), "tampered rows are not exactly the "
+                                      "rows with ok=False")
+    require(all(dec.to_bytes(int(i)) == tampered.to_bytes(int(i))
+                for i in bad), "rejected rows did not keep their original "
+                               "bytes")
+    # the last genuine batch again: every row a replay
+    _, ok = rx.unprotect_rtp(sent[-1][1])
+    require(not ok.any(), "a replayed batch was accepted")
+    pps = [BATCH / (a + b) for a, b in zip(prot_s, unprot_s)]
+    emit("table_path", streams=N_STREAMS, batches=len(prot_s), batch=BATCH,
+         install_s=install_s,
+         protect_ms_p50=float(np.median(prot_s)) * 1e3,
+         protect_ms_p99=float(np.percentile(prot_s, 99)) * 1e3,
+         unprotect_ms_p50=float(np.median(unprot_s)) * 1e3,
+         unprotect_ms_p99=float(np.percentile(unprot_s, 99)) * 1e3,
+         roundtrip_pps_p50=float(np.median(pps)),
+         launches_per_batch=per_batch,
+         tampered_rows=int(len(bad)), tampered_rejected=True,
+         replay_rejected=BATCH)
+    return {"mks": mks, "mss": mss, "launches_per_batch": per_batch}
+
+
+# ---------------------------------------------------------- 5. echo loop
+
+def echo_loop(torch, dev, keys) -> None:
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.io.loop import MediaLoop
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.service.media_stream import StreamRegistry
+    from libjitsi_tpu_torch.transform.engine import TransformEngineChain
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.engine import SrtpTransformEngine
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    rng = np.random.default_rng(17)
+    sids = np.arange(N_STREAMS)
+    up_k, up_s = keys["mks"], keys["mss"]                 # client -> bridge
+    dn_k = rng.integers(0, 256, (N_STREAMS, 16), np.uint8)  # bridge -> client
+    dn_s = rng.integers(0, 256, (N_STREAMS, 14), np.uint8)
+    reg = StreamRegistry(N_STREAMS, device=dev)
+    b_tx, b_rx = reg.srtp_tables(SrtpProfile.AES_CM_128_HMAC_SHA1_80)
+    b_rx.add_streams(sids, up_k, up_s)
+    b_tx.add_streams(sids, dn_k, dn_s)
+    for sid in sids:
+        reg.map_ssrc(0x20000 + int(sid), int(sid))
+    c_tx = SrtpStreamTable(N_STREAMS, device=dev)
+    c_rx = SrtpStreamTable(N_STREAMS, device=dev)
+    c_tx.add_streams(sids, up_k, up_s)
+    c_rx.add_streams(sids, dn_k, dn_s)
+
+    def on_media(batch, ok):
+        rows = np.nonzero(ok)[0]
+        return PacketBatch(batch.data[rows], batch.length[rows],
+                           batch.stream[rows])
+
+    chain = TransformEngineChain([SrtpTransformEngine(b_tx, b_rx)])
+    with open("/proc/sys/net/core/rmem_max") as f:
+        rmem_max = int(f.read())
+    tick_s, echoed = [], 0
+    tick_launches = dict.fromkeys(kbuild.launches, 0)
+    with UdpEngine(port=0, bind_ip="127.0.0.1",
+                   max_batch=ECHO_BURST) as b_eng, \
+            UdpEngine(port=0, bind_ip="127.0.0.1",
+                      max_batch=ECHO_BURST) as client:
+        bridge = MediaLoop(b_eng, reg, on_media=on_media, chain=chain)
+        for rnd in range(ECHO_ROUNDS):
+            streams = rng.permutation(N_STREAMS)[:BATCH]
+            lens = production_lengths(rng, BATCH)
+            payloads = [rng.integers(0, 256, int(k), np.uint8).tobytes()
+                        for k in lens]
+            plain = rtp_header.build(
+                payloads, [7 + rnd] * BATCH, [rnd * 960] * BATCH,
+                (0x20000 + streams).tolist(), [96] * BATCH,
+                stream=streams.tolist())
+            wire = c_tx.protect_rtp(plain)
+            back = []
+            for lo in range(0, BATCH, ECHO_BURST):
+                rows = np.arange(lo, min(lo + ECHO_BURST, BATCH))
+                require(client.send_rows(wire, rows, "127.0.0.1", b_eng.port)
+                        == len(rows), "client send was short")
+                got = 0
+                for _ in range(200):
+                    pre = dict(kbuild.launches)
+                    t1 = time.perf_counter()
+                    n = bridge.tick()
+                    if n:
+                        tick_s.append((n, time.perf_counter() - t1))
+                        for k in pre:
+                            tick_launches[k] += kbuild.launches[k] - pre[k]
+                    got += n
+                    if got >= len(rows):
+                        break
+                require(got == len(rows), "bridge did not receive a burst "
+                        f"(net.core.rmem_max {rmem_max})")
+                want = len(back) + len(rows)
+                for _ in range(200):
+                    b, _, _ = client.recv_batch(timeout_ms=5)
+                    back += b.to_payloads()
+                    if len(back) >= want:
+                        break
+            require(len(back) == BATCH,
+                    f"round {rnd}: echoed {len(back)} of {BATCH} packets")
+            echo = PacketBatch.from_payloads(back, capacity=1536)
+            hdr = rtp_header.parse(echo)
+            echo.stream[:] = (hdr.ssrc - 0x20000).astype(np.int32)
+            dec, ok = c_rx.unprotect_rtp(echo)
+            require(ok.all(), "client could not authenticate the echo")
+            require(sorted(dec.to_payloads()) == sorted(plain.to_payloads()),
+                    "echoed payloads differ from the sent ones")
+            echoed += len(back)
+    sizes = np.array([n for n, _ in tick_s])
+    secs = np.array([t for _, t in tick_s])
+    full = secs[sizes == ECHO_BURST]
+    require(len(full), "no tick received a whole burst")
+    emit("echo_loop", streams=N_STREAMS, burst=ECHO_BURST,
+         packets=ECHO_ROUNDS * BATCH, echoed=echoed, ticks=bridge.ticks,
+         busy_ticks=len(tick_s), full_burst_ticks=len(full),
+         tick_ms_p50=float(np.median(full)) * 1e3,
+         tick_ms_p99=float(np.percentile(full, 99)) * 1e3,
+         launches_per_tick={k: v / len(tick_s)
+                            for k, v in tick_launches.items()},
+         rx_packets=bridge.rx_packets, tx_packets=bridge.tx_packets,
+         rmem_max=rmem_max)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,172 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The kernels live in `libjitsi_tpu_torch/csrc/*.cu` behind a plain C
+interface.  On first use each source is compiled by its own `nvcc`
+(all started together) for `sm_90a`, the objects are linked into one
+shared library under the package's `build/` directory (git-ignored),
+and the library is loaded with ctypes.  The library is keyed by a hash
+of the sources, so an edited kernel is rebuilt and an unchanged one is
+reused.  Nothing here runs at import: the CPU tests import every module
+of the port on a machine without `nvcc`.
+
+Launch accounting: every wrapper adds one to `launches[name]` where it
+launches its kernel, and every plain PyTorch version adds one to
+`plain_calls[name]` when it runs.  A run shows it went through the
+kernels by resetting both, driving its path, and reading them back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional
+
+import torch
+
+KERNELS = ("aes_encrypt", "hmac_sha1", "srtp_protect_cm", "srtp_unprotect_cm")
+
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+#: seconds the last build of this process took (0.0 when reused/unbuilt)
+build_seconds = 0.0
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "ljt_aes_encrypt": [_P, _P, _P, _I, _I, _P],
+    "ljt_hmac_sha1": [_P, _P, _P, _P, _I, _I, _P],
+    "ljt_srtp_protect_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P],
+    "ljt_srtp_unprotect_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _I, _I, _I, _I, _P],
+}
+
+
+def reset_counts() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+        plain_calls[name] = 0
+
+
+def _nvcc() -> str:
+    cand = [shutil.which("nvcc"),
+            os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                         "bin", "nvcc")]
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _sources():
+    names = sorted(os.listdir(CSRC_DIR))
+    return ([os.path.join(CSRC_DIR, n) for n in names if n.endswith(".cu")],
+            [os.path.join(CSRC_DIR, n) for n in names
+             if n.endswith((".cu", ".cuh"))])
+
+
+def build() -> str:
+    """Compile the kernels (if their sources changed) and return the
+    path of the shared library."""
+    global build_seconds
+    cus, all_src = _sources()
+    h = hashlib.sha1()
+    for p in all_src:
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    key = h.hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"libljt_kernels_{key}.so")
+    if os.path.exists(so):
+        return so
+    t0 = time.perf_counter()
+    work = os.path.join(BUILD_DIR, f"obj_{key}_{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for src in cus:
+        obj = os.path.join(work, os.path.basename(src) + ".o")
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+               "-fPIC", "-Xptxas", "-v", "-c", src, "-o", obj]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    log = []
+    failed = []
+    for src, _obj, p in procs:
+        out, _ = p.communicate()
+        log.append(f"== {os.path.basename(src)} (rc {p.returncode})\n"
+                   + out.decode(errors="replace"))
+        if p.returncode:
+            failed.append(src)
+    with open(os.path.join(BUILD_DIR, f"build_{key}.log"), "w") as f:
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(log))
+    tmp = os.path.join(work, "lib.so")
+    subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                    *[o for _s, o, _p in procs]], check=True,
+                   capture_output=True)
+    os.replace(tmp, so)            # atomic: concurrent builders agree
+    shutil.rmtree(work, ignore_errors=True)
+    build_seconds = time.perf_counter() - t0
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a nonzero cudaError_t from a launch."""
+    if rc:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def expect(t: torch.Tensor, name: str, dtype: torch.dtype,
+           device: torch.device, shape=None) -> None:
+    """Validate a kernel argument: device, dtype, contiguity, shape."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+
+
+def route(t: torch.Tensor) -> str:
+    """'cuda' or 'cpu' for a kernel wrapper's input; any other device
+    is refused (there is no silent fallback)."""
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type
+    raise ValueError(f"no kernel or plain version for device {t.device}")

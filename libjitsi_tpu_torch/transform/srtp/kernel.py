@@ -1,0 +1,179 @@
+"""Batched SRTP AES-CM + HMAC-SHA1 protect/unprotect on tensors.
+
+Counterpart: `libjitsi_tpu/transform/srtp/kernel.py` (`srtp_protect`,
+`srtp_unprotect`, CM path) together with the key-table gather of
+`libjitsi_tpu/transform/srtp/context.py` (`_protect_rtp_dev`,
+`_unprotect_rtp_impl`).  The functions here take the per-stream key
+TABLES and the per-row stream ids, and the gather happens inside: on
+the card, kernels C and D (`csrc/srtp_cm.cu`) read each row's round keys
+and midstates straight from the tables, so the [B, R, 16] round-key
+tensor the JAX path materializes never exists.
+
+Arguments (all on one device):
+  tab_rk [S, R, 16] uint8 round keys (R = 11 or 15), tab_mid [S, 2, 5]
+  int32 HMAC midstates (uint32 bit patterns), stream [B] int32 table
+  rows, data [B, W] uint8, length/payload_off [B] int32 (payload_off
+  is the RTP header length, so never negative), iv [B, 16]
+  uint8 (RFC 3711 §4.1.1 counter IV), roc [B] int32 (the packet's
+  guessed ROC as a uint32 bit pattern), tag_len in 4..20.
+
+Edge semantics, shared by kernel and plain version: lengths are clamped
+to [0, W]; the keystream touches only columns in [payload_off, end)
+inside the row; MAC message bytes that would fall past W read as 0 and
+tag bytes past W are dropped; stream ids are clamped into the table.
+A row shorter than its tag fails authentication.  SRTCP and F8 are not
+ported yet (ROADMAP Queue 1, item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from libjitsi_tpu_torch.kernels import build as _k
+from libjitsi_tpu_torch.kernels.aes import ctr_crypt
+from libjitsi_tpu_torch.kernels.scatter import gather_span, scatter_bytes
+from libjitsi_tpu_torch.kernels.sha1 import hmac_sha1_plain
+
+_SRTCP = "SRTCP is not ported yet (ROADMAP Queue 1, item 5)"
+
+
+def _u32_bytes(x: torch.Tensor) -> torch.Tensor:
+    """[B] int (uint32 bit pattern) -> [B, 4] uint8 big-endian."""
+    shifts = torch.tensor([24, 16, 8, 0], device=x.device)
+    return ((x.long()[:, None] >> shifts) & 0xFF).to(torch.uint8)
+
+
+def _gather_keys(tab_rk, tab_mid, stream):
+    sid = stream.long().clamp(0, tab_rk.shape[0] - 1)
+    return tab_rk[sid], tab_mid[sid]
+
+
+def _auth_tags(data, mlen, roc, mid):
+    """HMAC-SHA1 over data[:mlen] || ROC (4 bytes big-endian) per row;
+    ROC bytes past the row are dropped (read as 0)."""
+    buf = scatter_bytes(data, mlen, _u32_bytes(roc), 4)
+    buf = torch.nn.functional.pad(buf, (0, 4))
+    return hmac_sha1_plain(mid, buf, mlen + 4)
+
+
+def srtp_protect_plain(tab_rk, tab_mid, stream, data, length, payload_off,
+                       iv, roc, tag_len: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch SRTP protect: encrypt [payload_off, length), append
+    the HMAC-SHA1 tag over header || ciphertext || ROC (RFC 3711 §4.2).
+    Returns (data', length + tag_len)."""
+    _k.plain_calls["srtp_protect_cm"] += 1
+    rk, mid = _gather_keys(tab_rk, tab_mid, stream)
+    ln = length.long().clamp(0, data.shape[1])
+    off = payload_off.long()
+    data = ctr_crypt(rk, iv, data, off, ln - off)
+    tags = _auth_tags(data, ln, roc, mid)
+    out = scatter_bytes(data, ln, tags, tag_len)
+    return out, (length + tag_len).to(torch.int32)
+
+
+def srtp_unprotect_plain(tab_rk, tab_mid, stream, data, length, payload_off,
+                         iv, roc, tag_len: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch SRTP unprotect: check the tag over ciphertext ||
+    ROC (all tag bytes, no early exit), decrypt [payload_off, mlen).
+    Returns (data', mlen = length - tag_len, auth_ok); the tag bytes stay
+    in the row past mlen."""
+    _k.plain_calls["srtp_unprotect_cm"] += 1
+    rk, mid = _gather_keys(tab_rk, tab_mid, stream)
+    mlen = length.long().clamp(0, data.shape[1]) - tag_len
+    tags = _auth_tags(data, mlen.clamp(min=0), roc, mid)
+    stored = gather_span(data, mlen, tag_len)
+    auth_ok = (stored == tags[:, :tag_len]).all(dim=1) & (mlen >= 0)
+    off = payload_off.long()
+    out = ctr_crypt(rk, iv, data, off, mlen - off)
+    return out, (length - tag_len).to(torch.int32), auth_ok
+
+
+def _check_args(tab_rk, tab_mid, stream, data, length, payload_off, iv,
+                roc, tag_len: int):
+    dev = data.device
+    bsz, width = data.shape
+    if tab_rk.dim() != 3 or tab_rk.shape[1] not in (11, 15):
+        raise ValueError("tab_rk must be [S, 11 | 15, 16]")
+    if not 4 <= tag_len <= 20:
+        raise ValueError(f"tag_len {tag_len}: must be 4..20")
+    if width > 32768:
+        raise ValueError(f"row width {width} exceeds the kernels' 32768")
+    s = tab_rk.shape[0]
+    _k.expect(tab_rk, "tab_rk", torch.uint8, dev, (s, tab_rk.shape[1], 16))
+    _k.expect(tab_mid, "tab_mid", torch.int32, dev, (s, 2, 5))
+    _k.expect(stream, "stream", torch.int32, dev, (bsz,))
+    _k.expect(data, "data", torch.uint8, dev)
+    _k.expect(length, "length", torch.int32, dev, (bsz,))
+    _k.expect(payload_off, "payload_off", torch.int32, dev, (bsz,))
+    _k.expect(iv, "iv", torch.uint8, dev, (bsz, 16))
+    _k.expect(roc, "roc", torch.int32, dev, (bsz,))
+
+
+def srtp_protect(tab_rk, tab_mid, stream, data, length, payload_off, iv,
+                 roc, tag_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched SRTP protect (reference: SRTPCryptoContext.transformPacket).
+
+    CUDA tensors go through kernel C (`csrc/srtp_cm.cu`); CPU tensors
+    through `srtp_protect_plain`.  Returns (data', length').
+    """
+    args = (tab_rk, tab_mid, stream, data, length, payload_off, iv, roc)
+    if _k.route(data) == "cpu":
+        return srtp_protect_plain(*args, tag_len)
+    _check_args(*args, tag_len)
+    dev = data.device
+    bsz, width = data.shape
+    out = torch.empty_like(data)
+    out_len = torch.empty_like(length)
+    if bsz:
+        rc = _k.library().ljt_srtp_protect_cm(
+            tab_rk.data_ptr(), tab_mid.data_ptr(), stream.data_ptr(),
+            tab_rk.shape[0], data.data_ptr(), length.data_ptr(),
+            payload_off.data_ptr(), iv.data_ptr(), roc.data_ptr(),
+            out.data_ptr(), out_len.data_ptr(), bsz, width,
+            tab_rk.shape[1] - 1, tag_len, _k.stream_handle(dev))
+        _k.check(rc, "srtp_protect_cm")
+        _k.launches["srtp_protect_cm"] += 1
+    return out, out_len
+
+
+def srtp_unprotect(tab_rk, tab_mid, stream, data, length, payload_off, iv,
+                   roc, tag_len: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched SRTP unprotect (reference:
+    SRTPCryptoContext.reverseTransformPacket).
+
+    Returns (data', mlen, auth_ok).  Decrypt always runs (the caller
+    masks rows that fail auth); CUDA tensors go through kernel D
+    (`csrc/srtp_cm.cu`), CPU tensors through `srtp_unprotect_plain`.
+    """
+    args = (tab_rk, tab_mid, stream, data, length, payload_off, iv, roc)
+    if _k.route(data) == "cpu":
+        return srtp_unprotect_plain(*args, tag_len)
+    _check_args(*args, tag_len)
+    dev = data.device
+    bsz, width = data.shape
+    out = torch.empty_like(data)
+    mlen = torch.empty_like(length)
+    auth_ok = torch.empty((bsz,), dtype=torch.bool, device=dev)
+    if bsz:
+        rc = _k.library().ljt_srtp_unprotect_cm(
+            tab_rk.data_ptr(), tab_mid.data_ptr(), stream.data_ptr(),
+            tab_rk.shape[0], data.data_ptr(), length.data_ptr(),
+            payload_off.data_ptr(), iv.data_ptr(), roc.data_ptr(),
+            out.data_ptr(), mlen.data_ptr(), auth_ok.data_ptr(), bsz, width,
+            tab_rk.shape[1] - 1, tag_len, _k.stream_handle(dev))
+        _k.check(rc, "srtp_unprotect_cm")
+        _k.launches["srtp_unprotect_cm"] += 1
+    return out, mlen, auth_ok
+
+
+def srtcp_protect(*args, **kwargs):
+    raise NotImplementedError(_SRTCP)
+
+
+def srtcp_unprotect(*args, **kwargs):
+    raise NotImplementedError(_SRTCP)

@@ -1,0 +1,86 @@
+// CPU emulation of the CUDA execution model, for testing the port's
+// kernel sources without a GPU or nvcc.
+//
+// Each CUDA thread of a block runs on its own std::thread; blocks run one
+// after another; __syncthreads is a std::barrier over the block's
+// threads; __shared__ variables are function statics (one block is live
+// at a time) and dynamic shared memory is one buffer per block, filled
+// with 0xCD so a kernel that reads it before writing shows up.  Only the
+// device features the port's kernels use are provided.  The test
+// rewrites `kernel<<<grid, block, smem, stream>>>(args)` into
+// `emu_launch(kernel, grid, block, smem, stream, args)` and
+// `extern __shared__ uint4 smem[];` into a pointer to that buffer.
+#pragma once
+#include <barrier>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __constant__
+#define __launch_bounds__(x)
+#define __shared__ static
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint4 {
+  unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return uint4{a, b, c, d};
+}
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline int cudaGetLastError() { return 0; }
+
+inline thread_local std::barrier<>* emu_barrier = nullptr;
+inline void* emu_dyn_smem = nullptr;
+inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  uint64_t v = (uint64_t(y) << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) {
+    uint32_t sel = (s >> (4 * i)) & 7;
+    r |= uint32_t((v >> (8 * sel)) & 0xFF) << (8 * i);
+  }
+  return r;
+}
+inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t s) {
+  s &= 31;
+  return uint32_t((((uint64_t(hi) << 32) | lo) << s) >> 32);
+}
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t s) {
+  s &= 31;
+  return uint32_t((((uint64_t(hi) << 32) | lo) >> s));
+}
+
+template <class K, class... A>
+void emu_launch(K kernel, dim3 grid, dim3 block, int smem, cudaStream_t,
+                A... args) {
+  std::vector<uint8_t> dyn(size_t(smem) + 64);
+  for (unsigned b = 0; b < grid.x; ++b) {
+    std::memset(dyn.data(), 0xCD, dyn.size());
+    emu_dyn_smem = reinterpret_cast<void*>(
+        (reinterpret_cast<uintptr_t>(dyn.data()) + 15) & ~uintptr_t(15));
+    std::barrier<> bar(block.x);
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block.x; ++t)
+      threads.emplace_back([&, t] {
+        threadIdx = dim3(t);
+        blockIdx = dim3(b);
+        blockDim = block;
+        gridDim = grid;
+        emu_barrier = &bar;
+        kernel(args...);
+      });
+    for (auto& th : threads) th.join();
+  }
+}

@@ -1,0 +1,192 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and the CUDA toolkit; without a card
+the `cuda_device` fixture skips it.  This file imports neither JAX nor
+the JAX package, so it also runs on the card's machine, where JAX is not
+installed and `tests/conftest.py` (which imports JAX) must be skipped:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerance: exact equality of every byte, length and mask.
+"""
+
+import hashlib
+import hmac
+
+import numpy as np
+import pytest
+import torch
+
+from libjitsi_tpu_torch.core.packet import PacketBatch
+from libjitsi_tpu_torch.kernels import aes, sha1
+from libjitsi_tpu_torch.kernels import build as kbuild
+from libjitsi_tpu_torch.rtp import header as rtp_header
+from libjitsi_tpu_torch.transform.srtp import kernel as srtp_kernel
+from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("key_len", [16, 32])
+def test_aes_kernel_matches_plain_and_fips197(cuda_device, key_len):
+    rng = np.random.default_rng(key_len)
+    n = 4099
+    rk = aes.expand_keys_batch(rng.integers(0, 256, (n, key_len), np.uint8))
+    blocks = rng.integers(0, 256, (n, 16), np.uint8)
+    rk_d = torch.from_numpy(rk).to(cuda_device)
+    bl_d = torch.from_numpy(blocks).to(cuda_device)
+    before = kbuild.launches["aes_encrypt"]
+    got = aes.aes_encrypt(rk_d, bl_d)
+    torch.cuda.synchronize()
+    assert kbuild.launches["aes_encrypt"] == before + 1
+    assert _same(got, aes.aes_encrypt_plain(rk_d, bl_d))
+    assert np.array_equal(got.cpu().numpy(), aes.aes_encrypt_np(rk, blocks))
+    key, ct = {16: ("000102030405060708090a0b0c0d0e0f",
+                    "69c4e0d86a7b0430d8cdb78070b4c55a"),
+               32: ("000102030405060708090a0b0c0d0e0f"
+                    "101112131415161718191a1b1c1d1e1f",
+                    "8ea2b7ca516745bfeafc49904b496089")}[key_len]
+    kat = aes.aes_encrypt(
+        torch.from_numpy(aes.expand_key(bytes.fromhex(key))[None].copy())
+        .to(cuda_device),
+        torch.tensor([list(bytes.fromhex(
+            "00112233445566778899aabbccddeeff"))], dtype=torch.uint8,
+            device=cuda_device))
+    assert bytes(kat.cpu().numpy()[0]) == bytes.fromhex(ct)
+
+
+def test_hmac_kernel_matches_plain_and_stdlib(cuda_device):
+    rng = np.random.default_rng(5)
+    n, width = 257, 1504
+    keys = rng.integers(0, 256, (n, 20), np.uint8)
+    mid = torch.from_numpy(sha1.hmac_precompute_batch(keys).view(np.int32))
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    lens = rng.integers(0, width + 1, n).astype(np.int32)
+    lens[:4] = [0, 55, 56, width]
+    args = [t.to(cuda_device) for t in
+            (mid, torch.from_numpy(data), torch.from_numpy(lens))]
+    got = sha1.hmac_sha1(*args)
+    assert _same(got, sha1.hmac_sha1_plain(*args))
+    got = got.cpu().numpy()
+    for i in range(n):
+        assert bytes(got[i]) == hmac.new(
+            bytes(keys[i]), bytes(data[i, :lens[i]]), hashlib.sha1).digest()
+
+
+@pytest.mark.parametrize("key_len,tag_len,width", [(16, 10, 224),
+                                                   (32, 4, 544),
+                                                   (16, 10, 1536),
+                                                   (16, 10, 50)])
+def test_srtp_kernels_match_plain(cuda_device, key_len, tag_len, width):
+    """Kernels C and D byte for byte, edge rows included: offsets past
+    the row, lengths past the row, stream ids outside the table,
+    counters that carry past 32 bits."""
+    rng = np.random.default_rng(width + key_len)
+    s, n = 9, 301
+    tab_rk = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len), np.uint8))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    stream = rng.integers(-1, s + 1, n).astype(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    length = rng.integers(0, width + 3, n).astype(np.int32)
+    off = rng.integers(0, width + 20, n).astype(np.int32)
+    off[n // 2:] = 12
+    iv = rng.integers(0, 256, (n, 16), np.uint8)
+    iv[:8, 8:] = 0xFF
+    roc = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    host = [torch.from_numpy(x) for x in
+            (tab_rk, tab_mid, stream, data, length, off, iv, roc)]
+    dev = [t.to(cuda_device) for t in host]
+    before = dict(kbuild.launches)
+    pd, pl = srtp_kernel.srtp_protect(*dev, tag_len)
+    wd, wl = srtp_kernel.srtp_protect_plain(*dev, tag_len)
+    assert _same(pd, wd) and _same(pl, wl)
+    ulen = pl.clamp(max=width)
+    ud, um, uok = srtp_kernel.srtp_unprotect(*dev[:3], pd, ulen, *dev[5:],
+                                             tag_len)
+    wd, wm, wok = srtp_kernel.srtp_unprotect_plain(*dev[:3], pd, ulen,
+                                                   *dev[5:], tag_len)
+    assert _same(ud, wd) and _same(um, wm) and _same(uok, wok)
+    fits = torch.from_numpy(length + tag_len <= width).to(cuda_device)
+    assert bool(uok[fits].all())
+    assert kbuild.launches["srtp_protect_cm"] == before["srtp_protect_cm"] + 1
+    assert (kbuild.launches["srtp_unprotect_cm"]
+            == before["srtp_unprotect_cm"] + 1)
+
+
+def test_kernel_wrappers_refuse_bad_arguments(cuda_device):
+    blocks = torch.zeros((4, 16), dtype=torch.uint8, device=cuda_device)
+    rk = torch.zeros((4, 11, 16), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(TypeError):
+        aes.aes_encrypt(rk, blocks.int())
+    with pytest.raises(ValueError):
+        aes.aes_encrypt(rk, blocks.t().contiguous().t())
+    with pytest.raises(ValueError):
+        aes.aes_encrypt(rk.cpu(), blocks)
+    flat = torch.zeros(4 * 16 + 1, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        aes.aes_encrypt(rk, flat[1:].view(4, 16))
+
+
+@pytest.mark.parametrize("profile", [SrtpProfile.AES_CM_128_HMAC_SHA1_80,
+                                     SrtpProfile.AES_256_CM_HMAC_SHA1_32])
+def test_table_on_card_equals_table_on_cpu(cuda_device, profile):
+    """The same stream table on the card and on the CPU: identical wire
+    bytes, verdicts and per-stream state, through kernels C and D."""
+    rng = np.random.default_rng(11)
+    s = 32
+    p = profile.policy
+    mks = rng.integers(0, 256, (s, p.enc_key_len), np.uint8)
+    mss = rng.integers(0, 256, (s, p.salt_len), np.uint8)
+    tabs = {}
+    for dev in ("cpu", cuda_device):
+        tx = SrtpStreamTable(s, profile, device=dev)
+        rx = SrtpStreamTable(s, profile, device=dev)
+        tx.add_streams(np.arange(s), mks, mss)
+        rx.add_streams(np.arange(s), mks, mss)
+        tabs[str(dev)] = (tx, rx)
+    n = 96
+    streams = rng.integers(0, s, n)
+    # one size class per stream: bucketing keeps a class's rows in order
+    lens = np.array([100, 400, 950])[streams % 3]
+    payloads = [rng.integers(0, 256, k, np.uint8).tobytes() for k in lens]
+    # each stream's packets take consecutive seqs that cross the 16-bit
+    # wrap, so no row is a replay of another
+    occ = np.array([np.sum(streams[:i] == streams[i]) for i in range(n)])
+    batch = rtp_header.build(payloads, ((occ + 65534) % 65536).tolist(),
+                             [0] * n, (0x5000 + streams).tolist(), [96] * n,
+                             stream=streams.tolist())
+    outs = {}
+    for name, (tx, rx) in tabs.items():
+        kbuild.reset_counts()
+        wire = tx.protect_rtp(batch.copy())
+        wire.data[5, 20] ^= 1
+        dec, ok = rx.unprotect_rtp(wire)
+        outs[name] = (wire, dec, ok, tx.tx_ext.copy(), rx.rx_max.copy(),
+                      rx.rx_mask.copy())
+        if name != "cpu":
+            assert kbuild.launches["srtp_protect_cm"] > 0
+            assert kbuild.launches["srtp_unprotect_cm"] > 0
+            assert sum(kbuild.plain_calls.values()) == 0
+    a, b = outs["cpu"], outs[str(cuda_device)]
+    assert np.array_equal(a[0].data, b[0].data)
+    assert np.array_equal(a[0].length, b[0].length)
+    assert np.array_equal(a[1].data, b[1].data)
+    for x, y in zip(a[2:], b[2:]):
+        assert np.array_equal(x, y)
+    ok = b[2]
+    assert not ok[5] and ok.sum() == n - 1
+    assert isinstance(b[1], PacketBatch)

@@ -1,0 +1,158 @@
+"""The port's CUDA kernel sources, run on the CPU under an emulation of
+the CUDA execution model, against their plain PyTorch versions.
+
+There is no `nvcc` or GPU here, so the kernels in `libjitsi_tpu_torch/
+csrc/` are compiled with g++ against `tests/cuda_emu/cuda_emu.h` (one
+std::thread per CUDA thread, std::barrier for `__syncthreads`) and their
+C entry points are called through ctypes on NumPy buffers.  This holds
+the kernels' arithmetic, indexing and synchronisation — not the GPU's
+compiler or timing, which only the card shows (`tests/test_torch_cuda.py`,
+`chip_smoke.py`).  Edge rows: offsets past the row, lengths
+past the row, stream ids outside the table, counters carrying across
+32-bit limbs, unaligned row widths.  Tolerance: exact equality.
+"""
+
+import ctypes
+import hashlib
+import hmac
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from libjitsi_tpu_torch.kernels import aes, sha1
+from libjitsi_tpu_torch.kernels import build as kbuild
+from libjitsi_tpu_torch.transform.srtp import kernel as srtp_kernel
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+T = torch.from_numpy
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel sources")
+    work = tmp_path_factory.mktemp("cuda_emu")
+    (work / "cuda_runtime.h").write_text("#pragma once\n")
+    srcs = []
+    for name in sorted(os.listdir(kbuild.CSRC_DIR)):
+        if not name.endswith(".cu"):
+            continue
+        with open(os.path.join(kbuild.CSRC_DIR, name)) as f:
+            s = f.read()
+        s = s.replace("extern __shared__ uint4 smem[];",
+                      "uint4* smem = static_cast<uint4*>(emu_dyn_smem);")
+        s = re.sub(r"(\w+(?:<\d+>)?)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ",
+                   s, flags=re.S)
+        out = work / (name + ".cpp")
+        out.write_text(s)
+        srcs.append(str(out))
+    so = work / "libemu.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared",
+                    "-fPIC", f"-I{work}", f"-I{kbuild.CSRC_DIR}",
+                    "-include", os.path.join(HERE, "cuda_emu", "cuda_emu.h"),
+                    "-o", str(so), *srcs], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    for name, args in kbuild._SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _p(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+@pytest.mark.parametrize("key_len", [16, 32])
+def test_emulated_kernel_a_matches_numpy_aes(emu, key_len):
+    rng = np.random.default_rng(key_len)
+    n = 300
+    rk = aes.expand_keys_batch(rng.integers(0, 256, (n, key_len), np.uint8))
+    blocks = rng.integers(0, 256, (n, 16), np.uint8)
+    out = np.zeros((n, 16), np.uint8)
+    assert emu.ljt_aes_encrypt(_p(rk), _p(blocks), _p(out), n,
+                               rk.shape[1] - 1, None) == 0
+    assert np.array_equal(out, aes.aes_encrypt_np(rk, blocks))
+    assert emu.ljt_aes_encrypt(_p(rk), _p(blocks), _p(out), n, 12,
+                               None) != 0          # AES-192 is refused
+
+
+@pytest.mark.parametrize("width", [200, 37])
+def test_emulated_kernel_b_matches_plain_and_stdlib(emu, width):
+    rng = np.random.default_rng(width)
+    n = 40
+    keys = rng.integers(0, 256, (n, 20), np.uint8)
+    mid = sha1.hmac_precompute_batch(keys).view(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    lens = rng.integers(-3, width + 5, n).astype(np.int32)
+    lens[:3] = [0, min(55, width), width]
+    out = np.zeros((n, 20), np.uint8)
+    assert emu.ljt_hmac_sha1(_p(mid), _p(data), _p(lens), _p(out), n, width,
+                             None) == 0
+    assert np.array_equal(out, sha1.hmac_sha1(T(mid), T(data),
+                                              T(lens)).numpy())
+    for i in range(n):
+        k = min(max(int(lens[i]), 0), width)
+        assert bytes(out[i]) == hmac.new(bytes(keys[i]), bytes(data[i, :k]),
+                                         hashlib.sha1).digest()
+
+
+@pytest.mark.parametrize("key_len,tag_len,width", [(16, 10, 224),
+                                                   (32, 4, 96),
+                                                   (16, 10, 50)])
+def test_emulated_kernels_c_d_match_plain(emu, key_len, tag_len, width):
+    rng = np.random.default_rng(width + tag_len)
+    s, n = 7, 45
+    tab_rk = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len),
+                                                np.uint8))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    stream = rng.integers(-1, s + 1, n).astype(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    length = rng.integers(0, width + 3, n).astype(np.int32)
+    length[:4] = [0, 3, width - tag_len, width]
+    off = rng.integers(0, width + 20, n).astype(np.int32)
+    off[4:20] = 12
+    iv = rng.integers(0, 256, (n, 16), np.uint8)
+    iv[:6, 8:] = 0xFF
+    roc = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    nr = tab_rk.shape[1] - 1
+    out = np.zeros_like(data)
+    out_len = np.zeros(n, np.int32)
+    assert emu.ljt_srtp_protect_cm(
+        _p(tab_rk), _p(tab_mid), _p(stream), s, _p(data), _p(length),
+        _p(off), _p(iv), _p(roc), _p(out), _p(out_len), n, width, nr,
+        tag_len, None) == 0
+    want, want_len = srtp_kernel.srtp_protect_plain(
+        *(T(x) for x in (tab_rk, tab_mid, stream, data, length, off, iv,
+                         roc)), tag_len)
+    assert np.array_equal(out, want.numpy())
+    assert np.array_equal(out_len, want_len.numpy())
+
+    wire = out.copy()
+    wire_len = np.minimum(out_len, width).astype(np.int32)
+    fits = length + tag_len <= width
+    wire[np.nonzero(fits)[0][:3], 0] ^= 1              # tampered headers
+    dec = np.zeros_like(data)
+    mlen = np.zeros(n, np.int32)
+    ok = np.zeros(n, np.uint8)
+    assert emu.ljt_srtp_unprotect_cm(
+        _p(tab_rk), _p(tab_mid), _p(stream), s, _p(wire), _p(wire_len),
+        _p(off), _p(iv), _p(roc), _p(dec), _p(mlen), _p(ok), n, width, nr,
+        tag_len, None) == 0
+    want, want_mlen, want_ok = srtp_kernel.srtp_unprotect_plain(
+        *(T(x) for x in (tab_rk, tab_mid, stream, wire, wire_len, off, iv,
+                         roc)), tag_len)
+    assert np.array_equal(dec, want.numpy())
+    assert np.array_equal(mlen, want_mlen.numpy())
+    assert np.array_equal(ok.astype(bool), want_ok.numpy())
+    genuine = fits.copy()
+    genuine[np.nonzero(fits)[0][:3]] = False
+    assert ok.astype(bool)[genuine].all()
+    assert not ok.astype(bool)[np.nonzero(fits)[0][:3]].any()

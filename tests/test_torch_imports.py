@@ -1,0 +1,46 @@
+"""The port imports nothing of JAX and nothing of the JAX package.
+
+`tests/conftest.py` imports JAX into the pytest process, so the check
+runs in a fresh interpreter with a meta-path hook that refuses `jax`,
+`jaxlib` and `libjitsi_tpu` (exactly, or as a dotted prefix — so
+`libjitsi_tpu_torch` itself passes) and then imports every module of
+the port, and `chip_smoke.py`.
+"""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "libjitsi_tpu")
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError("blocked import: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import libjitsi_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    libjitsi_tpu_torch.__path__, "libjitsi_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20      # every module was seen
