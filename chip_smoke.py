@@ -1,19 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SRTP media path on one NVIDIA GPU.
+"""Drive the PyTorch port's media paths on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; one card)
 
 Builds the port's CUDA kernels from `libjitsi_tpu_torch/csrc/`, checks
-them on known answers and byte for byte against their plain PyTorch
-versions at the main path's shapes (timing both with CUDA events), then
-drives the main path — the `SrtpStreamTable` protect/unprotect path with
-10,240 installed streams and a `MediaLoop` echo bridge over UDP
-loopback — and shows through the launch counters that it ran on kernels
-C and D and on no plain version.  Every phase prints one JSON line; the
-card's `nvidia-smi` name and power limit come before the last line, and
-the last line is {"ok": true, "device": {...}}.  Any failure exits
-nonzero before that line.  Without a CUDA device the script prints no
-result and exits 2.  It imports neither JAX nor the JAX package.
+them on known answers and exactly against their plain PyTorch versions
+at the main paths' shapes (timing both with CUDA events), then drives
+each ported path, with the launch counters set to 0 just before it and
+read just after, and shows that it ran on its kernels and on no plain
+version:
+
+  srtp_echo     the `SrtpStreamTable` protect/unprotect path with 10,240
+                installed streams and a `MediaLoop` echo bridge over UDP
+                loopback (kernels C, D);
+  conference    a 256-participant PCMU `ConferenceBridge` over UDP
+                loopback, 50 ticks at 20 ms steps (kernels C, D, E, F,
+                G), held byte for byte against the same run of the
+                bridge on the CPU;
+  mixer_bridge  `MixerBridge(64, 64, 960)` for 200 ticks (kernel E).
+
+Every phase prints one JSON line; the card's `nvidia-smi` name and power
+limit come before the last line, and the last line is
+{"ok": true, "device": {...}}.  Any failure exits nonzero before that
+line.  Without a CUDA device the script prints no result and exits 2.
+It imports neither JAX nor the JAX package.
+
+Times: in the `kernels` line `ms` is a kernel's time on the card (the
+profiler's summed kernel duration per call), `call_ms` the time per
+back-to-back call through its wrapper by CUDA events (the host's issue
+time bounds it for kernels of a few microseconds), `plain_ms` and
+`library_ms` the same per-call times of the plain version and of the
+library call, and `plain_device_ms` / `library_device_ms` their device
+work alone.
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and the
@@ -36,7 +54,10 @@ at the 128-lane issue rate the total still binds later.  Per unit:
 Shared-memory loads and byte swaps are not counted, and an index costs
 two instructions in practice, so the bound lies below what any kernel
 of the T-table form can reach; a bitsliced AES needs more logic per
-block than this.
+block than this.  Kernels E, F and G do a few integer operations per
+byte they move, so bytes bound them: E reads pcm and writes the mix
+(2 + 2 bytes a sample) and reads the mask and writes the levels (1 + 1
+a row); F reads 2 and writes 1 byte a sample, G reads 1 and writes 2.
 """
 
 from __future__ import annotations
@@ -69,7 +90,13 @@ TAG = 10
 HDR = 12
 # packets 10,240 streams at 20 ms ptime send in the loop's 1 ms window
 ECHO_BURST = N_STREAMS // 20
-ECHO_ROUNDS = 4
+ECHO_ROUNDS = 2
+CONF_PARTIES = 256         # PCMU participants of the conference bridge
+CONF_TICKS = 50
+CONF_PROFILED = 5          # further ticks under torch.profiler
+CONF_SWITCH = 5            # tick from which participant 10 is loudest
+MIXER_BRIDGE = (64, 64, 960)
+MIXER_TICKS = 200
 SOURCES = {
     "aes_encrypt": ("libjitsi_tpu_torch/csrc/aes_encrypt.cu",
                     "libjitsi_tpu/kernels/aes_bitsliced.py:548"),
@@ -79,7 +106,18 @@ SOURCES = {
                         "libjitsi_tpu/transform/srtp/kernel.py:59"),
     "srtp_unprotect_cm": ("libjitsi_tpu_torch/csrc/srtp_cm.cu",
                           "libjitsi_tpu/transform/srtp/kernel.py:113"),
+    "mix_minus": ("libjitsi_tpu_torch/csrc/mix_minus.cu",
+                  "libjitsi_tpu/kernels/pallas_ops.py:57"),
+    "g711_encode": ("libjitsi_tpu_torch/csrc/g711.cu",
+                    "libjitsi_tpu/kernels/g711.py:62"),
+    "g711_decode": ("libjitsi_tpu_torch/csrc/g711.cu",
+                    "libjitsi_tpu/kernels/g711.py:51"),
 }
+# the kernels each path must launch
+PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
+         "conference": ("srtp_protect_cm", "srtp_unprotect_cm", "mix_minus",
+                        "g711_encode", "g711_decode"),
+         "mixer_bridge": ("mix_minus",)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -114,26 +152,53 @@ def main() -> int:
     known_answers(torch, dev)
     sass_counts(kbuild)
     rows = kernels_vs_plain(torch, dev)
-    kbuild.reset_counts()
-    table = table_path(torch, dev)
-    echo_loop(torch, dev, table)
-    launches, plain = dict(kbuild.launches), dict(kbuild.plain_calls)
-    emit("main_path_counts", launches=launches, plain_calls=plain)
-    require(launches["srtp_protect_cm"] > 0
-            and launches["srtp_unprotect_cm"] > 0,
-            "main path did not launch kernels C and D")
-    require(sum(plain.values()) == 0, "a plain version ran on the main path")
+    rows.update(mix_kernel(torch, dev))
+    rows.update(g711_kernels(torch, dev))
+
+    counts = {}
+
+    def path(name, fn, *args):
+        kbuild.reset_counts()
+        out = fn(*args)
+        counts[name] = dict(kbuild.launches)
+        plain = dict(kbuild.plain_calls)
+        emit("main_path_counts", path=name, launches=counts[name],
+             plain_calls=plain)
+        require(all(counts[name][k] > 0 for k in PATHS[name]),
+                f"path {name} did not launch all of {PATHS[name]}")
+        require(sum(plain.values()) == 0,
+                f"a plain version ran on the {name} path")
+        return out
+
+    table = path("srtp_echo", srtp_echo, torch, dev)
+    # the client's wire is made (on kernels F and C) before the counts are
+    # reset, so the conference counts hold the bridge's launches only
+    setup = _conference_setup(torch, dev)
+    conf = path("conference", conference_run, torch, dev, setup)
+    conference_check(torch, dev, conf)
+    mb = path("mixer_bridge", mixer_bridge_run, torch, dev)
+    mixer_bridge_check(torch, dev, mb)
+    per_unit = {"srtp_echo": ("launches_per_table_batch",
+                              table["launches_per_batch"]),
+                "conference": ("launches_per_conference_tick",
+                               conf["launches_per_tick"])}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": ref,
-            "launches": launches[name],
-            "launches_per_batch": table["launches_per_batch"][name],
-            "main_path": name.startswith("srtp"),
+            "launches": sum(c[name] for c in counts.values()),
+            "launches_by_path": {p: c[name] for p, c in counts.items()
+                                 if name in PATHS[p]},
+            **{key: per[name] for p, (key, per) in per_unit.items()
+               if name in PATHS[p]},
+            "main_path": any(name in k for k in PATHS.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"),
+            **{k: r[k] for k in ("plain_device_ms", "library_device_ms")
+               if k in r},
             "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(", ".join(smi), flush=True)
@@ -159,6 +224,38 @@ def cuda_ms(torch, fn, reps: int, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# record_function spans, which the profiler mirrors on the device timeline
+SPANS = ("ingress", "reverse_chain", "decode", "mixer", "forward_chain",
+         "egress")
+
+
+def _is_span(name: str) -> bool:
+    return name in SPANS or name.startswith("srtp.")
+
+
+def device_ms(torch, fn, reps: int, match: str = "") -> float:
+    """Milliseconds of device work per call of `fn`: the summed durations
+    of the kernels and copies torch.profiler records on the card over
+    `reps` calls (only those whose name contains `match`, when given).
+    Unlike `cuda_ms` it leaves out the host's time to issue the call,
+    which bounds back-to-back calls of a kernel of a few microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not _is_span(e.name)
+             and match in e.name)
+    require(us > 0, f"the profiler recorded no device work ({match})")
+    return us / reps / 1e3
 
 
 def bound(nbytes: float, ops: float):
@@ -301,17 +398,20 @@ def kernels_vs_plain(torch, dev) -> dict:
     rng = np.random.default_rng(3)
     rows = {}
 
-    def record(name, shape, outs_k, outs_p, ms, plain_ms, nbytes, ops,
+    def record(name, shape, outs_k, outs_p, fn, reps, plain_ms, nbytes, ops,
                main=True):
         err = max_abs_err(torch, outs_k, outs_p)
         require(err == 0, f"{name} {shape} differs from its plain version")
         b_ms, b_by = bound(nbytes, ops)
-        line = dict(name=name, shape=shape, max_abs_err=err, ms=ms,
+        line = dict(name=name, shape=shape, max_abs_err=err,
+                    ms=device_ms(torch, fn, reps, name + "_kernel"),
+                    call_ms=cuda_ms(torch, fn, reps),
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     bytes=nbytes, ops=ops)
         emit("kernel_vs_plain", **line)
         if main:
             rows[name] = line
+        return line
 
     # A: 65,536 blocks, AES-128 (the table default) and AES-256
     for key_len in (16, 32):
@@ -324,7 +424,7 @@ def kernels_vs_plain(torch, dev) -> dict:
         k = aes.aes_encrypt(rk, blocks)
         p = aes.aes_encrypt_plain(rk, blocks)
         record("aes_encrypt", f"{n}x16 AES-{key_len * 8}", [k], [p],
-               cuda_ms(torch, lambda: aes.aes_encrypt(rk, blocks), 200),
+               lambda: aes.aes_encrypt(rk, blocks), 200,
                cuda_ms(torch, lambda: aes.aes_encrypt_plain(rk, blocks), 5),
                n * (16 + (nr + 1) * 16 + 16), n * aes_block_ops(nr),
                main=key_len == 16)
@@ -340,7 +440,7 @@ def kernels_vs_plain(torch, dev) -> dict:
     record("hmac_sha1", f"{n}x{width} mixed lengths",
            [sha1.hmac_sha1(mid, data, ln)], [sha1.hmac_sha1_plain(mid, data,
                                                                  ln)],
-           cuda_ms(torch, lambda: sha1.hmac_sha1(mid, data, ln), 50),
+           lambda: sha1.hmac_sha1(mid, data, ln), 50,
            cuda_ms(torch, lambda: sha1.hmac_sha1_plain(mid, data, ln), 2, 1),
            int(lens.sum()) + n * (40 + 4 + 20), blocks * SHA1_BLOCK_OPS)
 
@@ -365,8 +465,8 @@ def kernels_vs_plain(torch, dev) -> dict:
         parts.append(f"{n}x{part.capacity} ({n_real} real rows)")
         cases.append((f"{n}x{part.capacity}, {n_real} real rows (table "
                       f"path)", part.stream, part.data, part.length, True))
-    totals = {"srtp_protect_cm": [0.0, 0.0, 0, 0],
-              "srtp_unprotect_cm": [0.0, 0.0, 0, 0]}
+    totals = {"srtp_protect_cm": [0.0, 0.0, 0.0, 0, 0],
+              "srtp_unprotect_cm": [0.0, 0.0, 0.0, 0, 0]}
     for label, stream, raw, length, main in cases:
         n, width = raw.shape
         args = [tab_rk, tab_mid,
@@ -387,31 +487,32 @@ def kernels_vs_plain(torch, dev) -> dict:
         reps = 50 if n * width < 4e7 else 20
         kp = sk.srtp_protect(*args, TAG)
         pp = sk.srtp_protect_plain(*args, TAG)
-        ms_p = cuda_ms(torch, lambda: sk.srtp_protect(*args, TAG), reps)
         pms_p = cuda_ms(torch, lambda: sk.srtp_protect_plain(*args, TAG), 2, 1)
-        record("srtp_protect_cm", label, list(kp), list(pp), ms_p, pms_p,
-               nbytes, ops, main=False)
+        lp = record("srtp_protect_cm", label, list(kp), list(pp),
+                    lambda: sk.srtp_protect(*args, TAG), reps, pms_p,
+                    nbytes, ops, main=False)
         uargs = args[:3] + [kp[0], kp[1]] + args[5:]
         ku = sk.srtp_unprotect(*uargs, TAG)
         pu = sk.srtp_unprotect_plain(*uargs, TAG)
         require(bool(ku[2].all()), f"kernel D rejected genuine rows ({label})")
-        ms_u = cuda_ms(torch, lambda: sk.srtp_unprotect(*uargs, TAG), reps)
         pms_u = cuda_ms(torch, lambda: sk.srtp_unprotect_plain(*uargs, TAG),
                         2, 1)
-        record("srtp_unprotect_cm", label, list(ku), list(pu), ms_u, pms_u,
-               nbytes, ops, main=False)
+        lu = record("srtp_unprotect_cm", label, list(ku), list(pu),
+                    lambda: sk.srtp_unprotect(*uargs, TAG), reps, pms_u,
+                    nbytes, ops, main=False)
         if main:
-            for name, ms, pms in (("srtp_protect_cm", ms_p, pms_p),
-                                  ("srtp_unprotect_cm", ms_u, pms_u)):
+            for name, line in (("srtp_protect_cm", lp),
+                               ("srtp_unprotect_cm", lu)):
                 acc = totals[name]
-                acc[0] += ms
-                acc[1] += pms
-                acc[2] += nbytes
-                acc[3] += ops
-    for name, (ms, pms, nbytes, ops) in totals.items():
+                acc[0] += line["ms"]
+                acc[1] += line["call_ms"]
+                acc[2] += line["plain_ms"]
+                acc[3] += nbytes
+                acc[4] += ops
+    for name, (ms, call_ms, pms, nbytes, ops) in totals.items():
         b_ms, b_by = bound(nbytes, ops)
-        rows[name] = dict(name=name, max_abs_err=0, ms=ms, plain_ms=pms,
-                          bound_ms=b_ms, bound_by=b_by,
+        rows[name] = dict(name=name, max_abs_err=0, ms=ms, call_ms=call_ms,
+                          plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                           shape=f"one {BATCH}-packet production-mix batch "
                                 f"as the table buckets it, "
                                 f"{len(parts)} launches: "
@@ -563,6 +664,12 @@ def table_path(torch, dev) -> dict:
     return {"mks": mks, "mss": mss, "launches_per_batch": per_batch}
 
 
+def srtp_echo(torch, dev) -> dict:
+    table = table_path(torch, dev)
+    echo_loop(torch, dev, table)
+    return table
+
+
 # ---------------------------------------------------------- 5. echo loop
 
 def echo_loop(torch, dev, keys) -> None:
@@ -666,6 +773,427 @@ def echo_loop(torch, dev, keys) -> None:
                             for k, v in tick_launches.items()},
          rx_packets=bridge.rx_packets, tx_packets=bridge.tx_packets,
          rmem_max=rmem_max)
+
+
+# ------------------------------------------- 6. mix and G.711 kernels
+
+def timings(torch, fn, kernel, plain, library=None) -> dict:
+    """A small kernel's time on the card (`ms`, the profiler's duration of
+    `kernel`) and per back-to-back call through its wrapper (`call_ms`,
+    CUDA events), beside its plain version's and the library call's, each
+    per call and as device work alone."""
+    out = dict(ms=device_ms(torch, fn, 50, kernel),
+               call_ms=cuda_ms(torch, fn, 200),
+               plain_ms=cuda_ms(torch, plain, 20),
+               plain_device_ms=device_ms(torch, plain, 20))
+    if library is not None:
+        out.update(library_ms=cuda_ms(torch, library, 200),
+                   library_device_ms=device_ms(torch, library, 50))
+    return out
+
+
+def _edge_frames(rng, c, n, f):
+    """Random frames with an all-zero row, an inactive row, near-silent
+    rows (1, 2 and 5 samples of ±1) and saturating rows."""
+    pcm = rng.integers(-32768, 32768, (c, n, f)).astype(np.int16)
+    active = rng.random((c, n)) < 0.8
+    pcm[:, 0] = 0
+    active[:, 1] = False
+    for row, k in ((2, 1), (3, 2), (4, 5)):
+        pcm[:, row] = 0
+        pcm[:, row, rng.choice(f, k, replace=False)] = rng.choice([-1, 1], k)
+    pcm[:, 5:7] = 32767
+    pcm[:, 7] = -32768
+    active[:, [0, 2, 3, 4, 5, 6, 7]] = True
+    return pcm, active
+
+
+def mix_kernel(torch, dev) -> dict:
+    """Kernel E against its plain version, both on the card, at the
+    AudioMixer's, the conference bridge's and the MixerBridge's shapes,
+    then the constant-amplitude sweep on the card against the plain
+    version on the CPU."""
+    from libjitsi_tpu_torch.conference import mixer
+
+    rng = np.random.default_rng(31)
+    rows = {}
+    for c, n, f in ((1, 256, 960), (1, CONF_PARTIES, 160), MIXER_BRIDGE):
+        pcm, active = _edge_frames(rng, c, n, f)
+        p, a = torch.as_tensor(pcm).to(dev), torch.as_tensor(active).to(dev)
+        err = max_abs_err(torch, mixer.mix_minus_many(p, a),
+                          mixer.mix_minus_many_plain(p, a))
+        require(err == 0, f"kernel E {c}x{n}x{f} differs from its plain "
+                          "version")
+        nbytes = 2 * c * n * f * 2 + 2 * c * n
+        b_ms, b_by = bound(nbytes, 0)
+        line = dict(name="mix_minus", shape=f"{c}x{n}x{f}", max_abs_err=err,
+                    **timings(torch, lambda: mixer.mix_minus_many(p, a),
+                              "mix_minus_kernel",
+                              lambda: mixer.mix_minus_many_plain(p, a)),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    bytes=nbytes)
+        emit("kernel_vs_plain", **line)
+        if (c, n, f) == (1, CONF_PARTIES, 160):
+            rows["mix_minus"] = dict(line, shape=f"{c}x{n}x{f} (the "
+                                     "conference bridge's tick)")
+    sweep = {}
+    for f in (960, 160):
+        pcm = np.repeat(np.arange(1, 32768, dtype=np.int32)[:, None], f,
+                        axis=1).astype(np.int16)[None]
+        pcm[0, 1::2] *= -1
+        card = mixer.mix_minus_many(torch.as_tensor(pcm).to(dev))
+        host = mixer.mix_minus_many(torch.as_tensor(pcm))
+        require(all(torch.equal(x.cpu(), y) for x, y in zip(card, host)),
+                f"amplitude sweep at F={f}: card differs from the CPU")
+        sweep[f] = [int(card[1][0, 0]), int(card[1][0, -1])]
+    emit("mix_sweep", amplitudes="1..32767", levels_at_1_and_32767=sweep,
+         equal_to_cpu_plain=True)
+    return rows
+
+
+def g711_kernels(torch, dev) -> dict:
+    """Kernels F and G against their plain versions on every int16 input
+    and every code, then timed at the bridge's [256, 160] and at a
+    10,240-stream [10240, 160], with `torch.take` as G's library call."""
+    from libjitsi_tpu_torch.kernels import g711
+
+    pcm_all = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    codes_all = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    plain = {(g711.ULAW, "enc"): g711.ulaw_encode_plain,
+             (g711.ALAW, "enc"): g711.alaw_encode_plain,
+             (g711.ULAW, "dec"): g711.ulaw_decode_plain,
+             (g711.ALAW, "dec"): g711.alaw_decode_plain}
+    for law in (g711.ULAW, g711.ALAW):
+        for kind, kern, x in (("enc", g711.encode, pcm_all),
+                              ("dec", g711.decode, codes_all)):
+            got = kern(x.to(dev), law)
+            require(torch.equal(got, plain[law, kind](x.to(dev)))
+                    and torch.equal(got.cpu(), plain[law, kind](x)),
+                    f"G.711 law {law} {kind}: kernel differs from plain")
+    emit("g711_exhaustive", pcm_inputs=65536, codes=256, laws=2,
+         max_abs_err=0)
+    rng = np.random.default_rng(37)
+    rows = {}
+    for n in (CONF_PARTIES, 10_240):
+        shape = f"{n}x160 µ-law"
+        pcm = torch.as_tensor(rng.integers(-32768, 32768, (n, 160))
+                              .astype(np.int16)).to(dev)
+        codes = torch.as_tensor(rng.integers(0, 256, (n, 160))
+                                .astype(np.uint8)).to(dev)
+        lut = g711.decode_table(g711.ULAW, dev)
+        b_ms, b_by = bound(n * 160 * 3, 0)
+        enc = dict(name="g711_encode", shape=shape, max_abs_err=0,
+                   **timings(torch, lambda: g711.ulaw_encode(pcm),
+                             "g711_encode_kernel",
+                             lambda: g711.ulaw_encode_plain(pcm)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        dec = dict(name="g711_decode", shape=shape, max_abs_err=0,
+                   **timings(torch, lambda: g711.ulaw_decode(codes),
+                             "g711_decode_kernel",
+                             lambda: g711.ulaw_decode_plain(codes),
+                             lambda: torch.take(lut, codes.long())),
+                   bound_ms=b_ms, bound_by=b_by)
+        for line in (enc, dec):
+            emit("kernel_vs_plain", **line)
+            if n == CONF_PARTIES:
+                rows[line["name"]] = dict(line, shape=shape + " (the "
+                                          "conference bridge's tick)")
+    return rows
+
+
+# ------------------------------------------------------ 7. conference
+
+def _drain(engine, want: int) -> list:
+    got = []
+    for _ in range(200):
+        b, _, _ = engine.recv_batch(timeout_ms=5)
+        got += b.to_payloads()
+        if len(got) >= want:
+            break
+    return got
+
+
+def _conference_setup(torch, dev):
+    """Keys, SSRCs, fixed TX counters and the protected wire of every
+    tick: participant k sends a tone of 150 + 11k Hz, the last six send
+    silence, and from tick CONF_SWITCH participant 10 is the loudest."""
+    from libjitsi_tpu_torch.kernels import g711
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    n, ticks = CONF_PARTIES, CONF_TICKS + CONF_PROFILED
+    rng = np.random.default_rng(23)
+    keys = {d: (rng.integers(0, 256, (n, 16), np.uint8),
+                rng.integers(0, 256, (n, 14), np.uint8)) for d in ("rx", "tx")}
+    ssrc = 0x30000000 + np.arange(n)
+    up = SrtpStreamTable(n, device=dev)
+    up.add_streams(np.arange(n), *keys["rx"])
+    freqs = 150.0 + 11.0 * np.arange(n)
+    amps = np.linspace(100.0, 600.0, n)
+    amps[-6:] = 0.0
+    wires = []
+    for tick in range(ticks):
+        a = amps.copy()
+        if tick >= CONF_SWITCH:
+            a[10] = 6000.0
+        t = tick * 160 + np.arange(160)
+        pcm = (a[:, None] * np.sin(2 * np.pi * freqs[:, None] * t / 8000)
+               ).astype(np.int16)
+        codes = g711.ulaw_encode(torch.as_tensor(pcm).to(dev)).cpu().numpy()
+        plain = rtp_header.build(
+            [c.tobytes() for c in codes], (1000 + tick) * np.ones(n, int),
+            [tick * 160] * n, ssrc.tolist(), [0] * n,
+            stream=list(range(n)),
+            ext=[(0xBEDE, bytes([0x10, k % 128, 0, 0])) for k in range(n)])
+        wires.append(up.protect_rtp(plain))
+    return {"keys": keys, "ssrc": ssrc, "freqs": freqs, "wires": wires,
+            "tx_seq": rng.integers(0, 1 << 16, n),
+            "tx_ts": rng.integers(0, 1 << 32, n)}
+
+
+def _conference_drive(bridge, setup, ticks, kbuild=None) -> dict:
+    """Join every participant, then send each tick's wire from one client
+    socket and tick the bridge at explicit 20 ms steps of `now`."""
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+
+    n = CONF_PARTIES
+    rx_k, rx_s = setup["keys"]["rx"]
+    tx_k, tx_s = setup["keys"]["tx"]
+    for k in range(n):
+        sid = bridge.add_participant(int(setup["ssrc"][k]),
+                                     (rx_k[k].tobytes(), rx_s[k].tobytes()),
+                                     (tx_k[k].tobytes(), tx_s[k].tobytes()))
+        require(sid == k, "rows are not handed out in join order")
+    bridge._tx_seq[:] = setup["tx_seq"]     # both runs send the same seqs
+    bridge._tx_ts[:] = setup["tx_ts"]
+    res = {"levels": [], "dominant": [], "replies": [], "tick_s": [],
+           "launches": dict.fromkeys(kbuild.launches if kbuild else (), 0),
+           "launches_min": {}}
+    with UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=2 * n) as client:
+        for tick in range(ticks):
+            client.send_batch(setup["wires"][tick], "127.0.0.1", bridge.port)
+            time.sleep(0.002)
+            pre = dict(kbuild.launches) if kbuild else {}
+            t0 = time.perf_counter()
+            stats = bridge.tick(now=1000.0 + 0.02 * tick)
+            res["tick_s"].append(time.perf_counter() - t0)
+            for k in pre:
+                d = kbuild.launches[k] - pre[k]
+                res["launches"][k] += d
+                res["launches_min"][k] = min(res["launches_min"].get(k, d), d)
+            require(stats["rx"] == n and stats["tx"] == n,
+                    f"conference tick {tick}: rx {stats['rx']} tx "
+                    f"{stats['tx']} of {n}")
+            got = _drain(client, n)
+            require(len(got) == n, f"conference tick {tick}: {len(got)} "
+                                   f"of {n} mixes came back")
+            res["levels"].append(np.asarray(stats["levels"]).copy())
+            res["dominant"].append(stats["dominant"])
+            res["replies"].append(sorted(got))
+    res["speaker_events"] = list(bridge.speaker_events)
+    return res
+
+
+def conference_run(torch, dev, setup) -> dict:
+    """The main path of this slice: a 256-participant PCMU bridge on the
+    card, driven as a user drives it; every tick must launch every kernel
+    of the path."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.service.bridge import ConferenceBridge
+
+    bridge = ConferenceBridge(capacity=CONF_PARTIES, device=dev)
+    res = _conference_drive(bridge, setup, CONF_TICKS, kbuild)
+    res["launches_per_tick"] = {k: v / CONF_TICKS
+                                for k, v in res["launches"].items()}
+    short = {k: res["launches_min"][k] for k in PATHS["conference"]
+             if res["launches_min"][k] < 1}
+    require(not short, f"a conference tick launched none of {short}")
+    res.update(setup=setup, bridge=bridge)
+    return res
+
+
+def profiled_ticks(torch, tick, n, before=None, after=None) -> dict:
+    """`n` calls of `tick(i)` under torch.profiler (`before(i)` and
+    `after(i)` run outside it): per tick, the host time of each span and
+    the card's busy time by kernel and copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spans, device, wall = {}, {}, 0.0
+    for i in range(n):
+        if before is not None:
+            before(i)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tick(i)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+        if after is not None:
+            after(i)
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and _is_span(e.name):
+                spans[e.name] = spans.get(e.name, 0.0) + e.cpu_time_total / 1e3
+            elif e.device_type == DeviceType.CUDA and not _is_span(e.name):
+                m = re.search(r"(\w+)_kernel", e.name)
+                key = m.group(1) if m else e.name
+                device[key] = device.get(key, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3
+    busy = sum(device.values()) / n if device else None
+    wall_ms = wall * 1e3 / n
+    return dict(ticks=n, wall_ms_per_tick=wall_ms,
+                span_ms_per_tick={k: v / n for k, v in spans.items()},
+                device_ms_per_tick={k: v / n for k, v in device.items()},
+                device_busy_ms_per_tick=busy,
+                device_idle_share=None if busy is None else 1 - busy / wall_ms)
+
+
+def _profile_conference(torch, bridge, setup) -> dict:
+    """CONF_PROFILED more ticks of the card's bridge under torch.profiler."""
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+
+    with UdpEngine(port=0, bind_ip="127.0.0.1",
+                   max_batch=2 * CONF_PARTIES) as client:
+        def send(i):
+            client.send_batch(setup["wires"][CONF_TICKS + i], "127.0.0.1",
+                              bridge.port)
+            time.sleep(0.002)
+
+        return profiled_ticks(
+            torch, lambda i: bridge.tick(now=1000.0 + 0.02 * (CONF_TICKS + i)),
+            CONF_PROFILED, before=send,
+            after=lambda i: _drain(client, CONF_PARTIES))
+
+
+def conference_check(torch, dev, conf) -> None:
+    """The same run of the bridge on the CPU (plain versions, its own
+    sockets) must give the card's bytes, levels and dominant speakers;
+    the parties must authenticate every mix, and a loud party must not
+    hear itself."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.kernels import g711
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.service.bridge import ConferenceBridge
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    setup, n = conf["setup"], CONF_PARTIES
+    profiled = _profile_conference(torch, conf["bridge"], setup)
+    conf["bridge"].close()
+    cpu_bridge = ConferenceBridge(capacity=n, device="cpu")
+    t0 = time.perf_counter()
+    ref = _conference_drive(cpu_bridge, setup, CONF_TICKS)
+    cpu_s = time.perf_counter() - t0
+    cpu_bridge.close()
+    for tick in range(CONF_TICKS):
+        require(np.array_equal(conf["levels"][tick], ref["levels"][tick]),
+                f"conference tick {tick}: levels differ from the CPU run")
+        require(conf["dominant"][tick] == ref["dominant"][tick],
+                f"conference tick {tick}: dominant speaker differs")
+        require(conf["replies"][tick] == ref["replies"][tick],
+                f"conference tick {tick}: wire bytes differ from the CPU run")
+    require(conf["speaker_events"] == ref["speaker_events"],
+            "speaker events differ from the CPU run")
+    # every party authenticates and decrypts its mixes
+    down = SrtpStreamTable(n, device=dev)
+    down.add_streams(np.arange(n), *setup["keys"]["tx"])
+    heard = {k: [] for k in range(n)}
+    for tick in range(CONF_TICKS):
+        batch = PacketBatch.from_payloads(conf["replies"][tick])
+        hdr = rtp_header.parse(batch)
+        batch.stream[:] = hdr.ssrc - 0x42000000
+        dec, ok = down.unprotect_rtp(batch)
+        require(ok.all(), f"conference tick {tick}: a mix failed to "
+                          "authenticate")
+        off = rtp_header.parse(dec).payload_off
+        for i in range(n):
+            heard[int(batch.stream[i])].append(
+                dec.data[i, off[i]:dec.length[i]])
+    lut = g711.decode_table(g711.ULAW, torch.device("cpu")).numpy()
+    freqs = setup["freqs"]
+
+    def power(sid, f_hz):
+        pcm = lut[np.concatenate(heard[sid][CONF_SWITCH + 2:])]
+        spec = np.abs(np.fft.rfft(pcm * np.hanning(len(pcm))))
+        return float(spec[np.argmin(np.abs(np.fft.rfftfreq(len(pcm), 1 / 8000)
+                                           - f_hz))])
+
+    own, heard_by_9 = power(10, freqs[10]), power(9, freqs[10])
+    require(own * 20 < heard_by_9, f"participant 10 hears its own tone: "
+                                   f"{own} vs {heard_by_9} at participant 9")
+    secs = np.array(conf["tick_s"])
+    emit("conference", participants=n, ticks=CONF_TICKS, codec="PCMU",
+         ptime_ms=20, tick_ms_p50=float(np.median(secs)) * 1e3,
+         tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+         tick_ms_max=float(secs.max()) * 1e3,
+         ptime_share_p50=float(np.median(secs)) / 0.02,
+         launches_per_tick=conf["launches_per_tick"],
+         launches_min_per_tick=conf["launches_min"],
+         equal_to_cpu_run=True, mixes_authenticated=n * CONF_TICKS,
+         own_tone_power=own, own_tone_heard_by_other=heard_by_9,
+         speaker_events=conf["speaker_events"],
+         dominant_last=conf["dominant"][-1], cpu_run_s=cpu_s,
+         profile=profiled)
+
+
+# ---------------------------------------------------- 8. mixer bridge
+
+def mixer_bridge_run(torch, dev) -> dict:
+    """`MixerBridge(64, 64, 960)` on the card for MIXER_TICKS ticks; tick
+    time by host clock, the upload and read-back included."""
+    from libjitsi_tpu_torch.conference.mixer import MixerBridge
+
+    c, n, f = MIXER_BRIDGE
+    rng = np.random.default_rng(41)
+    mb = MixerBridge(c, n, f, device=dev)
+    for _ in range(c):
+        cid = mb.alloc_conference()
+        for sid in range(n):
+            mb.add_participant(cid, sid)
+    pool = rng.integers(-8000, 8000, (4, c, n, f)).astype(np.int16)
+    # the ticks held against the plain version: each pool slot's first
+    # use, then the last tick, which has reused the host buffer throughout
+    kept_ticks = {0, 1, 2, 3, MIXER_TICKS - 1}
+    secs, kept = [], {}
+    for tick in range(MIXER_TICKS):
+        frames = pool[tick % 4]
+        for cid in range(c):
+            for sid in range(n):
+                mb.push(cid, sid, frames[cid, sid])
+        t0 = time.perf_counter()
+        out, levels = mb.tick()
+        secs.append(time.perf_counter() - t0)
+        if tick in kept_ticks:
+            kept[tick] = (out, levels)
+    return {"secs": np.array(secs), "kept": kept, "bridge": mb,
+            "pool": pool}
+
+
+def mixer_bridge_check(torch, dev, mb) -> None:
+    from libjitsi_tpu_torch.conference import mixer
+
+    c, n, f = MIXER_BRIDGE
+    bridge, pool = mb["bridge"], mb["pool"]
+    active = torch.ones((c, n), dtype=torch.bool, device=dev)
+    for tick, (out, levels) in sorted(mb["kept"].items()):
+        want = mixer.mix_minus_many_plain(
+            torch.as_tensor(pool[tick % 4]).to(dev), active)
+        require(np.array_equal(out, want[0].cpu().numpy())
+                and np.array_equal(levels, want[1].cpu().numpy()),
+                f"MixerBridge tick {tick} differs from the plain version "
+                "on the card")
+
+    def push(i):
+        for cid in range(c):
+            for sid in range(n):
+                bridge.push(cid, sid, pool[i % 4][cid, sid])
+
+    profile = profiled_ticks(torch, lambda i: bridge.tick(), 5, before=push)
+    secs = mb["secs"]
+    emit("mixer_bridge", conferences=c, participants=n, frame_samples=f,
+         ticks=MIXER_TICKS, tick_ms_p50=float(np.median(secs)) * 1e3,
+         tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+         conference_mixes_per_s=c / float(np.median(secs)),
+         ticks_equal_to_plain=sorted(mb["kept"]), profile=profile)
 
 
 if __name__ == "__main__":

@@ -72,6 +72,40 @@ def update_index_state(seq, v, s_l, roc):
     return s_l, roc
 
 
+def _segments(stream):
+    """Stable segmentation of a stream-id vector.
+
+    Returns ``(order, s_o, first, grp, fpos)``: the stable sort order by
+    stream id, sorted ids, first-of-segment flags, segment index per sorted
+    position, and first-position of each segment.
+    """
+    stream = np.asarray(stream, dtype=np.int64)
+    n = len(stream)
+    order = np.lexsort((np.arange(n), stream))
+    s_o = stream[order]
+    first = np.ones(n, dtype=bool)
+    first[1:] = s_o[1:] != s_o[:-1]
+    grp = np.cumsum(first) - 1
+    fpos = np.where(first)[0]
+    return order, s_o, first, grp, fpos
+
+
+def segment_ranks(stream):
+    """Per-stream occurrence rank (0,1,2,...) in stable batch order.
+
+    Used for batched per-stream sequencing (the dense jitter bank's
+    in-batch insert waves).  stream: [B] -> rank [B] int64.
+    """
+    stream = np.asarray(stream, dtype=np.int64)
+    n = len(stream)
+    if n == 0:
+        return np.zeros(0, dtype=np.int64)
+    order, _, _, grp, fpos = _segments(stream)
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n) - fpos[grp]
+    return rank
+
+
 def chain_packet_indices(stream, seq, base_ext):
     """Batched per-stream sequential packet-index estimation (RFC 3711 App A).
 
@@ -92,16 +126,12 @@ def chain_packet_indices(stream, seq, base_ext):
     n = len(seq)
     if n == 0:
         return np.zeros(0, dtype=np.int64)
-    order = np.lexsort((np.arange(n), stream))
-    s_o, q_o = stream[order], seq[order]
-    first = np.ones(n, dtype=bool)
-    first[1:] = s_o[1:] != s_o[:-1]
+    order, s_o, first, grp, fpos = _segments(stream)
+    q_o = seq[order]
     d = np.zeros(n, dtype=np.int64)
     d[1:] = np.where(first[1:], 0, seq_delta(q_o[1:], q_o[:-1]))
     base = base_ext[np.maximum(s_o, 0)]
     start = np.where(base >= 0, base + seq_delta(q_o, base & 0xFFFF), q_o)
-    grp = np.cumsum(first) - 1
-    fpos = np.where(first)[0]
     c = np.cumsum(d)
     ext_o = start[fpos][grp] + (c - c[fpos][grp])
     ext = np.empty(n, dtype=np.int64)

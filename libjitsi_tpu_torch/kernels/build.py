@@ -28,7 +28,8 @@ from typing import Dict, Optional
 
 import torch
 
-KERNELS = ("aes_encrypt", "hmac_sha1", "srtp_protect_cm", "srtp_unprotect_cm")
+KERNELS = ("aes_encrypt", "hmac_sha1", "srtp_protect_cm", "srtp_unprotect_cm",
+           "mix_minus", "g711_encode", "g711_decode")
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -37,6 +38,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# per-argument element cap: sizes and grid-stride indices are C ints
+MAX_ELEMENTS = 1 << 30
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -51,6 +54,9 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _P],
     "ljt_srtp_unprotect_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _P],
+    "ljt_mix_minus": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ljt_g711_encode": [_P, _P, _I, _I, _P],
+    "ljt_g711_decode": [_P, _P, _I, _I, _P],
 }
 
 
@@ -152,7 +158,11 @@ def stream_handle(device: torch.device) -> int:
 
 def expect(t: torch.Tensor, name: str, dtype: torch.dtype,
            device: torch.device, shape=None) -> None:
-    """Validate a kernel argument: device, dtype, contiguity, shape."""
+    """Validate a kernel argument: device, dtype, contiguity, shape, and
+    a size whose element indices stay inside the kernels' 32-bit ints."""
+    if t.numel() > MAX_ELEMENTS:
+        raise ValueError(f"{name}: {t.numel()} elements, the kernels take "
+                         f"at most {MAX_ELEMENTS}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -1,10 +1,12 @@
 """StreamRegistry — SSRC to stream-row demux and per-profile SRTP tables.
 
 Counterpart: `libjitsi_tpu/service/media_stream.py` `StreamRegistry`
-(map_ssrc, unmap_ssrc, demux, demux_rtcp).  A stream is a row id into
-dense tables; the registry maps each packet's SSRC to its row.  The
-JAX registry's stats tables and the `MediaStream` object are not part
-of this slice.
+(alloc, reserve_many, release, map_ssrc, unmap_ssrc, demux,
+demux_rtcp).  A stream is a row id into dense tables; the registry
+hands out rows from a free list kept exactly as the JAX registry keeps
+it, so both hand out the same sids in the same order, and maps each
+packet's SSRC to its row.  The JAX registry's stats tables and the
+`MediaStream` object are not ported (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -29,7 +31,45 @@ class StreamRegistry:
         self.device = resolve_device(device)
         self._srtp: Dict[SrtpProfile,
                          Tuple[SrtpStreamTable, SrtpStreamTable]] = {}
+        self._free = list(range(capacity - 1, -1, -1))
         self._ssrc_to_sid: Dict[int, int] = {}
+        self.streams: Dict[int, object] = {}
+
+    @property
+    def free_slots(self) -> int:
+        """Rows available to alloc."""
+        return len(self._free)
+
+    def alloc(self, stream) -> int:
+        """Claim the lowest free row for `stream` (its owner)."""
+        if not self._free:
+            raise RuntimeError("stream capacity exhausted")
+        sid = self._free.pop()
+        self.streams[sid] = stream
+        return sid
+
+    def reserve_many(self, sids, stream) -> None:
+        """Claim SPECIFIC rows (checkpoint restore: a resumed bridge must
+        reoccupy its old sids so SRTP rows and demux keep lining up);
+        one pass over the free list.  Raises if a row is taken."""
+        want = {int(s) for s in sids}
+        taken = want - set(self._free)
+        if taken:
+            raise ValueError(f"sids not free: {sorted(taken)}")
+        self._free = [s for s in self._free if s not in want]
+        for s in want:
+            self.streams[s] = stream
+
+    def release(self, sid: int) -> None:
+        """Return a row to the free list, removing its SRTP rows from the
+        registry's own tables."""
+        self.streams.pop(sid, None)
+        for tx, rx in self._srtp.values():
+            if tx.active[sid]:
+                tx.remove_stream(sid)
+            if rx.active[sid]:
+                rx.remove_stream(sid)
+        self._free.append(sid)
 
     def srtp_tables(self, profile: SrtpProfile
                     ) -> Tuple[SrtpStreamTable, SrtpStreamTable]:

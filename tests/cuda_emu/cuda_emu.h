@@ -2,7 +2,7 @@
 // kernel sources without a GPU or nvcc.
 //
 // Each CUDA thread of a block runs on its own std::thread; blocks run one
-// after another; __syncthreads is a std::barrier over the block's
+// after another (over grid.y, then grid.x); __syncthreads is a std::barrier over the block's
 // threads; __shared__ variables are function statics (one block is live
 // at a time) and dynamic shared memory is one buffer per block, filled
 // with 0xCD so a kernel that reads it before writing shows up.  Only the
@@ -11,11 +11,18 @@
 // `emu_launch(kernel, grid, block, smem, stream, args)` and
 // `extern __shared__ uint4 smem[];` into a pointer to that buffer.
 #pragma once
+#include <math.h>
+
+#include <algorithm>
 #include <barrier>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <thread>
 #include <vector>
+
+using std::max;
+using std::min;
 
 #define __device__
 #define __host__
@@ -53,6 +60,7 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
   }
   return r;
 }
+inline int __clz(int x) { return x ? __builtin_clz(unsigned(x)) : 32; }
 inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t s) {
   s &= 31;
   return uint32_t((((uint64_t(hi) << 32) | lo) << s) >> 32);
@@ -66,7 +74,7 @@ template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, int smem, cudaStream_t,
                 A... args) {
   std::vector<uint8_t> dyn(size_t(smem) + 64);
-  for (unsigned b = 0; b < grid.x; ++b) {
+  for (unsigned b = 0; b < grid.x * grid.y; ++b) {
     std::memset(dyn.data(), 0xCD, dyn.size());
     emu_dyn_smem = reinterpret_cast<void*>(
         (reinterpret_cast<uintptr_t>(dyn.data()) + 15) & ~uintptr_t(15));
@@ -75,7 +83,7 @@ void emu_launch(K kernel, dim3 grid, dim3 block, int smem, cudaStream_t,
     for (unsigned t = 0; t < block.x; ++t)
       threads.emplace_back([&, t] {
         threadIdx = dim3(t);
-        blockIdx = dim3(b);
+        blockIdx = dim3(b % grid.x, b / grid.x);
         blockDim = block;
         gridDim = grid;
         emu_barrier = &bar;

@@ -17,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+from libjitsi_tpu_torch.conference import mixer
 from libjitsi_tpu_torch.core.packet import PacketBatch
-from libjitsi_tpu_torch.kernels import aes, sha1
+from libjitsi_tpu_torch.kernels import aes, g711, sha1
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.transform.srtp import kernel as srtp_kernel
@@ -190,3 +191,45 @@ def test_table_on_card_equals_table_on_cpu(cuda_device, profile):
     ok = b[2]
     assert not ok[5] and ok.sum() == n - 1
     assert isinstance(b[1], PacketBatch)
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 960), (1, 256, 160),
+                                   (64, 64, 960), (3, 7, 33)])
+def test_mix_kernel_matches_plain(cuda_device, shape):
+    """Kernel E against its plain version on the card, with inactive,
+    silent, near-silent and saturating rows."""
+    rng = np.random.default_rng(sum(shape))
+    c, n, f = shape
+    pcm = rng.integers(-32768, 32768, shape).astype(np.int16)
+    active = rng.random((c, n)) < 0.75
+    pcm[:, 0] = 0
+    pcm[:, 1] = 0
+    pcm[:, 1, :2] = [1, -1]
+    pcm[:, 2:4] = 32767
+    active[:, :4] = True
+    active[:, 4] = False
+    p_d = torch.from_numpy(pcm).to(cuda_device)
+    a_d = torch.from_numpy(active).to(cuda_device)
+    before = kbuild.launches["mix_minus"]
+    out, lv = mixer.mix_minus_many(p_d, a_d)
+    torch.cuda.synchronize()
+    assert kbuild.launches["mix_minus"] == before + 1
+    want_out, want_lv = mixer.mix_minus_many_plain(p_d, a_d)
+    assert _same(out, want_out) and _same(lv, want_lv)
+    cpu_out, cpu_lv = mixer.mix_minus_many(torch.from_numpy(pcm),
+                                           torch.from_numpy(active))
+    assert _same(out, cpu_out) and _same(lv, cpu_lv)
+
+
+@pytest.mark.parametrize("law", [g711.ULAW, g711.ALAW])
+def test_g711_kernels_match_plain_exhaustively(cuda_device, law):
+    pcm = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    before = dict(kbuild.launches)
+    enc = g711.encode(pcm.to(cuda_device), law)
+    dec = g711.decode(codes.to(cuda_device), law)
+    torch.cuda.synchronize()
+    assert kbuild.launches["g711_encode"] == before["g711_encode"] + 1
+    assert kbuild.launches["g711_decode"] == before["g711_decode"] + 1
+    assert _same(enc, g711.encode(pcm, law))
+    assert _same(dec, g711.decode(codes, law))

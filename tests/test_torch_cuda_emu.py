@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from libjitsi_tpu_torch.kernels import aes, sha1
+from libjitsi_tpu_torch.conference import mixer
+from libjitsi_tpu_torch.kernels import aes, g711, sha1
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.transform.srtp import kernel as srtp_kernel
 
@@ -156,3 +157,46 @@ def test_emulated_kernels_c_d_match_plain(emu, key_len, tag_len, width):
     genuine[np.nonzero(fits)[0][:3]] = False
     assert ok.astype(bool)[genuine].all()
     assert not ok.astype(bool)[np.nonzero(fits)[0][:3]].any()
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 960), (2, 5, 160), (1, 33, 70)])
+def test_emulated_kernel_e_matches_plain(emu, shape):
+    rng = np.random.default_rng(sum(shape))
+    c, n, f = shape
+    pcm = rng.integers(-32768, 32768, shape).astype(np.int16)
+    active = (rng.random((c, n)) < 0.7).astype(np.uint8)
+    pcm[:, 0] = 0                                   # silent
+    pcm[:, 1] = 0
+    pcm[:, 1, :3] = [1, -1, 1]                      # near-silent
+    pcm[:, 2] = 32767                               # saturating
+    pcm[:, 3] = 32767
+    active[:, :4] = 1
+    active[:, 4] = 0                                # inactive
+    out = np.zeros_like(pcm)
+    lv = np.zeros((c, n), np.uint8)
+    assert emu.ljt_mix_minus(_p(pcm), _p(active), _p(out), _p(lv), c, n, f,
+                             None) == 0
+    want_out, want_lv = mixer.mix_minus_many_plain(T(pcm), T(active))
+    assert np.array_equal(out, want_out.numpy())
+    assert np.array_equal(lv, want_lv.numpy())
+    assert (lv[:, 4] == 127).all() and (lv[:, 0] == 127).all()
+    assert emu.ljt_mix_minus(_p(pcm), _p(active), _p(out), _p(lv), -1, n, f,
+                             None) != 0
+
+
+@pytest.mark.parametrize("law", [g711.ULAW, g711.ALAW])
+def test_emulated_kernels_f_g_match_plain(emu, law):
+    rng = np.random.default_rng(law)
+    pcm = np.concatenate([
+        np.array([-32768, -32767, -32635, -8060, -1, 0, 1, 8060, 32635,
+                  32767], np.int16),
+        rng.integers(-32768, 32768, 1990).astype(np.int16)])
+    codes = np.zeros(pcm.shape, np.uint8)
+    assert emu.ljt_g711_encode(_p(pcm), _p(codes), len(pcm), law, None) == 0
+    assert np.array_equal(codes, g711.encode(T(pcm), law).numpy())
+    every = np.tile(np.arange(256, dtype=np.uint8), 3)
+    back = np.zeros(every.shape, np.int16)
+    assert emu.ljt_g711_decode(_p(every), _p(back), len(every), law,
+                               None) == 0
+    assert np.array_equal(back, g711.decode(T(every), law).numpy())
+    assert emu.ljt_g711_encode(_p(pcm), _p(codes), len(pcm), 2, None) != 0
