@@ -7,8 +7,17 @@
 // lower table gathers; an SM does a 256-entry table lookup from shared
 // memory in one instruction, so the core here is the classic T-table
 // round (FIPS-197 §5.2 folded into four lookups per column): one 1 KB
-// T-table plus the 256-byte S-box, copied into shared memory once per
-// CTA, the other three T-tables obtained by byte rotation.
+// T-table built in shared memory once per CTA, the other three T-tables
+// obtained by byte rotation, and the last round's S-box byte taken from
+// the same table (byte 1 of Te0[x] is S[x]).
+//
+// The table is built from an S-box in global memory read through the
+// read-only cache: the constant cache would serialize the 256 distinct
+// per-lane indices.  One 1 KB copy per CTA: 32 copies laid out one per
+// shared-memory bank remove the lookups' bank conflicts, but measured
+// slower at every shape of kernels C and D on the H100 (their 32 KB caps
+// the CTAs an SM holds, and these kernels wait on latency and issue, not
+// on banks).
 //
 // State and round keys are FIPS-197 byte order read as big-endian
 // column words (word c = bytes 4c..4c+3), which is the layout of
@@ -19,7 +28,7 @@
 
 #include "bytes.cuh"
 
-static __constant__ uint8_t kLjtSbox[256] = {
+static __device__ const uint8_t kLjtSbox[256] = {
     0x63, 0x7c, 0x77, 0x7b, 0xf2, 0x6b, 0x6f, 0xc5, 0x30, 0x01, 0x67, 0x2b,
     0xfe, 0xd7, 0xab, 0x76, 0xca, 0x82, 0xc9, 0x7d, 0xfa, 0x59, 0x47, 0xf0,
     0xad, 0xd4, 0xa2, 0xaf, 0x9c, 0xa4, 0x72, 0xc0, 0xb7, 0xfd, 0x93, 0x26,
@@ -44,20 +53,18 @@ static __constant__ uint8_t kLjtSbox[256] = {
     0xb0, 0x54, 0xbb, 0x16,
 };
 
-// Shared-memory tables of one CTA.
-struct LjtAesTables {
-  uint32_t te0[256];  // S[x] * (02, 01, 01, 03), most significant byte first
-  uint32_t sbox[256];  // S[x], widened so the last round reads whole words
-};
+// Te0[x] = S[x] * (02, 01, 01, 03), most significant byte first, from
+// s = S[x].
+__device__ __forceinline__ uint32_t ljt_te0_from_sbox(uint32_t s) {
+  const uint32_t s2 = ((s << 1) ^ ((s & 0x80u) ? 0x1Bu : 0u)) & 0xFFu;
+  return (s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s);
+}
 
-// Every thread of the CTA takes part; the caller syncs before use.
-__device__ __forceinline__ void ljt_aes_load_tables(LjtAesTables& t) {
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    uint32_t s = kLjtSbox[i];
-    uint32_t s2 = ((s << 1) ^ ((s & 0x80u) ? 0x1Bu : 0u)) & 0xFFu;
-    t.te0[i] = (s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s);
-    t.sbox[i] = s;
-  }
+// Fill Te0 (256 words) in shared memory.  Every thread of the CTA takes
+// part; the caller syncs before use.
+__device__ __forceinline__ void ljt_aes_fill_te0(uint32_t* t) {
+  for (int x = threadIdx.x; x < 256; x += blockDim.x)
+    t[x] = ljt_te0_from_sbox(__ldg(&kLjtSbox[x]));
 }
 
 __device__ __forceinline__ uint32_t ljt_ror8(uint32_t x) {
@@ -72,24 +79,28 @@ __device__ __forceinline__ uint32_t ljt_ror24(uint32_t x) {
 
 // One full round's column: Te0[a>>24] ^ Te1[(b>>16)&ff] ^ Te2[(c>>8)&ff] ^
 // Te3[d&ff] with Te_k = ror(Te0, 8k).
-__device__ __forceinline__ uint32_t ljt_aes_col(const LjtAesTables& t,
-                                                uint32_t a, uint32_t b,
-                                                uint32_t c, uint32_t d) {
-  return t.te0[a >> 24] ^ ljt_ror8(t.te0[(b >> 16) & 0xFF]) ^
-         ljt_ror16(t.te0[(c >> 8) & 0xFF]) ^ ljt_ror24(t.te0[d & 0xFF]);
+__device__ __forceinline__ uint32_t ljt_aes_col(const uint32_t* t, uint32_t a,
+                                                uint32_t b, uint32_t c,
+                                                uint32_t d) {
+  return t[a >> 24] ^ ljt_ror8(t[(b >> 16) & 0xFF]) ^
+         ljt_ror16(t[(c >> 8) & 0xFF]) ^ ljt_ror24(t[d & 0xFF]);
 }
 
-__device__ __forceinline__ uint32_t ljt_aes_last_col(const LjtAesTables& t,
+// Last round: S[x] is byte 1 (and byte 2) of Te0[x], so each output byte
+// is one masked or shifted table word.
+__device__ __forceinline__ uint32_t ljt_aes_last_col(const uint32_t* t,
                                                      uint32_t a, uint32_t b,
                                                      uint32_t c, uint32_t d) {
-  return (t.sbox[a >> 24] << 24) | (t.sbox[(b >> 16) & 0xFF] << 16) |
-         (t.sbox[(c >> 8) & 0xFF] << 8) | t.sbox[d & 0xFF];
+  return ((t[a >> 24] << 8) & 0xFF000000u) |
+         (t[(b >> 16) & 0xFF] & 0x00FF0000u) |
+         (t[(c >> 8) & 0xFF] & 0x0000FF00u) | ((t[d & 0xFF] >> 16) & 0xFFu);
 }
 
-// Encrypt one block.  rk: 4 * (NR + 1) big-endian round-key words;
-// s: the block as 4 big-endian words, encrypted in place.
+// Encrypt one block.  t: Te0 in shared memory; rk: 4 * (NR + 1)
+// big-endian round-key words; s: the block as 4 big-endian words,
+// encrypted in place.
 template <int NR>
-__device__ __forceinline__ void ljt_aes_encrypt_block(const LjtAesTables& t,
+__device__ __forceinline__ void ljt_aes_encrypt_block(const uint32_t* t,
                                                       const uint32_t* rk,
                                                       uint32_t s[4]) {
   uint32_t s0 = s[0] ^ rk[0], s1 = s[1] ^ rk[1];

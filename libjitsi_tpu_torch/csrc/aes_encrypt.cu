@@ -10,8 +10,10 @@
 // SHF, PRMT); at 3.35 TB/s and 16.7 Tops/s the round keys' traffic
 // dominates (208 B vs 252 instructions per AES-128 block).  Design: one thread per block, its round keys and
 // block loaded as 16-byte vectors (the rows are contiguous and 16-byte
-// aligned), the T-table and S-box in shared memory once per CTA, rounds
-// fully unrolled so the state and keys stay in registers.
+// aligned), one T-table in shared memory once per CTA (built from the
+// S-box through the read-only cache; the last round reads its S-box
+// bytes from the same table), rounds fully unrolled so the state and
+// keys stay in registers.
 
 #include <cuda_runtime.h>
 
@@ -28,8 +30,8 @@ __global__ void __launch_bounds__(kThreads)
     aes_encrypt_kernel(const uint8_t* __restrict__ rk_all,
                        const uint8_t* __restrict__ in,
                        uint8_t* __restrict__ out, int n) {
-  __shared__ LjtAesTables tables;
-  ljt_aes_load_tables(tables);
+  __shared__ uint32_t te0[256];
+  ljt_aes_fill_te0(te0);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -47,7 +49,7 @@ __global__ void __launch_bounds__(kThreads)
   uint4 b = reinterpret_cast<const uint4*>(in)[i];
   uint32_t s[4] = {ljt_bswap32(b.x), ljt_bswap32(b.y), ljt_bswap32(b.z),
                    ljt_bswap32(b.w)};
-  ljt_aes_encrypt_block<NR>(tables, rk, s);
+  ljt_aes_encrypt_block<NR>(te0, rk, s);
   reinterpret_cast<uint4*>(out)[i] =
       make_uint4(ljt_bswap32(s[0]), ljt_bswap32(s[1]), ljt_bswap32(s[2]),
                  ljt_bswap32(s[3]));

@@ -93,10 +93,67 @@ __device__ __forceinline__ uint32_t ljt_msg_word(const LjtMsg& m, int i) {
   return v;
 }
 
+__device__ __forceinline__ void ljt_msg_block(const LjtMsg& m, int b,
+                                              uint32_t w[16]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) w[j] = ljt_msg_word(m, b * 64 + 4 * j);
+}
+
+// An SRTP MAC message staged in shared memory: the row's bytes [0, dlen)
+// as little-endian 32-bit words (row[q] holds bytes 4q..4q+3, dlen <=
+// width), then the 4-byte rollover counter, of which the bytes that
+// would fall at or past `width` read as 0; mlen = dlen + 4.  Whole words
+// are read as words; only the word that holds the end of the data is
+// merged with the ROC and the 0x80 pad byte, in registers.
+struct LjtRowMsg {
+  const uint32_t* row;
+  int dlen;
+  int mlen;
+  uint64_t tail;  // big-endian bytes after the data: ROC, 0x80, 0, 0, 0
+
+  __device__ __forceinline__ LjtRowMsg(const uint32_t* r, int len, int width,
+                                       uint32_t roc)
+      : row(r), dlen(len), mlen(len + 4) {
+    const int room = width - len;  // ROC bytes that fit in the row
+    if (room < 4) roc = room <= 0 ? 0u : roc & (0xFFFFFFFFu << (32 - 8 * room));
+    tail = (uint64_t(roc) << 32) | 0x80000000u;
+  }
+
+  // Big-endian message word at byte i (i % 4 == 0), padding included.
+  __device__ __forceinline__ uint32_t word(int i) const {
+    uint32_t v = 0;
+    if (i < dlen) {
+      v = ljt_bswap32(row[i >> 2]);
+      const int cut = i + 4 - dlen;  // data bytes missing from this word
+      if (cut > 0) v &= 0xFFFFFFFFu << (8 * cut);
+    }
+    const int d = i - dlen;  // where the tail starts relative to the word
+    if (d < 0 && d > -4)
+      v |= uint32_t(tail >> 32) >> (-8 * d);
+    else if (d >= 0 && d < 8)
+      v |= uint32_t((tail << (8 * d)) >> 32);
+    return v;
+  }
+};
+
+__device__ __forceinline__ void ljt_msg_block(const LjtRowMsg& m, int b,
+                                              uint32_t w[16]) {
+  const int q0 = b * 16;
+  if (b * 64 + 64 <= m.dlen) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) w[j] = ljt_bswap32(m.row[q0 + j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) w[j] = m.word(b * 64 + 4 * j);
+  }
+}
+
 // HMAC-SHA1(key, msg) from the key's midstates: mid[0..4] is the state
-// after the ipad block, mid[5..9] after the opad block.
+// after the ipad block, mid[5..9] after the opad block.  Msg is LjtMsg or
+// LjtRowMsg.
+template <class Msg>
 __device__ __forceinline__ void ljt_hmac_sha1(const uint32_t mid[10],
-                                              const LjtMsg& m,
+                                              const Msg& m,
                                               uint32_t out[5]) {
   uint32_t h[5] = {mid[0], mid[1], mid[2], mid[3], mid[4]};
   const int nblk = (m.mlen + 9 + 63) / 64;
@@ -104,8 +161,7 @@ __device__ __forceinline__ void ljt_hmac_sha1(const uint32_t mid[10],
   const uint32_t bitlen = uint32_t(m.mlen + 64) * 8u;
   for (int b = 0; b < nblk; ++b) {
     uint32_t w[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) w[j] = ljt_msg_word(m, b * 64 + 4 * j);
+    ljt_msg_block(m, b, w);
     if (b == nblk - 1) {
       w[14] = 0;
       w[15] = bitlen;

@@ -57,6 +57,8 @@ _SIGNATURES = {
     "ljt_mix_minus": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ljt_g711_encode": [_P, _P, _I, _I, _P],
     "ljt_g711_decode": [_P, _P, _I, _I, _P],
+    "ljt_probe_sha1_chain": [_P, _P, _I, _P],
+    "ljt_probe_aes_chain": [_P, _P, _P, _I, _I, _P],
 }
 
 

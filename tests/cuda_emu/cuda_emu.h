@@ -15,6 +15,7 @@
 
 #include <algorithm>
 #include <barrier>
+#include <chrono>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -45,11 +46,40 @@ inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+// One streaming multiprocessor: blocks run one after another.
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 1;
+  return cudaSuccess;
+}
+// The emulator's dynamic shared memory has no 48 KB default to lift.
+template <class K>
+int cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+// Read-only cache load: a plain load.
+template <class T>
+T __ldg(const T* p) {
+  return *p;
+}
 
 inline thread_local std::barrier<>* emu_barrier = nullptr;
 inline void* emu_dyn_smem = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
+}
+inline void __threadfence_block() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 
 inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
   uint64_t v = (uint64_t(y) << 32) | x;

@@ -86,16 +86,30 @@ def test_hmac_kernel_matches_plain_and_stdlib(cuda_device):
             bytes(keys[i]), bytes(data[i, :lens[i]]), hashlib.sha1).digest()
 
 
-@pytest.mark.parametrize("key_len,tag_len,width", [(16, 10, 224),
-                                                   (32, 4, 544),
-                                                   (16, 10, 1536),
-                                                   (16, 10, 50)])
-def test_srtp_kernels_match_plain(cuda_device, key_len, tag_len, width):
+def _cd(key_len, tag_len, width, n=301, case="random"):
+    tail = "" if (n, case) == (301, "random") else f"-{n}-{case}"
+    return pytest.param(key_len, tag_len, width, n, case,
+                        id=f"{key_len}-{tag_len}-{width}{tail}")
+
+
+# Kernels C and D give each SM about two tiles of at most 32 rows: on an
+# H100 (132 SMs) 1, 31 and 33 rows run one row a tile, 301 rows 2 a tile,
+# 4,096 rows 16 a tile, and 16,897 rows 32 a tile with a last tile of
+# one row.
+@pytest.mark.parametrize("key_len,tag_len,width,n,case", [
+    _cd(16, 10, 224), _cd(32, 4, 544), _cd(16, 10, 1536), _cd(16, 10, 50),
+    _cd(16, 10, 224, 1), _cd(16, 10, 224, 31), _cd(32, 10, 1536, 33),
+    _cd(16, 10, 192, 16897),
+    _cd(16, 10, 544, 4096, "production"),   # one table part of the mix
+    _cd(16, 10, 224, 96, "one_stream"),     # every row of a tile one stream
+])
+def test_srtp_kernels_match_plain(cuda_device, key_len, tag_len, width, n,
+                                  case):
     """Kernels C and D byte for byte, edge rows included: offsets past
     the row, lengths past the row, stream ids outside the table,
-    counters that carry past 32 bits."""
-    rng = np.random.default_rng(width + key_len)
-    s, n = 9, 301
+    counters that carry past 32 bits, partial tiles."""
+    rng = np.random.default_rng(width + key_len + n)
+    s = 9
     tab_rk = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len), np.uint8))
     tab_mid = sha1.hmac_precompute_batch(
         rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
@@ -104,6 +118,13 @@ def test_srtp_kernels_match_plain(cuda_device, key_len, tag_len, width):
     length = rng.integers(0, width + 3, n).astype(np.int32)
     off = rng.integers(0, width + 20, n).astype(np.int32)
     off[n // 2:] = 12
+    if case == "production":
+        # the 412-byte packets of a production-mix batch: 12-byte header
+        stream = rng.integers(0, s, n).astype(np.int32)
+        length[:] = 12 + 400
+        off[:] = 12
+    elif case == "one_stream":
+        stream[:] = 3
     iv = rng.integers(0, 256, (n, 16), np.uint8)
     iv[:8, 8:] = 0xFF
     roc = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(
@@ -123,6 +144,8 @@ def test_srtp_kernels_match_plain(cuda_device, key_len, tag_len, width):
     assert _same(ud, wd) and _same(um, wm) and _same(uok, wok)
     fits = torch.from_numpy(length + tag_len <= width).to(cuda_device)
     assert bool(uok[fits].all())
+    if case == "production":                  # the round trip gives the packets
+        assert _same(ud[:, :412], dev[3][:, :412])
     assert kbuild.launches["srtp_protect_cm"] == before["srtp_protect_cm"] + 1
     assert (kbuild.launches["srtp_unprotect_cm"]
             == before["srtp_unprotect_cm"] + 1)

@@ -9,7 +9,9 @@ the kernels' arithmetic, indexing and synchronisation — not the GPU's
 compiler or timing, which only the card shows (`tests/test_torch_cuda.py`,
 `chip_smoke.py`).  Edge rows: offsets past the row, lengths
 past the row, stream ids outside the table, counters carrying across
-32-bit limbs, unaligned row widths.  Tolerance: exact equality.
+32-bit limbs, unaligned row widths, and for the tiled kernels C and D
+partial tiles, windows that start off a word, and tampered rows beside
+genuine ones in one tile.  Tolerance: exact equality.
 """
 
 import ctypes
@@ -103,12 +105,29 @@ def test_emulated_kernel_b_matches_plain_and_stdlib(emu, width):
                                          hashlib.sha1).digest()
 
 
-@pytest.mark.parametrize("key_len,tag_len,width", [(16, 10, 224),
-                                                   (32, 4, 96),
-                                                   (16, 10, 50)])
-def test_emulated_kernels_c_d_match_plain(emu, key_len, tag_len, width):
-    rng = np.random.default_rng(width + tag_len)
-    s, n = 7, 45
+def _cd(key_len, tag_len, width, n=45, case="mixed"):
+    tail = "" if (n, case) == (45, "mixed") else f"-{n}-{case}"
+    return pytest.param(key_len, tag_len, width, n, case,
+                        id=f"{key_len}-{tag_len}-{width}{tail}")
+
+
+# Kernels C and D aim for two tiles a streaming multiprocessor, at most
+# 32 rows a tile; the emulator reports one, so a tile has ceil(n / 2)
+# rows: n = 200 is six full tiles and one of 8, n = 70 two full and one
+# of 6, n = 5 one of 3 and one of 2.
+@pytest.mark.parametrize("key_len,tag_len,width,n,case", [
+    _cd(16, 10, 224), _cd(32, 4, 96), _cd(16, 10, 50),
+    _cd(16, 10, 224, 70), _cd(16, 10, 224, 200), _cd(32, 4, 96, 5),
+    _cd(16, 10, 96, 40, "lengths"),      # one tile's lengths span 0..W+3
+    _cd(16, 10, 160, 40, "off13"),       # windows not on a 16-byte block
+    _cd(16, 10, 160, 40, "off20"),       # nor on a word
+    _cd(16, 4, 160, 40, "offpast"),      # offsets at and past the row
+    _cd(32, 10, 1536, 33),               # widest class, AES-256
+])
+def test_emulated_kernels_c_d_match_plain(emu, key_len, tag_len, width, n,
+                                          case):
+    rng = np.random.default_rng(width + tag_len + n)
+    s = 7
     tab_rk = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len),
                                                 np.uint8))
     tab_mid = sha1.hmac_precompute_batch(
@@ -116,9 +135,15 @@ def test_emulated_kernels_c_d_match_plain(emu, key_len, tag_len, width):
     stream = rng.integers(-1, s + 1, n).astype(np.int32)
     data = rng.integers(0, 256, (n, width), np.uint8)
     length = rng.integers(0, width + 3, n).astype(np.int32)
-    length[:4] = [0, 3, width - tag_len, width]
+    length[:4] = [0, 3, width - tag_len, width][:n]
     off = rng.integers(0, width + 20, n).astype(np.int32)
     off[4:20] = 12
+    if case == "lengths":
+        length[:32] = np.linspace(0, width + 3, 32).astype(np.int32)
+    elif case in ("off13", "off20"):
+        off[:] = int(case[3:])
+    elif case == "offpast":
+        off[::2] = width + np.arange(0, n, 2) % 5 - 1
     iv = rng.integers(0, 256, (n, 16), np.uint8)
     iv[:6, 8:] = 0xFF
     roc = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(
@@ -139,7 +164,8 @@ def test_emulated_kernels_c_d_match_plain(emu, key_len, tag_len, width):
     wire = out.copy()
     wire_len = np.minimum(out_len, width).astype(np.int32)
     fits = length + tag_len <= width
-    wire[np.nonzero(fits)[0][:3], 0] ^= 1              # tampered headers
+    bad = np.nonzero(fits)[0][::7]                 # beside genuine rows
+    wire[bad, 0] ^= 1                              # tampered headers
     dec = np.zeros_like(data)
     mlen = np.zeros(n, np.int32)
     ok = np.zeros(n, np.uint8)
@@ -154,9 +180,33 @@ def test_emulated_kernels_c_d_match_plain(emu, key_len, tag_len, width):
     assert np.array_equal(mlen, want_mlen.numpy())
     assert np.array_equal(ok.astype(bool), want_ok.numpy())
     genuine = fits.copy()
-    genuine[np.nonzero(fits)[0][:3]] = False
+    genuine[bad] = False
     assert ok.astype(bool)[genuine].all()
-    assert not ok.astype(bool)[np.nonzero(fits)[0][:3]].any()
+    assert not ok.astype(bool)[bad].any()
+
+
+def test_emulated_latency_probe_chains(emu):
+    """The probe's chains compute what they claim: n SHA-1 compressions
+    of each lane's state, n AES encryptions of each lane's block."""
+    rng = np.random.default_rng(9)
+    n = 3
+    state = rng.integers(0, 2 ** 32, (32, 21), dtype=np.uint64).astype(
+        np.uint32)
+    want = state[:, :5].copy()
+    for _ in range(n):
+        want = sha1._compress_blocks_np(want, state[:, 5:])
+    cycles = np.zeros(32, np.int64)
+    assert emu.ljt_probe_sha1_chain(_p(state), _p(cycles), n, None) == 0
+    assert np.array_equal(state[:, :5], want) and (cycles > 0).all()
+    rk = aes.expand_key(bytes(range(16)))
+    blocks = rng.integers(0, 256, (32, 16), np.uint8)
+    want = blocks.copy()
+    for _ in range(n):
+        want = aes.aes_encrypt_np(np.broadcast_to(rk, (32,) + rk.shape),
+                                  want)
+    assert emu.ljt_probe_aes_chain(_p(rk), _p(blocks), _p(cycles), 10, n,
+                                   None) == 0
+    assert np.array_equal(blocks, want) and (cycles > 0).all()
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 960), (2, 5, 160), (1, 33, 70)])
