@@ -20,9 +20,12 @@ version:
   mixer_bridge  `MixerBridge(64, 64, 960)` for 200 ticks (kernel E).
 
 Beside them, `sass` gives each kernel's instruction count, registers and
-spills, `latency_floor` the cycles one SHA-1 compression and one AES
-block take on a lane that waits on each (the floor of kernels C and D),
-and `profiler` how many empty profiling windows were measured again.
+spills (and kernel E's launch plans: cluster size and dynamic shared
+memory at its main shapes), `latency_floor` the cycles one SHA-1
+compression and one AES block take on a lane that waits on each (the
+floor of kernels C and D) and the time of an empty kernel on the card
+(`launch_floor_ms`, the floor of every kernel), and `profiler` how many
+empty profiling windows were measured again.
 
 Every phase prints one JSON line; the card's `nvidia-smi` name and power
 limit come before the last line, and the last line is
@@ -101,6 +104,8 @@ CONF_TICKS = 50
 CONF_PROFILED = 5          # further ticks under torch.profiler
 CONF_SWITCH = 5            # tick from which participant 10 is loudest
 MIXER_BRIDGE = (64, 64, 960)
+# kernel E's timed shapes: AudioMixer, the conference bridge, MixerBridge
+MIX_SHAPES = ((1, 256, 960), (1, CONF_PARTIES, 160), MIXER_BRIDGE)
 MIXER_TICKS = 200
 SOURCES = {
     "aes_encrypt": ("libjitsi_tpu_torch/csrc/aes_encrypt.cu",
@@ -156,10 +161,10 @@ def main() -> int:
 
     known_answers(torch, dev)
     sass_counts(kbuild)
-    latency_floor(torch, dev, kbuild)
+    floor_ms = latency_floor(torch, dev, kbuild)
     rows = kernels_vs_plain(torch, dev)
-    rows.update(mix_kernel(torch, dev))
-    rows.update(g711_kernels(torch, dev))
+    rows.update(mix_kernel(torch, dev, floor_ms))
+    rows.update(g711_kernels(torch, dev, floor_ms))
 
     counts = {}
 
@@ -202,7 +207,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("library_ms"),
+            "launch_floor_ms": floor_ms, "library_ms": r.get("library_ms"),
             **{k: r[k] for k in ("plain_device_ms", "library_device_ms")
                if k in r},
             "shape": r["shape"]})
@@ -430,7 +435,11 @@ def sass_counts(kbuild) -> None:
         for nr in (10, 14):
             require(f"{k} nr={nr}" in ptxas, f"no ptxas report for {k} "
                                              f"nr={nr}: {sorted(ptxas)}")
+    for k in ("mix_minus", "g711_encode"):
+        require(k in ptxas, f"no ptxas report for {k}: {sorted(ptxas)}")
     emit("sass", int32_pipe_static=counts, ptxas=ptxas,
+         mix_minus_plans={f"{c}x{n}x{f}": mix_plan(kbuild, c, n, f)
+                          for c, n, f in MIX_SHAPES},
          bound_per_unit={"sha1_compression": SHA1_BLOCK_OPS,
                          "aes_block nr=10": aes_block_ops(10),
                          "aes_block nr=14": aes_block_ops(14)})
@@ -468,20 +477,50 @@ def ptxas_usage(kbuild) -> dict:
     return out
 
 
-def latency_floor(torch, dev, kbuild) -> None:
-    """Cycles of one SHA-1 compression and one AES-128 block on a lane
-    whose every step waits on the one before (csrc/latency_probe.cu, one
-    warp, clock64), and from them the floor a row's hash chain sets for
-    kernels C and D: a packet of length L needs (L + 4 + 9 + 63) // 64
-    inner compressions and one outer, one after another on its lane."""
+def mix_plan(kbuild, c: int, n: int, f: int) -> dict:
+    """Kernel E's launch for [c, n, f] on this card, 16-byte aligned
+    pcm and out (`ljt_mix_minus_plan`)."""
+    plan = np.zeros(5, np.int32)
+    kbuild.check(kbuild.library().ljt_mix_minus_plan(
+        256, 256, c, n, f, plan.ctypes.data), "mix_minus_plan")
+    keys = ("cluster", "block_columns", "staged_rows", "vec",
+            "dynamic_smem_bytes")
+    return {k: int(v) for k, v in zip(keys, plan)} | {"blocks": int(
+        c * plan[0])}
+
+
+def latency_floor(torch, dev, kbuild) -> float:
+    """The launch floor: the time on the card of an empty kernel (one
+    warp, csrc/latency_probe.cu), by the same profiler reading as every
+    kernel's `ms`, and per back-to-back call by CUDA events; the same
+    profiler reading for an empty cluster of 8 and of 16 blocks (kernel
+    E launches clusters).  Then the cycles of one SHA-1 compression
+    and one AES-128 block on a lane whose every step waits on the one
+    before (one warp, clock64), and from them the floor a row's hash
+    chain sets for kernels C and D: a packet of length L needs
+    (L + 4 + 9 + 63) // 64 inner compressions and one outer, one after
+    another on its lane.  Returns the launch floor in ms."""
     from libjitsi_tpu_torch.kernels.aes import expand_key
 
     lib, n = kbuild.library(), 2000
+    stream = kbuild.stream_handle(dev)
+
+    def empty():
+        kbuild.check(lib.ljt_probe_empty(stream), "probe_empty")
+
+    floor_ms = device_ms(torch, empty, 200, "probe_empty_kernel")
+    floor_call_ms = cuda_ms(torch, empty, 1000)
+    clusters = {}
+    for cs in (8, 16):
+        def cluster(cs=cs):
+            kbuild.check(lib.ljt_probe_cluster(cs, stream), "probe_cluster")
+
+        clusters[f"cluster of {cs}"] = device_ms(torch, cluster, 200,
+                                                 "cluster_probe_kernel")
     rng = np.random.default_rng(8)
     state = torch.as_tensor(rng.integers(0, 2 ** 32, (32, 21), np.uint64)
                             .astype(np.uint32).view(np.int32)).to(dev)
     cycles = torch.zeros(32, dtype=torch.int64, device=dev)
-    stream = kbuild.stream_handle(dev)
     kbuild.check(lib.ljt_probe_sha1_chain(state.data_ptr(), cycles.data_ptr(),
                                           n, stream), "probe_sha1_chain")
     torch.cuda.synchronize()
@@ -503,9 +542,13 @@ def latency_floor(torch, dev, kbuild) -> None:
         blocks_ = (length + 4 + 9 + 63) // 64 + 1
         floors[f"len {length}"] = dict(compressions=blocks_,
                                        ms=blocks_ * sha / (mhz * 1e3))
-    emit("latency_floor", sha1_compression_cycles=sha,
+    emit("latency_floor", launch_floor_ms=floor_ms,
+         launch_floor_call_ms=floor_call_ms,
+         cluster_launch_floor_ms=clusters,
+         sha1_compression_cycles=sha,
          aes128_block_cycles=aes_cycles, sm_clock_mhz=mhz,
          hash_chain_floor=floors)
+    return floor_ms
 
 
 # ------------------------------------------------- 3. kernels vs plain
@@ -914,30 +957,39 @@ def timings(torch, fn, kernel, plain, library=None) -> dict:
 
 def _edge_frames(rng, c, n, f):
     """Random frames with an all-zero row, an inactive row, near-silent
-    rows (1, 2 and 5 samples of ±1) and saturating rows."""
+    rows (1, 2 and 5 samples of ±1) and saturating rows, as far as the
+    conference has rows."""
     pcm = rng.integers(-32768, 32768, (c, n, f)).astype(np.int16)
     active = rng.random((c, n)) < 0.8
     pcm[:, 0] = 0
-    active[:, 1] = False
+    active[:, 1:2] = False
     for row, k in ((2, 1), (3, 2), (4, 5)):
-        pcm[:, row] = 0
-        pcm[:, row, rng.choice(f, k, replace=False)] = rng.choice([-1, 1], k)
+        if row < n:
+            k = min(k, f)
+            pcm[:, row] = 0
+            pcm[:, row, rng.choice(f, k, replace=False)] = rng.choice([-1, 1],
+                                                                     k)
     pcm[:, 5:7] = 32767
-    pcm[:, 7] = -32768
-    active[:, [0, 2, 3, 4, 5, 6, 7]] = True
+    pcm[:, 7:8] = -32768
+    active[:, [r for r in (0, 2, 3, 4, 5, 6, 7) if r < n]] = True
     return pcm, active
 
 
-def mix_kernel(torch, dev) -> dict:
+def mix_kernel(torch, dev, floor_ms: float) -> dict:
     """Kernel E against its plain version, both on the card, at the
-    AudioMixer's, the conference bridge's and the MixerBridge's shapes,
-    then the constant-amplitude sweep on the card against the plain
-    version on the CPU."""
+    AudioMixer's, the conference bridge's and the MixerBridge's shapes
+    (timed, with the launch plan), then byte for byte at ragged shapes,
+    on views at an odd offset, at conferences taller than one stage of
+    rows (a cluster of 16, clusters of 8) and at a frame too wide for one
+    block, each with its plan, then the constant-amplitude sweep (32,767
+    rows, also staged) on the card against the plain version on the
+    CPU."""
     from libjitsi_tpu_torch.conference import mixer
+    from libjitsi_tpu_torch.kernels import build as kbuild
 
     rng = np.random.default_rng(31)
     rows = {}
-    for c, n, f in ((1, 256, 960), (1, CONF_PARTIES, 160), MIXER_BRIDGE):
+    for c, n, f in MIX_SHAPES:
         pcm, active = _edge_frames(rng, c, n, f)
         p, a = torch.as_tensor(pcm).to(dev), torch.as_tensor(active).to(dev)
         err = max_abs_err(torch, mixer.mix_minus_many(p, a),
@@ -950,12 +1002,43 @@ def mix_kernel(torch, dev) -> dict:
                     **timings(torch, lambda: mixer.mix_minus_many(p, a),
                               "mix_minus_kernel",
                               lambda: mixer.mix_minus_many_plain(p, a)),
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                    bytes=nbytes)
+                    bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms,
+                    library_ms=None, bytes=nbytes,
+                    plan=mix_plan(kbuild, c, n, f))
         emit("kernel_vs_plain", **line)
         if (c, n, f) == (1, CONF_PARTIES, 160):
             rows["mix_minus"] = dict(line, shape=f"{c}x{n}x{f} (the "
                                      "conference bridge's tick)")
+    # ragged rows (the 2-byte path), pcm at an odd element offset, rows
+    # in stages and a frame wider than one block stages
+    edges = {}
+    for c, n, f, off in ((1, 257, 161, 0), (3, 33, 70, 0), (1, 1, 1, 0),
+                         (1, CONF_PARTIES, 160, 1), (64, 64, 960, 1),
+                         (1, 2000, 960, 0), (20, 1000, 960, 0),
+                         (300, 3, 12000, 0)):
+        pcm, active = _edge_frames(rng, c, n, f)
+        flat = torch.zeros(c * n * f + 8, dtype=torch.int16, device=dev)
+        p = flat[off:off + c * n * f].view(c, n, f)
+        p.copy_(torch.as_tensor(pcm))
+        a = torch.as_tensor(active).to(dev)
+        got = mixer.mix_minus_many(p, a)
+        err = max(max_abs_err(torch, got, mixer.mix_minus_many_plain(p, a)),
+                  max_abs_err(torch, [x.cpu() for x in got],
+                              mixer.mix_minus_many_plain(
+                                  torch.as_tensor(pcm),
+                                  torch.as_tensor(active))))
+        key = f"{c}x{n}x{f}" + (f" at offset {off}" if off else "")
+        require(err == 0, f"kernel E {key} differs from its plain version")
+        plan = mix_plan(kbuild, c, n, f)
+        edges[key] = dict(max_abs_err=err, plan=dict(
+            plan, vec=plan["vec"] if off == 0 else 0))
+    for key, rows_, cs in (("1x2000x960", 2000, 16), ("20x1000x960", 1000, 8)):
+        require(edges[key]["plan"]["staged_rows"] < rows_
+                and edges[key]["plan"]["cluster"] == cs,
+                f"kernel E {key}: not the staged plan it is there to run")
+    require(edges["300x3x12000"]["plan"]["cluster"] > 1,
+            "kernel E 300x3x12000: a frame one block cannot stage")
+    emit("mix_edges", shapes=edges)
     sweep = {}
     for f in (960, 160):
         pcm = np.repeat(np.arange(1, 32768, dtype=np.int32)[:, None], f,
@@ -967,14 +1050,17 @@ def mix_kernel(torch, dev) -> dict:
                 f"amplitude sweep at F={f}: card differs from the CPU")
         sweep[f] = [int(card[1][0, 0]), int(card[1][0, -1])]
     emit("mix_sweep", amplitudes="1..32767", levels_at_1_and_32767=sweep,
+         plans={f: mix_plan(kbuild, 1, 32767, f) for f in (960, 160)},
          equal_to_cpu_plain=True)
     return rows
 
 
-def g711_kernels(torch, dev) -> dict:
+def g711_kernels(torch, dev, floor_ms: float) -> dict:
     """Kernels F and G against their plain versions on every int16 input
-    and every code, then timed at the bridge's [256, 160] and at a
-    10,240-stream [10240, 160], with `torch.take` as G's library call."""
+    and every code, F also at a ragged length and on views at odd
+    offsets (its one-sample path), then timed at the bridge's [256, 160]
+    and at a 10,240-stream [10240, 160], with `torch.take` as G's library
+    call."""
     from libjitsi_tpu_torch.kernels import g711
 
     pcm_all = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
@@ -990,8 +1076,22 @@ def g711_kernels(torch, dev) -> dict:
             require(torch.equal(got, plain[law, kind](x.to(dev)))
                     and torch.equal(got.cpu(), plain[law, kind](x)),
                     f"G.711 law {law} {kind}: kernel differs from plain")
+        want = plain[law, "enc"](pcm_all)
+        for off, n in ((0, 65533), (1, 65536), (3, 65531)):
+            flat = torch.zeros(65536 + 8, dtype=torch.int16, device=dev)
+            flat[off:off + n] = pcm_all[:n].to(dev)
+            got = g711.encode(flat[off:off + n], law)
+            require(torch.equal(got.cpu(), want[:n]),
+                    f"G.711 law {law} encode: length {n} at offset {off} "
+                    "differs from plain")
+    u8060 = g711.ulaw_encode(torch.tensor([8060, -8060], dtype=torch.int16,
+                                          device=dev)).tolist()
+    require(u8060 == [159, 31], f"µ-law 8060, -8060 encode to {u8060}, "
+                                "not the spec's 159, 31")
     emit("g711_exhaustive", pcm_inputs=65536, codes=256, laws=2,
-         max_abs_err=0)
+         max_abs_err=0, encode_ragged_and_odd_offsets=[[0, 65533], [1, 65536],
+                                                       [3, 65531]],
+         ulaw_8060=u8060)
     rng = np.random.default_rng(37)
     rows = {}
     for n in (CONF_PARTIES, 10_240):
@@ -1006,7 +1106,8 @@ def g711_kernels(torch, dev) -> dict:
                    **timings(torch, lambda: g711.ulaw_encode(pcm),
                              "g711_encode_kernel",
                              lambda: g711.ulaw_encode_plain(pcm)),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                   bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms,
+                   library_ms=None)
         dec = dict(name="g711_decode", shape=shape, max_abs_err=0,
                    **timings(torch, lambda: g711.ulaw_decode(codes),
                              "g711_decode_kernel",

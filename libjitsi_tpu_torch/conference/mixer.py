@@ -18,7 +18,8 @@ Counterpart: `libjitsi_tpu/conference/mixer.py` (`audio_levels`,
   127, at 160 samples it reports 112.
 - `mix_minus_many`: the wrapper of kernel E (`csrc/mix_minus.cu`), which
   replaces the Pallas TPU kernel `mix_minus_pallas`.  On a CUDA tensor it
-  launches the kernel; on a CPU tensor it runs the plain version.
+  launches the kernel (one thread block cluster a conference) or raises;
+  on a CPU tensor it runs the plain version.
 - `MixerBridge` and `AudioMixer` keep the JAX classes' host frame
   buffer, upload it each tick, read the results back and only then zero
   the buffer.  They take `device` (None means the card).  The JAX
@@ -39,6 +40,7 @@ from libjitsi_tpu_torch.kernels import build as _k
 
 I16_MIN = -32768
 I16_MAX = 32767
+MIX_REFUSED = -1                   # ljt_mix_minus: a shape E does not take
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +93,13 @@ def mix_minus_many(pcm: torch.Tensor,
     """Mix-minus over MANY conferences in one launch: pcm int16
     [C, N, F], active bool or uint8 [C, N] -> (out int16 [C, N, F],
     levels uint8 [C, N]).  Kernel E on a CUDA tensor, the plain version
-    on a CPU one."""
+    on a CPU one.  The kernel takes pcm contiguous from any int16-aligned
+    address: 16-byte copies where pcm and out are 16-byte aligned and
+    F % 8 == 0, 2-byte ones otherwise.  It refuses (ValueError) more than
+    65,535 rows a conference (its int32 column sums), and a frame too wide
+    for one row of a block's columns to fit in the shared memory of its
+    widest cluster: over 78,528 samples (157,056 where C * 8 is below the
+    card's SM count).  The JAX reference takes both."""
     if _k.route(pcm) == "cpu":
         return mix_minus_many_plain(pcm, active)
     dev = pcm.device
@@ -99,6 +107,8 @@ def mix_minus_many(pcm: torch.Tensor,
         raise ValueError("pcm must be [C, N, F]")
     c, n, f = pcm.shape
     _k.expect(pcm, "pcm", torch.int16, dev)
+    if pcm.data_ptr() % pcm.element_size():
+        raise ValueError("pcm: not aligned to its int16 elements")
     act = (torch.ones((c, n), dtype=torch.uint8, device=dev)
            if active is None else active.to(torch.uint8).contiguous())
     _k.expect(act, "active", torch.uint8, dev, (c, n))
@@ -108,6 +118,9 @@ def mix_minus_many(pcm: torch.Tensor,
         rc = _k.library().ljt_mix_minus(
             pcm.data_ptr(), act.data_ptr(), out.data_ptr(),
             levels.data_ptr(), c, n, f, _k.stream_handle(dev))
+        if rc == MIX_REFUSED:
+            raise ValueError(f"mix_minus: kernel E does not take [{c}, {n}, "
+                             f"{f}]: over 65,535 rows, or frames too wide")
         _k.check(rc, "mix_minus")
         _k.launches["mix_minus"] += 1
     return out, levels

@@ -14,6 +14,12 @@
 //   ljt_probe_aes_chain: round keys [nr + 1, 16] u8, blocks [32, 16] u8:
 //     n times block = E(block); blocks written back.
 //   cycles [32] i64: clock64 cycles each lane spent in its n steps.
+//   ljt_probe_empty: one warp that does nothing.  Its time on the card is
+//     the launch floor: no kernel, however little work it does, takes
+//     less, so a kernel of a few microseconds is read against it.
+//   ljt_probe_cluster: one empty cluster of `cs` blocks of 256 threads,
+//     launched as kernel E launches its clusters: the floor of a cluster
+//     launch.
 
 #include <cuda_runtime.h>
 
@@ -66,7 +72,16 @@ __global__ void aes_chain_kernel(const uint8_t* __restrict__ rk_bytes,
   cycles[threadIdx.x] = t1 - t0;
 }
 
+__global__ void probe_empty_kernel() {}
+
+__global__ void __launch_bounds__(256) cluster_probe_kernel() {}
+
 }  // namespace
+
+extern "C" int ljt_probe_empty(void* stream) {
+  probe_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return int(cudaGetLastError());
+}
 
 extern "C" int ljt_probe_sha1_chain(void* state, void* cycles, int n,
                                     void* stream) {
@@ -89,5 +104,29 @@ extern "C" int ljt_probe_aes_chain(const void* round_keys, void* blocks,
   } else {
     return int(cudaErrorInvalidValue);
   }
+  return int(cudaGetLastError());
+}
+
+extern "C" int ljt_probe_cluster(int cs, void* stream) {
+  if (cs < 1 || cs > 16) return int(cudaErrorInvalidValue);
+  if (cs > 8) {
+    const int e = int(cudaFuncSetAttribute(
+        cluster_probe_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1));
+    if (e) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(cs));
+  cfg.blockDim = dim3(256);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(cs);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int e = int(cudaLaunchKernelEx(&cfg, cluster_probe_kernel));
+  if (e) return e;
   return int(cudaGetLastError());
 }

@@ -59,6 +59,9 @@ _SIGNATURES = {
     "ljt_g711_decode": [_P, _P, _I, _I, _P],
     "ljt_probe_sha1_chain": [_P, _P, _I, _P],
     "ljt_probe_aes_chain": [_P, _P, _P, _I, _I, _P],
+    "ljt_probe_empty": [_P],
+    "ljt_probe_cluster": [_I, _P],
+    "ljt_mix_minus_plan": [_P, _P, _I, _I, _I, _P],
 }
 
 

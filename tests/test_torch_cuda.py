@@ -216,22 +216,39 @@ def test_table_on_card_equals_table_on_cpu(cuda_device, profile):
     assert isinstance(b[1], PacketBatch)
 
 
+# (C, N, F) or (C, N, F, pcm offset in samples): the mixers' shapes, a
+# ragged one, F = 1, views at an odd offset (the 2-byte path), rows in
+# stages (a cluster of 16, then clusters of 8) and a frame too wide for
+# one block's shared memory (more blocks than the SM count asks for)
 @pytest.mark.parametrize("shape", [(1, 256, 960), (1, 256, 160),
-                                   (64, 64, 960), (3, 7, 33)])
+                                   (64, 64, 960), (3, 7, 33), (1, 257, 161),
+                                   (1, 1, 1), (1, 256, 160, 1),
+                                   (64, 64, 960, 1), (1, 2000, 960),
+                                   (20, 1000, 960), (300, 3, 12000)])
 def test_mix_kernel_matches_plain(cuda_device, shape):
-    """Kernel E against its plain version on the card, with inactive,
-    silent, near-silent and saturating rows."""
+    """Kernel E against its plain version on the card and on the CPU,
+    with inactive, silent, near-silent and saturating rows."""
+    c, n, f, *rest = shape
+    offset = rest[0] if rest else 0
+    plan = np.zeros(5, np.int32)
+    assert kbuild.library().ljt_mix_minus_plan(256, 256, c, n, f,
+                                               plan.ctypes.data) == 0
+    if n >= 1000:                          # staged: more than one stage
+        assert plan[2] < n and plan[0] == (16 if c == 1 else 8)
+    if f == 12000:                         # C >= 2 SMs would give 1 block
+        assert plan[0] == 2
     rng = np.random.default_rng(sum(shape))
-    c, n, f = shape
-    pcm = rng.integers(-32768, 32768, shape).astype(np.int16)
+    pcm = rng.integers(-32768, 32768, (c, n, f)).astype(np.int16)
     active = rng.random((c, n)) < 0.75
     pcm[:, 0] = 0
-    pcm[:, 1] = 0
-    pcm[:, 1, :2] = [1, -1]
+    pcm[:, 1:2] = 0
+    pcm[:, 1:2, :2] = [1, -1][:f]
     pcm[:, 2:4] = 32767
     active[:, :4] = True
-    active[:, 4] = False
-    p_d = torch.from_numpy(pcm).to(cuda_device)
+    active[:, 4:5] = False
+    flat = torch.zeros(c * n * f + 8, dtype=torch.int16, device=cuda_device)
+    p_d = flat[offset:offset + c * n * f].view(c, n, f)
+    p_d.copy_(torch.from_numpy(pcm))
     a_d = torch.from_numpy(active).to(cuda_device)
     before = kbuild.launches["mix_minus"]
     out, lv = mixer.mix_minus_many(p_d, a_d)
@@ -242,6 +259,18 @@ def test_mix_kernel_matches_plain(cuda_device, shape):
     cpu_out, cpu_lv = mixer.mix_minus_many(torch.from_numpy(pcm),
                                            torch.from_numpy(active))
     assert _same(out, cpu_out) and _same(lv, cpu_lv)
+
+
+def test_mix_kernel_refuses_what_it_cannot_take(cuda_device):
+    """Over 65,535 rows a conference, or a frame wider than a cluster of
+    8 blocks can stage one row of: a ValueError, no launch and no plain
+    version."""
+    before = dict(kbuild.launches), dict(kbuild.plain_calls)
+    for shape in ((1, 65536, 8), (300, 1, 80000)):
+        pcm = torch.zeros(shape, dtype=torch.int16, device=cuda_device)
+        with pytest.raises(ValueError):
+            mixer.mix_minus_many(pcm)
+    assert (dict(kbuild.launches), dict(kbuild.plain_calls)) == before
 
 
 @pytest.mark.parametrize("law", [g711.ULAW, g711.ALAW])
@@ -256,3 +285,22 @@ def test_g711_kernels_match_plain_exhaustively(cuda_device, law):
     assert kbuild.launches["g711_decode"] == before["g711_decode"] + 1
     assert _same(enc, g711.encode(pcm, law))
     assert _same(dec, g711.decode(codes, law))
+
+
+@pytest.mark.parametrize("law", [g711.ULAW, g711.ALAW])
+@pytest.mark.parametrize("offset,n", [(0, 65533), (1, 65536), (3, 40961)])
+def test_g711_encode_kernel_ragged_and_odd_offset(cuda_device, law, offset,
+                                                  n):
+    """Kernel F at a length that is not a multiple of 8 and on views at
+    odd offsets (its one-sample path), against the plain version."""
+    pcm = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)[:n]
+    flat = torch.zeros(n + 8, dtype=torch.int16, device=cuda_device)
+    view = flat[offset:offset + n]
+    view.copy_(pcm)
+    before = kbuild.launches["g711_encode"]
+    got = g711.encode(view, law)
+    torch.cuda.synchronize()
+    assert kbuild.launches["g711_encode"] == before + 1
+    assert _same(got, g711.encode(pcm, law))
+    assert _same(got, g711.ulaw_encode_plain(view) if law == g711.ULAW
+                 else g711.alaw_encode_plain(view))

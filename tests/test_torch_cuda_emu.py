@@ -3,15 +3,20 @@ the CUDA execution model, against their plain PyTorch versions.
 
 There is no `nvcc` or GPU here, so the kernels in `libjitsi_tpu_torch/
 csrc/` are compiled with g++ against `tests/cuda_emu/cuda_emu.h` (one
-std::thread per CUDA thread, std::barrier for `__syncthreads`) and their
-C entry points are called through ctypes on NumPy buffers.  This holds
-the kernels' arithmetic, indexing and synchronisation — not the GPU's
-compiler or timing, which only the card shows (`tests/test_torch_cuda.py`,
-`chip_smoke.py`).  Edge rows: offsets past the row, lengths
-past the row, stream ids outside the table, counters carrying across
-32-bit limbs, unaligned row widths, and for the tiled kernels C and D
-partial tiles, windows that start off a word, and tampered rows beside
-genuine ones in one tile.  Tolerance: exact equality.
+std::thread per CUDA thread, std::barrier for `__syncthreads`, a
+cluster's blocks run together with distributed shared memory, split
+cluster barriers and mbarrier-counted pushes) and their C entry points
+are called through ctypes on NumPy buffers.  This holds the kernels'
+arithmetic, indexing and synchronisation — not the GPU's compiler or
+timing, which only the card shows (`tests/test_torch_cuda.py`,
+`chip_smoke.py`).  Edge rows: offsets past the row, lengths past the
+row, stream ids outside the table, counters carrying across 32-bit
+limbs, unaligned row widths, for the tiled kernels C and D partial
+tiles, windows that start off a word, and tampered rows beside genuine
+ones in one tile, and for kernel E every kind of launch its plan makes
+(clusters of 1, 2, 5, 8 and 16 blocks, blocks of unequal width, the
+2-byte path, rows in stages) with silent, near-silent, saturating and
+inactive rows.  Tolerance: exact equality.
 """
 
 import ctypes
@@ -26,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from libjitsi_tpu.conference import mixer as jmixer
 from libjitsi_tpu_torch.conference import mixer
 from libjitsi_tpu_torch.kernels import aes, g711, sha1
 from libjitsi_tpu_torch.kernels import build as kbuild
@@ -40,7 +46,11 @@ def emu(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernel sources")
     work = tmp_path_factory.mktemp("cuda_emu")
-    (work / "cuda_runtime.h").write_text("#pragma once\n")
+    # the CUDA headers, and csrc/dsmem.cuh's PTX, which cuda_emu.h stands
+    # in for (a quoted include finds the sources' directory first)
+    for stub in ("cuda_runtime.h", "cooperative_groups.h",
+                 "cuda_pipeline_primitives.h", "dsmem.cuh"):
+        (work / stub).write_text("#pragma once\n")
     srcs = []
     for name in sorted(os.listdir(kbuild.CSRC_DIR)):
         if not name.endswith(".cu"):
@@ -49,8 +59,9 @@ def emu(tmp_path_factory):
             s = f.read()
         s = s.replace("extern __shared__ uint4 smem[];",
                       "uint4* smem = static_cast<uint4*>(emu_dyn_smem);")
-        s = re.sub(r"(\w+(?:<\d+>)?)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ",
-                   s, flags=re.S)
+        s = re.sub(r"(\w+(?:<\d+>)?)<<<(.*?)>>>\((\))?",
+                   lambda m: f"emu_launch({m[1]}, {m[2]}"
+                   + (")" if m[3] else ", "), s, flags=re.S)
         out = work / (name + ".cpp")
         out.write_text(s)
         srcs.append(str(out))
@@ -207,31 +218,99 @@ def test_emulated_latency_probe_chains(emu):
     assert emu.ljt_probe_aes_chain(_p(rk), _p(blocks), _p(cycles), 10, n,
                                    None) == 0
     assert np.array_equal(blocks, want) and (cycles > 0).all()
+    assert emu.ljt_probe_empty(None) == 0
+    assert emu.ljt_probe_cluster(2, None) == 0
+    assert emu.ljt_probe_cluster(17, None) != 0
 
 
-@pytest.mark.parametrize("shape", [(2, 8, 960), (2, 5, 160), (1, 33, 70)])
-def test_emulated_kernel_e_matches_plain(emu, shape):
-    rng = np.random.default_rng(sum(shape))
-    c, n, f = shape
-    pcm = rng.integers(-32768, 32768, shape).astype(np.int16)
+REFUSED = mixer.MIX_REFUSED
+
+
+def _edge_rows(rng, c, n, f):
+    """Random frames and a 70% active mask, then in every conference:
+    row 0 silent, row 1 near-silent (±1 in three samples), rows 2-3
+    saturating (all active) and row 4 inactive, as far as its rows go."""
+    pcm = rng.integers(-32768, 32768, (c, n, f)).astype(np.int16)
     active = (rng.random((c, n)) < 0.7).astype(np.uint8)
-    pcm[:, 0] = 0                                   # silent
-    pcm[:, 1] = 0
-    pcm[:, 1, :3] = [1, -1, 1]                      # near-silent
-    pcm[:, 2] = 32767                               # saturating
-    pcm[:, 3] = 32767
-    active[:, :4] = 1
-    active[:, 4] = 0                                # inactive
-    out = np.zeros_like(pcm)
+    for row, value in enumerate((0, 0, 32767, 32767)[:n]):
+        pcm[:, row] = value
+        active[:, row] = 1
+    if n > 1:
+        pcm[:, 1, :3] = [1, -1, 1][:f]              # near-silent
+    if n > 4:
+        active[:, 4] = 0                            # inactive
+    return pcm, active
+
+
+# (C, N, F, SMs the emulator reports, pcm offset in samples, expected plan
+# as (cluster, columns a block stages, rows staged at a time, vec)).
+# Kernel E gives a conference ceil(2 SMs / C) blocks, at most 8 (16 while
+# C * 8 < SMs) and at most one a column vector of 8 samples, more while
+# one row of a block's columns does not fit, and stages at most 96 KB a
+# block, rows in stages beyond; a staged row is an odd number of vectors
+# long.
+@pytest.mark.parametrize("shape", [
+    (2, 8, 960, 1, 0, (1, 968, 8, 1)),
+    (2, 5, 160, 1, 0, (1, 168, 5, 1)),
+    (1, 33, 70, 1, 0, (2, 40, 33, 0)),        # F = 70: scalar path
+    (1, 40, 64, 4, 0, (8, 8, 40, 1)),         # a cluster of 8
+    (2, 12, 160, 2, 0, (2, 88, 12, 1)),       # blocks of equal width
+    (2, 33, 96, 5, 0, (5, 24, 33, 1)),        # blocks of 2 and 3 vectors
+    (2, 8, 960, 1, 1, (1, 968, 8, 0)),        # a view at an odd offset
+    (5, 1, 1, 1, 0, (1, 8, 1, 0)),            # N = 1, F = 1
+    (1, 64, 1600, 1, 0, (2, 808, 56, 1)),     # rows in two stages
+    (1, 64, 1601, 1, 1, (2, 808, 56, 0)),     # the same, scalar path
+    (1, 20, 128, 16, 0, (16, 8, 20, 1)),      # a cluster of 16
+    (1, 1600, 96, 1, 0, (2, 56, 773, 1)),     # 1,600 rows in three stages
+    (1, 1600, 97, 1, 1, (2, 56, 773, 0)),     # the same, scalar path
+    (2, 3, 2400, 1, 0, (1, 2408, 3, 1)),      # more vectors than threads
+    (2, 3, 12000, 1, 0, (2, 6008, 3, 1)),     # too wide for one block
+])
+def test_emulated_kernel_e_matches_plain(emu, monkeypatch, shape):
+    c, n, f, sms, offset, want_plan = shape
+    monkeypatch.setenv("EMU_SM_COUNT", str(sms))
+    rng = np.random.default_rng(sum(shape[:3]))
+    frames, active = _edge_rows(rng, c, n, f)
+    buf = np.zeros(c * n * f + 8, np.int16)
+    pcm = buf[offset:offset + c * n * f].reshape(c, n, f)
+    pcm[:] = frames
+    out = np.zeros_like(frames)
     lv = np.zeros((c, n), np.uint8)
+    plan = np.zeros(5, np.int32)
+    assert emu.ljt_mix_minus_plan(_p(pcm), _p(out), c, n, f, _p(plan)) == 0
+    assert tuple(plan[:4]) == want_plan
     assert emu.ljt_mix_minus(_p(pcm), _p(active), _p(out), _p(lv), c, n, f,
                              None) == 0
-    want_out, want_lv = mixer.mix_minus_many_plain(T(pcm), T(active))
+    want_out, want_lv = mixer.mix_minus_many_plain(T(frames), T(active))
     assert np.array_equal(out, want_out.numpy())
     assert np.array_equal(lv, want_lv.numpy())
-    assert (lv[:, 4] == 127).all() and (lv[:, 0] == 127).all()
+    assert (lv[:, 0] == 127).all() and (n < 5 or (lv[:, 4] == 127).all())
+    assert n < 4 or (lv[:, 2:4] == 0).all()
     assert emu.ljt_mix_minus(_p(pcm), _p(active), _p(out), _p(lv), -1, n, f,
-                             None) != 0
+                             None) not in (0, REFUSED)
+    # refused (its own code, nothing launched): a conference over 65,535
+    # rows (its int32 column sums), a frame wider than 8 blocks stage
+    assert emu.ljt_mix_minus_plan(_p(pcm), _p(out), 1, 65536, 8,
+                                  _p(plan)) == REFUSED
+    assert emu.ljt_mix_minus_plan(_p(pcm), _p(out), 2, 1, 78528,
+                                  _p(plan)) == 0 and plan[0] == 8
+    assert emu.ljt_mix_minus_plan(_p(pcm), _p(out), 2, 1, 78529,
+                                  _p(plan)) == REFUSED
+
+
+def test_emulated_kernel_e_matches_jax_reference(emu, monkeypatch):
+    """One multi-block cluster case held against the JAX package's XLA
+    mixer itself, not only against the port's plain version."""
+    monkeypatch.setenv("EMU_SM_COUNT", "4")
+    c, n, f = 1, 40, 64
+    frames, active = _edge_rows(np.random.default_rng(7), c, n, f)
+    out = np.zeros_like(frames)
+    lv = np.zeros((c, n), np.uint8)
+    assert emu.ljt_mix_minus(_p(frames), _p(active), _p(out), _p(lv), c, n,
+                             f, None) == 0
+    j_out, j_lv = jmixer.mix_minus_many(frames, active.astype(bool))
+    assert np.array_equal(out, np.asarray(j_out))
+    assert np.array_equal(lv, np.asarray(j_lv))
 
 
 @pytest.mark.parametrize("law", [g711.ULAW, g711.ALAW])
@@ -241,9 +320,21 @@ def test_emulated_kernels_f_g_match_plain(emu, law):
         np.array([-32768, -32767, -32635, -8060, -1, 0, 1, 8060, 32635,
                   32767], np.int16),
         rng.integers(-32768, 32768, 1990).astype(np.int16)])
+    want = g711.encode(T(pcm), law).numpy()
     codes = np.zeros(pcm.shape, np.uint8)
     assert emu.ljt_g711_encode(_p(pcm), _p(codes), len(pcm), law, None) == 0
-    assert np.array_equal(codes, g711.encode(T(pcm), law).numpy())
+    assert np.array_equal(codes, want)
+    # a ragged length (tail of 3 after the 8-sample steps), then pcm and
+    # codes at odd offsets (the one-sample path)
+    buf = np.zeros(len(pcm) + 8, np.int16)
+    cbuf = np.zeros(len(pcm) + 8, np.uint8)
+    for off, n in ((0, 1995), (1, len(pcm)), (3, 1003)):
+        cbuf[:] = 0
+        buf[off:off + n] = pcm[:n]
+        assert emu.ljt_g711_encode(_p(buf[off:]), _p(cbuf[off:]), n, law,
+                                   None) == 0
+        assert np.array_equal(cbuf[off:off + n], want[:n])
+        assert not cbuf[off + n:].any() and not cbuf[:off].any()
     every = np.tile(np.arange(256, dtype=np.uint8), 3)
     back = np.zeros(every.shape, np.int16)
     assert emu.ljt_g711_decode(_p(every), _p(back), len(every), law,
