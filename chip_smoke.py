@@ -17,7 +17,15 @@ version:
                 loopback, 50 ticks at 20 ms steps (kernels C, D, E, F,
                 G), held byte for byte against the same run of the
                 bridge on the CPU;
-  mixer_bridge  `MixerBridge(64, 64, 960)` for 200 ticks (kernel E).
+  mixer_bridge  `MixerBridge(64, 64, 960)` for 200 ticks (kernel E);
+  sfu           an `SfuBridge` of 100 conferences x 11 endpoints (1,100
+                senders, 11,000 per-leg copies a 20 ms tick) over UDP
+                loopback, 50 ticks with RRs, NACKs and SRTCP feedback
+                (kernels D, H, I, J); its first ticks and its NACK tick
+                are held byte for byte against the same bridge on the
+                CPU, every copy the client received is authenticated
+                under its leg's key, and none echoes or crosses a
+                conference.
 
 Beside them, `sass` gives each kernel's instruction count, registers and
 spills (and kernel E's launch plans: cluster size and dynamic shared
@@ -107,6 +115,16 @@ MIXER_BRIDGE = (64, 64, 960)
 # kernel E's timed shapes: AudioMixer, the conference bridge, MixerBridge
 MIX_SHAPES = ((1, 256, 960), (1, CONF_PARTIES, 160), MIXER_BRIDGE)
 MIXER_TICKS = 200
+# the SFU path: BASELINE config #5 (1k senders x 10k receiver legs)
+SFU_CONFS, SFU_SIZE = 100, 11
+SFU_N = SFU_CONFS * SFU_SIZE
+SFU_TICKS = 50
+SFU_PROFILED = 5
+SFU_BURSTS = 4              # sends a 20 ms tick of media in 4 bursts
+SFU_RR_TICKS = (12, 37)     # one RR a sender every 25 ticks
+SFU_NACK_TICK = 30          # 10 receivers NACK 3 seqs each
+SFU_FEEDBACK = 10           # emit_feedback every 10 ticks
+SFU_CPU_TICKS = (0, 1, 2, 27, 28, 29, SFU_NACK_TICK)
 SOURCES = {
     "aes_encrypt": ("libjitsi_tpu_torch/csrc/aes_encrypt.cu",
                     "libjitsi_tpu/kernels/aes_bitsliced.py:548"),
@@ -122,16 +140,29 @@ SOURCES = {
                     "libjitsi_tpu/kernels/g711.py:62"),
     "g711_decode": ("libjitsi_tpu_torch/csrc/g711.cu",
                     "libjitsi_tpu/kernels/g711.py:51"),
+    "srtp_fanout_cm": ("libjitsi_tpu_torch/csrc/srtp_fanout.cu",
+                       "libjitsi_tpu/sfu/translator.py:65"),
+    "srtcp_protect_cm": ("libjitsi_tpu_torch/csrc/srtcp_cm.cu",
+                         "libjitsi_tpu/transform/srtp/kernel.py:164"),
+    "srtcp_unprotect_cm": ("libjitsi_tpu_torch/csrc/srtcp_cm.cu",
+                           "libjitsi_tpu/transform/srtp/kernel.py:193"),
 }
 # the kernels each path must launch
 PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
          "conference": ("srtp_protect_cm", "srtp_unprotect_cm", "mix_minus",
                         "g711_encode", "g711_decode"),
-         "mixer_bridge": ("mix_minus",)}
+         "mixer_bridge": ("mix_minus",),
+         "sfu": ("srtp_unprotect_cm", "srtp_fanout_cm", "srtcp_protect_cm",
+                 "srtcp_unprotect_cm")}
+
+
+T_START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line a phase; `at_s` is the script's time when it ends."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def require(cond, what: str) -> None:
@@ -165,6 +196,7 @@ def main() -> int:
     rows = kernels_vs_plain(torch, dev)
     rows.update(mix_kernel(torch, dev, floor_ms))
     rows.update(g711_kernels(torch, dev, floor_ms))
+    rows.update(sfu_kernels(torch, dev, floor_ms))
 
     counts = {}
 
@@ -189,10 +221,16 @@ def main() -> int:
     conference_check(torch, dev, conf)
     mb = path("mixer_bridge", mixer_bridge_run, torch, dev)
     mixer_bridge_check(torch, dev, mb)
+    # the clients' wire and RTCP are made (on kernels C and I) before the
+    # counts are reset, so the sfu counts hold the bridge's launches only
+    sfu_in = _sfu_setup(torch, dev)
+    sfu = path("sfu", sfu_run, torch, dev, sfu_in)
+    sfu_check(torch, dev, sfu)
     per_unit = {"srtp_echo": ("launches_per_table_batch",
                               table["launches_per_batch"]),
                 "conference": ("launches_per_conference_tick",
-                               conf["launches_per_tick"])}
+                               conf["launches_per_tick"]),
+                "sfu": ("launches_per_sfu_tick", sfu["launches_per_tick"])}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
@@ -245,8 +283,8 @@ PROFILER_RETRIES: dict = {}
 PROFILER_FALLBACK: list = []
 
 # record_function spans, which the profiler mirrors on the device timeline
-SPANS = ("ingress", "reverse_chain", "decode", "mixer", "forward_chain",
-         "egress")
+SPANS = ("ingress", "reverse_chain", "decode", "mixer", "recovery",
+         "forward_chain", "egress")
 
 
 def _is_span(name: str) -> bool:
@@ -432,6 +470,10 @@ def sass_counts(kbuild) -> None:
                 f"than its bound counts: {counts}")
     ptxas = ptxas_usage(kbuild)
     for k in ("srtp_protect_cm", "srtp_unprotect_cm"):
+        for nr in (10, 14):
+            require(f"{k} nr={nr}" in ptxas, f"no ptxas report for {k} "
+                                             f"nr={nr}: {sorted(ptxas)}")
+    for k in ("srtp_fanout_cm", "srtcp_protect_cm", "srtcp_unprotect_cm"):
         for nr in (10, 14):
             require(f"{k} nr={nr}" in ptxas, f"no ptxas report for {k} "
                                              f"nr={nr}: {sorted(ptxas)}")
@@ -1415,6 +1457,497 @@ def mixer_bridge_check(torch, dev, mb) -> None:
          tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
          conference_mixes_per_s=c / float(np.median(secs)),
          ticks_equal_to_plain=sorted(mb["kept"]), profile=profile)
+
+
+# ------------------------------------------------- 9. SFU kernels H, I, J
+
+def _key_tables(rng, n: int):
+    """Random AES-128 round keys [n, 11, 16] and HMAC midstates [n, 2, 5]."""
+    from libjitsi_tpu_torch.kernels import aes, sha1
+
+    return (aes.expand_keys_batch(rng.integers(0, 256, (n, 16), np.uint8)),
+            sha1.hmac_precompute_batch(
+                rng.integers(0, 256, (n, 20), np.uint8)).view(np.int32))
+
+
+def _fanout_case(rng, p, legs, lens, width, n_tab):
+    """P packets of `lens` bytes (12-byte header, 8-byte abs-send-time
+    extension) each sent to `legs` receivers out of a table of n_tab."""
+    tab_rk, tab_mid = _key_tables(rng, n_tab)
+    tab_salt = rng.integers(0, 256, (n_tab, 16), np.uint8)
+    tab_salt[:, 14:] = 0
+    data = rng.integers(0, 256, (p, width), np.uint8)
+    src = np.repeat(np.arange(p), legs).astype(np.int32)
+    recv = rng.integers(0, n_tab, p * legs).astype(np.int32)
+    return [tab_rk, tab_mid, tab_salt, data, lens.astype(np.int32),
+            np.full(p, HDR + 8, np.int32),
+            rng.integers(0, 2 ** 32, p, dtype=np.uint64).astype(
+                np.uint32).view(np.int32),
+            rng.integers(0, 2 ** 40, p, dtype=np.int64), src, recv]
+
+
+def _crypto_times(torch, fn, kernel, plain) -> dict:
+    """A crypto kernel's times as C's and D's are taken: its duration on
+    the card by the profiler, per back-to-back call by CUDA events, and
+    the plain version per call (two calls: it launches thousands of
+    small kernels, too many for a profiler window)."""
+    return dict(ms=device_ms(torch, fn, 50, kernel),
+                call_ms=cuda_ms(torch, fn, 50),
+                plain_ms=cuda_ms(torch, plain, 2, 1))
+
+
+def sfu_kernels(torch, dev, floor_ms: float) -> dict:
+    """Kernel H against its plain version at the fan-out bench shape (128
+    packets x 512 receivers, 172-byte packets) and at the SFU tick's
+    (1,100 packets x 10 receivers, 80-180-byte packets), and I and J at
+    1,100 compound RTCP packets of 60-200 bytes, each with its bound and
+    beside the launch floor.  No PyTorch call computes SRTP, so none has
+    a library time."""
+    from libjitsi_tpu_torch.transform.srtp import kernel as sk
+
+    rng = np.random.default_rng(53)
+    rows = {}
+    for label, p, legs, lens, width in (
+            ("128x512 len 172 (fan-out bench)", 128, 512,
+             np.full(128, 172), 192),
+            ("1100x10 len 80-180 (the SFU tick)", SFU_N, SFU_SIZE - 1,
+             rng.integers(80, 181, SFU_N), 192)):
+        host = _fanout_case(rng, p, legs, lens, width, SFU_N)
+        args = [torch.as_tensor(x).to(dev) for x in host]
+        err = max_abs_err(torch, sk.srtp_fanout_protect(*args, TAG),
+                          sk.srtp_fanout_protect_plain(*args, TAG))
+        require(err == 0, f"kernel H {label} differs from its plain version")
+        n = p * legs
+        ks_blocks = int((((lens - HDR - 8 + 15) // 16) * legs).sum())
+        mac_blocks = int((((lens + 4 + 9 + 63) // 64 + 1) * legs).sum())
+        ops = (ks_blocks * (aes_block_ops(10) + CTR_XOR_OPS)
+               + mac_blocks * SHA1_BLOCK_OPS)
+        nbytes = p * width + p * 20 + n * (width + 4 + 8 + 176 + 40 + 16)
+        b_ms, b_by = bound(nbytes, ops)
+        line = dict(name="srtp_fanout_cm", shape=label, max_abs_err=err,
+                    **_crypto_times(
+                        torch, lambda: sk.srtp_fanout_protect(*args, TAG),
+                        "srtp_fanout_cm_kernel",
+                        lambda: sk.srtp_fanout_protect_plain(*args, TAG)),
+                    bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms,
+                    library_ms=None, library="none", bytes=nbytes, ops=ops)
+        emit("kernel_vs_plain", **line)
+        if p == SFU_N:
+            rows["srtp_fanout_cm"] = line
+    # I and J: 1,100 compound RTCP packets of 60-200 bytes
+    n, width = SFU_N, 224
+    tab_rk, tab_mid = _key_tables(rng, SFU_N)
+    lens = rng.integers(60, 201, n).astype(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    stream = rng.permutation(SFU_N).astype(np.int32)
+    iv = rng.integers(0, 256, (n, 16), np.uint8)
+    word = (np.uint64(1 << 31) | rng.integers(0, 2 ** 31, n, np.uint64)
+            ).astype(np.uint32).view(np.int32)
+    pa = [torch.as_tensor(x).to(dev) for x in (tab_rk, tab_mid, stream,
+                                                data, lens, iv, word)]
+    wire, wlen = sk.srtcp_protect(*pa, TAG)
+    require(max_abs_err(torch, (wire, wlen),
+                        sk.srtcp_protect_plain(*pa, TAG)) == 0,
+            "kernel I differs from its plain version")
+    ua = pa[:3] + [wire, wlen, pa[5]]
+    got = sk.srtcp_unprotect(*ua, TAG)
+    require(bool(got[2].all()), "kernel J rejected genuine rows")
+    require(max_abs_err(torch, got, sk.srtcp_unprotect_plain(*ua, TAG))
+            == 0, "kernel J differs from its plain version")
+    ks_blocks = int(((lens - 8 + 15) // 16).sum())
+    mac_blocks = int(((lens + 4 + 9 + 63) // 64 + 1).sum())
+    ops = (ks_blocks * (aes_block_ops(10) + CTR_XOR_OPS)
+           + mac_blocks * SHA1_BLOCK_OPS)
+    nbytes = 2 * n * width + n * (4 + 16 + 4 + 4) + n * (176 + 40)
+    b_ms, b_by = bound(nbytes, ops)
+    for name, fn, plain in (
+            ("srtcp_protect_cm", lambda: sk.srtcp_protect(*pa, TAG),
+             lambda: sk.srtcp_protect_plain(*pa, TAG)),
+            ("srtcp_unprotect_cm", lambda: sk.srtcp_unprotect(*ua, TAG),
+             lambda: sk.srtcp_unprotect_plain(*ua, TAG))):
+        line = dict(name=name, shape=f"{n}x{width} RTCP 60-200 bytes",
+                    max_abs_err=0, **_crypto_times(torch, fn,
+                                                   name + "_kernel", plain),
+                    bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms,
+                    library_ms=None, library="none", bytes=nbytes, ops=ops)
+        emit("kernel_vs_plain", **line)
+        rows[name] = line
+    return rows
+
+
+# ---------------------------------------------------------- 10. SFU path
+
+def _sfu_setup(torch, dev) -> dict:
+    """Keys, SSRCs, conferences and every tick's client wire: each
+    endpoint sends one Opus-sized packet a tick (12-byte header, 8-byte
+    abs-send-time extension, 60-160-byte payload; some senders' seqs
+    wrap), in a seeded order cut into SFU_BURSTS bursts; one RR a sender
+    at each of SFU_RR_TICKS (one of them reporting 5% loss) and, at
+    SFU_NACK_TICK, a NACK from one receiver in each of 10 conferences
+    for the previous tick's packets of three of its mates."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.rtp import rtcp
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    n, ticks = SFU_N, SFU_TICKS + SFU_PROFILED
+    rng = np.random.default_rng(29)
+    keys = {d: (rng.integers(0, 256, (n, 16), np.uint8),
+                rng.integers(0, 256, (n, 14), np.uint8)) for d in ("rx", "tx")}
+    ssrc = (0x51000000 + rng.permutation(1 << 20)[:n]).astype(np.int64)
+    conf = np.arange(n) // SFU_SIZE
+    seq0 = rng.integers(0, 1 << 16, n)
+    seq0[::7] = 65536 - 20                  # these wrap within the run
+    order = rng.permutation(n)              # the client's send order
+    bursts = np.array_split(order, SFU_BURSTS)
+    up = SrtpStreamTable(n, device=dev)
+    up.add_streams(np.arange(n), *keys["rx"])
+    payloads, wires, rtcp_wires = [], [], {}
+    for t in range(ticks):
+        pl = [rng.integers(0, 256, int(k), np.uint8).tobytes()
+              for k in rng.integers(60, 161, n)]
+        ast = int(round((1000.0 + 0.02 * t) * (1 << 18))) & 0xFFFFFF
+        ext = (0xBEDE, bytes([0x32]) + ast.to_bytes(3, "big"))
+        plain = rtp_header.build(pl, (seq0 + t) & 0xFFFF, t * 960,
+                                 ssrc.tolist(), 111, ext=[ext] * n,
+                                 stream=list(range(n)))
+        payloads.append(pl)
+        wires.append(up.protect_rtp(plain))
+    for t in SFU_RR_TICKS:
+        blobs = []
+        for k in range(n):
+            mate = conf[k] * SFU_SIZE + (k + 1) % SFU_SIZE
+            lossy = t == SFU_RR_TICKS[-1] and k == 0
+            blobs.append(rtcp.build_compound([rtcp.build_rr(
+                rtcp.ReceiverReport(int(ssrc[k]), [rtcp.ReportBlock(
+                    int(ssrc[mate]), 13 if lossy else 0, 2 if lossy else 0,
+                    int(seq0[mate] + t), 4, 0, 0)]))]))
+        rtcp_wires[t] = up.protect_rtcp(PacketBatch.from_payloads(
+            blobs, stream=list(range(n))))
+    nackers = np.arange(min(10, SFU_CONFS)) * SFU_SIZE + 1
+    nacked = {}
+    blobs = []
+    for r in nackers:
+        mates = [r + 1, r + 2, r + 3]
+        nacked[int(r)] = mates
+        blobs.append(rtcp.build_compound([rtcp.build_nack(rtcp.Nack(
+            int(ssrc[r]), int(ssrc[m]),
+            [int(seq0[m] + SFU_NACK_TICK - 1) & 0xFFFF]))
+            for m in mates]))
+    rtcp_wires[SFU_NACK_TICK] = up.protect_rtcp(PacketBatch.from_payloads(
+        blobs, stream=nackers.tolist()))
+    return dict(keys=keys, ssrc=ssrc, conf=conf, seq0=seq0, bursts=bursts,
+                payloads=payloads, wires=wires, rtcp=rtcp_wires,
+                nacked=nacked)
+
+
+def _sfu_bridge(torch, dev, setup):
+    from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+
+    (rk, rs), (tk, ts) = setup["keys"]["rx"], setup["keys"]["tx"]
+    bridge = SfuBridge(capacity=SFU_N, device=dev)
+    sids = bridge.stage_endpoints(
+        [(int(setup["ssrc"][k]), (rk[k].tobytes(), rs[k].tobytes()),
+          (tk[k].tobytes(), ts[k].tobytes()), None) for k in range(SFU_N)],
+        conferences=setup["conf"].tolist())
+    require(sids == list(range(SFU_N)), "rows not handed out in spec order")
+    bridge.commit_endpoints(sids)
+    return bridge
+
+
+class _Sends:
+    """Every datagram a bridge's engine sends while `on` is set."""
+
+    def __init__(self, bridge):
+        self.on, self.ticks = None, {}
+        eng = bridge.loop.engine
+        orig = eng.send_batch
+
+        def send_batch(batch, ip, port):
+            if self.on is not None:
+                self.ticks.setdefault(self.on, []).extend(
+                    batch.to_bytes(i) for i in range(batch.batch_size))
+            return orig(batch, ip, port)
+
+        eng.send_batch = send_batch
+
+
+def _sfu_tick(bridge, setup, t, client, latched=None) -> tuple:
+    """One 20 ms tick of input: the media in SFU_BURSTS bursts, then the
+    tick's RTCP in bursts of the same size, each burst sent and the
+    bridge ticked (at now = 1000 + 0.02 t) until it has taken the burst
+    in, so no burst outgrows a default-sized socket buffer.  Returns
+    (bridge seconds, packets in, forwards expected): an accepted packet
+    is forwarded to each mate whose address is latched, i.e. who has
+    sent by then."""
+    now = 1000.0 + 0.02 * t
+    sends = [(setup["wires"][t], rows) for rows in setup["bursts"]]
+    extra = setup["rtcp"].get(t)
+    if extra is not None:
+        step = len(setup["bursts"][0])
+        sends += [(extra, np.arange(lo, min(lo + step, extra.batch_size)))
+                  for lo in range(0, extra.batch_size, step)]
+    secs, taken, expect = 0.0, 0, 0
+    conf = setup["conf"]
+    for b, (wire, rows) in enumerate(sends):
+        client.send_rows(wire, rows, "127.0.0.1", bridge.port)
+        if latched is not None and b < SFU_BURSTS:
+            latched[rows] = True
+            per_conf = np.bincount(conf[latched], minlength=SFU_CONFS)
+            expect += int((per_conf[conf[rows]] - 1).sum())
+        got = 0
+        for _ in range(200):
+            t0 = time.perf_counter()
+            got += bridge.tick(now=now)["rx"]
+            secs += time.perf_counter() - t0
+            if got >= len(rows):
+                break
+        require(got == len(rows), f"sfu tick {t} burst {b}: the bridge "
+                                  f"took {got} of {len(rows)} datagrams")
+        taken += got
+    return secs, taken, expect
+
+
+def sfu_run(torch, dev, setup) -> dict:
+    """The SFU path on the card, driven as a user drives it: stage and
+    commit 1,100 endpoints in 100 conferences, then SFU_TICKS ticks of
+    input from one client socket (drained by a thread), emit_feedback
+    every SFU_FEEDBACK ticks.  The bridge's fan-out calls are logged
+    (rows, legs) and its sends kept at SFU_CPU_TICKS; a snapshot is taken
+    before the tick the CPU run resumes from."""
+    import threading
+
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    bridge = _sfu_bridge(torch, dev, setup)
+    sends = _Sends(bridge)
+    fanout = []
+    emit_fanout = bridge._emit_fanout
+
+    def logged(wire, recv):
+        ready = np.nonzero(bridge.loop.addr_port[recv] != 0)[0]
+        fanout.append((wire.data[ready], np.asarray(wire.length)[ready],
+                       recv[ready]))
+        return emit_fanout(wire, recv)
+
+    bridge._emit_fanout = logged
+    client = UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=4096,
+                       rcvbuf=64 << 20)
+    got, stop = [], threading.Event()
+
+    def drain():
+        while not stop.is_set():
+            b, _, _ = client.recv_batch(timeout_ms=5)
+            got.extend(b.to_payloads())
+
+    th = threading.Thread(target=drain, daemon=True)
+    th.start()
+    latched = np.zeros(SFU_N, dtype=bool)
+    res = dict(tick_s=[], launches=dict.fromkeys(kbuild.launches, 0),
+               expected=0, taken=0, feedback_sent=0, snap=None)
+    try:
+        for t in range(SFU_TICKS):
+            if t == SFU_CPU_TICKS[3]:
+                res["snap"] = bridge.snapshot()
+            sends.on = t if t in SFU_CPU_TICKS else None
+            secs, taken, expect = _sfu_tick(bridge, setup, t, client,
+                                            latched)
+            sends.on = None
+            res["tick_s"].append(secs)
+            res["taken"] += taken
+            res["expected"] += expect
+            if t == SFU_NACK_TICK:
+                res["nack"] = dict(
+                    retransmitted=bridge.retransmitted,
+                    served=bridge.recovery.rtx_requests_served,
+                    cache_miss=bridge.recovery.rtx_cache_miss)
+            if t % SFU_FEEDBACK == SFU_FEEDBACK - 1:
+                res["feedback_sent"] += bridge.emit_feedback(now=1000.0
+                                                             + 0.02 * t
+                                                             + 0.01)
+    finally:
+        time.sleep(0.05)
+        stop.set()
+        th.join()
+    res["launches"] = dict(kbuild.launches)
+    res["launches_per_tick"] = {k: v / SFU_TICKS
+                                for k, v in res["launches"].items()}
+    res.update(bridge=bridge, client=client, received=got, fanout=fanout,
+               sends=sends.ticks, setup=setup)
+    return res
+
+
+def _sfu_cpu(torch, setup, sends, snap) -> list:
+    """The same input through the bridge on the CPU (plain versions): a
+    fresh bridge for the first ticks, and one restored from the card
+    bridge's snapshot for the ticks up to the NACK tick.  Returns the
+    ticks whose sends equal the card's."""
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+
+    cpu = torch.device("cpu")
+    equal = []
+    with UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=64,
+                   rcvbuf=1 << 16) as sink:
+        for ticks, bridge in (
+                (SFU_CPU_TICKS[:3], _sfu_bridge(torch, cpu, setup)),
+                (SFU_CPU_TICKS[3:], SfuBridge.restore(snap, device=cpu))):
+            latched = bridge.loop.addr_port != 0
+            bridge.loop.addr_ip[latched] = 0x7F000001
+            bridge.loop.addr_port[latched] = sink.port
+            kept = _Sends(bridge)
+            for t in ticks:
+                kept.on = t
+                _sfu_tick(bridge, setup, t, sink)
+                kept.on = None
+                require(kept.ticks.get(t) == sends.get(t),
+                        f"sfu tick {t}: the card's sends differ from the "
+                        "CPU run's")
+                equal.append(t)
+            bridge.close()
+    return equal
+
+
+def sfu_check(torch, dev, run) -> None:
+    """Gates of the SFU path: no echo and no copy across conferences
+    (from the bridge's fan-out log), `forwarded` equal to the accepted
+    packets times their latched mates, every NACKed seq served, the
+    card's sends equal to the CPU run's at SFU_CPU_TICKS, and every copy
+    the client received authenticated under its leg's key and equal to
+    what its sender sent.  Then SFU_PROFILED more ticks under
+    torch.profiler."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    setup, bridge = run["setup"], run["bridge"]
+    conf, ssrc = setup["conf"], setup["ssrc"]
+    sid_of = {int(s): k for k, s in enumerate(ssrc)}
+    require(int(bridge.rx_table.auth_fail.sum()) == 0
+            and int(bridge.rx_table.replay_reject.sum()) == 0,
+            "the bridge rejected genuine uplink packets")
+    require(run["taken"] == SFU_TICKS * SFU_N + sum(
+        w.batch_size for w in setup["rtcp"].values()),
+        "the bridge did not take every datagram sent")
+    # the fan-out log: leg of each copy, sender from its SSRC
+    leg_of, echo, cross, copies = {}, 0, 0, 0
+    for data, length, recv in run["fanout"]:
+        snd = np.array([sid_of[int(v)] for v in rtp_header.read_u32(
+            data, 8)])
+        echo += int((snd == recv).sum())
+        cross += int((conf[snd] != conf[recv]).sum())
+        copies += len(recv)
+        for i in range(len(recv)):
+            pkt = data[i, :length[i]].tobytes()
+            leg_of[pkt[2:4] + pkt[8:12] + pkt[-TAG:]] = int(recv[i])
+    require(echo == 0 and cross == 0,
+            f"sfu: {echo} self-echo and {cross} cross-conference copies")
+    require(bridge.forwarded == copies == run["expected"],
+            f"sfu: forwarded {bridge.forwarded}, logged {copies}, "
+            f"expected {run['expected']}")
+    nack = run["nack"]
+    n_nacked = 3 * len(setup["nacked"])
+    require(nack["retransmitted"] == nack["served"] == n_nacked
+            and nack["cache_miss"] == 0, f"sfu NACK service: {nack}")
+    t0 = time.perf_counter()
+    equal = _sfu_cpu(torch, setup, run["sends"], run["snap"])
+    cpu_s = time.perf_counter() - t0
+    # the client's copies: each (unique) one authenticated under its
+    # leg's key in a card table with a row per (leg, sender), and its
+    # payload equal to what the sender sent
+    got = [p for p in run["received"] if not 192 <= p[1] <= 223]
+    fb = len(run["received"]) - len(got)
+    uniq = list(dict.fromkeys(got))
+    rows = {}
+    for leg in range(SFU_N):
+        mates = [m for m in range(conf[leg] * SFU_SIZE,
+                                  conf[leg] * SFU_SIZE + SFU_SIZE)
+                 if m != leg]
+        for j, m in enumerate(mates):
+            rows[(leg, m)] = leg * (SFU_SIZE - 1) + j
+    down = SrtpStreamTable(len(rows), device=dev)
+    tk, ts = setup["keys"]["tx"]
+    legs = np.repeat(np.arange(SFU_N), SFU_SIZE - 1)
+    down.add_streams(np.arange(len(rows)), tk[legs], ts[legs])
+    batch = PacketBatch.from_payloads(uniq, capacity=224)
+    hdr = rtp_header.parse(batch)
+    unknown = 0
+    for i, p in enumerate(uniq):
+        leg = leg_of.get(p[2:4] + p[8:12] + p[-TAG:])
+        if leg is None:
+            unknown += 1
+            batch.stream[i] = -1
+        else:
+            batch.stream[i] = rows[(leg, sid_of[int(hdr.ssrc[i])])]
+    require(unknown == 0, f"sfu: {unknown} received copies the bridge "
+                          "never fanned out")
+    # what each sender sent, [tick, sender, 160] zero-padded
+    plen = np.array([[len(p) for p in tick] for tick in setup["payloads"]])
+    pay = np.zeros(plen.shape + (160,), np.uint8)
+    for t, tick in enumerate(setup["payloads"]):
+        for k, p in enumerate(tick):
+            pay[t, k, :len(p)] = np.frombuffer(p, np.uint8)
+    by_ssrc = np.argsort(ssrc)
+    authed = 0
+    step = SFU_N * (SFU_SIZE - 1)
+    for lo in range(0, batch.batch_size, step):      # in arrival order
+        part = PacketBatch(batch.data[lo:lo + step],
+                           batch.length[lo:lo + step],
+                           batch.stream[lo:lo + step])
+        dec, ok = down.unprotect_rtp(part)
+        require(ok.all(), f"sfu: {int((~ok).sum())} received copies "
+                          "failed authentication under their leg's key")
+        authed += int(ok.sum())
+        dh = rtp_header.parse(dec)
+        k = by_ssrc[np.searchsorted(ssrc, dh.ssrc.astype(np.int64),
+                                    sorter=by_ssrc)]
+        t = (dh.seq.astype(np.int64) - setup["seq0"][k]) & 0xFFFF
+        require(bool((t < SFU_TICKS).all() and (dh.payload_off == HDR + 8)
+                     .all()), "sfu: a copy's seq or header is not its "
+                              "sender's")
+        body = dec.data[:, HDR + 8:HDR + 8 + 160]
+        n_pay = np.asarray(dec.length) - HDR - 8
+        body = np.where(np.arange(160)[None, :] < n_pay[:, None], body, 0)
+        require(bool((n_pay == plen[t, k]).all()
+                     and (body == pay[t, k]).all()),
+                "sfu: a decrypted copy differs from what its sender sent")
+    rcvbuf = run["client"].rcvbuf
+    forwarded = bridge.forwarded
+    prof = _sfu_profile(torch, bridge, setup, run["client"])
+    bridge.close()
+    run["client"].close()
+    secs = np.array(run["tick_s"])
+    emit("sfu", conferences=SFU_CONFS, endpoints=SFU_N,
+         legs_per_tick=SFU_N * (SFU_SIZE - 1), ticks=SFU_TICKS,
+         bursts_per_tick=SFU_BURSTS,
+         tick_ms_p50=float(np.median(secs)) * 1e3,
+         tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+         tick_ms_max=float(secs.max()) * 1e3,
+         ptime_share_p50=float(np.median(secs)) / 0.02,
+         forwarded=forwarded, expected_forwarded=run["expected"],
+         retransmitted=nack["retransmitted"], nacked=n_nacked,
+         feedback_sent=run["feedback_sent"],
+         client_rcvbuf_bytes=rcvbuf,
+         copies_received=len(got), copies_unique=len(uniq),
+         copies_authenticated=authed, feedback_received=fb,
+         self_echo=0, cross_conference=0, equal_to_cpu_ticks=equal,
+         cpu_run_s=cpu_s, launches_per_tick=run["launches_per_tick"],
+         profile=prof)
+
+
+def _sfu_profile(torch, bridge, setup, client) -> dict:
+    """SFU_PROFILED more ticks of the card's bridge under torch.profiler:
+    host time per span, the time outside every top-level span, and the
+    card's busy and idle share."""
+    out = profiled_ticks(
+        torch, lambda i: _sfu_tick(bridge, setup, SFU_TICKS + i, client),
+        SFU_PROFILED)
+    top = ("ingress", "reverse_chain", "recovery", "forward_chain", "egress")
+    spans = out["span_ms_per_tick"]
+    out["outside_spans_ms_per_tick"] = out["wall_ms_per_tick"] - sum(
+        spans.get(k, 0.0) for k in top)
+    return out
 
 
 if __name__ == "__main__":

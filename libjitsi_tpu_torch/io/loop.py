@@ -10,14 +10,17 @@ sink returns — two device launches per tick regardless of stream count.
 
 Each stage runs inside a `torch.profiler.record_function` span
 (ingress, reverse_chain, forward_chain, egress), so a profiler trace of
-the loop shows where a tick's time goes.  The JAX loop's pipelining,
-holds, fanout-only rows, shard-major reordering, pcap, flight recorder
-and metrics registry are not part of this slice.
+the loop shows where a tick's time goes.  Streams on hold (an SFU
+endpoint staged but not yet committed) queue their RTP and drop their
+RTCP until released, as in the JAX loop.  The JAX loop's pipelining,
+fanout-only rows, shard-major reordering, pcap, flight recorder and
+metrics registry are not part of the port yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from collections import deque
+from typing import Callable, Dict, Optional
 
 import numpy as np
 from torch.profiler import record_function
@@ -76,6 +79,37 @@ class MediaLoop:
         self.dtls_packets = 0
         self.unknown_ssrc_dropped = 0
         self.reverse_dropped = 0
+        # streams on hold: their RTP is queued, their RTCP dropped
+        self._hold_mask = np.zeros(registry.capacity, dtype=bool)
+        self._hold_q: Dict[int, deque] = {}
+
+    # ------------------------------------------------------------- holds
+    def hold_stream(self, sid: int, max_packets: int = 64) -> None:
+        self._hold_mask[sid] = True
+        self._hold_q[sid] = deque(maxlen=max_packets)
+
+    def discard_stream(self, sid: int) -> None:
+        """Drop a held stream's queue without replay (endpoint left)."""
+        self._hold_mask[sid] = False
+        self._hold_q.pop(sid, None)
+
+    def release_stream(self, sid: int) -> int:
+        """Replay a held stream's queued packets through the normal
+        receive path (chain + on_media); returns the packet count."""
+        self._hold_mask[sid] = False
+        q = self._hold_q.pop(sid, None)
+        if not q:
+            return 0
+        batch = PacketBatch.from_payloads(list(q), stream=[sid] * len(q))
+        if self.chain is not None:
+            batch, ok = self.chain.rtp_transformer.reverse_transform(batch)
+        else:
+            ok = np.ones(batch.batch_size, bool)
+        if self.on_media is not None:
+            reply = self.on_media(batch, ok)
+            if reply is not None:
+                self.send_media(reply)
+        return len(q)
 
     def tick(self) -> int:
         """One batching window; returns packets received."""
@@ -125,6 +159,14 @@ class MediaLoop:
 
         rtp_rows = np.nonzero(~rtcp & known)[0]
         rtcp_rows = np.nonzero(rtcp & known)[0]
+        if self._hold_q:
+            held = self._hold_mask[sids[rtp_rows]]
+            lens = np.asarray(batch.length)
+            for i in rtp_rows[held]:
+                self._hold_q[int(sids[i])].append(
+                    batch.data[i, :lens[i]].tobytes())
+            rtp_rows = rtp_rows[~held]
+            rtcp_rows = rtcp_rows[~self._hold_mask[sids[rtcp_rows]]]
         if len(rtp_rows):
             rtp = (batch if len(rtp_rows) == batch.batch_size
                    else _rows(batch, rtp_rows))

@@ -55,6 +55,8 @@ def _load():
             lib.udp_close.argtypes = [ctypes.c_int]
             lib.udp_local_port.restype = ctypes.c_int
             lib.udp_local_port.argtypes = [ctypes.c_int]
+            lib.udp_rcvbuf.restype = ctypes.c_int
+            lib.udp_rcvbuf.argtypes = [ctypes.c_int]
             lib.udp_recv_batch.restype = ctypes.c_int
             lib.udp_recv_batch.argtypes = [
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -96,6 +98,11 @@ class UdpEngine:
         self._len = np.zeros(max_batch, dtype=np.int32)
         self._sip = np.zeros(max_batch, dtype=np.uint32)
         self._sport = np.zeros(max_batch, dtype=np.uint16)
+
+    @property
+    def rcvbuf(self) -> int:
+        """The receive buffer the kernel granted, in bytes."""
+        return _load().udp_rcvbuf(self._fd)
 
     def recv_batch(self, timeout_ms: int = 1
                    ) -> Tuple[PacketBatch, np.ndarray, np.ndarray]:

@@ -29,7 +29,8 @@ from typing import Dict, Optional
 import torch
 
 KERNELS = ("aes_encrypt", "hmac_sha1", "srtp_protect_cm", "srtp_unprotect_cm",
-           "mix_minus", "g711_encode", "g711_decode")
+           "mix_minus", "g711_encode", "g711_decode", "srtp_fanout_cm",
+           "srtcp_protect_cm", "srtcp_unprotect_cm")
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -54,6 +55,12 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _P],
     "ljt_srtp_unprotect_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _P],
+    "ljt_srtp_fanout_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                           _P, _P, _I, _I, _I, _I, _P],
+    "ljt_srtcp_protect_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _P],
+    "ljt_srtcp_unprotect_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _I, _I, _I, _I, _P],
     "ljt_mix_minus": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ljt_g711_encode": [_P, _P, _I, _I, _P],
     "ljt_g711_decode": [_P, _P, _I, _I, _P],

@@ -34,7 +34,11 @@ int udp_create(const char *bind_ip, uint16_t port, int reuseport,
   int one = 1;
   setsockopt(fd, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
   if (reuseport) setsockopt(fd, SOL_SOCKET, SO_REUSEPORT, &one, sizeof(one));
-  if (rcvbuf_bytes > 0)
+  // SO_RCVBUFFORCE may pass net.core.rmem_max (CAP_NET_ADMIN); without
+  // the capability the kernel caps SO_RCVBUF at rmem_max
+  if (rcvbuf_bytes > 0 &&
+      setsockopt(fd, SOL_SOCKET, SO_RCVBUFFORCE, &rcvbuf_bytes,
+                 sizeof(rcvbuf_bytes)) < 0)
     setsockopt(fd, SOL_SOCKET, SO_RCVBUF, &rcvbuf_bytes, sizeof(rcvbuf_bytes));
   sockaddr_in addr{};
   addr.sin_family = AF_INET;
@@ -49,6 +53,15 @@ int udp_create(const char *bind_ip, uint16_t port, int reuseport,
 }
 
 int udp_close(int fd) { return close(fd); }
+
+// The receive buffer the kernel granted (bytes, as getsockopt reports
+// it), or -errno.
+int udp_rcvbuf(int fd) {
+  int v = 0;
+  socklen_t len = sizeof(v);
+  if (getsockopt(fd, SOL_SOCKET, SO_RCVBUF, &v, &len) < 0) return -errno;
+  return v;
+}
 
 // Get the locally bound port (for port-0 ephemeral binds in tests).
 int udp_local_port(int fd) {

@@ -1,15 +1,23 @@
-"""RFC 6464 audio-level header-extension engine (batched host rewrites).
+"""Header-extension engines (batched host rewrites).
 
-Counterpart: `libjitsi_tpu/transform/header_ext.py`, `CsrcAudioLevelEngine`
-only (reference `.csrc.CsrcTransformEngine` + `CsrcAudioLevelDispatcher`):
-it stamps RFC 6464 ssrc-audio-level on send (levels come straight from
-the mixer kernel's by-product) and extracts per-row levels on receive.
-The JAX module's abs-send-time, transport-cc, payload-type and SSRC
-rewrite engines are not ported (ROADMAP Queue 1, item 9).
+Counterpart: `libjitsi_tpu/transform/header_ext.py`, two of its engines:
+
+- `AbsSendTimeEngine` (reference `AbsSendTimeEngine`): stamps the 24-bit
+  abs-send-time extension (6.18 fixed-point seconds) at send time, the
+  SFU's egress stamp that lets every receiver run its own receive-side
+  bandwidth estimate;
+- `CsrcAudioLevelEngine` (reference `.csrc.CsrcTransformEngine` +
+  `CsrcAudioLevelDispatcher`): stamps RFC 6464 ssrc-audio-level on send
+  (levels come straight from the mixer kernel's by-product) and extracts
+  per-row levels on receive.
+
+The JAX module's transport-cc, payload-type and SSRC rewrite engines are
+not ported (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -17,6 +25,36 @@ import numpy as np
 from libjitsi_tpu_torch.rtp import ext as rtp_ext
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.transform.engine import PacketTransformer, TransformEngine
+
+
+class AbsSendTimeEngine(TransformEngine):
+    """Stamp abs-send-time (24-bit 6.18 fixed-point) on outgoing RTP; the
+    clock is read once per batch, on the host."""
+
+    def __init__(self, ext_id: int, clock: Callable[[], float] = time.time):
+        self.ext_id = ext_id
+        self.clock = clock
+        eng = self
+
+        class _T(PacketTransformer):
+            def transform(self, batch, mask=None):
+                hdr = rtp_header.parse(batch)
+                now = eng.clock()
+                # 6.18 fixed point of seconds within a 64 s window
+                v = int(round(now * (1 << 18))) & 0xFFFFFF
+                pay = np.tile(np.array(
+                    [(v >> 16) & 0xFF, (v >> 8) & 0xFF, v & 0xFF],
+                    dtype=np.uint8), (batch.batch_size, 1))
+                out = rtp_ext.set_one_byte_ext(batch, hdr, eng.ext_id, pay,
+                                               enable=mask)
+                return out, (np.ones(batch.batch_size, bool)
+                             if mask is None else mask)
+
+        self._rtp = _T()
+
+    @property
+    def rtp_transformer(self):
+        return self._rtp
 
 
 class CsrcAudioLevelEngine(TransformEngine):

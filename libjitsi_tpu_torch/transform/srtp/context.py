@@ -21,16 +21,19 @@ JAX table's `snapshot()` (plain NumPy arrays) and both tables then
 process the next batch identically.
 
 Ported: the AES-CM + HMAC-SHA1 profiles, synchronous `protect_rtp` /
-`unprotect_rtp` with size-class bucketing, installs and removals,
-snapshot and restore.  Not yet ported, each raising
+`unprotect_rtp` (with `return_index`, the authenticated 48-bit
+estimates the SFU fan-out re-uses) with size-class bucketing, SRTCP
+`protect_rtcp` / `unprotect_rtcp` (kernels I and J), installs and
+removals, snapshot and restore.  Not yet ported, each raising
 `NotImplementedError`: the dispatch-only (async) seams, key derivation
-rate epochs, SRTCP and `move_rows` (ROADMAP Queue 1, item 5), AEAD-GCM
-(item 8) and AES-F8 / NULL ciphers (item 5).
+rate epochs and `move_rows` (ROADMAP Queue 1, item 5), AEAD-GCM (item
+8) and AES-F8 / NULL ciphers (item 5).
 
 `protect_rtp` and `unprotect_rtp` run inside `record_function` spans
 (`srtp.protect_rtp`, `srtp.unprotect_rtp`, and for each size class
-`srtp.upload`, `srtp.kernel`, `srtp.download`), so a profiler trace
-splits a call into host work, copies and kernels.
+`srtp.upload`, `srtp.kernel`, `srtp.download`), as do `protect_rtcp`
+and `unprotect_rtcp` (`srtp.protect_rtcp`, `srtp.unprotect_rtcp`), so
+a profiler trace splits a call into host work, copies and kernels.
 
 A "stream" row is one direction of one SSRC: use separate tables for tx
 and rx, as the reference keeps separate forward/reverse context maps.
@@ -44,7 +47,8 @@ from torch.profiler import record_function
 from libjitsi_tpu_torch.core.device import DeviceLike, resolve_device, to_device
 from libjitsi_tpu_torch.core.packet import PacketBatch, bucket_by_size, unbucket
 from libjitsi_tpu_torch.core.rtp_math import (chain_packet_indices,
-                                              estimate_packet_index)
+                                              estimate_packet_index,
+                                              segment_ranks)
 from libjitsi_tpu_torch.kernels.aes import expand_key, expand_keys_batch
 from libjitsi_tpu_torch.kernels.sha1 import (hmac_precompute,
                                              hmac_precompute_batch)
@@ -92,6 +96,7 @@ class SrtpStreamTable:
         self._rk_rtcp = np.zeros((s, rounds, 16), dtype=np.uint8)
         self._mid_rtcp = np.zeros((s, 2, 5), dtype=np.uint32)
         self._dev = None
+        self._dev_rtcp = None
         # host-side IV salts (16B, low 2 bytes zero)
         self._salt_rtp = np.zeros((s, 16), dtype=np.uint8)
         self._salt_rtcp = np.zeros((s, 16), dtype=np.uint8)
@@ -195,6 +200,7 @@ class SrtpStreamTable:
         self.auth_fail[sids] = 0
         self.replay_reject[sids] = 0
         self._dev = None
+        self._dev_rtcp = None
 
     def _device_tables(self):
         """(round keys, midstates) of the RTP plane on `self.device`,
@@ -203,6 +209,14 @@ class SrtpStreamTable:
             self._dev = (to_device(self._rk_rtp, self.device),
                          to_device(self._mid_rtp.view(np.int32), self.device))
         return self._dev
+
+    def _device_tables_rtcp(self):
+        """The same for the RTCP plane (kernels I and J)."""
+        if self._dev_rtcp is None:
+            self._dev_rtcp = (
+                to_device(self._rk_rtcp, self.device),
+                to_device(self._mid_rtcp.view(np.int32), self.device))
+        return self._dev_rtcp
 
     def _require_active(self, stream: np.ndarray) -> None:
         """Protect-path guard: every row must map to an installed stream."""
@@ -291,10 +305,13 @@ class SrtpStreamTable:
         np.maximum.at(self.tx_ext, stream, idx)
         return PacketBatch(data, length, batch.stream)
 
-    def unprotect_rtp(self, batch: PacketBatch):
+    def unprotect_rtp(self, batch: PacketBatch, return_index: bool = False):
         """Auth-check, replay-check and decrypt incoming RTP.
 
-        Returns (batch', ok).  Rows with ok=False
+        Returns (batch', ok) — or (batch', ok, index) with each row's
+        estimated 48-bit packet index when `return_index` (the SFU
+        translator re-uses the authenticated sender index for every
+        fan-out leg).  Rows with ok=False
         keep their original bytes (the reference drops them; callers
         filter by the mask).  Size-class bucketed like protect_rtp; the
         repeated padding rows are exact duplicates, which the replay
@@ -303,19 +320,26 @@ class SrtpStreamTable:
         SRTPCryptoContext.reverseTransformPacket.
         """
         if batch.batch_size == 0:
-            return batch, np.zeros(0, dtype=bool)
+            ok0 = np.zeros(0, dtype=bool)
+            if return_index:
+                return batch, ok0, np.zeros(0, dtype=np.int64)
+            return batch, ok0
         done, masks = [], []
+        idx = np.zeros(batch.batch_size, dtype=np.int64)
         with record_function("srtp.unprotect_rtp"):
             for rows, part, n in bucket_by_size(batch):
-                o, okp = self._unprotect_part(part)
+                o, okp, idxp = self._unprotect_part(part)
                 done.append((rows, o, n))
                 masks.append(okp)
+                idx[rows] = idxp[:n]
             out, ok = unbucket(done, batch.batch_size, batch.capacity, masks)
             # ok=False rows keep their original bytes (contract above)
             out.data[~ok, :] = 0
             take = min(out.capacity, batch.capacity)
             out.data[~ok, :take] = batch.data[~ok, :take]
             out.length[~ok] = np.asarray(batch.length)[~ok]
+        if return_index:
+            return out, ok, idx
         return out, ok
 
     def _unprotect_part(self, batch: PacketBatch):
@@ -349,6 +373,89 @@ class SrtpStreamTable:
         replay.update(self.rx_max, self.rx_mask, stream, idx, ok)
         out_data = np.where(ok[:, None], data, batch.data)
         out_len = np.where(ok, mlen, length).astype(np.int32)
+        return PacketBatch(out_data, out_len, batch.stream), ok, idx
+
+    # ----------------------------------------------------------------- RTCP
+    def protect_rtcp(self, batch: PacketBatch) -> PacketBatch:
+        """Encrypt + index + tag outgoing compound RTCP (kernel I).
+
+        The SRTCP index is assigned sequentially per stream in batch
+        order and the E bit is set (RFC 3711 §3.4).
+        Reference: SRTCPTransformer.transform → SRTCPCryptoContext.
+        """
+        stream = np.asarray(batch.stream, dtype=np.int64)
+        self._require_active(stream)
+        max_len = int(np.max(batch.length, initial=0))
+        if max_len + 4 + self.policy.auth_tag_len > batch.capacity:
+            raise ValueError(
+                f"packet of {max_len}B + index/tag exceeds capacity "
+                f"{batch.capacity}")
+        if batch.batch_size == 0:
+            return batch
+        with record_function("srtp.protect_rtcp"):
+            index = self.rtcp_tx_index[stream] + 1 + segment_ranks(stream)
+            index_word = index | np.int64(1 << 31)
+            ssrc = rtp_header.read_u32(batch.data, 4)
+            iv = self._cm_iv(self._salt_rtcp[stream], ssrc, index)
+            d = self.device
+            tab_rk, tab_mid = self._device_tables_rtcp()
+            data, length = kernel.srtcp_protect(
+                tab_rk, tab_mid, to_device(stream.astype(np.int32), d),
+                to_device(batch.data, d),
+                to_device(np.asarray(batch.length, dtype=np.int32), d),
+                to_device(iv, d),
+                to_device((index_word & 0xFFFFFFFF).astype(np.uint32)
+                          .view(np.int32), d),
+                self.policy.auth_tag_len)
+            data, length = data.cpu().numpy(), length.cpu().numpy()
+            np.maximum.at(self.rtcp_tx_index, stream, index)
+        return PacketBatch(data, length, batch.stream)
+
+    def unprotect_rtcp(self, batch: PacketBatch):
+        """Auth-check, replay-check and decrypt incoming SRTCP (kernel J).
+
+        The host parses the E || index trailer before the launch to build
+        the IVs and keeps the replay window; rows with E = 0 pass through
+        undecrypted.  Returns (batch', ok); rows with ok=False keep their
+        original bytes.
+        Reference: SRTCPTransformer.reverseTransform.
+        """
+        p = self.policy
+        stream = np.asarray(batch.stream, dtype=np.int64)
+        length = np.asarray(batch.length, dtype=np.int32)
+        if batch.batch_size == 0:
+            return batch, np.zeros(0, dtype=bool)
+        with record_function("srtp.unprotect_rtcp"):
+            srow = np.clip(stream, 0, self.capacity - 1)
+            valid = ((length >= 8 + 4 + p.auth_tag_len) & self.active[srow]
+                     & (stream >= 0) & (stream < self.capacity))
+            # the trailer's E || index word sits before the tag
+            tpos = np.maximum(length - (p.auth_tag_len + 4), 0)
+            word = np.zeros(len(stream), dtype=np.int64)
+            for k in range(4):
+                col = np.minimum(tpos + k, batch.capacity - 1)
+                word = (word << 8) | np.take_along_axis(
+                    batch.data, col[:, None].astype(np.int64), axis=1)[:, 0]
+            index = word & 0x7FFFFFFF
+            ssrc = rtp_header.read_u32(batch.data, 4)
+            not_replayed = replay.check(self.rtcp_rx_max, self.rtcp_rx_mask,
+                                        srow, index)
+            iv = self._cm_iv(self._salt_rtcp[srow], ssrc, index)
+            d = self.device
+            tab_rk, tab_mid = self._device_tables_rtcp()
+            res = kernel.srtcp_unprotect(
+                tab_rk, tab_mid, to_device(srow.astype(np.int32), d),
+                to_device(batch.data, d), to_device(length, d),
+                to_device(iv, d), p.auth_tag_len)
+            data, mlen, auth_ok = (t.cpu().numpy() for t in res[:3])
+            np.add.at(self.auth_fail, srow, valid & not_replayed & ~auth_ok)
+            np.add.at(self.replay_reject, srow, valid & ~not_replayed)
+            ok = valid & not_replayed & auth_ok
+            ok &= ~replay.dedup_first(stream, index, ok)
+            replay.update(self.rtcp_rx_max, self.rtcp_rx_mask, stream, index,
+                          ok)
+            out_data = np.where(ok[:, None], data, batch.data)
+            out_len = np.where(ok, mlen, length).astype(np.int32)
         return PacketBatch(out_data, out_len, batch.stream), ok
 
     # ------------------------------------------------ not ported in this slice
@@ -357,12 +464,6 @@ class SrtpStreamTable:
 
     def unprotect_rtp_async(self, batch):
         raise _not_ported("dispatch-only unprotect_rtp_async")
-
-    def protect_rtcp(self, batch):
-        raise _not_ported("SRTCP protect_rtcp")
-
-    def unprotect_rtcp(self, batch):
-        raise _not_ported("SRTCP unprotect_rtcp")
 
     def move_rows(self, src_sids, dst_sids):
         raise _not_ported("move_rows")

@@ -1,12 +1,11 @@
 """SRTP as a TransformEngine (reference: SRTPTransformer installed last in
 the chain via `SrtpControl.getTransformEngine()`).
 
-Counterpart: `libjitsi_tpu/transform/srtp/engine.py`, synchronous RTP
-only.  Outbound `transform` protects, inbound `reverse_transform`
-unprotects and reports per-row accept verdicts through the chain mask —
-the batched equivalent of SRTPTransformer.reverseTransform returning
-null on auth/replay failure.  The RTCP transformer raises until SRTCP
-is ported (ROADMAP Queue 1, item 5).
+Counterpart: `libjitsi_tpu/transform/srtp/engine.py`, synchronous
+RTP and RTCP.  Outbound `transform` protects, inbound
+`reverse_transform` unprotects and reports per-row accept verdicts
+through the chain mask — the batched equivalent of
+SRTPTransformer.reverseTransform returning null on auth/replay failure.
 """
 
 from __future__ import annotations

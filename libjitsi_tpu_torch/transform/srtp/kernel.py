@@ -21,8 +21,15 @@ Edge semantics, shared by kernel and plain version: lengths are clamped
 to [0, W]; the keystream touches only columns in [payload_off, end)
 inside the row; MAC message bytes that would fall past W read as 0 and
 tag bytes past W are dropped; stream ids are clamped into the table.
-A row shorter than its tag fails authentication.  SRTCP and F8 are not
-ported yet (ROADMAP Queue 1, item 5).
+A row shorter than its tag fails authentication.
+
+Beside them: the SFU fan-out (`srtp_fanout_protect`, kernel H in
+`csrc/srtp_fanout.cu`, counterpart of `libjitsi_tpu/sfu/translator.py`
+`_fanout_protect`), which protects every (packet, receiver leg) pair of
+P decrypted packets under the legs' keys, building each copy's IV on the
+card; and SRTCP (`srtcp_protect` / `srtcp_unprotect`, kernels I and J in
+`csrc/srtcp_cm.cu`, counterparts of the JAX `srtcp_protect` /
+`srtcp_unprotect`).  F8 is not ported yet (ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -35,9 +42,6 @@ from libjitsi_tpu_torch.kernels import build as _k
 from libjitsi_tpu_torch.kernels.aes import ctr_crypt
 from libjitsi_tpu_torch.kernels.scatter import gather_span, scatter_bytes
 from libjitsi_tpu_torch.kernels.sha1 import hmac_sha1_plain
-
-_SRTCP = "SRTCP is not ported yet (ROADMAP Queue 1, item 5)"
-
 
 def _u32_bytes(x: torch.Tensor) -> torch.Tensor:
     """[B] int (uint32 bit pattern) -> [B, 4] uint8 big-endian."""
@@ -65,6 +69,12 @@ def srtp_protect_plain(tab_rk, tab_mid, stream, data, length, payload_off,
     the HMAC-SHA1 tag over header || ciphertext || ROC (RFC 3711 §4.2).
     Returns (data', length + tag_len)."""
     _k.plain_calls["srtp_protect_cm"] += 1
+    return _protect_rows(tab_rk, tab_mid, stream, data, length, payload_off,
+                         iv, roc, tag_len)
+
+
+def _protect_rows(tab_rk, tab_mid, stream, data, length, payload_off, iv,
+                  roc, tag_len: int):
     rk, mid = _gather_keys(tab_rk, tab_mid, stream)
     ln = length.long().clamp(0, data.shape[1])
     off = payload_off.long()
@@ -96,15 +106,7 @@ def _check_args(tab_rk, tab_mid, stream, data, length, payload_off, iv,
                 roc, tag_len: int):
     dev = data.device
     bsz, width = data.shape
-    if tab_rk.dim() != 3 or tab_rk.shape[1] not in (11, 15):
-        raise ValueError("tab_rk must be [S, 11 | 15, 16]")
-    if not 4 <= tag_len <= 20:
-        raise ValueError(f"tag_len {tag_len}: must be 4..20")
-    if width > 32768:
-        raise ValueError(f"row width {width} exceeds the kernels' 32768")
-    s = tab_rk.shape[0]
-    _k.expect(tab_rk, "tab_rk", torch.uint8, dev, (s, tab_rk.shape[1], 16))
-    _k.expect(tab_mid, "tab_mid", torch.int32, dev, (s, 2, 5))
+    _check_tables(tab_rk, tab_mid, dev, tag_len, width)
     _k.expect(stream, "stream", torch.int32, dev, (bsz,))
     _k.expect(data, "data", torch.uint8, dev)
     _k.expect(length, "length", torch.int32, dev, (bsz,))
@@ -171,9 +173,197 @@ def srtp_unprotect(tab_rk, tab_mid, stream, data, length, payload_off, iv,
     return out, mlen, auth_ok
 
 
-def srtcp_protect(*args, **kwargs):
-    raise NotImplementedError(_SRTCP)
+def _check_tables(tab_rk, tab_mid, dev, tag_len: int, width: int):
+    if tab_rk.dim() != 3 or tab_rk.shape[1] not in (11, 15):
+        raise ValueError("tab_rk must be [S, 11 | 15, 16]")
+    if not 4 <= tag_len <= 20:
+        raise ValueError(f"tag_len {tag_len}: must be 4..20")
+    if width > 32768:
+        raise ValueError(f"row width {width} exceeds the kernels' 32768")
+    s = tab_rk.shape[0]
+    _k.expect(tab_rk, "tab_rk", torch.uint8, dev, (s, tab_rk.shape[1], 16))
+    _k.expect(tab_mid, "tab_mid", torch.int32, dev, (s, 2, 5))
 
 
-def srtcp_unprotect(*args, **kwargs):
-    raise NotImplementedError(_SRTCP)
+# ------------------------------------------------------ SFU fan-out (H)
+
+def _fanout_iv(salt, ssrc, index):
+    """RFC 3711 §4.1.1 IVs of the fan-out copies: salt [N, 16] ^ (SSRC <<
+    64) ^ (48-bit index << 16)."""
+    dev = salt.device
+    iv = salt.long().clone()
+    iv[:, 4:8] ^= ((ssrc.long() & 0xFFFFFFFF)[:, None]
+                   >> torch.tensor([24, 16, 8, 0], device=dev)) & 0xFF
+    iv[:, 8:14] ^= (index[:, None] >> torch.tensor(
+        [40, 32, 24, 16, 8, 0], device=dev)) & 0xFF
+    return iv.to(torch.uint8)
+
+
+def srtp_fanout_protect_plain(tab_rk, tab_mid, tab_salt, data, length,
+                              payload_off, ssrc, index, src, recv,
+                              tag_len: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch SFU fan-out: output row k is packet src[k] protected
+    under receiver leg recv[k]'s keys (tables `tab_rk`, `tab_mid`,
+    `tab_salt` [S, 16]), the IV built from the leg's salt, the packet's
+    SSRC (`ssrc` [P], uint32 bit patterns) and its 48-bit `index` [P]
+    (int64), the ROC taken as index >> 16.  Returns (out [N, W],
+    out_len [N])."""
+    _k.plain_calls["srtp_fanout_cm"] += 1
+    p = src.long().clamp(0, data.shape[0] - 1)
+    leg = recv.long().clamp(0, tab_rk.shape[0] - 1)
+    idx = index.long()[p] & 0xFFFFFFFFFFFF
+    iv = _fanout_iv(tab_salt[leg], ssrc[p], idx)
+    return _protect_rows(tab_rk, tab_mid, leg, data[p], length[p],
+                         payload_off[p], iv, idx >> 16, tag_len)
+
+
+def srtp_fanout_protect(tab_rk, tab_mid, tab_salt, data, length,
+                        payload_off, ssrc, index, src, recv, tag_len: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decrypt-once / re-encrypt-per-leg fan-out (reference:
+    RTPTranslatorImpl re-running each receiver's send chain).
+
+    data [P, W] uint8 decrypted packets with length, payload_off and
+    ssrc [P] int32 and index [P] int64; src / recv [N] int32 say which
+    packet and which leg each output row is.  CUDA tensors go through
+    kernel H (`csrc/srtp_fanout.cu`); CPU tensors through
+    `srtp_fanout_protect_plain`.  Returns (out [N, W], out_len [N]).
+    """
+    args = (tab_rk, tab_mid, tab_salt, data, length, payload_off, ssrc,
+            index, src, recv)
+    if _k.route(data) == "cpu":
+        return srtp_fanout_protect_plain(*args, tag_len)
+    dev = data.device
+    n_src, width = data.shape
+    n = src.shape[0]
+    _check_tables(tab_rk, tab_mid, dev, tag_len, width)
+    _k.expect(tab_salt, "tab_salt", torch.uint8, dev, (tab_rk.shape[0], 16))
+    _k.expect(data, "data", torch.uint8, dev)
+    for name, t in (("length", length), ("payload_off", payload_off),
+                    ("ssrc", ssrc)):
+        _k.expect(t, name, torch.int32, dev, (n_src,))
+    _k.expect(index, "index", torch.int64, dev, (n_src,))
+    _k.expect(src, "src", torch.int32, dev, (n,))
+    _k.expect(recv, "recv", torch.int32, dev, (n,))
+    if n and not n_src:
+        raise ValueError("fan-out rows name packets of an empty batch")
+    out = torch.empty((n, width), dtype=torch.uint8, device=dev)
+    out_len = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n:
+        rc = _k.library().ljt_srtp_fanout_cm(
+            tab_rk.data_ptr(), tab_mid.data_ptr(), tab_salt.data_ptr(),
+            tab_rk.shape[0], data.data_ptr(), length.data_ptr(),
+            payload_off.data_ptr(), ssrc.data_ptr(), index.data_ptr(),
+            n_src, src.data_ptr(), recv.data_ptr(), out.data_ptr(),
+            out_len.data_ptr(), n, width, tab_rk.shape[1] - 1, tag_len,
+            _k.stream_handle(dev))
+        _k.check(rc, "srtp_fanout_cm")
+        _k.launches["srtp_fanout_cm"] += 1
+    return out, out_len
+
+
+# -------------------------------------------------------- SRTCP (I, J)
+
+def srtcp_protect_plain(tab_rk, tab_mid, stream, data, length, iv,
+                        index_word, tag_len: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch SRTCP protect (RFC 3711 §3.4): encrypt [8, length),
+    write the E || index word (`index_word` [B], uint32 bit patterns) at
+    length and the tag over packet || word after it.  Returns (data',
+    length + 4 + tag_len)."""
+    _k.plain_calls["srtcp_protect_cm"] += 1
+    rk, mid = _gather_keys(tab_rk, tab_mid, stream)
+    ln = length.long().clamp(0, data.shape[1])
+    data = ctr_crypt(rk, iv, data, torch.full_like(ln, 8), ln - 8)
+    tags = _auth_tags(data, ln, index_word, mid)
+    out = scatter_bytes(data, ln, _u32_bytes(index_word), 4)
+    out = scatter_bytes(out, ln + 4, tags, tag_len)
+    return out, (length + 4 + tag_len).to(torch.int32)
+
+
+def srtcp_unprotect_plain(tab_rk, tab_mid, stream, data, length, iv,
+                          tag_len: int):
+    """Plain PyTorch SRTCP unprotect: read the E || index word at mlen =
+    length - tag_len - 4, check the tag over [0, mlen + 4) (all tag
+    bytes; a negative mlen fails), decrypt [8, mlen) where E is set.
+    Returns (data', mlen, auth_ok, e_bit, index)."""
+    _k.plain_calls["srtcp_unprotect_cm"] += 1
+    rk, mid = _gather_keys(tab_rk, tab_mid, stream)
+    mlen = length.long().clamp(0, data.shape[1]) - tag_len - 4
+    wb = gather_span(data, mlen, 4).long()
+    word = (wb[:, 0] << 24) | (wb[:, 1] << 16) | (wb[:, 2] << 8) | wb[:, 3]
+    e_bit = word >> 31
+    tags = hmac_sha1_plain(mid, data, (mlen + 4).clamp(min=0))
+    stored = gather_span(data, mlen + 4, tag_len)
+    auth_ok = (stored == tags[:, :tag_len]).all(dim=1) & (mlen >= 0)
+    dec = ctr_crypt(rk, iv, data, torch.full_like(mlen, 8), mlen - 8)
+    out = torch.where((e_bit == 1)[:, None], dec, data)
+    return (out, (length - tag_len - 4).to(torch.int32), auth_ok,
+            e_bit.to(torch.int32), (word & 0x7FFFFFFF).to(torch.int32))
+
+
+def _check_rtcp(tab_rk, tab_mid, stream, data, length, iv, tag_len: int):
+    dev = data.device
+    bsz, width = data.shape
+    _check_tables(tab_rk, tab_mid, dev, tag_len, width)
+    _k.expect(stream, "stream", torch.int32, dev, (bsz,))
+    _k.expect(data, "data", torch.uint8, dev)
+    _k.expect(length, "length", torch.int32, dev, (bsz,))
+    _k.expect(iv, "iv", torch.uint8, dev, (bsz, 16))
+
+
+def srtcp_protect(tab_rk, tab_mid, stream, data, length, iv, index_word,
+                  tag_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched SRTCP protect (reference: SRTCPCryptoContext.
+    transformPacket).  CUDA tensors go through kernel I
+    (`csrc/srtcp_cm.cu`); CPU tensors through `srtcp_protect_plain`.
+    Returns (data', length')."""
+    args = (tab_rk, tab_mid, stream, data, length, iv, index_word)
+    if _k.route(data) == "cpu":
+        return srtcp_protect_plain(*args, tag_len)
+    _check_rtcp(*args[:6], tag_len)
+    dev = data.device
+    bsz, width = data.shape
+    _k.expect(index_word, "index_word", torch.int32, dev, (bsz,))
+    out = torch.empty_like(data)
+    out_len = torch.empty_like(length)
+    if bsz:
+        rc = _k.library().ljt_srtcp_protect_cm(
+            tab_rk.data_ptr(), tab_mid.data_ptr(), stream.data_ptr(),
+            tab_rk.shape[0], data.data_ptr(), length.data_ptr(),
+            iv.data_ptr(), index_word.data_ptr(), out.data_ptr(),
+            out_len.data_ptr(), bsz, width, tab_rk.shape[1] - 1, tag_len,
+            _k.stream_handle(dev))
+        _k.check(rc, "srtcp_protect_cm")
+        _k.launches["srtcp_protect_cm"] += 1
+    return out, out_len
+
+
+def srtcp_unprotect(tab_rk, tab_mid, stream, data, length, iv,
+                    tag_len: int):
+    """Batched SRTCP unprotect (reference: SRTCPCryptoContext.
+    reverseTransformPacket).  CUDA tensors go through kernel J
+    (`csrc/srtcp_cm.cu`); CPU tensors through `srtcp_unprotect_plain`.
+    Returns (data', mlen, auth_ok, e_bit, index)."""
+    args = (tab_rk, tab_mid, stream, data, length, iv)
+    if _k.route(data) == "cpu":
+        return srtcp_unprotect_plain(*args, tag_len)
+    _check_rtcp(*args, tag_len)
+    dev = data.device
+    bsz, width = data.shape
+    out = torch.empty_like(data)
+    mlen = torch.empty_like(length)
+    auth_ok = torch.empty((bsz,), dtype=torch.bool, device=dev)
+    e_bit = torch.empty_like(length)
+    index = torch.empty_like(length)
+    if bsz:
+        rc = _k.library().ljt_srtcp_unprotect_cm(
+            tab_rk.data_ptr(), tab_mid.data_ptr(), stream.data_ptr(),
+            tab_rk.shape[0], data.data_ptr(), length.data_ptr(),
+            iv.data_ptr(), out.data_ptr(), mlen.data_ptr(),
+            auth_ok.data_ptr(), e_bit.data_ptr(), index.data_ptr(), bsz,
+            width, tab_rk.shape[1] - 1, tag_len, _k.stream_handle(dev))
+        _k.check(rc, "srtcp_unprotect_cm")
+        _k.launches["srtcp_unprotect_cm"] += 1
+    return out, mlen, auth_ok, e_bit, index

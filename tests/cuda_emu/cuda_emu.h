@@ -132,6 +132,10 @@ inline thread_local void* emu_dyn_smem = nullptr;
 inline thread_local EmuCluster emu_cluster{};
 inline thread_local unsigned emu_block_rank = 0;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// Every lane of the warp takes part, as the kernels call it.
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) {
+  emu_warp_barrier->arrive_and_wait();
+}
 inline void __nanosleep(unsigned) { std::this_thread::yield(); }
 inline long long clock64() {
   return std::chrono::steady_clock::now().time_since_epoch().count();

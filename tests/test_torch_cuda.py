@@ -304,3 +304,152 @@ def test_g711_encode_kernel_ragged_and_odd_offset(cuda_device, law, offset,
     assert _same(got, g711.encode(pcm, law))
     assert _same(got, g711.ulaw_encode_plain(view) if law == g711.ULAW
                  else g711.alaw_encode_plain(view))
+
+
+# (key bytes, packets, width, receivers of each packet): P = 1 and N = 1,
+# ragged receiver counts with a packet routed nowhere, an unaligned
+# width, the widest class, and the SFU tick's 1,100 packets x 10 legs
+@pytest.mark.parametrize("key_len,p,width,counts", [
+    (16, 1, 64, [1]), (16, 5, 208, [3, 0, 10, 1, 4]),
+    (32, 4, 37, [2, 2, 5, 1]), (16, 3, 1536, [4, 1, 2]),
+    (16, 1100, 208, [10] * 1100),
+])
+def test_fanout_kernel_matches_plain(cuda_device, key_len, p, width, counts):
+    rng = np.random.default_rng(p * width + key_len)
+    s = 1100
+    tab_rk = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len),
+                                                np.uint8))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    tab_salt = rng.integers(0, 256, (s, 16), np.uint8)
+    tab_salt[:, 14:] = 0
+    data = rng.integers(0, 256, (p, width), np.uint8)
+    length = rng.integers(12, width + 3, p).astype(np.int32)
+    length[:2] = [width - 10, width][:p]
+    off = np.full(p, 12, np.int32)
+    off[1::3] = 20
+    off[2::5] = width + 3
+    ssrc = rng.integers(0, 2 ** 32, p, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    index = rng.integers(0, 2 ** 48, p, dtype=np.int64)
+    index[:3] = [0xFFFF, 0x10000, (1 << 48) - 1][:p]
+    src = np.repeat(np.arange(p), counts).astype(np.int32)
+    recv = rng.integers(-1, s + 1, len(src)).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda_device) for x in
+            (tab_rk, tab_mid, tab_salt, data, length, off, ssrc, index, src,
+             recv)]
+    before = kbuild.launches["srtp_fanout_cm"]
+    got = srtp_kernel.srtp_fanout_protect(*args, 10)
+    torch.cuda.synchronize()
+    assert kbuild.launches["srtp_fanout_cm"] == before + 1
+    want = srtp_kernel.srtp_fanout_protect_plain(*args, 10)
+    assert all(_same(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("key_len,tag_len,width,n", [
+    (16, 10, 96, 1), (16, 4, 200, 9), (32, 10, 61, 6), (16, 10, 1536, 5),
+    (16, 10, 224, 1100),
+])
+def test_srtcp_kernels_match_plain(cuda_device, key_len, tag_len, width, n):
+    rng = np.random.default_rng(width + n)
+    s = 5
+    tab_rk = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len),
+                                                np.uint8))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    stream = rng.integers(-1, s + 1, n).astype(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    length = rng.integers(0, width + 3, n).astype(np.int32)
+    length[:3] = [width - 4 - tag_len, 8, 3][:n]
+    iv = rng.integers(0, 256, (n, 16), np.uint8)
+    iv[:2, 12:] = 0xFF
+    word = (rng.integers(0, 2 ** 31, n, dtype=np.uint64)
+            | (np.arange(n, dtype=np.uint64) % 2 == 0).astype(np.uint64)
+            << np.uint64(31)).astype(np.uint32).view(np.int32)   # E = 1, 0
+    d = [torch.from_numpy(x).to(cuda_device) for x in
+         (tab_rk, tab_mid, stream, data, length, iv, word)]
+    before = dict(kbuild.launches)
+    out, out_len = srtp_kernel.srtcp_protect(*d, tag_len)
+    want = srtp_kernel.srtcp_protect_plain(*d, tag_len)
+    assert _same(out, want[0]) and _same(out_len, want[1])
+    wire = out.cpu().numpy().copy()
+    wlen = np.minimum(out_len.cpu().numpy(), width).astype(np.int32)
+    fits = length + 4 + tag_len <= width
+    if n > 1:
+        wlen[-1] = rng.integers(0, 4 + tag_len)    # mlen below 0
+        fits[-1] = False
+    forged = np.nonzero(fits)[0][1::3]
+    wire[forged, wlen[forged] - 1] ^= 0x10          # forged tags
+    u = d[:3] + [torch.from_numpy(x).to(cuda_device)
+                 for x in (wire, wlen, iv)]
+    got = srtp_kernel.srtcp_unprotect(*u, tag_len)
+    torch.cuda.synchronize()
+    assert kbuild.launches["srtcp_protect_cm"] == \
+        before["srtcp_protect_cm"] + 1
+    assert kbuild.launches["srtcp_unprotect_cm"] == \
+        before["srtcp_unprotect_cm"] + 1
+    want = srtp_kernel.srtcp_unprotect_plain(*u, tag_len)
+    assert all(_same(a, b) for a, b in zip(got, want))
+    ok = got[2].cpu().numpy()
+    genuine = fits.copy()
+    genuine[forged] = False
+    assert ok[genuine].all() and not ok[forged].any()
+
+
+def test_sfu_bridge_on_card_equals_cpu(cuda_device):
+    """A small SFU conference driven on the card and on the CPU sends the
+    same datagrams; on the card it runs D, H, I and J, no plain version."""
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.rtp import rtcp
+    from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+
+    rng = np.random.default_rng(77)
+    n = 6
+    ssrc = 0x4000 + np.arange(n)
+    rx_k = rng.integers(0, 256, (n, 16), np.uint8)
+    rx_s = rng.integers(0, 256, (n, 14), np.uint8)
+    tx_k = rng.integers(0, 256, (n, 16), np.uint8)
+    tx_s = rng.integers(0, 256, (n, 14), np.uint8)
+    up = SrtpStreamTable(n, device=cuda_device)
+    up.add_streams(np.arange(n), rx_k, rx_s)
+    wires = []
+    for t in range(3):
+        b = rtp_header.build([bytes(rng.integers(0, 256, 80, np.uint8))
+                              for _ in range(n)], [100 + t] * n, [0] * n,
+                             ssrc.tolist(), [111] * n, stream=list(range(n)))
+        wires.append(up.protect_rtp(b))
+    nack = up.protect_rtcp(PacketBatch.from_payloads([rtcp.build_compound([
+        rtcp.build_nack(rtcp.Nack(int(ssrc[1]), int(ssrc[0]), [100]))])],
+        stream=[1]))
+    sent = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        sfu = SfuBridge(capacity=8, recv_window_ms=0, device=dev)
+        sfu.stage_endpoints([(int(ssrc[k]), (rx_k[k].tobytes(),
+                                             rx_s[k].tobytes()),
+                              (tx_k[k].tobytes(), tx_s[k].tobytes()), None)
+                             for k in range(n)], conferences=[0, 0, 0, 1, 1,
+                                                              1])
+        sfu.commit_endpoints(range(n))
+        out = sent[dev.type] = []
+        eng = sfu.loop.engine
+        orig = eng.send_batch
+        eng.send_batch = lambda b, ip, port: (
+            out.extend(b.to_bytes(i) for i in range(b.batch_size)),
+            orig(b, ip, port))[1]
+        kbuild.reset_counts()
+        with UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=64) as client:
+            for t, w in enumerate(wires):
+                client.send_batch(w, "127.0.0.1", sfu.port)
+                if t == 2:
+                    client.send_batch(nack, "127.0.0.1", sfu.port)
+                for _ in range(4):
+                    sfu.tick(now=5.0 + 0.02 * t)
+            sfu.emit_feedback(now=5.1)
+        if dev.type == "cuda":
+            for k in ("srtp_unprotect_cm", "srtp_fanout_cm",
+                      "srtcp_protect_cm", "srtcp_unprotect_cm"):
+                assert kbuild.launches[k] > 0, k
+            assert sum(kbuild.plain_calls.values()) == 0
+        assert sfu.forwarded == 3 * n * 2 and sfu.retransmitted == 1
+        sfu.close()
+    assert sent["cuda"] == sent["cpu"]

@@ -341,3 +341,134 @@ def test_emulated_kernels_f_g_match_plain(emu, law):
                                None) == 0
     assert np.array_equal(back, g711.decode(T(every), law).numpy())
     assert emu.ljt_g711_encode(_p(pcm), _p(codes), len(pcm), 2, None) != 0
+
+
+def _fanout_inputs(rng, key_len, p, width, counts):
+    """P packets (offsets before, inside and past the row, lengths at and
+    past the width), a leg table of 6 with random salts, and `counts`
+    receivers for each packet (ragged; stream ids outside the table)."""
+    s = 6
+    tab_rk = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len),
+                                                np.uint8))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    tab_salt = rng.integers(0, 256, (s, 16), np.uint8)
+    tab_salt[:, 14:] = 0
+    data = rng.integers(0, 256, (p, width), np.uint8)
+    length = rng.integers(12, width + 3, p).astype(np.int32)
+    length[:2] = [width - 10, width][:p]
+    off = np.full(p, 12, np.int32)
+    off[1::3] = 20
+    off[2::5] = width + 3                     # forged past the row
+    ssrc = rng.integers(0, 2 ** 32, p, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    index = rng.integers(0, 2 ** 48, p, dtype=np.int64)
+    index[:3] = [0xFFFF, 0x10000, (1 << 48) - 1][:p]
+    src = np.repeat(np.arange(p), counts).astype(np.int32)
+    recv = rng.integers(-1, s + 1, len(src)).astype(np.int32)
+    return tab_rk, tab_mid, tab_salt, data, length, off, ssrc, index, \
+        src, recv
+
+
+# P = 1 and N = 1; ragged receiver counts (a packet with none); widths at
+# the word and block edges, an unaligned width and the widest class
+@pytest.mark.parametrize("key_len,p,width,counts", [
+    (16, 1, 64, [1]), (16, 5, 208, [3, 0, 10, 1, 4]),
+    (32, 4, 37, [2, 2, 5, 1]), (16, 3, 1536, [4, 1, 2]),
+])
+def test_emulated_kernel_h_matches_plain(emu, key_len, p, width, counts):
+    rng = np.random.default_rng(p * width + key_len)
+    args = _fanout_inputs(rng, key_len, p, width, counts)
+    tab_rk, tab_mid, tab_salt, data, length, off, ssrc, index, src, \
+        recv = args
+    n = len(src)
+    out = np.zeros((n, width), np.uint8)
+    out_len = np.zeros(n, np.int32)
+    assert emu.ljt_srtp_fanout_cm(
+        _p(tab_rk), _p(tab_mid), _p(tab_salt), len(tab_rk), _p(data),
+        _p(length), _p(off), _p(ssrc), _p(index), p, _p(src), _p(recv),
+        _p(out), _p(out_len), n, width, tab_rk.shape[1] - 1, 10, None) == 0
+    want, want_len = srtp_kernel.srtp_fanout_protect_plain(
+        *(T(x) for x in args), 10)
+    assert np.array_equal(out, want.numpy())
+    assert np.array_equal(out_len, want_len.numpy())
+    # a copy is the packet protected under its leg's keys: kernel C's
+    # plain version on the expanded rows, with the IV built by hand
+    leg = np.clip(recv, 0, len(tab_rk) - 1)
+    iv = tab_salt[leg].copy()
+    for k in range(4):
+        iv[:, 4 + k] ^= (ssrc.view(np.uint32)[src] >> (8 * (3 - k))) & 0xFF
+    for k in range(6):
+        iv[:, 8 + k] ^= ((index[src] >> (8 * (5 - k))) & 0xFF).astype(
+            np.uint8)
+    roc = ((index[src] >> 16) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    c_out, _ = srtp_kernel.srtp_protect_plain(
+        T(tab_rk), T(tab_mid), T(leg.astype(np.int32)), T(data[src]),
+        T(length[src]), T(off[src]), T(iv), T(roc), 10)
+    assert np.array_equal(out, c_out.numpy())
+
+
+@pytest.mark.parametrize("key_len,tag_len,width,n", [
+    (16, 10, 96, 1), (16, 4, 200, 9), (32, 10, 61, 6), (16, 10, 1536, 5),
+])
+def test_emulated_kernels_i_j_match_plain(emu, key_len, tag_len, width, n):
+    rng = np.random.default_rng(width + n)
+    s = 5
+    tab_rk = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len),
+                                                np.uint8))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    stream = rng.integers(-1, s + 1, n).astype(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    length = rng.integers(0, width + 3, n).astype(np.int32)
+    length[:3] = [width - 4 - tag_len, 8, 3][:n]
+    iv = rng.integers(0, 256, (n, 16), np.uint8)
+    iv[:2, 12:] = 0xFF
+    word = (rng.integers(0, 2 ** 31, n, dtype=np.uint64)
+            | (np.arange(n, dtype=np.uint64) % 2 == 0).astype(np.uint64)
+            << np.uint64(31)).astype(np.uint32).view(np.int32)   # E = 1, 0
+    nr = tab_rk.shape[1] - 1
+    out = np.zeros_like(data)
+    out_len = np.zeros(n, np.int32)
+    assert emu.ljt_srtcp_protect_cm(
+        _p(tab_rk), _p(tab_mid), _p(stream), s, _p(data), _p(length),
+        _p(iv), _p(word), _p(out), _p(out_len), n, width, nr, tag_len,
+        None) == 0
+    want, want_len = srtp_kernel.srtcp_protect_plain(
+        *(T(x) for x in (tab_rk, tab_mid, stream, data, length, iv, word)),
+        tag_len)
+    assert np.array_equal(out, want.numpy())
+    assert np.array_equal(out_len, want_len.numpy())
+
+    wire = out.copy()
+    wlen = np.minimum(out_len, width).astype(np.int32)
+    fits = length + 4 + tag_len <= width
+    if n > 1:
+        wlen[-1] = rng.integers(0, 4 + tag_len)    # mlen below 0
+        fits[-1] = False
+    forged = np.nonzero(fits)[0][1::3]
+    wire[forged, wlen[forged] - 1] ^= 0x10          # forged tags
+    dec = np.zeros_like(data)
+    mlen = np.zeros(n, np.int32)
+    ok = np.zeros(n, np.uint8)
+    e_bit = np.zeros(n, np.int32)
+    idx = np.zeros(n, np.int32)
+    assert emu.ljt_srtcp_unprotect_cm(
+        _p(tab_rk), _p(tab_mid), _p(stream), s, _p(wire), _p(wlen), _p(iv),
+        _p(dec), _p(mlen), _p(ok), _p(e_bit), _p(idx), n, width, nr,
+        tag_len, None) == 0
+    got = srtp_kernel.srtcp_unprotect_plain(
+        *(T(x) for x in (tab_rk, tab_mid, stream, wire, wlen, iv)), tag_len)
+    for a, b in zip((dec, mlen, ok.astype(bool), e_bit, idx), got):
+        assert np.array_equal(a, b.numpy())
+    genuine = fits.copy()
+    genuine[forged] = False
+    assert ok.astype(bool)[genuine].all() and not ok[forged].any()
+    # E = 0 rows pass through undecrypted; E = 1 rows decrypt to the input
+    e0 = genuine & (word.view(np.uint32) >> 31 == 0)
+    e1 = genuine & ~e0
+    for i in np.nonzero(e0)[0]:
+        assert np.array_equal(dec[i], wire[i])
+    for i in np.nonzero(e1)[0]:
+        assert np.array_equal(dec[i, :length[i]], data[i, :length[i]])
+    assert e1.any() and (n < 4 or e0.any())

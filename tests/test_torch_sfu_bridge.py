@@ -1,0 +1,397 @@
+"""The port's SfuBridge on the CPU over loopback UDP, and against the JAX
+SfuBridge.
+
+`test_sfu_fanout_and_nack_over_udp` carries the assertions of
+`tests/test_sfu_bridge.py::test_sfu_fanout_and_nack_over_udp`: every
+endpoint hears the others and not itself, a NACKed seq comes back under
+the leg's key, a spoofed NACK serves nothing, and the SRTCP feedback
+authenticates at the sender.  A conference-scoped bridge forwards no
+copy across conferences.  Two `slow` cases hold the port's bridge
+against the JAX one byte for byte: restored from a JAX
+`SfuBridge.snapshot()`, its next forwarded wire against what the JAX
+bridge's own translator makes of the same packets (run eagerly, ~13 s
+here); and both bridges restored from one JAX snapshot, every datagram
+they send over six ticks (media, an RR reporting 25% loss so FEC runs,
+a NACK, SRTCP feedback), for which the JAX bridge compiles its SRTP
+tables (minutes here).  Tier-1 holds the SFU's media step against JAX
+in `tests/test_torch_sfu.py`.  Endpoints here are the port's CPU SRTP
+tables.  Tolerance: exact bytes.
+"""
+
+import socket
+
+import numpy as np
+import pytest
+import torch
+
+from libjitsi_tpu_torch.core.packet import PacketBatch
+from libjitsi_tpu_torch.io.udp import UdpEngine
+from libjitsi_tpu_torch.kernels import build as kbuild
+from libjitsi_tpu_torch.rtp import header as rtp_header
+from libjitsi_tpu_torch.rtp import rtcp
+from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+from libjitsi_tpu_torch.transform.header_ext import AbsSendTimeEngine
+from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+
+def _keys(ssrc):
+    return ((bytes([ssrc & 0xFF]) * 16, bytes([(ssrc + 1) & 0xFF]) * 14),
+            (bytes([(ssrc + 2) & 0xFF]) * 16,
+             bytes([(ssrc + 3) & 0xFF]) * 14))
+
+
+class _Endpoint:
+    """A participant: protects its media/RTCP with its rx key, opens what
+    the bridge forwards with its tx key (one row per sender SSRC)."""
+
+    def __init__(self, ssrc, bridge_port, ext_id=3):
+        self.ssrc = ssrc
+        self.rx_key, self.tx_key = _keys(ssrc)
+        self.protect = SrtpStreamTable(capacity=1, device="cpu")
+        self.protect.add_stream(0, *self.rx_key)
+        self.open = SrtpStreamTable(capacity=16, device="cpu")
+        self.open_rtcp = SrtpStreamTable(capacity=1, device="cpu")
+        self.open_rtcp.add_stream(0, *self.tx_key)
+        self.row_of = {}
+        self.engine = UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=256)
+        self.bridge_port = bridge_port
+        self.seq = 500
+        self.got = {}                     # (ssrc, seq) -> payload
+        self.feedback = []
+        self.ast = AbsSendTimeEngine(ext_id, clock=lambda: 12.5)
+
+    def media(self, n=4):
+        pls = [b"m-%08x-%d" % (self.ssrc, self.seq + i) for i in range(n)]
+        b = rtp_header.build(pls, [self.seq + i for i in range(n)],
+                             [0] * n, [self.ssrc] * n, [96] * n,
+                             stream=[0] * n)
+        b, _ = self.ast.rtp_transformer.transform(b)
+        self.seq += n
+        return self.protect.protect_rtp(b)
+
+    def send_media(self, n=4):
+        self.engine.send_batch(self.media(n), "127.0.0.1", self.bridge_port)
+
+    def expect_sender(self, ssrc):
+        row = len(self.row_of)
+        self.row_of[ssrc] = row
+        self.open.add_stream(row, *self.tx_key)
+
+    def drain(self):
+        back, _, _ = self.engine.recv_batch(timeout_ms=2)
+        if not back.batch_size:
+            return
+        is_rtcp = (back.data[:, 1] >= 192) & (back.data[:, 1] <= 223)
+        if is_rtcp.any():
+            rows = np.nonzero(is_rtcp)[0]
+            fb = PacketBatch(back.data[rows], back.length[rows],
+                             np.zeros(len(rows), np.int32))
+            dec, ok = self.open_rtcp.unprotect_rtcp(fb)
+            self.feedback += [(bool(ok[i]), dec.to_bytes(i))
+                              for i in range(len(rows))]
+        rows = np.nonzero(~is_rtcp)[0]
+        media = PacketBatch(back.data[rows], back.length[rows],
+                            np.zeros(len(rows), np.int32))
+        hdr0 = rtp_header.parse(media)
+        media.stream[:] = [self.row_of.get(int(s), -1) for s in hdr0.ssrc]
+        dec, ok = self.open.unprotect_rtp(media)
+        hdr = rtp_header.parse(dec)
+        for i in np.nonzero(ok)[0]:
+            i = int(i)
+            self.got[(int(hdr.ssrc[i]), int(hdr.seq[i]))] = \
+                dec.to_bytes(i)[int(hdr.payload_off[i]):]
+
+    def rtcp_wire(self, blobs):
+        return self.protect.protect_rtcp(
+            PacketBatch.from_payloads(blobs, stream=[0] * len(blobs)))
+
+    def send_nack(self, media_ssrc, seqs):
+        self.engine.send_batch(self.rtcp_wire([rtcp.build_compound([
+            rtcp.build_nack(rtcp.Nack(self.ssrc, media_ssrc, list(seqs)))])]),
+            "127.0.0.1", self.bridge_port)
+
+
+def _mesh(eps):
+    for e in eps:
+        for other in eps:
+            if other is not e:
+                e.expect_sender(other.ssrc)
+
+
+def _tick(sfu, now, n=12):
+    for _ in range(n):
+        sfu.tick(now=now)
+
+
+def test_sfu_fanout_and_nack_over_udp():
+    kbuild.reset_counts()
+    sfu = SfuBridge(port=0, capacity=8, recv_window_ms=0, device="cpu")
+    eps = [_Endpoint(0x100 + 7 * k, sfu.port) for k in range(3)]
+    for e in eps:
+        sfu.add_endpoint(e.ssrc, e.rx_key, e.tx_key)
+    _mesh(eps)
+    for rnd in range(2):
+        for e in eps:
+            e.send_media()
+        _tick(sfu, 50.0 + rnd * 0.02)
+        for e in eps:
+            for _ in range(3):
+                e.drain()
+    assert sfu.forwarded == 2 * 3 * 4 * 2
+    for e in eps:
+        payloads = b"".join(e.got.values())
+        for other in eps:
+            if other is not e:
+                assert b"m-%08x" % other.ssrc in payloads
+        assert b"m-%08x" % e.ssrc not in payloads, "echoed own media"
+    # the SFU path ran the plain versions of D and H, never a kernel
+    assert kbuild.plain_calls["srtp_unprotect_cm"] > 0
+    assert kbuild.plain_calls["srtp_fanout_cm"] > 0
+    assert sum(kbuild.launches.values()) == 0
+
+    # NACK service: the victim re-opens its contexts (its replay windows
+    # saw these seqs) and gets the cached copy under its own leg key
+    victim, sender = eps[0], eps[1]
+    victim.got.clear()
+    for ssrc, row in victim.row_of.items():
+        victim.open.add_stream(row, *victim.tx_key)
+    victim.send_nack(sender.ssrc, [501])
+    _tick(sfu, 50.5)
+    for _ in range(3):
+        victim.drain()
+    assert sfu.retransmitted == 1
+    assert list(victim.got) == [(sender.ssrc, 501)]
+    assert victim.got[(sender.ssrc, 501)] == b"m-%08x-501" % sender.ssrc
+
+    # a spoofed NACK (the right SSRC, no key) serves nothing
+    spoof = SrtpStreamTable(capacity=1, device="cpu")
+    spoof.add_stream(0, bytes(16), bytes(14))
+    spoof.rtcp_tx_index[0] = 5       # a fresh index: not a replay
+    forged = spoof.protect_rtcp(PacketBatch.from_payloads([
+        rtcp.build_compound([rtcp.build_nack(rtcp.Nack(
+            victim.ssrc, sender.ssrc, [500, 501, 502]))])], stream=[0]))
+    victim.engine.send_batch(forged, "127.0.0.1", sfu.port)
+    _tick(sfu, 50.6)
+    assert sfu.retransmitted == 1
+    assert sfu.rx_table.auth_fail[0] == 1
+
+    # feedback toward each sender authenticates under its SRTCP key
+    kbuild.reset_counts()
+    sent = sfu.emit_feedback(now=50.7)
+    assert sent == 3
+    assert kbuild.plain_calls["srtcp_protect_cm"] == 1   # every sender's
+    for e in eps:
+        for _ in range(3):
+            e.drain()
+        assert e.feedback and all(ok for ok, _ in e.feedback)
+        kinds = {type(p) for _, blob in e.feedback
+                 for p in rtcp.parse_compound(blob)}
+        assert rtcp.Remb in kinds       # the bridge's own estimate
+    sfu.close()
+    for e in eps:
+        e.engine.close()
+
+
+def test_sfu_conference_scoping_and_staged_hold():
+    sfu = SfuBridge(port=0, capacity=8, recv_window_ms=0, device="cpu")
+    eps = [_Endpoint(0x300 + 5 * k, sfu.port) for k in range(4)]
+    sids = sfu.stage_endpoints(
+        [(e.ssrc, e.rx_key, e.tx_key, None) for e in eps],
+        conferences=[1, 1, 2, 2])
+    for grp in (eps[:2], eps[2:]):
+        _mesh(grp)
+    # media racing the admit waits on the hold (and latches addresses)
+    for e in eps:
+        e.send_media(2)
+    _tick(sfu, 10.0)
+    assert sfu.forwarded == 0
+    sfu.commit_endpoints(sids)
+    assert sfu.forwarded == 4 * 2    # the held packets, replayed
+    for e in eps:
+        e.send_media()
+    _tick(sfu, 10.02)
+    for e in eps:
+        for _ in range(3):
+            e.drain()
+    assert sfu.forwarded == 8 + 4 * 4
+    for k, e in enumerate(eps):
+        heard = {s for s, _ in e.got}
+        mate = eps[k ^ 1]
+        assert heard == {mate.ssrc}, (hex(e.ssrc), heard)
+    sfu.remove_endpoint(sids[1])
+    eps[0].send_media()
+    _tick(sfu, 10.04)
+    assert sfu.forwarded == 24       # nobody left in conference 1
+    sfu.close()
+    for e in eps:
+        e.engine.close()
+
+
+def test_sfu_entry_points_not_ported_name_their_item():
+    sfu = SfuBridge(port=0, capacity=4, device="cpu")
+    for call, item in ((lambda: sfu.add_endpoint_dtls(1), "item 9"),
+                       (lambda: sfu.add_video_track(0, [1], [1e5]),
+                        "item 9"),
+                       (lambda: sfu.migrate_endpoints({0: 1}), "item 12"),
+                       (lambda: sfu.set_broadcast_speakers(1, []),
+                        "item 12")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+    sfu.close()
+    with pytest.raises(NotImplementedError, match="item 4"):
+        SfuBridge(capacity=4, pipelined=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        SfuBridge(capacity=4, profile=SrtpProfile.AEAD_AES_128_GCM,
+                  device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SfuBridge(capacity=4)        # device=None means the card
+
+
+# ------------------------------------------------------------- parity
+
+def _jax_bridge(n, capacity=8):
+    import libjitsi_tpu
+    from libjitsi_tpu.service.sfu_bridge import SfuBridge as JaxBridge
+
+    libjitsi_tpu.stop()
+    libjitsi_tpu.init()
+    return JaxBridge(libjitsi_tpu.configuration_service(), port=0,
+                     capacity=capacity, recv_window_ms=0)
+
+
+class _Capture:
+    """Records every datagram a bridge's engine sends, in order."""
+
+    def __init__(self, bridge):
+        self.sent = []
+        eng = bridge.loop.engine
+        orig = eng.send_batch
+
+        def send_batch(batch, ip, port):
+            n = batch.batch_size
+            ports = np.broadcast_to(np.asarray(port), (n,))
+            self.sent += [(int(ports[i]), batch.to_bytes(i))
+                          for i in range(n)]
+            return orig(batch, ip, port)
+
+        eng.send_batch = send_batch
+
+
+def _join(bridge, eps):
+    return bridge.stage_endpoints(
+        [(e.ssrc, e.rx_key, e.tx_key, None) for e in eps],
+        conferences=[0] * len(eps))
+
+
+def _warm(bridge, eps, ticks, send=None):
+    for t in range(ticks):
+        for e in eps:
+            (send or _send_to)(e, bridge.port, e.media())
+        _tick(bridge, 30.0 + 0.02 * t, 6)
+
+
+def _send_to(e, port, wire):
+    e.engine.send_batch(wire, "127.0.0.1", port)
+
+
+@pytest.mark.slow          # the eager JAX fan-out: ~13 s here
+def test_port_bridge_restored_from_jax_snapshot_forwards_like_jax():
+    """A JAX bridge mid-conference (each sender's ROC at 1, its seq two
+    short of a wrap, addresses latched) is snapshotted and the port's
+    bridge restored from it; the next tick's forwarded wire equals what
+    the JAX bridge's own translator makes of the same packets (run
+    eagerly: its jit compile would cost minutes here)."""
+    import jax
+
+    from libjitsi_tpu.core.packet import PacketBatch as JaxBatch
+    from libjitsi_tpu.transform.header_ext import \
+        AbsSendTimeEngine as JaxAst
+
+    eps = [_Endpoint(0x700 + 9 * k, 0) for k in range(3)]
+    jb = _jax_bridge(3)
+    sids = [jb.add_endpoint(e.ssrc, e.rx_key, e.tx_key) for e in eps]
+    lo = int.from_bytes(socket.inet_aton("127.0.0.1"), "big")
+    for sid, e in zip(sids, eps):
+        e.seq = 65534
+        e.protect.tx_ext[0] = (1 << 16) | 65533
+        jb.rx_table.rx_max[sid] = (1 << 16) | 65533
+        jb.loop.addr_ip[sid] = lo
+        jb.loop.addr_port[sid] = e.engine.port
+    snap = jb.snapshot()
+    jb.close()
+    port_b = SfuBridge.restore(snap, port=0, device="cpu", recv_window_ms=0)
+    cap = _Capture(port_b)
+    for e in eps:
+        e.engine.send_batch(e.media(), "127.0.0.1", port_b.port)
+    _tick(port_b, 31.0, 6)
+    assert port_b.forwarded == 3 * 4 * 2
+    # the JAX bridge's translator on the decrypted, stamped packets
+    seqs = [65534, 65535, 0, 1]
+    idx = np.array([(1 << 16) | 65534, (1 << 16) | 65535, 2 << 16,
+                    (2 << 16) | 1] * 3, np.int64)
+    plain = rtp_header.build(
+        [b"m-%08x-%d" % (e.ssrc, 65534 + i) for e in eps for i in range(4)],
+        seqs * 3, [0] * 12, [e.ssrc for e in eps for _ in range(4)],
+        [96] * 12, stream=[s for s in sids for _ in range(4)])
+    stamped, _ = JaxAst(3, clock=lambda: 31.0).rtp_transformer.transform(
+        JaxBatch(plain.data, plain.length, plain.stream))
+    with jax.disable_jit():
+        out, recv = jb.translator.translate(stamped, idx)
+    port_of = {sid: e.engine.port for sid, e in zip(sids, eps)}
+    want = sorted((port_of[int(r)], out.to_bytes(i))
+                  for i, r in enumerate(recv))
+    assert sorted(cap.sent) == want
+    # each receiver opens its copies across the wrap
+    for e in eps:
+        for _ in range(3):
+            e.drain()
+    _mesh(eps)
+    port_b.close()
+    for e in eps:
+        e.engine.close()
+
+
+@pytest.mark.slow
+def test_port_and_jax_bridges_forward_the_same_wire():
+    """Both bridges from one JAX snapshot, the same input each tick (media,
+    an RR reporting 25% loss so FEC runs, a NACK): every datagram each
+    sends, in order, equal byte for byte."""
+    eps = [_Endpoint(0x900 + 11 * k, 0) for k in range(3)]
+    jb = _jax_bridge(3)
+    for e in eps:
+        jb.add_endpoint(e.ssrc, e.rx_key, e.tx_key)
+    _warm(jb, eps, 2)
+    snap = jb.snapshot()
+    jb.close()
+    jax_b = type(jb).restore(__import__("libjitsi_tpu")
+                             .configuration_service(), snap, port=0,
+                             recv_window_ms=0)
+    port_b = SfuBridge.restore(snap, port=0, device="cpu", recv_window_ms=0)
+    caps = [_Capture(jax_b), _Capture(port_b)]
+    rr = [rtcp.build_compound([rtcp.build_rr(rtcp.ReceiverReport(
+        eps[1].ssrc, [rtcp.ReportBlock(ssrc=eps[0].ssrc, fraction_lost=64,
+                                       cumulative_lost=5, highest_seq=520,
+                                       jitter=3, lsr=0, dlsr=0)]))])]
+    for t in range(6):
+        wires = [e.media() for e in eps]
+        extra = []
+        if t == 1:
+            extra.append(eps[1].rtcp_wire(rr))
+        if t == 3:
+            extra.append(eps[2].rtcp_wire([rtcp.build_compound([
+                rtcp.build_nack(rtcp.Nack(eps[2].ssrc, eps[0].ssrc,
+                                          [eps[0].seq - 5]))])]))
+        for b in (jax_b, port_b):
+            for w in wires + extra:
+                eps[0].engine.send_batch(w, "127.0.0.1", b.port)
+            _tick(b, 40.0 + 0.02 * t, 6)
+            b.emit_feedback(now=40.0 + 0.02 * t + 0.01)
+    assert port_b.recovery.fec.fec_packets_sent > 0
+    assert port_b.retransmitted == jax_b.retransmitted == 1
+    assert [b for _, b in caps[1].sent] == [b for _, b in caps[0].sent]
+    jax_b.close()
+    port_b.close()
+    for e in eps:
+        e.engine.close()

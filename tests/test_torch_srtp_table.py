@@ -19,6 +19,7 @@ import torch
 
 from libjitsi_tpu.rtp import header as j_header
 from libjitsi_tpu.transform.srtp import SrtpStreamTable as JaxTable
+from libjitsi_tpu_torch.core.packet import PacketBatch
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
@@ -202,12 +203,20 @@ def test_unported_paths_raise_and_default_device_is_the_card():
     t = SrtpStreamTable(4, SrtpProfile.AES_256_CM_HMAC_SHA1_32, device="cpu")
     with pytest.raises(NotImplementedError):
         t.add_stream(0, bytes(32), bytes(14), kdr=1 << 16)
-    for call in (lambda: t.protect_rtcp(None), lambda: t.unprotect_rtcp(None),
-                 lambda: t.protect_rtp_async(None),
+    for call in (lambda: t.protect_rtp_async(None),
                  lambda: t.unprotect_rtp_async(None),
                  lambda: t.move_rows([0], [1])):
         with pytest.raises(NotImplementedError, match="item 5"):
             call()
+    # SRTCP is ported (kernels I and J): a round trip on this profile
+    blob = bytes([0x80, 201, 0, 1]) + (0x1234).to_bytes(4, "big")
+    rx = SrtpStreamTable(4, SrtpProfile.AES_256_CM_HMAC_SHA1_32,
+                         device="cpu")
+    for tab in (t, rx):
+        tab.add_stream(1, bytes(range(32)), bytes(14))
+    wire = t.protect_rtcp(PacketBatch.from_payloads([blob], stream=[1]))
+    dec, ok = rx.unprotect_rtcp(wire)
+    assert ok.all() and dec.to_bytes(0) == blob
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SrtpStreamTable(4)
