@@ -78,6 +78,7 @@ a row); F reads 2 and writes 1 byte a sample, G reads 1 and writes 2.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import hmac
 import json
@@ -541,7 +542,10 @@ def latency_floor(torch, dev, kbuild) -> float:
     before (one warp, clock64), and from them the floor a row's hash
     chain sets for kernels C and D: a packet of length L needs
     (L + 4 + 9 + 63) // 64 inner compressions and one outer, one after
-    another on its lane.  Returns the launch floor in ms."""
+    another on its lane; and the cycles one row's whole HMAC takes on a
+    lane of a tile kernel's hashing warp (`hmac_row`: message words from
+    shared memory, padding, the outer block) at the longest rows of the
+    main paths.  Returns the launch floor in ms."""
     from libjitsi_tpu_torch.kernels.aes import expand_key
 
     lib, n = kbuild.library(), 2000
@@ -575,6 +579,27 @@ def latency_floor(torch, dev, kbuild) -> float:
                  "probe_aes_chain")
     torch.cuda.synchronize()
     aes_cycles = float(cycles.double().mean()) / n
+    # one row's MAC on its lane as the tile kernels' hashing lanes run it
+    probe = lib.ljt_probe_hmac_row
+    probe.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + \
+        [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    probe.restype = ctypes.c_int
+    mid = torch.as_tensor(_key_tables(rng, 32)[1]).to(dev)
+    rows = torch.as_tensor(rng.integers(0, 256, (32, 224), np.uint8)).to(dev)
+    digest = torch.zeros(32, dtype=torch.int32, device=dev)
+    hmac_cycles = {}
+    for label, length in (("bench packet 172", 160 + HDR),
+                          ("longest SFU copy 180", 180),
+                          ("longest SRTCP message 200", 200)):
+        reps = 200
+        for _ in range(2):
+            kbuild.check(probe(mid.data_ptr(), rows.data_ptr(), length, 224,
+                               digest.data_ptr(), cycles.data_ptr(), reps,
+                               stream), "probe_hmac_row")
+        torch.cuda.synchronize()
+        hmac_cycles[label] = dict(
+            compressions=(length + 4 + 9 + 63) // 64 + 1,
+            cycles=float(cycles.double().mean()) / reps)
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
          "nounits"], capture_output=True, text=True, timeout=60)
@@ -584,12 +609,14 @@ def latency_floor(torch, dev, kbuild) -> float:
         blocks_ = (length + 4 + 9 + 63) // 64 + 1
         floors[f"len {length}"] = dict(compressions=blocks_,
                                        ms=blocks_ * sha / (mhz * 1e3))
+    for v in hmac_cycles.values():
+        v["ms"] = v["cycles"] / (mhz * 1e3)
     emit("latency_floor", launch_floor_ms=floor_ms,
          launch_floor_call_ms=floor_call_ms,
          cluster_launch_floor_ms=clusters,
          sha1_compression_cycles=sha,
          aes128_block_cycles=aes_cycles, sm_clock_mhz=mhz,
-         hash_chain_floor=floors)
+         hash_chain_floor=floors, hmac_row=hmac_cycles)
     return floor_ms
 
 
@@ -1498,20 +1525,25 @@ def _crypto_times(torch, fn, kernel, plain) -> dict:
 
 def sfu_kernels(torch, dev, floor_ms: float) -> dict:
     """Kernel H against its plain version at the fan-out bench shape (128
-    packets x 512 receivers, 172-byte packets) and at the SFU tick's
-    (1,100 packets x 10 receivers, 80-180-byte packets), and I and J at
-    1,100 compound RTCP packets of 60-200 bytes, each with its bound and
-    beside the launch floor.  No PyTorch call computes SRTP, so none has
-    a library time."""
+    packets x 512 receivers, 172-byte packets), at the SFU tick's (1,100
+    packets x 10 receivers, 80-180-byte packets) and at the launch the
+    sfu path makes once a burst (275 packets x 10 receivers); I and J at
+    1,100 compound RTCP packets of 60-200 bytes, and J at the 275 of one
+    RR burst, as the path launches it.  Each with its bound and beside
+    the launch floor; the `kernels` line takes H's and J's path shapes.
+    No PyTorch call computes SRTP, so none has a library time."""
     from libjitsi_tpu_torch.transform.srtp import kernel as sk
 
     rng = np.random.default_rng(53)
     rows = {}
+    burst = SFU_N // SFU_BURSTS
     for label, p, legs, lens, width in (
             ("128x512 len 172 (fan-out bench)", 128, 512,
              np.full(128, 172), 192),
             ("1100x10 len 80-180 (the SFU tick)", SFU_N, SFU_SIZE - 1,
-             rng.integers(80, 181, SFU_N), 192)):
+             rng.integers(80, 181, SFU_N), 192),
+            (f"{burst}x10 len 80-180 (one SFU burst)", burst, SFU_SIZE - 1,
+             rng.integers(80, 181, burst), 192)):
         host = _fanout_case(rng, p, legs, lens, width, SFU_N)
         args = [torch.as_tensor(x).to(dev) for x in host]
         err = max_abs_err(torch, sk.srtp_fanout_protect(*args, TAG),
@@ -1532,46 +1564,53 @@ def sfu_kernels(torch, dev, floor_ms: float) -> dict:
                     bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms,
                     library_ms=None, library="none", bytes=nbytes, ops=ops)
         emit("kernel_vs_plain", **line)
-        if p == SFU_N:
+        if p == burst:
             rows["srtp_fanout_cm"] = line
-    # I and J: 1,100 compound RTCP packets of 60-200 bytes
-    n, width = SFU_N, 224
+    # I and J: compound RTCP packets of 60-200 bytes from every sender
+    # (I's launch in emit_feedback), and J at one burst's (its launch on
+    # an RR tick)
     tab_rk, tab_mid = _key_tables(rng, SFU_N)
-    lens = rng.integers(60, 201, n).astype(np.int32)
-    data = rng.integers(0, 256, (n, width), np.uint8)
-    stream = rng.permutation(SFU_N).astype(np.int32)
-    iv = rng.integers(0, 256, (n, 16), np.uint8)
-    word = (np.uint64(1 << 31) | rng.integers(0, 2 ** 31, n, np.uint64)
-            ).astype(np.uint32).view(np.int32)
-    pa = [torch.as_tensor(x).to(dev) for x in (tab_rk, tab_mid, stream,
-                                                data, lens, iv, word)]
-    wire, wlen = sk.srtcp_protect(*pa, TAG)
-    require(max_abs_err(torch, (wire, wlen),
-                        sk.srtcp_protect_plain(*pa, TAG)) == 0,
-            "kernel I differs from its plain version")
-    ua = pa[:3] + [wire, wlen, pa[5]]
-    got = sk.srtcp_unprotect(*ua, TAG)
-    require(bool(got[2].all()), "kernel J rejected genuine rows")
-    require(max_abs_err(torch, got, sk.srtcp_unprotect_plain(*ua, TAG))
-            == 0, "kernel J differs from its plain version")
-    ks_blocks = int(((lens - 8 + 15) // 16).sum())
-    mac_blocks = int(((lens + 4 + 9 + 63) // 64 + 1).sum())
-    ops = (ks_blocks * (aes_block_ops(10) + CTR_XOR_OPS)
-           + mac_blocks * SHA1_BLOCK_OPS)
-    nbytes = 2 * n * width + n * (4 + 16 + 4 + 4) + n * (176 + 40)
-    b_ms, b_by = bound(nbytes, ops)
-    for name, fn, plain in (
-            ("srtcp_protect_cm", lambda: sk.srtcp_protect(*pa, TAG),
-             lambda: sk.srtcp_protect_plain(*pa, TAG)),
-            ("srtcp_unprotect_cm", lambda: sk.srtcp_unprotect(*ua, TAG),
-             lambda: sk.srtcp_unprotect_plain(*ua, TAG))):
-        line = dict(name=name, shape=f"{n}x{width} RTCP 60-200 bytes",
-                    max_abs_err=0, **_crypto_times(torch, fn,
-                                                   name + "_kernel", plain),
-                    bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms,
-                    library_ms=None, library="none", bytes=nbytes, ops=ops)
-        emit("kernel_vs_plain", **line)
-        rows[name] = line
+    for n, label in ((SFU_N, ""), (burst, " (one RR burst)")):
+        width = 224
+        lens = rng.integers(60, 201, n).astype(np.int32)
+        data = rng.integers(0, 256, (n, width), np.uint8)
+        stream = rng.permutation(SFU_N)[:n].astype(np.int32)
+        iv = rng.integers(0, 256, (n, 16), np.uint8)
+        word = (np.uint64(1 << 31) | rng.integers(0, 2 ** 31, n, np.uint64)
+                ).astype(np.uint32).view(np.int32)
+        pa = [torch.as_tensor(x).to(dev) for x in (tab_rk, tab_mid, stream,
+                                                    data, lens, iv, word)]
+        wire, wlen = sk.srtcp_protect(*pa, TAG)
+        require(max_abs_err(torch, (wire, wlen),
+                            sk.srtcp_protect_plain(*pa, TAG)) == 0,
+                "kernel I differs from its plain version")
+        ua = pa[:3] + [wire, wlen, pa[5]]
+        got = sk.srtcp_unprotect(*ua, TAG)
+        require(bool(got[2].all()), "kernel J rejected genuine rows")
+        require(max_abs_err(torch, got, sk.srtcp_unprotect_plain(*ua, TAG))
+                == 0, "kernel J differs from its plain version")
+        ks_blocks = int(((lens - 8 + 15) // 16).sum())
+        mac_blocks = int(((lens + 4 + 9 + 63) // 64 + 1).sum())
+        ops = (ks_blocks * (aes_block_ops(10) + CTR_XOR_OPS)
+               + mac_blocks * SHA1_BLOCK_OPS)
+        nbytes = 2 * n * width + n * (4 + 16 + 4 + 4) + n * (176 + 40)
+        b_ms, b_by = bound(nbytes, ops)
+        timed = [("srtcp_unprotect_cm", lambda: sk.srtcp_unprotect(*ua, TAG),
+                  lambda: sk.srtcp_unprotect_plain(*ua, TAG))]
+        if n == SFU_N:
+            timed.insert(0, ("srtcp_protect_cm",
+                             lambda: sk.srtcp_protect(*pa, TAG),
+                             lambda: sk.srtcp_protect_plain(*pa, TAG)))
+        for name, fn, plain in timed:
+            line = dict(name=name,
+                        shape=f"{n}x{width} RTCP 60-200 bytes{label}",
+                        max_abs_err=0,
+                        **_crypto_times(torch, fn, name + "_kernel", plain),
+                        bound_ms=b_ms, bound_by=b_by,
+                        launch_floor_ms=floor_ms, library_ms=None,
+                        library="none", bytes=nbytes, ops=ops)
+            emit("kernel_vs_plain", **line)
+            rows[name] = line
     return rows
 
 

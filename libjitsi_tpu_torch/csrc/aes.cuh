@@ -67,6 +67,26 @@ __device__ __forceinline__ void ljt_aes_fill_te0(uint32_t* t) {
     t[x] = ljt_te0_from_sbox(__ldg(&kLjtSbox[x]));
 }
 
+// ljt_aes_fill_te0 for a CTA of kThreads threads in two steps, so a kernel
+// can issue its other global loads between them: `fetch` reads this
+// thread's share of the table's source, `put` stores its table words.
+template <int kThreads>
+struct LjtTe0Share {
+  static constexpr int kPer = 256 / kThreads;
+  uint32_t s[kPer];
+
+  __device__ __forceinline__ void fetch() {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      s[u] = __ldg(&kLjtSbox[threadIdx.x + u * kThreads]);
+  }
+  __device__ __forceinline__ void put(uint32_t* t) const {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      t[threadIdx.x + u * kThreads] = ljt_te0_from_sbox(s[u]);
+  }
+};
+
 __device__ __forceinline__ uint32_t ljt_ror8(uint32_t x) {
   return __funnelshift_r(x, x, 8);
 }

@@ -1,4 +1,4 @@
-// Byte-order helpers shared by the AES and SHA-1 device code.
+// Byte-order helpers shared by the AES and SHA-1 device code, and a clamp.
 //
 // SRTP, AES (FIPS-197) and SHA-1 (FIPS 180-4) all read their 32-bit
 // words big-endian; the card loads little-endian, so a loaded word is
@@ -19,6 +19,10 @@ __device__ __forceinline__ uint32_t ljt_rotl32(uint32_t x, int n) {
 __device__ __forceinline__ uint32_t ljt_load_be32(const uint8_t* p) {
   return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) |
          (uint32_t(p[2]) << 8) | uint32_t(p[3]);
+}
+
+__device__ __forceinline__ int ljt_clamp(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
 }
 
 __device__ __forceinline__ void ljt_store_be32(uint8_t* p, uint32_t v) {

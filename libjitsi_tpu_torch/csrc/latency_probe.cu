@@ -14,6 +14,14 @@
 //   ljt_probe_aes_chain: round keys [nr + 1, 16] u8, blocks [32, 16] u8:
 //     n times block = E(block); blocks written back.
 //   cycles [32] i64: clock64 cycles each lane spent in its n steps.
+//   ljt_probe_hmac_row: midstates [32, 2, 5] u32, rows [32, width] u8:
+//     the warp stages the rows in shared memory and each lane runs,
+//     `reps` times, the HMAC-SHA1 of its row's first `len` bytes || a
+//     4-byte word, read as the hashing lane of a tile kernel reads it
+//     (`LjtRowMsg`), each time's word the last digest's first word
+//     (written to digest [32] u32); cycles [32] as above.
+//     Beside the chain of bare compressions, this is what one row's MAC
+//     costs its lane: the message words, padding and the outer block.
 //   ljt_probe_empty: one warp that does nothing.  Its time on the card is
 //     the launch floor: no kernel, however little work it does, takes
 //     less, so a kernel of a few microseconds is read against it.
@@ -72,6 +80,33 @@ __global__ void aes_chain_kernel(const uint8_t* __restrict__ rk_bytes,
   cycles[threadIdx.x] = t1 - t0;
 }
 
+__global__ void hmac_row_kernel(const uint32_t* __restrict__ tab_mid,
+                                const uint8_t* __restrict__ rows, int len,
+                                int width, uint32_t* __restrict__ digest,
+                                long long* __restrict__ cycles, int reps) {
+  extern __shared__ uint4 smem[];
+  uint32_t* staged = reinterpret_cast<uint32_t*>(smem);
+  const int stride = (width + 3) / 4;
+  uint8_t* b = reinterpret_cast<uint8_t*>(staged);
+  for (int i = threadIdx.x; i < 32 * width; i += blockDim.x)
+    b[4 * stride * (i / width) + i % width] = rows[i];
+  __syncthreads();
+  uint32_t mid[10];
+  ljt_load_mid(tab_mid, threadIdx.x, mid);
+  uint32_t word = 0;
+  const long long t0 = clock64();
+  for (int i = 0; i < reps; ++i) {
+    uint32_t d[5];
+    ljt_hmac_sha1(mid, LjtRowMsg(staged + threadIdx.x * stride, len, width,
+                                 word),
+                  d);
+    word = d[0];
+  }
+  const long long t1 = clock64();
+  digest[threadIdx.x] = word;
+  cycles[threadIdx.x] = t1 - t0;
+}
+
 __global__ void probe_empty_kernel() {}
 
 __global__ void __launch_bounds__(256) cluster_probe_kernel() {}
@@ -87,6 +122,19 @@ extern "C" int ljt_probe_sha1_chain(void* state, void* cycles, int n,
                                     void* stream) {
   sha1_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(state), static_cast<long long*>(cycles), n);
+  return int(cudaGetLastError());
+}
+
+extern "C" int ljt_probe_hmac_row(const void* tab_mid, const void* rows,
+                                  int len, int width, void* digest,
+                                  void* cycles, int reps, void* stream) {
+  if (len < 0 || len + 4 > width || width > 1024)
+    return int(cudaErrorInvalidValue);
+  hmac_row_kernel<<<1, 32, 32 * 4 * ((width + 3) / 4),
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(tab_mid),
+      static_cast<const uint8_t*>(rows), len, width,
+      static_cast<uint32_t*>(digest), static_cast<long long*>(cycles), reps);
   return int(cudaGetLastError());
 }
 

@@ -184,3 +184,21 @@ __device__ __forceinline__ uint8_t ljt_digest_byte(const uint32_t d[5],
                                                    int k) {
   return uint8_t(d[k >> 2] >> (8 * (3 - (k & 3))));
 }
+
+// The HMAC-SHA1 midstates of table row `sid` (tab_mid [S, 2, 5]).
+__device__ __forceinline__ void ljt_load_mid(const uint32_t* tab_mid,
+                                             int sid, uint32_t mid[10]) {
+#pragma unroll
+  for (int k = 0; k < 10; ++k) mid[k] = tab_mid[size_t(sid) * 10 + k];
+}
+
+// Write the first tag_len digest bytes at pos of a staged row, those at or
+// past width dropped.
+__device__ __forceinline__ void ljt_put_tag(uint32_t* row, int pos,
+                                            int width, const uint32_t d[5],
+                                            int tag_len) {
+  uint8_t* b = reinterpret_cast<uint8_t*>(row);
+#pragma unroll
+  for (int k = 0; k < 20; ++k)
+    if (k < tag_len && pos + k < width) b[pos + k] = ljt_digest_byte(d, k);
+}

@@ -21,10 +21,18 @@
 //
 // Bound on the H100: operations (AES blocks and SHA-1 compressions per
 // row; a compound RTCP packet of 60-200 bytes is 4-12 AES blocks and 2-4
-// compressions).  Design (a first, simple form, the same as kernel H's):
-// one warp per row, four rows a block; lanes take keystream blocks in
-// turn, lane 0 hashes.  J hashes the staged ciphertext first, then its
-// lanes decrypt in place.
+// compressions).
+//
+// Design.  J takes the row-tile form of kernel D (`srtp_tile.cuh`): one
+// CTA of 128 threads a tile of at most 32 rows; set-up loads each row's
+// length, IV, E || index word (4 bytes read where the trailer sits) and
+// midstates together with the rows and round keys; lane r of warp 0
+// hashes row r's staged ciphertext while warps 1-3 decrypt the E = 1
+// rows, over their (row, keystream block) pairs, into a second staged
+// copy that becomes the output (E = 0 rows have no keystream blocks and
+// pass through).  I keeps the first, simple form (`warp_row.cuh`): one
+// warp per row, four rows a block; lanes take keystream blocks in turn,
+// lane 0 hashes.
 //
 // Semantics (held byte for byte against `srtcp_protect_plain` /
 // `srtcp_unprotect_plain` in transform/srtp/kernel.py): lengths are
@@ -35,11 +43,15 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
+#include "srtp_tile.cuh"
 #include "warp_row.cuh"
 
 namespace {
+
+using namespace ljt_tile;
 
 __device__ __forceinline__ void load_iv(const uint8_t* iv, int r,
                                         uint32_t out[4]) {
@@ -89,62 +101,105 @@ __global__ void __launch_bounds__(32 * kLjtRowWarps) srtcp_protect_cm_kernel(
   ljt_warp_store_row(w, out + size_t(r) * width, width);
 }
 
+// J's rows: staged from the tile's first row on, keys by stream id, one
+// IV a row given; the window is [8, mlen) where the E bit of the word at
+// mlen = length - tag_len - 4 is set, and empty where it is not.
+struct SrtcpRows {
+  const int32_t* stream;
+  int n_streams;
+  const uint8_t* data;
+  const int32_t* length;
+  const uint8_t* iv;
+  const uint32_t* tab_mid;
+  int width, tag_len;
+
+  struct Lead {
+    int len, sid;
+  };
+  struct Regs {
+    int len;
+    uint32_t word;  // E || SRTCP index, read at positions clamped into the row
+    uint4 iv;
+    uint32_t mid[10];
+  };
+  __device__ __forceinline__ int key_row(int row) const {
+    return ljt_clamp(stream[row], 0, n_streams - 1);
+  }
+  __device__ __forceinline__ TileRows staged(int base) const {
+    return TileRows{data + size_t(base) * width};
+  }
+  __device__ __forceinline__ int mlen(int len) const {
+    return ljt_clamp(len, 0, width) - tag_len - 4;
+  }
+  __device__ __forceinline__ Lead lead(int row) const {
+    return Lead{length[row], key_row(row)};
+  }
+  __device__ __forceinline__ Regs load(int row, const Lead& lead) const {
+    Regs g;
+    g.len = lead.len;
+    const uint8_t* b = data + size_t(row) * width;
+    const int m = mlen(g.len);
+    g.word = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      g.word = (g.word << 8) | b[ljt_clamp(m + k, 0, width - 1)];
+    g.iv = aligned(iv, 16) ? reinterpret_cast<const uint4*>(iv)[row]
+                           : make_uint4(0, 0, 0, 0);
+    ljt_load_mid(tab_mid, lead.sid, g.mid);
+    return g;
+  }
+  __device__ __forceinline__ void window(const Regs& g, int row, int,
+                                         int& off, int& end,
+                                         uint32_t ivw[4]) const {
+    off = 8;
+    end = (g.word >> 31) ? mlen(g.len) : 0;
+    iv_words(aligned(iv, 16), g.iv, iv + size_t(row) * 16, ivw);
+  }
+};
+
 template <int NR>
-__global__ void __launch_bounds__(32 * kLjtRowWarps) srtcp_unprotect_cm_kernel(
+__global__ void __launch_bounds__(kThreads) srtcp_unprotect_cm_kernel(
     const uint8_t* __restrict__ tab_rk, const uint32_t* __restrict__ tab_mid,
     const int32_t* __restrict__ stream, int n_streams,
     const uint8_t* __restrict__ data, const int32_t* __restrict__ length,
     const uint8_t* __restrict__ iv, uint8_t* __restrict__ out,
     int32_t* __restrict__ out_mlen, uint8_t* __restrict__ auth_ok,
     int32_t* __restrict__ e_bit, int32_t* __restrict__ index, int n,
-    int width, int tag_len) {
+    int width, int tag_len, int tile_rows) {
   extern __shared__ uint4 smem[];
-  const LjtWarpRow w =
-      ljt_warp_row(reinterpret_cast<uint32_t*>(smem), width, NR);
-  ljt_aes_fill_te0(w.te);
-  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const bool live = r < n;
-  int sid = 0;
-  if (live) {
-    sid = ljt_clamp(stream[r], 0, n_streams - 1);
-    ljt_warp_load_keys(w, tab_rk, sid, NR);
-    ljt_warp_load_row(w, data + size_t(r) * width, width);
-  }
+  const Tile t = carve(reinterpret_cast<uint32_t*>(smem), tile_rows, n, width,
+                       NR, kSecondCopy);
+  const SrtcpRows rows{stream, n_streams, data, length, iv, tab_mid, width,
+                       tag_len};
+  const SrtcpRows::Regs g = load_tile<NR>(t, tab_rk, rows, width);
   __syncthreads();
-  if (!live) return;
-  const int len_in = length[r];
-  const int mlen = ljt_clamp(len_in, 0, width) - tag_len - 4;
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(w.row);
-  uint32_t word = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    word = (word << 8) | b[ljt_clamp(mlen + k, 0, width - 1)];
-  if (w.lane == 0) {
+  if (threadIdx.x >= 32) {
+    // warps 1-3: decrypt the E = 1 rows' [8, mlen) into the output copy
+    ctr_tile<NR>(t, t.out, threadIdx.x - 32, blockDim.x - 32);
+  } else if (int(threadIdx.x) < t.rows) {
+    // warp 0: MAC over ciphertext[:mlen] || word, then every tag byte
+    const int r = threadIdx.x;
+    const int row = t.base + r;
+    const int mlen = rows.mlen(g.len);
     uint32_t diff = 1;
     if (mlen >= 0) {
-      uint32_t mid[10];
-      ljt_load_mid(tab_mid, sid, mid);
       uint32_t d[5];
-      ljt_hmac_sha1(mid, LjtRowMsg(w.row, mlen, width, word), d);
+      ljt_hmac_sha1(g.mid,
+                    LjtRowMsg(t.buf + r * t.stride, mlen, width, g.word), d);
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(t.buf + r * t.stride);
       diff = 0;
 #pragma unroll
       for (int k = 0; k < 20; ++k)
         if (k < tag_len)
           diff |= uint32_t(b[mlen + 4 + k] ^ ljt_digest_byte(d, k));
     }
-    auth_ok[r] = diff == 0;
-    out_mlen[r] = len_in - tag_len - 4;
-    e_bit[r] = int32_t(word >> 31);
-    index[r] = int32_t(word & 0x7FFFFFFFu);
+    auth_ok[row] = diff == 0;
+    out_mlen[row] = g.len - tag_len - 4;
+    e_bit[row] = int32_t(g.word >> 31);
+    index[row] = int32_t(g.word & 0x7FFFFFFFu);
   }
-  __syncwarp();  // the hash has read the ciphertext
-  if (word >> 31) {
-    uint32_t ctr[4];
-    load_iv(iv, r, ctr);
-    ljt_warp_ctr<NR>(w, ctr, 8, 8, mlen);
-  }
-  __syncwarp();
-  ljt_warp_store_row(w, out + size_t(r) * width, width);
+  __syncthreads();
+  store_rows(t.out, out + size_t(t.base) * width, t.rows, width, t.stride);
 }
 
 template <class Kernel, class... Args>
@@ -195,16 +250,22 @@ extern "C" int ljt_srtcp_unprotect_cm(const void* tab_rk, const void* tab_mid,
   if (n <= 0) return 0;
   if ((nr != 10 && nr != 14) || n_streams <= 0)
     return int(cudaErrorInvalidValue);
+  static std::atomic<unsigned> done[2];
   auto kernel = nr == 10 ? srtcp_unprotect_cm_kernel<10>
                          : srtcp_unprotect_cm_kernel<14>;
-  return launch(kernel, n, width, nr, cuda_stream,
-                static_cast<const uint8_t*>(tab_rk),
-                static_cast<const uint32_t*>(tab_mid),
-                static_cast<const int32_t*>(stream), n_streams,
-                static_cast<const uint8_t*>(data),
-                static_cast<const int32_t*>(length),
-                static_cast<const uint8_t*>(iv), static_cast<uint8_t*>(out),
-                static_cast<int32_t*>(out_mlen),
-                static_cast<uint8_t*>(auth_ok), static_cast<int32_t*>(e_bit),
-                static_cast<int32_t*>(index), n, width, tag_len);
+  Plan p;
+  const int rc = plan(kernel, done[nr == 14], n, width, nr, kSecondCopy,
+                      kCtasPerSmSfu, &p);
+  if (rc) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  kernel<<<p.grid, kThreads, p.smem, s>>>(
+      static_cast<const uint8_t*>(tab_rk),
+      static_cast<const uint32_t*>(tab_mid),
+      static_cast<const int32_t*>(stream), n_streams,
+      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(length),
+      static_cast<const uint8_t*>(iv), static_cast<uint8_t*>(out),
+      static_cast<int32_t*>(out_mlen), static_cast<uint8_t*>(auth_ok),
+      static_cast<int32_t*>(e_bit), static_cast<int32_t*>(index), n, width,
+      tag_len, p.rows);
+  return int(cudaGetLastError());
 }

@@ -19,12 +19,30 @@
 // bytes moved per copy).  SHA-1 is a chain: one row's compressions run one
 // after another on one lane.
 //
-// Design (a first, simple form): one warp per output row, four rows a
-// block.  The warp stages its packet row and its leg's round keys in
-// shared memory, its lanes take the row's keystream blocks in turn, lane 0
-// hashes the row, and the warp writes it out.  The hash leaves 31 lanes
-// idle; other warps of the SM fill the issue slots.  Rows are packet-major
-// in the order the host gives them.
+// Design: the row-tile form of kernels C and D (`srtp_tile.cuh`).  The
+// first form, one warp a copy with lane 0 hashing, idled 31 lanes through
+// the whole HMAC, kept 11 of 32 lanes busy on a 180-byte copy's
+// keystream and rebuilt the T-table and keys every 4 copies.  Here one
+// CTA of 128 threads takes a tile of at most 32 copies:
+//  - set-up loads each copy's packet (`src`) and leg (`recv`) first, and
+//    then, in one more round trip to memory, the packet's length,
+//    offset, SSRC and index, the leg's round keys, HMAC midstates and
+//    salt, and the packet bytes, staged once per copy (the copies differ
+//    once encrypted; a packet's copies are neighbours, so their reads
+//    after the first hit L2);
+//  - the IV (salt ^ SSRC ^ index) is built on the card, in the thread
+//    that then hashes the copy;
+//  - all four warps make the keystream over the tile's (copy, block)
+//    pairs, in place; then lane r of warp 0 hashes copy r, with the
+//    midstates, length and ROC it loaded in set-up still in registers,
+//    and writes the tag.
+// Kernel C's pipelined hash (warp 0 hashing each block behind keystream
+// levels made by warps 1-3) was slower here on an H100 at every SFU
+// shape (275 x 10 and 1,100 x 10 copies of 80-180 bytes, 128 x 512 of
+// 172): the hash waits on the levels and competes with them, and the
+// keystream has a quarter fewer threads.  A copy's MAC (4-5 SHA-1
+// compressions on one lane) is the floor of a tile.  Rows are
+// packet-major in the order the host gives them.
 //
 // Semantics (held byte for byte against `srtp_fanout_protect_plain` in
 // transform/srtp/kernel.py): src and recv are clamped into the packet and
@@ -35,14 +53,79 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
-#include "warp_row.cuh"
+#include "srtp_tile.cuh"
 
 namespace {
 
+using namespace ljt_tile;
+
+// H's rows: copy k of the launch is packet src[k] under leg recv[k], both
+// clamped into their tables; its IV is RFC 3711 §4.1.1's salt ^ (SSRC <<
+// 64) ^ (48-bit index << 16) and its ROC index >> 16.
+struct FanoutRows {
+  const uint8_t* tab_salt;
+  const uint32_t* tab_mid;
+  int n_streams;
+  const uint8_t* data;
+  const int32_t* length;
+  const int32_t* payload_off;
+  const uint32_t* ssrc;
+  const int64_t* index;
+  int n_src;
+  const int32_t* src;
+  const int32_t* recv;
+  int width;
+
+  struct Lead {
+    int p, leg;  // the copy's packet and leg, clamped
+  };
+  struct Regs {
+    int len, off, leg;
+    uint32_t ssrc;
+    uint64_t idx;       // the 48-bit packet index
+    uint4 salt;
+    uint32_t mid[10];
+  };
+  __device__ __forceinline__ int key_row(int row) const {
+    return ljt_clamp(recv[row], 0, n_streams - 1);
+  }
+  __device__ __forceinline__ GatheredRows staged(int base) const {
+    return GatheredRows{data, src, n_src, base, width};
+  }
+  __device__ __forceinline__ Lead lead(int row) const {
+    return Lead{ljt_clamp(src[row], 0, n_src - 1), key_row(row)};
+  }
+  __device__ __forceinline__ Regs load(int, const Lead& lead) const {
+    Regs g;
+    const int p = lead.p;
+    g.leg = lead.leg;
+    g.len = length[p];
+    g.off = payload_off[p];
+    g.ssrc = ssrc[p];
+    g.idx = uint64_t(index[p]) & 0xFFFFFFFFFFFFull;
+    g.salt = aligned(tab_salt, 16)
+                 ? reinterpret_cast<const uint4*>(tab_salt)[g.leg]
+                 : make_uint4(0, 0, 0, 0);
+    ljt_load_mid(tab_mid, g.leg, g.mid);
+    return g;
+  }
+  __device__ __forceinline__ void window(const Regs& g, int, int w, int& off,
+                                         int& end, uint32_t iv[4]) const {
+    off = g.off;
+    end = ljt_clamp(g.len, 0, w);
+    iv_words(aligned(tab_salt, 16), g.salt, tab_salt + size_t(g.leg) * 16,
+             iv);
+    iv[1] ^= g.ssrc;
+    iv[2] ^= uint32_t(g.idx >> 16);
+    iv[3] ^= uint32_t(g.idx & 0xFFFF) << 16;
+  }
+};
+
 template <int NR>
-__global__ void __launch_bounds__(32 * kLjtRowWarps) srtp_fanout_cm_kernel(
+__global__ void __launch_bounds__(kThreads) srtp_fanout_cm_kernel(
     const uint8_t* __restrict__ tab_rk, const uint32_t* __restrict__ tab_mid,
     const uint8_t* __restrict__ tab_salt, int n_streams,
     const uint8_t* __restrict__ data, const int32_t* __restrict__ length,
@@ -50,44 +133,35 @@ __global__ void __launch_bounds__(32 * kLjtRowWarps) srtp_fanout_cm_kernel(
     const uint32_t* __restrict__ ssrc, const int64_t* __restrict__ index,
     int n_src, const int32_t* __restrict__ src,
     const int32_t* __restrict__ recv, uint8_t* __restrict__ out,
-    int32_t* __restrict__ out_len, int n, int width, int tag_len) {
+    int32_t* __restrict__ out_len, int n, int width, int tag_len,
+    int tile_rows) {
   extern __shared__ uint4 smem[];
-  const LjtWarpRow w =
-      ljt_warp_row(reinterpret_cast<uint32_t*>(smem), width, NR);
-  ljt_aes_fill_te0(w.te);
-  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const bool live = r < n;
-  int p = 0, leg = 0;
-  if (live) {
-    p = ljt_clamp(src[r], 0, n_src - 1);
-    leg = ljt_clamp(recv[r], 0, n_streams - 1);
-    ljt_warp_load_keys(w, tab_rk, leg, NR);
-    ljt_warp_load_row(w, data + size_t(p) * width, width);
+  const Tile t = carve(reinterpret_cast<uint32_t*>(smem), tile_rows, n, width,
+                       NR, kInPlace);
+  const FanoutRows::Regs g = load_tile<NR>(
+      t, tab_rk,
+      FanoutRows{tab_salt, tab_mid, n_streams, data, length, payload_off, ssrc,
+                 index, n_src, src, recv, width},
+      width);
+  __syncthreads();
+  // all four warps: the keystream, over the tile's (copy, block) pairs
+  ctr_tile<NR>(t, t.buf, threadIdx.x, blockDim.x);
+  __syncthreads();
+  if (int(threadIdx.x) < t.rows) {
+    // warp 0: copy r on lane r, its midstates, length and index still in
+    // registers from set-up
+    const int r = threadIdx.x;
+    const int len = ljt_clamp(g.len, 0, width);
+    uint32_t d[5];
+    ljt_hmac_sha1(g.mid,
+                  LjtRowMsg(t.buf + r * t.stride, len, width,
+                            uint32_t(g.idx >> 16)),
+                  d);
+    ljt_put_tag(t.buf + r * t.stride, len, width, d, tag_len);
+    out_len[t.base + r] = g.len + tag_len;
   }
   __syncthreads();
-  if (!live) return;
-  const int len_in = length[p];
-  const int len = ljt_clamp(len_in, 0, width);
-  const int off = payload_off[p];
-  // RFC 3711 §4.1.1: IV = salt ^ (SSRC << 64) ^ (index << 16)
-  const uint64_t idx = uint64_t(index[p]) & 0xFFFFFFFFFFFFull;
-  const uint8_t* salt = tab_salt + size_t(leg) * 16;
-  const uint32_t iv[4] = {
-      ljt_load_be32(salt), ljt_load_be32(salt + 4) ^ ssrc[p],
-      ljt_load_be32(salt + 8) ^ uint32_t(idx >> 16),
-      ljt_load_be32(salt + 12) ^ (uint32_t(idx & 0xFFFF) << 16)};
-  ljt_warp_ctr<NR>(w, iv, off, off > 0 ? off : 0, len);
-  __syncwarp();
-  if (w.lane == 0) {
-    uint32_t mid[10];
-    ljt_load_mid(tab_mid, leg, mid);
-    uint32_t d[5];
-    ljt_hmac_sha1(mid, LjtRowMsg(w.row, len, width, uint32_t(idx >> 16)), d);
-    ljt_put_tag(w.row, len, width, d, tag_len);
-    out_len[r] = len_in + tag_len;
-  }
-  __syncwarp();
-  ljt_warp_store_row(w, out + size_t(r) * width, width);
+  store_rows(t.buf, out + size_t(t.base) * width, t.rows, width, t.stride);
 }
 
 }  // namespace
@@ -101,27 +175,25 @@ extern "C" int ljt_srtp_fanout_cm(const void* tab_rk, const void* tab_mid,
                                   void* out, void* out_len, int n, int width,
                                   int nr, int tag_len, void* cuda_stream) {
   if (n <= 0) return 0;
-  if (nr != 10 && nr != 14) return int(cudaErrorInvalidValue);
-  const int warps = ljt_row_warps(width, nr);
-  if (width <= 0 || n_src <= 0 || n_streams <= 0 || warps < 1)
+  if ((nr != 10 && nr != 14) || n_src <= 0 || n_streams <= 0)
     return int(cudaErrorInvalidValue);
-  const int smem = ljt_row_smem(width, nr, warps);
-  const dim3 grid((n + warps - 1) / warps);
+  static std::atomic<unsigned> done[2];
+  auto kernel = nr == 10 ? srtp_fanout_cm_kernel<10>
+                         : srtp_fanout_cm_kernel<14>;
+  Plan p;
+  const int rc =
+      plan(kernel, done[nr == 14], n, width, nr, kInPlace, kCtasPerSmSfu, &p);
+  if (rc) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
-#define LJT_FANOUT_ARGS                                                      \
-  static_cast<const uint8_t*>(tab_rk), static_cast<const uint32_t*>(tab_mid), \
-      static_cast<const uint8_t*>(tab_salt), n_streams,                       \
-      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(length), \
-      static_cast<const int32_t*>(payload_off),                               \
-      static_cast<const uint32_t*>(ssrc), static_cast<const int64_t*>(index), \
-      n_src, static_cast<const int32_t*>(src),                                \
-      static_cast<const int32_t*>(recv), static_cast<uint8_t*>(out),          \
-      static_cast<int32_t*>(out_len), n, width, tag_len
-  if (nr == 10) {
-    srtp_fanout_cm_kernel<10><<<grid, 32 * warps, smem, s>>>(LJT_FANOUT_ARGS);
-  } else {
-    srtp_fanout_cm_kernel<14><<<grid, 32 * warps, smem, s>>>(LJT_FANOUT_ARGS);
-  }
-#undef LJT_FANOUT_ARGS
+  kernel<<<p.grid, kThreads, p.smem, s>>>(
+      static_cast<const uint8_t*>(tab_rk),
+      static_cast<const uint32_t*>(tab_mid),
+      static_cast<const uint8_t*>(tab_salt), n_streams,
+      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(length),
+      static_cast<const int32_t*>(payload_off),
+      static_cast<const uint32_t*>(ssrc), static_cast<const int64_t*>(index),
+      n_src, static_cast<const int32_t*>(src),
+      static_cast<const int32_t*>(recv), static_cast<uint8_t*>(out),
+      static_cast<int32_t*>(out_len), n, width, tag_len, p.rows);
   return int(cudaGetLastError());
 }

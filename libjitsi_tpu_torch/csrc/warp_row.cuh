@@ -1,5 +1,6 @@
-// Device code shared by the warp-per-row SRTP kernels: H (fan-out,
-// `srtp_fanout.cu`), I and J (SRTCP, `srtcp_cm.cu`).
+// Device code of the warp-per-row form, which kernel I (SRTCP protect,
+// `srtcp_cm.cu`) alone still runs; C, D, H and J run the row-tile form of
+// `srtp_tile.cuh`.
 //
 // One warp owns one packet row: it stages the row in shared memory, its
 // lanes take the row's AES-CTR keystream blocks in turn and XOR them into
@@ -39,10 +40,6 @@ inline int ljt_row_warps(int width, int nr) {
 
 inline int ljt_row_smem(int width, int nr, int warps) {
   return 4 * (256 + warps * ljt_warp_words(width, nr));
-}
-
-__device__ __forceinline__ int ljt_clamp(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
 }
 
 // This warp's round keys and staged row inside the block's shared memory.
@@ -120,13 +117,6 @@ __device__ __forceinline__ void ljt_warp_ctr(const LjtWarpRow& w,
   }
 }
 
-// The HMAC-SHA1 midstates of table row `sid` (tab_mid [S, 2, 5]).
-__device__ __forceinline__ void ljt_load_mid(const uint32_t* tab_mid,
-                                             int sid, uint32_t mid[10]) {
-#pragma unroll
-  for (int k = 0; k < 10; ++k) mid[k] = tab_mid[size_t(sid) * 10 + k];
-}
-
 // Write bytes of the big-endian word v at [pos, pos + 4), those at or past
 // width dropped.
 __device__ __forceinline__ void ljt_put_word(uint32_t* row, int pos,
@@ -135,15 +125,4 @@ __device__ __forceinline__ void ljt_put_word(uint32_t* row, int pos,
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     if (pos + k < width) b[pos + k] = uint8_t(v >> (8 * (3 - k)));
-}
-
-// Write the first tag_len digest bytes at pos, those at or past width
-// dropped.
-__device__ __forceinline__ void ljt_put_tag(uint32_t* row, int pos,
-                                            int width, const uint32_t d[5],
-                                            int tag_len) {
-  uint8_t* b = reinterpret_cast<uint8_t*>(row);
-#pragma unroll
-  for (int k = 0; k < 20; ++k)
-    if (k < tag_len && pos + k < width) b[pos + k] = ljt_digest_byte(d, k);
 }

@@ -308,11 +308,14 @@ def test_g711_encode_kernel_ragged_and_odd_offset(cuda_device, law, offset,
 
 # (key bytes, packets, width, receivers of each packet): P = 1 and N = 1,
 # ragged receiver counts with a packet routed nowhere, an unaligned
-# width, the widest class, and the SFU tick's 1,100 packets x 10 legs
+# width, the widest class, the SFU tick's 1,100 packets x 10 legs, the
+# 275 x 10 of one burst's launch, and one copy at the wrappers' widest
+# row (a tile's rows shrink to fit the shared memory)
 @pytest.mark.parametrize("key_len,p,width,counts", [
     (16, 1, 64, [1]), (16, 5, 208, [3, 0, 10, 1, 4]),
     (32, 4, 37, [2, 2, 5, 1]), (16, 3, 1536, [4, 1, 2]),
-    (16, 1100, 208, [10] * 1100),
+    (16, 1100, 208, [10] * 1100), (16, 275, 192, [10] * 275),
+    (16, 1, 32768, [1]),
 ])
 def test_fanout_kernel_matches_plain(cuda_device, key_len, p, width, counts):
     rng = np.random.default_rng(p * width + key_len)
@@ -346,9 +349,12 @@ def test_fanout_kernel_matches_plain(cuda_device, key_len, p, width, counts):
     assert all(_same(a, b) for a, b in zip(got, want))
 
 
+# (key bytes, tag bytes, width, rows): one row, a ragged few, an unaligned
+# width, the widest class, every SFU sender's 1,100 rows, the 275 of one
+# RR burst's launch of J, and one row at the wrappers' widest
 @pytest.mark.parametrize("key_len,tag_len,width,n", [
     (16, 10, 96, 1), (16, 4, 200, 9), (32, 10, 61, 6), (16, 10, 1536, 5),
-    (16, 10, 224, 1100),
+    (16, 10, 224, 1100), (16, 10, 224, 275), (16, 10, 32768, 1),
 ])
 def test_srtcp_kernels_match_plain(cuda_device, key_len, tag_len, width, n):
     rng = np.random.default_rng(width + n)

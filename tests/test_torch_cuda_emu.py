@@ -371,10 +371,15 @@ def _fanout_inputs(rng, key_len, p, width, counts):
 
 
 # P = 1 and N = 1; ragged receiver counts (a packet with none); widths at
-# the word and block edges, an unaligned width and the widest class
+# the word and block edges, an unaligned width and the widest class.
+# Kernel H aims for four tiles an SM (one SM here, so ceil(N / 4) rows a
+# tile, at most 32): 140 copies are four tiles of 32 and one of 12, each
+# boundary inside a packet's copies; at 8,192 bytes (AES-256) a tile
+# holds 27 rows, so 112 copies are four tiles of 27 and one of 4.
 @pytest.mark.parametrize("key_len,p,width,counts", [
     (16, 1, 64, [1]), (16, 5, 208, [3, 0, 10, 1, 4]),
     (32, 4, 37, [2, 2, 5, 1]), (16, 3, 1536, [4, 1, 2]),
+    (16, 14, 208, [10] * 14), (32, 4, 8192, [28] * 4),
 ])
 def test_emulated_kernel_h_matches_plain(emu, key_len, p, width, counts):
     rng = np.random.default_rng(p * width + key_len)
@@ -408,8 +413,13 @@ def test_emulated_kernel_h_matches_plain(emu, key_len, p, width, counts):
     assert np.array_equal(out, c_out.numpy())
 
 
+# Kernel J's tiles are sized as H's: 140 rows are four tiles of 32 and one
+# of 12 here, and at 4,096 bytes (AES-256) a tile holds 27 rows, so 112
+# rows are four of 27 and one of 4 (E = 0 and E = 1 rows alternate, so
+# every tile holds both).
 @pytest.mark.parametrize("key_len,tag_len,width,n", [
     (16, 10, 96, 1), (16, 4, 200, 9), (32, 10, 61, 6), (16, 10, 1536, 5),
+    (16, 10, 224, 140), (32, 4, 4096, 112),
 ])
 def test_emulated_kernels_i_j_match_plain(emu, key_len, tag_len, width, n):
     rng = np.random.default_rng(width + n)
