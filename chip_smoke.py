@@ -27,13 +27,19 @@ version:
                 under its leg's key, and none echoes or crosses a
                 conference.
 
-Beside them, `sass` gives each kernel's instruction count, registers and
-spills (and kernel E's launch plans: cluster size and dynamic shared
-memory at its main shapes), `latency_floor` the cycles one SHA-1
-compression and one AES block take on a lane that waits on each (the
-floor of kernels C and D) and the time of an empty kernel on the card
-(`launch_floor_ms`, the floor of every kernel), and `profiler` how many
-empty profiling windows were measured again.
+Beside them, `sass` gives each kernel's instruction count, registers,
+spills and static shared memory, the INT32-pipe and load counts of the
+AES core's round loop (in kernel A and in the chain probe), and kernel E's
+launch plans (cluster size and dynamic shared memory at its main
+shapes), and fails unless
+kernel A, the AES core alone, holds no shared memory and issues no
+shared-memory load and no constant load at a register-held address (the
+core is gather-free: `libjitsi_tpu_torch/csrc/aes.cuh`);
+`latency_floor` gives the cycles one SHA-1 compression and one pair of
+AES-128 and of AES-256 blocks take on a lane that waits on each (the
+floors of the tile kernels' lanes) and the time of an empty kernel on
+the card (`launch_floor_ms`, the floor of every kernel), and `profiler`
+how many empty profiling windows were measured again.
 
 Every phase prints one JSON line; the card's `nvidia-smi` name and power
 limit come before the last line, and the last line is
@@ -60,17 +66,21 @@ at the 128-lane issue rate the total still binds later.  Per unit:
 
   SHA-1 compression  432 = 80 rounds x 3 (rotl5, f as one LOP3, rotl30)
                          + 64 schedule words x 3 (two LOP3, rotl1)
-  AES block, T-table 24*nr + 12 = 4 (first key XOR)
+  AES block          24*nr + 12 = 4 (first key XOR)
                          + (nr-1) rounds x 24 (16 table indices at one
                            instruction each, 8 LOP3 for the XORs)
                          + 32 (last round: 16 S-box indices, 12 PRMT to
                            pack the bytes, 4 key XORs)
   CTR window XOR     4 per 16-byte keystream block
 
-Shared-memory loads and byte swaps are not counted, and an index costs
-two instructions in practice, so the bound lies below what any kernel
-of the T-table form can reach; a bitsliced AES needs more logic per
-block than this.  Kernels E, F and G do a few integer operations per
+The AES count is that of a T-table round, the fewest instructions this
+card needs for a block, and it stays the bound on purpose: the bound
+reads the work of the function, whatever implements it.  The port's
+core is gather-free (a Boolean S-box circuit on bit-sliced pairs of
+blocks, so no load depends on a key or a state byte) and issues several
+times that count a block; the `sass` counts and each kernel's time
+against its bound show what that costs.  Shared-memory loads and byte
+swaps are not counted.  Kernels E, F and G do a few integer operations per
 byte they move, so bytes bound them: E reads pcm and writes the mix
 (2 + 2 bytes a sample) and reads the mask and writes the levels (1 + 1
 a row); F reads 2 and writes 1 byte a sample, G reads 1 and writes 2.
@@ -445,16 +455,27 @@ def known_answers(torch, dev) -> None:
 def sass_counts(kbuild) -> None:
     """Static count of the INT32-pipe instructions the bounds count
     (LOP3, SHF, PRMT) in each built kernel, read with `cuobjdump -sass`,
-    and each kernel's registers, stack and spill bytes as ptxas reported
-    them.  Kernel A is straight-line code for one block, so its count
-    must not fall below the bound's count for a block."""
+    and each kernel's registers, stack, spill bytes and static shared
+    memory as ptxas reported them.  Kernel A's code holds every round of
+    a pair of blocks at least once, so its count must not fall below
+    the bound's count for a block; it is the AES core alone, so it must hold no shared
+    memory and issue no shared-memory load (LDS) and no constant load
+    whose address is in a register (LDC / ULDC with R or UR in the
+    brackets): no lookup of any kind.  The chain probe runs the same
+    core with its round keys sliced in shared memory, as the tile
+    kernels keep them: its loads must be those keys' alone, 2 LDS.128 (8
+    words) a round and no indexed constant load; the tile kernels issue
+    no indexed constant load either."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", kbuild.build()], check=True,
                           capture_output=True, text=True,
                           timeout=120).stdout
-    counts, cur = {}, None
-    name = re.compile(r"(" + "|".join(kbuild.KERNELS)
+    counts, lookups, code, cur = {}, {}, {}, None
+    shared, indexed_ldc = {}, {}
+    name = re.compile(r"(" + "|".join(kbuild.KERNELS + ("aes_chain",))
                       + r")_kernel(?:ILi(\d+)E)?")
+    insn = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9]*)(\S*)\s*([^;]*);")
     for line in sass.splitlines():
         if "Function : " in line:      # a kernel not listed counts nowhere
             m = name.search(line)
@@ -462,13 +483,46 @@ def sass_counts(kbuild) -> None:
                    if m else None)
             if cur:
                 counts[cur] = 0
-        elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?"
-                              r"(LOP3|SHF|PRMT)\b", line):
+                lookups[cur] = []
+                code[cur] = []
+                shared[cur] = []
+                indexed_ldc[cur] = 0
+            continue
+        m = insn.match(line) if cur else None
+        if not m:
+            continue
+        op, operands = m.group(2), m.group(4)
+        code[cur].append((int(m.group(1), 16), op, operands))
+        if op in ("LOP3", "SHF", "PRMT"):
             counts[cur] += 1
+        indexed = re.search(r"c\[[^\]]*\]\s*\[[^\]]*\bU?R\d+", operands) \
+            or re.search(r"c\[\s*U?R\d+", operands)
+        if op in ("LDS", "LDSM") or (op in ("LDC", "ULDC") and indexed):
+            lookups[cur].append(op + m.group(3) + " " + operands.strip())
+        if op in ("LDS", "LDSM"):
+            shared[cur].append(op + m.group(3))
+        if op in ("LDC", "ULDC") and indexed:
+            indexed_ldc[cur] += 1
+    chains = [f"aes_chain nr={nr}" for nr in (10, 14)]
+    require(all(k in counts for k in chains),
+            f"no SASS for the AES chain probe: {sorted(counts)}")
+    loops = {k: _innermost_loop(code[k]) for k in
+             chains + ["aes_encrypt nr=10", "aes_encrypt nr=14"]}
+    for k in chains:
+        # round 0, the loop's round and the last: one round key each
+        require(shared[k] == ["LDS.128"] * 6 and
+                loops[k]["shared_loads"] == 2 and indexed_ldc[k] == 0,
+                f"{k}: loads other than its round keys: {shared[k]}, "
+                f"{indexed_ldc[k]} indexed LDC, loop {loops[k]}")
+        counts.pop(k)
+        lookups.pop(k)
     for nr in (10, 14):
         require(counts.get(f"aes_encrypt nr={nr}", 0) >= aes_block_ops(nr),
                 f"kernel A (nr={nr}) issues fewer INT32-pipe instructions "
                 f"than its bound counts: {counts}")
+        require(f"aes_encrypt nr={nr}" in lookups and
+                not lookups[f"aes_encrypt nr={nr}"],
+                f"kernel A (nr={nr}) issues table lookups: {lookups}")
     ptxas = ptxas_usage(kbuild)
     for k in ("srtp_protect_cm", "srtp_unprotect_cm"):
         for nr in (10, 14):
@@ -480,12 +534,54 @@ def sass_counts(kbuild) -> None:
                                              f"nr={nr}: {sorted(ptxas)}")
     for k in ("mix_minus", "g711_encode"):
         require(k in ptxas, f"no ptxas report for {k}: {sorted(ptxas)}")
+    crypto = ("aes_encrypt", "srtp_protect_cm", "srtp_unprotect_cm",
+              "srtp_fanout_cm", "srtcp_protect_cm", "srtcp_unprotect_cm")
+    static_smem = {f"{k} nr={nr}": ptxas.get(f"{k} nr={nr}", {}).get(
+        "static_smem_bytes", 0) for k in crypto for nr in (10, 14)}
+    for nr in (10, 14):
+        require(f"aes_encrypt nr={nr}" in ptxas and
+                static_smem[f"aes_encrypt nr={nr}"] == 0,
+                f"kernel A (nr={nr}) holds shared memory: {static_smem}")
+    ldc = {f"{k} nr={nr}": indexed_ldc.get(f"{k} nr={nr}")
+           for k in crypto for nr in (10, 14)}
+    require(all(v == 0 for v in ldc.values()),
+            f"indexed constant loads: {ldc}")
+    # the AES core's round loop, once a round: in the chain probe the
+    # core as the tiles run it (its key words loaded from shared memory),
+    # in kernel A with both blocks' keys sliced in the loop (the four
+    # rotations' key shifts all inside its body, one taken a round)
     emit("sass", int32_pipe_static=counts, ptxas=ptxas,
+         static_smem_bytes=static_smem, aes_loops=loops,
+         shared_or_indexed_constant_loads={k: len(v)
+                                           for k, v in lookups.items()},
          mix_minus_plans={f"{c}x{n}x{f}": mix_plan(kbuild, c, n, f)
                           for c, n, f in MIX_SHAPES},
          bound_per_unit={"sha1_compression": SHA1_BLOCK_OPS,
                          "aes_block nr=10": aes_block_ops(10),
                          "aes_block nr=14": aes_block_ops(14)})
+
+
+def _innermost_loop(code) -> dict:
+    """A kernel's innermost loop in its SASS ((address, op, operands)
+    rows): the shortest span from a backward branch's target to the
+    branch that lies inside another such span, or the shortest span if
+    none is nested.  Its length and its INT32-pipe, shared-memory and
+    global load instructions."""
+    spans = []
+    for addr, op, operands in code:
+        m = re.match(r"(0x[0-9a-f]+)$", operands.strip())
+        if op == "BRA" and m and int(m.group(1), 16) < addr:
+            spans.append((addr - int(m.group(1), 16), int(m.group(1), 16),
+                          addr))
+    require(spans, "no loop in an AES kernel's SASS")
+    nested = [sp for sp in spans if any(o[1] <= sp[1] and sp[2] <= o[2]
+                                        and o != sp for o in spans)]
+    _, lo, hi = min(nested or spans)
+    body = [op for addr, op, _ in code if lo <= addr <= hi]
+    return dict(instructions=len(body),
+                int32_pipe=sum(op in ("LOP3", "SHF", "PRMT") for op in body),
+                shared_loads=sum(op == "LDS" for op in body),
+                global_loads=sum(op == "LDG" for op in body))
 
 
 def ptxas_usage(kbuild) -> dict:
@@ -537,16 +633,18 @@ def latency_floor(torch, dev, kbuild) -> float:
     warp, csrc/latency_probe.cu), by the same profiler reading as every
     kernel's `ms`, and per back-to-back call by CUDA events; the same
     profiler reading for an empty cluster of 8 and of 16 blocks (kernel
-    E launches clusters).  Then the cycles of one SHA-1 compression
-    and one AES-128 block on a lane whose every step waits on the one
-    before (one warp, clock64), and from them the floor a row's hash
+    E launches clusters).  Then the cycles of one SHA-1 compression,
+    and of one pair of AES-128 and of AES-256 blocks through the
+    gather-free core (its round keys sliced in shared memory, as a tile
+    holds them), on a lane whose every step waits on the one before (one
+    warp, clock64), and from them the floor a row's hash
     chain sets for kernels C and D: a packet of length L needs
     (L + 4 + 9 + 63) // 64 inner compressions and one outer, one after
     another on its lane; and the cycles one row's whole HMAC takes on a
     lane of a tile kernel's hashing warp (`hmac_row`: message words from
     shared memory, padding, the outer block) at the longest rows of the
     main paths.  Returns the launch floor in ms."""
-    from libjitsi_tpu_torch.kernels.aes import expand_key
+    from libjitsi_tpu_torch.kernels.aes import aes_encrypt_np, expand_key
 
     lib, n = kbuild.library(), 2000
     stream = kbuild.stream_handle(dev)
@@ -571,14 +669,24 @@ def latency_floor(torch, dev, kbuild) -> float:
                                           n, stream), "probe_sha1_chain")
     torch.cuda.synchronize()
     sha = float(cycles.double().mean()) / n
-    rk = torch.as_tensor(expand_key(rng.integers(0, 256, 16, np.uint8)
-                                    .tobytes())).to(dev)
-    blocks = torch.as_tensor(rng.integers(0, 256, (32, 16), np.uint8)).to(dev)
-    kbuild.check(lib.ljt_probe_aes_chain(rk.data_ptr(), blocks.data_ptr(),
-                                         cycles.data_ptr(), 10, n, stream),
-                 "probe_aes_chain")
-    torch.cuda.synchronize()
-    aes_cycles = float(cycles.double().mean()) / n
+    aes_pair = {}
+    for key_len in (16, 32):
+        rk_np = expand_key(rng.integers(0, 256, key_len, np.uint8).tobytes())
+        rk = torch.as_tensor(rk_np).to(dev)
+        pairs = rng.integers(0, 256, (64, 16), np.uint8)
+        blocks = torch.as_tensor(pairs).to(dev)
+        reps = 200
+        kbuild.check(lib.ljt_probe_aes_chain(
+            rk.data_ptr(), blocks.data_ptr(), cycles.data_ptr(),
+            len(rk_np) - 1, reps, stream), "probe_aes_chain")
+        torch.cuda.synchronize()
+        want = pairs
+        for _ in range(reps):
+            want = aes_encrypt_np(np.broadcast_to(rk_np, (64,) + rk_np.shape),
+                                  want)
+        require(np.array_equal(blocks.cpu().numpy(), want),
+                f"the AES-{key_len * 8} chain differs from the host AES")
+        aes_pair[f"aes{key_len * 8}"] = float(cycles.double().mean()) / reps
     # one row's MAC on its lane as the tile kernels' hashing lanes run it
     probe = lib.ljt_probe_hmac_row
     probe.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + \
@@ -615,7 +723,7 @@ def latency_floor(torch, dev, kbuild) -> float:
          launch_floor_call_ms=floor_call_ms,
          cluster_launch_floor_ms=clusters,
          sha1_compression_cycles=sha,
-         aes128_block_cycles=aes_cycles, sm_clock_mhz=mhz,
+         aes_pair_cycles=aes_pair, sm_clock_mhz=mhz,
          hash_chain_floor=floors, hmac_row=hmac_cycles)
     return floor_ms
 
@@ -1531,6 +1639,8 @@ def sfu_kernels(torch, dev, floor_ms: float) -> dict:
     1,100 compound RTCP packets of 60-200 bytes, and J at the 275 of one
     RR burst, as the path launches it.  Each with its bound and beside
     the launch floor; the `kernels` line takes H's and J's path shapes.
+    Then I at the shape of `_sfu_setup`'s launch: 1,100 32-byte RRs in
+    rows of the default 1,504-byte capacity.
     No PyTorch call computes SRTP, so none has a library time."""
     from libjitsi_tpu_torch.transform.srtp import kernel as sk
 
@@ -1611,6 +1721,35 @@ def sfu_kernels(torch, dev, floor_ms: float) -> dict:
                         library="none", bytes=nbytes, ops=ops)
             emit("kernel_vs_plain", **line)
             rows[name] = line
+    # I at the launch `_sfu_setup` makes for the clients' RRs: 1,100
+    # receiver reports of 32 bytes in rows of the default 1,504-byte
+    # capacity (`PacketBatch.from_payloads`)
+    n, width = SFU_N, 1504
+    lens = np.full(n, 32, np.int32)
+    pa = [torch.as_tensor(x).to(dev) for x in (
+        tab_rk, tab_mid, rng.permutation(SFU_N)[:n].astype(np.int32),
+        rng.integers(0, 256, (n, width), np.uint8), lens,
+        rng.integers(0, 256, (n, 16), np.uint8),
+        (np.uint64(1 << 31) | rng.integers(0, 2 ** 31, n, np.uint64))
+        .astype(np.uint32).view(np.int32))]
+    err = max_abs_err(torch, sk.srtcp_protect(*pa, TAG),
+                      sk.srtcp_protect_plain(*pa, TAG))
+    require(err == 0, "kernel I at the setup's shape differs from its plain "
+                      "version")
+    ks_blocks = int(((lens - 8 + 15) // 16).sum())
+    mac_blocks = int(((lens + 4 + 9 + 63) // 64 + 1).sum())
+    ops = (ks_blocks * (aes_block_ops(10) + CTR_XOR_OPS)
+           + mac_blocks * SHA1_BLOCK_OPS)
+    nbytes = 2 * n * width + n * (4 + 16 + 4 + 4) + n * (176 + 40)
+    b_ms, b_by = bound(nbytes, ops)
+    emit("kernel_vs_plain", name="srtcp_protect_cm",
+         shape=f"{n}x{width} RR 32 bytes (the SFU setup's launch)",
+         max_abs_err=err,
+         **_crypto_times(torch, lambda: sk.srtcp_protect(*pa, TAG),
+                         "srtcp_protect_cm_kernel",
+                         lambda: sk.srtcp_protect_plain(*pa, TAG)),
+         bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms,
+         library_ms=None, library="none", bytes=nbytes, ops=ops)
     return rows
 
 

@@ -1,145 +1,305 @@
-// AES-128/256 block encryption for Hopper: shared-memory T-table core.
+// AES-128/256 block encryption for Hopper: a gather-free, fixsliced core.
 //
 // Replaces the block cipher of libjitsi_tpu/kernels/aes.py (`aes_encrypt`,
 // whose TPU form is the Pallas kernel `aes_encrypt_pallas_bitsliced` in
-// libjitsi_tpu/kernels/aes_bitsliced.py).  The TPU kernel is a
-// gather-free Boolean circuit on 128 lanes only because Mosaic cannot
-// lower table gathers; an SM does a 256-entry table lookup from shared
-// memory in one instruction, so the core here is the classic T-table
-// round (FIPS-197 §5.2 folded into four lookups per column): one 1 KB
-// T-table built in shared memory once per CTA, the other three T-tables
-// obtained by byte rotation, and the last round's S-box byte taken from
-// the same table (byte 1 of Te0[x] is S[x]).
+// libjitsi_tpu/kernels/aes_bitsliced.py).  Like that kernel, this core
+// is a Boolean circuit on registers: no load anywhere has an address that
+// depends on key or state bytes, and there is no table of any kind, so
+// the cipher's timing and its memory traffic are the same for every key
+// and every block (a T-table core leaks both through the cache and the
+// shared-memory banks, and in SRTP's counter mode an observer knows part
+// of the first round's input).
 //
-// The table is built from an S-box in global memory read through the
-// read-only cache: the constant cache would serialize the 256 distinct
-// per-lane indices.  One 1 KB copy per CTA: 32 copies laid out one per
-// shared-memory bank remove the lookups' bank conflicts, but measured
-// slower at every shape of kernels C and D on the H100 (their 32 KB caps
-// the CTAs an SM holds, and these kernels wait on latency and issue, not
-// on banks).
+// Representation (Adomnicai and Peyrin, "Fixslicing AES-like Ciphers",
+// TCHES 2021/1): a thread encrypts two blocks at once, sliced into eight
+// 32-bit words.  Word b holds bit b of each of the pair's 32 bytes; the
+// byte in row r, column c of block k sits at bit 8 * (3 - r) + 2 * c + k,
+// so a row is one byte of the word and the two blocks alternate bit by
+// bit.  `ljt_aes_pack` and `ljt_aes_transpose` move between that form and
+// the blocks' big-endian column words with twelve SWAPMOVEs (one 8 x 8
+// bit transpose, its own inverse).
+//  - SubBytes is the Boyar-Peralta circuit (IACR ePrint 2009/191): 32
+//    AND and 83 XOR/XNOR gates on the eight words, which ptxas fuses into
+//    LOP3s.
+//  - ShiftRows is never done.  After round r the state is kept as
+//    ShiftRows^-(r mod 4) of the true state, so MixColumns finds a byte's
+//    column neighbour one row down and (r mod 4) columns along: a rotation
+//    of the word by 8 bits and of each byte by 2 (r mod 4) bits, two
+//    funnel shifts and a LOP3 (one shift when r mod 4 is 0 and known
+//    when the kernel is compiled).  Each round
+//    key is stored in the same drifted form (`ljt_aes_slice_keys`).  Both
+//    10 and 14 rounds end two ShiftRows short, which one byte permute a
+//    column word puts right after unpacking.
+//  - MixColumns' doubling is a re-labelling of the eight words and three
+//    XORs; AddRoundKey is eight XORs.
 //
-// State and round keys are FIPS-197 byte order read as big-endian
-// column words (word c = bytes 4c..4c+3), which is the layout of
-// `expand_key` ([R, 16] uint8, R = Nr + 1).
+// Round keys are kept as the callers have them, FIPS-197 byte order read
+// as big-endian column words (word c = bytes 4c..4c+3; `expand_key`'s
+// [R, 16] uint8 rows, R = Nr + 1), and sliced per round when they are
+// used (kernel A) or once a tile (`srtp_tile.cuh`): 8 words a round key
+// with both block slots holding it.  A pair whose blocks are under two
+// keys takes each slot from its own key, one LOP3 a word
+// (`LjtSlicedRound`).  The header declares no array: state and round keys
+// come in as parameters, so nothing here can hold a table
+// (tests/test_torch_aes_ct.py).
 #pragma once
 
 #include <cstdint>
 
 #include "bytes.cuh"
 
-static __device__ const uint8_t kLjtSbox[256] = {
-    0x63, 0x7c, 0x77, 0x7b, 0xf2, 0x6b, 0x6f, 0xc5, 0x30, 0x01, 0x67, 0x2b,
-    0xfe, 0xd7, 0xab, 0x76, 0xca, 0x82, 0xc9, 0x7d, 0xfa, 0x59, 0x47, 0xf0,
-    0xad, 0xd4, 0xa2, 0xaf, 0x9c, 0xa4, 0x72, 0xc0, 0xb7, 0xfd, 0x93, 0x26,
-    0x36, 0x3f, 0xf7, 0xcc, 0x34, 0xa5, 0xe5, 0xf1, 0x71, 0xd8, 0x31, 0x15,
-    0x04, 0xc7, 0x23, 0xc3, 0x18, 0x96, 0x05, 0x9a, 0x07, 0x12, 0x80, 0xe2,
-    0xeb, 0x27, 0xb2, 0x75, 0x09, 0x83, 0x2c, 0x1a, 0x1b, 0x6e, 0x5a, 0xa0,
-    0x52, 0x3b, 0xd6, 0xb3, 0x29, 0xe3, 0x2f, 0x84, 0x53, 0xd1, 0x00, 0xed,
-    0x20, 0xfc, 0xb1, 0x5b, 0x6a, 0xcb, 0xbe, 0x39, 0x4a, 0x4c, 0x58, 0xcf,
-    0xd0, 0xef, 0xaa, 0xfb, 0x43, 0x4d, 0x33, 0x85, 0x45, 0xf9, 0x02, 0x7f,
-    0x50, 0x3c, 0x9f, 0xa8, 0x51, 0xa3, 0x40, 0x8f, 0x92, 0x9d, 0x38, 0xf5,
-    0xbc, 0xb6, 0xda, 0x21, 0x10, 0xff, 0xf3, 0xd2, 0xcd, 0x0c, 0x13, 0xec,
-    0x5f, 0x97, 0x44, 0x17, 0xc4, 0xa7, 0x7e, 0x3d, 0x64, 0x5d, 0x19, 0x73,
-    0x60, 0x81, 0x4f, 0xdc, 0x22, 0x2a, 0x90, 0x88, 0x46, 0xee, 0xb8, 0x14,
-    0xde, 0x5e, 0x0b, 0xdb, 0xe0, 0x32, 0x3a, 0x0a, 0x49, 0x06, 0x24, 0x5c,
-    0xc2, 0xd3, 0xac, 0x62, 0x91, 0x95, 0xe4, 0x79, 0xe7, 0xc8, 0x37, 0x6d,
-    0x8d, 0xd5, 0x4e, 0xa9, 0x6c, 0x56, 0xf4, 0xea, 0x65, 0x7a, 0xae, 0x08,
-    0xba, 0x78, 0x25, 0x2e, 0x1c, 0xa6, 0xb4, 0xc6, 0xe8, 0xdd, 0x74, 0x1f,
-    0x4b, 0xbd, 0x8b, 0x8a, 0x70, 0x3e, 0xb5, 0x66, 0x48, 0x03, 0xf6, 0x0e,
-    0x61, 0x35, 0x57, 0xb9, 0x86, 0xc1, 0x1d, 0x9e, 0xe1, 0xf8, 0x98, 0x11,
-    0x69, 0xd9, 0x8e, 0x94, 0x9b, 0x1e, 0x87, 0xe9, 0xce, 0x55, 0x28, 0xdf,
-    0x8c, 0xa1, 0x89, 0x0d, 0xbf, 0xe6, 0x42, 0x68, 0x41, 0x99, 0x2d, 0x0f,
-    0xb0, 0x54, 0xbb, 0x16,
+__device__ __forceinline__ uint32_t ljt_ror(uint32_t x, int n) {
+  return __funnelshift_r(x, x, n);
+}
+
+// The bits of `hi` under mask m trade places with the bits of `lo` under
+// m << n.
+__device__ __forceinline__ void ljt_swapmove(uint32_t& lo, uint32_t& hi,
+                                             uint32_t m, int n) {
+  const uint32_t t = (hi ^ (lo >> n)) & m;
+  hi ^= t;
+  lo ^= t << n;
+}
+
+// Word index q and bit index l mod 8 trade places: x[q] bit 8h + l goes
+// to x[l] bit 8h + q.
+__device__ __forceinline__ void ljt_aes_transpose(uint32_t x[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) ljt_swapmove(x[j], x[j + 1], 0x55555555u, 1);
+  ljt_swapmove(x[0], x[2], 0x33333333u, 2);
+  ljt_swapmove(x[1], x[3], 0x33333333u, 2);
+  ljt_swapmove(x[4], x[6], 0x33333333u, 2);
+  ljt_swapmove(x[5], x[7], 0x33333333u, 2);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ljt_swapmove(x[j], x[j + 4], 0x0F0F0F0Fu, 4);
+}
+
+// Two blocks (4 big-endian column words each) into the sliced form; the
+// transpose again takes it back.
+__device__ __forceinline__ void ljt_aes_pack(const uint32_t a[4],
+                                             const uint32_t b[4],
+                                             uint32_t s[8]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s[2 * j] = a[j];
+    s[2 * j + 1] = b[j];
+  }
+  ljt_aes_transpose(s);
+}
+
+// SubBytes on the eight words (q[0] the low bit of every byte): Boyar and
+// Peralta's circuit, x0 the high bit.
+__device__ __forceinline__ void ljt_aes_sbox(uint32_t q[8]) {
+  const uint32_t x0 = q[7], x1 = q[6], x2 = q[5], x3 = q[4];
+  const uint32_t x4 = q[3], x5 = q[2], x6 = q[1], x7 = q[0];
+  // top linear layer
+  const uint32_t y14 = x3 ^ x5, y13 = x0 ^ x6, y9 = x0 ^ x3, y8 = x0 ^ x5;
+  const uint32_t t0 = x1 ^ x2, y1 = t0 ^ x7, y4 = y1 ^ x3, y12 = y13 ^ y14;
+  const uint32_t y2 = y1 ^ x0, y5 = y1 ^ x6, y3 = y5 ^ y8, t1 = x4 ^ y12;
+  const uint32_t y15 = t1 ^ x5, y20 = t1 ^ x1, y6 = y15 ^ x7, y10 = y15 ^ t0;
+  const uint32_t y11 = y20 ^ y9, y7 = x7 ^ y11, y17 = y10 ^ y11;
+  const uint32_t y19 = y10 ^ y8, y16 = t0 ^ y11, y21 = y13 ^ y16;
+  const uint32_t y18 = x0 ^ y16;
+  // non-linear middle: the GF(2^4) inversion
+  const uint32_t t2 = y12 & y15, t3 = y3 & y6, t4 = t3 ^ t2, t5 = y4 & x7;
+  const uint32_t t6 = t5 ^ t2, t7 = y13 & y16, t8 = y5 & y1, t9 = t8 ^ t7;
+  const uint32_t t10 = y2 & y7, t11 = t10 ^ t7, t12 = y9 & y11;
+  const uint32_t t13 = y14 & y17, t14 = t13 ^ t12, t15 = y8 & y10;
+  const uint32_t t16 = t15 ^ t12, t17 = t4 ^ t14, t18 = t6 ^ t16;
+  const uint32_t t19 = t9 ^ t14, t20 = t11 ^ t16, t21 = t17 ^ y20;
+  const uint32_t t22 = t18 ^ y19, t23 = t19 ^ y21, t24 = t20 ^ y18;
+  const uint32_t t25 = t21 ^ t22, t26 = t21 & t23, t27 = t24 ^ t26;
+  const uint32_t t28 = t25 & t27, t29 = t28 ^ t22, t30 = t23 ^ t24;
+  const uint32_t t31 = t22 ^ t26, t32 = t31 & t30, t33 = t32 ^ t24;
+  const uint32_t t34 = t23 ^ t33, t35 = t27 ^ t33, t36 = t24 & t35;
+  const uint32_t t37 = t36 ^ t34, t38 = t27 ^ t36, t39 = t29 & t38;
+  const uint32_t t40 = t25 ^ t39, t41 = t40 ^ t37, t42 = t29 ^ t33;
+  const uint32_t t43 = t29 ^ t40, t44 = t33 ^ t37, t45 = t42 ^ t41;
+  const uint32_t z0 = t44 & y15, z1 = t37 & y6, z2 = t33 & x7;
+  const uint32_t z3 = t43 & y16, z4 = t40 & y1, z5 = t29 & y7;
+  const uint32_t z6 = t42 & y11, z7 = t45 & y17, z8 = t41 & y10;
+  const uint32_t z9 = t44 & y12, z10 = t37 & y3, z11 = t33 & y4;
+  const uint32_t z12 = t43 & y13, z13 = t40 & y5, z14 = t29 & y2;
+  const uint32_t z15 = t42 & y9, z16 = t45 & y14, z17 = t41 & y8;
+  // bottom linear layer
+  const uint32_t t46 = z15 ^ z16, t47 = z10 ^ z11, t48 = z5 ^ z13;
+  const uint32_t t49 = z9 ^ z10, t50 = z2 ^ z12, t51 = z2 ^ z5;
+  const uint32_t t52 = z7 ^ z8, t53 = z0 ^ z3, t54 = z6 ^ z7;
+  const uint32_t t55 = z16 ^ z17, t56 = z12 ^ t48, t57 = t50 ^ t53;
+  const uint32_t t58 = z4 ^ t46, t59 = z3 ^ t54, t60 = t46 ^ t57;
+  const uint32_t t61 = z14 ^ t57, t62 = t52 ^ t58, t63 = t49 ^ t58;
+  const uint32_t t64 = z4 ^ t59, t65 = t61 ^ t62, t66 = z1 ^ t63;
+  const uint32_t t67 = t64 ^ t65;
+  const uint32_t s3 = t53 ^ t66;
+  q[7] = t59 ^ t63;
+  q[6] = t64 ^ ~s3;
+  q[5] = t55 ^ ~t67;
+  q[4] = s3;
+  q[3] = t51 ^ t66;
+  q[2] = t47 ^ t65;
+  q[1] = t56 ^ ~t62;
+  q[0] = t48 ^ ~t60;
+}
+
+// The state one row down and k columns along (k = round mod 4): the row
+// below is the next byte up the word, a column is 2 bits of a byte.
+// With k known when the kernel is compiled, k = 0 folds to one rotation.
+__device__ __forceinline__ uint32_t ljt_aes_row1(uint32_t w, int k) {
+  const int s = (2 * k) & 7;
+  const uint32_t m = (0xFFu >> s) * 0x01010101u;
+  return (ljt_ror(w, 24 + s) & m) | (ljt_ror(w, 16 + s) & ~m);
+}
+
+// Two rows down and 2k columns along.
+__device__ __forceinline__ uint32_t ljt_aes_row2(uint32_t w, int k) {
+  const int s = (4 * k) & 7;
+  const uint32_t m = (0xFFu >> s) * 0x01010101u;
+  return (ljt_ror(w, 16 + s) & m) | (ljt_ror(w, 8 + s) & ~m);
+}
+
+// MixColumns of a state drifted by k ShiftRows, then the round key whose
+// word i is key(i): out = 2 (a0 ^ a1) ^ a1 ^ (a2 ^ a3), with a1 = row1(a)
+// and a2 ^ a3 = row2(a0 ^ a1); doubling shifts the bit planes up and
+// folds plane 7 into planes 0, 1, 3 and 4 (x^8 = x^4 + x^3 + x + 1).
+template <class Key>
+__device__ __forceinline__ void ljt_aes_mix(uint32_t s[8], int k,
+                                            const Key& key) {
+  const uint32_t y0 = ljt_aes_row1(s[0], k), t0 = s[0] ^ y0;
+  const uint32_t y1 = ljt_aes_row1(s[1], k), t1 = s[1] ^ y1;
+  const uint32_t y2 = ljt_aes_row1(s[2], k), t2 = s[2] ^ y2;
+  const uint32_t y3 = ljt_aes_row1(s[3], k), t3 = s[3] ^ y3;
+  const uint32_t y4 = ljt_aes_row1(s[4], k), t4 = s[4] ^ y4;
+  const uint32_t y5 = ljt_aes_row1(s[5], k), t5 = s[5] ^ y5;
+  const uint32_t y6 = ljt_aes_row1(s[6], k), t6 = s[6] ^ y6;
+  const uint32_t y7 = ljt_aes_row1(s[7], k), t7 = s[7] ^ y7;
+  s[0] = t7 ^ y0 ^ ljt_aes_row2(t0, k) ^ key(0);
+  s[1] = t0 ^ t7 ^ y1 ^ ljt_aes_row2(t1, k) ^ key(1);
+  s[2] = t1 ^ y2 ^ ljt_aes_row2(t2, k) ^ key(2);
+  s[3] = t2 ^ t7 ^ y3 ^ ljt_aes_row2(t3, k) ^ key(3);
+  s[4] = t3 ^ t7 ^ y4 ^ ljt_aes_row2(t4, k) ^ key(4);
+  s[5] = t4 ^ y5 ^ ljt_aes_row2(t5, k) ^ key(5);
+  s[6] = t5 ^ y6 ^ ljt_aes_row2(t6, k) ^ key(6);
+  s[7] = t6 ^ y7 ^ ljt_aes_row2(t7, k) ^ key(7);
+}
+
+// Column words w of a round key shifted by ShiftRows^-K (row r moved K r
+// columns right), the form a key takes in round r, K = r mod 4, into
+// k[2c + slot]: the slot a block takes before slicing.
+template <int K>
+__device__ __forceinline__ void ljt_aes_key_shift(const uint32_t w[4],
+                                                  uint32_t k[8], int slot) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    k[2 * j + slot] = (w[j] & 0xFF000000u) |
+                      (w[(j - K) & 3] & 0x00FF0000u) |
+                      (w[(j - 2 * K) & 3] & 0x0000FF00u) |
+                      (w[(j - 3 * K) & 3] & 0x000000FFu);
+}
+
+// A round key of block a's keys (column words wa) and block b's (wb) in
+// sliced form into k, block a's in the even bits, for a round r with
+// r mod 4 = K.
+template <int K>
+__device__ __forceinline__ void ljt_aes_slice_key(const uint32_t wa[4],
+                                                  const uint32_t wb[4],
+                                                  uint32_t k[8]) {
+  ljt_aes_key_shift<K>(wa, k, 0);
+  ljt_aes_key_shift<K>(wb, k, 1);
+  ljt_aes_transpose(k);
+}
+
+// The same for a round known only at run time.
+__device__ __forceinline__ void ljt_aes_slice_keys(int round,
+                                                   const uint32_t wa[4],
+                                                   const uint32_t wb[4],
+                                                   uint32_t k[8]) {
+  switch (round & 3) {
+    case 0:
+      ljt_aes_slice_key<0>(wa, wb, k);
+      break;
+    case 1:
+      ljt_aes_slice_key<1>(wa, wb, k);
+      break;
+    case 2:
+      ljt_aes_slice_key<2>(wa, wb, k);
+      break;
+    default:
+      ljt_aes_slice_key<3>(wa, wb, k);
+      break;
+  }
+}
+
+// Round key r of a pair in sliced form, 8 words with both slots holding
+// the key: block a of the pair takes the even bits of ka's words, block
+// b the odd bits of kb's.  key(i) is word i.
+struct LjtSlicedRound {
+  const uint32_t* ka;
+  const uint32_t* kb;
+
+  __device__ __forceinline__ uint32_t operator()(int i) const {
+    return (ka[i] & 0x55555555u) | (kb[i] & 0xAAAAAAAAu);
+  }
 };
 
-// Te0[x] = S[x] * (02, 01, 01, 03), most significant byte first, from
-// s = S[x].
-__device__ __forceinline__ uint32_t ljt_te0_from_sbox(uint32_t s) {
-  const uint32_t s2 = ((s << 1) ^ ((s & 0x80u) ? 0x1Bu : 0u)) & 0xFFu;
-  return (s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s);
-}
+// Round keys already sliced, 8 words a round (`ljt_aes_slice_keys`),
+// block a's from ka and block b's from kb.  Any other key source gives
+// `ljt_aes_encrypt_pair` the same `round(r)`: an object whose (i) is
+// word i of round key r in sliced form.
+struct LjtSlicedKeys {
+  const uint32_t* ka;
+  const uint32_t* kb;
 
-// Fill Te0 (256 words) in shared memory.  Every thread of the CTA takes
-// part; the caller syncs before use.
-__device__ __forceinline__ void ljt_aes_fill_te0(uint32_t* t) {
-  for (int x = threadIdx.x; x < 256; x += blockDim.x)
-    t[x] = ljt_te0_from_sbox(__ldg(&kLjtSbox[x]));
-}
-
-// ljt_aes_fill_te0 for a CTA of kThreads threads in two steps, so a kernel
-// can issue its other global loads between them: `fetch` reads this
-// thread's share of the table's source, `put` stores its table words.
-template <int kThreads>
-struct LjtTe0Share {
-  static constexpr int kPer = 256 / kThreads;
-  uint32_t s[kPer];
-
-  __device__ __forceinline__ void fetch() {
-#pragma unroll
-    for (int u = 0; u < kPer; ++u)
-      s[u] = __ldg(&kLjtSbox[threadIdx.x + u * kThreads]);
-  }
-  __device__ __forceinline__ void put(uint32_t* t) const {
-#pragma unroll
-    for (int u = 0; u < kPer; ++u)
-      t[threadIdx.x + u * kThreads] = ljt_te0_from_sbox(s[u]);
+  __device__ __forceinline__ LjtSlicedRound round(int r) const {
+    return LjtSlicedRound{ka + 8 * r, kb + 8 * r};
   }
 };
 
-__device__ __forceinline__ uint32_t ljt_ror8(uint32_t x) {
-  return __funnelshift_r(x, x, 8);
-}
-__device__ __forceinline__ uint32_t ljt_ror16(uint32_t x) {
-  return __funnelshift_r(x, x, 16);
-}
-__device__ __forceinline__ uint32_t ljt_ror24(uint32_t x) {
-  return __funnelshift_r(x, x, 24);
-}
-
-// One full round's column: Te0[a>>24] ^ Te1[(b>>16)&ff] ^ Te2[(c>>8)&ff] ^
-// Te3[d&ff] with Te_k = ror(Te0, 8k).
-__device__ __forceinline__ uint32_t ljt_aes_col(const uint32_t* t, uint32_t a,
-                                                uint32_t b, uint32_t c,
-                                                uint32_t d) {
-  return t[a >> 24] ^ ljt_ror8(t[(b >> 16) & 0xFF]) ^
-         ljt_ror16(t[(c >> 8) & 0xFF]) ^ ljt_ror24(t[d & 0xFF]);
-}
-
-// Last round: S[x] is byte 1 (and byte 2) of Te0[x], so each output byte
-// is one masked or shifted table word.
-__device__ __forceinline__ uint32_t ljt_aes_last_col(const uint32_t* t,
-                                                     uint32_t a, uint32_t b,
-                                                     uint32_t c, uint32_t d) {
-  return ((t[a >> 24] << 8) & 0xFF000000u) |
-         (t[(b >> 16) & 0xFF] & 0x00FF0000u) |
-         (t[(c >> 8) & 0xFF] & 0x0000FF00u) | ((t[d & 0xFF] >> 16) & 0xFFu);
-}
-
-// Encrypt one block.  t: Te0 in shared memory; rk: 4 * (NR + 1)
-// big-endian round-key words; s: the block as 4 big-endian words,
-// encrypted in place.
-template <int NR>
-__device__ __forceinline__ void ljt_aes_encrypt_block(const uint32_t* t,
-                                                      const uint32_t* rk,
-                                                      uint32_t s[4]) {
-  uint32_t s0 = s[0] ^ rk[0], s1 = s[1] ^ rk[1];
-  uint32_t s2 = s[2] ^ rk[2], s3 = s[3] ^ rk[3];
+// AddRoundKey: the eight words of `key` into the state.
+template <class Key>
+__device__ __forceinline__ void ljt_aes_add_key(uint32_t s[8],
+                                                const Key& key) {
 #pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] ^= key(i);
+}
+
+// The rotations' closing fix-up: the state after the last round is
+// ShiftRows^-2 of the ciphertext, so rows 1 and 3 (bytes 2 and 0 of a
+// column word) trade columns c and c + 2 as the pair is unpacked.
+__device__ __forceinline__ void ljt_aes_close(uint32_t s[8], uint32_t a[4],
+                                              uint32_t b[4]) {
+  ljt_aes_transpose(s);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j] = __byte_perm(s[2 * j], s[2 * (j ^ 2)], 0x3614);
+    b[j] = __byte_perm(s[2 * j + 1], s[2 * (j ^ 2) + 1], 0x3614);
+  }
+}
+
+// Encrypt the pair of blocks a, b (4 big-endian column words each) in
+// place, through the caller's eight words s of sliced state;
+// keys.round(r)(i) is word i of round key r in sliced form.  One loop
+// over the rounds, with no branch in it: MixColumns takes its rotations
+// from the round at run time (two funnel shifts and a LOP3 a word for
+// each of its two rotations) and folds the round key in, so the key's
+// loads issue before the round needs them.  The code stays a couple of
+// hundred instructions, which the tile kernels run beside the SHA-1
+// rounds of their hashing warp.
+template <int NR, class Keys>
+__device__ __forceinline__ void ljt_aes_encrypt_pair(const Keys& keys,
+                                                     uint32_t a[4],
+                                                     uint32_t b[4],
+                                                     uint32_t s[8]) {
+  static_assert(NR % 4 == 2, "the closing fix-up assumes NR = 2 mod 4");
+  ljt_aes_pack(a, b, s);
+  ljt_aes_add_key(s, keys.round(0));
+#pragma unroll 1
   for (int r = 1; r < NR; ++r) {
-    uint32_t t0 = ljt_aes_col(t, s0, s1, s2, s3) ^ rk[4 * r];
-    uint32_t t1 = ljt_aes_col(t, s1, s2, s3, s0) ^ rk[4 * r + 1];
-    uint32_t t2 = ljt_aes_col(t, s2, s3, s0, s1) ^ rk[4 * r + 2];
-    uint32_t t3 = ljt_aes_col(t, s3, s0, s1, s2) ^ rk[4 * r + 3];
-    s0 = t0;
-    s1 = t1;
-    s2 = t2;
-    s3 = t3;
+    ljt_aes_sbox(s);
+    ljt_aes_mix(s, r & 3, keys.round(r));
   }
-  s[0] = ljt_aes_last_col(t, s0, s1, s2, s3) ^ rk[4 * NR];
-  s[1] = ljt_aes_last_col(t, s1, s2, s3, s0) ^ rk[4 * NR + 1];
-  s[2] = ljt_aes_last_col(t, s2, s3, s0, s1) ^ rk[4 * NR + 2];
-  s[3] = ljt_aes_last_col(t, s3, s0, s1, s2) ^ rk[4 * NR + 3];
+  ljt_aes_sbox(s);
+  ljt_aes_add_key(s, keys.round(NR));
+  ljt_aes_close(s, a, b);
 }
 
 // CTR counter block j: the 16-byte IV (4 big-endian words) plus j as a

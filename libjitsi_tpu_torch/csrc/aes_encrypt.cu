@@ -7,13 +7,20 @@
 //
 // Bound on the H100: bytes.  Each block reads R*16 + 16 bytes and writes
 // 16, and needs at least 24*nr + 12 instructions of the INT32 pipe (LOP3,
-// SHF, PRMT); at 3.35 TB/s and 16.7 Tops/s the round keys' traffic
-// dominates (208 B vs 252 instructions per AES-128 block).  Design: one thread per block, its round keys and
-// block loaded as 16-byte vectors (the rows are contiguous and 16-byte
-// aligned), one T-table in shared memory once per CTA (built from the
-// S-box through the read-only cache; the last round reads its S-box
-// bytes from the same table), rounds fully unrolled so the state and
-// keys stay in registers.
+// SHF, PRMT) in the T-table count that `chip_smoke.py` keeps as the bound;
+// at 3.35 TB/s and 16.7 Tops/s the round keys' traffic dominates (208 B
+// vs 252 instructions per AES-128 block).  The gather-free core of
+// `aes.cuh` issues several times that count, so the kernel runs closer to
+// its instruction issue than to its bytes.
+//
+// Design: one thread per pair of consecutive blocks, each under its own
+// round keys (a lone last block is paired with itself and written once).
+// Blocks and round keys load as 16-byte vectors (the rows are contiguous
+// and 16-byte aligned); each round's two keys are shifted and sliced
+// into one key word set as the round needs them (`ljt_aes_slice_keys`),
+// so nothing is staged in shared memory and the rounds stay in
+// registers.  The rounds run in the same loop as in the tile kernels
+// (`ljt_aes_encrypt_pair`).
 
 #include <cuda_runtime.h>
 
@@ -23,36 +30,58 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+
+// Round key r of a pair, sliced from the two blocks' byte-order keys.
+struct PairRound {
+  uint32_t k[8];
+
+  __device__ __forceinline__ uint32_t operator()(int i) const { return k[i]; }
+};
+
+// Two blocks' own byte-order round keys, each round's sliced as the core
+// asks for it.
+struct PairKeys {
+  const uint4* a;  // [R] block a's round keys
+  const uint4* b;
+
+  __device__ __forceinline__ PairRound round(int r) const {
+    const uint4 u = a[r], v = b[r];
+    const uint32_t wa[4] = {ljt_bswap32(u.x), ljt_bswap32(u.y),
+                            ljt_bswap32(u.z), ljt_bswap32(u.w)};
+    const uint32_t wb[4] = {ljt_bswap32(v.x), ljt_bswap32(v.y),
+                            ljt_bswap32(v.z), ljt_bswap32(v.w)};
+    PairRound out;
+    ljt_aes_slice_keys(r, wa, wb, out.k);
+    return out;
+  }
+};
 
 template <int NR>
 __global__ void __launch_bounds__(kThreads)
     aes_encrypt_kernel(const uint8_t* __restrict__ rk_all,
                        const uint8_t* __restrict__ in,
                        uint8_t* __restrict__ out, int n) {
-  __shared__ uint32_t te0[256];
-  ljt_aes_fill_te0(te0);
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = 2 * (blockIdx.x * blockDim.x + threadIdx.x);
   if (i >= n) return;
-  const uint4* k4 =
-      reinterpret_cast<const uint4*>(rk_all + size_t(i) * (NR + 1) * 16);
-  uint32_t rk[4 * (NR + 1)];
-#pragma unroll
-  for (int r = 0; r <= NR; ++r) {
-    uint4 v = k4[r];
-    rk[4 * r] = ljt_bswap32(v.x);
-    rk[4 * r + 1] = ljt_bswap32(v.y);
-    rk[4 * r + 2] = ljt_bswap32(v.z);
-    rk[4 * r + 3] = ljt_bswap32(v.w);
-  }
-  uint4 b = reinterpret_cast<const uint4*>(in)[i];
-  uint32_t s[4] = {ljt_bswap32(b.x), ljt_bswap32(b.y), ljt_bswap32(b.z),
-                   ljt_bswap32(b.w)};
-  ljt_aes_encrypt_block<NR>(te0, rk, s);
-  reinterpret_cast<uint4*>(out)[i] =
-      make_uint4(ljt_bswap32(s[0]), ljt_bswap32(s[1]), ljt_bswap32(s[2]),
-                 ljt_bswap32(s[3]));
+  const int j = i + 1 < n ? i + 1 : i;
+  const uint4* rk4 = reinterpret_cast<const uint4*>(rk_all);
+  const uint4* in4 = reinterpret_cast<const uint4*>(in);
+  const uint4 x = in4[i], y = in4[j];
+  uint32_t a[4] = {ljt_bswap32(x.x), ljt_bswap32(x.y), ljt_bswap32(x.z),
+                   ljt_bswap32(x.w)};
+  uint32_t b[4] = {ljt_bswap32(y.x), ljt_bswap32(y.y), ljt_bswap32(y.z),
+                   ljt_bswap32(y.w)};
+  uint32_t s[8];
+  ljt_aes_encrypt_pair<NR>(
+      PairKeys{rk4 + size_t(i) * (NR + 1), rk4 + size_t(j) * (NR + 1)}, a, b,
+      s);
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  out4[i] = make_uint4(ljt_bswap32(a[0]), ljt_bswap32(a[1]), ljt_bswap32(a[2]),
+                       ljt_bswap32(a[3]));
+  if (j != i)
+    out4[j] = make_uint4(ljt_bswap32(b[0]), ljt_bswap32(b[1]),
+                         ljt_bswap32(b[2]), ljt_bswap32(b[3]));
 }
 
 }  // namespace
@@ -60,7 +89,8 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int ljt_aes_encrypt(const void* round_keys, const void* blocks,
                                void* out, int n, int nr, void* stream) {
   if (n <= 0) return 0;
-  const dim3 grid((n + kThreads - 1) / kThreads);
+  const int pairs = (n + 1) / 2;
+  const dim3 grid((pairs + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* rk = static_cast<const uint8_t*>(round_keys);
   const uint8_t* in = static_cast<const uint8_t*>(blocks);

@@ -1,18 +1,22 @@
-// Latency probe for kernels C and D: the cycles one SHA-1 compression and
-// one AES block take on a lane when each waits on the one before.
+// Latency probe for the tile kernels: the cycles one SHA-1 compression
+// and one pair of AES blocks take on a lane when each waits on the one
+// before.
 //
-// Kernels C and D hash a row on one lane, so a row of k compressions
-// cannot finish sooner than k compressions back to back; their AES-CTR
-// runs a few blocks per lane.  The operation bound of `chip_smoke.py`
-// counts instructions and sees neither latency.  This probe runs the
+// Kernels C, D, H, I and J hash a row on one lane, so a row of k
+// compressions cannot finish sooner than k compressions back to back;
+// their AES-CTR runs a few pairs of blocks per lane.  The operation
+// bound of `chip_smoke.py` counts instructions and sees neither
+// latency.  This probe runs the
 // same device code (`sha1.cuh`, `aes.cuh`) in a chain on one warp and
 // times it with clock64, so a chip run can state those floors.  It is
 // not on any path.
 //
 //   ljt_probe_sha1_chain: state [32, 21] u32 per lane (h[5] then w[16]):
 //     n times h = compress(h, w), w unchanged; h written back.
-//   ljt_probe_aes_chain: round keys [nr + 1, 16] u8, blocks [32, 16] u8:
-//     n times block = E(block); blocks written back.
+//   ljt_probe_aes_chain: round keys [nr + 1, 16] u8, blocks [64, 16] u8:
+//     lane l encrypts its pair (blocks 2l, 2l + 1) n times with the
+//     gather-free core, under round keys sliced in shared memory as a
+//     tile slices them (`LjtSlicedKeys`); blocks written back.
 //   cycles [32] i64: clock64 cycles each lane spent in its n steps.
 //   ljt_probe_hmac_row: midstates [32, 2, 5] u32, rows [32, width] u8:
 //     the warp stages the rows in shared memory and each lane runs,
@@ -63,20 +67,32 @@ template <int NR>
 __global__ void aes_chain_kernel(const uint8_t* __restrict__ rk_bytes,
                                  uint8_t* __restrict__ blocks,
                                  long long* __restrict__ cycles, int n) {
-  __shared__ uint32_t te0[256];
-  __shared__ uint32_t rk[4 * (NR + 1)];
-  ljt_aes_fill_te0(te0);
-  for (int i = threadIdx.x; i < 4 * (NR + 1); i += blockDim.x)
-    rk[i] = ljt_load_be32(rk_bytes + 4 * i);
+  __shared__ uint32_t rk[8 * (NR + 1)];
+  for (int q = threadIdx.x; q <= NR; q += blockDim.x) {
+    uint32_t w[4], o[8];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = ljt_load_be32(rk_bytes + 16 * q + 4 * k);
+    ljt_aes_slice_keys(q, w, w, o);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) rk[8 * q + k] = o[k];
+  }
   __syncthreads();
-  uint8_t* b = blocks + threadIdx.x * 16;
-  uint32_t s[4] = {ljt_load_be32(b), ljt_load_be32(b + 4),
-                   ljt_load_be32(b + 8), ljt_load_be32(b + 12)};
+  uint8_t* p = blocks + threadIdx.x * 32;
+  uint32_t a[4], b[4], s[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a[k] = ljt_load_be32(p + 4 * k);
+    b[k] = ljt_load_be32(p + 16 + 4 * k);
+  }
   const long long t0 = clock64();
-  for (int i = 0; i < n; ++i) ljt_aes_encrypt_block<NR>(te0, rk, s);
+  for (int i = 0; i < n; ++i)
+    ljt_aes_encrypt_pair<NR>(LjtSlicedKeys{rk, rk}, a, b, s);
   const long long t1 = clock64();
 #pragma unroll
-  for (int k = 0; k < 4; ++k) ljt_store_be32(b + 4 * k, s[k]);
+  for (int k = 0; k < 4; ++k) {
+    ljt_store_be32(p + 4 * k, a[k]);
+    ljt_store_be32(p + 16 + 4 * k, b[k]);
+  }
   cycles[threadIdx.x] = t1 - t0;
 }
 

@@ -23,16 +23,22 @@
 // row; a compound RTCP packet of 60-200 bytes is 4-12 AES blocks and 2-4
 // compressions).
 //
-// Design.  J takes the row-tile form of kernel D (`srtp_tile.cuh`): one
-// CTA of 128 threads a tile of at most 32 rows; set-up loads each row's
-// length, IV, E || index word (4 bytes read where the trailer sits) and
-// midstates together with the rows and round keys; lane r of warp 0
-// hashes row r's staged ciphertext while warps 1-3 decrypt the E = 1
-// rows, over their (row, keystream block) pairs, into a second staged
-// copy that becomes the output (E = 0 rows have no keystream blocks and
-// pass through).  I keeps the first, simple form (`warp_row.cuh`): one
-// warp per row, four rows a block; lanes take keystream blocks in turn,
-// lane 0 hashes.
+// Design.  Both take the row-tile form of `srtp_tile.cuh`: one CTA of 128
+// threads a tile of at most 32 rows, four tiles an SM; set-up loads each
+// row's length, IV, E || index word and midstates together with the rows
+// and round keys, which it slices for the gather-free AES core.
+//  - J, as kernel D: lane r of warp 0 hashes row r's staged ciphertext
+//    while warps 1-3 decrypt the E = 1 rows, over their (row, keystream
+//    block) entries, into a second staged copy that becomes the output
+//    (E = 0 rows have no keystream blocks and pass through).  The word
+//    is read from the 4 bytes where the trailer sits.
+//  - I, as kernel H: all four warps encrypt [8, len) of the staged rows
+//    in place; then lane r of warp 0, whose midstates, length and word
+//    are still in registers from set-up, hashes [0, len) || word and
+//    writes the word at len and the tag at len + 4 into the staged row
+//    (bytes at or past the width dropped), which the tile then stores.
+// The first form of I (one warp a row, lane 0 hashing while 31 waited,
+// the AES tables rebuilt every 4 rows) read 60x its bound.
 //
 // Semantics (held byte for byte against `srtcp_protect_plain` /
 // `srtcp_unprotect_plain` in transform/srtp/kernel.py): lengths are
@@ -47,58 +53,103 @@
 #include <cstdint>
 
 #include "srtp_tile.cuh"
-#include "warp_row.cuh"
 
 namespace {
 
 using namespace ljt_tile;
 
-__device__ __forceinline__ void load_iv(const uint8_t* iv, int r,
-                                        uint32_t out[4]) {
+// Write the bytes of the big-endian word v at [pos, pos + 4) of a staged
+// row, those at or past width dropped.
+__device__ __forceinline__ void put_word(uint32_t* row, int pos, int width,
+                                         uint32_t v) {
+  uint8_t* b = reinterpret_cast<uint8_t*>(row);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) out[k] = ljt_load_be32(iv + size_t(r) * 16 + 4 * k);
+  for (int k = 0; k < 4; ++k)
+    if (pos + k < width) b[pos + k] = uint8_t(v >> (8 * (3 - k)));
 }
 
+// I's rows: staged from the tile's first row on, keys by stream id, one
+// IV and one E || index word a row given; the window is [8, len).
+struct SrtcpProtectRows {
+  const int32_t* stream;
+  int n_streams;
+  const uint8_t* data;
+  const int32_t* length;
+  const uint8_t* iv;
+  const uint32_t* index_word;
+  const uint32_t* tab_mid;
+  int width;
+
+  struct Lead {
+    int sid;
+  };
+  struct Regs {
+    int len;
+    uint32_t word;
+    uint4 iv;
+    uint32_t mid[10];
+  };
+  __device__ __forceinline__ int key_row(int row) const {
+    return ljt_clamp(stream[row], 0, n_streams - 1);
+  }
+  __device__ __forceinline__ TileRows staged(int base) const {
+    return TileRows{data + size_t(base) * width};
+  }
+  __device__ __forceinline__ Lead lead(int row) const {
+    return Lead{key_row(row)};
+  }
+  __device__ __forceinline__ Regs load(int row, const Lead& lead) const {
+    Regs g;
+    g.len = length[row];
+    g.word = index_word[row];
+    g.iv = aligned(iv, 16) ? reinterpret_cast<const uint4*>(iv)[row]
+                           : make_uint4(0, 0, 0, 0);
+    ljt_load_mid(tab_mid, lead.sid, g.mid);
+    return g;
+  }
+  __device__ __forceinline__ void window(const Regs& g, int row, int w,
+                                         int& off, int& end,
+                                         uint32_t ivw[4]) const {
+    off = 8;
+    end = ljt_clamp(g.len, 0, w);
+    iv_words(aligned(iv, 16), g.iv, iv + size_t(row) * 16, ivw);
+  }
+};
+
 template <int NR>
-__global__ void __launch_bounds__(32 * kLjtRowWarps) srtcp_protect_cm_kernel(
+__global__ void __launch_bounds__(kThreads) srtcp_protect_cm_kernel(
     const uint8_t* __restrict__ tab_rk, const uint32_t* __restrict__ tab_mid,
     const int32_t* __restrict__ stream, int n_streams,
     const uint8_t* __restrict__ data, const int32_t* __restrict__ length,
     const uint8_t* __restrict__ iv, const uint32_t* __restrict__ index_word,
     uint8_t* __restrict__ out, int32_t* __restrict__ out_len, int n,
-    int width, int tag_len) {
+    int width, int tag_len, int tile_rows) {
   extern __shared__ uint4 smem[];
-  const LjtWarpRow w =
-      ljt_warp_row(reinterpret_cast<uint32_t*>(smem), width, NR);
-  ljt_aes_fill_te0(w.te);
-  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const bool live = r < n;
-  int sid = 0;
-  if (live) {
-    sid = ljt_clamp(stream[r], 0, n_streams - 1);
-    ljt_warp_load_keys(w, tab_rk, sid, NR);
-    ljt_warp_load_row(w, data + size_t(r) * width, width);
+  const Tile t = carve(reinterpret_cast<uint32_t*>(smem), tile_rows, n, width,
+                       NR, kInPlace);
+  const SrtcpProtectRows::Regs g = load_tile<NR>(
+      t, tab_rk,
+      SrtcpProtectRows{stream, n_streams, data, length, iv, index_word,
+                       tab_mid, width},
+      width);
+  __syncthreads();
+  // all four warps: the keystream over [8, len), in place
+  ctr_tile<NR>(t, t.buf, threadIdx.x, blockDim.x);
+  __syncthreads();
+  if (int(threadIdx.x) < t.rows) {
+    // warp 0: row r on lane r: the MAC over [0, len) || word, then the
+    // word at len and the tag after it
+    const int r = threadIdx.x;
+    const int len = ljt_clamp(g.len, 0, width);
+    uint32_t* row = t.buf + r * t.stride;
+    uint32_t d[5];
+    ljt_hmac_sha1(g.mid, LjtRowMsg(row, len, width, g.word), d);
+    put_word(row, len, width, g.word);
+    ljt_put_tag(row, len + 4, width, d, tag_len);
+    out_len[t.base + r] = g.len + 4 + tag_len;
   }
   __syncthreads();
-  if (!live) return;
-  const int len_in = length[r];
-  const int len = ljt_clamp(len_in, 0, width);
-  uint32_t ctr[4];
-  load_iv(iv, r, ctr);
-  ljt_warp_ctr<NR>(w, ctr, 8, 8, len);
-  __syncwarp();
-  if (w.lane == 0) {
-    const uint32_t word = index_word[r];
-    uint32_t mid[10];
-    ljt_load_mid(tab_mid, sid, mid);
-    uint32_t d[5];
-    ljt_hmac_sha1(mid, LjtRowMsg(w.row, len, width, word), d);
-    ljt_put_word(w.row, len, width, word);
-    ljt_put_tag(w.row, len + 4, width, d, tag_len);
-    out_len[r] = len_in + 4 + tag_len;
-  }
-  __syncwarp();
-  ljt_warp_store_row(w, out + size_t(r) * width, width);
+  store_rows(t.buf, out + size_t(t.base) * width, t.rows, width, t.stride);
 }
 
 // J's rows: staged from the tile's first row on, keys by stream id, one
@@ -202,17 +253,6 @@ __global__ void __launch_bounds__(kThreads) srtcp_unprotect_cm_kernel(
   store_rows(t.out, out + size_t(t.base) * width, t.rows, width, t.stride);
 }
 
-template <class Kernel, class... Args>
-int launch(Kernel kernel, int n, int width, int nr, void* cuda_stream,
-           Args... args) {
-  const int warps = ljt_row_warps(width, nr);
-  if (width <= 0 || warps < 1) return int(cudaErrorInvalidValue);
-  const dim3 grid((n + warps - 1) / warps);
-  kernel<<<grid, 32 * warps, ljt_row_smem(width, nr, warps),
-           static_cast<cudaStream_t>(cuda_stream)>>>(args...);
-  return int(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int ljt_srtcp_protect_cm(const void* tab_rk, const void* tab_mid,
@@ -225,18 +265,23 @@ extern "C" int ljt_srtcp_protect_cm(const void* tab_rk, const void* tab_mid,
   if (n <= 0) return 0;
   if ((nr != 10 && nr != 14) || n_streams <= 0)
     return int(cudaErrorInvalidValue);
+  static std::atomic<unsigned> done[2];
   auto kernel = nr == 10 ? srtcp_protect_cm_kernel<10>
                          : srtcp_protect_cm_kernel<14>;
-  return launch(kernel, n, width, nr, cuda_stream,
-                static_cast<const uint8_t*>(tab_rk),
-                static_cast<const uint32_t*>(tab_mid),
-                static_cast<const int32_t*>(stream), n_streams,
-                static_cast<const uint8_t*>(data),
-                static_cast<const int32_t*>(length),
-                static_cast<const uint8_t*>(iv),
-                static_cast<const uint32_t*>(index_word),
-                static_cast<uint8_t*>(out), static_cast<int32_t*>(out_len),
-                n, width, tag_len);
+  Plan p;
+  const int rc = plan(kernel, done[nr == 14], n, width, nr, kInPlace,
+                      kCtasPerSmSfu, &p);
+  if (rc) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  kernel<<<p.grid, kThreads, p.smem, s>>>(
+      static_cast<const uint8_t*>(tab_rk),
+      static_cast<const uint32_t*>(tab_mid),
+      static_cast<const int32_t*>(stream), n_streams,
+      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(length),
+      static_cast<const uint8_t*>(iv),
+      static_cast<const uint32_t*>(index_word), static_cast<uint8_t*>(out),
+      static_cast<int32_t*>(out_len), n, width, tag_len, p.rows);
+  return int(cudaGetLastError());
 }
 
 extern "C" int ljt_srtcp_unprotect_cm(const void* tab_rk, const void* tab_mid,

@@ -19,30 +19,26 @@
 //
 // The first form (one 32-thread CTA per row) reached ~30x the bound:
 // one lane ran the whole HMAC while 31 waited, a 7-block packet left 25
-// lanes of the AES-CTR idle, every CTA rebuilt the T-table from constant
-// memory at per-lane indices (which the constant cache serializes) and
-// regathered its keys, state-indexed T-table lookups conflicted 3-4 ways
-// on shared-memory banks, and the hash read the end of every row byte by
+// lanes of the AES-CTR idle, every CTA rebuilt its AES tables and
+// regathered its keys, and the hash read the end of every row byte by
 // byte.
 //
 // Design: the row-tile form of `srtp_tile.cuh` (one CTA of 128 threads
 // per tile of at most 32 rows, two tiles an SM; set-up loads issued
-// together; AES-CTR over (row, keystream block) pairs on warps 1-3;
-// HMAC-SHA1 one row a lane of warp 0).
+// together, round keys sliced once a tile for the gather-free AES core
+// of `aes.cuh`; AES-CTR over (row, keystream block) entries, a pair a
+// thread, on warps 1-3; HMAC-SHA1 one row a lane of warp 0).
 //  - Unprotect (D): warp 0 hashes the staged ciphertext while warps 1-3
 //    decrypt into a second staged copy that becomes the output.  The tag
 //    compare covers every tag byte.
 //  - Protect (C): warps 1-3 make the keystream level by level (block k
-//    of every row, then block k + 1) and count each level done; warp 0
-//    hashes each 64-byte block of its row as soon as the levels under it
-//    are complete (`PipedRowMsg`), so the hash runs behind the XOR
-//    instead of after it, and sleeps between polls so the shared-memory
-//    pipe stays with the producers.
-// On the H100 these kernels wait on latency and on instruction issue, not
-// on shared-memory banks: one T-table copy per bank (32 KB a tile) lost
-// at every shape measured, because it caps the tiles an SM holds.  Rows
-// wider than a 32-row tile can hold get fewer rows per tile (at least 3
-// at the wrappers' 32,768-byte limit).
+//    of every row, then block k + 1), two entries a thread, and count
+//    each level done; warp 0 hashes each 64-byte block of its row as
+//    soon as the levels under it are complete (`PipedRowMsg`), so the
+//    hash runs behind the XOR instead of after it, and sleeps between
+//    polls so the shared-memory pipe stays with the producers.
+// Rows wider than a 32-row tile can hold get fewer rows per tile (at
+// least 3 at the wrappers' 32,768-byte limit).
 //
 // Semantics (held byte for byte against the plain PyTorch versions in
 // transform/srtp/kernel.py): lengths are clamped to [0, width]; message
@@ -104,27 +100,45 @@ struct SrtpRows {
 
 // Protect's AES-CTR, level by level: keystream block k of every row of
 // the tile, then block k + 1, so the first bytes of every row are ready
-// first.  After each pair (a padding pair of a row with fewer blocks
-// included) the thread counts it in t.level[k], so level k is complete
-// when its count reaches the tile's rows.
+// first.  A thread takes two consecutive entries of that order at a time
+// (the core encrypts a pair of blocks; the second entry is the next row's
+// block k, or row 0's block k + 1), and counts each entry, padding
+// entries of rows with fewer blocks included, in t.level[k] when it is
+// done, so level k is complete when its count reaches the tile's rows.
 template <int NR>
 __device__ __forceinline__ void ctr_levels(const Tile& t, int first,
                                            int count) {
   int levels = 0;
   for (int r = 0; r < t.rows; ++r)
     levels = t.cnt[r] > levels ? t.cnt[r] : levels;
-  int k = first / t.rows, r = first - k * t.rows;
-  const int dk = count / t.rows, dr = count - dk * t.rows;
+  int k = 2 * first / t.rows, r = 2 * first - k * t.rows;
+  const int dk = 2 * count / t.rows, dr = 2 * count - dk * t.rows;
   for (; k < levels;) {
-    if (k < t.cnt[r]) {
-      const int j = t.j0[r] + k;
-      uint32_t c[4];
-      ljt_ctr_block(t.iv + 4 * r, uint32_t(j), c);
-      ljt_aes_encrypt_block<NR>(t.te, t.rk + r * rk_stride(NR), c);
-      xor_block(t.buf + r * t.stride, t.off[r] + 16 * j, t.s[r], t.e[r], c);
+    int kb = k, rb = r + 1;
+    if (rb == t.rows) {
+      rb = 0;
+      ++kb;
+    }
+    const bool two = kb < levels;
+    const bool live_a = k < t.cnt[r], live_b = two && kb < t.cnt[rb];
+    if (live_a || live_b) {
+      const int ja = t.j0[r] + k, jb = t.j0[rb] + kb;
+      uint32_t a[4], b[4], s[8];
+      ljt_ctr_block(t.iv + 4 * r, uint32_t(ja), a);
+      ljt_ctr_block(t.iv + 4 * rb, uint32_t(jb), b);
+      ljt_aes_encrypt_pair<NR>(LjtSlicedKeys{t.rk + r * rk_stride(NR),
+                                             t.rk + rb * rk_stride(NR)},
+                               a, b, s);
+      if (live_a)
+        xor_block(t.buf + r * t.stride, t.off[r] + 16 * ja, t.s[r], t.e[r],
+                  a);
+      if (live_b)
+        xor_block(t.buf + rb * t.stride, t.off[rb] + 16 * jb, t.s[rb],
+                  t.e[rb], b);
     }
     __threadfence_block();
     atomicAdd(&t.level[k], 1);
+    if (two) atomicAdd(&t.level[kb], 1);
     k += dk;
     r += dr;
     if (r >= t.rows) {

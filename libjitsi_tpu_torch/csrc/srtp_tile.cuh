@@ -1,5 +1,5 @@
 // The row-tile form shared by the fused SRTP kernels: C and D
-// (`srtp_cm.cu`), H (`srtp_fanout.cu`) and J (`srtcp_cm.cu`).
+// (`srtp_cm.cu`), H (`srtp_fanout.cu`), I and J (`srtcp_cm.cu`).
 //
 // One CTA of 128 threads takes a tile of rows, so set-up is paid per tile
 // and each kind of work is lane-dense:
@@ -12,19 +12,23 @@
 //    so a lane-per-row read hits 32 different banks), each row's round
 //    keys (16 bytes a load, odd stride too), the per-row values the
 //    kernel's `Rows` policy loads (length, offset, IV or what it is built
-//    from), and the tile's one T-table (`aes.cuh`).
-//  - AES-CTR runs over the tile's (row, keystream block) pairs, so short
-//    rows leave no lane idle; a keystream block is XORed
-//    into the row word by word when the window starts on a word (every
-//    RTP header length), byte by byte otherwise.
+//    from).  Each row's round keys are then shifted and sliced into the
+//    form of the gather-free AES core (`aes.cuh`): 8 words a round, both
+//    block slots holding the key.
+//  - AES-CTR runs over the tile's flattened (row, keystream block) list,
+//    two consecutive entries a thread (the core encrypts a pair of
+//    blocks; when the two belong to different rows, each takes its own
+//    row's key), so short rows leave no lane idle; a keystream block is
+//    XORed into the row word by word when the window starts on a word
+//    (every RTP header length), byte by byte otherwise.
 //  - HMAC-SHA1 runs one row per lane of warp 0, midstates in registers,
 //    message words read whole from the staged row, the ROC or SRTCP word
 //    and the padding merged in registers (`LjtRowMsg`).
 //  - Unprotect (D, J): warp 0 hashes the staged ciphertext while warps
 //    1-3 decrypt into a second staged copy that becomes the output
 //    (`ctr_tile`).  Protect: C hashes behind keystream levels
-//    (`srtp_cm.cu`); H encrypts in place with all four warps, then
-//    hashes (`srtp_fanout.cu`).
+//    (`srtp_cm.cu`); H and I encrypt in place with all four warps, then
+//    hash (`srtp_fanout.cu`, `srtcp_cm.cu`).
 // Rows wider than a 32-row tile can hold get fewer rows per tile (at
 // least 3 at the wrappers' 32,768-byte limit), and a launch raises the
 // dynamic shared-memory limit where a tile needs more than 48 KB.
@@ -47,18 +51,18 @@ namespace ljt_tile {
 
 constexpr int kThreads = 128;     // warp 0 hashes; keystream on the rest
 constexpr int kTileRows = 32;     // rows of a tile: one per lane of warp 0
-// Tiles a launch aims to give each SM: C and D take two; H and J, whose
-// launches on the SFU path are a few thousand rows or fewer, four, which
-// measured faster at every SFU shape (more hashing warps, shorter tiles).
+// Tiles a launch aims to give each SM: C and D take two; H, I and J,
+// whose launches on the SFU path are a few thousand rows or fewer, four,
+// which measured faster at every SFU shape (more hashing warps, shorter
+// tiles).
 constexpr int kCtasPerSm = 2;
 constexpr int kCtasPerSmSfu = 4;
-constexpr int kTeWords = 256;     // the T-table
 constexpr int kRowParams = 5;     // off, s, e, j0, cnt
 // Shared memory a block may use on sm_90 (H100, H200): 227 KB.
 constexpr int kMaxSmemBytes = 232448;
 
 __host__ __device__ constexpr int rk_stride(int nr) {
-  return 4 * (nr + 1) + 1;        // odd: rows' keys in different banks
+  return 8 * (nr + 1) + 1;        // sliced keys; odd: rows in different banks
 }
 __host__ __device__ constexpr int row_stride(int width) {
   return ((width + 3) / 4) | 1;   // words; odd: rows in different banks
@@ -75,14 +79,13 @@ enum TileKind { kLevels, kInPlace, kSecondCopy };
 // 32-bit words of shared memory for a tile of `rows` rows.
 __host__ __device__ constexpr int tile_words(int rows, int width, int nr,
                                              TileKind kind) {
-  return kTeWords + (kind == kLevels ? max_levels(width) : 0) +
+  return (kind == kLevels ? max_levels(width) : 0) +
          rows * (rk_stride(nr) + 4 + kRowParams +
                  (kind == kSecondCopy ? 2 : 1) * row_stride(width));
 }
 
 struct Tile {
-  uint32_t* te;     // [256] T-table
-  uint32_t* rk;     // [rows][rk_stride] round keys
+  uint32_t* rk;     // [rows][rk_stride] sliced round keys, 8 words a round
   uint32_t* iv;     // [rows][4] counter IVs
   int* off;         // payload_off
   int* s;           // window [s, e) inside the row
@@ -100,8 +103,7 @@ struct Tile {
 __device__ __forceinline__ Tile carve(uint32_t* smem, int tile_rows, int n,
                                       int width, int nr, TileKind kind) {
   Tile t;
-  t.te = smem;
-  t.rk = t.te + kTeWords;
+  t.rk = smem;
   t.iv = t.rk + tile_rows * rk_stride(nr);
   t.off = reinterpret_cast<int*>(t.iv + tile_rows * 4);
   t.s = t.off + tile_rows;
@@ -255,7 +257,7 @@ __device__ __forceinline__ void store_rows(const uint32_t* src, uint8_t* g,
   }
 }
 
-// Set-up of a tile: T-table, each row's round keys, IV and keystream
+// Set-up of a tile: each row's sliced round keys, IV and keystream
 // window [max(off, 0), min(end, width)), and the staged rows.  Every
 // global load is issued before the first shared-memory store, so the
 // round trips to memory overlap instead of following one another.
@@ -274,10 +276,9 @@ template <int NR, class Rows>
 __device__ __forceinline__ typename Rows::Regs load_tile(
     const Tile& t, const uint8_t* tab_rk, const Rows& src, int width) {
   constexpr int kKeyLoads = (NR + 4) / 4;   // 16-byte key loads a thread
-  LjtTe0Share<kThreads> te;
-  te.fetch();
-  // four threads gather each row's round keys, 16 bytes a load, and one
-  // thread per row loads its window and IV
+  // four threads gather each row's round keys, 16 bytes a load (thread
+  // 4k + i takes rounds i, i + 4, ...), and one thread per row loads its
+  // window and IV
   const int kr = threadIdx.x >> 2;
   const int r = threadIdx.x;
   const bool key_vec = aligned(tab_rk, 16);
@@ -301,23 +302,27 @@ __device__ __forceinline__ typename Rows::Regs load_tile(
   if (t.level)
     for (int i = threadIdx.x; i < max_levels(width); i += blockDim.x)
       t.level[i] = 0;
-  te.put(t.te);
   if (kr < t.rows) {
     uint32_t* d = t.rk + kr * rk_stride(NR);
-    if (key_vec) {
 #pragma unroll
-      for (int u = 0; u < kKeyLoads; ++u) {
-        const int q = (threadIdx.x & 3) + 4 * u;
-        if (q <= NR) {
-          d[4 * q] = ljt_bswap32(kv[u].x);
-          d[4 * q + 1] = ljt_bswap32(kv[u].y);
-          d[4 * q + 2] = ljt_bswap32(kv[u].z);
-          d[4 * q + 3] = ljt_bswap32(kv[u].w);
+    for (int u = 0; u < kKeyLoads; ++u) {
+      const int q = (threadIdx.x & 3) + 4 * u;
+      if (q <= NR) {
+        uint32_t w[4], o[8];
+        if (key_vec) {
+          w[0] = ljt_bswap32(kv[u].x);
+          w[1] = ljt_bswap32(kv[u].y);
+          w[2] = ljt_bswap32(kv[u].z);
+          w[3] = ljt_bswap32(kv[u].w);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            w[k] = ljt_load_be32(key + 16 * q + 4 * k);
         }
+        ljt_aes_slice_keys(q, w, w, o);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) d[8 * q + k] = o[k];
       }
-    } else {
-      for (int w = threadIdx.x & 3; w < 4 * (NR + 1); w += 4)
-        d[w] = ljt_load_be32(key + 4 * w);
     }
   }
   if (r < t.rows) {
@@ -379,25 +384,41 @@ __device__ __forceinline__ void xor_block(uint32_t* row, int base, int s,
   }
 }
 
-// AES-CTR over the tile's (row, keystream block) pairs, flattened: thread
-// `first` of `count` takes every count-th pair.  Rows are XORed in `rows`.
+// AES-CTR over the tile's (row, keystream block) entries, flattened:
+// thread `first` of `count` takes every count-th pair of consecutive
+// entries, which may lie in two rows (then each block is under its own
+// row's keys) or, at the end, be one entry alone (then the second block
+// is encrypted and dropped).  Rows are XORed in `rows`.
 template <int NR>
 __device__ __forceinline__ void ctr_tile(const Tile& t, uint32_t* rows,
                                          int first, int count) {
   int total = 0;
   for (int r = 0; r < t.rows; ++r) total += t.cnt[r];
   int r = 0, lo = 0, hi = t.cnt[0];
-  for (int f = first; f < total; f += count) {
+  for (int f = 2 * first; f < total; f += 2 * count) {
     while (f >= hi) {
       ++r;
       lo = hi;
       hi += t.cnt[r];
     }
-    const int j = t.j0[r] + (f - lo);
-    uint32_t c[4];
-    ljt_ctr_block(t.iv + 4 * r, uint32_t(j), c);
-    ljt_aes_encrypt_block<NR>(t.te, t.rk + r * rk_stride(NR), c);
-    xor_block(rows + r * t.stride, t.off[r] + 16 * j, t.s[r], t.e[r], c);
+    const bool two = f + 1 < total;
+    int rb = r, lob = lo, hib = hi;
+    while (two && f + 1 >= hib) {
+      ++rb;
+      lob = hib;
+      hib += t.cnt[rb];
+    }
+    const int ja = t.j0[r] + (f - lo), jb = t.j0[rb] + (f + 1 - lob);
+    uint32_t a[4], b[4], s[8];
+    ljt_ctr_block(t.iv + 4 * r, uint32_t(ja), a);
+    ljt_ctr_block(t.iv + 4 * rb, uint32_t(jb), b);
+    ljt_aes_encrypt_pair<NR>(LjtSlicedKeys{t.rk + r * rk_stride(NR),
+                                           t.rk + rb * rk_stride(NR)},
+                             a, b, s);
+    xor_block(rows + r * t.stride, t.off[r] + 16 * ja, t.s[r], t.e[r], a);
+    if (two)
+      xor_block(rows + rb * t.stride, t.off[rb] + 16 * jb, t.s[rb], t.e[rb],
+                b);
   }
 }
 

@@ -68,6 +68,32 @@ def test_aes_kernel_matches_plain_and_fips197(cuda_device, key_len):
     assert bytes(kat.cpu().numpy()[0]) == bytes.fromhex(ct)
 
 
+@pytest.mark.parametrize("key_len", [16, 32])
+def test_aes_kernel_sbox_exhaustive_and_mixed_key_pairs(cuda_device,
+                                                        key_len):
+    """Kernel A at the shape chip_smoke.py times (65,536 blocks): blocks
+    of 16 equal bytes v (every S-box input at every byte position in round
+    1) under the all-zero key, then an odd count of blocks whose pairs are
+    under two keys, against the plain version and the host AES."""
+    rng = np.random.default_rng(200 + key_len)
+    n = 65536
+    zero = aes.expand_key(bytes(key_len))
+    rk = np.ascontiguousarray(np.broadcast_to(zero, (n,) + zero.shape))
+    blocks = np.repeat((np.arange(n) % 256).astype(np.uint8)[:, None], 16,
+                       axis=1)
+    for rk_h, bl_h in ((rk, blocks), (
+            aes.expand_keys_batch(rng.integers(0, 256, (n - 1, key_len),
+                                               np.uint8)),
+            rng.integers(0, 256, (n - 1, 16), np.uint8))):
+        rk_d = torch.from_numpy(rk_h).to(cuda_device)
+        bl_d = torch.from_numpy(bl_h).to(cuda_device)
+        got = aes.aes_encrypt(rk_d, bl_d)
+        torch.cuda.synchronize()
+        assert _same(got, aes.aes_encrypt_plain(rk_d, bl_d))
+        assert np.array_equal(got.cpu().numpy(),
+                              aes.aes_encrypt_np(rk_h, bl_h))
+
+
 def test_hmac_kernel_matches_plain_and_stdlib(cuda_device):
     rng = np.random.default_rng(5)
     n, width = 257, 1504
@@ -459,3 +485,57 @@ def test_sfu_bridge_on_card_equals_cpu(cuda_device):
         assert sfu.forwarded == 3 * n * 2 and sfu.retransmitted == 1
         sfu.close()
     assert sent["cuda"] == sent["cpu"]
+
+
+# Kernel I's tile edges at the SFU path's shapes: every sender's 1,100
+# RTCP rows, the setup's 1,100 32-byte RRs in 1,504-byte rows, an
+# unaligned width with AES-256, and 32,768-byte rows; each tile holds rows
+# whose word and tag fit, are cut at the width or lie past it, E = 0
+# beside E = 1, and stream ids outside the table.
+@pytest.mark.parametrize("key_len,tag_len,width,n", [
+    (16, 10, 224, 1100), (16, 10, 1504, 1100), (32, 4, 61, 33),
+    (16, 10, 32768, 9),
+])
+def test_srtcp_protect_kernel_tile_edges(cuda_device, key_len, tag_len,
+                                         width, n):
+    rng = np.random.default_rng(width + n + tag_len)
+    s = 5
+    auth_keys = rng.integers(0, 256, (s, 20), np.uint8)
+    tab_rk = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len),
+                                                np.uint8))
+    tab_mid = sha1.hmac_precompute_batch(auth_keys).view(np.int32)
+    stream = rng.integers(0, s, n).astype(np.int32)
+    stream[1::4] = np.resize([-3, s, s + 7, -1], len(stream[1::4]))
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    fit = width - 4 - tag_len
+    edges = [fit, fit + 1, width - 4, width - 2, width, width + 3, 0, 7, 8,
+             9, fit - 16, fit - 17]
+    length = np.resize(np.array(edges, np.int32), n)
+    if width == 1504:
+        length[12:] = 32                          # the setup's RRs
+    iv = rng.integers(0, 256, (n, 16), np.uint8)
+    iv[::3, 12:] = 0xFF
+    e_bit = (np.arange(n) % 3 != 1).astype(np.uint64)
+    word = (rng.integers(0, 2 ** 31, n, dtype=np.uint64)
+            | e_bit << np.uint64(31)).astype(np.uint32).view(np.int32)
+    d = [torch.from_numpy(x).to(cuda_device) for x in
+         (tab_rk, tab_mid, stream, data, length, iv, word)]
+    before = kbuild.launches["srtcp_protect_cm"]
+    out, out_len = srtp_kernel.srtcp_protect(*d, tag_len)
+    torch.cuda.synchronize()
+    assert kbuild.launches["srtcp_protect_cm"] == before + 1
+    want = srtp_kernel.srtcp_protect_plain(*d, tag_len)
+    assert _same(out, want[0]) and _same(out_len, want[1])
+    out = out.cpu().numpy()
+    for i in range(min(n, 40)):
+        sid = min(max(int(stream[i]), 0), s - 1)
+        ln = min(max(int(length[i]), 0), width)
+        row = data[i].copy()
+        if ln > 8:
+            row[8:ln] ^= aes.ctr_keystream_np(tab_rk[sid], iv[i], ln - 8)
+        wb = int(word.view(np.uint32)[i]).to_bytes(4, "big")
+        tag = hmac.new(bytes(auth_keys[sid]), bytes(row[:ln]) + wb,
+                       hashlib.sha1).digest()[:tag_len]
+        tail = np.frombuffer(wb + tag, np.uint8)[:max(width - ln, 0)]
+        row[ln:ln + len(tail)] = tail
+        assert np.array_equal(out[i], row), i

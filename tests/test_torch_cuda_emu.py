@@ -9,11 +9,14 @@ cluster barriers and mbarrier-counted pushes) and their C entry points
 are called through ctypes on NumPy buffers.  This holds the kernels'
 arithmetic, indexing and synchronisation — not the GPU's compiler or
 timing, which only the card shows (`tests/test_torch_cuda.py`,
-`chip_smoke.py`).  Edge rows: offsets past the row, lengths past the
-row, stream ids outside the table, counters carrying across 32-bit
-limbs, unaligned row widths, for the tiled kernels C and D partial
-tiles, windows that start off a word, and tampered rows beside genuine
-ones in one tile, and for kernel E every kind of launch its plan makes
+`chip_smoke.py`).  For the gather-free AES core (kernel A): every
+S-box input at every byte position, FIPS-197's known answers and pairs
+of blocks under two keys.  Edge rows: offsets past the row, lengths past
+the row, stream ids outside the table, counters carrying across 32-bit
+limbs, unaligned row widths, for the tiled kernels C, D, H, I and J
+partial tiles, windows that start off a word, SRTCP words and tags cut
+at the width, and tampered rows beside genuine ones in one tile, and
+for kernel E every kind of launch its plan makes
 (clusters of 1, 2, 5, 8 and 16 blocks, blocks of unequal width, the
 2-byte path, rows in stages) with silent, near-silent, saturating and
 inactive rows.  Tolerance: exact equality.
@@ -94,6 +97,65 @@ def test_emulated_kernel_a_matches_numpy_aes(emu, key_len):
     assert np.array_equal(out, aes.aes_encrypt_np(rk, blocks))
     assert emu.ljt_aes_encrypt(_p(rk), _p(blocks), _p(out), n, 12,
                                None) != 0          # AES-192 is refused
+
+
+FIPS197 = {16: ("000102030405060708090a0b0c0d0e0f",
+                "69c4e0d86a7b0430d8cdb78070b4c55a"),
+           32: ("000102030405060708090a0b0c0d0e0f"
+                "101112131415161718191a1b1c1d1e1f",
+                "8ea2b7ca516745bfeafc49904b496089")}
+
+
+def _encrypt(emu, rk, blocks):
+    out = np.zeros(blocks.shape, np.uint8)
+    assert emu.ljt_aes_encrypt(_p(rk), _p(blocks), _p(out), len(blocks),
+                               rk.shape[1] - 1, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("key_len", [16, 32])
+def test_emulated_kernel_a_sbox_exhaustive_and_fips197(emu, key_len):
+    """Every S-box input at every byte position: block v is 16 bytes of
+    v (v = 0..255) under the all-zero key, whose round key 0 is zero, so
+    round 1 substitutes v at all 16 positions of both blocks of a pair.
+    Then FIPS-197 appendix C's known answer, alone (a lone last block) and
+    paired with a block under another key, in either slot."""
+    rk = np.ascontiguousarray(np.broadcast_to(
+        aes.expand_key(bytes(key_len)), (256, 15 if key_len == 32 else 11,
+                                         16)))
+    blocks = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 16, axis=1)
+    assert np.array_equal(_encrypt(emu, rk, blocks),
+                          aes.aes_encrypt_np(rk, blocks))
+    key, ct = (bytes.fromhex(h) for h in FIPS197[key_len])
+    fips = aes.expand_key(key)
+    pt = np.frombuffer(bytes.fromhex("00112233445566778899aabbccddeeff"),
+                       np.uint8)
+    other = aes.expand_key(bytes(range(100, 100 + key_len)))
+    for rks in ([fips], [fips, other], [other, fips], [other, fips, fips]):
+        got = _encrypt(emu, np.stack(rks), np.tile(pt, (len(rks), 1)))
+        for i, k in enumerate(rks):
+            if k is fips:
+                assert bytes(got[i]) == ct
+            else:
+                assert np.array_equal(got[i], aes.aes_encrypt_np(
+                    k, pt[None])[0])
+
+
+@pytest.mark.parametrize("key_len", [16, 32])
+def test_emulated_kernel_a_mixed_key_pairs(emu, key_len):
+    """Random per-block keys, the two blocks of every pair under
+    different keys (the core merges their sliced round keys), an odd
+    count so the last block is alone."""
+    rng = np.random.default_rng(100 + key_len)
+    n = 301
+    keys = rng.integers(0, 256, (n, key_len), np.uint8)
+    assert all((keys[0:n - 1:2] != keys[1::2]).any(axis=1))
+    rk = aes.expand_keys_batch(keys)
+    blocks = rng.integers(0, 256, (n, 16), np.uint8)
+    blocks[1::2] = blocks[0:n - 1:2]            # same block, other key
+    out = _encrypt(emu, rk, blocks)
+    assert np.array_equal(out, aes.aes_encrypt_np(rk, blocks))
+    assert not (out[0:n - 1:2] == out[1::2]).all(axis=1).any()
 
 
 @pytest.mark.parametrize("width", [200, 37])
@@ -198,7 +260,8 @@ def test_emulated_kernels_c_d_match_plain(emu, key_len, tag_len, width, n,
 
 def test_emulated_latency_probe_chains(emu):
     """The probe's chains compute what they claim: n SHA-1 compressions
-    of each lane's state, n AES encryptions of each lane's block."""
+    of each lane's state, n AES encryptions of each lane's pair of
+    blocks, AES-128 and AES-256."""
     rng = np.random.default_rng(9)
     n = 3
     state = rng.integers(0, 2 ** 32, (32, 21), dtype=np.uint64).astype(
@@ -209,15 +272,16 @@ def test_emulated_latency_probe_chains(emu):
     cycles = np.zeros(32, np.int64)
     assert emu.ljt_probe_sha1_chain(_p(state), _p(cycles), n, None) == 0
     assert np.array_equal(state[:, :5], want) and (cycles > 0).all()
-    rk = aes.expand_key(bytes(range(16)))
-    blocks = rng.integers(0, 256, (32, 16), np.uint8)
-    want = blocks.copy()
-    for _ in range(n):
-        want = aes.aes_encrypt_np(np.broadcast_to(rk, (32,) + rk.shape),
-                                  want)
-    assert emu.ljt_probe_aes_chain(_p(rk), _p(blocks), _p(cycles), 10, n,
-                                   None) == 0
-    assert np.array_equal(blocks, want) and (cycles > 0).all()
+    for key_len in (16, 32):
+        rk = aes.expand_key(bytes(range(key_len)))
+        blocks = rng.integers(0, 256, (64, 16), np.uint8)
+        want = blocks.copy()
+        for _ in range(n):
+            want = aes.aes_encrypt_np(np.broadcast_to(rk, (64,) + rk.shape),
+                                      want)
+        assert emu.ljt_probe_aes_chain(_p(rk), _p(blocks), _p(cycles),
+                                       len(rk) - 1, n, None) == 0
+        assert np.array_equal(blocks, want) and (cycles > 0).all()
     assert emu.ljt_probe_empty(None) == 0
     assert emu.ljt_probe_cluster(2, None) == 0
     assert emu.ljt_probe_cluster(17, None) != 0
@@ -375,7 +439,7 @@ def _fanout_inputs(rng, key_len, p, width, counts):
 # Kernel H aims for four tiles an SM (one SM here, so ceil(N / 4) rows a
 # tile, at most 32): 140 copies are four tiles of 32 and one of 12, each
 # boundary inside a packet's copies; at 8,192 bytes (AES-256) a tile
-# holds 27 rows, so 112 copies are four tiles of 27 and one of 4.
+# holds 26 rows, so 112 copies are four tiles of 26 and one of 8.
 @pytest.mark.parametrize("key_len,p,width,counts", [
     (16, 1, 64, [1]), (16, 5, 208, [3, 0, 10, 1, 4]),
     (32, 4, 37, [2, 2, 5, 1]), (16, 3, 1536, [4, 1, 2]),
@@ -414,9 +478,9 @@ def test_emulated_kernel_h_matches_plain(emu, key_len, p, width, counts):
 
 
 # Kernel J's tiles are sized as H's: 140 rows are four tiles of 32 and one
-# of 12 here, and at 4,096 bytes (AES-256) a tile holds 27 rows, so 112
-# rows are four of 27 and one of 4 (E = 0 and E = 1 rows alternate, so
-# every tile holds both).
+# of 12 here, and at 4,096 bytes (AES-256) a tile holds 26 rows, so 112
+# rows are four of 26 and one of 8 (E = 0 and E = 1 rows alternate, so
+# every tile holds both).  Kernel I runs the same tiles.
 @pytest.mark.parametrize("key_len,tag_len,width,n", [
     (16, 10, 96, 1), (16, 4, 200, 9), (32, 10, 61, 6), (16, 10, 1536, 5),
     (16, 10, 224, 140), (32, 4, 4096, 112),
@@ -482,3 +546,60 @@ def test_emulated_kernels_i_j_match_plain(emu, key_len, tag_len, width, n):
     for i in np.nonzero(e1)[0]:
         assert np.array_equal(dec[i, :length[i]], data[i, :length[i]])
     assert e1.any() and (n < 4 or e0.any())
+
+
+# Kernel I's tiles are sized as H's (four tiles an SM; one SM here): 70
+# rows are three tiles of 18 and a partial one of 16, 33 rows four of 9
+# and one of 6 (an unaligned width, AES-256), and 9 rows of 32,768 bytes
+# three tiles of 3.  Each tile holds rows whose E || index word and tag
+# fit, whose tag is cut at the width, whose word is cut at it, and whose
+# length is past it, E = 0 beside E = 1, and stream ids outside the table.
+@pytest.mark.parametrize("key_len,tag_len,width,n", [
+    (16, 10, 96, 70), (32, 4, 61, 33), (16, 10, 32768, 9),
+])
+def test_emulated_kernel_i_tile_edges(emu, key_len, tag_len, width, n):
+    rng = np.random.default_rng(width + n + tag_len)
+    s = 5
+    enc_keys = rng.integers(0, 256, (s, key_len), np.uint8)
+    auth_keys = rng.integers(0, 256, (s, 20), np.uint8)
+    tab_rk = aes.expand_keys_batch(enc_keys)
+    tab_mid = sha1.hmac_precompute_batch(auth_keys).view(np.int32)
+    stream = rng.integers(0, s, n).astype(np.int32)
+    stream[1::4] = np.resize([-3, s, s + 7, -1], len(stream[1::4]))
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    fit = width - 4 - tag_len
+    edges = [fit, fit + 1, width - 4, width - 2, width, width + 3, 0, 7, 8,
+             9, fit - 16, fit - 17]
+    length = np.resize(np.array(edges, np.int32), n)
+    iv = rng.integers(0, 256, (n, 16), np.uint8)
+    iv[::3, 12:] = 0xFF                        # counters carry across limbs
+    e_bit = (np.arange(n) % 3 != 1).astype(np.uint64)
+    word = (rng.integers(0, 2 ** 31, n, dtype=np.uint64)
+            | e_bit << np.uint64(31)).astype(np.uint32).view(np.int32)
+    nr = tab_rk.shape[1] - 1
+    out = np.zeros_like(data)
+    out_len = np.zeros(n, np.int32)
+    assert emu.ljt_srtcp_protect_cm(
+        _p(tab_rk), _p(tab_mid), _p(stream), s, _p(data), _p(length),
+        _p(iv), _p(word), _p(out), _p(out_len), n, width, nr, tag_len,
+        None) == 0
+    want, want_len = srtp_kernel.srtcp_protect_plain(
+        *(T(x) for x in (tab_rk, tab_mid, stream, data, length, iv, word)),
+        tag_len)
+    assert np.array_equal(out, want.numpy())
+    assert np.array_equal(out_len, want_len.numpy())
+    # each row against the host NumPy AES-CM and the stdlib HMAC: [8, len)
+    # encrypted, the word at len and the tag after it, cut at the width
+    for i in range(n):
+        sid = min(max(int(stream[i]), 0), s - 1)
+        ln = min(max(int(length[i]), 0), width)
+        row = data[i].copy()
+        if ln > 8:
+            row[8:ln] ^= aes.ctr_keystream_np(tab_rk[sid], iv[i], ln - 8)
+        wb = int(word.view(np.uint32)[i]).to_bytes(4, "big")
+        tag = hmac.new(bytes(auth_keys[sid]), bytes(row[:ln]) + wb,
+                       hashlib.sha1).digest()[:tag_len]
+        tail = np.frombuffer(wb + tag, np.uint8)[:max(width - ln, 0)]
+        row[ln:ln + len(tail)] = tail
+        assert np.array_equal(out[i], row), i
+        assert out_len[i] == length[i] + 4 + tag_len
