@@ -30,16 +30,19 @@ version:
 Beside them, `sass` gives each kernel's instruction count, registers,
 spills and static shared memory, the INT32-pipe and load counts of the
 AES core's round loop (in kernel A and in the chain probe), and kernel E's
-launch plans (cluster size and dynamic shared memory at its main
-shapes), and fails unless
-kernel A, the AES core alone, holds no shared memory and issues no
-shared-memory load and no constant load at a register-held address (the
-core is gather-free: `libjitsi_tpu_torch/csrc/aes.cuh`);
-`latency_floor` gives the cycles one SHA-1 compression and one pair of
-AES-128 and of AES-256 blocks take on a lane that waits on each (the
-floors of the tile kernels' lanes) and the time of an empty kernel on
-the card (`launch_floor_ms`, the floor of every kernel), and `profiler`
-how many empty profiling windows were measured again.
+launch plans (cluster size, column stages and dynamic shared memory at
+its main shapes and at the shapes its staged kernel takes), and fails
+unless kernel A, the AES core alone, holds no shared memory and issues
+no shared-memory load and no constant load at a register-held address
+(the core is gather-free: `libjitsi_tpu_torch/csrc/aes.cuh`), kernel G
+holds no shared memory and issues no shared-memory load (no table), and
+kernel B spills nothing; `latency_floor` gives the cycles one SHA-1
+compression and one pair of AES-128 and of AES-256 blocks take on a
+lane that waits on each (the floors of the tile kernels' lanes), one
+row's whole MAC on such a lane (kernel B's chain floor at its longest
+row, 966 bytes) and the time of an empty kernel on the card
+(`launch_floor_ms`, the floor of every kernel), and `profiler` how many
+empty profiling windows were measured again.
 
 Every phase prints one JSON line; the card's `nvidia-smi` name and power
 limit come before the last line, and the last line is
@@ -88,7 +91,6 @@ a row); F reads 2 and writes 1 byte a sample, G reads 1 and writes 2.
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import hmac
 import json
@@ -125,6 +127,10 @@ CONF_SWITCH = 5            # tick from which participant 10 is loudest
 MIXER_BRIDGE = (64, 64, 960)
 # kernel E's timed shapes: AudioMixer, the conference bridge, MixerBridge
 MIX_SHAPES = ((1, 256, 960), (1, CONF_PARTIES, 160), MIXER_BRIDGE)
+# shapes E's first kernel did not take (its staged kernel runs them): a
+# conference past 65,535 rows, a frame wider than a cluster of 16 blocks
+# can stage one row of, and every column total past 2**31 - 1
+MIX_STAGED = ((1, 65540, 8), (1, 3, 160008), (1, 131076, 1))
 MIXER_TICKS = 200
 # the SFU path: BASELINE config #5 (1k senders x 10k receiver legs)
 SFU_CONFS, SFU_SIZE = 100, 11
@@ -167,6 +173,10 @@ PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
                  "srtcp_unprotect_cm")}
 
 
+# kernels beside KERNELS whose SASS and ptxas reports are read: the AES
+# chain probe, and kernel E's staged form
+EXTRA_KERNELS = ("aes_chain", "mix_minus_staged")
+
 T_START = time.perf_counter()
 
 
@@ -203,8 +213,8 @@ def main() -> int:
 
     known_answers(torch, dev)
     sass_counts(kbuild)
-    floor_ms = latency_floor(torch, dev, kbuild)
-    rows = kernels_vs_plain(torch, dev)
+    floor_ms, b_chain_ms = latency_floor(torch, dev, kbuild)
+    rows = kernels_vs_plain(torch, dev, kbuild, floor_ms, b_chain_ms)
     rows.update(mix_kernel(torch, dev, floor_ms))
     rows.update(g711_kernels(torch, dev, floor_ms))
     rows.update(sfu_kernels(torch, dev, floor_ms))
@@ -257,8 +267,8 @@ def main() -> int:
             "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "launch_floor_ms": floor_ms, "library_ms": r.get("library_ms"),
-            **{k: r[k] for k in ("plain_device_ms", "library_device_ms")
-               if k in r},
+            **{k: r[k] for k in ("plain_device_ms", "library_device_ms",
+                                 "chain_floor_ms") if k in r},
             "shape": r["shape"]})
     emit("profiler", windows_measured_again=PROFILER_RETRIES,
          timed_by_cuda_events=PROFILER_FALLBACK)
@@ -472,7 +482,7 @@ def sass_counts(kbuild) -> None:
                           timeout=120).stdout
     counts, lookups, code, cur = {}, {}, {}, None
     shared, indexed_ldc = {}, {}
-    name = re.compile(r"(" + "|".join(kbuild.KERNELS + ("aes_chain",))
+    name = re.compile(r"(" + "|".join(kbuild.KERNELS + EXTRA_KERNELS)
                       + r")_kernel(?:ILi(\d+)E)?")
     insn = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                       r"([A-Z][A-Z0-9]*)(\S*)\s*([^;]*);")
@@ -532,8 +542,32 @@ def sass_counts(kbuild) -> None:
         for nr in (10, 14):
             require(f"{k} nr={nr}" in ptxas, f"no ptxas report for {k} "
                                              f"nr={nr}: {sorted(ptxas)}")
-    for k in ("mix_minus", "g711_encode"):
+    for k in ("mix_minus", "mix_minus_staged", "g711_encode", "hmac_sha1",
+              "g711_decode nr=0", "g711_decode nr=1"):
         require(k in ptxas, f"no ptxas report for {k}: {sorted(ptxas)}")
+    # kernel B hashes from its staged rows with nothing spilled; kernel G
+    # expands each code in registers: no shared memory, no LDS
+    require(ptxas["hmac_sha1"].get("spill_store_bytes", 0) == 0
+            and ptxas["hmac_sha1"].get("spill_load_bytes", 0) == 0,
+            f"kernel B spills: {ptxas['hmac_sha1']}")
+    # kernel B stages its tile, then hashes: the tightest loop around its
+    # shared-memory loads (the hash chain over a row's blocks) holds no
+    # global load
+    b_code = code.get("hmac_sha1", [])
+    b_ldg = [a for a, op, _ in b_code if op == "LDG"]
+    b_lds = [a for a, op, _ in b_code if op == "LDS"]
+    chain = min((sp for sp in _loop_spans(b_code)
+                 if any(sp[1] <= a <= sp[2] for a in b_lds)), default=None)
+    require(chain is not None and not any(chain[1] <= a <= chain[2]
+                                          for a in b_ldg),
+            f"kernel B loads from device memory inside its hash chain: "
+            f"loop {chain}, LDG at {b_ldg}")
+    for law in (0, 1):
+        k = f"g711_decode nr={law}"
+        require(ptxas[k].get("static_smem_bytes", 0) == 0 and k in shared
+                and not shared[k],
+                f"kernel G (law {law}) uses shared memory: {ptxas[k]}, "
+                f"{shared.get(k)}")
     crypto = ("aes_encrypt", "srtp_protect_cm", "srtp_unprotect_cm",
               "srtp_fanout_cm", "srtcp_protect_cm", "srtcp_unprotect_cm")
     static_smem = {f"{k} nr={nr}": ptxas.get(f"{k} nr={nr}", {}).get(
@@ -555,10 +589,26 @@ def sass_counts(kbuild) -> None:
          shared_or_indexed_constant_loads={k: len(v)
                                            for k, v in lookups.items()},
          mix_minus_plans={f"{c}x{n}x{f}": mix_plan(kbuild, c, n, f)
-                          for c, n, f in MIX_SHAPES},
+                          for c, n, f in MIX_SHAPES + MIX_STAGED},
+         g711_decode_shared_loads={law: len(shared[f"g711_decode nr={law}"])
+                                   for law in (0, 1)},
+         hmac_sha1_loads=dict(global_loads=len(b_ldg),
+                              shared_loads=len(b_lds), hash_loop=chain),
          bound_per_unit={"sha1_compression": SHA1_BLOCK_OPS,
                          "aes_block nr=10": aes_block_ops(10),
                          "aes_block nr=14": aes_block_ops(14)})
+
+
+def _loop_spans(code) -> list:
+    """The loops of a kernel's SASS ((address, op, operands) rows): one
+    (length, first address, last address) for each backward branch."""
+    spans = []
+    for addr, op, operands in code:
+        m = re.match(r"(0x[0-9a-f]+)$", operands.strip())
+        if op == "BRA" and m and int(m.group(1), 16) < addr:
+            spans.append((addr - int(m.group(1), 16), int(m.group(1), 16),
+                          addr))
+    return spans
 
 
 def _innermost_loop(code) -> dict:
@@ -567,12 +617,7 @@ def _innermost_loop(code) -> dict:
     branch that lies inside another such span, or the shortest span if
     none is nested.  Its length and its INT32-pipe, shared-memory and
     global load instructions."""
-    spans = []
-    for addr, op, operands in code:
-        m = re.match(r"(0x[0-9a-f]+)$", operands.strip())
-        if op == "BRA" and m and int(m.group(1), 16) < addr:
-            spans.append((addr - int(m.group(1), 16), int(m.group(1), 16),
-                          addr))
+    spans = _loop_spans(code)
     require(spans, "no loop in an AES kernel's SASS")
     nested = [sp for sp in spans if any(o[1] <= sp[1] and sp[2] <= o[2]
                                         and o != sp for o in spans)]
@@ -590,7 +635,7 @@ def ptxas_usage(kbuild) -> dict:
     key = re.search(r"libljt_kernels_(\w+)\.so$", kbuild.build()).group(1)
     with open(f"{kbuild.BUILD_DIR}/build_{key}.log") as f:
         log = f.read()
-    name = re.compile(r"(" + "|".join(kbuild.KERNELS)
+    name = re.compile(r"(" + "|".join(kbuild.KERNELS + EXTRA_KERNELS)
                       + r")_kernel(?:ILi(\d+)E)?")
     out, cur = {}, None
     for line in log.splitlines():
@@ -619,16 +664,20 @@ def ptxas_usage(kbuild) -> dict:
 def mix_plan(kbuild, c: int, n: int, f: int) -> dict:
     """Kernel E's launch for [c, n, f] on this card, 16-byte aligned
     pcm and out (`ljt_mix_minus_plan`)."""
-    plan = np.zeros(5, np.int32)
+    plan = np.zeros(8, np.int32)
     kbuild.check(kbuild.library().ljt_mix_minus_plan(
         256, 256, c, n, f, plan.ctypes.data), "mix_minus_plan")
     keys = ("cluster", "block_columns", "staged_rows", "vec",
-            "dynamic_smem_bytes")
+            "dynamic_smem_bytes", "column_stages", "staged_kernel",
+            "row_groups")
     return {k: int(v) for k, v in zip(keys, plan)} | {"blocks": int(
         c * plan[0])}
 
 
-def latency_floor(torch, dev, kbuild) -> float:
+B_LONGEST = "kernel B's longest message 966"
+
+
+def latency_floor(torch, dev, kbuild) -> tuple:
     """The launch floor: the time on the card of an empty kernel (one
     warp, csrc/latency_probe.cu), by the same profiler reading as every
     kernel's `ms`, and per back-to-back call by CUDA events; the same
@@ -689,25 +738,31 @@ def latency_floor(torch, dev, kbuild) -> float:
         aes_pair[f"aes{key_len * 8}"] = float(cycles.double().mean()) / reps
     # one row's MAC on its lane as the tile kernels' hashing lanes run it
     probe = lib.ljt_probe_hmac_row
-    probe.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + \
-        [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
-    probe.restype = ctypes.c_int
     mid = torch.as_tensor(_key_tables(rng, 32)[1]).to(dev)
-    rows = torch.as_tensor(rng.integers(0, 256, (32, 224), np.uint8)).to(dev)
     digest = torch.zeros(32, dtype=torch.int32, device=dev)
     hmac_cycles = {}
-    for label, length in (("bench packet 172", 160 + HDR),
-                          ("longest SFU copy 180", 180),
-                          ("longest SRTCP message 200", 200)):
+    # the probe hashes `length` bytes || a 4-byte word on `lanes` lanes of
+    # one warp: kernel B's longest message at its timed shapes, 950 + 12 +
+    # 4 = 966 bytes, is 962 || 4, on a lane alone, on 8 (a tile of B at
+    # 4,096 rows) and on a full warp
+    for label, length, width, lanes in (
+            ("bench packet 172", 160 + HDR, 224, 32),
+            ("longest SFU copy 180", 180, 224, 32),
+            ("longest SRTCP message 200", 200, 224, 32),
+            (B_LONGEST + " on 1 lane", MIX[-1][0] + HDR, 1024, 1),
+            (B_LONGEST + " on 8 lanes", MIX[-1][0] + HDR, 1024, 8),
+            (B_LONGEST + " on 32 lanes", MIX[-1][0] + HDR, 1024, 32)):
+        rows = torch.as_tensor(rng.integers(0, 256, (32, width),
+                                            np.uint8)).to(dev)
         reps = 200
         for _ in range(2):
-            kbuild.check(probe(mid.data_ptr(), rows.data_ptr(), length, 224,
+            kbuild.check(probe(mid.data_ptr(), rows.data_ptr(), length, width,
                                digest.data_ptr(), cycles.data_ptr(), reps,
-                               stream), "probe_hmac_row")
+                               lanes, stream), "probe_hmac_row")
         torch.cuda.synchronize()
         hmac_cycles[label] = dict(
-            compressions=(length + 4 + 9 + 63) // 64 + 1,
-            cycles=float(cycles.double().mean()) / reps)
+            compressions=(length + 4 + 9 + 63) // 64 + 1, lanes=lanes,
+            cycles=float(cycles[:lanes].double().mean()) / reps)
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
          "nounits"], capture_output=True, text=True, timeout=60)
@@ -719,18 +774,23 @@ def latency_floor(torch, dev, kbuild) -> float:
                                        ms=blocks_ * sha / (mhz * 1e3))
     for v in hmac_cycles.values():
         v["ms"] = v["cycles"] / (mhz * 1e3)
+    # kernel B cannot end before its longest row's MAC on a lane alone,
+    # after the launch
+    b_chain_ms = floor_ms + hmac_cycles[B_LONGEST + " on 1 lane"]["ms"]
     emit("latency_floor", launch_floor_ms=floor_ms,
          launch_floor_call_ms=floor_call_ms,
          cluster_launch_floor_ms=clusters,
          sha1_compression_cycles=sha,
          aes_pair_cycles=aes_pair, sm_clock_mhz=mhz,
-         hash_chain_floor=floors, hmac_row=hmac_cycles)
-    return floor_ms
+         hash_chain_floor=floors, hmac_row=hmac_cycles,
+         hmac_sha1_chain_floor_ms=b_chain_ms)
+    return floor_ms, b_chain_ms
 
 
 # ------------------------------------------------- 3. kernels vs plain
 
-def kernels_vs_plain(torch, dev) -> dict:
+def kernels_vs_plain(torch, dev, kbuild, floor_ms: float,
+                     b_chain_ms: float) -> dict:
     from libjitsi_tpu_torch.core.packet import bucket_by_size
     from libjitsi_tpu_torch.kernels import aes, sha1
     from libjitsi_tpu_torch.transform.srtp import kernel as sk
@@ -739,7 +799,7 @@ def kernels_vs_plain(torch, dev) -> dict:
     rows = {}
 
     def record(name, shape, outs_k, outs_p, fn, reps, plain_ms, nbytes, ops,
-               main=True):
+               main=True, **extra):
         err = max_abs_err(torch, outs_k, outs_p)
         require(err == 0, f"{name} {shape} differs from its plain version")
         b_ms, b_by = bound(nbytes, ops)
@@ -747,7 +807,7 @@ def kernels_vs_plain(torch, dev) -> dict:
                     ms=device_ms(torch, fn, reps, name + "_kernel"),
                     call_ms=cuda_ms(torch, fn, reps),
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    bytes=nbytes, ops=ops)
+                    bytes=nbytes, ops=ops, **extra)
         emit("kernel_vs_plain", **line)
         if main:
             rows[name] = line
@@ -769,20 +829,26 @@ def kernels_vs_plain(torch, dev) -> dict:
                n * (16 + (nr + 1) * 16 + 16), n * aes_block_ops(nr),
                main=key_len == 16)
 
-    # B: 4,096 x 1,504, the production mix of MAC message lengths
-    n, width = 4096, 1504
-    lens = np.minimum(production_lengths(rng, n) + HDR + 4, width)
-    mid = torch.as_tensor(sha1.hmac_precompute_batch(
-        rng.integers(0, 256, (n, 20), np.uint8)).view(np.int32)).to(dev)
-    data = torch.as_tensor(rng.integers(0, 256, (n, width), np.uint8)).to(dev)
-    ln = torch.as_tensor(lens.astype(np.int32)).to(dev)
-    blocks = int(((lens + 9 + 63) // 64).sum()) + n
-    record("hmac_sha1", f"{n}x{width} mixed lengths",
-           [sha1.hmac_sha1(mid, data, ln)], [sha1.hmac_sha1_plain(mid, data,
-                                                                 ln)],
-           lambda: sha1.hmac_sha1(mid, data, ln), 50,
-           cuda_ms(torch, lambda: sha1.hmac_sha1_plain(mid, data, ln), 2, 1),
-           int(lens.sum()) + n * (40 + 4 + 20), blocks * SHA1_BLOCK_OPS)
+    # B: 4,096 x 1,504, the production mix of MAC message lengths, and
+    # the SFU's 1,100 rows
+    for n, width in ((4096, 1504), (SFU_N, 1504)):
+        lens = np.minimum(production_lengths(rng, n) + HDR + 4, width)
+        lens[0] = MIX[-1][0] + HDR + 4      # the longest message, 966
+        mid = torch.as_tensor(sha1.hmac_precompute_batch(
+            rng.integers(0, 256, (n, 20), np.uint8)).view(np.int32)).to(dev)
+        data = torch.as_tensor(rng.integers(0, 256, (n, width),
+                                            np.uint8)).to(dev)
+        ln = torch.as_tensor(lens.astype(np.int32)).to(dev)
+        blocks = int(((lens + 9 + 63) // 64).sum()) + n
+        tags = sha1.hmac_sha1(mid, data, ln)
+        record("hmac_sha1", f"{n}x{width} mixed lengths",
+               [tags], [sha1.hmac_sha1_plain(mid, data, ln)],
+               lambda: sha1.hmac_sha1(mid, data, ln), 50,
+               cuda_ms(torch, lambda: sha1.hmac_sha1_plain(mid, data, ln),
+                       2, 1),
+               int(lens.sum()) + n * (40 + 4 + 20),
+               blocks * SHA1_BLOCK_OPS, main=n == 4096,
+               chain_floor_ms=b_chain_ms, launch_floor_ms=floor_ms)
 
     # C and D: the bench headline shape, then the three launches the
     # table path makes for one 4,096-packet production-mix batch: the
@@ -1155,7 +1221,8 @@ def _edge_frames(rng, c, n, f):
 def mix_kernel(torch, dev, floor_ms: float) -> dict:
     """Kernel E against its plain version, both on the card, at the
     AudioMixer's, the conference bridge's and the MixerBridge's shapes
-    (timed, with the launch plan), then byte for byte at ragged shapes,
+    (timed, with the launch plan), then at the shapes its staged kernel
+    takes (timed, and on the CPU too), then byte for byte at ragged shapes,
     on views at an odd offset, at conferences taller than one stage of
     rows (a cluster of 16, clusters of 8) and at a frame too wide for one
     block, each with its plan, then the constant-amplitude sweep (32,767
@@ -1186,6 +1253,44 @@ def mix_kernel(torch, dev, floor_ms: float) -> dict:
         if (c, n, f) == (1, CONF_PARTIES, 160):
             rows["mix_minus"] = dict(line, shape=f"{c}x{n}x{f} (the "
                                      "conference bridge's tick)")
+    # the staged kernel: 65,540 rows, a frame wider than 16 blocks stage
+    # one row of, and [1, 131,076, 1] with every column total past
+    # 2**31 - 1 (all 32,767 but row 0: the exact clip is 32,767); the
+    # tall conferences in row groups over a cluster of 16
+    for c, n, f in MIX_STAGED:
+        if f == 1:
+            pcm = np.full((c, n, f), 32767, np.int16)
+            pcm[:, 0] = 0
+            active = np.ones((c, n), bool)
+        else:
+            pcm, active = _edge_frames(rng, c, n, f)
+        p, a = torch.as_tensor(pcm).to(dev), torch.as_tensor(active).to(dev)
+        got = mixer.mix_minus_many(p, a)
+        err = max(max_abs_err(torch, got, mixer.mix_minus_many_plain(p, a)),
+                  max_abs_err(torch, [x.cpu() for x in got],
+                              mixer.mix_minus_many_plain(
+                                  torch.as_tensor(pcm),
+                                  torch.as_tensor(active))))
+        require(err == 0, f"kernel E {c}x{n}x{f} differs from its plain "
+                          "version")
+        if f == 1:
+            require(bool((got[0] == 32767).all()),
+                    "kernel E: not the exact clip past 2**31 - 1")
+        plan = mix_plan(kbuild, c, n, f)
+        require(plan["staged_kernel"] == 1, f"kernel E {c}x{n}x{f}: not "
+                                            "the staged kernel")
+        require(n <= 65535 or plan["row_groups"] == 16,
+                f"kernel E {c}x{n}x{f}: not in 16 row groups")
+        nbytes = 2 * c * n * f * 2 + 2 * c * n
+        b_ms, b_by = bound(nbytes, 0)
+        emit("kernel_vs_plain", name="mix_minus", shape=f"{c}x{n}x{f}",
+             max_abs_err=err,
+             **timings(torch, lambda: mixer.mix_minus_many(p, a),
+                       "mix_minus_staged_kernel",
+                       lambda: mixer.mix_minus_many_plain(p, a)),
+             bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms,
+             library_ms=None, bytes=nbytes, plan=plan,
+             exact_clip_past_int32=f == 1)
     # ragged rows (the 2-byte path), pcm at an odd element offset, rows
     # in stages and a frame wider than one block stages
     edges = {}
@@ -1234,10 +1339,11 @@ def mix_kernel(torch, dev, floor_ms: float) -> dict:
 
 def g711_kernels(torch, dev, floor_ms: float) -> dict:
     """Kernels F and G against their plain versions on every int16 input
-    and every code, F also at a ragged length and on views at odd
-    offsets (its one-sample path), then timed at the bridge's [256, 160]
-    and at a 10,240-stream [10240, 160], with `torch.take` as G's library
-    call."""
+    and every code, both also at ragged lengths and on views at odd
+    offsets (their one-sample and one-code paths; G's out too), then
+    timed at the bridge's [256, 160] and at a 10,240-stream [10240, 160],
+    each compared there, with `torch.take` as G's library call."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
     from libjitsi_tpu_torch.kernels import g711
 
     pcm_all = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
@@ -1261,6 +1367,24 @@ def g711_kernels(torch, dev, floor_ms: float) -> dict:
             require(torch.equal(got.cpu(), want[:n]),
                     f"G.711 law {law} encode: length {n} at offset {off} "
                     "differs from plain")
+        # G at a ragged length and on views off a 16-byte boundary (its
+        # one-code path), codes and out
+        want = plain[law, "dec"](codes_all.repeat(40))
+        for off, n in ((0, 10237), (1, 10240), (3, 4099)):
+            flat = torch.zeros(10240 + 32, dtype=torch.uint8, device=dev)
+            flat[off:off + n] = codes_all.repeat(40)[:n].to(dev)
+            got = g711.decode(flat[off:off + n], law)
+            out = torch.full((10240 + 32,), -7, dtype=torch.int16,
+                             device=dev)
+            kbuild.check(kbuild.library().ljt_g711_decode(
+                flat[off:].data_ptr(), out[5:].data_ptr(), n, law,
+                kbuild.stream_handle(dev)), "g711_decode")
+            require(torch.equal(got.cpu(), want[:n])
+                    and torch.equal(out[5:5 + n].cpu(), want[:n])
+                    and bool((out[:5] == -7).all())
+                    and bool((out[5 + n:] == -7).all()),
+                    f"G.711 law {law} decode: length {n} at offset {off} "
+                    "differs from plain")
     u8060 = g711.ulaw_encode(torch.tensor([8060, -8060], dtype=torch.int16,
                                           device=dev)).tolist()
     require(u8060 == [159, 31], f"µ-law 8060, -8060 encode to {u8060}, "
@@ -1268,6 +1392,8 @@ def g711_kernels(torch, dev, floor_ms: float) -> dict:
     emit("g711_exhaustive", pcm_inputs=65536, codes=256, laws=2,
          max_abs_err=0, encode_ragged_and_odd_offsets=[[0, 65533], [1, 65536],
                                                        [3, 65531]],
+         decode_ragged_and_odd_offsets=[[0, 10237], [1, 10240], [3, 4099]],
+         decode_out_offset=5,
          ulaw_8060=u8060)
     rng = np.random.default_rng(37)
     rows = {}
@@ -1279,6 +1405,11 @@ def g711_kernels(torch, dev, floor_ms: float) -> dict:
                                 .astype(np.uint8)).to(dev)
         lut = g711.decode_table(g711.ULAW, dev)
         b_ms, b_by = bound(n * 160 * 3, 0)
+        err = {k: max_abs_err(torch, [fn(x)], [pl(x)]) for k, fn, pl, x in (
+            ("enc", g711.ulaw_encode, g711.ulaw_encode_plain, pcm),
+            ("dec", g711.ulaw_decode, g711.ulaw_decode_plain, codes))}
+        require(err == {"enc": 0, "dec": 0},
+                f"G.711 at {shape} differs from plain: {err}")
         enc = dict(name="g711_encode", shape=shape, max_abs_err=0,
                    **timings(torch, lambda: g711.ulaw_encode(pcm),
                              "g711_encode_kernel",
@@ -1290,7 +1421,7 @@ def g711_kernels(torch, dev, floor_ms: float) -> dict:
                              "g711_decode_kernel",
                              lambda: g711.ulaw_decode_plain(codes),
                              lambda: torch.take(lut, codes.long())),
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms)
         for line in (enc, dec):
             emit("kernel_vs_plain", **line)
             if n == CONF_PARTIES:

@@ -40,7 +40,6 @@ from libjitsi_tpu_torch.kernels import build as _k
 
 I16_MIN = -32768
 I16_MAX = 32767
-MIX_REFUSED = -1                   # ljt_mix_minus: a shape E does not take
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +72,10 @@ def mix_minus_many_plain(pcm: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mix-minus over C conferences: pcm int16 [C, N, F], active bool
     [C, N] (None: all active) -> (out int16 [C, N, F], levels uint8
-    [C, N]).  Inactive rows contribute nothing and receive the full mix."""
+    [C, N]).  Inactive rows contribute nothing and receive the full mix.
+    The column totals are int64 (`sum` promotes), so the mix is the exact
+    clip at any N; the JAX twin sums in int32, which wraps once a total
+    passes 2**31 - 1 (from 65,539 rows on)."""
     _k.plain_calls["mix_minus"] += 1
     x = pcm.to(torch.int32)
     contrib = x if active is None else torch.where(
@@ -95,11 +97,11 @@ def mix_minus_many(pcm: torch.Tensor,
     levels uint8 [C, N]).  Kernel E on a CUDA tensor, the plain version
     on a CPU one.  The kernel takes pcm contiguous from any int16-aligned
     address: 16-byte copies where pcm and out are 16-byte aligned and
-    F % 8 == 0, 2-byte ones otherwise.  It refuses (ValueError) more than
-    65,535 rows a conference (its int32 column sums), and a frame too wide
-    for one row of a block's columns to fit in the shared memory of its
-    widest cluster: over 78,528 samples (157,056 where C * 8 is below the
-    card's SM count).  The JAX reference takes both."""
+    F % 8 == 0, 2-byte ones otherwise.  It takes any N and F: beyond
+    65,535 rows its column totals are 64-bit, and a frame too wide for a
+    block's shared memory is taken in column stages.  Both give the exact
+    clip, as this module's plain version does (the JAX reference sums its
+    columns in int32, which wraps past 2**31 - 1 from 65,539 rows on)."""
     if _k.route(pcm) == "cpu":
         return mix_minus_many_plain(pcm, active)
     dev = pcm.device
@@ -118,9 +120,6 @@ def mix_minus_many(pcm: torch.Tensor,
         rc = _k.library().ljt_mix_minus(
             pcm.data_ptr(), act.data_ptr(), out.data_ptr(),
             levels.data_ptr(), c, n, f, _k.stream_handle(dev))
-        if rc == MIX_REFUSED:
-            raise ValueError(f"mix_minus: kernel E does not take [{c}, {n}, "
-                             f"{f}]: over 65,535 rows, or frames too wide")
         _k.check(rc, "mix_minus")
         _k.launches["mix_minus"] += 1
     return out, levels

@@ -9,9 +9,8 @@
 //      (31 - clz), which is the spec.  The JAX package takes it as
 //      floor(log2(float(mag))), which differs from the spec only at µ-law
 //      input ±8060 (log2(8192) rounds below 13 there).
-//   G: codes [n] u8 -> pcm [n] i16 through a 256-entry table that each
-//      block builds in shared memory from the spec, as g711.py builds its
-//      tables.
+//   G: codes [n] u8 -> pcm [n] i16, the spec's segment expansion
+//      (g711.py builds its 256-entry tables with the same arithmetic).
 //
 // Bound on the H100: bytes (3 per sample, a handful of integer operations
 // beside them).
@@ -21,8 +20,19 @@
 // step.  The grid covers the array in one step where the card can hold
 // that many blocks at once (8 of 256 threads a SM) and strides beyond.
 // The law is chosen once a launch, outside the loop.
-// Design of G: a grid-stride loop over the flat code array, one code per
-// thread per step, the grid capped at 1,024 blocks.
+// Design of G: the same form, 8 codes a lane: one 8-byte load and one
+// 16-byte store a step when codes are 8-byte and out 16-byte aligned, one
+// code a step for the tail (n % 8) and for misaligned pointers, in
+// blocks of 128 threads.  Each code is expanded in registers
+// (`ulaw_decode1` / `alaw_decode1`): no table, no shared memory, no
+// barrier, and no load indexed by the audio.  The law is a template
+// argument, one kernel each.  At the conference's 40,960 codes a lane's
+// arithmetic is on the critical path, so 16 codes a lane in blocks of
+// 256 threads (10 SMs at that shape) read slower than this form, and
+// than the first one (PERF.md).  (The first form built a 256-entry
+// table in shared memory in every block, waited on a barrier, then took
+// one code a thread a step through an indexed shared load, the grid
+// capped at 1,024 blocks.)
 
 #include <cuda_runtime.h>
 
@@ -31,8 +41,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 1024;
+constexpr int kThreads = 256;      // F's blocks
+constexpr int kDecodeThreads = 128;
 
 __device__ __forceinline__ int bit_length(int x) { return 32 - __clz(x); }
 
@@ -109,34 +119,51 @@ __global__ void __launch_bounds__(kThreads)
     encode_all<0>(pcm, out, n, vec != 0);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int LAW>
+__device__ __forceinline__ int16_t decode1(int c) {
+  return LAW ? alaw_decode1(c) : ulaw_decode1(c);
+}
+
+// Two codes (bytes j, j + 1 of w) decoded into one word of two int16s,
+// the first in the low half (the lower address).
+template <int LAW>
+__device__ __forceinline__ uint32_t decode2(uint32_t w, int j) {
+  const uint32_t lo = uint16_t(decode1<LAW>(int(w >> (8 * j)) & 0xFF));
+  const uint32_t hi = uint16_t(decode1<LAW>(int(w >> (8 * j + 8)) & 0xFF));
+  return lo | (hi << 16);
+}
+
+template <int LAW>
+__global__ void __launch_bounds__(kDecodeThreads)
     g711_decode_kernel(const uint8_t* __restrict__ codes,
-                       int16_t* __restrict__ out, int n, int law) {
-  __shared__ int16_t lut[256];
-  const int t = threadIdx.x;
-  lut[t] = law ? alaw_decode1(t) : ulaw_decode1(t);   // blockDim == 256
-  __syncthreads();
+                       int16_t* __restrict__ out, int n, int vec) {
   const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + t; i < n; i += stride)
-    out[i] = lut[codes[i]];
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  int done = 0;
+  if (vec) {
+    const int nv = n / 8;
+    const uint2* in8 = reinterpret_cast<const uint2*>(codes);
+    uint4* out8 = reinterpret_cast<uint4*>(out);
+    for (int i = tid; i < nv; i += stride) {
+      const uint2 v = __ldg(in8 + i);
+      out8[i] = make_uint4(decode2<LAW>(v.x, 0), decode2<LAW>(v.x, 2),
+                           decode2<LAW>(v.y, 0), decode2<LAW>(v.y, 2));
+    }
+    done = nv * 8;
+  }
+  for (int i = done + tid; i < n; i += stride) out[i] = decode1<LAW>(codes[i]);
 }
 
-dim3 grid_for(int n) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  return dim3(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-}
-
-// F's grid: one step for every lane where the card holds the blocks at
-// once (8 blocks of 256 threads a SM), a grid-stride loop beyond.
-dim3 encode_grid(int n, bool vec) {
+// The grids of F and G: one step for every lane where the card holds the
+// blocks at once (2,048 threads a SM), a grid-stride loop beyond.
+dim3 grid_for(int lanes, int threads) {
   int dev = 0, sms = 1;
   if (cudaGetDevice(&dev) != cudaSuccess
       || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
              != cudaSuccess || sms < 1)
     sms = 1;
-  const int lanes = vec ? (n + 7) / 8 : n;
-  const int blocks = (lanes + kThreads - 1) / kThreads;
-  const int most = 8 * sms;
+  const int blocks = (lanes + threads - 1) / threads;
+  const int most = 2048 / threads * sms;
   return dim3(blocks < most ? blocks : most);
 }
 
@@ -148,7 +175,8 @@ extern "C" int ljt_g711_encode(const void* pcm, void* out, int n, int law,
   if (n == 0) return 0;
   const int vec = reinterpret_cast<uintptr_t>(pcm) % 16 == 0
                   && reinterpret_cast<uintptr_t>(out) % 8 == 0;
-  g711_encode_kernel<<<encode_grid(n, vec), kThreads, 0,
+  const dim3 grid = grid_for(vec ? (n + 7) / 8 : n, kThreads);
+  g711_encode_kernel<<<grid, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(pcm), static_cast<uint8_t*>(out), n, law,
       vec);
@@ -159,8 +187,15 @@ extern "C" int ljt_g711_decode(const void* codes, void* out, int n, int law,
                                void* stream) {
   if (n < 0 || (law != 0 && law != 1)) return int(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  g711_decode_kernel<<<grid_for(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), static_cast<int16_t*>(out), n, law);
+  const int vec = reinterpret_cast<uintptr_t>(codes) % 8 == 0
+                  && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid = grid_for(vec ? (n + 7) / 8 : n, kDecodeThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  int16_t* o = static_cast<int16_t*>(out);
+  if (law)
+    g711_decode_kernel<1><<<grid, kDecodeThreads, 0, s>>>(c, o, n, vec);
+  else
+    g711_decode_kernel<0><<<grid, kDecodeThreads, 0, s>>>(c, o, n, vec);
   return int(cudaGetLastError());
 }

@@ -19,11 +19,14 @@
 //     tile slices them (`LjtSlicedKeys`); blocks written back.
 //   cycles [32] i64: clock64 cycles each lane spent in its n steps.
 //   ljt_probe_hmac_row: midstates [32, 2, 5] u32, rows [32, width] u8:
-//     the warp stages the rows in shared memory and each lane runs,
+//     `lanes` threads (1-32) of one warp stage the rows in shared memory
+//     and each runs,
 //     `reps` times, the HMAC-SHA1 of its row's first `len` bytes || a
 //     4-byte word, read as the hashing lane of a tile kernel reads it
 //     (`LjtRowMsg`), each time's word the last digest's first word
-//     (written to digest [32] u32); cycles [32] as above.
+//     (written to digest [lanes] u32); cycles [lanes] as above.  The
+//     rows are staged at the tile kernels' odd word stride (`row_stride`),
+//     so the lanes' message words fall in different banks.
 //     Beside the chain of bare compressions, this is what one row's MAC
 //     costs its lane: the message words, padding and the outer block.
 //   ljt_probe_empty: one warp that does nothing.  Its time on the card is
@@ -39,6 +42,7 @@
 
 #include "aes.cuh"
 #include "sha1.cuh"
+#include "srtp_tile.cuh"
 
 namespace {
 
@@ -102,7 +106,7 @@ __global__ void hmac_row_kernel(const uint32_t* __restrict__ tab_mid,
                                 long long* __restrict__ cycles, int reps) {
   extern __shared__ uint4 smem[];
   uint32_t* staged = reinterpret_cast<uint32_t*>(smem);
-  const int stride = (width + 3) / 4;
+  const int stride = ljt_tile::row_stride(width);
   uint8_t* b = reinterpret_cast<uint8_t*>(staged);
   for (int i = threadIdx.x; i < 32 * width; i += blockDim.x)
     b[4 * stride * (i / width) + i % width] = rows[i];
@@ -143,10 +147,11 @@ extern "C" int ljt_probe_sha1_chain(void* state, void* cycles, int n,
 
 extern "C" int ljt_probe_hmac_row(const void* tab_mid, const void* rows,
                                   int len, int width, void* digest,
-                                  void* cycles, int reps, void* stream) {
-  if (len < 0 || len + 4 > width || width > 1024)
+                                  void* cycles, int reps, int lanes,
+                                  void* stream) {
+  if (len < 0 || len + 4 > width || width > 1024 || lanes < 1 || lanes > 32)
     return int(cudaErrorInvalidValue);
-  hmac_row_kernel<<<1, 32, 32 * 4 * ((width + 3) / 4),
+  hmac_row_kernel<<<1, lanes, 32 * 4 * ljt_tile::row_stride(width),
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(tab_mid),
       static_cast<const uint8_t*>(rows), len, width,

@@ -58,53 +58,14 @@ __device__ __forceinline__ void ljt_sha1_compress(uint32_t h[5],
   h[4] += e;
 }
 
-// A message of `mlen` bytes read from one buffer row: bytes [0, dlen)
-// are p[i], bytes [dlen, mlen) are taken from the big-endian word
-// `extra` (the SRTP rollover counter appended for the MAC), and every
-// position at or past `width` reads as 0 — a byte that would fall off
-// the end of the row is a zero, as in the JAX package.
-struct LjtMsg {
-  const uint8_t* p;
-  int dlen;
-  int mlen;
-  int width;
-  uint32_t extra;
-  bool aligned;  // p is 4-byte aligned: whole words load in one access
-};
-
-__device__ __forceinline__ uint32_t ljt_msg_byte(const LjtMsg& m, int i) {
-  if (i >= m.width) return 0;
-  if (i < m.dlen) return m.p[i];
-  return (m.extra >> (8 * (3 - (i - m.dlen)))) & 0xFF;
-}
-
-// Big-endian word of the padded message at byte i (i % 4 == 0).
-__device__ __forceinline__ uint32_t ljt_msg_word(const LjtMsg& m, int i) {
-  if (m.aligned && i + 4 <= m.dlen && i + 4 <= m.width)
-    return ljt_bswap32(*reinterpret_cast<const uint32_t*>(m.p + i));
-  uint32_t v = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    int pos = i + k;
-    uint32_t b = pos < m.mlen ? ljt_msg_byte(m, pos)
-                              : (pos == m.mlen ? 0x80u : 0u);
-    v = (v << 8) | b;
-  }
-  return v;
-}
-
-__device__ __forceinline__ void ljt_msg_block(const LjtMsg& m, int b,
-                                              uint32_t w[16]) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j) w[j] = ljt_msg_word(m, b * 64 + 4 * j);
-}
-
-// An SRTP MAC message staged in shared memory: the row's bytes [0, dlen)
-// as little-endian 32-bit words (row[q] holds bytes 4q..4q+3, dlen <=
-// width), then the 4-byte rollover counter, of which the bytes that
-// would fall at or past `width` read as 0; mlen = dlen + 4.  Whole words
-// are read as words; only the word that holds the end of the data is
-// merged with the ROC and the 0x80 pad byte, in registers.
+// A MAC message staged in shared memory: the row's bytes [0, dlen) as
+// little-endian 32-bit words (row[q] holds bytes 4q..4q+3, dlen <=
+// width), then, for SRTP and SRTCP, a 4-byte word (the rollover counter,
+// or E || SRTCP index), of which the bytes that would fall at or past
+// `width` read as 0, so mlen = dlen + 4; for a bare message (kernel B)
+// nothing, so mlen = dlen.  Whole words are read as words; only the word
+// that holds the end of the data is merged with the word and the 0x80
+// pad byte, in registers.
 struct LjtRowMsg {
   const uint32_t* row;
   int dlen;
@@ -118,6 +79,11 @@ struct LjtRowMsg {
     if (room < 4) roc = room <= 0 ? 0u : roc & (0xFFFFFFFFu << (32 - 8 * room));
     tail = (uint64_t(roc) << 32) | 0x80000000u;
   }
+
+  // The row's bytes [0, len) alone (len may be negative where the staged
+  // row starts past the message: then only the padding is read).
+  __device__ __forceinline__ LjtRowMsg(const uint32_t* r, int len)
+      : row(r), dlen(len), mlen(len), tail(uint64_t(0x80) << 56) {}
 
   // Big-endian message word at byte i (i % 4 == 0), padding included.
   __device__ __forceinline__ uint32_t word(int i) const {
@@ -136,6 +102,8 @@ struct LjtRowMsg {
   }
 };
 
+// Block b of the message, padding included (the bit length is the
+// caller's).
 __device__ __forceinline__ void ljt_msg_block(const LjtRowMsg& m, int b,
                                               uint32_t w[16]) {
   const int q0 = b * 16;
@@ -148,9 +116,24 @@ __device__ __forceinline__ void ljt_msg_block(const LjtRowMsg& m, int b,
   }
 }
 
+// The outer hash of HMAC-SHA1: the opad midstate mid[5..9] over the
+// 20-byte inner digest h, one padded block.
+__device__ __forceinline__ void ljt_hmac_outer(const uint32_t mid[10],
+                                               const uint32_t h[5],
+                                               uint32_t out[5]) {
+  uint32_t w[16] = {h[0], h[1], h[2], h[3], h[4], 0x80000000u, 0, 0,
+                    0,    0,    0,    0,    0,    0,    0,           (20 + 64) * 8};
+  out[0] = mid[5];
+  out[1] = mid[6];
+  out[2] = mid[7];
+  out[3] = mid[8];
+  out[4] = mid[9];
+  ljt_sha1_compress(out, w);
+}
+
 // HMAC-SHA1(key, msg) from the key's midstates: mid[0..4] is the state
-// after the ipad block, mid[5..9] after the opad block.  Msg is LjtMsg or
-// LjtRowMsg.
+// after the ipad block, mid[5..9] after the opad block.  Msg is LjtRowMsg
+// or a type with its own `ljt_msg_block` and `mlen` (kernel C's).
 template <class Msg>
 __device__ __forceinline__ void ljt_hmac_sha1(const uint32_t mid[10],
                                               const Msg& m,
@@ -168,15 +151,7 @@ __device__ __forceinline__ void ljt_hmac_sha1(const uint32_t mid[10],
     }
     ljt_sha1_compress(h, w);
   }
-  // outer: opad midstate || the 20-byte inner digest, one padded block
-  uint32_t w[16] = {h[0], h[1], h[2], h[3], h[4], 0x80000000u, 0, 0,
-                    0,    0,    0,    0,    0,    0,    0,           (20 + 64) * 8};
-  out[0] = mid[5];
-  out[1] = mid[6];
-  out[2] = mid[7];
-  out[3] = mid[8];
-  out[4] = mid[9];
-  ljt_sha1_compress(out, w);
+  ljt_hmac_outer(mid, h, out);
 }
 
 // Byte k (0..19) of a digest held as 5 big-endian words.

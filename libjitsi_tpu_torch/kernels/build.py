@@ -68,6 +68,7 @@ _SIGNATURES = {
     "ljt_probe_aes_chain": [_P, _P, _P, _I, _I, _P],
     "ljt_probe_empty": [_P],
     "ljt_probe_cluster": [_I, _P],
+    "ljt_probe_hmac_row": [_P, _P, _I, _I, _P, _P, _I, _I, _P],
     "ljt_mix_minus_plan": [_P, _P, _I, _I, _I, _P],
 }
 

@@ -112,6 +112,61 @@ def test_hmac_kernel_matches_plain_and_stdlib(cuda_device):
             bytes(keys[i]), bytes(data[i, :lens[i]]), hashlib.sha1).digest()
 
 
+# Kernel B's tiles on an H100 (132 SMs, four tiles an SM): 1, 33 and 200
+# rows one row a tile, 4,096 rows 8 a tile (28 at 8,192 bytes); at
+# 240,000 bytes a row is staged in chunks.
+@pytest.mark.parametrize("width,n", [(200, 1), (200, 33), (1504, 200),
+                                     (1504, 4096), (8192, 4096),
+                                     (240000, 4)])
+def test_hmac_kernel_tiles_match_stdlib(cuda_device, width, n):
+    rng = np.random.default_rng(width + n)
+    lens = rng.integers(-3, width + 5, n).astype(np.int32)
+    lens[:4] = [0, 55, 56, width][:n]
+    _check_hmac_kernel(cuda_device, rng, width, lens)
+
+
+def _check_hmac_kernel(cuda_device, rng, width, lens):
+    n = len(lens)
+    keys = rng.integers(0, 256, (n, 20), np.uint8)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    mid, dat, ln = (torch.from_numpy(x).to(cuda_device) for x in
+                    (sha1.hmac_precompute_batch(keys).view(np.int32), data,
+                     lens))
+    want = [hmac.new(bytes(keys[i]),
+                     bytes(data[i, :min(max(int(lens[i]), 0), width)]),
+                     hashlib.sha1).digest() for i in range(n)]
+    before = kbuild.launches["hmac_sha1"]
+    got = sha1.hmac_sha1(mid, dat, ln)
+    torch.cuda.synchronize()
+    assert kbuild.launches["hmac_sha1"] == before + 1
+    assert [bytes(g) for g in got.cpu().numpy()] == want
+    if width <= 1504:
+        assert _same(got, sha1.hmac_sha1_plain(mid, dat, ln))
+
+
+# Messages that end at and across the chunks of 240,000-byte rows (see
+# tests/test_torch_cuda_emu.py): 14 rows are 1-row tiles on the card
+# (232,384-byte chunks); 1,100 rows are tiles of 3 on 132 SMs (77,440-byte
+# chunks, four a row), their first 14 ending at the chunk edges.  An end
+# is the width or (k, d): k chunks plus d bytes.
+@pytest.mark.parametrize("n,ends", [
+    (14, [(1, 0), (1, 1)] + [(1, -d) for d in range(1, 10)]
+     + [240000, 239999, 0]),
+    (1100, [(1, 0), (1, 1), (1, -1), (1, -8), (2, -1), (2, 0), (2, 1),
+            (3, -4), (3, -9), (3, 0), (3, 1), 240000, 239999, 0]),
+])
+def test_hmac_kernel_rows_across_chunks(cuda_device, n, ends):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tile = min(32, -(-n // (4 * sms)))      # plan_b in csrc/hmac_sha1.cu
+    chunk = (232448 // 4 // tile - 1) * 4 // 64 * 64
+    rng = np.random.default_rng(n)
+    lens = rng.integers(0, 240001, n).astype(np.int32)
+    lens[:len(ends)] = [e if isinstance(e, int) else e[0] * chunk + e[1]
+                        for e in ends]
+    assert lens.max() <= 240000
+    _check_hmac_kernel(cuda_device, rng, 240000, lens)
+
+
 def _cd(key_len, tag_len, width, n=301, case="random"):
     tail = "" if (n, case) == (301, "random") else f"-{n}-{case}"
     return pytest.param(key_len, tag_len, width, n, case,
@@ -256,7 +311,7 @@ def test_mix_kernel_matches_plain(cuda_device, shape):
     with inactive, silent, near-silent and saturating rows."""
     c, n, f, *rest = shape
     offset = rest[0] if rest else 0
-    plan = np.zeros(5, np.int32)
+    plan = np.zeros(8, np.int32)
     assert kbuild.library().ljt_mix_minus_plan(256, 256, c, n, f,
                                                plan.ctypes.data) == 0
     if n >= 1000:                          # staged: more than one stage
@@ -288,15 +343,41 @@ def test_mix_kernel_matches_plain(cuda_device, shape):
 
 
 def test_mix_kernel_refuses_what_it_cannot_take(cuda_device):
-    """Over 65,535 rows a conference, or a frame wider than a cluster of
-    8 blocks can stage one row of: a ValueError, no launch and no plain
-    version."""
-    before = dict(kbuild.launches), dict(kbuild.plain_calls)
-    for shape in ((1, 65536, 8), (300, 1, 80000)):
-        pcm = torch.zeros(shape, dtype=torch.int16, device=cuda_device)
-        with pytest.raises(ValueError):
-            mixer.mix_minus_many(pcm)
-    assert (dict(kbuild.launches), dict(kbuild.plain_calls)) == before
+    """Nothing is left that kernel E cannot take.  The shapes it once
+    refused with a ValueError run the staged kernel, one launch each, and
+    equal the plain version on the card and on the CPU: 65,540 rows
+    (64-bit column totals), [1, 131,076, 1] with every column total past
+    2**31 - 1 (the exact clip, 32,767 in every row but row 0), and frames
+    wider than a cluster of 8 and of 16 blocks can stage one row of.
+    65,540 rows run in 16 row groups; with quiet samples no mix clips, so
+    a row counted twice or missed by the groups' totals would show."""
+    rng = np.random.default_rng(65540)
+    loud = np.full((1, 131076, 1), 32767, np.int16)
+    loud[0, 0] = 0
+    cases = [rng.integers(-32768, 32768, (1, 65540, 8)).astype(np.int16),
+             rng.integers(-3, 4, (1, 65540, 8)).astype(np.int16),
+             loud,
+             rng.integers(-32768, 32768, (300, 1, 80000)).astype(np.int16),
+             rng.integers(-32768, 32768, (1, 3, 160008)).astype(np.int16)]
+    for pcm in cases:
+        c, n, f = pcm.shape
+        plan = np.zeros(8, np.int32)
+        assert kbuild.library().ljt_mix_minus_plan(256, 256, c, n, f,
+                                                   plan.ctypes.data) == 0
+        assert plan[6] == 1 and (n > 65535 or plan[5] > 1)
+        assert plan[7] == (16 if n > 65535 else 1)
+        p_d = torch.from_numpy(pcm).to(cuda_device)
+        before = kbuild.launches["mix_minus"], dict(kbuild.plain_calls)
+        out, lv = mixer.mix_minus_many(p_d)
+        torch.cuda.synchronize()
+        assert kbuild.launches["mix_minus"] == before[0] + 1
+        assert dict(kbuild.plain_calls) == before[1]
+        want_out, want_lv = mixer.mix_minus_many_plain(p_d)
+        assert _same(out, want_out) and _same(lv, want_lv)
+        cpu_out, cpu_lv = mixer.mix_minus_many(torch.from_numpy(pcm))
+        assert _same(out, cpu_out) and _same(lv, cpu_lv)
+        if pcm is loud:
+            assert (out.cpu() == 32767).all()
 
 
 @pytest.mark.parametrize("law", [g711.ULAW, g711.ALAW])
@@ -311,6 +392,34 @@ def test_g711_kernels_match_plain_exhaustively(cuda_device, law):
     assert kbuild.launches["g711_decode"] == before["g711_decode"] + 1
     assert _same(enc, g711.encode(pcm, law))
     assert _same(dec, g711.decode(codes, law))
+
+
+@pytest.mark.parametrize("law", [g711.ULAW, g711.ALAW])
+def test_g711_decode_kernel_tails_and_misaligned_views(cuda_device, law):
+    """Kernel G on every code at lengths around its 8-code step and with
+    codes off an 8-byte or out off a 16-byte boundary (its one-code
+    path), against the plain version, writing nothing outside out[:n]."""
+    every = torch.arange(256, dtype=torch.int32).to(torch.uint8).repeat(40)
+    for n in (1, 7, 8, 9, 15, 16, 17, 10240):
+        want = g711.decode(every[:n], law)
+        for c_off, o_off in ((0, 0), (0, 1), (1, 0), (3, 5)):
+            cbuf = torch.zeros(n + 32, dtype=torch.uint8, device=cuda_device)
+            obuf = torch.full((n + 32,), -7, dtype=torch.int16,
+                              device=cuda_device)
+            cbuf[c_off:c_off + n] = every[:n].to(cuda_device)
+            before = kbuild.launches["g711_decode"]
+            rc = kbuild.library().ljt_g711_decode(
+                cbuf[c_off:].data_ptr(), obuf[o_off:].data_ptr(), n, law,
+                kbuild.stream_handle(cuda_device))
+            assert rc == 0
+            got = g711.decode(cbuf[c_off:c_off + n], law)
+            torch.cuda.synchronize()
+            assert kbuild.launches["g711_decode"] == before + 1
+            assert _same(got, want)
+            host = obuf.cpu()
+            assert torch.equal(host[o_off:o_off + n], want)
+            assert (host[:o_off] == -7).all() and (host[o_off + n:] == -7
+                                                   ).all()
 
 
 @pytest.mark.parametrize("law", [g711.ULAW, g711.ALAW])

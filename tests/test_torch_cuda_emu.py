@@ -15,11 +15,14 @@ of blocks under two keys.  Edge rows: offsets past the row, lengths past
 the row, stream ids outside the table, counters carrying across 32-bit
 limbs, unaligned row widths, for the tiled kernels C, D, H, I and J
 partial tiles, windows that start off a word, SRTCP words and tags cut
-at the width, and tampered rows beside genuine ones in one tile, and
-for kernel E every kind of launch its plan makes
-(clusters of 1, 2, 5, 8 and 16 blocks, blocks of unequal width, the
-2-byte path, rows in stages) with silent, near-silent, saturating and
-inactive rows.  Tolerance: exact equality.
+at the width, and tampered rows beside genuine ones in one tile; for
+kernel B tiles of 1-32 rows, fewer rows where a row is wide and rows
+staged in chunks where it outgrows a block; for kernel G every code at
+ragged lengths and misaligned views; and for kernel E every kind of
+launch its plan makes (clusters of 1, 2, 5, 8 and 16 blocks, blocks of
+unequal width, the 2-byte path, rows in stages, and the staged kernel's
+64-bit totals past 65,535 rows and columns in stages) with silent,
+near-silent, saturating and inactive rows.  Tolerance: exact equality.
 """
 
 import ctypes
@@ -178,6 +181,73 @@ def test_emulated_kernel_b_matches_plain_and_stdlib(emu, width):
                                          hashlib.sha1).digest()
 
 
+# Kernel B's tiles: the fewest rows that give each SM four tiles, at most
+# 32 (one SM here, so ceil(n / 4) rows): n = 1, 33 (four tiles of 9 and
+# a last of 6) and 200 rows of 1,504 bytes (tiles of 32 and a last of
+# 8); at 8,192 bytes a tile holds 28 rows; at 240,000 a row outgrows a
+# block's 227 KB and is staged in chunks (whole 64-byte blocks); width 0
+# hashes empty messages.
+@pytest.mark.parametrize("width,n", [(200, 1), (200, 33), (1504, 200),
+                                     (8192, 40), (240000, 4), (0, 3)])
+def test_emulated_kernel_b_tiles_match_stdlib(emu, width, n):
+    rng = np.random.default_rng(width + n)
+    keys = rng.integers(0, 256, (n, 20), np.uint8)
+    mid = sha1.hmac_precompute_batch(keys).view(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    lens = rng.integers(-3, width + 5, n).astype(np.int32)
+    lens[:4] = [0, min(55, width), min(56, width), width][:n]
+    _check_kernel_b(emu, keys, mid, data, lens)
+
+
+def _check_kernel_b(emu, keys, mid, data, lens):
+    n, width = data.shape
+    out = np.zeros((n, 20), np.uint8)
+    assert emu.ljt_hmac_sha1(_p(mid), _p(data), _p(lens), _p(out), n, width,
+                             None) == 0
+    assert [bytes(o) for o in out] == [
+        hmac.new(bytes(keys[i]),
+                 bytes(data[i, :min(max(int(lens[i]), 0), width)]),
+                 hashlib.sha1).digest() for i in range(n)]
+    if width <= 1504:
+        assert np.array_equal(out, sha1.hmac_sha1(T(mid), T(data),
+                                                  T(lens)).numpy())
+
+
+def kernel_b_chunk(rows: int) -> int:
+    """The bytes of a row kernel B stages at a time where a row outgrows
+    a block's 227 KB: whole 64-byte blocks that fit `rows` rows at an odd
+    word stride (`plan_b` in csrc/hmac_sha1.cu)."""
+    return (232448 // 4 // rows - 1) * 4 // 64 * 64
+
+
+# Messages that end at and across the chunks of 240,000-byte rows: the
+# whole width, a chunk exactly, a chunk plus 1, and a chunk minus 1-9 (the
+# 0x80 byte in the chunk's last 64-byte block, the bit length in a block
+# of the next chunk).  Four rows are 1-row tiles (232,384-byte chunks, two
+# a row); 13 rows are tiles of 4 (58,048-byte chunks, five a row, a
+# message ending at every chunk edge in one tile).  An end is the width
+# or (k, d): k chunks plus d bytes.
+W_CHUNKED = 240000
+
+
+@pytest.mark.parametrize("n,tile,ends", [
+    (4, 1, [W_CHUNKED, (1, 0), (1, 1), (1, -1)]),
+    (4, 1, [(1, -2), (1, -3), (1, -4), (1, -5)]),
+    (4, 1, [(1, -6), (1, -7), (1, -8), (1, -9)]),
+    (13, 4, [W_CHUNKED, (1, 0), (1, 1), (1, -1), (1, -8), (2, -1), (2, 0),
+             (2, 1), (3, -4), (3, 1), (4, -1), (4, 0), W_CHUNKED - 1]),
+])
+def test_emulated_kernel_b_rows_across_chunks(emu, n, tile, ends):
+    c = kernel_b_chunk(tile)
+    lens = np.array([e if isinstance(e, int) else e[0] * c + e[1]
+                     for e in ends], np.int32)
+    rng = np.random.default_rng(n + int(lens.sum()))
+    keys = rng.integers(0, 256, (n, 20), np.uint8)
+    mid = sha1.hmac_precompute_batch(keys).view(np.int32)
+    data = rng.integers(0, 256, (n, W_CHUNKED), np.uint8)
+    _check_kernel_b(emu, keys, mid, data, lens)
+
+
 def _cd(key_len, tag_len, width, n=45, case="mixed"):
     tail = "" if (n, case) == (45, "mixed") else f"-{n}-{case}"
     return pytest.param(key_len, tag_len, width, n, case,
@@ -261,7 +331,8 @@ def test_emulated_kernels_c_d_match_plain(emu, key_len, tag_len, width, n,
 def test_emulated_latency_probe_chains(emu):
     """The probe's chains compute what they claim: n SHA-1 compressions
     of each lane's state, n AES encryptions of each lane's pair of
-    blocks, AES-128 and AES-256."""
+    blocks, AES-128 and AES-256, and n chained MACs of a 966-byte
+    message on 1 lane and on 32."""
     rng = np.random.default_rng(9)
     n = 3
     state = rng.integers(0, 2 ** 32, (32, 21), dtype=np.uint64).astype(
@@ -282,12 +353,27 @@ def test_emulated_latency_probe_chains(emu):
         assert emu.ljt_probe_aes_chain(_p(rk), _p(blocks), _p(cycles),
                                        len(rk) - 1, n, None) == 0
         assert np.array_equal(blocks, want) and (cycles > 0).all()
+    # one row's MAC as a hashing lane runs it, `reps` times chained
+    # through the 4-byte word, on 1 lane and on a full warp
+    keys = rng.integers(0, 256, (32, 20), np.uint8)
+    mid = sha1.hmac_precompute_batch(keys).view(np.int32)
+    rows = rng.integers(0, 256, (32, 1024), np.uint8)
+    for lanes in (1, 32):
+        digest = np.zeros(32, np.uint32)
+        assert emu.ljt_probe_hmac_row(_p(mid), _p(rows), 962, 1024,
+                                      _p(digest), _p(cycles), n, lanes,
+                                      None) == 0
+        for lane in range(lanes):
+            word = 0
+            for _ in range(n):
+                word = int.from_bytes(hmac.new(
+                    bytes(keys[lane]), bytes(rows[lane, :962])
+                    + word.to_bytes(4, "big"), hashlib.sha1).digest()[:4],
+                    "big")
+            assert digest[lane] == word
     assert emu.ljt_probe_empty(None) == 0
     assert emu.ljt_probe_cluster(2, None) == 0
     assert emu.ljt_probe_cluster(17, None) != 0
-
-
-REFUSED = mixer.MIX_REFUSED
 
 
 def _edge_rows(rng, c, n, f):
@@ -307,28 +393,47 @@ def _edge_rows(rng, c, n, f):
 
 
 # (C, N, F, SMs the emulator reports, pcm offset in samples, expected plan
-# as (cluster, columns a block stages, rows staged at a time, vec)).
-# Kernel E gives a conference ceil(2 SMs / C) blocks, at most 8 (16 while
-# C * 8 < SMs) and at most one a column vector of 8 samples, more while
-# one row of a block's columns does not fit, and stages at most 96 KB a
-# block, rows in stages beyond; a staged row is an odd number of vectors
-# long.
+# as (cluster, columns a block stages, rows staged at a time, vec, column
+# stages of the widest block, staged kernel, row groups)).  Kernel E
+# gives a conference ceil(2 SMs / C) blocks, at most 8 (16 while C * 8 <
+# SMs) and at most one a column vector of 8 samples, more while one row
+# of a block's columns does not fit, and stages at most 96 KB a block,
+# rows in stages beyond; a staged row is an odd number of vectors long.  Past
+# 65,535 rows, or where one row of a block's columns does not fit at the
+# widest cluster, the staged kernel runs: 64-bit column totals, at most
+# 227 KB a block, the block's columns in stages that hold 64 rows (or
+# all, if fewer), and the rows of a conference whose columns leave blocks
+# of the cluster free in groups over those blocks.
 @pytest.mark.parametrize("shape", [
-    (2, 8, 960, 1, 0, (1, 968, 8, 1)),
-    (2, 5, 160, 1, 0, (1, 168, 5, 1)),
-    (1, 33, 70, 1, 0, (2, 40, 33, 0)),        # F = 70: scalar path
-    (1, 40, 64, 4, 0, (8, 8, 40, 1)),         # a cluster of 8
-    (2, 12, 160, 2, 0, (2, 88, 12, 1)),       # blocks of equal width
-    (2, 33, 96, 5, 0, (5, 24, 33, 1)),        # blocks of 2 and 3 vectors
-    (2, 8, 960, 1, 1, (1, 968, 8, 0)),        # a view at an odd offset
-    (5, 1, 1, 1, 0, (1, 8, 1, 0)),            # N = 1, F = 1
-    (1, 64, 1600, 1, 0, (2, 808, 56, 1)),     # rows in two stages
-    (1, 64, 1601, 1, 1, (2, 808, 56, 0)),     # the same, scalar path
-    (1, 20, 128, 16, 0, (16, 8, 20, 1)),      # a cluster of 16
-    (1, 1600, 96, 1, 0, (2, 56, 773, 1)),     # 1,600 rows in three stages
-    (1, 1600, 97, 1, 1, (2, 56, 773, 0)),     # the same, scalar path
-    (2, 3, 2400, 1, 0, (1, 2408, 3, 1)),      # more vectors than threads
-    (2, 3, 12000, 1, 0, (2, 6008, 3, 1)),     # too wide for one block
+    (2, 8, 960, 1, 0, (1, 968, 8, 1, 1, 0, 1)),
+    (2, 5, 160, 1, 0, (1, 168, 5, 1, 1, 0, 1)),
+    (1, 33, 70, 1, 0, (2, 40, 33, 0, 1, 0, 1)),        # F = 70: scalar path
+    (1, 40, 64, 4, 0, (8, 8, 40, 1, 1, 0, 1)),         # a cluster of 8
+    (2, 12, 160, 2, 0, (2, 88, 12, 1, 1, 0, 1)),       # blocks of equal width
+    (2, 33, 96, 5, 0, (5, 24, 33, 1, 1, 0, 1)),        # blocks of 2, 3 vectors
+    (2, 8, 960, 1, 1, (1, 968, 8, 0, 1, 0, 1)),  # a view at an odd offset
+    (5, 1, 1, 1, 0, (1, 8, 1, 0, 1, 0, 1)),            # N = 1, F = 1
+    (1, 64, 1600, 1, 0, (2, 808, 56, 1, 1, 0, 1)),     # rows in two stages
+    (1, 64, 1601, 1, 1, (2, 808, 56, 0, 1, 0, 1)),     # the same, scalar path
+    (1, 20, 128, 16, 0, (16, 8, 20, 1, 1, 0, 1)),      # a cluster of 16
+    (1, 1600, 96, 1, 0, (2, 56, 773, 1, 1, 0, 1)),     # 1,600 rows, 3 stages
+    (1, 1600, 97, 1, 1, (2, 56, 773, 0, 1, 0, 1)),     # the same, scalar path
+    (2, 3, 2400, 1, 0, (1, 2408, 3, 1, 1, 0, 1)),  # more vectors than threads
+    (2, 3, 12000, 1, 0, (2, 6008, 3, 1, 1, 0, 1)),     # too wide for one block
+    # past the old limits: 65,540 rows in 2 row groups of 6 stages (64-bit
+    # totals) ...
+    (1, 65540, 8, 1, 0, (2, 8, 6395, 1, 1, 1, 2)),
+    # ... a frame wider than 16 blocks stage, its columns in 2 stages ...
+    (1, 3, 160008, 16, 0, (16, 5016, 3, 1, 2, 1, 1)),
+    # ... and wider than 8 blocks stage with 70 rows: 7 column stages of
+    # one row stage each, the 16-byte and the 2-byte path
+    (1, 70, 80000, 1, 0, (8, 1432, 70, 1, 7, 1, 1)),
+    (1, 70, 80001, 1, 1, (8, 1432, 70, 0, 7, 1, 1)),
+    # 65,540 rows as the H100 takes them: 16 row groups of 4,096 or 4,097
+    # rows, one stage each; and groups of 38,370 and 38,371 rows (the 2-byte
+    # path), whose last stages hold 0 and 1 rows
+    (1, 65540, 8, 16, 0, (16, 8, 4097, 1, 1, 1, 16)),
+    (1, 76741, 8, 1, 1, (2, 8, 6395, 0, 1, 1, 2)),
 ])
 def test_emulated_kernel_e_matches_plain(emu, monkeypatch, shape):
     c, n, f, sms, offset, want_plan = shape
@@ -340,9 +445,9 @@ def test_emulated_kernel_e_matches_plain(emu, monkeypatch, shape):
     pcm[:] = frames
     out = np.zeros_like(frames)
     lv = np.zeros((c, n), np.uint8)
-    plan = np.zeros(5, np.int32)
+    plan = np.zeros(8, np.int32)
     assert emu.ljt_mix_minus_plan(_p(pcm), _p(out), c, n, f, _p(plan)) == 0
-    assert tuple(plan[:4]) == want_plan
+    assert (*plan[:4], *plan[5:]) == want_plan
     assert emu.ljt_mix_minus(_p(pcm), _p(active), _p(out), _p(lv), c, n, f,
                              None) == 0
     want_out, want_lv = mixer.mix_minus_many_plain(T(frames), T(active))
@@ -351,15 +456,69 @@ def test_emulated_kernel_e_matches_plain(emu, monkeypatch, shape):
     assert (lv[:, 0] == 127).all() and (n < 5 or (lv[:, 4] == 127).all())
     assert n < 4 or (lv[:, 2:4] == 0).all()
     assert emu.ljt_mix_minus(_p(pcm), _p(active), _p(out), _p(lv), -1, n, f,
-                             None) not in (0, REFUSED)
-    # refused (its own code, nothing launched): a conference over 65,535
-    # rows (its int32 column sums), a frame wider than 8 blocks stage
+                             None) != 0
+    # where the old limits fell, the plan now takes the staged kernel: a
+    # conference of 65,536 rows, and a frame one sample wider than a
+    # cluster of 8 can stage one row of
+    assert emu.ljt_mix_minus_plan(_p(pcm), _p(out), 1, 65535, 8,
+                                  _p(plan)) == 0 and plan[6] == 0
     assert emu.ljt_mix_minus_plan(_p(pcm), _p(out), 1, 65536, 8,
-                                  _p(plan)) == REFUSED
+                                  _p(plan)) == 0 and tuple(plan[5:7]) == (1, 1)
     assert emu.ljt_mix_minus_plan(_p(pcm), _p(out), 2, 1, 78528,
-                                  _p(plan)) == 0 and plan[0] == 8
+                                  _p(plan)) == 0 and plan[0] == 8 \
+        and plan[6] == 0
     assert emu.ljt_mix_minus_plan(_p(pcm), _p(out), 2, 1, 78529,
-                                  _p(plan)) == REFUSED
+                                  _p(plan)) == 0 and plan[0] == 8 \
+        and tuple(plan[5:7]) == (2, 1)
+
+
+@pytest.mark.parametrize("sms,n,f,groups", [(1, 76741, 8, 2),
+                                             (16, 65540, 8, 16),
+                                             (16, 70001, 1, 16)])
+def test_emulated_kernel_e_row_groups_count_every_row_once(emu, monkeypatch,
+                                                          sms, n, f, groups):
+    """Quiet frames (samples in [-3, 3]), so that no mix clips: each
+    output is the exact column total less the row's own sample, which
+    shows a row counted twice or missed by the row groups' totals."""
+    monkeypatch.setenv("EMU_SM_COUNT", str(sms))
+    rng = np.random.default_rng(n + f)
+    pcm = rng.integers(-3, 4, (1, n, f)).astype(np.int16)
+    active = (rng.random((1, n)) < 0.7).astype(np.uint8)
+    plan = np.zeros(8, np.int32)
+    out = np.zeros_like(pcm)
+    assert emu.ljt_mix_minus_plan(_p(pcm), _p(out), 1, n, f, _p(plan)) == 0
+    assert plan[6] == 1 and plan[7] == groups
+    lv = np.zeros((1, n), np.uint8)
+    assert emu.ljt_mix_minus(_p(pcm), _p(active), _p(out), _p(lv), 1, n, f,
+                             None) == 0
+    want_out, want_lv = mixer.mix_minus_many_plain(T(pcm), T(active))
+    assert (np.abs(want_out.numpy()) < 32767).all()
+    assert np.array_equal(out, want_out.numpy())
+    assert np.array_equal(lv, want_lv.numpy())
+
+
+def test_emulated_kernel_e_exact_clip_past_int32(emu, monkeypatch):
+    """[1, 131,076, 1], every sample 32,767 but row 0's: each column
+    total is 4,294,868,925, past 2**31 - 1.  The staged kernel's 64-bit
+    totals give every row the exact clip, 32,767, as the plain version
+    and numpy's int64 sum do (the JAX reference, which sums in int32,
+    wraps there and gives -32,768)."""
+    monkeypatch.setenv("EMU_SM_COUNT", "1")
+    n = 131076
+    pcm = np.full((1, n, 1), 32767, np.int16)
+    pcm[0, 0] = 0
+    active = np.ones((1, n), np.uint8)
+    out = np.zeros_like(pcm)
+    lv = np.zeros((1, n), np.uint8)
+    assert emu.ljt_mix_minus(_p(pcm), _p(active), _p(out), _p(lv), 1, n, 1,
+                             None) == 0
+    x = pcm.astype(np.int64)
+    exact = np.clip(x.sum(axis=1, keepdims=True) - x, -32768, 32767)
+    assert (exact == 32767).all()
+    want_out, want_lv = mixer.mix_minus_many_plain(T(pcm), T(active))
+    assert np.array_equal(out, exact) and np.array_equal(out, want_out)
+    assert np.array_equal(lv, want_lv.numpy())
+    assert lv[0, 0] == 127 and (lv[0, 1:] == 0).all()
 
 
 def test_emulated_kernel_e_matches_jax_reference(emu, monkeypatch):
@@ -405,6 +564,27 @@ def test_emulated_kernels_f_g_match_plain(emu, law):
                                None) == 0
     assert np.array_equal(back, g711.decode(T(every), law).numpy())
     assert emu.ljt_g711_encode(_p(pcm), _p(codes), len(pcm), 2, None) != 0
+
+
+@pytest.mark.parametrize("law", [g711.ULAW, g711.ALAW])
+def test_emulated_kernel_g_tails_and_misaligned_views(emu, law):
+    """Kernel G on every code at lengths around its 8-code step (1, 7, 8,
+    9, 15, 16, 17, 768) and with codes off an 8-byte or out off a 16-byte
+    boundary (its one-code path), against the plain version; nothing
+    written outside out[:n]."""
+    every = np.tile(np.arange(256, dtype=np.uint8), 3)
+    for n in (1, 7, 8, 9, 15, 16, 17, 768):
+        want = g711.decode(T(every[:n].copy()), law).numpy()
+        for c_off, o_off in ((0, 0), (0, 1), (1, 0), (3, 5)):
+            cbuf = np.zeros(n + 32, np.uint8)
+            obuf = np.full(n + 32, -7, np.int16)
+            cbuf[c_off:c_off + n] = every[:n]
+            assert emu.ljt_g711_decode(_p(cbuf[c_off:]), _p(obuf[o_off:]),
+                                       n, law, None) == 0
+            assert np.array_equal(obuf[o_off:o_off + n], want), (n, c_off,
+                                                                  o_off)
+            assert (obuf[:o_off] == -7).all() and (obuf[o_off + n:] == -7
+                                                   ).all()
 
 
 def _fanout_inputs(rng, key_len, p, width, counts):

@@ -5,9 +5,12 @@ runs) is held against the JAX XLA twin `mix_minus_many` and against the
 Pallas TPU kernel `mix_minus_pallas` run in interpret mode, at
 [3, 8, 960], [1, 32, 960] and [2, 5, 160], with inactive, all-zero,
 near-silent (k samples of ±1) and saturating rows, then over a
-constant-amplitude sweep of every amplitude at F = 160.  `AudioMixer` and
-`MixerBridge` are driven beside the JAX classes through the same pushes,
-releases and errors.  Tolerance: exact equality.
+constant-amplitude sweep of every amplitude at F = 160, and at a
+conference of 65,540 rows (past kernel E's int32 column sums).
+`AudioMixer` and `MixerBridge` are driven beside the JAX classes through
+the same pushes, releases and errors.  Tolerance: exact equality, with
+one documented exception: where a column total passes 2**31 - 1 the JAX
+reference's int32 sum wraps, and the port keeps the exact clip.
 """
 
 import numpy as np
@@ -64,6 +67,36 @@ def test_plain_mix_equals_jax_twin_and_interpret_pallas(shape):
     j_out, j_lv = jmixer.mix_minus_many(pcm)
     assert np.array_equal(a_out.numpy(), np.asarray(j_out))
     assert np.array_equal(a_lv.numpy(), np.asarray(j_lv))
+
+
+def test_plain_mix_equals_jax_past_65535_rows():
+    """[1, 65,540, 8] of random loud samples: more rows than kernel E's
+    int32 path takes, every column total well inside int32, so the JAX
+    twin's int32 sum is exact and the two agree."""
+    pcm, active = edge_frames(1, 65540, 8, seed=65540)
+    out, lv = mixer.mix_minus_many(T(pcm), T(active))
+    j_out, j_lv = jmixer.mix_minus_many(pcm, active)
+    assert np.array_equal(out.numpy(), np.asarray(j_out))
+    assert np.array_equal(lv.numpy(), np.asarray(j_lv))
+
+
+def test_plain_mix_is_the_exact_clip_where_jax_wraps():
+    """[1, 131,076, 1], every sample 32,767 but row 0's: each column total
+    is 4,294,868,925.  The plain version (what kernel E computes) gives
+    the exact clip, numpy's int64 sum clipped: 32,767 in every row.  The
+    JAX reference sums in int32, wraps, and gives -32,768 (ROADMAP Queue
+    3, faults of the reference)."""
+    n = 131076
+    pcm = np.full((1, n, 1), 32767, np.int16)
+    pcm[0, 0] = 0
+    x = pcm.astype(np.int64)
+    exact = np.clip(x.sum(axis=1, keepdims=True) - x, -32768, 32767)
+    out, lv = mixer.mix_minus_many(T(pcm))
+    assert np.array_equal(out.numpy(), exact) and (exact == 32767).all()
+    assert lv[0, 0] == 127 and (lv[0, 1:] == 0).all()
+    j_out, j_lv = jmixer.mix_minus_many(pcm)
+    assert (np.asarray(j_out) == -32768).all()
+    assert np.array_equal(lv.numpy(), np.asarray(j_lv))
 
 
 def test_levels_equal_jax_over_the_amplitude_sweep_at_160():
