@@ -25,7 +25,20 @@ version:
                 are held byte for byte against the same bridge on the
                 CPU, every copy the client received is authenticated
                 under its leg's key, and none echoes or crosses a
-                conference.
+                conference;
+  srtp_profiles the rest of the SRTP table at 10,240 installed streams:
+                `F8_128_HMAC_SHA1_80` and `NULL_HMAC_SHA1_80` tx/rx
+                tables through 4,096-packet production-mix batches, a
+                tampered and a replayed row, and an SRTCP round trip of
+                1,100 rows (kernels K and L, the F8 instances of I and J,
+                the NULL instances of C, D, I and J); an
+                `AES_CM_128_HMAC_SHA1_80` table whose 1,024 kdr = 2**4
+                streams cross a key epoch mid-batch (epoch waves); and a
+                depth-2 pipeline of the dispatch-only seams, with a key
+                install while a protect is pending.  The card's wire is
+                held byte for byte against CPU tables restored from the
+                card tables' snapshots, and the pipeline against the
+                sync calls.
 
 Beside them, `sass` gives each kernel's instruction count, registers,
 spills and static shared memory, the INT32-pipe and load counts of the
@@ -142,6 +155,12 @@ SFU_RR_TICKS = (12, 37)     # one RR a sender every 25 ticks
 SFU_NACK_TICK = 30          # 10 receivers NACK 3 seqs each
 SFU_FEEDBACK = 10           # emit_feedback every 10 ticks
 SFU_CPU_TICKS = (0, 1, 2, 27, 28, 29, SFU_NACK_TICK)
+# the srtp_profiles path: batches a profile, kdr streams and their rate,
+# SRTCP rows, and the async pipeline's batches
+PROFILE_BATCHES = 4
+KDR_STREAMS, KDR = 1024, 2 ** 4
+PROFILE_RTCP = SFU_N
+ASYNC_BATCHES = 4
 SOURCES = {
     "aes_encrypt": ("libjitsi_tpu_torch/csrc/aes_encrypt.cu",
                     "libjitsi_tpu/kernels/aes_bitsliced.py:548"),
@@ -163,14 +182,37 @@ SOURCES = {
                          "libjitsi_tpu/transform/srtp/kernel.py:164"),
     "srtcp_unprotect_cm": ("libjitsi_tpu_torch/csrc/srtcp_cm.cu",
                            "libjitsi_tpu/transform/srtp/kernel.py:193"),
+    # AES-F8 (K7: the F8 keystream fused into each kernel) and the NULL
+    # cipher's instances
+    "srtp_protect_f8": ("libjitsi_tpu_torch/csrc/srtp_f8.cu",
+                        "libjitsi_tpu/kernels/aes.py:351"),
+    "srtp_unprotect_f8": ("libjitsi_tpu_torch/csrc/srtp_f8.cu",
+                          "libjitsi_tpu/kernels/aes.py:351"),
+    "srtcp_protect_f8": ("libjitsi_tpu_torch/csrc/srtcp_cm.cu",
+                         "libjitsi_tpu/kernels/aes.py:430"),
+    "srtcp_unprotect_f8": ("libjitsi_tpu_torch/csrc/srtcp_cm.cu",
+                           "libjitsi_tpu/kernels/aes.py:430"),
+    "srtp_protect_null": ("libjitsi_tpu_torch/csrc/srtp_cm.cu",
+                          "libjitsi_tpu/transform/srtp/kernel.py:59"),
+    "srtp_unprotect_null": ("libjitsi_tpu_torch/csrc/srtp_cm.cu",
+                            "libjitsi_tpu/transform/srtp/kernel.py:113"),
+    "srtcp_protect_null": ("libjitsi_tpu_torch/csrc/srtcp_cm.cu",
+                           "libjitsi_tpu/transform/srtp/kernel.py:164"),
+    "srtcp_unprotect_null": ("libjitsi_tpu_torch/csrc/srtcp_cm.cu",
+                             "libjitsi_tpu/transform/srtp/kernel.py:193"),
 }
+PROFILE_KERNELS = ("srtp_protect_f8", "srtp_unprotect_f8", "srtcp_protect_f8",
+                   "srtcp_unprotect_f8", "srtp_protect_null",
+                   "srtp_unprotect_null", "srtcp_protect_null",
+                   "srtcp_unprotect_null")
 # the kernels each path must launch
 PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
          "conference": ("srtp_protect_cm", "srtp_unprotect_cm", "mix_minus",
                         "g711_encode", "g711_decode"),
          "mixer_bridge": ("mix_minus",),
          "sfu": ("srtp_unprotect_cm", "srtp_fanout_cm", "srtcp_protect_cm",
-                 "srtcp_unprotect_cm")}
+                 "srtcp_unprotect_cm"),
+         "srtp_profiles": PROFILE_KERNELS}
 
 
 # kernels beside KERNELS whose SASS and ptxas reports are read: the AES
@@ -213,11 +255,12 @@ def main() -> int:
 
     known_answers(torch, dev)
     sass_counts(kbuild)
-    floor_ms, b_chain_ms = latency_floor(torch, dev, kbuild)
+    floor_ms, b_chain_ms, chain = latency_floor(torch, dev, kbuild)
     rows = kernels_vs_plain(torch, dev, kbuild, floor_ms, b_chain_ms)
     rows.update(mix_kernel(torch, dev, floor_ms))
     rows.update(g711_kernels(torch, dev, floor_ms))
     rows.update(sfu_kernels(torch, dev, floor_ms))
+    rows.update(profile_kernels(torch, dev, floor_ms, chain))
 
     counts = {}
 
@@ -247,11 +290,15 @@ def main() -> int:
     sfu_in = _sfu_setup(torch, dev)
     sfu = path("sfu", sfu_run, torch, dev, sfu_in)
     sfu_check(torch, dev, sfu)
+    profiles = path("srtp_profiles", srtp_profiles_run, torch, dev)
+    srtp_profiles_check(torch, dev, profiles, table)
     per_unit = {"srtp_echo": ("launches_per_table_batch",
                               table["launches_per_batch"]),
                 "conference": ("launches_per_conference_tick",
                                conf["launches_per_tick"]),
-                "sfu": ("launches_per_sfu_tick", sfu["launches_per_tick"])}
+                "sfu": ("launches_per_sfu_tick", sfu["launches_per_tick"]),
+                "srtp_profiles": ("launches_per_profile_batch",
+                                  profiles["launches_per_batch"])}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
@@ -538,7 +585,8 @@ def sass_counts(kbuild) -> None:
         for nr in (10, 14):
             require(f"{k} nr={nr}" in ptxas, f"no ptxas report for {k} "
                                              f"nr={nr}: {sorted(ptxas)}")
-    for k in ("srtp_fanout_cm", "srtcp_protect_cm", "srtcp_unprotect_cm"):
+    for k in ("srtp_fanout_cm", "srtcp_protect_cm", "srtcp_unprotect_cm",
+              *PROFILE_KERNELS):
         for nr in (10, 14):
             require(f"{k} nr={nr}" in ptxas, f"no ptxas report for {k} "
                                              f"nr={nr}: {sorted(ptxas)}")
@@ -569,7 +617,8 @@ def sass_counts(kbuild) -> None:
                 f"kernel G (law {law}) uses shared memory: {ptxas[k]}, "
                 f"{shared.get(k)}")
     crypto = ("aes_encrypt", "srtp_protect_cm", "srtp_unprotect_cm",
-              "srtp_fanout_cm", "srtcp_protect_cm", "srtcp_unprotect_cm")
+              "srtp_fanout_cm", "srtcp_protect_cm", "srtcp_unprotect_cm",
+              *PROFILE_KERNELS)
     static_smem = {f"{k} nr={nr}": ptxas.get(f"{k} nr={nr}", {}).get(
         "static_smem_bytes", 0) for k in crypto for nr in (10, 14)}
     for nr in (10, 14):
@@ -692,7 +741,9 @@ def latency_floor(torch, dev, kbuild) -> tuple:
     another on its lane; and the cycles one row's whole HMAC takes on a
     lane of a tile kernel's hashing warp (`hmac_row`: message words from
     shared memory, padding, the outer block) at the longest rows of the
-    main paths.  Returns the launch floor in ms."""
+    main paths.  Returns the launch floor in ms, kernel B's chain floor
+    in ms, and the AES pair cycles with the clock they were read at
+    (the F8 kernels' chain floors)."""
     from libjitsi_tpu_torch.kernels.aes import aes_encrypt_np, expand_key
 
     lib, n = kbuild.library(), 2000
@@ -784,7 +835,7 @@ def latency_floor(torch, dev, kbuild) -> tuple:
          aes_pair_cycles=aes_pair, sm_clock_mhz=mhz,
          hash_chain_floor=floors, hmac_row=hmac_cycles,
          hmac_sha1_chain_floor_ms=b_chain_ms)
-    return floor_ms, b_chain_ms
+    return floor_ms, b_chain_ms, dict(aes_pair_cycles=aes_pair, mhz=mhz)
 
 
 # ------------------------------------------------- 3. kernels vs plain
@@ -1057,17 +1108,19 @@ def table_path(torch, dev) -> dict:
     _, ok = rx.unprotect_rtp(sent[-1][1])
     require(not ok.any(), "a replayed batch was accepted")
     pps = [BATCH / (a + b) for a, b in zip(prot_s, unprot_s)]
+    host_ms = dict(protect_ms_p50=float(np.median(prot_s)) * 1e3,
+                   protect_ms_p99=float(np.percentile(prot_s, 99)) * 1e3,
+                   unprotect_ms_p50=float(np.median(unprot_s)) * 1e3,
+                   unprotect_ms_p99=float(np.percentile(unprot_s, 99))
+                   * 1e3)
     emit("table_path", streams=N_STREAMS, batches=len(prot_s), batch=BATCH,
-         install_s=install_s,
-         protect_ms_p50=float(np.median(prot_s)) * 1e3,
-         protect_ms_p99=float(np.percentile(prot_s, 99)) * 1e3,
-         unprotect_ms_p50=float(np.median(unprot_s)) * 1e3,
-         unprotect_ms_p99=float(np.percentile(unprot_s, 99)) * 1e3,
+         install_s=install_s, **host_ms,
          roundtrip_pps_p50=float(np.median(pps)),
          launches_per_batch=per_batch,
          tampered_rows=int(len(bad)), tampered_rejected=True,
          replay_rejected=BATCH)
-    return {"mks": mks, "mss": mss, "launches_per_batch": per_batch}
+    return {"mks": mks, "mss": mss, "launches_per_batch": per_batch,
+            **host_ms}
 
 
 def srtp_echo(torch, dev) -> dict:
@@ -2258,6 +2311,428 @@ def _sfu_profile(torch, bridge, setup, client) -> dict:
         spans.get(k, 0.0) for k in top)
     return out
 
+
+
+# ------------------------------------------- 11. the rest of the SRTP table
+
+def _profile_line(name, shape, times, nbytes, ops, floor_ms, chain_ms=None):
+    b_ms, b_by = bound(nbytes, ops)
+    line = dict(name=name, shape=shape, max_abs_err=0, **times,
+                bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms,
+                library_ms=None, library="none", bytes=nbytes, ops=ops)
+    if chain_ms is not None:
+        line["chain_floor_ms"] = chain_ms
+    return line
+
+
+def profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
+    """K and L (AES-F8) and the NULL instances of C and D against their
+    plain versions at the three launches the table makes for one 4,096-
+    packet production-mix batch (the parts `bucket_by_size` gives), and
+    the F8 and NULL instances of I and J at the path's SRTCP launch
+    (1,100 compound packets of 60-200 bytes in 1,504-byte rows).  Each
+    line has its bound; the F8 lines also `chain_floor_ms`: per launch,
+    the launch floor plus the longest row's dependent AES pair steps
+    (its keystream blocks and IV') at `latency_floor`'s AES-128
+    `aes_pair_cycles` and clock.  The `kernels` line takes the SRTP
+    kernels' sums over the batch's three launches.  No PyTorch call
+    computes SRTP, so none has a library time."""
+    from libjitsi_tpu_torch.core.packet import bucket_by_size
+    from libjitsi_tpu_torch.kernels import aes
+    from libjitsi_tpu_torch.transform.srtp import kernel as sk
+
+    rng = np.random.default_rng(31)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+
+    rk_np, mid_np = _key_tables(rng, N_STREAMS)
+    tab_rk, tab_mid = t(rk_np), t(mid_np)
+    tab_f8 = t(aes.expand_keys_batch(rng.integers(0, 256, (N_STREAMS, 16),
+                                                  np.uint8)))
+    pair_ms = chain["aes_pair_cycles"]["aes128"] / (chain["mhz"] * 1e3)
+    mix = _mix_batch(rng, rng.permutation(N_STREAMS)[:BATCH], 1000, 0)
+    parts = bucket_by_size(mix)
+    rows = {}
+    for cipher in ("f8", "null"):
+        f8 = tab_f8 if cipher == "f8" else None
+        keys_per = 11 * 16 * (2 if cipher == "f8" else 0) + 40
+        acc = {}
+        labels = []
+        for _rows, part, n_real in parts:
+            n, width = part.data.shape
+            length = part.length.astype(np.int64)
+            label = f"{n}x{width} ({n_real} real rows)"
+            labels.append(label)
+            args = [tab_rk, tab_mid, t(part.stream.astype(np.int32)),
+                    t(part.data), t(part.length.astype(np.int32)),
+                    torch.full((n,), HDR, dtype=torch.int32, device=dev),
+                    t(rng.integers(0, 256, (n, 16), np.uint8)),
+                    t(rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32))]
+            kp = sk.srtp_protect(*args, TAG, cipher, f8)
+            require(max_abs_err(torch, kp, sk.srtp_protect_plain(
+                *args, TAG, cipher, f8)) == 0,
+                f"srtp_protect_{cipher} {label} differs from its plain "
+                f"version")
+            uargs = args[:3] + [kp[0], kp[1]] + args[5:]
+            ku = sk.srtp_unprotect(*uargs, TAG, cipher, f8)
+            require(bool(ku[2].all()), f"srtp_unprotect_{cipher} rejected "
+                                       f"genuine rows ({label})")
+            require(max_abs_err(torch, ku, sk.srtp_unprotect_plain(
+                *uargs, TAG, cipher, f8)) == 0,
+                f"srtp_unprotect_{cipher} {label} differs from its plain "
+                f"version")
+            ks_blocks = (length - HDR + 15) // 16
+            mac_blocks = int(((length + 4 + 9 + 63) // 64).sum()) + n
+            ops = mac_blocks * SHA1_BLOCK_OPS
+            if cipher == "f8":
+                ops += (int(ks_blocks.sum()) + n) * aes_block_ops(10) \
+                    + int(ks_blocks.sum()) * CTR_XOR_OPS
+            nbytes = (2 * n * width + n * (5 * 4 + 16)
+                      + len(np.unique(part.stream)) * keys_per)
+            chain_ms = (floor_ms + (int(ks_blocks.max()) + 1) * pair_ms
+                        if cipher == "f8" else None)
+            for direction, fn, plain in (
+                    ("protect", lambda: sk.srtp_protect(*args, TAG, cipher,
+                                                        f8),
+                     lambda: sk.srtp_protect_plain(*args, TAG, cipher, f8)),
+                    ("unprotect", lambda: sk.srtp_unprotect(*uargs, TAG,
+                                                            cipher, f8),
+                     lambda: sk.srtp_unprotect_plain(*uargs, TAG, cipher,
+                                                     f8))):
+                name = f"srtp_{direction}_{cipher}"
+                line = _profile_line(
+                    name, label + " (table path)",
+                    _crypto_times(torch, fn, name + "_kernel", plain),
+                    nbytes, ops, floor_ms, chain_ms)
+                emit("kernel_vs_plain", **line)
+                a = acc.setdefault(name, dict(ms=0.0, call_ms=0.0,
+                                              plain_ms=0.0, bytes=0, ops=0,
+                                              chain_floor_ms=0.0))
+                for k in ("ms", "call_ms", "plain_ms", "bytes", "ops"):
+                    a[k] += line[k]
+                a["chain_floor_ms"] += chain_ms or 0.0
+        for name, a in acc.items():
+            times = {k: a[k] for k in ("ms", "call_ms", "plain_ms")}
+            rows[name] = _profile_line(
+                name, f"one {BATCH}-packet production-mix batch as the "
+                      f"table buckets it, {len(labels)} launches: "
+                      + " + ".join(labels), times, a["bytes"], a["ops"],
+                floor_ms, a["chain_floor_ms"] if cipher == "f8" else None)
+        # SRTCP at the path's launch: 1,100 compound packets in 1,504-byte
+        # rows, E set under F8 and clear under NULL
+        n, width = PROFILE_RTCP, 1504
+        lens = rng.integers(60, 201, n).astype(np.int32)
+        e = 0 if cipher == "null" else 1 << 31
+        pa = [tab_rk, tab_mid,
+              t(rng.permutation(N_STREAMS)[:n].astype(np.int32)),
+              t(rng.integers(0, 256, (n, width), np.uint8)), t(lens),
+              t(rng.integers(0, 256, (n, 16), np.uint8)),
+              t((rng.integers(0, 2 ** 31, n) | e).astype(np.uint32)
+                .view(np.int32))]
+        wire, wlen = sk.srtcp_protect(*pa, TAG, cipher, f8)
+        require(max_abs_err(torch, (wire, wlen), sk.srtcp_protect_plain(
+            *pa, TAG, cipher, f8)) == 0,
+            f"srtcp_protect_{cipher} differs from its plain version")
+        ua = pa[:3] + [wire, wlen, pa[5]]
+        got = sk.srtcp_unprotect(*ua, TAG, cipher, f8)
+        require(bool(got[2].all()), f"srtcp_unprotect_{cipher} rejected "
+                                    f"genuine rows")
+        require(max_abs_err(torch, got, sk.srtcp_unprotect_plain(
+            *ua, TAG, cipher, f8)) == 0,
+            f"srtcp_unprotect_{cipher} differs from its plain version")
+        ks_blocks = (lens.astype(np.int64) - 8 + 15) // 16
+        mac_blocks = int(((lens + 4 + 9 + 63) // 64 + 1).sum())
+        ops = mac_blocks * SHA1_BLOCK_OPS
+        if cipher == "f8":
+            ops += (int(ks_blocks.sum()) + n) * aes_block_ops(10) \
+                + int(ks_blocks.sum()) * CTR_XOR_OPS
+        nbytes = 2 * n * width + n * (4 + 16 + 4 + 4) + n * keys_per
+        chain_ms = (floor_ms + (int(ks_blocks.max()) + 1) * pair_ms
+                    if cipher == "f8" else None)
+        for direction, fn, plain in (
+                ("protect", lambda: sk.srtcp_protect(*pa, TAG, cipher, f8),
+                 lambda: sk.srtcp_protect_plain(*pa, TAG, cipher, f8)),
+                ("unprotect", lambda: sk.srtcp_unprotect(*ua, TAG, cipher,
+                                                         f8),
+                 lambda: sk.srtcp_unprotect_plain(*ua, TAG, cipher, f8))):
+            name = f"srtcp_{direction}_{cipher}"
+            rows[name] = _profile_line(
+                name, f"{n}x{width} RTCP 60-200 bytes (the path's SRTCP "
+                      f"launch)",
+                _crypto_times(torch, fn, name + "_kernel", plain), nbytes,
+                ops, floor_ms, chain_ms)
+            emit("kernel_vs_plain", **rows[name])
+    return rows
+
+
+def _rtcp_batch(rng, streams):
+    """Compound-RTCP-sized packets of 60-200 bytes (an SR header, sender
+    SSRC 0x10000 + stream, then random report bytes), one a stream."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+
+    pkts = []
+    for sid in streams:
+        n = int(rng.integers(60, 201)) // 4 * 4
+        pkts.append(bytes([0x80, 200, 0, n // 4 - 1])
+                    + (0x10000 + int(sid)).to_bytes(4, "big")
+                    + rng.integers(0, 256, n - 8, np.uint8).tobytes())
+    return PacketBatch.from_payloads(pkts, stream=streams.tolist())
+
+
+def _with_replay(wire, earlier, row: int, tamper: int):
+    """`wire` with row `tamper` changed and row `row` of `earlier` (a
+    packet already accepted) appended: the rows that must fail."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+
+    cap = max(wire.capacity, earlier.capacity)
+    data = np.zeros((wire.batch_size + 1, cap), np.uint8)
+    data[:-1, :wire.capacity] = wire.data
+    data[-1, :earlier.capacity] = earlier.data[row]
+    data[tamper, HDR + 1] ^= 0x5A
+    return PacketBatch(data, np.append(wire.length, earlier.length[row])
+                       .astype(np.int32),
+                       np.append(wire.stream, earlier.stream[row])
+                       .astype(np.int32))
+
+
+def _kdr_batch(rng, k: int):
+    """A 4,096-packet mix batch in which each of the KDR_STREAMS kdr
+    streams sends two packets whose indices straddle an epoch boundary
+    (15 + 16k and 16 + 16k) and 2,048 other streams one each."""
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+
+    others = KDR_STREAMS + rng.permutation(N_STREAMS - KDR_STREAMS)[
+        :BATCH - 2 * KDR_STREAMS]
+    streams = np.concatenate([np.arange(KDR_STREAMS)] * 2 + [others])
+    seqs = np.concatenate([np.full(KDR_STREAMS, KDR - 1 + KDR * k),
+                           np.full(KDR_STREAMS, KDR + KDR * k),
+                           np.full(len(others), 1000 + k)])
+    lens = production_lengths(rng, len(streams))
+    payloads = [rng.integers(0, 256, int(n), np.uint8).tobytes()
+                for n in lens]
+    return rtp_header.build(payloads, seqs.tolist(), [k * 960] * len(seqs),
+                            (0x10000 + streams).tolist(),
+                            [96] * len(seqs), stream=streams.tolist())
+
+
+def srtp_profiles_run(torch, dev) -> dict:
+    """The srtp_profiles path on the card.  For F8_128_HMAC_SHA1_80 and
+    NULL_HMAC_SHA1_80: tx and rx tables of 10,240 streams, PROFILE_BATCHES
+    production-mix batches protected and unprotected (every row ok, its
+    bytes back), a tampered row and a replayed one rejected, an SRTCP
+    round trip of 1,100 rows.  Then an AES_CM_128_HMAC_SHA1_80 pair whose
+    first 1,024 streams have kdr = 2**4, through batches that cross an
+    epoch mid-batch; then, on the same tables, a depth-2 pipeline of
+    `protect_rtp_async` / `unprotect_rtp_async` over the other streams
+    (batch n + 1 dispatched before batch n's result), with a key install
+    while a protect is pending.  Snapshots taken before each part let
+    `srtp_profiles_check` replay it elsewhere."""
+    from libjitsi_tpu_torch.core.rtp_math import chain_packet_indices
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    rng = np.random.default_rng(41)
+    sids = np.arange(N_STREAMS)
+    mks = rng.integers(0, 256, (N_STREAMS, 16), np.uint8)
+    mss = rng.integers(0, 256, (N_STREAMS, 14), np.uint8)
+    out = {"profiles": {}}
+    per_batch = dict.fromkeys(PROFILE_KERNELS, 0)
+    for profile in (SrtpProfile.F8_128_HMAC_SHA1_80,
+                    SrtpProfile.NULL_HMAC_SHA1_80):
+        tx = SrtpStreamTable(N_STREAMS, profile, device=dev)
+        rx = SrtpStreamTable(N_STREAMS, profile, device=dev)
+        tx.add_streams(sids, mks, mss)
+        rx.add_streams(sids, mks, mss)
+        run = dict(snap=(tx.snapshot(), rx.snapshot()), batches=[],
+                   wires=[], prot_s=[], unprot_s=[])
+        before = dict(kbuild.launches)
+        for k in range(PROFILE_BATCHES):
+            batch = _mix_batch(rng, rng.permutation(N_STREAMS)[:BATCH],
+                               1000 + k, k * 960)
+            t1 = time.perf_counter()
+            wire = tx.protect_rtp(batch)
+            t2 = time.perf_counter()
+            dec, ok = rx.unprotect_rtp(wire)
+            t3 = time.perf_counter()
+            require(ok.all(), f"{profile.value} batch {k}: "
+                              f"{int((~ok).sum())} genuine rows failed")
+            require(dec.to_payloads() == batch.to_payloads(),
+                    f"{profile.value} batch {k}: decrypted bytes differ")
+            run["batches"].append(batch)
+            run["wires"].append(wire)
+            run["prot_s"].append(t2 - t1)
+            run["unprot_s"].append(t3 - t2)
+        for name in PROFILE_KERNELS:
+            per_batch[name] += (kbuild.launches[name] - before[name]) \
+                / PROFILE_BATCHES
+        # a tampered row and a replayed one among a fresh batch's
+        batch = _mix_batch(rng, rng.permutation(N_STREAMS)[:BATCH], 2000,
+                           99 * 960)
+        wire = tx.protect_rtp(batch)
+        bad = _with_replay(wire, run["wires"][0], 3, 7)
+        _, ok = rx.unprotect_rtp(bad)
+        want = np.ones(BATCH + 1, bool)
+        want[[7, BATCH]] = False
+        require(np.array_equal(ok, want), f"{profile.value}: the tampered "
+                "and the replayed row are not exactly the rejected ones")
+        run["bad"] = (batch, wire, bad, ok)
+        rtcp = _rtcp_batch(rng, rng.permutation(N_STREAMS)[:PROFILE_RTCP])
+        wire_c = tx.protect_rtcp(rtcp)
+        dec_c, ok_c = rx.unprotect_rtcp(wire_c)
+        require(ok_c.all() and dec_c.to_payloads() == rtcp.to_payloads(),
+                f"{profile.value}: the SRTCP round trip failed")
+        run["rtcp"] = (rtcp, wire_c)
+        out["profiles"][profile.value] = run
+    # kdr: 1,024 streams re-keyed every 16 packets, crossing mid-batch
+    kdr = np.zeros(N_STREAMS, np.int64)
+    kdr[:KDR_STREAMS] = KDR
+    ktx = SrtpStreamTable(N_STREAMS, device=dev)
+    krx = SrtpStreamTable(N_STREAMS, device=dev)
+    ktx.add_streams(sids, mks, mss, kdr=kdr)
+    krx.add_streams(sids, mks, mss, kdr=kdr)
+    kd = dict(snap=(ktx.snapshot(), krx.snapshot()), batches=[], wires=[],
+              waves=[], prot_s=[], unprot_s=[])
+    for k in range(2):
+        batch = _kdr_batch(rng, k)
+        stream = np.asarray(batch.stream, np.int64)
+        waves, _ = ktx._epoch_plan(stream, chain_packet_indices(
+            stream, rtp_header.parse(batch).seq, ktx.tx_ext), rtcp=False)
+        t1 = time.perf_counter()
+        wire = ktx.protect_rtp(batch)
+        t2 = time.perf_counter()
+        dec, ok = krx.unprotect_rtp(wire)
+        t3 = time.perf_counter()
+        require(waves is not None and len(waves) > 1,
+                "the kdr batch did not cross an epoch")
+        require(ok.all() and dec.to_payloads() == batch.to_payloads(),
+                f"kdr batch {k}: genuine rows failed or differ")
+        kd["batches"].append(batch)
+        kd["wires"].append(wire)
+        kd["waves"].append(len(waves))
+        kd["prot_s"].append(t2 - t1)
+        kd["unprot_s"].append(t3 - t2)
+    require(np.all(ktx._epoch_rtp[:KDR_STREAMS] == 2)
+            and np.all(krx._epoch_rtp[:KDR_STREAMS] == 2),
+            "the kdr streams are not in epoch 2")
+    out["kdr"] = kd
+    # async at depth 2 over the kdr = 0 streams (kdr batches take the sync
+    # path), a key install while a protect is pending
+    pool = KDR_STREAMS + rng.permutation(N_STREAMS - KDR_STREAMS)
+    installed = int(pool[0])           # carried by batch 1 alone
+    batches = []
+    for k in range(ASYNC_BATCHES):
+        streams = rng.permutation(pool[1:])[:BATCH]
+        if k == 1:
+            streams[0] = installed
+        batches.append(_mix_batch(rng, streams, 3000 + k, k * 960))
+    asy = dict(snap=(ktx.snapshot(), krx.snapshot()), batches=batches,
+               installed=installed)
+    wires, results, pend_rx = [], [], []
+    pend_tx = ktx.protect_rtp_async(batches[0])
+    for k in range(1, ASYNC_BATCHES + 1):
+        nxt = (ktx.protect_rtp_async(batches[k]) if k < ASYNC_BATCHES
+               else None)
+        if k == 2:
+            # batch 1 is pending (its result not taken): a new key for a
+            # stream it carries
+            ktx.add_stream(installed, bytes(16), bytes(14))
+        wire = pend_tx.result()
+        wires.append(wire)
+        pend_rx.append(krx.unprotect_rtp_async(wire))
+        if len(pend_rx) == 2:
+            results.append(pend_rx.pop(0).result())
+        pend_tx = nxt
+    krx.commit_inflight()
+    results.append(pend_rx.pop(0).result())
+    for k, (dec, ok) in enumerate(results):
+        require(ok.all() and dec.to_payloads() == batches[k].to_payloads(),
+                f"async batch {k}: genuine rows failed or differ")
+    asy.update(wires=wires, results=results,
+               state={f: getattr(krx, f).copy() for f in (
+                   "rx_max", "rx_mask", "auth_fail", "replay_reject")})
+    out["async"] = asy
+    out["launches_per_batch"] = per_batch
+    return out
+
+
+def srtp_profiles_check(torch, dev, run, table) -> None:
+    """The srtp_profiles path held elsewhere: F8, NULL and kdr tables on
+    the CPU, restored from the card tables' snapshots, give the card's
+    wire bytes and verdicts on the same batches (SRTCP too); the async
+    pipeline's wire, bytes and final rx state equal the sync calls of
+    card tables restored from the snapshot taken before it.  Emits each
+    profile's batch protect and unprotect p50/p99 (host clock) beside
+    the CM table's from `table_path`."""
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    t0 = time.perf_counter()
+    lines = {}
+    for name, prof in run["profiles"].items():
+        tx, rx = (SrtpStreamTable.restore(s, "cpu") for s in prof["snap"])
+        for k, (batch, wire) in enumerate(zip(prof["batches"],
+                                              prof["wires"])):
+            cpu_wire = tx.protect_rtp(batch)
+            require(np.array_equal(cpu_wire.data, wire.data)
+                    and np.array_equal(cpu_wire.length, wire.length),
+                    f"{name} batch {k}: the card's wire differs from the "
+                    f"CPU table's")
+            rx.unprotect_rtp(cpu_wire)
+        batch, wire, bad, ok = prof["bad"]
+        require(np.array_equal(tx.protect_rtp(batch).data, wire.data),
+                f"{name}: the card's wire differs from the CPU table's")
+        _, cpu_ok = rx.unprotect_rtp(bad)
+        require(np.array_equal(cpu_ok, ok), f"{name}: tampered/replayed "
+                                            f"verdicts differ on the CPU")
+        rtcp, wire_c = prof["rtcp"]
+        cpu_c = tx.protect_rtcp(rtcp)
+        require(np.array_equal(cpu_c.data, wire_c.data),
+                f"{name}: the card's SRTCP wire differs from the CPU's")
+        _, ok_c = rx.unprotect_rtcp(cpu_c)
+        require(ok_c.all(), f"{name}: SRTCP failed on the CPU")
+        lines[name] = {f"{d}_ms_{q}": float(np.percentile(
+            prof[f"{'prot' if d == 'protect' else 'unprot'}_s"], pct)) * 1e3
+            for d in ("protect", "unprotect")
+            for q, pct in (("p50", 50), ("p99", 99))}
+    kd = run["kdr"]
+    tx, rx = (SrtpStreamTable.restore(s, "cpu") for s in kd["snap"])
+    for k, (batch, wire) in enumerate(zip(kd["batches"], kd["wires"])):
+        cpu_wire = tx.protect_rtp(batch)
+        require(np.array_equal(cpu_wire.data, wire.data),
+                f"kdr batch {k}: the card's wire differs from the CPU's")
+        _, ok = rx.unprotect_rtp(cpu_wire)
+        require(ok.all(), f"kdr batch {k}: failed on the CPU")
+    asy = run["async"]
+    stx, srx = (SrtpStreamTable.restore(s, dev) for s in asy["snap"])
+    for k, batch in enumerate(asy["batches"]):
+        wire = stx.protect_rtp(batch)
+        require(wire.to_payloads() == asy["wires"][k].to_payloads(),
+                f"async batch {k}: the pipeline's wire differs from the "
+                f"sync call's")
+        dec, ok = srx.unprotect_rtp(wire)
+        a_dec, a_ok = asy["results"][k]
+        require(np.array_equal(ok, a_ok) and np.array_equal(dec.data,
+                                                            a_dec.data),
+                f"async batch {k}: the pipeline's verdicts differ")
+    for f, v in asy["state"].items():
+        require(np.array_equal(getattr(srx, f), v),
+                f"async: {f} differs from the sync calls'")
+    cm = {k: table[k] for k in ("protect_ms_p50", "protect_ms_p99",
+                                "unprotect_ms_p50", "unprotect_ms_p99")}
+    emit("srtp_profiles", streams=N_STREAMS, batch=BATCH,
+         batches_per_profile=PROFILE_BATCHES, host_ms=lines,
+         cm_table_path_ms=cm, kdr_streams=KDR_STREAMS, kdr=KDR,
+         kdr_waves=kd["waves"],
+         kdr_protect_ms=[x * 1e3 for x in kd["prot_s"]],
+         kdr_unprotect_ms=[x * 1e3 for x in kd["unprot_s"]],
+         async_batches=ASYNC_BATCHES, async_depth=2,
+         async_key_install_stream=asy["installed"],
+         srtcp_rows=PROFILE_RTCP, tampered_and_replayed_rejected=True,
+         equal_to_cpu=True, async_equal_to_sync=True,
+         launches_per_batch=run["launches_per_batch"],
+         cpu_check_s=time.perf_counter() - t0)
 
 if __name__ == "__main__":
     sys.exit(main())

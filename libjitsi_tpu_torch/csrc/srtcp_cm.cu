@@ -40,6 +40,15 @@
 // The first form of I (one warp a row, lane 0 hashing while 31 waited,
 // the AES tables rebuilt every 4 rows) read 60x its bound.
 //
+// Instances (a template parameter, each its own kernel name): AES-CM (I,
+// J); AES-F8 (`srtcp_protect_f8`, `srtcp_unprotect_f8`: the keystream of
+// `f8_tile`, two rows a thread, under each row's k_e and k_e XOR m
+// schedules; the host builds the RFC 3711 §4.1.2.4 IV and sets E); NULL
+// (`srtcp_protect_null`, `srtcp_unprotect_null`: the keystream stage
+// compiled out, no round keys loaded; the host's word carries E = 0, and
+// unprotect passes every row through undecrypted, as the JAX kernels with
+// encrypt=False do).
+//
 // Semantics (held byte for byte against `srtcp_protect_plain` /
 // `srtcp_unprotect_plain` in transform/srtp/kernel.py): lengths are
 // clamped to [0, width] and stream ids into the table; bytes written at or
@@ -116,26 +125,39 @@ struct SrtcpProtectRows {
   }
 };
 
-template <int NR>
-__global__ void __launch_bounds__(kThreads) srtcp_protect_cm_kernel(
-    const uint8_t* __restrict__ tab_rk, const uint32_t* __restrict__ tab_mid,
-    const int32_t* __restrict__ stream, int n_streams,
-    const uint8_t* __restrict__ data, const int32_t* __restrict__ length,
-    const uint8_t* __restrict__ iv, const uint32_t* __restrict__ index_word,
-    uint8_t* __restrict__ out, int32_t* __restrict__ out_len, int n,
-    int width, int tag_len, int tile_rows) {
+// I's body, one instance a cipher: AES-CM (kernel I), AES-F8 (its
+// keystream the F8 chains of `f8_tile`, two rows a thread) or NULL (no
+// keystream stage: the word carries E = 0 and only the tag is written).
+#define LJT_SRTCP_PROTECT_PARAMS                                             \
+  const uint8_t *__restrict__ tab_rk, const uint32_t *__restrict__ tab_mid,  \
+      const int32_t *__restrict__ stream, int n_streams,                     \
+      const uint8_t *__restrict__ data, const int32_t *__restrict__ length,  \
+      const uint8_t *__restrict__ iv,                                        \
+      const uint32_t *__restrict__ index_word, uint8_t *__restrict__ out,    \
+      int32_t *__restrict__ out_len, int n, int width, int tag_len,          \
+      int tile_rows
+#define LJT_SRTCP_PROTECT_ARGS                                               \
+  tab_rk, tab_mid, stream, n_streams, data, length, iv, index_word, out,     \
+      out_len, n, width, tag_len, tile_rows
+
+template <int NR, Cipher C>
+__device__ __forceinline__ void srtcp_protect_tile(
+    LJT_SRTCP_PROTECT_PARAMS, const uint8_t* __restrict__ tab_f8) {
   extern __shared__ uint4 smem[];
   const Tile t = carve(reinterpret_cast<uint32_t*>(smem), tile_rows, n, width,
-                       NR, kInPlace);
+                       NR, kInPlace, schedules_of(C));
   const SrtcpProtectRows::Regs g = load_tile<NR>(
       t, tab_rk,
-      SrtcpProtectRows{stream, n_streams, data, length, iv, index_word,
-                       tab_mid, width},
+      cipher_rows<C>(SrtcpProtectRows{stream, n_streams, data, length, iv,
+                                      index_word, tab_mid, width},
+                     tab_f8),
       width);
   __syncthreads();
-  // all four warps: the keystream over [8, len), in place
-  ctr_tile<NR>(t, t.buf, threadIdx.x, blockDim.x);
-  __syncthreads();
+  if constexpr (C != kNull) {
+    // all four warps: the keystream over [8, len), in place
+    keystream_tile<NR, C>(t, t.buf, threadIdx.x, blockDim.x);
+    __syncthreads();
+  }
   if (int(threadIdx.x) < t.rows) {
     // warp 0: row r on lane r: the MAC over [0, len) || word, then the
     // word at len and the tag after it
@@ -150,6 +172,25 @@ __global__ void __launch_bounds__(kThreads) srtcp_protect_cm_kernel(
   }
   __syncthreads();
   store_rows(t.buf, out + size_t(t.base) * width, t.rows, width, t.stride);
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+    srtcp_protect_cm_kernel(LJT_SRTCP_PROTECT_PARAMS) {
+  srtcp_protect_tile<NR, kCm>(LJT_SRTCP_PROTECT_ARGS, nullptr);
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+    srtcp_protect_f8_kernel(LJT_SRTCP_PROTECT_PARAMS,
+                            const uint8_t* __restrict__ tab_f8) {
+  srtcp_protect_tile<NR, kF8>(LJT_SRTCP_PROTECT_ARGS, tab_f8);
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+    srtcp_protect_null_kernel(LJT_SRTCP_PROTECT_PARAMS) {
+  srtcp_protect_tile<NR, kNull>(LJT_SRTCP_PROTECT_ARGS, nullptr);
 }
 
 // J's rows: staged from the tile's first row on, keys by stream id, one
@@ -208,25 +249,37 @@ struct SrtcpRows {
   }
 };
 
-template <int NR>
-__global__ void __launch_bounds__(kThreads) srtcp_unprotect_cm_kernel(
-    const uint8_t* __restrict__ tab_rk, const uint32_t* __restrict__ tab_mid,
-    const int32_t* __restrict__ stream, int n_streams,
-    const uint8_t* __restrict__ data, const int32_t* __restrict__ length,
-    const uint8_t* __restrict__ iv, uint8_t* __restrict__ out,
-    int32_t* __restrict__ out_mlen, uint8_t* __restrict__ auth_ok,
-    int32_t* __restrict__ e_bit, int32_t* __restrict__ index, int n,
-    int width, int tag_len, int tile_rows) {
+// J's body, one instance a cipher: AES-CM (kernel J), AES-F8 (the E = 1
+// rows decrypted by `f8_tile`'s chains) or NULL (no keystream stage:
+// every row passes through undecrypted, whatever its E bit, as the
+// reference's unprotect with encryption off does).
+#define LJT_SRTCP_UNPROTECT_PARAMS                                           \
+  const uint8_t *__restrict__ tab_rk, const uint32_t *__restrict__ tab_mid,  \
+      const int32_t *__restrict__ stream, int n_streams,                     \
+      const uint8_t *__restrict__ data, const int32_t *__restrict__ length,  \
+      const uint8_t *__restrict__ iv, uint8_t *__restrict__ out,             \
+      int32_t *__restrict__ out_mlen, uint8_t *__restrict__ auth_ok,         \
+      int32_t *__restrict__ e_bit, int32_t *__restrict__ index, int n,       \
+      int width, int tag_len, int tile_rows
+#define LJT_SRTCP_UNPROTECT_ARGS                                             \
+  tab_rk, tab_mid, stream, n_streams, data, length, iv, out, out_mlen,       \
+      auth_ok, e_bit, index, n, width, tag_len, tile_rows
+
+template <int NR, Cipher C>
+__device__ __forceinline__ void srtcp_unprotect_tile(
+    LJT_SRTCP_UNPROTECT_PARAMS, const uint8_t* __restrict__ tab_f8) {
   extern __shared__ uint4 smem[];
   const Tile t = carve(reinterpret_cast<uint32_t*>(smem), tile_rows, n, width,
-                       NR, kSecondCopy);
+                       NR, C == kNull ? kInPlace : kSecondCopy,
+                       schedules_of(C));
   const SrtcpRows rows{stream, n_streams, data, length, iv, tab_mid, width,
                        tag_len};
-  const SrtcpRows::Regs g = load_tile<NR>(t, tab_rk, rows, width);
+  const SrtcpRows::Regs g =
+      load_tile<NR>(t, tab_rk, cipher_rows<C>(rows, tab_f8), width);
   __syncthreads();
   if (threadIdx.x >= 32) {
     // warps 1-3: decrypt the E = 1 rows' [8, mlen) into the output copy
-    ctr_tile<NR>(t, t.out, threadIdx.x - 32, blockDim.x - 32);
+    keystream_tile<NR, C>(t, t.out, threadIdx.x - 32, blockDim.x - 32);
   } else if (int(threadIdx.x) < t.rows) {
     // warp 0: MAC over ciphertext[:mlen] || word, then every tag byte
     const int r = threadIdx.x;
@@ -250,7 +303,132 @@ __global__ void __launch_bounds__(kThreads) srtcp_unprotect_cm_kernel(
     index[row] = int32_t(g.word & 0x7FFFFFFFu);
   }
   __syncthreads();
-  store_rows(t.out, out + size_t(t.base) * width, t.rows, width, t.stride);
+  store_rows(C == kNull ? t.buf : t.out, out + size_t(t.base) * width, t.rows,
+             width, t.stride);
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+    srtcp_unprotect_cm_kernel(LJT_SRTCP_UNPROTECT_PARAMS) {
+  srtcp_unprotect_tile<NR, kCm>(LJT_SRTCP_UNPROTECT_ARGS, nullptr);
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+    srtcp_unprotect_f8_kernel(LJT_SRTCP_UNPROTECT_PARAMS,
+                              const uint8_t* __restrict__ tab_f8) {
+  srtcp_unprotect_tile<NR, kF8>(LJT_SRTCP_UNPROTECT_ARGS, tab_f8);
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+    srtcp_unprotect_null_kernel(LJT_SRTCP_UNPROTECT_PARAMS) {
+  srtcp_unprotect_tile<NR, kNull>(LJT_SRTCP_UNPROTECT_ARGS, nullptr);
+}
+
+// I's and J's instance for a cipher and a key length.
+template <Cipher C>
+auto protect_kernel(int nr) {
+  if constexpr (C == kCm)
+    return nr == 10 ? srtcp_protect_cm_kernel<10> : srtcp_protect_cm_kernel<14>;
+  else if constexpr (C == kF8)
+    return nr == 10 ? srtcp_protect_f8_kernel<10> : srtcp_protect_f8_kernel<14>;
+  else
+    return nr == 10 ? srtcp_protect_null_kernel<10>
+                    : srtcp_protect_null_kernel<14>;
+}
+
+template <Cipher C>
+auto unprotect_kernel(int nr) {
+  if constexpr (C == kCm)
+    return nr == 10 ? srtcp_unprotect_cm_kernel<10>
+                    : srtcp_unprotect_cm_kernel<14>;
+  else if constexpr (C == kF8)
+    return nr == 10 ? srtcp_unprotect_f8_kernel<10>
+                    : srtcp_unprotect_f8_kernel<14>;
+  else
+    return nr == 10 ? srtcp_unprotect_null_kernel<10>
+                    : srtcp_unprotect_null_kernel<14>;
+}
+
+// The launches of I and J and of their F8 and NULL instances; `tab_f8`,
+// the F8 instances' second key table, is unused by the others.
+template <Cipher C>
+int launch_protect(const void* tab_rk, const void* tab_mid,
+                   const void* tab_f8, const void* stream, int n_streams,
+                   const void* data, const void* length, const void* iv,
+                   const void* index_word, void* out, void* out_len, int n,
+                   int width, int nr, int tag_len, void* cuda_stream) {
+  if (n <= 0) return 0;
+  if ((nr != 10 && nr != 14) || n_streams <= 0 ||
+      (C == kF8 && tab_f8 == nullptr))
+    return int(cudaErrorInvalidValue);
+  static std::atomic<unsigned> done[2];
+  auto kernel = protect_kernel<C>(nr);
+  Plan p;
+  const int rc = plan(kernel, done[nr == 14], n, width, nr, kInPlace,
+                      kCtasPerSmSfu, &p, schedules_of(C));
+  if (rc) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const auto* rk = static_cast<const uint8_t*>(tab_rk);
+  const auto* mid = static_cast<const uint32_t*>(tab_mid);
+  const auto* sid = static_cast<const int32_t*>(stream);
+  const auto* d = static_cast<const uint8_t*>(data);
+  const auto* ln = static_cast<const int32_t*>(length);
+  const auto* ivp = static_cast<const uint8_t*>(iv);
+  const auto* word = static_cast<const uint32_t*>(index_word);
+  auto* o = static_cast<uint8_t*>(out);
+  auto* olen = static_cast<int32_t*>(out_len);
+  if constexpr (C == kF8)
+    kernel<<<p.grid, kThreads, p.smem, s>>>(
+        rk, mid, sid, n_streams, d, ln, ivp, word, o, olen, n, width, tag_len,
+        p.rows, static_cast<const uint8_t*>(tab_f8));
+  else
+    kernel<<<p.grid, kThreads, p.smem, s>>>(rk, mid, sid, n_streams, d, ln,
+                                            ivp, word, o, olen, n, width,
+                                            tag_len, p.rows);
+  return int(cudaGetLastError());
+}
+
+template <Cipher C>
+int launch_unprotect(const void* tab_rk, const void* tab_mid,
+                     const void* tab_f8, const void* stream, int n_streams,
+                     const void* data, const void* length, const void* iv,
+                     void* out, void* out_mlen, void* auth_ok, void* e_bit,
+                     void* index, int n, int width, int nr, int tag_len,
+                     void* cuda_stream) {
+  if (n <= 0) return 0;
+  if ((nr != 10 && nr != 14) || n_streams <= 0 ||
+      (C == kF8 && tab_f8 == nullptr))
+    return int(cudaErrorInvalidValue);
+  static std::atomic<unsigned> done[2];
+  auto kernel = unprotect_kernel<C>(nr);
+  Plan p;
+  const int rc = plan(kernel, done[nr == 14], n, width, nr,
+                      C == kNull ? kInPlace : kSecondCopy, kCtasPerSmSfu, &p,
+                      schedules_of(C));
+  if (rc) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const auto* rk = static_cast<const uint8_t*>(tab_rk);
+  const auto* mid = static_cast<const uint32_t*>(tab_mid);
+  const auto* sid = static_cast<const int32_t*>(stream);
+  const auto* d = static_cast<const uint8_t*>(data);
+  const auto* ln = static_cast<const int32_t*>(length);
+  const auto* ivp = static_cast<const uint8_t*>(iv);
+  auto* o = static_cast<uint8_t*>(out);
+  auto* ml = static_cast<int32_t*>(out_mlen);
+  auto* ok = static_cast<uint8_t*>(auth_ok);
+  auto* eb = static_cast<int32_t*>(e_bit);
+  auto* ix = static_cast<int32_t*>(index);
+  if constexpr (C == kF8)
+    kernel<<<p.grid, kThreads, p.smem, s>>>(
+        rk, mid, sid, n_streams, d, ln, ivp, o, ml, ok, eb, ix, n, width,
+        tag_len, p.rows, static_cast<const uint8_t*>(tab_f8));
+  else
+    kernel<<<p.grid, kThreads, p.smem, s>>>(rk, mid, sid, n_streams, d, ln,
+                                            ivp, o, ml, ok, eb, ix, n, width,
+                                            tag_len, p.rows);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -262,26 +440,33 @@ extern "C" int ljt_srtcp_protect_cm(const void* tab_rk, const void* tab_mid,
                                     void* out, void* out_len, int n,
                                     int width, int nr, int tag_len,
                                     void* cuda_stream) {
-  if (n <= 0) return 0;
-  if ((nr != 10 && nr != 14) || n_streams <= 0)
-    return int(cudaErrorInvalidValue);
-  static std::atomic<unsigned> done[2];
-  auto kernel = nr == 10 ? srtcp_protect_cm_kernel<10>
-                         : srtcp_protect_cm_kernel<14>;
-  Plan p;
-  const int rc = plan(kernel, done[nr == 14], n, width, nr, kInPlace,
-                      kCtasPerSmSfu, &p);
-  if (rc) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
-  kernel<<<p.grid, kThreads, p.smem, s>>>(
-      static_cast<const uint8_t*>(tab_rk),
-      static_cast<const uint32_t*>(tab_mid),
-      static_cast<const int32_t*>(stream), n_streams,
-      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(length),
-      static_cast<const uint8_t*>(iv),
-      static_cast<const uint32_t*>(index_word), static_cast<uint8_t*>(out),
-      static_cast<int32_t*>(out_len), n, width, tag_len, p.rows);
-  return int(cudaGetLastError());
+  return launch_protect<kCm>(tab_rk, tab_mid, nullptr, stream, n_streams,
+                             data, length, iv, index_word, out, out_len, n,
+                             width, nr, tag_len, cuda_stream);
+}
+
+extern "C" int ljt_srtcp_protect_f8(const void* tab_rk, const void* tab_f8,
+                                    const void* tab_mid, const void* stream,
+                                    int n_streams, const void* data,
+                                    const void* length, const void* iv,
+                                    const void* index_word, void* out,
+                                    void* out_len, int n, int width, int nr,
+                                    int tag_len, void* cuda_stream) {
+  return launch_protect<kF8>(tab_rk, tab_mid, tab_f8, stream, n_streams,
+                             data, length, iv, index_word, out, out_len, n,
+                             width, nr, tag_len, cuda_stream);
+}
+
+extern "C" int ljt_srtcp_protect_null(const void* tab_rk, const void* tab_mid,
+                                      const void* stream, int n_streams,
+                                      const void* data, const void* length,
+                                      const void* iv, const void* index_word,
+                                      void* out, void* out_len, int n,
+                                      int width, int nr, int tag_len,
+                                      void* cuda_stream) {
+  return launch_protect<kNull>(tab_rk, tab_mid, nullptr, stream, n_streams,
+                               data, length, iv, index_word, out, out_len, n,
+                               width, nr, tag_len, cuda_stream);
 }
 
 extern "C" int ljt_srtcp_unprotect_cm(const void* tab_rk, const void* tab_mid,
@@ -292,25 +477,30 @@ extern "C" int ljt_srtcp_unprotect_cm(const void* tab_rk, const void* tab_mid,
                                       void* e_bit, void* index, int n,
                                       int width, int nr, int tag_len,
                                       void* cuda_stream) {
-  if (n <= 0) return 0;
-  if ((nr != 10 && nr != 14) || n_streams <= 0)
-    return int(cudaErrorInvalidValue);
-  static std::atomic<unsigned> done[2];
-  auto kernel = nr == 10 ? srtcp_unprotect_cm_kernel<10>
-                         : srtcp_unprotect_cm_kernel<14>;
-  Plan p;
-  const int rc = plan(kernel, done[nr == 14], n, width, nr, kSecondCopy,
-                      kCtasPerSmSfu, &p);
-  if (rc) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
-  kernel<<<p.grid, kThreads, p.smem, s>>>(
-      static_cast<const uint8_t*>(tab_rk),
-      static_cast<const uint32_t*>(tab_mid),
-      static_cast<const int32_t*>(stream), n_streams,
-      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(length),
-      static_cast<const uint8_t*>(iv), static_cast<uint8_t*>(out),
-      static_cast<int32_t*>(out_mlen), static_cast<uint8_t*>(auth_ok),
-      static_cast<int32_t*>(e_bit), static_cast<int32_t*>(index), n, width,
-      tag_len, p.rows);
-  return int(cudaGetLastError());
+  return launch_unprotect<kCm>(tab_rk, tab_mid, nullptr, stream, n_streams,
+                               data, length, iv, out, out_mlen, auth_ok,
+                               e_bit, index, n, width, nr, tag_len,
+                               cuda_stream);
+}
+
+extern "C" int ljt_srtcp_unprotect_f8(
+    const void* tab_rk, const void* tab_f8, const void* tab_mid,
+    const void* stream, int n_streams, const void* data, const void* length,
+    const void* iv, void* out, void* out_mlen, void* auth_ok, void* e_bit,
+    void* index, int n, int width, int nr, int tag_len, void* cuda_stream) {
+  return launch_unprotect<kF8>(tab_rk, tab_mid, tab_f8, stream, n_streams,
+                               data, length, iv, out, out_mlen, auth_ok,
+                               e_bit, index, n, width, nr, tag_len,
+                               cuda_stream);
+}
+
+extern "C" int ljt_srtcp_unprotect_null(
+    const void* tab_rk, const void* tab_mid, const void* stream,
+    int n_streams, const void* data, const void* length, const void* iv,
+    void* out, void* out_mlen, void* auth_ok, void* e_bit, void* index, int n,
+    int width, int nr, int tag_len, void* cuda_stream) {
+  return launch_unprotect<kNull>(tab_rk, tab_mid, nullptr, stream, n_streams,
+                                 data, length, iv, out, out_mlen, auth_ok,
+                                 e_bit, index, n, width, nr, tag_len,
+                                 cuda_stream);
 }

@@ -40,6 +40,12 @@
 // Rows wider than a 32-row tile can hold get fewer rows per tile (at
 // least 3 at the wrappers' 32,768-byte limit).
 //
+// The NULL cipher (NULL_HMAC_SHA1_80; JAX `srtp_protect` /
+// `srtp_unprotect` with encrypt=False) runs as the NULL instances of C
+// and D (`srtp_protect_null`, `srtp_unprotect_null`): the same bodies
+// with the keystream stage compiled out, no round keys loaded, the row
+// staged once and hashed on warp 0.
+//
 // Semantics (held byte for byte against the plain PyTorch versions in
 // transform/srtp/kernel.py): lengths are clamped to [0, width]; message
 // bytes at or past the width read as 0 and tag bytes past it are
@@ -59,44 +65,6 @@
 namespace {
 
 using namespace ljt_tile;
-
-// C's and D's rows: staged from the tile's first row on, keys by stream
-// id, one IV a row given, the window from payload_off to the clamped
-// length less `end_less` (0 for protect, the tag for unprotect).
-struct SrtpRows {
-  const int32_t* stream;
-  int n_streams;
-  const uint8_t* data;
-  const int32_t* length;
-  const int32_t* payload_off;
-  const uint8_t* iv;
-  int width, end_less;
-
-  struct Lead {};
-  struct Regs {
-    int len, off;
-    uint4 iv;
-  };
-  __device__ __forceinline__ int key_row(int row) const {
-    return ljt_clamp(stream[row], 0, n_streams - 1);
-  }
-  __device__ __forceinline__ TileRows staged(int base) const {
-    return TileRows{data + size_t(base) * width};
-  }
-  __device__ __forceinline__ Lead lead(int) const { return {}; }
-  __device__ __forceinline__ Regs load(int row, const Lead&) const {
-    Regs g{length[row], payload_off[row], make_uint4(0, 0, 0, 0)};
-    if (aligned(iv, 16)) g.iv = reinterpret_cast<const uint4*>(iv)[row];
-    return g;
-  }
-  __device__ __forceinline__ void window(const Regs& g, int row, int w,
-                                         int& off, int& end,
-                                         uint32_t ivw[4]) const {
-    off = g.off;
-    end = ljt_clamp(g.len, 0, w) - end_less;
-    iv_words(aligned(iv, 16), g.iv, iv + size_t(row) * 16, ivw);
-  }
-};
 
 // Protect's AES-CTR, level by level: keystream block k of every row of
 // the tile, then block k + 1, so the first bytes of every row are ready
@@ -175,26 +143,36 @@ __device__ __forceinline__ void ljt_msg_block(const PipedRowMsg& m, int b,
   ljt_msg_block(m.msg, b, w);
 }
 
-template <int NR>
-__global__ void __launch_bounds__(kThreads) srtp_protect_cm_kernel(
-    const uint8_t* __restrict__ tab_rk, const uint32_t* __restrict__ tab_mid,
-    const int32_t* __restrict__ stream, int n_streams,
-    const uint8_t* __restrict__ data, const int32_t* __restrict__ length,
-    const int32_t* __restrict__ payload_off, const uint8_t* __restrict__ iv,
-    const uint32_t* __restrict__ roc, uint8_t* __restrict__ out,
-    int32_t* __restrict__ out_len, int n, int width, int tag_len,
-    int tile_rows) {
+// C's and D's bodies, one instance a cipher: AES-CM (kernels C and D) or
+// the NULL cipher (RFC 3711 §4.1.3), whose keystream stage is compiled
+// out: its tiles load no round keys, and warp 0 hashes the staged rows
+// as they came while the other warps only stage and store.
+#define LJT_SRTP_PROTECT_PARAMS                                              \
+  const uint8_t *__restrict__ tab_rk, const uint32_t *__restrict__ tab_mid,  \
+      const int32_t *__restrict__ stream, int n_streams,                     \
+      const uint8_t *__restrict__ data, const int32_t *__restrict__ length,  \
+      const int32_t *__restrict__ payload_off,                               \
+      const uint8_t *__restrict__ iv, const uint32_t *__restrict__ roc,      \
+      uint8_t *__restrict__ out, int32_t *__restrict__ out_len, int n,       \
+      int width, int tag_len, int tile_rows
+#define LJT_SRTP_PROTECT_ARGS                                                \
+  tab_rk, tab_mid, stream, n_streams, data, length, payload_off, iv, roc,    \
+      out, out_len, n, width, tag_len, tile_rows
+
+template <int NR, Cipher C>
+__device__ __forceinline__ void srtp_protect_tile(LJT_SRTP_PROTECT_PARAMS) {
   extern __shared__ uint4 smem[];
   const Tile t = carve(reinterpret_cast<uint32_t*>(smem), tile_rows, n, width,
-                       NR, kLevels);
+                       NR, C == kNull ? kInPlace : kLevels, schedules_of(C));
   load_tile<NR>(t, tab_rk,
-                SrtpRows{stream, n_streams, data, length, payload_off, iv,
-                         width, 0},
+                cipher_rows<C>(SrtpRows{stream, n_streams, data, length,
+                                        payload_off, iv, width, 0},
+                               nullptr),
                 width);
   __syncthreads();
   if (threadIdx.x >= 32) {
     // warps 1-3: the keystream, level by level
-    ctr_levels<NR>(t, threadIdx.x - 32, blockDim.x - 32);
+    if constexpr (C == kCm) ctr_levels<NR>(t, threadIdx.x - 32, blockDim.x - 32);
   } else if (int(threadIdx.x) < t.rows) {
     // warp 0: one row a lane, each 64-byte block hashed once its
     // ciphertext is complete
@@ -205,10 +183,14 @@ __global__ void __launch_bounds__(kThreads) srtp_protect_cm_kernel(
     uint32_t mid[10];
     ljt_load_mid(tab_mid, ljt_clamp(stream[row], 0, n_streams - 1), mid);
     const LjtRowMsg msg(t.buf + r * t.stride, len, width, roc[row]);
-    const PipedRowMsg piped{msg, msg.mlen, t.level, t.rows, t.off[r],
-                            t.s[r], t.e[r], t.j0[r], 0};
     uint32_t d[5];
-    ljt_hmac_sha1(mid, piped, d);
+    if constexpr (C == kNull) {
+      ljt_hmac_sha1(mid, msg, d);
+    } else {
+      const PipedRowMsg piped{msg, msg.mlen, t.level, t.rows, t.off[r],
+                              t.s[r], t.e[r], t.j0[r], 0};
+      ljt_hmac_sha1(mid, piped, d);
+    }
     ljt_put_tag(t.buf + r * t.stride, len, width, d, tag_len);
     out_len[row] = len_in + tag_len;
   }
@@ -217,26 +199,47 @@ __global__ void __launch_bounds__(kThreads) srtp_protect_cm_kernel(
 }
 
 template <int NR>
-__global__ void __launch_bounds__(kThreads) srtp_unprotect_cm_kernel(
-    const uint8_t* __restrict__ tab_rk, const uint32_t* __restrict__ tab_mid,
-    const int32_t* __restrict__ stream, int n_streams,
-    const uint8_t* __restrict__ data, const int32_t* __restrict__ length,
-    const int32_t* __restrict__ payload_off, const uint8_t* __restrict__ iv,
-    const uint32_t* __restrict__ roc, uint8_t* __restrict__ out,
-    int32_t* __restrict__ out_mlen, uint8_t* __restrict__ auth_ok, int n,
-    int width, int tag_len, int tile_rows) {
+__global__ void __launch_bounds__(kThreads)
+    srtp_protect_cm_kernel(LJT_SRTP_PROTECT_PARAMS) {
+  srtp_protect_tile<NR, kCm>(LJT_SRTP_PROTECT_ARGS);
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+    srtp_protect_null_kernel(LJT_SRTP_PROTECT_PARAMS) {
+  srtp_protect_tile<NR, kNull>(LJT_SRTP_PROTECT_ARGS);
+}
+
+#define LJT_SRTP_UNPROTECT_PARAMS                                            \
+  const uint8_t *__restrict__ tab_rk, const uint32_t *__restrict__ tab_mid,  \
+      const int32_t *__restrict__ stream, int n_streams,                     \
+      const uint8_t *__restrict__ data, const int32_t *__restrict__ length,  \
+      const int32_t *__restrict__ payload_off,                               \
+      const uint8_t *__restrict__ iv, const uint32_t *__restrict__ roc,      \
+      uint8_t *__restrict__ out, int32_t *__restrict__ out_mlen,             \
+      uint8_t *__restrict__ auth_ok, int n, int width, int tag_len,          \
+      int tile_rows
+#define LJT_SRTP_UNPROTECT_ARGS                                              \
+  tab_rk, tab_mid, stream, n_streams, data, length, payload_off, iv, roc,    \
+      out, out_mlen, auth_ok, n, width, tag_len, tile_rows
+
+template <int NR, Cipher C>
+__device__ __forceinline__ void srtp_unprotect_tile(
+    LJT_SRTP_UNPROTECT_PARAMS) {
   extern __shared__ uint4 smem[];
   const Tile t = carve(reinterpret_cast<uint32_t*>(smem), tile_rows, n, width,
-                       NR, kSecondCopy);
+                       NR, C == kNull ? kInPlace : kSecondCopy,
+                       schedules_of(C));
   load_tile<NR>(t, tab_rk,
-                SrtpRows{stream, n_streams, data, length, payload_off, iv,
-                         width, tag_len},
+                cipher_rows<C>(SrtpRows{stream, n_streams, data, length,
+                                        payload_off, iv, width, tag_len},
+                               nullptr),
                 width);
   __syncthreads();
   if (threadIdx.x >= 32) {
     // warps 1-3: decrypt [payload_off, mlen) into the output copy; the
     // tag bytes past mlen stay
-    ctr_tile<NR>(t, t.out, threadIdx.x - 32, blockDim.x - 32);
+    keystream_tile<NR, C>(t, t.out, threadIdx.x - 32, blockDim.x - 32);
   } else if (int(threadIdx.x) < t.rows) {
     // warp 0: MAC over ciphertext[:mlen] || ROC, then every tag byte
     const int r = threadIdx.x;
@@ -260,26 +263,41 @@ __global__ void __launch_bounds__(kThreads) srtp_unprotect_cm_kernel(
     out_mlen[row] = len_in - tag_len;
   }
   __syncthreads();
-  store_rows(t.out, out + size_t(t.base) * width, t.rows, width, t.stride);
+  store_rows(C == kNull ? t.buf : t.out, out + size_t(t.base) * width, t.rows,
+             width, t.stride);
 }
 
-}  // namespace
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+    srtp_unprotect_cm_kernel(LJT_SRTP_UNPROTECT_PARAMS) {
+  srtp_unprotect_tile<NR, kCm>(LJT_SRTP_UNPROTECT_ARGS);
+}
 
-extern "C" int ljt_srtp_protect_cm(const void* tab_rk, const void* tab_mid,
-                                   const void* stream, int n_streams,
-                                   const void* data, const void* length,
-                                   const void* payload_off, const void* iv,
-                                   const void* roc, void* out, void* out_len,
-                                   int n, int width, int nr, int tag_len,
-                                   void* cuda_stream) {
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+    srtp_unprotect_null_kernel(LJT_SRTP_UNPROTECT_PARAMS) {
+  srtp_unprotect_tile<NR, kNull>(LJT_SRTP_UNPROTECT_ARGS);
+}
+
+// The launches of C, D and their NULL instances (whose tiles carry no key
+// schedule).
+template <Cipher C>
+int launch_protect(const void* tab_rk, const void* tab_mid,
+                   const void* stream, int n_streams, const void* data,
+                   const void* length, const void* payload_off,
+                   const void* iv, const void* roc, void* out, void* out_len,
+                   int n, int width, int nr, int tag_len, void* cuda_stream) {
   if (n <= 0) return 0;
   if (nr != 10 && nr != 14) return int(cudaErrorInvalidValue);
   static std::atomic<unsigned> done[2];
-  auto kernel = nr == 10 ? srtp_protect_cm_kernel<10>
-                         : srtp_protect_cm_kernel<14>;
+  auto kernel = C == kNull ? (nr == 10 ? srtp_protect_null_kernel<10>
+                                       : srtp_protect_null_kernel<14>)
+                           : (nr == 10 ? srtp_protect_cm_kernel<10>
+                                       : srtp_protect_cm_kernel<14>);
   Plan p;
-  const int rc =
-      plan(kernel, done[nr == 14], n, width, nr, kLevels, kCtasPerSm, &p);
+  const int rc = plan(kernel, done[nr == 14], n, width, nr,
+                      C == kNull ? kInPlace : kLevels, kCtasPerSm, &p,
+                      schedules_of(C));
   if (rc) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   kernel<<<p.grid, kThreads, p.smem, s>>>(
@@ -294,22 +312,24 @@ extern "C" int ljt_srtp_protect_cm(const void* tab_rk, const void* tab_mid,
   return int(cudaGetLastError());
 }
 
-extern "C" int ljt_srtp_unprotect_cm(const void* tab_rk, const void* tab_mid,
-                                     const void* stream, int n_streams,
-                                     const void* data, const void* length,
-                                     const void* payload_off, const void* iv,
-                                     const void* roc, void* out,
-                                     void* out_mlen, void* auth_ok, int n,
-                                     int width, int nr, int tag_len,
-                                     void* cuda_stream) {
+template <Cipher C>
+int launch_unprotect(const void* tab_rk, const void* tab_mid,
+                     const void* stream, int n_streams, const void* data,
+                     const void* length, const void* payload_off,
+                     const void* iv, const void* roc, void* out,
+                     void* out_mlen, void* auth_ok, int n, int width, int nr,
+                     int tag_len, void* cuda_stream) {
   if (n <= 0) return 0;
   if (nr != 10 && nr != 14) return int(cudaErrorInvalidValue);
   static std::atomic<unsigned> done[2];
-  auto kernel = nr == 10 ? srtp_unprotect_cm_kernel<10>
-                         : srtp_unprotect_cm_kernel<14>;
+  auto kernel = C == kNull ? (nr == 10 ? srtp_unprotect_null_kernel<10>
+                                       : srtp_unprotect_null_kernel<14>)
+                           : (nr == 10 ? srtp_unprotect_cm_kernel<10>
+                                       : srtp_unprotect_cm_kernel<14>);
   Plan p;
-  const int rc =
-      plan(kernel, done[nr == 14], n, width, nr, kSecondCopy, kCtasPerSm, &p);
+  const int rc = plan(kernel, done[nr == 14], n, width, nr,
+                      C == kNull ? kInPlace : kSecondCopy, kCtasPerSm, &p,
+                      schedules_of(C));
   if (rc) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
   kernel<<<p.grid, kThreads, p.smem, s>>>(
@@ -322,4 +342,54 @@ extern "C" int ljt_srtp_unprotect_cm(const void* tab_rk, const void* tab_mid,
       static_cast<uint8_t*>(out), static_cast<int32_t*>(out_mlen),
       static_cast<uint8_t*>(auth_ok), n, width, tag_len, p.rows);
   return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int ljt_srtp_protect_cm(const void* tab_rk, const void* tab_mid,
+                                   const void* stream, int n_streams,
+                                   const void* data, const void* length,
+                                   const void* payload_off, const void* iv,
+                                   const void* roc, void* out, void* out_len,
+                                   int n, int width, int nr, int tag_len,
+                                   void* cuda_stream) {
+  return launch_protect<kCm>(tab_rk, tab_mid, stream, n_streams, data,
+                               length, payload_off, iv, roc, out, out_len, n,
+                               width, nr, tag_len, cuda_stream);
+}
+
+extern "C" int ljt_srtp_protect_null(const void* tab_rk, const void* tab_mid,
+                                     const void* stream, int n_streams,
+                                     const void* data, const void* length,
+                                     const void* payload_off, const void* iv,
+                                     const void* roc, void* out,
+                                     void* out_len, int n, int width, int nr,
+                                     int tag_len, void* cuda_stream) {
+  return launch_protect<kNull>(tab_rk, tab_mid, stream, n_streams, data,
+                              length, payload_off, iv, roc, out, out_len, n,
+                              width, nr, tag_len, cuda_stream);
+}
+
+extern "C" int ljt_srtp_unprotect_cm(const void* tab_rk, const void* tab_mid,
+                                     const void* stream, int n_streams,
+                                     const void* data, const void* length,
+                                     const void* payload_off, const void* iv,
+                                     const void* roc, void* out,
+                                     void* out_mlen, void* auth_ok, int n,
+                                     int width, int nr, int tag_len,
+                                     void* cuda_stream) {
+  return launch_unprotect<kCm>(tab_rk, tab_mid, stream, n_streams, data,
+                                 length, payload_off, iv, roc, out, out_mlen,
+                                 auth_ok, n, width, nr, tag_len, cuda_stream);
+}
+
+extern "C" int ljt_srtp_unprotect_null(
+    const void* tab_rk, const void* tab_mid, const void* stream,
+    int n_streams, const void* data, const void* length,
+    const void* payload_off, const void* iv, const void* roc, void* out,
+    void* out_mlen, void* auth_ok, int n, int width, int nr, int tag_len,
+    void* cuda_stream) {
+  return launch_unprotect<kNull>(tab_rk, tab_mid, stream, n_streams, data,
+                                length, payload_off, iv, roc, out, out_mlen,
+                                auth_ok, n, width, nr, tag_len, cuda_stream);
 }

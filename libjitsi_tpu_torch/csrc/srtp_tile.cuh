@@ -1,5 +1,6 @@
 // The row-tile form shared by the fused SRTP kernels: C and D
-// (`srtp_cm.cu`), H (`srtp_fanout.cu`), I and J (`srtcp_cm.cu`).
+// (`srtp_cm.cu`), K and L (`srtp_f8.cu`), H (`srtp_fanout.cu`), I and J
+// (`srtcp_cm.cu`), and the F8 and NULL instances of C, D, I and J.
 //
 // One CTA of 128 threads takes a tile of rows, so set-up is paid per tile
 // and each kind of work is lane-dense:
@@ -37,12 +38,20 @@
 // policy (see `load_tile`): the table row of a row's keys, the global
 // bytes of its staged row, the per-row values it loads, and from them
 // the row's payload offset, the end of its keystream window and its IV.
+// A policy may also say how many key schedules a row carries
+// (`kSchedules`): 1 by default (k_e), 2 for AES-F8 (k_e and k_e XOR m,
+// `tab_f8`), 0 for the NULL cipher, whose tiles load no round keys.
+//
+// AES-F8 (RFC 3711 §4.1.2; K, L and the F8 instances of I and J) is
+// sequential over a row's blocks, so `f8_tile` gives a thread two rows
+// and walks both chains in lockstep, one pair of blocks a step.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 #include "aes.cuh"
 #include "sha1.cuh"
@@ -76,16 +85,19 @@ __host__ __device__ constexpr int max_levels(int width) {
 // place and then hashes), or a second copy of each row that the
 // keystream decrypts into while the first is hashed (D, J).
 enum TileKind { kLevels, kInPlace, kSecondCopy };
-// 32-bit words of shared memory for a tile of `rows` rows.
+// 32-bit words of shared memory for a tile of `rows` rows whose rows
+// carry `schedules` key schedules (0, 1 or 2).
 __host__ __device__ constexpr int tile_words(int rows, int width, int nr,
-                                             TileKind kind) {
+                                             TileKind kind,
+                                             int schedules = 1) {
   return (kind == kLevels ? max_levels(width) : 0) +
-         rows * (rk_stride(nr) + 4 + kRowParams +
+         rows * (schedules * rk_stride(nr) + 4 + kRowParams +
                  (kind == kSecondCopy ? 2 : 1) * row_stride(width));
 }
 
 struct Tile {
   uint32_t* rk;     // [rows][rk_stride] sliced round keys, 8 words a round
+  uint32_t* rk2;    // F8: [rows][rk_stride] the k_e XOR m schedules
   uint32_t* iv;     // [rows][4] counter IVs
   int* off;         // payload_off
   int* s;           // window [s, e) inside the row
@@ -101,10 +113,12 @@ struct Tile {
 };
 
 __device__ __forceinline__ Tile carve(uint32_t* smem, int tile_rows, int n,
-                                      int width, int nr, TileKind kind) {
+                                      int width, int nr, TileKind kind,
+                                      int schedules = 1) {
   Tile t;
   t.rk = smem;
-  t.iv = t.rk + tile_rows * rk_stride(nr);
+  t.rk2 = schedules == 2 ? smem + tile_rows * rk_stride(nr) : nullptr;
+  t.iv = t.rk + schedules * tile_rows * rk_stride(nr);
   t.off = reinterpret_cast<int*>(t.iv + tile_rows * 4);
   t.s = t.off + tile_rows;
   t.e = t.s + tile_rows;
@@ -272,10 +286,47 @@ __device__ __forceinline__ void store_rows(const uint32_t* src, uint8_t* g,
 // loads are issued before the first load that waits on a loaded value, so
 // they share its round trip.  Returns thread r's `Regs`, so the hashing
 // lane keeps what it loaded.
+// Key schedules a `Rows` policy's rows carry: its `kSchedules`, else 1.
+template <class Rows, class = void>
+struct Schedules : std::integral_constant<int, 1> {};
+template <class Rows>
+struct Schedules<Rows, std::void_t<decltype(Rows::kSchedules)>>
+    : std::integral_constant<int, Rows::kSchedules> {};
+
+// A row's round keys from the table row `key` (loaded as kv[] where the
+// table is 16-byte aligned) into the core's sliced form at d: this
+// thread's rounds (thread 4k + i takes rounds i, i + 4, ...).
+template <int NR>
+__device__ __forceinline__ void slice_row_keys(uint32_t* d, const uint4* kv,
+                                               const uint8_t* key,
+                                               bool key_vec) {
+#pragma unroll
+  for (int u = 0; u < (NR + 4) / 4; ++u) {
+    const int q = (threadIdx.x & 3) + 4 * u;
+    if (q <= NR) {
+      uint32_t w[4], o[8];
+      if (key_vec) {
+        w[0] = ljt_bswap32(kv[u].x);
+        w[1] = ljt_bswap32(kv[u].y);
+        w[2] = ljt_bswap32(kv[u].z);
+        w[3] = ljt_bswap32(kv[u].w);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          w[k] = ljt_load_be32(key + 16 * q + 4 * k);
+      }
+      ljt_aes_slice_keys(q, w, w, o);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) d[8 * q + k] = o[k];
+    }
+  }
+}
+
 template <int NR, class Rows>
 __device__ __forceinline__ typename Rows::Regs load_tile(
     const Tile& t, const uint8_t* tab_rk, const Rows& src, int width) {
   constexpr int kKeyLoads = (NR + 4) / 4;   // 16-byte key loads a thread
+  constexpr int kSched = Schedules<Rows>::value;
   // four threads gather each row's round keys, 16 bytes a load (thread
   // 4k + i takes rounds i, i + 4, ...), and one thread per row loads its
   // window and IV
@@ -283,17 +334,30 @@ __device__ __forceinline__ typename Rows::Regs load_tile(
   const int r = threadIdx.x;
   const bool key_vec = aligned(tab_rk, 16);
   const uint8_t* key = nullptr;
+  const uint8_t* key2 = nullptr;
+  bool key2_vec = false;
   uint4 kv[kKeyLoads];
+  uint4 kv2[kSched == 2 ? kKeyLoads : 1];
   int sid = 0;
-  if (kr < t.rows) sid = src.key_row(t.base + kr);
+  if (kSched > 0 && kr < t.rows) sid = src.key_row(t.base + kr);
   typename Rows::Lead lead{};
   if (r < t.rows) lead = src.lead(t.base + r);
-  if (kr < t.rows) {
+  if (kSched > 0 && kr < t.rows) {
     key = tab_rk + size_t(sid) * (NR + 1) * 16;
 #pragma unroll
     for (int u = 0; u < kKeyLoads; ++u) {
       const int q = (threadIdx.x & 3) + 4 * u;
       if (key_vec && q <= NR) kv[u] = reinterpret_cast<const uint4*>(key)[q];
+    }
+    if constexpr (kSched == 2) {
+      key2 = src.tab_f8 + size_t(sid) * (NR + 1) * 16;
+      key2_vec = aligned(src.tab_f8, 16);
+#pragma unroll
+      for (int u = 0; u < kKeyLoads; ++u) {
+        const int q = (threadIdx.x & 3) + 4 * u;
+        if (key2_vec && q <= NR)
+          kv2[u] = reinterpret_cast<const uint4*>(key2)[q];
+      }
     }
   }
   typename Rows::Regs regs{};
@@ -302,28 +366,10 @@ __device__ __forceinline__ typename Rows::Regs load_tile(
   if (t.level)
     for (int i = threadIdx.x; i < max_levels(width); i += blockDim.x)
       t.level[i] = 0;
-  if (kr < t.rows) {
-    uint32_t* d = t.rk + kr * rk_stride(NR);
-#pragma unroll
-    for (int u = 0; u < kKeyLoads; ++u) {
-      const int q = (threadIdx.x & 3) + 4 * u;
-      if (q <= NR) {
-        uint32_t w[4], o[8];
-        if (key_vec) {
-          w[0] = ljt_bswap32(kv[u].x);
-          w[1] = ljt_bswap32(kv[u].y);
-          w[2] = ljt_bswap32(kv[u].z);
-          w[3] = ljt_bswap32(kv[u].w);
-        } else {
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            w[k] = ljt_load_be32(key + 16 * q + 4 * k);
-        }
-        ljt_aes_slice_keys(q, w, w, o);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) d[8 * q + k] = o[k];
-      }
-    }
+  if (kSched > 0 && kr < t.rows) {
+    slice_row_keys<NR>(t.rk + kr * rk_stride(NR), kv, key, key_vec);
+    if constexpr (kSched == 2)
+      slice_row_keys<NR>(t.rk2 + kr * rk_stride(NR), kv2, key2, key2_vec);
   }
   if (r < t.rows) {
     int off, end;
@@ -355,6 +401,81 @@ __device__ __forceinline__ void iv_words(bool vec, const uint4& v,
 #pragma unroll
     for (int k = 0; k < 4; ++k) iv[k] = ljt_load_be32(p + 4 * k);
   }
+}
+
+// The rows of the SRTP kernels C, D, K and L and their NULL instances:
+// staged from the tile's first row on, keys by stream id, one IV a row
+// given, the window from payload_off to the clamped length less
+// `end_less` (0 for protect, the tag for unprotect).
+struct SrtpRows {
+  const int32_t* stream;
+  int n_streams;
+  const uint8_t* data;
+  const int32_t* length;
+  const int32_t* payload_off;
+  const uint8_t* iv;
+  int width, end_less;
+
+  struct Lead {};
+  struct Regs {
+    int len, off;
+    uint4 iv;
+  };
+  __device__ __forceinline__ int key_row(int row) const {
+    return ljt_clamp(stream[row], 0, n_streams - 1);
+  }
+  __device__ __forceinline__ TileRows staged(int base) const {
+    return TileRows{data + size_t(base) * width};
+  }
+  __device__ __forceinline__ Lead lead(int) const { return {}; }
+  __device__ __forceinline__ Regs load(int row, const Lead&) const {
+    Regs g{length[row], payload_off[row], make_uint4(0, 0, 0, 0)};
+    if (aligned(iv, 16)) g.iv = reinterpret_cast<const uint4*>(iv)[row];
+    return g;
+  }
+  __device__ __forceinline__ void window(const Regs& g, int row, int w,
+                                         int& off, int& end,
+                                         uint32_t ivw[4]) const {
+    off = g.off;
+    end = ljt_clamp(g.len, 0, w) - end_less;
+    iv_words(aligned(iv, 16), g.iv, iv + size_t(row) * 16, ivw);
+  }
+};
+
+// The cipher of a kernel instance: AES-CM (C, D, H, I, J), AES-F8 (K, L
+// and the F8 instances of I and J) or NULL (the NULL instances of C, D, I
+// and J, which authenticate only).
+enum Cipher { kCm, kF8, kNull };
+
+__host__ __device__ constexpr int schedules_of(Cipher c) {
+  return c == kF8 ? 2 : (c == kNull ? 0 : 1);
+}
+
+// A policy's rows carrying a second schedule, k_e XOR m from `tab_f8`
+// (AES-F8), or none (NULL).
+template <class Base>
+struct F8Rows : Base {
+  static constexpr int kSchedules = 2;
+  const uint8_t* tab_f8;
+};
+template <class Base>
+struct NullRows : Base {
+  static constexpr int kSchedules = 0;
+};
+
+template <Cipher C, class Base>
+using CipherRows = std::conditional_t<
+    C == kF8, F8Rows<Base>, std::conditional_t<C == kNull, NullRows<Base>, Base>>;
+
+template <Cipher C, class Base>
+__device__ __forceinline__ CipherRows<C, Base> cipher_rows(
+    const Base& base, const uint8_t* tab_f8) {
+  if constexpr (C == kF8)
+    return F8Rows<Base>{base, tab_f8};
+  else if constexpr (C == kNull)
+    return NullRows<Base>{base};
+  else
+    return base;
 }
 
 // XOR keystream block c (4 big-endian words) into row bytes
@@ -422,6 +543,82 @@ __device__ __forceinline__ void ctr_tile(const Tile& t, uint32_t* rows,
   }
 }
 
+// AES-F8 (RFC 3711 §4.1.2) over the tile's rows: thread `first` of
+// `count` takes rows 2i and 2i + 1 (i = first, first + count, ...) and
+// walks both rows' keystream chains in lockstep, one pair of blocks a
+// step, each block under its own row's keys.  Step 0 is IV' = E(k_e XOR m,
+// IV) under the rows' second schedules; then S(j) = E(k_e, IV' ^ j ^
+// S(j - 1)), S(-1) = 0, with j XORed big-endian into bytes 12-15 only
+// (word 3), and each S(j) XORed into its row's window as it comes.  A row
+// with fewer blocks stops contributing while the other goes on; a tile of
+// odd rows gives its last thread one row (the second slot encrypts row
+// 2i again and is dropped).  Rows are XORed in `rows`.
+template <int NR>
+__device__ __forceinline__ void f8_tile(const Tile& t, uint32_t* rows,
+                                        int first, int count) {
+  for (int ra = 2 * first; ra < t.rows; ra += 2 * count) {
+    const bool two = ra + 1 < t.rows;
+    const int rb = two ? ra + 1 : ra;
+    // blocks each chain needs: every block up to the window's last
+    const int na = t.j0[ra] + t.cnt[ra];
+    const int nb = two ? t.j0[rb] + t.cnt[rb] : 0;
+    const int steps = na > nb ? na : nb;
+    if (steps == 0) continue;
+    uint32_t a[4], b[4], s[8], ia[4], ib[4], pa[4], pb[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      a[k] = t.iv[4 * ra + k];
+      b[k] = t.iv[4 * rb + k];
+    }
+    ljt_aes_encrypt_pair<NR>(LjtSlicedKeys{t.rk2 + ra * rk_stride(NR),
+                                           t.rk2 + rb * rk_stride(NR)},
+                             a, b, s);
+    // ia, ib: IV'; pa, pb: S(j - 1)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      ia[k] = a[k];
+      ib[k] = b[k];
+      pa[k] = 0;
+      pb[k] = 0;
+    }
+    const LjtSlicedKeys ke{t.rk + ra * rk_stride(NR),
+                           t.rk + rb * rk_stride(NR)};
+    for (int j = 0; j < steps; ++j) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        a[k] = ia[k] ^ pa[k];
+        b[k] = ib[k] ^ pb[k];
+      }
+      a[3] ^= uint32_t(j);
+      b[3] ^= uint32_t(j);
+      ljt_aes_encrypt_pair<NR>(ke, a, b, s);
+      if (j < na)
+        xor_block(rows + ra * t.stride, t.off[ra] + 16 * j, t.s[ra], t.e[ra],
+                  a);
+      if (j < nb)
+        xor_block(rows + rb * t.stride, t.off[rb] + 16 * j, t.s[rb], t.e[rb],
+                  b);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        pa[k] = a[k];
+        pb[k] = b[k];
+      }
+    }
+  }
+}
+
+// The keystream stage of a tile under cipher C, XORed into `rows`:
+// AES-CTR over (row, block) entries, AES-F8 chains two rows a thread,
+// nothing for NULL.
+template <int NR, Cipher C>
+__device__ __forceinline__ void keystream_tile(const Tile& t, uint32_t* rows,
+                                               int first, int count) {
+  if constexpr (C == kCm)
+    ctr_tile<NR>(t, rows, first, count);
+  else if constexpr (C == kF8)
+    f8_tile<NR>(t, rows, first, count);
+}
+
 // ---------------------------------------------------------------- launch
 
 // Streaming multiprocessors of the current device (0 if unknown).
@@ -443,9 +640,9 @@ inline int multiprocessors() {
 // the whole card instead of a quarter of it), at most a full tile, and
 // no more than fit the SM's shared memory (0: the width cannot run).
 inline int tile_rows_for(int n, int width, int nr, TileKind kind,
-                         int per_sm) {
-  const int fixed = tile_words(0, width, nr, kind);
-  const int per_row = tile_words(1, width, nr, kind) - fixed;
+                         int per_sm, int schedules = 1) {
+  const int fixed = tile_words(0, width, nr, kind, schedules);
+  const int per_row = tile_words(1, width, nr, kind, schedules) - fixed;
   const int fit = (kMaxSmemBytes / 4 - fixed) / per_row;
   const int ctas = per_sm * multiprocessors();
   int rows = ctas > 0 ? (n + ctas - 1) / ctas : kTileRows;
@@ -458,17 +655,18 @@ struct Plan {
   int rows, smem, grid;
 };
 
-// Plan the launch of `kernel` over n rows of `width` bytes, `per_sm`
-// tiles an SM, and allow it the dynamic shared memory above the 48 KB
+// Plan the launch of `kernel` over n rows of `width` bytes whose rows
+// carry `schedules` key schedules, `per_sm` tiles an SM, and allow it the dynamic shared memory above the 48 KB
 // default where it needs it, once per device (`done` holds one bit per
 // device).  Returns a CUDA error code, cudaErrorInvalidValue for a width
 // no tile holds.
 template <class Kernel>
 int plan(Kernel kernel, std::atomic<unsigned>& done, int n, int width, int nr,
-         TileKind kind, int per_sm, Plan* p) {
-  p->rows = width > 0 ? tile_rows_for(n, width, nr, kind, per_sm) : 0;
+         TileKind kind, int per_sm, Plan* p, int schedules = 1) {
+  p->rows =
+      width > 0 ? tile_rows_for(n, width, nr, kind, per_sm, schedules) : 0;
   if (p->rows < 1) return int(cudaErrorInvalidValue);
-  p->smem = 4 * tile_words(p->rows, width, nr, kind);
+  p->smem = 4 * tile_words(p->rows, width, nr, kind, schedules);
   p->grid = (n + p->rows - 1) / p->rows;
   if (p->smem <= 48 * 1024) return 0;
   int dev = 0;

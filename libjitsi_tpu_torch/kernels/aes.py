@@ -6,12 +6,15 @@ Counterpart: `libjitsi_tpu/kernels/aes.py`.
   `expand_keys_batch`, `aes_encrypt_np` and `ctr_keystream_np` — the
   cold paths (key schedules, RFC 3711 key derivation) that never touch
   the device.
-- Plain PyTorch versions: `aes_encrypt_plain`, `ctr_keystream` and
-  `ctr_crypt`.  They compute exactly what the JAX functions
-  `aes_encrypt_table`, `ctr_keystream`, `ctr_crypt_uniform` and
-  `ctr_crypt_offset` compute (one per-row-offset form covers both
-  crypt variants), on any device; the CPU tests and the card's
-  comparisons use them.
+- Plain PyTorch versions: `aes_encrypt_plain`, `ctr_keystream`,
+  `ctr_crypt`, `f8_keystream_plain` and `f8_crypt_plain`.  They compute
+  exactly what the JAX functions `aes_encrypt_table`, `ctr_keystream`,
+  `ctr_crypt_uniform`/`_offset`, `f8_keystream` and
+  `f8_crypt_uniform`/`_offset` compute (one per-row-offset form covers
+  both crypt variants of each mode), on any device; the CPU tests and
+  the card's comparisons use them.  The F8 keystream has no wrapper of
+  its own: it runs fused inside kernels K, L and the F8 instances of I
+  and J (`csrc/srtp_tile.cuh` `f8_tile`).
 - `aes_encrypt`: the wrapper of kernel A (`csrc/aes_encrypt.cu`), which
   replaces the Pallas TPU kernel `aes_encrypt_pallas_bitsliced`.  On a
   CUDA tensor it launches the kernel; on a CPU tensor it runs
@@ -240,13 +243,66 @@ def ctr_crypt(round_keys: torch.Tensor, iv: torch.Tensor,
     package's `ctr_crypt_uniform` (every row at one offset) and
     `ctr_crypt_offset`.  -> [B, W] uint8.
     """
-    bsz, width = data.shape
+    nblocks = (data.shape[1] + 15) // 16
+    return _xor_window(data, ctr_keystream(round_keys, iv, nblocks), offset,
+                       length)
+
+
+def f8_m(session_key: bytes, session_salt: bytes) -> bytes:
+    """RFC 3711 §4.1.2.2: m = k_s || 0x55.. padded to the key length."""
+    return session_salt + b"\x55" * (len(session_key) - len(session_salt))
+
+
+def f8_keystream_plain(round_keys: torch.Tensor, f8_round_keys: torch.Tensor,
+                       iv: torch.Tensor, nblocks: int) -> torch.Tensor:
+    """AES-F8 keystream (RFC 3711 §4.1.2): [B, R, 16] schedules of k_e
+    and of k_e XOR m, [B, 16] IVs -> [B, nblocks*16].
+
+    IV' = E(k_e XOR m, IV), then S(j) = E(k_e, IV' XOR j XOR S(j-1)) with
+    S(-1) = 0 and j a 32-bit big-endian counter XORed into bytes 12-15
+    only: sequential over a row's blocks, parallel over rows.
+    """
+    ivp = aes_encrypt_plain(f8_round_keys, iv)
+    bsz = iv.shape[0]
+    shifts = torch.tensor([24, 16, 8, 0], device=iv.device)
+    s = torch.zeros_like(ivp)
+    out = []
+    for j in range(nblocks):
+        blk = ivp ^ s
+        jb = ((torch.tensor(j, device=iv.device) >> shifts) & 0xFF).to(
+            torch.uint8)
+        blk = torch.cat([blk[:, :12], blk[:, 12:] ^ jb[None, :]], dim=1)
+        s = aes_encrypt_plain(round_keys, blk)
+        out.append(s)
+    if not out:
+        return torch.zeros((bsz, 0), dtype=torch.uint8, device=iv.device)
+    return torch.stack(out, dim=1).reshape(bsz, nblocks * 16)
+
+
+def f8_crypt_plain(round_keys: torch.Tensor, f8_round_keys: torch.Tensor,
+                   iv: torch.Tensor, data: torch.Tensor, offset: torch.Tensor,
+                   length: torch.Tensor) -> torch.Tensor:
+    """XOR an AES-F8 keystream into each row's [offset, offset+length),
+    keystream byte k at column offset + k; bytes outside pass through.
+    Encrypt == decrypt.  Covers both of the JAX package's
+    `f8_crypt_uniform` and `f8_crypt_offset` (the uniform form's shorter
+    keystream is a prefix of the same one).  -> [B, W] uint8.
+    """
+    width = data.shape[1]
     nblocks = (width + 15) // 16
-    ks = ctr_keystream(round_keys, iv, nblocks)
-    col = torch.arange(width, device=data.device)[None, :]
+    ks = f8_keystream_plain(round_keys, f8_round_keys, iv, nblocks)
+    return _xor_window(data, ks, offset, length)
+
+
+def _xor_window(data, ks, offset, length):
+    """Column j of row i's window [offset, offset + length) takes
+    keystream byte j - offset of ks [B, n]; the rest passes through."""
+    if ks.shape[1] == 0:
+        return data
+    col = torch.arange(data.shape[1], device=data.device)[None, :]
     off = offset.long()[:, None]
     ln = length.long()[:, None]
-    rel = (col - off).clamp(0, nblocks * 16 - 1)
+    rel = (col - off).clamp(0, ks.shape[1] - 1)
     inside = (col >= off) & (col < off + ln)
     return torch.where(inside, data ^ ks.gather(1, rel), data)
 
@@ -273,7 +329,7 @@ def aes_encrypt(round_keys: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     if blocks.data_ptr() % 16 or round_keys.data_ptr() % 16:
         raise ValueError("blocks and round_keys must be 16-byte aligned "
                          "(kernel A loads them as 16-byte vectors)")
-    out =torch.empty((n, 16), dtype=torch.uint8, device=dev)
+    out = torch.empty((n, 16), dtype=torch.uint8, device=dev)
     if n:
         rc = _k.library().ljt_aes_encrypt(
             round_keys.data_ptr(), blocks.data_ptr(), out.data_ptr(), n,

@@ -30,7 +30,12 @@ import torch
 
 KERNELS = ("aes_encrypt", "hmac_sha1", "srtp_protect_cm", "srtp_unprotect_cm",
            "mix_minus", "g711_encode", "g711_decode", "srtp_fanout_cm",
-           "srtcp_protect_cm", "srtcp_unprotect_cm")
+           "srtcp_protect_cm", "srtcp_unprotect_cm",
+           # AES-F8 (K, L and I's and J's F8 instances) and the NULL cipher
+           # (C's, D's, I's and J's NULL instances)
+           "srtp_protect_f8", "srtp_unprotect_f8", "srtcp_protect_f8",
+           "srtcp_unprotect_f8", "srtp_protect_null", "srtp_unprotect_null",
+           "srtcp_protect_null", "srtcp_unprotect_null")
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -55,12 +60,28 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _P],
     "ljt_srtp_unprotect_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _P],
+    "ljt_srtp_protect_null": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _P],
+    "ljt_srtp_unprotect_null": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _I, _I, _I, _I, _P],
+    "ljt_srtp_protect_f8": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P],
+    "ljt_srtp_unprotect_f8": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _I, _I, _I, _I, _P],
     "ljt_srtp_fanout_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
                            _P, _P, _I, _I, _I, _I, _P],
     "ljt_srtcp_protect_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _P],
     "ljt_srtcp_unprotect_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                                _P, _I, _I, _I, _I, _P],
+    "ljt_srtcp_protect_null": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _P],
+    "ljt_srtcp_unprotect_null": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _I, _I, _I, _I, _P],
+    "ljt_srtcp_protect_f8": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _P],
+    "ljt_srtcp_unprotect_f8": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _I, _I, _I, _I, _P],
     "ljt_mix_minus": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ljt_g711_encode": [_P, _P, _I, _I, _P],
     "ljt_g711_decode": [_P, _P, _I, _I, _P],

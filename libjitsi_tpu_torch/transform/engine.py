@@ -21,8 +21,10 @@ The JAX chain's per-engine drop counters and its handling of engines
 that change the batch size (fault injection, RED) are not part of this
 slice.
 
-Counterpart: `libjitsi_tpu/transform/engine.py`, synchronous chain only;
-the dispatch-only (async) seams wait for ROADMAP Queue 1 item 5.
+Counterpart: `libjitsi_tpu/transform/engine.py`, with its dispatch-only
+seams: `transform_async` and `reverse_transform_async` hand the chain's
+SRTP end to the table's async calls and return pendings, and
+`commit_inflight` commits an outstanding async unprotect.
 """
 
 from __future__ import annotations
@@ -94,6 +96,101 @@ class _ChainTransformer(PacketTransformer):
             batch, ok = t.reverse_transform(batch, mask)
             mask = mask & ok
         return batch, mask
+
+    def transform_async(self, batch, mask=None):
+        """Dispatch-only outbound pass: every engine but the last runs
+        sync (host header work); the last — SRTP, by chain discipline —
+        is dispatched without waiting when it has `transform_async`.
+        Returns (pending, mask); `pending.result()` gives the batch."""
+        mask = _ones(batch) if mask is None else mask.copy()
+        for t in self._ts[:-1]:
+            batch, ok = t.transform(batch, mask)
+            mask = mask & ok
+        if not self._ts:
+            return _DonePending(batch), mask
+        last = self._ts[-1]
+        if hasattr(last, "transform_async"):
+            return last.transform_async(batch, mask), mask
+        batch, ok = last.transform(batch, mask)
+        return _DonePending(batch), mask & ok
+
+    def reverse_transform_async(self, batch, mask=None):
+        """Dispatch-only inbound pass, mirroring `transform_async`: the
+        first engine of the receive direction (the chain's last, SRTP)
+        is dispatched without waiting when it has
+        `reverse_transform_async`; the other engines run sync when the
+        caller materializes.  Returns a pending whose `.result()` gives
+        (batch, mask)."""
+        mask = _ones(batch) if mask is None else mask.copy()
+        if not self._ts:
+            return _DoneReverse((batch, mask))
+        head = self._ts[-1]
+        if not hasattr(head, "reverse_transform_async"):
+            return _DoneReverse(self.reverse_transform(batch, mask))
+        return _PendingReverse(self, head.reverse_transform_async(batch),
+                               mask)
+
+    def commit_inflight(self):
+        """Commit every outstanding dispatch-only unprotect of the chain
+        (see the SRTP transformer's `commit_inflight`)."""
+        for t in self._ts:
+            commit = getattr(t, "commit_inflight", None)
+            if commit is not None:
+                commit()
+
+
+class _DonePending:
+    """Degenerate pending of a chain without an async tail."""
+
+    def __init__(self, batch):
+        self._batch = batch
+
+    def result(self):
+        return self._batch
+
+    def block_until_ready(self):
+        return self
+
+
+class _DoneReverse:
+    """Degenerate reverse pending (no async head, or already done)."""
+
+    def __init__(self, out):
+        self._out = out
+
+    def result(self):
+        return self._out
+
+    def block_until_ready(self):
+        return self
+
+
+class _PendingReverse:
+    """An in-flight chain `reverse_transform_async`: the head engine's
+    kernels are launched; the other engines run when the caller
+    materializes.  Single-shot: result() caches."""
+
+    def __init__(self, chain: "_ChainTransformer", pend, mask):
+        self._chain = chain
+        self._pend = pend
+        self._mask = mask
+        self._out = None
+
+    def block_until_ready(self):
+        if self._out is None:
+            self._pend.block_until_ready()
+        return self
+
+    def result(self):
+        if self._out is None:
+            batch, ok = self._pend.result()
+            mask = self._mask & ok
+            for t in reversed(self._chain._ts[:-1]):
+                batch, ok = t.reverse_transform(batch, mask)
+                mask = mask & ok
+            self._out = (batch, mask)
+            self._pend = self._chain = None
+        return self._out
 
 
 class TransformEngineChain(TransformEngine):

@@ -1,10 +1,11 @@
 """SRTP as a TransformEngine (reference: SRTPTransformer installed last in
 the chain via `SrtpControl.getTransformEngine()`).
 
-Counterpart: `libjitsi_tpu/transform/srtp/engine.py`, synchronous
-RTP and RTCP.  Outbound `transform` protects, inbound
-`reverse_transform` unprotects and reports per-row accept verdicts
-through the chain mask — the batched equivalent of
+Counterpart: `libjitsi_tpu/transform/srtp/engine.py`: RTP and RTCP,
+and RTP's dispatch-only seams (`transform_async`,
+`reverse_transform_async`, `commit_inflight`).  Outbound `transform`
+protects, inbound `reverse_transform` unprotects and reports per-row
+accept verdicts through the chain mask — the batched equivalent of
 SRTPTransformer.reverseTransform returning null on auth/replay failure.
 """
 
@@ -25,11 +26,29 @@ class _SrtpRtpTransformer(PacketTransformer):
         out = self.tx.protect_rtp(batch)
         return out, (np.ones(batch.batch_size, bool) if mask is None else mask)
 
+    def transform_async(self, batch, mask=None):
+        """Dispatch-only protect (see SrtpStreamTable.protect_rtp_async):
+        the chain's pipelined send path materializes it later."""
+        return self.tx.protect_rtp_async(batch)
+
     def reverse_transform(self, batch, mask=None):
         out, ok = self.rx.unprotect_rtp(batch)
         if mask is not None:
             ok = ok & mask
         return out, ok
+
+    def reverse_transform_async(self, batch, mask=None):
+        """Dispatch-only unprotect (see
+        SrtpStreamTable.unprotect_rtp_async): the chain's pipelined
+        receive path materializes it, and commits its replay state,
+        later.  The pending's result() is (batch, ok)."""
+        return self.rx.unprotect_rtp_async(batch)
+
+    def commit_inflight(self):
+        """Commit the outstanding dispatch-only unprotect now (a wait on
+        its kernels), which the next `reverse_transform_async` would do
+        anyway, so a caller can count the wait as device time."""
+        self.rx.commit_inflight()
 
 
 class _SrtpRtcpTransformer(PacketTransformer):

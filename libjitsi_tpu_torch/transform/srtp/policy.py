@@ -6,8 +6,9 @@ lengths, auth type, tag length) plus the SDES/DTLS-SRTP profile names that
 select them (`SrtpCryptoSuite`, RFC 4568 / RFC 5764 registry names).
 
 Counterpart: `libjitsi_tpu/transform/srtp/policy.py` (copied).  Every
-profile is named here; the port's SRTP table runs the AES-CM + HMAC-SHA1
-ones and raises `NotImplementedError` for the rest.
+profile is named here; the port's SRTP table runs the AES-CM, AES-F8
+and NULL + HMAC-SHA1 ones and raises `NotImplementedError` for
+AEAD-GCM.
 """
 
 from __future__ import annotations

@@ -648,3 +648,151 @@ def test_srtcp_protect_kernel_tile_edges(cuda_device, key_len, tag_len,
         tail = np.frombuffer(wb + tag, np.uint8)[:max(width - ln, 0)]
         row[ln:ln + len(tail)] = tail
         assert np.array_equal(out[i], row), i
+
+
+def _edge_lengths(n, hdr, tag_len, width, rng, trailer=0):
+    """Production-mix lengths with the edge rows first: length 0, shorter
+    than header + tag, an empty keystream window, exactly one keystream
+    block, and the longest row that fits the width."""
+    lens = hdr + np.array([100, 400, 950])[rng.integers(0, 3, n)]
+    lens[:5] = [0, hdr + tag_len - 1, hdr, hdr + 16,
+                width - tag_len - trailer]
+    return np.minimum(lens, width - tag_len - trailer).astype(np.int32)
+
+
+@pytest.mark.parametrize("plane,cipher,key_len,n,width,off", [
+    ("srtp", "f8", 16, 4096, 1536, 12),       # a mix batch's rows, one launch
+    ("srtp", "f8", 32, 4095, 1536, 13),       # odd rows, windows off a word
+    ("srtp", "null", 16, 4096, 1536, 12),
+    ("srtcp", "f8", 16, 1100, 1536, 8),
+    ("srtcp", "null", 16, 1100, 1536, 8),
+])
+def test_f8_and_null_kernels_match_plain(cuda_device, plane, cipher, key_len,
+                                         n, width, off):
+    """K, L and the F8 and NULL instances of C, D, I and J against their
+    plain versions on the card, a tampered row beside genuine ones."""
+    rng = np.random.default_rng(n + key_len + off)
+    s, tag_len = 10240, 10
+    d = cuda_device
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(d)
+
+    tab_rk = t(aes.expand_keys_batch(rng.integers(0, 256, (s, key_len),
+                                                  np.uint8)))
+    tab_f8 = t(aes.expand_keys_batch(rng.integers(0, 256, (s, key_len),
+                                                  np.uint8)))
+    f8 = tab_f8 if cipher == "f8" else None
+    tab_mid = t(sha1.hmac_precompute_batch(rng.integers(
+        0, 256, (s, 20), np.uint8)).view(np.int32))
+    stream = t(rng.integers(0, s, n).astype(np.int32))
+    lens = _edge_lengths(n, off, tag_len, width, rng,
+                         0 if plane == "srtp" else 4)
+    data = t(rng.integers(0, 256, (n, width), np.uint8))
+    iv = t(rng.integers(0, 256, (n, 16), np.uint8))
+    name = f"{plane}_protect_{cipher}"
+    before = kbuild.launches[name]
+    if plane == "srtp":
+        roc = t(rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32))
+        args = [tab_rk, tab_mid, stream, data, t(lens),
+                t(np.full(n, off, np.int32)), iv, roc]
+        got = srtp_kernel.srtp_protect(*args, tag_len, cipher, f8)
+        want = srtp_kernel.srtp_protect_plain(*args, tag_len, cipher, f8)
+    else:
+        e = 0 if cipher == "null" else 1 << 31
+        word = t((rng.integers(0, 2 ** 31, n) | e).astype(np.uint32)
+                 .view(np.int32))
+        args = [tab_rk, tab_mid, stream, data, t(lens), iv, word]
+        got = srtp_kernel.srtcp_protect(*args, tag_len, cipher, f8)
+        want = srtp_kernel.srtcp_protect_plain(*args, tag_len, cipher, f8)
+    torch.cuda.synchronize()
+    assert kbuild.launches[name] == before + 1
+    assert all(_same(a, b) for a, b in zip(got, want))
+    wire = got[0].clone()
+    wire[7, 3] ^= 1
+    wlen = got[1].clamp(max=width)
+    if plane == "srtp":
+        uargs = args[:3] + [wire, wlen] + args[5:]
+        got = srtp_kernel.srtp_unprotect(*uargs, tag_len, cipher, f8)
+        want = srtp_kernel.srtp_unprotect_plain(*uargs, tag_len, cipher, f8)
+    else:
+        uargs = args[:3] + [wire, wlen, iv]
+        got = srtp_kernel.srtcp_unprotect(*uargs, tag_len, cipher, f8)
+        want = srtp_kernel.srtcp_unprotect_plain(*uargs, tag_len, cipher,
+                                                 f8)
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, want))
+    ok = got[2].cpu().numpy()
+    genuine = lens + tag_len >= off + tag_len
+    genuine[[0, 1, 7]] = False
+    assert ok[genuine].all() and not ok[7]
+    dec = got[0].cpu().numpy()
+    raw = data.cpu().numpy()
+    for i in np.nonzero(genuine)[0][:64]:
+        assert np.array_equal(dec[i, :lens[i]], raw[i, :lens[i]])
+
+
+@pytest.mark.parametrize("profile,kdr", [
+    (SrtpProfile.F8_128_HMAC_SHA1_80, 0),
+    (SrtpProfile.NULL_HMAC_SHA1_80, 0),
+    (SrtpProfile.AES_CM_128_HMAC_SHA1_80, 4),
+])
+def test_profile_tables_on_card_equal_cpu_sync_and_async(cuda_device,
+                                                         profile, kdr):
+    """F8, NULL and kdr tables on the card and on the CPU: the same wire
+    bytes, verdicts and state through the sync calls and through a depth-2
+    pipeline of the async ones (dispatch n + 1, then n's result), SRTCP
+    too; a key install while a protect is pending leaves it on the old
+    keys."""
+    rng = np.random.default_rng(17)
+    s, n = 64, 128
+    mks = rng.integers(0, 256, (s, 16), np.uint8)
+    mss = rng.integers(0, 256, (s, 14), np.uint8)
+
+    def batch(k):
+        streams = np.arange(n) % s
+        lens = np.array([100, 400, 950])[rng.integers(0, 3, n)]
+        pls = [rng.integers(0, 256, x, np.uint8).tobytes() for x in lens]
+        seq = (65530 + 4 * k + np.arange(n) // s) % 65536
+        return rtp_header.build(pls, seq.tolist(), [0] * n,
+                                (0x7000 + streams).tolist(), [96] * n,
+                                stream=streams.tolist())
+
+    batches = [batch(k) for k in range(3)]
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        tx, rx, tx2, rx2 = (SrtpStreamTable(s, profile, device=dev)
+                            for _ in range(4))
+        for tab in (tx, rx, tx2, rx2):
+            tab.add_streams(np.arange(s), mks, mss, kdr=kdr)
+        sync = [rx.unprotect_rtp(tx.protect_rtp(b.copy())) for b in batches]
+        pend_tx = [tx2.protect_rtp_async(b.copy()) for b in batches]
+        tx2.add_stream(0, bytes(16), bytes(14))  # after the dispatches
+        wires = [p.result() for p in pend_tx]
+        pend, asyn = [rx2.unprotect_rtp_async(wires[0])], []
+        for w in wires[1:]:
+            pend.append(rx2.unprotect_rtp_async(w))
+            asyn.append(pend[-2].result())
+        asyn.append(pend[-1].result())
+        rr = bytes([0x80, 201, 0, 1]) + (0x7000).to_bytes(4, "big")
+        rtcp = tx.protect_rtcp(PacketBatch.from_payloads([rr] * s,
+                                                         stream=list(range(s))))
+        rtcp_dec = rx.unprotect_rtcp(rtcp)
+        outs[str(dev)] = (sync, wires, asyn, rtcp, rtcp_dec,
+                          rx.snapshot(), rx2.snapshot())
+    a, b = outs["cpu"], outs[str(cuda_device)]
+    for (da, oka), (db, okb), (ea, okea) in zip(a[0], b[0], b[2]):
+        assert np.array_equal(oka, okb) and oka.all()
+        assert np.array_equal(da.data, db.data)
+        assert np.array_equal(okb, okea) and np.array_equal(db.data, ea.data)
+    for wa, wb in zip(a[1], b[1]):
+        assert np.array_equal(wa.data, wb.data)
+    assert np.array_equal(a[3].data, b[3].data)
+    assert a[4][1].all() and np.array_equal(a[4][0].data, b[4][0].data)
+    for snap_a, snap_b in ((a[5], b[5]), (a[6], b[6])):
+        for k, v in snap_a.items():
+            if isinstance(v, np.ndarray):
+                assert np.array_equal(v, snap_b[k]), k
+    for k in ("rx_max", "rx_mask", "auth_fail", "replay_reject",
+              "epoch_rtp"):              # sync and async rx: one state
+        assert np.array_equal(b[5][k], b[6][k]), k

@@ -783,3 +783,113 @@ def test_emulated_kernel_i_tile_edges(emu, key_len, tag_len, width, n):
         row[ln:ln + len(tail)] = tail
         assert np.array_equal(out[i], row), i
         assert out_len[i] == length[i] + 4 + tag_len
+
+
+def _emu_call(emu, name, cipher, tab_rk, tab_f8, *rest):
+    """Call the C entry point of a cipher's instance: the F8 ones take the
+    k_e XOR m table right after the round keys."""
+    keys = [_p(tab_rk)] + ([_p(tab_f8)] if cipher == "f8" else [])
+    return getattr(emu, f"ljt_{name}_{cipher}")(*keys, *rest)
+
+
+# The F8 instances (K, L; I's and J's) and the NULL instances (C's, D's,
+# I's, J's) against their plain versions.  At 1 SM, K, L and C, D tile
+# ceil(n / 2) rows and I, J ceil(n / 4): 7 rows are tiles of 4 and 3 (a
+# thread of the 3-row tile has no second row), 9 SRTCP rows tiles of 3.
+# Each tile holds a row of length 0, rows shorter than header + tag, an
+# empty keystream window (length = payload offset), a window of exactly
+# one keystream block and, in the "off13" case, windows starting off a
+# word; every row's k_e XOR m schedule differs from k_e in every round
+# key, and a tampered row sits beside genuine ones.
+@pytest.mark.parametrize("plane,cipher,key_len,width,n,case", [
+    ("srtp", "f8", 16, 224, 7, "mixed"),
+    ("srtp", "f8", 32, 160, 9, "off13"),
+    ("srtp", "null", 16, 96, 5, "mixed"),
+    ("srtcp", "f8", 16, 224, 9, "mixed"),
+    ("srtcp", "null", 32, 96, 6, "mixed"),
+])
+def test_emulated_f8_and_null_instances_match_plain(emu, plane, cipher,
+                                                    key_len, width, n, case):
+    rng = np.random.default_rng(width + n + key_len)
+    s, tag_len = 5, 10
+    tab_rk = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len),
+                                                np.uint8))
+    tab_f8 = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len),
+                                                np.uint8))
+    assert (tab_f8 != tab_rk).any(axis=2).all()
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    stream = rng.integers(-1, s + 1, n).astype(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    hdr = 13 if case == "off13" else (12 if plane == "srtp" else 8)
+    edges = [0, hdr + tag_len - 1, hdr, hdr + 16, width - tag_len - 4,
+             hdr + 1, 60]
+    length = np.resize(np.array(edges, np.int32), n)
+    off = np.full(n, hdr, np.int32)
+    iv = rng.integers(0, 256, (n, 16), np.uint8)
+    iv[:2, 12:] = 0xFF                  # j is XORed into bytes 12-15
+    f8 = T(tab_f8) if cipher == "f8" else None
+    nr = tab_rk.shape[1] - 1
+    t_args = [T(tab_rk), T(tab_mid), T(stream), T(data), T(length)]
+    out = np.zeros_like(data)
+    out_len = np.zeros(n, np.int32)
+    if plane == "srtp":
+        roc = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(
+            np.uint32).view(np.int32)
+        assert _emu_call(emu, "srtp_protect", cipher, tab_rk, tab_f8,
+                         _p(tab_mid), _p(stream), s, _p(data), _p(length),
+                         _p(off), _p(iv), _p(roc), _p(out), _p(out_len), n,
+                         width, nr, tag_len, None) == 0
+        want = srtp_kernel.srtp_protect_plain(
+            *t_args, T(off), T(iv), T(roc), tag_len, cipher, f8)
+    else:
+        e = 0 if cipher == "null" else 1
+        word = (rng.integers(0, 2 ** 31, n, dtype=np.uint64)
+                | np.uint64(e << 31)).astype(np.uint32).view(np.int32)
+        assert _emu_call(emu, "srtcp_protect", cipher, tab_rk, tab_f8,
+                         _p(tab_mid), _p(stream), s, _p(data), _p(length),
+                         _p(iv), _p(word), _p(out), _p(out_len), n, width,
+                         nr, tag_len, None) == 0
+        want = srtp_kernel.srtcp_protect_plain(
+            *t_args, T(iv), T(word), tag_len, cipher, f8)
+    assert np.array_equal(out, want[0].numpy())
+    assert np.array_equal(out_len, want[1].numpy())
+    if cipher == "f8":
+        # the window [hdr, length) is encrypted, nothing before it
+        whole = length >= hdr
+        assert np.array_equal(out[whole, :hdr], data[whole, :hdr])
+        assert not np.array_equal(out[4, hdr:hdr + 8], data[4, hdr:hdr + 8])
+
+    wire = out.copy()
+    wlen = np.minimum(out_len, width).astype(np.int32)
+    wire[3, 2] ^= 1                                # a tampered row
+    dec = np.zeros_like(data)
+    mlen = np.zeros(n, np.int32)
+    ok = np.zeros(n, np.uint8)
+    u_args = [T(tab_rk), T(tab_mid), T(stream), T(wire), T(wlen)]
+    if plane == "srtp":
+        assert _emu_call(emu, "srtp_unprotect", cipher, tab_rk, tab_f8,
+                         _p(tab_mid), _p(stream), s, _p(wire), _p(wlen),
+                         _p(off), _p(iv), _p(roc), _p(dec), _p(mlen),
+                         _p(ok), n, width, nr, tag_len, None) == 0
+        got = (dec, mlen, ok.astype(bool))
+        want = srtp_kernel.srtp_unprotect_plain(
+            *u_args, T(off), T(iv), T(roc), tag_len, cipher, f8)
+    else:
+        e_bit = np.zeros(n, np.int32)
+        idx = np.zeros(n, np.int32)
+        assert _emu_call(emu, "srtcp_unprotect", cipher, tab_rk, tab_f8,
+                         _p(tab_mid), _p(stream), s, _p(wire), _p(wlen),
+                         _p(iv), _p(dec), _p(mlen), _p(ok), _p(e_bit),
+                         _p(idx), n, width, nr, tag_len, None) == 0
+        got = (dec, mlen, ok.astype(bool), e_bit, idx)
+        want = srtp_kernel.srtcp_unprotect_plain(
+            *u_args, T(iv), tag_len, cipher, f8)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b.numpy())
+    fits = length + tag_len + (0 if plane == "srtp" else 4) <= width
+    genuine = fits.copy()
+    genuine[3] = False
+    assert got[2][genuine].all() and not got[2][3]
+    for i in np.nonzero(genuine)[0]:
+        assert np.array_equal(dec[i, :length[i]], data[i, :length[i]])

@@ -196,18 +196,25 @@ def test_from_jax_state_continues_identically():
 def test_unported_paths_raise_and_default_device_is_the_card():
     with pytest.raises(NotImplementedError, match="item 8"):
         SrtpStreamTable(4, SrtpProfile.AEAD_AES_128_GCM, device="cpu")
-    for prof in (SrtpProfile.F8_128_HMAC_SHA1_80,
-                 SrtpProfile.NULL_HMAC_SHA1_80):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            SrtpStreamTable(4, prof, device="cpu")
+    # the rest of the SRTP table is ported: F8 and NULL tables, kdr
+    # streams, the dispatch-only seams and move_rows
+    for prof, cipher in ((SrtpProfile.F8_128_HMAC_SHA1_80, "f8"),
+                         (SrtpProfile.NULL_HMAC_SHA1_80, "null")):
+        assert SrtpStreamTable(4, prof, device="cpu").cipher == cipher
     t = SrtpStreamTable(4, SrtpProfile.AES_256_CM_HMAC_SHA1_32, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t.add_stream(0, bytes(32), bytes(14), kdr=1 << 16)
-    for call in (lambda: t.protect_rtp_async(None),
-                 lambda: t.unprotect_rtp_async(None),
-                 lambda: t.move_rows([0], [1])):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    t.add_stream(0, bytes(32), bytes(14), kdr=1 << 16)
+    assert t.kdr[0] == 1 << 16 and 0 in t.snapshot()["masters"]
+    rtp = PacketBatch.from_payloads([bytes([0x80, 96, 0, 7]) + bytes(8)
+                                     + b"pay"], stream=[0])
+    wire = t.protect_rtp_async(rtp).result()
+    assert wire.length[0] == 15 + 4
+    t.move_rows([0], [2])
+    assert t.active.tolist() == [False, False, True, False]
+    pend = t.unprotect_rtp_async(PacketBatch(wire.data, wire.length,
+                                             np.array([2], np.int32)))
+    t.commit_inflight()
+    dec, ok = pend.result()             # the moved row kept its keys
+    assert ok[0] and dec.to_bytes(0) == rtp.to_bytes(0)
     # SRTCP is ported (kernels I and J): a round trip on this profile
     blob = bytes([0x80, 201, 0, 1]) + (0x1234).to_bytes(4, "big")
     rx = SrtpStreamTable(4, SrtpProfile.AES_256_CM_HMAC_SHA1_32,
