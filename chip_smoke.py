@@ -12,7 +12,10 @@ version:
 
   srtp_echo     the `SrtpStreamTable` protect/unprotect path with 10,240
                 installed streams and a `MediaLoop` echo bridge over UDP
-                loopback (kernels C, D);
+                loopback at pipeline depths 1, 2 and 3, each depth's
+                wire equal to depth 1's, with echo tick and journey
+                p50/p99 and the PhaseProfiler's phase shares (kernels C,
+                D);
   conference    a 256-participant PCMU `ConferenceBridge` over UDP
                 loopback, 50 ticks at 20 ms steps (kernels C, D, E, F,
                 G), held byte for byte against the same run of the
@@ -25,7 +28,8 @@ version:
                 are held byte for byte against the same bridge on the
                 CPU, every copy the client received is authenticated
                 under its leg's key, and none echoes or crosses a
-                conference;
+                conference; then a `pipelined=True` bridge through 10
+                ticks, every copy delivered once;
   srtp_profiles the rest of the SRTP table at 10,240 installed streams:
                 `F8_128_HMAC_SHA1_80` and `NULL_HMAC_SHA1_80` tx/rx
                 tables through 4,096-packet production-mix batches, a
@@ -38,7 +42,11 @@ version:
                 install while a protect is pending.  The card's wire is
                 held byte for byte against CPU tables restored from the
                 card tables' snapshots, and the pipeline against the
-                sync calls.
+                sync calls;
+  sfu_profiles  the sfu path's bridge under NULL_HMAC_SHA1_80 and
+                F8_128_HMAC_SHA1_80, 10 ticks each (D's and H's NULL and
+                F8 instances), every copy authenticated by its leg's
+                table and read back as its sender's bytes.
 
 Beside them, `sass` gives each kernel's instruction count, registers,
 spills and static shared memory, the INT32-pipe and load counts of the
@@ -132,7 +140,10 @@ TAG = 10
 HDR = 12
 # packets 10,240 streams at 20 ms ptime send in the loop's 1 ms window
 ECHO_BURST = N_STREAMS // 20
-ECHO_ROUNDS = 2
+# timed rounds a depth (8 bursts each, so 128 full-burst ticks: p99 is
+# not the maximum), none fenced; then one round whose every tick pays the
+# PhaseProfiler's fences, out of the timed statistics
+ECHO_ROUNDS = 16
 CONF_PARTIES = 256         # PCMU participants of the conference bridge
 CONF_TICKS = 50
 CONF_PROFILED = 5          # further ticks under torch.profiler
@@ -155,6 +166,13 @@ SFU_RR_TICKS = (12, 37)     # one RR a sender every 25 ticks
 SFU_NACK_TICK = 30          # 10 receivers NACK 3 seqs each
 SFU_FEEDBACK = 10           # emit_feedback every 10 ticks
 SFU_CPU_TICKS = (0, 1, 2, 27, 28, 29, SFU_NACK_TICK)
+SFU_PIPE_TICKS = 10         # the pipelined SfuBridge's run (sfu path)
+# the sfu_profiles path: the SFU under NULL_HMAC_SHA1_80 and
+# F8_128_HMAC_SHA1_80, at config #5's width
+SFU_PROFILES = ("NULL_HMAC_SHA1_80", "F8_128_HMAC_SHA1_80")
+SFU_PROFILE_TICKS = 10
+# the echo loop's pipeline depths
+ECHO_DEPTHS = (1, 2, 3)
 # the srtp_profiles path: batches a profile, kdr streams and their rate,
 # SRTCP rows, and the async pipeline's batches
 PROFILE_BATCHES = 4
@@ -200,6 +218,12 @@ SOURCES = {
                            "libjitsi_tpu/transform/srtp/kernel.py:164"),
     "srtcp_unprotect_null": ("libjitsi_tpu_torch/csrc/srtcp_cm.cu",
                              "libjitsi_tpu/transform/srtp/kernel.py:193"),
+    # kernel H's NULL and AES-F8 instances: the JAX fan-out launch runs
+    # NULL with encrypt=False and F8 (its fault) as AES-CM
+    "srtp_fanout_null": ("libjitsi_tpu_torch/csrc/srtp_fanout.cu",
+                         "libjitsi_tpu/sfu/translator.py:65"),
+    "srtp_fanout_f8": ("libjitsi_tpu_torch/csrc/srtp_fanout.cu",
+                       "libjitsi_tpu/sfu/translator.py:65"),
 }
 PROFILE_KERNELS = ("srtp_protect_f8", "srtp_unprotect_f8", "srtcp_protect_f8",
                    "srtcp_unprotect_f8", "srtp_protect_null",
@@ -212,7 +236,10 @@ PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
          "mixer_bridge": ("mix_minus",),
          "sfu": ("srtp_unprotect_cm", "srtp_fanout_cm", "srtcp_protect_cm",
                  "srtcp_unprotect_cm"),
-         "srtp_profiles": PROFILE_KERNELS}
+         "srtp_profiles": PROFILE_KERNELS,
+         "sfu_profiles": ("srtp_unprotect_null", "srtp_fanout_null",
+                          "srtp_unprotect_f8", "srtp_fanout_f8")}
+FANOUT_INSTANCES = ("srtp_fanout_null", "srtp_fanout_f8")
 
 
 # kernels beside KERNELS whose SASS and ptxas reports are read: the AES
@@ -261,6 +288,7 @@ def main() -> int:
     rows.update(g711_kernels(torch, dev, floor_ms))
     rows.update(sfu_kernels(torch, dev, floor_ms))
     rows.update(profile_kernels(torch, dev, floor_ms, chain))
+    rows.update(sfu_profile_kernels(torch, dev, floor_ms, chain))
 
     counts = {}
 
@@ -288,17 +316,25 @@ def main() -> int:
     # the clients' wire and RTCP are made (on kernels C and I) before the
     # counts are reset, so the sfu counts hold the bridge's launches only
     sfu_in = _sfu_setup(torch, dev)
-    sfu = path("sfu", sfu_run, torch, dev, sfu_in)
+    sfu = path("sfu", sfu_path, torch, dev, sfu_in)
     sfu_check(torch, dev, sfu)
     profiles = path("srtp_profiles", srtp_profiles_run, torch, dev)
     srtp_profiles_check(torch, dev, profiles, table)
+    # the clients' NULL and F8 wire is made (on C's NULL instance and K)
+    # before the counts are reset
+    sfu_p_in = {prof: _sfu_setup(torch, dev, prof, SFU_PROFILE_TICKS,
+                                 with_rtcp=False) for prof in SFU_PROFILES}
+    sfu_p = path("sfu_profiles", sfu_profiles_run, torch, dev, sfu_p_in)
+    sfu_profiles_check(torch, dev, sfu_p)
     per_unit = {"srtp_echo": ("launches_per_table_batch",
                               table["launches_per_batch"]),
                 "conference": ("launches_per_conference_tick",
                                conf["launches_per_tick"]),
                 "sfu": ("launches_per_sfu_tick", sfu["launches_per_tick"]),
                 "srtp_profiles": ("launches_per_profile_batch",
-                                  profiles["launches_per_batch"])}
+                                  profiles["launches_per_batch"]),
+                "sfu_profiles": ("launches_per_sfu_profile_tick",
+                                 sfu_p["launches_per_tick"])}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
@@ -586,7 +622,7 @@ def sass_counts(kbuild) -> None:
             require(f"{k} nr={nr}" in ptxas, f"no ptxas report for {k} "
                                              f"nr={nr}: {sorted(ptxas)}")
     for k in ("srtp_fanout_cm", "srtcp_protect_cm", "srtcp_unprotect_cm",
-              *PROFILE_KERNELS):
+              *PROFILE_KERNELS, *FANOUT_INSTANCES):
         for nr in (10, 14):
             require(f"{k} nr={nr}" in ptxas, f"no ptxas report for {k} "
                                              f"nr={nr}: {sorted(ptxas)}")
@@ -618,7 +654,7 @@ def sass_counts(kbuild) -> None:
                 f"{shared.get(k)}")
     crypto = ("aes_encrypt", "srtp_protect_cm", "srtp_unprotect_cm",
               "srtp_fanout_cm", "srtcp_protect_cm", "srtcp_unprotect_cm",
-              *PROFILE_KERNELS)
+              *PROFILE_KERNELS, *FANOUT_INSTANCES)
     static_smem = {f"{k} nr={nr}": ptxas.get(f"{k} nr={nr}", {}).get(
         "static_smem_bytes", 0) for k in crypto for nr in (10, 14)}
     for nr in (10, 14):
@@ -798,6 +834,8 @@ def latency_floor(torch, dev, kbuild) -> tuple:
     # 4,096 rows) and on a full warp
     for label, length, width, lanes in (
             ("bench packet 172", 160 + HDR, 224, 32),
+            ("longest mix row 112", MIX[0][0] + HDR, 224, 32),
+            ("longest mix row 412", MIX[1][0] + HDR, 544, 32),
             ("longest SFU copy 180", 180, 224, 32),
             ("longest SRTCP message 200", 200, 224, 32),
             (B_LONGEST + " on 1 lane", MIX[-1][0] + HDR, 1024, 1),
@@ -835,7 +873,21 @@ def latency_floor(torch, dev, kbuild) -> tuple:
          aes_pair_cycles=aes_pair, sm_clock_mhz=mhz,
          hash_chain_floor=floors, hmac_row=hmac_cycles,
          hmac_sha1_chain_floor_ms=b_chain_ms)
-    return floor_ms, b_chain_ms, dict(aes_pair_cycles=aes_pair, mhz=mhz)
+    return floor_ms, b_chain_ms, dict(aes_pair_cycles=aes_pair, mhz=mhz,
+                                      hmac_row=hmac_cycles)
+
+
+def mac_floor_ms(floor_ms: float, chain: dict, msg_len: int) -> float:
+    """The MAC chain floor of a tile launch whose longest MAC message is
+    `msg_len` bytes (packet || ROC or SRTCP word): the launch floor plus
+    that row's HMAC on a lane of a full hashing warp, reckoned from
+    `hmac_row`'s cycles a compression at the probed row with the fewest
+    compressions not below this one's (the longest probed row past it)."""
+    comps = (msg_len + 9 + 63) // 64 + 1
+    probes = sorted((v["compressions"], v["cycles"])
+                    for v in chain["hmac_row"].values() if v["lanes"] == 32)
+    c, cyc = next(((c, cyc) for c, cyc in probes if c >= comps), probes[-1])
+    return floor_ms + comps * cyc / c / (chain["mhz"] * 1e3)
 
 
 # ------------------------------------------------- 3. kernels vs plain
@@ -1132,6 +1184,20 @@ def srtp_echo(torch, dev) -> dict:
 # ---------------------------------------------------------- 5. echo loop
 
 def echo_loop(torch, dev, keys) -> None:
+    """The `MediaLoop` echo bridge over UDP loopback at each of
+    ECHO_DEPTHS: 10,240 installed streams, ECHO_ROUNDS timed rounds of a
+    4,096-packet production mix sent in ECHO_BURST-packet bursts, each
+    burst ticked until the bridge took it, then one round with the
+    PhaseProfiler fencing every tick; at depth > 1 the unprotect of a
+    tick materializes depth - 1 ticks later and its replies leave on the
+    tick after, and every round ends with `drain()`.  Every depth gets
+    fresh tables with the same keys and the same client wire, and must
+    echo every packet once, in each stream's order, authenticated by the
+    client and with the sent payloads, its wire byte-equal to the depth-1
+    run's.  Each depth prints the echo tick p50/p99 (the timed rounds'
+    full-burst ticks, none fenced), the journey p50/p99 (exact, from the
+    timed rounds' journey observations) beside its 1 ms budget, and the
+    PhaseProfiler's phase shares over the fenced round's ticks."""
     from libjitsi_tpu_torch.core.packet import PacketBatch
     from libjitsi_tpu_torch.io.loop import MediaLoop
     from libjitsi_tpu_torch.io.udp import UdpEngine
@@ -1142,96 +1208,158 @@ def echo_loop(torch, dev, keys) -> None:
     from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
     from libjitsi_tpu_torch.transform.srtp.engine import SrtpTransformEngine
     from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+    from libjitsi_tpu_torch.utils.perf import PHASES
 
     rng = np.random.default_rng(17)
     sids = np.arange(N_STREAMS)
     up_k, up_s = keys["mks"], keys["mss"]                 # client -> bridge
     dn_k = rng.integers(0, 256, (N_STREAMS, 16), np.uint8)  # bridge -> client
     dn_s = rng.integers(0, 256, (N_STREAMS, 14), np.uint8)
-    reg = StreamRegistry(N_STREAMS, device=dev)
-    b_tx, b_rx = reg.srtp_tables(SrtpProfile.AES_CM_128_HMAC_SHA1_80)
-    b_rx.add_streams(sids, up_k, up_s)
-    b_tx.add_streams(sids, dn_k, dn_s)
-    for sid in sids:
-        reg.map_ssrc(0x20000 + int(sid), int(sid))
     c_tx = SrtpStreamTable(N_STREAMS, device=dev)
-    c_rx = SrtpStreamTable(N_STREAMS, device=dev)
     c_tx.add_streams(sids, up_k, up_s)
-    c_rx.add_streams(sids, dn_k, dn_s)
+    rounds = []
+    for rnd in range(ECHO_ROUNDS + 1):
+        streams = rng.permutation(N_STREAMS)[:BATCH]
+        lens = production_lengths(rng, BATCH)
+        payloads = [rng.integers(0, 256, int(k), np.uint8).tobytes()
+                    for k in lens]
+        plain = rtp_header.build(
+            payloads, [7 + rnd] * BATCH, [rnd * 960] * BATCH,
+            (0x20000 + streams).tolist(), [96] * BATCH,
+            stream=streams.tolist())
+        rounds.append((plain, c_tx.protect_rtp(plain)))
 
     def on_media(batch, ok):
         rows = np.nonzero(ok)[0]
         return PacketBatch(batch.data[rows], batch.length[rows],
                            batch.stream[rows])
 
-    chain = TransformEngineChain([SrtpTransformEngine(b_tx, b_rx)])
     with open("/proc/sys/net/core/rmem_max") as f:
         rmem_max = int(f.read())
-    tick_s, echoed = [], 0
-    tick_launches = dict.fromkeys(kbuild.launches, 0)
-    with UdpEngine(port=0, bind_ip="127.0.0.1",
-                   max_batch=ECHO_BURST) as b_eng, \
-            UdpEngine(port=0, bind_ip="127.0.0.1",
-                      max_batch=ECHO_BURST) as client:
-        bridge = MediaLoop(b_eng, reg, on_media=on_media, chain=chain)
-        for rnd in range(ECHO_ROUNDS):
-            streams = rng.permutation(N_STREAMS)[:BATCH]
-            lens = production_lengths(rng, BATCH)
-            payloads = [rng.integers(0, 256, int(k), np.uint8).tobytes()
-                        for k in lens]
-            plain = rtp_header.build(
-                payloads, [7 + rnd] * BATCH, [rnd * 960] * BATCH,
-                (0x20000 + streams).tolist(), [96] * BATCH,
-                stream=streams.tolist())
-            wire = c_tx.protect_rtp(plain)
-            back = []
-            for lo in range(0, BATCH, ECHO_BURST):
-                rows = np.arange(lo, min(lo + ECHO_BURST, BATCH))
-                require(client.send_rows(wire, rows, "127.0.0.1", b_eng.port)
-                        == len(rows), "client send was short")
-                got = 0
-                for _ in range(200):
-                    pre = dict(kbuild.launches)
-                    t1 = time.perf_counter()
-                    n = bridge.tick()
-                    if n:
-                        tick_s.append((n, time.perf_counter() - t1))
-                        for k in pre:
-                            tick_launches[k] += kbuild.launches[k] - pre[k]
-                    got += n
-                    if got >= len(rows):
-                        break
-                require(got == len(rows), "bridge did not receive a burst "
-                        f"(net.core.rmem_max {rmem_max})")
-                want = len(back) + len(rows)
-                for _ in range(200):
-                    b, _, _ = client.recv_batch(timeout_ms=5)
+    wire_of = {}
+    for depth in ECHO_DEPTHS:
+        reg = StreamRegistry(N_STREAMS, device=dev)
+        b_tx, b_rx = reg.srtp_tables(SrtpProfile.AES_CM_128_HMAC_SHA1_80)
+        b_rx.add_streams(sids, up_k, up_s)
+        b_tx.add_streams(sids, dn_k, dn_s)
+        for sid in sids:
+            reg.map_ssrc(0x20000 + int(sid), int(sid))
+        c_rx = SrtpStreamTable(N_STREAMS, device=dev)
+        c_rx.add_streams(sids, dn_k, dn_s)
+        chain = TransformEngineChain([SrtpTransformEngine(b_tx, b_rx)])
+        tick_s, echoed, wires = [], 0, []
+        journeys = []
+        tick_launches = dict.fromkeys(kbuild.launches, 0)
+        with UdpEngine(port=0, bind_ip="127.0.0.1",
+                       max_batch=ECHO_BURST) as b_eng, \
+                UdpEngine(port=0, bind_ip="127.0.0.1",
+                          max_batch=ECHO_BURST) as client:
+            bridge = MediaLoop(b_eng, reg, on_media=on_media, chain=chain,
+                               pipeline_depth=depth, phase_sample_every=0)
+            note = bridge.note_journey_at
+
+            def noted(origin, n, sids=None, note=note):
+                dt = note(origin, n, sids=sids)
+                if dt is not None:
+                    journeys.append((dt, n))
+                return dt
+
+            bridge.note_journey_at = noted
+
+            def collect(back, want, tries, timeout_ms):
+                for _ in range(tries):
+                    b, _, _ = client.recv_batch(timeout_ms=timeout_ms)
                     back += b.to_payloads()
-                    if len(back) >= want:
+                    if len(back) >= want or (timeout_ms == 0
+                                             and not b.batch_size):
                         break
-            require(len(back) == BATCH,
-                    f"round {rnd}: echoed {len(back)} of {BATCH} packets")
-            echo = PacketBatch.from_payloads(back, capacity=1536)
-            hdr = rtp_header.parse(echo)
-            echo.stream[:] = (hdr.ssrc - 0x20000).astype(np.int32)
-            dec, ok = c_rx.unprotect_rtp(echo)
-            require(ok.all(), "client could not authenticate the echo")
-            require(sorted(dec.to_payloads()) == sorted(plain.to_payloads()),
-                    "echoed payloads differ from the sent ones")
-            echoed += len(back)
-    sizes = np.array([n for n, _ in tick_s])
-    secs = np.array([t for _, t in tick_s])
-    full = secs[sizes == ECHO_BURST]
-    require(len(full), "no tick received a whole burst")
-    emit("echo_loop", streams=N_STREAMS, burst=ECHO_BURST,
-         packets=ECHO_ROUNDS * BATCH, echoed=echoed, ticks=bridge.ticks,
-         busy_ticks=len(tick_s), full_burst_ticks=len(full),
-         tick_ms_p50=float(np.median(full)) * 1e3,
-         tick_ms_p99=float(np.percentile(full, 99)) * 1e3,
-         launches_per_tick={k: v / len(tick_s)
-                            for k, v in tick_launches.items()},
-         rx_packets=bridge.rx_packets, tx_packets=bridge.tx_packets,
-         rmem_max=rmem_max)
+
+            for rnd, (plain, wire) in enumerate(rounds):
+                timed = rnd < ECHO_ROUNDS
+                if not timed:
+                    # the fenced round: every tick pays the probes
+                    n_journeys = len(journeys)
+                    bridge.perf.sample_every = 1
+                back = []
+                for lo in range(0, BATCH, ECHO_BURST):
+                    rows = np.arange(lo, min(lo + ECHO_BURST, BATCH))
+                    require(client.send_rows(wire, rows, "127.0.0.1",
+                                             b_eng.port) == len(rows),
+                            "client send was short")
+                    got = 0
+                    for _ in range(200):
+                        pre = dict(kbuild.launches)
+                        t1 = time.perf_counter()
+                        n = bridge.tick()
+                        dt = time.perf_counter() - t1
+                        if n and timed:
+                            tick_s.append((n, dt))
+                            for k in pre:
+                                tick_launches[k] += (kbuild.launches[k]
+                                                     - pre[k])
+                        got += n
+                        if got >= len(rows):
+                            break
+                    require(got == len(rows), "bridge did not receive a "
+                            f"burst (net.core.rmem_max {rmem_max})")
+                    collect(back, BATCH, 64, 0)
+                bridge.drain()
+                require(not bridge._rx_inflight and not bridge._inflight,
+                        "the drain left work in flight")
+                collect(back, BATCH, 400, 5)
+                require(len(back) == BATCH, f"depth {depth} round {rnd}: "
+                        f"echoed {len(back)} of {BATCH} packets")
+                echo = PacketBatch.from_payloads(back, capacity=1536)
+                hdr = rtp_header.parse(echo)
+                require(len(set(zip(hdr.ssrc.tolist(), hdr.seq.tolist())))
+                        == BATCH and bool((hdr.seq == 7 + rnd).all()),
+                        f"depth {depth} round {rnd}: a packet was echoed "
+                        "twice or out of its stream's order")
+                echo.stream[:] = (hdr.ssrc - 0x20000).astype(np.int32)
+                dec, ok = c_rx.unprotect_rtp(echo)
+                require(ok.all(), "client could not authenticate the echo")
+                require(sorted(dec.to_payloads())
+                        == sorted(plain.to_payloads()),
+                        "echoed payloads differ from the sent ones")
+                wires.append(sorted(back))
+                echoed += len(back)
+        wire_of[depth] = wires
+        require(wires == wire_of[ECHO_DEPTHS[0]],
+                f"depth {depth}: the echo's wire differs from depth "
+                f"{ECHO_DEPTHS[0]}'s")
+        full = np.array([dt for n, dt in tick_s if n == ECHO_BURST])
+        require(len(full), "no timed tick received a whole burst")
+        journeys = journeys[:n_journeys]
+        jd = np.array([dt for dt, n in journeys])
+        jw = np.array([n for dt, n in journeys], dtype=np.float64)
+        order = np.argsort(jd)
+        cw = np.cumsum(jw[order]) / jw.sum()
+
+        def jq(q):
+            return float(jd[order][np.searchsorted(cw, q)]) * 1e3
+
+        phases = bridge.perf.phase_totals
+        total = sum(phases.values())
+        emit("echo_loop", depth=depth, streams=N_STREAMS, burst=ECHO_BURST,
+             packets=(ECHO_ROUNDS + 1) * BATCH, timed_rounds=ECHO_ROUNDS,
+             echoed=echoed,
+             ticks=bridge.ticks, busy_ticks=len(tick_s),
+             full_burst_ticks=len(full),
+             tick_ms_p50=float(np.median(full)) * 1e3,
+             tick_ms_p99=float(np.percentile(full, 99)) * 1e3,
+             journey_ms_p50=jq(0.5), journey_ms_p99=jq(0.99),
+             journey_budget_ms=1.0, journeys_observed=int(jw.sum()),
+             journey_p99_bucket_s=_journey_p99_bucket(bridge.journey_hist),
+             fenced_ticks=bridge.perf.sampled_ticks,
+             phase_share={p: phases.get(p, 0.0) / total for p in PHASES},
+             phase_ms_per_fenced_tick={
+                 p: phases.get(p, 0.0) / bridge.perf.sampled_ticks * 1e3
+                 for p in PHASES},
+             arena_grows=b_eng.arena_grows,
+             launches_per_tick={k: v / len(tick_s)
+                                for k, v in tick_launches.items()},
+             rx_packets=bridge.rx_packets, tx_packets=bridge.tx_packets,
+             rmem_max=rmem_max, wire_equal_to_depth1=True)
 
 
 # ------------------------------------------- 6. mix and G.711 kernels
@@ -1937,22 +2065,97 @@ def sfu_kernels(torch, dev, floor_ms: float) -> dict:
     return rows
 
 
+def sfu_profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
+    """Kernel H's NULL and AES-F8 instances against their plain versions
+    at the sfu_profiles path's launch (one burst: 275 packets x 10 legs,
+    80-180-byte packets with a 20-byte header) and at the whole tick's
+    (1,100 x 10), each beside H (AES-CM) on the same inputs in the same
+    run.  Each line has its bound and `chain_floor_ms`: the launch floor
+    plus, under F8, the longest copy's dependent AES pair steps (its
+    keystream blocks and IV') at `latency_floor`'s AES-128 pair cycles
+    and clock, and under NULL the longest copy's MAC on a hashing lane
+    (`mac_floor_ms`).  The `kernels` line takes the burst's lines.  No
+    PyTorch call computes F8 or a NULL-cipher SRTP packet."""
+    from libjitsi_tpu_torch.kernels import aes
+    from libjitsi_tpu_torch.transform.srtp import kernel as sk
+
+    rng = np.random.default_rng(59)
+    rows = {}
+    burst = SFU_N // SFU_BURSTS
+    pair_ms = chain["aes_pair_cycles"]["aes128"] / (chain["mhz"] * 1e3)
+    tab_f8 = torch.as_tensor(aes.expand_keys_batch(
+        rng.integers(0, 256, (SFU_N, 16), np.uint8))).to(dev)
+    for label, p in ((f"{burst}x10 len 80-180 (one SFU burst)", burst),
+                     ("1100x10 len 80-180 (the SFU tick)", SFU_N)):
+        legs = SFU_SIZE - 1
+        lens = rng.integers(80, 181, p)
+        host = _fanout_case(rng, p, legs, lens, 192, SFU_N)
+        args = [torch.as_tensor(x).to(dev) for x in host]
+        iv = torch.as_tensor(rng.integers(0, 256, (p, 16), np.uint8)).to(dev)
+        n = p * legs
+        ks_blocks = ((lens - HDR - 8 + 15) // 16) * legs
+        mac_blocks = int((((lens + 4 + 9 + 63) // 64 + 1) * legs).sum())
+        base = p * 192 + p * 20 + n * (192 + 4 + 8 + 40)
+        for cipher in ("cm", "null", "f8"):
+            f8, civ = (tab_f8, iv) if cipher == "f8" else (None, None)
+            name = f"srtp_fanout_{cipher}"
+
+            def fn(cipher=cipher, f8=f8, civ=civ):
+                return sk.srtp_fanout_protect(*args, TAG, cipher, f8, civ)
+
+            def plain(cipher=cipher, f8=f8, civ=civ):
+                return sk.srtp_fanout_protect_plain(*args, TAG, cipher, f8,
+                                                    civ)
+
+            err = max_abs_err(torch, fn(), plain())
+            require(err == 0, f"{name} {label} differs from its plain "
+                              "version")
+            ops = mac_blocks * SHA1_BLOCK_OPS
+            nbytes = base
+            if cipher == "cm":
+                ops += int(ks_blocks.sum()) * (aes_block_ops(10)
+                                               + CTR_XOR_OPS)
+                nbytes += n * (176 + 16)
+                chain_ms = None
+            elif cipher == "f8":
+                ops += (int(ks_blocks.sum()) + n) * aes_block_ops(10) \
+                    + int(ks_blocks.sum()) * CTR_XOR_OPS
+                nbytes += n * 2 * 176 + p * 16
+                chain_ms = floor_ms + (int((lens - HDR - 8 + 15).max()
+                                           // 16) + 1) * pair_ms
+            else:
+                chain_ms = mac_floor_ms(floor_ms, chain, int(lens.max()) + 4)
+            line = _profile_line(
+                name, label, _crypto_times(torch, fn, name + "_kernel",
+                                           plain), nbytes, ops, floor_ms,
+                chain_ms)
+            line["max_abs_err"] = err
+            emit("kernel_vs_plain", **line)
+            if p == burst and cipher != "cm":
+                rows[name] = line
+    return rows
+
+
 # ---------------------------------------------------------- 10. SFU path
 
-def _sfu_setup(torch, dev) -> dict:
-    """Keys, SSRCs, conferences and every tick's client wire: each
-    endpoint sends one Opus-sized packet a tick (12-byte header, 8-byte
-    abs-send-time extension, 60-160-byte payload; some senders' seqs
-    wrap), in a seeded order cut into SFU_BURSTS bursts; one RR a sender
-    at each of SFU_RR_TICKS (one of them reporting 5% loss) and, at
-    SFU_NACK_TICK, a NACK from one receiver in each of 10 conferences
-    for the previous tick's packets of three of its mates."""
+def _sfu_setup(torch, dev, profile: str = "AES_CM_128_HMAC_SHA1_80",
+               ticks: int = SFU_TICKS + SFU_PROFILED,
+               with_rtcp: bool = True) -> dict:
+    """Keys, SSRCs, conferences and every tick's client wire under
+    `profile`: each endpoint sends one Opus-sized packet a tick (12-byte
+    header, 8-byte abs-send-time extension, 60-160-byte payload; some
+    senders' seqs wrap), in a seeded order cut into SFU_BURSTS bursts;
+    with `with_rtcp`, one RR a sender at each of SFU_RR_TICKS (one of them
+    reporting 5% loss) and, at SFU_NACK_TICK, a NACK from one receiver in
+    each of 10 conferences for the previous tick's packets of three of
+    its mates."""
     from libjitsi_tpu_torch.core.packet import PacketBatch
     from libjitsi_tpu_torch.rtp import header as rtp_header
     from libjitsi_tpu_torch.rtp import rtcp
     from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
 
-    n, ticks = SFU_N, SFU_TICKS + SFU_PROFILED
+    n = SFU_N
     rng = np.random.default_rng(29)
     keys = {d: (rng.integers(0, 256, (n, 16), np.uint8),
                 rng.integers(0, 256, (n, 14), np.uint8)) for d in ("rx", "tx")}
@@ -1962,7 +2165,7 @@ def _sfu_setup(torch, dev) -> dict:
     seq0[::7] = 65536 - 20                  # these wrap within the run
     order = rng.permutation(n)              # the client's send order
     bursts = np.array_split(order, SFU_BURSTS)
-    up = SrtpStreamTable(n, device=dev)
+    up = SrtpStreamTable(n, SrtpProfile[profile], device=dev)
     up.add_streams(np.arange(n), *keys["rx"])
     payloads, wires, rtcp_wires = [], [], {}
     for t in range(ticks):
@@ -1975,6 +2178,11 @@ def _sfu_setup(torch, dev) -> dict:
                                  stream=list(range(n)))
         payloads.append(pl)
         wires.append(up.protect_rtp(plain))
+    nacked = {}
+    if not with_rtcp:
+        return dict(keys=keys, ssrc=ssrc, conf=conf, seq0=seq0,
+                    bursts=bursts, payloads=payloads, wires=wires, rtcp={},
+                    nacked=nacked, profile=profile)
     for t in SFU_RR_TICKS:
         blobs = []
         for k in range(n):
@@ -1987,7 +2195,6 @@ def _sfu_setup(torch, dev) -> dict:
         rtcp_wires[t] = up.protect_rtcp(PacketBatch.from_payloads(
             blobs, stream=list(range(n))))
     nackers = np.arange(min(10, SFU_CONFS)) * SFU_SIZE + 1
-    nacked = {}
     blobs = []
     for r in nackers:
         mates = [r + 1, r + 2, r + 3]
@@ -2000,14 +2207,16 @@ def _sfu_setup(torch, dev) -> dict:
         blobs, stream=nackers.tolist()))
     return dict(keys=keys, ssrc=ssrc, conf=conf, seq0=seq0, bursts=bursts,
                 payloads=payloads, wires=wires, rtcp=rtcp_wires,
-                nacked=nacked)
+                nacked=nacked, profile=profile)
 
 
-def _sfu_bridge(torch, dev, setup):
+def _sfu_bridge(torch, dev, setup, **kwargs):
     from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
 
     (rk, rs), (tk, ts) = setup["keys"]["rx"], setup["keys"]["tx"]
-    bridge = SfuBridge(capacity=SFU_N, device=dev)
+    bridge = SfuBridge(capacity=SFU_N, profile=SrtpProfile[setup["profile"]],
+                       device=dev, **kwargs)
     sids = bridge.stage_endpoints(
         [(int(setup["ssrc"][k]), (rk[k].tobytes(), rs[k].tobytes()),
           (tk[k].tobytes(), ts[k].tobytes()), None) for k in range(SFU_N)],
@@ -2087,11 +2296,11 @@ def sfu_run(torch, dev, setup) -> dict:
     fanout = []
     emit_fanout = bridge._emit_fanout
 
-    def logged(wire, recv):
+    def logged(wire, recv, origin=None):
         ready = np.nonzero(bridge.loop.addr_port[recv] != 0)[0]
         fanout.append((wire.data[ready], np.asarray(wire.length)[ready],
                        recv[ready]))
-        return emit_fanout(wire, recv)
+        return emit_fanout(wire, recv, origin=origin)
 
     bridge._emit_fanout = logged
     client = UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=4096,
@@ -2171,30 +2380,16 @@ def _sfu_cpu(torch, setup, sends, snap) -> list:
     return equal
 
 
-def sfu_check(torch, dev, run) -> None:
-    """Gates of the SFU path: no echo and no copy across conferences
-    (from the bridge's fan-out log), `forwarded` equal to the accepted
-    packets times their latched mates, every NACKed seq served, the
-    card's sends equal to the CPU run's at SFU_CPU_TICKS, and every copy
-    the client received authenticated under its leg's key and equal to
-    what its sender sent.  Then SFU_PROFILED more ticks under
-    torch.profiler."""
-    from libjitsi_tpu_torch.core.packet import PacketBatch
+def _fanout_log(setup, fanout) -> tuple:
+    """A bridge's fan-out log read back: the leg of each copy (keyed by
+    its seq, SSRC and tag), its self-echo and cross-conference copies,
+    and the copies logged."""
     from libjitsi_tpu_torch.rtp import header as rtp_header
-    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 
-    setup, bridge = run["setup"], run["bridge"]
-    conf, ssrc = setup["conf"], setup["ssrc"]
-    sid_of = {int(s): k for k, s in enumerate(ssrc)}
-    require(int(bridge.rx_table.auth_fail.sum()) == 0
-            and int(bridge.rx_table.replay_reject.sum()) == 0,
-            "the bridge rejected genuine uplink packets")
-    require(run["taken"] == SFU_TICKS * SFU_N + sum(
-        w.batch_size for w in setup["rtcp"].values()),
-        "the bridge did not take every datagram sent")
-    # the fan-out log: leg of each copy, sender from its SSRC
+    conf = setup["conf"]
+    sid_of = {int(s): k for k, s in enumerate(setup["ssrc"])}
     leg_of, echo, cross, copies = {}, 0, 0, 0
-    for data, length, recv in run["fanout"]:
+    for data, length, recv in fanout:
         snd = np.array([sid_of[int(v)] for v in rtp_header.read_u32(
             data, 8)])
         echo += int((snd == recv).sum())
@@ -2203,23 +2398,23 @@ def sfu_check(torch, dev, run) -> None:
         for i in range(len(recv)):
             pkt = data[i, :length[i]].tobytes()
             leg_of[pkt[2:4] + pkt[8:12] + pkt[-TAG:]] = int(recv[i])
-    require(echo == 0 and cross == 0,
-            f"sfu: {echo} self-echo and {cross} cross-conference copies")
-    require(bridge.forwarded == copies == run["expected"],
-            f"sfu: forwarded {bridge.forwarded}, logged {copies}, "
-            f"expected {run['expected']}")
-    nack = run["nack"]
-    n_nacked = 3 * len(setup["nacked"])
-    require(nack["retransmitted"] == nack["served"] == n_nacked
-            and nack["cache_miss"] == 0, f"sfu NACK service: {nack}")
-    t0 = time.perf_counter()
-    equal = _sfu_cpu(torch, setup, run["sends"], run["snap"])
-    cpu_s = time.perf_counter() - t0
-    # the client's copies: each (unique) one authenticated under its
-    # leg's key in a card table with a row per (leg, sender), and its
-    # payload equal to what the sender sent
-    got = [p for p in run["received"] if not 192 <= p[1] <= 223]
-    fb = len(run["received"]) - len(got)
+    return leg_of, echo, cross, copies
+
+
+def _check_copies(torch, dev, setup, received, leg_of, ticks: int) -> dict:
+    """Every (unique) media copy the client received authenticated under
+    its leg's key, in a card table of the setup's profile with a row per
+    (leg, sender), and its payload equal to what its sender sent in one
+    of the first `ticks` ticks (under AES-F8 the copy decrypts to it,
+    under NULL it carries it in clear).  Returns the counts."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    conf, ssrc = setup["conf"], setup["ssrc"]
+    sid_of = {int(s): k for k, s in enumerate(ssrc)}
+    got = [p for p in received if not 192 <= p[1] <= 223]
     uniq = list(dict.fromkeys(got))
     rows = {}
     for leg in range(SFU_N):
@@ -2228,7 +2423,8 @@ def sfu_check(torch, dev, run) -> None:
                  if m != leg]
         for j, m in enumerate(mates):
             rows[(leg, m)] = leg * (SFU_SIZE - 1) + j
-    down = SrtpStreamTable(len(rows), device=dev)
+    down = SrtpStreamTable(len(rows), SrtpProfile[setup["profile"]],
+                           device=dev)
     tk, ts = setup["keys"]["tx"]
     legs = np.repeat(np.arange(SFU_N), SFU_SIZE - 1)
     down.add_streams(np.arange(len(rows)), tk[legs], ts[legs])
@@ -2265,7 +2461,7 @@ def sfu_check(torch, dev, run) -> None:
         k = by_ssrc[np.searchsorted(ssrc, dh.ssrc.astype(np.int64),
                                     sorter=by_ssrc)]
         t = (dh.seq.astype(np.int64) - setup["seq0"][k]) & 0xFFFF
-        require(bool((t < SFU_TICKS).all() and (dh.payload_off == HDR + 8)
+        require(bool((t < ticks).all() and (dh.payload_off == HDR + 8)
                      .all()), "sfu: a copy's seq or header is not its "
                               "sender's")
         body = dec.data[:, HDR + 8:HDR + 8 + 160]
@@ -2274,6 +2470,42 @@ def sfu_check(torch, dev, run) -> None:
         require(bool((n_pay == plen[t, k]).all()
                      and (body == pay[t, k]).all()),
                 "sfu: a decrypted copy differs from what its sender sent")
+    return dict(copies_received=len(got), copies_unique=len(uniq),
+                copies_authenticated=authed,
+                feedback_received=len(received) - len(got))
+
+
+def sfu_check(torch, dev, run) -> None:
+    """Gates of the SFU path: no echo and no copy across conferences
+    (from the bridge's fan-out log), `forwarded` equal to the accepted
+    packets times their latched mates, every NACKed seq served, the
+    card's sends equal to the CPU run's at SFU_CPU_TICKS, and every copy
+    the client received authenticated under its leg's key and equal to
+    what its sender sent.  Then SFU_PROFILED more ticks under
+    torch.profiler, and the gates of the pipelined run
+    (`sfu_pipelined_check`)."""
+    setup, bridge = run["setup"], run["bridge"]
+    require(int(bridge.rx_table.auth_fail.sum()) == 0
+            and int(bridge.rx_table.replay_reject.sum()) == 0,
+            "the bridge rejected genuine uplink packets")
+    require(run["taken"] == SFU_TICKS * SFU_N + sum(
+        w.batch_size for w in setup["rtcp"].values()),
+        "the bridge did not take every datagram sent")
+    leg_of, echo, cross, copies = _fanout_log(setup, run["fanout"])
+    require(echo == 0 and cross == 0,
+            f"sfu: {echo} self-echo and {cross} cross-conference copies")
+    require(bridge.forwarded == copies == run["expected"],
+            f"sfu: forwarded {bridge.forwarded}, logged {copies}, "
+            f"expected {run['expected']}")
+    nack = run["nack"]
+    n_nacked = 3 * len(setup["nacked"])
+    require(nack["retransmitted"] == nack["served"] == n_nacked
+            and nack["cache_miss"] == 0, f"sfu NACK service: {nack}")
+    t0 = time.perf_counter()
+    equal = _sfu_cpu(torch, setup, run["sends"], run["snap"])
+    cpu_s = time.perf_counter() - t0
+    counts = _check_copies(torch, dev, setup, run["received"], leg_of,
+                           SFU_TICKS)
     rcvbuf = run["client"].rcvbuf
     forwarded = bridge.forwarded
     prof = _sfu_profile(torch, bridge, setup, run["client"])
@@ -2290,12 +2522,162 @@ def sfu_check(torch, dev, run) -> None:
          forwarded=forwarded, expected_forwarded=run["expected"],
          retransmitted=nack["retransmitted"], nacked=n_nacked,
          feedback_sent=run["feedback_sent"],
-         client_rcvbuf_bytes=rcvbuf,
-         copies_received=len(got), copies_unique=len(uniq),
-         copies_authenticated=authed, feedback_received=fb,
+         client_rcvbuf_bytes=rcvbuf, **counts,
          self_echo=0, cross_conference=0, equal_to_cpu_ticks=equal,
          cpu_run_s=cpu_s, launches_per_tick=run["launches_per_tick"],
          profile=prof)
+    sfu_pipelined_check(torch, dev, run["pipelined"])
+
+
+def _sfu_drive(torch, dev, setup, ticks: int, **kwargs) -> dict:
+    """A fresh bridge of the setup's profile (`kwargs` to SfuBridge)
+    driven through the setup's first `ticks` ticks of media from one
+    client socket (drained by a thread), then idle ticks, which ship a
+    pipelined bridge's last fan-out.  Returns the bridge, its fan-out
+    log, the client's datagrams, each tick's bridge seconds and the
+    forwards a serial bridge makes."""
+    import threading
+
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+
+    bridge = _sfu_bridge(torch, dev, setup, **kwargs)
+    fanout = []
+    emit_fanout = bridge._emit_fanout
+
+    def logged(wire, recv, origin=None):
+        ready = np.nonzero(bridge.loop.addr_port[recv] != 0)[0]
+        fanout.append((wire.data[ready], np.asarray(wire.length)[ready],
+                       recv[ready]))
+        return emit_fanout(wire, recv, origin=origin)
+
+    bridge._emit_fanout = logged
+    client = UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=4096,
+                       rcvbuf=64 << 20)
+    got, stop = [], threading.Event()
+
+    def drain():
+        while not stop.is_set():
+            b, _, _ = client.recv_batch(timeout_ms=5)
+            got.extend(b.to_payloads())
+
+    th = threading.Thread(target=drain, daemon=True)
+    th.start()
+    latched = np.zeros(SFU_N, dtype=bool)
+    res = dict(tick_s=[], expected=0, taken=0)
+    try:
+        for t in range(ticks):
+            secs, taken, expect = _sfu_tick(bridge, setup, t, client,
+                                            latched)
+            res["tick_s"].append(secs)
+            res["taken"] += taken
+            res["expected"] += expect
+        for _ in range(3):
+            bridge.tick(now=1000.0 + 0.02 * ticks)
+    finally:
+        time.sleep(0.05)
+        stop.set()
+        th.join()
+    res.update(bridge=bridge, client=client, received=got, fanout=fanout,
+               setup=setup)
+    return res
+
+
+def _journey_p99_bucket(hist) -> float:
+    """The `le` edge of the journey histogram's bucket that holds the
+    99th percentile (inf if it overflowed)."""
+    cum = np.cumsum(hist.bucket_counts)
+    if cum[-1] == 0:
+        return float("nan")
+    i = int(np.searchsorted(cum, int(np.ceil(0.99 * cum[-1]))))
+    return float(hist.uppers[i]) if i < len(hist.uppers) else float("inf")
+
+
+def sfu_path(torch, dev, setup) -> dict:
+    """The sfu path: the serial bridge's run (`sfu_run`), then a
+    `pipelined=True` bridge through SFU_PIPE_TICKS ticks of the same
+    input."""
+    run = sfu_run(torch, dev, setup)
+    run["pipelined"] = _sfu_drive(torch, dev, setup, SFU_PIPE_TICKS,
+                                  pipelined=True)
+    return run
+
+
+def sfu_pipelined_check(torch, dev, run) -> None:
+    """Gates of the pipelined SfuBridge: no fan-out left in flight, no
+    echo and no copy across conferences, every logged copy delivered to
+    the client exactly once (its fan-out ships a burst later, to every
+    mate latched by then, so at least the serial bridge's forwards), each
+    authenticated under its leg's key and equal to what its sender
+    sent."""
+    setup, bridge = run["setup"], run["bridge"]
+    require(not bridge._pending_fanout, "a pipelined fan-out never shipped")
+    leg_of, echo, cross, copies = _fanout_log(setup, run["fanout"])
+    require(echo == 0 and cross == 0, f"sfu pipelined: {echo} self-echo "
+                                      f"and {cross} cross-conference copies")
+    counts = _check_copies(torch, dev, setup, run["received"], leg_of,
+                           SFU_PIPE_TICKS)
+    require(bridge.forwarded == copies == counts["copies_received"]
+            == counts["copies_unique"] >= run["expected"],
+            f"sfu pipelined: forwarded {bridge.forwarded}, logged {copies}, "
+            f"received {counts}, serial forwards {run['expected']}")
+    journey = bridge.loop.journey_hist
+    require(journey.count == copies, "sfu pipelined: a copy's journey was "
+                                     "not observed")
+    secs = np.array(run["tick_s"])
+    emit("sfu_pipelined", ticks=SFU_PIPE_TICKS,
+         tick_ms_p50=float(np.median(secs)) * 1e3,
+         tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+         forwarded=bridge.forwarded, serial_forwards=run["expected"],
+         journey_p99_bucket_s=_journey_p99_bucket(journey),
+         journey_mean_ms=journey.sum / max(journey.count, 1) * 1e3,
+         **counts)
+    bridge.close()
+    run["client"].close()
+
+
+def sfu_profiles_run(torch, dev, setups) -> dict:
+    """The SFU under NULL_HMAC_SHA1_80 and F8_128_HMAC_SHA1_80 at config
+    #5's width (100 conferences x 11 endpoints, 60-160-byte payloads
+    with abs-send-time), SFU_PROFILE_TICKS ticks each, on the D and H
+    instances of the profile's cipher."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    runs = {prof: _sfu_drive(torch, dev, setups[prof], SFU_PROFILE_TICKS)
+            for prof in SFU_PROFILES}
+    launches = dict(kbuild.launches)
+    return dict(runs=runs, launches_per_tick={
+        k: v / (SFU_PROFILE_TICKS * len(SFU_PROFILES))
+        for k, v in launches.items()})
+
+
+def sfu_profiles_check(torch, dev, out) -> None:
+    """Per profile: every uplink packet authenticated, `forwarded` equal
+    to the accepted packets times their latched mates and to the copies
+    the client received, each once, no echo or cross-conference copy,
+    and every copy authenticated under its leg's table of the profile
+    with the sender's bytes (decrypted under AES-F8, in clear under
+    NULL)."""
+    for prof, run in out["runs"].items():
+        setup, bridge = run["setup"], run["bridge"]
+        require(int(bridge.rx_table.auth_fail.sum()) == 0
+                and run["taken"] == SFU_PROFILE_TICKS * SFU_N,
+                f"sfu {prof}: the bridge did not take every packet")
+        leg_of, echo, cross, copies = _fanout_log(setup, run["fanout"])
+        require(echo == 0 and cross == 0,
+                f"sfu {prof}: {echo} self-echo, {cross} cross-conference")
+        counts = _check_copies(torch, dev, setup, run["received"], leg_of,
+                               SFU_PROFILE_TICKS)
+        require(bridge.forwarded == copies == run["expected"]
+                == counts["copies_received"] == counts["copies_unique"],
+                f"sfu {prof}: forwarded {bridge.forwarded}, logged "
+                f"{copies}, expected {run['expected']}, received {counts}")
+        secs = np.array(run["tick_s"])
+        emit("sfu_profile", profile=prof, ticks=SFU_PROFILE_TICKS,
+             tick_ms_p50=float(np.median(secs)) * 1e3,
+             tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+             forwarded=bridge.forwarded, **counts)
+        bridge.close()
+        run["client"].close()
 
 
 def _sfu_profile(torch, bridge, setup, client) -> dict:
@@ -2391,7 +2773,8 @@ def profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
             nbytes = (2 * n * width + n * (5 * 4 + 16)
                       + len(np.unique(part.stream)) * keys_per)
             chain_ms = (floor_ms + (int(ks_blocks.max()) + 1) * pair_ms
-                        if cipher == "f8" else None)
+                        if cipher == "f8" else
+                        mac_floor_ms(floor_ms, chain, int(length.max()) + 4))
             for direction, fn, plain in (
                     ("protect", lambda: sk.srtp_protect(*args, TAG, cipher,
                                                         f8),
@@ -2411,14 +2794,14 @@ def profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
                                               chain_floor_ms=0.0))
                 for k in ("ms", "call_ms", "plain_ms", "bytes", "ops"):
                     a[k] += line[k]
-                a["chain_floor_ms"] += chain_ms or 0.0
+                a["chain_floor_ms"] += chain_ms
         for name, a in acc.items():
             times = {k: a[k] for k in ("ms", "call_ms", "plain_ms")}
             rows[name] = _profile_line(
                 name, f"one {BATCH}-packet production-mix batch as the "
                       f"table buckets it, {len(labels)} launches: "
                       + " + ".join(labels), times, a["bytes"], a["ops"],
-                floor_ms, a["chain_floor_ms"] if cipher == "f8" else None)
+                floor_ms, a["chain_floor_ms"])
         # SRTCP at the path's launch: 1,100 compound packets in 1,504-byte
         # rows, E set under F8 and clear under NULL
         n, width = PROFILE_RTCP, 1504
@@ -2449,7 +2832,8 @@ def profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
                 + int(ks_blocks.sum()) * CTR_XOR_OPS
         nbytes = 2 * n * width + n * (4 + 16 + 4 + 4) + n * keys_per
         chain_ms = (floor_ms + (int(ks_blocks.max()) + 1) * pair_ms
-                    if cipher == "f8" else None)
+                    if cipher == "f8" else
+                    mac_floor_ms(floor_ms, chain, int(lens.max()) + 4))
         for direction, fn, plain in (
                 ("protect", lambda: sk.srtcp_protect(*pa, TAG, cipher, f8),
                  lambda: sk.srtcp_protect_plain(*pa, TAG, cipher, f8)),

@@ -5,8 +5,15 @@ Counterpart: `libjitsi_tpu/io/udp.py` and the recvmmsg/sendmmsg part of
 the C engine (`native/udp_engine.cpp`), built with g++ at first use into
 the package's git-ignored `build/` directory and loaded with ctypes.
 Receives land directly in a PacketBatch-shaped buffer ([max_batch,
-capacity] uint8 + int32 lengths).  The JAX engine's io_uring mode,
-kernel timestamps and zero-copy arena views are not part of this slice.
+capacity] uint8 + int32 lengths), one of a ring of receive arenas:
+`recv_batch` copies a window out of its arena, and `recv_batch_view`
+(the deep-pipelined loop's ingress) hands out views of the arena, pinned
+until `release_arena`; a pinned arena is never handed back to the
+kernel, and the ring grows when every arena is pinned (JAX
+`io/udp.py:138-170, 305-335, 413-444`).  The ring is Python-side: the C
+engine scatters into whatever buffer it is given.  The JAX engine's
+io_uring mode and kernel timestamps are not part of the port yet
+(ROADMAP Queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -29,6 +36,10 @@ _SRC = os.path.join(_PKG_DIR, "native", "udp_engine.cpp")
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 _lib = None
 _lock = threading.Lock()
+
+#: receive arenas an engine starts with; the ring grows past it only
+#: while every arena is pinned by a live view
+ARENAS = 4
 
 
 def _build() -> str:
@@ -76,6 +87,33 @@ def _load():
     return _lib
 
 
+class _ArenaToken:
+    """Pin receipt handed out with every zero-copy view; idempotent, so a
+    double release can never steal another view's pin."""
+
+    __slots__ = ("arena", "gen", "released")
+
+    def __init__(self, arena: "_Arena", gen: int):
+        self.arena = arena
+        self.gen = gen
+        self.released = False
+
+
+class _Arena:
+    """One receive arena, the PacketBatch SoA the kernel scatters into.
+    `gen` tags its current occupancy; `pins` counts live views."""
+
+    __slots__ = ("buf", "len", "sip", "sport", "gen", "pins")
+
+    def __init__(self, rows: int, capacity: int):
+        self.buf = np.zeros((rows, capacity), dtype=np.uint8)
+        self.len = np.zeros(rows, dtype=np.int32)
+        self.sip = np.zeros(rows, dtype=np.uint32)
+        self.sport = np.zeros(rows, dtype=np.uint16)
+        self.gen = 0
+        self.pins = 0
+
+
 def ip_to_u32(ip: str) -> int:
     return struct.unpack("!I", socket.inet_aton(ip))[0]
 
@@ -88,21 +126,51 @@ class UdpEngine:
                  max_batch: int = 1024, rcvbuf: int = 4 << 20):
         lib = _load()
         self.capacity = capacity
+        #: recv windows honour the current value; the arenas are sized
+        #: from the constructor's
         self.max_batch = max_batch
         fd = lib.udp_create(bind_ip.encode(), port, int(reuseport), rcvbuf)
         if fd < 0:
             raise OSError(-fd, os.strerror(-fd))
         self._fd = fd
         self.port = lib.udp_local_port(fd)
-        self._buf = np.zeros((max_batch, capacity), dtype=np.uint8)
-        self._len = np.zeros(max_batch, dtype=np.int32)
-        self._sip = np.zeros(max_batch, dtype=np.uint32)
-        self._sport = np.zeros(max_batch, dtype=np.uint16)
+        self._rows = max_batch
+        self._ring = [_Arena(max_batch, capacity) for _ in range(ARENAS)]
+        self._ring_pos = 0
+        #: times the ring grew because every arena was pinned
+        self.arena_grows = 0
 
     @property
     def rcvbuf(self) -> int:
         """The receive buffer the kernel granted, in bytes."""
         return _load().udp_rcvbuf(self._fd)
+
+    def _next_arena(self) -> _Arena:
+        """The unpinned arena at the ring cursor; the ring grows when
+        every arena has a live view (a pinned arena is never handed back
+        to the kernel)."""
+        ring = self._ring
+        for _ in range(len(ring)):
+            a = ring[self._ring_pos]
+            if a.pins == 0:
+                return a
+            self._ring_pos = (self._ring_pos + 1) % len(ring)
+        a = _Arena(self._rows, self.capacity)
+        ring.insert(self._ring_pos, a)
+        self.arena_grows += 1
+        return a
+
+    def _recv_arena(self, timeout_ms: int) -> Tuple[_Arena, int]:
+        """One batching window into a fresh arena: (arena, n)."""
+        a = self._next_arena()
+        a.gen += 1                  # stale tokens of its last use die
+        n = _load().udp_recv_batch(
+            self._fd, a.buf.ctypes.data, self.capacity,
+            max(1, min(int(self.max_batch), self._rows)), a.len.ctypes.data,
+            a.sip.ctypes.data, a.sport.ctypes.data, timeout_ms)
+        if n < 0:
+            raise OSError(-n, os.strerror(-n))
+        return a, n
 
     def recv_batch(self, timeout_ms: int = 1
                    ) -> Tuple[PacketBatch, np.ndarray, np.ndarray]:
@@ -111,15 +179,34 @@ class UdpEngine:
         Returns (batch, src_ip_u32, src_port), batch_size 0 on timeout;
         the batch is a copy the caller may keep.
         """
-        n = _load().udp_recv_batch(
-            self._fd, self._buf.ctypes.data, self.capacity, self.max_batch,
-            self._len.ctypes.data, self._sip.ctypes.data,
-            self._sport.ctypes.data, timeout_ms)
-        if n < 0:
-            raise OSError(-n, os.strerror(-n))
-        batch = PacketBatch(self._buf[:n].copy(), self._len[:n].copy(),
+        a, n = self._recv_arena(timeout_ms)
+        batch = PacketBatch(a.buf[:n].copy(), a.len[:n].copy(),
                             np.full(n, -1, dtype=np.int32))
-        return batch, self._sip[:n].copy(), self._sport[:n].copy()
+        return batch, a.sip[:n].copy(), a.sport[:n].copy()
+
+    def recv_batch_view(self, timeout_ms: int = 1
+                        ) -> Tuple[PacketBatch, np.ndarray, np.ndarray]:
+        """Zero-copy `recv_batch`: the batch's data and lengths are views
+        of the receive arena, tagged `arena_token`; the arena stays
+        pinned until that token is passed to `release_arena`, exactly
+        once per batch."""
+        a, n = self._recv_arena(timeout_ms)
+        batch = PacketBatch(a.buf[:n], a.len[:n],
+                            np.full(n, -1, dtype=np.int32))
+        if n > 0:
+            a.pins += 1
+            batch.arena_token = _ArenaToken(a, a.gen)
+        return batch, a.sip[:n], a.sport[:n]
+
+    def release_arena(self, token) -> None:
+        """Drop the pin a `recv_batch_view` placed (`token` is the batch's
+        `arena_token`); a second release of a token does nothing."""
+        if token is None or token.released:
+            return
+        token.released = True
+        a = token.arena
+        if a.gen == token.gen and a.pins > 0:
+            a.pins -= 1
 
     def send_rows(self, batch: PacketBatch, rows, dst_ip, dst_port) -> int:
         """Send the selected rows in one multi-destination sendmmsg (the

@@ -35,7 +35,9 @@ KERNELS = ("aes_encrypt", "hmac_sha1", "srtp_protect_cm", "srtp_unprotect_cm",
            # (C's, D's, I's and J's NULL instances)
            "srtp_protect_f8", "srtp_unprotect_f8", "srtcp_protect_f8",
            "srtcp_unprotect_f8", "srtp_protect_null", "srtp_unprotect_null",
-           "srtcp_protect_null", "srtcp_unprotect_null")
+           "srtcp_protect_null", "srtcp_unprotect_null",
+           # kernel H's NULL and AES-F8 instances (the SFU fan-out)
+           "srtp_fanout_null", "srtp_fanout_f8")
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -69,6 +71,10 @@ _SIGNATURES = {
     "ljt_srtp_unprotect_f8": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                               _P, _P, _I, _I, _I, _I, _P],
     "ljt_srtp_fanout_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                           _P, _P, _I, _I, _I, _I, _P],
+    "ljt_srtp_fanout_null": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                             _P, _P, _I, _I, _I, _I, _P],
+    "ljt_srtp_fanout_f8": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
                            _P, _P, _I, _I, _I, _I, _P],
     "ljt_srtcp_protect_cm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _P],

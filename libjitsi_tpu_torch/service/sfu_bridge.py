@@ -21,18 +21,30 @@ Endpoints both send and receive: `add_endpoint(ssrc, rx_key, tx_key)`
 installs the sender-side SRTP row (what they send us), the SRTCP row
 of what we send them, and their receiver leg in the translator; routing
 is a full mesh, scoped to conferences where `stage_endpoints` gave
-conference ids.  The spans `reverse_chain` (SRTP/SRTCP unprotect),
-`recovery`, `forward_chain` (the fan-out) and `egress` split a tick in
-a profiler trace, beside the loop's `ingress`.  `device` None means the
+conference ids.  The loop's tracer spans `reverse_chain` (SRTP/SRTCP
+unprotect), `recovery`, `forward_chain` (the fan-out) and `egress` split
+a tick, beside the loop's `ingress`, in the stage ledger and in a
+profiler trace.  Profiles: AES-CM, AES-F8 and NULL with HMAC-SHA1 (the
+fan-out on kernel H's instance for the cipher).  `device` None means the
 card; the tests pass device="cpu".
+
+Pipelined (`pipelined=True` or `pipeline_depth` > 1, as in the JAX
+bridge): `_on_media` dispatches the fan-out (`translate_async`) and its
+copies are cached and sent at the start of the next media handling, or
+at the end of a tick that handled none, so kernel H and the copies'
+read-back overlap the next recv window; each copy's journey is charged
+to the tick its packet arrived on.  Every entry point that mutates the
+bridge (adding, staging, committing or removing endpoints) and
+`snapshot` ship the fan-out in flight first (`_quiesce_fanout`).  The
+SFU unprotects inside `_on_media` (the loop has no chain), so the loop's
+deep receive pipeline does not engage; depth > 1 pipelines the fan-out.
 
 Not ported, each raising `NotImplementedError` with its ROADMAP Queue 1
 item: DTLS joins (item 9), video and SVC tracks with RTX encapsulation
-(item 9), the pipelined tick (item 4), kernel timestamps and extra
-ingest rings (item 4), mesh mode, cascade trunks, broadcast
-conferences and endpoint migration (item 12), AEAD-GCM profiles (item
-8).  The JAX bridge's `config` and `engine_mode` arguments are not
-taken: the port's UDP engine has one mode.
+(item 9), kernel timestamps and extra ingest rings (item 4), mesh mode,
+cascade trunks, broadcast conferences and endpoint migration (item 12),
+AEAD-GCM profiles (item 8).  The JAX bridge's `config` and `engine_mode`
+arguments are not taken: the port's UDP engine has one mode.
 """
 
 from __future__ import annotations
@@ -41,7 +53,6 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-from torch.profiler import record_function
 
 from libjitsi_tpu_torch.bwe.batched import BatchedRemoteBitrateEstimator
 from libjitsi_tpu_torch.core.device import DeviceLike, resolve_device
@@ -81,17 +92,19 @@ class SfuBridge:
                  recovery_config: Optional[RecoveryConfig] = None,
                  ingest_rings: int = 1,
                  device: DeviceLike = None):
-        if pipelined or pipeline_depth > 1:
-            raise _not_ported("the pipelined SFU tick", 4)
         if kernel_timestamps or ingest_rings > 1:
             raise _not_ported("kernel timestamps and extra ingest rings", 4)
         if mesh is not None:
             raise _not_ported("mesh mode", 12)
-        if profile.policy.cipher != Cipher.AES_CM:
+        if profile.policy.cipher == Cipher.AES_GCM:
             raise _not_ported(f"profile {profile.value}", 8)
         self.device = resolve_device(device)
         self.capacity = capacity
         self.profile = profile
+        self.pipelined = pipelined or pipeline_depth > 1
+        # dispatched fan-outs: (PendingTranslate, journey origin)
+        self._pending_fanout: list = []
+        self._media_ran = False
         self.ast_ext_id = abs_send_time_ext_id
         self.registry = StreamRegistry(capacity, device=self.device)
         # rx_table: what endpoints SEND us (media + their SRTCP);
@@ -109,7 +122,7 @@ class SfuBridge:
         self.loop = MediaLoop(
             UdpEngine(port=port, max_batch=4 * capacity), self.registry,
             on_media=self._on_media, on_rtcp=self._on_rtcp, chain=None,
-            recv_window_ms=recv_window_ms)
+            recv_window_ms=recv_window_ms, pipeline_depth=pipeline_depth)
         self.port = self.loop.engine.port
         self._ssrc_of: Dict[int, int] = {}     # sid -> sender ssrc
         # rows keyed by stage_endpoints but not yet committed: their
@@ -146,6 +159,7 @@ class SfuBridge:
                      name: Optional[str] = None) -> int:
         if ssrc in self._ssrc_of.values():
             raise ValueError(f"ssrc {ssrc:#x} already joined")
+        self._quiesce_fanout()
         sid = self.registry.alloc(self)
         if name is not None:
             self.stream_names[sid] = name
@@ -168,6 +182,7 @@ class SfuBridge:
         sids = [int(s) for s in sids]
         if not sids:
             return
+        self._quiesce_fanout()
         rx_rows: list = []
         tx_rows: list = []
         gone_ssrcs: list = []
@@ -221,6 +236,7 @@ class SfuBridge:
         for ssrc, _rx, _tx, _name in specs:
             if ssrc in self._ssrc_of.values():
                 raise ValueError(f"ssrc {ssrc:#x} already joined")
+        self._quiesce_fanout()
         if sids is None:
             sids = [self.registry.alloc(self) for _ in specs]
         else:
@@ -260,6 +276,7 @@ class SfuBridge:
         sids = [int(s) for s in sids if int(s) in self._staged]
         if not sids:
             return
+        self._quiesce_fanout()
         self._staged.difference_update(sids)
         self._rebuild_routes()
         for sid in sids:
@@ -305,10 +322,21 @@ class SfuBridge:
 
     # --------------------------------------------------------------- tick
     def _on_media(self, batch: PacketBatch, _ok) -> None:
-        """Decrypt once, fan out, cache per-leg copies, send."""
-        with record_function("reverse_chain"):
-            dec, ok, idx = self.rx_table.unprotect_rtp(batch,
-                                                       return_index=True)
+        """Decrypt once, fan out, cache per-leg copies, send; pipelined,
+        the fan-out is dispatched here and shipped by the next call (or
+        at the end of the next tick)."""
+        self._media_ran = True
+        loop = self.loop
+        perf = loop.perf
+        if self._pending_fanout:
+            self._flush_fanout()
+        perf.note_h2d(batch.data.nbytes + np.asarray(batch.length).nbytes)
+        with loop.tracer.span("reverse_chain"):
+            # the sync unprotect blends dispatch, compute and d2h
+            with perf.phase("device_compute"):
+                dec, ok, idx = self.rx_table.unprotect_rtp(
+                    batch, return_index=True)
+        perf.note_d2h(dec.data.nbytes)
         rows = np.nonzero(ok)[0]
         if len(rows) == 0:
             return None
@@ -317,18 +345,43 @@ class SfuBridge:
         hdr = rtp_header.parse(sub)
         # uplink loss detection: gaps in each sender's seq space queue
         # upstream NACKs (drained toward the sender by emit_feedback)
-        with record_function("recovery"):
+        with loop.tracer.span("recovery"):
             self.recovery.observe_rx(hdr.ssrc, hdr.seq, self._now)
         self._feed_bwe(sub, hdr)
         # the bridge's own abs-send-time, before the fan-out, so every
         # receiver leg can run receive-side GCC on its downlink
         sub, _ = self._ast.rtp_transformer.transform(sub)
-        with record_function("forward_chain"):
-            wire, recv = self.translator.translate(sub, idx[rows])
+        with loop.tracer.span("forward_chain"):
+            if self.pipelined:
+                # the copies leave on a later tick: charge their journey
+                # to this one, when the packets arrived
+                with perf.phase("dispatch"):
+                    pend = self.translator.translate_async(sub, idx[rows])
+                self._pending_fanout.append((pend, loop.journey_origin()))
+                return None
+            with perf.phase("device_compute"):
+                wire, recv = self.translator.translate(sub, idx[rows])
         self._emit_fanout(wire, recv)
         return None
 
-    def _emit_fanout(self, wire: PacketBatch, recv: np.ndarray) -> None:
+    def _quiesce_fanout(self) -> None:
+        """Ship the fan-out in flight before mutating state it may still
+        read: a recycled row must not receive a departed endpoint's
+        copies, and a snapshot must not miss copies already made."""
+        if self._pending_fanout:
+            self._flush_fanout()
+
+    def _flush_fanout(self) -> None:
+        perf = self.loop.perf
+        pending, self._pending_fanout = self._pending_fanout, []
+        for pend, origin in pending:
+            perf.fence(pend)
+            with perf.phase("d2h_transfer"):
+                wire, recv = pend.result()
+            self._emit_fanout(wire, recv, origin=origin)
+
+    def _emit_fanout(self, wire: PacketBatch, recv: np.ndarray,
+                     origin=None) -> None:
         if wire.batch_size == 0:
             return
         # a just-joined leg has no latched address yet: sending to
@@ -347,9 +400,12 @@ class SfuBridge:
         self.cache.insert_batch(
             (recv.astype(np.int64) << 32) | hdr.ssrc.astype(np.int64),
             hdr.seq, copies, now=self._now)
-        with record_function("egress"):
+        with self.loop.tracer.span("egress"):
             sent = self.loop.engine.send_batch(
                 wire, self.loop.addr_ip[recv], self.loop.addr_port[recv])
+            self.loop.note_journey_at(
+                origin if origin is not None
+                else self.loop.journey_origin(), sent, sids=recv)
         self.forwarded += sent
         # adaptive FEC over the PROTECTED per-leg copies (a recovered
         # packet still passes the receiver's SRTP auth); one FEC stream
@@ -364,7 +420,7 @@ class SfuBridge:
                     fec_addr.append(int(recv[j]))
             if fec_out:
                 fa = np.asarray(fec_addr, dtype=np.int64)
-                with record_function("egress"):
+                with self.loop.tracer.span("egress"):
                     self.loop.engine.send_batch(
                         PacketBatch.from_payloads(fec_out),
                         self.loop.addr_ip[fa], self.loop.addr_port[fa])
@@ -401,7 +457,7 @@ class SfuBridge:
         cache; everything else feeds RTCP termination.  Unauthenticated
         control packets are dropped: a spoofed NACK is a retransmission
         amplifier and a spoofed REMB caps the conference bitrate."""
-        with record_function("reverse_chain"):
+        with self.loop.tracer.span("reverse_chain"):
             dec, ok = self.rx_table.unprotect_rtcp(batch)
         for i in np.nonzero(np.asarray(ok))[0]:
             sid = int(batch.stream[i])
@@ -432,7 +488,7 @@ class SfuBridge:
                                        self._now):
             return      # over the retransmission-bandwidth budget
         out = PacketBatch.from_payloads(copies)
-        with record_function("egress"):
+        with self.loop.tracer.span("egress"):
             sent = self.loop.engine.send_batch(
                 out, self.loop.addr_ip[sid], self.loop.addr_port[sid])
         self.retransmitted += sent
@@ -449,7 +505,7 @@ class SfuBridge:
         now = time.time() if now is None else now
         if self._bwe_fed.any():
             self.bwe.update_estimate(now * 1000.0)
-        with record_function("recovery"):
+        with self.loop.tracer.span("recovery"):
             upstream = self.recovery.collect_upstream_nacks(now)
         for ssrc, seqs in upstream.items():
             self.rtcp_term.queue_nack(ssrc, seqs)
@@ -467,13 +523,18 @@ class SfuBridge:
         wire = self.tx_table.protect_rtcp(
             PacketBatch.from_payloads(blobs, stream=rows))
         addr = np.asarray(rows, dtype=np.int64)
-        with record_function("egress"):
+        with self.loop.tracer.span("egress"):
             return self.loop.engine.send_batch(
                 wire, self.loop.addr_ip[addr], self.loop.addr_port[addr])
 
     def tick(self, now: Optional[float] = None) -> dict:
         self._now = time.time() if now is None else now
+        self._media_ran = False
         rx = self.loop.tick()
+        if self._pending_fanout and not self._media_ran:
+            # no media this tick to ship it: flush here (a fan-out
+            # dispatched this tick keeps its overlap with the next window)
+            self._flush_fanout()
         return {"rx": rx, "forwarded": self.forwarded,
                 "retransmitted": self.retransmitted}
 
@@ -484,6 +545,7 @@ class SfuBridge:
         bank, endpoint rows, keys and SSRCs, receiver REMBs, conference
         ids and latched addresses.  The caches and recovery state are
         transient, as in the JAX bridge."""
+        self._quiesce_fanout()
         keyed = {sid: ssrc for sid, ssrc in self._ssrc_of.items()
                  if sid in self._tx_keys}
         return {
@@ -560,4 +622,6 @@ class SfuBridge:
         return bridge
 
     def close(self) -> None:
+        if self._pending_fanout:
+            self._flush_fanout()     # the last tick's media still ships
         self.loop.engine.close()

@@ -1,10 +1,11 @@
 """RTP translator — the SFU fan-out primitive (BASELINE config #5).
 
-Counterpart: `libjitsi_tpu/sfu/translator.py` `RtpTranslator`, AES-CM
-path.  Reference: `org.jitsi.impl.neomedia.rtp.translator.
-RTPTranslatorImpl` fans each received packet from one `StreamRTPManager`
-to all the others, re-running every receiver leg's send chain — one SRTP
-re-encrypt per receiver per packet (SURVEY §3.4).  Here the packets are
+Counterpart: `libjitsi_tpu/sfu/translator.py` `RtpTranslator`, the
+AES-CM, NULL and AES-F8 profiles with HMAC-SHA1.  Reference:
+`org.jitsi.impl.neomedia.rtp.translator.RTPTranslatorImpl` fans each
+received packet from one `StreamRTPManager` to all the others, re-running
+every receiver leg's send chain — one SRTP re-encrypt per receiver per
+packet (SURVEY §3.4).  Here the packets are
 decrypted once and one launch of kernel H (`csrc/srtp_fanout.cu`, through
 `transform.srtp.kernel.srtp_fanout_protect`) re-encrypts the whole
 (packets x receivers) grid.
@@ -22,8 +23,19 @@ row-class and width padding exist for XLA's compile cache and are not
 ported: a launch's rows are as wide as its longest copy with its tag,
 in whole 16-byte units.  Output rows are packet-major, each packet's
 receivers in the sorted order of its route, exactly as the JAX
-`translate` orders them.  AEAD-GCM fan-out (K11's `:73`, `:81`) is
-not ported yet (ROADMAP Queue 1, item 8).
+`translate` orders them.
+
+Under NULL_HMAC_SHA1_80 each copy is tagged under its leg's key and its
+payload stays in clear (H's NULL instance), as the JAX translator does
+(`encrypt = cipher != NULL`).  Under F8_128_HMAC_SHA1_80 each copy is
+encrypted with AES-F8 under its leg's keys (H's F8 instance): the
+translator keeps a second schedule a leg, k_e XOR m, as the F8 table
+does, and builds each packet's RFC 3711 §4.1.2 IV from its header and
+ROC.  The JAX translator encrypts F8 copies with AES-CM (its fault,
+ROADMAP Queue 3), so the port's F8 copies equal the F8 table's
+`protect_rtp` of the leg at the same index, not the JAX translator's.
+AEAD-GCM fan-out (K11's `:73`, `:81`) is not ported yet (ROADMAP Queue
+1, item 8).
 """
 
 from __future__ import annotations
@@ -39,6 +51,10 @@ from libjitsi_tpu_torch.kernels.sha1 import (hmac_precompute,
                                              hmac_precompute_batch)
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.transform.srtp import kernel
+from libjitsi_tpu_torch.transform.srtp.context import (CIPHER_NAME,
+                                                       Download,
+                                                       f8_rtp_iv,
+                                                       f8_schedules)
 from libjitsi_tpu_torch.transform.srtp.kdf import (derive_session_keys,
                                                    derive_session_keys_batch)
 from libjitsi_tpu_torch.transform.srtp.policy import (Auth, Cipher,
@@ -58,12 +74,13 @@ class RtpTranslator:
                  profile: SrtpProfile = SrtpProfile.AES_CM_128_HMAC_SHA1_80,
                  device: DeviceLike = None):
         policy = profile.policy
-        if policy.cipher != Cipher.AES_CM or policy.auth != Auth.HMAC_SHA1:
+        if policy.cipher == Cipher.AES_GCM or policy.auth != Auth.HMAC_SHA1:
             raise NotImplementedError(
                 f"fan-out for profile {profile.value} is not ported yet "
                 "(ROADMAP Queue 1, item 8)")
         self.profile = profile
         self.policy = policy
+        self.cipher = CIPHER_NAME[policy.cipher]
         self.device = resolve_device(device)
         rounds = {16: 11, 32: 15}[policy.enc_key_len]
         self.capacity = capacity
@@ -71,6 +88,10 @@ class RtpTranslator:
         self._rk = np.zeros((capacity, rounds, 16), dtype=np.uint8)
         self._mid = np.zeros((capacity, 2, 5), dtype=np.uint32)
         self._salt = np.zeros((capacity, 16), dtype=np.uint8)
+        # AES-F8: each leg's second schedule, k_e XOR m (RFC 3711
+        # §4.1.2.2), for IV'
+        self._rk_f8 = (np.zeros((capacity, rounds, 16), dtype=np.uint8)
+                       if self.cipher == "f8" else None)
         self._dev = None
         # routing: sender sid -> sorted receiver id array
         self._routes: Dict[int, np.ndarray] = {}
@@ -83,6 +104,10 @@ class RtpTranslator:
             master_key, master_salt, enc_key_len=p.enc_key_len,
             auth_key_len=p.auth_key_len, salt_len=p.salt_len)
         self._rk[rid] = expand_key(ks.rtp_enc)
+        if self._rk_f8 is not None:
+            self._rk_f8[rid] = f8_schedules(
+                np.frombuffer(ks.rtp_enc, np.uint8)[None],
+                np.frombuffer(ks.rtp_salt, np.uint8)[None])[0]
         self._mid[rid] = hmac_precompute(ks.rtp_auth)
         self._salt[rid, :p.salt_len] = np.frombuffer(ks.rtp_salt, np.uint8)
         self._salt[rid, p.salt_len:] = 0
@@ -106,6 +131,8 @@ class RtpTranslator:
             enc_key_len=p.enc_key_len, auth_key_len=p.auth_key_len,
             salt_len=p.salt_len)
         self._rk[rids] = expand_keys_batch(ksb.rtp_enc)
+        if self._rk_f8 is not None:
+            self._rk_f8[rids] = f8_schedules(ksb.rtp_enc, ksb.rtp_salt)
         self._mid[rids] = hmac_precompute_batch(ksb.rtp_auth)
         self._salt[rids, :p.salt_len] = ksb.rtp_salt
         self._salt[rids, p.salt_len:] = 0
@@ -116,6 +143,8 @@ class RtpTranslator:
         self.active[rid] = False
         self._rk[rid] = 0
         self._mid[rid] = 0
+        if self._rk_f8 is not None:
+            self._rk_f8[rid] = 0
         self._dev = None
         for s, rr in list(self._routes.items()):
             self._routes[s] = rr[rr != rid]
@@ -133,7 +162,7 @@ class RtpTranslator:
             raise ValueError("cannot move inactive receiver rows")
         if self.active[dst].any():
             raise ValueError("destination receiver rows occupied")
-        for tab in (self._rk, self._mid, self._salt):
+        for tab in self._key_tables():
             tab[dst] = tab[src]
         self.active[dst] = True
         remap = {int(s): int(d) for s, d in zip(src, dst)}
@@ -141,9 +170,13 @@ class RtpTranslator:
             self._routes[s_sid] = np.asarray(
                 [remap.get(int(r), int(r)) for r in rr], dtype=rr.dtype)
         self.active[src] = False
-        for tab in (self._rk, self._mid, self._salt):
+        for tab in self._key_tables():
             tab[src] = 0
         self._dev = None
+
+    def _key_tables(self):
+        tabs = [self._rk, self._mid, self._salt]
+        return tabs + ([self._rk_f8] if self._rk_f8 is not None else [])
 
     # ------------------------------------------------------------ routing
     def connect(self, sender_sid: int, receiver_ids: Sequence[int]) -> None:
@@ -160,7 +193,9 @@ class RtpTranslator:
             d = self.device
             self._dev = (to_device(self._rk, d),
                          to_device(self._mid.view(np.int32), d),
-                         to_device(self._salt, d))
+                         to_device(self._salt, d),
+                         None if self._rk_f8 is None
+                         else to_device(self._rk_f8, d))
         return self._dev
 
     # ------------------------------------------------------------ fan-out
@@ -179,8 +214,9 @@ class RtpTranslator:
 
     def translate_async(self, batch: PacketBatch, index: np.ndarray
                         ) -> "PendingTranslate":
-        """Launch-only `translate`: kernel H is enqueued on the device's
-        stream and the rows are read back on `.result()`."""
+        """Launch-only `translate`: kernel H's instance is enqueued on the
+        device's stream, its rows copied back behind a CUDA event on the
+        card, and `.result()` waits for them."""
         stream = np.asarray(batch.stream, dtype=np.int64)
         rows: List[int] = []
         recvs: List[np.ndarray] = []
@@ -191,7 +227,7 @@ class RtpTranslator:
             rows.append(i)
             recvs.append(rr)
         if not rows:
-            return PendingTranslate(None, None, np.zeros(0, np.int64),
+            return PendingTranslate(None, np.zeros(0, np.int64),
                                     batch.capacity)
         counts = np.array([len(r) for r in recvs])
         src = np.repeat(np.array(rows, dtype=np.int64), counts)
@@ -209,45 +245,56 @@ class RtpTranslator:
         width = min(batch.capacity, -(-(int(np.max(length[src]))
                                          + self.policy.auth_tag_len) // 16)
                     * 16)
-        return PendingTranslate(*self._cm_fanout_call(
-            batch.data[:, :width], length, hdr.payload_off, hdr.ssrc,
-            np.asarray(index, dtype=np.int64), src, recv), recv,
-            batch.capacity)
+        index = np.asarray(index, dtype=np.int64)
+        out, out_len = self._fanout_call(
+            batch.data[:, :width], length, hdr, index, src, recv)
+        return PendingTranslate(Download(self.device, out, out_len), recv,
+                                batch.capacity)
 
-    def _cm_fanout_call(self, data, length, payload_off, ssrc, index, src,
-                        recv):
-        """One launch of kernel H over the (packet, leg) rows."""
+    def _fanout_call(self, data, length, hdr, index, src, recv):
+        """One launch of kernel H's instance for the profile's cipher over
+        the (packet, leg) rows; under AES-F8 with each packet's IV."""
         d = self.device
-        tab_rk, tab_mid, tab_salt = self._device_tables()
+        tab_rk, tab_mid, tab_salt, tab_f8 = self._device_tables()
+        iv = None
+        if self.cipher == "f8":
+            iv = to_device(f8_rtp_iv(hdr, (index >> 16) & 0xFFFFFFFF), d)
         return kernel.srtp_fanout_protect(
             tab_rk, tab_mid, tab_salt, to_device(data, d),
             to_device(length, d),
-            to_device(np.asarray(payload_off, dtype=np.int32), d),
-            to_device((np.asarray(ssrc, dtype=np.int64) & 0xFFFFFFFF)
+            to_device(np.asarray(hdr.payload_off, dtype=np.int32), d),
+            to_device((np.asarray(hdr.ssrc, dtype=np.int64) & 0xFFFFFFFF)
                       .astype(np.uint32).view(np.int32), d),
             to_device(index, d), to_device(src.astype(np.int32), d),
-            to_device(recv.astype(np.int32), d), self.policy.auth_tag_len)
+            to_device(recv.astype(np.int32), d), self.policy.auth_tag_len,
+            self.cipher, tab_f8, iv)
 
 
 class PendingTranslate:
-    """An in-flight `translate_async` fan-out: `result()` reads the rows
-    back once (blocking) and caches them."""
+    """An in-flight `translate_async` fan-out: its rows on their way to
+    the host (`Download`: pinned copies behind a CUDA event on the card).
+    `block_until_ready()` waits for them; `result()` reads them once and
+    caches them."""
 
-    def __init__(self, out, out_len, recv: np.ndarray, capacity: int):
-        self._out = out
-        self._out_len = out_len
+    def __init__(self, download: Optional[Download], recv: np.ndarray,
+                 capacity: int):
+        self._download = download
         self.recv = recv
         self._capacity = capacity
         self._done: Optional[Tuple[PacketBatch, np.ndarray]] = None
 
+    def block_until_ready(self) -> "PendingTranslate":
+        if self._download is not None:
+            self._download.wait()
+        return self
+
     def result(self) -> Tuple[PacketBatch, np.ndarray]:
         if self._done is None:
-            if self._out is None:
+            if self._download is None:
                 wire = PacketBatch.empty(0, self._capacity)
             else:
-                wire = PacketBatch(self._out.cpu().numpy(),
-                                   self._out_len.cpu().numpy(),
-                                   self.recv.astype(np.int32))
+                data, length = self._download.numpy()
+                wire = PacketBatch(data, length, self.recv.astype(np.int32))
             self._done = (wire, self.recv)
-            self._out = self._out_len = None
+            self._download = None
         return self._done

@@ -73,11 +73,40 @@ from libjitsi_tpu_torch.transform.srtp.kdf import derive_session_keys_batch
 from libjitsi_tpu_torch.transform.srtp.policy import (Auth, Cipher,
                                                       SrtpPolicy, SrtpProfile)
 
-_CIPHER_NAME = {Cipher.AES_CM: "cm", Cipher.AES_F8: "f8", Cipher.NULL: "null"}
+#: the kernel wrappers' name for each ported cipher
+CIPHER_NAME = {Cipher.AES_CM: "cm", Cipher.AES_F8: "f8", Cipher.NULL: "null"}
 _GCM_ITEM = "ROADMAP Queue 1, item 8 (AEAD-GCM)"
 
 
-class _Download:
+def f8_schedules(enc: np.ndarray, salt: np.ndarray) -> np.ndarray:
+    """AES-F8's second schedules, of k_e XOR m with m = salt || 0x55..
+    (RFC 3711 §4.1.2.2, `kernels.aes.f8_m`), for [n, key] session keys
+    and [n, salt] session salts."""
+    m = np.full(enc.shape, 0x55, dtype=np.uint8)
+    m[:, :salt.shape[1]] = salt
+    return expand_keys_batch(enc ^ m)
+
+
+def f8_rtp_iv(hdr, roc: np.ndarray) -> np.ndarray:
+    """RFC 3711 §4.1.2.1: IV = 0x00 || M,PT || SEQ || TS || SSRC || ROC."""
+    n = len(hdr.seq)
+    iv = np.zeros((n, 16), dtype=np.uint8)
+    iv[:, 1] = ((np.asarray(hdr.marker) << 7) | np.asarray(hdr.pt)
+                ).astype(np.uint8)
+    iv[:, 2] = (hdr.seq >> 8) & 0xFF
+    iv[:, 3] = hdr.seq & 0xFF
+    ts = np.asarray(hdr.ts, dtype=np.int64)
+    ssrc = np.asarray(hdr.ssrc, dtype=np.int64)
+    roc = np.asarray(roc, dtype=np.int64)
+    for k in range(4):
+        sh = 8 * (3 - k)
+        iv[:, 4 + k] = (ts >> sh) & 0xFF
+        iv[:, 8 + k] = (ssrc >> sh) & 0xFF
+        iv[:, 12 + k] = (roc >> sh) & 0xFF
+    return iv
+
+
+class Download:
     """Device results on their way to the host.  On the card: pinned host
     tensors filled by non-blocking copies, and an event recorded after
     them; on the CPU: the tensors themselves."""
@@ -118,7 +147,7 @@ class SrtpStreamTable:
                 f"profile {profile.value} is not ported yet ({_GCM_ITEM})")
         self.profile = profile
         self.policy = policy
-        self.cipher = _CIPHER_NAME[policy.cipher]
+        self.cipher = CIPHER_NAME[policy.cipher]
         self._f8 = policy.cipher == Cipher.AES_F8
         self.capacity = capacity
         self.device = resolve_device(device)
@@ -253,15 +282,9 @@ class SrtpStreamTable:
         self._mid_rtp[sids] = hmac_precompute_batch(ksb.rtp_auth)
         self._mid_rtcp[sids] = hmac_precompute_batch(ksb.rtcp_auth)
         if self._f8:
-            for enc, salt, rkf in ((ksb.rtp_enc, ksb.rtp_salt,
-                                    self._rk_f8_rtp),
-                                   (ksb.rtcp_enc, ksb.rtcp_salt,
-                                    self._rk_f8_rtcp)):
-                # k_e XOR m, m = salt || 0x55.. (RFC 3711 §4.1.2.2,
-                # `kernels.aes.f8_m`)
-                m = np.full(enc.shape, 0x55, dtype=np.uint8)
-                m[:, :salt.shape[1]] = salt
-                rkf[sids] = expand_keys_batch(enc ^ m)
+            self._rk_f8_rtp[sids] = f8_schedules(ksb.rtp_enc, ksb.rtp_salt)
+            self._rk_f8_rtcp[sids] = f8_schedules(ksb.rtcp_enc,
+                                                  ksb.rtcp_salt)
         self._salt_rtp[sids] = 0
         self._salt_rtp[sids, :p.salt_len] = ksb.rtp_salt
         self._salt_rtcp[sids] = 0
@@ -386,25 +409,6 @@ class SrtpStreamTable:
         return iv
 
     @staticmethod
-    def _f8_rtp_iv(hdr, roc: np.ndarray) -> np.ndarray:
-        """RFC 3711 §4.1.2.1: IV = 0x00 || M,PT || SEQ || TS || SSRC || ROC."""
-        n = len(hdr.seq)
-        iv = np.zeros((n, 16), dtype=np.uint8)
-        iv[:, 1] = ((np.asarray(hdr.marker) << 7) | np.asarray(hdr.pt)
-                    ).astype(np.uint8)
-        iv[:, 2] = (hdr.seq >> 8) & 0xFF
-        iv[:, 3] = hdr.seq & 0xFF
-        ts = np.asarray(hdr.ts, dtype=np.int64)
-        ssrc = np.asarray(hdr.ssrc, dtype=np.int64)
-        roc = np.asarray(roc, dtype=np.int64)
-        for k in range(4):
-            sh = 8 * (3 - k)
-            iv[:, 4 + k] = (ts >> sh) & 0xFF
-            iv[:, 8 + k] = (ssrc >> sh) & 0xFF
-            iv[:, 12 + k] = (roc >> sh) & 0xFF
-        return iv
-
-    @staticmethod
     def _f8_rtcp_iv(data: np.ndarray, index_word: np.ndarray) -> np.ndarray:
         """RFC 3711 §4.1.2.4: IV = 0..0(32) || E||index || first 8 bytes of
         the RTCP packet (V,P,RC,PT,length,SSRC)."""
@@ -418,7 +422,7 @@ class SrtpStreamTable:
 
     def _rtp_iv(self, stream, hdr, idx) -> np.ndarray:
         if self._f8:
-            return self._f8_rtp_iv(hdr, idx >> 16)
+            return f8_rtp_iv(hdr, idx >> 16)
         return self._cm_iv(self._salt_rtp[stream], hdr.ssrc, idx)
 
     # ------------------------------------------------------ kdr epochs
@@ -604,7 +608,7 @@ class SrtpStreamTable:
         pend = []
         for rows, part, n in bucket_by_size(batch):
             data, length, stream = self._protect_dispatch(part)
-            pend.append((rows, (_Download(self.device, data, length),
+            pend.append((rows, (Download(self.device, data, length),
                                 stream), n))
         return PendingProtect(pend, batch.batch_size, batch.capacity)
 
@@ -672,7 +676,7 @@ class SrtpStreamTable:
             for rows, part, n in bucket_by_size(batch):
                 rec = self._unprotect_dispatch(part)
                 with record_function("srtp.download"):
-                    rec["res"] = _Download(torch.device("cpu"), *(
+                    rec["res"] = Download(torch.device("cpu"), *(
                         t.cpu() for t in rec["res"]))
                 parts.append((rows, rec, n, self._commit_part(rec)))
             res = _assemble_unprotect(parts, batch, return_index)
@@ -709,7 +713,7 @@ class SrtpStreamTable:
         pend = []
         for rows, part, n in bucket_by_size(batch):
             rec = self._unprotect_dispatch(part)
-            rec["res"] = _Download(self.device, *rec["res"])
+            rec["res"] = Download(self.device, *rec["res"])
             pend.append((rows, rec, n))
         p = PendingUnprotect(self, pend, batch, return_index)
         self._inflight_unprotect = p

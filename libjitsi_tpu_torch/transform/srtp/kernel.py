@@ -36,9 +36,10 @@ A row shorter than its tag fails authentication.
 
 Beside them: the SFU fan-out (`srtp_fanout_protect`, kernel H in
 `csrc/srtp_fanout.cu`, counterpart of `libjitsi_tpu/sfu/translator.py`
-`_fanout_protect`, AES-CM only), which protects every (packet, receiver
-leg) pair of P decrypted packets under the legs' keys, building each
-copy's IV on the card.
+`_fanout_protect`), which protects every (packet, receiver leg) pair of
+P decrypted packets under the legs' keys: under AES-CM building each
+copy's IV on the card, under AES-F8 gathering its packet's IV, under
+NULL tagging only (instances `srtp_fanout_cm`, `_f8`, `_null`).
 """
 
 from __future__ import annotations
@@ -249,47 +250,76 @@ def _fanout_iv(salt, ssrc, index):
 
 def srtp_fanout_protect_plain(tab_rk, tab_mid, tab_salt, data, length,
                               payload_off, ssrc, index, src, recv,
-                              tag_len: int
+                              tag_len: int, cipher: str = "cm",
+                              tab_f8: Optional[torch.Tensor] = None,
+                              iv: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch SFU fan-out: output row k is packet src[k] protected
-    under receiver leg recv[k]'s keys (tables `tab_rk`, `tab_mid`,
-    `tab_salt` [S, 16]), the IV built from the leg's salt, the packet's
-    SSRC (`ssrc` [P], uint32 bit patterns) and its 48-bit `index` [P]
-    (int64), the ROC taken as index >> 16.  Returns (out [N, W],
+    under receiver leg recv[k]'s keys (tables `tab_rk`, `tab_mid`), the ROC
+    taken as its 48-bit `index` [P] (int64) >> 16.  The IV under `cipher`:
+    "cm", built from the leg's salt (`tab_salt` [S, 16]), the packet's SSRC
+    (`ssrc` [P], uint32 bit patterns) and index; "f8", the packet's row of
+    `iv` [P, 16] (RFC 3711 §4.1.2), with `tab_f8` the legs' k_e XOR m
+    schedules; "null", none (the copy is tagged, not encrypted).
+    `tab_salt` and `ssrc` are read under "cm" only.  Returns (out [N, W],
     out_len [N])."""
-    _k.plain_calls["srtp_fanout_cm"] += 1
+    _k.plain_calls[f"srtp_fanout_{cipher}"] += 1
     p = src.long().clamp(0, data.shape[0] - 1)
     leg = recv.long().clamp(0, tab_rk.shape[0] - 1)
     idx = index.long()[p] & 0xFFFFFFFFFFFF
-    iv = _fanout_iv(tab_salt[leg], ssrc[p], idx)
+    if cipher == "cm":
+        civ = _fanout_iv(tab_salt[leg], ssrc[p], idx)
+    elif cipher == "f8":
+        civ = iv[p]
+    else:
+        civ = torch.zeros((p.shape[0], 16), dtype=torch.uint8,
+                          device=data.device)
     return _protect_rows(tab_rk, tab_mid, leg, data[p], length[p],
-                         payload_off[p], iv, idx >> 16, tag_len)
+                         payload_off[p], civ, idx >> 16, tag_len, cipher,
+                         tab_f8)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def srtp_fanout_protect(tab_rk, tab_mid, tab_salt, data, length,
-                        payload_off, ssrc, index, src, recv, tag_len: int
+                        payload_off, ssrc, index, src, recv, tag_len: int,
+                        cipher: str = "cm",
+                        tab_f8: Optional[torch.Tensor] = None,
+                        iv: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decrypt-once / re-encrypt-per-leg fan-out (reference:
     RTPTranslatorImpl re-running each receiver's send chain).
 
-    data [P, W] uint8 decrypted packets with length, payload_off and
-    ssrc [P] int32 and index [P] int64; src / recv [N] int32 say which
-    packet and which leg each output row is.  CUDA tensors go through
-    kernel H (`csrc/srtp_fanout.cu`); CPU tensors through
-    `srtp_fanout_protect_plain`.  Returns (out [N, W], out_len [N]).
+    data [P, W] uint8 decrypted packets with length, payload_off [P]
+    int32 and index [P] int64; src / recv [N] int32 say which packet and
+    which leg each output row is.  `cipher` "cm" reads tab_salt [S, 16]
+    and ssrc [P] int32; "f8" reads tab_f8 (the legs' k_e XOR m
+    schedules) and iv [P, 16] uint8; "null" neither.  CUDA tensors go
+    through kernel H's instance (`csrc/srtp_fanout.cu`:
+    `srtp_fanout_cm`, `srtp_fanout_f8`, `srtp_fanout_null`); CPU tensors
+    through `srtp_fanout_protect_plain`.  Returns (out [N, W], out_len
+    [N]).
     """
     args = (tab_rk, tab_mid, tab_salt, data, length, payload_off, ssrc,
             index, src, recv)
     if _k.route(data) == "cpu":
-        return srtp_fanout_protect_plain(*args, tag_len)
+        return srtp_fanout_protect_plain(*args, tag_len, cipher, tab_f8, iv)
     dev = data.device
     n_src, width = data.shape
     n = src.shape[0]
-    _check_tables(tab_rk, tab_mid, dev, tag_len, width)
-    _k.expect(tab_salt, "tab_salt", torch.uint8, dev, (tab_rk.shape[0], 16))
+    _check_tables(tab_rk, tab_mid, dev, tag_len, width, cipher, tab_f8)
+    if cipher == "cm":
+        _k.expect(tab_salt, "tab_salt", torch.uint8, dev,
+                  (tab_rk.shape[0], 16))
+        _k.expect(ssrc, "ssrc", torch.int32, dev, (n_src,))
+    if (iv is not None) != (cipher == "f8"):
+        raise ValueError("iv is given with cipher 'f8' and only then")
+    if iv is not None:
+        _k.expect(iv, "iv", torch.uint8, dev, (n_src, 16))
     _k.expect(data, "data", torch.uint8, dev)
-    for name, t in (("length", length), ("payload_off", payload_off),
-                    ("ssrc", ssrc)):
+    for name, t in (("length", length), ("payload_off", payload_off)):
         _k.expect(t, name, torch.int32, dev, (n_src,))
     _k.expect(index, "index", torch.int64, dev, (n_src,))
     _k.expect(src, "src", torch.int32, dev, (n,))
@@ -298,16 +328,25 @@ def srtp_fanout_protect(tab_rk, tab_mid, tab_salt, data, length,
         raise ValueError("fan-out rows name packets of an empty batch")
     out = torch.empty((n, width), dtype=torch.uint8, device=dev)
     out_len = torch.empty((n,), dtype=torch.int32, device=dev)
+    name = f"srtp_fanout_{cipher}"
     if n:
-        rc = _k.library().ljt_srtp_fanout_cm(
-            tab_rk.data_ptr(), tab_mid.data_ptr(), tab_salt.data_ptr(),
-            tab_rk.shape[0], data.data_ptr(), length.data_ptr(),
-            payload_off.data_ptr(), ssrc.data_ptr(), index.data_ptr(),
-            n_src, src.data_ptr(), recv.data_ptr(), out.data_ptr(),
-            out_len.data_ptr(), n, width, tab_rk.shape[1] - 1, tag_len,
-            _k.stream_handle(dev))
-        _k.check(rc, "srtp_fanout_cm")
-        _k.launches["srtp_fanout_cm"] += 1
+        tail = (n_src, src.data_ptr(), recv.data_ptr(), out.data_ptr(),
+                out_len.data_ptr(), n, width, tab_rk.shape[1] - 1, tag_len,
+                _k.stream_handle(dev))
+        lib = _k.library()
+        if cipher == "f8":
+            rc = lib.ljt_srtp_fanout_f8(
+                tab_rk.data_ptr(), tab_f8.data_ptr(), tab_mid.data_ptr(),
+                tab_rk.shape[0], data.data_ptr(), length.data_ptr(),
+                payload_off.data_ptr(), iv.data_ptr(), index.data_ptr(),
+                *tail)
+        else:
+            rc = getattr(lib, "ljt_" + name)(
+                tab_rk.data_ptr(), tab_mid.data_ptr(), _ptr(tab_salt),
+                tab_rk.shape[0], data.data_ptr(), length.data_ptr(),
+                payload_off.data_ptr(), _ptr(ssrc), index.data_ptr(), *tail)
+        _k.check(rc, name)
+        _k.launches[name] += 1
     return out, out_len
 
 

@@ -1,1 +1,2 @@
-"""Host utilities (array-state checkpointing)."""
+"""Host utilities: array-state checkpointing, metrics, pipeline tracing,
+phase profiling, the flight recorder and logging."""

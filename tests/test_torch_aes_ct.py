@@ -11,7 +11,10 @@ other than the state and round keys its functions take, any `__device__`
 list; and if any source under `csrc/` still names the T-table core that
 the circuit replaced, or if a subscript in `aes.cuh` names anything but
 a loop counter, the round or a compile-time constant (names kept apart
-from every state and key name; planted lookups must be refused).  On
+from every state and key name; planted lookups must be refused).  Kernel
+H's instances (`srtp_fanout_{cm,f8,null}` in `srtp_fanout.cu`) reach AES
+only through the tile's keystream stage, which runs the core, and hold
+no table of their own.  On
 the card, `chip_smoke.py`'s `sass` phase checks the built kernel A for
 shared memory and shared or indexed constant loads, and the core as the
 tile kernels run it for loads other than its round keys.  The S-box
@@ -162,6 +165,27 @@ def test_no_source_reaches_a_t_table():
             if gone.search(line):
                 hits.append(f"{n}:{i}: {line.strip()}")
     assert not hits, "\n".join(hits)
+
+
+@pytest.mark.parametrize("cipher", ["cm", "f8", "null"])
+def test_fanout_instances_reach_aes_only_through_the_core(cipher):
+    """Kernel H's instance for `cipher` is a kernel of its own whose
+    keystream stage is the tile's (`keystream_tile`, over `ctr_tile` or
+    `f8_tile` and the core's `ljt_aes_encrypt_pair`; none for NULL); the
+    source declares no table, constant or static shared memory and names
+    no AES routine but through that stage."""
+    code = _code(os.path.join(kbuild.CSRC_DIR, "srtp_fanout.cu"))
+    kind = {"cm": "kCm", "f8": "kF8", "null": "kNull"}[cipher]
+    m = re.search(r"srtp_fanout_" + cipher + r"_kernel\([^{]*\{\s*"
+                  r"srtp_fanout_tile<NR,\s*" + kind + r">", code, re.S)
+    assert m, f"no {cipher} instance of kernel H"
+    assert re.search(r"keystream_tile<NR,\s*C>", code)
+    for word in ("ljt_aes_encrypt_pair", "ctr_tile", "f8_tile",
+                 "__constant__", "static __shared__", "__ldg"):
+        assert word not in code, word
+    assert not re.search(r"\{\s*0x[0-9a-fA-F]+\s*,", code)
+    assert not re.search(r"__device__\s+(?:const\s+)?\w+\s+\w+\s*[=\[;]",
+                         code)
 
 
 class _Gate:

@@ -484,6 +484,47 @@ def test_fanout_kernel_matches_plain(cuda_device, key_len, p, width, counts):
     assert all(_same(a, b) for a, b in zip(got, want))
 
 
+# H's NULL and F8 instances at the CM cases' shapes (F8: every leg's k_e
+# XOR m schedule and packet IVs with counters near 2^32 in bytes 12-15)
+@pytest.mark.parametrize("cipher", ["null", "f8"])
+@pytest.mark.parametrize("key_len,p,width,counts", [
+    (16, 1, 64, [1]), (16, 5, 208, [3, 0, 10, 1, 4]),
+    (32, 4, 37, [2, 2, 5, 1]), (16, 1100, 208, [10] * 1100),
+    (16, 275, 192, [10] * 275), (16, 1, 32768, [1]),
+])
+def test_fanout_null_and_f8_kernels_match_plain(cuda_device, cipher,
+                                                key_len, p, width, counts):
+    rng = np.random.default_rng(p * width + key_len + len(cipher))
+    s = 1100
+    tab_rk, tab_f8 = (aes.expand_keys_batch(
+        rng.integers(0, 256, (s, key_len), np.uint8)) for _ in range(2))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    data = rng.integers(0, 256, (p, width), np.uint8)
+    length = rng.integers(12, width + 3, p).astype(np.int32)
+    length[:2] = [width - 10, width][:p]
+    off = np.full(p, 12, np.int32)
+    off[1::3] = 20
+    off[2::5] = width + 3
+    index = rng.integers(0, 2 ** 48, p, dtype=np.int64)
+    iv = rng.integers(0, 256, (p, 16), np.uint8)
+    iv[:2, 12:] = 0xFF
+    src = np.repeat(np.arange(p), counts).astype(np.int32)
+    recv = rng.integers(-1, s + 1, len(src)).astype(np.int32)
+    d = [torch.from_numpy(x).to(cuda_device) for x in
+         (tab_rk, tab_mid, data, length, off, index, src, recv, tab_f8, iv)]
+    f8 = cipher == "f8"
+    args = d[:2] + [None] + d[2:5] + [None] + d[5:8]
+    extra = (cipher, d[8] if f8 else None, d[9] if f8 else None)
+    name = f"srtp_fanout_{cipher}"
+    before = kbuild.launches[name]
+    got = srtp_kernel.srtp_fanout_protect(*args, 10, *extra)
+    torch.cuda.synchronize()
+    assert kbuild.launches[name] == before + 1
+    want = srtp_kernel.srtp_fanout_protect_plain(*args, 10, *extra)
+    assert all(_same(a, b) for a, b in zip(got, want))
+
+
 # (key bytes, tag bytes, width, rows): one row, a ragged few, an unaligned
 # width, the widest class, every SFU sender's 1,100 rows, the 275 of one
 # RR burst's launch of J, and one row at the wrappers' widest

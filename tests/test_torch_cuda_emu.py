@@ -657,6 +657,67 @@ def test_emulated_kernel_h_matches_plain(emu, key_len, p, width, counts):
     assert np.array_equal(out, c_out.numpy())
 
 
+# H's NULL and F8 instances against their plain versions: P = 1, ragged
+# receiver counts (a packet with none), an unaligned width, and tiles of
+# 32 and 12 copies (140 copies at one SM) with boundaries inside a
+# packet's copies; every leg's k_e XOR m schedule differs from its k_e,
+# packets' IVs carry counters near 2^32 in bytes 12-15, and windows start
+# before, inside and past the row (`_fanout_inputs`).
+@pytest.mark.parametrize("cipher,key_len,p,width,counts", [
+    ("null", 16, 1, 64, [1]), ("null", 32, 5, 37, [3, 0, 10, 1, 4]),
+    ("null", 16, 14, 208, [10] * 14),
+    ("f8", 16, 1, 64, [1]), ("f8", 32, 5, 37, [3, 0, 10, 1, 4]),
+    ("f8", 16, 14, 208, [10] * 14),
+])
+def test_emulated_kernel_h_null_and_f8_match_plain(emu, cipher, key_len, p,
+                                                   width, counts):
+    rng = np.random.default_rng(p * width + key_len + len(cipher))
+    args = _fanout_inputs(rng, key_len, p, width, counts)
+    tab_rk, tab_mid, tab_salt, data, length, off, ssrc, index, src, \
+        recv = args
+    tab_f8 = aes.expand_keys_batch(rng.integers(0, 256, (len(tab_rk),
+                                                         key_len), np.uint8))
+    assert (tab_f8 != tab_rk).any(axis=2).all()
+    iv = rng.integers(0, 256, (p, 16), np.uint8)
+    iv[:2, 12:] = 0xFF
+    n, nr = len(src), tab_rk.shape[1] - 1
+    out = np.zeros((n, width), np.uint8)
+    out_len = np.zeros(n, np.int32)
+    tail = (p, _p(src), _p(recv), _p(out), _p(out_len), n, width, nr, 10,
+            None)
+    if cipher == "f8":
+        rc = emu.ljt_srtp_fanout_f8(
+            _p(tab_rk), _p(tab_f8), _p(tab_mid), len(tab_rk), _p(data),
+            _p(length), _p(off), _p(iv), _p(index), *tail)
+    else:
+        rc = emu.ljt_srtp_fanout_null(
+            _p(tab_rk), _p(tab_mid), None, len(tab_rk), _p(data),
+            _p(length), _p(off), None, _p(index), *tail)
+    assert rc == 0
+    want, want_len = srtp_kernel.srtp_fanout_protect_plain(
+        *(T(x) for x in args), 10, cipher,
+        T(tab_f8) if cipher == "f8" else None,
+        T(iv) if cipher == "f8" else None)
+    assert np.array_equal(out, want.numpy())
+    assert np.array_equal(out_len, want_len.numpy())
+    # a copy is its packet protected under its leg's keys: C's or K's
+    # plain version on the expanded rows
+    leg = np.clip(recv, 0, len(tab_rk) - 1)
+    k = np.clip(src, 0, p - 1)
+    roc = ((index[k] >> 16) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    c_out, _ = srtp_kernel.srtp_protect_plain(
+        T(tab_rk), T(tab_mid), T(leg.astype(np.int32)), T(data[k]),
+        T(length[k]), T(off[k]), T(iv[k]), T(roc), 10, cipher,
+        T(tab_f8) if cipher == "f8" else None)
+    assert np.array_equal(out, c_out.numpy())
+    if cipher == "null":
+        # the payload stays in clear: only the tag differs from the input
+        ln = np.clip(length[k], 0, width)
+        cols = np.arange(width)[None, :] < ln[:, None]
+        assert np.array_equal(np.where(cols, out, 0),
+                              np.where(cols, data[k], 0))
+
+
 # Kernel J's tiles are sized as H's: 140 rows are four tiles of 32 and one
 # of 12 here, and at 4,096 bytes (AES-256) a tile holds 26 rows, so 112
 # rows are four of 26 and one of 8 (E = 0 and E = 1 rows alternate, so

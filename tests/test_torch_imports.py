@@ -4,7 +4,8 @@
 runs in a fresh interpreter with a meta-path hook that refuses `jax`,
 `jaxlib` and `libjitsi_tpu` (exactly, or as a dotted prefix — so
 `libjitsi_tpu_torch` itself passes) and then imports every module of
-the port, and `chip_smoke.py`.
+the port (the pipelined tick's `utils` modules among them), and
+`chip_smoke.py`.
 """
 
 import os
@@ -34,6 +35,7 @@ importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
+print(" ".join(names))
 print(len(names))
 """
 
@@ -44,3 +46,6 @@ def test_port_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20      # every module was seen
+    seen = set(out.stdout.split())
+    for util in ("metrics", "tracing", "perf", "flight", "logging"):
+        assert f"libjitsi_tpu_torch.utils.{util}" in seen, util

@@ -9,7 +9,13 @@ counts, packets whose payload starts at different offsets, an unrouted
 sender and a removed receiver, and the same refusals.  Output rows must
 match within their lengths, with the same receiver ids in the same
 order.  The JAX side runs eagerly (`jax.disable_jit`): jit-compiling its
-table and fan-out programs costs ~20 s each here.  Then
+table and fan-out programs costs ~20 s each here.  Under
+NULL_HMAC_SHA1_80 the port's copies equal the JAX translator's; under
+F8_128_HMAC_SHA1_80 they equal the port's F8 table's `protect_rtp` of
+the leg at the same index (byte-equal to JAX's F8 table,
+`tests/test_torch_srtp_f8.py`) and decrypt to the sender's bytes, while
+the JAX translator's F8 copies do not (it encrypts them with AES-CM, a
+fault of the reference).  Then
 the host copies — `PacketCache`, `RtcpTermination`, the `rtcp` codec,
 `LossTracker` and `RecoveryController` — against their JAX twins on one
 call sequence.  Inputs are seeded; tolerance: exact equality.
@@ -29,20 +35,23 @@ from libjitsi_tpu.sfu import RtpTranslator as JaxTranslator
 from libjitsi_tpu.sfu.rtcp_termination import RtcpTermination as JaxTerm
 from libjitsi_tpu.sfu.recovery import RecoveryController as JaxRecovery
 from libjitsi_tpu.transform.srtp import SrtpStreamTable as JaxTable
+from libjitsi_tpu.transform.srtp.policy import SrtpProfile as JaxProfile
 from libjitsi_tpu_torch.core.packet import PacketBatch
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.rtp import rtcp
 from libjitsi_tpu_torch.sfu import PacketCache, RtcpTermination, RtpTranslator
 from libjitsi_tpu_torch.sfu.recovery import RecoveryController
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
 
 RECV = {r: (bytes([r] * 16), bytes([r + 100] * 14)) for r in range(1, 6)}
 STATE = ("rx_max", "rx_mask", "auth_fail")
 
 
-def _translators():
-    jt = JaxTranslator(capacity=8)
-    tt = RtpTranslator(capacity=8, device="cpu")
+def _translators(profile="AES_CM_128_HMAC_SHA1_80"):
+    jt = JaxTranslator(capacity=8, profile=JaxProfile[profile])
+    tt = RtpTranslator(capacity=8, profile=SrtpProfile[profile],
+                       device="cpu")
     for t in (jt, tt):
         for r, (mk, ms) in RECV.items():
             t.add_receiver(r, mk, ms)
@@ -140,6 +149,103 @@ def test_translator_refusals_and_empty_routes():
                         np.zeros(1))
     out, recv = tt.translate(_port(_batch(rng, [9, 9])), np.zeros(2))
     assert out.batch_size == 0 and len(recv) == 0
+    # NULL and F8 are taken; AEAD-GCM is still refused, naming item 8
+    for prof in ("NULL_HMAC_SHA1_80", "F8_128_HMAC_SHA1_80"):
+        t = RtpTranslator(capacity=2, profile=SrtpProfile[prof],
+                          device="cpu")
+        assert t.cipher == {"N": "null", "F": "f8"}[prof[0]]
+    with pytest.raises(NotImplementedError, match="item 8"):
+        RtpTranslator(capacity=2, profile=SrtpProfile.AEAD_AES_128_GCM,
+                      device="cpu")
+
+
+# the profiles' fan-out: senders 0, 6 and 7 to ragged routes, at indices
+# whose low 16 bits are the packets' seqs (a ROC of 0 at a wrap, one near
+# 2^31, 3, 0 and 1)
+PROFILE_SEQS = [65535, 9, 3, 1, 0]
+PROFILE_INDEX = np.array([65535, ((1 << 31) - 2 << 16) | 9, (3 << 16) | 3,
+                          1, 1 << 16], np.int64)
+PROFILE_STREAMS = [0, 6, 7, 0, 7]
+
+
+def _profile_fanout(profile):
+    rng = np.random.default_rng(13)
+    jt, tt = _translators(profile)
+    b = _batch(rng, PROFILE_STREAMS, PROFILE_SEQS)
+    with jax.disable_jit():
+        out_j, recv_j = jt.translate(
+            JaxBatch(b.data.copy(), b.length.copy(), b.stream.copy()),
+            PROFILE_INDEX)
+    kbuild.reset_counts()
+    out_t, recv_t = tt.translate(_port(b.copy()), PROFILE_INDEX)
+    assert kbuild.plain_calls[f"srtp_fanout_{tt.cipher}"] == 1
+    assert sum(kbuild.launches.values()) == 0
+    assert recv_t.tolist() == [1, 2, 3, 1, 2, 3, 4, 5, 1, 2, 3, 2, 3, 4, 5]
+    src = np.repeat(np.arange(5), [3, 1, 4, 3, 4])
+    return b, src, (out_j, recv_j), (out_t, recv_t)
+
+
+def _leg_tables(profile, n):
+    """A tx and an rx table of `profile` with every receiver's key, one
+    row per receiver id."""
+    tabs = [SrtpStreamTable(8, SrtpProfile[profile], device="cpu")
+            for _ in range(2)]
+    for t in tabs:
+        for r, (mk, ms) in RECV.items():
+            t.add_stream(r, mk, ms)
+    return tabs
+
+
+def _open(rx, wire_row, leg, index):
+    """Authenticate and decrypt one copy under its leg's table, whose
+    replay state is set just below the copy's index."""
+    rx.rx_max[leg] = index - 1
+    rx.rx_mask[leg] = 0
+    dec, ok = rx.unprotect_rtp(PacketBatch.from_payloads(
+        [wire_row], capacity=192, stream=[leg]))
+    return bool(ok[0]), dec.to_bytes(0)
+
+
+def test_null_fanout_matches_jax_translator():
+    """NULL_HMAC_SHA1_80: H's NULL instance (plain version) against the
+    JAX translator, byte for byte; each copy authenticates under its
+    leg's NULL table and carries the sender's bytes in clear."""
+    b, src, (out_j, recv_j), (out_t, recv_t) = _profile_fanout(
+        "NULL_HMAC_SHA1_80")
+    _equal(out_j, recv_j, out_t, recv_t)
+    _, rx = _leg_tables("NULL_HMAC_SHA1_80", 8)
+    for i in range(out_t.batch_size):
+        ok, plain = _open(rx, out_t.to_bytes(i), int(recv_t[i]),
+                          int(PROFILE_INDEX[src[i]]))
+        assert ok and plain == b.to_bytes(int(src[i]))
+
+
+def test_f8_fanout_matches_the_f8_table_not_jax():
+    """F8_128_HMAC_SHA1_80: each copy of H's F8 instance (plain version)
+    equals the port's F8 table protecting the packet for its leg at the
+    same index, and decrypts under the leg's table to the sender's bytes.
+    The JAX translator's copies authenticate (the tag covers what it
+    sent) but do not decrypt to the sender's bytes: it encrypts them with
+    AES-CM, a fault of the reference (ROADMAP Queue 3)."""
+    b, src, (out_j, recv_j), (out_t, recv_t) = _profile_fanout(
+        "F8_128_HMAC_SHA1_80")
+    assert np.array_equal(recv_t, np.asarray(recv_j))
+    tx, rx = _leg_tables("F8_128_HMAC_SHA1_80", 8)
+    jax_plain = 0
+    for i in range(out_t.batch_size):
+        leg, k = int(recv_t[i]), int(src[i])
+        idx = int(PROFILE_INDEX[k])
+        tx.tx_ext[leg] = idx - 1
+        want = tx.protect_rtp(PacketBatch(
+            b.data[k:k + 1].copy(), b.length[k:k + 1].copy(),
+            np.array([leg], np.int32)))
+        assert out_t.to_bytes(i) == want.to_bytes(0), i
+        ok, plain = _open(rx, out_t.to_bytes(i), leg, idx)
+        assert ok and plain == b.to_bytes(k), i
+        ok_j, plain_j = _open(rx, out_j.to_bytes(i), leg, idx)
+        assert ok_j, i
+        jax_plain += plain_j == b.to_bytes(k)
+    assert jax_plain == 0, "the JAX translator's F8 copies read back"
 
 
 def _port(b):

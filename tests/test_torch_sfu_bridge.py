@@ -43,15 +43,17 @@ def _keys(ssrc):
 
 class _Endpoint:
     """A participant: protects its media/RTCP with its rx key, opens what
-    the bridge forwards with its tx key (one row per sender SSRC)."""
+    the bridge forwards with its tx key (one row per sender SSRC), all
+    under one SRTP profile."""
 
-    def __init__(self, ssrc, bridge_port, ext_id=3):
+    def __init__(self, ssrc, bridge_port, ext_id=3,
+                 profile=SrtpProfile.AES_CM_128_HMAC_SHA1_80):
         self.ssrc = ssrc
         self.rx_key, self.tx_key = _keys(ssrc)
-        self.protect = SrtpStreamTable(capacity=1, device="cpu")
+        self.protect = SrtpStreamTable(1, profile, device="cpu")
         self.protect.add_stream(0, *self.rx_key)
-        self.open = SrtpStreamTable(capacity=16, device="cpu")
-        self.open_rtcp = SrtpStreamTable(capacity=1, device="cpu")
+        self.open = SrtpStreamTable(16, profile, device="cpu")
+        self.open_rtcp = SrtpStreamTable(1, profile, device="cpu")
         self.open_rtcp.add_stream(0, *self.tx_key)
         self.row_of = {}
         self.engine = UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=256)
@@ -193,6 +195,45 @@ def test_sfu_fanout_and_nack_over_udp():
         e.engine.close()
 
 
+@pytest.mark.parametrize("profile", ["NULL_HMAC_SHA1_80",
+                                     "F8_128_HMAC_SHA1_80"])
+def test_sfu_tick_under_null_and_f8(profile):
+    """An SfuBridge of three endpoints under NULL or AES-F8, over
+    loopback: each endpoint's copies of the others' media authenticate
+    under its leg's table of that profile and read back as what the
+    senders sent, and none echoes; the fan-out ran H's instance for the
+    cipher (plain version) and the uplink D's."""
+    prof = SrtpProfile[profile]
+    cipher = {"N": "null", "F": "f8"}[profile[0]]
+    kbuild.reset_counts()
+    sfu = SfuBridge(port=0, capacity=8, profile=prof, recv_window_ms=0,
+                    device="cpu")
+    eps = [_Endpoint(0x400 + 9 * k, sfu.port, profile=prof)
+           for k in range(3)]
+    for e in eps:
+        sfu.add_endpoint(e.ssrc, e.rx_key, e.tx_key)
+    _mesh(eps)
+    for rnd in range(2):
+        for e in eps:
+            e.send_media()
+        _tick(sfu, 60.0 + rnd * 0.02)
+        for e in eps:
+            for _ in range(3):
+                e.drain()
+    assert sfu.forwarded == 2 * 3 * 4 * 2
+    for e in eps:
+        assert len(e.got) == 2 * 4 * 2
+        for (ssrc, seq), payload in e.got.items():
+            assert ssrc != e.ssrc, "echoed own media"
+            assert payload == b"m-%08x-%d" % (ssrc, seq)
+    assert kbuild.plain_calls[f"srtp_fanout_{cipher}"] > 0
+    assert kbuild.plain_calls[f"srtp_unprotect_{cipher}"] > 0
+    assert sum(kbuild.launches.values()) == 0
+    sfu.close()
+    for e in eps:
+        e.engine.close()
+
+
 def test_sfu_conference_scoping_and_staged_hold():
     sfu = SfuBridge(port=0, capacity=8, recv_window_ms=0, device="cpu")
     eps = [_Endpoint(0x300 + 5 * k, sfu.port) for k in range(4)]
@@ -239,8 +280,13 @@ def test_sfu_entry_points_not_ported_name_their_item():
         with pytest.raises(NotImplementedError, match=item):
             call()
     sfu.close()
+    # the pipelined tick and the NULL and F8 profiles are taken
+    for kw in (dict(pipelined=True), dict(pipeline_depth=3),
+               dict(profile=SrtpProfile.NULL_HMAC_SHA1_80),
+               dict(profile=SrtpProfile.F8_128_HMAC_SHA1_80)):
+        SfuBridge(capacity=4, device="cpu", **kw).close()
     with pytest.raises(NotImplementedError, match="item 4"):
-        SfuBridge(capacity=4, pipelined=True, device="cpu")
+        SfuBridge(capacity=4, kernel_timestamps=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         SfuBridge(capacity=4, profile=SrtpProfile.AEAD_AES_128_GCM,
                   device="cpu")
