@@ -46,7 +46,20 @@ version:
   sfu_profiles  the sfu path's bridge under NULL_HMAC_SHA1_80 and
                 F8_128_HMAC_SHA1_80, 10 ticks each (D's and H's NULL and
                 F8 instances), every copy authenticated by its leg's
-                table and read back as its sender's bytes.
+                table and read back as its sender's bytes;
+  srtp_gcm      AEAD_AES_128_GCM tx/rx tables of 10,240 streams (and a
+                twin pair, the sync reference): 4 production-mix batches
+                of 4,096, a tampered and a replayed row rejected, 1,100
+                SRTCP rows, a depth-2 async pipeline equal to the sync
+                calls, then the keystream cache (window 64, 256 bytes, a
+                pool of 1,024): 4 audio batches all hits with `fill()`
+                between, byte-equal to the stock path, and a batch with a
+                950-byte payload that misses and falls back (kernels M,
+                N, their cached instances, O);
+  sfu_gcm       the sfu path's bridge under AEAD_AES_128_GCM, 10 ticks
+                with RRs, NACKs and `emit_feedback` (N for the uplink
+                and the RRs, H's GCM instance, M for the feedback), every
+                copy opened by its leg's table as its sender's bytes.
 
 Beside them, `sass` gives each kernel's instruction count, registers,
 spills and static shared memory, the INT32-pipe and load counts of the
@@ -63,7 +76,14 @@ lane that waits on each (the floors of the tile kernels' lanes), one
 row's whole MAC on such a lane (kernel B's chain floor at its longest
 row, 966 bytes) and the time of an empty kernel on the card
 (`launch_floor_ms`, the floor of every kernel), and `profiler` how many
-empty profiling windows were measured again.
+empty profiling windows were measured again.  The GCM kernels have
+their own checks: `gcm_known_answers` (RFC 7714 §16.1.1 through M and
+back through N, a tampered tag refused), `sass`'s `gcm` (no indexed
+constant load, local memory only at spill slots, no memory load but
+the staged row's inside the GHASH chain) and `latency_floor`'s
+`ghash_step_cycles` (one Horner step on a waiting warp), from which each
+GCM line's `chain_floor_ms` is reckoned: the launch, the longest row's
+Horner steps and one AES pair.
 
 Every phase prints one JSON line; the card's `nvidia-smi` name and power
 limit come before the last line, and the last line is
@@ -96,6 +116,10 @@ at the 128-lane issue rate the total still binds later.  Per unit:
                          + 32 (last round: 16 S-box indices, 12 PRMT to
                            pack the bytes, 4 key XORs)
   CTR window XOR     4 per 16-byte keystream block
+  GHASH block        160 = 16 byte steps of Shoup's 8-bit table
+                         method x (4 PRMT for the 128-bit shift by a
+                         byte, 4 LOP3 folding in the table entry and
+                         the reduction word, 2 for the two indexes)
 
 The AES count is that of a T-table round, the fewest instructions this
 card needs for a block, and it stays the bound on purpose: the bound
@@ -179,6 +203,27 @@ PROFILE_BATCHES = 4
 KDR_STREAMS, KDR = 1024, 2 ** 4
 PROFILE_RTCP = SFU_N
 ASYNC_BATCHES = 4
+# the AEAD-GCM paths: srtp_gcm's keystream cache run (GCM_CACHE_BATCHES
+# audio batches on GCM_CACHE, then one that misses) and O's timed fill;
+# sfu_gcm's ticks, its RR and NACK ticks and its feedback period
+GCM = "AEAD_AES_128_GCM"
+GCM_CACHE = dict(window=64, ks_bytes=256, pool=1024)
+GCM_CACHE_BATCHES = 4
+GCM_FILL_SLOTS = 1024 * 64
+GCM_BENCH = (128, 512)      # H-GCM at the fan-out bench's packets x legs
+GCM_TICKS, GCM_RR_TICK, GCM_NACK_TICK, GCM_FEEDBACK = 10, 4, 7, 5
+# GHASH in the bound: Shoup's 8-bit table method (a 4 KiB table a key and
+# a shared reduction table), as the AES count takes the T-table form: 16
+# byte steps a block, each the 128-bit shift by 8 (4 PRMT), the table
+# entry and the reduction word folded in (4 LOP3) and the two indexes
+# (2); its table loads are not counted, as the AES count leaves out the
+# T-table's.  The port's form is table-free (`csrc/ghash.cuh`) and issues
+# more; the bound reads the work.
+GHASH_BLOCK_OPS = 16 * 10
+# the GCM kernels (AES-128 only) and their SASS names
+GCM_SASS = ("srtp_gcm_seal nr=10", "srtp_gcm_open nr=10",
+            "srtp_gcm_seal_cached", "srtp_gcm_open_cached",
+            "srtp_fanout_gcm nr=10", "gcm_ks_fill nr=10")
 SOURCES = {
     "aes_encrypt": ("libjitsi_tpu_torch/csrc/aes_encrypt.cu",
                     "libjitsi_tpu/kernels/aes_bitsliced.py:548"),
@@ -224,6 +269,19 @@ SOURCES = {
                          "libjitsi_tpu/sfu/translator.py:65"),
     "srtp_fanout_f8": ("libjitsi_tpu_torch/csrc/srtp_fanout.cu",
                        "libjitsi_tpu/sfu/translator.py:65"),
+    # AEAD-GCM (K9 with K8's GHASH fused in; K10; K11's GCM half)
+    "srtp_gcm_seal": ("libjitsi_tpu_torch/csrc/srtp_gcm.cu",
+                      "libjitsi_tpu/kernels/gcm.py:156"),
+    "srtp_gcm_open": ("libjitsi_tpu_torch/csrc/srtp_gcm.cu",
+                      "libjitsi_tpu/kernels/gcm.py:182"),
+    "srtp_gcm_seal_cached": ("libjitsi_tpu_torch/csrc/srtp_gcm.cu",
+                             "libjitsi_tpu/kernels/gcm.py:318"),
+    "srtp_gcm_open_cached": ("libjitsi_tpu_torch/csrc/srtp_gcm.cu",
+                             "libjitsi_tpu/kernels/gcm.py:340"),
+    "srtp_fanout_gcm": ("libjitsi_tpu_torch/csrc/srtp_fanout.cu",
+                        "libjitsi_tpu/sfu/translator.py:73"),
+    "gcm_ks_fill": ("libjitsi_tpu_torch/csrc/gcm_fill.cu",
+                    "libjitsi_tpu/transform/srtp/keystream.py:58"),
 }
 PROFILE_KERNELS = ("srtp_protect_f8", "srtp_unprotect_f8", "srtcp_protect_f8",
                    "srtcp_unprotect_f8", "srtp_protect_null",
@@ -238,13 +296,17 @@ PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
                  "srtcp_unprotect_cm"),
          "srtp_profiles": PROFILE_KERNELS,
          "sfu_profiles": ("srtp_unprotect_null", "srtp_fanout_null",
-                          "srtp_unprotect_f8", "srtp_fanout_f8")}
+                          "srtp_unprotect_f8", "srtp_fanout_f8"),
+         "srtp_gcm": ("srtp_gcm_seal", "srtp_gcm_open",
+                      "srtp_gcm_seal_cached", "srtp_gcm_open_cached",
+                      "gcm_ks_fill"),
+         "sfu_gcm": ("srtp_gcm_open", "srtp_fanout_gcm", "srtp_gcm_seal")}
 FANOUT_INSTANCES = ("srtp_fanout_null", "srtp_fanout_f8")
 
 
 # kernels beside KERNELS whose SASS and ptxas reports are read: the AES
-# chain probe, and kernel E's staged form
-EXTRA_KERNELS = ("aes_chain", "mix_minus_staged")
+# chain probe, kernel E's staged form and the GHASH step probe
+EXTRA_KERNELS = ("aes_chain", "mix_minus_staged", "ghash_chain")
 
 T_START = time.perf_counter()
 
@@ -281,6 +343,7 @@ def main() -> int:
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
 
     known_answers(torch, dev)
+    gcm_known_answers(torch, dev)
     sass_counts(kbuild)
     floor_ms, b_chain_ms, chain = latency_floor(torch, dev, kbuild)
     rows = kernels_vs_plain(torch, dev, kbuild, floor_ms, b_chain_ms)
@@ -289,6 +352,7 @@ def main() -> int:
     rows.update(sfu_kernels(torch, dev, floor_ms))
     rows.update(profile_kernels(torch, dev, floor_ms, chain))
     rows.update(sfu_profile_kernels(torch, dev, floor_ms, chain))
+    rows.update(gcm_kernels(torch, dev, floor_ms, chain))
 
     counts = {}
 
@@ -326,6 +390,14 @@ def main() -> int:
                                  with_rtcp=False) for prof in SFU_PROFILES}
     sfu_p = path("sfu_profiles", sfu_profiles_run, torch, dev, sfu_p_in)
     sfu_profiles_check(torch, dev, sfu_p)
+    gcm = path("srtp_gcm", srtp_gcm_run, torch, dev)
+    srtp_gcm_check(torch, dev, gcm)
+    # the clients' GCM wire and RRs are made (on M) before the counts are
+    # reset
+    sfu_g_in = _sfu_setup(torch, dev, GCM, GCM_TICKS,
+                          rr_ticks=(GCM_RR_TICK,), nack_tick=GCM_NACK_TICK)
+    sfu_g = path("sfu_gcm", sfu_gcm_run, torch, dev, sfu_g_in)
+    sfu_gcm_check(torch, dev, sfu_g)
     per_unit = {"srtp_echo": ("launches_per_table_batch",
                               table["launches_per_batch"]),
                 "conference": ("launches_per_conference_tick",
@@ -334,7 +406,11 @@ def main() -> int:
                 "srtp_profiles": ("launches_per_profile_batch",
                                   profiles["launches_per_batch"]),
                 "sfu_profiles": ("launches_per_sfu_profile_tick",
-                                 sfu_p["launches_per_tick"])}
+                                 sfu_p["launches_per_tick"]),
+                "srtp_gcm": ("launches_per_gcm_batch",
+                             gcm["launches_per_batch"]),
+                "sfu_gcm": ("launches_per_sfu_gcm_tick",
+                            sfu_g["launches_per_tick"])}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
@@ -344,14 +420,14 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in counts.items()
                                  if name in PATHS[p]},
             **{key: per[name] for p, (key, per) in per_unit.items()
-               if name in PATHS[p]},
+               if name in PATHS[p] and name in per},
             "main_path": any(name in k for k in PATHS.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "launch_floor_ms": floor_ms, "library_ms": r.get("library_ms"),
             **{k: r[k] for k in ("plain_device_ms", "library_device_ms",
-                                 "chain_floor_ms") if k in r},
+                                 "chain_floor_ms", "ptxas") if k in r},
             "shape": r["shape"]})
     emit("profiler", windows_measured_again=PROFILER_RETRIES,
          timed_by_cuda_events=PROFILER_FALLBACK)
@@ -663,8 +739,11 @@ def sass_counts(kbuild) -> None:
                 f"kernel A (nr={nr}) holds shared memory: {static_smem}")
     ldc = {f"{k} nr={nr}": indexed_ldc.get(f"{k} nr={nr}")
            for k in crypto for nr in (10, 14)}
+    ldc.update({k: indexed_ldc.get(k)
+                for k in GCM_SASS + ("ghash_chain",)})
     require(all(v == 0 for v in ldc.values()),
             f"indexed constant loads: {ldc}")
+    gcm = _gcm_sass(code, ptxas)
     # the AES core's round loop, once a round: in the chain probe the
     # core as the tiles run it (its key words loaded from shared memory),
     # in kernel A with both blocks' keys sliced in the loop (the four
@@ -679,9 +758,11 @@ def sass_counts(kbuild) -> None:
                                    for law in (0, 1)},
          hmac_sha1_loads=dict(global_loads=len(b_ldg),
                               shared_loads=len(b_lds), hash_loop=chain),
+         gcm=gcm,
          bound_per_unit={"sha1_compression": SHA1_BLOCK_OPS,
                          "aes_block nr=10": aes_block_ops(10),
-                         "aes_block nr=14": aes_block_ops(14)})
+                         "aes_block nr=14": aes_block_ops(14),
+                         "ghash_block": GHASH_BLOCK_OPS})
 
 
 def _loop_spans(code) -> list:
@@ -779,7 +860,9 @@ def latency_floor(torch, dev, kbuild) -> tuple:
     shared memory, padding, the outer block) at the longest rows of the
     main paths.  Returns the launch floor in ms, kernel B's chain floor
     in ms, and the AES pair cycles with the clock they were read at
-    (the F8 kernels' chain floors)."""
+    (the F8 kernels' chain floors), and the cycles of one GHASH Horner
+    step on a waiting warp (`ghash_step_cycles`, the GCM kernels' chain
+    floors)."""
     from libjitsi_tpu_torch.kernels.aes import aes_encrypt_np, expand_key
 
     lib, n = kbuild.library(), 2000
@@ -852,6 +935,25 @@ def latency_floor(torch, dev, kbuild) -> tuple:
         hmac_cycles[label] = dict(
             compressions=(length + 4 + 9 + 63) // 64 + 1, lanes=lanes,
             cycles=float(cycles[:lanes].double().mean()) / reps)
+    # one GHASH Horner step on a waiting warp, the matrix in its registers
+    # as the GCM tiles hold it (`ghash.cuh`): the step of a row's chain
+    from libjitsi_tpu_torch.kernels import ghash
+
+    h, x = (rng.integers(0, 256, 16, np.uint8) for _ in range(2))
+    gm = torch.as_tensor(ghash.ghash_matrix_packed(h[None])[0]
+                         .view(np.int32)).to(dev)
+    blk = torch.as_tensor(x.view(">u4").astype(np.uint32).view(np.int32)
+                          ).to(dev)
+    y = torch.zeros(4, dtype=torch.int32, device=dev)
+    reps = 2000
+    kbuild.check(lib.ljt_probe_ghash_chain(
+        gm.data_ptr(), blk.data_ptr(), y.data_ptr(), cycles.data_ptr(),
+        reps, stream), "probe_ghash_chain")
+    torch.cuda.synchronize()
+    got = y.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+    require(got == ghash.ghash_ref(bytes(h), bytes(x) * reps),
+            "the GHASH chain differs from the host GHASH")
+    ghash_step = float(cycles.double().mean()) / reps
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
          "nounits"], capture_output=True, text=True, timeout=60)
@@ -872,9 +974,10 @@ def latency_floor(torch, dev, kbuild) -> tuple:
          sha1_compression_cycles=sha,
          aes_pair_cycles=aes_pair, sm_clock_mhz=mhz,
          hash_chain_floor=floors, hmac_row=hmac_cycles,
-         hmac_sha1_chain_floor_ms=b_chain_ms)
+         hmac_sha1_chain_floor_ms=b_chain_ms, ghash_step_cycles=ghash_step)
     return floor_ms, b_chain_ms, dict(aes_pair_cycles=aes_pair, mhz=mhz,
-                                      hmac_row=hmac_cycles)
+                                      hmac_row=hmac_cycles,
+                                      ghash_step_cycles=ghash_step)
 
 
 def mac_floor_ms(floor_ms: float, chain: dict, msg_len: int) -> float:
@@ -1976,7 +2079,10 @@ def sfu_kernels(torch, dev, floor_ms: float) -> dict:
         mac_blocks = int((((lens + 4 + 9 + 63) // 64 + 1) * legs).sum())
         ops = (ks_blocks * (aes_block_ops(10) + CTR_XOR_OPS)
                + mac_blocks * SHA1_BLOCK_OPS)
-        nbytes = p * width + p * 20 + n * (width + 4 + 8 + 176 + 40 + 16)
+        # a leg's round keys, midstate and salt read once, however many
+        # copies it takes
+        nbytes = (p * width + p * 20 + n * (width + 4 + 8)
+                  + len(np.unique(host[-1])) * (176 + 40 + 16))
         b_ms, b_by = bound(nbytes, ops)
         line = dict(name="srtp_fanout_cm", shape=label, max_abs_err=err,
                     **_crypto_times(
@@ -2095,7 +2201,8 @@ def sfu_profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
         n = p * legs
         ks_blocks = ((lens - HDR - 8 + 15) // 16) * legs
         mac_blocks = int((((lens + 4 + 9 + 63) // 64 + 1) * legs).sum())
-        base = p * 192 + p * 20 + n * (192 + 4 + 8 + 40)
+        legs_read = len(np.unique(host[-1]))  # each leg's keys read once
+        base = p * 192 + p * 20 + n * (192 + 4 + 8) + legs_read * 40
         for cipher in ("cm", "null", "f8"):
             f8, civ = (tab_f8, iv) if cipher == "f8" else (None, None)
             name = f"srtp_fanout_{cipher}"
@@ -2115,12 +2222,12 @@ def sfu_profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
             if cipher == "cm":
                 ops += int(ks_blocks.sum()) * (aes_block_ops(10)
                                                + CTR_XOR_OPS)
-                nbytes += n * (176 + 16)
+                nbytes += legs_read * (176 + 16)
                 chain_ms = None
             elif cipher == "f8":
                 ops += (int(ks_blocks.sum()) + n) * aes_block_ops(10) \
                     + int(ks_blocks.sum()) * CTR_XOR_OPS
-                nbytes += n * 2 * 176 + p * 16
+                nbytes += legs_read * 2 * 176 + p * 16
                 chain_ms = floor_ms + (int((lens - HDR - 8 + 15).max()
                                            // 16) + 1) * pair_ms
             else:
@@ -2140,15 +2247,16 @@ def sfu_profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
 
 def _sfu_setup(torch, dev, profile: str = "AES_CM_128_HMAC_SHA1_80",
                ticks: int = SFU_TICKS + SFU_PROFILED,
-               with_rtcp: bool = True) -> dict:
+               with_rtcp: bool = True, rr_ticks=SFU_RR_TICKS,
+               nack_tick: int = SFU_NACK_TICK) -> dict:
     """Keys, SSRCs, conferences and every tick's client wire under
     `profile`: each endpoint sends one Opus-sized packet a tick (12-byte
     header, 8-byte abs-send-time extension, 60-160-byte payload; some
     senders' seqs wrap), in a seeded order cut into SFU_BURSTS bursts;
-    with `with_rtcp`, one RR a sender at each of SFU_RR_TICKS (one of them
-    reporting 5% loss) and, at SFU_NACK_TICK, a NACK from one receiver in
+    with `with_rtcp`, one RR a sender at each of `rr_ticks` (the last
+    reporting 5% loss) and, at `nack_tick`, a NACK from one receiver in
     each of 10 conferences for the previous tick's packets of three of
-    its mates."""
+    its mates.  Master salts are the profile's length."""
     from libjitsi_tpu_torch.core.packet import PacketBatch
     from libjitsi_tpu_torch.rtp import header as rtp_header
     from libjitsi_tpu_torch.rtp import rtcp
@@ -2157,8 +2265,10 @@ def _sfu_setup(torch, dev, profile: str = "AES_CM_128_HMAC_SHA1_80",
 
     n = SFU_N
     rng = np.random.default_rng(29)
+    salt = SrtpProfile[profile].master_salt_len
     keys = {d: (rng.integers(0, 256, (n, 16), np.uint8),
-                rng.integers(0, 256, (n, 14), np.uint8)) for d in ("rx", "tx")}
+                rng.integers(0, 256, (n, salt), np.uint8))
+            for d in ("rx", "tx")}
     ssrc = (0x51000000 + rng.permutation(1 << 20)[:n]).astype(np.int64)
     conf = np.arange(n) // SFU_SIZE
     seq0 = rng.integers(0, 1 << 16, n)
@@ -2183,11 +2293,11 @@ def _sfu_setup(torch, dev, profile: str = "AES_CM_128_HMAC_SHA1_80",
         return dict(keys=keys, ssrc=ssrc, conf=conf, seq0=seq0,
                     bursts=bursts, payloads=payloads, wires=wires, rtcp={},
                     nacked=nacked, profile=profile)
-    for t in SFU_RR_TICKS:
+    for t in rr_ticks:
         blobs = []
         for k in range(n):
             mate = conf[k] * SFU_SIZE + (k + 1) % SFU_SIZE
-            lossy = t == SFU_RR_TICKS[-1] and k == 0
+            lossy = t == rr_ticks[-1] and k == 0
             blobs.append(rtcp.build_compound([rtcp.build_rr(
                 rtcp.ReceiverReport(int(ssrc[k]), [rtcp.ReportBlock(
                     int(ssrc[mate]), 13 if lossy else 0, 2 if lossy else 0,
@@ -2201,9 +2311,9 @@ def _sfu_setup(torch, dev, profile: str = "AES_CM_128_HMAC_SHA1_80",
         nacked[int(r)] = mates
         blobs.append(rtcp.build_compound([rtcp.build_nack(rtcp.Nack(
             int(ssrc[r]), int(ssrc[m]),
-            [int(seq0[m] + SFU_NACK_TICK - 1) & 0xFFFF]))
+            [int(seq0[m] + nack_tick - 1) & 0xFFFF]))
             for m in mates]))
-    rtcp_wires[SFU_NACK_TICK] = up.protect_rtcp(PacketBatch.from_payloads(
+    rtcp_wires[nack_tick] = up.protect_rtcp(PacketBatch.from_payloads(
         blobs, stream=nackers.tolist()))
     return dict(keys=keys, ssrc=ssrc, conf=conf, seq0=seq0, bursts=bursts,
                 payloads=payloads, wires=wires, rtcp=rtcp_wires,
@@ -2529,13 +2639,16 @@ def sfu_check(torch, dev, run) -> None:
     sfu_pipelined_check(torch, dev, run["pipelined"])
 
 
-def _sfu_drive(torch, dev, setup, ticks: int, **kwargs) -> dict:
+def _sfu_drive(torch, dev, setup, ticks: int, feedback_every: int = 0,
+               nack_tick: int = -1, **kwargs) -> dict:
     """A fresh bridge of the setup's profile (`kwargs` to SfuBridge)
-    driven through the setup's first `ticks` ticks of media from one
-    client socket (drained by a thread), then idle ticks, which ship a
-    pipelined bridge's last fan-out.  Returns the bridge, its fan-out
-    log, the client's datagrams, each tick's bridge seconds and the
-    forwards a serial bridge makes."""
+    driven through the setup's first `ticks` ticks of input from one
+    client socket (drained by a thread), with `emit_feedback` every
+    `feedback_every` ticks where that is set and the NACK service read
+    after `nack_tick`, then idle ticks, which ship a pipelined bridge's
+    last fan-out.  Returns the bridge, its fan-out log, the client's
+    datagrams, each tick's bridge seconds and the forwards a serial
+    bridge makes."""
     import threading
 
     from libjitsi_tpu_torch.io.udp import UdpEngine
@@ -2563,7 +2676,7 @@ def _sfu_drive(torch, dev, setup, ticks: int, **kwargs) -> dict:
     th = threading.Thread(target=drain, daemon=True)
     th.start()
     latched = np.zeros(SFU_N, dtype=bool)
-    res = dict(tick_s=[], expected=0, taken=0)
+    res = dict(tick_s=[], expected=0, taken=0, feedback_sent=0)
     try:
         for t in range(ticks):
             secs, taken, expect = _sfu_tick(bridge, setup, t, client,
@@ -2571,6 +2684,14 @@ def _sfu_drive(torch, dev, setup, ticks: int, **kwargs) -> dict:
             res["tick_s"].append(secs)
             res["taken"] += taken
             res["expected"] += expect
+            if t == nack_tick:
+                res["nack"] = dict(
+                    retransmitted=bridge.retransmitted,
+                    served=bridge.recovery.rtx_requests_served,
+                    cache_miss=bridge.recovery.rtx_cache_miss)
+            if feedback_every and t % feedback_every == feedback_every - 1:
+                res["feedback_sent"] += bridge.emit_feedback(
+                    now=1000.0 + 0.02 * t + 0.01)
         for _ in range(3):
             bridge.tick(now=1000.0 + 0.02 * ticks)
     finally:
@@ -3117,6 +3238,548 @@ def srtp_profiles_check(torch, dev, run, table) -> None:
          equal_to_cpu=True, async_equal_to_sync=True,
          launches_per_batch=run["launches_per_batch"],
          cpu_check_s=time.perf_counter() - t0)
+
+
+# ------------------------------------------------------ 12. AEAD-GCM
+
+def gcm_known_answers(torch, dev) -> None:
+    """RFC 7714 §16.1.1 (AEAD_AES_128_GCM SRTP) through kernel M, back
+    through kernel N, and the same packet with its tag's last byte
+    flipped refused by N.  The RFC's example uses its key and salt as
+    session key and salt."""
+    from libjitsi_tpu_torch.kernels import aes, gcm
+    from libjitsi_tpu_torch.transform.srtp import kernel as sk
+    from libjitsi_tpu_torch.transform.srtp.context import ghash_tables
+
+    key = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
+    salt = bytes.fromhex("517569642070726f2071756f")
+    pkt = bytes.fromhex("8040f17b8041f8d35501a0b247616c6c"
+                        "696120657374206f6d6e697320646976"
+                        "69736120696e207061727465732074726573")
+    want = bytes.fromhex("8040f17b8041f8d35501a0b2f24de3a3"
+                         "fb34de6cacba861c9d7e4bcabe633bd5"
+                         "0d294e6f42a5f47a51c7d19b36de3adf"
+                         "8833899d7f27beb16a9152cf765ee439"
+                         "0cce")
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+
+    iv = gcm.srtp_gcm_iv(np.frombuffer(salt, np.uint8)[None],
+                         [int.from_bytes(pkt[8:12], "big")],
+                         [int.from_bytes(pkt[2:4], "big")])
+    rk = aes.expand_key(key)[None]
+    tabs = (t(rk), t(ghash_tables(rk).view(np.int32)),
+            t(np.zeros(2, np.int32)))
+    data = np.zeros((2, 128), np.uint8)
+    data[:, :len(pkt)] = np.frombuffer(pkt, np.uint8)
+    aad, ivs = t(np.full(2, 12, np.int32)), t(np.repeat(iv, 2, axis=0))
+    out, out_len = sk.srtp_gcm_protect(*tabs, t(data),
+                                       t(np.full(2, len(pkt), np.int32)),
+                                       aad, ivs)
+    sealed = bytes(out.cpu().numpy()[0, :int(out_len[0])])
+    require(sealed == want, "RFC 7714 §16.1.1 through kernel M")
+    wire = out.clone()
+    wire[1, len(want) - 1] ^= 0x01
+    dec, mlen, ok = sk.srtp_gcm_unprotect(*tabs, wire, out_len, aad, ivs)
+    opened = bytes(dec.cpu().numpy()[0, :int(mlen[0])]) == pkt
+    require(ok.cpu().tolist() == [True, False] and opened,
+            "RFC 7714 §16.1.1 back through kernel N, the tampered tag "
+            "refused")
+    emit("gcm_known_answers", rfc7714_16_1_1=True, opened=opened,
+         tampered_tag_refused=True)
+
+
+def _gcm_sass(code: dict, ptxas: dict) -> dict:
+    """The GCM kernels' checks on the SASS `sass_counts` parsed (AES-128):
+    every local-memory access at the stack pointer plus a constant (a
+    spill slot, never an array indexed at run time), and in the GHASH
+    chain (the innermost loop around the ballots, `ghash.cuh`) no
+    device-memory or local load: the matrix rows sit in registers.
+    Counts the chain's instructions and loads a step, and the probe's
+    (`ghash_chain`)."""
+    require(all(k in code for k in GCM_SASS + ("ghash_chain",)),
+            f"no SASS for a GCM kernel: {sorted(code)}")
+    report = {}
+    for k in GCM_SASS + ("ghash_chain",):
+        ops = code[k]
+        local = [o for _a, op, o in ops if op in ("LDL", "STL")]
+        computed = [o for o in local if not re.search(
+            r"\[R1(?:\+0x[0-9a-f]+)?\]", o)]
+        votes = [a for a, op, _o in ops if op == "VOTE"]
+        chain = min((sp for sp in _loop_spans(ops)
+                     if any(sp[1] <= v <= sp[2] for v in votes)),
+                    default=None)
+        body = ([op for a, op, _o in ops if chain[1] <= a <= chain[2]]
+                if chain else [])
+        report[k] = dict(
+            ptxas=ptxas.get(k, {}), local_accesses=len(local),
+            local_at_computed_address=computed,
+            ghash_chain_instructions=len(body),
+            ghash_chain_ballots=body.count("VOTE"),
+            ghash_chain_popc=body.count("POPC"),
+            ghash_chain_shared_loads=body.count("LDS"),
+            ghash_chain_global_or_local_loads=sum(
+                op in ("LDG", "LDL", "STL", "LDC") for op in body))
+        require(not computed, f"{k}: a local array: {computed}")
+        if k != "gcm_ks_fill nr=10":
+            require(chain is not None and report[k]["ghash_chain_ballots"]
+                    >= 4 and report[k]["ghash_chain_global_or_local_loads"]
+                    == 0, f"{k}: the GHASH chain loads from memory other "
+                          f"than the staged row: {report[k]}")
+    return report
+
+
+def gcm_floor_ms(floor_ms: float, chain: dict, aad: int, ct: int) -> float:
+    """The GCM chain floor of a launch whose longest row has an AAD of
+    `aad` and `ct` ciphertext bytes: the launch, that row's Horner steps
+    one after another on a warp at `latency_floor`'s `ghash_step_cycles`,
+    and one AES-128 pair (its J0 and keystream blocks run beside)."""
+    steps = (aad + 15) // 16 + (ct + 15) // 16 + 1
+    cyc = steps * chain["ghash_step_cycles"] + chain["aes_pair_cycles"][
+        "aes128"]
+    return floor_ms + cyc / (chain["mhz"] * 1e3)
+
+
+def _gcm_ops(aad, ct, aes: bool = True) -> int:
+    """INT32-pipe operations of sealing or opening rows of `aad` and `ct`
+    bytes (arrays): the keystream blocks' AES and XOR, J0's AES, and the
+    GHASH blocks; without `aes` (the cached instances) the XOR and the
+    GHASH only."""
+    ks = (np.asarray(ct, np.int64) + 15) // 16
+    gh = (np.asarray(aad, np.int64) + 15) // 16 + ks + 1
+    ops = int(ks.sum()) * CTR_XOR_OPS + int(gh.sum()) * GHASH_BLOCK_OPS
+    if aes:
+        ops += int(ks.sum() + len(ks)) * aes_block_ops(10)
+    return ops
+
+
+def gcm_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
+    """M and N against their plain versions at the launches a 4,096-packet
+    production-mix batch makes over 10,240-row tables (the parts
+    `bucket_by_size` gives) and at 1,100 SRTCP rows (hdr8 || E || index ||
+    60-200 bytes in 1,504-byte rows, AAD 12); their cached instances at
+    4,096 audio rows (60-160-byte payloads) on slots of 256 bytes; H's
+    GCM instance at 275 x 10, 1,100 x 10 and 128 x 512 copies, the
+    shapes of H's rows; O at 65,536 slots of 256 bytes.  Each exact, with
+    its bound (`GHASH_BLOCK_OPS` a GHASH block beside the AES count), its
+    GCM chain floor and ptxas registers and spills.  No PyTorch call
+    computes GCM, so none has a library time.  The `kernels` line takes
+    the batch's sums for M and N, the audio rows for the cached
+    instances, one burst for H-GCM and the 65,536 slots for O."""
+    from libjitsi_tpu_torch.core.packet import bucket_by_size
+    from libjitsi_tpu_torch.kernels import aes, gcm
+    from libjitsi_tpu_torch.transform.srtp import kernel as sk
+    from libjitsi_tpu_torch.transform.srtp.context import ghash_tables
+
+    rng = np.random.default_rng(61)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    ptxas = ptxas_usage(kbuild)
+    rk_np = aes.expand_keys_batch(rng.integers(0, 256, (N_STREAMS, 16),
+                                               np.uint8))
+    tab_rk, tab_gm = t(rk_np), t(ghash_tables(rk_np).view(np.int32))
+    keys = 176 + 2048          # a stream's round keys and packed matrix
+    rows, acc = {}, {}
+
+    def line_of(name, label, fn, plain, nbytes, ops, chain_ms):
+        line = _profile_line(name, label, _crypto_times(
+            torch, fn, name + "_kernel", plain), nbytes, ops, floor_ms,
+            chain_ms)
+        key = name + (" nr=10" if name in ("srtp_gcm_seal", "srtp_gcm_open",
+                                            "srtp_fanout_gcm", "gcm_ks_fill")
+                      else "")
+        line["ptxas"] = ptxas.get(key, {})
+        emit("kernel_vs_plain", **line)
+        return line
+
+    def check(name, got, want, label):
+        require(max_abs_err(torch, got, want) == 0,
+                f"{name} {label} differs from its plain version")
+
+    # M and N: one production-mix batch as the table buckets it
+    mix = _mix_batch(rng, rng.permutation(N_STREAMS)[:BATCH], 1000, 0)
+    labels = []
+    for _rows, part, n_real in bucket_by_size(mix):
+        n, width = part.data.shape
+        label = f"{n}x{width} ({n_real} real rows)"
+        labels.append(label)
+        ct = part.length.astype(np.int64) - HDR
+        args = [tab_rk, tab_gm, t(part.stream.astype(np.int32)),
+                t(part.data), t(part.length.astype(np.int32)),
+                torch.full((n,), HDR, dtype=torch.int32, device=dev),
+                t(rng.integers(0, 256, (n, 12), np.uint8))]
+        kp = sk.srtp_gcm_protect(*args)
+        check("srtp_gcm_seal", kp, sk.srtp_gcm_protect_plain(*args), label)
+        uargs = args[:3] + [kp[0], kp[1]] + args[5:]
+        ku = sk.srtp_gcm_unprotect(*uargs)
+        require(bool(ku[2].all()), f"srtp_gcm_open rejected genuine rows "
+                                   f"({label})")
+        check("srtp_gcm_open", ku, sk.srtp_gcm_unprotect_plain(*uargs), label)
+        nbytes = (2 * n * width + n * (4 + 4 + 12 + 4)
+                  + len(np.unique(part.stream)) * keys)
+        ops = _gcm_ops(np.full(n, HDR), ct)
+        chain_ms = gcm_floor_ms(floor_ms, chain, HDR, int(ct.max()))
+        for name, fn, plain in (
+                ("srtp_gcm_seal", lambda: sk.srtp_gcm_protect(*args),
+                 lambda: sk.srtp_gcm_protect_plain(*args)),
+                ("srtp_gcm_open", lambda: sk.srtp_gcm_unprotect(*uargs),
+                 lambda: sk.srtp_gcm_unprotect_plain(*uargs))):
+            line = line_of(name, label + " (table path)", fn, plain, nbytes,
+                           ops, chain_ms)
+            a = acc.setdefault(name, dict(ms=0.0, call_ms=0.0, plain_ms=0.0,
+                                          bytes=0, ops=0,
+                                          chain_floor_ms=0.0))
+            for k in ("ms", "call_ms", "plain_ms", "bytes", "ops",
+                      "chain_floor_ms"):
+                a[k] += line[k]
+    for name, a in acc.items():
+        rows[name] = _profile_line(
+            name, f"one {BATCH}-packet production-mix batch as the table "
+                  f"buckets it, {len(labels)} launches: "
+                  + " + ".join(labels),
+            {k: a[k] for k in ("ms", "call_ms", "plain_ms")}, a["bytes"],
+            a["ops"], floor_ms, a["chain_floor_ms"])
+        rows[name]["ptxas"] = ptxas.get(name + " nr=10", {})
+    # M and N at the SRTCP launch: kernel layout hdr8 || E || index ||
+    # payload, AAD 12, 1,504-byte rows
+    n, width = PROFILE_RTCP, 1504
+    plen = rng.integers(60, 201, n).astype(np.int64)
+    ca = [tab_rk, tab_gm, t(rng.permutation(N_STREAMS)[:n].astype(np.int32)),
+          t(rng.integers(0, 256, (n, width), np.uint8)),
+          t((plen + 4).astype(np.int32)),
+          torch.full((n,), 12, dtype=torch.int32, device=dev),
+          t(rng.integers(0, 256, (n, 12), np.uint8))]
+    cp = sk.srtp_gcm_protect(*ca)
+    check("srtp_gcm_seal", cp, sk.srtp_gcm_protect_plain(*ca), "SRTCP")
+    cu = ca[:3] + [cp[0], cp[1]] + ca[5:]
+    got = sk.srtp_gcm_unprotect(*cu)
+    require(bool(got[2].all()), "srtp_gcm_open rejected genuine SRTCP rows")
+    check("srtp_gcm_open", got, sk.srtp_gcm_unprotect_plain(*cu), "SRTCP")
+    ct = plen - 8
+    for name, fn, plain in (
+            ("srtp_gcm_seal", lambda: sk.srtp_gcm_protect(*ca),
+             lambda: sk.srtp_gcm_protect_plain(*ca)),
+            ("srtp_gcm_open", lambda: sk.srtp_gcm_unprotect(*cu),
+             lambda: sk.srtp_gcm_unprotect_plain(*cu))):
+        line_of(name, f"{n}x{width} SRTCP 60-200 bytes (the path's SRTCP "
+                      f"launch)", fn, plain,
+                2 * n * width + n * (4 + 4 + 12 + 4) + n * keys,
+                _gcm_ops(np.full(n, 12), ct),
+                gcm_floor_ms(floor_ms, chain, 12, int(ct.max())))
+    # the cached instances: 4,096 audio rows on 65,536 slots of 256 bytes
+    n, width, ks_bytes, n_slots = BATCH, 192, 256, GCM_FILL_SLOTS + 1
+    plen = rng.integers(60, 161, n).astype(np.int64)
+    data = np.zeros((n, width), np.uint8)
+    data[:, :HDR + 160] = rng.integers(0, 256, (n, HDR + 160), np.uint8)
+    ks_tab = t(rng.integers(0, 256, (n_slots, ks_bytes), np.uint8))
+    ek_tab = t(rng.integers(0, 256, (n_slots, 16), np.uint8))
+    ka = [ks_tab, ek_tab, t(rng.permutation(n_slots - 1)[:n].astype(
+        np.int32)), tab_gm, t(rng.permutation(N_STREAMS)[:n].astype(
+            np.int32)), t(data), t((HDR + plen).astype(np.int32)),
+          torch.full((n,), HDR, dtype=torch.int32, device=dev)]
+    kp = sk.srtp_gcm_protect_cached(*ka)
+    check("srtp_gcm_seal_cached", kp, sk.srtp_gcm_protect_cached_plain(*ka),
+          "audio")
+    kua = ka[:5] + [kp[0], kp[1], ka[7]]
+    ku = sk.srtp_gcm_unprotect_cached(*kua)
+    require(bool(ku[2].all()), "srtp_gcm_open_cached rejected genuine rows")
+    check("srtp_gcm_open_cached", ku,
+          sk.srtp_gcm_unprotect_cached_plain(*kua), "audio")
+    nbytes = 2 * n * width + n * (4 + 4 + 4 + 4 + ks_bytes + 16) + n * 2048
+    for name, fn, plain in (
+            ("srtp_gcm_seal_cached", lambda: sk.srtp_gcm_protect_cached(*ka),
+             lambda: sk.srtp_gcm_protect_cached_plain(*ka)),
+            ("srtp_gcm_open_cached",
+             lambda: sk.srtp_gcm_unprotect_cached(*kua),
+             lambda: sk.srtp_gcm_unprotect_cached_plain(*kua))):
+        steps = (HDR + 15) // 16 + (int(plen.max()) + 15) // 16 + 1
+        rows[name] = line_of(
+            name, f"{n}x{width} audio rows 60-160 bytes, slots of "
+                  f"{ks_bytes} bytes", fn, plain, nbytes,
+            _gcm_ops(np.full(n, HDR), plen, aes=False),
+            floor_ms + steps * chain["ghash_step_cycles"]
+            / (chain["mhz"] * 1e3))
+    # H's GCM instance at the shapes of H's rows
+    burst = SFU_N // SFU_BURSTS
+    for label, p, legs, lens, width in (
+            (f"{burst}x10 len 80-180 (one SFU burst)", burst, SFU_SIZE - 1,
+             rng.integers(80, 181, burst), 208),
+            ("1100x10 len 80-180 (the SFU tick)", SFU_N, SFU_SIZE - 1,
+             rng.integers(80, 181, SFU_N), 208),
+            (f"{GCM_BENCH[0]}x{GCM_BENCH[1]} len 172 (fan-out bench)",
+             *GCM_BENCH, np.full(GCM_BENCH[0], 172), 192)):
+        host = _fanout_case(rng, p, legs, lens, width, SFU_N)
+        host[1] = ghash_tables(host[0]).view(np.int32)
+        host[2][:, 12:] = 0
+        args = [t(x) for x in host]
+        check("srtp_fanout_gcm", sk.srtp_fanout_gcm(*args),
+              sk.srtp_fanout_gcm_plain(*args), label)
+        n = p * legs
+        ct = np.repeat(lens - HDR - 8, legs)
+        line = line_of("srtp_fanout_gcm", label,
+                       lambda: sk.srtp_fanout_gcm(*args),
+                       lambda: sk.srtp_fanout_gcm_plain(*args),
+                       p * width + p * 20 + n * (width + 4 + 8)
+                       + len(np.unique(host[-1])) * (16 + keys),
+                       _gcm_ops(np.full(n, HDR + 8), ct),
+                       gcm_floor_ms(floor_ms, chain, HDR + 8, int(ct.max())))
+        if p == burst:
+            rows["srtp_fanout_gcm"] = line
+    # O: a first fill of 1,024 rows x 64 slots of 256 bytes
+    n, ks_bytes = GCM_FILL_SLOTS, 256
+    ks_tab = torch.zeros((n + 1, ks_bytes), dtype=torch.uint8, device=dev)
+    ek_tab = torch.zeros((n + 1, 16), dtype=torch.uint8, device=dev)
+    ks2, ek2 = ks_tab.clone(), ek_tab.clone()
+    win = GCM_CACHE["window"]
+    fa = [tab_rk, t(np.repeat(rng.permutation(N_STREAMS)[:n // win], win)
+                    .astype(np.int32)),
+          t(rng.integers(0, 256, (n, 12), np.uint8)),
+          t(rng.permutation(n).astype(np.int32))]
+    gcm.gcm_ks_fill(ks_tab, ek_tab, *fa)
+    gcm.gcm_ks_fill_plain(ks2, ek2, *fa)
+    check("gcm_ks_fill", (ks_tab, ek_tab), (ks2, ek2), "65,536 slots")
+    blocks = ks_bytes // 16 + 1
+    rows["gcm_ks_fill"] = line_of(
+        "gcm_ks_fill", f"{n} slots x {ks_bytes} bytes (a first fill of "
+                       f"1,024 rows x 64)",
+        lambda: gcm.gcm_ks_fill(ks_tab, ek_tab, *fa),
+        lambda: gcm.gcm_ks_fill_plain(ks2, ek2, *fa),
+        n * (ks_bytes + 16) + n * (4 + 12 + 4) + (n // win) * 176,
+        n * blocks * aes_block_ops(10),
+        floor_ms + (blocks + 1) // 2 * chain["aes_pair_cycles"]["aes128"]
+        / (chain["mhz"] * 1e3))
+    return rows
+
+
+def _audio_batch(rng, streams, seq0: int, lens=None):
+    """GCM_CACHE's traffic: 4 packets a stream (seqs seq0 .. seq0 + 3),
+    60-160-byte payloads behind a 12-byte header, SSRC 0x20000 + stream."""
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+
+    st = np.repeat(streams, 4)
+    seqs = np.tile(np.arange(4), len(streams)) + seq0
+    lens = rng.integers(60, 161, len(st)) if lens is None else lens
+    payloads = [rng.integers(0, 256, int(k), np.uint8).tobytes()
+                for k in lens]
+    return rtp_header.build(payloads, seqs.tolist(), [seq0 * 160] * len(st),
+                            (0x20000 + st).tolist(), [111] * len(st),
+                            stream=st.tolist())
+
+
+def srtp_gcm_run(torch, dev) -> dict:
+    """The srtp_gcm path: AEAD_AES_128_GCM tx / rx tables of 10,240 streams
+    (A), and a second pair with the same keys fed the same traffic (B, the
+    sync reference).  On A and B: PROFILE_BATCHES production-mix batches
+    over streams 1,024 and up (every row ok, its bytes back, A's wire equal
+    to B's), a tampered and a replayed row rejected, 1,100 SRTCP rows
+    sealed and opened.  Then a depth-2 pipeline of the async seams over
+    ASYNC_BATCHES batches on A against B's sync calls.  Then the cache run
+    on A (B stock): `enable_keystream_cache(window=64, ks_bytes=256,
+    pool=1,024)` on both of A's tables, primed for streams 0-1,023, and
+    GCM_CACHE_BATCHES audio batches over them with `fill()` between, each
+    all hits and byte-equal to B; then a batch carrying a 950-byte payload,
+    whose part misses and falls back, byte-equal too."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    rng = np.random.default_rng(43)
+    prof = SrtpProfile[GCM]
+    sids = np.arange(N_STREAMS)
+    mks = rng.integers(0, 256, (N_STREAMS, 16), np.uint8)
+    mss = rng.integers(0, 256, (N_STREAMS, 12), np.uint8)
+    t0 = time.perf_counter()
+    tabs = []
+    for _ in range(2):
+        pair = (SrtpStreamTable(N_STREAMS, prof, device=dev),
+                SrtpStreamTable(N_STREAMS, prof, device=dev))
+        for tab in pair:
+            tab.add_streams(sids, mks, mss)
+        tabs.append(pair)
+    out = dict(install_s=(time.perf_counter() - t0) / 4, prot_s=[],
+               unprot_s=[])
+    (tx, rx), (btx, brx) = tabs
+    pool = np.arange(GCM_CACHE["pool"])     # the cache run's streams
+    live = len(pool) + rng.permutation(N_STREAMS - len(pool))
+    before = dict(kbuild.launches)
+    first = None
+    for k in range(PROFILE_BATCHES):
+        batch = _mix_batch(rng, rng.permutation(live)[:BATCH], 1000 + k,
+                           k * 960)
+        t1 = time.perf_counter()
+        wire = tx.protect_rtp(batch)
+        t2 = time.perf_counter()
+        dec, ok = rx.unprotect_rtp(wire)
+        t3 = time.perf_counter()
+        require(ok.all() and dec.to_payloads() == batch.to_payloads(),
+                f"srtp_gcm batch {k}: genuine rows failed or differ")
+        bw = btx.protect_rtp(batch)
+        require(np.array_equal(bw.data, wire.data)
+                and np.array_equal(brx.unprotect_rtp(bw)[1], ok),
+                f"srtp_gcm batch {k}: the two tables differ")
+        out["prot_s"].append(t2 - t1)
+        out["unprot_s"].append(t3 - t2)
+        first = wire if first is None else first
+    out["launches_per_batch"] = {
+        k: (kbuild.launches[k] - before[k]) / (2 * PROFILE_BATCHES)
+        for k in ("srtp_gcm_seal", "srtp_gcm_open")}
+    batch = _mix_batch(rng, rng.permutation(live)[:BATCH], 2000, 99 * 960)
+    wire = tx.protect_rtp(batch)
+    require(np.array_equal(btx.protect_rtp(batch).data, wire.data),
+            "srtp_gcm: the two tables differ")
+    bad = _with_replay(wire, first, 3, 7)
+    want = np.ones(BATCH + 1, bool)
+    want[[7, BATCH]] = False
+    for r in (rx, brx):
+        _, ok = r.unprotect_rtp(bad)
+        require(np.array_equal(ok, want), "srtp_gcm: the tampered and the "
+                "replayed row are not exactly the rejected ones")
+    rtcp = _rtcp_batch(rng, rng.permutation(live)[:PROFILE_RTCP])
+    wire_c = tx.protect_rtcp(rtcp)
+    dec_c, ok_c = rx.unprotect_rtcp(wire_c)
+    require(ok_c.all() and dec_c.to_payloads() == rtcp.to_payloads()
+            and np.array_equal(btx.protect_rtcp(rtcp).data, wire_c.data)
+            and brx.unprotect_rtcp(wire_c)[1].all(),
+            "srtp_gcm: the SRTCP round trip failed")
+    out["srtcp_wire_bytes"] = int(np.asarray(wire_c.length).sum())
+    # depth-2 pipeline of the async seams on A, B's sync calls beside
+    batches = [_mix_batch(rng, rng.permutation(live)[:BATCH], 3000 + k,
+                          k * 960) for k in range(ASYNC_BATCHES)]
+    results, refs, pend_rx = [], [], []
+    pend_tx = tx.protect_rtp_async(batches[0])
+    for k in range(1, ASYNC_BATCHES + 1):
+        nxt = (tx.protect_rtp_async(batches[k]) if k < ASYNC_BATCHES
+               else None)
+        wire = pend_tx.result()
+        bw = btx.protect_rtp(batches[k - 1])
+        require(np.array_equal(wire.data, bw.data),
+                f"srtp_gcm async batch {k - 1}: the pipeline's wire differs "
+                f"from the sync call's")
+        pend_rx.append(rx.unprotect_rtp_async(wire))
+        refs.append(brx.unprotect_rtp(bw))
+        if len(pend_rx) == 2:
+            results.append(pend_rx.pop(0).result())
+        pend_tx = nxt
+    rx.commit_inflight()
+    results.append(pend_rx.pop(0).result())
+    for k, ((dec, ok), (rdec, rok)) in enumerate(zip(results, refs)):
+        require(ok.all() and np.array_equal(ok, rok)
+                and np.array_equal(dec.data, rdec.data)
+                and dec.to_payloads() == batches[k].to_payloads(),
+                f"srtp_gcm async batch {k}: differs from the sync calls")
+    for f in ("rx_max", "rx_mask", "auth_fail", "replay_reject"):
+        require(np.array_equal(getattr(rx, f), getattr(brx, f)),
+                f"srtp_gcm async: {f} differs from the sync calls'")
+    # the keystream cache on A, B stock, streams 0-1,023
+    caches = (tx.enable_keystream_cache(**GCM_CACHE),
+              rx.enable_keystream_cache(**GCM_CACHE))
+    for c in caches:
+        c.prime(pool, 0x20000 + pool)
+    hits = []
+    for k in range(GCM_CACHE_BATCHES + 1):
+        lens = None
+        if k == GCM_CACHE_BATCHES:          # one 950-byte payload: a miss
+            lens = rng.integers(60, 161, 4 * len(pool))
+            lens[5] = 950
+        batch = _audio_batch(rng, pool, 4 * k, lens)
+        h0 = [(c.hits, c.misses) for c in caches]
+        wire = tx.protect_rtp(batch)
+        dec, ok = rx.unprotect_rtp(wire)
+        bw = btx.protect_rtp(batch)
+        bdec, bok = brx.unprotect_rtp(bw)
+        require(np.array_equal(wire.data, bw.data) and ok.all() and bok.all()
+                and np.array_equal(dec.data, bdec.data)
+                and dec.to_payloads() == batch.to_payloads(),
+                f"srtp_gcm cache batch {k}: differs from the stock path")
+        d = [(c.hits - h[0], c.misses - h[1]) for c, h in zip(caches, h0)]
+        hits.append(d)
+        if k < GCM_CACHE_BATCHES:
+            require(all(m == 0 and hh >= batch.batch_size for hh, m in d),
+                    f"srtp_gcm cache batch {k}: not every row hit: {d}")
+            for c in caches:
+                c.fill()
+        else:
+            require(all(m > 0 for _hh, m in d),
+                    f"srtp_gcm cache: the 950-byte batch did not miss: {d}")
+    out.update(cache_hits_misses=hits,
+               cache_stats=[c.stats() for c in caches])
+    return out
+
+
+def srtp_gcm_check(torch, dev, run) -> None:
+    emit("srtp_gcm", streams=N_STREAMS, batch=BATCH,
+         batches=PROFILE_BATCHES, install_s_per_table=run["install_s"],
+         protect_ms_p50=float(np.median(run["prot_s"])) * 1e3,
+         protect_ms_p99=float(np.percentile(run["prot_s"], 99)) * 1e3,
+         unprotect_ms_p50=float(np.median(run["unprot_s"])) * 1e3,
+         unprotect_ms_p99=float(np.percentile(run["unprot_s"], 99)) * 1e3,
+         tampered_and_replayed_rejected=True, srtcp_rows=PROFILE_RTCP,
+         async_batches=ASYNC_BATCHES, async_depth=2,
+         async_equal_to_sync=True, cache=GCM_CACHE,
+         cache_batches_hit=GCM_CACHE_BATCHES,
+         cache_hits_misses_per_batch=run["cache_hits_misses"],
+         cache_stats=run["cache_stats"],
+         launches_per_batch=run["launches_per_batch"])
+
+
+def sfu_gcm_run(torch, dev, setup) -> dict:
+    """The SfuBridge under AEAD_AES_128_GCM at config #5's width (100 x 11,
+    60-160-byte payloads with abs-send-time), GCM_TICKS ticks with an RR a
+    sender at GCM_RR_TICK, 30 NACKs at GCM_NACK_TICK and `emit_feedback`
+    every GCM_FEEDBACK ticks: N for the uplink and the RRs, H's GCM
+    instance for the fan-out, M for the feedback."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    run = _sfu_drive(torch, dev, setup, GCM_TICKS,
+                     feedback_every=GCM_FEEDBACK, nack_tick=GCM_NACK_TICK)
+    run["launches_per_tick"] = {k: v / GCM_TICKS
+                                for k, v in kbuild.launches.items()}
+    return run
+
+
+def sfu_gcm_check(torch, dev, run) -> None:
+    """Every uplink packet and RR authenticated, `forwarded` equal to the
+    accepted packets times their latched mates and to the unique copies
+    the client received, the NACKed seqs served, no echo or
+    cross-conference copy, and every copy opened by its leg's GCM table
+    (kernel N) and equal to its sender's bytes."""
+    setup, bridge = run["setup"], run["bridge"]
+    require(int(bridge.rx_table.auth_fail.sum()) == 0
+            and int(bridge.rx_table.replay_reject.sum()) == 0
+            and run["taken"] == GCM_TICKS * SFU_N + sum(
+                w.batch_size for w in setup["rtcp"].values()),
+            "sfu_gcm: the bridge did not take every datagram")
+    leg_of, echo, cross, copies = _fanout_log(setup, run["fanout"])
+    require(echo == 0 and cross == 0,
+            f"sfu_gcm: {echo} self-echo, {cross} cross-conference")
+    nack = run["nack"]
+    n_nacked = 3 * len(setup["nacked"])
+    require(nack["retransmitted"] == nack["served"] == n_nacked
+            and nack["cache_miss"] == 0, f"sfu_gcm NACK service: {nack}")
+    counts = _check_copies(torch, dev, setup, run["received"], leg_of,
+                           GCM_TICKS)
+    require(bridge.forwarded == copies == run["expected"]
+            == counts["copies_unique"]
+            and counts["copies_received"] == counts["copies_unique"]
+            + n_nacked and run["feedback_sent"] > 0,
+            f"sfu_gcm: forwarded {bridge.forwarded}, logged {copies}, "
+            f"expected {run['expected']}, received {counts}, feedback "
+            f"{run['feedback_sent']}")
+    secs = np.array(run["tick_s"])
+    emit("sfu_gcm", profile=GCM, ticks=GCM_TICKS,
+         tick_ms_p50=float(np.median(secs)) * 1e3,
+         tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+         forwarded=bridge.forwarded, retransmitted=nack["retransmitted"],
+         feedback_sent=run["feedback_sent"],
+         launches_per_tick=run["launches_per_tick"], **counts)
+    bridge.close()
+    run["client"].close()
+
 
 if __name__ == "__main__":
     sys.exit(main())

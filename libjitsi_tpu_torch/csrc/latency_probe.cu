@@ -29,6 +29,12 @@
 //     so the lanes' message words fall in different banks.
 //     Beside the chain of bare compressions, this is what one row's MAC
 //     costs its lane: the message words, padding and the outer block.
+//   ljt_probe_ghash_chain: a packed GHASH matrix [128, 4] u32 and a block
+//     [4] u32 (big-endian words): one warp runs n Horner steps y = (y ^
+//     x) * H with the matrix in its registers, as the GCM tiles run them
+//     (`ghash.cuh`); y written to out [4], cycles [32] as above.  One step
+//     is the floor of a GCM row's tag: its chain is ceil(aad/16) +
+//     ceil(ct/16) + 1 steps on one warp.
 //   ljt_probe_empty: one warp that does nothing.  Its time on the card is
 //     the launch floor: no kernel, however little work it does, takes
 //     less, so a kernel of a few microseconds is read against it.
@@ -41,6 +47,7 @@
 #include <cstdint>
 
 #include "aes.cuh"
+#include "ghash.cuh"
 #include "sha1.cuh"
 #include "srtp_tile.cuh"
 
@@ -127,6 +134,20 @@ __global__ void hmac_row_kernel(const uint32_t* __restrict__ tab_mid,
   cycles[threadIdx.x] = t1 - t0;
 }
 
+__global__ void ghash_chain_kernel(const uint4* __restrict__ gm,
+                                   const uint4* __restrict__ block,
+                                   uint4* __restrict__ out,
+                                   long long* __restrict__ cycles, int n) {
+  const LjtGhashRows m = ljt_ghash_lane_rows(gm, int(threadIdx.x));
+  const uint4 x = block[0];
+  uint4 y = make_uint4(0u, 0u, 0u, 0u);
+  const long long t0 = clock64();
+  for (int i = 0; i < n; ++i) y = ljt_ghash_step(m, y, x);
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) out[0] = y;
+  cycles[threadIdx.x] = t1 - t0;
+}
+
 __global__ void probe_empty_kernel() {}
 
 __global__ void __launch_bounds__(256) cluster_probe_kernel() {}
@@ -135,6 +156,18 @@ __global__ void __launch_bounds__(256) cluster_probe_kernel() {}
 
 extern "C" int ljt_probe_empty(void* stream) {
   probe_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return int(cudaGetLastError());
+}
+
+extern "C" int ljt_probe_ghash_chain(const void* gm, const void* block,
+                                     void* out, void* cycles, int n,
+                                     void* stream) {
+  if ((reinterpret_cast<uintptr_t>(gm) | reinterpret_cast<uintptr_t>(block) |
+       reinterpret_cast<uintptr_t>(out)) & 15)
+    return int(cudaErrorInvalidValue);
+  ghash_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(gm), static_cast<const uint4*>(block),
+      static_cast<uint4*>(out), static_cast<long long*>(cycles), n);
   return int(cudaGetLastError());
 }
 

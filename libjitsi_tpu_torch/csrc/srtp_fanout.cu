@@ -60,6 +60,17 @@
 //    tagged.  The JAX translator has no such path: under an F8 profile it
 //    runs AES-CM (translator.py:377-397), so the oracle of this instance
 //    is the F8 table's protect of the copy at the same index.
+//  - AEAD-GCM (`srtp_fanout_gcm`; JAX `_fanout_protect_gcm` and
+//    `gcm_protect_fanout`, translator.py:73 and kernels/gcm.py:415, with
+//    the leg-major to packet-major flip `_fanout_packet_major`,
+//    translator.py:81): the GCM tile of kernel M (`gcm_tile.cuh`) over
+//    the gathered copies.  Each copy's RFC 7714 §8.1 IV, salt ^ (00 00 ||
+//    SSRC || 48-bit index), is built on the card from the leg's salt as
+//    under AES-CM; the AAD is the packet's RTP header; the copy is sealed
+//    under the leg's round keys and packed GHASH matrix (gathered by
+//    `recv`, in place of the midstates), and the 16-byte tag follows it.
+//    Rows come out in the order of `src` / `recv`, which the translator
+//    makes packet-major, so no flip runs.
 //
 // Semantics (held byte for byte against `srtp_fanout_protect_plain` in
 // transform/srtp/kernel.py): src and recv are clamped into the packet and
@@ -73,6 +84,7 @@
 #include <atomic>
 #include <cstdint>
 
+#include "gcm_tile.cuh"
 #include "srtp_tile.cuh"
 
 namespace {
@@ -288,7 +300,116 @@ int launch_fanout(const void* tab_rk, const void* tab_f8, const void* tab_mid,
   return int(cudaGetLastError());
 }
 
+// H's GCM rows: copy k is packet src[k] under leg recv[k]; its AAD is
+// the packet's header, its ciphertext the rest of the packet, and its J0
+// the RFC 7714 §8.1 IV from the leg's salt, the SSRC and the index, ||
+// 0x00000001.
+struct FanoutGcmRows {
+  const uint8_t* tab_salt;  // [n_streams, 16] leg salts (first 12 bytes)
+  int n_streams;
+  const uint8_t* data;
+  const int32_t* length;
+  const int32_t* payload_off;
+  const uint32_t* ssrc;
+  const int64_t* index;
+  int n_src;
+  const int32_t* src;
+  const int32_t* recv;
+  int width;
+
+  struct Lead {
+    int p, leg;
+  };
+  struct Regs {
+    int len, off, leg;
+    uint32_t ssrc;
+    uint64_t idx;
+    uint4 salt;
+  };
+  __device__ __forceinline__ int key_row(int row) const {
+    return ljt_clamp(recv[row], 0, n_streams - 1);
+  }
+  __device__ __forceinline__ GatheredRows staged(int base) const {
+    return GatheredRows{data, src, n_src, base, width};
+  }
+  __device__ __forceinline__ Lead lead(int row) const {
+    return Lead{ljt_clamp(src[row], 0, n_src - 1), key_row(row)};
+  }
+  __device__ __forceinline__ Regs load(int, const Lead& lead) const {
+    Regs g;
+    g.leg = lead.leg;
+    g.len = length[lead.p];
+    g.off = payload_off[lead.p];
+    g.ssrc = ssrc[lead.p];
+    g.idx = uint64_t(index[lead.p]) & 0xFFFFFFFFFFFFull;
+    g.salt = make_uint4(0, 0, 0, 0);
+    if (aligned(tab_salt, 16))
+      g.salt = reinterpret_cast<const uint4*>(tab_salt)[g.leg];
+    return g;
+  }
+  __device__ __forceinline__ int len(const Regs& g) const { return g.len; }
+  __device__ __forceinline__ void window(const Regs& g, int, int w, int& off,
+                                         int& end, uint32_t ivw[4]) const {
+    ljt_gcm::gcm_window(g.len, g.off, w, false, off, end);
+    iv_words(aligned(tab_salt, 16), g.salt, tab_salt + size_t(g.leg) * 16,
+             ivw);
+    // bytes 2-5 the SSRC, 6-11 the 48-bit index
+    ivw[0] ^= g.ssrc >> 16;
+    ivw[1] ^= (g.ssrc << 16) | uint32_t((g.idx >> 32) & 0xFFFF);
+    ivw[2] ^= uint32_t(g.idx & 0xFFFFFFFFu);
+    ivw[3] = 1u;
+  }
+};
+
+template <int NR>
+__global__ void __launch_bounds__(kThreads) srtp_fanout_gcm_kernel(
+    const uint8_t* __restrict__ tab_rk, const uint4* __restrict__ tab_gm,
+    const uint8_t* __restrict__ tab_salt, int n_streams,
+    const uint8_t* __restrict__ data, const int32_t* __restrict__ length,
+    const int32_t* __restrict__ payload_off,
+    const uint32_t* __restrict__ ssrc, const int64_t* __restrict__ index,
+    int n_src, const int32_t* __restrict__ src,
+    const int32_t* __restrict__ recv, uint8_t* __restrict__ out,
+    int32_t* __restrict__ out_len, int n, int width, int tile_rows) {
+  extern __shared__ uint4 smem[];
+  ljt_gcm::gcm_tile<NR, false, false>(
+      reinterpret_cast<uint32_t*>(smem), tab_rk, tab_gm,
+      FanoutGcmRows{tab_salt, n_streams, data, length, payload_off, ssrc,
+                    index, n_src, src, recv, width},
+      nullptr, nullptr, 0, 0, out, out_len, nullptr, n, width, tile_rows);
+}
+
 }  // namespace
+
+extern "C" int ljt_srtp_fanout_gcm(const void* tab_rk, const void* tab_gm,
+                                   const void* tab_salt, int n_streams,
+                                   const void* data, const void* length,
+                                   const void* payload_off, const void* ssrc,
+                                   const void* index, int n_src,
+                                   const void* src, const void* recv,
+                                   void* out, void* out_len, int n, int width,
+                                   int nr, void* cuda_stream) {
+  if (n <= 0) return 0;
+  if (nr != 10 || n_src <= 0 || n_streams <= 0 ||
+      (reinterpret_cast<uintptr_t>(tab_gm) & 15))
+    return int(cudaErrorInvalidValue);
+  static std::atomic<unsigned> done;
+  auto kernel = srtp_fanout_gcm_kernel<10>;
+  Plan p;
+  const int rc = plan(kernel, done, n, width, nr, kInPlace,
+                      kCtasPerSmSfu, &p, 1, ljt_gcm::kExtraWords);
+  if (rc) return rc;
+  kernel<<<p.grid, kThreads, p.smem, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const uint8_t*>(tab_rk), static_cast<const uint4*>(tab_gm),
+      static_cast<const uint8_t*>(tab_salt), n_streams,
+      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(length),
+      static_cast<const int32_t*>(payload_off),
+      static_cast<const uint32_t*>(ssrc), static_cast<const int64_t*>(index),
+      n_src, static_cast<const int32_t*>(src),
+      static_cast<const int32_t*>(recv), static_cast<uint8_t*>(out),
+      static_cast<int32_t*>(out_len), n, width, p.rows);
+  return int(cudaGetLastError());
+}
 
 extern "C" int ljt_srtp_fanout_cm(const void* tab_rk, const void* tab_mid,
                                   const void* tab_salt, int n_streams,

@@ -1,6 +1,7 @@
 // The row-tile form shared by the fused SRTP kernels: C and D
 // (`srtp_cm.cu`), K and L (`srtp_f8.cu`), H (`srtp_fanout.cu`), I and J
-// (`srtcp_cm.cu`), and the F8 and NULL instances of C, D, I and J.
+// (`srtcp_cm.cu`), the F8 and NULL instances of C, D, I and J, and the
+// AEAD-GCM tiles of M, N and H's GCM instance (`gcm_tile.cuh`).
 //
 // One CTA of 128 threads takes a tile of rows, so set-up is paid per tile
 // and each kind of work is lane-dense:
@@ -86,12 +87,14 @@ __host__ __device__ constexpr int max_levels(int width) {
 // keystream decrypts into while the first is hashed (D, J).
 enum TileKind { kLevels, kInPlace, kSecondCopy };
 // 32-bit words of shared memory for a tile of `rows` rows whose rows
-// carry `schedules` key schedules (0, 1 or 2).
+// carry `schedules` key schedules (0, 1 or 2), and `extra` words a row
+// that a kernel keeps after the tile (the GCM tiles' tag masks).
 __host__ __device__ constexpr int tile_words(int rows, int width, int nr,
                                              TileKind kind,
-                                             int schedules = 1) {
+                                             int schedules = 1,
+                                             int extra = 0) {
   return (kind == kLevels ? max_levels(width) : 0) +
-         rows * (schedules * rk_stride(nr) + 4 + kRowParams +
+         rows * (schedules * rk_stride(nr) + 4 + kRowParams + extra +
                  (kind == kSecondCopy ? 2 : 1) * row_stride(width));
 }
 
@@ -640,9 +643,10 @@ inline int multiprocessors() {
 // the whole card instead of a quarter of it), at most a full tile, and
 // no more than fit the SM's shared memory (0: the width cannot run).
 inline int tile_rows_for(int n, int width, int nr, TileKind kind,
-                         int per_sm, int schedules = 1) {
-  const int fixed = tile_words(0, width, nr, kind, schedules);
-  const int per_row = tile_words(1, width, nr, kind, schedules) - fixed;
+                         int per_sm, int schedules = 1, int extra = 0) {
+  const int fixed = tile_words(0, width, nr, kind, schedules, extra);
+  const int per_row =
+      tile_words(1, width, nr, kind, schedules, extra) - fixed;
   const int fit = (kMaxSmemBytes / 4 - fixed) / per_row;
   const int ctas = per_sm * multiprocessors();
   int rows = ctas > 0 ? (n + ctas - 1) / ctas : kTileRows;
@@ -656,17 +660,20 @@ struct Plan {
 };
 
 // Plan the launch of `kernel` over n rows of `width` bytes whose rows
-// carry `schedules` key schedules, `per_sm` tiles an SM, and allow it the dynamic shared memory above the 48 KB
-// default where it needs it, once per device (`done` holds one bit per
-// device).  Returns a CUDA error code, cudaErrorInvalidValue for a width
-// no tile holds.
+// carry `schedules` key schedules and `extra` words, `per_sm` tiles an
+// SM, and allow it the dynamic shared memory above the 48 KB default
+// where it needs it, once per device (`done` holds one bit per device).
+// Returns a CUDA error code, cudaErrorInvalidValue for a width no tile
+// holds.
 template <class Kernel>
 int plan(Kernel kernel, std::atomic<unsigned>& done, int n, int width, int nr,
-         TileKind kind, int per_sm, Plan* p, int schedules = 1) {
-  p->rows =
-      width > 0 ? tile_rows_for(n, width, nr, kind, per_sm, schedules) : 0;
+         TileKind kind, int per_sm, Plan* p, int schedules = 1,
+         int extra = 0) {
+  p->rows = width > 0 ? tile_rows_for(n, width, nr, kind, per_sm, schedules,
+                                      extra)
+                      : 0;
   if (p->rows < 1) return int(cudaErrorInvalidValue);
-  p->smem = 4 * tile_words(p->rows, width, nr, kind, schedules);
+  p->smem = 4 * tile_words(p->rows, width, nr, kind, schedules, extra);
   p->grid = (n + p->rows - 1) / p->rows;
   if (p->smem <= 48 * 1024) return 0;
   int dev = 0;

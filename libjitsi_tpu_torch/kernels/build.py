@@ -37,7 +37,11 @@ KERNELS = ("aes_encrypt", "hmac_sha1", "srtp_protect_cm", "srtp_unprotect_cm",
            "srtcp_unprotect_f8", "srtp_protect_null", "srtp_unprotect_null",
            "srtcp_protect_null", "srtcp_unprotect_null",
            # kernel H's NULL and AES-F8 instances (the SFU fan-out)
-           "srtp_fanout_null", "srtp_fanout_f8")
+           "srtp_fanout_null", "srtp_fanout_f8",
+           # AEAD-GCM: kernels M and N and their cached instances, H's GCM
+           # instance and kernel O (the keystream cache's fill)
+           "srtp_gcm_seal", "srtp_gcm_open", "srtp_gcm_seal_cached",
+           "srtp_gcm_open_cached", "srtp_fanout_gcm", "gcm_ks_fill")
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -88,10 +92,22 @@ _SIGNATURES = {
                              _I, _I, _I, _P],
     "ljt_srtcp_unprotect_f8": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                _P, _P, _I, _I, _I, _I, _P],
+    "ljt_srtp_gcm_seal": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _P],
+    "ljt_srtp_gcm_open": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _P],
+    "ljt_srtp_gcm_seal_cached": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
+                                 _P, _P, _P, _I, _I, _P],
+    "ljt_srtp_gcm_open_cached": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
+                                 _P, _P, _P, _P, _I, _I, _P],
+    "ljt_srtp_fanout_gcm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
+                            _P, _P, _I, _I, _I, _P],
+    "ljt_gcm_ks_fill": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ljt_mix_minus": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ljt_g711_encode": [_P, _P, _I, _I, _P],
     "ljt_g711_decode": [_P, _P, _I, _I, _P],
     "ljt_probe_sha1_chain": [_P, _P, _I, _P],
+    "ljt_probe_ghash_chain": [_P, _P, _P, _P, _I, _P],
     "ljt_probe_aes_chain": [_P, _P, _P, _I, _I, _P],
     "ljt_probe_empty": [_P],
     "ljt_probe_cluster": [_I, _P],

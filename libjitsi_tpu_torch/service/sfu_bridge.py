@@ -24,8 +24,9 @@ is a full mesh, scoped to conferences where `stage_endpoints` gave
 conference ids.  The loop's tracer spans `reverse_chain` (SRTP/SRTCP
 unprotect), `recovery`, `forward_chain` (the fan-out) and `egress` split
 a tick, beside the loop's `ingress`, in the stage ledger and in a
-profiler trace.  Profiles: AES-CM, AES-F8 and NULL with HMAC-SHA1 (the
-fan-out on kernel H's instance for the cipher).  `device` None means the
+profiler trace.  Profiles: AES-CM, AES-F8 and NULL with HMAC-SHA1, and
+AEAD_AES_128_GCM (the fan-out on kernel H's instance for the cipher; under
+GCM the SRTP and SRTCP tables run kernels M and N).  `device` None means the
 card; the tests pass device="cpu".
 
 Pipelined (`pipelined=True` or `pipeline_depth` > 1, as in the JAX
@@ -42,8 +43,8 @@ deep receive pipeline does not engage; depth > 1 pipelines the fan-out.
 Not ported, each raising `NotImplementedError` with its ROADMAP Queue 1
 item: DTLS joins (item 9), video and SVC tracks with RTX encapsulation
 (item 9), kernel timestamps and extra ingest rings (item 4), mesh mode,
-cascade trunks, broadcast conferences and endpoint migration (item 12),
-AEAD-GCM profiles (item 8).  The JAX bridge's `config` and `engine_mode`
+cascade trunks, broadcast conferences and endpoint migration (item 12).
+The JAX bridge's `config` and `engine_mode`
 arguments are not taken: the port's UDP engine has one mode.
 """
 
@@ -69,7 +70,7 @@ from libjitsi_tpu_torch.sfu.rtcp_termination import RtcpTermination
 from libjitsi_tpu_torch.sfu.translator import RtpTranslator
 from libjitsi_tpu_torch.transform.header_ext import AbsSendTimeEngine
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
-from libjitsi_tpu_torch.transform.srtp.policy import Cipher, SrtpProfile
+from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -96,8 +97,6 @@ class SfuBridge:
             raise _not_ported("kernel timestamps and extra ingest rings", 4)
         if mesh is not None:
             raise _not_ported("mesh mode", 12)
-        if profile.policy.cipher == Cipher.AES_GCM:
-            raise _not_ported(f"profile {profile.value}", 8)
         self.device = resolve_device(device)
         self.capacity = capacity
         self.profile = profile

@@ -1,7 +1,7 @@
 """RTP translator — the SFU fan-out primitive (BASELINE config #5).
 
-Counterpart: `libjitsi_tpu/sfu/translator.py` `RtpTranslator`, the
-AES-CM, NULL and AES-F8 profiles with HMAC-SHA1.  Reference:
+Counterpart: `libjitsi_tpu/sfu/translator.py` `RtpTranslator`: the
+AES-CM, NULL and AES-F8 profiles with HMAC-SHA1, and AEAD_AES_128_GCM.  Reference:
 `org.jitsi.impl.neomedia.rtp.translator.RTPTranslatorImpl` fans each
 received packet from one `StreamRTPManager` to all the others, re-running
 every receiver leg's send chain — one SRTP re-encrypt per receiver per
@@ -34,8 +34,15 @@ does, and builds each packet's RFC 3711 §4.1.2 IV from its header and
 ROC.  The JAX translator encrypts F8 copies with AES-CM (its fault,
 ROADMAP Queue 3), so the port's F8 copies equal the F8 table's
 `protect_rtp` of the leg at the same index, not the JAX translator's.
-AEAD-GCM fan-out (K11's `:73`, `:81`) is not ported yet (ROADMAP Queue
-1, item 8).
+
+Under AEAD_AES_128_GCM (RFC 7714) each leg keeps its packed GHASH matrix
+(`kernels.ghash`, 2 KB a leg) in place of the HMAC midstates, and H's GCM
+instance (`srtp_fanout_gcm`) seals every copy with the leg's keys and
+matrix, the AAD being the packet's RTP header and the IV built on the
+card from the leg's salt, the SSRC and the index.  The JAX translator
+has two paths that give the same bytes, a full-mesh one
+(`gcm_protect_fanout`, leg-major, flipped to packet-major after) and a
+general one; the port has one, which writes packet-major rows directly.
 """
 
 from __future__ import annotations
@@ -46,19 +53,17 @@ import numpy as np
 
 from libjitsi_tpu_torch.core.device import DeviceLike, resolve_device, to_device
 from libjitsi_tpu_torch.core.packet import PacketBatch
-from libjitsi_tpu_torch.kernels.aes import expand_key, expand_keys_batch
-from libjitsi_tpu_torch.kernels.sha1 import (hmac_precompute,
-                                             hmac_precompute_batch)
+from libjitsi_tpu_torch.kernels.aes import expand_keys_batch
+from libjitsi_tpu_torch.kernels.sha1 import hmac_precompute_batch
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.transform.srtp import kernel
 from libjitsi_tpu_torch.transform.srtp.context import (CIPHER_NAME,
                                                        Download,
                                                        f8_rtp_iv,
-                                                       f8_schedules)
-from libjitsi_tpu_torch.transform.srtp.kdf import (derive_session_keys,
-                                                   derive_session_keys_batch)
-from libjitsi_tpu_torch.transform.srtp.policy import (Auth, Cipher,
-                                                      SrtpProfile)
+                                                       f8_schedules,
+                                                       ghash_tables)
+from libjitsi_tpu_torch.transform.srtp.kdf import derive_session_keys_batch
+from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
 
 
 class RtpTranslator:
@@ -74,10 +79,6 @@ class RtpTranslator:
                  profile: SrtpProfile = SrtpProfile.AES_CM_128_HMAC_SHA1_80,
                  device: DeviceLike = None):
         policy = profile.policy
-        if policy.cipher == Cipher.AES_GCM or policy.auth != Auth.HMAC_SHA1:
-            raise NotImplementedError(
-                f"fan-out for profile {profile.value} is not ported yet "
-                "(ROADMAP Queue 1, item 8)")
         self.profile = profile
         self.policy = policy
         self.cipher = CIPHER_NAME[policy.cipher]
@@ -92,6 +93,9 @@ class RtpTranslator:
         # §4.1.2.2), for IV'
         self._rk_f8 = (np.zeros((capacity, rounds, 16), dtype=np.uint8)
                        if self.cipher == "f8" else None)
+        # AEAD-GCM: each leg's packed GHASH matrix (H = E(K, 0^128))
+        self._gm = (np.zeros((capacity, 128, 4), dtype=np.uint32)
+                    if self.cipher == "gcm" else None)
         self._dev = None
         # routing: sender sid -> sorted receiver id array
         self._routes: Dict[int, np.ndarray] = {}
@@ -99,20 +103,7 @@ class RtpTranslator:
     # ---------------------------------------------------------- receivers
     def add_receiver(self, rid: int, master_key: bytes,
                      master_salt: bytes) -> None:
-        p = self.policy
-        ks = derive_session_keys(
-            master_key, master_salt, enc_key_len=p.enc_key_len,
-            auth_key_len=p.auth_key_len, salt_len=p.salt_len)
-        self._rk[rid] = expand_key(ks.rtp_enc)
-        if self._rk_f8 is not None:
-            self._rk_f8[rid] = f8_schedules(
-                np.frombuffer(ks.rtp_enc, np.uint8)[None],
-                np.frombuffer(ks.rtp_salt, np.uint8)[None])[0]
-        self._mid[rid] = hmac_precompute(ks.rtp_auth)
-        self._salt[rid, :p.salt_len] = np.frombuffer(ks.rtp_salt, np.uint8)
-        self._salt[rid, p.salt_len:] = 0
-        self.active[rid] = True
-        self._dev = None
+        self.add_receivers([rid], [master_key], [master_salt])
 
     def add_receivers(self, rids, master_keys, master_salts) -> None:
         """Vectorized bulk `add_receiver`: one batched KDF, key schedule
@@ -133,7 +124,10 @@ class RtpTranslator:
         self._rk[rids] = expand_keys_batch(ksb.rtp_enc)
         if self._rk_f8 is not None:
             self._rk_f8[rids] = f8_schedules(ksb.rtp_enc, ksb.rtp_salt)
-        self._mid[rids] = hmac_precompute_batch(ksb.rtp_auth)
+        if self._gm is not None:
+            self._gm[rids] = ghash_tables(self._rk[rids])
+        else:
+            self._mid[rids] = hmac_precompute_batch(ksb.rtp_auth)
         self._salt[rids, :p.salt_len] = ksb.rtp_salt
         self._salt[rids, p.salt_len:] = 0
         self.active[rids] = True
@@ -143,8 +137,9 @@ class RtpTranslator:
         self.active[rid] = False
         self._rk[rid] = 0
         self._mid[rid] = 0
-        if self._rk_f8 is not None:
-            self._rk_f8[rid] = 0
+        for tab in (self._rk_f8, self._gm):
+            if tab is not None:
+                tab[rid] = 0
         self._dev = None
         for s, rr in list(self._routes.items()):
             self._routes[s] = rr[rr != rid]
@@ -176,7 +171,7 @@ class RtpTranslator:
 
     def _key_tables(self):
         tabs = [self._rk, self._mid, self._salt]
-        return tabs + ([self._rk_f8] if self._rk_f8 is not None else [])
+        return tabs + [t for t in (self._rk_f8, self._gm) if t is not None]
 
     # ------------------------------------------------------------ routing
     def connect(self, sender_sid: int, receiver_ids: Sequence[int]) -> None:
@@ -191,8 +186,9 @@ class RtpTranslator:
     def _device_tables(self):
         if self._dev is None:
             d = self.device
+            aux = self._mid if self._gm is None else self._gm
             self._dev = (to_device(self._rk, d),
-                         to_device(self._mid.view(np.int32), d),
+                         to_device(aux.view(np.int32), d),
                          to_device(self._salt, d),
                          None if self._rk_f8 is None
                          else to_device(self._rk_f8, d))
@@ -253,9 +249,20 @@ class RtpTranslator:
 
     def _fanout_call(self, data, length, hdr, index, src, recv):
         """One launch of kernel H's instance for the profile's cipher over
-        the (packet, leg) rows; under AES-F8 with each packet's IV."""
+        the (packet, leg) rows; under AES-F8 with each packet's IV, under
+        AEAD-GCM with the legs' packed GHASH matrices."""
         d = self.device
         tab_rk, tab_mid, tab_salt, tab_f8 = self._device_tables()
+        if self.cipher == "gcm":
+            return kernel.srtp_fanout_gcm(
+                tab_rk, tab_mid, tab_salt, to_device(data, d),
+                to_device(length, d),
+                to_device(np.asarray(hdr.payload_off, dtype=np.int32), d),
+                to_device((np.asarray(hdr.ssrc, dtype=np.int64)
+                           & 0xFFFFFFFF).astype(np.uint32).view(np.int32),
+                          d),
+                to_device(index, d), to_device(src.astype(np.int32), d),
+                to_device(recv.astype(np.int32), d))
         iv = None
         if self.cipher == "f8":
             iv = to_device(f8_rtp_iv(hdr, (index >> 16) & 0xFFFFFFFF), d)

@@ -8,8 +8,9 @@ Map<ssrc, context>) and runs per packet.  Here the contexts of all
 streams are dense struct-of-arrays:
 
 - key tables on `self.device`: AES round keys `[S, R, 16]` uint8 (and,
-  for AES-F8, the schedules of k_e XOR m) and HMAC midstates
-  `[S, 2, 5]` (uint32 bit patterns in int32), uploaded from the host
+  for AES-F8, the schedules of k_e XOR m), and HMAC midstates
+  `[S, 2, 5]` or, under AEAD-GCM, packed GHASH matrices `[S, 128, 4]`
+  (uint32 bit patterns in int32; `kernels.ghash`), uploaded from the host
   master copies whenever a mutation marks them stale; the kernels
   gather rows by per-packet stream id themselves;
 - host NumPy arrays: session salts (IV construction), ROC / highest
@@ -24,16 +25,22 @@ process the next batch identically.
 
 Ported: the AES-CM, AES-F8 and NULL + HMAC-SHA1 profiles (kernels C/D,
 K/L and C's/D's NULL instances for RTP; I/J and their F8 and NULL
-instances for SRTCP); synchronous `protect_rtp` / `unprotect_rtp`
+instances for SRTCP) and AEAD_AES_128_GCM (RFC 7714: kernels M and N for
+RTP and SRTCP, with the host reshuffle between SRTCP's wire layout and
+the kernels'; the optional keystream cache, `enable_keystream_cache`,
+serves M's and N's cached instances); synchronous `protect_rtp` /
+`unprotect_rtp`
 (with `return_index`, the authenticated 48-bit estimates the SFU
 fan-out re-uses) with size-class bucketing, and SRTCP `protect_rtcp` /
 `unprotect_rtcp`; key derivation rate epochs (`add_stream(s)(kdr=...)`:
 a batch crossing an epoch runs in waves, keys re-derived before each);
 the dispatch-only seams `protect_rtp_async` / `unprotect_rtp_async`
 with `commit_inflight` (`PendingProtect`, `PendingUnprotect`); installs,
-removals, `move_rows`, snapshot and restore.  Still raising
-`NotImplementedError`: AEAD-GCM and its keystream cache (ROADMAP Queue
-1, item 8).
+removals, `move_rows`, snapshot and restore.  A GCM table keeps its
+GHASH matrices packed (2 KB a stream); its snapshot gives them in the
+JAX package's [S, 128, 128] int8 form, expanded for the active rows only
+(the rest of the array is zero pages never touched), and `restore` packs
+them again.
 
 On the card the dispatch-only seams launch on the current CUDA stream,
 copy each result back without blocking into pinned host tensors the
@@ -65,17 +72,27 @@ from libjitsi_tpu_torch.core.packet import PacketBatch, bucket_by_size, unbucket
 from libjitsi_tpu_torch.core.rtp_math import (chain_packet_indices,
                                               estimate_packet_index,
                                               segment_ranks)
-from libjitsi_tpu_torch.kernels.aes import expand_keys_batch
+from libjitsi_tpu_torch.kernels import gcm
+from libjitsi_tpu_torch.kernels.aes import aes_encrypt_np, expand_keys_batch
+from libjitsi_tpu_torch.kernels.ghash import (ghash_matrix_packed,
+                                              pack_matrices, unpack_matrices)
 from libjitsi_tpu_torch.kernels.sha1 import hmac_precompute_batch
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.transform.srtp import kernel, replay
 from libjitsi_tpu_torch.transform.srtp.kdf import derive_session_keys_batch
-from libjitsi_tpu_torch.transform.srtp.policy import (Auth, Cipher,
-                                                      SrtpPolicy, SrtpProfile)
+from libjitsi_tpu_torch.transform.srtp.policy import (Cipher, SrtpPolicy,
+                                                      SrtpProfile)
 
 #: the kernel wrappers' name for each ported cipher
-CIPHER_NAME = {Cipher.AES_CM: "cm", Cipher.AES_F8: "f8", Cipher.NULL: "null"}
-_GCM_ITEM = "ROADMAP Queue 1, item 8 (AEAD-GCM)"
+CIPHER_NAME = {Cipher.AES_CM: "cm", Cipher.AES_F8: "f8", Cipher.NULL: "null",
+               Cipher.AES_GCM: "gcm"}
+
+
+def ghash_tables(rk: np.ndarray) -> np.ndarray:
+    """Packed GHASH matrices [n, 128, 4] uint32 for [n, R, 16] round
+    keys: H = E(K, 0^128) on the host, then M_H (RFC 7714; SP 800-38D)."""
+    h = aes_encrypt_np(rk, np.zeros((rk.shape[0], 16), np.uint8))
+    return ghash_matrix_packed(h)
 
 
 def f8_schedules(enc: np.ndarray, salt: np.ndarray) -> np.ndarray:
@@ -142,13 +159,11 @@ class SrtpStreamTable:
                  profile: SrtpProfile = SrtpProfile.AES_CM_128_HMAC_SHA1_80,
                  device: DeviceLike = None):
         policy: SrtpPolicy = profile.policy
-        if policy.cipher == Cipher.AES_GCM or policy.auth != Auth.HMAC_SHA1:
-            raise NotImplementedError(
-                f"profile {profile.value} is not ported yet ({_GCM_ITEM})")
         self.profile = profile
         self.policy = policy
         self.cipher = CIPHER_NAME[policy.cipher]
         self._f8 = policy.cipher == Cipher.AES_F8
+        self._gcm = policy.cipher == Cipher.AES_GCM
         self.capacity = capacity
         self.device = resolve_device(device)
         rounds = {16: 11, 32: 15}[policy.enc_key_len]
@@ -165,6 +180,11 @@ class SrtpStreamTable:
             # §4.1.2.2; reference SRTPCipherF8)
             self._rk_f8_rtp = np.zeros((s, rounds, 16), dtype=np.uint8)
             self._rk_f8_rtcp = np.zeros((s, rounds, 16), dtype=np.uint8)
+        if self._gcm:
+            # packed GHASH matrices of H = E(K, 0^128) per stream and
+            # plane (RFC 7714), in place of the midstates on the card
+            self._gm_rtp = np.zeros((s, 128, 4), dtype=np.uint32)
+            self._gm_rtcp = np.zeros((s, 128, 4), dtype=np.uint32)
         self._dev = None
         self._dev_rtcp = None
         # host-side IV salts (16B, low 2 bytes zero)
@@ -194,6 +214,24 @@ class SrtpStreamTable:
         # counter commit is forced before anything reads or mutates RX
         # state
         self._inflight_unprotect: "PendingUnprotect | None" = None
+        # the optional keystream cache (GCM; `enable_keystream_cache`)
+        self._ks_cache = None
+
+    def enable_keystream_cache(self, window: int = 64, ks_bytes: int = 256,
+                               pool=None, debug: bool = False):
+        """Attach a keystream cache (AEAD-GCM only): protect and unprotect
+        then serve M's and N's cached instances when every row of a part
+        hits its window, and fall back to the stock kernels, byte for
+        byte, on a miss.  `fill()` runs between ticks.  Returns the
+        cache."""
+        if not self._gcm:
+            raise ValueError("keystream cache requires an AEAD-GCM profile")
+        from libjitsi_tpu_torch.transform.srtp.keystream import \
+            KeystreamCache
+        self._ks_cache = KeystreamCache(self, window=window,
+                                        ks_bytes=ks_bytes, pool=pool,
+                                        debug=debug)
+        return self._ks_cache
 
     # ------------------------------------------------------ commit barrier
     def _commit_inflight_unprotect(self) -> None:
@@ -222,6 +260,10 @@ class SrtpStreamTable:
         host write, and the device tables it reads stay alive and unused
         until it is done (one CUDA stream)."""
         self._commit_inflight_unprotect()
+        if self._ks_cache is not None:
+            # keys change somewhere in the table: drop every cached window
+            # (the per-stream served high-water stays)
+            self._ks_cache.invalidate()
         self._dev = None
         self._dev_rtcp = None
 
@@ -269,6 +311,8 @@ class SrtpStreamTable:
             else:
                 self._masters.pop(int(sid), None)
         self.active[sids] = True
+        if self._ks_cache is not None:
+            self._ks_cache.forget(sids)
 
     def _install_keys_batch(self, sids: np.ndarray, ksb) -> None:
         """Pack many streams' derived session keys (a
@@ -279,8 +323,12 @@ class SrtpStreamTable:
         self._cow_tables()
         self._rk_rtp[sids] = expand_keys_batch(ksb.rtp_enc)
         self._rk_rtcp[sids] = expand_keys_batch(ksb.rtcp_enc)
-        self._mid_rtp[sids] = hmac_precompute_batch(ksb.rtp_auth)
-        self._mid_rtcp[sids] = hmac_precompute_batch(ksb.rtcp_auth)
+        if self._gcm:
+            self._gm_rtp[sids] = ghash_tables(self._rk_rtp[sids])
+            self._gm_rtcp[sids] = ghash_tables(self._rk_rtcp[sids])
+        else:
+            self._mid_rtp[sids] = hmac_precompute_batch(ksb.rtp_auth)
+            self._mid_rtcp[sids] = hmac_precompute_batch(ksb.rtcp_auth)
         if self._f8:
             self._rk_f8_rtp[sids] = f8_schedules(ksb.rtp_enc, ksb.rtp_salt)
             self._rk_f8_rtcp[sids] = f8_schedules(ksb.rtcp_enc,
@@ -309,6 +357,8 @@ class SrtpStreamTable:
             self._masters.pop(int(sid), None)
         self._reset_rows(sids)
         self.kdr[sids] = 0
+        if self._ks_cache is not None:
+            self._ks_cache.forget(sids)
 
     def _key_tables(self):
         """The per-stream key material: round keys, midstates, salts."""
@@ -316,6 +366,8 @@ class SrtpStreamTable:
                 self._salt_rtp, self._salt_rtcp]
         if self._f8:
             tabs += [self._rk_f8_rtp, self._rk_f8_rtcp]
+        if self._gcm:
+            tabs += [self._gm_rtp, self._gm_rtcp]
         return tabs
 
     def _reset_rows(self, sids) -> None:
@@ -362,26 +414,34 @@ class SrtpStreamTable:
             if m is not None:
                 self._masters[int(d)] = m
         self.active[dst] = True
+        if self._ks_cache is not None:
+            # dst inherits src's served high-water: the same keys under a
+            # new row id, and never-serve-twice holds across the rename
+            self._ks_cache.move(src, dst)
         # masters already relocated; remove_streams zeroes the rest
         self.remove_streams(src)
 
     def _device_tables(self):
-        """(round keys, midstates, F8 schedules or None) of the RTP plane
-        on `self.device`, uploaded again after any key mutation."""
+        """(round keys, midstates or under GCM packed GHASH matrices, F8
+        schedules or None) of the RTP plane on `self.device`, uploaded
+        again after any key mutation."""
         if self._dev is None:
+            aux = self._gm_rtp if self._gcm else self._mid_rtp
             self._dev = (
                 to_device(self._rk_rtp, self.device),
-                to_device(self._mid_rtp.view(np.int32), self.device),
+                to_device(aux.view(np.int32), self.device),
                 to_device(self._rk_f8_rtp, self.device) if self._f8
                 else None)
         return self._dev
 
     def _device_tables_rtcp(self):
-        """The same for the RTCP plane (kernel I and J instances)."""
+        """The same for the RTCP plane (kernel I and J instances, or M
+        and N under GCM)."""
         if self._dev_rtcp is None:
+            aux = self._gm_rtcp if self._gcm else self._mid_rtcp
             self._dev_rtcp = (
                 to_device(self._rk_rtcp, self.device),
-                to_device(self._mid_rtcp.view(np.int32), self.device),
+                to_device(aux.view(np.int32), self.device),
                 to_device(self._rk_f8_rtcp, self.device) if self._f8
                 else None)
         return self._dev_rtcp
@@ -419,6 +479,12 @@ class SrtpStreamTable:
             iv[:, 4 + k] = (w >> (8 * (3 - k))) & 0xFF
         iv[:, 8:16] = data[:, :8]
         return iv
+
+    def _gcm_rtcp_iv(self, srow: np.ndarray, ssrc: np.ndarray,
+                     index: np.ndarray) -> np.ndarray:
+        """RFC 7714 §9.1: IV = (00 00 || SSRC || 00 00 || index) XOR
+        salt."""
+        return gcm.srtcp_gcm_iv(self._salt_rtcp[srow], ssrc, index)
 
     def _rtp_iv(self, stream, hdr, idx) -> np.ndarray:
         if self._f8:
@@ -557,6 +623,45 @@ class SrtpStreamTable:
                 to_device((v & 0xFFFFFFFF).astype(np.uint32).view(np.int32),
                           d))
 
+    def _gcm_rtp_call(self, stream, srow, batch, hdr, idx, length,
+                      opening: bool):
+        """One part's AEAD-GCM launch (RFC 7714 §8: AAD = the RTP header):
+        M's or N's cached instance when the keystream cache serves every
+        row of the part, else M or N with each row's IV built on the host.
+        Returns the device results (data, length') or (data, mlen,
+        auth_ok).  On unprotect the claimed slots are consumed even if
+        authentication fails, so a replayed twin finds its slot taken."""
+        d = self.device
+        _, tab_gm, _ = self._device_tables()
+        off = np.asarray(hdr.payload_off, dtype=np.int32)
+        got = None
+        if self._ks_cache is not None:
+            aad = _uniform_off(off, batch.capacity)
+            ct = (np.asarray(length, dtype=np.int64)
+                  - (gcm.TAG_LEN if opening else 0)
+                  - (aad if aad is not None else 0))
+            got = self._ks_cache.claim(stream, hdr.ssrc, idx, ct,
+                                       aad is not None)
+        with record_function("srtp.upload"):
+            rows = (to_device(srow.astype(np.int32), d),
+                    to_device(batch.data, d),
+                    to_device(np.asarray(length, dtype=np.int32), d),
+                    to_device(off, d))
+            if got is None:
+                iv12 = to_device(gcm.srtp_gcm_iv(self._salt_rtp[srow],
+                                                 hdr.ssrc, idx), d)
+            else:
+                ks_tab, ek_tab, slot = got
+                slot = to_device(slot, d)
+        with record_function("srtp.kernel"):
+            if got is not None:
+                fn = (kernel.srtp_gcm_unprotect_cached if opening
+                      else kernel.srtp_gcm_protect_cached)
+                return fn(ks_tab, ek_tab, slot, tab_gm, *rows)
+            fn = kernel.srtp_gcm_unprotect if opening \
+                else kernel.srtp_gcm_protect
+            return fn(self._device_tables()[0], tab_gm, *rows, iv12)
+
     # ------------------------------------------------------------------ RTP
     def protect_rtp(self, batch: PacketBatch) -> PacketBatch:
         """Encrypt + tag a batch of outgoing RTP (rows in send order).
@@ -625,14 +730,18 @@ class SrtpStreamTable:
                 f"packet of {max_len}B + {self.policy.auth_tag_len}B tag "
                 f"exceeds batch capacity {batch.capacity}")
         idx = chain_packet_indices(stream, hdr.seq, self.tx_ext)
-        iv = self._rtp_iv(stream, hdr, idx)
-        with record_function("srtp.upload"):
-            args = self._kernel_args(stream, batch, hdr, iv, idx >> 16,
-                                     batch.length)
-        with record_function("srtp.kernel"):
-            data, length = kernel.srtp_protect(
-                *args, self.policy.auth_tag_len, self.cipher,
-                self._device_tables()[2])
+        if self._gcm:
+            data, length = self._gcm_rtp_call(stream, stream, batch, hdr,
+                                              idx, batch.length, False)
+        else:
+            iv = self._rtp_iv(stream, hdr, idx)
+            with record_function("srtp.upload"):
+                args = self._kernel_args(stream, batch, hdr, iv, idx >> 16,
+                                         batch.length)
+            with record_function("srtp.kernel"):
+                data, length = kernel.srtp_protect(
+                    *args, self.policy.auth_tag_len, self.cipher,
+                    self._device_tables()[2])
         np.maximum.at(self.tx_ext, stream, idx)
         return data, length, batch.stream
 
@@ -736,12 +845,18 @@ class SrtpStreamTable:
                  & self.active[srow] & (stream >= 0)
                  & (stream < self.capacity))
         idx = self._estimate_rx_indices(stream, hdr.seq)
-        iv = self._rtp_iv(srow, hdr, idx)
-        with record_function("srtp.upload"):
-            args = self._kernel_args(srow, batch, hdr, iv, idx >> 16, length)
-        with record_function("srtp.kernel"):
-            res = kernel.srtp_unprotect(*args, p.auth_tag_len, self.cipher,
-                                        self._device_tables()[2])
+        if self._gcm:
+            res = self._gcm_rtp_call(stream, srow, batch, hdr, idx, length,
+                                     True)
+        else:
+            iv = self._rtp_iv(srow, hdr, idx)
+            with record_function("srtp.upload"):
+                args = self._kernel_args(srow, batch, hdr, iv, idx >> 16,
+                                         length)
+            with record_function("srtp.kernel"):
+                res = kernel.srtp_unprotect(*args, p.auth_tag_len,
+                                            self.cipher,
+                                            self._device_tables()[2])
         return {"part": batch, "stream": stream, "srow": srow,
                 "length": length, "valid": valid, "idx": idx, "res": res}
 
@@ -792,6 +907,10 @@ class SrtpStreamTable:
                 return out
             self._apply_epochs(stream, r, rtcp=True)
         with record_function("srtp.protect_rtcp"):
+            if self._gcm:
+                out = self._protect_rtcp_gcm(batch, stream, index)
+                np.maximum.at(self.rtcp_tx_index, stream, index)
+                return out
             e = np.int64(0 if self.cipher == "null" else 1 << 31)
             index_word = index | e
             ssrc = rtp_header.read_u32(batch.data, 4)
@@ -831,8 +950,10 @@ class SrtpStreamTable:
         srow = np.clip(stream, 0, self.capacity - 1)
         valid = ((length >= 8 + 4 + p.auth_tag_len) & self.active[srow]
                  & (stream >= 0) & (stream < self.capacity))
-        # the trailer's E || index word sits before the tag
-        tpos = np.maximum(length - (p.auth_tag_len + 4), 0)
+        # the trailer's E || index word sits before the tag (after it
+        # under GCM, RFC 7714 §9)
+        tpos = np.maximum(length - (4 if self._gcm
+                                    else p.auth_tag_len + 4), 0)
         word = np.zeros(len(stream), dtype=np.int64)
         for k in range(4):
             col = np.minimum(tpos + k, batch.capacity - 1)
@@ -853,17 +974,21 @@ class SrtpStreamTable:
             ssrc = rtp_header.read_u32(batch.data, 4)
             not_replayed = replay.check(self.rtcp_rx_max, self.rtcp_rx_mask,
                                         srow, index)
-            if self._f8:
-                iv = self._f8_rtcp_iv(batch.data, word)
+            if self._gcm:
+                data, mlen, auth_ok = self._unprotect_rtcp_gcm(
+                    batch, srow, ssrc, index, word, length)
             else:
-                iv = self._cm_iv(self._salt_rtcp[srow], ssrc, index)
-            d = self.device
-            tab_rk, tab_mid, tab_f8 = self._device_tables_rtcp()
-            res = kernel.srtcp_unprotect(
-                tab_rk, tab_mid, to_device(srow.astype(np.int32), d),
-                to_device(batch.data, d), to_device(length, d),
-                to_device(iv, d), p.auth_tag_len, self.cipher, tab_f8)
-            data, mlen, auth_ok = (t.cpu().numpy() for t in res[:3])
+                if self._f8:
+                    iv = self._f8_rtcp_iv(batch.data, word)
+                else:
+                    iv = self._cm_iv(self._salt_rtcp[srow], ssrc, index)
+                d = self.device
+                tab_rk, tab_mid, tab_f8 = self._device_tables_rtcp()
+                res = kernel.srtcp_unprotect(
+                    tab_rk, tab_mid, to_device(srow.astype(np.int32), d),
+                    to_device(batch.data, d), to_device(length, d),
+                    to_device(iv, d), p.auth_tag_len, self.cipher, tab_f8)
+                data, mlen, auth_ok = (t.cpu().numpy() for t in res[:3])
             np.add.at(self.auth_fail, srow, valid & not_replayed & ~auth_ok)
             np.add.at(self.replay_reject, srow, valid & ~not_replayed)
             ok = valid & not_replayed & auth_ok
@@ -874,12 +999,91 @@ class SrtpStreamTable:
             out_len = np.where(ok, mlen, length).astype(np.int32)
         return PacketBatch(out_data, out_len, batch.stream), ok
 
+    def _rtcp_gcm_call(self, srow, kin, klen, iv12, opening: bool):
+        """M or N over SRTCP rows in the kernels' layout, hdr8 || E ||
+        index || payload (the AAD is the first 12 bytes)."""
+        d = self.device
+        tab_rk, tab_gm, _ = self._device_tables_rtcp()
+        fn = kernel.srtp_gcm_unprotect if opening else kernel.srtp_gcm_protect
+        res = fn(tab_rk, tab_gm, to_device(srow.astype(np.int32), d),
+                 to_device(kin, d), to_device(klen.astype(np.int32), d),
+                 to_device(np.full(len(klen), 12, np.int32), d),
+                 to_device(iv12, d))
+        return tuple(t.cpu().numpy() for t in res)
+
+    @staticmethod
+    def _word_bytes(word: np.ndarray) -> np.ndarray:
+        w = np.asarray(word, dtype=np.int64)
+        return np.stack([(w >> (8 * (3 - k))) & 0xFF for k in range(4)],
+                        axis=1).astype(np.uint8)
+
+    def _protect_rtcp_gcm(self, batch: PacketBatch, stream: np.ndarray,
+                          index: np.ndarray) -> PacketBatch:
+        """RFC 7714 §9: AAD = RTCP header (8) || E || index; on the wire
+        the index word follows the ciphertext and tag.  The host moves
+        the word in front of the payload for kernel M and back after it
+        (RTCP is low-rate)."""
+        cap = batch.capacity
+        length = np.asarray(batch.length, dtype=np.int64)
+        plen = length - 8
+        wb = self._word_bytes(index | (1 << 31))       # E always set: AEAD
+        cols = np.arange(cap, dtype=np.int64)[None, :]
+        kin = np.zeros_like(batch.data)
+        kin[:, :8] = batch.data[:, :8]
+        kin[:, 8:12] = wb
+        shifted = np.take_along_axis(batch.data,
+                                     np.clip(cols - 4, 0, cap - 1), axis=1)
+        sel = (cols >= 12) & (cols < (12 + plen)[:, None])
+        kin = np.where(sel, shifted, kin).astype(np.uint8)
+        ssrc = rtp_header.read_u32(batch.data, 4)
+        iv12 = self._gcm_rtcp_iv(stream, ssrc, index)
+        out, _ = self._rtcp_gcm_call(stream, kin, 12 + plen, iv12, False)
+        # wire: hdr8 || ct || tag || word
+        wire = np.zeros_like(out)
+        wire[:, :8] = out[:, :8]
+        unshift = np.take_along_axis(out, np.minimum(cols + 4, cap - 1),
+                                     axis=1)
+        sel2 = (cols >= 8) & (cols < (8 + plen + 16)[:, None])
+        wire = np.where(sel2, unshift, wire).astype(np.uint8)
+        wpos = 8 + plen + 16
+        for k in range(4):
+            np.put_along_axis(wire, (wpos + k)[:, None], wb[:, k][:, None],
+                              axis=1)
+        return PacketBatch(wire, (wpos + 4).astype(np.int32), batch.stream)
+
+    def _unprotect_rtcp_gcm(self, batch: PacketBatch, srow, ssrc, index,
+                            word, length):
+        """Reverse of `_protect_rtcp_gcm`: the wire's hdr8 || ct || tag ||
+        word into the kernel's hdr8 || word || ct || tag, kernel N, and
+        hdr8 || plaintext out.  Returns (data, mlen, auth_ok)."""
+        cap = batch.capacity
+        ctlen = np.maximum(np.asarray(length, np.int64) - 8 - 16 - 4, 0)
+        cols = np.arange(cap, dtype=np.int64)[None, :]
+        kin = np.zeros_like(batch.data)
+        kin[:, :8] = batch.data[:, :8]
+        kin[:, 8:12] = self._word_bytes(word)
+        shifted = np.take_along_axis(batch.data,
+                                     np.clip(cols - 4, 0, cap - 1), axis=1)
+        sel = (cols >= 12) & (cols < (12 + ctlen + 16)[:, None])
+        kin = np.where(sel, shifted, kin).astype(np.uint8)
+        iv12 = self._gcm_rtcp_iv(srow, ssrc, index)
+        dec, _, auth_ok = self._rtcp_gcm_call(srow, kin, 12 + ctlen + 16,
+                                              iv12, True)
+        out = np.zeros_like(dec)
+        out[:, :8] = dec[:, :8]
+        unshift = np.take_along_axis(dec, np.minimum(cols + 4, cap - 1),
+                                     axis=1)
+        sel2 = (cols >= 8) & (cols < (8 + ctlen)[:, None])
+        out = np.where(sel2, unshift, out).astype(np.uint8)
+        return out, (8 + ctlen).astype(np.int32), auth_ok
+
     # ------------------------------------------------------------ checkpoint
     _SNAP_ARRAYS = ("active", "rk_rtp", "mid_rtp", "rk_rtcp", "mid_rtcp",
                     "salt_rtp", "salt_rtcp", "tx_ext", "rx_max", "rx_mask",
                     "rtcp_tx_index", "rtcp_rx_max", "rtcp_rx_mask",
                     "auth_fail", "replay_reject")
     _SNAP_F8 = ("rk_f8_rtp", "rk_f8_rtcp")
+    _SNAP_GCM = ("gm_rtp", "gm_rtcp")
     _SNAP_KDR = ("kdr", "epoch_rtp", "epoch_rtcp")
     _PRIVATE = {"rk_rtp", "mid_rtp", "rk_rtcp", "mid_rtcp", "salt_rtp",
                 "salt_rtcp", "rk_f8_rtp", "rk_f8_rtcp", "epoch_rtp",
@@ -898,6 +1102,14 @@ class SrtpStreamTable:
         snap = {"profile": self.profile.value}
         for key in self._snap_keys() + self._SNAP_KDR:
             snap[key] = getattr(self, self._attr(key)).copy()
+        if self._gcm:
+            # the JAX package's [S, 128, 128] int8 form, for the active
+            # rows; the zeros of the others stay untouched pages
+            rows = np.nonzero(self.active)[0]
+            for key in self._SNAP_GCM:
+                full = np.zeros((self.capacity, 128, 128), dtype=np.int8)
+                full[rows] = unpack_matrices(getattr(self, "_" + key)[rows])
+                snap[key] = full
         snap["masters"] = dict(self._masters)
         return snap
 
@@ -916,6 +1128,13 @@ class SrtpStreamTable:
                 raise ValueError(f"snapshot {key}: shape {val.shape}, "
                                  f"expected {have.shape}")
             setattr(t, t._attr(key), val.astype(have.dtype, copy=True))
+        if t._gcm:
+            for key in t._SNAP_GCM:
+                val = np.asarray(snap[key])
+                if val.shape != (t.capacity, 128, 128):
+                    raise ValueError(f"snapshot {key}: shape {val.shape}, "
+                                     f"expected {(t.capacity, 128, 128)}")
+                setattr(t, "_" + key, pack_matrices(val))
         t._masters = {int(k): (bytes(v[0]), bytes(v[1]))
                       for k, v in snap.get("masters", {}).items()}
         return t
@@ -927,6 +1146,17 @@ class SrtpStreamTable:
         including ROC, tx index, replay state and kdr epochs, so both
         tables process the next batch identically."""
         return cls.restore(snap, device)
+
+
+def _uniform_off(payload_off: np.ndarray, width: int) -> "int | None":
+    """The one payload offset of a part whose rows all agree, inside the
+    row; None otherwise (the keystream cache serves such parts only)."""
+    off = np.asarray(payload_off)
+    if off.size and np.all(off == off.flat[0]):
+        v = int(off.flat[0])
+        if 0 <= v < width:
+            return v
+    return None
 
 
 def _assemble_unprotect(parts, batch: PacketBatch, return_index: bool):

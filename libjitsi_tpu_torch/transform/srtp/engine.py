@@ -2,8 +2,9 @@
 the chain via `SrtpControl.getTransformEngine()`).
 
 Counterpart: `libjitsi_tpu/transform/srtp/engine.py`: RTP and RTCP,
-and RTP's dispatch-only seams (`transform_async`,
-`reverse_transform_async`, `commit_inflight`).  Outbound `transform`
+RTP's dispatch-only seams (`transform_async`,
+`reverse_transform_async`, `commit_inflight`) and the AEAD-GCM
+keystream caches (`enable_keystream_cache`).  Outbound `transform`
 protects, inbound `reverse_transform` unprotects and reports per-row
 accept verdicts through the chain mask — the batched equivalent of
 SRTPTransformer.reverseTransform returning null on auth/replay failure.
@@ -76,6 +77,13 @@ class SrtpTransformEngine(TransformEngine):
         self.rx = rx
         self._rtp = _SrtpRtpTransformer(tx, rx)
         self._rtcp = _SrtpRtcpTransformer(tx, rx)
+
+    def enable_keystream_cache(self, **kwargs):
+        """Attach keystream caches to both directions' tables (AEAD-GCM
+        only; see `SrtpStreamTable.enable_keystream_cache`).  Returns the
+        (tx, rx) caches, whose `fill()` runs between ticks."""
+        return (self.tx.enable_keystream_cache(**kwargs),
+                self.rx.enable_keystream_cache(**kwargs))
 
     @property
     def rtp_transformer(self):

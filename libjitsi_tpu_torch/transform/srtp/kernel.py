@@ -1,5 +1,5 @@
 """Batched SRTP protect/unprotect on tensors: AES-CM, AES-F8 or NULL,
-with HMAC-SHA1.
+with HMAC-SHA1, and AEAD_AES_128_GCM.
 
 Counterpart: `libjitsi_tpu/transform/srtp/kernel.py` (`srtp_protect`,
 `srtp_unprotect`, `srtcp_protect`, `srtcp_unprotect`) together with the
@@ -40,6 +40,15 @@ Beside them: the SFU fan-out (`srtp_fanout_protect`, kernel H in
 P decrypted packets under the legs' keys: under AES-CM building each
 copy's IV on the card, under AES-F8 gathering its packet's IV, under
 NULL tagging only (instances `srtp_fanout_cm`, `_f8`, `_null`).
+
+AEAD-GCM (RFC 7714; the JAX `kernels/gcm.py` functions under the table's
+GCM paths): `srtp_gcm_protect` / `srtp_gcm_unprotect` (kernels M and N,
+`csrc/srtp_gcm.cu`) take the round-key table, the packed GHASH matrices
+`tab_gm` [S, 128, 4] int32 (in place of the midstates), stream ids, the
+rows with their lengths and AAD lengths, and 12-byte IVs; their cached
+instances (`srtp_gcm_protect_cached` / `_unprotect_cached`) take the
+keystream cache's slot tables and a slot a row instead of keys and IVs;
+`srtp_fanout_gcm` is H's GCM instance.  Edge semantics: `kernels/gcm.py`.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from typing import Optional, Tuple
 import torch
 
 from libjitsi_tpu_torch.kernels import build as _k
+from libjitsi_tpu_torch.kernels import gcm
 from libjitsi_tpu_torch.kernels.aes import ctr_crypt, f8_crypt_plain
 from libjitsi_tpu_torch.kernels.scatter import gather_span, scatter_bytes
 from libjitsi_tpu_torch.kernels.sha1 import hmac_sha1_plain
@@ -467,3 +477,261 @@ def srtcp_unprotect(tab_rk, tab_mid, stream, data, length, iv,
         _k.check(rc, name)
         _k.launches[name] += 1
     return out, mlen, auth_ok, e_bit, index
+
+
+# ------------------------------------------------ AEAD-GCM (M, N; H-GCM)
+
+def _gcm_rows(tab_rk, tab_gm, stream):
+    sid = stream.long().clamp(0, tab_rk.shape[0] - 1)
+    return tab_rk[sid], tab_gm[sid]
+
+
+def srtp_gcm_protect_plain(tab_rk, tab_gm, stream, data, length, aad_len,
+                           iv12) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch AEAD-GCM seal of table rows (RFC 7714 §8): row i under
+    table row stream[i]'s round keys and packed GHASH matrix (`tab_gm`
+    [S, 128, 4] int32), AAD data[:aad_len], IV iv12 [B, 12].  Returns
+    (data', length + 16); edge semantics in `kernels.gcm`."""
+    _k.plain_calls["srtp_gcm_seal"] += 1
+    rk, gm = _gcm_rows(tab_rk, tab_gm, stream)
+    return gcm.gcm_protect(data, length, aad_len, rk, gm, iv12)
+
+
+def srtp_gcm_unprotect_plain(tab_rk, tab_gm, stream, data, length, aad_len,
+                             iv12):
+    """Plain PyTorch AEAD-GCM open of table rows.  Returns (data', length
+    - 16, auth_ok)."""
+    _k.plain_calls["srtp_gcm_open"] += 1
+    rk, gm = _gcm_rows(tab_rk, tab_gm, stream)
+    return gcm.gcm_unprotect(data, length, aad_len, rk, gm, iv12)
+
+
+def _cached_rows(ks_tab, ek_tab, slot):
+    s = slot.long().clamp(0, ks_tab.shape[0] - 1)
+    return ks_tab[s], ek_tab[s]
+
+
+def srtp_gcm_protect_cached_plain(ks_tab, ek_tab, slot, tab_gm, stream, data,
+                                  length, aad_len):
+    """Plain PyTorch cached seal: the keystream and tag mask of row i are
+    row slot[i] of the cache's slot tables (ks_tab [N, KS], ek_tab [N,
+    16]; slots clamped into them), no AES.  Returns (data', length +
+    16)."""
+    _k.plain_calls["srtp_gcm_seal_cached"] += 1
+    ks, ek = _cached_rows(ks_tab, ek_tab, slot)
+    gm = tab_gm[stream.long().clamp(0, tab_gm.shape[0] - 1)]
+    return gcm.gcm_protect_cached(data, length, aad_len, ks, ek, gm)
+
+
+def srtp_gcm_unprotect_cached_plain(ks_tab, ek_tab, slot, tab_gm, stream,
+                                    data, length, aad_len):
+    """Plain PyTorch cached open.  Returns (data', length - 16,
+    auth_ok)."""
+    _k.plain_calls["srtp_gcm_open_cached"] += 1
+    ks, ek = _cached_rows(ks_tab, ek_tab, slot)
+    gm = tab_gm[stream.long().clamp(0, tab_gm.shape[0] - 1)]
+    return gcm.gcm_unprotect_cached(data, length, aad_len, ks, ek, gm)
+
+
+def _check_gcm(tab_gm, stream, data, length, aad_len, n_streams: int):
+    dev = data.device
+    bsz, width = data.shape
+    if width > 32768:
+        raise ValueError(f"row width {width} exceeds the kernels' 32768")
+    _k.expect(tab_gm, "tab_gm", torch.int32, dev, (n_streams, 128, 4))
+    _k.expect(stream, "stream", torch.int32, dev, (bsz,))
+    _k.expect(data, "data", torch.uint8, dev)
+    _k.expect(length, "length", torch.int32, dev, (bsz,))
+    _k.expect(aad_len, "aad_len", torch.int32, dev, (bsz,))
+
+
+def _check_gcm_keys(tab_rk):
+    # the kernels are AES-128 only: no SRTP profile runs AES-256 GCM
+    if tab_rk.dim() != 3 or tab_rk.shape[1] != 11:
+        raise ValueError("the GCM kernels take AES-128 round keys "
+                         "[S, 11, 16]")
+    _k.expect(tab_rk, "tab_rk", torch.uint8, tab_rk.device,
+              tuple(tab_rk.shape))
+
+
+def _gcm_launch(name: str, *args) -> None:
+    rc = getattr(_k.library(), "ljt_" + name)(*args)
+    _k.check(rc, name)
+    _k.launches[name] += 1
+
+
+def srtp_gcm_protect(tab_rk, tab_gm, stream, data, length, aad_len, iv12
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched AEAD-GCM seal (RFC 7714; reference: SRTPCryptoContext with
+    the GCM cipher).  CUDA tensors go through kernel M (`csrc/srtp_gcm.cu`,
+    `srtp_gcm_seal`), which gathers each row's keys and matrix itself; CPU
+    tensors through `srtp_gcm_protect_plain`.  Returns (data', length +
+    16)."""
+    args = (tab_rk, tab_gm, stream, data, length, aad_len, iv12)
+    if _k.route(data) == "cpu":
+        return srtp_gcm_protect_plain(*args)
+    _check_gcm_keys(tab_rk)
+    _check_gcm(tab_gm, stream, data, length, aad_len, tab_rk.shape[0])
+    dev = data.device
+    bsz, width = data.shape
+    _k.expect(iv12, "iv12", torch.uint8, dev, (bsz, 12))
+    out = torch.empty_like(data)
+    out_len = torch.empty_like(length)
+    if bsz:
+        _gcm_launch("srtp_gcm_seal", tab_rk.data_ptr(), tab_gm.data_ptr(),
+                    stream.data_ptr(), tab_rk.shape[0], data.data_ptr(),
+                    length.data_ptr(), aad_len.data_ptr(), iv12.data_ptr(),
+                    out.data_ptr(), out_len.data_ptr(), bsz, width,
+                    tab_rk.shape[1] - 1, _k.stream_handle(dev))
+    return out, out_len
+
+
+def srtp_gcm_unprotect(tab_rk, tab_gm, stream, data, length, aad_len, iv12):
+    """Batched AEAD-GCM open.  Returns (data', length - 16, auth_ok):
+    every tag byte is compared, and the decrypt always runs (the caller
+    masks rows that fail).  CUDA tensors go through kernel N
+    (`srtp_gcm_open`); CPU tensors through `srtp_gcm_unprotect_plain`."""
+    args = (tab_rk, tab_gm, stream, data, length, aad_len, iv12)
+    if _k.route(data) == "cpu":
+        return srtp_gcm_unprotect_plain(*args)
+    _check_gcm_keys(tab_rk)
+    _check_gcm(tab_gm, stream, data, length, aad_len, tab_rk.shape[0])
+    dev = data.device
+    bsz, width = data.shape
+    _k.expect(iv12, "iv12", torch.uint8, dev, (bsz, 12))
+    out = torch.empty_like(data)
+    mlen = torch.empty_like(length)
+    auth_ok = torch.empty((bsz,), dtype=torch.bool, device=dev)
+    if bsz:
+        _gcm_launch("srtp_gcm_open", tab_rk.data_ptr(), tab_gm.data_ptr(),
+                    stream.data_ptr(), tab_rk.shape[0], data.data_ptr(),
+                    length.data_ptr(), aad_len.data_ptr(), iv12.data_ptr(),
+                    out.data_ptr(), mlen.data_ptr(), auth_ok.data_ptr(), bsz,
+                    width, tab_rk.shape[1] - 1, _k.stream_handle(dev))
+    return out, mlen, auth_ok
+
+
+def _check_cached(ks_tab, ek_tab, slot, bsz: int):
+    dev = slot.device
+    n_slots, ks_bytes = ks_tab.shape
+    if ks_bytes % 16 or ks_bytes == 0:
+        raise ValueError("ks_tab rows must be whole 16-byte blocks")
+    _k.expect(ks_tab, "ks_tab", torch.uint8, dev)
+    _k.expect(ek_tab, "ek_tab", torch.uint8, dev, (n_slots, 16))
+    _k.expect(slot, "slot", torch.int32, dev, (bsz,))
+
+
+def srtp_gcm_protect_cached(ks_tab, ek_tab, slot, tab_gm, stream, data,
+                            length, aad_len
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cached AEAD-GCM seal: the XOR of each row's cached keystream and
+    the GHASH, no AES.  CUDA tensors go through M's cached instance
+    (`srtp_gcm_seal_cached`); CPU tensors through
+    `srtp_gcm_protect_cached_plain`.  Returns (data', length + 16)."""
+    args = (ks_tab, ek_tab, slot, tab_gm, stream, data, length, aad_len)
+    if _k.route(data) == "cpu":
+        return srtp_gcm_protect_cached_plain(*args)
+    _check_gcm(tab_gm, stream, data, length, aad_len, tab_gm.shape[0])
+    bsz, width = data.shape
+    _check_cached(ks_tab, ek_tab, slot, bsz)
+    out = torch.empty_like(data)
+    out_len = torch.empty_like(length)
+    if bsz:
+        _gcm_launch("srtp_gcm_seal_cached", ks_tab.data_ptr(),
+                    ek_tab.data_ptr(), slot.data_ptr(), ks_tab.shape[0],
+                    ks_tab.shape[1], tab_gm.data_ptr(), stream.data_ptr(),
+                    tab_gm.shape[0], data.data_ptr(), length.data_ptr(),
+                    aad_len.data_ptr(), out.data_ptr(), out_len.data_ptr(),
+                    bsz, width, _k.stream_handle(data.device))
+    return out, out_len
+
+
+def srtp_gcm_unprotect_cached(ks_tab, ek_tab, slot, tab_gm, stream, data,
+                              length, aad_len):
+    """Cached AEAD-GCM open (N's cached instance,
+    `srtp_gcm_open_cached`).  Returns (data', length - 16, auth_ok)."""
+    args = (ks_tab, ek_tab, slot, tab_gm, stream, data, length, aad_len)
+    if _k.route(data) == "cpu":
+        return srtp_gcm_unprotect_cached_plain(*args)
+    _check_gcm(tab_gm, stream, data, length, aad_len, tab_gm.shape[0])
+    dev = data.device
+    bsz, width = data.shape
+    _check_cached(ks_tab, ek_tab, slot, bsz)
+    out = torch.empty_like(data)
+    mlen = torch.empty_like(length)
+    auth_ok = torch.empty((bsz,), dtype=torch.bool, device=dev)
+    if bsz:
+        _gcm_launch("srtp_gcm_open_cached", ks_tab.data_ptr(),
+                    ek_tab.data_ptr(), slot.data_ptr(), ks_tab.shape[0],
+                    ks_tab.shape[1], tab_gm.data_ptr(), stream.data_ptr(),
+                    tab_gm.shape[0], data.data_ptr(), length.data_ptr(),
+                    aad_len.data_ptr(), out.data_ptr(), mlen.data_ptr(),
+                    auth_ok.data_ptr(), bsz, width, _k.stream_handle(dev))
+    return out, mlen, auth_ok
+
+
+def srtp_fanout_gcm_plain(tab_rk, tab_gm, tab_salt, data, length,
+                          payload_off, ssrc, index, src, recv
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch GCM fan-out: output row k is packet src[k] sealed
+    under leg recv[k]'s round keys and packed matrix, with the AAD its
+    RTP header (payload_off) and the RFC 7714 §8.1 IV built from the leg's
+    salt (`tab_salt` [S, 16], first 12 bytes), the packet's SSRC (`ssrc`
+    [P], uint32 bit patterns) and its 48-bit `index` [P] (int64).
+    Returns (out [N, W], out_len [N])."""
+    _k.plain_calls["srtp_fanout_gcm"] += 1
+    p = src.long().clamp(0, data.shape[0] - 1)
+    leg = recv.long().clamp(0, tab_rk.shape[0] - 1)
+    idx = index.long()[p] & 0xFFFFFFFFFFFF
+    dev = data.device
+    iv = tab_salt[leg][:, :12].long().clone()
+    iv[:, 2:6] ^= ((ssrc.long()[p] & 0xFFFFFFFF)[:, None]
+                   >> torch.tensor([24, 16, 8, 0], device=dev)) & 0xFF
+    iv[:, 6:12] ^= (idx[:, None] >> torch.tensor(
+        [40, 32, 24, 16, 8, 0], device=dev)) & 0xFF
+    return gcm.gcm_protect(data[p], length[p], payload_off[p], tab_rk[leg],
+                           tab_gm[leg], iv.to(torch.uint8))
+
+
+def srtp_fanout_gcm(tab_rk, tab_gm, tab_salt, data, length, payload_off,
+                    ssrc, index, src, recv
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SFU fan-out under AEAD-GCM: every (packet, leg) copy sealed
+    under its leg's keys, rows in the order of `src` / `recv` (the JAX
+    translator's packet-major order).  CUDA tensors go through kernel H's
+    GCM instance (`csrc/srtp_fanout.cu`, `srtp_fanout_gcm`), which builds
+    each copy's IV on the card; CPU tensors through
+    `srtp_fanout_gcm_plain`.  Returns (out [N, W], out_len [N])."""
+    args = (tab_rk, tab_gm, tab_salt, data, length, payload_off, ssrc,
+            index, src, recv)
+    if _k.route(data) == "cpu":
+        return srtp_fanout_gcm_plain(*args)
+    dev = data.device
+    n_src, width = data.shape
+    n = src.shape[0]
+    s = tab_rk.shape[0]
+    _check_gcm_keys(tab_rk)
+    if width > 32768:
+        raise ValueError(f"row width {width} exceeds the kernels' 32768")
+    _k.expect(tab_gm, "tab_gm", torch.int32, dev, (s, 128, 4))
+    _k.expect(tab_salt, "tab_salt", torch.uint8, dev, (s, 16))
+    _k.expect(data, "data", torch.uint8, dev)
+    for name, t in (("length", length), ("payload_off", payload_off),
+                    ("ssrc", ssrc)):
+        _k.expect(t, name, torch.int32, dev, (n_src,))
+    _k.expect(index, "index", torch.int64, dev, (n_src,))
+    _k.expect(src, "src", torch.int32, dev, (n,))
+    _k.expect(recv, "recv", torch.int32, dev, (n,))
+    if n and not n_src:
+        raise ValueError("fan-out rows name packets of an empty batch")
+    out = torch.empty((n, width), dtype=torch.uint8, device=dev)
+    out_len = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n:
+        _gcm_launch("srtp_fanout_gcm", tab_rk.data_ptr(), tab_gm.data_ptr(),
+                    tab_salt.data_ptr(), s, data.data_ptr(),
+                    length.data_ptr(), payload_off.data_ptr(),
+                    ssrc.data_ptr(), index.data_ptr(), n_src,
+                    src.data_ptr(), recv.data_ptr(), out.data_ptr(),
+                    out_len.data_ptr(), n, width, tab_rk.shape[1] - 1,
+                    _k.stream_handle(dev))
+    return out, out_len

@@ -9,7 +9,8 @@
 // the block's threads, cluster.sync() one over the cluster's,
 // map_shared_rank() points into a peer block's dynamic shared memory, and
 // a warp shuffle exchanges values through a per-warp buffer between two
-// barriers of the warp's threads; the split cluster barrier
+// barriers of the warp's threads, and so does a ballot (__ballot_sync);
+// the split cluster barrier
 // (__cluster_barrier_arrive / _wait) is arrive and wait on the cluster's,
 // and st.async pushes count bytes off an emulated mbarrier.
 // __shared__ variables are function
@@ -159,6 +160,20 @@ T __shfl_xor_sync(unsigned, T v, int lane_mask, int = 32) {
   emu_warp_barrier->arrive_and_wait();
   return r;
 }
+
+// Warp vote: bit l of the result is lane l's predicate (every lane of the
+// warp takes part, as the kernels call it).
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const unsigned lane = threadIdx.x % 32;
+  emu_warp_slots[lane] = pred ? 1u : 0u;
+  emu_warp_barrier->arrive_and_wait();
+  unsigned r = 0;
+  for (unsigned l = 0; l < 32; ++l)
+    if (emu_warp_slots[l]) r |= 1u << l;
+  emu_warp_barrier->arrive_and_wait();
+  return r;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 // cp.async through the pipeline primitives: the copy completes at once.
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,

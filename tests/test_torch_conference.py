@@ -44,6 +44,7 @@ from libjitsi_tpu_torch.transform.engine import TransformEngineChain
 from libjitsi_tpu_torch.transform.header_ext import CsrcAudioLevelEngine
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.engine import SrtpTransformEngine
+from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
 
 BANK_FIELDS = DenseJitterBank._SNAP_FIELDS
 
@@ -415,3 +416,58 @@ def test_four_party_bridge_follows_jax_bridge_tick_by_tick(jax_srtp):
         assert ok.all()
         heard[name] = dec.to_payloads()
     assert heard["jax"] == heard["port"]
+
+
+def test_four_party_bridge_under_gcm_hears_what_cm_hears():
+    """The port's ConferenceBridge under AEAD_AES_128_GCM (kernels M and N,
+    plain versions) beside one under AES-CM, fed the same four parties'
+    audio: every reply opens under its party's GCM table, and each
+    party hears the same mix as under AES-CM."""
+    gcm = SrtpProfile.AEAD_AES_128_GCM
+    bridges = {"cm": ConferenceBridge(port=0, capacity=8, device="cpu"),
+               "gcm": ConferenceBridge(port=0, capacity=8, profile=gcm,
+                                       device="cpu")}
+    def keys(i, salt):
+        return tuple((k, s[:salt]) for k, s in _keys(i))
+
+    ups = {"cm": SrtpStreamTable(len(PARTIES), device="cpu"),
+           "gcm": SrtpStreamTable(len(PARTIES), gcm, device="cpu")}
+    downs = {"cm": SrtpStreamTable(8, device="cpu"),
+             "gcm": SrtpStreamTable(8, gcm, device="cpu")}
+    for name, salt in (("cm", 14), ("gcm", 12)):
+        for i, (ssrc, _f) in enumerate(PARTIES):
+            rx, tx = keys(i, salt)
+            assert bridges[name].add_participant(ssrc, rx, tx) == i
+            ups[name].add_stream(i, *rx)
+            downs[name].add_stream(i, *tx)
+    for f in ("_tx_seq", "_tx_ts", "_tx_ssrc"):
+        getattr(bridges["gcm"], f)[:] = getattr(bridges["cm"], f)
+    clients = {n: JaxUdp(port=0, max_batch=64) for n in bridges}
+    heard = {n: [] for n in bridges}
+    now = 300.0
+    kbuild.reset_counts()
+    try:
+        for tick in range(6):
+            for name, b in bridges.items():
+                clients[name].send_batch(_client_wire(ups[name], tick),
+                                         "127.0.0.1", b.port)
+            time.sleep(0.005)
+            for name, b in bridges.items():
+                assert b.tick(now=now)["tx"] == len(PARTIES)
+                heard[name] += _drain(clients[name], len(PARTIES))
+            now += 0.02
+    finally:
+        for b in bridges.values():
+            b.close()
+        for eng in clients.values():
+            eng.close()
+    assert kbuild.plain_calls["srtp_gcm_open"] == 6        # the bridge's
+    assert kbuild.plain_calls["srtp_gcm_seal"] == 12       # parties' too
+    out = {}
+    for name in heard:
+        batch = PacketBatch.from_payloads(sorted(heard[name]))
+        batch.stream[:] = j_header.parse(batch).ssrc - 0x42000000
+        dec, ok = downs[name].unprotect_rtp(batch)
+        assert ok.all() and len(ok) == 6 * len(PARTIES)
+        out[name] = sorted(dec.to_payloads())
+    assert out["gcm"] == out["cm"]

@@ -837,3 +837,210 @@ def test_profile_tables_on_card_equal_cpu_sync_and_async(cuda_device,
     for k in ("rx_max", "rx_mask", "auth_fail", "replay_reject",
               "epoch_rtp"):              # sync and async rx: one state
         assert np.array_equal(b[5][k], b[6][k]), k
+
+
+# ------------------------------------------------------- AEAD-GCM: M, N, O
+
+def _gcm_case(rng, n, width, s=7):
+    """Tables of s streams and n rows: AADs of 8, 12, 13, 28 and 60 bytes,
+    ct_len 0 and one short of a block, lengths past the row and shorter
+    than the AAD, stream ids outside the table."""
+    from libjitsi_tpu_torch.transform.srtp.context import ghash_tables
+
+    rk = aes.expand_keys_batch(rng.integers(0, 256, (s, 16), np.uint8))
+    gm = ghash_tables(rk).view(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    aad = rng.choice([8, 12, 13, 28, 60], n).astype(np.int32)
+    length = np.minimum(aad + rng.integers(0, width, n),
+                        width - 16).astype(np.int32)
+    for i, (a, c) in enumerate([(12, 0), (13, 15), (60, 1), (8, width),
+                                (12, -5)][:n]):
+        aad[i], length[i] = a, a + c
+    stream = rng.integers(0, s, n).astype(np.int32)
+    stream[:2] = [-1, s + 3][:n]
+    iv12 = rng.integers(0, 256, (n, 12), np.uint8)
+    return rk, gm, stream, data, length, aad, iv12
+
+
+@pytest.mark.parametrize("n,width", [(1, 64), (4096, 1024), (300, 61),
+                                     (33, 8192)])
+def test_gcm_kernels_match_plain(cuda_device, n, width):
+    """M and N against their plain versions (a tampered row beside genuine
+    ones), and the cached instances on the same rows."""
+    rng = np.random.default_rng(n + width + 16)
+    case = _gcm_case(rng, n, width)
+    d = [torch.from_numpy(x).to(cuda_device) for x in case]
+    before = dict(kbuild.launches)
+    out, out_len = srtp_kernel.srtp_gcm_protect(*d)
+    want, want_len = srtp_kernel.srtp_gcm_protect_plain(*d)
+    assert _same(out, want) and _same(out_len, want_len)
+    sealed = out.clone()
+    sealed[n // 2, 0] ^= 1
+    slen = out_len.clamp(max=width)
+    res = srtp_kernel.srtp_gcm_unprotect(*d[:3], sealed, slen, d[5], d[6])
+    w_res = srtp_kernel.srtp_gcm_unprotect_plain(*d[:3], sealed, slen, d[5],
+                                                 d[6])
+    assert all(_same(a, b) for a, b in zip(res, w_res))
+    assert not bool(res[2][n // 2])
+    n_slots, ks_bytes = 97, 256
+    ks = torch.randint(0, 256, (n_slots, ks_bytes), dtype=torch.uint8,
+                       device=cuda_device)
+    ek = torch.randint(0, 256, (n_slots, 16), dtype=torch.uint8,
+                       device=cuda_device)
+    slot = torch.randint(-2, n_slots + 2, (n,), dtype=torch.int32,
+                         device=cuda_device)
+    c_args = (ks, ek, slot, d[1], d[2])
+    got = srtp_kernel.srtp_gcm_protect_cached(*c_args, d[3], d[4], d[5])
+    exp = srtp_kernel.srtp_gcm_protect_cached_plain(*c_args, d[3], d[4],
+                                                    d[5])
+    assert all(_same(a, b) for a, b in zip(got, exp))
+    got = srtp_kernel.srtp_gcm_unprotect_cached(*c_args, sealed, slen, d[5])
+    exp = srtp_kernel.srtp_gcm_unprotect_cached_plain(*c_args, sealed, slen,
+                                                      d[5])
+    assert all(_same(a, b) for a, b in zip(got, exp))
+    torch.cuda.synchronize()
+    for name in ("srtp_gcm_seal", "srtp_gcm_open", "srtp_gcm_seal_cached",
+                 "srtp_gcm_open_cached"):
+        assert kbuild.launches[name] == before[name] + 1
+
+
+def test_gcm_wrappers_refuse_aes256(cuda_device):
+    """The GCM kernels are AES-128 only: a table of 15-round keys is
+    refused before any launch."""
+    rng = np.random.default_rng(9)
+    case = list(_gcm_case(rng, 4, 96))
+    case[0] = aes.expand_keys_batch(rng.integers(0, 256, (7, 32), np.uint8))
+    d = [torch.from_numpy(x).to(cuda_device) for x in case]
+    before = dict(kbuild.launches)
+    with pytest.raises(ValueError):
+        srtp_kernel.srtp_gcm_protect(*d)
+    with pytest.raises(ValueError):
+        srtp_kernel.srtp_gcm_unprotect(*d)
+    assert dict(kbuild.launches) == before
+
+
+def test_gcm_kernel_rfc7714_known_answer(cuda_device):
+    """RFC 7714 §16.1.1 through M, back through N, and a tampered tag
+    refused."""
+    from libjitsi_tpu_torch.transform.srtp.context import ghash_tables
+
+    key = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
+    salt = bytes.fromhex("517569642070726f2071756f")
+    pkt = bytes.fromhex("8040f17b8041f8d35501a0b247616c6c"
+                        "696120657374206f6d6e697320646976"
+                        "69736120696e207061727465732074726573")
+    want = bytes.fromhex("8040f17b8041f8d35501a0b2f24de3a3"
+                         "fb34de6cacba861c9d7e4bcabe633bd5"
+                         "0d294e6f42a5f47a51c7d19b36de3adf"
+                         "8833899d7f27beb16a9152cf765ee439"
+                         "0cce")
+    from libjitsi_tpu_torch.kernels import gcm
+
+    iv = gcm.srtp_gcm_iv(np.frombuffer(salt, np.uint8)[None],
+                         [int.from_bytes(pkt[8:12], "big")],
+                         [int.from_bytes(pkt[2:4], "big")])
+    rk = aes.expand_key(key)[None].copy()
+    data = np.zeros((2, 128), np.uint8)
+    data[:, :len(pkt)] = np.frombuffer(pkt, np.uint8)
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+
+    tabs = (dev(rk), dev(ghash_tables(rk).view(np.int32)),
+            dev(np.zeros(2, np.int32)))
+    n = np.full(2, len(pkt), np.int32)
+    out, out_len = srtp_kernel.srtp_gcm_protect(
+        *tabs, dev(data), dev(n), dev(np.full(2, 12, np.int32)),
+        dev(np.repeat(iv, 2, axis=0)))
+    assert bytes(out.cpu().numpy()[0, :int(out_len[0])]) == want
+    wire = out.clone()
+    wire[1, len(want) - 1] ^= 0x80
+    dec, mlen, ok = srtp_kernel.srtp_gcm_unprotect(
+        *tabs, wire, out_len, dev(np.full(2, 12, np.int32)),
+        dev(np.repeat(iv, 2, axis=0)))
+    assert ok.cpu().tolist() == [True, False]
+    assert bytes(dec.cpu().numpy()[0, :int(mlen[0])]) == pkt
+
+
+@pytest.mark.parametrize("p,legs,width", [(275, 10, 224), (128, 512, 192)])
+def test_fanout_gcm_kernel_matches_plain(cuda_device, p, legs, width):
+    from libjitsi_tpu_torch.transform.srtp.context import ghash_tables
+
+    rng = np.random.default_rng(p + legs)
+    rk = aes.expand_keys_batch(rng.integers(0, 256, (legs, 16), np.uint8))
+    salt = rng.integers(0, 256, (legs, 16), np.uint8)
+    salt[:, 12:] = 0
+    data = rng.integers(0, 256, (p, width), np.uint8)
+    length = rng.integers(60, width - 16, p).astype(np.int32)
+    off = np.full(p, 12, np.int32)
+    off[::7] = 20
+    ssrc = rng.integers(0, 2 ** 32, p, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    index = rng.integers(0, 2 ** 48, p, dtype=np.int64)
+    src = np.repeat(np.arange(p), legs).astype(np.int32)
+    recv = np.tile(np.arange(legs), p).astype(np.int32)
+    d = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device) for x in
+         (rk, ghash_tables(rk).view(np.int32), salt, data, length, off, ssrc,
+          index, src, recv)]
+    got = srtp_kernel.srtp_fanout_gcm(*d)
+    exp = srtp_kernel.srtp_fanout_gcm_plain(*d)
+    assert all(_same(a, b) for a, b in zip(got, exp))
+
+
+@pytest.mark.parametrize("n,ks_bytes", [(65536, 256), (70, 48)])
+def test_gcm_fill_kernel_matches_plain(cuda_device, n, ks_bytes):
+    from libjitsi_tpu_torch.kernels import gcm
+
+    rng = np.random.default_rng(n)
+    rk = torch.from_numpy(aes.expand_keys_batch(
+        rng.integers(0, 256, (1024, 16), np.uint8))).to(cuda_device)
+    n_slots = n + 1
+    stream = torch.from_numpy(rng.integers(0, 1024, n).astype(
+        np.int32)).to(cuda_device)
+    iv12 = torch.from_numpy(rng.integers(0, 256, (n, 12), np.uint8)).to(
+        cuda_device)
+    slot = torch.from_numpy(rng.permutation(n_slots)[:n].astype(
+        np.int32)).to(cuda_device)
+    ks = torch.zeros((n_slots, ks_bytes), dtype=torch.uint8,
+                     device=cuda_device)
+    ek = torch.zeros((n_slots, 16), dtype=torch.uint8, device=cuda_device)
+    ks2, ek2 = ks.clone(), ek.clone()
+    gcm.gcm_ks_fill(ks, ek, rk, stream, iv12, slot)
+    gcm.gcm_ks_fill_plain(ks2, ek2, rk, stream, iv12, slot)
+    assert _same(ks, ks2) and _same(ek, ek2)
+
+
+def test_gcm_table_on_card_equals_table_on_cpu(cuda_device):
+    """An AEAD_AES_128_GCM table on the card and one on the CPU, fed the
+    same RTP and SRTCP, give the same wire and verdicts; the keystream
+    cache's hits give the stock path's bytes."""
+    prof = SrtpProfile.AEAD_AES_128_GCM
+    rng = np.random.default_rng(12)
+    keys = rng.integers(0, 256, (8, 16), np.uint8)
+    salts = rng.integers(0, 256, (8, 12), np.uint8)
+    tabs = []
+    for dev in (cuda_device, "cpu"):
+        tx = SrtpStreamTable(8, prof, device=dev)
+        rx = SrtpStreamTable(8, prof, device=dev)
+        for t in (tx, rx):
+            t.add_streams(range(8), keys, salts)
+        tabs.append((tx, rx))
+    cache = tabs[0][0].enable_keystream_cache(window=32, ks_bytes=256,
+                                               pool=8)
+    pays = [bytes(rng.integers(0, 256, int(k), np.uint8))
+            for k in rng.integers(20, 200, 32)]
+    batch = rtp_header.build(pays, list(range(32)), [0] * 32,
+                             [0x1000 + i % 8 for i in range(32)], [96] * 32,
+                             stream=[i % 8 for i in range(32)])
+    cache.prime(np.arange(8), 0x1000 + np.arange(8), start=0)
+    outs = []
+    for tx, rx in tabs:
+        wire = tx.protect_rtp(batch)
+        dec, ok = rx.unprotect_rtp(wire)
+        outs.append((wire, dec, ok))
+    assert cache.misses == 0 and cache.hits >= 32   # padding rows count too
+    (w1, d1, ok1), (w2, d2, ok2) = outs
+    assert np.array_equal(w1.data, w2.data)
+    assert np.array_equal(w1.length, w2.length)
+    assert ok1.all() and ok2.all()
+    assert np.array_equal(d1.data, d2.data)

@@ -41,7 +41,9 @@ from libjitsi_tpu.conference import mixer as jmixer
 from libjitsi_tpu_torch.conference import mixer
 from libjitsi_tpu_torch.kernels import aes, g711, sha1
 from libjitsi_tpu_torch.kernels import build as kbuild
+from libjitsi_tpu_torch.kernels import gcm as tgcm
 from libjitsi_tpu_torch.transform.srtp import kernel as srtp_kernel
+from libjitsi_tpu_torch.transform.srtp.context import ghash_tables
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 T = torch.from_numpy
@@ -954,3 +956,256 @@ def test_emulated_f8_and_null_instances_match_plain(emu, plane, cipher,
     assert got[2][genuine].all() and not got[2][3]
     for i in np.nonzero(genuine)[0]:
         assert np.array_equal(dec[i, :length[i]], data[i, :length[i]])
+
+
+# ------------------------------------------------------- AEAD-GCM: M, N, O
+
+def _aligned(a: np.ndarray) -> np.ndarray:
+    """A 16-byte aligned copy (the GCM kernels load matrix rows, cache
+    blocks and tag masks as 16-byte vectors)."""
+    buf = np.zeros(a.nbytes + 16, np.uint8)
+    off = (-buf.ctypes.data) % 16
+    out = buf[off:off + a.nbytes].view(a.dtype).reshape(a.shape)
+    out[...] = a
+    return out
+
+
+def _gcm_tables(rng, key_len, s=5):
+    rk = aes.expand_keys_batch(rng.integers(0, 256, (s, key_len), np.uint8))
+    gm = _aligned(ghash_tables(rk).view(np.int32))
+    return rk, gm
+
+
+# AADs of 8, 12, 13, 28 and 60 bytes (SRTCP's 12; CSRC lists and header
+# extensions), ct_len 0 and one byte short of a block, lengths past the
+# row (cut at the width), lengths shorter than the AAD, stream ids outside
+# the table.  M and N size tiles for four a SM (one SM here: ceil(n / 4)
+# rows a tile, at most 32), so 37 rows are tiles of 10 and a last of 7,
+# and 130 rows four of 32 and one of 2.
+def _gcm_rows(rng, n, width, s):
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    aad = rng.choice([8, 12, 13, 28, 60], n).astype(np.int32)
+    ct = rng.integers(0, max(width - 76, 1), n)
+    length = np.minimum(aad + ct, width - 16).astype(np.int32)
+    edge = [(12, 0), (13, 15), (28, 16), (60, 1), (8, width), (12, -5)]
+    for i, (a, c) in enumerate(edge[:n]):
+        aad[i] = a
+        length[i] = a + c
+    stream = rng.integers(0, s, n).astype(np.int32)
+    stream[:3] = [-1, s + 2, s - 1][:n]
+    iv12 = rng.integers(0, 256, (n, 12), np.uint8)
+    return data, length, aad, stream, iv12
+
+
+@pytest.mark.parametrize("width,n", [
+    (96, 1), (208, 37), (61, 6), (1536, 9), (224, 130),
+])
+def test_emulated_kernels_m_n_match_plain(emu, width, n):
+    rng = np.random.default_rng(7 * width + n + 16)
+    rk, gm = _gcm_tables(rng, 16)
+    data, length, aad, stream, iv12 = _gcm_rows(rng, n, width, len(rk))
+    nr = rk.shape[1] - 1
+    out = np.zeros((n, width), np.uint8)
+    out_len = np.zeros(n, np.int32)
+    assert emu.ljt_srtp_gcm_seal(
+        _p(rk), _p(gm), _p(stream), len(rk), _p(data), _p(length), _p(aad),
+        _p(iv12), _p(out), _p(out_len), n, width, nr, None) == 0
+    args = (T(rk), T(gm), T(stream), T(data), T(length), T(aad), T(iv12))
+    want, want_len = srtp_kernel.srtp_gcm_protect_plain(*args)
+    assert np.array_equal(out, want.numpy())
+    assert np.array_equal(out_len, want_len.numpy())
+    # open the sealed rows, one tampered beside genuine ones in its tile
+    sealed, slen = out.copy(), np.minimum(out_len, width).astype(np.int32)
+    bad = n // 2
+    sealed[bad, min(int(slen[bad]), width) - 1] ^= 0x40
+    dec = np.zeros((n, width), np.uint8)
+    mlen = np.zeros(n, np.int32)
+    ok = np.zeros(n, np.bool_)
+    assert emu.ljt_srtp_gcm_open(
+        _p(rk), _p(gm), _p(stream), len(rk), _p(sealed), _p(slen), _p(aad),
+        _p(iv12), _p(dec), _p(mlen), _p(ok), n, width, nr, None) == 0
+    w_dec, w_mlen, w_ok = srtp_kernel.srtp_gcm_unprotect_plain(
+        T(rk), T(gm), T(stream), T(sealed), T(slen), T(aad), T(iv12))
+    assert np.array_equal(dec, w_dec.numpy())
+    assert np.array_equal(mlen, w_mlen.numpy())
+    assert np.array_equal(ok, w_ok.numpy())
+    assert not ok[bad]
+    # every row sealed inside the row opens, and gives its bytes back
+    fits = (length + 16 <= width) & (length >= 0)
+    fits[bad] = False
+    assert ok[fits].all()
+    for i in np.nonzero(fits)[0]:
+        assert np.array_equal(dec[i, :length[i]], data[i, :length[i]])
+
+
+@pytest.mark.parametrize("n,ks_bytes,width", [(1, 64, 96), (37, 64, 208),
+                                             (130, 256, 224)])
+def test_emulated_cached_instances_match_plain(emu, n, ks_bytes, width):
+    """M's and N's cached instances: slots clamped into the tables (ids
+    past both ends), ciphertexts past the slot's bytes (XOR nothing
+    there), and the same AAD and edge rows as M and N."""
+    rng = np.random.default_rng(n + ks_bytes)
+    rk, gm = _gcm_tables(rng, 16)
+    data, length, aad, stream, _ = _gcm_rows(rng, n, width, len(rk))
+    n_slots = 40
+    ks = _aligned(rng.integers(0, 256, (n_slots, ks_bytes), np.uint8))
+    ek = _aligned(rng.integers(0, 256, (n_slots, 16), np.uint8))
+    slot = rng.integers(0, n_slots, n).astype(np.int32)
+    slot[:2] = [-3, n_slots + 5][:n]
+    cargs = (_p(ks), _p(ek), _p(slot), n_slots, ks_bytes, _p(gm),
+             _p(stream), len(rk))
+    out = np.zeros((n, width), np.uint8)
+    out_len = np.zeros(n, np.int32)
+    assert emu.ljt_srtp_gcm_seal_cached(
+        *cargs, _p(data), _p(length), _p(aad), _p(out), _p(out_len), n,
+        width, None) == 0
+    targs = (T(ks), T(ek), T(slot), T(gm), T(stream))
+    want, want_len = srtp_kernel.srtp_gcm_protect_cached_plain(
+        *targs, T(data), T(length), T(aad))
+    assert np.array_equal(out, want.numpy())
+    assert np.array_equal(out_len, want_len.numpy())
+    sealed, slen = out.copy(), np.minimum(out_len, width).astype(np.int32)
+    sealed[n // 2, 0] ^= 1                        # a tampered AAD byte
+    dec = np.zeros((n, width), np.uint8)
+    mlen = np.zeros(n, np.int32)
+    ok = np.zeros(n, np.bool_)
+    assert emu.ljt_srtp_gcm_open_cached(
+        *cargs, _p(sealed), _p(slen), _p(aad), _p(dec), _p(mlen), _p(ok), n,
+        width, None) == 0
+    w_dec, w_mlen, w_ok = srtp_kernel.srtp_gcm_unprotect_cached_plain(
+        *targs, T(sealed), T(slen), T(aad))
+    assert np.array_equal(dec, w_dec.numpy())
+    assert np.array_equal(mlen, w_mlen.numpy())
+    assert np.array_equal(ok, w_ok.numpy())
+    assert not ok[n // 2]
+
+
+def test_emulated_gcm_counter_add_is_inc32(emu):
+    """J0's low word is 1 and a row has at most 2,048 blocks, so the CTR
+    stage's 128-bit counter add gives GCM's inc32 sequence: with IVs of
+    all-one bytes (where a carry out of the low word would change the
+    upper 96 bits) and the widest rows, M's output is AES-GCM's as
+    `cryptography` computes it."""
+    from cryptography.hazmat.primitives.ciphers.aead import AESGCM
+
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 256, (2, 16), np.uint8)
+    rk = aes.expand_keys_batch(keys)
+    gm = _aligned(ghash_tables(rk).view(np.int32))
+    width, n = 32768, 2
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    aad = np.array([12, 13], np.int32)
+    length = np.array([width - 16, width - 30], np.int32)
+    iv12 = np.full((n, 12), 0xFF, np.uint8)
+    iv12[1, :4] = 0x00
+    stream = np.arange(n, dtype=np.int32)
+    out = np.zeros((n, width), np.uint8)
+    out_len = np.zeros(n, np.int32)
+    assert emu.ljt_srtp_gcm_seal(
+        _p(rk), _p(gm), _p(stream), n, _p(data), _p(length), _p(aad),
+        _p(iv12), _p(out), _p(out_len), n, width, 10, None) == 0
+    for i in range(n):
+        a, ln = int(aad[i]), int(length[i])
+        ct = AESGCM(bytes(keys[i])).encrypt(
+            bytes(iv12[i]), bytes(data[i, a:ln]), bytes(data[i, :a]))
+        assert bytes(out[i, :ln + 16]) == bytes(data[i, :a]) + ct
+
+
+@pytest.mark.parametrize("legs,width", [(3, 64), (10, 208)])
+def test_emulated_kernel_h_gcm_matches_plain(emu, legs, width):
+    """H's GCM instance: ragged receiver counts (a packet with none),
+    offsets before, inside and past the row, lengths at and past the
+    width, leg ids outside the table, indices near the 32- and 48-bit
+    edges; and each copy is its packet sealed by M under its leg's keys
+    with the RFC 7714 IV."""
+    rng = np.random.default_rng(legs * width)
+    p = 5
+    counts = [legs, 0, legs - 1, 1, legs]
+    _, _, tab_salt, data, length, off, ssrc, index, src, recv = \
+        _fanout_inputs(rng, 16, p, width, counts)
+    rk, gm = _gcm_tables(rng, 16, len(tab_salt))
+    tab_salt[:, 12:] = 0
+    n = len(src)
+    out = np.zeros((n, width), np.uint8)
+    out_len = np.zeros(n, np.int32)
+    assert emu.ljt_srtp_fanout_gcm(
+        _p(rk), _p(gm), _p(tab_salt), len(rk), _p(data), _p(length),
+        _p(off), _p(ssrc), _p(index), p, _p(src), _p(recv), _p(out),
+        _p(out_len), n, width, 10, None) == 0
+    want, want_len = srtp_kernel.srtp_fanout_gcm_plain(
+        T(rk), T(gm), T(tab_salt), T(data), T(length), T(off), T(ssrc),
+        T(index), T(src), T(recv))
+    assert np.array_equal(out, want.numpy())
+    assert np.array_equal(out_len, want_len.numpy())
+    leg = np.clip(recv, 0, len(rk) - 1)
+    iv12 = tgcm.srtp_gcm_iv(tab_salt[leg], ssrc.view(np.uint32)[src],
+                            index[src])
+    m_out, _ = srtp_kernel.srtp_gcm_protect_plain(
+        T(rk), T(gm), T(leg.astype(np.int32)), T(data[src]), T(length[src]),
+        T(off[src]), T(iv12))
+    assert np.array_equal(out, m_out.numpy())
+
+
+@pytest.mark.parametrize("n,ks_bytes", [(1, 16), (70, 256), (33, 48)])
+def test_emulated_kernel_o_matches_plain(emu, n, ks_bytes):
+    """Kernel O fills the slots it is given (a partial last tile, stream
+    ids outside the table, slots outside the tables skipped) and leaves
+    every other slot as it was."""
+    rng = np.random.default_rng(n + ks_bytes + 16)
+    rk = aes.expand_keys_batch(rng.integers(0, 256, (4, 16), np.uint8))
+    n_slots = n + 9
+    stream = rng.integers(-1, 6, n).astype(np.int32)
+    iv12 = rng.integers(0, 256, (n, 12), np.uint8)
+    slot = rng.permutation(n_slots)[:n].astype(np.int32)
+    slot[:1] = [n_slots + 3]
+    ks0 = rng.integers(0, 256, (n_slots, ks_bytes), np.uint8)
+    ek0 = rng.integers(0, 256, (n_slots, 16), np.uint8)
+    ks, ek = _aligned(ks0), _aligned(ek0)
+    assert emu.ljt_gcm_ks_fill(
+        _p(rk), len(rk), _p(stream), _p(iv12), _p(slot), _p(ks), _p(ek), n,
+        n_slots, ks_bytes, rk.shape[1] - 1, None) == 0
+    w_ks, w_ek = T(ks0.copy()), T(ek0.copy())
+    tgcm.gcm_ks_fill_plain(w_ks, w_ek, T(rk), T(stream), T(iv12), T(slot))
+    assert np.array_equal(ks, w_ks.numpy())
+    assert np.array_equal(ek, w_ek.numpy())
+
+
+@pytest.mark.parametrize("entry", ["seal", "open", "fanout", "fill"])
+def test_emulated_gcm_entries_refuse_aes256(emu, entry):
+    """The GCM kernels are AES-128 only (no SRTP profile runs AES-256
+    GCM): each entry refuses 14 rounds and writes nothing."""
+    rng = np.random.default_rng(5)
+    rk = aes.expand_keys_batch(rng.integers(0, 256, (3, 32), np.uint8))
+    gm = _aligned(ghash_tables(rk).view(np.int32))
+    n, width = 4, 96
+    data, length, aad, stream, iv12 = _gcm_rows(rng, n, width, len(rk))
+    out = np.zeros((n, width), np.uint8)
+    out_len = np.zeros(n, np.int32)
+    ok = np.zeros(n, np.bool_)
+    if entry == "seal":
+        rc = emu.ljt_srtp_gcm_seal(
+            _p(rk), _p(gm), _p(stream), len(rk), _p(data), _p(length),
+            _p(aad), _p(iv12), _p(out), _p(out_len), n, width, 14, None)
+    elif entry == "open":
+        rc = emu.ljt_srtp_gcm_open(
+            _p(rk), _p(gm), _p(stream), len(rk), _p(data), _p(length),
+            _p(aad), _p(iv12), _p(out), _p(out_len), _p(ok), n, width, 14,
+            None)
+    elif entry == "fanout":
+        salt = np.zeros((len(rk), 16), np.uint8)
+        src = np.arange(n, dtype=np.int32)
+        rc = emu.ljt_srtp_fanout_gcm(
+            _p(rk), _p(gm), _p(salt), len(rk), _p(data), _p(length),
+            _p(np.full(n, 12, np.int32)), _p(np.zeros(n, np.int32)),
+            _p(np.zeros(n, np.int64)), n, _p(src), _p(stream % len(rk)),
+            _p(out), _p(out_len), n, width, 14, None)
+    else:
+        out = _aligned(np.zeros((n, 16), np.uint8))
+        ek = _aligned(np.zeros((n, 16), np.uint8))
+        rc = emu.ljt_gcm_ks_fill(
+            _p(rk), len(rk), _p(stream), _p(iv12),
+            _p(np.arange(n, dtype=np.int32)), _p(out), _p(ek), n, n, 16,
+            14, None)
+        assert not ek.any()
+    assert rc == 1                                 # cudaErrorInvalidValue
+    assert not out.any() and not out_len.any() and not ok.any()

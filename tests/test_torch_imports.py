@@ -4,8 +4,9 @@
 runs in a fresh interpreter with a meta-path hook that refuses `jax`,
 `jaxlib` and `libjitsi_tpu` (exactly, or as a dotted prefix — so
 `libjitsi_tpu_torch` itself passes) and then imports every module of
-the port (the pipelined tick's `utils` modules among them), and
-`chip_smoke.py`.
+the port (the pipelined tick's `utils` modules and the AEAD-GCM slice's
+`kernels.ghash`, `kernels.gcm` and `transform.srtp.keystream` among
+them), and `chip_smoke.py`.
 """
 
 import os
@@ -49,3 +50,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     seen = set(out.stdout.split())
     for util in ("metrics", "tracing", "perf", "flight", "logging"):
         assert f"libjitsi_tpu_torch.utils.{util}" in seen, util
+    # the AEAD-GCM slice's modules
+    for mod in ("kernels.ghash", "kernels.gcm", "transform.srtp.keystream",
+                "transform.srtp.kernel", "sfu.translator"):
+        assert f"libjitsi_tpu_torch.{mod}" in seen, mod

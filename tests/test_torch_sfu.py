@@ -15,7 +15,9 @@ F8_128_HMAC_SHA1_80 they equal the port's F8 table's `protect_rtp` of
 the leg at the same index (byte-equal to JAX's F8 table,
 `tests/test_torch_srtp_f8.py`) and decrypt to the sender's bytes, while
 the JAX translator's F8 copies do not (it encrypts them with AES-CM, a
-fault of the reference).  Then
+fault of the reference).  Under AEAD_AES_128_GCM the port's copies equal
+the JAX translator's on its full-mesh and its general path, and open
+under their legs' GCM tables.  Then
 the host copies — `PacketCache`, `RtcpTermination`, the `rtcp` codec,
 `LossTracker` and `RecoveryController` — against their JAX twins on one
 call sequence.  Inputs are seeded; tolerance: exact equality.
@@ -149,14 +151,12 @@ def test_translator_refusals_and_empty_routes():
                         np.zeros(1))
     out, recv = tt.translate(_port(_batch(rng, [9, 9])), np.zeros(2))
     assert out.batch_size == 0 and len(recv) == 0
-    # NULL and F8 are taken; AEAD-GCM is still refused, naming item 8
-    for prof in ("NULL_HMAC_SHA1_80", "F8_128_HMAC_SHA1_80"):
+    # NULL, F8 and AEAD-GCM are taken
+    for prof in ("NULL_HMAC_SHA1_80", "F8_128_HMAC_SHA1_80",
+                 "AEAD_AES_128_GCM"):
         t = RtpTranslator(capacity=2, profile=SrtpProfile[prof],
                           device="cpu")
-        assert t.cipher == {"N": "null", "F": "f8"}[prof[0]]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        RtpTranslator(capacity=2, profile=SrtpProfile.AEAD_AES_128_GCM,
-                      device="cpu")
+        assert t.cipher == {"N": "null", "F": "f8", "A": "gcm"}[prof[0]]
 
 
 # the profiles' fan-out: senders 0, 6 and 7 to ragged routes, at indices
@@ -250,6 +250,59 @@ def test_f8_fanout_matches_the_f8_table_not_jax():
 
 def _port(b):
     return PacketBatch(b.data, b.length, b.stream)
+
+
+# AEAD-GCM legs: 12-byte master salts (RFC 7714)
+RECV_GCM = {r: (bytes([r] * 16), bytes([r + 100] * 12)) for r in range(1, 6)}
+
+
+@pytest.mark.parametrize("uniform", [True, False])
+def test_gcm_fanout_matches_jax_translator(uniform):
+    """AEAD_AES_128_GCM: H's GCM instance (plain version) against the JAX
+    translator, whose legs and ours come from the same master keys
+    through `add_receiver`.  `uniform`: every sender routed to the same
+    legs and every header 12 bytes, the JAX full-mesh path
+    (`gcm_protect_fanout`, leg-major, flipped); otherwise ragged routes
+    and headers with CSRCs and extensions, its general path.  The port's
+    one path equals both, and each copy opens under its leg's GCM table
+    as the sender's bytes."""
+    rng = np.random.default_rng(17 if uniform else 18)
+    routes = ({0: [3, 1, 2], 6: [1, 2, 3], 7: [2, 3, 1]} if uniform else
+              {0: [3, 1, 2], 6: [1], 7: [5, 2, 3, 4]})
+    prof = "AEAD_AES_128_GCM"
+    jt = JaxTranslator(capacity=8, profile=JaxProfile[prof])
+    tt = RtpTranslator(capacity=8, profile=SrtpProfile[prof], device="cpu")
+    for t in (jt, tt):
+        for r, (mk, ms) in RECV_GCM.items():
+            t.add_receiver(r, mk, ms)
+        for snd, rr in routes.items():
+            t.connect(snd, rr)
+    streams = [0, 6, 7, 0, 7]
+    if uniform:
+        pls = [rng.integers(0, 256, int(k), np.uint8).tobytes()
+               for k in rng.integers(20, 150, 5)]
+        b = j_header.build(pls, PROFILE_SEQS, 0, 0xA000 + np.asarray(
+            streams), 96, stream=streams, capacity=192)
+    else:
+        b = _batch(rng, streams, PROFILE_SEQS)
+    with jax.disable_jit():
+        out_j, recv_j = jt.translate(
+            JaxBatch(b.data.copy(), b.length.copy(), b.stream.copy()),
+            PROFILE_INDEX)
+    kbuild.reset_counts()
+    out_t, recv_t = tt.translate(_port(b.copy()), PROFILE_INDEX)
+    assert kbuild.plain_calls["srtp_fanout_gcm"] == 1
+    _equal(out_j, recv_j, out_t, recv_t)
+    rx = SrtpStreamTable(8, SrtpProfile[prof], device="cpu")
+    for r, (mk, ms) in RECV_GCM.items():
+        rx.add_stream(r, mk, ms)
+    counts = [len(routes[snd]) for snd in streams]
+    src = np.repeat(np.arange(5), counts)
+    for i in range(out_t.batch_size):
+        k = int(src[i])
+        ok, plain = _open(rx, out_t.to_bytes(i), int(recv_t[i]),
+                          int(PROFILE_INDEX[k]))
+        assert ok and plain == b.to_bytes(k), i
 
 
 def test_packet_cache_matches_jax():

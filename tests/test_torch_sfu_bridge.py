@@ -49,7 +49,9 @@ class _Endpoint:
     def __init__(self, ssrc, bridge_port, ext_id=3,
                  profile=SrtpProfile.AES_CM_128_HMAC_SHA1_80):
         self.ssrc = ssrc
-        self.rx_key, self.tx_key = _keys(ssrc)
+        # master salts of the profile's length (12 bytes under AEAD-GCM)
+        salt = profile.master_salt_len
+        self.rx_key, self.tx_key = ((k, s[:salt]) for k, s in _keys(ssrc))
         self.protect = SrtpStreamTable(1, profile, device="cpu")
         self.protect.add_stream(0, *self.rx_key)
         self.open = SrtpStreamTable(16, profile, device="cpu")
@@ -234,6 +236,55 @@ def test_sfu_tick_under_null_and_f8(profile):
         e.engine.close()
 
 
+def test_sfu_tick_and_feedback_under_gcm():
+    """An SfuBridge of three endpoints under AEAD_AES_128_GCM, over
+    loopback: each endpoint's copies of the others' media open under its
+    leg's GCM table as what the senders sent, none echoes; an RR from
+    one endpoint authenticates (the uplink's SRTCP, N's plain version)
+    and the bridge's feedback opens at every endpoint (M's); the fan-out
+    ran H's GCM instance (plain version)."""
+    prof = SrtpProfile.AEAD_AES_128_GCM
+    kbuild.reset_counts()
+    sfu = SfuBridge(port=0, capacity=8, profile=prof, recv_window_ms=0,
+                    device="cpu")
+    eps = [_Endpoint(0x500 + 7 * k, sfu.port, profile=prof)
+           for k in range(3)]
+    for e in eps:
+        sfu.add_endpoint(e.ssrc, e.rx_key, e.tx_key)
+    _mesh(eps)
+    for rnd in range(2):
+        for e in eps:
+            e.send_media()
+        _tick(sfu, 70.0 + rnd * 0.02)
+        for e in eps:
+            for _ in range(3):
+                e.drain()
+    assert sfu.forwarded == 2 * 3 * 4 * 2
+    for e in eps:
+        assert len(e.got) == 2 * 4 * 2
+        for (ssrc, seq), payload in e.got.items():
+            assert ssrc != e.ssrc, "echoed own media"
+            assert payload == b"m-%08x-%d" % (ssrc, seq)
+    rr = rtcp.build_compound([rtcp.build_rr(rtcp.ReceiverReport(
+        eps[0].ssrc, [rtcp.ReportBlock(eps[1].ssrc, 0, 0, 503, 4, 0, 0)]))])
+    eps[0].engine.send_batch(eps[0].rtcp_wire([rr]), "127.0.0.1", sfu.port)
+    _tick(sfu, 70.1)
+    assert int(sfu.rx_table.auth_fail.sum()) == 0
+    sid = {v: k for k, v in sfu._ssrc_of.items()}[eps[0].ssrc]
+    assert sfu.rx_table.rtcp_rx_max[sid] == 0         # its index 0 taken
+    assert sfu.emit_feedback(now=70.2) > 0
+    for e in eps:
+        for _ in range(3):
+            e.drain()
+        assert e.feedback and all(ok for ok, _ in e.feedback)
+    for name in ("srtp_fanout_gcm", "srtp_gcm_open", "srtp_gcm_seal"):
+        assert kbuild.plain_calls[name] > 0, name
+    assert sum(kbuild.launches.values()) == 0
+    sfu.close()
+    for e in eps:
+        e.engine.close()
+
+
 def test_sfu_conference_scoping_and_staged_hold():
     sfu = SfuBridge(port=0, capacity=8, recv_window_ms=0, device="cpu")
     eps = [_Endpoint(0x300 + 5 * k, sfu.port) for k in range(4)]
@@ -280,16 +331,14 @@ def test_sfu_entry_points_not_ported_name_their_item():
         with pytest.raises(NotImplementedError, match=item):
             call()
     sfu.close()
-    # the pipelined tick and the NULL and F8 profiles are taken
+    # the pipelined tick and the NULL, F8 and AEAD-GCM profiles are taken
     for kw in (dict(pipelined=True), dict(pipeline_depth=3),
                dict(profile=SrtpProfile.NULL_HMAC_SHA1_80),
-               dict(profile=SrtpProfile.F8_128_HMAC_SHA1_80)):
+               dict(profile=SrtpProfile.F8_128_HMAC_SHA1_80),
+               dict(profile=SrtpProfile.AEAD_AES_128_GCM)):
         SfuBridge(capacity=4, device="cpu", **kw).close()
     with pytest.raises(NotImplementedError, match="item 4"):
         SfuBridge(capacity=4, kernel_timestamps=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        SfuBridge(capacity=4, profile=SrtpProfile.AEAD_AES_128_GCM,
-                  device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SfuBridge(capacity=4)        # device=None means the card

@@ -194,13 +194,15 @@ def test_from_jax_state_continues_identically():
 
 
 def test_unported_paths_raise_and_default_device_is_the_card():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        SrtpStreamTable(4, SrtpProfile.AEAD_AES_128_GCM, device="cpu")
-    # the rest of the SRTP table is ported: F8 and NULL tables, kdr
+    # every profile is ported: AEAD-GCM (whose keystream cache a
+    # profile without GCM refuses), F8 and NULL tables, kdr
     # streams, the dispatch-only seams and move_rows
     for prof, cipher in ((SrtpProfile.F8_128_HMAC_SHA1_80, "f8"),
-                         (SrtpProfile.NULL_HMAC_SHA1_80, "null")):
+                         (SrtpProfile.NULL_HMAC_SHA1_80, "null"),
+                         (SrtpProfile.AEAD_AES_128_GCM, "gcm")):
         assert SrtpStreamTable(4, prof, device="cpu").cipher == cipher
+    with pytest.raises(ValueError, match="GCM"):
+        SrtpStreamTable(4, device="cpu").enable_keystream_cache()
     t = SrtpStreamTable(4, SrtpProfile.AES_256_CM_HMAC_SHA1_32, device="cpu")
     t.add_stream(0, bytes(32), bytes(14), kdr=1 << 16)
     assert t.kdr[0] == 1 << 16 and 0 in t.snapshot()["masters"]
