@@ -19,7 +19,11 @@ version:
   conference    a 256-participant PCMU `ConferenceBridge` over UDP
                 loopback, 50 ticks at 20 ms steps (kernels C, D, E, F,
                 G), held byte for byte against the same run of the
-                bridge on the CPU;
+                bridge on the CPU; then (outside the counts) a card
+                bridge snapshots after tick 24 and a bridge restored on
+                the card takes tick 24's wire again (rejected as a
+                replay) and runs ticks 25-49, byte-equal to the
+                uninterrupted CPU run;
   mixer_bridge  `MixerBridge(64, 64, 960)` for 200 ticks (kernel E);
   sfu           an `SfuBridge` of 100 conferences x 11 endpoints (1,100
                 senders, 11,000 per-leg copies a 20 ms tick) over UDP
@@ -59,7 +63,19 @@ version:
   sfu_gcm       the sfu path's bridge under AEAD_AES_128_GCM, 10 ticks
                 with RRs, NACKs and `emit_feedback` (N for the uplink
                 and the RRs, H's GCM instance, M for the feedback), every
-                copy opened by its leg's table as its sender's bytes.
+                copy opened by its leg's table as its sender's bytes;
+  conference_mixed
+                the mixed-rate conference: 256 participants, leg 0 on
+                G.722 (joins first: a 16 kHz clock, 320-sample frames;
+                its codec runs on the host), legs 1-191 PCMU and the
+                rest PCMA at 8 kHz, 20 ticks (kernels C, D, E, F, G and
+                R: 4 launches of R a tick, 2 deposit groups and 2 egress
+                kinds), byte-equal to its CPU twin, every mix
+                authenticated, leg 0 hearing leg 10's tone and leg 10
+                leg 0's 1,800 Hz over 20x what each tone's own leg hears
+                of it; then (outside the counts) a bridge snapshotted at
+                tick 10 and restored on the card keeps the 16 kHz clock,
+                names leg 0 degraded, and every later mix authenticates.
 
 Beside them, `sass` gives each kernel's instruction count, registers,
 spills and static shared memory, the INT32-pipe and load counts of the
@@ -102,7 +118,10 @@ work alone.
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and the
 operations its work needs on this run's data over the INT32 pipe's rate,
-16.7 Tops/s (132 SMs x 64 lanes x 1.98 GHz, H100 SXM).  Operations are
+16.7 Tops/s (132 SMs x 64 lanes x 1.98 GHz, H100 SXM), or for kernel R
+its float32 FMAs (2 operations each) over 67 TFLOP/s, the FP32 rate
+outside the tensor cores: R reads 2 bytes a sample in, writes 2 a
+sample out and does 16 FMAs an output sample.  Operations are
 the fewest sm_90 instructions of the kinds only that pipe runs (LOP3
 logic, SHF shifts and rotates, PRMT byte moves); adds are left out
 because they can issue as IMAD on the FP32 pipe, and with them counted
@@ -149,6 +168,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FP32_FLOPS_PER_S = 67e12
 SHA1_BLOCK_OPS = 80 * 3 + 64 * 3
 CTR_XOR_OPS = 4
 
@@ -172,6 +192,9 @@ CONF_PARTIES = 256         # PCMU participants of the conference bridge
 CONF_TICKS = 50
 CONF_PROFILED = 5          # further ticks under torch.profiler
 CONF_SWITCH = 5            # tick from which participant 10 is loudest
+# the conference restore check: the card bridge snapshots after this many
+# ticks, and a bridge restored on the card runs the rest
+CONF_RESUME = 25
 MIXER_BRIDGE = (64, 64, 960)
 # kernel E's timed shapes: AudioMixer, the conference bridge, MixerBridge
 MIX_SHAPES = ((1, 256, 960), (1, CONF_PARTIES, 160), MIXER_BRIDGE)
@@ -224,6 +247,24 @@ GHASH_BLOCK_OPS = 16 * 10
 GCM_SASS = ("srtp_gcm_seal nr=10", "srtp_gcm_open nr=10",
             "srtp_gcm_seal_cached", "srtp_gcm_open_cached",
             "srtp_fanout_gcm nr=10", "gcm_ks_fill nr=10")
+# kernel R's timed shapes (rows, rate in, rate out): the mixed
+# conference's deposit and egress launches, BASELINE's 10,240 streams at
+# the Opus clock both ways, 44.1k -> 48k (L = 160, M = 147) and a
+# conference past 65,535 rows
+RESAMPLE_SHAPES = ((CONF_PARTIES - 1, 8000, 16000),
+                   (CONF_PARTIES - 1, 16000, 8000), (10_240, 8000, 48000),
+                   (10_240, 48000, 8000), (256, 44100, 48000),
+                   (65_540, 8000, 16000))
+# the conference_mixed path: leg 0 (G.722, 16 kHz) joins first and sets
+# the clock, legs 1-191 PCMU, the rest PCMA (8 kHz); counted ticks, ticks
+# under the profiler, leg 0's tone, the tick of its snapshot, and R's
+# launches a tick (2 deposit groups, 2 egress kinds)
+MIXED_TICKS = 20
+MIXED_PROFILED = 3
+MIXED_PCMU = 192
+MIXED_TONE = 1800.0
+MIXED_SNAPSHOT = 10
+MIXED_R_PER_TICK = 4
 SOURCES = {
     "aes_encrypt": ("libjitsi_tpu_torch/csrc/aes_encrypt.cu",
                     "libjitsi_tpu/kernels/aes_bitsliced.py:548"),
@@ -282,6 +323,9 @@ SOURCES = {
                         "libjitsi_tpu/sfu/translator.py:73"),
     "gcm_ks_fill": ("libjitsi_tpu_torch/csrc/gcm_fill.cu",
                     "libjitsi_tpu/transform/srtp/keystream.py:58"),
+    # the polyphase resampler (K13b)
+    "resample": ("libjitsi_tpu_torch/csrc/resample.cu",
+                 "libjitsi_tpu/kernels/resample.py:38"),
 }
 PROFILE_KERNELS = ("srtp_protect_f8", "srtp_unprotect_f8", "srtcp_protect_f8",
                    "srtcp_unprotect_f8", "srtp_protect_null",
@@ -300,7 +344,10 @@ PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
          "srtp_gcm": ("srtp_gcm_seal", "srtp_gcm_open",
                       "srtp_gcm_seal_cached", "srtp_gcm_open_cached",
                       "gcm_ks_fill"),
-         "sfu_gcm": ("srtp_gcm_open", "srtp_fanout_gcm", "srtp_gcm_seal")}
+         "sfu_gcm": ("srtp_gcm_open", "srtp_fanout_gcm", "srtp_gcm_seal"),
+         "conference_mixed": ("srtp_protect_cm", "srtp_unprotect_cm",
+                              "mix_minus", "g711_encode", "g711_decode",
+                              "resample")}
 FANOUT_INSTANCES = ("srtp_fanout_null", "srtp_fanout_f8")
 
 
@@ -353,6 +400,7 @@ def main() -> int:
     rows.update(profile_kernels(torch, dev, floor_ms, chain))
     rows.update(sfu_profile_kernels(torch, dev, floor_ms, chain))
     rows.update(gcm_kernels(torch, dev, floor_ms, chain))
+    rows.update(resample_kernels(torch, dev, floor_ms))
 
     counts = {}
 
@@ -374,7 +422,8 @@ def main() -> int:
     # reset, so the conference counts hold the bridge's launches only
     setup = _conference_setup(torch, dev)
     conf = path("conference", conference_run, torch, dev, setup)
-    conference_check(torch, dev, conf)
+    cpu_ref = conference_check(torch, dev, conf)
+    conference_restore_check(torch, dev, setup, cpu_ref)
     mb = path("mixer_bridge", mixer_bridge_run, torch, dev)
     mixer_bridge_check(torch, dev, mb)
     # the clients' wire and RTCP are made (on kernels C and I) before the
@@ -398,6 +447,12 @@ def main() -> int:
                           rr_ticks=(GCM_RR_TICK,), nack_tick=GCM_NACK_TICK)
     sfu_g = path("sfu_gcm", sfu_gcm_run, torch, dev, sfu_g_in)
     sfu_gcm_check(torch, dev, sfu_g)
+    # the clients' wire (G.722 on the host, kernels F and C) is made
+    # before the counts are reset
+    mixed_in = _mixed_setup(torch, dev)
+    mixed = path("conference_mixed", conference_mixed_run, torch, dev,
+                 mixed_in)
+    conference_mixed_check(torch, dev, mixed)
     per_unit = {"srtp_echo": ("launches_per_table_batch",
                               table["launches_per_batch"]),
                 "conference": ("launches_per_conference_tick",
@@ -410,7 +465,9 @@ def main() -> int:
                 "srtp_gcm": ("launches_per_gcm_batch",
                              gcm["launches_per_batch"]),
                 "sfu_gcm": ("launches_per_sfu_gcm_tick",
-                            sfu_g["launches_per_tick"])}
+                            sfu_g["launches_per_tick"]),
+                "conference_mixed": ("launches_per_mixed_tick",
+                                     mixed["launches_per_tick"])}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
@@ -464,7 +521,7 @@ PROFILER_FALLBACK: list = []
 
 # record_function spans, which the profiler mirrors on the device timeline
 SPANS = ("ingress", "reverse_chain", "decode", "mixer", "recovery",
-         "forward_chain", "egress")
+         "forward_chain", "egress", "resample")
 
 
 def _is_span(name: str) -> bool:
@@ -522,6 +579,13 @@ def device_ms(torch, fn, reps: int, match: str = "") -> float:
 
 def bound(nbytes: float, ops: float):
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def bound_fp32(nbytes: float, fmas: float):
+    """As `bound`, with float32 fused multiply-adds (2 operations each) over
+    the FP32 rate outside the tensor cores."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * fmas / FP32_FLOPS_PER_S
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -1714,6 +1778,47 @@ def g711_kernels(torch, dev, floor_ms: float) -> dict:
     return rows
 
 
+def resample_kernels(torch, dev, floor_ms: float) -> dict:
+    """Kernel R against its plain version at RESAMPLE_SHAPES (noise, with
+    a row at each rail), each timed, with its bound: 2 bytes a sample in
+    and out against 16 FMAs an output sample.  No single PyTorch call
+    computes the clamped-edge polyphase sum, so R has no library time."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.kernels import resample as rs
+
+    rng = np.random.default_rng(43)
+    ptx = ptxas_usage(kbuild).get("resample")
+    rows = {}
+    for b, ri, ro in RESAMPLE_SHAPES:
+        t = ri // 50
+        x = torch.as_tensor(rng.integers(-32768, 32768, (b, t))
+                            .astype(np.int16)).to(dev)
+        x[0], x[1] = 32767, -32768
+        l, m = rs.ratio(ri, ro)
+        out_len = t * l // m
+        err = max_abs_err(torch, [rs.resample(x, ri, ro)],
+                          [rs.resample_plain(x, l, m)])
+        shape = f"[{b},{t}] -> [{b},{out_len}] ({ri} -> {ro} Hz, L/M {l}/{m})"
+        require(err == 0, f"kernel R at {shape} differs from plain: {err}")
+        nbytes, fmas = 2 * b * (t + out_len), 16 * b * out_len
+        b_ms, b_by = bound_fp32(nbytes, fmas)
+        line = dict(name="resample", shape=shape, max_abs_err=err,
+                    **timings(torch, lambda: rs.resample(x, ri, ro),
+                              "resample_kernel",
+                              lambda: rs.resample_plain(x, l, m)),
+                    bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms,
+                    library_ms=None,
+                    library="none: no single PyTorch call computes the "
+                            "clamped-edge polyphase sum",
+                    bytes=nbytes, fmas=fmas,
+                    chunk_outputs=rs.chunk_outputs(l, m, 16), ptxas=ptx)
+        emit("kernel_vs_plain", **line)
+        if (b, ri, ro) == RESAMPLE_SHAPES[0]:
+            rows["resample"] = dict(line, shape=shape + " (the mixed "
+                                    "conference's deposit)")
+    return rows
+
+
 # ------------------------------------------------------ 7. conference
 
 def _drain(engine, want: int) -> list:
@@ -1764,47 +1869,71 @@ def _conference_setup(torch, dev):
             "tx_ts": rng.integers(0, 1 << 32, n)}
 
 
-def _conference_drive(bridge, setup, ticks, kbuild=None) -> dict:
-    """Join every participant, then send each tick's wire from one client
-    socket and tick the bridge at explicit 20 ms steps of `now`."""
-    from libjitsi_tpu_torch.io.udp import UdpEngine
-
+def _conference_join(bridge, setup, codecs=None) -> None:
+    """Join every participant (`codecs(k)` gives leg k's codec, None the
+    bridge's default PCMU) with the setup's keys and TX counters."""
     n = CONF_PARTIES
     rx_k, rx_s = setup["keys"]["rx"]
     tx_k, tx_s = setup["keys"]["tx"]
     for k in range(n):
         sid = bridge.add_participant(int(setup["ssrc"][k]),
                                      (rx_k[k].tobytes(), rx_s[k].tobytes()),
-                                     (tx_k[k].tobytes(), tx_s[k].tobytes()))
+                                     (tx_k[k].tobytes(), tx_s[k].tobytes()),
+                                     codec=codecs(k) if codecs else None)
         require(sid == k, "rows are not handed out in join order")
     bridge._tx_seq[:] = setup["tx_seq"]     # both runs send the same seqs
     bridge._tx_ts[:] = setup["tx_ts"]
+
+
+def _conference_ticks(bridge, setup, ticks, client, kbuild=None,
+                      replay=None) -> dict:
+    """Send each tick's wire from `client` and tick the bridge at explicit
+    20 ms steps of `now`; before tick `replay[0]` the wire of tick
+    `replay[1]` is sent again, in the same window."""
+    n = CONF_PARTIES
     res = {"levels": [], "dominant": [], "replies": [], "tick_s": [],
            "launches": dict.fromkeys(kbuild.launches if kbuild else (), 0),
-           "launches_min": {}}
-    with UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=2 * n) as client:
-        for tick in range(ticks):
-            client.send_batch(setup["wires"][tick], "127.0.0.1", bridge.port)
-            time.sleep(0.002)
-            pre = dict(kbuild.launches) if kbuild else {}
-            t0 = time.perf_counter()
-            stats = bridge.tick(now=1000.0 + 0.02 * tick)
-            res["tick_s"].append(time.perf_counter() - t0)
-            for k in pre:
-                d = kbuild.launches[k] - pre[k]
-                res["launches"][k] += d
-                res["launches_min"][k] = min(res["launches_min"].get(k, d), d)
-            require(stats["rx"] == n and stats["tx"] == n,
-                    f"conference tick {tick}: rx {stats['rx']} tx "
-                    f"{stats['tx']} of {n}")
-            got = _drain(client, n)
-            require(len(got) == n, f"conference tick {tick}: {len(got)} "
-                                   f"of {n} mixes came back")
-            res["levels"].append(np.asarray(stats["levels"]).copy())
-            res["dominant"].append(stats["dominant"])
-            res["replies"].append(sorted(got))
+           "launches_min": {}, "launches_max": {}}
+    for tick in ticks:
+        rx_want = n
+        if replay is not None and tick == replay[0]:
+            client.send_batch(setup["wires"][replay[1]], "127.0.0.1",
+                              bridge.port)
+            rx_want = 2 * n
+        client.send_batch(setup["wires"][tick], "127.0.0.1", bridge.port)
+        time.sleep(0.002)
+        pre = dict(kbuild.launches) if kbuild else {}
+        t0 = time.perf_counter()
+        stats = bridge.tick(now=1000.0 + 0.02 * tick)
+        res["tick_s"].append(time.perf_counter() - t0)
+        for k in pre:
+            d = kbuild.launches[k] - pre[k]
+            res["launches"][k] += d
+            res["launches_min"][k] = min(res["launches_min"].get(k, d), d)
+            res["launches_max"][k] = max(res["launches_max"].get(k, d), d)
+        require(stats["rx"] == rx_want and stats["tx"] == n,
+                f"conference tick {tick}: rx {stats['rx']} of {rx_want}, "
+                f"tx {stats['tx']} of {n}")
+        got = _drain(client, n)
+        require(len(got) == n, f"conference tick {tick}: {len(got)} "
+                               f"of {n} mixes came back")
+        res["levels"].append(np.asarray(stats["levels"]).copy())
+        res["dominant"].append(stats["dominant"])
+        res["replies"].append(sorted(got))
     res["speaker_events"] = list(bridge.speaker_events)
     return res
+
+
+def _conference_drive(bridge, setup, ticks, kbuild=None,
+                      codecs=None) -> dict:
+    """Join every participant, then run ticks 0..ticks-1 from one client
+    socket."""
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+
+    _conference_join(bridge, setup, codecs)
+    with UdpEngine(port=0, bind_ip="127.0.0.1",
+                   max_batch=2 * CONF_PARTIES) as client:
+        return _conference_ticks(bridge, setup, range(ticks), client, kbuild)
 
 
 def conference_run(torch, dev, setup) -> dict:
@@ -1861,28 +1990,29 @@ def profiled_ticks(torch, tick, n, before=None, after=None) -> dict:
                 device_idle_share=None if busy is None else 1 - busy / wall_ms)
 
 
-def _profile_conference(torch, bridge, setup) -> dict:
-    """CONF_PROFILED more ticks of the card's bridge under torch.profiler."""
+def _profile_conference(torch, bridge, setup, start: int = CONF_TICKS,
+                        n: int = CONF_PROFILED) -> dict:
+    """`n` more ticks of the card's bridge, from tick `start`, under
+    torch.profiler."""
     from libjitsi_tpu_torch.io.udp import UdpEngine
 
     with UdpEngine(port=0, bind_ip="127.0.0.1",
                    max_batch=2 * CONF_PARTIES) as client:
         def send(i):
-            client.send_batch(setup["wires"][CONF_TICKS + i], "127.0.0.1",
+            client.send_batch(setup["wires"][start + i], "127.0.0.1",
                               bridge.port)
             time.sleep(0.002)
 
         return profiled_ticks(
-            torch, lambda i: bridge.tick(now=1000.0 + 0.02 * (CONF_TICKS + i)),
-            CONF_PROFILED, before=send,
-            after=lambda i: _drain(client, CONF_PARTIES))
+            torch, lambda i: bridge.tick(now=1000.0 + 0.02 * (start + i)),
+            n, before=send, after=lambda i: _drain(client, CONF_PARTIES))
 
 
-def conference_check(torch, dev, conf) -> None:
+def conference_check(torch, dev, conf) -> dict:
     """The same run of the bridge on the CPU (plain versions, its own
     sockets) must give the card's bytes, levels and dominant speakers;
     the parties must authenticate every mix, and a loud party must not
-    hear itself."""
+    hear itself.  Returns the CPU run."""
     from libjitsi_tpu_torch.core.packet import PacketBatch
     from libjitsi_tpu_torch.kernels import g711
     from libjitsi_tpu_torch.rtp import header as rtp_header
@@ -1945,6 +2075,269 @@ def conference_check(torch, dev, conf) -> None:
          own_tone_power=own, own_tone_heard_by_other=heard_by_9,
          speaker_events=conf["speaker_events"],
          dominant_last=conf["dominant"][-1], cpu_run_s=cpu_s,
+         profile=profiled)
+    return ref
+
+
+def conference_restore_check(torch, dev, setup, ref) -> None:
+    """A card bridge runs ticks 0..CONF_RESUME-1 and snapshots; a bridge
+    restored from the snapshot on the card, on a fresh port, takes the
+    last tick's wire again beside the next one (a replay, rejected) and
+    runs the remaining ticks, whose wire bytes must equal the
+    uninterrupted CPU run's."""
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.service.bridge import ConferenceBridge
+
+    n = CONF_PARTIES
+    bridge = ConferenceBridge(capacity=n, device=dev)
+    _conference_join(bridge, setup)
+    with UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=4 * n) as client:
+        _conference_ticks(bridge, setup, range(CONF_RESUME), client)
+        t0 = time.perf_counter()
+        snap = bridge.snapshot()
+        bridge.close()
+        back = ConferenceBridge.restore(snap, device=dev)
+        restore_s = time.perf_counter() - t0
+        res = _conference_ticks(back, setup, range(CONF_RESUME, CONF_TICKS),
+                                client, replay=(CONF_RESUME, CONF_RESUME - 1))
+        replays = back.loop.reverse_dropped
+        back.close()
+    require(replays == n, f"restored bridge: {replays} of {n} replayed "
+                          f"packets of tick {CONF_RESUME - 1} rejected")
+    differ = [CONF_RESUME + i for i, r in enumerate(res["replies"])
+              if r != ref["replies"][CONF_RESUME + i]]
+    require(not differ, f"restored bridge: wire of ticks {differ} differs "
+                        "from the uninterrupted CPU run")
+    require(all(np.array_equal(a, ref["levels"][CONF_RESUME + i])
+                for i, a in enumerate(res["levels"])),
+            "restored bridge: levels differ from the uninterrupted CPU run")
+    emit("conference_restore", participants=n, snapshot_after_ticks=CONF_RESUME,
+         resumed_ticks=CONF_TICKS - CONF_RESUME, replayed_rejected=replays,
+         equal_to_uninterrupted_cpu_run=True, snapshot_and_restore_s=restore_s)
+
+
+def _mixed_codecs(dev):
+    """Leg k's codec on a mixed-rate bridge on `dev`: G.722 for leg 0 (a
+    fresh stateful leg a bridge), PCMU up to MIXED_PCMU, PCMA after."""
+    from libjitsi_tpu_torch.service.pump import g711_codec, g722_codec
+
+    return lambda k: (g722_codec() if k == 0
+                      else g711_codec(k < MIXED_PCMU, device=dev))
+
+
+def _mixed_setup(torch, dev):
+    """The conference_mixed path's keys, SSRCs, TX counters and protected
+    wire: as `_conference_setup`, but leg 0 speaks G.722 (a 1,800 Hz tone
+    at 16 kHz, coded on the host), legs 1-191 PCMU and the rest PCMA.  Leg
+    150, whose tone would be leg 0's 1,800 Hz, sends silence, so that the
+    own-tone check reads leg 0 alone."""
+    from libjitsi_tpu_torch.kernels import g711
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.service.pump import g722_codec
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    n, ticks = CONF_PARTIES, MIXED_TICKS + MIXED_PROFILED
+    rng = np.random.default_rng(29)
+    keys = {d: (rng.integers(0, 256, (n, 16), np.uint8),
+                rng.integers(0, 256, (n, 14), np.uint8)) for d in ("rx", "tx")}
+    ssrc = 0x31000000 + np.arange(n)
+    up = SrtpStreamTable(n, device=dev)
+    up.add_streams(np.arange(n), *keys["rx"])
+    freqs = 150.0 + 11.0 * np.arange(n)
+    freqs[0] = MIXED_TONE
+    amps = np.linspace(100.0, 600.0, n)
+    amps[-6:] = 0.0
+    amps[150] = 0.0
+    amps[0] = 6000.0
+    sender = g722_codec()
+    pt = np.where(np.arange(n) < MIXED_PCMU, 0, 8)
+    pt[0] = sender.pt
+    wires = []
+    for tick in range(ticks):
+        a = amps.copy()
+        if tick >= CONF_SWITCH:
+            a[10] = 6000.0
+        t = tick * 160 + np.arange(160)
+        pcm = torch.as_tensor((a[:, None] * np.sin(
+            2 * np.pi * freqs[:, None] * t / 8000)).astype(np.int16)).to(dev)
+        codes = torch.cat([g711.ulaw_encode(pcm[:MIXED_PCMU]),
+                           g711.alaw_encode(pcm[MIXED_PCMU:])]).cpu().numpy()
+        t16 = tick * 320 + np.arange(320)
+        pay = [sender.encode((a[0] * np.sin(2 * np.pi * MIXED_TONE * t16
+                                            / 16000)).astype(np.int16))]
+        pay += [c.tobytes() for c in codes[1:]]
+        plain = rtp_header.build(
+            pay, (1000 + tick) * np.ones(n, int), [tick * 160] * n,
+            ssrc.tolist(), pt.tolist(), stream=list(range(n)),
+            ext=[(0xBEDE, bytes([0x10, k % 128, 0, 0])) for k in range(n)])
+        wires.append(up.protect_rtp(plain))
+    return {"keys": keys, "ssrc": ssrc, "freqs": freqs, "wires": wires,
+            "tx_seq": rng.integers(0, 1 << 16, n),
+            "tx_ts": rng.integers(0, 1 << 32, n)}
+
+
+def conference_mixed_run(torch, dev, setup) -> dict:
+    """The mixed-rate conference on the card: G.722 leg 0 sets a 16 kHz
+    clock, 255 G.711 legs at 8 kHz resample to it on deposit and from it
+    on egress; every tick must launch every kernel of the path, and R
+    exactly MIXED_R_PER_TICK times."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.service.bridge import ConferenceBridge
+
+    bridge = ConferenceBridge(capacity=CONF_PARTIES, device=dev)
+    res = _conference_drive(bridge, setup, MIXED_TICKS, kbuild,
+                            codecs=_mixed_codecs(dev))
+    require((bridge._rate, bridge._frame_samples) == (16000, 320),
+            f"mixed bridge clock {bridge._rate} Hz, {bridge._frame_samples}")
+    res["launches_per_tick"] = {k: v / MIXED_TICKS
+                                for k, v in res["launches"].items()}
+    short = {k: res["launches_min"][k] for k in PATHS["conference_mixed"]
+             if res["launches_min"][k] < 1}
+    require(not short, f"a mixed conference tick launched none of {short}")
+    r = (res["launches_min"]["resample"], res["launches_max"]["resample"])
+    require(r == (MIXED_R_PER_TICK,) * 2,
+            f"kernel R launched {r} (min, max) times a tick, not "
+            f"{MIXED_R_PER_TICK}")
+    res.update(setup=setup, bridge=bridge)
+    return res
+
+
+def _open_mixes(dev, setup, replies) -> dict:
+    """Every party authenticates and decrypts its mixes: payloads by
+    participant, in tick order."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    n = CONF_PARTIES
+    down = SrtpStreamTable(n, device=dev)
+    down.add_streams(np.arange(n), *setup["keys"]["tx"])
+    heard = {k: [] for k in range(n)}
+    for tick, wire in enumerate(replies):
+        batch = PacketBatch.from_payloads(wire)
+        batch.stream[:] = rtp_header.parse(batch).ssrc - 0x42000000
+        dec, ok = down.unprotect_rtp(batch)
+        require(ok.all(), f"mix {tick}: a mix failed to authenticate")
+        off = rtp_header.parse(dec).payload_off
+        for i in range(len(wire)):
+            heard[int(batch.stream[i])].append(
+                dec.data[i, off[i]:dec.length[i]].copy())
+    return heard
+
+
+def _tone_power(pcm: np.ndarray, rate: int, f_hz: float) -> float:
+    """The Hann-windowed spectrum's magnitude at `f_hz`, per sample (so
+    that mixes at 8 and 16 kHz compare)."""
+    spec = np.abs(np.fft.rfft(pcm * np.hanning(len(pcm))))
+    return float(spec[np.argmin(np.abs(np.fft.rfftfreq(len(pcm), 1 / rate)
+                                       - f_hz))]) / len(pcm)
+
+
+def _g722_host_ms(frames: int = 5) -> dict:
+    """Milliseconds a 20 ms frame takes through one G.722 leg's host
+    encode and decode on this machine's CPU."""
+    from libjitsi_tpu_torch.service.pump import g722_codec
+
+    leg = g722_codec()
+    pcm = (6000 * np.sin(2 * np.pi * MIXED_TONE * np.arange(320) / 16000)
+           ).astype(np.int16)
+    t0 = time.perf_counter()
+    codes = [leg.encode(pcm) for _ in range(frames)]
+    t1 = time.perf_counter()
+    for c in codes:
+        leg.decode(c)
+    t2 = time.perf_counter()
+    return {"encode": (t1 - t0) * 1e3 / frames,
+            "decode": (t2 - t1) * 1e3 / frames}
+
+
+def conference_mixed_check(torch, dev, run) -> None:
+    """The mixed conference's CPU twin must give the card's bytes, levels
+    and dominant speakers; every party authenticates every mix; leg 0
+    (16 kHz) hears leg 10's tone and leg 10 (8 kHz) leg 0's 1,800 Hz, each
+    over 20x what the tone's own leg hears of it (mix-minus across rates;
+    per-sample spectra from tick CONF_SWITCH + 2).  Then a card bridge
+    snapshots at tick MIXED_SNAPSHOT and a bridge restored on the card
+    keeps the 16 kHz clock, names leg 0 degraded, and every mix of the
+    remaining ticks authenticates."""
+    from libjitsi_tpu_torch.codecs.g722 import G722Decoder
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.kernels import g711
+    from libjitsi_tpu_torch.service.bridge import ConferenceBridge
+
+    setup, n = run["setup"], CONF_PARTIES
+    profiled = _profile_conference(torch, run["bridge"], setup, MIXED_TICKS,
+                                   MIXED_PROFILED)
+    run["bridge"].close()
+    cpu_bridge = ConferenceBridge(capacity=n, device="cpu")
+    t0 = time.perf_counter()
+    ref = _conference_drive(cpu_bridge, setup, MIXED_TICKS,
+                            codecs=_mixed_codecs("cpu"))
+    cpu_s = time.perf_counter() - t0
+    cpu_bridge.close()
+    for tick in range(MIXED_TICKS):
+        require(np.array_equal(run["levels"][tick], ref["levels"][tick]),
+                f"mixed tick {tick}: levels differ from the CPU twin")
+        require(run["dominant"][tick] == ref["dominant"][tick],
+                f"mixed tick {tick}: dominant speaker differs")
+        require(run["replies"][tick] == ref["replies"][tick],
+                f"mixed tick {tick}: wire bytes differ from the CPU twin")
+    require(run["speaker_events"] == ref["speaker_events"],
+            "mixed speaker events differ from the CPU twin")
+    heard = _open_mixes(dev, setup, run["replies"])
+    dec = G722Decoder(1)
+    pcm0 = np.concatenate([dec.decode(p[None])[0] for p in heard[0]])
+    lut = g711.decode_table(g711.ULAW, torch.device("cpu")).numpy()
+    pcm10 = lut[np.concatenate(heard[10])]
+    s = CONF_SWITCH + 2
+    f10 = setup["freqs"][10]
+    # each tone in its own leg's mix against the same tone in the other's
+    own0, heard0 = (_tone_power(pcm0[s * 320:], 16000, MIXED_TONE),
+                    _tone_power(pcm10[s * 160:], 8000, MIXED_TONE))
+    own10, heard10 = (_tone_power(pcm10[s * 160:], 8000, f10),
+                      _tone_power(pcm0[s * 320:], 16000, f10))
+    require(own0 * 20 < heard0, f"leg 10 (PCMU) hears leg 0's tone at "
+                                f"{heard0}, not over 20x leg 0's own {own0}")
+    require(own10 * 20 < heard10, f"leg 0 (G.722) hears leg 10's tone at "
+                                  f"{heard10}, not over 20x leg 10's own "
+                                  f"{own10}")
+    # snapshot mid-run, restore on the card
+    bridge = ConferenceBridge(capacity=n, device=dev)
+    _conference_join(bridge, setup, _mixed_codecs(dev))
+    with UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=2 * n) as client:
+        _conference_ticks(bridge, setup, range(MIXED_SNAPSHOT), client)
+        snap = bridge.snapshot()
+        bridge.close()
+        back = ConferenceBridge.restore(snap, device=dev)
+        clock = (back._rate, back._frame_samples)
+        tail = _conference_ticks(back, setup,
+                                 range(MIXED_SNAPSHOT, MIXED_TICKS), client)
+        back.close()
+    require(clock == (16000, 320) and snap["rate"] == 16000,
+            f"restored mixed bridge clock {clock}, snapshot {snap['rate']}")
+    require(snap["degraded_rows"] == [0],
+            f"degraded rows {snap['degraded_rows']}, not [0]")
+    _open_mixes(dev, setup, tail["replies"])
+    g722 = _g722_host_ms()
+    secs = np.array(run["tick_s"])
+    emit("conference_mixed", participants=n, ticks=MIXED_TICKS,
+         codecs={"G722": 1, "PCMU": MIXED_PCMU - 1, "PCMA": n - MIXED_PCMU},
+         bridge_rate=16000, frame_samples=320, ptime_ms=20,
+         tick_ms_p50=float(np.median(secs)) * 1e3,
+         tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+         tick_ms_max=float(secs.max()) * 1e3,
+         ptime_share_p50=float(np.median(secs)) / 0.02,
+         resample_launches_per_tick=run["launches_per_tick"]["resample"],
+         launches_per_tick=run["launches_per_tick"],
+         launches_min_per_tick=run["launches_min"],
+         equal_to_cpu_run=True, mixes_authenticated=n * MIXED_TICKS,
+         leg0_tone_own_mix=own0, leg0_tone_heard_by_leg10=heard0,
+         leg10_tone_own_mix=own10, leg10_tone_heard_by_leg0=heard10,
+         g722_host_ms_per_frame=g722,
+         speaker_events=run["speaker_events"], cpu_run_s=cpu_s,
+         restore={"snapshot_tick": MIXED_SNAPSHOT, "rate": clock[0],
+                  "degraded_rows": snap["degraded_rows"],
+                  "mixes_authenticated": n * (MIXED_TICKS - MIXED_SNAPSHOT)},
          profile=profiled)
 
 

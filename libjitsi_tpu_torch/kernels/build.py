@@ -41,7 +41,9 @@ KERNELS = ("aes_encrypt", "hmac_sha1", "srtp_protect_cm", "srtp_unprotect_cm",
            # AEAD-GCM: kernels M and N and their cached instances, H's GCM
            # instance and kernel O (the keystream cache's fill)
            "srtp_gcm_seal", "srtp_gcm_open", "srtp_gcm_seal_cached",
-           "srtp_gcm_open_cached", "srtp_fanout_gcm", "gcm_ks_fill")
+           "srtp_gcm_open_cached", "srtp_fanout_gcm", "gcm_ks_fill",
+           # kernel R: the polyphase resampler (K13b)
+           "resample")
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -106,6 +108,7 @@ _SIGNATURES = {
     "ljt_mix_minus": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ljt_g711_encode": [_P, _P, _I, _I, _P],
     "ljt_g711_decode": [_P, _P, _I, _I, _P],
+    "ljt_resample": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ljt_probe_sha1_chain": [_P, _P, _I, _P],
     "ljt_probe_ghash_chain": [_P, _P, _P, _P, _I, _P],
     "ljt_probe_aes_chain": [_P, _P, _P, _I, _I, _P],

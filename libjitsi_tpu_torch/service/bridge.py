@@ -10,25 +10,35 @@ Tick flow (one ptime, default 20 ms), kernels in brackets:
 
     loop.tick()            drain socket -> demux -> unprotect [D]
        -> bank.push_decrypted (dense jitter insert)
-    bank.tick()            pop due frames -> G.711 decode [G]
+    bank.tick()            pop due frames -> G.711 decode [G] (G.722 and
+                           Opus rows: host codecs) -> off-rate groups to
+                           the bridge clock [R]
     mixer.mix()            mix-minus + RFC 6465 levels [E]
     speaker / egress levels
-    encode rows            G.711 encode [F]
+    encode rows            off-rate kinds from the bridge clock [R], then
+                           G.711 encode [F] (G.722, Opus: host codecs)
     loop.send_media()      packetize -> RFC 6464 level stamp
                            -> protect [C] -> sendmmsg
 
-Keying is SDES-style static master keys per participant (rx = what the
-participant sends with, tx = what we send to them with).  `device`
-None means the card; the tests pass device="cpu".  The bank and mixer
-stages run inside `record_function` spans `decode` and `mixer`, beside
-the loop's own.
+The first joiner's codec sets the bridge clock (rate and frame); legs at
+another rate with the same ptime resample to it on deposit and from it on
+egress, one launch of kernel R a same-rate group (a deposit group, an
+egress kind).  Keying is SDES-style static master keys per participant
+(rx = what the participant sends with, tx = what we send to them with).
+`device` None means the card; the tests pass device="cpu".  The bank and
+mixer stages run inside `record_function` spans `decode` and `mixer`, and
+R's calls inside `resample`, beside the loop's own.
+
+`snapshot()` / `ConferenceBridge.restore(snap, device=...)` checkpoint and
+resume a conference in the JAX bridge's format, from a snapshot of either
+package: SRTP tables, jitter rings, rows, codecs by name (G.722 and Opus
+resume with fresh codec state: `degraded_rows`), the recorded clock, TX
+counters, speaker scores and latched addresses.
 
 Not ported: the JAX bridge's `config` argument and DTLS joins
-(`add_participant_dtls`, ROADMAP Queue 1, item 9), the pipelined tick
-(item 4), the mesh mode (item 12), the recorder (item 9),
-`snapshot` / `restore` (item 7); joins with a stateful codec (item 9)
-or at another rate than the first joiner's, which needs the resampler
-(K13b, ROADMAP Queue 2), raise `NotImplementedError`.
+(`add_participant_dtls`, ROADMAP Queue 1, item 9), the GSM, Speex, G.729
+and iLBC legs (item 9, `NotImplementedError`), the pipelined tick (item
+4), the mesh mode and sharded snapshots (item 12), the recorder (item 9).
 """
 
 from __future__ import annotations
@@ -45,10 +55,13 @@ from libjitsi_tpu_torch.core.device import DeviceLike, resolve_device, to_device
 from libjitsi_tpu_torch.io.loop import MediaLoop
 from libjitsi_tpu_torch.io.udp import UdpEngine
 from libjitsi_tpu_torch.kernels import g711
+from libjitsi_tpu_torch.kernels.resample import resample_to_frame
 from libjitsi_tpu_torch.rtp import header as rtp_header
+from libjitsi_tpu_torch.rtp.dense_jitter import DenseJitterBank
 from libjitsi_tpu_torch.service.media_stream import StreamRegistry
-from libjitsi_tpu_torch.service.pump import (G711_LAWS, STATEFUL, FrameCodec,
-                                             ReceiveBank, g711_codec)
+from libjitsi_tpu_torch.service.pump import (G711_LAWS, FrameCodec,
+                                             ReceiveBank, check_ported,
+                                             codec_from_name, g711_codec)
 from libjitsi_tpu_torch.transform.engine import TransformEngineChain
 from libjitsi_tpu_torch.transform.header_ext import CsrcAudioLevelEngine
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
@@ -126,18 +139,26 @@ class ConferenceBridge:
             raise ValueError(
                 f"codec ptime {codec.frame_samples * 1000.0 / codec.sample_rate:.1f} ms "
                 f"!= bridge ptime {self.ptime_ms} ms")
-        if codec.name.upper() not in G711_LAWS:
-            raise NotImplementedError(STATEFUL)
-        if self._rate is not None and codec.sample_rate != self._rate:
-            raise NotImplementedError(
-                f"codec rate {codec.sample_rate} != bridge rate "
-                f"{self._rate}: off-rate legs need the resampler, not "
-                "ported yet (K13b, ROADMAP Queue 2)")
+        check_ported(codec)
         if ssrc in self._ssrc_of.values():
             # silently remapping would mute the existing participant
             raise ValueError(f"ssrc {ssrc:#x} already joined")
         sid = self.registry.alloc(self)
+        self._attach_media_row(sid, ssrc, codec)
+        self.rx_table.add_stream(sid, *rx_key)
+        self.tx_table.add_stream(sid, *tx_key)
+        return sid
+
+    def _attach_media_row(self, sid: int, ssrc: int,
+                          codec: FrameCodec) -> None:
+        """Join bookkeeping for a claimed row (allocated or reserved): the
+        bridge clock, mixer and bank on the first attach, the demux map,
+        the bank, mixer and speaker rows, randomized TX counters (a
+        restore overwrites those afterwards).  Shared by joins and
+        `restore`, so resumed conferences cannot diverge from live ones."""
         if self._frame_samples is None:
+            # the first participant's codec sets the bridge clock; later
+            # joins at other rates resample to it
             self._bootstrap_clock(codec.frame_samples, codec.sample_rate)
         self.registry.map_ssrc(ssrc, sid)
         self.bank.add_stream(sid, codec)
@@ -148,12 +169,11 @@ class ConferenceBridge:
         self._tx_seq[sid] = int.from_bytes(np.random.bytes(2), "big")
         self._tx_ts[sid] = int.from_bytes(np.random.bytes(4), "big")
         self._tx_ssrc[sid] = (0x42000000 + sid) & 0xFFFFFFFF
-        self.rx_table.add_stream(sid, *rx_key)
-        self.tx_table.add_stream(sid, *tx_key)
-        return sid
 
     def _bootstrap_clock(self, frame_samples: int, rate: int) -> None:
-        """Fix the bridge clock and build the mixer + receive bank."""
+        """Fix the bridge clock and build the mixer + receive bank (the
+        first join; a restore applies the recorded clock, so a mixed-rate
+        conference resumes on the same one)."""
         self._frame_samples = frame_samples
         self._rate = rate
         self.mixer = AudioMixer(capacity=self.capacity,
@@ -228,7 +248,9 @@ class ConferenceBridge:
     def _send_mixes(self, out: np.ndarray) -> int:
         """Encode each addressed participant's mix-minus row and send it
         through the forward chain to their latched address.  The rows of
-        one G.711 law encode as ONE launch of kernel F."""
+        one codec kind leave the bridge clock in one launch of kernel R
+        (off-rate kinds only); a G.711 law's rows then encode as ONE
+        launch of kernel F, and stateful legs one host encode a row."""
         active = [sid for sid in self._codec if self.loop.addr_port[sid] != 0]
         if not active:
             return 0
@@ -238,10 +260,15 @@ class ConferenceBridge:
             by_kind.setdefault(self._codec[sid].name.upper(),
                                []).append(sid)
         for kind, rows in by_kind.items():
-            enc = g711.encode(to_device(out[np.asarray(rows)], self.device),
-                              G711_LAWS[kind]).cpu().numpy()
-            for k, sid in enumerate(rows):
-                payloads[sid] = enc[k].tobytes()
+            pcm = self._from_bridge_rate(rows, out[np.asarray(rows)])
+            if kind in G711_LAWS:
+                enc = g711.encode(to_device(pcm, self.device),
+                                  G711_LAWS[kind]).cpu().numpy()
+                for k, sid in enumerate(rows):
+                    payloads[sid] = enc[k].tobytes()
+            else:
+                for k, sid in enumerate(rows):
+                    payloads[sid] = self._codec[sid].encode(pcm[k])
         sids = np.asarray(active, dtype=np.int64)
         steps = np.asarray([self._codec[s].ts_step for s in active],
                            dtype=np.int64)
@@ -253,6 +280,113 @@ class ConferenceBridge:
         self._tx_seq[sids] = (self._tx_seq[sids] + 1) & 0xFFFF
         self._tx_ts[sids] = (self._tx_ts[sids] + steps) & 0xFFFFFFFF
         return self.loop.send_media(batch)
+
+    def _from_bridge_rate(self, rows: List[int], pcm: np.ndarray
+                          ) -> np.ndarray:
+        """Mix rows to a codec kind's clock (one kind, one rate): the
+        identity at the bridge clock, else one launch of kernel R."""
+        codec = self._codec[rows[0]]
+        if codec.sample_rate == self._rate:
+            return pcm
+        with record_function("resample"):
+            return resample_to_frame(pcm, self._rate, codec.sample_rate,
+                                     codec.frame_samples, device=self.device)
+
+    # ----------------------------------------------------------- resume
+    _STATELESS = tuple(G711_LAWS)
+
+    def snapshot(self) -> dict:
+        """Checkpoint the conference in the JAX bridge's format: SRTP
+        tables (indices and replay windows), the dense jitter rings, rows,
+        SSRCs and codecs by name, the bridge clock, TX counters, speaker
+        scores and latched addresses.  G.711 legs resume bit-exactly;
+        G.722 and Opus legs resume with fresh codec state
+        (`degraded_rows`) while their SRTP state carries over exactly."""
+        keyed = dict(self._ssrc_of)
+        return {
+            "capacity": self.capacity,
+            "profile": self.profile.name,
+            "sharded": False,
+            "ptime_ms": self.ptime_ms,
+            "level_ext_id": self._level_ext_id,
+            "rate": self._rate,
+            "frame_samples": self._frame_samples,
+            "rx_table": self.rx_table.snapshot(),
+            "tx_table": self.tx_table.snapshot(),
+            "jb": self.bank.jb.snapshot() if self.bank else None,
+            "ssrc_of": keyed,
+            "codec_name": {s: self._codec[s].name for s in keyed},
+            "degraded_rows": sorted(
+                s for s in keyed
+                if self._codec[s].name.upper() not in self._STATELESS),
+            "tx_seq": self._tx_seq.copy(),
+            "tx_ts": self._tx_ts.copy(),
+            "tx_ssrc": self._tx_ssrc.copy(),
+            "addr_ip": self.loop.addr_ip.copy(),
+            "addr_port": self.loop.addr_port.copy(),
+            "speaker": {
+                "immediate": self.speaker.immediate.copy(),
+                "medium": self.speaker.medium.copy(),
+                "long": self.speaker.long.copy(),
+                "dominant": self.speaker.dominant,
+            },
+        }
+
+    @classmethod
+    def restore(cls, snap: dict, port: int = 0, device: DeviceLike = None,
+                **kwargs) -> "ConferenceBridge":
+        """Resume a snapshotted conference (of either package) on a fresh
+        socket.  Rows reoccupy their old sids, so the restored SRTP tables
+        and jitter rings line up; the bridge clock is the recorded one."""
+        if snap.get("sharded"):
+            raise ValueError(
+                "snapshot came from a mesh bridge: restoring one is not "
+                "ported yet (ROADMAP Queue 1, item 12)")
+        bridge = cls(port=port, capacity=snap["capacity"],
+                     profile=SrtpProfile[snap["profile"]],
+                     ptime_ms=snap["ptime_ms"],
+                     audio_level_ext_id=snap["level_ext_id"], device=device,
+                     **kwargs)
+        sids = sorted(snap["ssrc_of"])
+        bridge.registry.reserve_many(sids, bridge)
+        if snap.get("rate"):
+            # the clock came from the first joiner, who need not come
+            # first in row order here
+            bridge._bootstrap_clock(snap["frame_samples"], snap["rate"])
+        names = snap.get("codec_name")
+        if names is None:        # the JAX bridge's older format
+            names = {s: "PCMU" if snap["codec_ulaw"][s] else "PCMA"
+                     for s in sids}
+        for sid in sids:
+            bridge._attach_media_row(
+                sid, snap["ssrc_of"][sid],
+                codec_from_name(names[sid], snap["ptime_ms"],
+                                device=bridge.device))
+        # the crypto, playout and counter state resumes verbatim (the
+        # rings AFTER add_stream, which resets rows)
+        bridge.rx_table = SrtpStreamTable.restore(snap["rx_table"],
+                                                  bridge.device)
+        bridge.tx_table = SrtpStreamTable.restore(snap["tx_table"],
+                                                  bridge.device)
+        bridge.chain = TransformEngineChain(
+            [bridge.levels_engine,
+             SrtpTransformEngine(bridge.tx_table, bridge.rx_table)])
+        bridge.loop.chain = bridge.chain
+        if snap["jb"] is not None and bridge.bank is not None:
+            bridge.bank.jb = DenseJitterBank.restore(snap["jb"])
+        bridge._tx_seq = np.asarray(snap["tx_seq"]).copy()
+        bridge._tx_ts = np.asarray(snap["tx_ts"]).copy()
+        bridge._tx_ssrc = np.asarray(snap["tx_ssrc"]).copy()
+        keep = np.zeros(snap["capacity"], dtype=bool)
+        keep[sids] = True
+        bridge.loop.addr_ip[:] = np.where(keep, snap["addr_ip"], 0)
+        bridge.loop.addr_port[:] = np.where(keep, snap["addr_port"], 0)
+        sp = snap["speaker"]
+        bridge.speaker.immediate[:] = sp["immediate"]
+        bridge.speaker.medium[:] = sp["medium"]
+        bridge.speaker.long[:] = sp["long"]
+        bridge.speaker.dominant = sp["dominant"]
+        return bridge
 
     # ------------------------------------------------------------ driving
     def run(self, duration_s: float) -> None:

@@ -28,6 +28,7 @@
 #include <algorithm>
 #include <barrier>
 #include <chrono>
+#include <cmath>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdlib>
@@ -117,6 +118,16 @@ int cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
 template <class T>
 T __ldg(const T* p) {
   return *p;
+}
+// Float intrinsics: a fused multiply-add rounded to nearest even, and a
+// float-to-int conversion rounding half to even (the default rounding
+// mode) that saturates at the int range, as the card's does.
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline int __float2int_rn(float x) {
+  const float r = std::nearbyint(x);
+  if (!(r > -2147483648.0f)) return r != r ? 0 : INT32_MIN;
+  if (r >= 2147483648.0f) return INT32_MAX;
+  return int(r);
 }
 
 // What a thread of the running cluster sees of it.

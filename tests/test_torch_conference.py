@@ -269,12 +269,19 @@ def test_stream_registry_hands_out_rows_like_jax():
 
 
 def test_bridge_refuses_what_is_not_ported():
+    """GSM and Speex legs are refused before a row is claimed; a leg at
+    another rate than the first joiner's (PCMU at 16 kHz, Opus at 48 kHz)
+    now joins and resamples to the bridge clock."""
     bridge = ConferenceBridge(port=0, capacity=4, device="cpu")
     keys = _keys(0)
-    opus = FrameCodec("opus", 111, 48000, 960, 960, None, None)
     try:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            bridge.add_participant(1, *keys, codec=opus)
+        for name, rate in (("GSM", 8000), ("speex", 8000),
+                           ("speex/16000", 16000)):
+            leg = FrameCodec(name, 97, rate, rate // 50, rate // 50, None,
+                             None)
+            with pytest.raises(NotImplementedError, match="item 9"):
+                bridge.add_participant(1, *keys, codec=leg)
+        assert bridge.registry.free_slots == 4 and bridge._rate is None
         bridge.add_participant(1, *keys)
         with pytest.raises(ValueError, match="ptime"):
             bridge.add_participant(2, *keys,
@@ -283,8 +290,11 @@ def test_bridge_refuses_what_is_not_ported():
         with pytest.raises(ValueError, match="already joined"):
             bridge.add_participant(1, *keys)
         wide = FrameCodec("PCMU", 0, 16000, 320, 320, None, None)
-        with pytest.raises(NotImplementedError, match="K13b"):
-            bridge.add_participant(3, *keys, codec=wide)
+        opus = FrameCodec("opus", 111, 48000, 960, 960, None, None)
+        assert bridge.add_participant(3, *keys, codec=wide) == 1
+        assert bridge.add_participant(5, *keys, codec=opus) == 2
+        assert bridge._rate == 8000 and bridge.mixer.frame_samples == 160
+        assert bridge.bank.frame_samples[:3].tolist() == [160, 320, 960]
         bridge.remove_participant(0)
         assert bridge.add_participant(4, *keys) == 0       # row recycled
     finally:

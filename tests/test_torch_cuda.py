@@ -1044,3 +1044,60 @@ def test_gcm_table_on_card_equals_table_on_cpu(cuda_device):
     assert np.array_equal(w1.length, w2.length)
     assert ok1.all() and ok2.all()
     assert np.array_equal(d1.data, d2.data)
+
+
+# kernel R at chip_smoke.py's shapes: the mixed conference's deposit and
+# egress, 10,240 streams at the Opus clock both ways, the 44.1k -> 48k
+# bank (L = 160) and a conference past 65,535 rows
+@pytest.mark.parametrize("rows,rate_in,rate_out", [
+    (255, 8000, 16000), (255, 16000, 8000), (10240, 8000, 48000),
+    (10240, 48000, 8000), (256, 44100, 48000), (65540, 8000, 16000)])
+def test_resample_kernel_matches_plain(cuda_device, rows, rate_in, rate_out):
+    from libjitsi_tpu_torch.kernels import resample
+
+    rng = np.random.default_rng(rows + rate_in)
+    x = rng.integers(-32768, 32768, (rows, rate_in // 50)).astype(np.int16)
+    x[0], x[1] = 32767, -32768                 # rows at the rails
+    x_d = torch.from_numpy(x).to(cuda_device)
+    l, m = resample.ratio(rate_in, rate_out)
+    before = kbuild.launches["resample"]
+    got = resample.resample(x_d, rate_in, rate_out)
+    torch.cuda.synchronize()
+    assert kbuild.launches["resample"] == before + 1
+    assert got.shape == (rows, rate_out // 50)
+    assert _same(got, resample.resample_plain(x_d, l, m))
+    assert _same(got[:64], resample.resample_plain(torch.from_numpy(x[:64]),
+                                                   l, m))
+
+
+def test_off_rate_receive_bank_tick_on_card_equals_cpu(cuda_device):
+    """A receive bank at a 16 kHz mixer clock with PCMU and PCMA legs at
+    8 kHz: one tick on the card (kernels G, R) deposits what the same
+    tick on the CPU deposits."""
+    from libjitsi_tpu_torch.conference.mixer import AudioMixer
+    from libjitsi_tpu_torch.service.pump import ReceiveBank, g711_codec
+
+    rng = np.random.default_rng(13)
+    n = 40
+    pcm = rng.integers(-9000, 9000, (n, 160)).astype(np.int16)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        mix = AudioMixer(n, 320, device=dev)
+        bank = ReceiveBank(n, mixer=mix, mixer_rate=16000, device=dev)
+        for sid in range(n):
+            bank.add_stream(sid, g711_codec(sid % 2 == 0, device=dev))
+            mix.add_participant(sid)
+        codes = [g711.encode(torch.from_numpy(pcm[s]), s % 2).numpy()
+                 for s in range(n)]
+        batch = rtp_header.build([c.tobytes() for c in codes],
+                                 [10] * n, [0] * n, 0x77 + np.arange(n), 0,
+                                 stream=list(range(n)))
+        bank.push_decrypted(batch, np.ones(n, bool), now=5.0)
+        kbuild.reset_counts()
+        bank.tick(now=5.0)
+        out[dev.type] = (mix._frame.copy(), dict(kbuild.launches),
+                         dict(kbuild.plain_calls))
+    frames, launches, plain = out["cuda"]
+    assert np.array_equal(frames, out["cpu"][0])
+    assert frames.any() and launches["resample"] == 2   # a group a law
+    assert launches["g711_decode"] == 2 and plain["resample"] == 0

@@ -22,7 +22,9 @@ ragged lengths and misaligned views; and for kernel E every kind of
 launch its plan makes (clusters of 1, 2, 5, 8 and 16 blocks, blocks of
 unequal width, the 2-byte path, rows in stages, and the staged kernel's
 64-bit totals past 65,535 rows and columns in stages) with silent,
-near-silent, saturating and inactive rows.  Tolerance: exact equality.
+near-silent, saturating and inactive rows; for kernel R the conference's
+ratios, rows read in overlapping chunks, rows shorter than its filter and
+rows at the rails.  Tolerance: exact equality.
 """
 
 import ctypes
@@ -39,7 +41,7 @@ import torch
 
 from libjitsi_tpu.conference import mixer as jmixer
 from libjitsi_tpu_torch.conference import mixer
-from libjitsi_tpu_torch.kernels import aes, g711, sha1
+from libjitsi_tpu_torch.kernels import aes, g711, resample, sha1
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.kernels import gcm as tgcm
 from libjitsi_tpu_torch.transform.srtp import kernel as srtp_kernel
@@ -587,6 +589,67 @@ def test_emulated_kernel_g_tails_and_misaligned_views(emu, law):
                                                                   o_off)
             assert (obuf[:o_off] == -7).all() and (obuf[o_off + n:] == -7
                                                    ).all()
+
+
+def _emu_resample(emu, x, l, m, span=resample.SPAN, taps=16):
+    """Kernel R's C entry on [B, T] int16 at L/M, staging `span` samples a
+    work item; out is pre-filled so an unwritten sample shows."""
+    b, t = x.shape
+    bank = resample.design(l, m, taps)
+    out = np.full((b, t * l // m), -7, np.int16)
+    rc = emu.ljt_resample(_p(x), _p(bank), _p(out), b, t, out.shape[1], l, m,
+                          taps, resample.chunk_outputs(l, m, taps, span),
+                          span, None)
+    assert rc == 0
+    return out
+
+
+def _r_rows(rng, b, t):
+    """Full-scale noise, with a clipped row (alternating at the rails), a
+    row at +32767 and one at -32768 where there are enough rows."""
+    x = rng.integers(-32768, 32768, (b, t)).astype(np.int16)
+    rails = [np.where(np.arange(t) % 2, 32767, -32768), np.full(t, 32767),
+             np.full(t, -32768)]
+    for i, row in enumerate(rails[:max(b - 1, 0)]):
+        x[1 + i] = row
+    return x
+
+
+@pytest.mark.parametrize("rows", [1, 3, 70])
+@pytest.mark.parametrize("rates", [(8000, 16000), (16000, 8000),
+                                   (8000, 48000), (48000, 8000),
+                                   (44100, 48000)])
+def test_emulated_kernel_r_matches_plain(emu, rates, rows):
+    """Kernel R against its plain version at the conference's ratios and
+    the widest bank's (44.1k -> 48k, L = 160): 20 ms rows of noise and at
+    the rails, whose clamped edges read the row's first and last samples."""
+    rng = np.random.default_rng(rows + rates[0] // 100)
+    x = _r_rows(rng, rows, rates[0] // 50)
+    l, m = resample.ratio(*rates)
+    want = resample.resample_plain(T(x), l, m).numpy()
+    assert np.array_equal(_emu_resample(emu, x, l, m), want)
+
+
+@pytest.mark.parametrize("rates,t,span", [
+    ((48000, 8000), 10000, resample.SPAN),   # rows past one staged span
+    ((8000, 16000), 500, 40),                # 12-output chunks
+    ((44100, 48000), 882, 64),               # 44 chunks a row, L = 160
+    ((8000, 48000), 7, resample.SPAN),       # rows shorter than the taps
+    ((16000, 8000), 1, resample.SPAN),       # one sample: every tap clamps
+])
+def test_emulated_kernel_r_stages_rows_in_chunks(emu, rates, t, span):
+    """Rows read in chunks whose spans overlap, rows shorter than the
+    filter, and the refusal of a chunk whose span would not fit."""
+    rng = np.random.default_rng(t)
+    x = _r_rows(rng, 4, t)
+    l, m = resample.ratio(*rates)
+    want = resample.resample_plain(T(x), l, m).numpy()
+    assert np.array_equal(_emu_resample(emu, x, l, m, span), want)
+    out = np.zeros(want.shape, np.int16)
+    big = -(-(span - 16) * l // m) + 1     # its span: one past `span`
+    assert emu.ljt_resample(_p(x), _p(resample.design(l, m)), _p(out), 4, t,
+                            out.shape[1], l, m, 16, big, span, None) == 1
+    assert not out.any()
 
 
 def _fanout_inputs(rng, key_len, p, width, counts):

@@ -4,8 +4,9 @@
 runs in a fresh interpreter with a meta-path hook that refuses `jax`,
 `jaxlib` and `libjitsi_tpu` (exactly, or as a dotted prefix — so
 `libjitsi_tpu_torch` itself passes) and then imports every module of
-the port (the pipelined tick's `utils` modules and the AEAD-GCM slice's
-`kernels.ghash`, `kernels.gcm` and `transform.srtp.keystream` among
+the port (the pipelined tick's `utils` modules, the AEAD-GCM slice's
+`kernels.ghash`, `kernels.gcm` and `transform.srtp.keystream`, and the
+resampler's `kernels.resample` and the host codecs' `codecs.*` among
 them), and `chip_smoke.py`.
 """
 
@@ -53,4 +54,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     # the AEAD-GCM slice's modules
     for mod in ("kernels.ghash", "kernels.gcm", "transform.srtp.keystream",
                 "transform.srtp.kernel", "sfu.translator"):
+        assert f"libjitsi_tpu_torch.{mod}" in seen, mod
+    # the resampler's and the host codecs' modules
+    for mod in ("kernels.resample", "codecs", "codecs.g722", "codecs.opus"):
         assert f"libjitsi_tpu_torch.{mod}" in seen, mod
