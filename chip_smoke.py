@@ -2,6 +2,9 @@
 """Drive the PyTorch port's media paths on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the repository root; one card)
+    python3 chip_smoke.py --parent ROOT
+                                 (also times the GCM kernels of the
+                                  checkout at ROOT against this tree's)
 
 Builds the port's CUDA kernels from `libjitsi_tpu_torch/csrc/`, checks
 them on known answers and exactly against their plain PyTorch versions
@@ -97,9 +100,19 @@ their own checks: `gcm_known_answers` (RFC 7714 §16.1.1 through M and
 back through N, a tampered tag refused), `sass`'s `gcm` (no indexed
 constant load, local memory only at spill slots, no memory load but
 the staged row's inside the GHASH chain) and `latency_floor`'s
-`ghash_step_cycles` (one Horner step on a waiting warp), from which each
-GCM line's `chain_floor_ms` is reckoned: the launch, the longest row's
-Horner steps and one AES pair.
+`ghash_step_cycles` (one Horner step on a waiting warp, its block read
+from shared memory as the tiles read it), from which each GCM line's
+`chain_floor_ms` is reckoned: the launch, the longest row's Horner steps
+and one AES pair.  `gcm_phases` runs M's and N's tile with clock64
+stamps (a probe build, `ljt_srtp_gcm_phases`; the shipped kernels carry
+no stamp) at the mix batch's three launches and the SRTCP launch, and
+prints each launch's split: set-up, keystream, hash (its working warps'
+busy cycles apart from the cycles warps wait at the join), store;
+`gcm_plans` times the same tile planned for 1-4 tiles an SM.  With
+`--parent ROOT`, the kernels of the checkout at ROOT (built by its own
+sources) are timed against this tree's at every GCM shape in turns
+(parent, this, this, parent: `gcm_turns`), and its phase split is
+printed too where it has the probe.
 
 Every phase prints one JSON line; the card's `nvidia-smi` name and power
 limit come before the last line, and the last line is
@@ -369,9 +382,17 @@ def require(cond, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port's "
+                                 "media paths on one NVIDIA GPU.")
+    ap.add_argument("--parent", metavar="ROOT",
+                    help="another checkout (the parent commit) whose GCM "
+                         "kernels are timed against this tree's in turns")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -399,7 +420,9 @@ def main() -> int:
     rows.update(sfu_kernels(torch, dev, floor_ms))
     rows.update(profile_kernels(torch, dev, floor_ms, chain))
     rows.update(sfu_profile_kernels(torch, dev, floor_ms, chain))
-    rows.update(gcm_kernels(torch, dev, floor_ms, chain))
+    rows.update(gcm_kernels(torch, dev, floor_ms, chain,
+                            parent_library(opts.parent) if opts.parent
+                            else None))
     rows.update(resample_kernels(torch, dev, floor_ms))
 
     counts = {}
@@ -3689,8 +3712,9 @@ def _gcm_sass(code: dict, ptxas: dict) -> dict:
     spill slot, never an array indexed at run time), and in the GHASH
     chain (the innermost loop around the ballots, `ghash.cuh`) no
     device-memory or local load: the matrix rows sit in registers.
-    Counts the chain's instructions and loads a step, and the probe's
-    (`ghash_chain`)."""
+    Counts the chain loop's instructions (and a step's: four ballots a
+    step; the loop may hold several), ballots and loads, and the
+    probe's (`ghash_chain`)."""
     require(all(k in code for k in GCM_SASS + ("ghash_chain",)),
             f"no SASS for a GCM kernel: {sorted(code)}")
     report = {}
@@ -3709,6 +3733,8 @@ def _gcm_sass(code: dict, ptxas: dict) -> dict:
             ptxas=ptxas.get(k, {}), local_accesses=len(local),
             local_at_computed_address=computed,
             ghash_chain_instructions=len(body),
+            ghash_chain_instructions_per_step=len(body) / max(
+                body.count("VOTE") / 4, 1),
             ghash_chain_ballots=body.count("VOTE"),
             ghash_chain_popc=body.count("POPC"),
             ghash_chain_shared_loads=body.count("LDS"),
@@ -3747,7 +3773,246 @@ def _gcm_ops(aad, ct, aes: bool = True) -> int:
     return ops
 
 
-def gcm_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
+def _gcm_launches(torch, dev, rng, tab_rk, tab_gm) -> list:
+    """M's launches on the `srtp_gcm` path over 10,240-row tables: one
+    4,096-packet production-mix batch as the table buckets it (3
+    launches), then the path's SRTCP launch, 1,100 rows in the kernel
+    layout hdr8 || E || index || 60-200-byte payload, AAD 12, 1,504-byte
+    rows.  Each a dict: `label`, the seal's `args` (the wrapper's order),
+    the rows' ciphertext bytes `ct` and the distinct `streams`."""
+    from libjitsi_tpu_torch.core.packet import bucket_by_size
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+
+    out = []
+    mix = _mix_batch(rng, rng.permutation(N_STREAMS)[:BATCH], 1000, 0)
+    for _rows, part, n_real in bucket_by_size(mix):
+        n, width = part.data.shape
+        out.append(dict(
+            label=f"{n}x{width} ({n_real} real rows)",
+            args=[tab_rk, tab_gm, t(part.stream.astype(np.int32)),
+                  t(part.data), t(part.length.astype(np.int32)),
+                  torch.full((n,), HDR, dtype=torch.int32, device=dev),
+                  t(rng.integers(0, 256, (n, 12), np.uint8))],
+            ct=part.length.astype(np.int64) - HDR,
+            streams=len(np.unique(part.stream))))
+    n, width = PROFILE_RTCP, 1504
+    plen = rng.integers(60, 201, n).astype(np.int64)
+    out.append(dict(
+        label=f"{n}x{width} SRTCP 60-200 bytes",
+        args=[tab_rk, tab_gm,
+              t(rng.permutation(N_STREAMS)[:n].astype(np.int32)),
+              t(rng.integers(0, 256, (n, width), np.uint8)),
+              t((plen + 4).astype(np.int32)),
+              torch.full((n,), 12, dtype=torch.int32, device=dev),
+              t(rng.integers(0, 256, (n, 12), np.uint8))],
+        ct=plen - 8, streams=n))
+    return out
+
+
+def _phase_split(stamps: np.ndarray, plan) -> dict:
+    """A launch's split from the phase probe's stamps ([tiles, 40] clock64
+    words, `gcm_tile.cuh`): medians over the tiles of the cycles of set-up
+    (start to the first stamp a warp takes after the set-up barrier), the
+    keystream (to its barrier, or to the last keystream warp's end where
+    the hash overlaps it), the hash (from its first warp's start to the
+    join: the last warp's own end or the join barrier's stamp, whichever
+    is later, since a clock read after a barrier may issue before the
+    last warp arrives) and how long after set-up it starts, the store,
+    the whole tile; of a hashing warp's busy cycles (its own stamps) and
+    of the cycles each warp waits at the join after its own work; and the
+    warps that hash no row."""
+    s = stamps[:plan[2]].astype(np.int64)
+    warps = s[:, 8:].reshape(len(s), 8, 4)
+    used = (warps != 0).any(axis=2)
+    hashing = warps[:, :, 2] != 0
+    big = np.iinfo(np.int64).max
+    starts = np.where(warps[:, :, [0, 2]] != 0, warps[:, :, [0, 2]], big)
+    first = starts.min(axis=(1, 2))
+    setup_end = np.where(first < big, first, s[:, 1])
+    ks_end = np.where(used, warps[:, :, 1], 0).max(axis=1)
+    ks_barrier = np.where(s[:, 2] != 0, s[:, 2], ks_end)
+    h_start = np.where(hashing, warps[:, :, 2], big).min(axis=1)
+    own_end = np.where(hashing, warps[:, :, 3],
+                       np.where(warps[:, :, 1] != 0, warps[:, :, 1],
+                                setup_end[:, None]))
+    join = np.maximum(s[:, 3], np.where(used, own_end, 0).max(axis=1))
+    busy = np.where(hashing, warps[:, :, 3] - warps[:, :, 2], 0)
+    wait = np.where(used, join[:, None] - own_end, 0)
+
+    def med(v):
+        return float(np.median(v))
+
+    tile = s[:, 4] - s[:, 0]
+    per_sm = np.bincount(s[:, 7], minlength=1)
+    return dict(
+        tiles=int(plan[2]), rows_per_tile=int(plan[0]),
+        sms_used=int((per_sm > 0).sum()),
+        tiles_on_busiest_sm=int(per_sm.max()),
+        start_spread_ns_p90_max=[float(np.percentile(s[:, 6] - s[:, 6].min(),
+                                                     90)),
+                                 int(s[:, 6].max() - s[:, 6].min())],
+        tile_cycles_p90=float(np.percentile(tile, 90)),
+        smem_bytes=int(plan[1]), warps_per_tile=int(used[0].sum()),
+        setup_cycles=med(setup_end - s[:, 0]),
+        keystream_cycles=med(ks_barrier - setup_end),
+        hash_cycles=med(join - np.minimum(h_start, join)),
+        hash_start_after_setup_cycles=med(np.minimum(h_start, join)
+                                          - setup_end),
+        store_cycles=med(s[:, 4] - join),
+        tile_cycles=med(s[:, 4] - s[:, 0]),
+        tile_cycles_max=int((s[:, 4] - s[:, 0]).max()),
+        hash_warp_busy_cycles=med(busy.sum(1) / np.maximum(hashing.sum(1),
+                                                           1)),
+        warp_wait_at_join_cycles=med(wait.sum(1) / np.maximum(used.sum(1),
+                                                              1)),
+        idle_hash_warps=med((used & ~hashing).sum(1)))
+
+
+def gcm_phases(torch, dev, lib, launches, which: str,
+               per_sm: int = 0, quiet: bool = False) -> dict:
+    """The phase probe (`ljt_srtp_gcm_phases`, M's and N's tile with
+    clock64 stamps) of `lib` at `launches` (`_gcm_launches`), planned for
+    `per_sm` tiles an SM (0: as the kernels plan): for each launch and
+    for seal and open, the probe's time on the card and `_phase_split`.
+    N opens what M's wrapper sealed.  Prints a `gcm_phases` line named
+    `which`."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.transform.srtp import kernel as sk
+
+    stream = kbuild.stream_handle(dev)
+    out = {}
+    for case in launches:
+        args = case["args"]
+        n, width = args[3].shape
+        sealed, slen = sk.srtp_gcm_protect(*args)
+        split = {}
+        for name, is_open, data, length in (
+                ("seal", 0, args[3], args[4]), ("open", 1, sealed, slen)):
+            res = torch.empty_like(data)
+            res_len = torch.empty_like(length)
+            ok = torch.zeros(n, dtype=torch.bool, device=dev)
+            stamps = torch.zeros((n, 40), dtype=torch.int64, device=dev)
+            plan = np.zeros(3, np.int32)
+
+            def probe():
+                kbuild.check(lib.ljt_srtp_gcm_phases(
+                    args[0].data_ptr(), args[1].data_ptr(),
+                    args[2].data_ptr(), args[0].shape[0], data.data_ptr(),
+                    length.data_ptr(), args[5].data_ptr(),
+                    args[6].data_ptr(), res.data_ptr(), res_len.data_ptr(),
+                    ok.data_ptr(), stamps.data_ptr(), plan.ctypes.data, n,
+                    width, is_open, per_sm, stream), "srtp_gcm_phases")
+
+            probe_ms = device_ms(torch, probe, 20,
+                                 f"gcm_phases_{name}_kernel")
+            probe()                  # the stamps of one warm launch
+            torch.cuda.synchronize()
+            want = sealed if not is_open else args[3]
+            require(torch.equal(res, want) if not is_open
+                    else bool(ok.all()), f"the phase probe's {name} differs "
+                                         f"at {case['label']}")
+            split[name] = dict(probe_ms=probe_ms,
+                               **_phase_split(stamps.cpu().numpy(), plan))
+        out[case["label"]] = split
+    if not quiet:
+        emit("gcm_phases", tree=which, tiles_per_sm=per_sm or "as shipped",
+             launches=out)
+    return out
+
+
+GCM_PLANS = (1, 2, 3, 4)    # tiles an SM tried by `gcm_plans`
+
+
+def gcm_plans(torch, dev, lib, launches) -> None:
+    """M's and N's tile planned for each of GCM_PLANS tiles an SM (the
+    phase probe, `gcm_phases`): its time on the card at each launch, the
+    sums over the mix batch's launches, and the rows a tile, so the
+    shipped plan (`kGcmTilesPerSm`) is read against the others.  Prints
+    a `gcm_plans` line."""
+    out = {}
+    for k in GCM_PLANS:
+        res = gcm_phases(torch, dev, lib, launches, "this tree", k, True)
+        mix = [lab for lab in res if "SRTCP" not in lab]
+        out[k] = dict(
+            seal_mix_batch_ms=sum(res[lab]["seal"]["probe_ms"] for lab in mix),
+            open_mix_batch_ms=sum(res[lab]["open"]["probe_ms"] for lab in mix),
+            launches={lab: dict(rows_per_tile=v["seal"]["rows_per_tile"],
+                                seal_ms=v["seal"]["probe_ms"],
+                                open_ms=v["open"]["probe_ms"])
+                      for lab, v in res.items()})
+    emit("gcm_plans", tiles_per_sm=out)
+
+
+def parent_library(root: str):
+    """The kernel library of the tree at `root` (built by that tree's own
+    `kernels.build`, in a subprocess run from `root`), loaded beside this
+    tree's, with the GCM entries' argument types."""
+    import ctypes
+
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    so = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); "
+         "from libjitsi_tpu_torch.kernels import build; print(build.build())"],
+        cwd=root, check=True, capture_output=True, text=True,
+        timeout=900).stdout.strip().splitlines()[-1]
+    lib = ctypes.CDLL(so)
+    for name, args in kbuild._SIGNATURES.items():
+        if "gcm" in name and hasattr(lib, name):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _recorded_launch(fn):
+    """Run `fn`, one call of a GCM wrapper, and return its outputs and the
+    C entry and arguments of the launch it made (`_gcm_launch`), which
+    stay valid while the outputs live."""
+    from libjitsi_tpu_torch.transform.srtp import kernel as sk
+
+    seen, orig = [], sk._gcm_launch
+
+    def rec(name, *args):
+        seen.append((name, args))
+        orig(name, *args)
+
+    sk._gcm_launch = rec
+    try:
+        out = fn()
+    finally:
+        sk._gcm_launch = orig
+    return out, seen[0]
+
+
+def gcm_turns(torch, dev, parent_lib, specs) -> None:
+    """The parent's GCM kernels against this tree's on the same launches,
+    in turns (parent, this, this, parent), each turn the profiler's mean
+    kernel duration over 50 launches; `specs` are (label, outputs, (entry,
+    args)) from `_recorded_launch`.  Prints a `gcm_turns` line: each
+    side's mean, its two turns' spread and the ratio."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    out = {}
+    for label, _keep, (entry, args) in specs:
+        def call(lib, entry=entry, args=args):
+            kbuild.check(getattr(lib, "ljt_" + entry)(*args), entry)
+
+        libs = (parent_lib, kbuild.library(), kbuild.library(), parent_lib)
+        t = [device_ms(torch, lambda lib=lib: call(lib), 50,
+                       entry + "_kernel") for lib in libs]
+        parent, new = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        out[f"{entry} {label}"] = dict(
+            turns_ms=t, parent_ms=parent, new_ms=new,
+            parent_spread_ms=abs(t[0] - t[3]), new_spread_ms=abs(t[1] - t[2]),
+            new_over_parent=new / parent)
+    emit("gcm_turns", order="parent, this tree, this tree, parent",
+         launches=out)
+
+
+def gcm_kernels(torch, dev, floor_ms: float, chain: dict,
+                parent_lib=None) -> dict:
     """M and N against their plain versions at the launches a 4,096-packet
     production-mix batch makes over 10,240-row tables (the parts
     `bucket_by_size` gives) and at 1,100 SRTCP rows (hdr8 || E || index ||
@@ -3760,7 +4025,6 @@ def gcm_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
     computes GCM, so none has a library time.  The `kernels` line takes
     the batch's sums for M and N, the audio rows for the cached
     instances, one burst for H-GCM and the 65,536 slots for O."""
-    from libjitsi_tpu_torch.core.packet import bucket_by_size
     from libjitsi_tpu_torch.kernels import aes, gcm
     from libjitsi_tpu_torch.transform.srtp import kernel as sk
     from libjitsi_tpu_torch.transform.srtp.context import ghash_tables
@@ -3777,7 +4041,7 @@ def gcm_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
                                                np.uint8))
     tab_rk, tab_gm = t(rk_np), t(ghash_tables(rk_np).view(np.int32))
     keys = 176 + 2048          # a stream's round keys and packed matrix
-    rows, acc = {}, {}
+    rows, acc, specs = {}, {}, []
 
     def line_of(name, label, fn, plain, nbytes, ops, chain_ms):
         line = _profile_line(name, label, _crypto_times(
@@ -3795,26 +4059,23 @@ def gcm_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
                 f"{name} {label} differs from its plain version")
 
     # M and N: one production-mix batch as the table buckets it
-    mix = _mix_batch(rng, rng.permutation(N_STREAMS)[:BATCH], 1000, 0)
+    launches = _gcm_launches(torch, dev, rng, tab_rk, tab_gm)
     labels = []
-    for _rows, part, n_real in bucket_by_size(mix):
-        n, width = part.data.shape
-        label = f"{n}x{width} ({n_real} real rows)"
+    for case in launches[:-1]:
+        label, args, ct = case["label"], case["args"], case["ct"]
+        n, width = args[3].shape
         labels.append(label)
-        ct = part.length.astype(np.int64) - HDR
-        args = [tab_rk, tab_gm, t(part.stream.astype(np.int32)),
-                t(part.data), t(part.length.astype(np.int32)),
-                torch.full((n,), HDR, dtype=torch.int32, device=dev),
-                t(rng.integers(0, 256, (n, 12), np.uint8))]
-        kp = sk.srtp_gcm_protect(*args)
+        kp, spec = _recorded_launch(lambda: sk.srtp_gcm_protect(*args))
+        specs.append((label, kp, spec))
         check("srtp_gcm_seal", kp, sk.srtp_gcm_protect_plain(*args), label)
         uargs = args[:3] + [kp[0], kp[1]] + args[5:]
-        ku = sk.srtp_gcm_unprotect(*uargs)
+        ku, spec = _recorded_launch(lambda: sk.srtp_gcm_unprotect(*uargs))
+        specs.append((label, ku, spec))
         require(bool(ku[2].all()), f"srtp_gcm_open rejected genuine rows "
                                    f"({label})")
         check("srtp_gcm_open", ku, sk.srtp_gcm_unprotect_plain(*uargs), label)
         nbytes = (2 * n * width + n * (4 + 4 + 12 + 4)
-                  + len(np.unique(part.stream)) * keys)
+                  + case["streams"] * keys)
         ops = _gcm_ops(np.full(n, HDR), ct)
         chain_ms = gcm_floor_ms(floor_ms, chain, HDR, int(ct.max()))
         for name, fn, plain in (
@@ -3838,22 +4099,17 @@ def gcm_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
             {k: a[k] for k in ("ms", "call_ms", "plain_ms")}, a["bytes"],
             a["ops"], floor_ms, a["chain_floor_ms"])
         rows[name]["ptxas"] = ptxas.get(name + " nr=10", {})
-    # M and N at the SRTCP launch: kernel layout hdr8 || E || index ||
-    # payload, AAD 12, 1,504-byte rows
-    n, width = PROFILE_RTCP, 1504
-    plen = rng.integers(60, 201, n).astype(np.int64)
-    ca = [tab_rk, tab_gm, t(rng.permutation(N_STREAMS)[:n].astype(np.int32)),
-          t(rng.integers(0, 256, (n, width), np.uint8)),
-          t((plen + 4).astype(np.int32)),
-          torch.full((n,), 12, dtype=torch.int32, device=dev),
-          t(rng.integers(0, 256, (n, 12), np.uint8))]
-    cp = sk.srtp_gcm_protect(*ca)
+    # M and N at the SRTCP launch
+    ca, ct = launches[-1]["args"], launches[-1]["ct"]
+    n, width = ca[3].shape
+    cp, spec = _recorded_launch(lambda: sk.srtp_gcm_protect(*ca))
+    specs.append((launches[-1]["label"], cp, spec))
     check("srtp_gcm_seal", cp, sk.srtp_gcm_protect_plain(*ca), "SRTCP")
     cu = ca[:3] + [cp[0], cp[1]] + ca[5:]
-    got = sk.srtp_gcm_unprotect(*cu)
+    got, spec = _recorded_launch(lambda: sk.srtp_gcm_unprotect(*cu))
+    specs.append((launches[-1]["label"], got, spec))
     require(bool(got[2].all()), "srtp_gcm_open rejected genuine SRTCP rows")
     check("srtp_gcm_open", got, sk.srtp_gcm_unprotect_plain(*cu), "SRTCP")
-    ct = plen - 8
     for name, fn, plain in (
             ("srtp_gcm_seal", lambda: sk.srtp_gcm_protect(*ca),
              lambda: sk.srtp_gcm_protect_plain(*ca)),
@@ -3864,6 +4120,10 @@ def gcm_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
                 2 * n * width + n * (4 + 4 + 12 + 4) + n * keys,
                 _gcm_ops(np.full(n, 12), ct),
                 gcm_floor_ms(floor_ms, chain, 12, int(ct.max())))
+    gcm_phases(torch, dev, kbuild.library(), launches, "this tree")
+    gcm_plans(torch, dev, kbuild.library(), launches)
+    if parent_lib is not None and hasattr(parent_lib, "ljt_srtp_gcm_phases"):
+        gcm_phases(torch, dev, parent_lib, launches, "parent")
     # the cached instances: 4,096 audio rows on 65,536 slots of 256 bytes
     n, width, ks_bytes, n_slots = BATCH, 192, 256, GCM_FILL_SLOTS + 1
     plen = rng.integers(60, 161, n).astype(np.int64)
@@ -3875,11 +4135,13 @@ def gcm_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
         np.int32)), tab_gm, t(rng.permutation(N_STREAMS)[:n].astype(
             np.int32)), t(data), t((HDR + plen).astype(np.int32)),
           torch.full((n,), HDR, dtype=torch.int32, device=dev)]
-    kp = sk.srtp_gcm_protect_cached(*ka)
+    kp, spec = _recorded_launch(lambda: sk.srtp_gcm_protect_cached(*ka))
+    specs.append((f"{n}x{width} audio", kp, spec))
     check("srtp_gcm_seal_cached", kp, sk.srtp_gcm_protect_cached_plain(*ka),
           "audio")
     kua = ka[:5] + [kp[0], kp[1], ka[7]]
-    ku = sk.srtp_gcm_unprotect_cached(*kua)
+    ku, spec = _recorded_launch(lambda: sk.srtp_gcm_unprotect_cached(*kua))
+    specs.append((f"{n}x{width} audio", ku, spec))
     require(bool(ku[2].all()), "srtp_gcm_open_cached rejected genuine rows")
     check("srtp_gcm_open_cached", ku,
           sk.srtp_gcm_unprotect_cached_plain(*kua), "audio")
@@ -3910,8 +4172,9 @@ def gcm_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
         host[1] = ghash_tables(host[0]).view(np.int32)
         host[2][:, 12:] = 0
         args = [t(x) for x in host]
-        check("srtp_fanout_gcm", sk.srtp_fanout_gcm(*args),
-              sk.srtp_fanout_gcm_plain(*args), label)
+        got, spec = _recorded_launch(lambda: sk.srtp_fanout_gcm(*args))
+        specs.append((label, got, spec))
+        check("srtp_fanout_gcm", got, sk.srtp_fanout_gcm_plain(*args), label)
         n = p * legs
         ct = np.repeat(lens - HDR - 8, legs)
         line = line_of("srtp_fanout_gcm", label,
@@ -3923,6 +4186,8 @@ def gcm_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
                        gcm_floor_ms(floor_ms, chain, HDR + 8, int(ct.max())))
         if p == burst:
             rows["srtp_fanout_gcm"] = line
+    if parent_lib is not None:
+        gcm_turns(torch, dev, parent_lib, specs)
     # O: a first fill of 1,024 rows x 64 slots of 256 bytes
     n, ks_bytes = GCM_FILL_SLOTS, 256
     ks_tab = torch.zeros((n + 1, ks_bytes), dtype=torch.uint8, device=dev)

@@ -20,8 +20,10 @@
 // popcount and its low bit, then four `__ballot_sync`s that set bit l of
 // product word q from lane l: which is bit 31 - l of word q in the packed
 // order, so the ballots reassemble the 128-bit y on every lane.  About 38
-// instructions a step alone (the latency probe's loop), 97 in the GCM
-// tiles with the block's read from the staged row, on every lane.
+// instructions a step alone (the latency probe's loop); the GCM tiles read
+// x as one broadcast 16-byte shared load from the row's staged GHASH input
+// (`gcm_tile.cuh`), where the first form built it on every lane from the
+// staged row (8 clamped loads, 4 byte permutes, 4 length masks: 97 a step).
 //
 // Why this form: no load address and no branch depends on H, the key, the
 // GHASH state or the data.  The matrix rows are addressed by the lane and
@@ -73,9 +75,4 @@ __device__ __forceinline__ uint4 ljt_ghash_step(const LjtGhashRows& m,
                     __ballot_sync(0xFFFFFFFFu, ljt_ghash_dot(m.q1, t)),
                     __ballot_sync(0xFFFFFFFFu, ljt_ghash_dot(m.q2, t)),
                     __ballot_sync(0xFFFFFFFFu, ljt_ghash_dot(m.q3, t)));
-}
-
-// GHASH's last block: be64(aad bits) || be64(ct bits), lengths < 2^29.
-__device__ __forceinline__ uint4 ljt_ghash_lengths(int aad, int ct) {
-  return make_uint4(0u, uint32_t(aad) * 8u, 0u, uint32_t(ct) * 8u);
 }

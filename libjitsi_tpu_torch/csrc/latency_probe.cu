@@ -31,9 +31,10 @@
 //     costs its lane: the message words, padding and the outer block.
 //   ljt_probe_ghash_chain: a packed GHASH matrix [128, 4] u32 and a block
 //     [4] u32 (big-endian words): one warp runs n Horner steps y = (y ^
-//     x) * H with the matrix in its registers, as the GCM tiles run them
-//     (`ghash.cuh`); y written to out [4], cycles [32] as above.  One step
-//     is the floor of a GCM row's tag: its chain is ceil(aad/16) +
+//     x) * H with the matrix in its registers and x read from shared
+//     memory each step, as the GCM tiles run them (`ghash.cuh`,
+//     `gcm_tile.cuh`); y written to out [4], cycles [32] as above.  One
+//     step is the floor of a GCM row's tag: its chain is ceil(aad/16) +
 //     ceil(ct/16) + 1 steps on one warp.
 //   ljt_probe_empty: one warp that does nothing.  Its time on the card is
 //     the launch floor: no kernel, however little work it does, takes
@@ -138,11 +139,16 @@ __global__ void ghash_chain_kernel(const uint4* __restrict__ gm,
                                    const uint4* __restrict__ block,
                                    uint4* __restrict__ out,
                                    long long* __restrict__ cycles, int n) {
+  // the block staged 8 times, read back one broadcast 16-byte load a
+  // step as the GCM tiles read a row's staged GHASH input
+  __shared__ uint4 xs[8];
   const LjtGhashRows m = ljt_ghash_lane_rows(gm, int(threadIdx.x));
-  const uint4 x = block[0];
+  if (threadIdx.x < 8) xs[threadIdx.x] = block[0];
+  __syncwarp();
   uint4 y = make_uint4(0u, 0u, 0u, 0u);
   const long long t0 = clock64();
-  for (int i = 0; i < n; ++i) y = ljt_ghash_step(m, y, x);
+#pragma unroll 4
+  for (int i = 0; i < n; ++i) y = ljt_ghash_step(m, y, xs[i & 7]);
   const long long t1 = clock64();
   if (threadIdx.x == 0) out[0] = y;
   cycles[threadIdx.x] = t1 - t0;

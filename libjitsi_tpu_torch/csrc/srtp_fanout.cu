@@ -63,8 +63,10 @@
 //  - AEAD-GCM (`srtp_fanout_gcm`; JAX `_fanout_protect_gcm` and
 //    `gcm_protect_fanout`, translator.py:73 and kernels/gcm.py:415, with
 //    the leg-major to packet-major flip `_fanout_packet_major`,
-//    translator.py:81): the GCM tile of kernel M (`gcm_tile.cuh`) over
-//    the gathered copies.  Each copy's RFC 7714 §8.1 IV, salt ^ (00 00 ||
+//    translator.py:81): the GCM tile of kernel M (`gcm_tile.cuh`: 256
+//    threads, two tiles an SM, its staged GHASH input and rows handed
+//    to warps as they come free) over the gathered copies.  Each copy's
+//    RFC 7714 §8.1 IV, salt ^ (00 00 ||
 //    SSRC || 48-bit index), is built on the card from the leg's salt as
 //    under AES-CM; the AAD is the packet's RTP header; the copy is sealed
 //    under the leg's round keys and packed GHASH matrix (gathered by
@@ -362,7 +364,7 @@ struct FanoutGcmRows {
 };
 
 template <int NR>
-__global__ void __launch_bounds__(kThreads) srtp_fanout_gcm_kernel(
+__global__ void __launch_bounds__(ljt_gcm::kGcmThreads) srtp_fanout_gcm_kernel(
     const uint8_t* __restrict__ tab_rk, const uint4* __restrict__ tab_gm,
     const uint8_t* __restrict__ tab_salt, int n_streams,
     const uint8_t* __restrict__ data, const int32_t* __restrict__ length,
@@ -397,9 +399,11 @@ extern "C" int ljt_srtp_fanout_gcm(const void* tab_rk, const void* tab_gm,
   auto kernel = srtp_fanout_gcm_kernel<10>;
   Plan p;
   const int rc = plan(kernel, done, n, width, nr, kInPlace,
-                      kCtasPerSmSfu, &p, 1, ljt_gcm::kExtraWords);
+                      ljt_gcm::kGcmTilesPerSm, &p, 1,
+                      ljt_gcm::gcm_row_words(width));
   if (rc) return rc;
-  kernel<<<p.grid, kThreads, p.smem, static_cast<cudaStream_t>(cuda_stream)>>>(
+  kernel<<<p.grid, ljt_gcm::kGcmThreads, p.smem,
+           static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<const uint8_t*>(tab_rk), static_cast<const uint4*>(tab_gm),
       static_cast<const uint8_t*>(tab_salt), n_streams,
       static_cast<const uint8_t*>(data), static_cast<const int32_t*>(length),

@@ -21,14 +21,17 @@
 // product each), against ~250 bytes moved.
 //
 // Design: the GCM tile (`gcm_tile.cuh`) over the SRTP tile
-// (`srtp_tile.cuh`): 128 threads, at most 32 rows, the AES core over the
-// flattened (row, block) entries, then a warp a row for the Horner chain
-// (`ghash.cuh`, the matrix in the warp's registers).  Seal encrypts in
-// place and then hashes the ciphertext; open decrypts into the tile's
-// second copy while the hash reads the first, so the decrypt always runs
-// and the caller masks rows that fail.  Tiles are sized for four a SM, as
-// the SFU kernels are: a GCM tile's floor is its longest row's Horner
-// chain on one warp, so more, shorter tiles spread the chains.
+// (`srtp_tile.cuh`): 256 threads, at most 32 rows, the AES core over the
+// flattened (row, block) entries, a warp a row for the Horner chain
+// (`ghash.cuh`, the matrix in the warp's registers, each row's GHASH input
+// staged once as aligned blocks so a step is one broadcast shared load
+// and the step), rows handed to warps as they come free.  Seal encrypts
+// in place and hashes each row as soon as its ciphertext is whole; open
+// decrypts into the tile's second copy while the hash reads the first
+// (on warps of their own where a tile has at most 256 entries), so the
+// decrypt always runs and the caller masks rows that fail.  Tiles are
+// sized for two an SM (`kGcmTilesPerSm`): on an H100 one, three and four
+// read slower over the mix batch's launches (PERF.md §6).
 //
 // Instances (each its own kernel name and launch count):
 // `srtp_gcm_seal` (M), `srtp_gcm_open` (N), `srtp_gcm_seal_cached`,
@@ -117,25 +120,26 @@ struct GcmRows {
       ks_tab, ek_tab, n_slots, ks_bytes, out, out_len, auth_ok, n, width,   \
       tile_rows
 
-template <int NR, bool Open, bool Cached>
+template <int NR, bool Open, bool Cached, bool Phases = false>
 __device__ __forceinline__ void srtp_gcm_body(uint32_t* smem,
-                                              LJT_GCM_PARAMS) {
+                                              LJT_GCM_PARAMS,
+                                              long long* stamps = nullptr) {
   const GcmRows<Open> rows{stream, n_streams, data, length, aad_len,
                            iv12,   slots,     width};
   if constexpr (Cached)
-    gcm_tile<NR, Open, true>(smem, nullptr, tab_gm,
-                             NullRows<GcmRows<Open>>{rows}, ks_tab, ek_tab,
-                             n_slots, ks_bytes, out, out_len, auth_ok, n,
-                             width, tile_rows);
+    gcm_tile<NR, Open, true, NullRows<GcmRows<Open>>, Phases>(
+        smem, nullptr, tab_gm, NullRows<GcmRows<Open>>{rows}, ks_tab, ek_tab,
+        n_slots, ks_bytes, out, out_len, auth_ok, n, width, tile_rows,
+        stamps);
   else
-    gcm_tile<NR, Open, false>(smem, tab_rk, tab_gm, rows, nullptr, nullptr,
-                              0, 0, out, out_len, auth_ok, n, width,
-                              tile_rows);
+    gcm_tile<NR, Open, false, GcmRows<Open>, Phases>(
+        smem, tab_rk, tab_gm, rows, nullptr, nullptr, 0, 0, out, out_len,
+        auth_ok, n, width, tile_rows, stamps);
 }
 
 // The four instances, each a kernel of its own name.
 template <int NR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGcmThreads)
     srtp_gcm_seal_kernel(LJT_GCM_PARAMS) {
   extern __shared__ uint4 smem[];
   srtp_gcm_body<NR, false, false>(reinterpret_cast<uint32_t*>(smem),
@@ -143,33 +147,51 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int NR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGcmThreads)
     srtp_gcm_open_kernel(LJT_GCM_PARAMS) {
   extern __shared__ uint4 smem[];
   srtp_gcm_body<NR, true, false>(reinterpret_cast<uint32_t*>(smem),
                                  LJT_GCM_ARGS);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGcmThreads)
     srtp_gcm_seal_cached_kernel(LJT_GCM_PARAMS) {
   extern __shared__ uint4 smem[];
   srtp_gcm_body<10, false, true>(reinterpret_cast<uint32_t*>(smem),
                                  LJT_GCM_ARGS);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGcmThreads)
     srtp_gcm_open_cached_kernel(LJT_GCM_PARAMS) {
   extern __shared__ uint4 smem[];
   srtp_gcm_body<10, true, true>(reinterpret_cast<uint32_t*>(smem),
                                 LJT_GCM_ARGS);
 }
 
+// The phase probe's instances of M and N: the same tile with its clock64
+// stamps (`gcm_tile.cuh`, kPhaseSlots a tile); on no path.
+__global__ void __launch_bounds__(kGcmThreads)
+    gcm_phases_seal_kernel(LJT_GCM_PARAMS, long long* stamps) {
+  extern __shared__ uint4 smem[];
+  srtp_gcm_body<10, false, false, true>(reinterpret_cast<uint32_t*>(smem),
+                                        LJT_GCM_ARGS, stamps);
+}
+
+__global__ void __launch_bounds__(kGcmThreads)
+    gcm_phases_open_kernel(LJT_GCM_PARAMS, long long* stamps) {
+  extern __shared__ uint4 smem[];
+  srtp_gcm_body<10, true, false, true>(reinterpret_cast<uint32_t*>(smem),
+                                       LJT_GCM_ARGS, stamps);
+}
+
 // The instance: AES-128 only (the SRTP profiles have no AES-256 GCM
 // suite); the cached instances run no AES (their tiles are planned as for
 // nr = 10, without keys).
-template <bool Open, bool Cached>
+template <bool Open, bool Cached, bool Phases = false>
 auto gcm_kernel() {
-  if constexpr (Cached)
+  if constexpr (Phases)
+    return Open ? gcm_phases_open_kernel : gcm_phases_seal_kernel;
+  else if constexpr (Cached)
     return Open ? srtp_gcm_open_cached_kernel : srtp_gcm_seal_cached_kernel;
   else if constexpr (Open)
     return srtp_gcm_open_kernel<10>;
@@ -177,37 +199,56 @@ auto gcm_kernel() {
     return srtp_gcm_seal_kernel<10>;
 }
 
+#define LJT_GCM_CAST_ARGS                                                  \
+  static_cast<const uint8_t*>(tab_rk), static_cast<const uint4*>(tab_gm),  \
+      static_cast<const int32_t*>(stream), n_streams,                      \
+      static_cast<const uint8_t*>(data),                                   \
+      static_cast<const int32_t*>(length),                                 \
+      static_cast<const int32_t*>(aad_len),                                \
+      static_cast<const uint8_t*>(iv12),                                   \
+      static_cast<const int32_t*>(slots),                                  \
+      static_cast<const uint8_t*>(ks_tab),                                 \
+      static_cast<const uint8_t*>(ek_tab), n_slots, ks_bytes,              \
+      static_cast<uint8_t*>(out), static_cast<int32_t*>(out_len),          \
+      static_cast<bool*>(auth_ok), n, width, p.rows
+
 // One launch of an instance; cached instances take no round keys and no
-// IVs.
-template <bool Open, bool Cached>
+// IVs.  The phase probe (Phases) also takes the stamps, may plan for
+// `per_sm` tiles an SM in place of kGcmTilesPerSm, and writes the plan
+// (rows a tile, dynamic shared memory, tiles) to plan_out.
+template <bool Open, bool Cached, bool Phases = false>
 int launch_gcm(const void* tab_rk, const void* tab_gm, const void* stream,
                int n_streams, const void* data, const void* length,
                const void* aad_len, const void* iv12, const void* slots,
                const void* ks_tab, const void* ek_tab, int n_slots,
                int ks_bytes, void* out, void* out_len, void* auth_ok, int n,
-               int width, int nr, void* cuda_stream) {
+               int width, int nr, void* cuda_stream,
+               long long* stamps = nullptr, int* plan_out = nullptr,
+               int per_sm = 0) {
   if (n <= 0) return 0;
   if (nr != 10 || n_streams <= 0 || tab_gm == nullptr ||
       (reinterpret_cast<uintptr_t>(tab_gm) & 15) ||
       (Cached && (n_slots <= 0 || ks_bytes <= 0 || ks_bytes % 16)))
     return int(cudaErrorInvalidValue);
   static std::atomic<unsigned> done;
-  auto kernel = gcm_kernel<Open, Cached>();
+  auto kernel = gcm_kernel<Open, Cached, Phases>();
   Plan p;
   const int rc = plan(kernel, done, n, width, nr,
-                      Open ? kSecondCopy : kInPlace, kCtasPerSmSfu, &p,
-                      Cached ? 0 : 1, kExtraWords);
+                      Open ? kSecondCopy : kInPlace,
+                      per_sm > 0 ? per_sm : kGcmTilesPerSm, &p,
+                      Cached ? 0 : 1, gcm_row_words(width));
   if (rc) return rc;
-  kernel<<<p.grid, kThreads, p.smem, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const uint8_t*>(tab_rk), static_cast<const uint4*>(tab_gm),
-      static_cast<const int32_t*>(stream), n_streams,
-      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(length),
-      static_cast<const int32_t*>(aad_len),
-      static_cast<const uint8_t*>(iv12), static_cast<const int32_t*>(slots),
-      static_cast<const uint8_t*>(ks_tab),
-      static_cast<const uint8_t*>(ek_tab), n_slots, ks_bytes,
-      static_cast<uint8_t*>(out), static_cast<int32_t*>(out_len),
-      static_cast<bool*>(auth_ok), n, width, p.rows);
+  if constexpr (Phases) {
+    plan_out[0] = p.rows;
+    plan_out[1] = p.smem;
+    plan_out[2] = p.grid;
+    kernel<<<p.grid, kGcmThreads, p.smem,
+             static_cast<cudaStream_t>(cuda_stream)>>>(LJT_GCM_CAST_ARGS,
+                                                       stamps);
+  } else {
+    kernel<<<p.grid, kGcmThreads, p.smem,
+             static_cast<cudaStream_t>(cuda_stream)>>>(LJT_GCM_CAST_ARGS);
+  }
   return int(cudaGetLastError());
 }
 
@@ -259,4 +300,31 @@ extern "C" int ljt_srtp_gcm_open_cached(
                                 length, aad_len, nullptr, slot, ks_tab,
                                 ek_tab, n_slots, ks_bytes, out, mlen,
                                 auth_ok, n, width, 10, cuda_stream);
+}
+
+// The phase probe: M (open = 0) or N (open = 1) as `ljt_srtp_gcm_seal` /
+// `_open` launch them (planned for `per_sm` tiles an SM, or as they are
+// when 0), each tile writing its kPhaseSlots clock64 stamps to stamps
+// [n * kPhaseSlots] (tile i at i * kPhaseSlots) and the launch's plan
+// (rows a tile, dynamic shared memory bytes, tiles) to plan_out [3].
+extern "C" int ljt_srtp_gcm_phases(const void* tab_rk, const void* tab_gm,
+                                   const void* stream, int n_streams,
+                                   const void* data, const void* length,
+                                   const void* aad_len, const void* iv12,
+                                   void* out, void* out_len, void* auth_ok,
+                                   void* stamps, void* plan_out, int n,
+                                   int width, int open, int per_sm,
+                                   void* cuda_stream) {
+  if (iv12 == nullptr || stamps == nullptr || plan_out == nullptr)
+    return int(cudaErrorInvalidValue);
+  auto* st = static_cast<long long*>(stamps);
+  auto* po = static_cast<int*>(plan_out);
+  return open ? launch_gcm<true, false, true>(
+                    tab_rk, tab_gm, stream, n_streams, data, length, aad_len,
+                    iv12, nullptr, nullptr, nullptr, 0, 0, out, out_len,
+                    auth_ok, n, width, 10, cuda_stream, st, po, per_sm)
+              : launch_gcm<false, false, true>(
+                    tab_rk, tab_gm, stream, n_streams, data, length, aad_len,
+                    iv12, nullptr, nullptr, nullptr, 0, 0, out, out_len,
+                    nullptr, n, width, 10, cuda_stream, st, po, per_sm);
 }

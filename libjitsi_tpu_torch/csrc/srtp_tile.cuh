@@ -33,7 +33,11 @@
 //    hash (`srtp_fanout.cu`, `srtcp_cm.cu`).
 // Rows wider than a 32-row tile can hold get fewer rows per tile (at
 // least 3 at the wrappers' 32,768-byte limit), and a launch raises the
-// dynamic shared-memory limit where a tile needs more than 48 KB.
+// dynamic shared-memory limit where a tile needs more than 48 KB.  The
+// AEAD-GCM tiles (`gcm_tile.cuh`) take this set-up, carving and plan with
+// 256 threads a CTA and two tiles an SM, and put each row's staged GHASH
+// input before the tile and nine words a row after it (`plan`'s `extra`:
+// at least 2 rows a tile at 32,768 bytes for open, 3 for seal).
 //
 // A kernel says where its rows, keys and windows come from with a `Rows`
 // policy (see `load_tile`): the table row of a row's keys, the global

@@ -104,6 +104,8 @@ _SIGNATURES = {
                                  _P, _P, _P, _P, _I, _I, _P],
     "ljt_srtp_fanout_gcm": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P,
                             _P, _P, _I, _I, _I, _P],
+    "ljt_srtp_gcm_phases": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _I, _I, _I, _I, _P],
     "ljt_gcm_ks_fill": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ljt_mix_minus": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ljt_g711_encode": [_P, _P, _I, _I, _P],

@@ -8,8 +8,9 @@
 // reads it before writing shows up.  __syncthreads is a std::barrier over
 // the block's threads, cluster.sync() one over the cluster's,
 // map_shared_rank() points into a peer block's dynamic shared memory, and
-// a warp shuffle exchanges values through a per-warp buffer between two
-// barriers of the warp's threads, and so does a ballot (__ballot_sync);
+// a warp shuffle (__shfl_xor_sync, __shfl_sync from a source lane)
+// exchanges values through a per-warp buffer between two barriers of the
+// warp's threads, and so does a ballot (__ballot_sync);
 // the split cluster barrier
 // (__cluster_barrier_arrive / _wait) is arrive and wait on the cluster's,
 // and st.async pushes count bytes off an emulated mbarrier.
@@ -168,6 +169,25 @@ T __shfl_xor_sync(unsigned, T v, int lane_mask, int = 32) {
   emu_warp_barrier->arrive_and_wait();
   T r;
   std::memcpy(&r, &emu_warp_slots[lane ^ unsigned(lane_mask)], sizeof(T));
+  emu_warp_barrier->arrive_and_wait();
+  return r;
+}
+
+// Warp shuffle from a source lane: lane l gets the value of lane
+// src_lane mod width within its width-lane segment (every lane of the
+// warp takes part, as the kernels call it).
+template <class T>
+T __shfl_sync(unsigned, T v, int src_lane, int width = 32) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "shuffle of a wide type");
+  const unsigned lane = threadIdx.x % 32;
+  uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  emu_warp_slots[lane] = bits;
+  emu_warp_barrier->arrive_and_wait();
+  const unsigned w = unsigned(width);
+  const unsigned src = lane / w * w + unsigned(src_lane) % w;
+  T r;
+  std::memcpy(&r, &emu_warp_slots[src], sizeof(T));
   emu_warp_barrier->arrive_and_wait();
   return r;
 }

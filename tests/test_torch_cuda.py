@@ -841,10 +841,11 @@ def test_profile_tables_on_card_equal_cpu_sync_and_async(cuda_device,
 
 # ------------------------------------------------------- AEAD-GCM: M, N, O
 
-def _gcm_case(rng, n, width, s=7):
+def _gcm_case(rng, n, width, s=7, full=False):
     """Tables of s streams and n rows: AADs of 8, 12, 13, 28 and 60 bytes,
     ct_len 0 and one short of a block, lengths past the row and shorter
-    than the AAD, stream ids outside the table."""
+    than the AAD, stream ids outside the table; with `full`, every other
+    row fills the row with its tag (length width - 16)."""
     from libjitsi_tpu_torch.transform.srtp.context import ghash_tables
 
     rk = aes.expand_keys_batch(rng.integers(0, 256, (s, 16), np.uint8))
@@ -853,6 +854,8 @@ def _gcm_case(rng, n, width, s=7):
     aad = rng.choice([8, 12, 13, 28, 60], n).astype(np.int32)
     length = np.minimum(aad + rng.integers(0, width, n),
                         width - 16).astype(np.int32)
+    if full:
+        length[:] = width - 16
     for i, (a, c) in enumerate([(12, 0), (13, 15), (60, 1), (8, width),
                                 (12, -5)][:n]):
         aad[i], length[i] = a, a + c
@@ -862,13 +865,20 @@ def _gcm_case(rng, n, width, s=7):
     return rk, gm, stream, data, length, aad, iv12
 
 
-@pytest.mark.parametrize("n,width", [(1, 64), (4096, 1024), (300, 61),
-                                     (33, 8192)])
-def test_gcm_kernels_match_plain(cuda_device, n, width):
+@pytest.mark.parametrize("n,width,full", [
+    (1, 64, False), (4096, 1024, False), (300, 61, False), (33, 8192, False),
+    ("tiles_plus_one", 64, False), (1024, 1536, True)])
+def test_gcm_kernels_match_plain(cuda_device, n, width, full):
     """M and N against their plain versions (a tampered row beside genuine
-    ones), and the cached instances on the same rows."""
+    ones), and the cached instances on the same rows.  Beside ragged
+    counts: one row; every tile of the plan full (32 rows, two a
+    multiprocessor) and one row more; 1,024 rows that fill their width
+    (the mix batch's widest launch)."""
+    if n == "tiles_plus_one":
+        sms = torch.cuda.get_device_properties(cuda_device)
+        n = 32 * 2 * sms.multi_processor_count + 1
     rng = np.random.default_rng(n + width + 16)
-    case = _gcm_case(rng, n, width)
+    case = _gcm_case(rng, n, width, full=full)
     d = [torch.from_numpy(x).to(cuda_device) for x in case]
     before = dict(kbuild.launches)
     out, out_len = srtp_kernel.srtp_gcm_protect(*d)

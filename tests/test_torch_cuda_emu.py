@@ -335,8 +335,8 @@ def test_emulated_kernels_c_d_match_plain(emu, key_len, tag_len, width, n,
 def test_emulated_latency_probe_chains(emu):
     """The probe's chains compute what they claim: n SHA-1 compressions
     of each lane's state, n AES encryptions of each lane's pair of
-    blocks, AES-128 and AES-256, and n chained MACs of a 966-byte
-    message on 1 lane and on 32."""
+    blocks, AES-128 and AES-256, n chained MACs of a 966-byte message on
+    1 lane and on 32, and n GHASH Horner steps."""
     rng = np.random.default_rng(9)
     n = 3
     state = rng.integers(0, 2 ** 32, (32, 21), dtype=np.uint64).astype(
@@ -375,6 +375,18 @@ def test_emulated_latency_probe_chains(emu):
                     + word.to_bytes(4, "big"), hashlib.sha1).digest()[:4],
                     "big")
             assert digest[lane] == word
+    # n Horner steps of one GHASH block, read from shared memory a step
+    from libjitsi_tpu_torch.kernels import ghash
+
+    h, x = (rng.integers(0, 256, 16, np.uint8) for _ in range(2))
+    gm = _aligned(ghash.ghash_matrix_packed(h[None])[0].view(np.int32))
+    blk = _aligned(x.view(">u4").astype(np.uint32).view(np.int32))
+    y = _aligned(np.zeros(4, np.int32))
+    reps = 11
+    assert emu.ljt_probe_ghash_chain(_p(gm), _p(blk), _p(y), _p(cycles),
+                                     reps, None) == 0
+    assert (y.view(np.uint32).astype(">u4").tobytes()
+            == ghash.ghash_ref(bytes(h), bytes(x) * reps))
     assert emu.ljt_probe_empty(None) == 0
     assert emu.ljt_probe_cluster(2, None) == 0
     assert emu.ljt_probe_cluster(17, None) != 0
@@ -1042,13 +1054,26 @@ def _gcm_tables(rng, key_len, s=5):
 # AADs of 8, 12, 13, 28 and 60 bytes (SRTCP's 12; CSRC lists and header
 # extensions), ct_len 0 and one byte short of a block, lengths past the
 # row (cut at the width), lengths shorter than the AAD, stream ids outside
-# the table.  M and N size tiles for four a SM (one SM here: ceil(n / 4)
-# rows a tile, at most 32), so 37 rows are tiles of 10 and a last of 7,
-# and 130 rows four of 32 and one of 2.
-def _gcm_rows(rng, n, width, s):
+# the table; `ragged` rows alternate short and long ciphertexts (chains
+# of 2-3 and of 50-60 blocks in one tile at width 1024).  M and N size
+# tiles for two a SM (one SM here: ceil(n / 2) rows a tile, at most 32),
+# so 37 rows are tiles of 19 and 18 (8 warps: rows past the eighth are
+# handed out as warps come free), 130 rows four of 32 and one of 2, and
+# 11 rows tiles of 6 and 5.  A tile of at most 256 CTR entries (37 rows
+# at 208 bytes, 6 at 61, 1 at 96) leaves warps 4-7 no entry, so they hash
+# while warps 0-3 run CTR; one with more (9 at 1,536, 130 at 224, 11
+# ragged at 1,024) runs CTR on every warp first.
+def _gcm_tile_rows(n):
+    return min(-(-n // 2), 32)
+
+
+def _gcm_rows(rng, n, width, s, ragged=False):
     data = rng.integers(0, 256, (n, width), np.uint8)
     aad = rng.choice([8, 12, 13, 28, 60], n).astype(np.int32)
     ct = rng.integers(0, max(width - 76, 1), n)
+    if ragged:
+        ct = np.where(np.arange(n) % 2, rng.integers(0, 16, n),
+                      rng.integers(width - 220, width - 76, n))
     length = np.minimum(aad + ct, width - 16).astype(np.int32)
     edge = [(12, 0), (13, 15), (28, 16), (60, 1), (8, width), (12, -5)]
     for i, (a, c) in enumerate(edge[:n]):
@@ -1060,13 +1085,15 @@ def _gcm_rows(rng, n, width, s):
     return data, length, aad, stream, iv12
 
 
-@pytest.mark.parametrize("width,n", [
-    (96, 1), (208, 37), (61, 6), (1536, 9), (224, 130),
+@pytest.mark.parametrize("width,n,ragged", [
+    (96, 1, False), (208, 37, False), (61, 6, False), (1536, 9, False),
+    (224, 130, False), (1024, 11, True),
 ])
-def test_emulated_kernels_m_n_match_plain(emu, width, n):
+def test_emulated_kernels_m_n_match_plain(emu, width, n, ragged):
     rng = np.random.default_rng(7 * width + n + 16)
     rk, gm = _gcm_tables(rng, 16)
-    data, length, aad, stream, iv12 = _gcm_rows(rng, n, width, len(rk))
+    data, length, aad, stream, iv12 = _gcm_rows(rng, n, width, len(rk),
+                                                ragged)
     nr = rk.shape[1] - 1
     out = np.zeros((n, width), np.uint8)
     out_len = np.zeros(n, np.int32)
@@ -1077,9 +1104,10 @@ def test_emulated_kernels_m_n_match_plain(emu, width, n):
     want, want_len = srtp_kernel.srtp_gcm_protect_plain(*args)
     assert np.array_equal(out, want.numpy())
     assert np.array_equal(out_len, want_len.numpy())
-    # open the sealed rows, one tampered beside genuine ones in its tile
+    # open the sealed rows, the tag of the middle row of the first tile
+    # tampered beside genuine ones
     sealed, slen = out.copy(), np.minimum(out_len, width).astype(np.int32)
-    bad = n // 2
+    bad = _gcm_tile_rows(n) // 2
     sealed[bad, min(int(slen[bad]), width) - 1] ^= 0x40
     dec = np.zeros((n, width), np.uint8)
     mlen = np.zeros(n, np.int32)
@@ -1101,15 +1129,65 @@ def test_emulated_kernels_m_n_match_plain(emu, width, n):
         assert np.array_equal(dec[i, :length[i]], data[i, :length[i]])
 
 
-@pytest.mark.parametrize("n,ks_bytes,width", [(1, 64, 96), (37, 64, 208),
-                                             (130, 256, 224)])
-def test_emulated_cached_instances_match_plain(emu, n, ks_bytes, width):
+@pytest.mark.parametrize("open_", [0, 1])
+def test_emulated_gcm_phase_probe(emu, open_):
+    """The phase probe (`ljt_srtp_gcm_phases`) runs M's or N's tile as
+    they run, with each tile's clock64 stamps in order and its plan."""
+    rng = np.random.default_rng(41 + open_)
+    n, width = 37, 208
+    rk, gm = _gcm_tables(rng, 16)
+    data, length, aad, stream, iv12 = _gcm_rows(rng, n, width, len(rk))
+    args = (T(rk), T(gm), T(stream), T(data), T(length), T(aad), T(iv12))
+    if open_:
+        sealed, slen = srtp_kernel.srtp_gcm_protect_plain(*args)
+        data = sealed.numpy().copy()
+        length = np.minimum(slen.numpy(), width).astype(np.int32)
+        want = srtp_kernel.srtp_gcm_unprotect_plain(
+            *args[:3], T(data), T(length), T(aad), T(iv12))
+    else:
+        want = srtp_kernel.srtp_gcm_protect_plain(*args)
+    out = np.zeros((n, width), np.uint8)
+    out_len = np.zeros(n, np.int32)
+    ok = np.zeros(n, np.bool_)
+    stamps = np.zeros((n, 40), np.int64)
+    plan = np.zeros(3, np.int32)
+    assert emu.ljt_srtp_gcm_phases(
+        _p(rk), _p(gm), _p(stream), len(rk), _p(data), _p(length), _p(aad),
+        _p(iv12), _p(out), _p(out_len), _p(ok), _p(stamps), _p(plan), n,
+        width, open_, 0, None) == 0
+    assert np.array_equal(out, want[0].numpy())
+    assert np.array_equal(out_len, want[1].numpy())
+    if open_:
+        assert np.array_equal(ok, want[2].numpy())
+    rows, tiles = int(plan[0]), int(plan[2])
+    assert tiles == -(-n // rows) and not stamps[tiles:].any()
+    st = stamps[:tiles]
+    # start, set-up, join, stored in order; no keystream barrier (the hash
+    # overlaps the keystream); every warp's hash inside the tile's start ..
+    # join (a warp's stamps after the set-up barrier and thread 0's come in
+    # no fixed order)
+    assert (st[:, 0] > 0).all() and not st[:, 2].any()
+    assert list(st[:, 5]) == [min(rows, n - rows * i) for i in range(tiles)]
+    warps = st[:, 8:].reshape(tiles, 8, 4)
+    hashed = warps[:, :, 2] != 0
+    assert hashed.any(axis=1).all()
+    assert (warps[:, :, 2] <= warps[:, :, 3])[hashed].all()
+    assert (np.diff(st[:, [0, 1, 3, 4]], axis=1) >= 0).all()
+    assert (warps[:, :, 2] >= st[:, 0:1])[hashed].all()
+    assert (warps[:, :, 3] <= st[:, 3:4])[hashed].all()
+
+
+@pytest.mark.parametrize("n,ks_bytes,width,ragged", [
+    (1, 64, 96, False), (37, 64, 208, False), (130, 256, 224, False),
+    (11, 256, 1024, True)])
+def test_emulated_cached_instances_match_plain(emu, n, ks_bytes, width,
+                                               ragged):
     """M's and N's cached instances: slots clamped into the tables (ids
     past both ends), ciphertexts past the slot's bytes (XOR nothing
     there), and the same AAD and edge rows as M and N."""
     rng = np.random.default_rng(n + ks_bytes)
     rk, gm = _gcm_tables(rng, 16)
-    data, length, aad, stream, _ = _gcm_rows(rng, n, width, len(rk))
+    data, length, aad, stream, _ = _gcm_rows(rng, n, width, len(rk), ragged)
     n_slots = 40
     ks = _aligned(rng.integers(0, 256, (n_slots, ks_bytes), np.uint8))
     ek = _aligned(rng.integers(0, 256, (n_slots, 16), np.uint8))
@@ -1129,6 +1207,9 @@ def test_emulated_cached_instances_match_plain(emu, n, ks_bytes, width):
     assert np.array_equal(out_len, want_len.numpy())
     sealed, slen = out.copy(), np.minimum(out_len, width).astype(np.int32)
     sealed[n // 2, 0] ^= 1                        # a tampered AAD byte
+    mid = _gcm_tile_rows(n) // 2                  # and a tampered tag
+    if mid != n // 2:
+        sealed[mid, slen[mid] - 1] ^= 0x08
     dec = np.zeros((n, width), np.uint8)
     mlen = np.zeros(n, np.int32)
     ok = np.zeros(n, np.bool_)
@@ -1140,7 +1221,7 @@ def test_emulated_cached_instances_match_plain(emu, n, ks_bytes, width):
     assert np.array_equal(dec, w_dec.numpy())
     assert np.array_equal(mlen, w_mlen.numpy())
     assert np.array_equal(ok, w_ok.numpy())
-    assert not ok[n // 2]
+    assert not ok[n // 2] and not ok[mid]
 
 
 def test_emulated_gcm_counter_add_is_inc32(emu):

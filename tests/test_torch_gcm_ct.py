@@ -10,12 +10,15 @@ array and a state-indexed read, so the guard fails if `ghash.cuh`
 declares any array, any `__shared__` / `__constant__` / `static` /
 `__device__` variable or an initialiser list, takes a pointer other
 than the matrix, holds any branch or loop (`if`, `for`, `while`, `?`,
-`switch`, `&&`, `||`), or takes a subscript by anything but the lane.
+`switch`, `&&`, `||`), takes a subscript by anything but the lane, or
+shuffles from a lane named by anything but the lane.
 The GCM kernels (`gcm_tile.cuh`, `srtp_gcm.cu`, `gcm_fill.cu` and H's
 GCM instance in `srtp_fanout.cu`) may branch and index on lengths,
-offsets, slots, rows and lanes, which are public, but no subscript and
-no condition there names a value of the state, the key, H or the data.
-Planted Shoup-table lookups are refused.  On the card, `chip_smoke.py`'s
+offsets, slots, rows, lanes and counts, which are public, but no
+subscript (the staged GHASH input's block included), no condition and no
+warp shuffle's source lane there names a value of the state, the key, H
+or the data.  Planted Shoup-table lookups and shuffles indexed by a
+secret are refused.  On the card, `chip_smoke.py`'s
 `sass` phase checks the built kernels for indexed constant loads,
 local memory at a computed address and memory loads inside the GHASH
 chain.
@@ -104,6 +107,45 @@ def _secret_faults(code: str):
     return faults
 
 
+def _call_args(code: str, fn: str):
+    """The argument list of every call of `fn` in `code`, split at its
+    top-level commas."""
+    out = []
+    for m in re.finditer(r"\b" + fn + r"\s*\(", code):
+        depth, i, args, start = 1, m.end(), [], m.end()
+        while depth:
+            ch = code[i]
+            if ch in "([{":
+                depth += 1
+            elif ch in ")]}":
+                depth -= 1
+            elif ch == "," and depth == 1:
+                args.append(code[start:i])
+                start = i + 1
+            i += 1
+        args.append(code[start:i - 1])
+        out.append([a.strip() for a in args])
+    return out
+
+
+def _shuffle_faults(code: str, allowed=None):
+    """Warp shuffles whose source lane (or lane mask, or delta: the third
+    argument) names a value of the state, the key, H or the data, or,
+    given `allowed`, any name outside it: a shuffle indexed by a secret
+    is a lookup into the warp's registers."""
+    faults = []
+    for fn in ("__shfl_sync", "__shfl_up_sync", "__shfl_down_sync",
+               "__shfl_xor_sync"):
+        for args in _call_args(code, fn):
+            names = set(re.findall(r"(?<![.\w])[A-Za-z_]\w*",
+                                   args[2] if len(args) > 2 else ""))
+            bad = names & SECRET if allowed is None else names - allowed
+            if len(args) < 3 or bad:
+                faults.append(f"{fn}({', '.join(args)}) names "
+                              f"{sorted(bad) or 'no lane'}")
+    return faults
+
+
 def _fanout_gcm_code() -> str:
     """H's GCM instance in srtp_fanout.cu: its row policy and kernel."""
     code = _code(os.path.join(kbuild.CSRC_DIR, "srtp_fanout.cu"))
@@ -114,7 +156,9 @@ def _fanout_gcm_code() -> str:
 
 
 def test_ghash_core_is_table_free_and_branch_free():
-    assert _ghash_faults(_code(GHASH_CUH)) == []
+    code = _code(GHASH_CUH)
+    assert _ghash_faults(code) == []
+    assert _shuffle_faults(code, allowed=GHASH_INDEX) == []
 
 
 @pytest.mark.parametrize("name", GCM_SOURCES)
@@ -122,12 +166,14 @@ def test_gcm_kernels_index_and_branch_on_public_values_only(name):
     code = _code(os.path.join(kbuild.CSRC_DIR, name))
     assert _subscripts(code) and _conditions(code), "the parser broke"
     assert _secret_faults(code) == []
+    assert _shuffle_faults(code) == []
 
 
 def test_fanout_gcm_instance_indexes_and_branches_on_public_values_only():
     code = _fanout_gcm_code()
     assert "gcm_tile<NR, false, false>" in code.replace("ljt_gcm::", "")
     assert _secret_faults(code) == []
+    assert _shuffle_faults(code) == []
 
 
 # Shoup-style lookups and tables the guard must refuse, each planted into
@@ -176,3 +222,42 @@ PLANTED_TILE = [
 def test_gcm_guard_refuses_a_planted_lookup(line):
     code = _code(os.path.join(kbuild.CSRC_DIR, "gcm_tile.cuh"))
     assert _secret_faults(code + "\n" + line + "\n")
+
+
+# shuffles and staged-input reads the guard must refuse, planted into the
+# GCM tile: a block broadcast from a lane named by a state word, by a
+# data word and by the tag, a butterfly by a matrix word, and the staged
+# GHASH input read at a block named by the state
+PLANTED_SHUFFLE = [
+    "__device__ uint32_t ljt_leak(uint32_t x, uint4 ghy)"
+    " { return __shfl_sync(0xFFFFFFFFu, x, ghy.x & 31); }",
+    "__device__ uint32_t ljt_leak(uint32_t x, uint32_t v)"
+    " { return __shfl_sync(0xFFFFFFFFu, x, int(v >> 27), 32); }",
+    "__device__ uint32_t ljt_leak(uint32_t x, uint32_t tagb)"
+    " { return __shfl_down_sync(0xFFFFFFFFu, x, tagb & 7); }",
+    "__device__ uint32_t ljt_leak(uint32_t x, uint4 ghm)"
+    " { return __shfl_xor_sync(0xFFFFFFFFu, x, ghm.y & 16); }",
+]
+
+
+@pytest.mark.parametrize("line", PLANTED_SHUFFLE)
+def test_gcm_guard_refuses_a_planted_shuffle(line):
+    code = _code(os.path.join(kbuild.CSRC_DIR, "gcm_tile.cuh"))
+    assert _shuffle_faults(code + "\n" + line + "\n")
+    # in ghash.cuh a shuffle may name the lane alone
+    ghash = _code(GHASH_CUH)
+    assert _shuffle_faults(ghash + "\n" + line + "\n",
+                           allowed=GHASH_INDEX)
+
+
+def test_gcm_guard_refuses_a_staged_input_read_by_the_state():
+    code = _code(os.path.join(kbuild.CSRC_DIR, "gcm_tile.cuh"))
+    line = ("__device__ uint4 ljt_leak(const uint4* gs, uint4 ghy)"
+            " { return gs[ghy.w & 7]; }")
+    assert _secret_faults(code + "\n" + line + "\n")
+    # a shuffle by the lane alone passes both checks
+    fine = ("__device__ uint32_t ljt_ok(uint32_t x, int lane)"
+            " { return __shfl_sync(0xFFFFFFFFu, x, lane & 3); }")
+    assert not _shuffle_faults(code + "\n" + fine + "\n")
+    assert not _shuffle_faults(_code(GHASH_CUH) + "\n" + fine + "\n",
+                               allowed=GHASH_INDEX)
