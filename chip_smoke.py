@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py        (from the repository root; one card)
     python3 chip_smoke.py --parent ROOT
-                                 (also times the GCM kernels of the
-                                  checkout at ROOT against this tree's)
+                                 (also times the GCM kernels, O and H-F8
+                                  of the checkout at ROOT against this
+                                  tree's)
 
 Builds the port's CUDA kernels from `libjitsi_tpu_torch/csrc/`, checks
 them on known answers and exactly against their plain PyTorch versions
@@ -89,7 +90,8 @@ unless kernel A, the AES core alone, holds no shared memory and issues
 no shared-memory load and no constant load at a register-held address
 (the core is gather-free: `libjitsi_tpu_torch/csrc/aes.cuh`), kernel G
 holds no shared memory and issues no shared-memory load (no table), and
-kernel B spills nothing; `latency_floor` gives the cycles one SHA-1
+kernel B and H's F8 instance at AES-128 spill nothing; `latency_floor`
+gives the cycles one SHA-1
 compression and one pair of AES-128 and of AES-256 blocks take on a
 lane that waits on each (the floors of the tile kernels' lanes), one
 row's whole MAC on such a lane (kernel B's chain floor at its longest
@@ -108,11 +110,22 @@ stamps (a probe build, `ljt_srtp_gcm_phases`; the shipped kernels carry
 no stamp) at the mix batch's three launches and the SRTCP launch, and
 prints each launch's split: set-up, keystream, hash (its working warps'
 busy cycles apart from the cycles warps wait at the join), store;
-`gcm_plans` times the same tile planned for 1-4 tiles an SM.  With
-`--parent ROOT`, the kernels of the checkout at ROOT (built by its own
-sources) are timed against this tree's at every GCM shape in turns
-(parent, this, this, parent: `gcm_turns`), and its phase split is
-printed too where it has the probe.
+`gcm_plans` times the same tile planned for 1-4 tiles an SM.
+`fill_phases` runs kernel O's tiles with clock64 stamps (a probe build,
+`ljt_gcm_ks_fill_phases`) at the fill's 65,536 slots: set-up (its loads
+and run vote, its round keys), the AES passes, the tiles an SM ran and
+at once, a second wave's share; O's `kernel_vs_plain` line also gives
+its core floor (`core_floor_ms`: this run's AES pairs at the INT32-pipe
+instructions a pair the shipped O's SASS holds, the `sass` line's
+`gcm_ks_fill_core`).  `f8_fanout_phases` does the same for H's F8
+instance (`ljt_srtp_fanout_f8_phases`) at 275 x 10 and 1,100 x 10:
+set-up, IV', the chains, the hash's lag behind them, the store, and the
+SM sub-partition (`%warpid` mod 4) of each chain and hashing warp.
+With `--parent ROOT`, the kernels of the checkout at ROOT (built by its
+own sources) are timed against this tree's in turns (parent, this,
+this, parent): every GCM shape (`gcm_turns`), O at the fill's shape
+(`fill_turns`) and H-F8 at both SFU shapes (`f8_turns`), and the
+parent's phase splits are printed too where it has the probes.
 
 Every phase prints one JSON line; the card's `nvidia-smi` name and power
 limit come before the last line, and the last line is
@@ -391,7 +404,8 @@ def main(argv=None) -> int:
                                  "media paths on one NVIDIA GPU.")
     ap.add_argument("--parent", metavar="ROOT",
                     help="another checkout (the parent commit) whose GCM "
-                         "kernels are timed against this tree's in turns")
+                         "kernels, O and H-F8 are timed against this "
+                         "tree's in turns")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -412,17 +426,18 @@ def main(argv=None) -> int:
 
     known_answers(torch, dev)
     gcm_known_answers(torch, dev)
-    sass_counts(kbuild)
+    fill_core = sass_counts(kbuild)
     floor_ms, b_chain_ms, chain = latency_floor(torch, dev, kbuild)
+    parent_lib = parent_library(opts.parent) if opts.parent else None
     rows = kernels_vs_plain(torch, dev, kbuild, floor_ms, b_chain_ms)
     rows.update(mix_kernel(torch, dev, floor_ms))
     rows.update(g711_kernels(torch, dev, floor_ms))
     rows.update(sfu_kernels(torch, dev, floor_ms))
     rows.update(profile_kernels(torch, dev, floor_ms, chain))
-    rows.update(sfu_profile_kernels(torch, dev, floor_ms, chain))
-    rows.update(gcm_kernels(torch, dev, floor_ms, chain,
-                            parent_library(opts.parent) if opts.parent
-                            else None))
+    rows.update(sfu_profile_kernels(torch, dev, floor_ms, chain, parent_lib))
+    rows.update(gcm_kernels(torch, dev, floor_ms, chain, parent_lib))
+    rows.update(fill_kernel(torch, dev, floor_ms, chain, fill_core,
+                            parent_lib))
     rows.update(resample_kernels(torch, dev, floor_ms))
 
     counts = {}
@@ -708,7 +723,7 @@ def known_answers(torch, dev) -> None:
          rfc2202=len(rfc_ok), stdlib_hmac_rows=len(std_ok))
 
 
-def sass_counts(kbuild) -> None:
+def sass_counts(kbuild) -> dict:
     """Static count of the INT32-pipe instructions the bounds count
     (LOP3, SHF, PRMT) in each built kernel, read with `cuobjdump -sass`,
     and each kernel's registers, stack, spill bytes and static shared
@@ -721,7 +736,9 @@ def sass_counts(kbuild) -> None:
     core with its round keys sliced in shared memory, as the tile
     kernels keep them: its loads must be those keys' alone, 2 LDS.128 (8
     words) a round and no indexed constant load; the tile kernels issue
-    no indexed constant load either."""
+    no indexed constant load either.  Returns kernel O's INT32-pipe
+    instructions a pair of blocks (`_pair_int32`), from which its core
+    floor is reckoned."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", kbuild.build()], check=True,
                           capture_output=True, text=True,
@@ -794,9 +811,10 @@ def sass_counts(kbuild) -> None:
         require(k in ptxas, f"no ptxas report for {k}: {sorted(ptxas)}")
     # kernel B hashes from its staged rows with nothing spilled; kernel G
     # expands each code in registers: no shared memory, no LDS
-    require(ptxas["hmac_sha1"].get("spill_store_bytes", 0) == 0
-            and ptxas["hmac_sha1"].get("spill_load_bytes", 0) == 0,
-            f"kernel B spills: {ptxas['hmac_sha1']}")
+    for k in ("hmac_sha1", "srtp_fanout_f8 nr=10"):
+        require(ptxas[k].get("spill_store_bytes", 0) == 0
+                and ptxas[k].get("spill_load_bytes", 0) == 0,
+                f"{k} spills: {ptxas[k]}")
     # kernel B stages its tile, then hashes: the tightest loop around its
     # shared-memory loads (the hash chain over a row's blocks) holds no
     # global load
@@ -831,6 +849,7 @@ def sass_counts(kbuild) -> None:
     require(all(v == 0 for v in ldc.values()),
             f"indexed constant loads: {ldc}")
     gcm = _gcm_sass(code, ptxas)
+    fill_core = _pair_int32(code["gcm_ks_fill nr=10"], 10)
     # the AES core's round loop, once a round: in the chain probe the
     # core as the tiles run it (its key words loaded from shared memory),
     # in kernel A with both blocks' keys sliced in the loop (the four
@@ -845,11 +864,36 @@ def sass_counts(kbuild) -> None:
                                    for law in (0, 1)},
          hmac_sha1_loads=dict(global_loads=len(b_ldg),
                               shared_loads=len(b_lds), hash_loop=chain),
-         gcm=gcm,
+         gcm=gcm, gcm_ks_fill_core=fill_core,
          bound_per_unit={"sha1_compression": SHA1_BLOCK_OPS,
                          "aes_block nr=10": aes_block_ops(10),
                          "aes_block nr=14": aes_block_ops(14),
                          "ghash_block": GHASH_BLOCK_OPS})
+    return fill_core
+
+
+def _pair_int32(code, nr: int) -> dict:
+    """INT32-pipe instructions (LOP3, SHF, PRMT) a pair of blocks costs in
+    a kernel that runs one AES pair an iteration of a loop around the
+    core's round loop (kernel O): the round loop's (the shortest loop
+    with 100 or more of them: one round an iteration, nr - 1 iterations a
+    pair) and the rest of the loop around it (the first and last rounds,
+    packing, the counter blocks, the stores)."""
+    def int32(lo, hi, skip=None):
+        return sum(op in ("LOP3", "SHF", "PRMT") for a, op, _ in code
+                   if lo <= a <= hi and not (skip and skip[0] <= a <= skip[1]))
+
+    spans = _loop_spans(code)
+    rounds = min((sp for sp in spans if int32(sp[1], sp[2]) >= 100),
+                 default=None)
+    require(rounds is not None, "no AES round loop in O's SASS")
+    outer = min((sp for sp in spans if sp[1] <= rounds[1] and
+                 rounds[2] <= sp[2] and sp != rounds), default=None)
+    require(outer is not None, "no loop around O's round loop")
+    per_round = int32(rounds[1], rounds[2])
+    rest = int32(outer[1], outer[2], rounds[1:])
+    return dict(round_loop_int32=per_round, pair_loop_rest_int32=rest,
+                int32_per_pair=per_round * (nr - 1) + rest)
 
 
 def _loop_spans(code) -> list:
@@ -2587,7 +2631,8 @@ def sfu_kernels(torch, dev, floor_ms: float) -> dict:
     return rows
 
 
-def sfu_profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
+def sfu_profile_kernels(torch, dev, floor_ms: float, chain: dict,
+                        parent_lib=None) -> dict:
     """Kernel H's NULL and AES-F8 instances against their plain versions
     at the sfu_profiles path's launch (one burst: 275 packets x 10 legs,
     80-180-byte packets with a 20-byte header) and at the whole tick's
@@ -2597,8 +2642,13 @@ def sfu_profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
     keystream blocks and IV') at `latency_floor`'s AES-128 pair cycles
     and clock, and under NULL the longest copy's MAC on a hashing lane
     (`mac_floor_ms`).  The `kernels` line takes the burst's lines.  No
-    PyTorch call computes F8 or a NULL-cipher SRTP packet."""
+    PyTorch call computes F8 or a NULL-cipher SRTP packet.  H-F8 is also
+    held against its plain version under AES-256 keys at both shapes, its
+    phase split printed (`f8_fanout_phases`, and the parent's where it
+    has the probe) and, with a parent, timed against the parent's in
+    turns (`f8_turns`)."""
     from libjitsi_tpu_torch.kernels import aes
+    from libjitsi_tpu_torch.kernels import build as kbuild
     from libjitsi_tpu_torch.transform.srtp import kernel as sk
 
     rng = np.random.default_rng(59)
@@ -2607,6 +2657,11 @@ def sfu_profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
     pair_ms = chain["aes_pair_cycles"]["aes128"] / (chain["mhz"] * 1e3)
     tab_f8 = torch.as_tensor(aes.expand_keys_batch(
         rng.integers(0, 256, (SFU_N, 16), np.uint8))).to(dev)
+    # AES-256 legs: both schedules of 15 rounds, for the equality checks
+    rk256, f8_256 = (torch.as_tensor(aes.expand_keys_batch(
+        rng.integers(0, 256, (SFU_N, 32), np.uint8))).to(dev)
+        for _ in range(2))
+    phase_cases, turn_specs = [], []
     for label, p in ((f"{burst}x10 len 80-180 (one SFU burst)", burst),
                      ("1100x10 len 80-180 (the SFU tick)", SFU_N)):
         legs = SFU_SIZE - 1
@@ -2656,6 +2711,28 @@ def sfu_profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
             emit("kernel_vs_plain", **line)
             if p == burst and cipher != "cm":
                 rows[name] = line
+        a256 = [rk256, *args[1:]]
+        require(max_abs_err(
+            torch, sk.srtp_fanout_protect(*a256, TAG, "f8", f8_256, iv),
+            sk.srtp_fanout_protect_plain(*a256, TAG, "f8", f8_256, iv)) == 0,
+            f"srtp_fanout_f8 {label} differs from its plain version under "
+            f"AES-256")
+        want = sk.srtp_fanout_protect_plain(*args, TAG, "f8", tab_f8, iv)
+        phase_cases.append((label, args, tab_f8, iv, want))
+        out = torch.empty((n, 192), dtype=torch.uint8, device=dev)
+        out_len = torch.empty((n,), dtype=torch.int32, device=dev)
+        ptr = [x.data_ptr() for x in args]
+        turn_specs.append((label, (out, out_len, args, iv), (
+            "srtp_fanout_f8", (ptr[0], tab_f8.data_ptr(), ptr[1], SFU_N,
+                               ptr[3], ptr[4], ptr[5], iv.data_ptr(), ptr[7],
+                               p, ptr[8], ptr[9], out.data_ptr(),
+                               out_len.data_ptr(), n, 192, 10, TAG,
+                               kbuild.stream_handle(dev)))))
+    f8_fanout_phases(torch, dev, kbuild.library(), phase_cases, "this tree")
+    if parent_lib is not None:
+        if hasattr(parent_lib, "ljt_srtp_fanout_f8_phases"):
+            f8_fanout_phases(torch, dev, parent_lib, phase_cases, "parent")
+        kernel_turns(torch, dev, parent_lib, turn_specs, "f8_turns")
     return rows
 
 
@@ -3948,7 +4025,7 @@ def gcm_plans(torch, dev, lib, launches) -> None:
 def parent_library(root: str):
     """The kernel library of the tree at `root` (built by that tree's own
     `kernels.build`, in a subprocess run from `root`), loaded beside this
-    tree's, with the GCM entries' argument types."""
+    tree's, with the argument types of every entry it has."""
     import ctypes
 
     from libjitsi_tpu_torch.kernels import build as kbuild
@@ -3960,7 +4037,7 @@ def parent_library(root: str):
         timeout=900).stdout.strip().splitlines()[-1]
     lib = ctypes.CDLL(so)
     for name, args in kbuild._SIGNATURES.items():
-        if "gcm" in name and hasattr(lib, name):
+        if hasattr(lib, name):
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -3986,11 +4063,12 @@ def _recorded_launch(fn):
     return out, seen[0]
 
 
-def gcm_turns(torch, dev, parent_lib, specs) -> None:
-    """The parent's GCM kernels against this tree's on the same launches,
-    in turns (parent, this, this, parent), each turn the profiler's mean
+def kernel_turns(torch, dev, parent_lib, specs, line: str) -> None:
+    """The parent's kernels against this tree's on the same launches, in
+    turns (parent, this, this, parent), each turn the profiler's mean
     kernel duration over 50 launches; `specs` are (label, outputs, (entry,
-    args)) from `_recorded_launch`.  Prints a `gcm_turns` line: each
+    args)): the C entry (without `ljt_`) and its arguments, which stay
+    valid while the outputs live.  Prints a line named `line`: each
     side's mean, its two turns' spread and the ratio."""
     from libjitsi_tpu_torch.kernels import build as kbuild
 
@@ -4007,8 +4085,7 @@ def gcm_turns(torch, dev, parent_lib, specs) -> None:
             turns_ms=t, parent_ms=parent, new_ms=new,
             parent_spread_ms=abs(t[0] - t[3]), new_spread_ms=abs(t[1] - t[2]),
             new_over_parent=new / parent)
-    emit("gcm_turns", order="parent, this tree, this tree, parent",
-         launches=out)
+    emit(line, order="parent, this tree, this tree, parent", launches=out)
 
 
 def gcm_kernels(torch, dev, floor_ms: float, chain: dict,
@@ -4019,12 +4096,12 @@ def gcm_kernels(torch, dev, floor_ms: float, chain: dict,
     60-200 bytes in 1,504-byte rows, AAD 12); their cached instances at
     4,096 audio rows (60-160-byte payloads) on slots of 256 bytes; H's
     GCM instance at 275 x 10, 1,100 x 10 and 128 x 512 copies, the
-    shapes of H's rows; O at 65,536 slots of 256 bytes.  Each exact, with
+    shapes of H's rows (O: `fill_kernel`).  Each exact, with
     its bound (`GHASH_BLOCK_OPS` a GHASH block beside the AES count), its
     GCM chain floor and ptxas registers and spills.  No PyTorch call
     computes GCM, so none has a library time.  The `kernels` line takes
     the batch's sums for M and N, the audio rows for the cached
-    instances, one burst for H-GCM and the 65,536 slots for O."""
+    instances and one burst for H-GCM."""
     from libjitsi_tpu_torch.kernels import aes, gcm
     from libjitsi_tpu_torch.transform.srtp import kernel as sk
     from libjitsi_tpu_torch.transform.srtp.context import ghash_tables
@@ -4048,8 +4125,7 @@ def gcm_kernels(torch, dev, floor_ms: float, chain: dict,
             torch, fn, name + "_kernel", plain), nbytes, ops, floor_ms,
             chain_ms)
         key = name + (" nr=10" if name in ("srtp_gcm_seal", "srtp_gcm_open",
-                                            "srtp_fanout_gcm", "gcm_ks_fill")
-                      else "")
+                                            "srtp_fanout_gcm") else "")
         line["ptxas"] = ptxas.get(key, {})
         emit("kernel_vs_plain", **line)
         return line
@@ -4187,31 +4263,278 @@ def gcm_kernels(torch, dev, floor_ms: float, chain: dict,
         if p == burst:
             rows["srtp_fanout_gcm"] = line
     if parent_lib is not None:
-        gcm_turns(torch, dev, parent_lib, specs)
-    # O: a first fill of 1,024 rows x 64 slots of 256 bytes
-    n, ks_bytes = GCM_FILL_SLOTS, 256
+        kernel_turns(torch, dev, parent_lib, specs, "gcm_turns")
+    return rows
+
+
+def fill_kernel(torch, dev, floor_ms: float, chain: dict, fill_core: dict,
+                parent_lib=None) -> dict:
+    """Kernel O against its plain version at a first fill of 1,024 rows x
+    64 slots of 256 bytes (65,536 slots, the window's runs of one stream
+    each, written to slots in random order), with its bound (the T-table
+    AES count), its chain floor (launch + the AES pairs of one slot on a
+    lane), its core floor (`core_floor_ms`: the pairs of this run at the
+    INT32-pipe instructions a pair the shipped O's SASS holds,
+    `fill_core`, over the INT32 rate) and ptxas registers and spills;
+    then its phase split (`fill_phases`, and the parent's where it has
+    the probe) and, with a parent, O's turns (`fill_turns`).  No PyTorch
+    call computes AES, so none has a library time."""
+    from libjitsi_tpu_torch.kernels import aes, gcm
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    rng = np.random.default_rng(67)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+
+    n, ks_bytes, win = GCM_FILL_SLOTS, GCM_CACHE["ks_bytes"], \
+        GCM_CACHE["window"]
+    tab_rk = t(aes.expand_keys_batch(rng.integers(0, 256, (N_STREAMS, 16),
+                                                  np.uint8)))
     ks_tab = torch.zeros((n + 1, ks_bytes), dtype=torch.uint8, device=dev)
     ek_tab = torch.zeros((n + 1, 16), dtype=torch.uint8, device=dev)
     ks2, ek2 = ks_tab.clone(), ek_tab.clone()
-    win = GCM_CACHE["window"]
     fa = [tab_rk, t(np.repeat(rng.permutation(N_STREAMS)[:n // win], win)
                     .astype(np.int32)),
           t(rng.integers(0, 256, (n, 12), np.uint8)),
           t(rng.permutation(n).astype(np.int32))]
     gcm.gcm_ks_fill(ks_tab, ek_tab, *fa)
     gcm.gcm_ks_fill_plain(ks2, ek2, *fa)
-    check("gcm_ks_fill", (ks_tab, ek_tab), (ks2, ek2), "65,536 slots")
+    require(max_abs_err(torch, (ks_tab, ek_tab), (ks2, ek2)) == 0,
+            "gcm_ks_fill differs from its plain version at 65,536 slots")
     blocks = ks_bytes // 16 + 1
-    rows["gcm_ks_fill"] = line_of(
-        "gcm_ks_fill", f"{n} slots x {ks_bytes} bytes (a first fill of "
-                       f"1,024 rows x 64)",
-        lambda: gcm.gcm_ks_fill(ks_tab, ek_tab, *fa),
-        lambda: gcm.gcm_ks_fill_plain(ks2, ek2, *fa),
+    pairs = (n * blocks + 1) // 2
+    label = f"{n} slots x {ks_bytes} bytes (a first fill of 1,024 rows x {win})"
+    line = _profile_line(
+        "gcm_ks_fill", label, _crypto_times(
+            torch, lambda: gcm.gcm_ks_fill(ks_tab, ek_tab, *fa),
+            "gcm_ks_fill_kernel",
+            lambda: gcm.gcm_ks_fill_plain(ks2, ek2, *fa)),
         n * (ks_bytes + 16) + n * (4 + 12 + 4) + (n // win) * 176,
-        n * blocks * aes_block_ops(10),
+        n * blocks * aes_block_ops(10), floor_ms,
         floor_ms + (blocks + 1) // 2 * chain["aes_pair_cycles"]["aes128"]
         / (chain["mhz"] * 1e3))
-    return rows
+    line["ptxas"] = ptxas_usage(kbuild).get("gcm_ks_fill nr=10", {})
+    line["core"] = dict(fill_core, pairs=pairs)
+    line["core_floor_ms"] = pairs * fill_core["int32_per_pair"] \
+        / INT32_OPS_PER_S * 1e3
+    emit("kernel_vs_plain", **line)
+    args = [tab_rk, tab_rk.shape[0], *fa[1:], n + 1, ks_bytes]
+    fill_phases(torch, dev, kbuild.library(), args, (ks2, ek2), label,
+                "this tree")
+    if parent_lib is not None:
+        if hasattr(parent_lib, "ljt_gcm_ks_fill_phases"):
+            fill_phases(torch, dev, parent_lib, args, (ks2, ek2), label,
+                        "parent")
+        kernel_turns(torch, dev, parent_lib, [(label, (ks_tab, ek_tab), (
+            "gcm_ks_fill", (tab_rk.data_ptr(), tab_rk.shape[0],
+                            fa[1].data_ptr(), fa[2].data_ptr(),
+                            fa[3].data_ptr(), ks_tab.data_ptr(),
+                            ek_tab.data_ptr(), n, n + 1, ks_bytes, 10,
+                            kbuild.stream_handle(dev))))], "fill_turns")
+    return {"gcm_ks_fill": line}
+
+
+FILL_PHASE_SLOTS = 24      # `gcm_fill.cu` kFillPhaseSlots
+
+
+def _fill_split(stamps: np.ndarray, plan) -> dict:
+    """Kernel O's split from its phase probe's stamps ([tiles, 24] clock64
+    words, `gcm_fill.cu`, four warps a tile): medians over the tiles of
+    set-up (the tile's
+    start to its set-up barrier), the AES passes with their stores (to
+    the barrier after them), a warp's first pass, and the cycles the
+    tile's barrier waits after its first warp's last pass; the tile
+    (median and slowest); the schedules a tile sliced; the tiles an SM
+    ran, how many ran on it at once at most, and the share of tiles that
+    started after the first tile on their SM had ended (a second wave);
+    the spread of the tiles' starts (global timer, ns); and the tiles a
+    CTA took."""
+    tiles = int(plan[3])
+    s = stamps[:tiles].astype(np.int64)
+    warps = s[:, 8:16].reshape(tiles, 4, 2)
+    used = warps[:, :, 1] != 0
+    big = np.iinfo(np.int64).max
+    first_pass = np.where(used, warps[:, :, 0] - s[:, 1:2], 0)
+    last_first = np.where(used, warps[:, :, 1], big).min(axis=1)
+    late, overlap = 0, []
+    for sm in np.unique(s[:, 3]):
+        on = s[s[:, 3] == sm]
+        late += int((on[:, 0] > on[:, 2].min()).sum())
+        ev = sorted([(a, 1) for a in on[:, 0]] + [(b, -1) for b in on[:, 2]],
+                    key=lambda e: (e[0], e[1]))
+        cur = 0
+        for _, d in ev:
+            cur += d
+            overlap.append(cur)
+    per_sm = np.bincount(s[:, 3])
+    per_cta = np.bincount(s[:, 7])
+    start = s[:, 4] - s[:, 4].min()
+
+    def med(v):
+        return float(np.median(v))
+
+    return dict(
+        tiles=tiles, ctas=int(plan[2]), slots_per_tile=int(plan[0]),
+        smem_bytes=int(plan[1]), sms_used=int((per_sm > 0).sum()),
+        tiles_per_sm_max_median=[int(per_sm.max()),
+                                 med(per_sm[per_sm > 0])],
+        tiles_at_once_on_an_sm_max=int(max(overlap)),
+        second_wave_share=late / tiles,
+        tiles_per_cta_max=int(per_cta.max()),
+        start_spread_ns_p50_p90_max=[med(start),
+                                     float(np.percentile(start, 90)),
+                                     int(start.max())],
+        schedules_per_tile=med(s[:, 6]),
+        setup_cycles=med(s[:, 1] - s[:, 0]),
+        setup_to_vote_cycles=med(s[:, 16] - s[:, 0]),
+        setup_keys_cycles=med(s[:, 17] - s[:, 16]),
+        aes_cycles=med(s[:, 2] - s[:, 1]),
+        first_pass_cycles=med(first_pass.sum(1) / np.maximum(used.sum(1),
+                                                            1)),
+        wait_after_first_warp_done_cycles=med(s[:, 2] - last_first),
+        warps_per_tile=med(used.sum(1)),
+        tile_cycles=med(s[:, 2] - s[:, 0]),
+        tile_cycles_max=int((s[:, 2] - s[:, 0]).max()))
+
+
+def fill_phases(torch, dev, lib, args, want, label: str, which: str) -> None:
+    """Kernel O's phase probe (`ljt_gcm_ks_fill_phases`: the same tile
+    with clock64 stamps) of `lib` on O's arguments `args` (table, its
+    rows, stream, iv12, slot, slots, slot bytes): its time on the card and
+    `_fill_split`, after checking it writes the plain version's tables
+    (`want`).  Prints a `fill_phases` line named `which`."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    tab_rk, n_streams, stream, iv12, slot, n_slots, ks_bytes = args
+    n = slot.shape[0]
+    ks = torch.zeros((n_slots, ks_bytes), dtype=torch.uint8, device=dev)
+    ek = torch.zeros((n_slots, 16), dtype=torch.uint8, device=dev)
+    stamps = torch.zeros((n, FILL_PHASE_SLOTS), dtype=torch.int64,
+                         device=dev)
+    plan = np.zeros(4, np.int32)
+
+    def probe():
+        kbuild.check(lib.ljt_gcm_ks_fill_phases(
+            tab_rk.data_ptr(), n_streams, stream.data_ptr(), iv12.data_ptr(),
+            slot.data_ptr(), ks.data_ptr(), ek.data_ptr(), stamps.data_ptr(),
+            plan.ctypes.data, n, n_slots, ks_bytes,
+            kbuild.stream_handle(dev)), "gcm_ks_fill_phases")
+
+    probe_ms = device_ms(torch, probe, 20, "gcm_fill_phases_kernel")
+    stamps.zero_()
+    probe()                  # the stamps of one warm launch
+    torch.cuda.synchronize()
+    require(max_abs_err(torch, (ks, ek), want) == 0,
+            f"O's phase probe ({which}) differs from the plain version")
+    emit("fill_phases", tree=which, shape=label, probe_ms=probe_ms,
+         **_fill_split(stamps.cpu().numpy(), plan))
+
+
+F8_PHASE_SLOTS = 40        # `srtp_fanout.cu` kF8PhaseSlots
+
+
+def _f8_split(stamps: np.ndarray, plan) -> dict:
+    """H-F8's split from its phase probe's stamps ([tiles, 40] clock64
+    words, `srtp_fanout.cu`): medians over the tiles of set-up, IV' (where
+    the form stamps it apart), the chains (set-up done to the last chain's
+    end, IV' included), the hash after the chains (the last chain's end to
+    the hash's join: the tag's lag), the store and the tile (median and
+    slowest); the warps that walk chains and that hash a tile; and the
+    chain warps that share an SM sub-partition (`%warpid` mod 4) with
+    another chain warp: the most on one, and the share of chain warps
+    that share one, and the share of hashing warps (that walk no chain)
+    on the sub-partition of a chain warp of their SM."""
+    tiles = int(plan[2])
+    s = stamps[:tiles].astype(np.int64)
+    warps = s[:, 16:].reshape(tiles, 8, 3)
+    chains = warps[:, :, 1] != 0
+    hashes = warps[:, :, 2] != 0
+    chain_end = np.where(chains, warps[:, :, 1], 0).max(axis=1)
+    chain_end = np.where(s[:, 3] != 0, np.maximum(s[:, 3], chain_end),
+                         chain_end)
+    count = {}
+    for i, w in zip(*np.nonzero(chains)):
+        key = (int(s[i, 6]), int((warps[i, w, 0] - 1) % 4))
+        count[key] = count.get(key, 0) + 1
+    shared = sum(c for c in count.values() if c > 1)
+    hash_on_chain_sp = sum(
+        int(hashes[i, w] and not chains[i, w] and key in count)
+        for i in range(tiles) for w in range(8)
+        for key in [(int(s[i, 6]), int((warps[i, w, 0] - 1) % 4))])
+
+    def med(v):
+        return float(np.median(v))
+
+    per_sm = np.bincount(s[:, 6])
+    slow = int(np.argmax(s[:, 5] - s[:, 0]))
+    return dict(
+        tiles=tiles, rows_per_tile=int(plan[0]), smem_bytes=int(plan[1]),
+        slowest_tile=dict(
+            set_up=int(s[slow, 1] - s[slow, 0]),
+            iv_prime=int(s[slow, 2] - s[slow, 1]) if s[slow, 2] else None,
+            chains=int(chain_end[slow] - s[slow, 1]),
+            hash_after_chains=int(s[slow, 4] - chain_end[slow]),
+            store=int(s[slow, 5] - s[slow, 4])),
+        chain_cycles_p10_p90=[float(np.percentile(chain_end - s[:, 1], q))
+                              for q in (10, 90)],
+        sms_used=int((per_sm > 0).sum()), tiles_per_sm_max=int(per_sm.max()),
+        setup_cycles=med(s[:, 1] - s[:, 0]),
+        iv_prime_cycles=(med(s[:, 2] - s[:, 1]) if s[:, 2].any()
+                         else "not apart from the chain"),
+        chain_cycles=med(chain_end - s[:, 1]),
+        hash_after_chain_cycles=med(s[:, 4] - chain_end),
+        store_cycles=med(s[:, 5] - s[:, 4]),
+        tile_cycles=med(s[:, 5] - s[:, 0]),
+        tile_cycles_max=int((s[:, 5] - s[:, 0]).max()),
+        chain_warps_per_tile=med(chains.sum(1)),
+        hash_warps_per_tile=med(hashes.sum(1)),
+        chain_warps_on_one_sub_partition_max=max(count.values(), default=0),
+        chain_warps_sharing_a_sub_partition=shared / max(int(chains.sum()),
+                                                         1),
+        hash_warps_on_a_chain_sub_partition=hash_on_chain_sp / max(
+            int((hashes & ~chains).sum()), 1))
+
+
+def f8_fanout_phases(torch, dev, lib, cases, which: str) -> None:
+    """H-F8's phase probe (`ljt_srtp_fanout_f8_phases`: the same tile with
+    clock64 stamps, AES-128) of `lib` at each of `cases` (label, the
+    wrapper's arguments, tab_f8, iv, its plain outputs): its time on the
+    card and `_f8_split`, after checking it writes the plain version's
+    copies.  Prints an `f8_fanout_phases` line named `which`."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    out = {}
+    for label, args, tab_f8, iv, want in cases:
+        tab_rk, tab_mid, _salt, data, length, off, _ssrc, index, src, \
+            recv = args
+        n, (p, width) = src.shape[0], data.shape
+        res = torch.empty((n, width), dtype=torch.uint8, device=dev)
+        res_len = torch.empty((n,), dtype=torch.int32, device=dev)
+        stamps = torch.zeros((n, F8_PHASE_SLOTS), dtype=torch.int64,
+                             device=dev)
+        plan = np.zeros(3, np.int32)
+
+        def probe():
+            kbuild.check(lib.ljt_srtp_fanout_f8_phases(
+                tab_rk.data_ptr(), tab_f8.data_ptr(), tab_mid.data_ptr(),
+                tab_rk.shape[0], data.data_ptr(), length.data_ptr(),
+                off.data_ptr(), iv.data_ptr(), index.data_ptr(), p,
+                src.data_ptr(), recv.data_ptr(), res.data_ptr(),
+                res_len.data_ptr(), stamps.data_ptr(), plan.ctypes.data, n,
+                width, TAG, kbuild.stream_handle(dev)),
+                "srtp_fanout_f8_phases")
+
+        probe_ms = device_ms(torch, probe, 20, "fanout_f8_phases_kernel")
+        stamps.zero_()
+        probe()
+        torch.cuda.synchronize()
+        require(max_abs_err(torch, (res, res_len), want) == 0,
+                f"H-F8's phase probe ({which}) differs from the plain "
+                f"version at {label}")
+        out[label] = dict(probe_ms=probe_ms,
+                          **_f8_split(stamps.cpu().numpy(), plan))
+    emit("f8_fanout_phases", tree=which, launches=out)
 
 
 def _audio_batch(rng, streams, seq0: int, lens=None):

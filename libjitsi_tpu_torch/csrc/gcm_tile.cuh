@@ -60,6 +60,7 @@
 #include <cstdint>
 
 #include "ghash.cuh"
+#include "phases.cuh"
 #include "srtp_tile.cuh"
 
 namespace ljt_gcm {
@@ -328,27 +329,6 @@ __device__ __forceinline__ void gcm_hash_row(const GcmTile& g, int r,
 // start and end at kPhaseWarp + 4w (0 for a warp that has none).
 constexpr int kPhaseSlots = 40;
 constexpr int kPhaseWarp = 8;
-
-// The global nanosecond timer and the SM the tile runs on (the CPU
-// emulation of the tests has neither: its clock and SM 0).
-__device__ __forceinline__ long long phase_globaltimer() {
-#ifdef __CUDA_ARCH__
-  unsigned long long ns;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-  return (long long)ns;
-#else
-  return clock64();
-#endif
-}
-__device__ __forceinline__ int phase_smid() {
-#ifdef __CUDA_ARCH__
-  unsigned sm;
-  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-  return int(sm);
-#else
-  return 0;
-#endif
-}
 
 __device__ __forceinline__ void phase_stamp(long long* st, int slot) {
   if (st != nullptr && threadIdx.x == 0) st[slot] = clock64();

@@ -1,7 +1,9 @@
 // The row-tile form shared by the fused SRTP kernels: C and D
 // (`srtp_cm.cu`), K and L (`srtp_f8.cu`), H (`srtp_fanout.cu`), I and J
 // (`srtcp_cm.cu`), the F8 and NULL instances of C, D, I and J, and the
-// AEAD-GCM tiles of M, N and H's GCM instance (`gcm_tile.cuh`).
+// AEAD-GCM tiles of M, N and H's GCM instance (`gcm_tile.cuh`); H's F8
+// instance takes its set-up pieces and carving with a tile of its own
+// (`srtp_fanout.cu`).
 //
 // One CTA of 128 threads takes a tile of rows, so set-up is paid per tile
 // and each kind of work is lane-dense:
@@ -49,7 +51,9 @@
 //
 // AES-F8 (RFC 3711 §4.1.2; K, L and the F8 instances of I and J) is
 // sequential over a row's blocks, so `f8_tile` gives a thread two rows
-// and walks both chains in lockstep, one pair of blocks a step.
+// and walks both chains in lockstep, one pair of blocks a step; H's F8
+// instance walks them the same way in its own tile (`f8_chain_rows`),
+// counting each step so its copies are hashed behind the chains.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -328,6 +332,21 @@ __device__ __forceinline__ void slice_row_keys(uint32_t* d, const uint4* kv,
     }
   }
 }
+
+// Round keys sliced for a pair of blocks, each block slot already holding
+// its own block's key (`ljt_aes_slice_keys` of the two blocks' keys, or
+// of one key twice): round r's word i is k[8r + i], read as it is, with
+// no merge of two schedules a round (kernel O's runs, H-F8's chains).
+struct LjtPairRound {
+  const uint32_t* k;
+  __device__ __forceinline__ uint32_t operator()(int i) const { return k[i]; }
+};
+struct LjtPairKeys {
+  const uint32_t* k;
+  __device__ __forceinline__ LjtPairRound round(int r) const {
+    return LjtPairRound{k + 8 * r};
+  }
+};
 
 template <int NR, class Rows>
 __device__ __forceinline__ typename Rows::Regs load_tile(
@@ -614,6 +633,70 @@ __device__ __forceinline__ void f8_tile(const Tile& t, uint32_t* rows,
   }
 }
 
+// AES-F8 as kernel H's F8 instance walks it (`srtp_fanout.cu`): thread i
+// of the first half takes rows i and i + half and walks both chains in
+// lockstep as `f8_tile` does, under the pair's schedules sliced together
+// (t.rk2 and t.rk at pair i: block a's slot row i's key, block b's row i
+// + half's), and after each step's XOR raises the rows' `done`
+// (keystream blocks of the chain XORed), so a hashing lane can read each
+// block of a row as it becomes final.  `iv_stamp` (a phase probe's;
+// nullptr otherwise) takes the clock when IV' is done.
+template <int NR>
+__device__ __forceinline__ void f8_chain_rows(const Tile& t, uint32_t* rows,
+                                              int* done, int i,
+                                              long long* iv_stamp = nullptr) {
+  const int half = (t.rows + 1) >> 1;
+  if (i >= half) return;
+  const int ra = i;
+  const bool two = i + half < t.rows;
+  const int rb = two ? i + half : ra;
+  const int na = t.j0[ra] + t.cnt[ra];
+  const int nb = two ? t.j0[rb] + t.cnt[rb] : 0;
+  const int steps = na > nb ? na : nb;
+  if (steps == 0) return;
+  uint32_t a[4], b[4], s[8], ia[4], ib[4], pa[4], pb[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a[k] = t.iv[4 * ra + k];
+    b[k] = t.iv[4 * rb + k];
+  }
+  ljt_aes_encrypt_pair<NR>(LjtPairKeys{t.rk2 + i * rk_stride(NR)}, a, b, s);
+  if (iv_stamp) *iv_stamp = clock64();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    ia[k] = a[k];
+    ib[k] = b[k];
+    pa[k] = 0;
+    pb[k] = 0;
+  }
+  volatile int* vd = done;
+  const LjtPairKeys ke{t.rk + i * rk_stride(NR)};
+  for (int j = 0; j < steps; ++j) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      a[k] = ia[k] ^ pa[k];
+      b[k] = ib[k] ^ pb[k];
+    }
+    a[3] ^= uint32_t(j);
+    b[3] ^= uint32_t(j);
+    ljt_aes_encrypt_pair<NR>(ke, a, b, s);
+    if (j < na)
+      xor_block(rows + ra * t.stride, t.off[ra] + 16 * j, t.s[ra], t.e[ra],
+                a);
+    if (j < nb)
+      xor_block(rows + rb * t.stride, t.off[rb] + 16 * j, t.s[rb], t.e[rb],
+                b);
+    __threadfence_block();
+    if (j < na) vd[ra] = j + 1;
+    if (j < nb) vd[rb] = j + 1;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      pa[k] = a[k];
+      pb[k] = b[k];
+    }
+  }
+}
+
 // The keystream stage of a tile under cipher C, XORed into `rows`:
 // AES-CTR over (row, block) entries, AES-F8 chains two rows a thread,
 // nothing for NULL.
@@ -644,17 +727,19 @@ inline int multiprocessors() {
 
 // Rows per tile for n rows of this width: the fewest rows that still give
 // every SM `per_sm` tiles (a part of a few thousand rows spreads over
-// the whole card instead of a quarter of it), at most a full tile, and
-// no more than fit the SM's shared memory (0: the width cannot run).
+// the whole card instead of a quarter of it), at most `max_rows` (a full
+// tile), and no more than fit the SM's shared memory (0: the width
+// cannot run).
 inline int tile_rows_for(int n, int width, int nr, TileKind kind,
-                         int per_sm, int schedules = 1, int extra = 0) {
+                         int per_sm, int schedules = 1, int extra = 0,
+                         int max_rows = kTileRows) {
   const int fixed = tile_words(0, width, nr, kind, schedules, extra);
   const int per_row =
       tile_words(1, width, nr, kind, schedules, extra) - fixed;
   const int fit = (kMaxSmemBytes / 4 - fixed) / per_row;
   const int ctas = per_sm * multiprocessors();
-  int rows = ctas > 0 ? (n + ctas - 1) / ctas : kTileRows;
-  rows = rows < 1 ? 1 : (rows > kTileRows ? kTileRows : rows);
+  int rows = ctas > 0 ? (n + ctas - 1) / ctas : max_rows;
+  rows = rows < 1 ? 1 : (rows > max_rows ? max_rows : rows);
   return fit < rows ? fit : rows;
 }
 
@@ -665,16 +750,16 @@ struct Plan {
 
 // Plan the launch of `kernel` over n rows of `width` bytes whose rows
 // carry `schedules` key schedules and `extra` words, `per_sm` tiles an
-// SM, and allow it the dynamic shared memory above the 48 KB default
-// where it needs it, once per device (`done` holds one bit per device).
-// Returns a CUDA error code, cudaErrorInvalidValue for a width no tile
-// holds.
+// SM of at most `max_rows` rows, and allow it the dynamic shared memory
+// above the 48 KB default where it needs it, once per device (`done`
+// holds one bit per device).  Returns a CUDA error code,
+// cudaErrorInvalidValue for a width no tile holds.
 template <class Kernel>
 int plan(Kernel kernel, std::atomic<unsigned>& done, int n, int width, int nr,
          TileKind kind, int per_sm, Plan* p, int schedules = 1,
-         int extra = 0) {
+         int extra = 0, int max_rows = kTileRows) {
   p->rows = width > 0 ? tile_rows_for(n, width, nr, kind, per_sm, schedules,
-                                      extra)
+                                      extra, max_rows)
                       : 0;
   if (p->rows < 1) return int(cudaErrorInvalidValue);
   p->smem = 4 * tile_words(p->rows, width, nr, kind, schedules, extra);

@@ -107,6 +107,11 @@ _SIGNATURES = {
     "ljt_srtp_gcm_phases": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _I, _I, _I, _I, _P],
     "ljt_gcm_ks_fill": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the phase probes of O and H-F8 (clock64 stamps; on no path)
+    "ljt_gcm_ks_fill_phases": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _P],
+    "ljt_srtp_fanout_f8_phases": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                                  _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ljt_mix_minus": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ljt_g711_encode": [_P, _P, _I, _I, _P],
     "ljt_g711_decode": [_P, _P, _I, _I, _P],

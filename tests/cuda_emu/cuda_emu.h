@@ -205,6 +205,8 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return r;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 
 // cp.async through the pipeline primitives: the copy completes at once.
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,

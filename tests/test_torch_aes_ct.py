@@ -170,16 +170,20 @@ def test_no_source_reaches_a_t_table():
 @pytest.mark.parametrize("cipher", ["cm", "f8", "null"])
 def test_fanout_instances_reach_aes_only_through_the_core(cipher):
     """Kernel H's instance for `cipher` is a kernel of its own whose
-    keystream stage is the tile's (`keystream_tile`, over `ctr_tile` or
-    `f8_tile` and the core's `ljt_aes_encrypt_pair`; none for NULL); the
-    source declares no table, constant or static shared memory and names
-    no AES routine but through that stage."""
+    keystream stage is a tile's (AES-CM: `keystream_tile` over `ctr_tile`;
+    AES-F8: its own tile, `fanout_f8_copies`, over `f8_chain_rows`; each
+    over the core's `ljt_aes_encrypt_pair`; none for NULL); the source
+    declares no table, constant or static shared memory and names no AES
+    routine but through that stage."""
     code = _code(os.path.join(kbuild.CSRC_DIR, "srtp_fanout.cu"))
-    kind = {"cm": "kCm", "f8": "kF8", "null": "kNull"}[cipher]
-    m = re.search(r"srtp_fanout_" + cipher + r"_kernel\([^{]*\{\s*"
-                  r"srtp_fanout_tile<NR,\s*" + kind + r">", code, re.S)
+    body = {"cm": r"srtp_fanout_tile<NR,\s*kCm>",
+            "f8": r"fanout_f8_copies<NR>",
+            "null": r"srtp_fanout_tile<NR,\s*kNull>"}[cipher]
+    m = re.search(r"srtp_fanout_" + cipher + r"_kernel\([^{]*\{\s*" + body,
+                  code, re.S)
     assert m, f"no {cipher} instance of kernel H"
     assert re.search(r"keystream_tile<NR,\s*C>", code)
+    assert re.search(r"f8_chain_rows<NR>", code)
     for word in ("ljt_aes_encrypt_pair", "ctr_tile", "f8_tile",
                  "__constant__", "static __shared__", "__ldg"):
         assert word not in code, word

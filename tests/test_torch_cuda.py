@@ -1020,6 +1020,148 @@ def test_gcm_fill_kernel_matches_plain(cuda_device, n, ks_bytes):
     assert _same(ks, ks2) and _same(ek, ek2)
 
 
+# Kernel O's runs and edges on the card (the emulator's cases,
+# `test_torch_cuda_emu.py`, at the card's plan): runs crossing tiles of
+# 64 slots, all-distinct and alternating streams, windows of 64 with a
+# partial last one, one slot, an odd count, the fill's 65,536 slots in
+# windows; ids past the table clamped and slots outside it skipped.
+@pytest.mark.parametrize("case,n,ks_bytes", [
+    ("runs", 300, 256), ("distinct", 1000, 48), ("alternating", 96, 16),
+    ("windows", 64 * 3 + 17, 256), ("one", 1, 1024), ("odd", 77, 1024),
+    ("windows", 65536, 256),
+])
+def test_gcm_fill_kernel_runs_and_edges(cuda_device, case, n, ks_bytes):
+    from libjitsi_tpu_torch.kernels import gcm
+
+    rng = np.random.default_rng(n + ks_bytes)
+    s = 1024
+    rk = aes.expand_keys_batch(rng.integers(0, 256, (s, 16), np.uint8))
+    stream = {"runs": lambda: np.repeat([5, 9, 5, 77], [100, 37, 64, 99]),
+              "distinct": lambda: rng.permutation(s)[:n],
+              "alternating": lambda: np.tile([3, 4], n // 2),
+              "windows": lambda: np.repeat(rng.permutation(s),
+                                           64)[:n],
+              "one": lambda: np.array([7]),
+              "odd": lambda: np.repeat(rng.integers(0, s, n),
+                                       rng.integers(1, 12, n))[:n]}[case]()
+    stream = stream.astype(np.int32)
+    n_slots = n + 9
+    slot = rng.permutation(n_slots)[:n].astype(np.int32)
+    slot[0] = n_slots + 3
+    if n > 4:
+        stream[n // 3], stream[n // 2] = s + 5, -3
+        slot[n // 4] = -1
+    d = [torch.from_numpy(x).to(cuda_device) for x in
+         (rk, stream, rng.integers(0, 256, (n, 12), np.uint8), slot)]
+    ks = torch.from_numpy(rng.integers(0, 256, (n_slots, ks_bytes),
+                                       np.uint8)).to(cuda_device)
+    ek = torch.from_numpy(rng.integers(0, 256, (n_slots, 16),
+                                       np.uint8)).to(cuda_device)
+    ks2, ek2 = ks.clone(), ek.clone()
+    gcm.gcm_ks_fill(ks, ek, *d)
+    gcm.gcm_ks_fill_plain(ks2, ek2, *d)
+    assert _same(ks, ks2) and _same(ek, ek2)
+
+
+def test_fill_and_f8_phase_probes_match_shipped(cuda_device):
+    """The phase probes of O and H-F8 (`ljt_gcm_ks_fill_phases`,
+    `ljt_srtp_fanout_f8_phases`) write what the shipped kernels write."""
+    from libjitsi_tpu_torch.kernels import gcm
+
+    rng = np.random.default_rng(3)
+    lib = kbuild.library()
+    stream_h = kbuild.stream_handle(cuda_device)
+    n, ks_bytes = 4096, 256
+    rk = torch.from_numpy(aes.expand_keys_batch(
+        rng.integers(0, 256, (256, 16), np.uint8))).to(cuda_device)
+    st = torch.from_numpy(np.repeat(rng.permutation(256)[:n // 64], 64)
+                          .astype(np.int32)).to(cuda_device)
+    iv12 = torch.from_numpy(rng.integers(0, 256, (n, 12), np.uint8)).to(
+        cuda_device)
+    slot = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(
+        cuda_device)
+    ks = torch.zeros((n, ks_bytes), dtype=torch.uint8, device=cuda_device)
+    ek = torch.zeros((n, 16), dtype=torch.uint8, device=cuda_device)
+    pks, pek = ks.clone(), ek.clone()
+    gcm.gcm_ks_fill(ks, ek, rk, st, iv12, slot)
+    stamps = torch.zeros((n, 24), dtype=torch.int64, device=cuda_device)
+    plan = np.zeros(4, np.int32)
+    assert lib.ljt_gcm_ks_fill_phases(
+        rk.data_ptr(), 256, st.data_ptr(), iv12.data_ptr(), slot.data_ptr(),
+        pks.data_ptr(), pek.data_ptr(), stamps.data_ptr(), plan.ctypes.data,
+        n, n, ks_bytes, stream_h) == 0
+    torch.cuda.synchronize()
+    assert _same(pks, ks) and _same(pek, ek) and plan[3] == n // 64
+    p, legs, width, s = 275, 10, 192, 1100
+    tab_rk, tab_f8 = (torch.from_numpy(aes.expand_keys_batch(
+        rng.integers(0, 256, (s, 16), np.uint8))).to(cuda_device)
+        for _ in range(2))
+    tab_mid = torch.from_numpy(sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)).to(
+            cuda_device)
+    h = [torch.from_numpy(x).to(cuda_device) for x in (
+        rng.integers(0, 256, (p, width), np.uint8),
+        rng.integers(80, 181, p).astype(np.int32), np.full(p, 20, np.int32),
+        rng.integers(0, 256, (p, 16), np.uint8),
+        rng.integers(0, 2 ** 48, p, dtype=np.int64),
+        np.repeat(np.arange(p), legs).astype(np.int32),
+        rng.integers(0, s, p * legs).astype(np.int32))]
+    data, length, off, iv, index, src, recv = h
+    got = srtp_kernel.srtp_fanout_protect(
+        tab_rk, tab_mid, None, data, length, off, None, index, src, recv, 10,
+        "f8", tab_f8, iv)
+    n = p * legs
+    out = torch.empty((n, width), dtype=torch.uint8, device=cuda_device)
+    out_len = torch.empty((n,), dtype=torch.int32, device=cuda_device)
+    f8_stamps = torch.zeros((n, 40), dtype=torch.int64, device=cuda_device)
+    f8_plan = np.zeros(3, np.int32)
+    assert lib.ljt_srtp_fanout_f8_phases(
+        tab_rk.data_ptr(), tab_f8.data_ptr(), tab_mid.data_ptr(), s,
+        data.data_ptr(), length.data_ptr(), off.data_ptr(), iv.data_ptr(),
+        index.data_ptr(), p, src.data_ptr(), recv.data_ptr(),
+        out.data_ptr(), out_len.data_ptr(), f8_stamps.data_ptr(),
+        f8_plan.ctypes.data, n, width, 10, stream_h) == 0
+    torch.cuda.synchronize()
+    assert _same(out, got[0]) and _same(out_len, got[1])
+
+
+# H-F8's own tile on the card: MAC messages ending exactly at and inside a
+# 64-byte SHA-1 block, a header-only copy, 1,504-byte rows, odd copy
+# counts, a single copy, the SFU tick's 1,100 x 10, AES-128 and AES-256
+@pytest.mark.parametrize("key_len,lens,counts,width", [
+    (16, [60, 124, 100, 20, 208, 150], [10] * 6, 208),
+    (32, [1504, 20, 1000], [10, 10, 7], 1504),
+    (16, [128], [1], 192),
+    (32, None, [10] * 1100, 192),
+    (16, None, [10] * 1100, 192),
+])
+def test_fanout_f8_copies_match_plain(cuda_device, key_len, lens, counts,
+                                      width):
+    rng = np.random.default_rng(key_len + width + len(counts))
+    p, s = len(counts), 1100
+    tab_rk, tab_f8 = (aes.expand_keys_batch(
+        rng.integers(0, 256, (s, key_len), np.uint8)) for _ in range(2))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    length = (np.asarray(lens) if lens is not None
+              else rng.integers(80, 181, p)).astype(np.int32)
+    iv = rng.integers(0, 256, (p, 16), np.uint8)
+    iv[::2, 12:] = 0xFF
+    src = np.repeat(np.arange(p), counts).astype(np.int32)
+    d = [torch.from_numpy(x).to(cuda_device) for x in (
+        tab_rk, tab_mid, rng.integers(0, 256, (p, width), np.uint8), length,
+        np.full(p, 20, np.int32), rng.integers(0, 2 ** 48, p,
+                                               dtype=np.int64), src,
+        rng.integers(0, s, len(src)).astype(np.int32), tab_f8, iv)]
+    args = d[:2] + [None] + d[2:5] + [None] + d[5:8]
+    before = kbuild.launches["srtp_fanout_f8"]
+    got = srtp_kernel.srtp_fanout_protect(*args, 10, "f8", d[8], d[9])
+    torch.cuda.synchronize()
+    assert kbuild.launches["srtp_fanout_f8"] == before + 1
+    want = srtp_kernel.srtp_fanout_protect_plain(*args, 10, "f8", d[8], d[9])
+    assert all(_same(a, b) for a, b in zip(got, want))
+
+
 def test_gcm_table_on_card_equals_table_on_cpu(cuda_device):
     """An AEAD_AES_128_GCM table on the card and one on the CPU, fed the
     same RTP and SRTCP, give the same wire and verdicts; the keystream

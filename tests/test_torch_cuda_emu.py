@@ -1314,6 +1314,189 @@ def test_emulated_kernel_o_matches_plain(emu, n, ks_bytes):
     assert np.array_equal(ek, w_ek.numpy())
 
 
+# Kernel O's runs and edges.  A tile is 64 slots and a launch keeps at
+# most 8 CTAs an SM (one SM here), each taking tiles in turn; each run of
+# one stream's consecutive slots is sliced once and its entries paired in
+# order.  Every case puts an id past the table and a negative one in its
+# streams (clamped, so they may join a neighbour's run) and slots outside
+# the tables among its slots (skipped); ks_bytes 16, 48, 256 and 1,024.
+O_CASES = {
+    "runs_across_tiles": (300, 256),      # runs of 100, 37, 64 and 99
+    "all_distinct": (130, 48),
+    "alternating": (96, 16),
+    "windows_partial_last": (64 * 3 + 17, 256),
+    "one_slot": (1, 1024),
+    "odd_count": (77, 1024),              # runs of 1-11 slots
+    "many_tiles": (600, 48),              # 10 tiles on 8 CTAs
+}
+O_TABLE = 140
+
+
+def _o_case(case):
+    """Table, streams, IVs, slots and the slot tables of an O case."""
+    n, ks_bytes = O_CASES[case]
+    rng = np.random.default_rng(len(case) * 1000 + n)
+    rk = aes.expand_keys_batch(rng.integers(0, 256, (O_TABLE, 16), np.uint8))
+    if case == "runs_across_tiles":
+        stream = np.repeat([5, 9, 5, 77], [100, 37, 64, 99])
+    elif case == "all_distinct":
+        stream = rng.permutation(O_TABLE)[:n]
+    elif case == "alternating":
+        stream = np.tile([3, 4], n // 2)
+    elif case in ("windows_partial_last", "many_tiles"):
+        stream = np.repeat(rng.permutation(O_TABLE)[:10], 64)[:n]
+    elif case == "odd_count":
+        stream = np.repeat(rng.integers(0, O_TABLE, n), rng.integers(
+            1, 12, n))[:n]
+    else:
+        stream = np.array([7])
+    stream = stream.astype(np.int32)
+    if n > 4:
+        stream[n // 3] = O_TABLE + 5
+        stream[n // 2] = -3
+    n_slots = n + 9
+    slot = rng.permutation(n_slots)[:n].astype(np.int32)
+    slot[0] = n_slots + 3
+    if n > 4:
+        slot[n // 4] = -1
+    ks0 = rng.integers(0, 256, (n_slots, ks_bytes), np.uint8)
+    ek0 = rng.integers(0, 256, (n_slots, 16), np.uint8)
+    iv12 = rng.integers(0, 256, (n, 12), np.uint8)
+    return rk, stream, iv12, slot, ks0, ek0
+
+
+@pytest.mark.parametrize("case", list(O_CASES))
+def test_emulated_kernel_o_runs_and_edges(emu, case):
+    rk, stream, iv12, slot, ks0, ek0 = _o_case(case)
+    n, (n_slots, ks_bytes) = len(stream), ks0.shape
+    ks, ek = _aligned(ks0), _aligned(ek0)
+    assert emu.ljt_gcm_ks_fill(
+        _p(rk), len(rk), _p(stream), _p(iv12), _p(slot), _p(ks), _p(ek), n,
+        n_slots, ks_bytes, 10, None) == 0
+    w_ks, w_ek = T(ks0.copy()), T(ek0.copy())
+    tgcm.gcm_ks_fill_plain(w_ks, w_ek, T(rk), T(stream), T(iv12), T(slot))
+    assert np.array_equal(ks, w_ks.numpy())
+    assert np.array_equal(ek, w_ek.numpy())
+
+
+def test_emulated_fill_phase_probe(emu):
+    """O's phase probe (`ljt_gcm_ks_fill_phases`) fills the tables as the
+    shipped kernel does, plans as it does (64 slots a tile, 8 CTAs taking
+    10 tiles in turn here), and stamps each tile in order: start, the run
+    vote, thread 0's round keys, set-up done, the AES done."""
+    rk, stream, iv12, slot, ks0, ek0 = _o_case("many_tiles")
+    n, (n_slots, ks_bytes) = len(stream), ks0.shape
+    ks, ek = _aligned(ks0), _aligned(ek0)
+    pks, pek = _aligned(ks0), _aligned(ek0)
+    assert emu.ljt_gcm_ks_fill(
+        _p(rk), len(rk), _p(stream), _p(iv12), _p(slot), _p(ks), _p(ek), n,
+        n_slots, ks_bytes, 10, None) == 0
+    stamps = np.zeros((n, 24), np.int64)
+    plan = np.zeros(4, np.int32)
+    assert emu.ljt_gcm_ks_fill_phases(
+        _p(rk), len(rk), _p(stream), _p(iv12), _p(slot), _p(pks), _p(pek),
+        _p(stamps), _p(plan), n, n_slots, ks_bytes, None) == 0
+    assert np.array_equal(pks, ks) and np.array_equal(pek, ek)
+    tiles = -(-n // 64)
+    assert list(plan[[0, 2, 3]]) == [64, 8, tiles]
+    st = stamps[:tiles]
+    assert not stamps[tiles:].any() and (st[:, 0] > 0).all()
+    assert (np.diff(st[:, [0, 16, 17, 1, 2]], axis=1) >= 0).all()
+    assert list(st[:, 5]) == [min(64, n - 64 * i) for i in range(tiles)]
+    assert list(st[:, 7]) == [i % 8 for i in range(tiles)]
+    # runs: windows of 64 slots, one split by each out-of-range id
+    assert (st[:, 6] >= 1).all() and st[:, 6].sum() >= tiles
+
+
+# H-F8's own tile: up to 128 copies (one tile here), the chains two
+# copies a thread on warps 0-1 and the hash behind them on warps 2-3 and
+# 6-7.  Copies whose MAC message ends exactly at a 64-byte SHA-1 block
+# (lengths 64 and 128: header, payload and ROC) and inside one, a
+# header-only copy (length 20, no keystream block), full-width and 1,504-
+# byte rows, odd copy counts, a single copy, two tiles (140 copies), 10
+# legs a packet, AES-128 and AES-256; IVs with counters near 2^32.
+@pytest.mark.parametrize("key_len,lens,counts,width", [
+    (16, [60, 124, 100, 20, 208, 150], [10] * 6, 208),
+    (32, [1504, 20, 1000], [10, 10, 7], 1504),
+    (16, [128], [1], 192),
+    (32, None, [10] * 14, 208),
+])
+def test_emulated_kernel_h_f8_copies(emu, key_len, lens, counts, width):
+    rng = np.random.default_rng(key_len + width + len(counts))
+    p = len(counts)
+    s = 6
+    tab_rk, tab_f8 = (aes.expand_keys_batch(
+        rng.integers(0, 256, (s, key_len), np.uint8)) for _ in range(2))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    data = rng.integers(0, 256, (p, width), np.uint8)
+    length = (np.asarray(lens) if lens is not None
+              else rng.integers(80, 181, p)).astype(np.int32)
+    off = np.full(p, 20, np.int32)
+    index = rng.integers(0, 2 ** 48, p, dtype=np.int64)
+    iv = rng.integers(0, 256, (p, 16), np.uint8)
+    iv[::2, 12:] = 0xFF
+    src = np.repeat(np.arange(p), counts).astype(np.int32)
+    recv = rng.integers(0, s, len(src)).astype(np.int32)
+    n, nr = len(src), tab_rk.shape[1] - 1
+    out = np.zeros((n, width), np.uint8)
+    out_len = np.zeros(n, np.int32)
+    assert emu.ljt_srtp_fanout_f8(
+        _p(tab_rk), _p(tab_f8), _p(tab_mid), s, _p(data), _p(length),
+        _p(off), _p(iv), _p(index), p, _p(src), _p(recv), _p(out),
+        _p(out_len), n, width, nr, 10, None) == 0
+    want, want_len = srtp_kernel.srtp_fanout_protect_plain(
+        T(tab_rk), T(tab_mid), None, T(data), T(length), T(off), None,
+        T(index), T(src), T(recv), 10, "f8", T(tab_f8), T(iv))
+    assert np.array_equal(out, want.numpy())
+    assert np.array_equal(out_len, want_len.numpy())
+
+
+def test_emulated_f8_phase_probe(emu):
+    """H-F8's phase probe (`ljt_srtp_fanout_f8_phases`, AES-128) writes
+    the copies the shipped kernel writes, plans as it does, and stamps
+    each tile in order: start, set-up, IV', each chain warp's end, the
+    hash joined, the rows stored; warps 0-1 walk chains, warps 2-3 hash."""
+    rng = np.random.default_rng(23)
+    p, legs, width, s = 14, 10, 208, 6
+    tab_rk, tab_f8 = (aes.expand_keys_batch(
+        rng.integers(0, 256, (s, 16), np.uint8)) for _ in range(2))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    data = rng.integers(0, 256, (p, width), np.uint8)
+    length = rng.integers(80, 181, p).astype(np.int32)
+    off = np.full(p, 20, np.int32)
+    index = rng.integers(0, 2 ** 48, p, dtype=np.int64)
+    iv = rng.integers(0, 256, (p, 16), np.uint8)
+    src = np.repeat(np.arange(p), legs).astype(np.int32)
+    recv = rng.integers(0, s, len(src)).astype(np.int32)
+    n = len(src)
+    args = (_p(tab_rk), _p(tab_f8), _p(tab_mid), s, _p(data), _p(length),
+            _p(off), _p(iv), _p(index), p, _p(src), _p(recv))
+    out, pout = (np.zeros((n, width), np.uint8) for _ in range(2))
+    out_len, pout_len = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    assert emu.ljt_srtp_fanout_f8(*args, _p(out), _p(out_len), n, width, 10,
+                                  10, None) == 0
+    stamps = np.zeros((n, 40), np.int64)
+    plan = np.zeros(3, np.int32)
+    assert emu.ljt_srtp_fanout_f8_phases(
+        *args, _p(pout), _p(pout_len), _p(stamps), _p(plan), n, width, 10,
+        None) == 0
+    assert np.array_equal(pout, out) and np.array_equal(pout_len, out_len)
+    rows, tiles = int(plan[0]), int(plan[2])
+    assert (rows, tiles) == (128, 2)
+    st = stamps[:tiles]
+    assert not stamps[tiles:].any()
+    assert list(st[:, 8]) == [128, n - 128]
+    warps = st[:, 16:].reshape(tiles, 8, 3)
+    chain_end = warps[:, :, 1].max(axis=1)
+    assert (np.diff(st[:, [0, 1, 2]], axis=1) >= 0).all()
+    assert (st[:, 2] <= chain_end).all() and (chain_end <= st[:, 4]).all()
+    assert (st[:, 4] <= st[:, 5]).all()
+    assert (warps[:, 0, 1] > 0).all() and (warps[:, 2, 2] > 0).all()
+    assert not warps[:, [4, 5], :].any()
+
+
 @pytest.mark.parametrize("entry", ["seal", "open", "fanout", "fill"])
 def test_emulated_gcm_entries_refuse_aes256(emu, entry):
     """The GCM kernels are AES-128 only (no SRTP profile runs AES-256

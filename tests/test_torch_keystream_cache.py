@@ -18,21 +18,30 @@
    rows with the same bytes; the cached run hits.
 5. Cached protect equals stock across a ROC wrap: the port's cached
    protect (M's cached instance) gives the JAX table's stock wire.
+6. Kernel O's plain version fills the slot tables as the JAX package's
+   device fill does (`keystream._fill_dev`), byte for byte, on rows of
+   mixed streams written to slots out of order.
 
 Kernel O's plain version fills the slots.  The JAX side runs eagerly
 (`jax.disable_jit`).  Tolerance: exact bytes and verdicts.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from libjitsi_tpu.core.packet import PacketBatch as JaxBatch
 from libjitsi_tpu.rtp import header as j_header
+from libjitsi_tpu.transform.srtp import keystream as j_keystream
 from libjitsi_tpu.transform.srtp import SrtpProfile as JaxProfile
 from libjitsi_tpu.transform.srtp import SrtpStreamTable as JaxTable
+import torch
+
 from libjitsi_tpu_torch.core.packet import PacketBatch
+from libjitsi_tpu_torch.kernels import aes as t_aes
 from libjitsi_tpu_torch.kernels import build as kbuild
+from libjitsi_tpu_torch.kernels import gcm as t_gcm
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
 
@@ -237,3 +246,30 @@ def test_cached_protect_bit_exact_across_roc_wrap():
     assert kbuild.plain_calls["srtp_gcm_seal_cached"] == 14
     assert kbuild.plain_calls["srtp_gcm_seal"] == 0
     assert kbuild.plain_calls["gcm_ks_fill"] > 0
+
+
+def test_fill_plain_matches_jax_fill_dev():
+    """`gcm_ks_fill_plain` against the JAX `_fill_dev` (run eagerly): 10
+    slots of 48 bytes (3 keystream blocks) under 4 streams, a run of
+    one stream across several slots beside single ones, written to
+    slots in a shuffled order of a 13-row table; every byte of both
+    tables equal, the slots not written left as they were."""
+    rng = np.random.default_rng(15)
+    rk = t_aes.expand_keys_batch(rng.integers(0, 256, (4, 16), np.uint8))
+    n, ks_bytes, n_slots = 10, 48, 13
+    stream = np.array([2, 2, 2, 0, 3, 3, 1, 2, 0, 0], np.int32)
+    iv12 = rng.integers(0, 256, (n, 12), np.uint8)
+    slot = rng.permutation(n_slots)[:n].astype(np.int32)
+    ks0 = rng.integers(0, 256, (n_slots, ks_bytes), np.uint8)
+    ek0 = rng.integers(0, 256, (n_slots, 16), np.uint8)
+    want_ks, want_ek = j_keystream._fill_dev(
+        jnp.asarray(ks0), jnp.asarray(ek0), jnp.asarray(rk[stream]),
+        jnp.asarray(iv12), jnp.asarray(slot), nblocks=ks_bytes // 16)
+    ks, ek = torch.from_numpy(ks0.copy()), torch.from_numpy(ek0.copy())
+    t_gcm.gcm_ks_fill_plain(ks, ek, torch.from_numpy(rk),
+                            torch.from_numpy(stream),
+                            torch.from_numpy(iv12), torch.from_numpy(slot))
+    assert np.array_equal(ks.numpy(), np.asarray(want_ks))
+    assert np.array_equal(ek.numpy(), np.asarray(want_ek))
+    untouched = np.setdiff1d(np.arange(n_slots), slot)
+    assert np.array_equal(ks.numpy()[untouched], ks0[untouched])
