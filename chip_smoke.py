@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py        (from the repository root; one card)
     python3 chip_smoke.py --parent ROOT
-                                 (also times the GCM kernels, O and H-F8
-                                  of the checkout at ROOT against this
-                                  tree's)
+                                 (also times the GCM kernels, O, H-F8, K
+                                  and L of the checkout at ROOT against
+                                  this tree's)
 
 Builds the port's CUDA kernels from `libjitsi_tpu_torch/csrc/`, checks
 them on known answers and exactly against their plain PyTorch versions
@@ -90,7 +90,8 @@ unless kernel A, the AES core alone, holds no shared memory and issues
 no shared-memory load and no constant load at a register-held address
 (the core is gather-free: `libjitsi_tpu_torch/csrc/aes.cuh`), kernel G
 holds no shared memory and issues no shared-memory load (no table), and
-kernel B and H's F8 instance at AES-128 spill nothing; `latency_floor`
+kernel B, H's F8 instance and K and L at AES-128 spill nothing;
+`latency_floor`
 gives the cycles one SHA-1
 compression and one pair of AES-128 and of AES-256 blocks take on a
 lane that waits on each (the floors of the tile kernels' lanes), one
@@ -121,11 +122,19 @@ instructions a pair the shipped O's SASS holds, the `sass` line's
 instance (`ljt_srtp_fanout_f8_phases`) at 275 x 10 and 1,100 x 10:
 set-up, IV', the chains, the hash's lag behind them, the store, and the
 SM sub-partition (`%warpid` mod 4) of each chain and hashing warp.
-With `--parent ROOT`, the kernels of the checkout at ROOT (built by its
-own sources) are timed against this tree's in turns (parent, this,
-this, parent): every GCM shape (`gcm_turns`), O at the fill's shape
-(`fill_turns`) and H-F8 at both SFU shapes (`f8_turns`), and the
-parent's phase splits are printed too where it has the probes.
+`srtp_f8_phases` does the same for K and L (`ljt_srtp_f8_phases`, their
+tile with clock64 stamps) at the mix batch's three launches: set-up
+(thread 0's rows, its slicing, the rest), IV', the chains, K's hash end
+and lag behind them (L's hash ends before its chains), the store, the
+sub-partitions, tiles an SM at once and a second wave's share; and
+`srtp_f8_plans` times the same tile planned for 1, 2 and 4 tiles an SM
+at each launch.  With `--parent ROOT`, the kernels of the checkout at
+ROOT (built by its own sources) are timed against this tree's in turns
+(parent, this, this, parent): every GCM shape (`gcm_turns`), O at the
+fill's shape (`fill_turns`), H-F8 at both SFU shapes (`f8_turns`) and K
+and L at each launch of the mix batch and summed over it
+(`srtp_f8_turns`), and the parent's phase splits are printed too where
+it has the probes.
 
 Every phase prints one JSON line; the card's `nvidia-smi` name and power
 limit come before the last line, and the last line is
@@ -404,8 +413,8 @@ def main(argv=None) -> int:
                                  "media paths on one NVIDIA GPU.")
     ap.add_argument("--parent", metavar="ROOT",
                     help="another checkout (the parent commit) whose GCM "
-                         "kernels, O and H-F8 are timed against this "
-                         "tree's in turns")
+                         "kernels, O, H-F8, K and L are timed against "
+                         "this tree's in turns")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -433,7 +442,7 @@ def main(argv=None) -> int:
     rows.update(mix_kernel(torch, dev, floor_ms))
     rows.update(g711_kernels(torch, dev, floor_ms))
     rows.update(sfu_kernels(torch, dev, floor_ms))
-    rows.update(profile_kernels(torch, dev, floor_ms, chain))
+    rows.update(profile_kernels(torch, dev, floor_ms, chain, parent_lib))
     rows.update(sfu_profile_kernels(torch, dev, floor_ms, chain, parent_lib))
     rows.update(gcm_kernels(torch, dev, floor_ms, chain, parent_lib))
     rows.update(fill_kernel(torch, dev, floor_ms, chain, fill_core,
@@ -811,7 +820,8 @@ def sass_counts(kbuild) -> dict:
         require(k in ptxas, f"no ptxas report for {k}: {sorted(ptxas)}")
     # kernel B hashes from its staged rows with nothing spilled; kernel G
     # expands each code in registers: no shared memory, no LDS
-    for k in ("hmac_sha1", "srtp_fanout_f8 nr=10"):
+    for k in ("hmac_sha1", "srtp_fanout_f8 nr=10", "srtp_protect_f8 nr=10",
+              "srtp_unprotect_f8 nr=10"):
         require(ptxas[k].get("spill_store_bytes", 0) == 0
                 and ptxas[k].get("spill_load_bytes", 0) == 0,
                 f"{k} spills: {ptxas[k]}")
@@ -3321,7 +3331,8 @@ def _profile_line(name, shape, times, nbytes, ops, floor_ms, chain_ms=None):
     return line
 
 
-def profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
+def profile_kernels(torch, dev, floor_ms: float, chain: dict,
+                    parent_lib=None) -> dict:
     """K and L (AES-F8) and the NULL instances of C and D against their
     plain versions at the three launches the table makes for one 4,096-
     packet production-mix batch (the parts `bucket_by_size` gives), and
@@ -3332,9 +3343,13 @@ def profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
     (its keystream blocks and IV') at `latency_floor`'s AES-128
     `aes_pair_cycles` and clock.  The `kernels` line takes the SRTP
     kernels' sums over the batch's three launches.  No PyTorch call
-    computes SRTP, so none has a library time."""
+    computes SRTP, so none has a library time.  Then K's and L's phase
+    split and plans at the batch's launches (`srtp_f8_phases`,
+    `srtp_f8_plans`) and, with a parent, their turns against the
+    parent's (`srtp_f8_turns`)."""
     from libjitsi_tpu_torch.core.packet import bucket_by_size
     from libjitsi_tpu_torch.kernels import aes
+    from libjitsi_tpu_torch.kernels import build as kbuild
     from libjitsi_tpu_torch.transform.srtp import kernel as sk
 
     rng = np.random.default_rng(31)
@@ -3350,6 +3365,7 @@ def profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
     mix = _mix_batch(rng, rng.permutation(N_STREAMS)[:BATCH], 1000, 0)
     parts = bucket_by_size(mix)
     rows = {}
+    f8_cases = []
     for cipher in ("f8", "null"):
         f8 = tab_f8 if cipher == "f8" else None
         keys_per = 11 * 16 * (2 if cipher == "f8" else 0) + 40
@@ -3372,6 +3388,8 @@ def profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
                 f"version")
             uargs = args[:3] + [kp[0], kp[1]] + args[5:]
             ku = sk.srtp_unprotect(*uargs, TAG, cipher, f8)
+            if cipher == "f8":
+                f8_cases.append((label, args, uargs, f8, kp, ku))
             require(bool(ku[2].all()), f"srtp_unprotect_{cipher} rejected "
                                        f"genuine rows ({label})")
             require(max_abs_err(torch, ku, sk.srtp_unprotect_plain(
@@ -3461,6 +3479,13 @@ def profile_kernels(torch, dev, floor_ms: float, chain: dict) -> dict:
                 _crypto_times(torch, fn, name + "_kernel", plain), nbytes,
                 ops, floor_ms, chain_ms)
             emit("kernel_vs_plain", **rows[name])
+    lib = kbuild.library()
+    srtp_f8_phases(torch, dev, lib, f8_cases, "this tree")
+    srtp_f8_plans(torch, dev, lib, f8_cases)
+    if parent_lib is not None:
+        if hasattr(parent_lib, "ljt_srtp_f8_phases"):
+            srtp_f8_phases(torch, dev, parent_lib, f8_cases, "parent")
+        srtp_f8_turns(torch, dev, parent_lib, f8_cases)
     return rows
 
 
@@ -4063,13 +4088,16 @@ def _recorded_launch(fn):
     return out, seen[0]
 
 
-def kernel_turns(torch, dev, parent_lib, specs, line: str) -> None:
+def kernel_turns(torch, dev, parent_lib, specs, line: str,
+                 sums=None) -> None:
     """The parent's kernels against this tree's on the same launches, in
     turns (parent, this, this, parent), each turn the profiler's mean
     kernel duration over 50 launches; `specs` are (label, outputs, (entry,
     args)): the C entry (without `ljt_`) and its arguments, which stay
     valid while the outputs live.  Prints a line named `line`: each
-    side's mean, its two turns' spread and the ratio."""
+    side's mean, its two turns' spread and the ratio; `sums` (a name ->
+    the labels of its launches) adds each name's turns summed over its
+    launches."""
     from libjitsi_tpu_torch.kernels import build as kbuild
 
     out = {}
@@ -4085,6 +4113,11 @@ def kernel_turns(torch, dev, parent_lib, specs, line: str) -> None:
             turns_ms=t, parent_ms=parent, new_ms=new,
             parent_spread_ms=abs(t[0] - t[3]), new_spread_ms=abs(t[1] - t[2]),
             new_over_parent=new / parent)
+    for name, labels in (sums or {}).items():
+        t = [sum(out[k]["turns_ms"][i] for k in labels) for i in range(4)]
+        parent, new = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        out[name] = dict(turns_ms=t, parent_ms=parent, new_ms=new,
+                         new_over_parent=new / parent)
     emit(line, order="parent, this tree, this tree, parent", launches=out)
 
 
@@ -4435,16 +4468,23 @@ F8_PHASE_SLOTS = 40        # `srtp_fanout.cu` kF8PhaseSlots
 
 
 def _f8_split(stamps: np.ndarray, plan) -> dict:
-    """H-F8's split from its phase probe's stamps ([tiles, 40] clock64
-    words, `srtp_fanout.cu`): medians over the tiles of set-up, IV' (where
+    """An F8 tile's split from its phase probe's stamps ([tiles, 40]
+    clock64 words: H-F8's, `srtp_fanout.cu`, and K's and L's,
+    `srtp_f8.cu`): medians over the tiles of set-up (and, where thread 0
+    stamps them, its rows' loads, its slicing and the rest), IV' (where
     the form stamps it apart), the chains (set-up done to the last chain's
     end, IV' included), the hash after the chains (the last chain's end to
-    the hash's join: the tag's lag), the store and the tile (median and
-    slowest); the warps that walk chains and that hash a tile; and the
-    chain warps that share an SM sub-partition (`%warpid` mod 4) with
-    another chain warp: the most on one, and the share of chain warps
-    that share one, and the share of hashing warps (that walk no chain)
-    on the sub-partition of a chain warp of their SM."""
+    the join: the tag's lag; the join is the later of the join barrier's
+    stamp and the last warp's own end, since a clock read after a barrier
+    may issue before the last warp arrives), the last hash's end less the
+    last chain's (negative where the hash ends first), the store and the
+    tile (median and slowest); the warps that walk chains and that hash a
+    tile; the chain warps that share an SM sub-partition (`%warpid` mod
+    4) with another chain warp: the most on one, and the share of chain
+    warps that share one, and the share of hashing warps (that walk no
+    chain) on the sub-partition of a chain warp of their SM; and the
+    tiles an SM ran at once and the share of tiles that started after a
+    tile on their SM had ended (a second wave)."""
     tiles = int(plan[2])
     s = stamps[:tiles].astype(np.int64)
     warps = s[:, 16:].reshape(tiles, 8, 3)
@@ -4466,16 +4506,42 @@ def _f8_split(stamps: np.ndarray, plan) -> dict:
     def med(v):
         return float(np.median(v))
 
+    hash_end = np.where(hashes, warps[:, :, 2], 0).max(axis=1)
+    join = np.maximum(s[:, 4], np.maximum(chain_end, hash_end))
     per_sm = np.bincount(s[:, 6])
     slow = int(np.argmax(s[:, 5] - s[:, 0]))
+    extra = {}
+    if s[:, 9].any():
+        # thread 0's set-up stamps: its rows' loads, then its slicing
+        rows_done = s[:, 9]
+        sliced = np.where(s[:, 10] != 0, s[:, 10], rows_done)
+        extra.update(setup_rows_cycles=med(rows_done - s[:, 0]),
+                     setup_slicing_cycles=(med(s[:, 10] - rows_done)
+                                           if s[:, 10].any() else
+                                           "with the rows' loads"),
+                     setup_rest_cycles=med(s[:, 1] - sliced))
+    if hashes.any():
+        ends = np.where(chains, warps[:, :, 1], 0).max(axis=1)
+        extra["hash_end_after_chain_end_cycles"] = med(hash_end - ends)
+    late, overlap = 0, [0]
+    for sm in np.unique(s[:, 6]):
+        on = s[s[:, 6] == sm]
+        late += int((on[:, 0] > on[:, 5].min()).sum())
+        cur = 0
+        for _, d in sorted([(a, 1) for a in on[:, 0]]
+                           + [(b, -1) for b in on[:, 5]]):
+            cur += d
+            overlap.append(cur)
     return dict(
-        tiles=tiles, rows_per_tile=int(plan[0]), smem_bytes=int(plan[1]),
+        **extra, tiles_at_once_on_an_sm_max=int(max(overlap)),
+        second_wave_share=late / tiles, tiles=tiles,
+        rows_per_tile=int(plan[0]), smem_bytes=int(plan[1]),
         slowest_tile=dict(
             set_up=int(s[slow, 1] - s[slow, 0]),
             iv_prime=int(s[slow, 2] - s[slow, 1]) if s[slow, 2] else None,
             chains=int(chain_end[slow] - s[slow, 1]),
-            hash_after_chains=int(s[slow, 4] - chain_end[slow]),
-            store=int(s[slow, 5] - s[slow, 4])),
+            hash_after_chains=int(join[slow] - chain_end[slow]),
+            store=int(s[slow, 5] - join[slow])),
         chain_cycles_p10_p90=[float(np.percentile(chain_end - s[:, 1], q))
                               for q in (10, 90)],
         sms_used=int((per_sm > 0).sum()), tiles_per_sm_max=int(per_sm.max()),
@@ -4483,8 +4549,8 @@ def _f8_split(stamps: np.ndarray, plan) -> dict:
         iv_prime_cycles=(med(s[:, 2] - s[:, 1]) if s[:, 2].any()
                          else "not apart from the chain"),
         chain_cycles=med(chain_end - s[:, 1]),
-        hash_after_chain_cycles=med(s[:, 4] - chain_end),
-        store_cycles=med(s[:, 5] - s[:, 4]),
+        hash_after_chain_cycles=med(join - chain_end),
+        store_cycles=med(s[:, 5] - join),
         tile_cycles=med(s[:, 5] - s[:, 0]),
         tile_cycles_max=int((s[:, 5] - s[:, 0]).max()),
         chain_warps_per_tile=med(chains.sum(1)),
@@ -4535,6 +4601,117 @@ def f8_fanout_phases(torch, dev, lib, cases, which: str) -> None:
         out[label] = dict(probe_ms=probe_ms,
                           **_f8_split(stamps.cpu().numpy(), plan))
     emit("f8_fanout_phases", tree=which, launches=out)
+
+
+def srtp_f8_phases(torch, dev, lib, cases, which: str, per_sm: int = 0,
+                   quiet: bool = False) -> dict:
+    """K's and L's phase probe (`ljt_srtp_f8_phases`: their tile with
+    clock64 stamps, AES-128) of `lib` at each of `cases` (label, the
+    protect arguments, the unprotect arguments, tab_f8, K's and L's
+    outputs from their wrappers), planned for `per_sm` tiles an SM (0: as
+    the shipped kernels plan): for protect and unprotect, the probe's
+    time on the card and `_f8_split` (set-up: thread 0's rows, its
+    slicing, the rest; IV'; the chains; the hash's end and lag behind
+    them; the store; the sub-partition of chain and hashing warps; tiles
+    an SM at once and a second wave's share), after checking it writes
+    what the shipped kernel wrote.  Prints an `srtp_f8_phases` line named
+    `which` unless `quiet`."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    out = {}
+    for label, args, uargs, tab_f8, kp, ku in cases:
+        split = {}
+        for name, unprotect, a, want in (("protect", 0, args, kp),
+                                         ("unprotect", 1, uargs, ku)):
+            tab_rk, tab_mid, stream, data, length, off, iv, roc = a
+            n, width = data.shape
+            res = torch.empty_like(data)
+            res_len = torch.empty_like(length)
+            ok = torch.zeros(n, dtype=torch.bool, device=dev)
+            stamps = torch.zeros((n, F8_PHASE_SLOTS), dtype=torch.int64,
+                                 device=dev)
+            plan = np.zeros(4, np.int32)
+
+            def probe():
+                kbuild.check(lib.ljt_srtp_f8_phases(
+                    tab_rk.data_ptr(), tab_f8.data_ptr(), tab_mid.data_ptr(),
+                    stream.data_ptr(), tab_rk.shape[0], data.data_ptr(),
+                    length.data_ptr(), off.data_ptr(), iv.data_ptr(),
+                    roc.data_ptr(), res.data_ptr(), res_len.data_ptr(),
+                    ok.data_ptr(), stamps.data_ptr(), plan.ctypes.data, n,
+                    width, TAG, unprotect, per_sm,
+                    kbuild.stream_handle(dev)), "srtp_f8_phases")
+
+            probe_ms = device_ms(torch, probe, 20, "srtp_f8_phases_kernel")
+            stamps.zero_()
+            probe()                  # the stamps of one warm launch
+            torch.cuda.synchronize()
+            got = (res, res_len, ok) if unprotect else (res, res_len)
+            require(max_abs_err(torch, got, want) == 0,
+                    f"the F8 phase probe ({which}, {per_sm or 'shipped'} "
+                    f"tiles an SM) differs from {name} at {label}")
+            split[name] = dict(probe_ms=probe_ms, threads=int(plan[3]),
+                               **_f8_split(stamps.cpu().numpy(), plan))
+        out[label] = split
+    if not quiet:
+        emit("srtp_f8_phases", tree=which,
+             tiles_per_sm=per_sm or "as shipped", launches=out)
+    return out
+
+
+F8_PLANS = (1, 2, 4)        # tiles an SM tried by `srtp_f8_plans`
+
+
+def srtp_f8_plans(torch, dev, lib, cases) -> None:
+    """K's and L's tile planned for each of F8_PLANS tiles an SM (the
+    phase probe, `srtp_f8_phases`): its time on the card at each of the
+    mix batch's launches, their sums, and the rows and threads a tile, so
+    the shipped plan is read against the others.  Prints an
+    `srtp_f8_plans` line."""
+    out = {}
+    for k in F8_PLANS:
+        res = srtp_f8_phases(torch, dev, lib, cases, "this tree", k, True)
+        out[k] = dict(
+            protect_mix_batch_ms=sum(v["protect"]["probe_ms"]
+                                     for v in res.values()),
+            unprotect_mix_batch_ms=sum(v["unprotect"]["probe_ms"]
+                                       for v in res.values()),
+            launches={lab: dict(rows_per_tile=v["protect"]["rows_per_tile"],
+                                threads=v["protect"]["threads"],
+                                tiles=v["protect"]["tiles"],
+                                protect_ms=v["protect"]["probe_ms"],
+                                unprotect_ms=v["unprotect"]["probe_ms"])
+                      for lab, v in res.items()})
+    emit("srtp_f8_plans", tiles_per_sm=out)
+
+
+def srtp_f8_turns(torch, dev, parent_lib, cases) -> None:
+    """K and L of the parent against this tree's at each of the mix
+    batch's launches and summed over the batch, in turns
+    (`kernel_turns`).  Prints an `srtp_f8_turns` line."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    specs, sums = [], {}
+    for label, args, uargs, tab_f8, _kp, _ku in cases:
+        for entry, a in (("srtp_protect_f8", args),
+                         ("srtp_unprotect_f8", uargs)):
+            tab_rk, tab_mid, stream, data, length, off, iv, roc = a
+            n, width = data.shape
+            res = torch.empty_like(data)
+            res_len = torch.empty_like(length)
+            ok = torch.zeros(n, dtype=torch.bool, device=dev)
+            outs = [res.data_ptr(), res_len.data_ptr()]
+            if entry == "srtp_unprotect_f8":
+                outs.append(ok.data_ptr())
+            specs.append((label, (res, res_len, ok, a), (entry, (
+                tab_rk.data_ptr(), tab_f8.data_ptr(), tab_mid.data_ptr(),
+                stream.data_ptr(), tab_rk.shape[0], data.data_ptr(),
+                length.data_ptr(), off.data_ptr(), iv.data_ptr(),
+                roc.data_ptr(), *outs, n, width, 10, TAG,
+                kbuild.stream_handle(dev)))))
+            sums.setdefault(f"{entry} mix batch", []).append(
+                f"{entry} {label}")
+    kernel_turns(torch, dev, parent_lib, specs, "srtp_f8_turns", sums)
 
 
 def _audio_batch(rng, streams, seq0: int, lens=None):

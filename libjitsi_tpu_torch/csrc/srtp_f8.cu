@@ -23,21 +23,38 @@
 // (AES blocks + SHA-1 compressions at the INT32 pipe's rate, reckoned as
 // C's) is some 40x below the chain's floor at a production-mix batch.
 //
-// Design: the row-tile form of `srtp_tile.cuh` (tiles of at most 32 rows,
-// two an SM, set-up loads issued together; each row's k_e and k_e XOR m
-// schedules sliced once a tile for the gather-free AES core), with the
-// keystream of `f8_tile`: a thread takes two rows and walks both chains in
-// lockstep, one `ljt_aes_encrypt_pair` a step, each block under its own
-// row's key (step 0 under the second schedules); the shorter row stops
-// contributing while the other goes on.
-//  - Protect (K): every warp's threads take row pairs and encrypt the
-//    staged rows in place; then lane r of warp 0 hashes row r || ROC and
-//    writes the tag, as H and I do.
-//  - Unprotect (L): warp 0 hashes the staged ciphertext while warps 1-3
-//    decrypt into a second staged copy that becomes the output, as D does.
-// Simple and right first: a tile of 16 rows keeps 8 threads busy with
-// the chains, and hashing behind the chain (C's `PipedRowMsg`) is left
-// for a later redesign.
+// Design: H-F8's tile (`srtp_fanout.cu`) over the SRTP rows.  The core's
+// pair of blocks nearly fills its SM sub-partition's INT32 pipe, so a
+// chain step costs what the core costs only where a warp walks chains
+// alone on its sub-partition, under keys it reads as they are:
+//  - A tile of up to kRows rows on 128 threads (at most 64 rows) or 256,
+//    one tile an SM where the launch allows (kTilesPerSm: on an H100, 2
+//    tiles an SM timed the same and 4 up to 1.09x slower at the mix
+//    batch's launches).  Chain thread i of warp 0 (and 1) walks rows i
+//    and i + half in lockstep (`f8_chain_rows`), one
+//    `ljt_aes_encrypt_pair` a step.
+//  - Set-up, with every thread: each row's window and IV; each chain
+//    pair's k_e schedules and its k_e XOR m schedules, a round key of the
+//    two rows sliced together into the core's two block slots
+//    (`slice_f8_schedules`, by stream id), so a step reads 8 key words a
+//    round and merges none; the rows staged.
+//  - Protect (K): the chains encrypt in place, each step's blocks counted
+//    in their row's `done`; the warps of the other sub-partitions (2-3,
+//    and 6-7 at 256 threads) hash one row a lane, each 64-byte SHA-1 block
+//    of ciphertext || ROC as soon as the keystream blocks covering it are
+//    XORed (`ChainedRowMsg`), and write the tag: no barrier between the
+//    chain and the hash, which ends once the blocks the last keystream
+//    block reaches and the outer hash are compressed.
+//  - Unprotect (L): the chains decrypt into a second staged copy, which
+//    becomes the output, while the same hashing warps hash the staged
+//    ciphertext and check every tag byte.
+// (On `f8_tile`, with each row's schedules sliced apart and merged on
+// every round of every step, a step took ~4,900 cycles on an H100, and
+// K's hash after every chain of its tile added a 950-byte row's 17
+// compressions.)
+// The phase probe (`ljt_srtp_f8_phases`, below) stamps this tile's
+// set-up, IV', chains, hash and store with clock64; the shipped kernels
+// carry no stamp.
 //
 // Semantics (held byte for byte against `srtp_protect_plain` /
 // `srtp_unprotect_plain` with cipher "f8" in transform/srtp/kernel.py):
@@ -50,99 +67,249 @@
 #include <atomic>
 #include <cstdint>
 
+#include "phases.cuh"
 #include "srtp_tile.cuh"
 
 namespace {
 
 using namespace ljt_tile;
 
-template <int NR>
-__global__ void __launch_bounds__(kThreads) srtp_protect_f8_kernel(
-    const uint8_t* __restrict__ tab_rk, const uint8_t* __restrict__ tab_f8,
-    const uint32_t* __restrict__ tab_mid, const int32_t* __restrict__ stream,
-    int n_streams, const uint8_t* __restrict__ data,
-    const int32_t* __restrict__ length,
-    const int32_t* __restrict__ payload_off, const uint8_t* __restrict__ iv,
-    const uint32_t* __restrict__ roc, uint8_t* __restrict__ out,
-    int32_t* __restrict__ out_len, int n, int width, int tag_len,
-    int tile_rows) {
+constexpr int kMaxThreads = 256;
+constexpr int kNarrowRows = 64;   // rows a 128-thread tile holds: 32 pairs
+constexpr int kRows = 128;        // rows a 256-thread tile holds: 64 pairs
+constexpr int kTilesPerSm = 1;
+// Words a row keeps after the SRTP tile: the keystream blocks of its
+// chain XORed so far.
+constexpr int kExtraWords = 1;
+
+// The phase probe's stamps of a tile (kPhaseSlots words a tile, as
+// H-F8's): its start, set-up done, IV' done (warp 0's first chain), 0, the
+// hash joined, the rows stored, its SM, the global timer (ns) at its
+// start, its rows, thread 0's rows' loads done, its slicing done, the
+// global timer at its end; then for each warp w at kPhaseWarp + 3w its
+// slot on the SM + 1 (`%warpid`; 0 for a warp that walks no chain and
+// hashes no row), its chain's end and its hash's end (lane 0's).
+constexpr int kPhaseSlots = 40;
+constexpr int kPhaseWarp = 16;
+
+#define LJT_F8_PARAMS                                                       \
+  const uint8_t *__restrict__ tab_rk, const uint8_t *__restrict__ tab_f8,   \
+      const uint32_t *__restrict__ tab_mid,                                 \
+      const int32_t *__restrict__ stream, int n_streams,                    \
+      const uint8_t *__restrict__ data, const int32_t *__restrict__ length, \
+      const int32_t *__restrict__ payload_off,                              \
+      const uint8_t *__restrict__ iv, const uint32_t *__restrict__ roc,     \
+      uint8_t *__restrict__ out, int32_t *__restrict__ out_len,             \
+      uint8_t *__restrict__ auth_ok, int n, int width, int tag_len,         \
+      int tile_rows
+#define LJT_F8_ARGS                                                         \
+  tab_rk, tab_f8, tab_mid, stream, n_streams, data, length, payload_off,    \
+      iv, roc, out, out_len, auth_ok, n, width, tag_len, tile_rows
+
+// K's (Unprotect false) and L's tile; `stamps`: the phase probe's
+// (Phases).  out_len is L's out_mlen, and auth_ok L's alone.
+template <int NR, bool Unprotect, bool Phases = false>
+__device__ __forceinline__ void f8_rows_tile(LJT_F8_PARAMS,
+                                             long long* stamps = nullptr) {
+  constexpr TileKind kKind = Unprotect ? kSecondCopy : kInPlace;
   extern __shared__ uint4 smem[];
-  const Tile t = carve(reinterpret_cast<uint32_t*>(smem), tile_rows, n, width,
-                       NR, kInPlace, schedules_of(kF8));
-  load_tile<NR>(t, tab_rk,
-                cipher_rows<kF8>(SrtpRows{stream, n_streams, data, length,
-                                          payload_off, iv, width, 0},
-                                 tab_f8),
-                width);
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem);
+  const Tile t = carve(words, tile_rows, n, width, NR, kKind, 2);
+  int* done = reinterpret_cast<int*>(
+      words + tile_words(tile_rows, width, NR, kKind, 2));
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int threads = blockDim.x;
+  long long* st = nullptr;
+  if constexpr (Phases) {
+    st = stamps + size_t(blockIdx.x) * kPhaseSlots;
+    if (tid == 0) {
+      st[0] = clock64();
+      st[6] = phase_smid();
+      st[7] = phase_globaltimer();
+    }
+  }
+  // set-up: row r's window [payload_off, length less the tag for L) and IV
+  // (thread r), both schedules of each chain pair, the rows
+  const SrtpRows rows{stream, n_streams, data, length, payload_off, iv,
+                      width, Unprotect ? tag_len : 0};
+  if (tid < t.rows) {
+    const SrtpRows::Regs g = rows.load(t.base + tid, {});
+    int off, end;
+    uint32_t ivw[4];
+    rows.window(g, t.base + tid, width, off, end, ivw);
+    const int s = off > 0 ? off : 0;
+    const int e = end < width ? end : width;
+    t.off[tid] = off;
+    t.s[tid] = s;
+    t.e[tid] = e;
+    t.j0[tid] = s < e ? (s - off) >> 4 : 0;
+    t.cnt[tid] = s < e ? ((e - 1 - off) >> 4) - ((s - off) >> 4) + 1 : 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) t.iv[4 * tid + k] = ivw[k];
+    done[tid] = 0;
+  }
+  if constexpr (Phases)
+    if (tid == 0) st[9] = clock64();
+  slice_f8_schedules<NR>(t, tab_rk, tab_f8, stream, n_streams, threads);
+  if constexpr (Phases)
+    if (tid == 0) st[10] = clock64();
+  stage_rows(rows.staged(t.base), t.buf, t.out, t.rows, width, t.stride);
   __syncthreads();
-  // every warp: the F8 chains, two rows a thread, in place
-  f8_tile<NR>(t, t.buf, threadIdx.x, blockDim.x);
-  __syncthreads();
-  if (int(threadIdx.x) < t.rows) {
-    // warp 0: one row a lane, the MAC over ciphertext || ROC and the tag
-    const int r = threadIdx.x;
-    const int row = t.base + r;
-    const int len_in = length[row];
-    const int len = ljt_clamp(len_in, 0, width);
-    uint32_t mid[10];
-    ljt_load_mid(tab_mid, ljt_clamp(stream[row], 0, n_streams - 1), mid);
-    uint32_t d[5];
-    ljt_hmac_sha1(mid, LjtRowMsg(t.buf + r * t.stride, len, width, roc[row]),
-                  d);
-    ljt_put_tag(t.buf + r * t.stride, len, width, d, tag_len);
-    out_len[row] = len_in + tag_len;
+  if constexpr (Phases) {
+    if (tid == 0) {
+      st[1] = clock64();
+      st[8] = t.rows;
+    }
+  }
+  [[maybe_unused]] const int pw = kPhaseWarp + 3 * warp;
+  if (tid < threads / 4) {
+    f8_chain_rows<NR>(t, Unprotect ? t.out : t.buf, done, tid,
+                      Phases && tid == 0 ? st + 2 : nullptr);
+    if constexpr (Phases) {
+      if (lane == 0 && tid < (t.rows + 1) >> 1) {
+        st[pw] = phase_warpid() + 1;
+        st[pw + 1] = clock64();
+      }
+    }
+  } else if ((warp & 3) >= 2) {
+    // warps 2-3 (and 6-7): row h's MAC, then (K) its tag or (L) the check
+    const int h = (warp < 4 ? warp - 2 : warp - 4) * 32 + lane;
+    if (h < t.rows) {
+      const int row = t.base + h;
+      const int len_in = length[row];
+      const int len = ljt_clamp(len_in, 0, width);
+      uint32_t* r = t.buf + h * t.stride;
+      uint32_t mid[10], d[5];
+      ljt_load_mid(tab_mid, ljt_clamp(stream[row], 0, n_streams - 1), mid);
+      if constexpr (Unprotect) {
+        const int mlen = len - tag_len;
+        uint32_t diff = 1;
+        if (mlen >= 0) {
+          ljt_hmac_sha1(mid, LjtRowMsg(r, mlen, width, roc[row]), d);
+          const uint8_t* b = reinterpret_cast<const uint8_t*>(r);
+          diff = 0;
+#pragma unroll
+          for (int k = 0; k < 20; ++k)
+            if (k < tag_len)
+              diff |= uint32_t(b[mlen + k] ^ ljt_digest_byte(d, k));
+        }
+        auth_ok[row] = diff == 0;
+        out_len[row] = len_in - tag_len;
+      } else {
+        const LjtRowMsg msg(r, len, width, roc[row]);
+        ljt_hmac_sha1(mid,
+                      ChainedRowMsg{msg, msg.mlen, done + h, t.off[h],
+                                    t.s[h], t.e[h]},
+                      d);
+        ljt_put_tag(r, len, width, d, tag_len);
+        out_len[row] = len_in + tag_len;
+      }
+      if constexpr (Phases) {
+        if (lane == 0) {
+          st[pw] = phase_warpid() + 1;
+          st[pw + 2] = clock64();
+        }
+      }
+    }
   }
   __syncthreads();
-  store_rows(t.buf, out + size_t(t.base) * width, t.rows, width, t.stride);
+  if constexpr (Phases)
+    if (tid == 0) st[4] = clock64();
+  store_rows(Unprotect ? t.out : t.buf, out + size_t(t.base) * width, t.rows,
+             width, t.stride);
+  if constexpr (Phases) {
+    __syncthreads();
+    if (tid == 0) {
+      st[5] = clock64();
+      st[11] = phase_globaltimer();
+    }
+  }
 }
 
 template <int NR>
-__global__ void __launch_bounds__(kThreads) srtp_unprotect_f8_kernel(
-    const uint8_t* __restrict__ tab_rk, const uint8_t* __restrict__ tab_f8,
-    const uint32_t* __restrict__ tab_mid, const int32_t* __restrict__ stream,
-    int n_streams, const uint8_t* __restrict__ data,
-    const int32_t* __restrict__ length,
-    const int32_t* __restrict__ payload_off, const uint8_t* __restrict__ iv,
-    const uint32_t* __restrict__ roc, uint8_t* __restrict__ out,
-    int32_t* __restrict__ out_mlen, uint8_t* __restrict__ auth_ok, int n,
-    int width, int tag_len, int tile_rows) {
-  extern __shared__ uint4 smem[];
-  const Tile t = carve(reinterpret_cast<uint32_t*>(smem), tile_rows, n, width,
-                       NR, kSecondCopy, schedules_of(kF8));
-  load_tile<NR>(t, tab_rk,
-                cipher_rows<kF8>(SrtpRows{stream, n_streams, data, length,
-                                          payload_off, iv, width, tag_len},
-                                 tab_f8),
-                width);
-  __syncthreads();
-  if (threadIdx.x >= 32) {
-    // warps 1-3: decrypt [payload_off, mlen) into the output copy, two
-    // rows a thread; the tag bytes past mlen stay
-    f8_tile<NR>(t, t.out, threadIdx.x - 32, blockDim.x - 32);
-  } else if (int(threadIdx.x) < t.rows) {
-    // warp 0: MAC over ciphertext[:mlen] || ROC, then every tag byte
-    const int r = threadIdx.x;
-    const int row = t.base + r;
-    const int len_in = length[row];
-    const int mlen = ljt_clamp(len_in, 0, width) - tag_len;
-    uint32_t diff = 1;
-    if (mlen >= 0) {
-      uint32_t mid[10];
-      ljt_load_mid(tab_mid, ljt_clamp(stream[row], 0, n_streams - 1), mid);
-      uint32_t d[5];
-      ljt_hmac_sha1(mid, LjtRowMsg(t.buf + r * t.stride, mlen, width, roc[row]),
-                    d);
-      const uint8_t* b = reinterpret_cast<const uint8_t*>(t.buf + r * t.stride);
-      diff = 0;
-#pragma unroll
-      for (int k = 0; k < 20; ++k)
-        if (k < tag_len) diff |= uint32_t(b[mlen + k] ^ ljt_digest_byte(d, k));
-    }
-    auth_ok[row] = diff == 0;
-    out_mlen[row] = len_in - tag_len;
+__global__ void __launch_bounds__(kMaxThreads)
+    srtp_protect_f8_kernel(LJT_F8_PARAMS) {
+  f8_rows_tile<NR, false>(LJT_F8_ARGS);
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kMaxThreads)
+    srtp_unprotect_f8_kernel(LJT_F8_PARAMS) {
+  f8_rows_tile<NR, true>(LJT_F8_ARGS);
+}
+
+// The phase probe's instances of K and L (AES-128): the same tile with
+// its clock64 stamps; on no path.
+template <bool Unprotect>
+__global__ void __launch_bounds__(kMaxThreads)
+    srtp_f8_phases_kernel(LJT_F8_PARAMS, long long* stamps) {
+  f8_rows_tile<10, Unprotect, true>(LJT_F8_ARGS, stamps);
+}
+
+// The launch of K or L, or of their phase probe (AES-128 only, which also
+// takes the stamps and writes the plan: rows a tile, dynamic shared
+// memory, tiles, threads).  A tile takes ceil(n / (per_sm * SMs)) rows,
+// at most kRows and as many as fit the SM's shared memory, on 128
+// threads where that is at most kNarrowRows rows, else 256.
+template <bool Unprotect, bool Phases = false>
+int launch_f8(const void* tab_rk, const void* tab_f8, const void* tab_mid,
+              const void* stream, int n_streams, const void* data,
+              const void* length, const void* payload_off, const void* iv,
+              const void* roc, void* out, void* out_len, void* auth_ok,
+              int n, int width, int nr, int tag_len, void* cuda_stream,
+              int per_sm = kTilesPerSm, long long* stamps = nullptr,
+              int* plan_out = nullptr) {
+  if (n <= 0) return 0;
+  if ((nr != 10 && nr != 14) || (Phases && nr != 10) || n_streams <= 0 ||
+      per_sm < 1)
+    return int(cudaErrorInvalidValue);
+  static std::atomic<unsigned> done[2];
+  auto kernel = [nr] {
+    if constexpr (Phases)
+      return srtp_f8_phases_kernel<Unprotect>;
+    else if constexpr (Unprotect)
+      return nr == 10 ? srtp_unprotect_f8_kernel<10>
+                      : srtp_unprotect_f8_kernel<14>;
+    else
+      return nr == 10 ? srtp_protect_f8_kernel<10> : srtp_protect_f8_kernel<14>;
+  }();
+  Plan p;
+  const int rc =
+      plan(kernel, done[nr == 14], n, width, nr,
+           Unprotect ? kSecondCopy : kInPlace, per_sm, &p, 2, kExtraWords,
+           kRows);
+  if (rc) return rc;
+  const int threads = p.rows <= kNarrowRows ? kMaxThreads / 2 : kMaxThreads;
+  if constexpr (Phases) {
+    plan_out[0] = p.rows;
+    plan_out[1] = p.smem;
+    plan_out[2] = p.grid;
+    plan_out[3] = threads;
   }
-  __syncthreads();
-  store_rows(t.out, out + size_t(t.base) * width, t.rows, width, t.stride);
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const auto* rk = static_cast<const uint8_t*>(tab_rk);
+  const auto* f8 = static_cast<const uint8_t*>(tab_f8);
+  const auto* mid = static_cast<const uint32_t*>(tab_mid);
+  const auto* sid = static_cast<const int32_t*>(stream);
+  const auto* d = static_cast<const uint8_t*>(data);
+  const auto* ln = static_cast<const int32_t*>(length);
+  const auto* off = static_cast<const int32_t*>(payload_off);
+  const auto* ivp = static_cast<const uint8_t*>(iv);
+  const auto* rocp = static_cast<const uint32_t*>(roc);
+  auto* o = static_cast<uint8_t*>(out);
+  auto* olen = static_cast<int32_t*>(out_len);
+  auto* ok = static_cast<uint8_t*>(auth_ok);
+  if constexpr (Phases)
+    kernel<<<p.grid, threads, p.smem, s>>>(rk, f8, mid, sid, n_streams, d, ln,
+                                           off, ivp, rocp, o, olen, ok, n,
+                                           width, tag_len, p.rows, stamps);
+  else
+    kernel<<<p.grid, threads, p.smem, s>>>(rk, f8, mid, sid, n_streams, d, ln,
+                                           off, ivp, rocp, o, olen, ok, n,
+                                           width, tag_len, p.rows);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -155,27 +322,9 @@ extern "C" int ljt_srtp_protect_f8(const void* tab_rk, const void* tab_f8,
                                    const void* roc, void* out, void* out_len,
                                    int n, int width, int nr, int tag_len,
                                    void* cuda_stream) {
-  if (n <= 0) return 0;
-  if ((nr != 10 && nr != 14) || n_streams <= 0)
-    return int(cudaErrorInvalidValue);
-  static std::atomic<unsigned> done[2];
-  auto kernel = nr == 10 ? srtp_protect_f8_kernel<10>
-                         : srtp_protect_f8_kernel<14>;
-  Plan p;
-  const int rc = plan(kernel, done[nr == 14], n, width, nr, kInPlace,
-                      kCtasPerSm, &p, schedules_of(kF8));
-  if (rc) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
-  kernel<<<p.grid, kThreads, p.smem, s>>>(
-      static_cast<const uint8_t*>(tab_rk), static_cast<const uint8_t*>(tab_f8),
-      static_cast<const uint32_t*>(tab_mid),
-      static_cast<const int32_t*>(stream), n_streams,
-      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(length),
-      static_cast<const int32_t*>(payload_off),
-      static_cast<const uint8_t*>(iv), static_cast<const uint32_t*>(roc),
-      static_cast<uint8_t*>(out), static_cast<int32_t*>(out_len), n, width,
-      tag_len, p.rows);
-  return int(cudaGetLastError());
+  return launch_f8<false>(tab_rk, tab_f8, tab_mid, stream, n_streams, data,
+                          length, payload_off, iv, roc, out, out_len, nullptr,
+                          n, width, nr, tag_len, cuda_stream);
 }
 
 extern "C" int ljt_srtp_unprotect_f8(const void* tab_rk, const void* tab_f8,
@@ -187,25 +336,34 @@ extern "C" int ljt_srtp_unprotect_f8(const void* tab_rk, const void* tab_f8,
                                      void* out_mlen, void* auth_ok, int n,
                                      int width, int nr, int tag_len,
                                      void* cuda_stream) {
-  if (n <= 0) return 0;
-  if ((nr != 10 && nr != 14) || n_streams <= 0)
+  return launch_f8<true>(tab_rk, tab_f8, tab_mid, stream, n_streams, data,
+                         length, payload_off, iv, roc, out, out_mlen, auth_ok,
+                         n, width, nr, tag_len, cuda_stream);
+}
+
+// The phase probe of K and L (AES-128): the shipped tile with clock64
+// stamps, kPhaseSlots a tile in stamps [tiles * kPhaseSlots], and its plan
+// (rows a tile, dynamic shared memory bytes, tiles, threads) in plan_out
+// [4], planned for `per_sm` tiles an SM (0: as the shipped kernels plan).
+// out_len is L's out_mlen when `unprotect`; auth_ok is L's alone.
+extern "C" int ljt_srtp_f8_phases(
+    const void* tab_rk, const void* tab_f8, const void* tab_mid,
+    const void* stream, int n_streams, const void* data, const void* length,
+    const void* payload_off, const void* iv, const void* roc, void* out,
+    void* out_len, void* auth_ok, void* stamps, void* plan_out, int n,
+    int width, int tag_len, int unprotect, int per_sm, void* cuda_stream) {
+  if (stamps == nullptr || plan_out == nullptr || per_sm < 0)
     return int(cudaErrorInvalidValue);
-  static std::atomic<unsigned> done[2];
-  auto kernel = nr == 10 ? srtp_unprotect_f8_kernel<10>
-                         : srtp_unprotect_f8_kernel<14>;
-  Plan p;
-  const int rc = plan(kernel, done[nr == 14], n, width, nr, kSecondCopy,
-                      kCtasPerSm, &p, schedules_of(kF8));
-  if (rc) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
-  kernel<<<p.grid, kThreads, p.smem, s>>>(
-      static_cast<const uint8_t*>(tab_rk), static_cast<const uint8_t*>(tab_f8),
-      static_cast<const uint32_t*>(tab_mid),
-      static_cast<const int32_t*>(stream), n_streams,
-      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(length),
-      static_cast<const int32_t*>(payload_off),
-      static_cast<const uint8_t*>(iv), static_cast<const uint32_t*>(roc),
-      static_cast<uint8_t*>(out), static_cast<int32_t*>(out_mlen),
-      static_cast<uint8_t*>(auth_ok), n, width, tag_len, p.rows);
-  return int(cudaGetLastError());
+  auto* st = static_cast<long long*>(stamps);
+  auto* po = static_cast<int*>(plan_out);
+  const int k = per_sm ? per_sm : kTilesPerSm;
+  return unprotect
+             ? launch_f8<true, true>(tab_rk, tab_f8, tab_mid, stream,
+                                     n_streams, data, length, payload_off, iv,
+                                     roc, out, out_len, auth_ok, n, width, 10,
+                                     tag_len, cuda_stream, k, st, po)
+             : launch_f8<false, true>(tab_rk, tab_f8, tab_mid, stream,
+                                      n_streams, data, length, payload_off,
+                                      iv, roc, out, out_len, nullptr, n, width,
+                                      10, tag_len, cuda_stream, k, st, po);
 }

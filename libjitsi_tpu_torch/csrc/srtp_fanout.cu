@@ -303,101 +303,6 @@ constexpr int kF8ExtraWords = 1;
 constexpr int kF8PhaseSlots = 40;
 constexpr int kF8PhaseWarp = 16;
 
-// A copy's MAC message as its hashing lane reads it behind the chain:
-// before each 64-byte block it waits until the chain has XORed every
-// keystream block that covers the block's window bytes (`done`).
-struct ChainedRowMsg {
-  LjtRowMsg msg;
-  int mlen;
-  const int* done;
-  int off, s, e;
-};
-
-__device__ __forceinline__ void ljt_msg_block(const ChainedRowMsg& m, int b,
-                                              uint32_t w[16]) {
-  const int last = (64 * b + 64 < m.e ? 64 * b + 64 : m.e) - 1;
-  if (last >= m.s) {
-    const int need = ((last - m.off) >> 4) + 1;
-    while (*reinterpret_cast<const volatile int*>(m.done) < need)
-      __nanosleep(64);
-    __threadfence_block();
-  }
-  ljt_msg_block(m.msg, b, w);
-}
-
-// Both round-key schedules of a tile's chain pairs (`f8_chain_rows`: rows
-// i and i + half), by leg (recv, clamped into the tables): each round key
-// of rows i and i + half sliced together, k_e from tab_rk into t.rk and
-// k_e XOR m from tab_f8 into t.rk2 at pair i.  A task is one round key of
-// one pair, in the order (schedule, round, pair), so a warp's lanes
-// mostly share a round and its form of the key shift; every thread takes
-// tasks tid, tid + kF8Threads, ..., kInFlight pairs of loads in flight.
-template <int NR>
-__device__ __forceinline__ void slice_f8_schedules(const Tile& t,
-                                                   const uint8_t* tab_rk,
-                                                   const uint8_t* tab_f8,
-                                                   const int32_t* recv,
-                                                   int n_streams) {
-  const int half = (t.rows + 1) >> 1;
-  const int per = (NR + 1) * half;
-  const int tasks = 2 * per;
-  // the table row of round `round` of row r's schedule `sch`, 16 bytes
-  auto key = [&](int sch, int r, int round) {
-    const int leg = ljt_clamp(recv[t.base + r], 0, n_streams - 1);
-    return (sch ? tab_f8 : tab_rk) + (size_t(leg) * (NR + 1) + round) * 16;
-  };
-  for (int q0 = threadIdx.x; q0 < tasks; q0 += kInFlight * kF8Threads) {
-    uint4 ka[kInFlight], kb[kInFlight];
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int q = q0 + u * kF8Threads;
-      if (q < tasks) {
-        const int sch = q >= per;
-        const int rem = q - sch * per;
-        const int round = rem / half;
-        const int i = rem - round * half;
-        const int rb = i + half < t.rows ? i + half : i;
-        if (aligned(sch ? tab_f8 : tab_rk, 16)) {
-          ka[u] = *reinterpret_cast<const uint4*>(key(sch, i, round));
-          kb[u] = *reinterpret_cast<const uint4*>(key(sch, rb, round));
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int q = q0 + u * kF8Threads;
-      if (q < tasks) {
-        const int sch = q >= per;
-        const int rem = q - sch * per;
-        const int round = rem / half;
-        const int i = rem - round * half;
-        const int rb = i + half < t.rows ? i + half : i;
-        uint32_t wa[4], wb[4], o[8];
-        if (aligned(sch ? tab_f8 : tab_rk, 16)) {
-          wa[0] = ljt_bswap32(ka[u].x);
-          wa[1] = ljt_bswap32(ka[u].y);
-          wa[2] = ljt_bswap32(ka[u].z);
-          wa[3] = ljt_bswap32(ka[u].w);
-          wb[0] = ljt_bswap32(kb[u].x);
-          wb[1] = ljt_bswap32(kb[u].y);
-          wb[2] = ljt_bswap32(kb[u].z);
-          wb[3] = ljt_bswap32(kb[u].w);
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            wa[c] = ljt_load_be32(key(sch, i, round) + 4 * c);
-            wb[c] = ljt_load_be32(key(sch, rb, round) + 4 * c);
-          }
-        }
-        ljt_aes_slice_keys(round, wa, wb, o);
-        uint32_t* d = (sch ? t.rk2 : t.rk) + i * rk_stride(NR) + 8 * round;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) d[c] = o[c];
-      }
-    }
-  }
-}
-
 // H-F8's tile: set-up with all threads; then the chains on warps 0-1
 // while warps 2-3 and 6-7 (the other two sub-partitions) hash one copy a
 // lane behind them; then the store.  `stamps`: the phase probe's
@@ -447,7 +352,7 @@ __device__ __forceinline__ void fanout_f8_copies(
     for (int k = 0; k < 4; ++k) t.iv[4 * tid + k] = ivw[k];
     done[tid] = 0;
   }
-  slice_f8_schedules<NR>(t, tab_rk, tab_f8, recv, n_streams);
+  slice_f8_schedules<NR>(t, tab_rk, tab_f8, recv, n_streams, kF8Threads);
   stage_rows(GatheredRows{data, src, n_src, t.base, width}, t.buf, nullptr,
              t.rows, width, t.stride);
   __syncthreads();

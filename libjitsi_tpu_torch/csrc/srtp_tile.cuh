@@ -2,8 +2,8 @@
 // (`srtp_cm.cu`), K and L (`srtp_f8.cu`), H (`srtp_fanout.cu`), I and J
 // (`srtcp_cm.cu`), the F8 and NULL instances of C, D, I and J, and the
 // AEAD-GCM tiles of M, N and H's GCM instance (`gcm_tile.cuh`); H's F8
-// instance takes its set-up pieces and carving with a tile of its own
-// (`srtp_fanout.cu`).
+// instance and K and L take its set-up pieces and carving with an F8 tile
+// of their own (`srtp_fanout.cu`, `srtp_f8.cu`).
 //
 // One CTA of 128 threads takes a tile of rows, so set-up is paid per tile
 // and each kind of work is lane-dense:
@@ -49,11 +49,13 @@
 // (`kSchedules`): 1 by default (k_e), 2 for AES-F8 (k_e and k_e XOR m,
 // `tab_f8`), 0 for the NULL cipher, whose tiles load no round keys.
 //
-// AES-F8 (RFC 3711 §4.1.2; K, L and the F8 instances of I and J) is
-// sequential over a row's blocks, so `f8_tile` gives a thread two rows
-// and walks both chains in lockstep, one pair of blocks a step; H's F8
-// instance walks them the same way in its own tile (`f8_chain_rows`),
-// counting each step so its copies are hashed behind the chains.
+// AES-F8 (RFC 3711 §4.1.2; K, L, H's F8 instance and the F8 instances
+// of I and J) is sequential over a row's blocks, so `f8_tile` (I's and
+// J's) gives a thread two rows and walks both chains in lockstep, one pair
+// of blocks a step; H-F8, K and L walk them the same way in their own
+// tiles (`f8_chain_rows`) under each pair's schedules sliced together
+// (`slice_f8_schedules`), counting each step so H-F8's copies and K's
+// rows are hashed behind the chains (`ChainedRowMsg`).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -633,7 +635,8 @@ __device__ __forceinline__ void f8_tile(const Tile& t, uint32_t* rows,
   }
 }
 
-// AES-F8 as kernel H's F8 instance walks it (`srtp_fanout.cu`): thread i
+// AES-F8 as H's F8 instance, K and L walk it (`srtp_fanout.cu`,
+// `srtp_f8.cu`): thread i
 // of the first half takes rows i and i + half and walks both chains in
 // lockstep as `f8_tile` does, under the pair's schedules sliced together
 // (t.rk2 and t.rk at pair i: block a's slot row i's key, block b's row i
@@ -693,6 +696,105 @@ __device__ __forceinline__ void f8_chain_rows(const Tile& t, uint32_t* rows,
     for (int k = 0; k < 4; ++k) {
       pa[k] = a[k];
       pb[k] = b[k];
+    }
+  }
+}
+
+// A row's MAC message as its hashing lane reads it behind the chain
+// (`f8_chain_rows`; H-F8's copies, K's rows):
+// before each 64-byte block it waits until the chain has XORed every
+// keystream block that covers the block's window bytes (`done`).
+struct ChainedRowMsg {
+  LjtRowMsg msg;
+  int mlen;
+  const int* done;
+  int off, s, e;
+};
+
+__device__ __forceinline__ void ljt_msg_block(const ChainedRowMsg& m, int b,
+                                              uint32_t w[16]) {
+  const int last = (64 * b + 64 < m.e ? 64 * b + 64 : m.e) - 1;
+  if (last >= m.s) {
+    const int need = ((last - m.off) >> 4) + 1;
+    while (*reinterpret_cast<const volatile int*>(m.done) < need)
+      __nanosleep(64);
+    __threadfence_block();
+  }
+  ljt_msg_block(m.msg, b, w);
+}
+
+// Both round-key schedules of a tile's chain pairs (`f8_chain_rows`: rows
+// i and i + half), by table row (`ids`, clamped into the tables: H-F8's
+// legs, K's and L's streams): each round key of rows i and i + half
+// sliced together, k_e from tab_rk into t.rk and k_e XOR m from tab_f8
+// into t.rk2 at pair i.  A task is one round key of one pair, in the
+// order (schedule, round, pair), so a warp's lanes mostly share a round
+// and its form of the key shift; each of the CTA's `threads` threads
+// takes tasks tid, tid + threads, ..., kInFlight pairs of loads in
+// flight.
+template <int NR>
+__device__ __forceinline__ void slice_f8_schedules(const Tile& t,
+                                                   const uint8_t* tab_rk,
+                                                   const uint8_t* tab_f8,
+                                                   const int32_t* ids,
+                                                   int n_streams,
+                                                   int threads) {
+  const int half = (t.rows + 1) >> 1;
+  const int per = (NR + 1) * half;
+  const int tasks = 2 * per;
+  // the table row of round `round` of row r's schedule `sch`, 16 bytes
+  auto key = [&](int sch, int r, int round) {
+    const int id = ljt_clamp(ids[t.base + r], 0, n_streams - 1);
+    return (sch ? tab_f8 : tab_rk) + (size_t(id) * (NR + 1) + round) * 16;
+  };
+  for (int q0 = threadIdx.x; q0 < tasks; q0 += kInFlight * threads) {
+    uint4 ka[kInFlight], kb[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int q = q0 + u * threads;
+      if (q < tasks) {
+        const int sch = q >= per;
+        const int rem = q - sch * per;
+        const int round = rem / half;
+        const int i = rem - round * half;
+        const int rb = i + half < t.rows ? i + half : i;
+        if (aligned(sch ? tab_f8 : tab_rk, 16)) {
+          ka[u] = *reinterpret_cast<const uint4*>(key(sch, i, round));
+          kb[u] = *reinterpret_cast<const uint4*>(key(sch, rb, round));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int q = q0 + u * threads;
+      if (q < tasks) {
+        const int sch = q >= per;
+        const int rem = q - sch * per;
+        const int round = rem / half;
+        const int i = rem - round * half;
+        const int rb = i + half < t.rows ? i + half : i;
+        uint32_t wa[4], wb[4], o[8];
+        if (aligned(sch ? tab_f8 : tab_rk, 16)) {
+          wa[0] = ljt_bswap32(ka[u].x);
+          wa[1] = ljt_bswap32(ka[u].y);
+          wa[2] = ljt_bswap32(ka[u].z);
+          wa[3] = ljt_bswap32(ka[u].w);
+          wb[0] = ljt_bswap32(kb[u].x);
+          wb[1] = ljt_bswap32(kb[u].y);
+          wb[2] = ljt_bswap32(kb[u].z);
+          wb[3] = ljt_bswap32(kb[u].w);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            wa[c] = ljt_load_be32(key(sch, i, round) + 4 * c);
+            wb[c] = ljt_load_be32(key(sch, rb, round) + 4 * c);
+          }
+        }
+        ljt_aes_slice_keys(round, wa, wb, o);
+        uint32_t* d = (sch ? t.rk2 : t.rk) + i * rk_stride(NR) + 8 * round;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) d[c] = o[c];
+      }
     }
   }
 }

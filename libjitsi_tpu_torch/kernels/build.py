@@ -112,6 +112,9 @@ _SIGNATURES = {
                                _I, _P],
     "ljt_srtp_fanout_f8_phases": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                                   _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # K's and L's phase probe (clock64 stamps; on no path)
+    "ljt_srtp_f8_phases": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ljt_mix_minus": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ljt_g711_encode": [_P, _P, _I, _I, _P],
     "ljt_g711_decode": [_P, _P, _I, _I, _P],

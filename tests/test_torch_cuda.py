@@ -704,6 +704,8 @@ def _edge_lengths(n, hdr, tag_len, width, rng, trailer=0):
 @pytest.mark.parametrize("plane,cipher,key_len,n,width,off", [
     ("srtp", "f8", 16, 4096, 1536, 12),       # a mix batch's rows, one launch
     ("srtp", "f8", 32, 4095, 1536, 13),       # odd rows, windows off a word
+    ("srtp", "f8", 16, 1024, 1536, 12),       # the batch's long launch
+    ("srtp", "f8", 32, 1024, 1536, 12),       # the same under AES-256
     ("srtp", "null", 16, 4096, 1536, 12),
     ("srtcp", "f8", 16, 1100, 1536, 8),
     ("srtcp", "null", 16, 1100, 1536, 8),
@@ -1123,6 +1125,55 @@ def test_fill_and_f8_phase_probes_match_shipped(cuda_device):
         f8_plan.ctypes.data, n, width, 10, stream_h) == 0
     torch.cuda.synchronize()
     assert _same(out, got[0]) and _same(out_len, got[1])
+
+
+def test_srtp_f8_phase_probe_matches_shipped(cuda_device):
+    """K's and L's phase probe (`ljt_srtp_f8_phases`, the shipped tile with
+    clock64 stamps) writes what K and L write at a mix batch's two widths,
+    planned as shipped and for 1, 2 and 4 tiles an SM."""
+    rng = np.random.default_rng(16)
+    s, tag_len = 64, 10
+    d = cuda_device
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(d)
+
+    tab_rk, tab_f8 = (t(aes.expand_keys_batch(rng.integers(
+        0, 256, (s, 16), np.uint8))) for _ in range(2))
+    tab_mid = t(sha1.hmac_precompute_batch(rng.integers(
+        0, 256, (s, 20), np.uint8)).view(np.int32))
+    lib = kbuild.library()
+    stream_h = kbuild.stream_handle(d)
+    for n, width, plen in ((4096, 224, 100), (1024, 1536, 950)):
+        lens = np.full(n, 12 + plen, np.int32)
+        args = [tab_rk, tab_mid, t(rng.integers(0, s, n).astype(np.int32)),
+                t(rng.integers(0, 256, (n, width), np.uint8)), t(lens),
+                t(np.full(n, 12, np.int32)),
+                t(rng.integers(0, 256, (n, 16), np.uint8)),
+                t(rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32))]
+        kp = srtp_kernel.srtp_protect(*args, tag_len, "f8", tab_f8)
+        uargs = args[:3] + [kp[0], kp[1]] + args[5:]
+        ku = srtp_kernel.srtp_unprotect(*uargs, tag_len, "f8", tab_f8)
+        for unprotect, a, want in ((0, args, kp), (1, uargs, ku)):
+            for per_sm in (0, 1, 2, 4):
+                out = torch.empty_like(a[3])
+                out_len = torch.empty_like(a[4])
+                ok = torch.zeros(n, dtype=torch.bool, device=d)
+                stamps = torch.zeros((n, 40), dtype=torch.int64, device=d)
+                plan = np.zeros(4, np.int32)
+                assert lib.ljt_srtp_f8_phases(
+                    tab_rk.data_ptr(), tab_f8.data_ptr(),
+                    tab_mid.data_ptr(), a[2].data_ptr(), s,
+                    *(x.data_ptr() for x in a[3:]), out.data_ptr(),
+                    out_len.data_ptr(), ok.data_ptr(), stamps.data_ptr(),
+                    plan.ctypes.data, n, width, tag_len, unprotect, per_sm,
+                    stream_h) == 0
+                torch.cuda.synchronize()
+                got = (out, out_len, ok) if unprotect else (out, out_len)
+                assert all(_same(x, y) for x, y in zip(got, want))
+                assert int(plan[2]) * int(plan[0]) >= n
+        assert bool(ku[2].all())
+
 
 
 # H-F8's own tile on the card: MAC messages ending exactly at and inside a

@@ -1033,6 +1033,72 @@ def test_emulated_f8_and_null_instances_match_plain(emu, plane, cipher,
         assert np.array_equal(dec[i, :length[i]], data[i, :length[i]])
 
 
+# K's and L's own tile (at 1 SM one tile of all n rows, at most 128; 128
+# threads up to 64 rows, else 256): chain thread i walks rows i and i +
+# half, the hash runs on warps 2-3 (and 6-7) behind the chains (K) or
+# beside them (L).  An odd row count (the last chain thread has one row),
+# a pair whose rows differ by 50+ keystream blocks (the short row's hash
+# waits on its own count only), AES-256, windows starting off a word, a
+# full 128-row tile and a 2-row one; every case unprotects a tampered row
+# beside genuine ones.
+@pytest.mark.parametrize("case,key_len,n,width,hdr", [
+    ("odd", 16, 9, 224, 12),
+    ("long_short", 16, 4, 1024, 12),
+    ("aes256", 32, 7, 160, 12),
+    ("off13", 16, 6, 160, 13),
+    ("full_tile", 16, 130, 96, 12),
+])
+def test_emulated_kernels_k_l_tiles(emu, case, key_len, n, width, hdr):
+    rng = np.random.default_rng(n + width + hdr)
+    s, tag_len = 5, 10
+    tab_rk, tab_f8 = (aes.expand_keys_batch(
+        rng.integers(0, 256, (s, key_len), np.uint8)) for _ in range(2))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    stream = rng.integers(-1, s + 1, n).astype(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    length = rng.integers(hdr, width - tag_len + 1, n).astype(np.int32)
+    if case == "long_short":
+        length[:] = [width - tag_len, 40, hdr + 20, width - tag_len - 5]
+        assert (length[0] - length[2]) // 16 >= 50
+    off = np.full(n, hdr, np.int32)
+    iv = rng.integers(0, 256, (n, 16), np.uint8)
+    iv[::3, 12:] = 0xFF
+    roc = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+    nr = tab_rk.shape[1] - 1
+    keys = (_p(tab_rk), _p(tab_f8), _p(tab_mid), _p(stream), s)
+    t_args = [T(tab_rk), T(tab_mid), T(stream)]
+    rest = [T(off), T(iv), T(roc)]
+    out = np.zeros_like(data)
+    out_len = np.zeros(n, np.int32)
+    assert emu.ljt_srtp_protect_f8(
+        *keys, _p(data), _p(length), _p(off), _p(iv), _p(roc), _p(out),
+        _p(out_len), n, width, nr, tag_len, None) == 0
+    want = srtp_kernel.srtp_protect_plain(
+        *t_args, T(data), T(length), *rest, tag_len, "f8", T(tab_f8))
+    assert np.array_equal(out, want[0].numpy())
+    assert np.array_equal(out_len, want[1].numpy())
+
+    wire = out.copy()
+    wlen = np.minimum(out_len, width).astype(np.int32)
+    wire[n // 2, hdr + 1] ^= 0x40                  # a tampered row
+    dec = np.zeros_like(data)
+    mlen = np.zeros(n, np.int32)
+    ok = np.zeros(n, np.uint8)
+    assert emu.ljt_srtp_unprotect_f8(
+        *keys, _p(wire), _p(wlen), _p(off), _p(iv), _p(roc), _p(dec),
+        _p(mlen), _p(ok), n, width, nr, tag_len, None) == 0
+    want = srtp_kernel.srtp_unprotect_plain(
+        *t_args, T(wire), T(wlen), *rest, tag_len, "f8", T(tab_f8))
+    for a, b in zip((dec, mlen, ok.astype(bool)), want):
+        assert np.array_equal(a, b.numpy())
+    genuine = np.ones(n, bool)
+    genuine[n // 2] = False
+    assert ok[genuine].all() and not ok[n // 2]
+    for i in np.nonzero(genuine)[0]:
+        assert np.array_equal(dec[i, :length[i]], data[i, :length[i]])
+
+
 # ------------------------------------------------------- AEAD-GCM: M, N, O
 
 def _aligned(a: np.ndarray) -> np.ndarray:
@@ -1536,3 +1602,59 @@ def test_emulated_gcm_entries_refuse_aes256(emu, entry):
         assert not ek.any()
     assert rc == 1                                 # cudaErrorInvalidValue
     assert not out.any() and not out_len.any() and not ok.any()
+
+
+def test_emulated_srtp_f8_phase_probe(emu):
+    """K's and L's phase probe (`ljt_srtp_f8_phases`, AES-128) writes what
+    the shipped kernels write, plans as they do, and stamps each tile in
+    order: start, thread 0's set-up, set-up done, each chain warp's end
+    before the hash's join, the rows stored; its warps' slots are kept."""
+    rng = np.random.default_rng(41)
+    s, n, width, tag_len = 5, 13, 224, 10
+    tab_rk, tab_f8 = (aes.expand_keys_batch(
+        rng.integers(0, 256, (s, 16), np.uint8)) for _ in range(2))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    stream = rng.integers(0, s, n).astype(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    length = rng.integers(12, width - tag_len + 1, n).astype(np.int32)
+    off = np.full(n, 12, np.int32)
+    iv = rng.integers(0, 256, (n, 16), np.uint8)
+    roc = rng.integers(0, 2 ** 31, n).astype(np.int32)
+    head = (_p(tab_rk), _p(tab_f8), _p(tab_mid), _p(stream), s)
+    out, pout = np.zeros_like(data), np.zeros_like(data)
+    out_len, pout_len = np.zeros(n, np.int32), np.zeros(n, np.int32)
+    ok, pok = np.zeros(n, np.uint8), np.zeros(n, np.uint8)
+    for unprotect in (0, 1):
+        rows = (_p(data), _p(length), _p(off), _p(iv), _p(roc))
+        if unprotect:
+            data, length = out.copy(), np.minimum(out_len, width)
+            rows = (_p(data), _p(length), _p(off), _p(iv), _p(roc))
+            assert emu.ljt_srtp_unprotect_f8(
+                *head, *rows, _p(out), _p(out_len), _p(ok), n, width, 10,
+                tag_len, None) == 0
+            assert ok.all()
+        else:
+            assert emu.ljt_srtp_protect_f8(
+                *head, *rows, _p(out), _p(out_len), n, width, 10, tag_len,
+                None) == 0
+        stamps = np.zeros((n, 40), np.int64)
+        plan = np.zeros(4, np.int32)
+        assert emu.ljt_srtp_f8_phases(
+            *head, *rows, _p(pout), _p(pout_len), _p(pok), _p(stamps),
+            _p(plan), n, width, tag_len, unprotect, 0, None) == 0
+        assert np.array_equal(pout, out) and np.array_equal(pout_len,
+                                                            out_len)
+        assert not unprotect or np.array_equal(pok, ok)
+        tiles = int(plan[2])
+        assert tiles == -(-n // int(plan[0])) and plan[3] in (128, 256)
+        st = stamps[:tiles]
+        assert not stamps[tiles:].any()
+        assert st[:, 8].sum() == n
+        warps = st[:, 16:].reshape(tiles, 8, 3)
+        chain_end = warps[:, :, 1].max(axis=1)
+        assert (st[:, 0] <= st[:, 9]).all() and (st[:, 9] <= st[:, 1]).all()
+        assert (st[:, 1] <= chain_end).all() and (chain_end <= st[:, 4]).all()
+        assert (warps[:, :, 2].max(axis=1) <= st[:, 4]).all()
+        assert (st[:, 4] <= st[:, 5]).all()
+        assert ((warps[:, :, 1] > 0) <= (warps[:, :, 0] > 0)).all()
