@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py        (from the repository root; one card)
     python3 chip_smoke.py --parent ROOT
-                                 (also times the GCM kernels, O, H-F8, K
-                                  and L of the checkout at ROOT against
-                                  this tree's)
+                                 (also times the GCM kernels, O, H-F8, K,
+                                  L and R of the checkout at ROOT against
+                                  this tree's, and compares the two
+                                  trees' SASS)
 
 Builds the port's CUDA kernels from `libjitsi_tpu_torch/csrc/`, checks
 them on known answers and exactly against their plain PyTorch versions
@@ -128,13 +129,21 @@ tile with clock64 stamps) at the mix batch's three launches: set-up
 and lag behind them (L's hash ends before its chains), the store, the
 sub-partitions, tiles an SM at once and a second wave's share; and
 `srtp_f8_plans` times the same tile planned for 1, 2 and 4 tiles an SM
-at each launch.  With `--parent ROOT`, the kernels of the checkout at
-ROOT (built by its own sources) are timed against this tree's in turns
-(parent, this, this, parent): every GCM shape (`gcm_turns`), O at the
-fill's shape (`fill_turns`), H-F8 at both SFU shapes (`f8_turns`) and K
-and L at each launch of the mix batch and summed over it
-(`srtp_f8_turns`), and the parent's phase splits are printed too where
-it has the probes.
+at each launch.  Kernel R has its `resample` entry in the `sass` line
+(its templated instances load no coefficient from memory), a library
+time at its integer ratios (one cuDNN `conv1d`) and `r_phases` (its
+probe build, `ljt_resample_phases`, at every RESAMPLE_SHAPES shape and a
+conference_mixed tick's launches: set-up, span staging, taps and store a
+walker, walkers at once an SM, a second wave's share).  With `--parent
+ROOT`, the kernels of the checkout at ROOT (built by its own sources)
+are timed against this tree's in turns (parent, this, this, parent):
+every GCM shape (`gcm_turns`), O at the fill's shape (`fill_turns`),
+H-F8 at both SFU shapes (`f8_turns`), K and L at each launch of the mix
+batch and summed over it (`srtp_f8_turns`) and R at each of
+`r_phases`'s launches and over a mixed tick (`r_turns`, the two trees'
+outputs equal); the parent's phase splits are printed too where it has
+the probes, and `sass_compare` (`scripts/torch_sass_compare.py`) fails
+the run if a kernel other than R's changed its SASS.
 
 Every phase prints one JSON line; the card's `nvidia-smi` name and power
 limit come before the last line, and the last line is
@@ -193,6 +202,7 @@ from __future__ import annotations
 import hashlib
 import hmac
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -300,6 +310,16 @@ MIXED_PCMU = 192
 MIXED_TONE = 1800.0
 MIXED_SNAPSHOT = 10
 MIXED_R_PER_TICK = 4
+# the launches of R a conference_mixed tick makes (rows, rate in, rate
+# out): a deposit group and an egress kind for its PCMU and its PCMA legs
+MIXED_R_LAUNCHES = tuple((n, ri, ro) for ri, ro in ((8000, 16000),
+                                                    (16000, 8000))
+                         for n in (MIXED_PCMU - 1, CONF_PARTIES - MIXED_PCMU))
+# kernel R's phase probe (`ljt_resample_phases`): clock64 words a walker
+# (a block of PR 16's form, a warp of this one) and the walkers its
+# stamps have room for
+R_PHASE_SLOTS = 12
+R_PHASE_WALKERS = 1 << 16
 SOURCES = {
     "aes_encrypt": ("libjitsi_tpu_torch/csrc/aes_encrypt.cu",
                     "libjitsi_tpu/kernels/aes_bitsliced.py:548"),
@@ -388,7 +408,20 @@ FANOUT_INSTANCES = ("srtp_fanout_null", "srtp_fanout_f8")
 
 # kernels beside KERNELS whose SASS and ptxas reports are read: the AES
 # chain probe, kernel E's staged form and the GHASH step probe
-EXTRA_KERNELS = ("aes_chain", "mix_minus_staged", "ghash_chain")
+EXTRA_KERNELS = ("aes_chain", "mix_minus_staged", "ghash_chain",
+                 "resample_up", "resample_down", "resample_up_phases",
+                 "resample_down_phases", "resample_phases")
+# what a kernel's one template argument is, where it is not the AES
+# rounds: R's instances take their L or M
+TEMPLATE_ARG = {"resample_up": "l", "resample_up_phases": "l",
+                "resample_down": "m", "resample_down_phases": "m"}
+
+
+def _kernel_key(m) -> str:
+    """'srtp_protect_cm nr=10', 'resample_up l=6': a kernel-name match's
+    name and template argument."""
+    arg = TEMPLATE_ARG.get(m.group(1), "nr")
+    return m.group(1) + (f" {arg}={m.group(2)}" if m.group(2) else "")
 
 T_START = time.perf_counter()
 
@@ -413,8 +446,9 @@ def main(argv=None) -> int:
                                  "media paths on one NVIDIA GPU.")
     ap.add_argument("--parent", metavar="ROOT",
                     help="another checkout (the parent commit) whose GCM "
-                         "kernels, O, H-F8, K and L are timed against "
-                         "this tree's in turns")
+                         "kernels, O, H-F8, K, L and R are timed against "
+                         "this tree's in turns, and whose SASS is compared "
+                         "with this tree's")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -448,6 +482,12 @@ def main(argv=None) -> int:
     rows.update(fill_kernel(torch, dev, floor_ms, chain, fill_core,
                             parent_lib))
     rows.update(resample_kernels(torch, dev, floor_ms))
+    r_phases(torch, dev, kbuild.library(), "this tree")
+    if parent_lib is not None:
+        if hasattr(parent_lib, "ljt_resample_phases"):
+            r_phases(torch, dev, parent_lib, "parent")
+        resample_turns(torch, dev, parent_lib)
+        sass_compare(opts.parent)
 
     counts = {}
 
@@ -761,8 +801,7 @@ def sass_counts(kbuild) -> dict:
     for line in sass.splitlines():
         if "Function : " in line:      # a kernel not listed counts nowhere
             m = name.search(line)
-            cur = (m.group(1) + (f" nr={m.group(2)}" if m.group(2) else "")
-                   if m else None)
+            cur = _kernel_key(m) if m else None
             if cur:
                 counts[cur] = 0
                 lookups[cur] = []
@@ -860,6 +899,7 @@ def sass_counts(kbuild) -> dict:
             f"indexed constant loads: {ldc}")
     gcm = _gcm_sass(code, ptxas)
     fill_core = _pair_int32(code["gcm_ks_fill nr=10"], 10)
+    r = _r_sass(code, indexed_ldc)
     # the AES core's round loop, once a round: in the chain probe the
     # core as the tiles run it (its key words loaded from shared memory),
     # in kernel A with both blocks' keys sliced in the loop (the four
@@ -874,12 +914,42 @@ def sass_counts(kbuild) -> dict:
                                    for law in (0, 1)},
          hmac_sha1_loads=dict(global_loads=len(b_ldg),
                               shared_loads=len(b_lds), hash_loop=chain),
-         gcm=gcm, gcm_ks_fill_core=fill_core,
+         gcm=gcm, gcm_ks_fill_core=fill_core, resample=r,
          bound_per_unit={"sha1_compression": SHA1_BLOCK_OPS,
                          "aes_block nr=10": aes_block_ops(10),
                          "aes_block nr=14": aes_block_ops(14),
                          "ghash_block": GHASH_BLOCK_OPS})
     return fill_core
+
+
+def _r_sass(code, indexed_ldc) -> dict:
+    """Kernel R's instances in the SASS: instructions, FFMAs and those
+    with a uniform-register or constant-bank operand (the coefficient of
+    the templated instances), shared, global and constant-indexed loads,
+    conversions and stores.  The templated instances (L/1, 1/M) must load
+    nothing from shared memory and index no constant: their bank is the
+    kernel's parameters."""
+    out = {}
+    for k, rows in code.items():
+        if not k.startswith("resample"):
+            continue
+        ops = [op for _, op, _ in rows]
+        out[k] = dict(
+            instructions=len(rows), ffma=ops.count("FFMA"),
+            ffma_uniform_or_constant=sum(
+                op == "FFMA" and bool(re.search(r"\bUR\d+|c\[0x0\]", a))
+                for _, op, a in rows),
+            lds=ops.count("LDS"), ldg=ops.count("LDG"),
+            stg=ops.count("STG"), i2f_f2i=ops.count("I2F") + ops.count("F2I"),
+            indexed_ldc=indexed_ldc.get(k, 0))
+    shipped = [k for k in out if k.startswith(("resample_up ",
+                                               "resample_down "))]
+    require(len(shipped) == 6 and "resample" in out,
+            f"R's instances missing from the SASS: {sorted(out)}")
+    for k in shipped:
+        require(out[k]["lds"] == 0 and out[k]["indexed_ldc"] == 0,
+                f"{k} loads its bank from memory: {out[k]}")
+    return out
 
 
 def _pair_int32(code, nr: int) -> dict:
@@ -950,8 +1020,7 @@ def ptxas_usage(kbuild) -> dict:
                       r"for) '?(\S+?)'?(?: for|$)", line)
         if m:
             k = name.search(m.group(1))
-            cur = (k.group(1) + (f" nr={k.group(2)}" if k.group(2) else "")
-                   if k else None)
+            cur = _kernel_key(k) if k else None
             if cur:
                 out.setdefault(cur, {})
             continue
@@ -1855,45 +1924,271 @@ def g711_kernels(torch, dev, floor_ms: float) -> dict:
     return rows
 
 
+def _r_input(torch, dev, rng, b: int, rate_in: int):
+    """R's input at a shape: 20 ms rows of noise, row 0 at +32,767 and row
+    1 at -32,768 where there are rows."""
+    x = rng.integers(-32768, 32768, (b, rate_in // 50)).astype(np.int16)
+    x[:1], x[1:2] = 32767, -32768
+    return torch.as_tensor(x).to(dev)
+
+
+def _r_conv_yardstick(torch, x, l: int, m: int):
+    """cuDNN's one-call form of R's sum at an integer ratio, or None at any
+    other: `conv1d` over the row padded by replication (7 left, 8 right:
+    the clamped edges) with the bank's rows flipped as its weight, L output
+    channels at stride 1 for L/1, stride M for 1/M.  Returns the call (its
+    input padded and float beforehand, outside the timing) and its output
+    as R's int16 rows (interleaved, rounded and clamped)."""
+    import torch.nn.functional as F
+
+    from libjitsi_tpu_torch.kernels import resample as rs
+
+    if l != 1 and m != 1:
+        return None
+    b, t = x.shape
+    xp = F.pad(x.float()[:, None], (7, 8), mode="replicate")
+    w = torch.as_tensor(rs.design(l, m)[:, ::-1].copy()).to(x.device)[:, None]
+
+    def call():
+        return F.conv1d(xp, w, stride=m)
+
+    def as_r():
+        y = call().transpose(1, 2).reshape(b, -1)[:, :t * l // m]
+        return y.round().clamp(-32768, 32767).to(torch.int16)
+
+    return call, as_r
+
+
 def resample_kernels(torch, dev, floor_ms: float) -> dict:
-    """Kernel R against its plain version at RESAMPLE_SHAPES (noise, with
-    a row at each rail), each timed, with its bound: 2 bytes a sample in
-    and out against 16 FMAs an output sample.  No single PyTorch call
-    computes the clamped-edge polyphase sum, so R has no library time."""
+    """Kernel R against its plain version at RESAMPLE_SHAPES (`_r_input`),
+    each timed, with its bound: 2 bytes a sample in and out against 16
+    FMAs an output sample.  At the integer ratios its library time is one
+    cuDNN `conv1d` call that computes the same clamped-edge sum
+    (`_r_conv_yardstick`, float32 with TF32 off), with its largest
+    difference from R: a yardstick, not an equality (cuDNN sums the taps
+    in its own order).  At 160/147 and 147/160 no single PyTorch call
+    computes the polyphase sum, and `library_ms` is None."""
     from libjitsi_tpu_torch.kernels import build as kbuild
     from libjitsi_tpu_torch.kernels import resample as rs
 
     rng = np.random.default_rng(43)
-    ptx = ptxas_usage(kbuild).get("resample")
+    ptx = {k: v for k, v in ptxas_usage(kbuild).items()
+           if k.startswith("resample")}
     rows = {}
-    for b, ri, ro in RESAMPLE_SHAPES:
-        t = ri // 50
-        x = torch.as_tensor(rng.integers(-32768, 32768, (b, t))
-                            .astype(np.int16)).to(dev)
-        x[0], x[1] = 32767, -32768
-        l, m = rs.ratio(ri, ro)
-        out_len = t * l // m
-        err = max_abs_err(torch, [rs.resample(x, ri, ro)],
-                          [rs.resample_plain(x, l, m)])
-        shape = f"[{b},{t}] -> [{b},{out_len}] ({ri} -> {ro} Hz, L/M {l}/{m})"
-        require(err == 0, f"kernel R at {shape} differs from plain: {err}")
-        nbytes, fmas = 2 * b * (t + out_len), 16 * b * out_len
-        b_ms, b_by = bound_fp32(nbytes, fmas)
-        line = dict(name="resample", shape=shape, max_abs_err=err,
-                    **timings(torch, lambda: rs.resample(x, ri, ro),
-                              "resample_kernel",
-                              lambda: rs.resample_plain(x, l, m)),
-                    bound_ms=b_ms, bound_by=b_by, launch_floor_ms=floor_ms,
-                    library_ms=None,
-                    library="none: no single PyTorch call computes the "
-                            "clamped-edge polyphase sum",
-                    bytes=nbytes, fmas=fmas,
-                    chunk_outputs=rs.chunk_outputs(l, m, 16), ptxas=ptx)
-        emit("kernel_vs_plain", **line)
-        if (b, ri, ro) == RESAMPLE_SHAPES[0]:
-            rows["resample"] = dict(line, shape=shape + " (the mixed "
-                                    "conference's deposit)")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for b, ri, ro in RESAMPLE_SHAPES:
+            x = _r_input(torch, dev, rng, b, ri)
+            t = x.shape[1]
+            l, m = rs.ratio(ri, ro)
+            out_len = t * l // m
+            got = rs.resample(x, ri, ro)
+            err = max_abs_err(torch, [got], [rs.resample_plain(x, l, m)])
+            shape = (f"[{b},{t}] -> [{b},{out_len}] ({ri} -> {ro} Hz, L/M "
+                     f"{l}/{m})")
+            require(err == 0, f"kernel R at {shape} differs from plain: "
+                              f"{err}")
+            nbytes, fmas = 2 * b * (t + out_len), 16 * b * out_len
+            b_ms, b_by = bound_fp32(nbytes, fmas)
+            conv = _r_conv_yardstick(torch, x, l, m)
+            if conv is None:
+                lib = dict(library="none: no single PyTorch call computes "
+                                   "the polyphase sum at L/M "
+                                   f"{l}/{m}")
+            else:
+                lib = dict(library="torch.nn.functional.conv1d (cuDNN, "
+                                   "TF32 off) on the replicate-padded row",
+                           library_max_abs_err_vs_r=max_abs_err(
+                               torch, [conv[1]()], [got]))
+            line = dict(name="resample", shape=shape, max_abs_err=err,
+                        **timings(torch, lambda: rs.resample(x, ri, ro),
+                                  "resample",
+                                  lambda: rs.resample_plain(x, l, m),
+                                  None if conv is None else conv[0]),
+                        bound_ms=b_ms, bound_by=b_by,
+                        launch_floor_ms=floor_ms, **lib, bytes=nbytes,
+                        fmas=fmas, ptxas=ptx)
+            line.setdefault("library_ms", None)
+            emit("kernel_vs_plain", **line)
+            if (b, ri, ro) == RESAMPLE_SHAPES[0]:
+                rows["resample"] = dict(line, shape=shape + " (the mixed "
+                                        "conference's deposit)")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     return rows
+
+
+def _r_split(s: np.ndarray, plan) -> dict:
+    """R's split from its phase probe's stamps ([walkers, R_PHASE_SLOTS]
+    clock64 words; a walker is a block of PR 16's form, plan[2] == 0, or a
+    warp of this one, plan[2] > 0): medians over the walkers of set-up
+    (its start to its first item: the bank staged, or the index arithmetic),
+    and of each item's span staging (the window's loads and conversion),
+    tap loop and store; the walker (median and slowest); the items a
+    walker took; the walkers an SM ran, how many at once at most, and the
+    share that started after another walker on their SM had ended (a
+    second wave); and the launch's span on the global timer (ns)."""
+    s = s.astype(np.int64)
+    items = s[:, 5]
+    busy = items > 0
+    late, overlap = 0, [0]
+    for sm in np.unique(s[:, 7]):
+        on = s[s[:, 7] == sm]
+        late += int((on[:, 0] > on[:, 6].min()).sum())
+        cur = 0
+        for _, d in sorted([(a, 1) for a in on[:, 0]]
+                           + [(e, -1) for e in on[:, 6]]):
+            cur += d
+            overlap.append(cur)
+    per_sm = np.bincount(s[:, 7])
+
+    def med(v):
+        return float(np.median(v)) if len(v) else 0.0
+
+    def per_item(col):
+        return med(s[busy, col] / items[busy])
+
+    return dict(
+        form=int(plan[2]), walkers=int(plan[0]), threads=int(plan[1]),
+        idle_walkers=int((~busy).sum()),
+        items_per_walker_median_max=[med(items), int(items.max())],
+        setup_cycles=med(s[busy, 1] - s[busy, 0]),
+        span_cycles_per_item=per_item(2), taps_cycles_per_item=per_item(3),
+        store_cycles_per_item=per_item(4),
+        walker_cycles=med(s[:, 6] - s[:, 0]),
+        walker_cycles_max=int((s[:, 6] - s[:, 0]).max()),
+        sms_used=int((per_sm > 0).sum()),
+        walkers_per_sm_max=int(per_sm.max()),
+        walkers_at_once_on_an_sm_max=int(max(overlap)),
+        second_wave_share=late / len(s),
+        launch_span_ns=int(s[:, 10].max() - s[:, 9].min()))
+
+
+def _r_launch(lib, x, y, l: int, m: int, dev) -> None:
+    """One launch of `lib`'s kernel R on x -> y at L/M, 16 taps: this
+    tree's C entry, or PR 16's (the bank in device memory only, and its
+    work items' outputs and staged span: 12 arguments)."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.kernels import resample as rs
+
+    b, t = x.shape
+    bank = rs.bank_tensor(l, m, 16, dev).data_ptr()
+    if len(lib.ljt_resample.argtypes) == 12:
+        span = 4096
+        chunk = max(1, min(1024, (span - 17) * l // m + 1))
+        rc = lib.ljt_resample(x.data_ptr(), bank, y.data_ptr(), b, t,
+                              y.shape[1], l, m, 16, chunk, span,
+                              kbuild.stream_handle(dev))
+    else:
+        rc = lib.ljt_resample(x.data_ptr(), bank,
+                              rs.bank_host(l, m, 16).ctypes.data,
+                              y.data_ptr(), b, t, y.shape[1], l, m, 16,
+                              kbuild.stream_handle(dev))
+    kbuild.check(rc, "resample")
+
+
+def resample_turns(torch, dev, parent_lib) -> None:
+    """The parent's kernel R against this tree's at every RESAMPLE_SHAPES
+    shape and at a conference_mixed tick's launches, in turns (parent,
+    this, this, parent), each turn the profiler's mean duration over 50
+    launches; both trees' outputs must be equal.  Prints an `r_turns` line
+    with each launch and the mixed tick's four summed."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.kernels import resample as rs
+
+    rng = np.random.default_rng(53)
+    out = {}
+    for b, ri, ro in RESAMPLE_SHAPES + MIXED_R_LAUNCHES:
+        x = _r_input(torch, dev, rng, b, ri)
+        l, m = rs.ratio(ri, ro)
+        ys = [torch.empty((b, x.shape[1] * l // m), dtype=torch.int16,
+                          device=dev) for _ in range(2)]
+        libs = (parent_lib, kbuild.library(), kbuild.library(), parent_lib)
+        t = [device_ms(torch, lambda lib=lib, y=ys[i in (1, 2)]: _r_launch(
+            lib, x, y, l, m, dev), 50, "resample")
+             for i, lib in enumerate(libs)]
+        require(max_abs_err(torch, [ys[0]], [ys[1]]) == 0,
+                f"R differs from its parent at [{b},{x.shape[1]}] L/M "
+                f"{l}/{m}")
+        parent, new = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        out[f"[{b},{x.shape[1]}] L/M {l}/{m}"] = dict(
+            turns_ms=t, parent_ms=parent, new_ms=new,
+            parent_spread_ms=abs(t[0] - t[3]), new_spread_ms=abs(t[1] - t[2]),
+            new_over_parent=new / parent)
+    tick = [v for k, v in out.items()
+            if any(k.startswith(f"[{n},{ri // 50}] ")
+                   for n, ri, _ in MIXED_R_LAUNCHES)]
+    t = [sum(v["turns_ms"][i] for v in tick) for i in range(4)]
+    out["conference_mixed tick (4 launches)"] = dict(
+        turns_ms=t, parent_ms=(t[0] + t[3]) / 2, new_ms=(t[1] + t[2]) / 2,
+        new_over_parent=(t[1] + t[2]) / (t[0] + t[3]))
+    emit("r_turns", order="parent, this tree, this tree, parent",
+         launches=out)
+
+
+def sass_compare(root: str) -> None:
+    """`scripts/torch_sass_compare.py` between the tree at `root` and this
+    one: every kernel both trees have must be identical but R's, and only
+    R's instances may be in one tree alone.  Prints a `sass_compare`
+    line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, os.path.join(here, "scripts",
+                                      "torch_sass_compare.py"), root, here],
+        capture_output=True, text=True, timeout=900)
+    require(res.returncode == 0, f"torch_sass_compare failed: {res.stderr}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    report = line["sass_compare"]
+    differ = sorted(k for k, v in report.items() if not v["identical"])
+    alone = line["only_old"] + line["only_new"]
+    emit("sass_compare", parent=root, kernels=len(report),
+         identical=len(report) - len(differ), differ=differ,
+         only_parent=line["only_old"], only_this=line["only_new"])
+    require(all(k.startswith("resample") for k in differ + alone),
+            f"kernels other than R's changed their SASS: {differ}, {alone}")
+
+
+def r_phases(torch, dev, lib, which: str) -> None:
+    """Kernel R's phase probe (`ljt_resample_phases` of `lib`: its form
+    with clock64 stamps) at every RESAMPLE_SHAPES shape and at the
+    launches of a conference_mixed tick: the probe's time, its output held
+    against the plain version, and `_r_split`.  Prints an `r_phases` line
+    named `which`."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.kernels import resample as rs
+
+    rng = np.random.default_rng(47)
+    stamps = torch.zeros((R_PHASE_WALKERS, R_PHASE_SLOTS), dtype=torch.int64,
+                         device=dev)
+    plan = np.zeros(4, np.int32)
+    out = {}
+    for b, ri, ro in RESAMPLE_SHAPES + MIXED_R_LAUNCHES:
+        x = _r_input(torch, dev, rng, b, ri)
+        t = x.shape[1]
+        l, m = rs.ratio(ri, ro)
+        want = rs.resample_plain(x, l, m)
+        got = torch.empty_like(want)
+        bank, host = rs.bank_tensor(l, m, 16, dev), rs.design(l, m)
+
+        def probe():
+            kbuild.check(lib.ljt_resample_phases(
+                x.data_ptr(), bank.data_ptr(), host.ctypes.data,
+                got.data_ptr(), b, t, want.shape[1], l, m, 16,
+                stamps.data_ptr(), R_PHASE_WALKERS, plan.ctypes.data,
+                kbuild.stream_handle(dev)), "resample_phases")
+
+        probe_ms = device_ms(torch, probe, 20, "resample")
+        stamps.zero_()
+        probe()
+        torch.cuda.synchronize()
+        require(max_abs_err(torch, [got], [want]) == 0,
+                f"R's phase probe ({which}) differs from plain at [{b},{t}] "
+                f"L/M {l}/{m}")
+        out[f"[{b},{t}] L/M {l}/{m}"] = dict(
+            probe_ms=probe_ms,
+            **_r_split(stamps[:int(plan[0])].cpu().numpy(), plan))
+    emit("r_phases", tree=which, launches=out)
 
 
 # ------------------------------------------------------ 7. conference
@@ -4055,15 +4350,20 @@ def parent_library(root: str):
 
     from libjitsi_tpu_torch.kernels import build as kbuild
 
-    so = subprocess.run(
-        [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); "
-         "from libjitsi_tpu_torch.kernels import build; print(build.build())"],
+    out = subprocess.run(
+        [sys.executable, "-c", "import json, sys; sys.path.insert(0, '.'); "
+         "from libjitsi_tpu_torch.kernels import build; "
+         "print(json.dumps({k: ['P' if a is build._P else 'I' for a in v] "
+         "for k, v in build._SIGNATURES.items()})); print(build.build())"],
         cwd=root, check=True, capture_output=True, text=True,
-        timeout=900).stdout.strip().splitlines()[-1]
-    lib = ctypes.CDLL(so)
-    for name, args in kbuild._SIGNATURES.items():
+        timeout=900).stdout.strip().splitlines()
+    lib = ctypes.CDLL(out[-1])
+    # the root's own argument types: an entry may differ between trees
+    # (R's did in PR 17)
+    types = {"P": kbuild._P, "I": kbuild._I}
+    for name, args in json.loads(out[-2]).items():
         if hasattr(lib, name):
-            getattr(lib, name).argtypes = args
+            getattr(lib, name).argtypes = [types[a] for a in args]
             getattr(lib, name).restype = ctypes.c_int
     return lib
 

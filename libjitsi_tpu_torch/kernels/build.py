@@ -118,7 +118,10 @@ _SIGNATURES = {
     "ljt_mix_minus": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ljt_g711_encode": [_P, _P, _I, _I, _P],
     "ljt_g711_decode": [_P, _P, _I, _I, _P],
-    "ljt_resample": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ljt_resample": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # R's phase probe (clock64 stamps; on no path)
+    "ljt_resample_phases": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+                            _P, _P],
     "ljt_probe_sha1_chain": [_P, _P, _I, _P],
     "ljt_probe_ghash_chain": [_P, _P, _P, _P, _I, _P],
     "ljt_probe_aes_chain": [_P, _P, _P, _I, _I, _P],

@@ -16,9 +16,12 @@ base + 8 - k (k = 0..15, indices clamped to the row) against bank row
   (a product of two float32 values is exact there) rounded back to
   float32, then rounds half to even and clamps to int16.
 - `resample`: the wrapper of kernel R (`csrc/resample.cu`), which runs the
-  same chain with `__fmaf_rn`.  On a CUDA tensor it launches the kernel;
-  on a CPU tensor it runs the plain version.  Equal rates return the input
-  with no launch.
+  same chain with `__fmaf_rn`: on instances of its own for L/M of 2/1,
+  3/1, 6/1, 1/2, 1/3 and 1/6 at 16 taps (8k, 16k and 24k <-> 48k, and
+  8k <-> 16k; the bank passed by value from the host), on its general
+  instance for any other.  On a CUDA tensor it launches the
+  kernel; on a CPU tensor it runs the plain version.  Equal rates return
+  the input with no launch.
 - `resample_to_frame`: `resample` trimmed or zero-padded to a frame, as
   the conference paths need.
 
@@ -39,9 +42,10 @@ from libjitsi_tpu_torch.kernels import build as _k
 
 #: the largest interpolation factor L the resampler takes (as in JAX)
 MAX_L = 480
-#: input samples kernel R stages a work item; its output chunk follows
-SPAN = 4096
-#: shared memory kernel R may take (bank + span), the H100's block limit
+#: input samples each of the general instance's 4 warps stages
+GEN_SPAN = 1024
+#: shared memory kernel R's general instance may take (the bank, its rows
+#: padded to an odd stride, and the warps' spans), the H100's block limit
 MAX_SMEM = 232448
 
 
@@ -62,10 +66,17 @@ def design(l: int, m: int, taps_per_phase: int = 16,
 
 
 @functools.lru_cache(maxsize=None)
+def bank_host(l: int, m: int, taps: int) -> np.ndarray:
+    """The bank as a float32 [L, taps] host array, kept for the launches
+    that pass it by value."""
+    return np.ascontiguousarray(design(l, m, taps))
+
+
+@functools.lru_cache(maxsize=None)
 def bank_tensor(l: int, m: int, taps: int, device: torch.device
                 ) -> torch.Tensor:
     """The bank as a float32 [L, taps] tensor on `device`."""
-    return to_device(design(l, m, taps), device)
+    return to_device(bank_host(l, m, taps), device)
 
 
 def ratio(rate_in: int, rate_out: int) -> tuple:
@@ -97,29 +108,27 @@ def resample_plain(pcm: torch.Tensor, l: int, m: int,
     return y.round().clamp(-32768, 32767).to(torch.int16)
 
 
-def chunk_outputs(l: int, m: int, taps: int, span: int = SPAN) -> int:
-    """Outputs of one kernel R work item: as many as keep the input span
-    they read inside `span` samples, at most 1,024."""
-    return max(1, min(1024, (span - taps - 1) * l // m + 1))
-
-
 def _launch(pcm: torch.Tensor, l: int, m: int, taps: int) -> torch.Tensor:
     dev = pcm.device
     _k.expect(pcm, "pcm", torch.int16, dev)
     if pcm.dim() != 2:
         raise ValueError(f"pcm: want [B, T], got {tuple(pcm.shape)}")
-    if 4 * (l * taps + SPAN) > MAX_SMEM:
-        raise ValueError(f"kernel R stages a bank of {l} x {taps} taps and "
-                         f"{SPAN} samples in at most {MAX_SMEM} bytes")
     b, t = pcm.shape
     out_len = (t * l) // m
+    if b * out_len > _k.MAX_ELEMENTS:
+        raise ValueError(f"out: {b * out_len} elements, the kernels take at "
+                         f"most {_k.MAX_ELEMENTS}")
+    if 4 * (l * (taps | 1) + 4 * GEN_SPAN) > MAX_SMEM or taps + 2 > GEN_SPAN:
+        raise ValueError(f"kernel R stages a bank of {l} x {taps} taps and "
+                         f"4 spans of {GEN_SPAN} samples in at most "
+                         f"{MAX_SMEM} bytes")
     out = torch.empty((b, out_len), dtype=torch.int16, device=dev)
     if out.numel() == 0:
         return out
-    bank = bank_tensor(l, m, taps, dev)
     rc = _k.library().ljt_resample(
-        pcm.data_ptr(), bank.data_ptr(), out.data_ptr(), b, t, out_len, l, m,
-        taps, chunk_outputs(l, m, taps), SPAN, _k.stream_handle(dev))
+        pcm.data_ptr(), bank_tensor(l, m, taps, dev).data_ptr(),
+        bank_host(l, m, taps).ctypes.data, out.data_ptr(), b, t, out_len, l,
+        m, taps, _k.stream_handle(dev))
     _k.check(rc, "resample")
     _k.launches["resample"] += 1
     return out

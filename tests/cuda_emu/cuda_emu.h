@@ -120,10 +120,22 @@ template <class T>
 T __ldg(const T* p) {
   return *p;
 }
-// Float intrinsics: a fused multiply-add rounded to nearest even, and a
-// float-to-int conversion rounding half to even (the default rounding
-// mode) that saturates at the int range, as the card's does.
+// Float intrinsics: a fused multiply-add and an add rounded to nearest
+// even, a float's bits as an int and back, and a float-to-int conversion
+// rounding half to even (the default rounding mode) that saturates at the
+// int range, as the card's does.
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __int_as_float(int x) {
+  float f;
+  std::memcpy(&f, &x, sizeof f);
+  return f;
+}
+inline int __float_as_int(float f) {
+  int x;
+  std::memcpy(&x, &f, sizeof x);
+  return x;
+}
 inline int __float2int_rn(float x) {
   const float r = std::nearbyint(x);
   if (!(r > -2147483648.0f)) return r != r ? 0 : INT32_MIN;

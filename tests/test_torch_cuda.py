@@ -1250,11 +1250,14 @@ def test_gcm_table_on_card_equals_table_on_cpu(cuda_device):
 
 
 # kernel R at chip_smoke.py's shapes: the mixed conference's deposit and
-# egress, 10,240 streams at the Opus clock both ways, the 44.1k -> 48k
-# bank (L = 160) and a conference past 65,535 rows
+# egress (2/1, 1/2), 10,240 streams at the Opus clock both ways (6/1,
+# 1/6), the 44.1k -> 48k bank (L = 160, the general instance) and a
+# conference past 65,535 rows; and its other instances, 16k <-> 48k (3/1,
+# 1/3), and 48k -> 44.1k (147/160, general)
 @pytest.mark.parametrize("rows,rate_in,rate_out", [
     (255, 8000, 16000), (255, 16000, 8000), (10240, 8000, 48000),
-    (10240, 48000, 8000), (256, 44100, 48000), (65540, 8000, 16000)])
+    (10240, 48000, 8000), (256, 44100, 48000), (65540, 8000, 16000),
+    (255, 16000, 48000), (255, 48000, 16000), (256, 48000, 44100)])
 def test_resample_kernel_matches_plain(cuda_device, rows, rate_in, rate_out):
     from libjitsi_tpu_torch.kernels import resample
 
@@ -1271,6 +1274,31 @@ def test_resample_kernel_matches_plain(cuda_device, rows, rate_in, rate_out):
     assert _same(got, resample.resample_plain(x_d, l, m))
     assert _same(got[:64], resample.resample_plain(torch.from_numpy(x[:64]),
                                                    l, m))
+
+
+@pytest.mark.parametrize("rate_in,rate_out", [
+    (8000, 16000), (16000, 8000), (8000, 48000), (48000, 8000),
+    (16000, 48000), (48000, 16000), (44100, 48000)])
+def test_resample_kernel_ragged_and_off_alignment(cuda_device, rate_in,
+                                                  rate_out):
+    """Kernel R where its whole-word loads and stores cannot run: rows of
+    1, 7 and 161 samples, and rows that start 2 bytes past a 16-byte
+    boundary, each equal to its plain version."""
+    from libjitsi_tpu_torch.kernels import resample
+
+    rng = np.random.default_rng(rate_in + rate_out)
+    l, m = resample.ratio(rate_in, rate_out)
+    for rows, t in ((3, 1), (37, 7), (5, 161)):
+        x = torch.from_numpy(rng.integers(-32768, 32768, (rows, t))
+                             .astype(np.int16)).to(cuda_device)
+        assert _same(resample.resample(x, rate_in, rate_out),
+                     resample.resample_plain(x, l, m))
+    buf = torch.from_numpy(rng.integers(-32768, 32768, 5 * 160 + 1)
+                           .astype(np.int16)).to(cuda_device)
+    x = buf[1:].view(5, 160)
+    assert x.data_ptr() % 16 == 2
+    assert _same(resample.resample(x, rate_in, rate_out),
+                 resample.resample_plain(x, l, m))
 
 
 def test_off_rate_receive_bank_tick_on_card_equals_cpu(cuda_device):

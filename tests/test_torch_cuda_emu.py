@@ -22,9 +22,11 @@ ragged lengths and misaligned views; and for kernel E every kind of
 launch its plan makes (clusters of 1, 2, 5, 8 and 16 blocks, blocks of
 unequal width, the 2-byte path, rows in stages, and the staged kernel's
 64-bit totals past 65,535 rows and columns in stages) with silent,
-near-silent, saturating and inactive rows; for kernel R the conference's
-ratios, rows read in overlapping chunks, rows shorter than its filter and
-rows at the rails.  Tolerance: exact equality.
+near-silent, saturating and inactive rows; for kernel R each of its
+instances (the templated ratios and the general one), rows many general
+items long, rows shorter than its filter, rows at the rails, launches off
+16 bytes, a grid past 65,535 rows and its phase probe.  Tolerance: exact
+equality.
 """
 
 import ctypes
@@ -603,15 +605,16 @@ def test_emulated_kernel_g_tails_and_misaligned_views(emu, law):
                                                    ).all()
 
 
-def _emu_resample(emu, x, l, m, span=resample.SPAN, taps=16):
-    """Kernel R's C entry on [B, T] int16 at L/M, staging `span` samples a
-    work item; out is pre-filled so an unwritten sample shows."""
+def _emu_resample(emu, x, l, m, taps=16, host=True):
+    """Kernel R's C entry on [B, T] int16 at L/M (the bank also on the
+    host, so 2/1, 3/1, 6/1, 1/2, 1/3 and 1/6 at 16 taps run their own
+    instances; without it every ratio runs the general one); out is
+    pre-filled so an unwritten sample shows."""
     b, t = x.shape
     bank = resample.design(l, m, taps)
     out = np.full((b, t * l // m), -7, np.int16)
-    rc = emu.ljt_resample(_p(x), _p(bank), _p(out), b, t, out.shape[1], l, m,
-                          taps, resample.chunk_outputs(l, m, taps, span),
-                          span, None)
+    rc = emu.ljt_resample(_p(x), _p(bank), _p(bank) if host else None,
+                          _p(out), b, t, out.shape[1], l, m, taps, None)
     assert rc == 0
     return out
 
@@ -630,11 +633,13 @@ def _r_rows(rng, b, t):
 @pytest.mark.parametrize("rows", [1, 3, 70])
 @pytest.mark.parametrize("rates", [(8000, 16000), (16000, 8000),
                                    (8000, 48000), (48000, 8000),
+                                   (16000, 48000), (48000, 16000),
                                    (44100, 48000)])
 def test_emulated_kernel_r_matches_plain(emu, rates, rows):
-    """Kernel R against its plain version at the conference's ratios and
-    the widest bank's (44.1k -> 48k, L = 160): 20 ms rows of noise and at
-    the rails, whose clamped edges read the row's first and last samples."""
+    """Kernel R against its plain version on each of its instances (2/1,
+    1/2, 6/1, 1/6, 3/1, 1/3 of their own; 160/147, 44.1k -> 48k, the
+    general one's widest bank): 20 ms rows of noise and at the rails,
+    whose clamped edges read the row's first and last samples."""
     rng = np.random.default_rng(rows + rates[0] // 100)
     x = _r_rows(rng, rows, rates[0] // 50)
     l, m = resample.ratio(*rates)
@@ -642,26 +647,99 @@ def test_emulated_kernel_r_matches_plain(emu, rates, rows):
     assert np.array_equal(_emu_resample(emu, x, l, m), want)
 
 
-@pytest.mark.parametrize("rates,t,span", [
-    ((48000, 8000), 10000, resample.SPAN),   # rows past one staged span
-    ((8000, 16000), 500, 40),                # 12-output chunks
-    ((44100, 48000), 882, 64),               # 44 chunks a row, L = 160
-    ((8000, 48000), 7, resample.SPAN),       # rows shorter than the taps
-    ((16000, 8000), 1, resample.SPAN),       # one sample: every tap clamps
+def _r_view(x, offset):
+    """x copied into a buffer `offset` samples past a 16-byte boundary."""
+    buf = np.zeros(x.size + 16, np.int16)
+    base = (-buf.ctypes.data // 2) % 8
+    view = buf[base + offset:base + offset + x.size].reshape(x.shape)
+    view[...] = x
+    return view
+
+
+@pytest.mark.parametrize("rates,rows,t,case", [
+    ((48000, 8000), 2, 10000, "long"),       # the general span, many items
+    ((48000, 44100), 2, 10000, "long"),      # 147/160: 8 items a row
+    ((8000, 48000), 4, 7, "long"),           # rows shorter than the taps
+    ((16000, 8000), 4, 1, "long"),           # one sample: every tap clamps
+    ((16000, 48000), 37, 20, "long"),        # 37 rows, 5 runs a row
+    ((48000, 16000), 5, 36, "long"),         # T a multiple of 4, not of 8
+    ((8000, 16000), 65540, 8, "long"),       # a grid past 65,535 rows
+    ((48000, 8000), 65540, 24, "long"),
+    ((8000, 16000), 5, 160, "unaligned"),    # pcm and out off 16 bytes
+    ((48000, 8000), 5, 960, "unaligned"),
+    ((16000, 48000), 5, 320, "unaligned"),
+    ((8000, 48000), 3, 160, "general"),      # a templated ratio, general
+    ((48000, 16000), 3, 960, "general"),
+    ((8000, 16000), 3, 160, "taps"),         # 8 and 32 taps: general
 ])
-def test_emulated_kernel_r_stages_rows_in_chunks(emu, rates, t, span):
-    """Rows read in chunks whose spans overlap, rows shorter than the
-    filter, and the refusal of a chunk whose span would not fit."""
-    rng = np.random.default_rng(t)
-    x = _r_rows(rng, 4, t)
+def test_emulated_kernel_r_stages_rows_in_chunks(emu, rates, rows, t, case):
+    """Rows many general items long, rows shorter than the filter, row
+    counts that fill no whole block, a grid past 65,535 rows, launches off
+    16 bytes (sample-wise loads and stores), the general instance at the
+    templated ratios and at other tap counts, and the refusals: an output
+    width that is not T*L/M, and a probe launch of more warps than its
+    stamps hold."""
+    rng = np.random.default_rng(rows + t)
+    x = _r_rows(rng, rows, t)
     l, m = resample.ratio(*rates)
+    if case == "taps":
+        for taps in (8, 32):
+            want = resample.resample_plain(T(x), l, m, taps).numpy()
+            assert np.array_equal(_emu_resample(emu, x, l, m, taps), want)
+        return
     want = resample.resample_plain(T(x), l, m).numpy()
-    assert np.array_equal(_emu_resample(emu, x, l, m, span), want)
+    if case == "unaligned":
+        for off in (1, 3):
+            xv = _r_view(x, off)
+            bank = resample.design(l, m)
+            out = _r_view(np.full(want.shape, -7, np.int16), off)
+            assert emu.ljt_resample(_p(xv), _p(bank), _p(bank), _p(out),
+                                    rows, t, want.shape[1], l, m, 16,
+                                    None) == 0
+            assert np.array_equal(out, want)
+        return
+    assert np.array_equal(_emu_resample(emu, x, l, m,
+                                        host=case != "general"), want)
     out = np.zeros(want.shape, np.int16)
-    big = -(-(span - 16) * l // m) + 1     # its span: one past `span`
-    assert emu.ljt_resample(_p(x), _p(resample.design(l, m)), _p(out), 4, t,
-                            out.shape[1], l, m, 16, big, span, None) == 1
+    bank = resample.design(l, m)
+    assert emu.ljt_resample(_p(x), _p(bank), _p(bank), _p(out), rows, t,
+                            want.shape[1] + 1, l, m, 16, None) == 1
+    stamps, plan = np.zeros((1, 12), np.int64), np.zeros(4, np.int32)
+    if rows > 40:
+        assert emu.ljt_resample_phases(
+            _p(x), _p(bank), _p(bank), _p(out), rows, t, want.shape[1], l,
+            m, 16, _p(stamps), 1, _p(plan), None) == 1
     assert not out.any()
+
+
+@pytest.mark.parametrize("rates,form", [((8000, 16000), 1),
+                                        ((48000, 8000), 2),
+                                        ((44100, 48000), 3)])
+def test_emulated_r_phase_probe(emu, rates, form):
+    """R's phase probe (`ljt_resample_phases`) writes what the shipped
+    kernel writes, on the same instance (its plan's form: 1 L/1, 2 1/M, 3
+    general), and stamps each warp in order: start, set-up done, its end,
+    with its items' cycles of span staging, taps and store between."""
+    rng = np.random.default_rng(form)
+    x = _r_rows(rng, 9, rates[0] // 50)
+    l, m = resample.ratio(*rates)
+    want = _emu_resample(emu, x, l, m)
+    bank = resample.design(l, m)
+    out = np.full(want.shape, -7, np.int16)
+    stamps, plan = np.zeros((64, 12), np.int64), np.zeros(4, np.int32)
+    assert emu.ljt_resample_phases(
+        _p(x), _p(bank), _p(bank), _p(out), 9, x.shape[1], want.shape[1], l,
+        m, 16, _p(stamps), 64, _p(plan), None) == 0
+    assert np.array_equal(out, want)
+    assert plan[2] == form and plan[1] == 128 and plan[3] == 12
+    st = stamps[:plan[0]]
+    assert not stamps[plan[0]:].any()
+    busy = st[:, 5] > 0
+    assert busy.any() and (st[busy, 5] <= -(-9 * want.shape[1] // 32)).all()
+    assert (st[:, 0] <= st[:, 1]).all() and (st[:, 1] <= st[:, 6]).all()
+    assert (st[busy, 2:5] >= 0).all() and (st[busy, 3] > 0).all()
+    assert (st[busy, 2:5].sum(axis=1) <= st[busy, 6] - st[busy, 0]).all()
+    assert (st[:, 11] == np.arange(plan[0])).all()
 
 
 def _fanout_inputs(rng, key_len, p, width, counts):
