@@ -134,16 +134,25 @@ at each launch.  Kernel R has its `resample` entry in the `sass` line
 time at its integer ratios (one cuDNN `conv1d`) and `r_phases` (its
 probe build, `ljt_resample_phases`, at every RESAMPLE_SHAPES shape and a
 conference_mixed tick's launches: set-up, span staging, taps and store a
-walker, walkers at once an SM, a second wave's share).  With `--parent
-ROOT`, the kernels of the checkout at ROOT (built by its own sources)
-are timed against this tree's in turns (parent, this, this, parent):
-every GCM shape (`gcm_turns`), O at the fill's shape (`fill_turns`),
-H-F8 at both SFU shapes (`f8_turns`), K and L at each launch of the mix
-batch and summed over it (`srtp_f8_turns`) and R at each of
-`r_phases`'s launches and over a mixed tick (`r_turns`, the two trees'
-outputs equal); the parent's phase splits are printed too where it has
-the probes, and `sass_compare` (`scripts/torch_sass_compare.py`) fails
-the run if a kernel other than R's changed its SASS.
+walker, walkers at once an SM, a second wave's share).  I-NULL and
+J-NULL have `kernel_vs_plain` lines (`profile_kernels`) at their three
+launches on the paths (NULL_SHAPES) with their MAC floor and their
+share of it and of their bound, `srtcp_null_phases` (their probe,
+`ljt_srtcp_null_phases`: the id's round trip, the midstates, the hash
+of lane 0 and of the warp, the copy's end, the stores after the hash,
+the launch's span, tiles at once an SM, a second wave's share) and
+`srtcp_null_plans` (their tiles at 1, 2 and 4 an SM).  With
+`--parent ROOT`, the kernels of the checkout at ROOT (built by its own
+sources) are timed against this tree's in turns (parent, this, this,
+parent): every GCM shape (`gcm_turns`), O at the fill's shape
+(`fill_turns`), H-F8 at both SFU shapes (`f8_turns`), K and L at each
+launch of the mix batch and summed over it (`srtp_f8_turns`), R at each
+of `r_phases`'s launches and over a mixed tick (`r_turns`, the two
+trees' outputs equal) and I-NULL and J-NULL at NULL_SHAPES
+(`srtcp_null_turns`, the two trees' outputs equal); the parent's phase
+splits are printed too where it has the probes, and `sass_compare`
+(`scripts/torch_sass_compare.py`) fails the run if a kernel other than
+I-NULL's and J-NULL's changed its SASS.
 
 Every phase prints one JSON line; the card's `nvidia-smi` name and power
 limit come before the last line, and the last line is
@@ -355,9 +364,9 @@ SOURCES = {
                           "libjitsi_tpu/transform/srtp/kernel.py:59"),
     "srtp_unprotect_null": ("libjitsi_tpu_torch/csrc/srtp_cm.cu",
                             "libjitsi_tpu/transform/srtp/kernel.py:113"),
-    "srtcp_protect_null": ("libjitsi_tpu_torch/csrc/srtcp_cm.cu",
+    "srtcp_protect_null": ("libjitsi_tpu_torch/csrc/srtcp_null.cu",
                            "libjitsi_tpu/transform/srtp/kernel.py:164"),
-    "srtcp_unprotect_null": ("libjitsi_tpu_torch/csrc/srtcp_cm.cu",
+    "srtcp_unprotect_null": ("libjitsi_tpu_torch/csrc/srtcp_null.cu",
                              "libjitsi_tpu/transform/srtp/kernel.py:193"),
     # kernel H's NULL and AES-F8 instances: the JAX fan-out launch runs
     # NULL with encrypt=False and F8 (its fault) as AES-CM
@@ -446,9 +455,9 @@ def main(argv=None) -> int:
                                  "media paths on one NVIDIA GPU.")
     ap.add_argument("--parent", metavar="ROOT",
                     help="another checkout (the parent commit) whose GCM "
-                         "kernels, O, H-F8, K, L and R are timed against "
-                         "this tree's in turns, and whose SASS is compared "
-                         "with this tree's")
+                         "kernels, O, H-F8, K, L, R, I-NULL and J-NULL are "
+                         "timed against this tree's in turns, and whose "
+                         "SASS is compared with this tree's")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -898,6 +907,14 @@ def sass_counts(kbuild) -> dict:
     require(all(v == 0 for v in ldc.values()),
             f"indexed constant loads: {ldc}")
     gcm = _gcm_sass(code, ptxas)
+    # I-NULL and J-NULL: registers, spills and local memory
+    srtcp_null = {
+        k: dict(ptxas[k], local_loads=sum(op == "LDL" for _, op, _ in
+                                          code.get(k, [])),
+                local_stores=sum(op == "STL" for _, op, _ in
+                                 code.get(k, [])))
+        for k in (f"srtcp_{d}_null nr={nr}" for d in ("protect", "unprotect")
+                  for nr in (10, 14))}
     fill_core = _pair_int32(code["gcm_ks_fill nr=10"], 10)
     r = _r_sass(code, indexed_ldc)
     # the AES core's round loop, once a round: in the chain probe the
@@ -915,6 +932,7 @@ def sass_counts(kbuild) -> dict:
          hmac_sha1_loads=dict(global_loads=len(b_ldg),
                               shared_loads=len(b_lds), hash_loop=chain),
          gcm=gcm, gcm_ks_fill_core=fill_core, resample=r,
+         srtcp_null=srtcp_null,
          bound_per_unit={"sha1_compression": SHA1_BLOCK_OPS,
                          "aes_block nr=10": aes_block_ops(10),
                          "aes_block nr=14": aes_block_ops(14),
@@ -2127,11 +2145,17 @@ def resample_turns(torch, dev, parent_lib) -> None:
          launches=out)
 
 
+# the kernels this tree redesigned against its parent (I-NULL's and
+# J-NULL's instances) and their phase probe's
+SASS_CHANGED = ("srtcp_protect_null nr=10", "srtcp_protect_null nr=14",
+                "srtcp_unprotect_null nr=10", "srtcp_unprotect_null nr=14",
+                "srtcp_protect_null_phases", "srtcp_unprotect_null_phases")
+
+
 def sass_compare(root: str) -> None:
     """`scripts/torch_sass_compare.py` between the tree at `root` and this
-    one: every kernel both trees have must be identical but R's, and only
-    R's instances may be in one tree alone.  Prints a `sass_compare`
-    line."""
+    one: every kernel but SASS_CHANGED must be in both trees and
+    identical.  Prints a `sass_compare` line."""
     here = os.path.dirname(os.path.abspath(__file__))
     res = subprocess.run(
         [sys.executable, os.path.join(here, "scripts",
@@ -2145,8 +2169,9 @@ def sass_compare(root: str) -> None:
     emit("sass_compare", parent=root, kernels=len(report),
          identical=len(report) - len(differ), differ=differ,
          only_parent=line["only_old"], only_this=line["only_new"])
-    require(all(k.startswith("resample") for k in differ + alone),
-            f"kernels other than R's changed their SASS: {differ}, {alone}")
+    require(set(differ + alone) <= set(SASS_CHANGED),
+            f"kernels other than I-NULL's and J-NULL's changed their SASS: "
+            f"{differ}, {alone}")
 
 
 def r_phases(torch, dev, lib, which: str) -> None:
@@ -3632,16 +3657,21 @@ def profile_kernels(torch, dev, floor_ms: float, chain: dict,
     plain versions at the three launches the table makes for one 4,096-
     packet production-mix batch (the parts `bucket_by_size` gives), and
     the F8 and NULL instances of I and J at the path's SRTCP launch
-    (1,100 compound packets of 60-200 bytes in 1,504-byte rows).  Each
-    line has its bound; the F8 lines also `chain_floor_ms`: per launch,
-    the launch floor plus the longest row's dependent AES pair steps
-    (its keystream blocks and IV') at `latency_floor`'s AES-128
-    `aes_pair_cycles` and clock.  The `kernels` line takes the SRTP
-    kernels' sums over the batch's three launches.  No PyTorch call
+    (1,100 compound packets of 60-200 bytes in 1,504-byte rows), I-NULL
+    and J-NULL also at their other launches on the paths (NULL_SHAPES).
+    Each line has its bound; the F8 lines also `chain_floor_ms`: per
+    launch, the launch floor plus the longest row's dependent AES pair
+    steps (its keystream blocks and IV') at `latency_floor`'s AES-128
+    `aes_pair_cycles` and clock; the NULL SRTCP lines their MAC chain
+    floor (`mac_floor_ms`) and their share of it and of their bound.  The
+    `kernels` line takes the SRTP kernels' sums over the batch's three
+    launches and the SRTCP kernels' path launch.  No PyTorch call
     computes SRTP, so none has a library time.  Then K's and L's phase
     split and plans at the batch's launches (`srtp_f8_phases`,
-    `srtp_f8_plans`) and, with a parent, their turns against the
-    parent's (`srtp_f8_turns`)."""
+    `srtp_f8_plans`), I-NULL's and J-NULL's at NULL_SHAPES
+    (`srtcp_null_phases`, `srtcp_null_plans`) and, with a parent, the
+    turns of all four against the parent's (`srtp_f8_turns`,
+    `srtcp_null_turns`)."""
     from libjitsi_tpu_torch.core.packet import bucket_by_size
     from libjitsi_tpu_torch.kernels import aes
     from libjitsi_tpu_torch.kernels import build as kbuild
@@ -3660,7 +3690,7 @@ def profile_kernels(torch, dev, floor_ms: float, chain: dict,
     mix = _mix_batch(rng, rng.permutation(N_STREAMS)[:BATCH], 1000, 0)
     parts = bucket_by_size(mix)
     rows = {}
-    f8_cases = []
+    f8_cases, null_cases = [], []
     for cipher in ("f8", "null"):
         f8 = tab_f8 if cipher == "f8" else None
         keys_per = 11 * 16 * (2 if cipher == "f8" else 0) + 40
@@ -3730,57 +3760,77 @@ def profile_kernels(torch, dev, floor_ms: float, chain: dict,
                       + " + ".join(labels), times, a["bytes"], a["ops"],
                 floor_ms, a["chain_floor_ms"])
         # SRTCP at the path's launch: 1,100 compound packets in 1,504-byte
-        # rows, E set under F8 and clear under NULL
-        n, width = PROFILE_RTCP, 1504
-        lens = rng.integers(60, 201, n).astype(np.int32)
-        e = 0 if cipher == "null" else 1 << 31
-        pa = [tab_rk, tab_mid,
-              t(rng.permutation(N_STREAMS)[:n].astype(np.int32)),
-              t(rng.integers(0, 256, (n, width), np.uint8)), t(lens),
-              t(rng.integers(0, 256, (n, 16), np.uint8)),
-              t((rng.integers(0, 2 ** 31, n) | e).astype(np.uint32)
-                .view(np.int32))]
-        wire, wlen = sk.srtcp_protect(*pa, TAG, cipher, f8)
-        require(max_abs_err(torch, (wire, wlen), sk.srtcp_protect_plain(
-            *pa, TAG, cipher, f8)) == 0,
-            f"srtcp_protect_{cipher} differs from its plain version")
-        ua = pa[:3] + [wire, wlen, pa[5]]
-        got = sk.srtcp_unprotect(*ua, TAG, cipher, f8)
-        require(bool(got[2].all()), f"srtcp_unprotect_{cipher} rejected "
-                                    f"genuine rows")
-        require(max_abs_err(torch, got, sk.srtcp_unprotect_plain(
-            *ua, TAG, cipher, f8)) == 0,
-            f"srtcp_unprotect_{cipher} differs from its plain version")
-        ks_blocks = (lens.astype(np.int64) - 8 + 15) // 16
-        mac_blocks = int(((lens + 4 + 9 + 63) // 64 + 1).sum())
-        ops = mac_blocks * SHA1_BLOCK_OPS
-        if cipher == "f8":
-            ops += (int(ks_blocks.sum()) + n) * aes_block_ops(10) \
-                + int(ks_blocks.sum()) * CTR_XOR_OPS
-        nbytes = 2 * n * width + n * (4 + 16 + 4 + 4) + n * keys_per
-        chain_ms = (floor_ms + (int(ks_blocks.max()) + 1) * pair_ms
-                    if cipher == "f8" else
-                    mac_floor_ms(floor_ms, chain, int(lens.max()) + 4))
-        for direction, fn, plain in (
-                ("protect", lambda: sk.srtcp_protect(*pa, TAG, cipher, f8),
-                 lambda: sk.srtcp_protect_plain(*pa, TAG, cipher, f8)),
-                ("unprotect", lambda: sk.srtcp_unprotect(*ua, TAG, cipher,
+        # rows, E set under F8 and clear under NULL; NULL also at I-NULL's
+        # and J-NULL's other launches on the paths
+        for k, (label, n, lo, hi) in enumerate(
+                NULL_SHAPES if cipher == "null" else NULL_SHAPES[:1]):
+            width = 1504
+            lens = rng.integers(lo, hi, n).astype(np.int32)
+            e = 0 if cipher == "null" else 1 << 31
+            pa = [tab_rk, tab_mid,
+                  t(rng.permutation(N_STREAMS)[:n].astype(np.int32)),
+                  t(rng.integers(0, 256, (n, width), np.uint8)), t(lens),
+                  t(rng.integers(0, 256, (n, 16), np.uint8)),
+                  t((rng.integers(0, 2 ** 31, n) | e).astype(np.uint32)
+                    .view(np.int32))]
+            kp = sk.srtcp_protect(*pa, TAG, cipher, f8)
+            require(max_abs_err(torch, kp, sk.srtcp_protect_plain(
+                *pa, TAG, cipher, f8)) == 0,
+                f"srtcp_protect_{cipher} differs from its plain version at "
+                f"{label}")
+            ua = pa[:3] + [kp[0], kp[1], pa[5]]
+            ku = sk.srtcp_unprotect(*ua, TAG, cipher, f8)
+            require(bool(ku[2].all()), f"srtcp_unprotect_{cipher} rejected "
+                                       f"genuine rows at {label}")
+            require(max_abs_err(torch, ku, sk.srtcp_unprotect_plain(
+                *ua, TAG, cipher, f8)) == 0,
+                f"srtcp_unprotect_{cipher} differs from its plain version "
+                f"at {label}")
+            if cipher == "null":
+                null_cases.append((label, pa, ua, kp, ku))
+            ks_blocks = (lens.astype(np.int64) - 8 + 15) // 16
+            mac_blocks = int(((lens + 4 + 9 + 63) // 64 + 1).sum())
+            ops = mac_blocks * SHA1_BLOCK_OPS
+            if cipher == "f8":
+                ops += (int(ks_blocks.sum()) + n) * aes_block_ops(10) \
+                    + int(ks_blocks.sum()) * CTR_XOR_OPS
+            chain_ms = (floor_ms + (int(ks_blocks.max()) + 1) * pair_ms
+                        if cipher == "f8" else
+                        mac_floor_ms(floor_ms, chain, int(lens.max()) + 4))
+            for direction, fn, plain in (
+                    ("protect", lambda: sk.srtcp_protect(*pa, TAG, cipher,
                                                          f8),
-                 lambda: sk.srtcp_unprotect_plain(*ua, TAG, cipher, f8))):
-            name = f"srtcp_{direction}_{cipher}"
-            rows[name] = _profile_line(
-                name, f"{n}x{width} RTCP 60-200 bytes (the path's SRTCP "
-                      f"launch)",
-                _crypto_times(torch, fn, name + "_kernel", plain), nbytes,
-                ops, floor_ms, chain_ms)
-            emit("kernel_vs_plain", **rows[name])
+                     lambda: sk.srtcp_protect_plain(*pa, TAG, cipher, f8)),
+                    ("unprotect", lambda: sk.srtcp_unprotect(*ua, TAG,
+                                                             cipher, f8),
+                     lambda: sk.srtcp_unprotect_plain(*ua, TAG, cipher,
+                                                      f8))):
+                name = f"srtcp_{direction}_{cipher}"
+                nbytes = 2 * n * width + n * (
+                    SRTCP_ROW_BYTES[direction] + keys_per
+                    + (16 if cipher == "f8" else 0))
+                line = _profile_line(
+                    name, label, _crypto_times(torch, fn, name + "_kernel",
+                                               plain),
+                    nbytes, ops, floor_ms, chain_ms)
+                if cipher == "null":
+                    line.update(share_of_mac_floor=chain_ms / line["ms"],
+                                share_of_bound=line["bound_ms"] / line["ms"])
+                emit("kernel_vs_plain", **line)
+                if k == 0:
+                    rows[name] = line
     lib = kbuild.library()
     srtp_f8_phases(torch, dev, lib, f8_cases, "this tree")
     srtp_f8_plans(torch, dev, lib, f8_cases)
+    srtcp_null_phases(torch, dev, lib, null_cases, "this tree")
+    srtcp_null_plans(torch, dev, lib, null_cases)
     if parent_lib is not None:
         if hasattr(parent_lib, "ljt_srtp_f8_phases"):
             srtp_f8_phases(torch, dev, parent_lib, f8_cases, "parent")
         srtp_f8_turns(torch, dev, parent_lib, f8_cases)
+        if hasattr(parent_lib, "ljt_srtcp_null_phases"):
+            srtcp_null_phases(torch, dev, parent_lib, null_cases, "parent")
+        srtcp_null_turns(torch, dev, parent_lib, null_cases)
     return rows
 
 
@@ -5012,6 +5062,180 @@ def srtp_f8_turns(torch, dev, parent_lib, cases) -> None:
             sums.setdefault(f"{entry} mix batch", []).append(
                 f"{entry} {label}")
     kernel_turns(torch, dev, parent_lib, specs, "srtp_f8_turns", sums)
+
+
+# ------------------------------------- I-NULL and J-NULL (SRTCP, NULL)
+
+NULL_PHASE_SLOTS = 46      # `phases.cuh` ljt_null_phase::kSlots
+NULL_PLANS = (1, 2, 4)     # tiles an SM tried by `srtcp_null_plans`
+# the SRTCP launches `profile_kernels` times, in 1,504-byte rows: label,
+# rows, payload lengths [lo, hi).  The first is the path's (srtp_profiles'
+# launch of I's and J's F8 and NULL instances); the others are I-NULL's
+# and J-NULL's launches on the sfu path
+NULL_SHAPES = ((f"{PROFILE_RTCP}x1504 RTCP 60-200 bytes (the path's SRTCP "
+                f"launch)", PROFILE_RTCP, 60, 201),
+               ("275x1504 RTCP 60-200 bytes (an RR burst: J on the sfu "
+                "path)", 275, 60, 201),
+               ("1100x1504 32-byte RRs (emit_feedback: I on the sfu path)",
+                1100, 32, 33))
+# the bytes an SRTCP row moves beside the row itself, each read or written
+# once: I its length, stream id, E || index word and new length; J its
+# length, stream id, mlen, auth_ok, E bit and index (the F8 instances also
+# read a 16-byte IV; the keys are counted apart)
+SRTCP_ROW_BYTES = {"protect": 4 + 4 + 4 + 4,
+                   "unprotect": 4 + 4 + 4 + 1 + 4 + 4}
+
+
+def _null_split(stamps: np.ndarray, plan) -> dict:
+    """A tile's split from the SRTCP NULL probe's stamps ([tiles,
+    NULL_PHASE_SLOTS] clock64 words, `phases.cuh`): medians over the
+    tiles of thread 0's round trips (its stream id with the loads that
+    share that trip, then its midstates), the hash from the midstates in
+    hand to lane 0's end and to the slowest lane's (the warp's), the copy's
+    end (the last copying warp's stores drained, from the tile's start)
+    and whether it ended before the hash did, the stores and drain after
+    the hash (to the tile's end), and the tile; the span of the launch on
+    the global timer (first tile's start to last tile's end, ns); and the
+    tiles an SM ran at once and the share that started after a tile on
+    their SM had ended (a second wave)."""
+    tiles = int(plan[1])
+    s = stamps[:tiles].astype(np.int64)
+
+    def med(v):
+        return float(np.median(v))
+
+    lane_end = s[:, 14:46].max(axis=1)
+    copy_end = s[:, 10:14].max(axis=1)
+    per_sm = np.bincount(s[:, 1])
+    late, overlap = 0, [0]
+    for sm in np.unique(s[:, 1]):
+        on = s[s[:, 1] == sm]
+        late += int((on[:, 0] > on[:, 6].min()).sum())
+        cur = 0
+        for _, d in sorted([(a, 1) for a in on[:, 0]]
+                           + [(b, -1) for b in on[:, 6]]):
+            cur += d
+            overlap.append(cur)
+    slow = int(np.argmax(s[:, 6] - s[:, 0]))
+    return dict(
+        tiles=tiles, rows_per_tile=int(plan[0]), threads=int(plan[2]),
+        setup_id_cycles=med(s[:, 4] - s[:, 0]),
+        setup_midstates_cycles=med(s[:, 5] - s[:, 4]),
+        hash_lane0_cycles=med(s[:, 14] - s[:, 5]),
+        hash_warp_cycles=med(lane_end - s[:, 5]),
+        hash_end_cycles=med(lane_end - s[:, 0]),
+        copy_end_cycles=med(copy_end - s[:, 0]),
+        copy_ends_before_hash_share=float((copy_end <= lane_end).mean()),
+        store_after_hash_cycles=med(s[:, 6] - lane_end),
+        tile_cycles=med(s[:, 6] - s[:, 0]),
+        tile_cycles_max=int((s[:, 6] - s[:, 0]).max()),
+        slowest_tile=dict(id=int(s[slow, 4] - s[slow, 0]),
+                          hash_start=int(s[slow, 5] - s[slow, 0]),
+                          hash_end=int(lane_end[slow] - s[slow, 0]),
+                          end=int(s[slow, 6] - s[slow, 0])),
+        launch_span_ns=int(s[:, 7].max() - s[:, 2].min()),
+        sms_used=int((per_sm > 0).sum()), tiles_per_sm_max=int(per_sm.max()),
+        tiles_at_once_on_an_sm_max=int(max(overlap)),
+        second_wave_share=late / tiles)
+
+
+def srtcp_null_phases(torch, dev, lib, cases, which: str, per_sm: int = 0,
+                      quiet: bool = False) -> dict:
+    """The SRTCP NULL phase probe (`ljt_srtcp_null_phases` of `lib`: I-NULL
+    and J-NULL with clock64 stamps) at each of `cases` (`profile_kernels`'
+    NULL_SHAPES launches: label, I's arguments, J's, I's outputs, J's),
+    planned for `per_sm` tiles an SM (0: as shipped): for protect and
+    unprotect, the probe's time on the card and `_null_split`, after
+    checking it writes what the shipped kernels wrote.  Prints an
+    `srtcp_null_phases` line named `which` unless `quiet`."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    out = {}
+    for label, pa, ua, kp, ku in cases:
+        split = {}
+        for name, unprotect, a, want in (("protect", 0, pa, kp),
+                                         ("unprotect", 1, ua, ku)):
+            tab_rk, tab_mid, stream, data, length = a[:5]
+            n, width = data.shape
+            res = torch.empty_like(data)
+            res_len = torch.empty_like(length)
+            ok = torch.zeros(n, dtype=torch.bool, device=dev)
+            e_bit = torch.empty_like(length)
+            idx = torch.empty_like(length)
+            stamps = torch.zeros((n, NULL_PHASE_SLOTS), dtype=torch.int64,
+                                 device=dev)
+            plan = np.zeros(3, np.int32)
+            word = None if unprotect else a[6].data_ptr()
+
+            def probe():
+                kbuild.check(lib.ljt_srtcp_null_phases(
+                    tab_mid.data_ptr(), stream.data_ptr(), tab_rk.shape[0],
+                    data.data_ptr(), length.data_ptr(), word,
+                    res.data_ptr(), res_len.data_ptr(), ok.data_ptr(),
+                    e_bit.data_ptr(), idx.data_ptr(), stamps.data_ptr(),
+                    plan.ctypes.data, n, width, TAG, unprotect, per_sm,
+                    kbuild.stream_handle(dev)), "srtcp_null_phases")
+
+            probe_ms = device_ms(torch, probe, 20, "_phases_kernel")
+            stamps.zero_()
+            probe()              # the stamps of one warm launch
+            torch.cuda.synchronize()
+            got = (res, res_len, ok, e_bit, idx) if unprotect else (
+                res, res_len)
+            require(max_abs_err(torch, got, want) == 0,
+                    f"the SRTCP NULL probe ({which}, {per_sm or 'shipped'} "
+                    f"tiles an SM) differs from {name} at {label}")
+            split[name] = dict(probe_ms=probe_ms, **_null_split(
+                stamps.cpu().numpy(), plan))
+        out[label] = split
+    if not quiet:
+        emit("srtcp_null_phases", tree=which,
+             tiles_per_sm=per_sm or "as shipped", launches=out)
+    return out
+
+
+def srtcp_null_plans(torch, dev, lib, cases) -> None:
+    """I-NULL's and J-NULL's tiles planned for each of NULL_PLANS tiles an
+    SM (`srtcp_null_phases`): the probe's time on the card at each of
+    `cases`, with the rows a tile and the tiles, so the shipped plan is
+    read against the others.  Prints an `srtcp_null_plans` line."""
+    out = {}
+    for k in NULL_PLANS:
+        res = srtcp_null_phases(torch, dev, lib, cases, "this tree", k, True)
+        out[k] = {lab: dict(rows_per_tile=v["protect"]["rows_per_tile"],
+                            tiles=v["protect"]["tiles"],
+                            protect_ms=v["protect"]["probe_ms"],
+                            unprotect_ms=v["unprotect"]["probe_ms"])
+                  for lab, v in res.items()}
+    emit("srtcp_null_plans", tiles_per_sm=out)
+
+
+def srtcp_null_turns(torch, dev, parent_lib, cases) -> None:
+    """I-NULL and J-NULL of the parent against this tree's at each of
+    `cases` (as `srtcp_null_phases` takes them), in turns (`kernel_turns`),
+    after checking the parent's outputs equal this tree's.  Prints an
+    `srtcp_null_turns` line."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    specs = []
+    for label, pa, ua, kp, ku in cases:
+        for entry, a, want in (("srtcp_protect_null", pa, kp),
+                               ("srtcp_unprotect_null", ua, ku)):
+            tab_rk = a[0]
+            n, width = a[3].shape
+            outs = tuple(torch.empty_like(w) for w in want)
+            args = (tuple(x.data_ptr() for x in a[:3]) + (tab_rk.shape[0],)
+                    + tuple(x.data_ptr() for x in a[3:])
+                    + tuple(o.data_ptr() for o in outs)
+                    + (n, width, tab_rk.shape[1] - 1, TAG,
+                       kbuild.stream_handle(dev)))
+            kbuild.check(getattr(parent_lib, "ljt_" + entry)(*args), entry)
+            torch.cuda.synchronize()
+            require(max_abs_err(torch, outs, want) == 0,
+                    f"the parent's {entry} differs from this tree's at "
+                    f"{label}")
+            specs.append((label, outs, (entry, args)))
+    kernel_turns(torch, dev, parent_lib, specs, "srtcp_null_turns")
 
 
 def _audio_batch(rng, streams, seq0: int, lens=None):

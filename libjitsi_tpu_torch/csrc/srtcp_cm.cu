@@ -43,11 +43,9 @@
 // Instances (a template parameter, each its own kernel name): AES-CM (I,
 // J); AES-F8 (`srtcp_protect_f8`, `srtcp_unprotect_f8`: the keystream of
 // `f8_tile`, two rows a thread, under each row's k_e and k_e XOR m
-// schedules; the host builds the RFC 3711 §4.1.2.4 IV and sets E); NULL
-// (`srtcp_protect_null`, `srtcp_unprotect_null`: the keystream stage
-// compiled out, no round keys loaded; the host's word carries E = 0, and
-// unprotect passes every row through undecrypted, as the JAX kernels with
-// encrypt=False do).
+// schedules; the host builds the RFC 3711 §4.1.2.4 IV and sets E).  The
+// NULL instances (I-NULL, J-NULL) have kernels of their own
+// (`srtcp_null.cu`).
 //
 // Semantics (held byte for byte against `srtcp_protect_plain` /
 // `srtcp_unprotect_plain` in transform/srtp/kernel.py): lengths are
@@ -187,12 +185,6 @@ __global__ void __launch_bounds__(kThreads)
   srtcp_protect_tile<NR, kF8>(LJT_SRTCP_PROTECT_ARGS, tab_f8);
 }
 
-template <int NR>
-__global__ void __launch_bounds__(kThreads)
-    srtcp_protect_null_kernel(LJT_SRTCP_PROTECT_PARAMS) {
-  srtcp_protect_tile<NR, kNull>(LJT_SRTCP_PROTECT_ARGS, nullptr);
-}
-
 // J's rows: staged from the tile's first row on, keys by stream id, one
 // IV a row given; the window is [8, mlen) where the E bit of the word at
 // mlen = length - tag_len - 4 is set, and empty where it is not.
@@ -320,22 +312,13 @@ __global__ void __launch_bounds__(kThreads)
   srtcp_unprotect_tile<NR, kF8>(LJT_SRTCP_UNPROTECT_ARGS, tab_f8);
 }
 
-template <int NR>
-__global__ void __launch_bounds__(kThreads)
-    srtcp_unprotect_null_kernel(LJT_SRTCP_UNPROTECT_PARAMS) {
-  srtcp_unprotect_tile<NR, kNull>(LJT_SRTCP_UNPROTECT_ARGS, nullptr);
-}
-
 // I's and J's instance for a cipher and a key length.
 template <Cipher C>
 auto protect_kernel(int nr) {
   if constexpr (C == kCm)
     return nr == 10 ? srtcp_protect_cm_kernel<10> : srtcp_protect_cm_kernel<14>;
-  else if constexpr (C == kF8)
-    return nr == 10 ? srtcp_protect_f8_kernel<10> : srtcp_protect_f8_kernel<14>;
   else
-    return nr == 10 ? srtcp_protect_null_kernel<10>
-                    : srtcp_protect_null_kernel<14>;
+    return nr == 10 ? srtcp_protect_f8_kernel<10> : srtcp_protect_f8_kernel<14>;
 }
 
 template <Cipher C>
@@ -343,16 +326,13 @@ auto unprotect_kernel(int nr) {
   if constexpr (C == kCm)
     return nr == 10 ? srtcp_unprotect_cm_kernel<10>
                     : srtcp_unprotect_cm_kernel<14>;
-  else if constexpr (C == kF8)
+  else
     return nr == 10 ? srtcp_unprotect_f8_kernel<10>
                     : srtcp_unprotect_f8_kernel<14>;
-  else
-    return nr == 10 ? srtcp_unprotect_null_kernel<10>
-                    : srtcp_unprotect_null_kernel<14>;
 }
 
-// The launches of I and J and of their F8 and NULL instances; `tab_f8`,
-// the F8 instances' second key table, is unused by the others.
+// The launches of I and J and of their F8 instances; `tab_f8`, the F8
+// instances' second key table, is unused by the others.
 template <Cipher C>
 int launch_protect(const void* tab_rk, const void* tab_mid,
                    const void* tab_f8, const void* stream, int n_streams,
@@ -457,18 +437,6 @@ extern "C" int ljt_srtcp_protect_f8(const void* tab_rk, const void* tab_f8,
                              width, nr, tag_len, cuda_stream);
 }
 
-extern "C" int ljt_srtcp_protect_null(const void* tab_rk, const void* tab_mid,
-                                      const void* stream, int n_streams,
-                                      const void* data, const void* length,
-                                      const void* iv, const void* index_word,
-                                      void* out, void* out_len, int n,
-                                      int width, int nr, int tag_len,
-                                      void* cuda_stream) {
-  return launch_protect<kNull>(tab_rk, tab_mid, nullptr, stream, n_streams,
-                               data, length, iv, index_word, out, out_len, n,
-                               width, nr, tag_len, cuda_stream);
-}
-
 extern "C" int ljt_srtcp_unprotect_cm(const void* tab_rk, const void* tab_mid,
                                       const void* stream, int n_streams,
                                       const void* data, const void* length,
@@ -492,15 +460,4 @@ extern "C" int ljt_srtcp_unprotect_f8(
                                data, length, iv, out, out_mlen, auth_ok,
                                e_bit, index, n, width, nr, tag_len,
                                cuda_stream);
-}
-
-extern "C" int ljt_srtcp_unprotect_null(
-    const void* tab_rk, const void* tab_mid, const void* stream,
-    int n_streams, const void* data, const void* length, const void* iv,
-    void* out, void* out_mlen, void* auth_ok, void* e_bit, void* index, int n,
-    int width, int nr, int tag_len, void* cuda_stream) {
-  return launch_unprotect<kNull>(tab_rk, tab_mid, nullptr, stream, n_streams,
-                                 data, length, iv, out, out_mlen, auth_ok,
-                                 e_bit, index, n, width, nr, tag_len,
-                                 cuda_stream);
 }

@@ -112,6 +112,9 @@ _SIGNATURES = {
                                _I, _P],
     "ljt_srtp_fanout_f8_phases": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                                   _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # I-NULL's and J-NULL's phase probe (clock64 stamps; on no path)
+    "ljt_srtcp_null_phases": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _I, _I, _I, _I, _I, _P],
     # K's and L's phase probe (clock64 stamps; on no path)
     "ljt_srtp_f8_phases": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -422,8 +422,9 @@ def srtcp_protect(tab_rk, tab_mid, stream, data, length, iv, index_word,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched SRTCP protect (reference: SRTCPCryptoContext.
     transformPacket).  CUDA tensors go through the `cipher`'s instance
-    of kernel I (`csrc/srtcp_cm.cu`); CPU tensors through
-    `srtcp_protect_plain`.  Returns (data', length')."""
+    of kernel I (`csrc/srtcp_cm.cu`; NULL: I-NULL, `csrc/srtcp_null.cu`);
+    CPU tensors through `srtcp_protect_plain`.  Returns (data',
+    length')."""
     args = (tab_rk, tab_mid, stream, data, length, iv, index_word)
     if _k.route(data) == "cpu":
         return srtcp_protect_plain(*args, tag_len, cipher, tab_f8)
@@ -451,9 +452,9 @@ def srtcp_unprotect(tab_rk, tab_mid, stream, data, length, iv,
                     tab_f8: Optional[torch.Tensor] = None):
     """Batched SRTCP unprotect (reference: SRTCPCryptoContext.
     reverseTransformPacket).  CUDA tensors go through the `cipher`'s
-    instance of kernel J (`csrc/srtcp_cm.cu`); CPU tensors through
-    `srtcp_unprotect_plain`.  Returns (data', mlen, auth_ok, e_bit,
-    index)."""
+    instance of kernel J (`csrc/srtcp_cm.cu`; NULL: J-NULL,
+    `csrc/srtcp_null.cu`); CPU tensors through `srtcp_unprotect_plain`.
+    Returns (data', mlen, auth_ok, e_bit, index)."""
     args = (tab_rk, tab_mid, stream, data, length, iv)
     if _k.route(data) == "cpu":
         return srtcp_unprotect_plain(*args, tag_len, cipher, tab_f8)

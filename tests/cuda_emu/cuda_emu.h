@@ -166,6 +166,7 @@ inline long long clock64() {
   return std::chrono::steady_clock::now().time_since_epoch().count();
 }
 inline void __threadfence_block() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }

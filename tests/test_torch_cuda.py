@@ -701,19 +701,30 @@ def _edge_lengths(n, hdr, tag_len, width, rng, trailer=0):
     return np.minimum(lens, width - tag_len - trailer).astype(np.int32)
 
 
-@pytest.mark.parametrize("plane,cipher,key_len,n,width,off", [
-    ("srtp", "f8", 16, 4096, 1536, 12),       # a mix batch's rows, one launch
-    ("srtp", "f8", 32, 4095, 1536, 13),       # odd rows, windows off a word
-    ("srtp", "f8", 16, 1024, 1536, 12),       # the batch's long launch
-    ("srtp", "f8", 32, 1024, 1536, 12),       # the same under AES-256
-    ("srtp", "null", 16, 4096, 1536, 12),
-    ("srtcp", "f8", 16, 1100, 1536, 8),
-    ("srtcp", "null", 16, 1100, 1536, 8),
+@pytest.mark.parametrize("plane,cipher,key_len,n,width,off,sizes", [
+    ("srtp", "f8", 16, 4096, 1536, 12, "mix"),  # a mix batch's rows, one launch
+    ("srtp", "f8", 32, 4095, 1536, 13, "mix"),  # odd rows, windows off a word
+    ("srtp", "f8", 16, 1024, 1536, 12, "mix"),  # the batch's long launch
+    ("srtp", "f8", 32, 1024, 1536, 12, "mix"),  # the same under AES-256
+    ("srtp", "null", 16, 4096, 1536, 12, "mix"),
+    ("srtcp", "f8", 16, 1100, 1536, 8, "mix"),
+    ("srtcp", "null", 16, 1100, 1536, 8, "mix"),
+    # I-NULL's and J-NULL's launches on the paths: srtp_profiles' 1,100
+    # compound packets, an RR burst's 275 (J on the sfu path) and the SFU
+    # set-up's 1,100 32-byte RRs (I on it), under both key lengths
+    ("srtcp", "null", 16, 1100, 1504, 8, "rtcp"),
+    ("srtcp", "null", 32, 1100, 1504, 8, "rtcp"),
+    ("srtcp", "null", 16, 275, 1504, 8, "rtcp"),
+    ("srtcp", "null", 32, 275, 1504, 8, "rtcp"),
+    ("srtcp", "null", 16, 1100, 1504, 8, "rr"),
+    ("srtcp", "null", 32, 1100, 1504, 8, "rr"),
 ])
 def test_f8_and_null_kernels_match_plain(cuda_device, plane, cipher, key_len,
-                                         n, width, off):
+                                         n, width, off, sizes):
     """K, L and the F8 and NULL instances of C, D, I and J against their
-    plain versions on the card, a tampered row beside genuine ones."""
+    plain versions on the card, a tampered row beside genuine ones; the
+    packets a production mix's, or compound RTCP's 60-200 bytes, or
+    32-byte RRs, the edge rows first."""
     rng = np.random.default_rng(n + key_len + off)
     s, tag_len = 10240, 10
     d = cuda_device
@@ -731,6 +742,9 @@ def test_f8_and_null_kernels_match_plain(cuda_device, plane, cipher, key_len,
     stream = t(rng.integers(0, s, n).astype(np.int32))
     lens = _edge_lengths(n, off, tag_len, width, rng,
                          0 if plane == "srtp" else 4)
+    if sizes != "mix":
+        lens[5:] = (rng.integers(60, 201, n - 5) if sizes == "rtcp"
+                    else 32)
     data = t(rng.integers(0, 256, (n, width), np.uint8))
     iv = t(rng.integers(0, 256, (n, 16), np.uint8))
     name = f"{plane}_protect_{cipher}"
@@ -1174,6 +1188,52 @@ def test_srtp_f8_phase_probe_matches_shipped(cuda_device):
                 assert int(plan[2]) * int(plan[0]) >= n
         assert bool(ku[2].all())
 
+
+def test_srtcp_null_phase_probe_matches_shipped(cuda_device):
+    """I-NULL's and J-NULL's phase probe (`ljt_srtcp_null_phases`: their
+    tiles with clock64 stamps, planned as shipped and for 1, 2 and 4
+    tiles an SM) writes what I-NULL and J-NULL write at their three
+    launches on the paths."""
+    rng = np.random.default_rng(18)
+    s, tag_len, width = 64, 10, 1504
+    d = cuda_device
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(d)
+
+    tab_rk = t(aes.expand_keys_batch(rng.integers(0, 256, (s, 16),
+                                                  np.uint8)))
+    tab_mid = t(sha1.hmac_precompute_batch(rng.integers(
+        0, 256, (s, 20), np.uint8)).view(np.int32))
+    lib = kbuild.library()
+    for n, lo, hi in ((1100, 60, 201), (275, 60, 201), (1100, 32, 33)):
+        pa = [tab_rk, tab_mid, t(rng.integers(0, s, n).astype(np.int32)),
+              t(rng.integers(0, 256, (n, width), np.uint8)),
+              t(rng.integers(lo, hi, n).astype(np.int32)),
+              t(rng.integers(0, 256, (n, 16), np.uint8)),
+              t(rng.integers(0, 2 ** 31, n).astype(np.int32))]
+        kp = srtp_kernel.srtcp_protect(*pa, tag_len, "null")
+        ua = pa[:3] + [kp[0], kp[1], pa[5]]
+        ku = srtp_kernel.srtcp_unprotect(*ua, tag_len, "null")
+        assert bool(ku[2].all())
+        for unprotect, a, want in ((0, pa, kp), (1, ua, ku)):
+            for per_sm in (0, 1, 2, 4):
+                got = [torch.empty_like(a[3]), torch.empty_like(a[4]),
+                       torch.zeros(n, dtype=torch.bool, device=d),
+                       torch.empty_like(a[4]), torch.empty_like(a[4])]
+                stamps = torch.zeros((n, 46), dtype=torch.int64, device=d)
+                plan = np.zeros(3, np.int32)
+                assert lib.ljt_srtcp_null_phases(
+                    tab_mid.data_ptr(), a[2].data_ptr(), s,
+                    a[3].data_ptr(), a[4].data_ptr(),
+                    None if unprotect else a[6].data_ptr(),
+                    *(x.data_ptr() for x in got), stamps.data_ptr(),
+                    plan.ctypes.data, n, width, tag_len, unprotect, per_sm,
+                    kbuild.stream_handle(d)) == 0
+                torch.cuda.synchronize()
+                assert all(_same(x, y) for x, y in zip(got, want))
+                assert int(plan[1]) * int(plan[0]) >= n
+                assert int(stamps[:int(plan[1]), 3].sum()) == n
 
 
 # H-F8's own tile on the card: MAC messages ending exactly at and inside a

@@ -25,8 +25,10 @@ unequal width, the 2-byte path, rows in stages, and the staged kernel's
 near-silent, saturating and inactive rows; for kernel R each of its
 instances (the templated ratios and the general one), rows many general
 items long, rows shorter than its filter, rows at the rails, launches off
-16 bytes, a grid past 65,535 rows and its phase probe.  Tolerance: exact
-equality.
+16 bytes, a grid past 65,535 rows and its phase probe; for I-NULL and
+J-NULL one row, CTAs split unevenly, widths off 16 and off 4, buffers off
+16 bytes, words and tags cut at the width, a negative mlen, and their
+phase probe.  Tolerance: exact equality.
 """
 
 import ctypes
@@ -1001,6 +1003,18 @@ def test_emulated_kernel_i_tile_edges(emu, key_len, tag_len, width, n):
         assert out_len[i] == length[i] + 4 + tag_len
 
 
+def _view_off(k):
+    """A function copying an array into a buffer k bytes past a 16-byte
+    boundary."""
+    def place(a):
+        buf = np.zeros(a.nbytes + 32, np.uint8)
+        base = (-buf.ctypes.data) % 16 + k
+        view = buf[base:base + a.nbytes].view(a.dtype).reshape(a.shape)
+        view[...] = a
+        return view
+    return place
+
+
 def _emu_call(emu, name, cipher, tab_rk, tab_f8, *rest):
     """Call the C entry point of a cipher's instance: the F8 ones take the
     k_e XOR m table right after the round keys."""
@@ -1010,19 +1024,34 @@ def _emu_call(emu, name, cipher, tab_rk, tab_f8, *rest):
 
 # The F8 instances (K, L; I's and J's) and the NULL instances (C's, D's,
 # I's, J's) against their plain versions.  At 1 SM, K, L and C, D tile
-# ceil(n / 2) rows and I, J ceil(n / 4): 7 rows are tiles of 4 and 3 (a
-# thread of the 3-row tile has no second row), 9 SRTCP rows tiles of 3.
-# Each tile holds a row of length 0, rows shorter than header + tag, an
-# empty keystream window (length = payload offset), a window of exactly
-# one keystream block and, in the "off13" case, windows starting off a
-# word; every row's k_e XOR m schedule differs from k_e in every round
-# key, and a tampered row sits beside genuine ones.
+# ceil(n / 2) rows and I (F8), J (F8) ceil(n / 4): 7 rows are tiles of 4
+# and 3 (a thread of the 3-row tile has no second row), 9 SRTCP rows tiles
+# of 3.  Each tile holds a row of length 0, rows shorter than header +
+# tag, an empty keystream window (length = payload offset), a window of
+# exactly one keystream block and, in the "off13" case, windows starting
+# off a word; every row's k_e XOR m schedule differs from k_e in every
+# round key, and a tampered row sits beside genuine ones.
+# I-NULL and J-NULL (`srtcp_null.cu`) take up to 32 rows a CTA, one a
+# hashing lane (at 1 SM ceil(n / 4): four CTAs an SM): one row; 130 rows,
+# CTAs of 32, 32, 32, 32 and 2 (every lane of warp 0 hashing); 33 rows of
+# a width not a multiple of 16 (4-byte units; CTAs of 9, 9, 9 and 6); 9
+# rows of a width not a multiple of 4 (bytes; CTAs of 3); 13 rows whose
+# buffers start 3 bytes past a 16-byte boundary (CTAs of 4, 4, 4 and 1).  Their "edges" rows: lengths 0 and
+# shorter than 8 + tag, the word and tag fitting exactly, the tag partly
+# and wholly past the width, the word partly and wholly past it, a length
+# past it; stream ids outside the table; unprotect adds a row whose mlen
+# is negative and a tampered tag beside genuine rows.
 @pytest.mark.parametrize("plane,cipher,key_len,width,n,case", [
     ("srtp", "f8", 16, 224, 7, "mixed"),
     ("srtp", "f8", 32, 160, 9, "off13"),
     ("srtp", "null", 16, 96, 5, "mixed"),
     ("srtcp", "f8", 16, 224, 9, "mixed"),
     ("srtcp", "null", 32, 96, 6, "mixed"),
+    ("srtcp", "null", 16, 1504, 1, "edges"),
+    ("srtcp", "null", 32, 224, 130, "edges"),
+    ("srtcp", "null", 16, 100, 33, "edges"),
+    ("srtcp", "null", 16, 61, 9, "edges"),
+    ("srtcp", "null", 16, 224, 13, "unaligned"),
 ])
 def test_emulated_f8_and_null_instances_match_plain(emu, plane, cipher,
                                                     key_len, width, n, case):
@@ -1036,18 +1065,26 @@ def test_emulated_f8_and_null_instances_match_plain(emu, plane, cipher,
     tab_mid = sha1.hmac_precompute_batch(
         rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
     stream = rng.integers(-1, s + 1, n).astype(np.int32)
-    data = rng.integers(0, 256, (n, width), np.uint8)
+    if case not in ("mixed", "off13"):
+        stream[1::5] = -3
+        stream[2::7] = s + 7
+    # "unaligned": every row buffer 3 bytes past a 16-byte boundary
+    place = _view_off(3) if case == "unaligned" else np.ascontiguousarray
+    data = place(rng.integers(0, 256, (n, width), np.uint8))
     hdr = 13 if case == "off13" else (12 if plane == "srtp" else 8)
-    edges = [0, hdr + tag_len - 1, hdr, hdr + 16, width - tag_len - 4,
-             hdr + 1, 60]
+    fit = width - tag_len - 4
+    edges = ([0, hdr + tag_len - 1, hdr, hdr + 16, fit, hdr + 1, 60]
+             if case in ("mixed", "off13") else
+             [60, 0, 5, hdr + tag_len - 1, fit, fit + 3, width - 4,
+              width - 2, width, width + 3, 200, hdr])
     length = np.resize(np.array(edges, np.int32), n)
     off = np.full(n, hdr, np.int32)
     iv = rng.integers(0, 256, (n, 16), np.uint8)
     iv[:2, 12:] = 0xFF                  # j is XORed into bytes 12-15
     f8 = T(tab_f8) if cipher == "f8" else None
     nr = tab_rk.shape[1] - 1
-    t_args = [T(tab_rk), T(tab_mid), T(stream), T(data), T(length)]
-    out = np.zeros_like(data)
+    t_args = [T(tab_rk), T(tab_mid), T(stream), T(data.copy()), T(length)]
+    out = place(np.zeros_like(data))
     out_len = np.zeros(n, np.int32)
     if plane == "srtp":
         roc = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(
@@ -1076,13 +1113,17 @@ def test_emulated_f8_and_null_instances_match_plain(emu, plane, cipher,
         assert np.array_equal(out[whole, :hdr], data[whole, :hdr])
         assert not np.array_equal(out[4, hdr:hdr + 8], data[4, hdr:hdr + 8])
 
-    wire = out.copy()
+    wire = place(out.copy())
     wlen = np.minimum(out_len, width).astype(np.int32)
-    wire[3, 2] ^= 1                                # a tampered row
-    dec = np.zeros_like(data)
+    bad = 3 if n > 3 else None
+    if bad is not None:
+        wire[bad, 2] ^= 1                          # a tampered row
+    if case not in ("mixed", "off13") and n > 4:
+        wlen[4] = 5                                # mlen below 0
+    dec = place(np.zeros_like(data))
     mlen = np.zeros(n, np.int32)
     ok = np.zeros(n, np.uint8)
-    u_args = [T(tab_rk), T(tab_mid), T(stream), T(wire), T(wlen)]
+    u_args = [T(tab_rk), T(tab_mid), T(stream), T(wire.copy()), T(wlen)]
     if plane == "srtp":
         assert _emu_call(emu, "srtp_unprotect", cipher, tab_rk, tab_f8,
                          _p(tab_mid), _p(stream), s, _p(wire), _p(wlen),
@@ -1103,12 +1144,17 @@ def test_emulated_f8_and_null_instances_match_plain(emu, plane, cipher,
             *u_args, T(iv), tag_len, cipher, f8)
     for a, b in zip(got, want):
         assert np.array_equal(a, b.numpy())
-    fits = length + tag_len + (0 if plane == "srtp" else 4) <= width
+    fits = (length + tag_len + (0 if plane == "srtp" else 4) <= width) & (
+        wlen >= tag_len + (0 if plane == "srtp" else 4))
     genuine = fits.copy()
-    genuine[3] = False
-    assert got[2][genuine].all() and not got[2][3]
+    if bad is not None:
+        genuine[bad] = False
+        assert not got[2][bad]
+    assert got[2][genuine].all() and genuine.any()
     for i in np.nonzero(genuine)[0]:
         assert np.array_equal(dec[i, :length[i]], data[i, :length[i]])
+    if plane == "srtcp" and cipher == "null":
+        assert np.array_equal(dec, wire)    # every row passed through
 
 
 # K's and L's own tile (at 1 SM one tile of all n rows, at most 128; 128
@@ -1736,3 +1782,72 @@ def test_emulated_srtp_f8_phase_probe(emu):
         assert (warps[:, :, 2].max(axis=1) <= st[:, 4]).all()
         assert (st[:, 4] <= st[:, 5]).all()
         assert ((warps[:, :, 1] > 0) <= (warps[:, :, 0] > 0)).all()
+
+
+@pytest.mark.parametrize("per_sm", [0, 1])
+def test_emulated_srtcp_null_phase_probe(emu, per_sm):
+    """I-NULL's and J-NULL's phase probe (`ljt_srtcp_null_phases`), planned
+    as shipped (at 1 SM three tiles of 4 rows and one of 1) and for one
+    tile an SM (one tile of 13 rows), writes what the shipped kernels
+    write and stamps each tile in order: start, thread 0's id in hand,
+    then its midstates, each hashing lane's end, the tile's end; every row
+    a tile has hashes on a lane of its own, and the copying warps stamp
+    their ends."""
+    rng = np.random.default_rng(18)
+    s, n, width, tag_len = 5, 13, 224, 10
+    tab_rk = aes.expand_keys_batch(rng.integers(0, 256, (s, 16), np.uint8))
+    tab_mid = sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (s, 20), np.uint8)).view(np.int32)
+    stream = rng.integers(-1, s + 1, n).astype(np.int32)
+    data = rng.integers(0, 256, (n, width), np.uint8)
+    length = rng.integers(0, width - tag_len - 3, n).astype(np.int32)
+    iv = rng.integers(0, 256, (n, 16), np.uint8)
+    word = rng.integers(0, 2 ** 31, n).astype(np.int32)
+    out, out_len = np.zeros_like(data), np.zeros(n, np.int32)
+    assert emu.ljt_srtcp_protect_null(
+        _p(tab_rk), _p(tab_mid), _p(stream), s, _p(data), _p(length),
+        _p(iv), _p(word), _p(out), _p(out_len), n, width, 10, tag_len,
+        None) == 0
+    wire, wlen = out.copy(), np.minimum(out_len, width).astype(np.int32)
+    wire[4, 9] ^= 1
+    want = [np.zeros_like(data), np.zeros(n, np.int32), np.zeros(n, np.uint8),
+            np.zeros(n, np.int32), np.zeros(n, np.int32)]
+    assert emu.ljt_srtcp_unprotect_null(
+        _p(tab_rk), _p(tab_mid), _p(stream), s, _p(wire), _p(wlen), _p(iv),
+        *(_p(x) for x in want), n, width, 10, tag_len, None) == 0
+    assert want[2].sum() == n - 1 and not want[2][4]
+    for unprotect in (0, 1):
+        src, ln = (wire, wlen) if unprotect else (data, length)
+        got = [np.zeros_like(data), np.zeros(n, np.int32),
+               np.zeros(n, np.uint8), np.zeros(n, np.int32),
+               np.zeros(n, np.int32)]
+        stamps = np.zeros((n, 46), np.int64)
+        plan = np.zeros(3, np.int32)
+        assert emu.ljt_srtcp_null_phases(
+            _p(tab_mid), _p(stream), s, _p(src), _p(ln), _p(word),
+            *(_p(x) for x in got), _p(stamps), _p(plan), n, width, tag_len,
+            unprotect, per_sm, None) == 0
+        if unprotect:
+            assert all(np.array_equal(a, b) for a, b in zip(got, want))
+        else:
+            assert np.array_equal(got[0], out)
+            assert np.array_equal(got[1], out_len)
+        tiles = int(plan[1])
+        assert int(plan[0]) == (4 if per_sm == 0 else n)
+        assert tiles == -(-n // int(plan[0]))
+        assert plan[2] == 128
+        st = stamps[:tiles]
+        assert not stamps[tiles:].any()
+        assert st[:, 3].sum() == n and (st[:, 8] == plan[2]).all()
+        lanes = st[:, 14:46]
+        assert ((lanes > 0).sum(axis=1) == st[:, 3]).all()
+        # lanes run as threads here, in no lockstep: only lane 0 (thread
+        # 0, which stamps the tile) is ordered against its own stamps
+        assert (st[:, 0] <= st[:, 4]).all()
+        assert (st[:, 4] <= st[:, 5]).all()
+        assert (st[:, 5] <= lanes[:, 0]).all()
+        assert ((lanes == 0) | (lanes >= st[:, :1])).all()
+        assert (lanes.max(axis=1) <= st[:, 6]).all()
+        warps = st[:, 10:14]
+        assert (warps.max(axis=1) <= st[:, 6]).all()
+        assert not warps[:, 0].any() and (warps[:, 1:] > 0).all()
