@@ -80,7 +80,36 @@ version:
                 leg 0's 1,800 Hz over 20x what each tone's own leg hears
                 of it; then (outside the counts) a bridge snapshotted at
                 tick 10 and restored on the card keeps the 16 kHz clock,
-                names leg 0 degraded, and every later mix authenticates.
+                names leg 0 degraded, and every later mix authenticates;
+  conference_pipelined
+                the conference path's bridge pipelined: 50 ticks at
+                `pipeline_depth=2` and 20 at depth 3, with kernel
+                arrival stamps (kernels C, D, E, F, G; the unprotect
+                dispatched on the table's async seams, the mixes' protect
+                on `send_media_async`, each tick's mixes leaving at the
+                next tick's top and the last at the final `flush_sends`),
+                every tick's wire byte-equal to the same pipelined bridge
+                on the CPU and every mix authenticated; tick p50/p99
+                beside the serial conference's;
+  sfu_rings     the sfu path's bridge with `ingest_rings=2` and kernel
+                stamps, 10 ticks from 16 client sockets with RRs, NACKs
+                and `emit_feedback`, then 3 under torch.profiler
+                (kernels D, H, I, J): both SO_REUSEPORT
+                rings drain, their sum is what was sent, every copy
+                authenticates at its leg's socket and none echoes or
+                crosses a conference, every BWE arrival is a kernel stamp
+                inside its tick's host window, and a snapshot restores
+                with two rings;
+  echo_batcher  the srtp_echo loop at depth 1 under an `AdaptiveBatcher`
+                (kernels C, D): a 2,048-packet burst on a 512-packet cap,
+                then calm ticks; the backlog signal fires and the cap and
+                window come back to their base; the knob trajectory and
+                tick p50/p99 printed.
+
+Then `exposition` renders the registry of every bridge and loop the run
+built (with the receive banks' metrics registered, and the batcher's),
+plain and OpenMetrics, and fails unless `validate_exposition` finds
+nothing.
 
 Beside them, `sass` gives each kernel's instruction count, registers,
 spills and static shared memory, the INT32-pipe and load counts of the
@@ -327,6 +356,16 @@ MIXED_R_LAUNCHES = tuple((n, ri, ro) for ri, ro in ((8000, 16000),
 # kernel R's phase probe (`ljt_resample_phases`): clock64 words a walker
 # (a block of PR 16's form, a warp of this one) and the walkers its
 # stamps have room for
+CONF_PIPE = ((2, CONF_TICKS), (3, 20))   # (pipeline_depth, ticks)
+SFU_RINGS, SFU_RINGS_TICKS, SFU_RINGS_PROFILED = 2, 10, 3
+SFU_RINGS_SOCKETS = 16      # client sockets: flows the kernel hashes
+SFU_RINGS_RR, SFU_RINGS_NACK, SFU_RINGS_FEEDBACK = 3, 6, 5
+BATCHER_BURST = 4 * ECHO_BURST   # one burst on the 512-packet cap
+BATCHER_CALM = 32                # packets a calm tick
+BATCHER_CALM_TICKS = 24
+BATCHER_WINDOW_MS = 2
+TICK_BUDGET_S = 0.04        # `_TickBudget`: slow_burn past it, fast_burn
+                            # past 2.5x it (a 512-packet echo tick: ~20 ms)
 R_PHASE_SLOTS = 12
 R_PHASE_WALKERS = 1 << 16
 SOURCES = {
@@ -411,7 +450,13 @@ PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
          "sfu_gcm": ("srtp_gcm_open", "srtp_fanout_gcm", "srtp_gcm_seal"),
          "conference_mixed": ("srtp_protect_cm", "srtp_unprotect_cm",
                               "mix_minus", "g711_encode", "g711_decode",
-                              "resample")}
+                              "resample"),
+         "conference_pipelined": ("srtp_protect_cm", "srtp_unprotect_cm",
+                                  "mix_minus", "g711_encode",
+                                  "g711_decode"),
+         "sfu_rings": ("srtp_unprotect_cm", "srtp_fanout_cm",
+                       "srtcp_protect_cm", "srtcp_unprotect_cm"),
+         "echo_batcher": ("srtp_protect_cm", "srtp_unprotect_cm")}
 FANOUT_INSTANCES = ("srtp_fanout_null", "srtp_fanout_f8")
 
 
@@ -549,6 +594,22 @@ def main(argv=None) -> int:
     mixed = path("conference_mixed", conference_mixed_run, torch, dev,
                  mixed_in)
     conference_mixed_check(torch, dev, mixed)
+    # the host I/O plane: the pipelined conference on the conference
+    # path's wire, the ringed SFU (its wire and RTCP made, on C and I,
+    # before the counts are reset) and the echo loop's batcher (its wire
+    # made first too)
+    piped = path("conference_pipelined", conference_pipelined_run, torch,
+                 dev, setup)
+    conference_pipelined_check(torch, dev, piped, setup, conf)
+    rings_in = _sfu_setup(torch, dev,
+                          ticks=SFU_RINGS_TICKS + SFU_RINGS_PROFILED,
+                          rr_ticks=(SFU_RINGS_RR,), nack_tick=SFU_RINGS_NACK)
+    rings = path("sfu_rings", sfu_rings_run, torch, dev, rings_in)
+    sfu_rings_check(torch, dev, rings, sfu)
+    batcher_in = _batcher_setup(torch, dev, table)
+    batcher = path("echo_batcher", echo_batcher_run, torch, dev, batcher_in)
+    echo_batcher_check(torch, dev, batcher)
+    exposition(torch)
     per_unit = {"srtp_echo": ("launches_per_table_batch",
                               table["launches_per_batch"]),
                 "conference": ("launches_per_conference_tick",
@@ -563,7 +624,14 @@ def main(argv=None) -> int:
                 "sfu_gcm": ("launches_per_sfu_gcm_tick",
                             sfu_g["launches_per_tick"]),
                 "conference_mixed": ("launches_per_mixed_tick",
-                                     mixed["launches_per_tick"])}
+                                     mixed["launches_per_tick"]),
+                "conference_pipelined": (
+                    "launches_per_pipelined_conference_tick",
+                    piped["launches_per_tick"]),
+                "sfu_rings": ("launches_per_ringed_sfu_tick",
+                              rings["launches_per_tick"]),
+                "echo_batcher": ("launches_per_batcher_tick",
+                                 batcher["launches_per_tick"])}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
@@ -1585,8 +1653,9 @@ def echo_loop(torch, dev, keys) -> None:
                        max_batch=ECHO_BURST) as b_eng, \
                 UdpEngine(port=0, bind_ip="127.0.0.1",
                           max_batch=ECHO_BURST) as client:
-            bridge = MediaLoop(b_eng, reg, on_media=on_media, chain=chain,
-                               pipeline_depth=depth, phase_sample_every=0)
+            bridge = _keep(f"srtp_echo depth {depth}", MediaLoop(
+                b_eng, reg, on_media=on_media, chain=chain,
+                pipeline_depth=depth, phase_sample_every=0))
             note = bridge.note_journey_at
 
             def noted(origin, n, sids=None, note=note):
@@ -2340,7 +2409,8 @@ def conference_run(torch, dev, setup) -> dict:
     from libjitsi_tpu_torch.kernels import build as kbuild
     from libjitsi_tpu_torch.service.bridge import ConferenceBridge
 
-    bridge = ConferenceBridge(capacity=CONF_PARTIES, device=dev)
+    bridge = _keep("conference", ConferenceBridge(capacity=CONF_PARTIES,
+                                                  device=dev))
     res = _conference_drive(bridge, setup, CONF_TICKS, kbuild)
     res["launches_per_tick"] = {k: v / CONF_TICKS
                                 for k, v in res["launches"].items()}
@@ -2419,7 +2489,8 @@ def conference_check(torch, dev, conf) -> dict:
     setup, n = conf["setup"], CONF_PARTIES
     profiled = _profile_conference(torch, conf["bridge"], setup)
     conf["bridge"].close()
-    cpu_bridge = ConferenceBridge(capacity=n, device="cpu")
+    cpu_bridge = _keep("conference cpu", ConferenceBridge(capacity=n,
+                                                          device="cpu"))
     t0 = time.perf_counter()
     ref = _conference_drive(cpu_bridge, setup, CONF_TICKS)
     cpu_s = time.perf_counter() - t0
@@ -2486,14 +2557,16 @@ def conference_restore_check(torch, dev, setup, ref) -> None:
     from libjitsi_tpu_torch.service.bridge import ConferenceBridge
 
     n = CONF_PARTIES
-    bridge = ConferenceBridge(capacity=n, device=dev)
+    bridge = _keep("conference_restore",
+                   ConferenceBridge(capacity=n, device=dev))
     _conference_join(bridge, setup)
     with UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=4 * n) as client:
         _conference_ticks(bridge, setup, range(CONF_RESUME), client)
         t0 = time.perf_counter()
         snap = bridge.snapshot()
         bridge.close()
-        back = ConferenceBridge.restore(snap, device=dev)
+        back = _keep("conference_restore restored",
+                     ConferenceBridge.restore(snap, device=dev))
         restore_s = time.perf_counter() - t0
         res = _conference_ticks(back, setup, range(CONF_RESUME, CONF_TICKS),
                                 client, replay=(CONF_RESUME, CONF_RESUME - 1))
@@ -2581,7 +2654,8 @@ def conference_mixed_run(torch, dev, setup) -> dict:
     from libjitsi_tpu_torch.kernels import build as kbuild
     from libjitsi_tpu_torch.service.bridge import ConferenceBridge
 
-    bridge = ConferenceBridge(capacity=CONF_PARTIES, device=dev)
+    bridge = _keep("conference_mixed",
+                   ConferenceBridge(capacity=CONF_PARTIES, device=dev))
     res = _conference_drive(bridge, setup, MIXED_TICKS, kbuild,
                             codecs=_mixed_codecs(dev))
     require((bridge._rate, bridge._frame_samples) == (16000, 320),
@@ -2666,7 +2740,8 @@ def conference_mixed_check(torch, dev, run) -> None:
     profiled = _profile_conference(torch, run["bridge"], setup, MIXED_TICKS,
                                    MIXED_PROFILED)
     run["bridge"].close()
-    cpu_bridge = ConferenceBridge(capacity=n, device="cpu")
+    cpu_bridge = _keep("conference_mixed cpu",
+                       ConferenceBridge(capacity=n, device="cpu"))
     t0 = time.perf_counter()
     ref = _conference_drive(cpu_bridge, setup, MIXED_TICKS,
                             codecs=_mixed_codecs("cpu"))
@@ -2699,13 +2774,15 @@ def conference_mixed_check(torch, dev, run) -> None:
                                   f"{heard10}, not over 20x leg 10's own "
                                   f"{own10}")
     # snapshot mid-run, restore on the card
-    bridge = ConferenceBridge(capacity=n, device=dev)
+    bridge = _keep("conference_mixed snapshot",
+                   ConferenceBridge(capacity=n, device=dev))
     _conference_join(bridge, setup, _mixed_codecs(dev))
     with UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=2 * n) as client:
         _conference_ticks(bridge, setup, range(MIXED_SNAPSHOT), client)
         snap = bridge.snapshot()
         bridge.close()
-        back = ConferenceBridge.restore(snap, device=dev)
+        back = _keep("conference_mixed restored",
+                     ConferenceBridge.restore(snap, device=dev))
         clock = (back._rate, back._frame_samples)
         tail = _conference_ticks(back, setup,
                                  range(MIXED_SNAPSHOT, MIXED_TICKS), client)
@@ -3148,8 +3225,9 @@ def _sfu_bridge(torch, dev, setup, **kwargs):
     from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
 
     (rk, rs), (tk, ts) = setup["keys"]["rx"], setup["keys"]["tx"]
-    bridge = SfuBridge(capacity=SFU_N, profile=SrtpProfile[setup["profile"]],
-                       device=dev, **kwargs)
+    bridge = _keep(f"sfu {setup['profile']}", SfuBridge(
+        capacity=SFU_N, profile=SrtpProfile[setup["profile"]], device=dev,
+        **kwargs))
     sids = bridge.stage_endpoints(
         [(int(setup["ssrc"][k]), (rk[k].tobytes(), rs[k].tobytes()),
           (tk[k].tobytes(), ts[k].tobytes()), None) for k in range(SFU_N)],
@@ -3296,7 +3374,9 @@ def _sfu_cpu(torch, setup, sends, snap) -> list:
                    rcvbuf=1 << 16) as sink:
         for ticks, bridge in (
                 (SFU_CPU_TICKS[:3], _sfu_bridge(torch, cpu, setup)),
-                (SFU_CPU_TICKS[3:], SfuBridge.restore(snap, device=cpu))):
+                (SFU_CPU_TICKS[3:], _keep("sfu cpu restored",
+                                          SfuBridge.restore(snap,
+                                                            device=cpu)))):
             latched = bridge.loop.addr_port != 0
             bridge.loop.addr_ip[latched] = 0x7F000001
             bridge.loop.addr_port[latched] = sink.port
@@ -3628,9 +3708,14 @@ def _sfu_profile(torch, bridge, setup, client) -> dict:
     """SFU_PROFILED more ticks of the card's bridge under torch.profiler:
     host time per span, the time outside every top-level span, and the
     card's busy and idle share."""
-    out = profiled_ticks(
+    return _outside_spans(profiled_ticks(
         torch, lambda i: _sfu_tick(bridge, setup, SFU_TICKS + i, client),
-        SFU_PROFILED)
+        SFU_PROFILED))
+
+
+def _outside_spans(out: dict) -> dict:
+    """A profiled SFU window with the host time outside every top-level
+    span added."""
     top = ("ingress", "reverse_chain", "recovery", "forward_chain", "egress")
     spans = out["span_ms_per_tick"]
     out["outside_spans_ms_per_tick"] = out["wall_ms_per_tick"] - sum(
@@ -5461,6 +5546,519 @@ def sfu_gcm_check(torch, dev, run) -> None:
          launches_per_tick=run["launches_per_tick"], **counts)
     bridge.close()
     run["client"].close()
+
+
+# ------------------------------------------------- the host I/O plane
+
+#: every bridge and loop the run builds, for `exposition`
+KEPT: list = []
+
+
+def _keep(name: str, obj):
+    """Note a bridge or loop the run built (its registry is rendered at
+    the end); returns it."""
+    KEPT.append((name, obj))
+    return obj
+
+
+def _conference_pipe_ticks(bridge, setup, ticks: int, client, kbuild
+                           ) -> dict:
+    """Drive a pipelined conference bridge through ticks 0..ticks-1 as
+    `_conference_ticks` drives the serial one: tick k's mixes leave at
+    the top of tick k + 1, so after tick k the client drains tick k - 1's
+    (none after tick 0), and the last tick's leave at the final
+    `flush_sends`."""
+    n = CONF_PARTIES
+    res = {"replies": [], "tick_s": []}
+    for tick in range(ticks):
+        client.send_batch(setup["wires"][tick], "127.0.0.1", bridge.port)
+        time.sleep(0.002)
+        t0 = time.perf_counter()
+        stats = bridge.tick(now=1000.0 + 0.02 * tick)
+        res["tick_s"].append(time.perf_counter() - t0)
+        require(stats["rx"] == n and stats["tx"] == n,
+                f"pipelined conference tick {tick}: rx {stats['rx']}, tx "
+                f"{stats['tx']} of {n}")
+        want = n if tick else 0
+        got = _drain(client, want) if want else []
+        require(len(got) == want, f"pipelined conference tick {tick}: "
+                                  f"{len(got)} of {want} mixes came back")
+        res["replies"].append(sorted(got))
+    require(bridge.loop.flush_sends() == n,
+            "the final flush_sends did not send the last tick's mixes")
+    last = _drain(client, n)
+    require(len(last) == n, f"after the final flush_sends {len(last)} of "
+                            f"{n} mixes came back")
+    res["replies"].append(sorted(last))
+    return res
+
+
+def _conference_pipe_drive(dev, setup, depth: int, ticks: int, kbuild=None,
+                           name: str = "") -> dict:
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.service.bridge import ConferenceBridge
+
+    bridge = _keep(name, ConferenceBridge(
+        capacity=CONF_PARTIES, pipeline_depth=depth, kernel_timestamps=True,
+        device=dev))
+    require(bridge.loop.pipelined and bridge.loop.use_kernel_ts,
+            f"{name}: not pipelined or no kernel stamps")
+    _conference_join(bridge, setup)
+    with UdpEngine(port=0, bind_ip="127.0.0.1",
+                   max_batch=2 * CONF_PARTIES) as client:
+        res = _conference_pipe_ticks(bridge, setup, ticks, client, kbuild)
+    bridge.close()
+    return res
+
+
+def conference_pipelined_run(torch, dev, setup) -> dict:
+    """The conference path's bridge pipelined on the card, with kernel
+    arrival stamps: CONF_PIPE's (depth, ticks) runs on the conference
+    wire, each a fresh bridge."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    runs = {depth: _conference_pipe_drive(
+        dev, setup, depth, ticks, kbuild,
+        f"conference_pipelined depth {depth}") for depth, ticks in CONF_PIPE}
+    total = sum(t for _d, t in CONF_PIPE)
+    return dict(runs=runs, launches_per_tick={
+        k: v / total for k, v in kbuild.launches.items()})
+
+
+def conference_pipelined_check(torch, dev, piped, setup, conf) -> None:
+    """Each depth's run again on the CPU (plain versions): every tick's
+    wire equal; every mix authenticates at its party; tick p50/p99
+    beside the serial conference's of this run."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    n = CONF_PARTIES
+    serial = np.array(conf["tick_s"])
+    lines = {}
+    for depth, ticks in CONF_PIPE:
+        run = piped["runs"][depth]
+        t0 = time.perf_counter()
+        ref = _conference_pipe_drive(torch.device("cpu"), setup, depth,
+                                     ticks, name=f"conference_pipelined "
+                                                 f"depth {depth} cpu")
+        cpu_s = time.perf_counter() - t0
+        for tick, (a, b) in enumerate(zip(run["replies"], ref["replies"])):
+            require(a == b, f"pipelined conference depth {depth}, egress "
+                            f"after tick {tick}: the card's wire differs "
+                            "from the CPU run's")
+        down = SrtpStreamTable(n, device=dev)
+        down.add_streams(np.arange(n), *setup["keys"]["tx"])
+        authed = 0
+        for tick, wire in enumerate(run["replies"]):
+            if not wire:
+                continue
+            batch = PacketBatch.from_payloads(wire)
+            batch.stream[:] = rtp_header.parse(batch).ssrc - 0x42000000
+            _dec, ok = down.unprotect_rtp(batch)
+            require(ok.all(), f"pipelined conference depth {depth}: a mix "
+                              f"sent after tick {tick} failed to "
+                              "authenticate")
+            authed += int(ok.sum())
+        require(authed == n * ticks, f"depth {depth}: {authed} mixes")
+        secs = np.array(run["tick_s"])
+        lines[depth] = dict(
+            ticks=ticks, tick_ms_p50=float(np.median(secs)) * 1e3,
+            tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+            mixes_authenticated=authed, equal_to_cpu_run=True,
+            last_mixes_after_final_flush=n, cpu_run_s=cpu_s)
+    emit("conference_pipelined", participants=n, kernel_timestamps=True,
+         depths=lines,
+         serial_tick_ms_p50=float(np.median(serial)) * 1e3,
+         serial_tick_ms_p99=float(np.percentile(serial, 99)) * 1e3,
+         launches_per_tick=piped["launches_per_tick"])
+
+
+class _Fan:
+    """SFU_RINGS_SOCKETS client sockets standing in for the endpoints:
+    endpoint k sends from socket k mod SFU_RINGS_SOCKETS (so its copies
+    come back there), so the flows spread over the bridge's rings."""
+
+    def __init__(self):
+        from libjitsi_tpu_torch.io.udp import UdpEngine
+
+        self.socks = [UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=4096,
+                                rcvbuf=16 << 20)
+                      for _ in range(SFU_RINGS_SOCKETS)]
+
+    def send_rows(self, wire, rows, ip, port) -> int:
+        rows = np.asarray(rows)
+        ep = np.asarray(wire.stream)[rows] % len(self.socks)
+        return sum(s.send_rows(wire, rows[ep == j], ip, port)
+                   for j, s in enumerate(self.socks) if (ep == j).any())
+
+    def close(self) -> None:
+        for s in self.socks:
+            s.close()
+
+
+def sfu_rings_run(torch, dev, setup, rings: int = SFU_RINGS) -> dict:
+    """The sfu path's bridge with `rings` SO_REUSEPORT ingest rings and
+    kernel stamps, SFU_RINGS_TICKS ticks of the setup's input from
+    SFU_RINGS_SOCKETS sockets (drained by a thread), `emit_feedback`
+    every SFU_RINGS_FEEDBACK ticks, then SFU_RINGS_PROFILED ticks under
+    torch.profiler; each ring's datagrams are counted and every BWE
+    arrival is held to the host window of its tick."""
+    import threading
+
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    bridge = _sfu_bridge(torch, dev, setup, ingest_rings=rings,
+                         kernel_timestamps=True)
+    per_ring = [0] * len(bridge.loop.rings)
+    for i, eng in enumerate(bridge.loop.rings):
+        def counted(ms, orig=eng.recv_batch_ts, i=i):
+            out = orig(ms)
+            per_ring[i] += out[0].batch_size
+            return out
+        eng.recv_batch_ts = counted
+    window = [0.0]
+    arrivals = dict(n=0, outside=0, lead=float("inf"), lag=0.0)
+    incoming = bridge.bwe.incoming_batch
+
+    def held(tids, arrival_ms, ast24, sizes):
+        a = np.asarray(arrival_ms)
+        hi = time.time() * 1e3
+        arrivals["n"] += len(a)
+        arrivals["outside"] += int(((a < window[0]) | (a > hi)).sum())
+        # the earliest stamp after its tick's first send, and the oldest
+        # a feed's newest stamp was when the BWE read it
+        arrivals["lead"] = min(arrivals["lead"], float(a.min() - window[0]))
+        arrivals["lag"] = max(arrivals["lag"], float(hi - a.max()))
+        return incoming(tids, arrival_ms, ast24, sizes)
+
+    bridge.bwe.incoming_batch = held
+    fanout = []
+    emit_fanout = bridge._emit_fanout
+
+    def logged(wire, recv, origin=None):
+        ready = np.nonzero(bridge.loop.addr_port[recv] != 0)[0]
+        fanout.append((wire.data[ready], np.asarray(wire.length)[ready],
+                       recv[ready]))
+        return emit_fanout(wire, recv, origin=origin)
+
+    bridge._emit_fanout = logged
+    fan = _Fan()
+    got, stop = [], threading.Event()
+
+    def drain():
+        while not stop.is_set():
+            for j, s in enumerate(fan.socks):
+                b, _, _ = s.recv_batch(timeout_ms=1)
+                got.extend((j, p) for p in b.to_payloads())
+
+    th = threading.Thread(target=drain, daemon=True)
+    th.start()
+    res = dict(tick_s=[], taken=0, feedback_sent=0)
+    try:
+        for t in range(SFU_RINGS_TICKS):
+            window[0] = time.time() * 1e3
+            secs, taken, _ = _sfu_tick(bridge, setup, t, fan)
+            res["tick_s"].append(secs)
+            res["taken"] += taken
+            if t == 0:
+                res["forwarded_tick0"] = bridge.forwarded
+            if t == SFU_RINGS_NACK:
+                res["nack"] = dict(
+                    retransmitted=bridge.retransmitted,
+                    served=bridge.recovery.rtx_requests_served,
+                    cache_miss=bridge.recovery.rtx_cache_miss)
+            if t % SFU_RINGS_FEEDBACK == SFU_RINGS_FEEDBACK - 1:
+                res["feedback_sent"] += bridge.emit_feedback(
+                    now=1000.0 + 0.02 * t + 0.01)
+
+        def profiled(i):
+            window[0] = time.time() * 1e3
+            res["taken"] += _sfu_tick(bridge, setup, SFU_RINGS_TICKS + i,
+                                      fan)[1]
+
+        res["profile"] = _outside_spans(profiled_ticks(
+            torch, profiled, SFU_RINGS_PROFILED))
+    finally:
+        time.sleep(0.1)
+        stop.set()
+        th.join()
+    res.update(bridge=bridge, fan=fan, received=got, fanout=fanout,
+               setup=setup, per_ring=per_ring, arrivals=arrivals,
+               launches_per_tick={
+                   k: v / (SFU_RINGS_TICKS + SFU_RINGS_PROFILED)
+                   for k, v in kbuild.launches.items()})
+    return res
+
+
+def sfu_rings_check(torch, dev, run, serial) -> None:
+    """Gates of the ringed SFU: both rings drained datagrams and together
+    all that was sent; `loop_ingest_rings` reads SFU_RINGS; no echo and
+    no copy across conferences; from tick 1 (every address latched) each
+    packet went to its 10 mates; every copy came back at its leg's
+    socket and authenticates under its leg's key as its sender's bytes;
+    the NACKs were served; every BWE arrival was a kernel stamp inside
+    its tick's host window; a snapshot restores with SFU_RINGS rings."""
+    from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+
+    setup, bridge = run["setup"], run["bridge"]
+    ticks = SFU_RINGS_TICKS + SFU_RINGS_PROFILED
+    sent = ticks * SFU_N + sum(w.batch_size for w in setup["rtcp"].values())
+    rings = run["per_ring"]
+    require(len(rings) == SFU_RINGS and min(rings) > 0
+            and sum(rings) == sent == run["taken"],
+            f"sfu_rings: rings drained {rings}, sent {sent}, taken "
+            f"{run['taken']}")
+    require(bridge.loop.metrics.sample_total("loop_ingest_rings")
+            == SFU_RINGS, "sfu_rings: loop_ingest_rings")
+    require(int(bridge.rx_table.auth_fail.sum()) == 0
+            and int(bridge.rx_table.replay_reject.sum()) == 0,
+            "sfu_rings: the bridge rejected genuine uplink packets")
+    leg_of, echo, cross, copies = _fanout_log(setup, run["fanout"])
+    require(echo == 0 and cross == 0, f"sfu_rings: {echo} self-echo and "
+                                      f"{cross} cross-conference copies")
+    later = bridge.forwarded - run["forwarded_tick0"]
+    require(bridge.forwarded == copies
+            and later == (ticks - 1) * SFU_N * (SFU_SIZE - 1),
+            f"sfu_rings: forwarded {bridge.forwarded}, logged {copies}, "
+            f"{later} after tick 0")
+    media = [(j, p) for j, p in run["received"] if not 192 <= p[1] <= 223]
+    astray = sum(1 for j, p in media
+                 if leg_of.get(p[2:4] + p[8:12] + p[-TAG:], -1)
+                 % SFU_RINGS_SOCKETS != j)
+    require(astray == 0, f"sfu_rings: {astray} copies reached another "
+                         "socket than their leg's")
+    counts = _check_copies(torch, dev, setup,
+                           [p for _j, p in run["received"]], leg_of, ticks)
+    nack = run["nack"]
+    n_nacked = 3 * len(setup["nacked"])
+    require(nack["retransmitted"] == nack["served"] == n_nacked
+            and nack["cache_miss"] == 0
+            and counts["copies_unique"] == bridge.forwarded
+            and counts["copies_received"] == bridge.forwarded + n_nacked
+            and run["feedback_sent"] > 0,
+            f"sfu_rings: NACKs {nack}, copies {counts}, feedback "
+            f"{run['feedback_sent']}")
+    arr = run["arrivals"]
+    require(all(e.kernel_timestamps for e in bridge.loop.rings)
+            and arr["n"] == ticks * SFU_N and arr["outside"] == 0,
+            f"sfu_rings: BWE arrivals {arr}")
+    snap = bridge.snapshot()
+    back = _keep("sfu_rings restored", SfuBridge.restore(snap, device=dev))
+    restored = (back.ingest_rings, len(back.loop.rings),
+                len({e.port for e in back.loop.rings}))
+    back.close()
+    require(snap["ingest_rings"] == SFU_RINGS
+            and restored == (SFU_RINGS, SFU_RINGS, 1),
+            f"sfu_rings: restored as {restored}")
+    bridge.close()
+    run["fan"].close()
+    secs, ser = np.array(run["tick_s"]), np.array(serial["tick_s"])
+    emit("sfu_rings", rings=SFU_RINGS, client_sockets=SFU_RINGS_SOCKETS,
+         ticks=SFU_RINGS_TICKS, profiled_ticks=SFU_RINGS_PROFILED,
+         per_ring=rings, sent=sent,
+         tick_ms_p50=float(np.median(secs)) * 1e3,
+         tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+         serial_tick_ms_p50=float(np.median(ser)) * 1e3,
+         serial_tick_ms_p99=float(np.percentile(ser, 99)) * 1e3,
+         forwarded=bridge.forwarded, retransmitted=nack["retransmitted"],
+         feedback_sent=run["feedback_sent"], bwe_arrivals=arr["n"],
+         bwe_stamp_after_tick_start_min_ms=arr["lead"],
+         bwe_newest_stamp_age_at_feed_max_ms=arr["lag"],
+         restored_rings=restored[1], profile=run["profile"],
+         launches_per_tick=run["launches_per_tick"], **counts)
+
+
+class _TickBudget:
+    """The burn state an `AdaptiveBatcher` follows here (any object with
+    `.state()`): the last tick's wall time, `slow_burn` over
+    TICK_BUDGET_S (twice the 20 ms ptime) and `fast_burn` over 2.5 times
+    that."""
+
+    def __init__(self):
+        self.last_s = 0.0
+
+    def state(self) -> str:
+        if self.last_s > 2.5 * TICK_BUDGET_S:
+            return "fast_burn"
+        return "slow_burn" if self.last_s > TICK_BUDGET_S else "ok"
+
+
+def _batcher_setup(torch, dev, keys) -> dict:
+    """The client's wire for `echo_batcher`, under the echo path's keys:
+    one BATCHER_BURST-packet burst, then BATCHER_CALM_TICKS ticks of
+    BATCHER_CALM packets, each packet from a stream of its own."""
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    rng = np.random.default_rng(37)
+    streams = rng.permutation(N_STREAMS)
+    c_tx = SrtpStreamTable(N_STREAMS, device=dev)
+    c_tx.add_streams(np.arange(N_STREAMS), keys["mks"], keys["mss"])
+    cuts = [BATCHER_BURST] + [BATCHER_CALM] * BATCHER_CALM_TICKS
+    wires, lo = [], 0
+    for k in cuts:
+        sids = streams[lo:lo + k]
+        lo += k
+        lens = production_lengths(rng, k)
+        plain = rtp_header.build(
+            [rng.integers(0, 256, int(x), np.uint8).tobytes() for x in lens],
+            [9] * k, [0] * k, (0x20000 + sids).tolist(), [96] * k,
+            stream=sids.tolist())
+        wires.append(c_tx.protect_rtp(plain))
+    dn = (rng.integers(0, 256, (N_STREAMS, 16), np.uint8),
+          rng.integers(0, 256, (N_STREAMS, 14), np.uint8))
+    return dict(keys=keys, down=dn, burst=wires[0], calm=wires[1:])
+
+
+def echo_batcher_run(torch, dev, setup) -> dict:
+    """The srtp_echo loop at depth 1 under an `AdaptiveBatcher` (cap
+    ECHO_BURST, window BATCHER_WINDOW_MS, the burn state `_TickBudget`):
+    the burst sent at once and ticked in, then each calm tick's packets,
+    then idle ticks until both knobs are at their base (at most
+    BATCHER_CALM_TICKS).  Every tick's knobs are recorded."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.io.batching import AdaptiveBatcher
+    from libjitsi_tpu_torch.io.loop import MediaLoop
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.service.media_stream import StreamRegistry
+    from libjitsi_tpu_torch.transform.engine import TransformEngineChain
+    from libjitsi_tpu_torch.transform.srtp.engine import SrtpTransformEngine
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    sids = np.arange(N_STREAMS)
+    reg = StreamRegistry(N_STREAMS, device=dev)
+    b_tx, b_rx = reg.srtp_tables(SrtpProfile.AES_CM_128_HMAC_SHA1_80)
+    b_rx.add_streams(sids, setup["keys"]["mks"], setup["keys"]["mss"])
+    b_tx.add_streams(sids, *setup["down"])
+    for sid in sids:
+        reg.map_ssrc(0x20000 + int(sid), int(sid))
+    bad = [0]
+
+    def on_media(batch, ok):
+        bad[0] += int((~ok).sum())
+        rows = np.nonzero(ok)[0]
+        return PacketBatch(batch.data[rows], batch.length[rows],
+                           batch.stream[rows])
+
+    b_eng = UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=ECHO_BURST,
+                      rcvbuf=32 << 20)
+    client = UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=4096,
+                       rcvbuf=32 << 20)
+    loop = _keep("echo_batcher", MediaLoop(
+        b_eng, reg, on_media=on_media,
+        chain=TransformEngineChain([SrtpTransformEngine(b_tx, b_rx)]),
+        recv_window_ms=BATCHER_WINDOW_MS, phase_sample_every=0))
+    budget = _TickBudget()
+    batcher = AdaptiveBatcher(loop, slo=budget)
+    batcher.register_metrics(loop.metrics)
+    traj, echoed, busy = [], [0], []
+
+    def step(phase):
+        t0 = time.perf_counter()
+        n = loop.tick()
+        budget.last_s = time.perf_counter() - t0
+        if n:
+            busy.append(budget.last_s)
+        batcher.on_tick()
+        traj.append(dict(phase=phase, rx=n, ms=budget.last_s * 1e3,
+                         state=budget.state(),
+                         window_ms=loop.recv_window_ms, cap=b_eng.max_batch))
+        while True:
+            b, _, _ = client.recv_batch(timeout_ms=0)
+            echoed[0] += b.batch_size
+            if not b.batch_size:
+                return n
+
+    def take(wire, phase):
+        require(client.send_batch(wire, "127.0.0.1", b_eng.port)
+                == wire.batch_size, "echo_batcher: a short send")
+        got = 0
+        for _ in range(400):
+            got += step(phase)
+            if got >= wire.batch_size:
+                break
+        require(got == wire.batch_size, f"echo_batcher {phase}: the loop "
+                                        f"took {got} of {wire.batch_size}")
+
+    take(setup["burst"], "burst")
+    polls = batcher.backlog_polls
+    for wire in setup["calm"]:
+        time.sleep(0.002)
+        take(wire, "calm")
+    for _ in range(BATCHER_CALM_TICKS):
+        if (b_eng.max_batch == batcher.base_batch
+                and loop.recv_window_ms == batcher.base_window_ms):
+            break
+        step("idle")
+    for _ in range(100):
+        if echoed[0] >= loop.rx_packets:
+            break
+        b, _, _ = client.recv_batch(timeout_ms=5)
+        echoed[0] += b.batch_size
+    client.close()
+    b_eng.close()
+    return dict(loop=loop, batcher=batcher, traj=traj, busy=busy,
+                polls_after_burst=polls, echoed=echoed[0], bad=bad[0],
+                launches_per_tick={k: v / len(traj)
+                                   for k, v in kbuild.launches.items()})
+
+
+def echo_batcher_check(torch, dev, run) -> None:
+    """Gates of the batcher path: the burst raised the backlog signal at
+    least once, the cap and window ended at their base, every packet was
+    authenticated and echoed."""
+    loop, b = run["loop"], run["batcher"]
+    sent = BATCHER_BURST + BATCHER_CALM * BATCHER_CALM_TICKS
+    require(run["polls_after_burst"] >= 1,
+            "echo_batcher: the burst never raised the backlog signal")
+    require(loop.engine.max_batch == b.base_batch == ECHO_BURST
+            and loop.recv_window_ms == b.base_window_ms
+            == BATCHER_WINDOW_MS,
+            f"echo_batcher: ended at cap {loop.engine.max_batch}, window "
+            f"{loop.recv_window_ms}")
+    require(loop.rx_packets == sent == run["echoed"] and run["bad"] == 0,
+            f"echo_batcher: rx {loop.rx_packets}, echoed {run['echoed']}, "
+            f"rejected {run['bad']} of {sent}")
+    busy = np.array(run["busy"])
+    emit("echo_batcher", cap=ECHO_BURST, window_ms=BATCHER_WINDOW_MS,
+         burst=BATCHER_BURST, calm_ticks=BATCHER_CALM_TICKS,
+         calm_packets=BATCHER_CALM, ticks=len(run["traj"]),
+         backlog_polls=b.backlog_polls, burn_shrinks=b.burn_shrinks,
+         recoveries=b.recoveries, polls_after_burst=run["polls_after_burst"],
+         tick_ms_p50=float(np.median(busy)) * 1e3,
+         tick_ms_p99=float(np.percentile(busy, 99)) * 1e3,
+         trajectory=run["traj"], launches_per_tick=run["launches_per_tick"])
+
+
+def exposition(torch) -> None:
+    """Render the registry of every bridge and loop the run built (a
+    conference bridge's receive bank registered on it first), plain and
+    OpenMetrics; fail unless `validate_exposition` finds nothing."""
+    from libjitsi_tpu_torch.utils.metrics import (count_exemplars,
+                                                  validate_exposition)
+
+    out, banks = {}, 0
+    for name, obj in KEPT:
+        reg = getattr(obj, "loop", obj).metrics
+        bank = getattr(obj, "bank", None)
+        if bank is not None:
+            if not reg.has_metric("bank_decoded_frames"):
+                bank.register_metrics(reg)
+            banks += 1
+        texts = [reg.render(openmetrics=om) for om in (False, True)]
+        errs = [validate_exposition(t, openmetrics=om)
+                for t, om in zip(texts, (False, True))]
+        require(errs == [[], []], f"exposition of {name}: {errs}")
+        require(bank is None or "bank_jitter_seconds_bucket" in texts[0],
+                f"exposition of {name}: the bank's metrics are missing")
+        out[name] = dict(families=len(reg.families()),
+                         lines=texts[0].count("\n"),
+                         exemplars=count_exemplars(texts[1]))
+    require(banks >= 1, "exposition: no receive bank was registered")
+    emit("exposition", registries=len(out), banks_registered=banks,
+         valid=True, by_registry=out)
 
 
 if __name__ == "__main__":

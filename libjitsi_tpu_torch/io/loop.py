@@ -31,15 +31,39 @@ Pipelining (`pipeline_depth`, `pipelined`), as in the JAX loop:
     delay counts, in the `packet_journey_seconds{hop="local"}`
     histogram (OpenMetrics exemplars carry the trace id).
 
+Drain rings (`add_ring`): SO_REUSEPORT siblings of the primary engine
+on the same port, the kernel spreading flows over them by hash.  Each
+tick the primary ring waits out the batching window and the siblings
+poll (their packets arrived during the wait); every non-empty batch runs
+the same ingest body, and DTLS replies and arena pins stay with the ring
+they came in on.  A ring added with a `sink` is a control ring: drained
+in the same ingress span by copy, its datagrams go to `sink(batch, sip,
+sport)` and never reach the RTP body.  `loop_ingest_syscalls` sums the
+rings' native calls (`_sync_ingest_counters`, by deltas each tick).
+
+Kernel arrival stamps: with an engine made with `kernel_timestamps`, the
+rings receive through `recv_batch_ts(_view)`, and `last_rtp_arrival_ns`
+holds the stamps of the rows `on_media` is handed, row for row (reset
+each tick; at depth >= 2 each in-flight entry carries its rows' `ats`).
+
+The ingest body, in the JAX order: the pcap tap (`pcap_tap`, every
+ingress batch), DTLS split, RTCP/RTP demux, the supervisor's inbound
+drop mask (`inbound_drop`, counted in `inbound_dropped` a row and
+`inbound_dropped_total`; before the address latch), holds, fanout-only
+rows (`set_fanout_only`: their RTP dropped, `fanout_rtp_dropped`, their
+RTCP passing), shard-major order (`enable_shard_major(rows_per_shard)`:
+a stable sort of the RTP rows by `sid // rows_per_shard`,
+`shard_major_reorders`), then the reverse chain.
+
 Each stage runs in a `PipelineTracer` span (ingress, reverse_chain,
 forward_chain, egress: a stage timing ring and a `record_function`
 range for profiler traces); `perf` (`PhaseProfiler`) splits sampled
 ticks into idle, dispatch, h2d, device compute, d2h and host phases;
 `flight` (a `FlightRecorder`, optional) samples each tick's RTP headers.
 Streams on hold (an SFU endpoint staged but not committed) queue their
-RTP and drop their RTCP until released.  Not ported yet (ROADMAP Queue 1,
-item 4): extra drain rings (`add_ring`), kernel arrival timestamps,
-io_uring, the pcap tap, fanout-only rows and shard-major reordering.
+RTP and drop their RTCP until released.  The engine has one mode,
+recvmmsg: io_uring is not ported (ROADMAP Queue 1, item 4), and
+`loop_engine_io_uring` reads 0.
 """
 
 from __future__ import annotations
@@ -51,6 +75,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from libjitsi_tpu_torch.core.packet import PacketBatch
+from libjitsi_tpu_torch.io.pcap import PcapWriter
 from libjitsi_tpu_torch.io.udp import UdpEngine
 from libjitsi_tpu_torch.utils.flight import FlightRecorder
 from libjitsi_tpu_torch.utils.logging import get_logger
@@ -106,8 +131,13 @@ class MediaLoop:
                  pipelined: bool = False,
                  pipeline_depth: int = 1,
                  flight: Optional[FlightRecorder] = None,
-                 phase_sample_every: int = 16):
+                 phase_sample_every: int = 16,
+                 pcap_tap: Optional[PcapWriter] = None):
         self.engine = engine
+        # drain rings: the primary engine and the siblings `add_ring`
+        # attaches; parallel to it, a sink a ring (None: the RTP body)
+        self.rings: List[UdpEngine] = [engine]
+        self.ring_sinks: List[Optional[Callable]] = [None]
         self.registry = registry
         self.on_media = on_media
         self.on_rtcp = on_rtcp
@@ -121,8 +151,14 @@ class MediaLoop:
         # dispatched sends: (pending, mask, journey origin, dispatch tick)
         self._inflight: List[Tuple[object, np.ndarray, tuple, int]] = []
         # dispatched receive work, FIFO by tick: {pend, tick, origin,
-        # token, n}
+        # ats, token, eng, n}
         self._rx_inflight: List[dict] = []
+        # the engine's kernel stamps ride along; after each media
+        # handling `last_rtp_arrival_ns` lines up with on_media's rows
+        self.use_kernel_ts = bool(getattr(engine, "kernel_timestamps",
+                                          False))
+        self.last_rtp_arrival_ns: Optional[np.ndarray] = None
+        self.pcap = pcap_tap
         self.metrics = MetricsRegistry()
         self.tracer = PipelineTracer(self.metrics)
         self.flight = flight
@@ -151,12 +187,96 @@ class MediaLoop:
         # streams on hold: their RTP is queued, their RTCP dropped
         self._hold_mask = np.zeros(registry.capacity, dtype=bool)
         self._hold_q: Dict[int, deque] = {}
+        # the supervisor's inbound drop mask (quarantine, shedding): a
+        # masked row's packets go before any state is touched
+        self.inbound_drop = np.zeros(registry.capacity, dtype=bool)
+        self.inbound_dropped = np.zeros(registry.capacity, dtype=np.int64)
+        self.inbound_dropped_total = 0
+        # fanout-only rows (broadcast listeners): their uplink RTP is
+        # dropped, their RTCP still flows
+        self.fanout_only = np.zeros(registry.capacity, dtype=bool)
+        self._fanout_only_n = 0
+        self.fanout_rtp_dropped = 0
+        self.metrics.register_scalar(
+            "loop_fanout_rtp_dropped", lambda: self.fanout_rtp_dropped,
+            help_="uplink RTP packets dropped on fanout-only "
+                  "(broadcast listener) rows", kind="counter")
+        # shard-major order (0: off)
+        self.rows_per_shard = 0
+        self.shard_major_reorders = 0
+        self.metrics.register_scalar(
+            "loop_shard_major_reorders", lambda: self.shard_major_reorders,
+            help_="RTP batches re-sorted into shard-major order before "
+                  "dispatch", kind="counter")
+        # the rings' native calls, by deltas each tick (a ring added or
+        # closed cannot skew the totals)
+        self.ingest_syscalls = 0
+        self.ingest_ring_reaps = 0
+        self._ingest_enters_seen = 0
+        self._ingest_reaps_seen = 0
+        self.metrics.register_scalar(
+            "loop_ingest_syscalls", lambda: self.ingest_syscalls,
+            help_="ingest/egress batches that entered the kernel "
+                  "(recvmmsg/sendmmsg calls)", kind="counter")
+        self.metrics.register_scalar(
+            "loop_ingest_ring_reaps", lambda: self.ingest_ring_reaps,
+            help_="io_uring completions reaped ring-side without "
+                  "entering the kernel", kind="counter")
+        self.metrics.register_scalar(
+            "loop_engine_io_uring",
+            lambda: 1.0 if self.engine_mode == "io_uring" else 0.0,
+            help_="1 when the primary drain ring runs the io_uring "
+                  "engine, 0 for recvmmsg")
+        self.metrics.register_scalar(
+            "loop_ingest_rings", lambda: float(len(self.rings)),
+            help_="attached SO_REUSEPORT drain rings")
         # age in ticks of the oldest dispatch, noted at each tick
         self.dispatch_inflight_ticks = 0
         self.perf = PhaseProfiler(
             self.metrics, sample_every=phase_sample_every,
             inflight_fn=lambda: self._inflight_age(),
             device=getattr(registry, "device", None))
+
+    # ------------------------------------------------------ drain rings
+    @property
+    def engine_mode(self) -> str:
+        """The primary ring's engine mode."""
+        return getattr(self.engine, "engine_mode", "recvmmsg")
+
+    def add_ring(self, engine: UdpEngine,
+                 sink: Optional[Callable] = None) -> None:
+        """Attach a drain ring: an SO_REUSEPORT sibling engine on the same
+        port (it polls each tick, after the primary's window), or with
+        `sink` a control ring whose datagrams go, copied, to
+        `sink(batch, sip, sport)` and never to the RTP body."""
+        self.rings.append(engine)
+        self.ring_sinks.append(sink)
+
+    def _sync_ingest_counters(self) -> None:
+        """Fold the rings' call counters into the loop's, by deltas."""
+        enters = sum(int(getattr(e, "syscall_enters", 0)) for e in self.rings)
+        reaps = sum(int(getattr(e, "ring_reaps", 0)) for e in self.rings)
+        self.ingest_syscalls += enters - self._ingest_enters_seen
+        self.ingest_ring_reaps += reaps - self._ingest_reaps_seen
+        self._ingest_enters_seen = enters
+        self._ingest_reaps_seen = reaps
+
+    # ---------------------------------------------------- dispatch order
+    def enable_shard_major(self, rows_per_shard: int) -> None:
+        """Sort each RTP batch into shard-major row order (stable, by
+        `sid // rows_per_shard`) before the reverse chain; RTP rows are
+        independent, so only their order changes."""
+        if rows_per_shard <= 0:
+            raise ValueError("rows_per_shard must be positive")
+        self.rows_per_shard = int(rows_per_shard)
+
+    def set_fanout_only(self, sid: int, on: bool = True) -> None:
+        """Mark or unmark a row fanout-only (a broadcast listener): its
+        uplink RTP is dropped, its RTCP passes.  Flipped between ticks."""
+        sid = int(sid)
+        if bool(self.fanout_only[sid]) != bool(on):
+            self.fanout_only[sid] = bool(on)
+            self._fanout_only_n += 1 if on else -1
 
     # ------------------------------------------------------------- holds
     def hold_stream(self, sid: int, max_packets: int = 64) -> None:
@@ -175,6 +295,7 @@ class MediaLoop:
         q = self._hold_q.pop(sid, None)
         if not q:
             return 0
+        self.last_rtp_arrival_ns = None      # no kernel stamps for these
         batch = PacketBatch.from_payloads(list(q), stream=[sid] * len(q))
         if self.chain is not None:
             batch, ok = self.chain.rtp_transformer.reverse_transform(batch)
@@ -199,65 +320,106 @@ class MediaLoop:
         try:
             return self._tick_inner()
         finally:
+            self._sync_ingest_counters()
             self.perf.end_tick()
 
+    def _recv_ring(self, eng, window_ms, use_view):
+        """One ring's window: (batch, sip, sport, ats, token)."""
+        if self.use_kernel_ts:
+            recv = eng.recv_batch_ts_view if use_view else eng.recv_batch_ts
+            batch, sip, sport, ats = recv(window_ms)
+        else:
+            recv = eng.recv_batch_view if use_view else eng.recv_batch
+            batch, sip, sport = recv(window_ms)
+            ats = None
+        return batch, sip, sport, ats, getattr(batch, "arena_token", None)
+
     def _tick_inner(self) -> int:
+        # set again only where this tick hands RTP rows to on_media
+        self.last_rtp_arrival_ns = None
         deep = (self.pipeline_depth > 1 and self.chain is not None
                 and hasattr(self.chain.rtp_transformer,
                             "reverse_transform_async"))
+        got = []
         with self.tracer.span("ingress"):
             with self.perf.phase("idle"):   # the socket wait
-                recv = (self.engine.recv_batch_view if deep
-                        else self.engine.recv_batch)
-                batch, sip, sport = recv(self.recv_window_ms)
+                for k, eng in enumerate(self.rings):
+                    if self.ring_sinks[k] is None:
+                        # the primary waits out the window, siblings poll
+                        got.append((eng, self._recv_ring(
+                            eng, self.recv_window_ms if k == 0 else 0,
+                            deep)))
+            for k, eng in enumerate(self.rings):
+                sink = self.ring_sinks[k]
+                if sink is not None:
+                    cb, csip, csport = eng.recv_batch(0)
+                    if cb.batch_size:
+                        sink(cb, csip, csport)
         # the window just closed: what this tick's packets send later is
         # measured against this instant
         self.trace_id += 1
         self._trace_t0 = time.perf_counter()
-        n = batch.batch_size
+        todo = [(eng, rb) for eng, rb in got if rb[0].batch_size]
+        n = sum(rb[0].batch_size for _eng, rb in todo)
         self.ticks += 1
         self._note_inflight_age()
-        # egress dispatched on earlier ticks first, then the receive work
-        # that reached its depth (its replies dispatch now)
-        if self._inflight:
-            self.flush_sends()
-        if self._rx_inflight:
-            self._materialize_rx(due_only=True)
-        if n == 0:
-            # idle window: nothing to overlap with, collapse the pipeline
-            if self._rx_inflight or self._inflight:
-                self.drain()
-            return 0
-        self.rx_packets += n
-        self._ingest(batch, sip, sport, getattr(batch, "arena_token", None),
-                     deep)
-        return n
+        try:
+            # egress dispatched on earlier ticks first, then the receive
+            # work that reached its depth (its replies dispatch now)
+            if self._inflight:
+                self.flush_sends()
+            if self._rx_inflight:
+                self._materialize_rx(due_only=True)
+            if n == 0:
+                # idle window: nothing to overlap with, collapse the
+                # pipeline
+                if self._rx_inflight or self._inflight:
+                    self.drain()
+                return 0
+            self.rx_packets += n
+            while todo:
+                eng, (batch, sip, sport, ats, token) = todo.pop(0)
+                self._ingest(eng, batch, sip, sport, ats, token, deep)
+            return n
+        finally:
+            # the pins of windows a raising step never reached
+            for eng, rb in todo:
+                self._release(rb[4], eng)
 
-    def _ingest(self, batch: PacketBatch, sip, sport, token, deep) -> None:
-        """Demux and hand on one received window.  The arena pin (`token`,
-        deep path only) goes with the dispatched receive work, and is
-        dropped here on every other way out, a raising handler included."""
+    def _ingest(self, eng, batch: PacketBatch, sip, sport, ats, token,
+                deep) -> None:
+        """Demux and hand on one ring's received window.  The arena pin
+        (`token`, deep path only) goes with the dispatched receive work,
+        and is dropped here on every other way out, a raising handler
+        included."""
         try:
             self.pkt_size_hist.observe_array(np.asarray(batch.length))
-            # 1. split DTLS (first byte 20..63) from media
+            if self.pcap is not None:
+                self.pcap.write_batch(batch)
+            # 1. split DTLS (first byte 20..63) from media; replies
+            # gather into one batch a peer, sent on the ring they came in
             dtls = is_dtls(batch.data[:, 0])
             if dtls.any():
                 rows = np.nonzero(dtls)[0]
                 self.dtls_packets += len(rows)
                 if self.on_dtls is not None:
+                    by_addr: Dict[tuple, list] = {}
                     for i in rows:
                         addr = (int(sip[i]), int(sport[i]))
                         replies = self.on_dtls(batch.to_bytes(int(i)), addr)
                         if replies:
-                            self.engine.send_batch(
-                                PacketBatch.from_payloads(replies,
-                                                          batch.capacity),
-                                addr[0], addr[1])
+                            by_addr.setdefault(addr, []).extend(replies)
+                    for addr, reps in by_addr.items():
+                        eng.send_batch(
+                            PacketBatch.from_payloads(reps, batch.capacity),
+                            addr[0], addr[1])
                 media = np.nonzero(~dtls)[0]
                 if not len(media):
                     return
                 batch = _rows(batch, media)
                 sip, sport = sip[media], sport[media]
+                if ats is not None:
+                    ats = ats[media]
 
             # 2. RTCP vs RTP split (rtcp-mux), then ssrc -> stream row (the
             # SSRC field sits at different offsets in the two formats)
@@ -274,6 +436,15 @@ class MediaLoop:
                 self.unknown_ssrc_dropped += int((~known).sum())
                 _log.warn("unknown_ssrc_drop", count=int((~known).sum()),
                           tick=self.ticks, total=self.unknown_ssrc_dropped)
+            if self.inbound_drop.any():
+                # before the address latch: a quarantined sender cannot
+                # redirect its row's return media
+                shed = known & self.inbound_drop[
+                    np.clip(sids, 0, len(self.inbound_drop) - 1)]
+                if shed.any():
+                    np.add.at(self.inbound_dropped, sids[shed], 1)
+                    self.inbound_dropped_total += int(shed.sum())
+                    known &= ~shed
             self.addr_ip[sids[known]] = sip[known]
             self.addr_port[sids[known]] = sport[known]
 
@@ -287,9 +458,24 @@ class MediaLoop:
                         batch.data[i, :lens[i]].tobytes())
                 rtp_rows = rtp_rows[~held]
                 rtcp_rows = rtcp_rows[~self._hold_mask[sids[rtcp_rows]]]
+            if len(rtp_rows) and self._fanout_only_n:
+                fo = self.fanout_only[sids[rtp_rows]]
+                if fo.any():
+                    self.fanout_rtp_dropped += int(fo.sum())
+                    rtp_rows = rtp_rows[~fo]
+            reordered = False
+            if self.rows_per_shard and len(rtp_rows) > 1:
+                shard = sids[rtp_rows] // self.rows_per_shard
+                if np.any(shard[:-1] > shard[1:]):
+                    rtp_rows = rtp_rows[np.argsort(shard, kind="stable")]
+                    self.shard_major_reorders += 1
+                    reordered = True
             if len(rtp_rows):
-                rtp = (batch if len(rtp_rows) == batch.batch_size
-                       else _rows(batch, rtp_rows))
+                if len(rtp_rows) == batch.batch_size and not reordered:
+                    rtp, rtp_ats = batch, ats
+                else:
+                    rtp = _rows(batch, rtp_rows)
+                    rtp_ats = None if ats is None else ats[rtp_rows]
                 if self.flight is not None:
                     d = rtp.data
                     seqs = (d[:, 2].astype(np.int64) << 8) | d[:, 3]
@@ -297,8 +483,9 @@ class MediaLoop:
                         rtp.stream, seqs, np.asarray(rtp.length),
                         tick=self.ticks, trace=self.trace_id)
                 if deep:
-                    token = self._dispatch_rx(rtp, token)
+                    token = self._dispatch_rx(rtp, token, rtp_ats, eng)
                 else:
+                    self.last_rtp_arrival_ns = rtp_ats
                     self._receive(rtp)
             if len(rtcp_rows) and self.on_rtcp is not None:
                 rb = _rows(batch, rtcp_rows)
@@ -311,7 +498,7 @@ class MediaLoop:
                 self.on_rtcp(rb, okc)
         finally:
             # `_dispatch_rx` took the pin (token None) or it drops here
-            self._release(token)
+            self._release(token, eng)
 
     def _receive(self, rtp: PacketBatch) -> None:
         """The serial receive path: unprotect now, deliver, reply."""
@@ -329,9 +516,10 @@ class MediaLoop:
                 ok = np.ones(rtp.batch_size, bool)
         self._deliver(rtp, ok, None)
 
-    def _dispatch_rx(self, rtp: PacketBatch, token):
-        """The deep path: dispatch the unprotect only; the arena pin goes
-        with the in-flight entry and is released when it materializes."""
+    def _dispatch_rx(self, rtp: PacketBatch, token, ats, eng):
+        """The deep path: dispatch the unprotect only; the arena pin and
+        the rows' arrival stamps go with the in-flight entry, the pin
+        released on the ring it came from when the entry materializes."""
         tr = self.chain.rtp_transformer
         with self.tracer.span("reverse_chain"):
             self.perf.note_h2d(rtp.data.nbytes
@@ -346,9 +534,12 @@ class MediaLoop:
                     commit()
             with self.perf.phase("dispatch"):
                 pend = tr.reverse_transform_async(rtp)
-        self._rx_inflight.append({"pend": pend, "tick": self.ticks,
-                                  "origin": self.journey_origin(),
-                                  "token": token, "n": rtp.batch_size})
+        self._rx_inflight.append({
+            "pend": pend, "tick": self.ticks,
+            "origin": self.journey_origin(),
+            # a copy: the entry outlives the arena's pin
+            "ats": None if ats is None else np.array(ats),
+            "token": token, "eng": eng, "n": rtp.batch_size})
         return None
 
     def _deliver(self, rtp: PacketBatch, ok: np.ndarray, origin) -> None:
@@ -361,9 +552,9 @@ class MediaLoop:
             if reply is not None:
                 self._reply(reply, origin=origin)
 
-    def _release(self, token) -> None:
+    def _release(self, token, eng=None) -> None:
         if token is not None:
-            self.engine.release_arena(token)
+            (self.engine if eng is None else eng).release_arena(token)
 
     # --------------------------------------------------- deep pipeline
     def _inflight_age(self) -> int:
@@ -406,7 +597,8 @@ class MediaLoop:
         self.perf.note_d2h(rtp.data.nbytes)
         # the arena's bytes were last read inside result() (failed rows
         # keep their original bytes)
-        self._release(e["token"])
+        self._release(e["token"], e["eng"])
+        self.last_rtp_arrival_ns = e["ats"]
         # replies charge their journey to the arrival tick
         self._deliver(rtp, ok, e["origin"])
         return e["n"]

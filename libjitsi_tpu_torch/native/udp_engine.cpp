@@ -1,6 +1,7 @@
 // Batched UDP I/O engine for the host data plane (PyTorch port's copy).
 //
-// Counterpart: libjitsi_tpu/native/udp_engine.cpp, recvmmsg/sendmmsg part.
+// Counterpart: libjitsi_tpu/native/udp_engine.cpp, recvmmsg/sendmmsg part
+// with its kernel receive timestamps (SO_TIMESTAMPNS).
 // The reference's packet I/O is java.net sockets with one thread per
 // connector stream (org.jitsi.impl.neomedia.RTPConnectorUDPImpl et al.);
 // at 10k streams that design melts.  This engine batches syscalls with
@@ -15,6 +16,7 @@
 #include <cerrno>
 #include <cstdint>
 #include <cstring>
+#include <ctime>
 #include <netinet/in.h>
 #include <poll.h>
 #include <sys/socket.h>
@@ -72,19 +74,34 @@ int udp_local_port(int fd) {
   return ntohs(addr.sin_port);
 }
 
+// Enable kernel receive timestamps (SO_TIMESTAMPNS): the BWE's
+// inter-arrival filters react to sub-millisecond queueing-delay
+// gradients, and a userspace arrival time carries scheduler jitter that
+// the kernel's stamp (taken at skb receive) does not.  0 or -errno.
+int udp_enable_timestamps(int fd) {
+  int one = 1;
+  if (setsockopt(fd, SOL_SOCKET, SO_TIMESTAMPNS, &one, sizeof(one)) < 0)
+    return -errno;
+  return 0;
+}
+
 // Batched receive via recvmmsg into the caller's [max_pkts, capacity]
 // row-major buffer; writes per-packet lengths, source ip4 (host order)
-// and ports.  Waits up to timeout_ms for the FIRST packet, then drains
-// whatever is immediately available (the batching-window pattern: the
-// caller controls latency by the timeout, throughput by max_pkts).
-// After the first recvmmsg a drain pass keeps calling
-// recvmmsg(MSG_DONTWAIT) into the remaining rows while datagrams are
-// still queued, so a burst that straddles the first syscall fills the
-// batch instead of spilling into the next tick; it never spins on an
-// idle socket.  Returns number of packets, 0 on timeout, -errno on error.
-int udp_recv_batch(int fd, uint8_t *buf, int capacity, int max_pkts,
-                   int32_t *lengths, uint32_t *src_ip, uint16_t *src_port,
-                   int timeout_ms) {
+// and ports, and when arrival_ns != nullptr each packet's kernel arrival
+// time (CLOCK_REALTIME nanoseconds; a packet without a kernel stamp gets
+// one clock_gettime taken after the drain).  Waits up to timeout_ms for
+// the FIRST packet, then drains whatever is immediately available (the
+// batching-window pattern: the caller controls latency by the timeout,
+// throughput by max_pkts).  After the first recvmmsg a drain pass keeps
+// calling recvmmsg(MSG_DONTWAIT) into the remaining rows while
+// datagrams are still queued, so a burst that straddles the first
+// syscall fills the batch instead of spilling into the next tick; it
+// never spins on an idle socket.  Returns number of packets, 0 on
+// timeout, -errno on error.
+int udp_recv_batch_ts(int fd, uint8_t *buf, int capacity, int max_pkts,
+                      int32_t *lengths, uint32_t *src_ip,
+                      uint16_t *src_port, int64_t *arrival_ns,
+                      int timeout_ms) {
   if (timeout_ms > 0) {
     pollfd p{fd, POLLIN, 0};
     int pr = poll(&p, 1, timeout_ms);
@@ -94,11 +111,15 @@ int udp_recv_batch(int fd, uint8_t *buf, int capacity, int max_pkts,
   thread_local std::vector<mmsghdr> hdrs;
   thread_local std::vector<iovec> iovs;
   thread_local std::vector<sockaddr_in> addrs;
+  thread_local std::vector<uint8_t> ctrl;
   if (static_cast<int>(hdrs.size()) < max_pkts) {
     hdrs.resize(max_pkts);
     iovs.resize(max_pkts);
     addrs.resize(max_pkts);
   }
+  constexpr size_t kCtrl = 64;  // room for one timestampns cmsg
+  if (arrival_ns && ctrl.size() < static_cast<size_t>(max_pkts) * kCtrl)
+    ctrl.resize(static_cast<size_t>(max_pkts) * kCtrl);
   for (int i = 0; i < max_pkts; i++) {
     iovs[i].iov_base = buf + static_cast<size_t>(i) * capacity;
     iovs[i].iov_len = capacity;
@@ -107,6 +128,11 @@ int udp_recv_batch(int fd, uint8_t *buf, int capacity, int max_pkts,
     hdrs[i].msg_hdr.msg_iovlen = 1;
     hdrs[i].msg_hdr.msg_name = &addrs[i];
     hdrs[i].msg_hdr.msg_namelen = sizeof(sockaddr_in);
+    if (arrival_ns) {
+      hdrs[i].msg_hdr.msg_control =
+          ctrl.data() + static_cast<size_t>(i) * kCtrl;
+      hdrs[i].msg_hdr.msg_controllen = kCtrl;
+    }
   }
   int total = 0;
   while (total < max_pkts) {
@@ -120,10 +146,29 @@ int udp_recv_batch(int fd, uint8_t *buf, int capacity, int max_pkts,
     if (n == 0) break;
     total += n;
   }
+  if (total == 0) return 0;
+  int64_t fallback = 0;
+  if (arrival_ns) {
+    timespec now{};
+    clock_gettime(CLOCK_REALTIME, &now);
+    fallback = static_cast<int64_t>(now.tv_sec) * 1000000000LL + now.tv_nsec;
+  }
   for (int i = 0; i < total; i++) {
     lengths[i] = static_cast<int32_t>(hdrs[i].msg_len);
     src_ip[i] = ntohl(addrs[i].sin_addr.s_addr);
     src_port[i] = ntohs(addrs[i].sin_port);
+    if (!arrival_ns) continue;
+    arrival_ns[i] = fallback;
+    for (cmsghdr *c = CMSG_FIRSTHDR(&hdrs[i].msg_hdr); c;
+         c = CMSG_NXTHDR(&hdrs[i].msg_hdr, c)) {
+      if (c->cmsg_level == SOL_SOCKET && c->cmsg_type == SO_TIMESTAMPNS) {
+        timespec ts{};
+        std::memcpy(&ts, CMSG_DATA(c), sizeof(ts));
+        arrival_ns[i] =
+            static_cast<int64_t>(ts.tv_sec) * 1000000000LL + ts.tv_nsec;
+        break;
+      }
+    }
   }
   return total;
 }

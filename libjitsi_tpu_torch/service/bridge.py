@@ -20,6 +20,15 @@ Tick flow (one ptime, default 20 ms), kernels in brackets:
     loop.send_media()      packetize -> RFC 6464 level stamp
                            -> protect [C] -> sendmmsg
 
+Pipelined (`pipelined=True` or `pipeline_depth` > 1, as in the JAX
+bridge): the mixes' protect is dispatched only (`send_media_async`) and
+their bytes leave at the top of the next tick, or at `snapshot()`, which
+flushes them first; at depth >= 2 the loop's deep receive path runs too,
+tick N's unprotect dispatched on the table's async seams and
+materialized `pipeline_depth - 1` ticks later, so the bank hears tick
+N's frames that much later.  `kernel_timestamps` asks the UDP engine for
+SO_TIMESTAMPNS arrival stamps (`loop.last_rtp_arrival_ns`).
+
 The first joiner's codec sets the bridge clock (rate and frame); legs at
 another rate with the same ptime resample to it on deposit and from it on
 egress, one launch of kernel R a same-rate group (a deposit group, an
@@ -37,8 +46,8 @@ counters, speaker scores and latched addresses.
 
 Not ported: the JAX bridge's `config` argument and DTLS joins
 (`add_participant_dtls`, ROADMAP Queue 1, item 9), the GSM, Speex, G.729
-and iLBC legs (item 9, `NotImplementedError`), the pipelined tick (item
-4), the mesh mode and sharded snapshots (item 12), the recorder (item 9).
+and iLBC legs (item 9, `NotImplementedError`), the mesh mode and sharded
+snapshots (item 12), the recorder (item 9).
 """
 
 from __future__ import annotations
@@ -75,9 +84,11 @@ class ConferenceBridge:
     def __init__(self, port: int = 0, capacity: int = 256,
                  profile: SrtpProfile =
                  SrtpProfile.AES_CM_128_HMAC_SHA1_80,
-                 ptime_ms: int = 20, recv_window_ms: int = 1,
+                 ptime_ms: int = 20, kernel_timestamps: bool = False,
+                 recv_window_ms: int = 1,
                  audio_level_ext_id: int = 1,
-                 on_speaker_change=None, plc: bool = False,
+                 on_speaker_change=None, pipelined: bool = False,
+                 pipeline_depth: int = 1, plc: bool = False,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.capacity = capacity
@@ -106,9 +117,11 @@ class ConferenceBridge:
             capacity, on_change=self._speaker_changed)
         self.speaker_events: List[Tuple[int, int]] = []  # (tick, sid)
         self.loop = MediaLoop(
-            UdpEngine(port=port, max_batch=4 * capacity),
+            UdpEngine(port=port, max_batch=4 * capacity,
+                      kernel_timestamps=kernel_timestamps),
             self.registry, on_media=self._on_media, chain=self.chain,
-            recv_window_ms=recv_window_ms)
+            recv_window_ms=recv_window_ms, pipelined=pipelined,
+            pipeline_depth=pipeline_depth)
         self.port = self.loop.engine.port
         # one mixer frame clock per bridge (the first codec sets it)
         self._frame_samples: Optional[int] = None
@@ -279,6 +292,10 @@ class ConferenceBridge:
             stream=sids.tolist())
         self._tx_seq[sids] = (self._tx_seq[sids] + 1) & 0xFFFF
         self._tx_ts[sids] = (self._tx_ts[sids] + steps) & 0xFFFFFFFF
+        if self.loop.pipelined:
+            # dispatch only: the protect overlaps the next recv window,
+            # the bytes leave at the top of the next tick
+            return self.loop.send_media_async(batch)
         return self.loop.send_media(batch)
 
     def _from_bridge_rate(self, rows: List[int], pcm: np.ndarray
@@ -301,7 +318,9 @@ class ConferenceBridge:
         SSRCs and codecs by name, the bridge clock, TX counters, speaker
         scores and latched addresses.  G.711 legs resume bit-exactly;
         G.722 and Opus legs resume with fresh codec state
-        (`degraded_rows`) while their SRTP state carries over exactly."""
+        (`degraded_rows`) while their SRTP state carries over exactly.  A
+        pipelined tick's last mixes are sent first."""
+        self.loop.flush_sends()
         keyed = dict(self._ssrc_of)
         return {
             "capacity": self.capacity,

@@ -9,12 +9,14 @@ rows (G.722, Opus) decode one by one through their host codecs, counting
 `decode_errors`.  Rows at another rate than the mixer's resample to the
 mixer clock on deposit, one launch of kernel R (`kernels/resample.py`) a
 same-rate group, inside a `record_function("resample")` span.  PLC
-(repeat-with-decay) covers both kinds of row.
+(repeat-with-decay) covers both kinds of row.  Each decode tick fills
+the bank's `jitter_hist` and `decode_delay_hist` over its active rows,
+and `register_metrics` exposes them with the per-stream counters.
 
 Not ported, each raising `NotImplementedError` where a caller would reach
-it: the GSM, Speex, G.729 and iLBC legs (ROADMAP Queue 1, item 9);
-`SendPump`, `ReceivePump`, `register_metrics` and the bank's histograms
-(ROADMAP Queue 1, item 4).
+it: the GSM, Speex, G.729 and iLBC legs, and `SendPump` and `ReceivePump`,
+which need `MediaStream` and `rtp/jitter_buffer` (ROADMAP Queue 1, item
+9).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from libjitsi_tpu_torch.kernels import g711
 from libjitsi_tpu_torch.kernels.resample import resample_to_frame
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.rtp.dense_jitter import DenseJitterBank
+from libjitsi_tpu_torch.utils.metrics import Histogram
 
 G711_LAWS = {"PCMU": g711.ULAW, "PCMA": g711.ALAW}
 #: the codec legs the port has (by upper-case wire name)
@@ -43,6 +46,22 @@ STATEFUL = 2
 def not_ported_codec(name: str) -> NotImplementedError:
     return NotImplementedError(
         f"the {name} codec leg is not ported yet (ROADMAP Queue 1, item 9)")
+
+
+class SendPump:
+    """Not ported: it needs `MediaStream` and `rtp/jitter_buffer`."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SendPump is not ported yet (ROADMAP Queue 1, item 9)")
+
+
+class ReceivePump:
+    """Not ported: it needs `MediaStream` and `rtp/jitter_buffer`."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ReceivePump is not ported yet (ROADMAP Queue 1, item 9)")
 
 
 def check_ported(codec: "FrameCodec") -> None:
@@ -181,6 +200,11 @@ class ReceiveBank:
         self.plc_frames = np.zeros(capacity, dtype=np.int64)
         self._plc_run = np.zeros(capacity, dtype=np.int32)
         self._last_pcm: Dict[int, np.ndarray] = {}
+        # distributions over the active rows, filled each decode tick
+        self.jitter_hist = Histogram(
+            (0.001, 0.0025, 0.005, 0.01, 0.02, 0.05, 0.1, 0.25))
+        self.decode_delay_hist = Histogram(
+            (0.02, 0.04, 0.06, 0.08, 0.12, 0.2, 0.32, 0.5))
 
     def add_stream(self, sid: int, codec: FrameCodec) -> None:
         if self.mixer is not None and \
@@ -241,6 +265,41 @@ class ReceiveBank:
         self.decode_errors[arr] = 0
         self.plc_frames[arr] = 0
         self.jb.reset_streams(sids)
+
+    def register_metrics(self, registry, prefix: str = "bank") -> None:
+        """Expose the bank's per-stream counters (as callables, so a bank
+        rebuilt by a restore stays live) and its two histograms."""
+        registry.register_array(f"{prefix}_decoded_frames",
+                                lambda: self.decoded_frames,
+                                by="stream", help_="frames decoded",
+                                kind="counter")
+        registry.register_array(f"{prefix}_lost_frames",
+                                lambda: self.lost_frames,
+                                by="stream",
+                                help_="underrun ticks (silence fill)",
+                                kind="counter")
+        registry.register_array(f"{prefix}_decode_errors",
+                                lambda: self.decode_errors,
+                                by="stream",
+                                help_="stateful decoder failures",
+                                kind="counter")
+        registry.register_array(f"{prefix}_oversize_dropped",
+                                lambda: self.oversize_dropped,
+                                by="stream",
+                                help_="payloads over payload_cap",
+                                kind="counter")
+        registry.register_array(f"{prefix}_plc_frames",
+                                lambda: self.plc_frames,
+                                by="stream", help_="concealed frames",
+                                kind="counter")
+        registry.register_histogram(
+            f"{prefix}_jitter_seconds", self.jitter_hist,
+            help_="interarrival jitter (RFC 3550), per active stream "
+                  "per tick")
+        registry.register_histogram(
+            f"{prefix}_decode_delay_seconds", self.decode_delay_hist,
+            help_="jitter-buffer hold time before decode, per active "
+                  "stream per tick")
 
     # ------------------------------------------------------------- intake
     def push_decrypted(self, batch, ok, now: Optional[float] = None
@@ -312,8 +371,15 @@ class ReceiveBank:
         mixer's zeroed row is the silence fill)."""
         now = time.time() if now is None else now
         ready, pays, plens = self.jb.pop_all(now)
-        lost = (self._kind >= 0) & ~ready
+        installed = self._kind >= 0
+        lost = installed & ~ready
         self.lost_frames[lost] += 1
+        act = installed & (self.jb.next_seq >= 0)
+        if act.any():
+            # one searchsorted a histogram over every active row
+            self.jitter_hist.observe_array(self.jb.jitter_s[act])
+            self.decode_delay_hist.observe_array(
+                self.jb.depth_used()[act] * self.jb.frame_s[act])
         out_sids: List[int] = []
         out_pcm: List[np.ndarray] = []
         mix_deposits: List[Tuple[np.ndarray, np.ndarray]] = []

@@ -40,12 +40,21 @@ bridge (adding, staging, committing or removing endpoints) and
 SFU unprotects inside `_on_media` (the loop has no chain), so the loop's
 deep receive pipeline does not engage; depth > 1 pipelines the fan-out.
 
+Ingest rings (`ingest_rings` N > 1): the primary engine binds with
+SO_REUSEPORT and N - 1 sibling engines on the same port join the loop
+(`MediaLoop.add_ring`), the kernel spreading the senders' flows over
+them by hash; every ring drains each tick.  With `kernel_timestamps`
+every engine takes SO_TIMESTAMPNS stamps, and the receive-side GCC
+(`_feed_bwe`) takes each packet's arrival time from
+`loop.last_rtp_arrival_ns`, row for row, instead of the tick's clock.
+`snapshot()` records `ingest_rings` and `engine_mode`; `restore()` takes
+them unless the caller passes its own.
+
 Not ported, each raising `NotImplementedError` with its ROADMAP Queue 1
 item: DTLS joins (item 9), video and SVC tracks with RTX encapsulation
-(item 9), kernel timestamps and extra ingest rings (item 4), mesh mode,
-cascade trunks, broadcast conferences and endpoint migration (item 12).
-The JAX bridge's `config` and `engine_mode`
-arguments are not taken: the port's UDP engine has one mode.
+(item 9), the io_uring engine (`engine_mode="io_uring"`, item 4), mesh
+mode, cascade trunks, broadcast conferences and endpoint migration
+(item 12).  The JAX bridge's `config` argument is not taken.
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from libjitsi_tpu_torch.bwe.batched import BatchedRemoteBitrateEstimator
 from libjitsi_tpu_torch.core.device import DeviceLike, resolve_device
 from libjitsi_tpu_torch.core.packet import PacketBatch
 from libjitsi_tpu_torch.io.loop import MediaLoop
-from libjitsi_tpu_torch.io.udp import UdpEngine
+from libjitsi_tpu_torch.io.udp import UdpEngine, check_engine_mode
 from libjitsi_tpu_torch.rtp import ext as rtp_ext
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.rtp import rtcp
@@ -91,15 +100,17 @@ class SfuBridge:
                  pipeline_depth: int = 1,
                  mesh=None,
                  recovery_config: Optional[RecoveryConfig] = None,
+                 engine_mode: str = "auto",
                  ingest_rings: int = 1,
                  device: DeviceLike = None):
-        if kernel_timestamps or ingest_rings > 1:
-            raise _not_ported("kernel timestamps and extra ingest rings", 4)
+        check_engine_mode(engine_mode)
         if mesh is not None:
             raise _not_ported("mesh mode", 12)
         self.device = resolve_device(device)
         self.capacity = capacity
         self.profile = profile
+        self.engine_mode = engine_mode
+        self.ingest_rings = max(1, int(ingest_rings))
         self.pipelined = pipelined or pipeline_depth > 1
         # dispatched fan-outs: (PendingTranslate, journey origin)
         self._pending_fanout: list = []
@@ -119,10 +130,19 @@ class SfuBridge:
         # Transient, like the cache: a restored bridge re-learns it.
         self.recovery = RecoveryController(recovery_config)
         self.loop = MediaLoop(
-            UdpEngine(port=port, max_batch=4 * capacity), self.registry,
+            UdpEngine(port=port, max_batch=4 * capacity,
+                      kernel_timestamps=kernel_timestamps,
+                      engine_mode=engine_mode,
+                      reuseport=self.ingest_rings > 1), self.registry,
             on_media=self._on_media, on_rtcp=self._on_rtcp, chain=None,
             recv_window_ms=recv_window_ms, pipeline_depth=pipeline_depth)
         self.port = self.loop.engine.port
+        # SO_REUSEPORT siblings on the same port, drained every tick
+        for _ in range(self.ingest_rings - 1):
+            self.loop.add_ring(UdpEngine(
+                port=self.port, reuseport=True, max_batch=4 * capacity,
+                kernel_timestamps=kernel_timestamps,
+                engine_mode=engine_mode))
         self._ssrc_of: Dict[int, int] = {}     # sid -> sender ssrc
         # rows keyed by stage_endpoints but not yet committed: their
         # media queues on the loop's hold and the routes leave them out
@@ -346,7 +366,7 @@ class SfuBridge:
         # upstream NACKs (drained toward the sender by emit_feedback)
         with loop.tracer.span("recovery"):
             self.recovery.observe_rx(hdr.ssrc, hdr.seq, self._now)
-        self._feed_bwe(sub, hdr)
+        self._feed_bwe(sub, rows, hdr)
         # the bridge's own abs-send-time, before the fan-out, so every
         # receiver leg can run receive-side GCC on its downlink
         sub, _ = self._ast.rtp_transformer.transform(sub)
@@ -424,10 +444,12 @@ class SfuBridge:
                         PacketBatch.from_payloads(fec_out),
                         self.loop.addr_ip[fa], self.loop.addr_port[fa])
 
-    def _feed_bwe(self, sub: PacketBatch, hdr) -> None:
+    def _feed_bwe(self, sub: PacketBatch, rows: np.ndarray, hdr) -> None:
         """Drive the receive-side GCC from the senders' abs-send-time
-        stamps; arrival times are the tick's clock (the port's engine
-        takes no kernel receive stamps)."""
+        stamps.  `rows` are `sub`'s rows in the batch `on_media` was
+        handed: arrival times are the engine's kernel stamps
+        (`loop.last_rtp_arrival_ns`, row-aligned with that batch) when it
+        has them, else the tick's clock."""
         off, dlen, found = rtp_ext.find_one_byte_ext(sub, hdr,
                                                      self.ast_ext_id)
         f = np.nonzero(found & (dlen == 3))[0]
@@ -438,7 +460,11 @@ class SfuBridge:
         ast24 = ((d[f, o].astype(np.int64) << 16)
                  | (d[f, o + 1].astype(np.int64) << 8)
                  | d[f, o + 2].astype(np.int64))
-        arrival_ms = np.full(len(f), self._now * 1000.0)
+        ats = self.loop.last_rtp_arrival_ns
+        if ats is not None:
+            arrival_ms = ats[rows][f].astype(np.float64) / 1e6
+        else:
+            arrival_ms = np.full(len(f), self._now * 1000.0)
         tids = self._transport_of[sub.stream[f].astype(np.int64)]
         self.bwe.incoming_batch(tids, arrival_ms, ast24,
                                 np.asarray(sub.length)[f])
@@ -552,8 +578,8 @@ class SfuBridge:
             "profile": self.profile.name,
             "sharded": False,
             "ast_ext_id": self.ast_ext_id,
-            "engine_mode": "auto",
-            "ingest_rings": 1,
+            "engine_mode": self.engine_mode,
+            "ingest_rings": self.ingest_rings,
             "rx_table": self.rx_table.snapshot(),
             "tx_table": self.tx_table.snapshot(),
             "bwe": self.bwe.snapshot(),
@@ -576,13 +602,15 @@ class SfuBridge:
         """Resume a snapshotted conference (of either package) on a fresh
         socket.  Endpoint rows reoccupy their old sids, so the restored
         SRTP tables and the SSRC demux line up; the translator derives
-        its leg keys again from the stored master keys."""
+        its leg keys again from the stored master keys.  The snapshot's
+        `engine_mode` and `ingest_rings` apply unless `kwargs` gives
+        them."""
         if snap.get("sharded"):
             raise _not_ported("restoring a mesh bridge", 12)
         if snap.get("bcast_speakers"):
             raise _not_ported("broadcast conferences", 12)
-        if int(snap.get("ingest_rings", 1)) > 1:
-            raise _not_ported("extra ingest rings", 4)
+        kwargs.setdefault("engine_mode", snap.get("engine_mode", "auto"))
+        kwargs.setdefault("ingest_rings", snap.get("ingest_rings", 1))
         bridge = cls(port=port, capacity=snap["capacity"],
                      profile=SrtpProfile[snap["profile"]],
                      abs_send_time_ext_id=snap["ast_ext_id"],
@@ -623,4 +651,5 @@ class SfuBridge:
     def close(self) -> None:
         if self._pending_fanout:
             self._flush_fanout()     # the last tick's media still ships
-        self.loop.engine.close()
+        for eng in self.loop.rings:
+            eng.close()

@@ -6,7 +6,9 @@ detector at k = 1 and k = 3, the RFC 6464 level engine's bytes, the
 receive bank's push and tick — then a four-party `ConferenceBridge` of
 each package over UDP loopback, fed the same wire bytes at the same
 `now`: per tick and per participant the wire bytes, decrypted payloads,
-levels, dominant speaker and speaker events must be identical.  The
+levels, dominant speaker and speaker events must be identical, serial
+and at `pipeline_depth=2` with kernel stamps (the bank's metrics render
+as the JAX bank's too).  The
 tier-1 case gives the JAX bridge the port's SRTP tables (see
 `_jax_bridge`); the case marked slow runs it whole.
 Tolerance: exact equality.
@@ -343,12 +345,13 @@ def _drain(engine, want, tries=100):
     return got
 
 
-def _jax_bridge(jax_srtp):
+def _jax_bridge(jax_srtp, **kwargs):
     """The JAX bridge; with `jax_srtp` False its two SRTP tables are the
     port's CPU tables (held byte-equal to the JAX tables by
     tests/test_torch_srtp_table.py), since compiling the JAX table's
     protect and unprotect costs over 30 s on the CPU."""
-    jb = JaxBridge(libjitsi_tpu.configuration_service(), port=0, capacity=8)
+    jb = JaxBridge(libjitsi_tpu.configuration_service(), port=0, capacity=8,
+                   **kwargs)
     if not jax_srtp:
         jb.rx_table = SrtpStreamTable(8, device="cpu")
         jb.tx_table = SrtpStreamTable(8, device="cpu")
@@ -481,3 +484,93 @@ def test_four_party_bridge_under_gcm_hears_what_cm_hears():
         assert ok.all() and len(ok) == 6 * len(PARTIES)
         out[name] = sorted(dec.to_payloads())
     assert out["gcm"] == out["cm"]
+
+
+def test_pipelined_bridge_follows_jax_pipelined_bridge_tick_by_tick():
+    """Both packages' bridges at `pipeline_depth=2` with kernel stamps (the
+    JAX one on the port's CPU SRTP tables, as in the serial case): tick N's
+    unprotect materializes on tick N + 1 and its mixes leave on the tick
+    after, so each tick's wire, levels and counters must match, and the
+    last mixes leave at the final `flush_sends`."""
+    jbridge = _jax_bridge(False, pipeline_depth=2, kernel_timestamps=True)
+    pbridge = ConferenceBridge(port=0, capacity=8, pipeline_depth=2,
+                               kernel_timestamps=True, device="cpu")
+    assert pbridge.loop.pipelined and pbridge.loop.use_kernel_ts
+    up = SrtpStreamTable(len(PARTIES), device="cpu")
+    for i, (ssrc, _f) in enumerate(PARTIES):
+        rx, tx = _keys(i)
+        assert [b.add_participant(ssrc, rx, tx)
+                for b in (jbridge, pbridge)] == [i, i]
+        up.add_stream(i, *rx)
+    for f in ("_tx_seq", "_tx_ts", "_tx_ssrc"):
+        getattr(pbridge, f)[:] = getattr(jbridge, f)
+    clients = [JaxUdp(port=0, max_batch=64), JaxUdp(port=0, max_batch=64)]
+    heard = {"jax": [], "port": []}
+    now = 400.0
+    try:
+        for tick in range(6):
+            wire = _client_wire(up, tick)
+            for eng, b in zip(clients, (jbridge, pbridge)):
+                eng.send_batch(wire, "127.0.0.1", b.port)
+            time.sleep(0.005)
+            stats = [b.tick(now=now) for b in (jbridge, pbridge)]
+            for k in ("rx", "tx", "mixed", "dominant"):
+                assert stats[0][k] == stats[1][k], k
+            assert np.array_equal(np.asarray(stats[0]["levels"]),
+                                  stats[1]["levels"])
+            # the mixes of the tick before leave at this tick's top
+            want = len(PARTIES) if tick else 0
+            for eng, name in zip(clients, heard):
+                back = sorted(_drain(eng, want, tries=4 if want else 1))
+                assert len(back) == want
+                heard[name].append(back)
+            assert heard["jax"][-1] == heard["port"][-1]
+            now += 0.02
+        for b in (jbridge, pbridge):
+            assert b.loop.flush_sends() == len(PARTIES)
+        last = [sorted(_drain(eng, len(PARTIES))) for eng in clients]
+        assert last[0] == last[1] and len(last[1]) == len(PARTIES)
+    finally:
+        for eng in clients:
+            eng.close()
+        jbridge.close()
+        pbridge.close()
+    assert np.array_equal(jbridge.bank.decoded_frames,
+                          pbridge.bank.decoded_frames)
+    assert pbridge.bank.decoded_frames[:4].sum() > 0
+    assert jbridge.speaker_events == pbridge.speaker_events
+
+
+def test_receive_bank_metrics_render_like_jax():
+    from libjitsi_tpu.utils.metrics import MetricsRegistry as JaxMetrics
+    from libjitsi_tpu_torch.utils.metrics import (MetricsRegistry,
+                                                  validate_exposition)
+
+    rng = np.random.default_rng(13)
+    jbank = JaxReceiveBank(6, plc=True)
+    pbank = ReceiveBank(6, plc=True, device="cpu")
+    for sid in (0, 2, 3):
+        jbank.add_stream(sid, jax_g711_codec(True))
+        pbank.add_stream(sid, g711_codec(True, device="cpu"))
+    now = 70.0
+    for tick in range(5):
+        sids = [0, 2, 3] if tick != 2 else [0]
+        jitter = rng.random(len(sids)) * 0.004 * tick
+        batch = _pcmu_batch(rng, sids, [10 + tick] * len(sids),
+                            [tick * 160] * len(sids))
+        for b in (jbank, pbank):
+            b.push_decrypted(batch, np.ones(len(sids), bool),
+                             now=now + float(jitter.max(initial=0)))
+            b.tick(now=now)
+        now += 0.02
+    regs = [JaxMetrics(), MetricsRegistry()]
+    jbank.register_metrics(regs[0])
+    pbank.register_metrics(regs[1], prefix="bank")
+    for reg in regs:
+        reg.set_stream_name(2, 'leg "two"')
+    assert pbank.jitter_hist.count == jbank.jitter_hist.count > 0
+    for active in (None, np.array([1, 0, 1, 1, 0, 0], bool)):
+        texts = [r.render(active=active) for r in regs]
+        assert texts[0] == texts[1]
+        assert validate_exposition(texts[1]) == []
+    assert "bank_decode_delay_seconds_bucket" in texts[1]

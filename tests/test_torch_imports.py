@@ -6,8 +6,9 @@ runs in a fresh interpreter with a meta-path hook that refuses `jax`,
 `libjitsi_tpu_torch` itself passes) and then imports every module of
 the port (the pipelined tick's `utils` modules, the AEAD-GCM slice's
 `kernels.ghash`, `kernels.gcm` and `transform.srtp.keystream`, and the
-resampler's `kernels.resample` and the host codecs' `codecs.*` among
-them), and `chip_smoke.py`.
+resampler's `kernels.resample`, the host codecs' `codecs.*` and the
+host I/O plane's `io.pcap` and `io.batching` among them), and
+`chip_smoke.py`.
 """
 
 import os
@@ -57,4 +58,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         assert f"libjitsi_tpu_torch.{mod}" in seen, mod
     # the resampler's and the host codecs' modules
     for mod in ("kernels.resample", "codecs", "codecs.g722", "codecs.opus"):
+        assert f"libjitsi_tpu_torch.{mod}" in seen, mod
+    # the host I/O plane's own copies
+    for mod in ("io.pcap", "io.batching", "io.udp", "io.loop"):
         assert f"libjitsi_tpu_torch.{mod}" in seen, mod

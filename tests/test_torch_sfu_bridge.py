@@ -6,7 +6,11 @@ SfuBridge.
 endpoint hears the others and not itself, a NACKed seq comes back under
 the leg's key, a spoofed NACK serves nothing, and the SRTCP feedback
 authenticates at the sender.  A conference-scoped bridge forwards no
-copy across conferences.  Two `slow` cases hold the port's bridge
+copy across conferences.  The host I/O plane: two SO_REUSEPORT ingest
+rings with kernel stamps deliver every copy and feed the BWE stamps from
+the receive's window; `_feed_bwe` leaves the JAX bridge's BWE state,
+from kernel stamps or the tick's clock; a two-ring snapshot restores
+across packages both ways; io_uring is refused.  Two `slow` cases hold the port's bridge
 against the JAX one byte for byte: restored from a JAX
 `SfuBridge.snapshot()`, its next forwarded wire against what the JAX
 bridge's own translator makes of the same packets (run eagerly, ~13 s
@@ -337,11 +341,171 @@ def test_sfu_entry_points_not_ported_name_their_item():
                dict(profile=SrtpProfile.F8_128_HMAC_SHA1_80),
                dict(profile=SrtpProfile.AEAD_AES_128_GCM)):
         SfuBridge(capacity=4, device="cpu", **kw).close()
+    # kernel stamps and SO_REUSEPORT rings are taken; io_uring is refused
+    SfuBridge(capacity=4, kernel_timestamps=True, ingest_rings=2,
+              device="cpu").close()
     with pytest.raises(NotImplementedError, match="item 4"):
-        SfuBridge(capacity=4, kernel_timestamps=True, device="cpu")
+        SfuBridge(capacity=4, engine_mode="io_uring", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SfuBridge(capacity=4)        # device=None means the card
+
+
+# ------------------------------------------------- stamps and rings
+
+def test_sfu_io_uring_is_refused_and_rings_are_taken():
+    with pytest.raises(NotImplementedError, match="item 4"):
+        SfuBridge(capacity=4, engine_mode="io_uring", device="cpu")
+    sfu = SfuBridge(capacity=4, ingest_rings=3, kernel_timestamps=True,
+                    device="cpu")
+    try:
+        assert len(sfu.loop.rings) == 3 and sfu.loop.use_kernel_ts
+        assert {e.port for e in sfu.loop.rings} == {sfu.port}
+        assert sfu.loop.metrics.sample_total("loop_ingest_rings") == 3
+        assert sfu.snapshot()["ingest_rings"] == 3
+    finally:
+        sfu.close()
+
+
+def test_sfu_over_two_rings_with_kernel_stamps():
+    """Endpoints on their own sockets, spread by the kernel over two
+    SO_REUSEPORT rings: once every address is latched (a first round),
+    every copy reaches exactly its receivers, and the BWE takes each
+    packet's kernel stamp."""
+    import time
+
+    sfu = SfuBridge(port=0, capacity=16, recv_window_ms=0, ingest_rings=2,
+                    kernel_timestamps=True, device="cpu")
+    eps = [_Endpoint(0x600 + 3 * k, sfu.port) for k in range(6)]
+    for e in eps:
+        sfu.add_endpoint(e.ssrc, e.rx_key, e.tx_key)
+    _mesh(eps)
+    fed = []
+    orig = sfu.bwe.incoming_batch
+    sfu.bwe.incoming_batch = lambda t, a, s, z: (fed.append(np.array(a)),
+                                                 orig(t, a, s, z))
+    t0 = time.time()
+    for rnd in range(3):
+        if rnd == 1:
+            base = sfu.forwarded
+        for e in eps:
+            e.send_media()
+        _tick(sfu, 80.0 + rnd * 0.02)
+        for e in eps:
+            for _ in range(3):
+                e.drain()
+    t1 = time.time()
+    # a copy goes to each of the 5 others, ring by ring
+    assert sfu.forwarded - base == 2 * 6 * 4 * 5
+    for e in eps:
+        for other in eps:
+            seqs = {q for s, q in e.got if s == other.ssrc}
+            if other is e:
+                assert not seqs, "echoed own media"
+            else:
+                assert set(range(504, 512)) <= seqs
+    arrivals = np.concatenate(fed)
+    assert len(arrivals) == 3 * 6 * 4
+    assert ((arrivals > (t0 - 1) * 1e3) & (arrivals < (t1 + 1) * 1e3)).all()
+    sfu.close()
+    for e in eps:
+        e.engine.close()
+
+
+def _ast_batch(header_mod, k, rng):
+    """Eight packets of three senders with abs-send-time stamps."""
+    sids = [0, 1, 2, 0, 1, 2, 0, 1]
+    ast = ((k * 20 + np.arange(8) * 2 + rng.integers(0, 3, 8)) * 262) \
+        & 0xFFFFFF
+    return header_mod.build(
+        [bytes(40 + 7 * i) for i in range(8)], [100 * k + i
+                                                for i in range(8)],
+        0, [0x11 + s for s in sids], 96, stream=sids,
+        ext=[(0xBEDE, bytes([0x32]) + int(a).to_bytes(3, "big"))
+             for a in ast])
+
+
+@pytest.mark.parametrize("stamps", [True, False])
+def test_feed_bwe_follows_jax(stamps):
+    """`_feed_bwe(sub, rows, hdr)` on both bridges, arrival times from the
+    loop's kernel stamps (`rows` picking some of on_media's rows) or the
+    tick's clock: the same BWE state."""
+    from libjitsi_tpu.rtp import header as j_header
+
+    jb = _jax_bridge(3)
+    pb = SfuBridge(port=0, capacity=8, device="cpu")
+    rng = np.random.default_rng(2)
+    try:
+        for k in range(30):
+            batch = _ast_batch(j_header, k, rng)
+            keep = np.array([0, 1, 2, 4, 5, 6, 7])
+            now = 90.0 + 0.02 * k
+            ats = (np.int64(90 * 10 ** 9) + k * 20_000_000
+                   + np.arange(9, dtype=np.int64) * 1_500_000
+                   + rng.integers(0, 400_000, 9))
+            for b, mod in ((jb, j_header), (pb, rtp_header)):
+                sub = PacketBatch(batch.data[keep].copy(),
+                                  np.asarray(batch.length)[keep].copy(),
+                                  np.asarray(batch.stream)[keep].copy())
+                if mod is j_header:
+                    from libjitsi_tpu.core.packet import PacketBatch as JB
+                    sub = JB(sub.data, sub.length, sub.stream)
+                b._now = now
+                b.loop.last_rtp_arrival_ns = ats[:8] if stamps else None
+                b._feed_bwe(sub, keep, mod.parse(sub))
+            if k % 5 == 4:
+                for b in (jb, pb):
+                    b.bwe.update_estimate(now * 1000.0)
+        snaps = [jb.bwe.snapshot(), pb.bwe.snapshot()]
+        assert sorted(snaps[0]) == sorted(snaps[1])
+        for key in snaps[0]:
+            assert np.array_equal(np.asarray(snaps[0][key]),
+                                  np.asarray(snaps[1][key])), key
+        assert np.array_equal(jb._bwe_fed, pb._bwe_fed)
+        assert pb._bwe_fed[:3].all()
+    finally:
+        jb.close()
+        pb.close()
+
+
+@pytest.mark.parametrize("source", ["jax", "port"])
+def test_ringed_snapshot_restores_across_packages(source):
+    """A snapshot of a two-ring bridge, of either package, restores with
+    two rings in the other package (and `kwargs` still win)."""
+    import libjitsi_tpu
+    from libjitsi_tpu.service.sfu_bridge import SfuBridge as JaxBridge
+
+    libjitsi_tpu.init()
+    cfg = libjitsi_tpu.configuration_service()
+    eps = [_Endpoint(0x800 + 5 * k, 0) for k in range(3)]
+    if source == "jax":
+        a = JaxBridge(cfg, port=0, capacity=8, ingest_rings=2)
+    else:
+        a = SfuBridge(port=0, capacity=8, ingest_rings=2, device="cpu")
+    for e in eps:
+        a.add_endpoint(e.ssrc, e.rx_key, e.tx_key)
+    snap = a.snapshot()
+    a.close()
+    assert snap["ingest_rings"] == 2 and snap["engine_mode"] == "auto"
+    if source == "jax":
+        b = SfuBridge.restore(snap, port=0, device="cpu")
+        one = SfuBridge.restore(snap, port=0, device="cpu", ingest_rings=1)
+    else:
+        b = JaxBridge.restore(cfg, snap, port=0)
+        one = JaxBridge.restore(cfg, snap, port=0, ingest_rings=1)
+    try:
+        assert b.ingest_rings == 2 and len(b.loop.rings) == 2
+        assert {e.port for e in b.loop.rings} == {b.port}
+        assert len(one.loop.rings) == 1
+        assert sorted(b._ssrc_of.values()) == sorted(e.ssrc for e in eps)
+        again = b.snapshot()
+        assert again["ingest_rings"] == 2
+        assert again["ssrc_of"] == snap["ssrc_of"]
+    finally:
+        b.close()
+        one.close()
+        for e in eps:
+            e.engine.close()
 
 
 # ------------------------------------------------------------- parity
