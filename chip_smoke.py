@@ -104,7 +104,31 @@ version:
                 (kernels C, D): a 2,048-packet burst on a 512-packet cap,
                 then calm ticks; the backlog signal fires and the cap and
                 window come back to their base; the knob trajectory and
-                tick p50/p99 printed.
+                tick p50/p99 printed;
+  media_stream  the public stream API as the README's Quick start drives
+                it: `init()` and `media_service()` on the card (1,024
+                registry rows) and a second 1,024-row registry for the
+                far ends; 512 SDES-keyed `AudioMediaStream` pairs under
+                AES_CM_128_HMAC_SHA1_80 with a transport-cc and an
+                abs-send-time engine, 4 ticks of one 160-byte PCMU frame
+                a pair (one `send` and one `receive` a pair a tick:
+                kernels C and D), 16 pairs sending a tone from tick 1 to
+                tick 2 (its end packets to tick 4), 32 pairs losing tick
+                2's packet, SR and RR exchanged at ticks 2 and 4 (RTT,
+                loss, the BWE's estimate); one registry-wide ingest of every pair's next
+                packet in one unprotect through a chain on the far
+                registry's tables, a tampered and a replayed row beside
+                them; a tampered and a replayed datagram through one
+                stream's `receive`, refused and not counted; 8 pairs
+                under AEAD_AES_128_GCM (kernels M, N) and 8 under
+                AES_CM_128_HMAC_SHA1_32.  Every payload comes back as
+                sent, and each pair's wire, stats, reports, BWE
+                estimates, DTMF events, level and ingest row equal the
+                same run with `device="cpu"` (in one process a core:
+                the plain versions cost tens of ms a call); per-call
+                send and receive p50/p99 on the host clock, the one-call
+                ingest's ms and the card's busy ms on two profiled ticks
+                are printed.
 
 Then `exposition` renders the registry of every bridge and loop the run
 built (with the receive banks' metrics registered, and the batcher's),
@@ -180,8 +204,8 @@ of `r_phases`'s launches and over a mixed tick (`r_turns`, the two
 trees' outputs equal) and I-NULL and J-NULL at NULL_SHAPES
 (`srtcp_null_turns`, the two trees' outputs equal); the parent's phase
 splits are printed too where it has the probes, and `sass_compare`
-(`scripts/torch_sass_compare.py`) fails the run if a kernel other than
-I-NULL's and J-NULL's changed its SASS.
+(`scripts/torch_sass_compare.py`) fails the run if a kernel outside
+SASS_CHANGED (none in this tree) changed its SASS.
 
 Every phase prints one JSON line; the card's `nvidia-smi` name and power
 limit come before the last line, and the last line is
@@ -237,6 +261,7 @@ a row); F reads 2 and writes 1 byte a sample, G reads 1 and writes 2.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import hmac
 import json
@@ -366,6 +391,17 @@ BATCHER_CALM_TICKS = 24
 BATCHER_WINDOW_MS = 2
 TICK_BUDGET_S = 0.04        # `_TickBudget`: slow_burn past it, fast_burn
                             # past 2.5x it (a 512-packet echo tick: ~20 ms)
+# the public stream API (`init()` -> `media_service()` -> SDES-keyed
+# AudioMediaStream pairs) at the JAX default registry width
+MS_WIDTH = 1024             # libjitsi_tpu.stream_capacity's default
+MS_PAIRS = 512
+MS_TICKS = 4
+MS_DTMF = (16, 1, 2)        # pairs sending a tone, its first and last tick
+MS_RTCP_TICKS = (2, 4)
+MS_LOST = (2, 32)           # at tick 2 the first 32 pairs' packets are lost
+MS_PROFILED = (3, 4)        # ticks under torch.profiler
+MS_OTHER = (("AEAD_AES_128_GCM", 8), ("AES_CM_128_HMAC_SHA1_32", 8))
+MS_T0 = 2000.0              # the ticks' explicit clock, seconds
 R_PHASE_SLOTS = 12
 R_PHASE_WALKERS = 1 << 16
 SOURCES = {
@@ -456,7 +492,9 @@ PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
                                   "g711_decode"),
          "sfu_rings": ("srtp_unprotect_cm", "srtp_fanout_cm",
                        "srtcp_protect_cm", "srtcp_unprotect_cm"),
-         "echo_batcher": ("srtp_protect_cm", "srtp_unprotect_cm")}
+         "echo_batcher": ("srtp_protect_cm", "srtp_unprotect_cm"),
+         "media_stream": ("srtp_protect_cm", "srtp_unprotect_cm",
+                          "srtp_gcm_seal", "srtp_gcm_open")}
 FANOUT_INSTANCES = ("srtp_fanout_null", "srtp_fanout_f8")
 
 
@@ -609,6 +647,11 @@ def main(argv=None) -> int:
     batcher_in = _batcher_setup(torch, dev, table)
     batcher = path("echo_batcher", echo_batcher_run, torch, dev, batcher_in)
     echo_batcher_check(torch, dev, batcher)
+    # the public stream API: init(), media_service() and every pair's
+    # SDES keying and start are done before the counts are reset
+    ms_in = media_stream_setup(torch, dev)
+    ms = path("media_stream", media_stream_run, torch, dev, ms_in)
+    media_stream_check(torch, dev, ms, smi)
     exposition(torch)
     per_unit = {"srtp_echo": ("launches_per_table_batch",
                               table["launches_per_batch"]),
@@ -631,7 +674,9 @@ def main(argv=None) -> int:
                 "sfu_rings": ("launches_per_ringed_sfu_tick",
                               rings["launches_per_tick"]),
                 "echo_batcher": ("launches_per_batcher_tick",
-                                 batcher["launches_per_tick"])}
+                                 batcher["launches_per_tick"]),
+                "media_stream": ("launches_per_media_stream_tick",
+                                 ms["launches_per_tick"])}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
@@ -2214,11 +2259,9 @@ def resample_turns(torch, dev, parent_lib) -> None:
          launches=out)
 
 
-# the kernels this tree redesigned against its parent (I-NULL's and
-# J-NULL's instances) and their phase probe's
-SASS_CHANGED = ("srtcp_protect_null nr=10", "srtcp_protect_null nr=14",
-                "srtcp_unprotect_null nr=10", "srtcp_unprotect_null nr=14",
-                "srtcp_protect_null_phases", "srtcp_unprotect_null_phases")
+# the kernels this tree changed against its parent: none (the public
+# stream API adds host modules only)
+SASS_CHANGED = ()
 
 
 def sass_compare(root: str) -> None:
@@ -2239,7 +2282,7 @@ def sass_compare(root: str) -> None:
          identical=len(report) - len(differ), differ=differ,
          only_parent=line["only_old"], only_this=line["only_new"])
     require(set(differ + alone) <= set(SASS_CHANGED),
-            f"kernels other than I-NULL's and J-NULL's changed their SASS: "
+            f"kernels outside SASS_CHANGED changed their SASS: "
             f"{differ}, {alone}")
 
 
@@ -6060,6 +6103,372 @@ def exposition(torch) -> None:
     emit("exposition", registries=len(out), banks_registered=banks,
          valid=True, by_registry=out)
 
+
+# --------------------------------------------- the public stream API
+
+class _MsClock:
+    """The transport-cc and abs-send-time engines' clock: the tick's
+    explicit time, so the card run and its CPU twin stamp alike."""
+
+    t = MS_T0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _ms_claim(reg, row: int) -> None:
+    """Reserve every free row below `row`, so the next stream the
+    registry allocates lands on `row` (a twin process that runs only
+    some pairs gives each the row it has in the whole run)."""
+    below = [r for r in range(row) if r not in reg.streams]
+    if below:
+        reg.reserve_many(below, None)
+
+
+def _ms_pair(svc, far, profile: str, base_ssrc: int, k: int, row: int,
+             clock):
+    """Pair k of a profile: the near end on the service's own registry (a
+    transport-cc and an abs-send-time engine beside the levels and
+    DTMF), the far end on `far`, both at `row`; keyed by SDES offer and
+    answer from the pair's own seeded generator, which draws its seq and
+    ts too; the near end's level source fixed."""
+    from libjitsi_tpu_torch.control.sdes import SdesControl
+    from libjitsi_tpu_torch.transform.header_ext import (AbsSendTimeEngine,
+                                                         TransportCCEngine)
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    prof = SrtpProfile(profile)
+    rng = np.random.default_rng([base_ssrc, k])
+    _ms_claim(svc.registry, row)
+    near = svc.create_media_stream(
+        "audio", profile=prof, local_ssrc=base_ssrc + 2 * k,
+        extra_engines=[TransportCCEngine(5, clock=clock),
+                       AbsSendTimeEngine(3, clock=clock)])
+    _ms_claim(far, row)
+    far_s = svc.create_media_stream("audio", registry=far, profile=prof,
+                                    local_ssrc=base_ssrc + 2 * k + 1)
+    require(near.sid == far_s.sid == row, f"media_stream: pair {k} of "
+            f"{profile} took rows {near.sid}, {far_s.sid}, not {row}")
+    for s in (near, far_s):
+        s.sdes = SdesControl(profiles=[prof], rng=rng.bytes)
+        s._tx_seq = int(rng.integers(0, 1 << 16))
+        s._tx_ts = int(rng.integers(0, 1 << 32))
+        s.add_dynamic_rtp_payload_type(0, "PCMU", 8000)
+    near.sdes.accept_answer(far_s.sdes.create_answer(near.sdes.create_offer()))
+    near.set_remote_ssrc(far_s.local_ssrc)
+    far_s.set_remote_ssrc(near.local_ssrc)
+    near.start()
+    far_s.start()
+    near.set_level_source(
+        lambda sids, lv=k % 128: np.full(len(sids), lv, np.uint8))
+    events = []
+    far_s.add_dtmf_listener(lambda sid, e: events.append(
+        (sid, e.event, e.end, e.duration)))
+    return near, far_s, events
+
+
+MS_MAIN = "AES_CM_128_HMAC_SHA1_80"
+
+
+def _ms_build(svc, far, main=range(MS_PAIRS), others: bool = True) -> dict:
+    """Pairs `main` of the main profile (rows k) and, with `others`, every
+    MS_OTHER pair (rows after them) on `svc` and `far`; the frames."""
+    clock = _MsClock()
+    groups = {MS_MAIN: {k: _ms_pair(svc, far, MS_MAIN, 0x10000000, k, k,
+                                    clock) for k in main}}
+    row = MS_PAIRS
+    for i, (profile, n) in enumerate(MS_OTHER if others else ()):
+        groups[profile] = {k: _ms_pair(svc, far, profile,
+                                       0x20000000 + 0x1000 * i, k, row + k,
+                                       clock) for k in range(n)}
+        row += n
+    frames = np.random.default_rng(61).integers(
+        0, 256, (MS_PAIRS, 4, 160), np.uint8)
+    return dict(svc=svc, far=far, clock=clock, groups=groups, frames=frames)
+
+
+def media_stream_setup(torch, dev) -> dict:
+    """The Quick start on the card: `init()` (no device: the card) and
+    `media_service()`, a second 1,024-row registry for the far ends,
+    and every profile's pairs keyed and started."""
+    import libjitsi_tpu_torch
+    from libjitsi_tpu_torch.service.media_stream import StreamRegistry
+
+    libjitsi_tpu_torch.stop()
+    libjitsi_tpu_torch.init({"libjitsi_tpu.stream_capacity": MS_WIDTH})
+    svc = libjitsi_tpu_torch.media_service()
+    require(svc.device == dev and svc.registry.capacity == MS_WIDTH,
+            f"media_service() built on {svc.device}, "
+            f"{svc.registry.capacity} rows")
+    t0 = time.perf_counter()
+    setup = _ms_build(svc, StreamRegistry(MS_WIDTH, device=dev))
+    setup["setup_s"] = time.perf_counter() - t0
+    return setup
+
+
+def _ms_drive(torch, setup, timed: bool) -> dict:
+    """MS_TICKS 20 ms ticks of every profile's pairs: each near end sends
+    one 160-byte PCMU frame and its far end receives it (tick MS_LOST's
+    packets of the first pairs lost), the first MS_DTMF pairs send a
+    tone, and at each RTCP tick the near end's SR goes to the far end
+    and the far end's report back.  Then the next packet of every main
+    pair in one registry-wide unprotect (with a tampered copy of pair
+    5's and a replay of pair 7's last), and a tampered and a replayed
+    datagram through pair 0's own receive.  `timed`: per-call host
+    times, the main profile's launches a tick and MS_PROFILED under
+    torch.profiler.  Returns, pair by pair, what the card run and its
+    CPU twin must agree on."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.engine import TransformEngineChain
+    from libjitsi_tpu_torch.transform.srtp.engine import SrtpTransformEngine
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    clock, frames, far = setup["clock"], setup["frames"], setup["far"]
+    regs = (setup["svc"].registry, far)
+    per = {(p, k): {"wire": [], "reports": [], "bwe": []}
+           for p, g in setup["groups"].items() for k in g}
+    times = {"send": [], "receive": []}
+    prof_lines = []
+
+    def tick(profile, pairs, t):
+        main = profile == MS_MAIN
+        now = MS_T0 + 0.02 * t
+        clock.t = now
+        for k, (near, far_s, _) in pairs.items():
+            if main and k < MS_DTMF[0]:
+                if t == MS_DTMF[1]:
+                    near.start_sending_dtmf("0123456789*#ABCD"[k % 16])
+                if t == MS_DTMF[2]:
+                    near.stop_sending_dtmf()
+            frame = frames[k, t % 4].tobytes()
+            t0 = time.perf_counter()
+            wire = near.send([frame], pt=0, ts_step=160)
+            t1 = time.perf_counter()
+            per[profile, k]["wire"].append(wire[0])
+            if t == MS_LOST[0] and k < MS_LOST[1]:
+                continue
+            got, ok = far_s.receive(wire, arrival=now + 0.0005 * (k % 8))
+            t2 = time.perf_counter()
+            if main and timed:
+                times["send"].append(t1 - t0)
+                times["receive"].append(t2 - t1)
+            tone = main and k < MS_DTMF[0] and \
+                MS_DTMF[1] <= t <= MS_DTMF[2] + 2
+            if tone:        # telephone-events are consumed, not passed on
+                require(not ok[0], f"media_stream: pair {k} tick {t}'s "
+                                   "event reached the decoder")
+                continue
+            off = int(rtp_header.parse(got).payload_off[0])
+            require(bool(ok[0]) and got.to_bytes(0)[off:] == frame,
+                    f"media_stream: {profile} pair {k} tick {t}'s payload "
+                    "did not come back as sent")
+        if t in MS_RTCP_TICKS:
+            for k, (near, far_s, _) in pairs.items():
+                sr = near.make_rtcp_report(now=now + 0.005)
+                far_s.handle_rtcp(sr, now=now + 0.006)
+                rr = far_s.make_rtcp_report(now=now + 0.007)
+                near.handle_rtcp(rr, now=now + 0.008)
+                per[profile, k]["reports"] += [sr, rr]
+                per[profile, k]["bwe"].append(
+                    (near.bwe.estimate_bps, near.bwe.loss_estimate,
+                     near.stats["rtt_seconds"]))
+
+    for r in regs:
+        r.stats2.poll(now=MS_T0)
+    for profile, pairs in setup["groups"].items():
+        pre = dict(kbuild.launches)
+        for t in range(1, MS_TICKS + 1):
+            if profile == MS_MAIN and timed and t in MS_PROFILED:
+                prof_lines.append(profiled_ticks(
+                    torch, lambda _i, t=t: tick(profile, pairs, t), 1))
+            else:
+                tick(profile, pairs, t)
+        if profile == MS_MAIN:
+            launches = {k: (kbuild.launches[k] - pre[k]) / MS_TICKS
+                        for k in pre}
+    now = MS_T0 + 0.02 * (MS_TICKS + 1)
+    clock.t = now
+    for r in regs:
+        r.stats2.poll(now=now)
+
+    # one registry-wide ingest of every main pair's next packet, with a
+    # tampered copy of pair 5's and a replay of pair 7's last beside them
+    prof = SrtpProfile(MS_MAIN)
+    pairs = setup["groups"][MS_MAIN]
+    keys = sorted(pairs)
+    out = {"pairs": per, "ingest_extra": []}
+    if not keys:                    # a twin process of the other profiles
+        return _ms_finish(setup, out)
+    wire = [pairs[k][0].send([frames[k, 0].tobytes()], pt=0,
+                             ts_step=160)[0] for k in keys]
+    extra = []
+    if 5 in pairs:
+        bad = bytearray(wire[keys.index(5)])
+        bad[-3] ^= 0x10
+        extra.append(bytes(bad))
+    if 7 in pairs:
+        extra.append(per[MS_MAIN, 7]["wire"][-1])
+    batch = PacketBatch.from_payloads(wire + extra)
+    sids = far.demux(batch)
+    require(np.array_equal(sids[:len(keys)], keys),
+            "media_stream: the far registry's demux missed a stream")
+    chain = TransformEngineChain(
+        [SrtpTransformEngine(*far.srtp_tables(prof))])
+    t0 = time.perf_counter()
+    got, ok = chain.rtp_transformer.reverse_transform(batch)
+    ingest_s = time.perf_counter() - t0
+    require(ok[:len(keys)].all() and not ok[len(keys):].any(),
+            f"media_stream ingest: {ok[:len(keys)].sum()} of {len(keys)} "
+            f"genuine rows, {ok[len(keys):].tolist()} for the tampered and "
+            "the replayed")
+    hdr = rtp_header.parse(got)
+    for i, k in enumerate(keys):
+        row = got.to_bytes(i)
+        require(row[int(hdr.payload_off[i]):] == frames[k, 0].tobytes(),
+                f"media_stream ingest: pair {k}'s payload did not come "
+                "back as sent")
+        per[MS_MAIN, k]["ingest"] = row
+    out["ingest_extra"] = ok[len(keys):].tolist()
+
+    # a tampered and a replayed datagram through pair 0's own receive
+    if 0 in pairs:
+        near, far_s, _ = pairs[0]
+        wire = near.send([frames[0, 1].tobytes()], pt=0, ts_step=160)
+        bad = bytearray(wire[0])
+        bad[-1] ^= 0x01
+        before = far_s.stats["rx_packets"]
+        _, ok = far_s.receive([bytes(bad), wire[0], wire[0]], arrival=now)
+        require(ok.tolist() == [False, True, False]
+                and far_s.stats["rx_packets"] == before + 1,
+                f"media_stream: tampered and replayed datagrams gave "
+                f"{ok.tolist()}, rx_packets {before} -> "
+                f"{far_s.stats['rx_packets']}")
+        out["tamper"] = ok.tolist()
+    if timed:
+        out.update(times=times, ingest_s=ingest_s, profiled=prof_lines,
+                   launches_per_tick=launches)
+    return _ms_finish(setup, out)
+
+
+def _ms_finish(setup, out) -> dict:
+    """Each pair's stats, DTMF events and level into its record."""
+    for (p, k), rec in out["pairs"].items():
+        near, far_s, events = setup["groups"][p][k]
+        rec.update(stats=(near.stats, far_s.stats,
+                          dataclasses.asdict(near.send_stats()),
+                          dataclasses.asdict(far_s.receive_stats())),
+                   events=list(events), level=far_s.last_received_level)
+    return out
+
+
+def media_stream_run(torch, dev, setup) -> dict:
+    """The Quick start's streams on the card, counted: every profile's
+    ticks and the registry-wide ingest."""
+    res = _ms_drive(torch, setup, timed=True)
+    res["setup"] = setup
+    return res
+
+
+def _ms_twin_part(main_lo: int, main_hi: int, others: bool) -> dict:
+    """One process of the CPU twin: main pairs [main_lo, main_hi) (and the
+    other profiles' pairs with `others`) on a `MediaService` and far
+    registry with `device="cpu"`, one PyTorch thread."""
+    import torch
+
+    from libjitsi_tpu_torch.core.config import ConfigurationService
+    from libjitsi_tpu_torch.service.media_service import MediaService
+    from libjitsi_tpu_torch.service.media_stream import StreamRegistry
+
+    torch.set_num_threads(1)
+    svc = MediaService(ConfigurationService(
+        {"libjitsi_tpu.stream_capacity": MS_WIDTH}), device="cpu")
+    setup = _ms_build(svc, StreamRegistry(MS_WIDTH, device="cpu"),
+                      range(main_lo, main_hi), others)
+    return _ms_drive(torch, setup, timed=False)
+
+
+def _ms_twin(workers: int) -> dict:
+    """The CPU twin of the whole run in `workers` processes (the plain
+    versions cost tens of ms a call on the host): the main pairs split
+    over all but one, the other profiles' pairs in that one; every pair
+    exactly as on the card, each process's ingest over its own pairs
+    (row by row the same unprotect).  Returns the merged per-pair results, the
+    tamper verdicts and the ingest's extra rows (pairs 5 and 7 in one
+    process)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    cuts = np.linspace(0, MS_PAIRS, max(workers - 1, 1) + 1).astype(int)
+    ranges = [(int(lo), int(hi), False) for lo, hi in zip(cuts[:-1], cuts[1:])]
+    merged = {"pairs": {}, "ingest_extra": []}
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        parts = [ex.submit(_ms_twin_part, lo, hi, others)
+                 for lo, hi, others in ranges + [(0, 0, True)]]
+        for f in parts:
+            res = f.result()
+            merged["pairs"].update(res["pairs"])
+            merged["ingest_extra"] += res["ingest_extra"]
+            if "tamper" in res:
+                merged["tamper"] = res["tamper"]
+    return merged
+
+
+def media_stream_check(torch, dev, run, smi) -> None:
+    """The same run on the CPU (`_ms_twin`): every pair's wire bytes,
+    stats, report bytes, BWE estimates and RTT, DTMF events, level and
+    ingest row, and the tamper verdicts, equal to the card's.  Prints the
+    `media_stream` line."""
+    workers = max(1, min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    twin = _ms_twin(workers)
+    twin_s = time.perf_counter() - t0
+    require(set(twin["pairs"]) == set(run["pairs"]),
+            "media_stream: the CPU twin ran other pairs")
+    for key, rec in run["pairs"].items():
+        for field, val in rec.items():
+            require(twin["pairs"][key][field] == val,
+                    f"media_stream: {key}'s {field} on the card differs "
+                    "from the CPU run's")
+    require(twin["tamper"] == run["tamper"]
+            and twin["ingest_extra"] == run["ingest_extra"],
+            "media_stream: the refusals differ from the CPU run's")
+    setup = run["setup"]
+    main = [rec for (p, _k), rec in run["pairs"].items() if p == MS_MAIN]
+    send, recv = (np.array(run["times"][k]) * 1e3
+                  for k in ("send", "receive"))
+    bwe = [b for rec in main for b in rec["bwe"]]
+    emit("media_stream", nvidia_smi=smi, registry_rows=MS_WIDTH,
+         pairs=MS_PAIRS, ticks=MS_TICKS,
+         other_profiles={p: n for p, n in MS_OTHER},
+         setup_s=setup["setup_s"],
+         send_ms_p50=float(np.median(send)),
+         send_ms_p99=float(np.percentile(send, 99)),
+         receive_ms_p50=float(np.median(recv)),
+         receive_ms_p99=float(np.percentile(recv, 99)),
+         calls_timed=len(send), ingest_rows=MS_PAIRS + 2,
+         ingest_batch_ms=run["ingest_s"] * 1e3,
+         profiled_ticks={
+             "ticks": list(MS_PROFILED),
+             "wall_ms": [p["wall_ms_per_tick"] for p in run["profiled"]],
+             "device_busy_ms": [p["device_busy_ms_per_tick"]
+                                for p in run["profiled"]],
+             "device_idle_share": [p["device_idle_share"]
+                                   for p in run["profiled"]],
+             "device_ms_by_kernel": [p["device_ms_per_tick"]
+                                     for p in run["profiled"]]},
+         launches_per_tick={k: v for k, v in run["launches_per_tick"].items()
+                            if v},
+         rtt_ms_median=float(np.median([b[2] for b in bwe])) * 1e3,
+         cumulative_lost_total=int(sum(r["stats"][1]["cumulative_lost"]
+                                       for r in main)),
+         bwe_estimate_bps=[min(b[0] for b in bwe), max(b[0] for b in bwe)],
+         dtmf_events=sum(len(r["events"]) for r in main),
+         tamper_and_replay=run["tamper"],
+         ingest_tampered_and_replayed=run["ingest_extra"],
+         cpu_twin_equal=True, cpu_twin_s=twin_s, cpu_twin_workers=workers)
 
 if __name__ == "__main__":
     sys.exit(main())

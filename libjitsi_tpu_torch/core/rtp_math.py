@@ -1,9 +1,9 @@
-"""Wrap-around RTP sequence-number arithmetic, vectorized.
+"""Wrap-around RTP sequence-number / timestamp arithmetic, vectorized.
 
 Counterpart: `libjitsi_tpu/core/rtp_math.py` (copied; host NumPy).
 
 Rebuilds the semantics of the reference's `org.jitsi.util.RTPUtils`
-(seq-number arithmetic mod 2^16) and the
+(seq-number arithmetic mod 2^16, timestamp arithmetic mod 2^32) and the
 RFC 3711 Appendix A packet-index estimation used by
 `org.jitsi.impl.neomedia.transform.srtp.SRTPCryptoContext`, as pure
 vectorized NumPy functions (dtype-stable integer math, no data-dependent
@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 SEQ_MOD = 1 << 16
+TS_MOD = 1 << 32
 
 
 def seq_delta(a, b):
@@ -25,6 +26,34 @@ def seq_delta(a, b):
     """
     d = (np.asarray(a).astype(np.int32) - np.asarray(b).astype(np.int32)) & 0xFFFF
     return np.where(d >= 0x8000, d - SEQ_MOD, d).astype(np.int32)
+
+
+def is_newer_seq(a, b):
+    """True where seq `a` is newer than `b` (reference: RTPUtils.isNewerSequenceNumberThan)."""
+    return seq_delta(a, b) > 0
+
+
+def is_older_seq(a, b):
+    return seq_delta(a, b) < 0
+
+
+def ts_delta(a, b):
+    """Signed distance a-b on the mod-2^32 RTP-timestamp circle.
+
+    Reference: RTPUtils.rtpTimestampDiff.
+    """
+    d = (np.asarray(a).astype(np.int64) - np.asarray(b).astype(np.int64)) & 0xFFFFFFFF
+    return np.where(d >= 0x80000000, d - TS_MOD, d).astype(np.int64)
+
+
+def as_seq(x):
+    """Wrap into [0, 2^16)."""
+    return np.asarray(x).astype(np.int64) % SEQ_MOD
+
+
+def as_ts(x):
+    """Wrap into [0, 2^32)."""
+    return np.asarray(x).astype(np.int64) % TS_MOD
 
 
 def estimate_packet_index(seq, s_l, roc):
@@ -137,3 +166,28 @@ def chain_packet_indices(stream, seq, base_ext):
     ext = np.empty(n, dtype=np.int64)
     ext[order] = np.maximum(ext_o, 0)
     return ext
+
+
+class SeqNumUnwrapper:
+    """Extend 16-bit sequence numbers to a monotone 64-bit index.
+
+    Reference: org.jitsi.util.RTPUtils / the seq unwrapping embedded in
+    FMJ's RTP stack.  Scalar host-side helper used by jitter-buffer and
+    stats bookkeeping; the batched analog is `estimate_packet_index`.
+    """
+
+    def __init__(self):
+        self._last_ext = None
+
+    def unwrap(self, seq: int) -> int:
+        seq = int(seq) & 0xFFFF
+        if self._last_ext is None:
+            self._last_ext = seq
+            return seq
+        d = int(seq_delta(seq, self._last_ext & 0xFFFF))
+        ext = self._last_ext + d
+        if ext < 0:
+            ext = 0  # pre-stream-start reordered packet: clamp, keep ordering
+        if d > 0:
+            self._last_ext = ext
+        return ext

@@ -16,6 +16,7 @@ from libjitsi_tpu.kernels import aes as j_aes
 from libjitsi_tpu.rtp import header as j_header
 from libjitsi_tpu_torch.kernels import aes as t_aes
 from libjitsi_tpu_torch.kernels import build as kbuild
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 

@@ -18,6 +18,7 @@ from libjitsi_tpu.service import pump as jpump
 from libjitsi_tpu_torch.codecs import G722Decoder, G722Encoder
 from libjitsi_tpu_torch.codecs import opus as popus
 from libjitsi_tpu_torch.service import pump
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 needs_opus = pytest.mark.skipif(not opus_available(),
                                 reason="system libopus not available")

@@ -47,6 +47,7 @@ from libjitsi_tpu_torch.transform.header_ext import CsrcAudioLevelEngine
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.engine import SrtpTransformEngine
 from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BANK_FIELDS = DenseJitterBank._SNAP_FIELDS
 

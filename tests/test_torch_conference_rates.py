@@ -35,6 +35,7 @@ from libjitsi_tpu_torch.transform.engine import TransformEngineChain
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.engine import SrtpTransformEngine
 from test_torch_conference import _drain, _jax_bridge, _keys
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 needs_opus = pytest.mark.skipif(not opus_available(),
                                 reason="system libopus not available")

@@ -1392,3 +1392,41 @@ def test_off_rate_receive_bank_tick_on_card_equals_cpu(cuda_device):
     assert np.array_equal(frames, out["cpu"][0])
     assert frames.any() and launches["resample"] == 2   # a group a law
     assert launches["g711_decode"] == 2 and plain["resample"] == 0
+
+
+@pytest.mark.parametrize("profile", ["AES_CM_128_HMAC_SHA1_80",
+                                     "AEAD_AES_128_GCM"])
+def test_quick_start_on_the_card(cuda_device, profile):
+    """README's Quick start with no device argument: `init()` and
+    `media_service()` build on the card, each send is one protect launch
+    (C, or M under GCM) and each receive one unprotect launch (D, or N),
+    no plain version runs, and the payload comes back as sent."""
+    import libjitsi_tpu_torch
+
+    libjitsi_tpu_torch.stop()
+    try:
+        libjitsi_tpu_torch.init()
+        svc = libjitsi_tpu_torch.media_service()
+        assert svc.device.type == "cuda"
+        prof = SrtpProfile(profile)
+        a = svc.create_media_stream(profile=prof)
+        b = svc.create_media_stream("audio", profile=prof)
+        answer = b.sdes.create_answer(a.sdes.create_offer())
+        a.sdes.accept_answer(answer)
+        a.set_remote_ssrc(b.local_ssrc)
+        b.set_remote_ssrc(a.local_ssrc)
+        a.start()
+        b.start()
+        kbuild.reset_counts()
+        wire = a.send([b"opus-frame"])
+        batch, ok = b.receive(wire)
+        seal, open_ = (("srtp_gcm_seal", "srtp_gcm_open")
+                       if profile == "AEAD_AES_128_GCM" else
+                       ("srtp_protect_cm", "srtp_unprotect_cm"))
+        assert kbuild.launches[seal] == 1 and kbuild.launches[open_] == 1
+        assert sum(kbuild.plain_calls.values()) == 0
+        assert ok.tolist() == [True]
+        assert batch.to_bytes(0)[12:] == b"opus-frame"
+        assert b.stats["rx_packets"] == 1
+    finally:
+        libjitsi_tpu_torch.stop()

@@ -83,7 +83,8 @@ def emu(tmp_path_factory):
     subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared",
                     "-fPIC", f"-I{work}", f"-I{kbuild.CSRC_DIR}",
                     "-include", os.path.join(HERE, "cuda_emu", "cuda_emu.h"),
-                    "-o", str(so), *srcs], check=True, capture_output=True)
+                    "-o", str(so), *srcs], check=True, capture_output=True,
+                   timeout=900)
     lib = ctypes.CDLL(str(so))
     for name, args in kbuild._SIGNATURES.items():
         fn = getattr(lib, name)

@@ -16,6 +16,7 @@ import torch
 from libjitsi_tpu.kernels import g711 as jg711
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.kernels import g711
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ALL_PCM = np.arange(-32768, 32768, dtype=np.int32).astype(np.int16)
 ALL_CODES = np.arange(256, dtype=np.uint8)

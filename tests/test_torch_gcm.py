@@ -43,6 +43,7 @@ from libjitsi_tpu_torch.transform.srtp import kernel as sk
 from libjitsi_tpu_torch.transform.srtp.context import (SrtpStreamTable,
                                                        ghash_tables)
 from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 GCM = SrtpProfile.AEAD_AES_128_GCM
@@ -77,7 +78,7 @@ def gcm_seal_oracle(tmp_path_factory):
     subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", so,
                     os.path.join(native, "crypto_oracle.cpp"),
                     "/usr/lib/x86_64-linux-gnu/libcrypto.so.3"],
-                   check=True, capture_output=True)
+                   check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(so)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     lib.oracle_gcm_seal.restype = ctypes.c_int

@@ -20,6 +20,7 @@ import torch
 
 from libjitsi_tpu.kernels import ghash as jghash
 from libjitsi_tpu_torch.kernels import ghash
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 

@@ -6,9 +6,10 @@ runs in a fresh interpreter with a meta-path hook that refuses `jax`,
 `libjitsi_tpu_torch` itself passes) and then imports every module of
 the port (the pipelined tick's `utils` modules, the AEAD-GCM slice's
 `kernels.ghash`, `kernels.gcm` and `transform.srtp.keystream`, and the
-resampler's `kernels.resample`, the host codecs' `codecs.*` and the
-host I/O plane's `io.pcap` and `io.batching` among them), and
-`chip_smoke.py`.
+resampler's `kernels.resample`, the host codecs' `codecs.*`, the
+host I/O plane's `io.pcap` and `io.batching`, and the public stream
+API's `control`, `rtp.stats`, `bwe.*`, `transform.dtmf` / `red` and
+`service.*` among them), and `chip_smoke.py`.
 """
 
 import os
@@ -61,4 +62,13 @@ def test_port_imports_without_jax_or_the_jax_package():
         assert f"libjitsi_tpu_torch.{mod}" in seen, mod
     # the host I/O plane's own copies
     for mod in ("io.pcap", "io.batching", "io.udp", "io.loop"):
+        assert f"libjitsi_tpu_torch.{mod}" in seen, mod
+    # the public stream API's modules
+    for mod in ("core.config", "control", "control.sdes", "rtp.stats",
+                "rtp.stats2", "bwe.aimd", "bwe.inter_arrival", "bwe.overuse",
+                "bwe.rate_stats", "bwe.remote_estimator", "bwe.send_side",
+                "transform.dtmf", "transform.red", "transform.header_ext",
+                "service.media_stream", "service.typed_streams",
+                "service.encodings", "service.media_service",
+                "service.aux_services", "codecs.gsm", "codecs.speex"):
         assert f"libjitsi_tpu_torch.{mod}" in seen, mod

@@ -48,6 +48,7 @@ from libjitsi_tpu_torch.io.loop import MediaLoop
 from libjitsi_tpu_torch.io.udp import UdpEngine
 from libjitsi_tpu_torch.service.media_stream import StreamRegistry
 from libjitsi_tpu_torch.utils import metrics as p_metrics
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 CAP = 16
 LO = "127.0.0.1"

@@ -44,6 +44,7 @@ from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.kernels import gcm as t_gcm
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SEQ0 = 65526          # crosses the ROC wrap mid-run
 SSRCS = (0x4242, 0x5353, 0x6464)

@@ -21,6 +21,7 @@ from libjitsi_tpu_torch.transform.engine import TransformEngineChain
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.engine import SrtpTransformEngine
 from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 MK, MS = bytes(range(16)), bytes(range(40, 54))
 MK2, MS2 = bytes(range(100, 116)), bytes(range(60, 74))

@@ -21,6 +21,7 @@ from libjitsi_tpu.conference import mixer as jmixer
 from libjitsi_tpu.kernels.pallas_ops import mix_minus_pallas
 from libjitsi_tpu_torch.conference import mixer
 from libjitsi_tpu_torch.kernels import build as kbuild
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 

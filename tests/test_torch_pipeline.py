@@ -46,6 +46,7 @@ from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.engine import SrtpTransformEngine
 from libjitsi_tpu_torch.utils.flight import FlightRecorder
 from test_torch_sfu_bridge import _Endpoint, _mesh
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 LOCALHOST = struct.unpack("!I", socket.inet_aton("127.0.0.1"))[0]
 SSRCS = (0x1111, 0x2222)

@@ -18,6 +18,7 @@ import torch
 from libjitsi_tpu.kernels import resample as jrs
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.kernels import resample as rs
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RATES = (8000, 16000, 24000, 32000, 44100, 48000)
 PAIRS = [p for p in itertools.permutations(RATES, 2)]

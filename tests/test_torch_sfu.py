@@ -45,6 +45,7 @@ from libjitsi_tpu_torch.sfu import PacketCache, RtcpTermination, RtpTranslator
 from libjitsi_tpu_torch.sfu.recovery import RecoveryController
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RECV = {r: (bytes([r] * 16), bytes([r + 100] * 14)) for r in range(1, 6)}
 STATE = ("rx_max", "rx_mask", "auth_fail")

@@ -37,6 +37,7 @@ from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
 from libjitsi_tpu_torch.transform.header_ext import AbsSendTimeEngine
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _keys(ssrc):

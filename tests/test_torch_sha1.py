@@ -19,6 +19,7 @@ from libjitsi_tpu.kernels import sha1 as j_sha1
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.kernels import scatter as t_scatter
 from libjitsi_tpu_torch.kernels import sha1 as t_sha1
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 

@@ -37,6 +37,7 @@ from libjitsi_tpu_torch.core.packet import PacketBatch
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.transform.srtp import kernel as t_kernel
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 # one shape for every JAX call here and in test_torch_sfu.py ([16, 224]:

@@ -33,6 +33,7 @@ from libjitsi_tpu_torch.transform.engine import (PacketTransformer,
                                                  TransformEngineChain)
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.engine import SrtpTransformEngine
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 MK = bytes(range(16))
 MS = bytes(range(30, 44))

@@ -35,6 +35,7 @@ from libjitsi_tpu_torch.kernels import aes
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 STREAMS = 4

@@ -28,6 +28,7 @@ from libjitsi_tpu_torch.kernels.aes import ctr_keystream_np, expand_key
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.kdf import derive_session_keys
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 MK = bytes(range(16))
 MS = bytes(range(50, 64))

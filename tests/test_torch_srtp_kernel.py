@@ -20,6 +20,7 @@ from libjitsi_tpu.rtp import header as j_header
 from libjitsi_tpu.transform.srtp import kernel as j_kernel
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.transform.srtp import kernel as t_kernel
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 N, WIDTH = 16, 224

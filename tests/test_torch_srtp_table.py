@@ -23,6 +23,7 @@ from libjitsi_tpu_torch.core.packet import PacketBatch
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 CAP = 8
 STATE = ("tx_ext", "rx_max", "rx_mask", "auth_fail", "replay_reject")
