@@ -83,7 +83,7 @@ version:
                 names leg 0 degraded, and every later mix authenticates;
   conference_pipelined
                 the conference path's bridge pipelined: 50 ticks at
-                `pipeline_depth=2` and 20 at depth 3, with kernel
+                `pipeline_depth=2` and 10 at depth 3, with kernel
                 arrival stamps (kernels C, D, E, F, G; the unprotect
                 dispatched on the table's async seams, the mixes' protect
                 on `send_media_async`, each tick's mixes leaving at the
@@ -128,7 +128,39 @@ version:
                 the plain versions cost tens of ms a call); per-call
                 send and receive p50/p99 on the host clock, the one-call
                 ingest's ms and the card's busy ms on two profiled ticks
-                are printed.
+                are printed;
+  srtp_echo_uring
+                the echo cell's tables (10,240 streams, AES-CM) behind
+                a `MediaLoop` on `UdpEngine(engine_mode="io_uring")`:
+                10 ticks of one production-mix packet from each of 4,096
+                streams, sent in 512-packet bursts (kernels C, D); every
+                tick's replies byte-equal to the same traffic echoed
+                through the recvmmsg engine (the reference, run and
+                authenticated before the counts are reset), the ring's
+                `syscall_enters` and `ring_reaps` beside recvmmsg's.  If
+                the probe passes, the engine must take the ring and reap
+                ring-side; where the host refuses `io_uring_setup`, the
+                line "io_uring unavailable on this host: <errno>" comes
+                first, the explicit request must fall back to recvmmsg
+                with the `io_uring_unavailable_fallback` warning, and the
+                echo runs on that engine;
+  srtp_echo_tcp the same traffic from 64 RFC 4571 TCP clients (64
+                streams' packets each) to a `MediaLoop` on
+                `TcpMediaEngine` (kernels C, D), every tick's replies
+                byte-equal to the UDP echo's, no send failure;
+  conference_pumps
+                libjitsi's own conference graph on the public API:
+                `init()` and `media_service()` on the card, 256
+                SDES-keyed PCMU stream pairs, each with a `SendPump` on a
+                `ToneSource` at 8 kHz and a `ReceivePump` (jitter buffer,
+                decode, PLC) into `svc.audio_mixer_device(160)`, 5 ticks
+                of 20 ms on an injected clock, tick 1's packets of 16
+                pairs lost (kernels C, D, E, F, G); every captured frame
+                the exact clip of the other pairs' decoded frames (int64
+                on the host), the loss concealed and skipped by the
+                jitter buffer, and 16 pairs' wire and decoded frames equal
+                to the same seeded graph on the CPU (in a process of its
+                own beside the card's run); each pump call's p50/p99.
 
 Then `exposition` renders the registry of every bridge and loop the run
 built (with the receive banks' metrics registered, and the batcher's),
@@ -292,10 +324,10 @@ TAG = 10
 HDR = 12
 # packets 10,240 streams at 20 ms ptime send in the loop's 1 ms window
 ECHO_BURST = N_STREAMS // 20
-# timed rounds a depth (8 bursts each, so 128 full-burst ticks: p99 is
+# timed rounds a depth (8 bursts each, so 80 full-burst ticks: p99 is
 # not the maximum), none fenced; then one round whose every tick pays the
 # PhaseProfiler's fences, out of the timed statistics
-ECHO_ROUNDS = 16
+ECHO_ROUNDS = 10
 CONF_PARTIES = 256         # PCMU participants of the conference bridge
 CONF_TICKS = 50
 CONF_PROFILED = 5          # further ticks under torch.profiler
@@ -381,7 +413,7 @@ MIXED_R_LAUNCHES = tuple((n, ri, ro) for ri, ro in ((8000, 16000),
 # kernel R's phase probe (`ljt_resample_phases`): clock64 words a walker
 # (a block of PR 16's form, a warp of this one) and the walkers its
 # stamps have room for
-CONF_PIPE = ((2, CONF_TICKS), (3, 20))   # (pipeline_depth, ticks)
+CONF_PIPE = ((2, CONF_TICKS), (3, 10))   # (pipeline_depth, ticks)
 SFU_RINGS, SFU_RINGS_TICKS, SFU_RINGS_PROFILED = 2, 10, 3
 SFU_RINGS_SOCKETS = 16      # client sockets: flows the kernel hashes
 SFU_RINGS_RR, SFU_RINGS_NACK, SFU_RINGS_FEEDBACK = 3, 6, 5
@@ -402,6 +434,13 @@ MS_LOST = (2, 32)           # at tick 2 the first 32 pairs' packets are lost
 MS_PROFILED = (3, 4)        # ticks under torch.profiler
 MS_OTHER = (("AEAD_AES_128_GCM", 8), ("AES_CM_128_HMAC_SHA1_32", 8))
 MS_T0 = 2000.0              # the ticks' explicit clock, seconds
+ENGINE_TICKS = 10           # srtp_echo_uring / _tcp: BATCH-packet ticks
+TCP_PEERS = 64              # srtp_echo_tcp's clients, BATCH / 64 streams each
+PUMP_PAIRS = 256            # conference_pumps: PCMU pairs through pumps
+PUMP_TICKS = 5
+PUMP_LOST = (1, 16)         # at tick 1 the first 16 pairs' packets are lost
+PUMP_TWIN = tuple(range(8, 24))   # pairs held against a CPU run (8 lost)
+PUMP_T0 = 3000.0            # the pumps' explicit clock, seconds
 R_PHASE_SLOTS = 12
 R_PHASE_WALKERS = 1 << 16
 SOURCES = {
@@ -494,7 +533,11 @@ PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
                        "srtcp_protect_cm", "srtcp_unprotect_cm"),
          "echo_batcher": ("srtp_protect_cm", "srtp_unprotect_cm"),
          "media_stream": ("srtp_protect_cm", "srtp_unprotect_cm",
-                          "srtp_gcm_seal", "srtp_gcm_open")}
+                          "srtp_gcm_seal", "srtp_gcm_open"),
+         "srtp_echo_uring": ("srtp_protect_cm", "srtp_unprotect_cm"),
+         "srtp_echo_tcp": ("srtp_protect_cm", "srtp_unprotect_cm"),
+         "conference_pumps": ("srtp_protect_cm", "srtp_unprotect_cm",
+                              "mix_minus", "g711_encode", "g711_decode")}
 FANOUT_INSTANCES = ("srtp_fanout_null", "srtp_fanout_f8")
 
 
@@ -652,6 +695,20 @@ def main(argv=None) -> int:
     ms_in = media_stream_setup(torch, dev)
     ms = path("media_stream", media_stream_run, torch, dev, ms_in)
     media_stream_check(torch, dev, ms, smi)
+    # the ingest engines: the traffic (made on kernel C) and its recvmmsg
+    # echo, the reference, come before the counts are reset
+    engine_in = engine_echo_setup(torch, dev, table)
+    uring = path("srtp_echo_uring", srtp_echo_uring_run, torch, dev,
+                 engine_in)
+    srtp_echo_uring_check(torch, dev, uring, engine_in, smi)
+    tcp = path("srtp_echo_tcp", srtp_echo_tcp_run, torch, dev, engine_in)
+    srtp_echo_tcp_check(torch, dev, tcp, engine_in, smi)
+    # the media graph through pumps: every pair keyed, started and its
+    # pumps built (and the CPU twin started) before the counts are reset
+    pumps_in = conference_pumps_setup(torch, dev)
+    pumps = path("conference_pumps", conference_pumps_run, torch, dev,
+                 pumps_in)
+    conference_pumps_check(torch, dev, pumps, pumps_in, smi)
     exposition(torch)
     per_unit = {"srtp_echo": ("launches_per_table_batch",
                               table["launches_per_batch"]),
@@ -676,7 +733,13 @@ def main(argv=None) -> int:
                 "echo_batcher": ("launches_per_batcher_tick",
                                  batcher["launches_per_tick"]),
                 "media_stream": ("launches_per_media_stream_tick",
-                                 ms["launches_per_tick"])}
+                                 ms["launches_per_tick"]),
+                "srtp_echo_uring": ("launches_per_uring_echo_tick",
+                                    uring["launches_per_tick"]),
+                "srtp_echo_tcp": ("launches_per_tcp_echo_tick",
+                                  tcp["launches_per_tick"]),
+                "conference_pumps": ("launches_per_pumps_tick",
+                                     pumps["launches_per_tick"])}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
@@ -1673,11 +1736,6 @@ def echo_loop(torch, dev, keys) -> None:
             stream=streams.tolist())
         rounds.append((plain, c_tx.protect_rtp(plain)))
 
-    def on_media(batch, ok):
-        rows = np.nonzero(ok)[0]
-        return PacketBatch(batch.data[rows], batch.length[rows],
-                           batch.stream[rows])
-
     with open("/proc/sys/net/core/rmem_max") as f:
         rmem_max = int(f.read())
     wire_of = {}
@@ -1699,7 +1757,7 @@ def echo_loop(torch, dev, keys) -> None:
                 UdpEngine(port=0, bind_ip="127.0.0.1",
                           max_batch=ECHO_BURST) as client:
             bridge = _keep(f"srtp_echo depth {depth}", MediaLoop(
-                b_eng, reg, on_media=on_media, chain=chain,
+                b_eng, reg, on_media=_echo_rows, chain=chain,
                 pipeline_depth=depth, phase_sample_every=0))
             note = bridge.note_journey_at
 
@@ -5960,7 +6018,6 @@ def echo_batcher_run(torch, dev, setup) -> dict:
     the burst sent at once and ticked in, then each calm tick's packets,
     then idle ticks until both knobs are at their base (at most
     BATCHER_CALM_TICKS).  Every tick's knobs are recorded."""
-    from libjitsi_tpu_torch.core.packet import PacketBatch
     from libjitsi_tpu_torch.io.batching import AdaptiveBatcher
     from libjitsi_tpu_torch.io.loop import MediaLoop
     from libjitsi_tpu_torch.io.udp import UdpEngine
@@ -5981,9 +6038,7 @@ def echo_batcher_run(torch, dev, setup) -> dict:
 
     def on_media(batch, ok):
         bad[0] += int((~ok).sum())
-        rows = np.nonzero(ok)[0]
-        return PacketBatch(batch.data[rows], batch.length[rows],
-                           batch.stream[rows])
+        return _echo_rows(batch, ok)
 
     b_eng = UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=ECHO_BURST,
                       rcvbuf=32 << 20)
@@ -6469,6 +6524,495 @@ def media_stream_check(torch, dev, run, smi) -> None:
          tamper_and_replay=run["tamper"],
          ingest_tampered_and_replayed=run["ingest_extra"],
          cpu_twin_equal=True, cpu_twin_s=twin_s, cpu_twin_workers=workers)
+
+
+# ---------------------------- the io_uring engine, TCP and the pumps
+
+def _echo_rows(batch, ok):
+    """The echo bridges' sink: every authenticated row back to its
+    sender."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+
+    rows = np.nonzero(ok)[0]
+    return PacketBatch(batch.data[rows], batch.length[rows],
+                       batch.stream[rows])
+
+
+def engine_echo_setup(torch, dev, keys) -> dict:
+    """The engine paths' traffic and reference: ENGINE_TICKS ticks of one
+    production-mix packet from each of BATCH fixed streams of the echo
+    cell (protected by the client's table, kernel C), then the same
+    traffic echoed through the recvmmsg engine, its replies
+    authenticated by the client.  All of it before the counts are
+    reset: the paths' replies are held against these."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    rng = np.random.default_rng(23)
+    sids = np.arange(N_STREAMS)
+    streams = rng.permutation(N_STREAMS)[:BATCH]
+    setup = dict(up_k=keys["mks"], up_s=keys["mss"], streams=streams,
+                 dn_k=rng.integers(0, 256, (N_STREAMS, 16), np.uint8),
+                 dn_s=rng.integers(0, 256, (N_STREAMS, 14), np.uint8))
+    c_tx = SrtpStreamTable(N_STREAMS, device=dev)
+    c_tx.add_streams(sids, setup["up_k"], setup["up_s"])
+    setup["ticks"] = []
+    for t in range(ENGINE_TICKS):
+        lens = production_lengths(rng, BATCH)
+        payloads = [rng.integers(0, 256, int(k), np.uint8).tobytes()
+                    for k in lens]
+        plain = rtp_header.build(
+            payloads, [40 + t] * BATCH, [t * 960] * BATCH,
+            (0x20000 + streams).tolist(), [96] * BATCH,
+            stream=streams.tolist())
+        setup["ticks"].append((plain, c_tx.protect_rtp(plain)))
+    ref = _echo_udp(torch, dev, setup, "recvmmsg")
+    c_rx = SrtpStreamTable(N_STREAMS, device=dev)
+    c_rx.add_streams(sids, setup["dn_k"], setup["dn_s"])
+    for (plain, _), back in zip(setup["ticks"], ref["replies"]):
+        echo = PacketBatch.from_payloads(back, capacity=1536)
+        echo.stream[:] = (rtp_header.parse(echo).ssrc
+                          - 0x20000).astype(np.int32)
+        dec, ok = c_rx.unprotect_rtp(echo)
+        require(ok.all() and sorted(dec.to_payloads())
+                == sorted(plain.to_payloads()),
+                "engine echo: the recvmmsg reference's replies are not "
+                "the sent packets under the client's keys")
+    setup["ref"] = ref
+    return setup
+
+
+def _echo_bridge(dev, setup, engine, name: str):
+    """An echo bridge over `engine` on the echo cell's tables: 10,240
+    streams, AES-CM, every stream's keys and SSRC installed."""
+    from libjitsi_tpu_torch.io.loop import MediaLoop
+    from libjitsi_tpu_torch.service.media_stream import StreamRegistry
+    from libjitsi_tpu_torch.transform.engine import TransformEngineChain
+    from libjitsi_tpu_torch.transform.srtp.engine import SrtpTransformEngine
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    sids = np.arange(N_STREAMS)
+    reg = StreamRegistry(N_STREAMS, device=dev)
+    b_tx, b_rx = reg.srtp_tables(SrtpProfile.AES_CM_128_HMAC_SHA1_80)
+    b_rx.add_streams(sids, setup["up_k"], setup["up_s"])
+    b_tx.add_streams(sids, setup["dn_k"], setup["dn_s"])
+    for sid in sids:
+        reg.map_ssrc(0x20000 + int(sid), int(sid))
+    chain = TransformEngineChain([SrtpTransformEngine(b_tx, b_rx)])
+    return _keep(name, MediaLoop(engine, reg, on_media=_echo_rows,
+                                 chain=chain, pipeline_depth=1,
+                                 phase_sample_every=0))
+
+
+def _tick_until(bridge, want: int, tick_s: list, what: str) -> None:
+    """Tick the bridge until it took `want` packets; each tick that took
+    some goes into `tick_s` as (packets, seconds)."""
+    got = 0
+    for _ in range(400):
+        t0 = time.perf_counter()
+        n = bridge.tick()
+        dt = time.perf_counter() - t0
+        if n:
+            tick_s.append((n, dt))
+        got += n
+        if got >= want:
+            break
+    require(got == want, f"{what}: the bridge took {got} of {want} packets")
+
+
+def _tick_ms(tick_s: list) -> dict:
+    dts = np.array([dt for _n, dt in tick_s]) * 1e3
+    return dict(busy_ticks=len(dts), tick_ms_p50=float(np.median(dts)),
+                tick_ms_p99=float(np.percentile(dts, 99)),
+                packets_per_busy_tick=float(np.mean([n for n, _ in tick_s])))
+
+
+def _echo_udp(torch, dev, setup, mode: str) -> dict:
+    """The engine paths' traffic through an echo bridge on a UDP engine
+    in `mode`, sent in ECHO_BURST-packet bursts from one client socket,
+    each burst ticked until the bridge took it; every tick's replies
+    (sorted) and the engine's telemetry."""
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    replies, tick_s = [], []
+    pre = dict(kbuild.launches)
+    with UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=ECHO_BURST,
+                   engine_mode=mode) as b_eng, \
+            UdpEngine(port=0, bind_ip="127.0.0.1",
+                      max_batch=ECHO_BURST) as client:
+        bridge = _echo_bridge(dev, setup, b_eng, f"srtp_echo {mode}")
+        for t, (_plain, wire) in enumerate(setup["ticks"]):
+            back = []
+            for lo in range(0, BATCH, ECHO_BURST):
+                rows = np.arange(lo, min(lo + ECHO_BURST, BATCH))
+                require(client.send_rows(wire, rows, "127.0.0.1",
+                                         b_eng.port) == len(rows),
+                        "engine echo: a client send was short")
+                _tick_until(bridge, len(rows), tick_s, f"{mode} tick {t}")
+                for _ in range(64):
+                    b, _, _ = client.recv_batch(timeout_ms=0)
+                    back += b.to_payloads()
+                    if not b.batch_size:
+                        break
+            for _ in range(400):
+                if len(back) >= BATCH:
+                    break
+                b, _, _ = client.recv_batch(timeout_ms=5)
+                back += b.to_payloads()
+            require(len(back) == BATCH, f"{mode} tick {t}: echoed "
+                    f"{len(back)} of {BATCH} packets")
+            replies.append(sorted(back))
+        telemetry = dict(engine_mode=b_eng.engine_mode,
+                         syscall_enters=b_eng.syscall_enters,
+                         ring_reaps=b_eng.ring_reaps,
+                         arena_grows=b_eng.arena_grows,
+                         loop_engine_io_uring=bridge.metrics.sample_total(
+                             "loop_engine_io_uring"))
+    return dict(replies=replies, tick_s=tick_s, **telemetry,
+                launches_per_tick={k: (kbuild.launches[k] - pre[k])
+                                   / ENGINE_TICKS for k in pre})
+
+
+def _uring_errno() -> str:
+    """Why this host gives no ring: io_uring_setup's errno, or the build's
+    stubs (no <linux/io_uring.h> where the engine was built)."""
+    import ctypes
+    import errno
+
+    from libjitsi_tpu_torch.io.udp import _load, _uring_env_disabled
+
+    if _uring_env_disabled():
+        return "disabled by LIBJITSI_TPU_NO_IOURING / ENGINE_MODE"
+    libc = ctypes.CDLL(None, use_errno=True)
+    params = ctypes.create_string_buffer(120)   # struct io_uring_params
+    fd = libc.syscall(425, 4, params)           # __NR_io_uring_setup
+    if fd >= 0:
+        os.close(fd)
+        if not _load().udp_uring_supported():
+            return "ENOSYS (engine built without <linux/io_uring.h>)"
+        return "none"
+    e = ctypes.get_errno()
+    return f"{errno.errorcode.get(e, e)} ({os.strerror(e)})"
+
+
+def srtp_echo_uring_run(torch, dev, setup) -> dict:
+    """The echo cell's traffic through an echo bridge on
+    `UdpEngine(engine_mode="io_uring")`.  Where the host refuses the ring
+    the line says why, and the explicit request must fall back to
+    recvmmsg with the `io_uring_unavailable_fallback` warning; the echo
+    then runs on that engine."""
+    import logging
+
+    from libjitsi_tpu_torch.io.udp import UdpEngine, uring_available
+
+    out = dict(uring_available=uring_available(), uring_errno=None,
+               fallback_warned=None)
+    if not out["uring_available"]:
+        out["uring_errno"] = _uring_errno()
+        print(f"io_uring unavailable on this host: {out['uring_errno']}",
+              flush=True)
+        seen = []
+
+        class _Seen(logging.Handler):
+            def emit(self, record):
+                seen.append(record.getMessage())
+
+        log = logging.getLogger("libjitsi_tpu_torch.io.udp")
+        handler = _Seen(logging.WARNING)
+        log.addHandler(handler)
+        try:
+            with UdpEngine(port=0, engine_mode="io_uring") as eng:
+                mode = eng.engine_mode
+        finally:
+            log.removeHandler(handler)
+        out["fallback_warned"] = any("io_uring_unavailable_fallback" in m
+                                     for m in seen)
+        require(mode == "recvmmsg" and out["fallback_warned"],
+                f"srtp_echo_uring: an explicit io_uring request without a "
+                f"ring ran {mode}, warned {seen}")
+    out.update(_echo_udp(torch, dev, setup, "io_uring"))
+    return out
+
+
+def srtp_echo_uring_check(torch, dev, run, setup, smi) -> None:
+    """The ring's replies byte-equal to the recvmmsg reference's; where the
+    probe passed, the engine took the ring and reaped ring-side."""
+    if run["uring_available"]:
+        require(run["engine_mode"] == "io_uring" and run["ring_reaps"] > 0
+                and run["loop_engine_io_uring"] == 1.0,
+                f"srtp_echo_uring: the probe passed but the engine ran "
+                f"{run['engine_mode']} with {run['ring_reaps']} reaps")
+    require(run["replies"] == setup["ref"]["replies"],
+            "srtp_echo_uring: the replies differ from the recvmmsg "
+            "engine's for the same traffic")
+    ref = setup["ref"]
+    emit("srtp_echo_uring", nvidia_smi=smi, streams=N_STREAMS,
+         ticks=ENGINE_TICKS, batch=BATCH, burst=ECHO_BURST,
+         uring_available=run["uring_available"],
+         uring_errno=run["uring_errno"],
+         fallback_warned=run["fallback_warned"],
+         engine_mode=run["engine_mode"],
+         syscall_enters=run["syscall_enters"], ring_reaps=run["ring_reaps"],
+         arena_grows=run["arena_grows"], **_tick_ms(run["tick_s"]),
+         launches_per_tick={k: v for k, v in
+                            run["launches_per_tick"].items() if v},
+         recvmmsg=dict(syscall_enters=ref["syscall_enters"],
+                       ring_reaps=ref["ring_reaps"],
+                       **_tick_ms(ref["tick_s"])),
+         replies_equal_to_recvmmsg=True)
+
+
+def srtp_echo_tcp_run(torch, dev, setup) -> dict:
+    """The same traffic from TCP_PEERS RFC 4571 clients over loopback,
+    each carrying BATCH / TCP_PEERS streams' packets, to an echo bridge
+    on `TcpMediaEngine`; every tick's replies (sorted), gathered from
+    every client."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.io.tcp import TcpConnector, TcpMediaEngine
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    per = BATCH // TCP_PEERS
+    srv = TcpConnector(listen=True, max_batch=BATCH, mtu=1536)
+    engine = TcpMediaEngine(srv)
+    bridge = _echo_bridge(dev, setup, engine, "srtp_echo tcp")
+    clients = [TcpConnector(max_batch=BATCH, mtu=1536)
+               for _ in range(TCP_PEERS)]
+    replies, tick_s = [], []
+    pre = dict(kbuild.launches)
+    try:
+        dsts = [c.connect("127.0.0.1", srv.port) for c in clients]
+        for t, (_plain, wire) in enumerate(setup["ticks"]):
+            for p, (c, dst) in enumerate(zip(clients, dsts)):
+                rows = np.arange(p * per, (p + 1) * per)
+                c.send_batch(PacketBatch(wire.data[rows], wire.length[rows],
+                                         wire.stream[rows]), dst)
+            _tick_until(bridge, BATCH, tick_s, f"tcp tick {t}")
+            back = []
+            for _ in range(200):
+                for c in clients:
+                    b, _ = c.recv_batch(timeout_ms=0)
+                    back += b.to_payloads()
+                if len(back) >= BATCH:
+                    break
+                time.sleep(0.002)
+            require(len(back) == BATCH, f"tcp tick {t}: echoed {len(back)} "
+                    f"of {BATCH} packets")
+            replies.append(sorted(back))
+    finally:
+        for c in clients:
+            c.close()
+        engine.close()
+    return dict(replies=replies, tick_s=tick_s,
+                send_failures=engine.send_failures,
+                dropped_oversize=srv.dropped_oversize,
+                launches_per_tick={k: (kbuild.launches[k] - pre[k])
+                                   / ENGINE_TICKS for k in pre})
+
+
+def srtp_echo_tcp_check(torch, dev, run, setup, smi) -> None:
+    require(run["send_failures"] == 0 and run["dropped_oversize"] == 0,
+            f"srtp_echo_tcp: {run['send_failures']} send failures, "
+            f"{run['dropped_oversize']} oversize drops")
+    require(run["replies"] == setup["ref"]["replies"],
+            "srtp_echo_tcp: the replies differ from the UDP echo of the "
+            "same traffic")
+    emit("srtp_echo_tcp", nvidia_smi=smi, streams=N_STREAMS,
+         ticks=ENGINE_TICKS, batch=BATCH, peers=TCP_PEERS,
+         streams_per_peer=BATCH // TCP_PEERS, **_tick_ms(run["tick_s"]),
+         send_failures=run["send_failures"],
+         launches_per_tick={k: v for k, v in
+                            run["launches_per_tick"].items() if v},
+         replies_equal_to_udp=True)
+
+
+def _pump_pair(svc, k: int):
+    """Pair k: two audio streams on the service's registry, keyed by SDES
+    offer and answer from the pair's own seeded generator, which draws
+    their seq and ts too."""
+    from libjitsi_tpu_torch.control.sdes import SdesControl
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    prof = SrtpProfile.AES_CM_128_HMAC_SHA1_80
+    rng = np.random.default_rng([0x30000000, k])
+    a = svc.create_media_stream("audio", local_ssrc=0x30000000 + 2 * k)
+    b = svc.create_media_stream("audio", local_ssrc=0x30000001 + 2 * k)
+    for s in (a, b):
+        s.sdes = SdesControl(profiles=[prof], rng=rng.bytes)
+        s._tx_seq = int(rng.integers(0, 1 << 16))
+        s._tx_ts = int(rng.integers(0, 1 << 32))
+    a.sdes.accept_answer(b.sdes.create_answer(a.sdes.create_offer()))
+    a.set_remote_ssrc(b.local_ssrc)
+    b.set_remote_ssrc(a.local_ssrc)
+    a.start()
+    b.start()
+    return a, b
+
+
+def _pumps_build(svc, pairs, dev) -> dict:
+    """Pairs `pairs` of the conference through pumps: pair k's near end
+    sends a PCMU tone (300 + 7k Hz) through a `SendPump`, its far end's
+    `ReceivePump` deposits into row k of `svc.audio_mixer_device(160)`,
+    and row k's mix-minus is captured."""
+    from libjitsi_tpu_torch.device import ToneSource
+    from libjitsi_tpu_torch.service.pump import (ReceivePump, SendPump,
+                                                 g711_codec)
+
+    mixdev = svc.audio_mixer_device(frame_samples=160)
+    pumps = {}
+    for k in pairs:
+        a, b = _pump_pair(svc, k)
+        tx = SendPump(a, ToneSource(300.0 + 7 * k, amplitude=0.02,
+                                    sample_rate=8000),
+                      g711_codec(device=dev))
+        rx = ReceivePump(b, g711_codec(device=dev), mixer=mixdev,
+                         mixer_sid=k)
+        mixdev.add_participant(k)
+        pumps[k] = (tx, rx)
+    return dict(svc=svc, mixdev=mixdev, pumps=pumps,
+                caps={k: mixdev.capture_for(k) for k in pairs})
+
+
+def _pumps_drive(setup, timed: bool) -> dict:
+    """PUMP_TICKS 20 ms ticks on an injected clock: every pair's send
+    pump ticks, its datagram goes to the far end's receive pump (tick
+    PUMP_LOST's of the first pairs lost), the receive pump ticks, then
+    the mixer device; then each row's captured mix-minus.  `timed`: the
+    calls' host times."""
+    pumps, mixdev = setup["pumps"], setup["mixdev"]
+    wire = {k: [] for k in pumps}
+    decoded = {k: [] for k in pumps}
+    times = {"send": [], "receive": [], "tick": [], "mix": []}
+    for t in range(PUMP_TICKS):
+        now = PUMP_T0 + 0.02 * t
+        for k, (tx, rx) in pumps.items():
+            t0 = time.perf_counter()
+            w = tx.tick()
+            t1 = time.perf_counter()
+            wire[k].append(w[0])
+            if not (t == PUMP_LOST[0] and k < PUMP_LOST[1]):
+                rx.push(w, now=now)
+            t2 = time.perf_counter()
+            decoded[k].append(rx.tick(now=now))
+            t3 = time.perf_counter()
+            times["send"].append(t1 - t0)
+            times["receive"].append(t2 - t1)
+            times["tick"].append(t3 - t2)
+        t0 = time.perf_counter()
+        mixdev.tick()
+        times["mix"].append(time.perf_counter() - t0)
+    out = dict(wire=wire, decoded=decoded,
+               captured={k: setup["caps"][k].read(160 * PUMP_TICKS)
+                         for k in pumps},
+               counters={k: (rx.decoded_frames, rx.lost_frames,
+                             rx.plc_frames, rx.decode_errors, rx.jb.lost,
+                             rx.jb.late_dropped)
+                         for k, (_tx, rx) in pumps.items()})
+    if timed:
+        out["times"] = times
+    return out
+
+
+def _pumps_twin() -> dict:
+    """The CPU twin of pairs PUMP_TWIN: the same seeded graph on a
+    `MediaService` with `device="cpu"`, one PyTorch thread, in a process
+    of its own."""
+    import torch
+
+    from libjitsi_tpu_torch.core.config import ConfigurationService
+    from libjitsi_tpu_torch.service.media_service import MediaService
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    svc = MediaService(ConfigurationService(), device="cpu")
+    res = _pumps_drive(_pumps_build(svc, PUMP_TWIN, "cpu"), timed=False)
+    return dict(wire=res["wire"], counters=res["counters"],
+                decoded={k: [f.tobytes() for f in v]
+                         for k, v in res["decoded"].items()},
+                seconds=time.perf_counter() - t0)
+
+
+def conference_pumps_setup(torch, dev) -> dict:
+    """`init()` and `media_service()` on the card, every pair keyed and
+    started and its pumps built; the CPU twin starts in a process of its
+    own, to run beside the card's."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import libjitsi_tpu_torch
+
+    libjitsi_tpu_torch.stop()
+    libjitsi_tpu_torch.init()
+    svc = libjitsi_tpu_torch.media_service()
+    require(svc.device == dev, f"media_service() built on {svc.device}")
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    twin = pool.submit(_pumps_twin)
+    t0 = time.perf_counter()
+    setup = _pumps_build(svc, range(PUMP_PAIRS), dev)
+    setup.update(setup_s=time.perf_counter() - t0, pool=pool, twin=twin)
+    return setup
+
+
+def conference_pumps_run(torch, dev, setup) -> dict:
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    pre = dict(kbuild.launches)
+    res = _pumps_drive(setup, timed=True)
+    res["launches_per_tick"] = {k: (kbuild.launches[k] - pre[k]) / PUMP_TICKS
+                                for k in pre}
+    return res
+
+
+def conference_pumps_check(torch, dev, run, setup, smi) -> None:
+    """Every captured frame is the exact clip of the other pairs' decoded
+    frames (summed in int64 on the host); the lost pairs concealed their
+    gap; the PUMP_TWIN pairs' wire and decoded frames equal the CPU
+    twin's."""
+    dec = {k: np.stack(v).astype(np.int64) for k, v in run["decoded"].items()}
+    total = sum(dec.values())
+    for k, frames in dec.items():
+        want = np.clip(total - frames, -32768, 32767).reshape(-1)
+        require(np.array_equal(run["captured"][k].astype(np.int64), want),
+                f"conference_pumps: pair {k}'s capture is not the exact "
+                "mix-minus of the others' decoded frames")
+    lost = [run["counters"][k] for k in range(PUMP_LOST[1])]
+    require(all(c[1] >= 1 and c[4] == 1 for c in lost)
+            and all(run["counters"][k][1] == 0 and run["counters"][k][4] == 0
+                    for k in range(PUMP_LOST[1], PUMP_PAIRS)),
+            f"conference_pumps: the loss path ran otherwise: {lost[:2]}")
+    t0 = time.perf_counter()
+    try:
+        twin = setup["twin"].result(timeout=600)
+    finally:
+        setup["pool"].shutdown()
+    wait_s = time.perf_counter() - t0
+    for k in PUMP_TWIN:
+        require(twin["wire"][k] == run["wire"][k]
+                and twin["decoded"][k] == [f.tobytes()
+                                           for f in run["decoded"][k]]
+                and twin["counters"][k] == run["counters"][k],
+                f"conference_pumps: pair {k} on the card differs from the "
+                "CPU run")
+    times = {k: np.array(v) * 1e3 for k, v in run["times"].items()}
+    emit("conference_pumps", nvidia_smi=smi, pairs=PUMP_PAIRS,
+         ticks=PUMP_TICKS, registry_rows=setup["svc"].registry.capacity,
+         setup_s=setup["setup_s"],
+         **{f"{k}_ms_p50": float(np.median(v)) for k, v in times.items()},
+         **{f"{k}_ms_p99": float(np.percentile(v, 99))
+            for k, v in times.items()},
+         tick_wall_ms=float(sum(v.sum() for v in times.values())
+                            / PUMP_TICKS),
+         launches_per_tick={k: v for k, v in run["launches_per_tick"].items()
+                            if v},
+         lost_pairs=PUMP_LOST[1],
+         lost_frames=int(sum(c[1] for c in run["counters"].values())),
+         jb_lost=int(sum(c[4] for c in run["counters"].values())),
+         mix_minus_exact=True, cpu_twin_pairs=len(PUMP_TWIN),
+         cpu_twin_equal=True, cpu_twin_s=twin["seconds"],
+         cpu_twin_wait_s=wait_s)
+
 
 if __name__ == "__main__":
     sys.exit(main())

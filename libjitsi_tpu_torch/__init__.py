@@ -18,6 +18,7 @@ _media_service = None
 _config_service = None
 _file_access_service = None
 _resources_service = None
+_audio_notifier_service = None
 _device = None
 _started = False
 
@@ -50,11 +51,13 @@ def init(config=None, device=None):
 def stop():
     """Stop the framework (reference: LibJitsi.stop())."""
     global _started, _media_service, _config_service, \
-        _file_access_service, _resources_service, _device
+        _file_access_service, _resources_service, _audio_notifier_service, \
+        _device
     _media_service = None
     _config_service = None
     _file_access_service = None
     _resources_service = None
+    _audio_notifier_service = None
     _device = None
     _started = False
 
@@ -104,8 +107,14 @@ def resource_management_service():
 
 
 def audio_notifier_service():
-    """Reference: LibJitsi.getAudioNotifierService(); needs the device
-    layer, which the port does not have yet (ROADMAP Queue 1, item 9)."""
-    from libjitsi_tpu_torch.service.aux_services import AudioNotifierService
+    """Return the AudioNotifierService
+    (reference: LibJitsi.getAudioNotifierService()), on the media
+    service's audio system."""
+    global _audio_notifier_service
+    if _audio_notifier_service is None:
+        from libjitsi_tpu_torch.service.aux_services import \
+            AudioNotifierService
 
-    return AudioNotifierService()
+        _audio_notifier_service = AudioNotifierService(
+            media_service().device_system.audio)
+    return _audio_notifier_service

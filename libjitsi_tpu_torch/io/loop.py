@@ -61,9 +61,12 @@ range for profiler traces); `perf` (`PhaseProfiler`) splits sampled
 ticks into idle, dispatch, h2d, device compute, d2h and host phases;
 `flight` (a `FlightRecorder`, optional) samples each tick's RTP headers.
 Streams on hold (an SFU endpoint staged but not committed) queue their
-RTP and drop their RTCP until released.  The engine has one mode,
-recvmmsg: io_uring is not ported (ROADMAP Queue 1, item 4), and
-`loop_engine_io_uring` reads 0.
+RTP and drop their RTCP until released.  The loop reads whichever ingest
+engine its primary ring runs (`engine_mode`: recvmmsg or io_uring);
+`loop_engine_io_uring` reads 1 under the ring, and
+`loop_ingest_ring_reaps` sums the rings' ring-side reaps.  Any engine
+with the `UdpEngine` batch surface serves, `io/tcp.py`'s
+`TcpMediaEngine` among them.
 """
 
 from __future__ import annotations

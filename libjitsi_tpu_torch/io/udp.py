@@ -1,6 +1,7 @@
-"""Python face of the port's batched UDP engine (recvmmsg / sendmmsg).
+"""Python face of the port's batched UDP engine (recvmmsg / sendmmsg and
+io_uring).
 
-Counterpart: `libjitsi_tpu/io/udp.py` and the recvmmsg/sendmmsg part of
+Counterpart: `libjitsi_tpu/io/udp.py` and
 `libjitsi_tpu/native/udp_engine.cpp`.  The port keeps its own copy of
 the C engine (`native/udp_engine.cpp`), built with g++ at first use into
 the package's git-ignored `build/` directory and loaded with ctypes.
@@ -18,10 +19,23 @@ Kernel arrival stamps (`kernel_timestamps=True`, SO_TIMESTAMPNS):
 CLOCK_REALTIME nanoseconds, row-aligned with the batch, under the same
 copy and pin contracts; an engine whose socket refuses the option logs a
 warning and reads `kernel_timestamps` False (the stamps are then one
-clock read a window).  `syscall_enters` counts native recvmmsg/sendmmsg
-calls; `ring_reaps` is 0, the engine having one mode, recvmmsg
-(`engine_mode` "auto" or "recvmmsg"; the JAX engine's io_uring mode is
-not ported, ROADMAP Queue 1, item 4, and raises).
+clock read a window).
+
+Two ingest engines (`engine_mode`), as in JAX `io/udp.py:98-298`:
+recvmmsg, one syscall a batching window, and io_uring, where the whole
+current arena is armed as ONE linked chain of single-shot RECVMSG SQEs
+and steady-state windows reap completions from the shared-memory ring
+without entering the kernel, delivering the completed contiguous prefix
+of the armed arena (`_URING_ARENA_EXHAUSTED` re-arms the next unpinned
+arena).  "auto" resolves to recvmmsg unless `LIBJITSI_TPU_ENGINE_MODE`
+pins io_uring and `uring_available()` holds; an explicit "io_uring" takes
+the ring whenever the probe passes and otherwise warns
+`io_uring_unavailable_fallback` and runs recvmmsg.
+`LIBJITSI_TPU_NO_IOURING` (or the pin "recvmmsg") turns the ring off.
+Egress stays on sendmmsg unless `LIBJITSI_TPU_URING_EGRESS` opts into
+SENDMSG SQEs on the ring.  `syscall_enters` counts native recvmmsg /
+sendmmsg calls plus the ring's io_uring_enter syscalls; `ring_reaps`
+counts completions reaped ring-side (0 under recvmmsg).
 """
 
 from __future__ import annotations
@@ -34,7 +48,7 @@ import struct
 import subprocess
 import threading
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -95,8 +109,61 @@ def _load():
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_int]
+            lib.udp_uring_supported.restype = ctypes.c_int
+            lib.udp_uring_create.restype = ctypes.c_void_p
+            lib.udp_uring_create.argtypes = [ctypes.c_int] * 4
+            lib.udp_uring_arm.restype = ctypes.c_int
+            lib.udp_uring_arm.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p]
+            lib.udp_uring_recv.restype = ctypes.c_int
+            lib.udp_uring_recv.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            lib.udp_uring_send_idx.restype = ctypes.c_int
+            lib.udp_uring_send_idx.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int]
+            lib.udp_uring_stat.restype = ctypes.c_long
+            lib.udp_uring_stat.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            lib.udp_uring_destroy.restype = None
+            lib.udp_uring_destroy.argtypes = [ctypes.c_void_p]
             _lib = lib
     return _lib
+
+
+#: the C engine's sentinel: every row of the armed arena was delivered
+_URING_ARENA_EXHAUSTED = -9999
+
+
+def _uring_env_disabled() -> bool:
+    """io_uring turned off by the environment: LIBJITSI_TPU_NO_IOURING, or
+    the mode pin LIBJITSI_TPU_ENGINE_MODE=recvmmsg."""
+    if os.environ.get("LIBJITSI_TPU_NO_IOURING", ""):
+        return True
+    mode = os.environ.get("LIBJITSI_TPU_ENGINE_MODE", "").strip().lower()
+    return mode == "recvmmsg"
+
+
+def uring_available() -> bool:
+    """The built engine carries the ring, the kernel accepts
+    io_uring_setup (probed once, C-side) and the environment does not
+    turn it off."""
+    if _uring_env_disabled():
+        return False
+    return bool(_load().udp_uring_supported())
+
+
+def probe_engine_mode() -> str:
+    """The mode a fresh ``UdpEngine(engine_mode="auto")`` picks now:
+    io_uring only where LIBJITSI_TPU_ENGINE_MODE pins it and the ring is
+    available, else recvmmsg (JAX `io/udp.py:119`: on loopback the ring
+    lost ~30% to recvmmsg, so it is not the default)."""
+    mode = os.environ.get("LIBJITSI_TPU_ENGINE_MODE", "").strip().lower()
+    if mode == "io_uring" and uring_available():
+        return "io_uring"
+    return "recvmmsg"
 
 
 class _ArenaToken:
@@ -109,6 +176,9 @@ class _ArenaToken:
         self.arena = arena
         self.gen = gen
         self.released = False
+
+    def __iter__(self):  # the JAX engine's (arena, gen) unpacking
+        return iter((self.arena, self.gen))
 
 
 class _Arena:
@@ -131,18 +201,17 @@ def ip_to_u32(ip: str) -> int:
     return struct.unpack("!I", socket.inet_aton(ip))[0]
 
 
+def u32_to_ip(v: int) -> str:
+    return socket.inet_ntoa(struct.pack("!I", v & 0xFFFFFFFF))
+
+
 ENGINE_MODES = ("auto", "recvmmsg", "io_uring")
 
 
 def check_engine_mode(engine_mode: str) -> None:
-    """Take "auto" and "recvmmsg"; refuse the JAX engine's io_uring mode,
-    which is not ported."""
+    """Take the JAX engine's three modes; refuse anything else."""
     if engine_mode not in ENGINE_MODES:
         raise ValueError(f"engine_mode: {engine_mode!r}")
-    if engine_mode == "io_uring":
-        raise NotImplementedError(
-            "the io_uring engine is not ported yet (ROADMAP Queue 1, "
-            "item 4)")
 
 
 class UdpEngine:
@@ -153,11 +222,13 @@ class UdpEngine:
     def __init__(self, port: int = 0, bind_ip: str = "0.0.0.0",
                  reuseport: bool = False, capacity: int = DEFAULT_CAPACITY,
                  max_batch: int = 1024, rcvbuf: int = 4 << 20,
-                 kernel_timestamps: bool = False,
+                 kernel_timestamps: bool = False, arenas: int = ARENAS,
                  engine_mode: str = "auto"):
         check_engine_mode(engine_mode)
-        #: the mode the engine runs: the port has recvmmsg alone
-        self.engine_mode = "recvmmsg"
+        # ring egress is opt-in: one sendmmsg beat N SENDMSG SQEs on the
+        # JAX round's box (JAX `io/udp.py:203-211`)
+        self.uring_egress = bool(
+            os.environ.get("LIBJITSI_TPU_URING_EGRESS", ""))
         lib = _load()
         self.capacity = capacity
         #: recv windows honour the current value; the arenas are sized
@@ -176,16 +247,59 @@ class UdpEngine:
                 # clock read a window, which must not pass silently
                 get_logger("io.udp").warn("kernel_timestamps_unavailable",
                                           port=self.port)
-        #: native recvmmsg / sendmmsg calls made
-        self.syscall_enters = 0
-        #: completions reaped without a syscall (an io_uring engine's);
-        #: always 0 here
-        self.ring_reaps = 0
+        # native recvmmsg / sendmmsg calls; the ring's enters add in
+        self._py_enters = 0
         self._rows = max_batch
-        self._ring = [_Arena(max_batch, capacity) for _ in range(ARENAS)]
+        self._ring = [_Arena(max_batch, capacity)
+                      for _ in range(max(1, arenas))]
         self._ring_pos = 0
         #: times the ring grew because every arena was pinned
         self.arena_grows = 0
+        self._u = None          # the io_uring engine's handle
+        self._uring_arena: Optional[_Arena] = None
+        want_uring = (engine_mode == "io_uring"
+                      or (engine_mode == "auto"
+                          and probe_engine_mode() == "io_uring"))
+        #: the mode the engine runs
+        self.engine_mode = "recvmmsg"
+        if want_uring and uring_available():
+            # a ring sized to one arena: arming it is one chain of rows
+            self._u = lib.udp_uring_create(fd, self._rows, 0,
+                                           int(self.kernel_timestamps))
+            if self._u:
+                self.engine_mode = "io_uring"
+                self._uring_arm(self._ring[0])
+        if engine_mode == "io_uring" and self.engine_mode != "io_uring":
+            # an explicit request degraded: must not pass silently
+            get_logger("io.udp").warn("io_uring_unavailable_fallback",
+                                      port=self.port)
+
+    def _uring_arm(self, a: "_Arena") -> None:
+        """Hand a whole unpinned arena to the kernel as one linked chain of
+        recvs; the gen bump voids tokens of its last occupancy."""
+        a.gen += 1
+        rc = _load().udp_uring_arm(
+            self._u, a.buf.ctypes.data, self._rows, self.capacity,
+            a.len.ctypes.data, a.sip.ctypes.data, a.sport.ctypes.data,
+            a.ats.ctypes.data)
+        if rc < 0:
+            raise OSError(-rc, os.strerror(-rc))
+        self._uring_arena = a
+
+    @property
+    def syscall_enters(self) -> int:
+        """Native recvmmsg / sendmmsg calls plus the ring's io_uring_enter
+        syscalls (ring-side reaps cost none)."""
+        if self._u is not None:
+            return self._py_enters + int(_load().udp_uring_stat(self._u, 0))
+        return self._py_enters
+
+    @property
+    def ring_reaps(self) -> int:
+        """Completions reaped ring-side without entering the kernel."""
+        if self._u is not None:
+            return int(_load().udp_uring_stat(self._u, 1))
+        return 0
 
     @property
     def rcvbuf(self) -> int:
@@ -208,25 +322,42 @@ class UdpEngine:
         return a
 
     def _recv_arena(self, timeout_ms: int, want_ts: bool = False
-                    ) -> Tuple[_Arena, int]:
-        """One batching window into a fresh arena: (arena, n); with
-        `want_ts` the arena's `ats` rows hold the arrival stamps."""
+                    ) -> Tuple[_Arena, int, int]:
+        """One batching window: (arena, lo, n), the window's packets in
+        arena rows [lo, lo + n).  recvmmsg fills a fresh arena from row 0;
+        io_uring hands out the next completed prefix of the armed arena
+        (its stamps are always taken), re-arming the next one when it is
+        exhausted.  With `want_ts` the arena's `ats` rows hold the
+        arrival stamps."""
+        lib = _load()
+        limit = max(1, min(int(self.max_batch), self._rows))
+        if self._u is not None:
+            start = ctypes.c_int32(0)
+            n = lib.udp_uring_recv(self._u, limit, timeout_ms,
+                                   ctypes.byref(start))
+            if n == _URING_ARENA_EXHAUSTED:
+                # every row delivered, so the kernel holds none of it
+                self._uring_arm(self._next_arena())
+                n = lib.udp_uring_recv(self._u, limit, timeout_ms,
+                                       ctypes.byref(start))
+            if n < 0:
+                raise OSError(-n, os.strerror(-n))
+            return self._uring_arena, int(start.value), n
         a = self._next_arena()
         a.gen += 1                  # stale tokens of its last use die
-        self.syscall_enters += 1
-        n = _load().udp_recv_batch_ts(
-            self._fd, a.buf.ctypes.data, self.capacity,
-            max(1, min(int(self.max_batch), self._rows)), a.len.ctypes.data,
-            a.sip.ctypes.data, a.sport.ctypes.data,
+        self._py_enters += 1
+        n = lib.udp_recv_batch_ts(
+            self._fd, a.buf.ctypes.data, self.capacity, limit,
+            a.len.ctypes.data, a.sip.ctypes.data, a.sport.ctypes.data,
             a.ats.ctypes.data if want_ts else None, timeout_ms)
         if n < 0:
             raise OSError(-n, os.strerror(-n))
-        return a, n
+        return a, 0, n
 
-    def _view(self, a: _Arena, n: int) -> PacketBatch:
+    def _view(self, a: _Arena, lo: int, n: int) -> PacketBatch:
         """The window's rows as views of the arena, pinned by the batch's
         `arena_token` when it holds any."""
-        batch = PacketBatch(a.buf[:n], a.len[:n],
+        batch = PacketBatch(a.buf[lo:lo + n], a.len[lo:lo + n],
                             np.full(n, -1, dtype=np.int32))
         if n > 0:
             a.pins += 1
@@ -240,10 +371,11 @@ class UdpEngine:
         Returns (batch, src_ip_u32, src_port), batch_size 0 on timeout;
         the batch is a copy the caller may keep.
         """
-        a, n = self._recv_arena(timeout_ms)
-        batch = PacketBatch(a.buf[:n].copy(), a.len[:n].copy(),
+        a, lo, n = self._recv_arena(timeout_ms)
+        hi = lo + n
+        batch = PacketBatch(a.buf[lo:hi].copy(), a.len[lo:hi].copy(),
                             np.full(n, -1, dtype=np.int32))
-        return batch, a.sip[:n].copy(), a.sport[:n].copy()
+        return batch, a.sip[lo:hi].copy(), a.sport[lo:hi].copy()
 
     def recv_batch_view(self, timeout_ms: int = 1
                         ) -> Tuple[PacketBatch, np.ndarray, np.ndarray]:
@@ -251,8 +383,8 @@ class UdpEngine:
         of the receive arena, tagged `arena_token`; the arena stays
         pinned until that token is passed to `release_arena`, exactly
         once per batch."""
-        a, n = self._recv_arena(timeout_ms)
-        return self._view(a, n), a.sip[:n], a.sport[:n]
+        a, lo, n = self._recv_arena(timeout_ms)
+        return self._view(a, lo, n), a.sip[lo:lo + n], a.sport[lo:lo + n]
 
     def recv_batch_ts(self, timeout_ms: int = 1
                       ) -> Tuple[PacketBatch, np.ndarray, np.ndarray,
@@ -260,18 +392,22 @@ class UdpEngine:
         """`recv_batch` plus each datagram's arrival time (int64 ns,
         CLOCK_REALTIME): the kernel's receive stamp when
         `kernel_timestamps` is on, else one clock read a window."""
-        a, n = self._recv_arena(timeout_ms, want_ts=True)
-        batch = PacketBatch(a.buf[:n].copy(), a.len[:n].copy(),
+        a, lo, n = self._recv_arena(timeout_ms, want_ts=True)
+        hi = lo + n
+        batch = PacketBatch(a.buf[lo:hi].copy(), a.len[lo:hi].copy(),
                             np.full(n, -1, dtype=np.int32))
-        return batch, a.sip[:n].copy(), a.sport[:n].copy(), a.ats[:n].copy()
+        return (batch, a.sip[lo:hi].copy(), a.sport[lo:hi].copy(),
+                a.ats[lo:hi].copy())
 
     def recv_batch_ts_view(self, timeout_ms: int = 1
                            ) -> Tuple[PacketBatch, np.ndarray, np.ndarray,
                                       np.ndarray]:
         """Zero-copy `recv_batch_ts`; the stamps are views of the same
         pinned arena (see `recv_batch_view`)."""
-        a, n = self._recv_arena(timeout_ms, want_ts=True)
-        return self._view(a, n), a.sip[:n], a.sport[:n], a.ats[:n]
+        a, lo, n = self._recv_arena(timeout_ms, want_ts=True)
+        hi = lo + n
+        return (self._view(a, lo, n), a.sip[lo:hi], a.sport[lo:hi],
+                a.ats[lo:hi])
 
     @classmethod
     def create_with_retry(cls, retries: int = 5, backoff_s: float = 0.05,
@@ -293,12 +429,17 @@ class UdpEngine:
 
     def release_arena(self, token) -> None:
         """Drop the pin a `recv_batch_view` placed (`token` is the batch's
-        `arena_token`); a second release of a token does nothing."""
-        if token is None or token.released:
+        `arena_token`); a second release of a token does nothing.  The
+        JAX engine's (arena, gen) tuple is taken too, checked by its
+        generation alone."""
+        if token is None:
             return
-        token.released = True
-        a = token.arena
-        if a.gen == token.gen and a.pins > 0:
+        if isinstance(token, _ArenaToken):
+            if token.released:
+                return
+            token.released = True
+        a, gen = token
+        if a.gen == gen and a.pins > 0:
             a.pins -= 1
 
     def send_rows(self, batch: PacketBatch, rows, dst_ip, dst_port) -> int:
@@ -326,12 +467,19 @@ class UdpEngine:
         ports = np.ascontiguousarray(np.broadcast_to(
             np.asarray(dst_port, dtype=np.uint16), (n,)))
         lib = _load()
-        self.syscall_enters += 1
-        if rows is None:
+        if self._u is not None and self.uring_egress:
+            # NULL idx is the identity: every row
+            sent = lib.udp_uring_send_idx(
+                self._u, data.ctypes.data, data.shape[1], lens.ctypes.data,
+                ips.ctypes.data, ports.ctypes.data,
+                None if rows is None else rows.ctypes.data, n)
+        elif rows is None:
+            self._py_enters += 1
             sent = lib.udp_send_batch(
                 self._fd, data.ctypes.data, data.shape[1], lens.ctypes.data,
                 ips.ctypes.data, ports.ctypes.data, n)
         else:
+            self._py_enters += 1
             sent = lib.udp_send_batch_idx(
                 self._fd, data.ctypes.data, data.shape[1], lens.ctypes.data,
                 ips.ctypes.data, ports.ctypes.data, rows.ctypes.data, n)
@@ -340,9 +488,23 @@ class UdpEngine:
         return sent
 
     def close(self) -> None:
+        if self._u is not None:
+            # cancels the armed recvs and drains them before the arenas
+            # can go: must come before the socket closes
+            _load().udp_uring_destroy(self._u)
+            self._u = None
+            self._uring_arena = None
         if self._fd >= 0:
             _load().udp_close(self._fd)
             self._fd = -1
+
+    def __del__(self):
+        # an armed ring references the arenas: never let them be freed
+        # under it
+        try:
+            self.close()
+        except Exception:
+            pass
 
     def __enter__(self) -> "UdpEngine":
         return self

@@ -1,10 +1,9 @@
 """Auxiliary substrate services: file access and resources.
 
-Counterpart: `libjitsi_tpu/service/aux_services.py`: `FileAccessService`
-and `ResourceManagementService` (copied).  Its `AudioNotifierService`
-renders tones through the synthetic device layer (`device/`), which the
-port does not have yet: `AudioNotifierService` raises
-`NotImplementedError` naming ROADMAP Queue 1, item 9.
+Counterpart: `libjitsi_tpu/service/aux_services.py` (copied):
+`FileAccessService`, `ResourceManagementService`, and
+`AudioNotifierService`, which renders tones through the synthetic device
+layer (`device/`).
 
 Reference (SURVEY §2.1 "File access / resources / audio notifier"):
 `org.jitsi.service.fileaccess.FileAccessService`,
@@ -21,8 +20,7 @@ import os
 import tempfile
 from typing import Any, Dict, Optional
 
-DEVICE_LAYER = ("the synthetic device layer (device/) is not ported yet "
-                "(ROADMAP Queue 1, item 9)")
+import numpy as np
 
 
 class FileAccessService:
@@ -89,7 +87,37 @@ class ResourceManagementService:
 
 
 class AudioNotifierService:
-    """Reference: AudioNotifierService; needs the device layer."""
+    """Render notification tones through the synthetic device layer.
+
+    Reference: AudioNotifierService/SCAudioClip plays .wav notification
+    sounds on the NOTIFY device; here `play` synthesizes the tone and
+    writes it to the selected NOTIFY device's sink (NullSink by default),
+    returning the PCM so tests and callers can assert on it.
+    """
 
     def __init__(self, audio_system=None):
-        raise NotImplementedError(f"AudioNotifierService: {DEVICE_LAYER}")
+        self._audio_system = audio_system
+        self.is_mute = False
+
+    def set_mute(self, mute: bool) -> None:
+        self.is_mute = bool(mute)
+
+    def play(self, freq_hz: float = 440.0, duration_s: float = 0.2,
+             sample_rate: int = 48000) -> np.ndarray:
+        from libjitsi_tpu_torch.device.sources import ToneSource
+
+        n = int(duration_s * sample_rate)
+        if self.is_mute:
+            return np.zeros(0, dtype=np.int16)
+        pcm = ToneSource(freq_hz, sample_rate=sample_rate).read(n)
+        if self._audio_system is not None:
+            from libjitsi_tpu_torch.device.system import DataFlow
+
+            dev = self._audio_system.selected_device(DataFlow.NOTIFY)
+            if dev is not None:
+                sink = dev.create_sink()
+                try:
+                    sink.write(pcm)
+                finally:
+                    sink.close()
+        return pcm

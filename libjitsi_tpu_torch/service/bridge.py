@@ -45,9 +45,9 @@ resume with fresh codec state: `degraded_rows`), the recorded clock, TX
 counters, speaker scores and latched addresses.
 
 Not ported: the JAX bridge's `config` argument and DTLS joins
-(`add_participant_dtls`, ROADMAP Queue 1, item 9), the GSM, Speex, G.729
-and iLBC legs (item 9, `NotImplementedError`), the mesh mode and sharded
-snapshots (item 12), the recorder (item 9).
+(`add_participant_dtls` raises `NotImplementedError`, ROADMAP Queue 1,
+item 9), the G.729 and iLBC legs (item 9, `NotImplementedError`), the
+mesh mode and sharded snapshots (item 12), the recorder (item 9).
 """
 
 from __future__ import annotations
@@ -196,6 +196,17 @@ class ConferenceBridge:
                                 payload_cap=max(256, frame_samples),
                                 mixer_rate=rate, plc=self._plc,
                                 device=self.device)
+
+    def add_participant_dtls(self, ssrc: int,
+                             codec: Optional[FrameCodec] = None,
+                             role: str = "server",
+                             remote_fingerprint: Optional[str] = None,
+                             cookie_exchange: bool = False,
+                             remote_addr=None):
+        """A join keyed by DTLS-SRTP (JAX `service/bridge.py:234`); the
+        port has no DTLS control yet."""
+        raise NotImplementedError(
+            "DTLS-keyed joins are not ported yet (ROADMAP Queue 1, item 9)")
 
     def remove_participant(self, sid: int) -> None:
         """Leave: every per-row residue must go — a recycled sid must

@@ -3,10 +3,9 @@
 Counterpart: `libjitsi_tpu/service/media_service.py`.  The service owns
 one device (None means the card, and raises where there is none): its
 default `StreamRegistry` keeps its SRTP tables there and its
-`audio_mixer` mixes there.  `device_system` and `audio_mixer_device`
-need the synthetic device layer (`device/`), which the port does not
-have yet: they raise `NotImplementedError` naming ROADMAP Queue 1,
-item 9.
+`audio_mixer` mixes there (kernel E); `audio_mixer_device` wraps that
+mixer as a capture device and `device_system` is the synthetic device
+registry (`device/`).
 
 Mirrors the surface of the reference's
 `org.jitsi.service.neomedia.MediaService` /
@@ -18,7 +17,6 @@ from __future__ import annotations
 
 from libjitsi_tpu_torch.core.config import ConfigurationService
 from libjitsi_tpu_torch.core.device import DeviceLike, resolve_device
-from libjitsi_tpu_torch.service.aux_services import DEVICE_LAYER
 
 
 class MediaService:
@@ -28,6 +26,8 @@ class MediaService:
         self.device = resolve_device(device)
         self._registry = None
         self._mixer = None
+        self._mixer_device = None
+        self._devices = None
         self._encodings = None
 
     @property
@@ -77,13 +77,31 @@ class MediaService:
 
     @property
     def device_system(self):
-        """Reference: DeviceSystem.initializeDeviceSystems."""
-        raise NotImplementedError(f"device_system: {DEVICE_LAYER}")
+        """Synthetic device registry (reference:
+        DeviceSystem.initializeDeviceSystems from MediaServiceImpl's
+        ctor; devices here are file, PRNG and replay sources)."""
+        if self._devices is None:
+            from libjitsi_tpu_torch.device import DeviceSystem
+
+            self._devices = DeviceSystem(self.config)
+        return self._devices
 
     def audio_mixer_device(self, frame_samples: int = 960):
-        """Reference: MediaService.createMixer returning
-        AudioMixerMediaDevice."""
-        raise NotImplementedError(f"audio_mixer_device: {DEVICE_LAYER}")
+        """The shared mixer wrapped as a capture device (reference:
+        MediaService.createMixer returning AudioMixerMediaDevice).  One
+        wrapper a service: two over one mixer would steal each other's
+        mixes."""
+        mixer = self.audio_mixer(frame_samples)
+        if mixer.frame_samples != frame_samples:
+            # audio_mixer() hands back the cached mixer whatever its size
+            raise ValueError(
+                f"shared mixer already created with frame_samples="
+                f"{mixer.frame_samples}, requested {frame_samples}")
+        if self._mixer_device is None:
+            from libjitsi_tpu_torch.device import AudioMixerMediaDevice
+
+            self._mixer_device = AudioMixerMediaDevice(mixer)
+        return self._mixer_device
 
     def audio_mixer(self, frame_samples: int = 960):
         """Shared conference mixer (reference: MediaService.createMixer),

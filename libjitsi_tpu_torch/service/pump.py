@@ -1,22 +1,34 @@
-"""The dense many-stream receive plane and the codec legs.
+"""Media pumps, the codec legs and the dense many-stream receive plane.
 
-Counterpart: `libjitsi_tpu/service/pump.py` — `FrameCodec`, `g711_codec`,
-`g722_codec`, `opus_codec`, `codec_from_name` and `ReceiveBank`.  The bank
-drives a `DenseJitterBank` from the MediaLoop's decrypted batches and
-decodes per tick: the G.711 rows of one law and frame width decode as ONE
-launch of kernel G (`kernels/g711.py`) on the bank's device; the stateful
-rows (G.722, Opus) decode one by one through their host codecs, counting
-`decode_errors`.  Rows at another rate than the mixer's resample to the
-mixer clock on deposit, one launch of kernel R (`kernels/resample.py`) a
-same-rate group, inside a `record_function("resample")` span.  PLC
-(repeat-with-decay) covers both kinds of row.  Each decode tick fills
-the bank's `jitter_hist` and `decode_delay_hist` over its active rows,
-and `register_metrics` exposes them with the per-stream counters.
+Counterpart: `libjitsi_tpu/service/pump.py` — `FrameCodec`, the G.711,
+G.722, Opus, GSM and Speex legs, `codec_from_name`, `SendPump`,
+`ReceivePump` and `ReceiveBank`.
 
-Not ported, each raising `NotImplementedError` where a caller would reach
-it: the GSM, Speex, G.729 and iLBC legs, and `SendPump` and `ReceivePump`,
-which need `MediaStream` and `rtp/jitter_buffer` (ROADMAP Queue 1, item
-9).
+The pumps are the Processor-graph role, one host object a stream:
+`SendPump` reads a frame from an `AudioSource` (`device/`), encodes it and
+hands it to `MediaStream.send` (one launch of kernel C, and of F for a
+G.711 leg on the card); `ReceivePump` runs `MediaStream.receive` (one
+launch of D), holds the payloads in a `rtp/jitter_buffer.JitterBuffer`,
+and each `tick()` decodes one ptime (one launch of G for a G.711 leg),
+conceals an underrun through the codec's `decode(b"")` where it can,
+clamps an over-long decode to one ptime, and writes the frame to a sink
+and/or a mixer row (`AudioMixerMediaDevice`: kernel E at its `tick()`).
+
+The bank drives a `DenseJitterBank` from the MediaLoop's decrypted
+batches and decodes per tick: the G.711 rows of one law and frame width
+decode as ONE launch of kernel G (`kernels/g711.py`) on the bank's
+device; the stateful rows (G.722, Opus, GSM, Speex) decode one by one
+through their host codecs, counting `decode_errors`.  Rows at another
+rate than the mixer's resample to the mixer clock on deposit, one launch
+of kernel R (`kernels/resample.py`) a same-rate group, inside a
+`record_function("resample")` span.  PLC (repeat-with-decay) covers both
+kinds of row.  Each decode tick fills the bank's `jitter_hist` and
+`decode_delay_hist` over its active rows, and `register_metrics` exposes
+them with the per-stream counters.
+
+Not ported: the G.729 and iLBC receive legs (libavcodec, with the video
+codecs' binding), which raise `NotImplementedError` naming ROADMAP
+Queue 1, item 9 wherever a caller would reach them.
 """
 
 from __future__ import annotations
@@ -37,8 +49,8 @@ from libjitsi_tpu_torch.rtp.dense_jitter import DenseJitterBank
 from libjitsi_tpu_torch.utils.metrics import Histogram
 
 G711_LAWS = {"PCMU": g711.ULAW, "PCMA": g711.ALAW}
-#: the codec legs the port has (by upper-case wire name)
-PORTED_CODECS = ("PCMU", "PCMA", "G722", "OPUS")
+#: the codec legs the port lacks (by upper-case wire name)
+NOT_PORTED_CODECS = ("G729", "ILBC")
 #: the bank's row kinds: a G.711 law, or a stateful host codec
 STATEFUL = 2
 
@@ -48,26 +60,10 @@ def not_ported_codec(name: str) -> NotImplementedError:
         f"the {name} codec leg is not ported yet (ROADMAP Queue 1, item 9)")
 
 
-class SendPump:
-    """Not ported: it needs `MediaStream` and `rtp/jitter_buffer`."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SendPump is not ported yet (ROADMAP Queue 1, item 9)")
-
-
-class ReceivePump:
-    """Not ported: it needs `MediaStream` and `rtp/jitter_buffer`."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ReceivePump is not ported yet (ROADMAP Queue 1, item 9)")
-
-
 def check_ported(codec: "FrameCodec") -> None:
-    """Refuse a leg whose codec the port does not have (GSM, Speex, G.729,
-    iLBC), by its wire name."""
-    if codec.name.upper() not in PORTED_CODECS:
+    """Refuse a leg whose codec the port does not have (G.729, iLBC), by
+    its wire name."""
+    if codec.name.upper() in NOT_PORTED_CODECS:
         raise not_ported_codec(codec.name)
 
 
@@ -139,34 +135,196 @@ def opus_codec(ptime_ms: int = 20, bitrate: int = 32000) -> FrameCodec:
         lambda b: dec.decode(b, frame_size=n))
 
 
+def gsm_codec() -> FrameCodec:
+    """GSM 06.10 full rate: fixed 20 ms / 160 samples / 33 bytes at 8 kHz,
+    one stateful encoder and decoder for the leg's lifetime."""
+    from libjitsi_tpu_torch.codecs.gsm import GsmCodec
+
+    c = GsmCodec()
+    return FrameCodec(
+        "GSM", 3, 8000, 160, 160,
+        lambda pcm: c.encode(np.asarray(pcm, np.int16)),
+        lambda b: c.decode(b))
+
+
+def speex_codec(mode: str = "nb") -> FrameCodec:
+    """Speex NB (8 kHz) / WB (16 kHz) / UWB (32 kHz), 20 ms frames."""
+    from libjitsi_tpu_torch.codecs.speex import (MODE_NB, MODE_UWB, MODE_WB,
+                                                 SpeexDecoder, SpeexEncoder)
+
+    m = {"nb": MODE_NB, "wb": MODE_WB, "uwb": MODE_UWB}[mode]
+    enc, dec = SpeexEncoder(mode=m), SpeexDecoder(mode=m)
+    n = enc.frame_size      # libspeex's own 20 ms frame size
+    return FrameCodec(
+        "speex" if mode == "nb" else f"speex/{enc.sample_rate}", 97,
+        enc.sample_rate, n, n,
+        lambda pcm: enc.encode(np.asarray(pcm, np.int16)),
+        lambda b: dec.decode(b))
+
+
 def codec_from_name(name: str, ptime_ms: int,
                     device: DeviceLike = None) -> FrameCodec:
     """Rebuild a codec leg from its wire name (snapshot restore).
 
-    G.711 resumes bit-exactly.  G.722 and Opus come back with fresh codec
-    state, the JAX bridge's degraded resume: the decoder warms up over the
-    first frames and the encoder restarts clean, while SRTP counters and
-    replay windows carry over exactly."""
+    G.711 resumes bit-exactly.  G.722, Opus, GSM and Speex come back with
+    fresh codec state, the JAX bridge's degraded resume: the decoder warms
+    up over the first frames and the encoder restarts clean, while SRTP
+    counters and replay windows carry over exactly."""
     u = name.upper()
     if u in G711_LAWS:
         return g711_codec(u == "PCMU", ptime_ms, device=device)
     if u == "G722":
         return g722_codec(ptime_ms)
+    if u == "GSM":
+        return gsm_codec()
     if u == "OPUS":
         return opus_codec(ptime_ms)
-    if u in ("GSM", "G729", "ILBC") or u.startswith("SPEEX"):
+    if u.startswith("SPEEX"):
+        rate = name.split("/", 1)[1] if "/" in name else "8000"
+        return speex_codec({"8000": "nb", "16000": "wb",
+                            "32000": "uwb"}[rate])
+    if u in NOT_PORTED_CODECS:
         raise not_ported_codec(name)
     raise ValueError(f"cannot rebuild codec {name!r} on restore")
+
+
+class SendPump:
+    """Capture -> encode -> packetize/protect.
+
+    One `tick()` = one ptime: read a frame from the source, encode it,
+    hand it to `MediaStream.send`, and return the wire datagrams (the
+    caller forwards them to its engine)."""
+
+    def __init__(self, stream, source, codec: FrameCodec):
+        self.stream = stream
+        self.source = source
+        self.codec = codec
+        if getattr(source, "sample_rate", codec.sample_rate) \
+                != codec.sample_rate:
+            raise ValueError(
+                f"source rate {source.sample_rate} != codec rate "
+                f"{codec.sample_rate}; resample at the device layer "
+                "(kernels/resample.py)")
+
+    def tick(self) -> List[bytes]:
+        pcm = self.source.read(self.codec.frame_samples)
+        payload = self.codec.encode(pcm)
+        return self.stream.send([payload], pt=self.codec.pt,
+                                ts_step=self.codec.ts_step)
+
+
+class ReceivePump:
+    """Unprotect -> jitter buffer -> decode -> sink/mixer.
+
+    `push(datagrams)` feeds arrivals (any cadence); `tick()` pulls one
+    ptime's packet from the jitter buffer, decodes it, writes the PCM to
+    the sink and/or deposits it into a mixer row.  An underrun mid-stream
+    asks the codec for a concealment frame (`decode(b"")`, with `plc`);
+    where it has none, the underrun plays silence."""
+
+    def __init__(self, stream, codec: FrameCodec,
+                 sink=None, mixer=None, mixer_sid: Optional[int] = None,
+                 plc: bool = True):
+        from libjitsi_tpu_torch.rtp.jitter_buffer import JitterBuffer
+
+        self.stream = stream
+        self.codec = codec
+        self.sink = sink
+        self.mixer = mixer
+        self.mixer_sid = mixer_sid
+        self.plc = plc
+        self.plc_frames = 0
+        # the jitter clock is the RTP media clock: ts_step units a ptime
+        ptime_ms = codec.frame_samples * 1000.0 / codec.sample_rate
+        self.jb = JitterBuffer(
+            clock_rate=int(round(codec.ts_step * 1000 / ptime_ms)),
+            frame_ms=ptime_ms)
+        self.decoded_frames = 0
+        self.lost_frames = 0
+        self.decode_errors = 0
+
+    def register_metrics(self, registry, prefix: str = "rx_pump") -> None:
+        """Export the pump's decode and loss counters and its jitter
+        buffer's."""
+        registry.register_counters(self, (
+            ("decoded_frames", "frames decoded from the jitter buffer"),
+            ("lost_frames", "jitter-buffer underruns (pre-PLC)"),
+            ("decode_errors", "authenticated but undecodable payloads"),
+            ("plc_frames", "underruns concealed by the codec PLC"),
+        ), prefix=prefix)
+        registry.register_scalar(
+            f"{prefix}_jb_lost", lambda: self.jb.lost,
+            help_="seqs the jitter buffer declared lost", kind="counter")
+        registry.register_scalar(
+            f"{prefix}_jb_late_dropped", lambda: self.jb.late_dropped,
+            help_="arrivals already released past (too late to play)",
+            kind="counter")
+
+    def push(self, datagrams: List[bytes],
+             now: Optional[float] = None) -> int:
+        """Receive chain + jitter-buffer insert; returns accepted count."""
+        if not datagrams:
+            return 0
+        now = time.time() if now is None else now
+        batch, ok = self.stream.receive(datagrams, arrival=now)
+        hdr = rtp_header.parse(batch)
+        n = 0
+        for i in np.nonzero(ok)[0]:
+            payload = batch.to_bytes(int(i))[int(hdr.payload_off[i]):]
+            self.jb.insert(int(hdr.seq[i]), int(hdr.ts[i]), payload, now)
+            n += 1
+        return n
+
+    def tick(self, now: Optional[float] = None) -> np.ndarray:
+        """Pull + decode one ptime; returns the PCM frame (int16 [F])."""
+        now = time.time() if now is None else now
+        payload = self.jb.pop(now)
+        if payload is None:
+            self.lost_frames += 1
+            pcm = None
+            if self.plc and self.decoded_frames > 0:
+                # conceal only mid-stream: before the first decode there
+                # is nothing to extrapolate, and silence is right
+                try:
+                    pcm = np.asarray(self.codec.decode(b""),
+                                     dtype=np.int16)
+                except (ValueError, RuntimeError, TypeError):
+                    pcm = None
+            if pcm is None or len(pcm) == 0:
+                pcm = np.zeros(self.codec.frame_samples, dtype=np.int16)
+            else:
+                self.plc_frames += 1
+        else:
+            try:
+                pcm = np.asarray(self.codec.decode(payload),
+                                 dtype=np.int16)
+                self.decoded_frames += 1
+            except (ValueError, RuntimeError):
+                # a malformed (but authenticated) payload must not kill
+                # the loop driving thousands of pumps: play silence
+                self.decode_errors += 1
+                pcm = np.zeros(self.codec.frame_samples, dtype=np.int16)
+        if len(pcm) < self.codec.frame_samples:   # short decode: pad
+            pcm = np.pad(pcm, (0, self.codec.frame_samples - len(pcm)))
+        elif len(pcm) > self.codec.frame_samples:
+            # a remote-controlled payload length must not crash the
+            # loop (the mixer takes one frame shape): clamp to one ptime
+            pcm = pcm[: self.codec.frame_samples]
+        if self.sink is not None:
+            self.sink.write(pcm)
+        if self.mixer is not None and self.mixer_sid is not None:
+            self.mixer.push(self.mixer_sid, pcm)
+        return pcm
 
 
 class ReceiveBank:
     """The dense many-stream receive plane: one object serves S streams.
 
     The G.711 rows of one law and frame width decode as ONE kernel launch
-    across all ready streams; stateful rows (G.722, Opus) decode through
-    their per-stream host codecs, a bounded loop over ready rows.  With
-    `mixer_rate` set, streams of another rate but the same ptime are
-    accepted and resampled to the mixer clock on deposit.
+    across all ready streams; stateful rows (G.722, Opus, GSM, Speex)
+    decode through their per-stream host codecs, a bounded loop over
+    ready rows.  With `mixer_rate` set, streams of another rate but the
+    same ptime are accepted and resampled to the mixer clock on deposit.
     """
 
     def __init__(self, capacity: int, mixer=None, payload_cap: int = 256,

@@ -47,14 +47,14 @@ them by hash; every ring drains each tick.  With `kernel_timestamps`
 every engine takes SO_TIMESTAMPNS stamps, and the receive-side GCC
 (`_feed_bwe`) takes each packet's arrival time from
 `loop.last_rtp_arrival_ns`, row for row, instead of the tick's clock.
-`snapshot()` records `ingest_rings` and `engine_mode`; `restore()` takes
-them unless the caller passes its own.
+`engine_mode` ("auto", "recvmmsg" or "io_uring") picks every ring's
+ingest engine (`io/udp.py`); `snapshot()` records `ingest_rings` and
+`engine_mode`; `restore()` takes them unless the caller passes its own.
 
 Not ported, each raising `NotImplementedError` with its ROADMAP Queue 1
 item: DTLS joins (item 9), video and SVC tracks with RTX encapsulation
-(item 9), the io_uring engine (`engine_mode="io_uring"`, item 4), mesh
-mode, cascade trunks, broadcast conferences and endpoint migration
-(item 12).  The JAX bridge's `config` argument is not taken.
+(item 9), mesh mode, cascade trunks, broadcast conferences and endpoint
+migration (item 12).  The JAX bridge's `config` argument is not taken.
 """
 
 from __future__ import annotations

@@ -15,7 +15,8 @@ import pytest
 from libjitsi_tpu.codecs import g722 as jg722
 from libjitsi_tpu.codecs.opus import opus_available
 from libjitsi_tpu.service import pump as jpump
-from libjitsi_tpu_torch.codecs import G722Decoder, G722Encoder
+from libjitsi_tpu_torch.codecs import (G722Decoder, G722Encoder,
+                                       gsm_available, speex_available)
 from libjitsi_tpu_torch.codecs import opus as popus
 from libjitsi_tpu_torch.service import pump
 from test_torch_threads import one_torch_thread  # noqa: F401
@@ -85,8 +86,17 @@ def test_codec_from_name_matches_jax(name):
 @pytest.mark.parametrize("name", ["GSM", "speex", "speex/16000", "G729",
                                   "iLBC"])
 def test_codec_from_name_refuses_legs_not_ported(name):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pump.codec_from_name(name, 20)
+    """G.729 and iLBC are refused naming item 9; GSM and Speex are ported
+    and rebuild as the JAX legs do (where their libraries load)."""
+    if name in ("G729", "iLBC"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            pump.codec_from_name(name, 20)
+    else:
+        if not (gsm_available() if name == "GSM" else speex_available()):
+            pytest.skip(f"no system library for {name}")
+        p, j = pump.codec_from_name(name, 20), jpump.codec_from_name(name, 20)
+        for k in ("name", "pt", "sample_rate", "frame_samples", "ts_step"):
+            assert getattr(j, k) == getattr(p, k), (name, k)
     with pytest.raises(ValueError, match="cannot rebuild"):
         pump.codec_from_name("L16", 20)
 

@@ -272,16 +272,15 @@ def test_stream_registry_hands_out_rows_like_jax():
 
 
 def test_bridge_refuses_what_is_not_ported():
-    """GSM and Speex legs are refused before a row is claimed; a leg at
+    """G.729 and iLBC legs are refused before a row is claimed; a leg at
     another rate than the first joiner's (PCMU at 16 kHz, Opus at 48 kHz)
-    now joins and resamples to the bridge clock."""
+    joins and resamples to the bridge clock, and a GSM leg joins as a
+    stateful row."""
     bridge = ConferenceBridge(port=0, capacity=4, device="cpu")
     keys = _keys(0)
     try:
-        for name, rate in (("GSM", 8000), ("speex", 8000),
-                           ("speex/16000", 16000)):
-            leg = FrameCodec(name, 97, rate, rate // 50, rate // 50, None,
-                             None)
+        for name in ("G729", "iLBC"):
+            leg = FrameCodec(name, 97, 8000, 160, 160, None, None)
             with pytest.raises(NotImplementedError, match="item 9"):
                 bridge.add_participant(1, *keys, codec=leg)
         assert bridge.registry.free_slots == 4 and bridge._rate is None
@@ -298,8 +297,29 @@ def test_bridge_refuses_what_is_not_ported():
         assert bridge.add_participant(5, *keys, codec=opus) == 2
         assert bridge._rate == 8000 and bridge.mixer.frame_samples == 160
         assert bridge.bank.frame_samples[:3].tolist() == [160, 320, 960]
+        gsm = FrameCodec("GSM", 3, 8000, 160, 160, None, None)
+        assert bridge.add_participant(6, *keys, codec=gsm) == 3
+        assert bridge.bank._kind[3] == 2            # a stateful row
         bridge.remove_participant(0)
         assert bridge.add_participant(4, *keys) == 0       # row recycled
+    finally:
+        bridge.close()
+
+
+def test_add_participant_dtls_names_item_9():
+    """The DTLS join exists with the JAX signature and refuses naming
+    ROADMAP item 9 (it was missing: an AttributeError), claiming no row."""
+    import inspect
+
+    assert list(inspect.signature(
+        ConferenceBridge.add_participant_dtls).parameters) == list(
+        inspect.signature(JaxBridge.add_participant_dtls).parameters)
+    bridge = ConferenceBridge(port=0, capacity=4, device="cpu")
+    try:
+        with pytest.raises(NotImplementedError, match="item 9"):
+            bridge.add_participant_dtls(0x77, role="client",
+                                        remote_fingerprint="sha-256 AB")
+        assert bridge.registry.free_slots == 4
     finally:
         bridge.close()
 

@@ -9,7 +9,9 @@ the port (the pipelined tick's `utils` modules, the AEAD-GCM slice's
 resampler's `kernels.resample`, the host codecs' `codecs.*`, the
 host I/O plane's `io.pcap` and `io.batching`, and the public stream
 API's `control`, `rtp.stats`, `bwe.*`, `transform.dtmf` / `red` and
-`service.*` among them), and `chip_smoke.py`.
+`service.*`, and the media graph's `io.tcp`, `rtp.jitter_buffer` and
+`device.*` among them), and `chip_smoke.py` (with its paths over the
+io_uring engine, TCP and the pumps).
 """
 
 import os
@@ -71,4 +73,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "service.media_stream", "service.typed_streams",
                 "service.encodings", "service.media_service",
                 "service.aux_services", "codecs.gsm", "codecs.speex"):
+        assert f"libjitsi_tpu_torch.{mod}" in seen, mod
+    # the io_uring engine's loader, the TCP connector and the media graph
+    for mod in ("io.tcp", "rtp.jitter_buffer", "device", "device.sources",
+                "device.sinks", "device.system", "service.pump"):
         assert f"libjitsi_tpu_torch.{mod}" in seen, mod

@@ -7,8 +7,9 @@
   int64, row-aligned, non-decreasing and inside the receive's host
   window, and the view pins its arena like `recv_batch_view`; two
   SO_REUSEPORT engines on one port receive what was sent between them;
-  `create_with_retry` backs off as the JAX engine does; io_uring is
-  refused.
+  `create_with_retry` backs off as the JAX engine does; an explicit
+  io_uring takes the ring where the JAX engine does
+  (`tests/test_torch_io_uring.py` holds the ring itself).
 - `MediaLoop` against the JAX `MediaLoop` (chain=None): the same
   datagrams and masks (inbound drop, fanout-only rows, shard-major
   order) give the same rows to `on_media` in the same order, the same
@@ -184,8 +185,13 @@ def test_reuseport_engines_share_a_port():
 
 
 def test_engine_modes_and_retry_follow_jax():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        UdpEngine(engine_mode="io_uring")
+    # an explicit io_uring takes the ring where the JAX engine does
+    with UdpEngine(engine_mode="io_uring") as e:
+        j = JaxUdp(engine_mode="io_uring")
+        try:
+            assert e.engine_mode == j.engine_mode
+        finally:
+            j.close()
     with pytest.raises(ValueError):
         UdpEngine(engine_mode="epoll")
     with UdpEngine(engine_mode="recvmmsg") as e:

@@ -24,8 +24,9 @@
   because compiling the JAX table costs over 30 s on the CPU; the
   `slow` case runs the JAX stream whole.
 - `Direction` refusals, `close()`'s BYE and row recycling (stats rows
-  reset), the Quick start on `device="cpu"`, the card default that
-  raises without a card, and the refusals naming ROADMAP item 9.
+  reset), the Quick start on `device="cpu"` with the device layer, the
+  card default that raises without a card, and the refusals naming
+  ROADMAP item 9.
 
 Inputs come from numpy seeds.  Tolerance: exact equality.
 """
@@ -51,6 +52,7 @@ from libjitsi_tpu.transform import engine as j_engine
 from libjitsi_tpu.transform import header_ext as j_ext
 from libjitsi_tpu.transform.srtp import engine as j_srtp_engine
 from libjitsi_tpu.transform.srtp.policy import SrtpProfile as JaxProfile
+from libjitsi_tpu_torch import device as p_dev
 from libjitsi_tpu_torch.control import sdes as p_sdes
 from libjitsi_tpu_torch.core import config as p_config
 from libjitsi_tpu_torch.core.packet import PacketBatch
@@ -564,11 +566,20 @@ def test_quick_start_on_cpu():
         res.register("k", 5)
         assert res.get_setting("k") == 5 and res.get_string("k") == "5"
         assert res.get_string("none") is None
-        for refused in (lambda: svc.device_system,
-                        lambda: svc.audio_mixer_device(),
-                        libjitsi_tpu_torch.audio_notifier_service):
-            with pytest.raises(NotImplementedError, match="item 9"):
-                refused()
+        # the device layer: the registry, the mixer as a capture device
+        # (on the 160-sample mixer above) and the notifier on it
+        ds = svc.device_system
+        assert ds is svc.device_system
+        assert ds.audio.selected_device(p_dev.DataFlow.PLAYBACK).name == \
+            "null"
+        mixdev = svc.audio_mixer_device(160)
+        assert mixdev is svc.audio_mixer_device(160)
+        assert mixdev.mixer is mixer
+        with pytest.raises(ValueError, match="frame_samples"):
+            svc.audio_mixer_device(960)
+        notifier = libjitsi_tpu_torch.audio_notifier_service()
+        assert notifier is libjitsi_tpu_torch.audio_notifier_service()
+        assert notifier.play(duration_s=0.01).shape == (480,)
     finally:
         libjitsi_tpu_torch.stop()
 

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from libjitsi_tpu_torch.core.packet import PacketBatch
-from libjitsi_tpu_torch.io.udp import UdpEngine
+from libjitsi_tpu_torch.io.udp import UdpEngine, uring_available
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.rtp import rtcp
@@ -342,11 +342,10 @@ def test_sfu_entry_points_not_ported_name_their_item():
                dict(profile=SrtpProfile.F8_128_HMAC_SHA1_80),
                dict(profile=SrtpProfile.AEAD_AES_128_GCM)):
         SfuBridge(capacity=4, device="cpu", **kw).close()
-    # kernel stamps and SO_REUSEPORT rings are taken; io_uring is refused
+    # kernel stamps, SO_REUSEPORT rings and the io_uring engine are taken
     SfuBridge(capacity=4, kernel_timestamps=True, ingest_rings=2,
               device="cpu").close()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        SfuBridge(capacity=4, engine_mode="io_uring", device="cpu")
+    SfuBridge(capacity=4, engine_mode="io_uring", device="cpu").close()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SfuBridge(capacity=4)        # device=None means the card
@@ -355,8 +354,18 @@ def test_sfu_entry_points_not_ported_name_their_item():
 # ------------------------------------------------- stamps and rings
 
 def test_sfu_io_uring_is_refused_and_rings_are_taken():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        SfuBridge(capacity=4, engine_mode="io_uring", device="cpu")
+    """The io_uring engine is taken now (every ring on the ring where the
+    box has one), and SO_REUSEPORT rings beside it."""
+    want = "io_uring" if uring_available() else "recvmmsg"
+    sfu = SfuBridge(capacity=4, ingest_rings=3, kernel_timestamps=True,
+                    engine_mode="io_uring", device="cpu")
+    try:
+        assert [e.engine_mode for e in sfu.loop.rings] == [want] * 3
+        assert sfu.loop.metrics.sample_total("loop_engine_io_uring") == \
+            (1.0 if want == "io_uring" else 0.0)
+        assert sfu.snapshot()["engine_mode"] == "io_uring"
+    finally:
+        sfu.close()
     sfu = SfuBridge(capacity=4, ingest_rings=3, kernel_timestamps=True,
                     device="cpu")
     try:
