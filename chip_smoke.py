@@ -22,17 +22,17 @@ version:
                 p50/p99 and the PhaseProfiler's phase shares (kernels C,
                 D);
   conference    a 256-participant PCMU `ConferenceBridge` over UDP
-                loopback, 50 ticks at 20 ms steps (kernels C, D, E, F,
+                loopback, 30 ticks at 20 ms steps (kernels C, D, E, F,
                 G), held byte for byte against the same run of the
                 bridge on the CPU; then (outside the counts) a card
                 bridge snapshots after tick 24 and a bridge restored on
                 the card takes tick 24's wire again (rejected as a
-                replay) and runs ticks 25-49, byte-equal to the
+                replay) and runs ticks 25-29, byte-equal to the
                 uninterrupted CPU run;
   mixer_bridge  `MixerBridge(64, 64, 960)` for 200 ticks (kernel E);
   sfu           an `SfuBridge` of 100 conferences x 11 endpoints (1,100
                 senders, 11,000 per-leg copies a 20 ms tick) over UDP
-                loopback, 50 ticks with RRs, NACKs and SRTCP feedback
+                loopback, 30 ticks with RRs, NACKs and SRTCP feedback
                 (kernels D, H, I, J); its first ticks and its NACK tick
                 are held byte for byte against the same bridge on the
                 CPU, every copy the client received is authenticated
@@ -73,16 +73,16 @@ version:
                 the mixed-rate conference: 256 participants, leg 0 on
                 G.722 (joins first: a 16 kHz clock, 320-sample frames;
                 its codec runs on the host), legs 1-191 PCMU and the
-                rest PCMA at 8 kHz, 20 ticks (kernels C, D, E, F, G and
+                rest PCMA at 8 kHz, 12 ticks (kernels C, D, E, F, G and
                 R: 4 launches of R a tick, 2 deposit groups and 2 egress
                 kinds), byte-equal to its CPU twin, every mix
                 authenticated, leg 0 hearing leg 10's tone and leg 10
                 leg 0's 1,800 Hz over 20x what each tone's own leg hears
                 of it; then (outside the counts) a bridge snapshotted at
-                tick 10 and restored on the card keeps the 16 kHz clock,
+                tick 6 and restored on the card keeps the 16 kHz clock,
                 names leg 0 degraded, and every later mix authenticates;
   conference_pipelined
-                the conference path's bridge pipelined: 50 ticks at
+                the conference path's bridge pipelined: 30 ticks at
                 `pipeline_depth=2` and 10 at depth 3, with kernel
                 arrival stamps (kernels C, D, E, F, G; the unprotect
                 dispatched on the table's async seams, the mixes' protect
@@ -161,6 +161,47 @@ version:
                 jitter buffer, and 16 pairs' wire and decoded frames equal
                 to the same seeded graph on the CPU (in a process of its
                 own beside the card's run); each pump call's p50/p99.
+  sfu_dtls      the sfu cell's 1,100 endpoints (100 conferences x 11)
+                joined by `add_endpoint_dtls`, each handshaking over UDP
+                loopback from a socket of its own, 100 handshakes in
+                flight at once (OpenSSL's DTLS where the `cryptography`
+                package is installed, else `StubDtlsEndpoint`, printed
+                either way): in 10 conferences two endpoints with the
+                bridge as DTLS client, whose peer's Finished flight is
+                held back while two media packets race it (held on the
+                loop, replayed through D and H when the keys land), and
+                one more join refused on its fingerprint and removed;
+                then 10 ticks of the sfu cell's traffic under the keys
+                the clients exported, from their own sockets, with RRs,
+                NACKs and `emit_feedback` (D, H, I, J): every socket gets
+                its own leg's copies only, each authenticated under the
+                keys its endpoint exported and equal to what its sender
+                sent, and a CPU twin keyed with the same keys forwards
+                the same bytes for 3 conferences; and a conference of 11
+                on a second bridge under AEAD_AES_128_GCM negotiated by
+                `use_srtp` (N, H-GCM, M), every copy opened by its leg's
+                exported keys;
+  conference_dtls
+                the conference path's 256 PCMU participants joined by
+                `add_participant_dtls` over loopback, a `Recorder`
+                attached, 25 ticks of its tones (C, D, E, F, G): every
+                mix opened under the keys its participant exported equals
+                tick by tick the SDES conference path's mix (payload and
+                level extension), and the recorder's timeline names
+                participant 10 after it becomes the loudest;
+  stream_zrtp   512 `AudioMediaStream` pairs on `init()` and
+                `media_service()` (1,024 rows) and a far registry, each
+                pair started with its completed `ZrtpEndpoint`s: the
+                default suite, 32 pairs at AES3 with HS80 and 16 with
+                HS32, 16 by DH3k, 16 by Multistream off the DH3k pairs,
+                16 whose second session keeps `secret_continuity` over a
+                shared `ZidCache` (every pair by DH3k without the
+                `cryptography` package); 2 ticks each way, both sides'
+                SAS equal, every frame back as sent, C's and D's AES-256
+                instances (`srtp_protect_cm nr=14`, `srtp_unprotect_cm
+                nr=14`) required, 16 pairs of each suite equal on the
+                wire to a CPU twin (in processes of their own beside the
+                card's run); each call's p50/p99 at AES-128 and AES-256.
 
 Then `exposition` renders the registry of every bridge and loop the run
 built (with the receive banks' metrics registered, and the batcher's),
@@ -302,6 +343,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -329,7 +371,7 @@ ECHO_BURST = N_STREAMS // 20
 # PhaseProfiler's fences, out of the timed statistics
 ECHO_ROUNDS = 10
 CONF_PARTIES = 256         # PCMU participants of the conference bridge
-CONF_TICKS = 50
+CONF_TICKS = 30
 CONF_PROFILED = 5          # further ticks under torch.profiler
 CONF_SWITCH = 5            # tick from which participant 10 is loudest
 # the conference restore check: the card bridge snapshots after this many
@@ -346,13 +388,13 @@ MIXER_TICKS = 200
 # the SFU path: BASELINE config #5 (1k senders x 10k receiver legs)
 SFU_CONFS, SFU_SIZE = 100, 11
 SFU_N = SFU_CONFS * SFU_SIZE
-SFU_TICKS = 50
+SFU_TICKS = 30
 SFU_PROFILED = 5
 SFU_BURSTS = 4              # sends a 20 ms tick of media in 4 bursts
-SFU_RR_TICKS = (12, 37)     # one RR a sender every 25 ticks
-SFU_NACK_TICK = 30          # 10 receivers NACK 3 seqs each
+SFU_RR_TICKS = (7, 22)      # one RR a sender every 15 ticks
+SFU_NACK_TICK = 20          # 10 receivers NACK 3 seqs each
 SFU_FEEDBACK = 10           # emit_feedback every 10 ticks
-SFU_CPU_TICKS = (0, 1, 2, 27, 28, 29, SFU_NACK_TICK)
+SFU_CPU_TICKS = (0, 1, 2, 17, 18, 19, SFU_NACK_TICK)
 SFU_PIPE_TICKS = 10         # the pipelined SfuBridge's run (sfu path)
 # the sfu_profiles path: the SFU under NULL_HMAC_SHA1_80 and
 # F8_128_HMAC_SHA1_80, at config #5's width
@@ -399,11 +441,11 @@ RESAMPLE_SHAPES = ((CONF_PARTIES - 1, 8000, 16000),
 # the clock, legs 1-191 PCMU, the rest PCMA (8 kHz); counted ticks, ticks
 # under the profiler, leg 0's tone, the tick of its snapshot, and R's
 # launches a tick (2 deposit groups, 2 egress kinds)
-MIXED_TICKS = 20
+MIXED_TICKS = 12
 MIXED_PROFILED = 3
 MIXED_PCMU = 192
 MIXED_TONE = 1800.0
-MIXED_SNAPSHOT = 10
+MIXED_SNAPSHOT = 6
 MIXED_R_PER_TICK = 4
 # the launches of R a conference_mixed tick makes (rows, rate in, rate
 # out): a deposit group and an egress kind for its PCMU and its PCMA legs
@@ -443,6 +485,20 @@ PUMP_TWIN = tuple(range(8, 24))   # pairs held against a CPU run (8 lost)
 PUMP_T0 = 3000.0            # the pumps' explicit clock, seconds
 R_PHASE_SLOTS = 12
 R_PHASE_WALKERS = 1 << 16
+# DTLS-SRTP and ZRTP keying: sfu_dtls, conference_dtls, stream_zrtp
+LOOPBACK_U32 = 0x7F000001
+DTLS_WAVE = 100             # handshakes in flight at once in a join storm
+DTLS_EARLY_CONFS = tuple(range(5, SFU_CONFS, 10))  # two early endpoints each
+SFU_DTLS_TICKS = 10
+SFU_DTLS_RR, SFU_DTLS_NACK, SFU_DTLS_FEEDBACK = 4, 7, 5
+SFU_DTLS_TWIN_CONFS = 3     # conferences the CPU twin bridge holds
+SFU_DTLS_GCM_TICKS = 5      # the GCM conference's ticks
+CONF_DTLS_TICKS = 25         # participant 10 is named dominant ~15 ticks after CONF_SWITCH
+ZRTP_TICKS = 2
+ZRTP_SUITES = (("aes3_hs80", 32), ("aes3_hs32", 16), ("dh3k", 16),
+               ("multistream", 16), ("continuity", 16))   # the rest default
+ZRTP_TWIN = 16              # pairs of each suite held against a CPU run
+ZRTP_INSTANCES = ("srtp_protect_cm nr=14", "srtp_unprotect_cm nr=14")
 SOURCES = {
     "aes_encrypt": ("libjitsi_tpu_torch/csrc/aes_encrypt.cu",
                     "libjitsi_tpu/kernels/aes_bitsliced.py:548"),
@@ -537,7 +593,15 @@ PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
          "srtp_echo_uring": ("srtp_protect_cm", "srtp_unprotect_cm"),
          "srtp_echo_tcp": ("srtp_protect_cm", "srtp_unprotect_cm"),
          "conference_pumps": ("srtp_protect_cm", "srtp_unprotect_cm",
-                              "mix_minus", "g711_encode", "g711_decode")}
+                              "mix_minus", "g711_encode", "g711_decode"),
+         "sfu_dtls": ("srtp_unprotect_cm", "srtp_fanout_cm",
+                      "srtcp_protect_cm", "srtcp_unprotect_cm",
+                      "srtp_gcm_open", "srtp_fanout_gcm", "srtp_gcm_seal"),
+         "conference_dtls": ("srtp_protect_cm", "srtp_unprotect_cm",
+                             "mix_minus", "g711_encode", "g711_decode"),
+         "stream_zrtp": ("srtp_protect_cm", "srtp_unprotect_cm")}
+# the kernel instances a path must launch, as `_kernel_key` names them
+PATH_INSTANCES = {"stream_zrtp": ZRTP_INSTANCES}
 FANOUT_INSTANCES = ("srtp_fanout_null", "srtp_fanout_f8")
 
 
@@ -631,10 +695,15 @@ def main(argv=None) -> int:
         out = fn(*args)
         counts[name] = dict(kbuild.launches)
         plain = dict(kbuild.plain_calls)
+        instances = dict(kbuild.instance_launches)
         emit("main_path_counts", path=name, launches=counts[name],
-             plain_calls=plain)
+             plain_calls=plain, instances=instances)
         require(all(counts[name][k] > 0 for k in PATHS[name]),
                 f"path {name} did not launch all of {PATHS[name]}")
+        require(all(instances.get(k, 0) > 0
+                    for k in PATH_INSTANCES.get(name, ())),
+                f"path {name} did not launch all of {PATH_INSTANCES[name]}"
+                if name in PATH_INSTANCES else "")
         require(sum(plain.values()) == 0,
                 f"a plain version ran on the {name} path")
         return out
@@ -709,6 +778,20 @@ def main(argv=None) -> int:
     pumps = path("conference_pumps", conference_pumps_run, torch, dev,
                  pumps_in)
     conference_pumps_check(torch, dev, pumps, pumps_in, smi)
+    # DTLS-SRTP and ZRTP keying: every join's handshake, and the clients'
+    # wire under the keys they exported (on kernels C, I, M and F), come
+    # before the counts are reset
+    dtls_in = sfu_dtls_setup(torch, dev)
+    sfu_d = path("sfu_dtls", sfu_dtls_run, torch, dev, dtls_in)
+    sfu_dtls_check(torch, dev, sfu_d, dtls_in, sfu["tick_ms"])
+    with tempfile.TemporaryDirectory() as rec_dir:
+        conf_d_in = conference_dtls_setup(torch, dev, rec_dir)
+        conf_d = path("conference_dtls", conference_dtls_run, torch, dev,
+                      conf_d_in)
+        conference_dtls_check(torch, dev, conf_d, conf_d_in, conf)
+    zrtp_in = stream_zrtp_setup(torch, dev)
+    zrtp = path("stream_zrtp", stream_zrtp_run, torch, dev, zrtp_in)
+    stream_zrtp_check(torch, dev, zrtp, zrtp_in)
     exposition(torch)
     per_unit = {"srtp_echo": ("launches_per_table_batch",
                               table["launches_per_batch"]),
@@ -739,7 +822,13 @@ def main(argv=None) -> int:
                 "srtp_echo_tcp": ("launches_per_tcp_echo_tick",
                                   tcp["launches_per_tick"]),
                 "conference_pumps": ("launches_per_pumps_tick",
-                                     pumps["launches_per_tick"])}
+                                     pumps["launches_per_tick"]),
+                "sfu_dtls": ("launches_per_dtls_sfu_tick",
+                             sfu_d["launches_per_tick"]),
+                "conference_dtls": ("launches_per_dtls_conference_tick",
+                                    conf_d["launches_per_tick"]),
+                "stream_zrtp": ("launches_per_zrtp_stream_tick",
+                                zrtp["launches_per_tick"])}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
@@ -2398,18 +2487,23 @@ def _drain(engine, want: int) -> list:
     return got
 
 
-def _conference_setup(torch, dev):
+def _conference_setup(torch, dev, keys=None,
+                      ticks: int = CONF_TICKS + CONF_PROFILED):
     """Keys, SSRCs, fixed TX counters and the protected wire of every
     tick: participant k sends a tone of 150 + 11k Hz, the last six send
-    silence, and from tick CONF_SWITCH participant 10 is the loudest."""
+    silence, and from tick CONF_SWITCH participant 10 is the loudest.
+    `keys` ({"rx": (keys, salts), "tx": ...}) replace the drawn ones (a
+    DTLS join's exported keys), the rest of the draw unchanged."""
     from libjitsi_tpu_torch.kernels import g711
     from libjitsi_tpu_torch.rtp import header as rtp_header
     from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 
-    n, ticks = CONF_PARTIES, CONF_TICKS + CONF_PROFILED
+    n = CONF_PARTIES
     rng = np.random.default_rng(23)
-    keys = {d: (rng.integers(0, 256, (n, 16), np.uint8),
-                rng.integers(0, 256, (n, 14), np.uint8)) for d in ("rx", "tx")}
+    drawn = {d: (rng.integers(0, 256, (n, 16), np.uint8),
+                 rng.integers(0, 256, (n, 14), np.uint8))
+             for d in ("rx", "tx")}
+    keys = drawn if keys is None else keys
     ssrc = 0x30000000 + np.arange(n)
     up = SrtpStreamTable(n, device=dev)
     up.add_streams(np.arange(n), *keys["rx"])
@@ -3249,7 +3343,8 @@ def sfu_profile_kernels(torch, dev, floor_ms: float, chain: dict,
 def _sfu_setup(torch, dev, profile: str = "AES_CM_128_HMAC_SHA1_80",
                ticks: int = SFU_TICKS + SFU_PROFILED,
                with_rtcp: bool = True, rr_ticks=SFU_RR_TICKS,
-               nack_tick: int = SFU_NACK_TICK) -> dict:
+               nack_tick: int = SFU_NACK_TICK, keys=None,
+               ssrc=None) -> dict:
     """Keys, SSRCs, conferences and every tick's client wire under
     `profile`: each endpoint sends one Opus-sized packet a tick (12-byte
     header, 8-byte abs-send-time extension, 60-160-byte payload; some
@@ -3257,7 +3352,10 @@ def _sfu_setup(torch, dev, profile: str = "AES_CM_128_HMAC_SHA1_80",
     with `with_rtcp`, one RR a sender at each of `rr_ticks` (the last
     reporting 5% loss) and, at `nack_tick`, a NACK from one receiver in
     each of 10 conferences for the previous tick's packets of three of
-    its mates.  Master salts are the profile's length."""
+    its mates.  Master salts are the profile's length.  `keys` ({"rx":
+    (keys, salts), "tx": ...}, what the bridge takes and sends under) and
+    `ssrc` replace the drawn ones (a DTLS join's exported keys), the
+    rest of the draw unchanged."""
     from libjitsi_tpu_torch.core.packet import PacketBatch
     from libjitsi_tpu_torch.rtp import header as rtp_header
     from libjitsi_tpu_torch.rtp import rtcp
@@ -3267,10 +3365,12 @@ def _sfu_setup(torch, dev, profile: str = "AES_CM_128_HMAC_SHA1_80",
     n = SFU_N
     rng = np.random.default_rng(29)
     salt = SrtpProfile[profile].master_salt_len
-    keys = {d: (rng.integers(0, 256, (n, 16), np.uint8),
-                rng.integers(0, 256, (n, salt), np.uint8))
-            for d in ("rx", "tx")}
-    ssrc = (0x51000000 + rng.permutation(1 << 20)[:n]).astype(np.int64)
+    drawn = {d: (rng.integers(0, 256, (n, 16), np.uint8),
+                 rng.integers(0, 256, (n, salt), np.uint8))
+             for d in ("rx", "tx")}
+    keys = drawn if keys is None else keys
+    drawn_ssrc = (0x51000000 + rng.permutation(1 << 20)[:n]).astype(np.int64)
+    ssrc = drawn_ssrc if ssrc is None else np.asarray(ssrc, np.int64)
     conf = np.arange(n) // SFU_SIZE
     seq0 = rng.integers(0, 1 << 16, n)
     seq0[::7] = 65536 - 20                  # these wrap within the run
@@ -3626,6 +3726,8 @@ def sfu_check(torch, dev, run) -> None:
     bridge.close()
     run["client"].close()
     secs = np.array(run["tick_s"])
+    run["tick_ms"] = (float(np.median(secs)) * 1e3,
+                      float(np.percentile(secs, 99)) * 1e3)
     emit("sfu", conferences=SFU_CONFS, endpoints=SFU_N,
          legs_per_tick=SFU_N * (SFU_SIZE - 1), ticks=SFU_TICKS,
          bursts_per_tick=SFU_BURSTS,
@@ -7012,6 +7114,1083 @@ def conference_pumps_check(torch, dev, run, setup, smi) -> None:
          mix_minus_exact=True, cpu_twin_pairs=len(PUMP_TWIN),
          cpu_twin_equal=True, cpu_twin_s=twin["seconds"],
          cpu_twin_wait_s=wait_s)
+
+
+# ------------------------------------------- DTLS-SRTP and ZRTP keying
+
+class _Socks:
+    """One non-blocking loopback UDP socket per remote endpoint (a DTLS
+    association is bound to its peer's 5-tuple)."""
+
+    def __init__(self, n: int):
+        import socket
+
+        self.socks = []
+        for _ in range(n):
+            s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            s.bind(("127.0.0.1", 0))
+            s.setblocking(False)
+            self.socks.append(s)
+        self.port = [s.getsockname()[1] for s in self.socks]
+        self.k_of_port = {p: k for k, p in enumerate(self.port)}
+
+    def addr(self, k: int) -> tuple:
+        return (LOOPBACK_U32, self.port[k])
+
+    def send(self, k: int, datagrams, port: int) -> None:
+        for d in datagrams:
+            self.socks[k].sendto(d, ("127.0.0.1", port))
+
+    def recv(self, k: int) -> list:
+        out = []
+        while True:
+            try:
+                out.append(self.socks[k].recv(2048))
+            except BlockingIOError:
+                return out
+
+    def close(self) -> None:
+        for s in self.socks:
+            s.close()
+
+
+def _dtls_kind():
+    """The DTLS endpoint the keying phases run: OpenSSL's where the
+    `cryptography` package is installed, else the JAX package's own seam
+    for that case, the dependency-free `StubDtlsEndpoint`."""
+    from libjitsi_tpu_torch.control import dtls
+
+    if dtls.HAVE_CRYPTOGRAPHY:
+        return dtls.DtlsSrtpEndpoint, "OpenSSL DtlsSrtpEndpoint"
+    return dtls.StubDtlsEndpoint, "StubDtlsEndpoint"
+
+
+def _dtls_storm(bridge, kind, n: int, join, socks, now: float,
+                early=(), profile=None) -> dict:
+    """Join endpoints 0..n-1 by DTLS over loopback, DTLS_WAVE handshakes
+    in flight at once: `join(k, fingerprint, addr, role)` calls the
+    bridge's entry point; endpoint k's peer (a `kind` endpoint) talks from
+    socket k, and the bridge is ticked at `now` between the flights.  The
+    bridge is the DTLS server, but for the endpoints in `early`, where it
+    is the client: their peer completes first, and its Finished flight is
+    held back (returned, not sent).  Returns the peers, the rows, each
+    join's seconds to its installed keys, the held flights and the
+    storm's seconds."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+
+    table = bridge._dtls
+    install = table.install
+    installed_at = {}
+
+    def timed(sid, ep):
+        install(sid, ep)
+        installed_at[sid] = time.perf_counter()
+
+    table.install = timed
+    kw = {} if profile is None else {"profiles": [profile]}
+    peers, sids, joined_at, held = {}, {}, {}, {}
+    early = set(early)
+    t0 = time.perf_counter()
+    for lo in range(0, n, DTLS_WAVE):
+        out = {}
+        for k in range(lo, min(lo + DTLS_WAVE, n)):
+            role = "client" if k in early else "server"
+            peer = kind("server" if k in early else "client", **kw)
+            joined_at[k] = time.perf_counter()
+            sid, ep = join(k, peer.local_fingerprint, socks.addr(k), role)
+            peer.remote_fingerprint = ep.local_fingerprint
+            peers[k], sids[k] = peer, sid
+            if k in early:          # the bridge's ClientHello, its socket
+                bridge.loop.engine.send_batch(
+                    PacketBatch.from_payloads(ep.handshake_packets()),
+                    "127.0.0.1", socks.port[k])
+                out[k] = []
+            else:
+                out[k] = peer.handshake_packets()
+        wave = set(out)
+        deadline = time.perf_counter() + 60.0
+        while wave:
+            require(time.perf_counter() < deadline,
+                    f"dtls storm: {len(wave)} handshakes of wave {lo} "
+                    "did not complete in 60 s")
+            for k in wave:
+                socks.send(k, out[k], bridge.port)
+                out[k] = []
+            for _ in range(2):
+                bridge.tick(now=now)
+            for k in list(wave):
+                for d in socks.recv(k):
+                    out[k] += peers[k].feed(d)
+                if k in early and peers[k].complete:
+                    held[k] = out.pop(k)
+                    wave.discard(k)
+                elif peers[k].complete and sids[k] not in table.pending:
+                    wave.discard(k)
+    storm_s = time.perf_counter() - t0
+    table.install = install
+    join_s = np.array([installed_at[sids[k]] - joined_at[k]
+                       for k in range(n) if k not in early])
+    return dict(peers=peers, sids=sids, held=held, storm_s=storm_s,
+                join_s=join_s)
+
+
+def _exported(peers, n: int) -> dict:
+    """The keys each peer exported, as the bridge takes them: "rx" what it
+    receives (the peer's tx), "tx" what it sends (the peer's rx)."""
+    keys = [peers[k].srtp_keys() for k in range(n)]
+
+    def stack(i):
+        return np.stack([np.frombuffer(kk[i], np.uint8) for kk in keys])
+
+    return {"rx": (stack(1), stack(2)), "tx": (stack(3), stack(4))}
+
+
+def _refused_join(bridge, kind, join, socks, k: int, now: float) -> int:
+    """One join whose peer presents a certificate the signaling did not
+    pin: the bridge must refuse it and forget the row.  Returns the row."""
+    peer = kind("client")
+    sid, ep = join(k, "AB:" * 31 + "CD", socks.addr(k), "server")
+    peer.remote_fingerprint = ep.local_fingerprint
+    out = peer.handshake_packets()
+    for _ in range(50):
+        socks.send(k, out, bridge.port)
+        bridge.tick(now=now)
+        out = [r for d in socks.recv(k) for r in peer.feed(d)]
+        if bridge._dtls.rejected:
+            break
+    require(bridge._dtls.rejected == 1 and sid not in bridge._dtls.pending
+            and socks.addr(k) not in bridge._dtls.addr_of,
+            "dtls: a mismatched fingerprint was not refused and forgotten")
+    return sid
+
+
+def _early_wire(dev, keys, ssrc, seq0, rows, profile: str) -> dict:
+    """Two packets a row of `rows`, seqs seq0 - 2 and seq0 - 1 (before the
+    traffic's first), protected under the row's exported keys."""
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    rows = list(rows)
+    up = SrtpStreamTable(len(rows), SrtpProfile[profile], device=dev)
+    up.add_streams(np.arange(len(rows)), keys["rx"][0][rows],
+                   keys["rx"][1][rows])
+    pl = [b"early %d %d" % (k, j) for k in rows for j in range(2)]
+    b = rtp_header.build(pl, [(int(seq0[k]) - 2 + j) & 0xFFFF
+                              for k in rows for j in range(2)],
+                         [0] * len(pl), [int(ssrc[k]) for k in rows
+                                         for j in range(2)], 111,
+                         stream=[i for i in range(len(rows))
+                                 for _ in range(2)])
+    wire = up.protect_rtp(b).to_payloads()
+    return {k: wire[2 * i:2 * i + 2] for i, k in enumerate(rows)}
+
+
+def _gcm_conf_setup(dev, keys, ssrc, ticks: int) -> dict:
+    """The GCM conference's traffic: each of SFU_SIZE endpoints sends one
+    Opus-sized packet (abs-send-time extension) a tick, and one RR at
+    tick 1, protected under its exported AEAD_AES_128_GCM keys."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.rtp import rtcp
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    n = SFU_SIZE
+    rng = np.random.default_rng(41)
+    up = SrtpStreamTable(n, SrtpProfile[GCM], device=dev)
+    up.add_streams(np.arange(n), *keys["rx"])
+    seq0 = rng.integers(0, 1 << 16, n)
+    payloads, wires = [], []
+    for t in range(ticks):
+        pl = [rng.integers(0, 256, int(m), np.uint8).tobytes()
+              for m in rng.integers(60, 161, n)]
+        ast = int(round((1000.0 + 0.02 * t) * (1 << 18))) & 0xFFFFFF
+        ext = (0xBEDE, bytes([0x32]) + ast.to_bytes(3, "big"))
+        plain = rtp_header.build(pl, (seq0 + t) & 0xFFFF, t * 960,
+                                 ssrc.tolist(), 111, ext=[ext] * n,
+                                 stream=list(range(n)))
+        payloads.append(pl)
+        wires.append(up.protect_rtp(plain).to_payloads())
+    blobs = [rtcp.build_compound([rtcp.build_rr(rtcp.ReceiverReport(
+        int(ssrc[k]), [rtcp.ReportBlock(int(ssrc[(k + 1) % n]), 0, 0,
+                                        int(seq0[(k + 1) % n]), 4, 0, 0)]))])
+        for k in range(n)]
+    rr = up.protect_rtcp(PacketBatch.from_payloads(
+        blobs, stream=list(range(n)))).to_payloads()
+    return dict(keys=keys, ssrc=ssrc, seq0=seq0, payloads=payloads,
+                wires=wires, rr=rr)
+
+
+def sfu_dtls_setup(torch, dev) -> dict:
+    """The sfu cell's 1,100 endpoints (100 conferences x 11) joined to an
+    `SfuBridge` on the card by `add_endpoint_dtls`, each handshaking over
+    loopback from a socket of its own (`_dtls_storm`); in DTLS_EARLY
+    conferences two endpoints with the bridge as DTLS client, their
+    Finished flight held back; one more join refused on its fingerprint
+    and removed; then the traffic built under the exported keys (kernels
+    C and I, before the counts are reset): `_sfu_setup`'s ticks, the
+    early endpoints' early media, and a conference of 11 joined to a
+    second bridge under AEAD_AES_128_GCM (`use_srtp` offers GCM only)."""
+    from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    kind, kind_name = _dtls_kind()
+    n = SFU_N
+    rng = np.random.default_rng(53)
+    ssrc = (0x52000000 + rng.permutation(1 << 20)[:n]).astype(np.int64)
+    conf = np.arange(n) // SFU_SIZE
+    early = [c * SFU_SIZE + m for c in DTLS_EARLY_CONFS for m in (2, 7)]
+    socks = _Socks(n + 1 + SFU_SIZE)
+    bridge = _keep("sfu dtls", SfuBridge(capacity=n + 1, device=dev))
+    bridge._dtls.endpoint_factory = kind
+
+    def join(k, fp, addr, role):
+        sid, ep = bridge.add_endpoint_dtls(int(ssrc[k]), role=role,
+                                           remote_fingerprint=fp,
+                                           remote_addr=addr)
+        bridge.set_conference(sid, int(conf[k]))
+        return sid, ep
+
+    storm = _dtls_storm(bridge, kind, n, join, socks, 999.0, early)
+    require(storm["sids"] == {k: k for k in range(n)},
+            "sfu_dtls: rows not handed out in join order")
+    rejected = _refused_join(bridge, kind,
+                             lambda k, fp, addr, role: bridge.
+                             add_endpoint_dtls(0x5F000000, role=role,
+                                               remote_fingerprint=fp,
+                                               remote_addr=addr),
+                             socks, n, 999.0)
+    bridge.remove_endpoint(rejected)
+    require(not bridge._dtls.pending.keys() - set(early),
+            "sfu_dtls: a row is pending that should not be")
+    live = [s for s in bridge.translator._routes]
+    require(not set(early) & set(live) and rejected not in live,
+            "sfu_dtls: a pending or refused row is in the routes")
+    require(not set(early) & set(bridge.snapshot()["ssrc_of"]),
+            "sfu_dtls: a pending row is in the snapshot")
+    # the early peers exported at their completion; the bridge has not
+    keys = _exported(storm["peers"], n)
+    traffic = _sfu_setup(torch, dev, ticks=SFU_DTLS_TICKS,
+                         rr_ticks=(SFU_DTLS_RR,), nack_tick=SFU_DTLS_NACK,
+                         keys=keys, ssrc=ssrc)
+    early_wire = _early_wire(dev, keys, ssrc, traffic["seq0"], early,
+                             "AES_CM_128_HMAC_SHA1_80")
+    # the GCM conference, on a bridge of its own
+    g_socks = _Socks(SFU_SIZE)
+    g_bridge = _keep("sfu dtls gcm", SfuBridge(
+        capacity=SFU_SIZE, profile=SrtpProfile[GCM], device=dev))
+    g_bridge._dtls.endpoint_factory = kind
+    g_ssrc = 0x53000000 + np.arange(SFU_SIZE, dtype=np.int64)
+    g_storm = _dtls_storm(
+        g_bridge, kind, SFU_SIZE,
+        lambda k, fp, addr, role: g_bridge.add_endpoint_dtls(
+            int(g_ssrc[k]), role=role, remote_fingerprint=fp,
+            remote_addr=addr),
+        g_socks, 999.0, profile=SrtpProfile[GCM])
+    g_names = {g_storm["peers"][k].selected_profile.name
+               for k in range(SFU_SIZE)}
+    require(g_names == {GCM}, f"sfu_dtls: use_srtp selected {g_names}")
+    gcm = _gcm_conf_setup(dev, _exported(g_storm["peers"], SFU_SIZE),
+                          g_ssrc, SFU_DTLS_GCM_TICKS)
+    emit("dtls_endpoint", path="sfu_dtls", endpoint=kind_name,
+         key_agreement=("ECDHE-ECDSA P-256 (OpenSSL DTLS 1.2)"
+                        if kind_name.startswith("OpenSSL")
+                        else "stub hash of the hello randoms"))
+    return dict(bridge=bridge, socks=socks, traffic=traffic, early=early,
+                early_wire=early_wire, held=storm["held"], storm=storm,
+                rejected=rejected, g_bridge=g_bridge, g_socks=g_socks,
+                gcm=gcm, g_storm=g_storm, kind=kind_name)
+
+
+def _sfu_dtls_tick(bridge, setup, t, socks, recv) -> tuple:
+    """One tick of the sfu cell's traffic, each endpoint's datagrams from
+    its own socket: the media in SFU_BURSTS bursts, then the tick's
+    RTCP, each burst sent and the bridge ticked (now = 1000 + 0.02 t)
+    until it has taken the burst in; then every socket drained into
+    `recv[k]`.  Returns (bridge seconds, datagrams taken)."""
+    now = 1000.0 + 0.02 * t
+    wire = setup["wires"][t]
+    sends = [[(int(k), wire.to_bytes(int(k))) for k in rows]
+             for rows in setup["bursts"]]
+    extra = setup["rtcp"].get(t)
+    if extra is not None:
+        sends.append([(int(extra.stream[i]), extra.to_bytes(i))
+                      for i in range(extra.batch_size)])
+    secs, taken = 0.0, 0
+    for b, burst in enumerate(sends):
+        for k, d in burst:
+            socks.socks[k].sendto(d, ("127.0.0.1", bridge.port))
+        got = 0
+        for _ in range(200):
+            t0 = time.perf_counter()
+            got += bridge.tick(now=now)["rx"]
+            secs += time.perf_counter() - t0
+            if got >= len(burst):
+                break
+        require(got == len(burst), f"sfu_dtls tick {t} burst {b}: the "
+                                   f"bridge took {got} of {len(burst)}")
+        taken += got
+    for k in range(len(recv)):
+        recv[k] += socks.recv(k)
+    return secs, taken
+
+
+def sfu_dtls_run(torch, dev, setup) -> dict:
+    """The DTLS-keyed SFU on the card, counted: the early media (held on
+    the loop), the held Finished flights (the keys land, the held media
+    replays through D and H), SFU_DTLS_TICKS ticks of the sfu cell's
+    traffic from the endpoints' own sockets with an RR tick, a NACK tick
+    and `emit_feedback` every SFU_DTLS_FEEDBACK ticks (D, H, I, J), and
+    the GCM conference's ticks with one `emit_feedback` (N, H-GCM, M)."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    bridge, socks, traffic = setup["bridge"], setup["socks"], setup["traffic"]
+    n, early = SFU_N, setup["early"]
+    fanout = {"early": [], "ticks": []}
+    log = fanout["early"]
+    emit_fanout = bridge._emit_fanout
+
+    def logged(wire, recv, origin=None):
+        ready = np.nonzero(bridge.loop.addr_port[recv] != 0)[0]
+        log.append((wire.data[ready], np.asarray(wire.length)[ready],
+                    recv[ready]))
+        return emit_fanout(wire, recv, origin=origin)
+
+    bridge._emit_fanout = logged
+    sends = _SendsTo(bridge, socks.k_of_port)
+    release = bridge.loop.release_stream
+    replayed = []
+
+    def counted(sid):
+        replayed.append(release(sid))
+        return replayed[-1]
+
+    bridge.loop.release_stream = counted
+    res = dict(tick_s=[], taken=0, feedback_sent=0)
+    # stale retransmissions of the bridge's client flights, unread
+    for k in early:
+        socks.recv(k)
+    for k in early:
+        socks.send(k, setup["early_wire"][k], bridge.port)
+    got = 0
+    for _ in range(200):
+        got += bridge.tick(now=999.5)["rx"]
+        if got >= 2 * len(early):
+            break
+    held = sum(len(bridge.loop._hold_q.get(s, ())) for s in early)
+    require(held == 2 * len(early), f"sfu_dtls: {held} early packets held "
+                                    f"of {2 * len(early)}")
+    for k in early:
+        socks.send(k, setup["held"][k], bridge.port)
+    for _ in range(200):
+        bridge.tick(now=999.6)
+        if not bridge._dtls.pending:
+            break
+    require(not bridge._dtls.pending, "sfu_dtls: an early endpoint's keys "
+                                      "never landed")
+    res["replayed"] = sum(replayed)
+    bridge.loop.release_stream = release
+    res["early_recv"] = [socks.recv(k) for k in range(n)]
+    recv = [[] for _ in range(n)]
+    log = fanout["ticks"]
+    for t in range(SFU_DTLS_TICKS):
+        sends.on = t
+        secs, taken = _sfu_dtls_tick(bridge, traffic, t, socks, recv)
+        sends.on = None
+        res["tick_s"].append(secs)
+        res["taken"] += taken
+        if t == SFU_DTLS_NACK:
+            res["nack"] = dict(retransmitted=bridge.retransmitted,
+                               served=bridge.recovery.rtx_requests_served,
+                               cache_miss=bridge.recovery.rtx_cache_miss)
+        if t % SFU_DTLS_FEEDBACK == SFU_DTLS_FEEDBACK - 1:
+            sends.on = t
+            res["feedback_sent"] += bridge.emit_feedback(
+                now=1000.0 + 0.02 * t + 0.01)
+            sends.on = None
+    for k in range(n):
+        recv[k] += socks.recv(k)
+    bridge._emit_fanout = emit_fanout
+    # the early endpoints' sockets also hold the bridge's last DTLS flight
+    # retransmissions (its client flights, answered late on purpose)
+    res["stale_dtls"] = 0
+    for got in res["early_recv"] + recv:
+        dtls = [d for d in got if 20 <= d[0] <= 63]
+        res["stale_dtls"] += len(dtls)
+        got[:] = [d for d in got if not 20 <= d[0] <= 63]
+    # the GCM conference
+    g, g_socks, gcm = setup["g_bridge"], setup["g_socks"], setup["gcm"]
+    g_recv = [[] for _ in range(SFU_SIZE)]
+    g_fb = 0
+    for t in range(SFU_DTLS_GCM_TICKS):
+        for k in range(SFU_SIZE):
+            g_socks.send(k, [gcm["wires"][t][k]]
+                         + ([gcm["rr"][k]] if t == 1 else []), g.port)
+        want = SFU_SIZE * (2 if t == 1 else 1)
+        got = 0
+        for _ in range(200):
+            got += g.tick(now=1000.0 + 0.02 * t)["rx"]
+            if got >= want:
+                break
+        require(got == want, f"sfu_dtls gcm tick {t}: {got} of {want}")
+        if t == 2:
+            g_fb = g.emit_feedback(now=1000.05)
+        for k in range(SFU_SIZE):
+            g_recv[k] += g_socks.recv(k)
+    res["launches"] = dict(kbuild.launches)
+    res["launches_per_tick"] = {k: v / SFU_DTLS_TICKS
+                                for k, v in res["launches"].items()}
+    res.update(recv=recv, fanout=fanout, sends=sends.ticks, g_recv=g_recv,
+               g_feedback=g_fb)
+    return res
+
+
+class _SendsTo:
+    """Every datagram a bridge's engine sends while `on` is set, with the
+    endpoint it went to (by the socket's port)."""
+
+    def __init__(self, bridge, k_of_port):
+        self.on, self.ticks = None, {}
+        eng = bridge.loop.engine
+        orig = eng.send_batch
+
+        def send_batch(batch, ip, port):
+            if self.on is not None:
+                ports = np.broadcast_to(np.asarray(port), (batch.batch_size,))
+                self.ticks.setdefault(self.on, []).extend(
+                    (batch.to_bytes(i), k_of_port.get(int(ports[i]), -1))
+                    for i in range(batch.batch_size))
+            return orig(batch, ip, port)
+
+        eng.send_batch = send_batch
+
+
+def _sfu_dtls_twin(torch, setup, run) -> list:
+    """The first SFU_DTLS_TWIN_CONFS conferences' endpoints on an
+    `SfuBridge(device="cpu")` keyed with the same exported keys by
+    `stage_endpoints`, fed the same datagrams at the same clock: each
+    tick its sends must equal the card bridge's sends to those
+    endpoints.  Returns the ticks compared."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+
+    traffic = setup["traffic"]
+    m = SFU_DTLS_TWIN_CONFS * SFU_SIZE
+    (rk, rs), (tk, ts) = traffic["keys"]["rx"], traffic["keys"]["tx"]
+    twin = SfuBridge(capacity=m, device="cpu")
+    sids = twin.stage_endpoints(
+        [(int(traffic["ssrc"][k]), (rk[k].tobytes(), rs[k].tobytes()),
+          (tk[k].tobytes(), ts[k].tobytes()), None) for k in range(m)],
+        conferences=traffic["conf"][:m].tolist())
+    twin.commit_endpoints(sids)
+    kept = _Sends(twin)
+    compared = []
+    thread_n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=4 * m,
+                       rcvbuf=8 << 20) as sink:
+            twin.loop.addr_ip[:m] = LOOPBACK_U32
+            twin.loop.addr_port[:m] = sink.port
+            for t in range(SFU_DTLS_TICKS):
+                now = 1000.0 + 0.02 * t
+                parts = [(traffic["wires"][t], np.arange(m))]
+                extra = traffic["rtcp"].get(t)
+                if extra is not None:
+                    parts.append((extra, np.nonzero(
+                        np.asarray(extra.stream) < m)[0]))
+                kept.on = t
+                want = 0
+                for wire, rows in parts:
+                    sink.send_batch(PacketBatch(
+                        wire.data[rows], np.asarray(wire.length)[rows],
+                        wire.stream[rows]), "127.0.0.1", twin.port)
+                    want += len(rows)
+                got = 0
+                for _ in range(200):
+                    got += twin.tick(now=now)["rx"]
+                    if got >= want:
+                        break
+                require(got == want, f"sfu_dtls twin tick {t}: {got} of "
+                                     f"{want}")
+                if t % SFU_DTLS_FEEDBACK == SFU_DTLS_FEEDBACK - 1:
+                    twin.emit_feedback(now=now + 0.01)
+                kept.on = None
+                card = [d for d, k in run["sends"].get(t, []) if 0 <= k < m]
+                require(sorted(kept.ticks.get(t, [])) == sorted(card),
+                        f"sfu_dtls tick {t}: the card bridge's sends to "
+                        "the twin's conferences differ from the CPU twin's")
+                compared.append(t)
+                while sink.recv_batch(timeout_ms=0)[0].batch_size:
+                    pass
+    finally:
+        torch.set_num_threads(thread_n)
+        twin.close()
+    return compared
+
+
+def sfu_dtls_check(torch, dev, run, setup, sfu_tick_ms) -> None:
+    """Gates of the DTLS-keyed SFU: every early packet held and replayed,
+    its copies at its mates' sockets; no echo and no copy across
+    conferences; each socket got its own leg's copies only, every one
+    authenticated under the keys its endpoint exported and equal to what
+    its sender sent; `forwarded` equal to the accepted packets times ten;
+    every NACKed seq served; the CPU twin's sends equal to the card's for
+    its conferences; the GCM conference's copies opened by each leg's
+    exported keys as their senders' bytes.  Prints the `sfu_dtls` line
+    beside the SDES `sfu` path's tick times."""
+    bridge, traffic = setup["bridge"], setup["traffic"]
+    early, n = setup["early"], SFU_N
+    require(int(bridge.rx_table.auth_fail.sum()) == 0
+            and int(bridge.rx_table.replay_reject.sum()) == 0,
+            "sfu_dtls: the bridge rejected genuine uplink packets")
+    require(run["replayed"] == 2 * len(early),
+            f"sfu_dtls: {run['replayed']} held packets replayed")
+    # the early copies: at each mate's socket, opened under its keys
+    leg_e, echo, cross, copies_e = _fanout_log(traffic,
+                                               run["fanout"]["early"])
+    # a conference's two early endpoints land one after the other: the
+    # first one's replay reaches 9 mates, the second's all 10
+    want_e = len(early) * (2 * (SFU_SIZE - 1) - 1)
+    require(copies_e == want_e and echo == 0 and cross == 0,
+            f"sfu_dtls: {copies_e} early copies of {want_e}, {echo} "
+            f"echoes, {cross} across conferences")
+    early_got = 0
+    for k, got in enumerate(run["early_recv"]):
+        for p in got:
+            require(leg_e.get(p[2:4] + p[8:12] + p[-TAG:]) == k,
+                    f"sfu_dtls: socket {k} got another leg's early copy")
+        early_got += len(got)
+    require(early_got == copies_e, f"sfu_dtls: {early_got} early copies "
+                                   f"arrived of {copies_e}")
+    _check_early(dev, traffic, run["early_recv"], setup["early_wire"])
+    # the ticks
+    leg_of, echo, cross, copies = _fanout_log(traffic, run["fanout"]["ticks"])
+    require(echo == 0 and cross == 0, f"sfu_dtls: {echo} self-echo and "
+                                      f"{cross} cross-conference copies")
+    rtcp_n = sum(w.batch_size for w in traffic["rtcp"].values())
+    require(run["taken"] == SFU_DTLS_TICKS * n + rtcp_n,
+            "sfu_dtls: the bridge did not take every datagram sent")
+    expected = SFU_DTLS_TICKS * n * (SFU_SIZE - 1) + copies_e
+    require(bridge.forwarded == copies + copies_e == expected,
+            f"sfu_dtls: forwarded {bridge.forwarded}, logged "
+            f"{copies + copies_e}, expected {expected}")
+    every = []
+    for k, got in enumerate(run["recv"]):
+        for p in got:
+            require(192 <= p[1] <= 223
+                    or leg_of.get(p[2:4] + p[8:12] + p[-TAG:]) == k,
+                    f"sfu_dtls: socket {k} got a copy of another leg")
+        every += got
+    counts = _check_copies(torch, dev, traffic, every, leg_of,
+                           SFU_DTLS_TICKS)
+    nack = run["nack"]
+    n_nacked = 3 * len(traffic["nacked"])
+    require(nack["retransmitted"] == nack["served"] == n_nacked
+            and nack["cache_miss"] == 0, f"sfu_dtls NACK service: {nack}")
+    require(counts["copies_unique"] == copies
+            and counts["copies_received"] == copies + n_nacked
+            and counts["feedback_received"] == run["feedback_sent"],
+            f"sfu_dtls: {counts} against {copies} copies, {n_nacked} "
+            f"retransmissions and {run['feedback_sent']} feedback")
+    t0 = time.perf_counter()
+    twin_ticks = _sfu_dtls_twin(torch, setup, run)
+    twin_s = time.perf_counter() - t0
+    g_counts = _check_gcm_conf(dev, setup, run)
+    storm = setup["storm"]
+    secs = np.array(run["tick_s"])
+    bridge.close()
+    setup["g_bridge"].close()
+    setup["socks"].close()
+    setup["g_socks"].close()
+    emit("sfu_dtls", endpoint=setup["kind"], conferences=SFU_CONFS,
+         endpoints=n, ticks=SFU_DTLS_TICKS,
+         storm_s=storm["storm_s"], joins_per_s=n / storm["storm_s"],
+         handshakes_in_flight=DTLS_WAVE,
+         join_to_keys_ms_p50=float(np.median(storm["join_s"])) * 1e3,
+         join_to_keys_ms_p99=float(np.percentile(storm["join_s"], 99))
+         * 1e3,
+         retransmits_total=bridge._dtls.retransmits_total,
+         handshakes_completed=bridge._dtls.handshakes_completed,
+         rejected=bridge._dtls.rejected, early_endpoints=len(early),
+         early_held=2 * len(early), early_replayed=run["replayed"],
+         early_copies=copies_e, stale_dtls_datagrams=run["stale_dtls"],
+         tick_ms_p50=float(np.median(secs)) * 1e3,
+         tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+         sdes_sfu_tick_ms_p50=sfu_tick_ms[0],
+         sdes_sfu_tick_ms_p99=sfu_tick_ms[1],
+         forwarded=bridge.forwarded, feedback_sent=run["feedback_sent"],
+         retransmitted=nack["retransmitted"], **counts,
+         cpu_twin_conferences=SFU_DTLS_TWIN_CONFS,
+         cpu_twin_equal_ticks=twin_ticks, cpu_twin_s=twin_s,
+         gcm=g_counts, launches_per_tick=run["launches_per_tick"])
+
+
+def _check_early(dev, traffic, early_recv, early_wire) -> None:
+    """Each early copy opens under its receiving endpoint's exported keys
+    and carries its sender's early payload."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    sent = {b"early %d %d" % (k, j) for k in early_wire for j in range(2)}
+    tk, ts = traffic["keys"]["tx"]
+    for k, got in enumerate(early_recv):
+        if not got:
+            continue
+        down = SrtpStreamTable(len(got), device=dev)
+        down.add_streams(np.arange(len(got)), tk[[k] * len(got)],
+                         ts[[k] * len(got)])
+        dec, ok = down.unprotect_rtp(PacketBatch.from_payloads(
+            got, stream=list(range(len(got)))))
+        require(bool(np.asarray(ok).all()), f"sfu_dtls: an early copy at "
+                                            f"socket {k} failed to open")
+        hdr = rtp_header.parse(dec)
+        for i in range(len(got)):
+            body = dec.to_bytes(i)[int(hdr.payload_off[i]):]
+            require(body in sent, f"sfu_dtls: socket {k}'s early copy is "
+                                  "not what was sent")
+
+
+def _check_gcm_conf(dev, setup, run) -> dict:
+    """The GCM conference: every media copy at leg k's socket opens under
+    leg k's exported GCM keys and is what its sender sent that tick."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    gcm, g = setup["gcm"], setup["g_bridge"]
+    tk, ts = gcm["keys"]["tx"]
+    ssrc = gcm["ssrc"]
+    copies, feedback = 0, 0
+    for k, got in enumerate(run["g_recv"]):
+        media = [p for p in got if not 192 <= p[1] <= 223]
+        feedback += len(got) - len(media)
+        down = SrtpStreamTable(SFU_SIZE, SrtpProfile[GCM], device=dev)
+        down.add_streams(np.arange(SFU_SIZE), tk[[k] * SFU_SIZE],
+                         ts[[k] * SFU_SIZE])
+        b = PacketBatch.from_payloads(media)
+        b.stream[:] = rtp_header.parse(b).ssrc - ssrc[0]
+        dec, ok = down.unprotect_rtp(b)
+        require(bool(np.asarray(ok).all()) and len(media)
+                == SFU_DTLS_GCM_TICKS * (SFU_SIZE - 1),
+                f"sfu_dtls gcm: leg {k} got {len(media)} copies, "
+                f"{int((~np.asarray(ok)).sum())} failed to open")
+        hdr = rtp_header.parse(dec)
+        for i in range(dec.batch_size):
+            j = int(hdr.ssrc[i] - ssrc[0])
+            t = (int(hdr.seq[i]) - int(gcm["seq0"][j])) & 0xFFFF
+            require(j != k and dec.to_bytes(i)[int(hdr.payload_off[i]):]
+                    == gcm["payloads"][t][j], f"sfu_dtls gcm: leg {k}'s "
+                                              "copy differs from what was "
+                                              "sent")
+        copies += len(media)
+    require(run["g_feedback"] > 0 and feedback == run["g_feedback"],
+            f"sfu_dtls gcm: feedback sent {run['g_feedback']}, "
+            f"received {feedback}")
+    return dict(endpoints=SFU_SIZE, ticks=SFU_DTLS_GCM_TICKS,
+                copies_opened=copies, feedback=feedback,
+                forwarded=g.forwarded)
+
+
+def conference_dtls_setup(torch, dev, rec_dir: str) -> dict:
+    """CONF_PARTIES PCMU participants joined to a `ConferenceBridge` on the
+    card by `add_participant_dtls`, each handshaking over loopback from a
+    socket of its own, a `Recorder` attached; then CONF_DTLS_TICKS ticks
+    of the conference cell's tones under the exported keys (kernels F
+    and C, before the counts are reset).  A participant hears the mix
+    from its keys' landing on, at its handshake's address: what reached
+    each socket in the storm is kept (`storm_mixes`)."""
+    from libjitsi_tpu_torch.recording import Recorder
+    from libjitsi_tpu_torch.service.bridge import ConferenceBridge
+
+    kind, kind_name = _dtls_kind()
+    n = CONF_PARTIES
+    socks = _Socks(n)
+    rec = Recorder(rec_dir)
+    bridge = _keep("conference dtls", ConferenceBridge(
+        capacity=n, recorder=rec, device=dev))
+    bridge._dtls.endpoint_factory = kind
+    ssrc = 0x30000000 + np.arange(n)
+
+    def join(k, fp, addr, role):
+        return bridge.add_participant_dtls(int(ssrc[k]), role=role,
+                                           remote_fingerprint=fp,
+                                           remote_addr=addr)
+
+    storm = _dtls_storm(bridge, kind, n, join, socks, 990.0)
+    require(storm["sids"] == {k: k for k in range(n)},
+            "conference_dtls: rows not handed out in join order")
+    keys = _exported(storm["peers"], n)
+    setup = _conference_setup(torch, dev, keys=keys, ticks=CONF_DTLS_TICKS)
+    require(np.array_equal(setup["ssrc"], ssrc), "conference_dtls: SSRCs")
+    setup["storm_mixes"] = [socks.recv(k) for k in range(n)]
+    emit("dtls_endpoint", path="conference_dtls", endpoint=kind_name,
+         key_agreement=("ECDHE-ECDSA P-256 (OpenSSL DTLS 1.2)"
+                        if kind_name.startswith("OpenSSL")
+                        else "stub hash of the hello randoms"))
+    setup.update(bridge=bridge, socks=socks, storm=storm, rec=rec,
+                 kind=kind_name, ticks0=bridge.ticks)
+    return setup
+
+
+def conference_dtls_run(torch, dev, setup) -> dict:
+    """The DTLS-keyed conference on the card, counted: CONF_DTLS_TICKS
+    ticks from one client socket (kernels C, D, E, F, G)."""
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    with UdpEngine(port=0, bind_ip="127.0.0.1",
+                   max_batch=2 * CONF_PARTIES) as client:
+        res = _conference_ticks(setup["bridge"], setup,
+                                range(CONF_DTLS_TICKS), client, kbuild)
+    res["launches_per_tick"] = {k: v / CONF_DTLS_TICKS
+                                for k, v in res["launches"].items()}
+    short = {k: res["launches_min"][k] for k in PATHS["conference_dtls"]
+             if res["launches_min"][k] < 1}
+    require(not short, f"a conference_dtls tick launched none of {short}")
+    return res
+
+
+def _open_replies(dev, keys, replies, heard=None) -> list:
+    """Each tick's mixes opened under the participants' tx keys (rows by
+    the bridge's TX SSRC), after the mixes each row `heard` before them:
+    per tick, each row's marker and payload type byte and everything
+    after the fixed header (its level extension and its payload), by
+    row."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    n = CONF_PARTIES
+    down = SrtpStreamTable(n, device=dev)
+    down.add_streams(np.arange(n), *keys)
+    before = [(k, d) for k, got in enumerate(heard or ()) for d in got]
+    if before:
+        _dec, ok = down.unprotect_rtp(PacketBatch.from_payloads(
+            [d for _k, d in before], stream=[k for k, _d in before]))
+        require(bool(np.asarray(ok).all()), "a mix heard in the join storm "
+                                            "failed to open")
+    out = []
+    for tick in replies:
+        b = PacketBatch.from_payloads(tick)
+        b.stream[:] = rtp_header.parse(b).ssrc - 0x42000000
+        dec, ok = down.unprotect_rtp(b)
+        require(bool(np.asarray(ok).all()), "a conference mix failed to "
+                                            "open under its leg's keys")
+        out.append({int(b.stream[i]): d[1:2] + d[12:]
+                    for i, d in enumerate(dec.to_payloads())})
+    return out
+
+
+def conference_dtls_check(torch, dev, run, setup, conf) -> None:
+    """Gates: each participant's mixes, opened under the keys it exported,
+    equal tick by tick the SDES-keyed conference path's mixes opened
+    under its keys (the same plaintext in; payload and level extension,
+    the TX counters being each bridge's own); the recorder's timeline
+    names participant 10 from CONF_SWITCH on.  Prints the
+    `conference_dtls` line."""
+    bridge, rec = setup["bridge"], setup["rec"]
+    mine = _open_replies(dev, setup["keys"]["tx"], run["replies"],
+                         setup["storm_mixes"])
+    sdes = _open_replies(dev, conf["setup"]["keys"]["tx"],
+                         conf["replies"][:CONF_DTLS_TICKS])
+    for t in range(CONF_DTLS_TICKS):
+        require(mine[t] == sdes[t], f"conference_dtls tick {t}: the "
+                                    "mixes differ from the SDES bridge's")
+    changes = [e for e in rec._events if e["type"] == "SPEAKER_CHANGED"]
+    after = [(tk, sid) for tk, sid in bridge.speaker_events
+             if tk - setup["ticks0"] >= CONF_SWITCH]
+    require(after and after[-1][1] == 10 and changes
+            and changes[-1]["ssrc"] == int(setup["ssrc"][10]),
+            f"conference_dtls: the recorder's timeline {changes[-3:]} does "
+            "not name participant 10")
+    storm = setup["storm"]
+    secs = np.array(run["tick_s"])
+    meta = rec.close()
+    bridge.close()
+    setup["socks"].close()
+    emit("conference_dtls", endpoint=setup["kind"],
+         participants=CONF_PARTIES, ticks=CONF_DTLS_TICKS,
+         storm_s=storm["storm_s"],
+         joins_per_s=CONF_PARTIES / storm["storm_s"],
+         join_to_keys_ms_p50=float(np.median(storm["join_s"])) * 1e3,
+         join_to_keys_ms_p99=float(np.percentile(storm["join_s"], 99))
+         * 1e3,
+         retransmits_total=bridge._dtls.retransmits_total,
+         tick_ms_p50=float(np.median(secs)) * 1e3,
+         tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+         mixes_equal_to_sdes_ticks=CONF_DTLS_TICKS,
+         mixes_heard_in_storm=sum(map(len, setup["storm_mixes"])),
+         recorder_speaker_changes=len(changes),
+         recorder_metadata=os.path.basename(meta),
+         launches_per_tick=run["launches_per_tick"])
+
+
+def _zrtp_run(a, b) -> None:
+    """a initiates after the Hello exchange (in memory, as the endpoints
+    would over the media port)."""
+    wire = [(b, p) for p in a.hello_packets()] + \
+        [(a, p) for p in b.hello_packets()]
+    started = False
+    for _ in range(30):
+        if a.complete and b.complete:
+            return
+        wire = [(a if dst is b else b, r) for dst, p in wire
+                for r in dst.feed(p)]
+        if not started and b"Hello   " in a._peer:
+            wire += [(b, p) for p in a.initiate()]
+            started = True
+    require(a.complete and b.complete, "stream_zrtp: an exchange did not "
+                                       "complete")
+
+
+def _zrtp_suites(have_ec: bool) -> list:
+    """The suite of each of MS_PAIRS pairs: ZRTP_SUITES' counts, the rest
+    the default; without the `cryptography` package every pair agrees by
+    DH3k (the default pairs are DH3k pairs then)."""
+    suites = []
+    for name, cnt in ZRTP_SUITES:
+        suites += [name] * cnt
+    suites += ["default"] * (MS_PAIRS - len(suites))
+    if not have_ec:
+        suites = ["dh3k" if s == "default" else s for s in suites]
+    return suites
+
+
+def _zrtp_controls(suites, have_ec: bool) -> list:
+    """Each pair's completed (near, far) ZRTP endpoints.  Multistream
+    pairs key off the DH3k pairs' associations in order; the continuity
+    pairs share a `ZidCache` a side with a first session, and key by the
+    second, whose `secret_continuity` must hold."""
+    from libjitsi_tpu_torch.control.zrtp import (CIPHER_AES3, AUTH_HS32,
+                                                 KA_DH3K, ZidCache,
+                                                 ZrtpEndpoint)
+
+    ka = {} if have_ec else {"ka": (KA_DH3K,)}
+    algs = {"default": ka, "aes3_hs80": dict(ka, cipher=(CIPHER_AES3,)),
+            "aes3_hs32": dict(ka, cipher=(CIPHER_AES3,), auth=(AUTH_HS32,)),
+            "dh3k": {"ka": (KA_DH3K,)}, "continuity": ka}
+    dh_parents = []
+    ctls = []
+    for k, suite in enumerate(suites):
+        s1, s2 = 0x60000000 + 2 * k, 0x60000000 + 2 * k + 1
+        if suite == "multistream":
+            pa, pb = dh_parents.pop(0)
+            a = ZrtpEndpoint(ssrc=s1, multistream_from=pa)
+            b = ZrtpEndpoint(ssrc=s2, multistream_from=pb)
+        elif suite == "continuity":
+            ca, cb = ZidCache(), ZidCache()
+            za, zb = os.urandom(12), os.urandom(12)
+            _zrtp_run(ZrtpEndpoint(zid=za, ssrc=s1, cache=ca,
+                                   algorithms=algs[suite]),
+                      ZrtpEndpoint(zid=zb, ssrc=s2, cache=cb))
+            a = ZrtpEndpoint(zid=za, ssrc=s1, cache=ca,
+                             algorithms=algs[suite])
+            b = ZrtpEndpoint(zid=zb, ssrc=s2, cache=cb)
+        else:
+            a = ZrtpEndpoint(ssrc=s1, algorithms=algs[suite])
+            b = ZrtpEndpoint(ssrc=s2)
+        _zrtp_run(a, b)
+        require(a.sas == b.sas, f"stream_zrtp: pair {k}'s SAS differ")
+        require(suite != "continuity" or (a.secret_continuity
+                                          and b.secret_continuity),
+                f"stream_zrtp: pair {k}'s second session lost continuity")
+        if suite == "dh3k":
+            dh_parents.append((a, b))
+        ctls.append((a, b))
+    return ctls
+
+
+def _zrtp_streams(svc, far, ctls, pairs) -> dict:
+    """Pair k's two `AudioMediaStream`s (near on `svc`'s registry, far on
+    `far`, both at row k), started with its ZRTP controls; TX counters
+    from a seeded generator."""
+    out = {}
+    for k in pairs:
+        a, b = ctls[k]
+        prof = a.srtp_keys()[0]
+        _ms_claim(svc.registry, k)
+        near = svc.create_media_stream("audio", profile=prof,
+                                       local_ssrc=a.ssrc)
+        _ms_claim(far, k)
+        far_s = svc.create_media_stream("audio", registry=far, profile=prof,
+                                        local_ssrc=b.ssrc)
+        require(near.sid == far_s.sid == k, f"stream_zrtp: pair {k} took "
+                                            f"rows {near.sid}, {far_s.sid}")
+        rng = np.random.default_rng([0x2B7, k])
+        for s in (near, far_s):
+            s._tx_seq = int(rng.integers(0, 1 << 16))
+            s._tx_ts = int(rng.integers(0, 1 << 32))
+        near.set_remote_ssrc(far_s.local_ssrc)
+        far_s.set_remote_ssrc(near.local_ssrc)
+        near.start(srtp_control=a)
+        far_s.start(srtp_control=b)
+        out[k] = (near, far_s)
+    return out
+
+
+def stream_zrtp_setup(torch, dev) -> dict:
+    """`init()` and `media_service()` on the card (MS_WIDTH rows) and a far
+    registry of MS_WIDTH rows; MS_PAIRS pairs keyed by ZRTP (suites by
+    `_zrtp_suites`), each stream started with its completed control."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import libjitsi_tpu_torch
+    from libjitsi_tpu_torch.control import zrtp
+    from libjitsi_tpu_torch.service.media_stream import StreamRegistry
+
+    have_ec = zrtp.HAVE_CRYPTOGRAPHY
+    suites = _zrtp_suites(have_ec)
+    t0 = time.perf_counter()
+    ctls = _zrtp_controls(suites, have_ec)
+    exchange_s = time.perf_counter() - t0
+    libjitsi_tpu_torch.stop()
+    libjitsi_tpu_torch.init({"libjitsi_tpu.stream_capacity": MS_WIDTH})
+    svc = libjitsi_tpu_torch.media_service()
+    far = StreamRegistry(MS_WIDTH, device=dev)
+    streams = _zrtp_streams(svc, far, ctls, range(MS_PAIRS))
+    frames = np.random.default_rng(67).integers(0, 256, (MS_PAIRS, 2, 160),
+                                                np.uint8)
+    # the CPU twin: ZRTP_TWIN pairs of each suite, a process a suite,
+    # started now to run beside the card's
+    twin_pairs = {s: [k for k, x in enumerate(suites) if x == s][:ZRTP_TWIN]
+                  for s in sorted(set(suites))}
+    pool = ProcessPoolExecutor(
+        len(twin_pairs), mp_context=multiprocessing.get_context("spawn"))
+    twins = [pool.submit(_zrtp_twin, {k: tuple(_Exported(c) for c in ctls[k])
+                                      for k in ks}, frames)
+             for ks in twin_pairs.values()]
+    emit("zrtp_key_agreement", path="stream_zrtp",
+         key_agreement="EC25 (P-256) and DH3k" if have_ec else
+         "DH3k only (no cryptography package)",
+         suites={s: suites.count(s) for s in sorted(set(suites))},
+         exchange_s=exchange_s)
+    return dict(svc=svc, far=far, suites=suites, ctls=ctls,
+                streams=streams, frames=frames, have_ec=have_ec, pool=pool,
+                twins=twins)
+
+
+def _zrtp_drive(streams, frames, timed: bool, receive: bool = True
+                ) -> dict:
+    """ZRTP_TICKS ticks: each near end sends one 160-byte frame and (with
+    `receive`) its far end receives it, then the far end answers the
+    same way; returns every wire and, `timed`, each call's seconds by
+    the pair's key length."""
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+
+    wire = {k: [] for k in streams}
+    times = {}
+    for t in range(ZRTP_TICKS):
+        for k, (near, far_s) in streams.items():
+            key = 256 if "AES_256" in near.profile.name else 128
+            for src, dst, j in ((near, far_s, 0), (far_s, near, 1)):
+                frame = frames[k, j].tobytes()
+                t0 = time.perf_counter()
+                w = src.send([frame], pt=0, ts_step=160)
+                t1 = time.perf_counter()
+                wire[k].append(w[0])
+                if not receive:
+                    continue
+                got, ok = dst.receive(w)
+                t2 = time.perf_counter()
+                off = int(rtp_header.parse(got).payload_off[0])
+                require(bool(ok[0]) and got.to_bytes(0)[off:] == frame,
+                        f"stream_zrtp: pair {k} tick {t}: the frame did "
+                        "not come back as sent")
+                if timed:
+                    times.setdefault(f"send_aes{key}", []).append(t1 - t0)
+                    times.setdefault(f"receive_aes{key}", []).append(t2 - t1)
+    return dict(wire=wire, times=times)
+
+
+class _Exported:
+    """A completed control's exported keys and SSRC, picklable: what
+    `MediaStream.start(srtp_control=...)` reads of it."""
+
+    def __init__(self, ctl):
+        prof, *keys = ctl.srtp_keys()
+        self.ssrc, self.keys = ctl.ssrc, (prof.name, *keys)
+
+    def srtp_keys(self):
+        from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+        return (SrtpProfile[self.keys[0]], *self.keys[1:])
+
+
+def _zrtp_twin(ctls: dict, frames) -> dict:
+    """The CPU twin of some pairs (`ctls`: pair -> exported keys of both
+    ends): the same streams on a `MediaService` and far registry with
+    `device="cpu"`, one PyTorch thread, in a process of its own; their
+    sends' wire."""
+    import torch
+
+    from libjitsi_tpu_torch.core.config import ConfigurationService
+    from libjitsi_tpu_torch.service.media_service import MediaService
+    from libjitsi_tpu_torch.service.media_stream import StreamRegistry
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    svc = MediaService(ConfigurationService(
+        {"libjitsi_tpu.stream_capacity": MS_WIDTH}), device="cpu")
+    far = StreamRegistry(MS_WIDTH, device="cpu")
+    streams = _zrtp_streams(svc, far, ctls, sorted(ctls))
+    res = _zrtp_drive(streams, frames, timed=False, receive=False)
+    return dict(wire=res["wire"], seconds=time.perf_counter() - t0)
+
+
+def stream_zrtp_run(torch, dev, setup) -> dict:
+    """The ZRTP-keyed streams on the card, counted: ZRTP_TICKS ticks both
+    ways (kernels C and D, AES-128 and AES-256 instances)."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    res = _zrtp_drive(setup["streams"], setup["frames"], timed=True)
+    res["launches_per_tick"] = {k: v / ZRTP_TICKS
+                                for k, v in kbuild.launches.items()}
+    res["instances"] = dict(kbuild.instance_launches)
+    return res
+
+
+def stream_zrtp_check(torch, dev, run, setup) -> None:
+    """Gates: the AES-256 instances of C and D launched; ZRTP_TWIN pairs
+    of each suite put the same wire on the line as their CPU twin (the
+    same streams on `device="cpu"`, started with the same exported keys
+    and counters).  Prints the `stream_zrtp` line with each call's
+    p50/p99 by key length."""
+    inst = run["instances"]
+    for name in ZRTP_INSTANCES:
+        require(inst.get(name, 0) > 0, f"stream_zrtp did not launch {name}")
+    suites = setup["suites"]
+    t0 = time.perf_counter()
+    try:
+        twins = [f.result() for f in setup["twins"]]
+    finally:
+        setup["pool"].shutdown()
+    wait_s = time.perf_counter() - t0
+    n_twin = 0
+    for twin in twins:
+        for k, wire in twin["wire"].items():
+            require(wire == run["wire"][k], f"stream_zrtp: pair {k} "
+                    f"({suites[k]}) on the card differs from the CPU twin")
+            n_twin += 1
+    times = {k: np.array(v) * 1e3 for k, v in run["times"].items()}
+    emit("stream_zrtp", pairs=MS_PAIRS, registry_rows=MS_WIDTH,
+         ticks=ZRTP_TICKS, suites={s: suites.count(s)
+                                   for s in sorted(set(suites))},
+         key_agreement="EC25 and DH3k" if setup["have_ec"] else "DH3k",
+         sas_equal=True, continuity_held=True,
+         **{f"{k}_ms_p50": float(np.median(v)) for k, v in times.items()},
+         **{f"{k}_ms_p99": float(np.percentile(v, 99))
+            for k, v in times.items()},
+         instances={k: v for k, v in inst.items() if v},
+         cpu_twin_pairs=n_twin, cpu_twin_equal=True,
+         cpu_twin_s=max(t["seconds"] for t in twins),
+         cpu_twin_wait_s=wait_s, launches_per_tick={
+             k: v for k, v in run["launches_per_tick"].items() if v})
 
 
 if __name__ == "__main__":

@@ -99,7 +99,7 @@ JOURNEY_BUCKETS = (0.0005, 0.001, 0.002, 0.005, 0.01, 0.02, 0.05,
 
 def is_dtls(first_byte: np.ndarray) -> np.ndarray:
     """RFC 5764 §5.1.2 demux: first byte in [20..63] = DTLS record.  The
-    rule of `libjitsi_tpu/control/dtls.py` `is_dtls`, applied to the
+    rule of `libjitsi_tpu_torch.control.dtls.is_dtls`, applied to the
     first bytes of a whole batch at once."""
     return (first_byte >= 20) & (first_byte <= 63)
 

@@ -10,7 +10,8 @@ reused.  Nothing here runs at import: the CPU tests import every module
 of the port on a machine without `nvcc`.
 
 Launch accounting: every wrapper adds one to `launches[name]` where it
-launches its kernel, and every plain PyTorch version adds one to
+launches its kernel (the SRTP wrappers also to `instance_launches` under
+the instance's AES rounds), and every plain PyTorch version adds one to
 `plain_calls[name]` when it runs.  A run shows it went through the
 kernels by resetting both, driving its path, and reading them back.
 """
@@ -47,6 +48,11 @@ KERNELS = ("aes_encrypt", "hmac_sha1", "srtp_protect_cm", "srtp_unprotect_cm",
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+#: launches of each AES-rounds instance of the SRTP and SRTCP kernels (C,
+#: D, I, J, K, L and their NULL instances), keyed as "srtp_protect_cm
+#: nr=14": a wrapper counts its instance beside its kernel, where it
+#: launches
+instance_launches: Dict[str, int] = {}
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -139,6 +145,12 @@ def reset_counts() -> None:
     for name in KERNELS:
         launches[name] = 0
         plain_calls[name] = 0
+    instance_launches.clear()
+
+
+def count_instance(name: str, nr: int) -> None:
+    key = f"{name} nr={nr}"
+    instance_launches[key] = instance_launches.get(key, 0) + 1
 
 
 def _nvcc() -> str:

@@ -33,10 +33,16 @@ The first joiner's codec sets the bridge clock (rate and frame); legs at
 another rate with the same ptime resample to it on deposit and from it on
 egress, one launch of kernel R a same-rate group (a deposit group, an
 egress kind).  Keying is SDES-style static master keys per participant
-(rx = what the participant sends with, tx = what we send to them with).
-`device` None means the card; the tests pass device="cpu".  The bank and
-mixer stages run inside `record_function` spans `decode` and `mixer`, and
-R's calls inside `resample`, beside the loop's own.
+(rx = what the participant sends with, tx = what we send to them with),
+or DTLS-SRTP (`add_participant_dtls`, as in the JAX bridge: the row joins
+the mix at once, a `control.dtls.DtlsAssociationTable` on the loop's
+`on_dtls` drives the handshake, early media is held and replayed when the
+exported keys install, and a row without installed tx keys gets no
+egress).  `recorder=` takes a `recording.Recorder`, told of each
+dominant-speaker change.  `device` None means the card; the tests pass
+device="cpu".  The bank and mixer stages run inside `record_function`
+spans `decode` and `mixer`, and R's calls inside `resample`, beside the
+loop's own.
 
 `snapshot()` / `ConferenceBridge.restore(snap, device=...)` checkpoint and
 resume a conference in the JAX bridge's format, from a snapshot of either
@@ -44,10 +50,9 @@ package: SRTP tables, jitter rings, rows, codecs by name (G.722 and Opus
 resume with fresh codec state: `degraded_rows`), the recorded clock, TX
 counters, speaker scores and latched addresses.
 
-Not ported: the JAX bridge's `config` argument and DTLS joins
-(`add_participant_dtls` raises `NotImplementedError`, ROADMAP Queue 1,
-item 9), the G.729 and iLBC legs (item 9, `NotImplementedError`), the
-mesh mode and sharded snapshots (item 12), the recorder (item 9).
+Not ported: the JAX bridge's `config` argument, the G.729 and iLBC legs
+(ROADMAP Queue 1, item 9, `NotImplementedError`), the mesh mode and
+sharded snapshots (item 12).
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from torch.profiler import record_function
 
 from libjitsi_tpu_torch.conference.mixer import AudioMixer
 from libjitsi_tpu_torch.conference.speaker import DominantSpeakerIdentification
+from libjitsi_tpu_torch.control.dtls import DtlsAssociationTable
 from libjitsi_tpu_torch.core.device import DeviceLike, resolve_device, to_device
 from libjitsi_tpu_torch.io.loop import MediaLoop
 from libjitsi_tpu_torch.io.udp import UdpEngine
@@ -87,9 +93,9 @@ class ConferenceBridge:
                  ptime_ms: int = 20, kernel_timestamps: bool = False,
                  recv_window_ms: int = 1,
                  audio_level_ext_id: int = 1,
-                 on_speaker_change=None, pipelined: bool = False,
-                 pipeline_depth: int = 1, plc: bool = False,
-                 device: DeviceLike = None):
+                 on_speaker_change=None, recorder=None,
+                 pipelined: bool = False, pipeline_depth: int = 1,
+                 plc: bool = False, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.capacity = capacity
         self.profile = profile
@@ -113,6 +119,7 @@ class ConferenceBridge:
              SrtpTransformEngine(self.tx_table, self.rx_table)])
         # dominant-speaker detection fed by the mixer's per-tick levels
         self.on_speaker_change = on_speaker_change
+        self.recorder = recorder
         self.speaker = DominantSpeakerIdentification(
             capacity, on_change=self._speaker_changed)
         self.speaker_events: List[Tuple[int, int]] = []  # (tick, sid)
@@ -120,8 +127,11 @@ class ConferenceBridge:
             UdpEngine(port=port, max_batch=4 * capacity,
                       kernel_timestamps=kernel_timestamps),
             self.registry, on_media=self._on_media, chain=self.chain,
+            on_dtls=lambda d, a: self._dtls.on_dtls(d, a),
             recv_window_ms=recv_window_ms, pipelined=pipelined,
             pipeline_depth=pipeline_depth)
+        self._dtls = DtlsAssociationTable(self.loop, profile,
+                                          self._install_dtls)
         self.port = self.loop.engine.port
         # one mixer frame clock per bridge (the first codec sets it)
         self._frame_samples: Optional[int] = None
@@ -145,6 +155,15 @@ class ConferenceBridge:
         `rx_key` protects what the participant sends us; `tx_key`
         protects what we send them (SDES-style separate directions).
         """
+        sid = self._register_media(ssrc, codec)
+        self.rx_table.add_stream(sid, *rx_key)
+        self.tx_table.add_stream(sid, *tx_key)
+        return sid
+
+    def _register_media(self, ssrc: int,
+                        codec: Optional[FrameCodec]) -> int:
+        """The join's half that needs no keys: row, demux, bank, mixer
+        and speaker rows."""
         codec = codec or g711_codec(ptime_ms=self.ptime_ms,
                                     device=self.device)
         if (codec.frame_samples * 1000
@@ -158,8 +177,6 @@ class ConferenceBridge:
             raise ValueError(f"ssrc {ssrc:#x} already joined")
         sid = self.registry.alloc(self)
         self._attach_media_row(sid, ssrc, codec)
-        self.rx_table.add_stream(sid, *rx_key)
-        self.tx_table.add_stream(sid, *tx_key)
         return sid
 
     def _attach_media_row(self, sid: int, ssrc: int,
@@ -203,10 +220,21 @@ class ConferenceBridge:
                              remote_fingerprint: Optional[str] = None,
                              cookie_exchange: bool = False,
                              remote_addr=None):
-        """A join keyed by DTLS-SRTP (JAX `service/bridge.py:234`); the
-        port has no DTLS control yet."""
-        raise NotImplementedError(
-            "DTLS-keyed joins are not ported yet (ROADMAP Queue 1, item 9)")
+        """Join keyed by DTLS-SRTP: the media row registers now, the SRTP
+        keys install when the handshake completes, and early media is
+        queued and replayed (`MediaLoop.hold_stream`).  Returns (sid,
+        endpoint); pass `remote_addr` (ip as u32, port) when signaling
+        knows the peer's 5-tuple.  Reference: DtlsControlImpl under
+        MediaStream.start (SURVEY §3.5)."""
+        sid = self._register_media(ssrc, codec)
+        ep = self._dtls.join(sid, role, remote_fingerprint,
+                             cookie_exchange, remote_addr)
+        return sid, ep
+
+    def _install_dtls(self, sid: int, ep) -> None:
+        _profile, tk, tsalt, rk, rsalt = ep.srtp_keys()
+        self.rx_table.add_stream(sid, rk, rsalt)
+        self.tx_table.add_stream(sid, tk, tsalt)
 
     def remove_participant(self, sid: int) -> None:
         """Leave: every per-row residue must go — a recycled sid must
@@ -217,6 +245,7 @@ class ConferenceBridge:
             self.registry.unmap_ssrc(ssrc)
         self.rx_table.remove_stream(sid)
         self.tx_table.remove_stream(sid)
+        self._dtls.forget(sid)
         self.loop.addr_ip[sid] = 0
         self.loop.addr_port[sid] = 0
         self.bank.remove_stream(sid)
@@ -236,6 +265,8 @@ class ConferenceBridge:
         dominant speaker."""
         self._now = time.time() if now is None else now
         rx = self.loop.tick()
+        if self._dtls.pending:
+            self._dtls.tick()         # DTLS flight retransmission
         if self.bank is None:         # no participants yet
             return {"rx": rx, "mixed": 0, "tx": 0, "trace": self.loop.ticks,
                     "levels": np.zeros(0, dtype=np.uint8), "dominant": -1}
@@ -253,8 +284,11 @@ class ConferenceBridge:
 
     def _speaker_changed(self, sid: int) -> None:
         self.speaker_events.append((self.ticks, sid))
+        ssrc = self._ssrc_of.get(sid)
+        if self.recorder is not None and ssrc is not None:
+            self.recorder.on_speaker_change(ssrc)
         if self.on_speaker_change is not None:
-            self.on_speaker_change(sid, self._ssrc_of.get(sid))
+            self.on_speaker_change(sid, ssrc)
 
     def _update_egress_levels(self, levels: np.ndarray) -> None:
         """Each receiver's egress level = loudest OTHER contributor
@@ -274,8 +308,15 @@ class ConferenceBridge:
         through the forward chain to their latched address.  The rows of
         one codec kind leave the bridge clock in one launch of kernel R
         (off-rate kinds only); a G.711 law's rows then encode as ONE
-        launch of kernel F, and stateful legs one host encode a row."""
-        active = [sid for sid in self._codec if self.loop.addr_port[sid] != 0]
+        launch of kernel F, and stateful legs one host encode a row.  A
+        row without installed tx keys gets nothing: a pending DTLS row
+        has a latched address (the handshake's 5-tuple) but sending would
+        put zero-key "protected" frames on the wire mid-handshake (the
+        JAX bridge's pending exclusion), and a row whose handshake was
+        refused never gets keys."""
+        active = [sid for sid in self._codec
+                  if self.loop.addr_port[sid] != 0
+                  and self.tx_table.active[sid]]
         if not active:
             return 0
         payloads: Dict[int, bytes] = {}
@@ -330,9 +371,12 @@ class ConferenceBridge:
         scores and latched addresses.  G.711 legs resume bit-exactly;
         G.722 and Opus legs resume with fresh codec state
         (`degraded_rows`) while their SRTP state carries over exactly.  A
-        pipelined tick's last mixes are sent first."""
+        pipelined tick's last mixes are sent first.  Rows mid-DTLS are
+        left out (they rejoin through signaling), as in the SFU
+        snapshot."""
         self.loop.flush_sends()
-        keyed = dict(self._ssrc_of)
+        keyed = {sid: ssrc for sid, ssrc in self._ssrc_of.items()
+                 if sid not in self._dtls.pending}
         return {
             "capacity": self.capacity,
             "profile": self.profile.name,

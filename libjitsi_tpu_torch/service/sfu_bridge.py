@@ -51,10 +51,20 @@ every engine takes SO_TIMESTAMPNS stamps, and the receive-side GCC
 ingest engine (`io/udp.py`); `snapshot()` records `ingest_rings` and
 `engine_mode`; `restore()` takes them unless the caller passes its own.
 
+DTLS-SRTP joins (`add_endpoint_dtls`, as in the JAX bridge): the row is
+allocated and its SSRC mapped at once, a `control.dtls.DtlsAssociationTable`
+takes the loop's DTLS datagrams (`on_dtls`) and drives the handshake, and
+media racing it is held on the loop and replayed when the exported keys
+install (`_install_dtls`; `stage_dtls_keys` is the staged twin for a
+lifecycle plane).  A row without installed keys (pending, or refused on a
+fingerprint mismatch) is kept out of the routes and snapshots.
+`set_conference` scopes a joined row to a conference id (the port's; the
+JAX bridge scopes only `stage_endpoints` rows).
+
 Not ported, each raising `NotImplementedError` with its ROADMAP Queue 1
-item: DTLS joins (item 9), video and SVC tracks with RTX encapsulation
-(item 9), mesh mode, cascade trunks, broadcast conferences and endpoint
-migration (item 12).  The JAX bridge's `config` argument is not taken.
+item: video and SVC tracks with RTX encapsulation (item 9), mesh mode,
+cascade trunks, broadcast conferences and endpoint migration (item 12).
+The JAX bridge's `config` argument is not taken.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from libjitsi_tpu_torch.bwe.batched import BatchedRemoteBitrateEstimator
+from libjitsi_tpu_torch.control.dtls import DtlsAssociationTable
 from libjitsi_tpu_torch.core.device import DeviceLike, resolve_device
 from libjitsi_tpu_torch.core.packet import PacketBatch
 from libjitsi_tpu_torch.io.loop import MediaLoop
@@ -134,9 +145,14 @@ class SfuBridge:
                       kernel_timestamps=kernel_timestamps,
                       engine_mode=engine_mode,
                       reuseport=self.ingest_rings > 1), self.registry,
-            on_media=self._on_media, on_rtcp=self._on_rtcp, chain=None,
+            on_media=self._on_media, on_rtcp=self._on_rtcp,
+            on_dtls=lambda d, a: self._dtls.on_dtls(d, a), chain=None,
             recv_window_ms=recv_window_ms, pipeline_depth=pipeline_depth)
         self.port = self.loop.engine.port
+        # pending DTLS-SRTP associations: routing of their datagrams,
+        # flight retransmission and the early-media hold
+        self._dtls = DtlsAssociationTable(self.loop, profile,
+                                          self._install_dtls)
         # SO_REUSEPORT siblings on the same port, drained every tick
         for _ in range(self.ingest_rings - 1):
             self.loop.add_ring(UdpEngine(
@@ -222,6 +238,7 @@ class SfuBridge:
             self._tx_keys.pop(sid, None)
             self._recv_bw.pop(sid, None)
             self._conf_of.pop(sid, None)
+            self._dtls.forget(sid)
             if sid in self._staged:
                 # left before its admit flipped live: drop held media
                 self._staged.discard(sid)
@@ -303,9 +320,13 @@ class SfuBridge:
 
     def _rebuild_routes(self) -> None:
         """Full mesh within each conference: every sender forwards to
-        every OTHER live endpoint; staged rows stay out until their
-        commit."""
-        sids = [s for s in sorted(self._ssrc_of) if s not in self._staged]
+        every OTHER live endpoint.  Rows without leg keys stay out: a
+        DTLS row until its keys install (the JAX bridge's pending
+        exclusion) and for good once its handshake was refused (the JAX
+        bridge routes such a row again, under keys never installed);
+        staged rows stay out until their commit."""
+        sids = [s for s in sorted(self._ssrc_of)
+                if s in self._tx_keys and s not in self._staged]
         if self._conf_of:
             groups: Dict[int, list] = {}
             for s in sids:
@@ -317,13 +338,70 @@ class SfuBridge:
             for s in sids:
                 self.translator.connect(s, [r for r in sids if r != s])
 
+    def set_conference(self, sid: int, conference: Optional[int]) -> None:
+        """Scope a joined row's forwarding to `conference` (None: the
+        shared mesh of rows without one), as `stage_endpoints`'
+        `conferences` does for its rows."""
+        if sid not in self._ssrc_of:
+            raise ValueError(f"sid {sid} has not joined")
+        if conference is None:
+            self._conf_of.pop(sid, None)
+        else:
+            self._conf_of[sid] = int(conference)
+        if sid in self._tx_keys and sid not in self._staged:
+            self._quiesce_fanout()
+            self._rebuild_routes()
+
+    # ------------------------------------------------------------- DTLS
+    def add_endpoint_dtls(self, ssrc: int, role: str = "server",
+                          remote_fingerprint: Optional[str] = None,
+                          cookie_exchange: bool = False,
+                          remote_addr=None):
+        """Join keyed by DTLS-SRTP instead of direct keys: allocates the
+        row and starts an association; media arriving before the
+        handshake finishes is queued (`MediaLoop.hold_stream`) and
+        replayed once keys install.  Returns (sid, endpoint): publish
+        `endpoint.local_fingerprint` through signaling, and pass
+        `remote_addr` (ip as u32, port) when signaling knows the peer's
+        5-tuple (with several unbound joins at once, a datagram from an
+        unknown address is dropped rather than guessed onto a row).  A
+        `role="client"` endpoint's first flight is the caller's to send
+        (`endpoint.handshake_packets()`).  Reference: DtlsControlImpl
+        started by MediaStream.start (SURVEY §3.5)."""
+        if ssrc in self._ssrc_of.values():
+            raise ValueError(f"ssrc {ssrc:#x} already joined")
+        sid = self.registry.alloc(self)
+        self.registry.map_ssrc(ssrc, sid)
+        self._ssrc_of[sid] = ssrc & 0xFFFFFFFF
+        ep = self._dtls.join(sid, role, remote_fingerprint,
+                             cookie_exchange, remote_addr)
+        return sid, ep
+
+    def _install_dtls(self, sid: int, ep) -> None:
+        """The association table's install hook (inline mode): the
+        exported keys into both SRTP tables and the translator leg, then
+        one route rebuild that takes the row in."""
+        self._quiesce_fanout()
+        self._land_dtls_keys(sid, ep)
+        self._rebuild_routes()
+
+    def stage_dtls_keys(self, sid: int, ep) -> None:
+        """Staged landing for a completed DTLS handshake (a lifecycle
+        plane's deferred table): install the exported keys for the
+        already-allocated row and leave it staged; `commit_endpoints`
+        flips it live between ticks and replays its held media."""
+        self._land_dtls_keys(sid, ep)
+        self._staged.add(sid)
+
+    def _land_dtls_keys(self, sid: int, ep) -> None:
+        _profile, tk, tsalt, rk, rsalt = ep.srtp_keys()
+        self.rx_table.add_stream(sid, rk, rsalt)
+        self.tx_table.add_stream(sid, tk, tsalt)
+        self.translator.add_receiver(sid, tk, tsalt)
+        self._rx_keys[sid] = (rk, rsalt)
+        self._tx_keys[sid] = (tk, tsalt)
+
     # ------------------------------------------------ not ported entries
-    def add_endpoint_dtls(self, *args, **kwargs):
-        raise _not_ported("DTLS-keyed joins", 9)
-
-    def stage_dtls_keys(self, *args, **kwargs):
-        raise _not_ported("DTLS-keyed joins", 9)
-
     def add_video_track(self, *args, **kwargs):
         raise _not_ported("simulcast video tracks and RTX", 9)
 
@@ -560,6 +638,9 @@ class SfuBridge:
             # no media this tick to ship it: flush here (a fan-out
             # dispatched this tick keeps its overlap with the next window)
             self._flush_fanout()
+        if self._dtls.pending and not self._dtls.deferred:
+            # the flight pass (a deferred table's runs off-tick)
+            self._dtls.tick()
         return {"rx": rx, "forwarded": self.forwarded,
                 "retransmitted": self.retransmitted}
 

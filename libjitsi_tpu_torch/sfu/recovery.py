@@ -23,6 +23,10 @@ around RTCP termination, SURVEY §2.2/§2.3):
 - **RecoveryController**: the bridge-side composition, with the
   overload rungs a supervisor drives (`shed_fec`, `throttle_rtx`):
   under overload FEC sheds first, then the RTX budget shrinks.
+- **RecoveringReceiver**: the endpoint-side composition at the wire
+  layer (pre-SRTP): gap tracking, deadline-aware NACK emission, FEC
+  recovery of protected wire packets, and PLC accounting for what the
+  ladder could not bring back in time.
 
 FEC rides a separate stream per protected SSRC (RFC 5109
 separate-stream variant): SSRC = media_ssrc ^ "FEC", own PT and seq
@@ -32,11 +36,10 @@ still authenticated by SRTP — forged FEC cannot inject media, it can
 only fail auth.
 
 Counterpart: `libjitsi_tpu/sfu/recovery.py` (copied; host only):
-`RecoveryConfig`, `TokenBucket`, `NackScheduler`, `AdaptiveFecSender` and
-`RecoveryController`.  Not copied: the endpoint-side
-`RecoveringReceiver`, the metrics registration and the flight-recorder
-events, which the port does not have yet (ROADMAP Queue 1, items 4 and
-9).
+`RecoveryConfig`, `TokenBucket`, `NackScheduler`, `AdaptiveFecSender`,
+`RecoveryController` and `RecoveringReceiver` with its
+`register_metrics`.  Not copied: `RecoveryController.register_metrics`
+and the flight-recorder events.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from typing import Dict, List, Optional, Tuple
 
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.rtp.loss import LossTracker
-from libjitsi_tpu_torch.transform.fec import build_fec
+from libjitsi_tpu_torch.transform.fec import FecReceiver, build_fec
 #: SSRC of a stream's FEC companion stream ("FEC" xor, like _VideoTrack's
 #: RTX_SSRC_XOR convention).
 FEC_SSRC_XOR = 0x00464543
@@ -395,3 +398,106 @@ class RecoveryController:
         self.rtx_throttled = throttled
         self.rtx_bucket.set_scale(
             self.cfg.rtx_throttle_scale if throttled else 1.0)
+
+
+class RecoveringReceiver:
+    """Endpoint-side recovery at the wire layer (pre-SRTP).
+
+    Feed every arriving wire packet through `on_wire`; it classifies by
+    SSRC (media vs the stream's FEC companion), tracks gaps, buffers
+    wire packets for FEC, and returns the packets newly available to
+    the decrypt path — the arriving packet itself and/or an FEC
+    recovery.  `poll(now)` drives the NACK schedule: it returns the
+    {media_ssrc: [seq]} lists to send upstream and conceals (PLC) what
+    passed its playout deadline unrecovered.
+
+    The playout deadline of a lost packet is `detection + playout_delay`
+    — the jitter-buffer depth a real receiver would run.  Recovery that
+    lands after that is useless, so it is never requested
+    (`nacks_suppressed_deadline`) and the frame is concealed
+    (`plc_frames`).
+    """
+
+    def __init__(self, cfg: Optional[RecoveryConfig] = None,
+                 playout_delay_s: float = 0.2):
+        self.cfg = cfg or RecoveryConfig()
+        self.playout_delay = playout_delay_s
+        self.nacks = NackScheduler(self.cfg)
+        self._trackers: Dict[int, LossTracker] = {}
+        self._fec_rx: Dict[int, FecReceiver] = {}
+        self._media_of_fec: Dict[int, int] = {}
+        self.plc_frames = 0
+        self.rtx_recovered = 0
+
+    def add_stream(self, media_ssrc: int,
+                   fec_ssrc: Optional[int] = None) -> None:
+        media_ssrc = int(media_ssrc) & 0xFFFFFFFF
+        self._trackers[media_ssrc] = LossTracker(self.cfg.max_gap)
+        self._fec_rx[media_ssrc] = FecReceiver()
+        if fec_ssrc is None:
+            fec_ssrc = (media_ssrc ^ FEC_SSRC_XOR) & 0xFFFFFFFF
+        self._media_of_fec[int(fec_ssrc) & 0xFFFFFFFF] = media_ssrc
+
+    @property
+    def fec_recovered(self) -> int:
+        return sum(fr.recovered for fr in self._fec_rx.values())
+
+    def on_wire(self, ssrc: int, seq: int, packet: bytes,
+                now: float) -> List[bytes]:
+        """One arriving wire packet -> packets ready for unprotect."""
+        ssrc = int(ssrc) & 0xFFFFFFFF
+        media = self._media_of_fec.get(ssrc)
+        if media is not None:
+            return self._on_fec(media, packet, now)
+        tr = self._trackers.get(ssrc)
+        if tr is None:
+            return [packet]                       # untracked stream
+        losses, advanced = tr.observe(int(seq))
+        if losses:
+            self.nacks.on_losses(ssrc, losses, now,
+                                 deadline=now + self.playout_delay)
+        elif not advanced:
+            if self.nacks.on_arrival(ssrc, int(seq)):
+                self.rtx_recovered += 1
+        self._fec_rx[ssrc].push_media(packet)
+        return [packet]
+
+    def _on_fec(self, media_ssrc: int, fec_packet: bytes,
+                now: float) -> List[bytes]:
+        # bridge FEC packets carry a bare 12-byte RTP header
+        recovered = self._fec_rx[media_ssrc].push_fec(fec_packet[12:],
+                                                      media_ssrc)
+        if recovered is None:
+            return []
+        seq = int.from_bytes(recovered[2:4], "big")
+        self.nacks.on_arrival(media_ssrc, seq)
+        tr = self._trackers.get(media_ssrc)
+        if tr is not None:
+            tr.observe(seq)                       # late-arrival bookkeeping
+        return [recovered]
+
+    def poll(self, now: float) -> Dict[int, List[int]]:
+        """Collect this round's NACK lists; conceal expired losses."""
+        nacks, expired = self.nacks.collect(now)
+        self.plc_frames += sum(len(v) for v in expired.values())
+        return nacks
+
+    def register_metrics(self, registry,
+                         prefix: str = "recv_recovery") -> None:
+        registry.register_counters(self.nacks, (
+            ("nacks_sent", "lost seqs NACKed toward the bridge"),
+            ("nacks_suppressed_deadline",
+             "NACKs suppressed: recovery could not beat playout"),
+            ("recovered_late", "pending seqs recovered in time"),
+        ), prefix=prefix)
+        registry.register_scalar(
+            f"{prefix}_fec_recovered", lambda: self.fec_recovered,
+            help_="packets rebuilt from FEC", kind="counter")
+        registry.register_scalar(
+            f"{prefix}_plc_frames", lambda: self.plc_frames,
+            help_="frames concealed after the ladder ran out",
+            kind="counter")
+        registry.register_scalar(
+            f"{prefix}_rtx_recovered", lambda: self.rtx_recovered,
+            help_="pending seqs recovered by retransmission",
+            kind="counter")

@@ -187,6 +187,7 @@ def srtp_protect(tab_rk, tab_mid, stream, data, length, payload_off, iv,
             tab_rk.shape[1] - 1, tag_len, _k.stream_handle(dev))
         _k.check(rc, name)
         _k.launches[name] += 1
+        _k.count_instance(name, tab_rk.shape[1] - 1)
     return out, out_len
 
 
@@ -222,6 +223,7 @@ def srtp_unprotect(tab_rk, tab_mid, stream, data, length, payload_off, iv,
             _k.stream_handle(dev))
         _k.check(rc, name)
         _k.launches[name] += 1
+        _k.count_instance(name, tab_rk.shape[1] - 1)
     return out, mlen, auth_ok
 
 
@@ -444,6 +446,7 @@ def srtcp_protect(tab_rk, tab_mid, stream, data, length, iv, index_word,
             tab_rk.shape[1] - 1, tag_len, _k.stream_handle(dev))
         _k.check(rc, name)
         _k.launches[name] += 1
+        _k.count_instance(name, tab_rk.shape[1] - 1)
     return out, out_len
 
 
@@ -477,6 +480,7 @@ def srtcp_unprotect(tab_rk, tab_mid, stream, data, length, iv,
             _k.stream_handle(dev))
         _k.check(rc, name)
         _k.launches[name] += 1
+        _k.count_instance(name, tab_rk.shape[1] - 1)
     return out, mlen, auth_ok, e_bit, index
 
 

@@ -307,19 +307,48 @@ def test_bridge_refuses_what_is_not_ported():
 
 
 def test_add_participant_dtls_names_item_9():
-    """The DTLS join exists with the JAX signature and refuses naming
-    ROADMAP item 9 (it was missing: an AttributeError), claiming no row."""
+    """The DTLS join keeps the JAX signature (it refused, naming ROADMAP
+    item 9, before DTLS was ported): it claims a row at once, which stays
+    pending, keyless and out of the egress and the snapshot until the
+    handshake completes, then takes the exported keys."""
     import inspect
+
+    from libjitsi_tpu_torch.control.dtls import StubDtlsEndpoint
 
     assert list(inspect.signature(
         ConferenceBridge.add_participant_dtls).parameters) == list(
         inspect.signature(JaxBridge.add_participant_dtls).parameters)
     bridge = ConferenceBridge(port=0, capacity=4, device="cpu")
+    bridge._dtls.endpoint_factory = StubDtlsEndpoint
     try:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            bridge.add_participant_dtls(0x77, role="client",
-                                        remote_fingerprint="sha-256 AB")
-        assert bridge.registry.free_slots == 4
+        addr = (0x7F000001, 40000)
+        sid, ep = bridge.add_participant_dtls(0x77, role="server",
+                                              remote_addr=addr)
+        assert sid == 0 and bridge.registry.free_slots == 3
+        assert sid in bridge._dtls.pending and not ep.complete
+        assert not bridge.tx_table.active[sid]
+        bridge.loop.addr_ip[sid], bridge.loop.addr_port[sid] = addr
+        bridge.tick(now=5.0)
+        assert bridge._send_mixes(np.zeros((4, 160), np.int16)) == 0
+        assert bridge.snapshot()["ssrc_of"] == {}
+        client = StubDtlsEndpoint("client")
+        out = client.handshake_packets()
+        while out:
+            back = [r for d in out for r in bridge._dtls.on_dtls(d, addr)]
+            out = [r for d in back for r in client.feed(d)]
+        assert ep.complete and client.complete
+        assert sid not in bridge._dtls.pending
+        assert bridge.tx_table.active[sid] and bridge.rx_table.active[sid]
+        assert bridge.snapshot()["ssrc_of"] == {sid: 0x77}
+        # the client's tx keys landed as the row's rx keys, and back
+        _, ctk, cts, crk, crs = client.srtp_keys()
+        for table, key in ((bridge.rx_table, (ctk, cts)),
+                           (bridge.tx_table, (crk, crs))):
+            ref = SrtpStreamTable(4, device="cpu")
+            ref.add_stream(sid, *key)
+            for k in ("rk_rtp", "mid_rtp", "salt_rtp"):
+                assert np.array_equal(np.asarray(table.snapshot()[k])[sid],
+                                      np.asarray(ref.snapshot()[k])[sid]), k
     finally:
         bridge.close()
 

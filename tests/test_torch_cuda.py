@@ -1430,3 +1430,134 @@ def test_quick_start_on_the_card(cuda_device, profile):
         assert b.stats["rx_packets"] == 1
     finally:
         libjitsi_tpu_torch.stop()
+
+
+def _zrtp_pair(a_algs):
+    from libjitsi_tpu_torch.control.zrtp import ZrtpEndpoint
+
+    a, b = ZrtpEndpoint(ssrc=1, algorithms=a_algs), ZrtpEndpoint(ssrc=2)
+    wire = [(b, p) for p in a.hello_packets()] + \
+        [(a, p) for p in b.hello_packets()]
+    started = False
+    for _ in range(30):
+        wire = [(a if dst is b else b, r) for dst, p in wire
+                for r in dst.feed(p)]
+        if not started and b"Hello   " in a._peer:
+            wire += [(b, p) for p in a.initiate()]
+            started = True
+    assert a.complete and b.complete and a.sas == b.sas
+    return a, b
+
+
+def test_zrtp_keyed_streams_at_aes256_on_the_card(cuda_device):
+    """A ZRTP pair that negotiates AES3 keys two `MediaStream`s on the
+    card and two on the CPU: the card's sends run C's AES-256 instance
+    (`srtp_protect_cm nr=14`) and its receives D's, and both put on the
+    wire and take off it exactly what the plain versions do."""
+    from libjitsi_tpu_torch.core.config import ConfigurationService
+    from libjitsi_tpu_torch.service.media_service import MediaService
+
+    a_ctl, b_ctl = _zrtp_pair({"cipher": (b"AES3",), "auth": (b"HS32",)})
+    prof = SrtpProfile.AES_256_CM_HMAC_SHA1_32
+    assert a_ctl.srtp_keys()[0] == prof
+    rng = np.random.default_rng(14)
+    payloads = [rng.bytes(int(n)) for n in rng.integers(20, 900, 33)]
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        svc = MediaService(ConfigurationService(), device=dev)
+        a = svc.create_media_stream(local_ssrc=0x5A, profile=prof)
+        b = svc.create_media_stream(local_ssrc=0x5B, profile=prof)
+        a.set_remote_ssrc(b.local_ssrc)
+        b.set_remote_ssrc(a.local_ssrc)
+        a.start(srtp_control=a_ctl)
+        b.start(srtp_control=b_ctl)
+        a._tx_seq, a._tx_ts = 65530, 0xFFFFFF00        # both wrap
+        kbuild.reset_counts()
+        wire = a.send(payloads)
+        got, ok = b.receive(wire)
+        out[str(dev)] = (list(wire), got.to_payloads(),
+                         np.asarray(ok).tolist(),
+                         dict(kbuild.instance_launches),
+                         sum(kbuild.plain_calls.values()),
+                         {k: kbuild.launches[k] for k in
+                          ("srtp_protect_cm", "srtp_unprotect_cm")})
+    card, cpu = out[str(cuda_device)], out["cpu"]
+    assert card[:3] == cpu[:3] and all(card[2])
+    # every launch (one a size bucket) is the AES-256 instance
+    assert card[5]["srtp_protect_cm"] >= 1 and card[4] == 0
+    assert card[3] == {f"{k} nr=14": v for k, v in card[5].items()}
+    assert [g[-len(p):] for g, p in zip(card[1], payloads)] == payloads
+
+
+def test_dtls_keyed_sfu_on_the_card(cuda_device):
+    """Two endpoints join an `SfuBridge` on the card by DTLS over
+    loopback (OpenSSL where `cryptography` is installed, else the stub):
+    each one's media reaches the other through D and H, and opens under
+    the keys the other exported."""
+    from libjitsi_tpu_torch.control import dtls
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+
+    kind = (dtls.DtlsSrtpEndpoint if dtls.HAVE_CRYPTOGRAPHY
+            else dtls.StubDtlsEndpoint)
+    sfu = SfuBridge(port=0, capacity=4, recv_window_ms=0, device=cuda_device)
+    sfu._dtls.endpoint_factory = kind
+    peers = []
+    try:
+        for ssrc in (0x901, 0x902):
+            eng = UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=64)
+            sid, ep = sfu.add_endpoint_dtls(
+                ssrc, remote_addr=(0x7F000001, eng.port))
+            cli = kind("client", remote_fingerprint=ep.local_fingerprint)
+            ep.remote_fingerprint = cli.local_fingerprint
+            out = cli.handshake_packets()
+            for _ in range(20):
+                if out:
+                    eng.send_batch(PacketBatch.from_payloads(out),
+                                   "127.0.0.1", sfu.port)
+                for _ in range(3):
+                    sfu.tick(now=10.0)
+                got, _, _ = eng.recv_batch(timeout_ms=5)
+                out = [r for d in got.to_payloads() for r in cli.feed(d)]
+                if cli.complete and not sfu._dtls.pending:
+                    break
+            assert cli.complete and sid not in sfu._dtls.pending
+            peers.append((ssrc, eng, cli))
+        wires = []          # the endpoints' media, on the CPU
+        for k, (ssrc, eng, cli) in enumerate(peers):
+            _p, tk, ts, _rk, _rs = cli.srtp_keys()
+            up = SrtpStreamTable(1, device="cpu")
+            up.add_stream(0, tk, ts)
+            b = rtp_header.build([b"dtls-%d-%d" % (k, i) for i in range(3)],
+                                 [100 + i for i in range(3)],
+                                 [960 * i for i in range(3)], [ssrc] * 3,
+                                 111, stream=[0] * 3)
+            wires.append(up.protect_rtp(b))
+        kbuild.reset_counts()
+        for (ssrc, eng, cli), wire in zip(peers, wires):
+            eng.send_batch(wire, "127.0.0.1", sfu.port)
+            for _ in range(3):
+                sfu.tick(now=10.1)
+        assert kbuild.launches["srtp_unprotect_cm"] >= 1
+        assert kbuild.launches["srtp_fanout_cm"] >= 1
+        assert sum(kbuild.plain_calls.values()) == 0
+        for k, (ssrc, eng, cli) in enumerate(peers):
+            _p, _tk, _ts, rk, rs = cli.srtp_keys()
+            down = SrtpStreamTable(1, device="cpu")
+            down.add_stream(0, rk, rs)
+            copies = []
+            for _ in range(5):
+                got, _, _ = eng.recv_batch(timeout_ms=5)
+                copies += [p for p in got.to_payloads()
+                           if not 192 <= p[1] <= 223]
+            dec, ok = down.unprotect_rtp(PacketBatch.from_payloads(
+                copies, stream=[0] * len(copies)))
+            assert len(copies) == 3 and bool(np.asarray(ok).all())
+            hdr = rtp_header.parse(dec)
+            assert [dec.to_bytes(i)[int(hdr.payload_off[i]):]
+                    for i in range(3)] == [b"dtls-%d-%d" % (1 - k, i)
+                                           for i in range(3)]
+    finally:
+        sfu.close()
+        for _s, eng, _c in peers:
+            eng.close()

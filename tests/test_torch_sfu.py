@@ -42,7 +42,7 @@ from libjitsi_tpu_torch.core.packet import PacketBatch
 from libjitsi_tpu_torch.kernels import build as kbuild
 from libjitsi_tpu_torch.rtp import rtcp
 from libjitsi_tpu_torch.sfu import PacketCache, RtcpTermination, RtpTranslator
-from libjitsi_tpu_torch.sfu.recovery import RecoveryController
+from libjitsi_tpu_torch.sfu.recovery import RecoveryConfig, RecoveryController
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
 from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
 from test_torch_threads import one_torch_thread  # noqa: F401
@@ -413,3 +413,70 @@ def _recover(ctl):
 
 def test_recovery_controller_matches_jax():
     assert _recover(RecoveryController()) == _recover(JaxRecovery())
+
+
+def _recv_ladder(rr, registry, seed=7):
+    """The receive side of JAX `tests/test_loss_recovery.py`'s ladder on
+    a seeded trace: 240 wire packets of one sender (seqs across the wrap)
+    with the bridge's FEC companions (k from a 10% report), ~10% bursty
+    loss and one blackholed run, retransmissions of what the NACKs name
+    arriving a round later, and the deadline's concealment."""
+    from libjitsi_tpu.utils.faults import GilbertElliott
+
+    rr.add_stream(0x30)
+    rr.register_metrics(registry)
+    fec_tx = RecoveryController(RecoveryConfig(rtt_s=0.04))
+    fec_tx.on_receiver_report(26)
+    ge = GilbertElliott(p_gb=0.05, p_bg=0.45)
+    rng = np.random.default_rng(seed)
+    wire = []
+    for j in range(240):
+        seq = (65440 + j) & 0xFFFF
+        pkt = bytes([0x80, 111]) + seq.to_bytes(2, "big") + \
+            (j * 960).to_bytes(4, "big") + (0x30).to_bytes(4, "big") + \
+            rng.bytes(int(rng.integers(40, 120)))
+        wire.append((0x30, seq, pkt))
+        fec = fec_tx.fec_protect(0, 0x30, pkt)
+        if fec is not None:
+            wire.append((int.from_bytes(fec[8:12], "big"),
+                         int.from_bytes(fec[2:4], "big"), fec))
+    lost = ge.losses(len(wire), rng)
+    lost[100:108] = True                         # a blackholed run
+    by_seq = {seq: pkt for ssrc, seq, pkt in wire if ssrc == 0x30}
+    out, now, rtx = [], 100.0, []
+    for k, (ssrc, seq, pkt) in enumerate(wire):
+        if not lost[k]:
+            out.append(rr.on_wire(ssrc, seq, pkt, now))
+        if k % 8 == 7:
+            for s_, p_ in rtx:                   # last round's RTX
+                out.append(rr.on_wire(0x30, s_, p_, now))
+            nacks = rr.poll(now)
+            out.append(sorted(nacks.items()))
+            rtx = [(q, by_seq[q]) for q in nacks.get(0x30, [])
+                   if not 100 <= wire.index((0x30, q, by_seq[q])) < 108]
+            now += 0.02
+    for _ in range(15):                          # deadlines expire
+        out.append(sorted(rr.poll(now).items()))
+        now += 0.02
+    out.append((rr.plc_frames, rr.rtx_recovered, rr.fec_recovered,
+                rr.nacks.nacks_sent, rr.nacks.nacks_suppressed_deadline,
+                rr.nacks.recovered_late, rr.nacks.pending_count()))
+    return out, registry.render()
+
+
+def test_recovering_receiver_follows_jax():
+    from libjitsi_tpu.sfu.recovery import RecoveringReceiver as JaxReceiver
+    from libjitsi_tpu.sfu.recovery import RecoveryConfig as JaxConfig
+    from libjitsi_tpu.utils.metrics import MetricsRegistry as JaxRegistry
+    from libjitsi_tpu_torch.sfu.recovery import RecoveringReceiver
+    from libjitsi_tpu_torch.utils.metrics import MetricsRegistry
+
+    got = _recv_ladder(RecoveringReceiver(RecoveryConfig(rtt_s=0.04),
+                                          playout_delay_s=0.2),
+                       MetricsRegistry())
+    want = _recv_ladder(JaxReceiver(JaxConfig(rtt_s=0.04),
+                                    playout_delay_s=0.2), JaxRegistry())
+    assert got == want
+    plc, rtx, fec, sent = got[0][-1][:4]
+    assert plc > 0 and rtx > 0 and fec > 0 and sent > 0
+    assert "recv_recovery_fec_recovered" in got[1]

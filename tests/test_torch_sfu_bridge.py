@@ -327,8 +327,7 @@ def test_sfu_conference_scoping_and_staged_hold():
 
 def test_sfu_entry_points_not_ported_name_their_item():
     sfu = SfuBridge(port=0, capacity=4, device="cpu")
-    for call, item in ((lambda: sfu.add_endpoint_dtls(1), "item 9"),
-                       (lambda: sfu.add_video_track(0, [1], [1e5]),
+    for call, item in ((lambda: sfu.add_video_track(0, [1], [1e5]),
                         "item 9"),
                        (lambda: sfu.migrate_endpoints({0: 1}), "item 12"),
                        (lambda: sfu.set_broadcast_speakers(1, []),
