@@ -201,7 +201,47 @@ version:
                 instances (`srtp_protect_cm nr=14`, `srtp_unprotect_cm
                 nr=14`) required, 16 pairs of each suite equal on the
                 wire to a CPU twin (in processes of their own beside the
-                card's run); each call's p50/p99 at AES-128 and AES-256.
+                card's run); each call's p50/p99 at AES-128 and AES-256;
+  sfu_video     BASELINE config #4's 720p30 3-layer VP8 simulcast
+                (200 kbps 320x180, 700 kbps 640x360, 2.5 Mbps
+                1280x720, 30 fps, 1,200-byte payloads, a keyframe four
+                times a delta frame every 60th frame and after a PLI)
+                published by each endpoint of the sfu cell (100 x 11,
+                its audio row kept) through `add_video_track`, on a
+                bridge of 32,768 rows: 8 ticks from 16 client sockets,
+                the receivers' REMBs in thirds by conference (300 kbps,
+                1.2 and 4 Mbps), a third's changed at tick 4 (up 0 -> 2
+                and down 1 -> 0), 10 receivers NACKing 2 projected seqs
+                at tick 6, `emit_feedback` every tick (kernels C, D, H, I,
+                J); the clients' wire and RTCP are made on the card
+                outside the counts, tick by tick, their keyframes
+                answering the PLIs the bridge sent.  Every copy
+                authenticates under its receiver's projection or RTX row
+                and decrypts to what the bridge projected; each
+                projected stream is gapless; none echoes or crosses a
+                conference; a stream changes layer only on a keyframe's
+                first packet and ends on the layer its REMB picks; each
+                RTX copy decapsulates to the cached original; the
+                client receives every datagram sent.  Then two profiled
+                ticks split the host's time (`_forward_video`, precache
+                inserts, C's call, egress), kernel C is timed at the
+                largest projection launch's shape (its parts padded by
+                `bucket_by_size`), and one conference of 11 runs 6
+                ticks on the card and again with device="cpu",
+                byte-equal (`sfu_video_hold`);
+  sfu_svc       the same with one VP9 SVC track an endpoint (3 spatial x
+                3 temporal layers at the simulcast layers' rates,
+                `add_svc_track`) on 10 conferences x 11, and its hold;
+  video_stream  config #4 itself: a `VideoMediaStream` pair a layer,
+                one second (30 frames a layer) through `send` /
+                `receive` (C, D), the receiver's `SimulcastReceiver` and
+                a `FrameAssembler` a layer returning every frame as
+                sent, a PLI and a FIR through SRTCP answered by
+                keyframes, the top layer written with `WebmWriter` and
+                read back; libvpx encodes where libvpx loads (else
+                synthetic frames), and an H.264 pair (libx264 encode,
+                libavcodec decode) where libavcodec does; it prints
+                which fed it.
 
 Then `exposition` renders the registry of every bridge and loop the run
 built (with the receive banks' metrics registered, and the batcher's),
@@ -499,6 +539,37 @@ ZRTP_SUITES = (("aes3_hs80", 32), ("aes3_hs32", 16), ("dh3k", 16),
                ("multistream", 16), ("continuity", 16))   # the rest default
 ZRTP_TWIN = 16              # pairs of each suite held against a CPU run
 ZRTP_INSTANCES = ("srtp_protect_cm nr=14", "srtp_unprotect_cm nr=14")
+# the video plane: BASELINE config #4's 720p30 3-layer simulcast published
+# by every endpoint of the sfu path's cut of config #5 (100 x 11)
+VIDEO_CONFS = SFU_CONFS
+VIDEO_CAPACITY = 32_768      # registry and table rows
+VIDEO_LAYERS = ((320, 180, 200_000), (640, 360, 700_000),
+                (1280, 720, 2_500_000))      # width, height, bits/s
+VIDEO_FPS = 30
+VIDEO_KEY_EVERY = 60         # every 60th frame of a layer is a keyframe
+VIDEO_KEY_SCALE = 4          # ... four times a delta frame's size
+VIDEO_PAYLOAD = 1200         # VP8/VP9 payload bytes a packet at most
+VIDEO_DESC = 4               # the VP8 descriptor: X, I, 15-bit picture id
+VIDEO_TAG = 8                # the origin tag closing every payload
+VIDEO_REMB = (300_000, 1_200_000, 4_000_000)   # conference c's: c % 3
+VIDEO_TICKS = 8
+VIDEO_SWITCH_TICK = 4        # a third of the receivers changes its REMB
+VIDEO_NACK_TICK = 6
+VIDEO_NACKERS = 10           # receivers NACKing 2 projected seqs each
+VIDEO_NACKED = 2             # (20 x 1,236 bytes: inside the RTX burst)
+VIDEO_PROFILED = 1
+VIDEO_SOCKETS = 16           # client sockets; endpoint k on k % 16
+VIDEO_HOLD_CAPACITY = 512    # the one-conference hold's bridges
+VIDEO_HOLD_TICKS = 6         # its REMBs at 0, switch at 2, NACKs at 4
+RTX_SSRC_XOR = 0x00525458    # the bridge's RTX SSRC: out SSRC ^ "RTX"
+# the sfu_svc path: one VP9 SVC track of 3 spatial x 3 temporal layers
+# an endpoint, at the simulcast layers' rates, on 10 conferences x 11
+SVC_CONFS = 10
+SVC_TICKS = VIDEO_TICKS
+SVC_LAYER_BPS = (200_000, 900_000, 3_400_000)  # cumulative per spatial
+SVC_TIDS = (0, 2, 1, 2)      # the temporal layers' picture pattern
+VS_FRAMES = 30               # video_stream: one second at 30 fps
+VS_PROFILED = 6              # its last frame times, under the profiler
 SOURCES = {
     "aes_encrypt": ("libjitsi_tpu_torch/csrc/aes_encrypt.cu",
                     "libjitsi_tpu/kernels/aes_bitsliced.py:548"),
@@ -599,7 +670,14 @@ PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
                       "srtp_gcm_open", "srtp_fanout_gcm", "srtp_gcm_seal"),
          "conference_dtls": ("srtp_protect_cm", "srtp_unprotect_cm",
                              "mix_minus", "g711_encode", "g711_decode"),
-         "stream_zrtp": ("srtp_protect_cm", "srtp_unprotect_cm")}
+         "stream_zrtp": ("srtp_protect_cm", "srtp_unprotect_cm"),
+         "sfu_video": ("srtp_protect_cm", "srtp_unprotect_cm",
+                       "srtp_fanout_cm", "srtcp_protect_cm",
+                       "srtcp_unprotect_cm"),
+         "sfu_svc": ("srtp_protect_cm", "srtp_unprotect_cm",
+                     "srtp_fanout_cm", "srtcp_protect_cm",
+                     "srtcp_unprotect_cm"),
+         "video_stream": ("srtp_protect_cm", "srtp_unprotect_cm")}
 # the kernel instances a path must launch, as `_kernel_key` names them
 PATH_INSTANCES = {"stream_zrtp": ZRTP_INSTANCES}
 FANOUT_INSTANCES = ("srtp_fanout_null", "srtp_fanout_f8")
@@ -792,6 +870,23 @@ def main(argv=None) -> int:
     zrtp_in = stream_zrtp_setup(torch, dev)
     zrtp = path("stream_zrtp", stream_zrtp_run, torch, dev, zrtp_in)
     stream_zrtp_check(torch, dev, zrtp, zrtp_in)
+    # the video plane: each cell's endpoints, bridge (every track
+    # attached) and the checks' tables are made before the counts are
+    # reset; the clients' wire and RTCP, and the checks' decrypts, are
+    # made during the run but kept out of the counts (`_Uncounted`)
+    video_in = video_setup(torch, dev, "simulcast", VIDEO_CONFS)
+    video = path("sfu_video", video_run, torch, dev, video_in, VIDEO_TICKS)
+    video_check(torch, dev, video_in, video, "sfu_video")
+    emit("sfu_video_hold", **video_hold(torch, dev, "simulcast",
+                                        VIDEO_HOLD_TICKS))
+    svc_in = video_setup(torch, dev, "svc", SVC_CONFS)
+    svc = path("sfu_svc", video_run, torch, dev, svc_in, SVC_TICKS)
+    video_check(torch, dev, svc_in, svc, "sfu_svc")
+    emit("sfu_svc_hold", **video_hold(torch, dev, "svc",
+                                      VIDEO_HOLD_TICKS))
+    vs_in = video_stream_setup(torch, dev)
+    vs = path("video_stream", video_stream_run, torch, dev, vs_in)
+    video_stream_check(torch, dev, vs)
     exposition(torch)
     per_unit = {"srtp_echo": ("launches_per_table_batch",
                               table["launches_per_batch"]),
@@ -828,7 +923,11 @@ def main(argv=None) -> int:
                 "conference_dtls": ("launches_per_dtls_conference_tick",
                                     conf_d["launches_per_tick"]),
                 "stream_zrtp": ("launches_per_zrtp_stream_tick",
-                                zrtp["launches_per_tick"])}
+                                zrtp["launches_per_tick"]),
+                "sfu_video": ("launches_per_video_sfu_tick",
+                              video["launches_per_tick"]),
+                "sfu_svc": ("launches_per_svc_sfu_tick",
+                            svc["launches_per_tick"])}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
@@ -8191,6 +8290,1189 @@ def stream_zrtp_check(torch, dev, run, setup) -> None:
          cpu_twin_s=max(t["seconds"] for t in twins),
          cpu_twin_wait_s=wait_s, launches_per_tick={
              k: v for k, v in run["launches_per_tick"].items() if v})
+
+
+# ------------------------------------------------------- the video plane
+
+class _Uncounted:
+    """Launches the harness makes around a counted path (the clients'
+    wire and RTCP, the checks' decrypts) put the counters back as they
+    were, so a path's counts hold the bridge's launches only."""
+
+    def __init__(self, kbuild):
+        self.k = kbuild
+
+    def __enter__(self):
+        self.saved = [dict(d) for d in (self.k.launches, self.k.plain_calls,
+                                        self.k.instance_launches)]
+
+    def __exit__(self, *exc):
+        for d, s in zip((self.k.launches, self.k.plain_calls,
+                         self.k.instance_launches), self.saved):
+            d.clear()
+            d.update(s)
+
+
+def _layer_want(layer_bps, bw: float) -> int:
+    """The bridge's pick: the highest layer whose nominal rate fits."""
+    want = 0
+    for layer, bps in enumerate(layer_bps):
+        if bps <= bw:
+            want = layer
+    return want
+
+
+def _force_rcvbuf(fd: int, nbytes: int) -> None:
+    """SO_RCVBUFFORCE (SO_RCVBUF where not permitted) on a socket the
+    harness owns, through a duplicate of its descriptor."""
+    import socket
+
+    s = socket.fromfd(fd, socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        s.setsockopt(socket.SOL_SOCKET, 33, nbytes)       # SO_RCVBUFFORCE
+    except OSError:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, nbytes)
+    finally:
+        s.close()
+
+
+class _VideoClient:
+    """The endpoints of a video SFU cell, made from a seed: keys, SSRCs,
+    conferences, the receivers' REMB thirds, each sender's 30 fps frame
+    clock (its phase in ms drawn), keyframe phase, picture ids and
+    per-layer RTP state; their uplink SRTP table on the card (a row for
+    each audio and layer SSRC) and VIDEO_SOCKETS client sockets, endpoint
+    k sending and receiving on socket k % VIDEO_SOCKETS.
+
+    `kind` "simulcast": three VP8 layers a sender, one SSRC each, built
+    by `vp8.packetize`; "svc": one VP9 SSRC of three spatial layers, the
+    temporal layers in SVC_TIDS order.  Frame sizes are the layer's rate
+    over 30 fps, four times that on a keyframe (the first frame, every
+    VIDEO_KEY_EVERY-th at the sender's phase, and the next frame of a
+    layer a PLI named).  The last VIDEO_TAG bytes of every packet's
+    payload say where it came from: key flag, sender, layer, frame
+    number, fragment.  Each endpoint also sends one Opus-sized packet a
+    tick with an abs-send-time extension (the audio row, kernel H)."""
+
+    def __init__(self, torch, dev, kind: str, confs: int, seed: int):
+        from libjitsi_tpu_torch.io.udp import UdpEngine
+        from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+        n = confs * SFU_SIZE
+        rng = np.random.default_rng(seed)
+        self.kind, self.n, self.confs = kind, n, confs
+        self.nl = 3 if kind == "simulcast" else 1       # SSRCs a sender
+        self.keys = {d: (rng.integers(0, 256, (n, 16), np.uint8),
+                         rng.integers(0, 256, (n, 14), np.uint8))
+                     for d in ("rx", "tx")}
+        perm = rng.permutation(1 << 20)
+        self.ssrc = (0x54000000 + perm[:n]).astype(np.int64)
+        self.lssrc = (0x64000000 + (perm[n:2 * n, None] << 2)
+                      + np.arange(self.nl)).astype(np.int64)
+        self.conf = np.arange(n) // SFU_SIZE
+        self.remb = np.array([VIDEO_REMB[c % 3] for c in self.conf])
+        self.audio_seq = rng.integers(0, 1 << 16, n)
+        self.seq = rng.integers(0, 1 << 16, (n, self.nl))
+        self.seq[::7] = 65536 - 20                      # these wrap
+        self.ts0 = rng.integers(0, 1 << 32, n)
+        self.pid0 = rng.integers(0x80, 0x8000, n)
+        self.phase_ms = rng.integers(0, 33, n)
+        self.key_phase = rng.integers(1, VIDEO_KEY_EVERY, n)
+        self.next_frame = np.zeros(n, np.int64)
+        self.tl0 = np.zeros(n, np.int64)
+        self.force_key = np.zeros((n, 3), bool)
+        self.pool = rng.integers(0, 256, 1 << 16, np.uint8).tobytes()
+        self.sizes = [bps // VIDEO_FPS // 8 for _, _, bps in VIDEO_LAYERS]
+        rows = n * (1 + self.nl)
+        self.up = SrtpStreamTable(rows, device=dev)
+        owner = np.concatenate([np.arange(n), np.repeat(np.arange(n),
+                                                         self.nl)])
+        self.up.add_streams(np.arange(rows), self.keys["rx"][0][owner],
+                            self.keys["rx"][1][owner])
+        self.owner = owner                  # up-table row -> endpoint
+        self.socks = [UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=4096,
+                                rcvbuf=64 << 20)
+                      for _ in range(min(VIDEO_SOCKETS, n))]
+        self.stats = dict(frames=0, keyframes=0, pli_keyframes=0,
+                          packets=0, audio=0)
+        self.made_s = 0.0                   # making and protecting wire
+
+    def _fragments(self, k: int, layer: int, f: int, size: int,
+                   key: bool, chunk: int) -> list:
+        out = []
+        for j in range(-(-size // chunk)):
+            flen = min(chunk, size - j * chunk)
+            off = (k * 7919 + f * 104729 + layer * 31 + j * 613) % (
+                len(self.pool) - 1400)
+            body = self.pool[off:off + flen - VIDEO_TAG]
+            if j == 0:          # the VP8 payload header's P bit
+                body = bytes([0x10 if key else 0x11]) + body[1:]
+            out.append(body + bytes([int(key), k >> 8, k & 0xFF, layer,
+                                     (f >> 16) & 0xFF, (f >> 8) & 0xFF,
+                                     f & 0xFF, j & 0xFF]))
+        return out
+
+    def media(self, t: int):
+        """Tick t's datagrams: (plain PacketBatch on up-table rows,
+        endpoint of each row)."""
+        from libjitsi_tpu_torch.codecs import vp8, vp9
+        from libjitsi_tpu_torch.rtp import header as rtp_header
+
+        n = self.n
+        pls, seqs, tss, ssrcs, pts, marks, rows, exts = ([] for _ in
+                                                          range(8))
+        ast = int(round((1000.0 + 0.02 * t) * (1 << 18))) & 0xFFFFFF
+        ext = (0xBEDE, bytes([0x32]) + ast.to_bytes(3, "big"))
+        for k in range(n):
+            off = (k * 131 + t * 977) % (len(self.pool) - 200)
+            pls.append(self.pool[off:off + 60 + (k * 7 + t) % 101])
+            seqs.append(int(self.audio_seq[k] + t) & 0xFFFF)
+            tss.append(t * 960)
+            ssrcs.append(int(self.ssrc[k]))
+            pts.append(111)
+            marks.append(0)
+            rows.append(k)
+            exts.append(ext)
+        self.stats["audio"] += n
+        due = np.nonzero((self.next_frame * 100 + 3 * self.phase_ms) // 60
+                         == t)[0]
+        for k in due:
+            k = int(k)
+            f = int(self.next_frame[k])
+            self.next_frame[k] += 1
+            periodic = f == 0 or f % VIDEO_KEY_EVERY == self.key_phase[k]
+            pid = 0x80 + (int(self.pid0[k]) - 0x80 + f) % (0x8000 - 0x80)
+            ts = (int(self.ts0[k]) + f * 3000) & 0xFFFFFFFF
+            if self.kind == "simulcast":
+                for layer in range(3):
+                    key = periodic or bool(self.force_key[k, layer])
+                    self._count(key, periodic, layer, k)
+                    size = self.sizes[layer] * (VIDEO_KEY_SCALE if key
+                                                else 1)
+                    frame = b"".join(self._fragments(
+                        k, layer, f, size, key, VIDEO_PAYLOAD - VIDEO_DESC))
+                    p = vp8.packetize(frame, picture_id=pid,
+                                      max_payload=VIDEO_PAYLOAD)
+                    self._rtp(k, layer, p, ts, [0] * (len(p) - 1) + [1],
+                              pls, seqs, tss, ssrcs, pts, marks, rows, exts)
+                continue
+            key = periodic or bool(self.force_key[k, 0])
+            self._count(key, periodic, 0, k)
+            tid = 0 if key else SVC_TIDS[f % len(SVC_TIDS)]
+            if tid == 0:
+                self.tl0[k] += 1
+            for s in range(3):
+                size = self.sizes[s] * (VIDEO_KEY_SCALE if key else 1)
+                descs = []
+                probe = vp9.build_descriptor(
+                    begin=True, picture_id=pid, tid=tid, sid=s,
+                    tl0picidx=int(self.tl0[k]) & 0xFF,
+                    inter_predicted=not key,
+                    ss_sizes=[(w, h) for w, h, _ in VIDEO_LAYERS]
+                    if key and s == 0 else None)
+                frags = self._fragments(k, s, f, size, key,
+                                        VIDEO_PAYLOAD - len(probe))
+                for j, frag in enumerate(frags):
+                    descs.append(vp9.build_descriptor(
+                        begin=j == 0, end=j == len(frags) - 1,
+                        picture_id=pid, tid=tid, sid=s,
+                        tl0picidx=int(self.tl0[k]) & 0xFF,
+                        inter_predicted=not key,
+                        ss_sizes=[(w, h) for w, h, _ in VIDEO_LAYERS]
+                        if key and s == 0 and j == 0 else None) + frag)
+                self._rtp(k, 0, descs, ts,
+                          [0] * (len(descs) - 1) + [int(s == 2)],
+                          pls, seqs, tss, ssrcs, pts, marks, rows, exts)
+        b = rtp_header.build(pls, seqs, tss, ssrcs, pts, marker=marks,
+                             stream=rows, ext=exts)
+        self.stats["packets"] += len(pls)
+        return b, self.owner[np.asarray(rows)]
+
+    def _count(self, key, periodic, layer, k):
+        self.stats["frames"] += 1
+        self.stats["keyframes"] += int(key)
+        self.stats["pli_keyframes"] += int(key and not periodic)
+        self.force_key[k, layer] = False
+
+    def _rtp(self, k, layer, payloads, ts, marker, pls, seqs, tss, ssrcs,
+             pts, marks, rows, exts):
+        m = len(payloads)
+        s0 = int(self.seq[k, layer])
+        self.seq[k, layer] += m
+        pls += payloads
+        seqs += [(s0 + i) & 0xFFFF for i in range(m)]
+        tss += [ts] * m
+        ssrcs += [int(self.lssrc[k, layer])] * m
+        pts += [96 if self.kind == "simulcast" else 98] * m
+        marks += marker
+        rows += [self.n + k * self.nl + layer] * m
+        exts += [None] * m
+
+    def rtcp(self, blobs_of: dict):
+        """Receivers' compound RTCP {endpoint: [packets]} protected on
+        their audio rows: (wire, endpoint of each row)."""
+        from libjitsi_tpu_torch.core.packet import PacketBatch
+        from libjitsi_tpu_torch.rtp import rtcp
+
+        eps = sorted(blobs_of)
+        wire = self.up.protect_rtcp(PacketBatch.from_payloads(
+            [rtcp.build_compound(blobs_of[k]) for k in eps], stream=eps))
+        return wire, np.asarray(eps, np.int64)
+
+    def rembs(self, who) -> dict:
+        """A REMB from each receiver in `who` at its current rate, naming
+        its conference mates' SSRCs."""
+        from libjitsi_tpu_torch.rtp import rtcp
+
+        out = {}
+        for k in who:
+            c = self.conf[k]
+            mates = [int(self.ssrc[m]) for m in range(c * SFU_SIZE,
+                                                      (c + 1) * SFU_SIZE)
+                     if m != k]
+            out[int(k)] = [rtcp.build_remb(rtcp.Remb(
+                int(self.ssrc[k]), int(self.remb[k]), mates))]
+        return out
+
+    def send(self, wire, eps, rows, port: int) -> None:
+        s = len(self.socks)
+        for i, sock in enumerate(self.socks):
+            mine = rows[eps[rows] % s == i]
+            if len(mine):
+                sock.send_rows(wire, mine, "127.0.0.1", port)
+
+    def close(self) -> None:
+        for sock in self.socks:
+            sock.close()
+
+
+def _video_bridge(torch, dev, client, capacity: int):
+    """An SfuBridge of the client's endpoints in their conferences, every
+    endpoint a video track's sender (3-layer simulcast, or one SVC SSRC)
+    and, in its conference, every other's receiver; its receive buffer
+    forced to 64 MB.  The setup's launches (none: keys derive on the
+    host) are not the path's."""
+    from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+
+    (rk, rs), (tk, ts) = client.keys["rx"], client.keys["tx"]
+    bridge = _keep(f"sfu {client.kind}", SfuBridge(capacity=capacity,
+                                                   device=dev))
+    n = client.n
+    sids = bridge.stage_endpoints(
+        [(int(client.ssrc[k]), (rk[k].tobytes(), rs[k].tobytes()),
+          (tk[k].tobytes(), ts[k].tobytes()), None) for k in range(n)],
+        conferences=client.conf.tolist())
+    require(sids == list(range(n)), "rows not handed out in spec order")
+    bridge.commit_endpoints(sids)
+    bps = [b for _, _, b in VIDEO_LAYERS]
+    for k in range(n):
+        if client.kind == "simulcast":
+            bridge.add_video_track(k, client.lssrc[k].tolist(), bps)
+        else:
+            bridge.add_svc_track(k, int(client.lssrc[k, 0]), SVC_LAYER_BPS)
+    _force_rcvbuf(bridge.loop.engine._fd, 64 << 20)
+    return bridge
+
+
+class _VideoLog:
+    """The bridge's tx-table calls of a tick, as its users' checks read
+    them: every `protect_rtp` (projections and RTX: the rows, the
+    plaintext and the wire) and `protect_rtcp` (the feedback's rows and
+    compounds), and a hash of every datagram the engine sends."""
+
+    def __init__(self, bridge):
+        import collections
+
+        self.rtp, self.rtcp, self.sent = [], [], collections.Counter()
+        tx = bridge.tx_table
+        prot, prot_c = tx.protect_rtp, tx.protect_rtcp
+        eng = bridge.loop.engine
+        send = eng.send_batch
+
+        def protect_rtp(batch):
+            wire = prot(batch)
+            self.rtp.append((np.asarray(batch.stream).copy(), batch, wire))
+            return wire
+
+        def protect_rtcp(batch):
+            self.rtcp.append((np.asarray(batch.stream).copy(),
+                              batch.to_payloads()))
+            return prot_c(batch)
+
+        def send_batch(batch, ip, port):
+            self.sent.update(hash(p) for p in batch.to_payloads())
+            return send(batch, ip, port)
+
+        tx.protect_rtp, tx.protect_rtcp = protect_rtp, protect_rtcp
+        eng.send_batch = send_batch
+
+    def take(self):
+        rtp, rtcp_, self.rtp, self.rtcp = self.rtp, self.rtcp, [], []
+        return rtp, rtcp_
+
+
+def _video_rows(bridge, n: int, cap: int) -> dict:
+    """The bridge's tx rows of the video plane read back from its tracks:
+    each row's receiver, sender and kind (0 projection, 1 RTX)."""
+    recv = np.full(cap, -1, np.int64)
+    send = np.full(cap, -1, np.int64)
+    kind = np.full(cap, -1, np.int64)
+    for track in bridge._tracks():
+        for k, d in ((0, track.tx_sid), (1, track.rtx_sid)):
+            for r, row in d.items():
+                recv[row], send[row], kind[row] = r, track.sender_sid, k
+    return dict(recv=recv, send=send, kind=kind)
+
+
+def _video_down(dev, client, rows: dict, cap: int):
+    """The receivers' side of every projection and RTX row: a card table
+    keyed row for row with the receiver's leg key."""
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    live = np.nonzero(rows["recv"] >= 0)[0]
+    down = SrtpStreamTable(cap, device=dev)
+    tk, ts = client.keys["tx"]
+    down.add_streams(live, tk[rows["recv"][live]], ts[rows["recv"][live]])
+    return down
+
+
+def _video_tags(data: np.ndarray, length: np.ndarray) -> np.ndarray:
+    """The VIDEO_TAG bytes at each row's end: [rows, VIDEO_TAG]."""
+    idx = length.astype(np.int64)[:, None] - VIDEO_TAG + np.arange(VIDEO_TAG)
+    return np.take_along_axis(data, idx, axis=1).astype(np.int64)
+
+
+class _VideoChecks:
+    """The semantic checks of a video cell, a tick at a time on the
+    bridge's log: every copy authenticates under its receiver's
+    projection or RTX row (a card table keyed row for row) and decrypts
+    to the plaintext the bridge projected; each projected stream is
+    gapless in seq; no copy echoes to its sender or crosses a
+    conference, and each carries its track's SSRC; a simulcast stream
+    changes layer only on a keyframe's first packet; the streams' layers
+    at the end are what each receiver's REMB picks; each RTX copy
+    decapsulates to the cached original of the seq its receiver
+    NACKed."""
+
+    def __init__(self, torch, dev, bridge, client, cap: int):
+        self.client, self.bridge, self.cap = client, bridge, cap
+        self.rows = _video_rows(bridge, client.n, cap)
+        self.down = _video_down(dev, client, self.rows, cap)
+        self.last_seq = np.full(cap, -1, np.int64)
+        self.layer = np.full(cap, -1, np.int64)
+        self.counts = dict(copies=0, rtx=0, switches=0, feedback=0,
+                           plis=0)
+        self.recent = {}        # (row, seq) -> plaintext of the last tick
+        self.nacked = {}        # (receiver, out ssrc) -> [seqs]
+        self.last_tick_layers = set()
+        self.max_rows = (0, None)
+
+    def tick(self, rtp_log, rtcp_log, keep_recent: bool) -> None:
+        from libjitsi_tpu_torch.core.packet import PacketBatch
+        from libjitsi_tpu_torch.rtp import header as rtp_header
+        from libjitsi_tpu_torch.rtp import rtcp
+        from libjitsi_tpu_torch.sfu import rtx as rtx_mod
+
+        c, r = self.client, self.rows
+        self.recent = {} if keep_recent else self.recent
+        tick_layers = set()
+        for stream, plain, wire in rtp_log:
+            if len(stream) > self.max_rows[0]:
+                self.max_rows = (len(stream), (stream, plain))
+            dec, ok = self.down.unprotect_rtp(PacketBatch(
+                wire.data, np.asarray(wire.length), stream))
+            require(bool(np.asarray(ok).all()), f"{c.kind}: "
+                    f"{int((~np.asarray(ok)).sum())} copies failed "
+                    "authentication under their receiver's row")
+            pl, w = np.asarray(plain.length), plain.data.shape[1]
+            inside = np.arange(w)[None, :] < pl[:, None]
+            require(bool((np.asarray(dec.length) == pl).all() and (
+                (dec.data[:, :w] == plain.data) | ~inside).all()),
+                f"{c.kind}: a copy decrypts to other bytes than the "
+                "bridge projected")
+            recv, send, kind = (r["recv"][stream], r["send"][stream],
+                                r["kind"][stream])
+            require(bool((recv >= 0).all()), f"{c.kind}: a copy on a row "
+                    "that is no track's")
+            require(bool((send != recv).all() and (c.conf[send]
+                                                   == c.conf[recv]).all()),
+                    f"{c.kind}: a copy echoed or crossed a conference")
+            hdr = rtp_header.parse(dec)
+            proj = kind == 0
+            self._gapless(stream[proj], hdr.seq[proj].astype(np.int64))
+            self._gapless(stream[~proj], hdr.seq[~proj].astype(np.int64))
+            out_ssrc = c.ssrc[send] if c.kind == "simulcast" \
+                else c.lssrc[send, 0]
+            rtx_ssrc = out_ssrc ^ RTX_SSRC_XOR
+            require(bool((hdr.ssrc.astype(np.int64)
+                          == np.where(proj, out_ssrc, rtx_ssrc)).all()),
+                    f"{c.kind}: a copy's SSRC is not its track's")
+            tags = _video_tags(dec.data, np.asarray(dec.length))
+            pi = np.nonzero(proj)[0]
+            require(bool(((tags[pi, 1] << 8 | tags[pi, 2])
+                          == send[pi]).all()),
+                    f"{c.kind}: a copy carries another sender's media")
+            ri = np.nonzero(~proj)[0]
+            if len(ri):
+                self._rtx(dec, ri, stream, recv, out_ssrc, rtx_mod)
+            self.counts["copies"] += len(pi)
+            if not len(pi):
+                continue
+            order = pi[np.argsort(stream[pi], kind="stable")]
+            rs, ls = stream[order], tags[order, 3]
+            first = np.r_[True, rs[1:] != rs[:-1]]
+            prev = np.where(first, self.layer[rs], np.r_[-1, ls[:-1]])
+            if c.kind == "simulcast":
+                change = (prev >= 0) & (ls != prev)
+                require(bool(((tags[order, 0] == 1) & (tags[order, 7] == 0))
+                             [change].all()), f"{c.kind}: a stream "
+                        "changed layer off a keyframe's first packet")
+                self.counts["switches"] += int(change.sum())
+            last = np.r_[rs[1:] != rs[:-1], True]
+            self.layer[rs[last]] = ls[last]
+            tick_layers.update(rs[last].tolist())
+            if keep_recent:
+                for i in pi:
+                    self.recent[(int(stream[i]), int(hdr.seq[i]))] = \
+                        plain.to_bytes(int(i))
+        if tick_layers:
+            self.last_tick_layers = tick_layers
+        for stream, blobs in rtcp_log:
+            self.counts["feedback"] += len(blobs)
+            for k, blob in zip(stream, blobs):
+                for p in rtcp.parse_compound(blob):
+                    if isinstance(p, rtcp.Pli):
+                        hit = np.nonzero(c.lssrc[int(k)] == p.media_ssrc)[0]
+                        require(len(hit) == 1, f"{c.kind}: a PLI for an "
+                                "SSRC its sender does not send")
+                        c.force_key[int(k), int(hit[0]) if c.nl > 1 else 0] \
+                            = True
+                        self.counts["plis"] += 1
+
+    def _gapless(self, rows: np.ndarray, seqs: np.ndarray) -> None:
+        if not len(rows):
+            return
+        order = np.argsort(rows, kind="stable")
+        rows, seqs = rows[order], seqs[order]
+        first = np.r_[True, rows[1:] != rows[:-1]]
+        prev = np.where(first, self.last_seq[rows], np.r_[-1, seqs[:-1]])
+        ok = (prev < 0) | (seqs == ((prev + 1) & 0xFFFF))
+        require(bool(ok.all()), f"{self.client.kind}: a projected stream "
+                f"skipped a seq ({int((~ok).sum())} gaps)")
+        last = np.r_[rows[1:] != rows[:-1], True]
+        self.last_seq[rows[last]] = seqs[last]
+
+    def _rtx(self, dec, ri, stream, recv, out_ssrc, rtx_mod) -> None:
+        from libjitsi_tpu_torch.core.packet import PacketBatch
+
+        sub = PacketBatch(dec.data[ri], np.asarray(dec.length)[ri],
+                          dec.stream[ri])
+        for i, j in enumerate(ri):
+            one = PacketBatch(sub.data[i:i + 1], sub.length[i:i + 1],
+                              sub.stream[i:i + 1])
+            orig, osn = rtx_mod.decapsulate_batch(
+                one, int(out_ssrc[j]), 98 if self.client.kind == "svc"
+                else 96)
+            key = (int(recv[j]), int(out_ssrc[j]))
+            require(int(osn[0]) in self.nacked.get(key, ()),
+                    f"{self.client.kind}: an RTX copy of a seq its "
+                    "receiver did not NACK")
+            want = self.nack_orig[(key, int(osn[0]))]
+            require(orig.to_bytes(0) == want, f"{self.client.kind}: an "
+                    "RTX copy does not decapsulate to the cached original")
+            self.counts["rtx"] += 1
+
+    def pick_nacks(self, nackers) -> dict:
+        """Each NACKer's NACK for the last VIDEO_NACKED seqs one of its
+        streams carried in the tick just checked: {endpoint: [Nack]}."""
+        from libjitsi_tpu_torch.rtp import rtcp
+
+        c, r = self.client, self.rows
+        by_row = {}
+        for (row, seq), pkt in self.recent.items():
+            by_row.setdefault(row, []).append((seq, pkt))
+        out, self.nack_orig = {}, {}
+        for k in nackers:
+            cands = [row for row in by_row if r["recv"][row] == k]
+            require(cands, f"{c.kind}: NACKer {k} got no copy to NACK")
+            row = max(cands, key=lambda x: (len(by_row[x]), -x))
+            got = sorted(by_row[row], key=lambda sp: (
+                (sp[0] - by_row[row][0][0]) & 0xFFFF))[-VIDEO_NACKED:]
+            snd = int(r["send"][row])
+            out_ssrc = int(c.ssrc[snd] if c.kind == "simulcast"
+                           else c.lssrc[snd, 0])
+            seqs = [s for s, _ in got]
+            self.nacked[(int(k), out_ssrc)] = seqs
+            for s, pkt in got:
+                self.nack_orig[((int(k), out_ssrc), s)] = pkt
+            out[int(k)] = [rtcp.build_nack(rtcp.Nack(int(c.ssrc[k]),
+                                                     out_ssrc, seqs))]
+        return out
+
+    def final(self, bridge) -> dict:
+        """The end state: every forwarder at the layer its receiver's REMB
+        picks, and so is every stream that carried media in the last
+        tick (simulcast: its one layer; SVC: its top spatial layer)."""
+        c, r = self.client, self.rows
+        bps = [b for _, _, b in VIDEO_LAYERS] if c.kind == "simulcast" \
+            else list(SVC_LAYER_BPS)
+        for track in bridge._tracks():
+            for rv, fwd in track.fwd.items():
+                want = _layer_want(bps, float(c.remb[rv]))
+                cur = fwd.current_layer if c.kind == "simulcast" \
+                    else fwd.current_sid
+                require(cur == want, f"{c.kind}: receiver {rv}'s stream of "
+                        f"{track.sender_sid} at layer {cur}, its REMB "
+                        f"picks {want}")
+        wrong = 0
+        for row in self.last_tick_layers:
+            want = _layer_want(bps, float(c.remb[r["recv"][row]]))
+            wrong += int(self.layer[row] != want)
+        require(wrong == 0, f"{c.kind}: {wrong} streams carried another "
+                "layer than their REMB picks in the last tick")
+        return dict(streams_checked=len(self.last_tick_layers),
+                    **self.counts)
+
+
+def video_setup(torch, dev, kind: str, confs: int) -> dict:
+    """A video cell's endpoints and bridge (`_VideoClient`,
+    `_video_bridge`), the bridge's tx calls logged, the checks' tables
+    keyed and the client's drain thread started, all before the counts
+    are reset."""
+    import collections
+    import threading
+
+    client = _VideoClient(torch, dev, kind, confs,
+                          seed=71 if kind == "simulcast" else 73)
+    bridge = _video_bridge(torch, dev, client, VIDEO_CAPACITY)
+    log = _VideoLog(bridge)
+    checks = _VideoChecks(torch, dev, bridge, client, VIDEO_CAPACITY)
+    got, stop = collections.Counter(), threading.Event()
+
+    def drain():
+        while not stop.is_set():
+            for sock in client.socks:
+                b, _, _ = sock.recv_batch(timeout_ms=1)
+                if b.batch_size:
+                    got.update(hash(p) for p in b.to_payloads())
+
+    th = threading.Thread(target=drain, daemon=True)
+    th.start()
+    return dict(kind=kind, confs=confs, client=client, bridge=bridge,
+                log=log, checks=checks, got=got, stop=stop, thread=th,
+                rcvbuf=bridge.loop.engine.rcvbuf,
+                client_rcvbuf=client.socks[0].rcvbuf)
+
+
+def _video_tick(bridge, client, t: int, extra=None, replay=None) -> tuple:
+    """One 20 ms tick of a video cell: the receivers' RTCP of the tick
+    (`extra`, {endpoint: [packets]}: REMBs, NACKs) first, then the media,
+    both made by the client on the card outside the counts (or, with
+    `replay`, a tick's datagrams as an earlier call returned them) and
+    sent from each endpoint's socket in bursts the bridge's receive
+    buffer holds, the bridge ticked (now = 1000 + 0.02 t) until it has
+    taken each in; then `emit_feedback`.  Returns (bridge seconds,
+    datagrams taken, the datagrams sent: (endpoints, wire) a part)."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    now = 1000.0 + 0.02 * t
+    t_client = time.perf_counter()
+    if replay is not None:
+        sends = [(PacketBatch.from_payloads(wire), eps)
+                 for eps, wire in replay]
+    else:
+        sends = []
+        with _Uncounted(kbuild):
+            if extra:
+                sends.append(client.rtcp(extra))
+            plain, eps = client.media(t)
+            sends.append((client.up.protect_rtp(plain), eps))
+    client.made_s += time.perf_counter() - t_client
+    # a datagram takes about twice its bytes of the receive buffer
+    per_burst = max(256, bridge.loop.engine.rcvbuf // 3200)
+    secs, taken = 0.0, 0
+    sent = [(eps, wire.to_payloads()) for wire, eps in sends]
+    for wire, eps in sends:
+        for lo in range(0, wire.batch_size, per_burst):
+            rows = np.arange(lo, min(lo + per_burst, wire.batch_size))
+            client.send(wire, eps, rows, bridge.port)
+            got = 0
+            for _ in range(400):
+                t0 = time.perf_counter()
+                got += bridge.tick(now=now)["rx"]
+                secs += time.perf_counter() - t0
+                if got >= len(rows):
+                    break
+            require(got == len(rows), f"{client.kind} tick {t}: the bridge "
+                                      f"took {got} of {len(rows)}")
+            taken += got
+    t0 = time.perf_counter()
+    bridge.emit_feedback(now=now + 0.01)
+    secs += time.perf_counter() - t0
+    return secs, taken, sent
+
+
+def _video_extra(client, checks, t: int, ticks: int):
+    """The receivers' RTCP at tick t: everyone's REMB at tick 0 (the
+    receivers of conference c at VIDEO_REMB[c % 3]: thirds by
+    conference); at VIDEO_SWITCH_TICK a third of the receivers changes
+    (in the conferences c with c // 3 even, 300 kbps goes to 4 Mbps and
+    1.2 Mbps to 300 kbps), so each switch asks for a keyframe of a layer
+    no PLI has named yet, inside the bridge's 0.5 s PLI interval; at
+    VIDEO_NACK_TICK a NACK from one receiver in each of VIDEO_NACKERS
+    conferences."""
+    switch = min(VIDEO_SWITCH_TICK, ticks - 4)
+    nack = min(VIDEO_NACK_TICK, ticks - 2)
+    if t == 0:
+        return client.rembs(range(client.n))
+    if t == switch:
+        moved = (client.conf // 3) % 2 == 0
+        up = np.nonzero(moved & (client.remb == VIDEO_REMB[0]))[0]
+        down = np.nonzero(moved & (client.remb == VIDEO_REMB[1]))[0]
+        client.remb[up] = VIDEO_REMB[2]
+        client.remb[down] = VIDEO_REMB[0]
+        return client.rembs(np.r_[up, down])
+    if t == nack:
+        nackers = np.arange(min(VIDEO_NACKERS, client.confs)) * SFU_SIZE + 1
+        return checks.pick_nacks(nackers)
+    return None
+
+
+def video_run(torch, dev, setup, ticks: int) -> dict:
+    """A video cell on the card, counted: `ticks` ticks of `_video_tick`,
+    each tick's log checked (outside the counts and the tick's time)."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    bridge, client, checks = setup["bridge"], setup["client"], \
+        setup["checks"]
+    nack = min(VIDEO_NACK_TICK, ticks - 2)
+    res = dict(tick_s=[], taken=0, check_s=0.0, wall_s=0.0)
+    wall = time.perf_counter()
+    for t in range(ticks):
+        extra = _video_extra(client, checks, t, ticks)
+        secs, taken, _ = _video_tick(bridge, client, t, extra)
+        res["tick_s"].append(secs)
+        res["taken"] += taken
+        if t == nack:
+            res["nack"] = dict(retransmitted=bridge.retransmitted,
+                               served=bridge.recovery.rtx_requests_served,
+                               cache_miss=bridge.recovery.rtx_cache_miss)
+        t0 = time.perf_counter()
+        with _Uncounted(kbuild):
+            checks.tick(*setup["log"].take(), keep_recent=t == nack - 1)
+        res["check_s"] += time.perf_counter() - t0
+        if t % 10 == 9:
+            emit(f"{client.kind}_progress", tick=t,
+                 tick_s=res["tick_s"][-10:], client_s=client.made_s,
+                 check_s=res["check_s"])
+    res["wall_s"] = time.perf_counter() - wall
+    res["launches"] = dict(kbuild.launches)
+    res["launches_per_tick"] = {k: v / ticks for k, v in
+                                res["launches"].items() if v}
+    res["ticks"] = ticks
+    return res
+
+
+def _video_host_split(torch, setup, t0: int, n: int) -> dict:
+    """`n` more ticks under torch.profiler with the host's time of the
+    video plane split: `_forward_video` whole, the tracks' precache
+    inserts in it, the projections' `protect_rtp` (kernel C's call) and
+    their `send_batch` (egress)."""
+    bridge, client, checks = setup["bridge"], setup["client"], \
+        setup["checks"]
+    acc = dict(forward_video=0.0, precache_insert=0.0, protect_c=0.0,
+               egress=0.0)
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            t0_ = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[name] += time.perf_counter() - t0_
+        return wrapped
+
+    saved = (bridge._forward_video, bridge.tx_table.protect_rtp,
+             bridge.loop.engine.send_batch)
+    bridge._forward_video = timed("forward_video", saved[0])
+    bridge.tx_table.protect_rtp = timed("protect_c", saved[1])
+    bridge.loop.engine.send_batch = timed("egress", saved[2])
+    for track in bridge._tracks():
+        track.precache.insert = timed("precache_insert",
+                                      track.precache.insert)
+    try:
+        prof = _outside_spans(profiled_ticks(
+            torch, lambda i: _video_tick(bridge, client, t0 + i),
+            n, after=lambda i: checks.tick(*setup["log"].take(),
+                                           keep_recent=False)))
+    finally:
+        bridge._forward_video, bridge.tx_table.protect_rtp, \
+            bridge.loop.engine.send_batch = saved
+        for track in bridge._tracks():
+            del track.precache.insert
+    acc = {k: v * 1e3 / n for k, v in acc.items()}
+    acc["forward_loop"] = acc["forward_video"] - acc["precache_insert"] \
+        - acc["protect_c"] - acc["egress"]
+    prof["video_host_ms_per_tick"] = acc
+    return prof
+
+
+def _projection_c(torch, dev, stream, plain) -> dict:
+    """Kernel C at the largest projection launch's shape: the batch the
+    bridge handed `protect_rtp` (`plain`, its rows `stream`), as the table
+    buckets it, each part timed on the card against its plain version on
+    random keys; the row counts before and after padding, and the bytes
+    and operations bound."""
+    from libjitsi_tpu_torch.core.packet import bucket_by_size
+    from libjitsi_tpu_torch.kernels import aes, sha1
+    from libjitsi_tpu_torch.transform.srtp import kernel as sk
+
+    rng = np.random.default_rng(79)
+    wb = plain
+    n_tab = int(stream.max()) + 1
+    tab_rk = torch.as_tensor(aes.expand_keys_batch(
+        rng.integers(0, 256, (n_tab, 16), np.uint8))).to(dev)
+    tab_mid = torch.as_tensor(sha1.hmac_precompute_batch(
+        rng.integers(0, 256, (n_tab, 20), np.uint8)).view(np.int32)).to(dev)
+    parts, ms, call_ms, plain_ms, nbytes, ops, err = [], 0.0, 0.0, 0.0, \
+        0, 0, 0
+    for _rows, part, n_real in bucket_by_size(wb):
+        n, width = part.data.shape
+        length = np.asarray(part.length)
+        args = [tab_rk, tab_mid,
+                torch.as_tensor(part.stream.astype(np.int32)).to(dev),
+                torch.as_tensor(part.data).to(dev),
+                torch.as_tensor(length.astype(np.int32)).to(dev),
+                torch.full((n,), HDR, dtype=torch.int32, device=dev),
+                torch.as_tensor(rng.integers(0, 256, (n, 16),
+                                             np.uint8)).to(dev),
+                torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, n)
+                                .astype(np.int32)).to(dev)]
+        kp = sk.srtp_protect(*args, TAG)
+        pp = sk.srtp_protect_plain(*args, TAG)
+        err = max(err, max_abs_err(torch, list(kp), list(pp)))
+        ms += device_ms(torch, lambda: sk.srtp_protect(*args, TAG), 20,
+                        "srtp_protect_cm_kernel")
+        call_ms += cuda_ms(torch, lambda: sk.srtp_protect(*args, TAG), 20)
+        plain_ms += cuda_ms(torch, lambda: sk.srtp_protect_plain(*args, TAG),
+                            2, 1)
+        ks_blocks = int(((length - HDR + 15) // 16).sum())
+        mac_blocks = int(((length + 4 + 9 + 63) // 64).sum()) + n
+        ops += (ks_blocks * (aes_block_ops(10) + CTR_XOR_OPS)
+                + mac_blocks * SHA1_BLOCK_OPS)
+        keys = len(np.unique(part.stream)) * (11 * 16 + 40)
+        nbytes += 2 * n * width + n * (5 * 4 + 16) + keys
+        parts.append(dict(rows=n, real_rows=int(n_real), width=width))
+    require(err == 0, "kernel C differs from its plain version at the "
+                      "projection launch's shape")
+    b_ms, b_by = bound(nbytes, ops)
+    line = dict(name="srtp_protect_cm", shape=f"projection launch, "
+                f"{len(stream)} rows in {len(parts)} parts", parts=parts,
+                real_rows=len(stream), padded_rows=sum(p["rows"]
+                                                      for p in parts),
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
+                share_of_bound=b_ms / ms if ms else None)
+    emit("kernel_vs_plain", **line)
+    return line
+
+
+def video_check(torch, dev, setup, run, name: str) -> dict:
+    """A video cell's gates after its counted run: every datagram taken,
+    the NACKed seqs served as RTX, the checks' end state, every datagram
+    the bridge sent received by the client; then VIDEO_PROFILED more
+    ticks profiled with the host split, and kernel C at the largest
+    projection launch's shape."""
+    bridge, client, checks = setup["bridge"], setup["client"], \
+        setup["checks"]
+    nack = run["nack"]
+    n_nacked = sum(len(v) for v in checks.nacked.values())
+    require(nack["served"] == n_nacked and nack["cache_miss"] == 0
+            and nack["retransmitted"] == n_nacked
+            and bridge.recovery.rtx_budget_dropped == 0,
+            f"{name} NACK service: {nack}, {n_nacked} NACKed")
+    require(checks.counts["rtx"] == n_nacked, f"{name}: {checks.counts['rtx']}"
+            f" RTX copies checked of {n_nacked}")
+    require(int(bridge.rx_table.auth_fail.sum()) == 0
+            and int(bridge.rx_table.replay_reject.sum()) == 0,
+            f"{name}: the bridge rejected genuine uplink packets")
+    final = checks.final(bridge)
+    time.sleep(0.2)
+    want = setup["log"].sent
+    missing = sum((want - setup["got"]).values())
+    require(missing == 0 and sum(want.values()) > 0, f"{name}: the client "
+            f"did not receive {missing} of {sum(want.values())} datagrams")
+    prof = _video_host_split(torch, setup, run["ticks"], VIDEO_PROFILED)
+    c_line = _projection_c(torch, dev, *checks.max_rows[1])
+    setup["stop"].set()
+    setup["thread"].join()
+    bridge.close()
+    client.close()
+    secs = np.array(run["tick_s"])
+    out = dict(conferences=setup["confs"], endpoints=client.n,
+               ticks=run["ticks"], tick_ms_p50=float(np.median(secs)) * 1e3,
+               tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+               tick_ms_max=float(secs.max()) * 1e3,
+               ingress_per_tick=run["taken"] / run["ticks"],
+               run_s=run["wall_s"], client_wire_s=client.made_s,
+               checks_s=run["check_s"],
+               copies_per_tick=final["copies"] / run["ticks"],
+               forwarded=bridge.forwarded, retransmitted=nack["retransmitted"],
+               datagrams_received=sum(want.values()),
+               bridge_rcvbuf=setup["rcvbuf"],
+               client_rcvbuf=setup["client_rcvbuf"], client=client.stats,
+               rows_used=VIDEO_CAPACITY - bridge.registry.free_slots,
+               launches={k: v for k, v in run["launches"].items() if v},
+               launches_per_tick=run["launches_per_tick"],
+               device_idle_share=prof["device_idle_share"],
+               profile=prof, projection_c=c_line, **final)
+    emit(name, **out)
+    return out
+
+
+def video_hold(torch, dev, kind: str, ticks: int) -> dict:
+    """The byte-for-byte hold of a video cell: one conference of 11 on a
+    card bridge through `ticks` ticks (the REMBs at tick 0, the changed
+    third's at `ticks` - 4, the NACKs at `ticks` - 2), then the same
+    bridge with device="cpu" fed the card run's datagrams tick by tick;
+    every datagram each sends, tick by tick, equal.  The layer end state
+    is not held here (the switch is inside the PLI interval): the full
+    cell checks it."""
+    cpu = torch.device("cpu")
+    client = _VideoClient(torch, dev, kind, 1,
+                          seed=81 if kind == "simulcast" else 83)
+    card = _video_bridge(torch, dev, client, VIDEO_HOLD_CAPACITY)
+    sends = _Sends(card)
+    log = _VideoLog(card)
+    checks = _VideoChecks(torch, dev, card, client, VIDEO_HOLD_CAPACITY)
+    nack = min(VIDEO_NACK_TICK, ticks - 2)
+    inputs = []
+    for t in range(ticks):
+        extra = _video_extra(client, checks, t, ticks)
+        sends.on = t
+        inputs.append(_video_tick(card, client, t, extra)[2])
+        sends.on = None
+        checks.tick(*log.take(), keep_recent=t == nack - 1)
+    require(card.retransmitted > 0, f"{kind} hold: no RTX served")
+    t0 = time.perf_counter()
+    host = _video_bridge(torch, cpu, client, VIDEO_HOLD_CAPACITY)
+    kept = _Sends(host)
+    for t in range(ticks):
+        kept.on = t
+        _video_tick(host, client, t, replay=inputs[t])
+        kept.on = None
+        require(kept.ticks.get(t) == sends.ticks.get(t), f"{kind} hold: "
+                f"tick {t}'s sends on the card differ from the CPU run's")
+    cpu_s = time.perf_counter() - t0
+    out = dict(conferences=1, ticks=ticks, equal_ticks=ticks,
+               datagrams_compared=sum(len(v) for v in sends.ticks.values()),
+               retransmitted=card.retransmitted, cpu_run_s=cpu_s,
+               **checks.counts)
+    for b in (card, host):
+        b.close()
+    client.close()
+    return out
+
+
+def _vs_pair(svc, reg_near, reg_far, ssrc: int, seed: int):
+    """A VideoMediaStream pair for one SSRC: the sender on `reg_near`,
+    the receiver on `reg_far`, SDES-keyed from a seeded generator and
+    started."""
+    from libjitsi_tpu_torch.control.sdes import SdesControl
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    prof = SrtpProfile.AES_CM_128_HMAC_SHA1_80
+    rng = np.random.default_rng(seed)
+    near = svc.create_media_stream("video", registry=reg_near, profile=prof,
+                                   local_ssrc=ssrc)
+    far = svc.create_media_stream("video", registry=reg_far, profile=prof,
+                                  local_ssrc=ssrc ^ 0xFFFF)
+    for s in (near, far):
+        s.sdes = SdesControl(profiles=[prof], rng=rng.bytes)
+        s.add_dynamic_rtp_payload_type(96, "VP8", 90000)
+    near.sdes.accept_answer(far.sdes.create_answer(near.sdes.create_offer()))
+    near.set_remote_ssrc(far.local_ssrc)
+    far.set_remote_ssrc(ssrc)
+    near.start()
+    far.start()
+    return near, far
+
+
+def _vs_frames(vpx_ok: bool):
+    """Per layer, a frame source: libvpx encodes of a moving test picture
+    at the layer's resolution where libvpx loads (a PLI restarts the
+    encoder, whose first frame is a keyframe), else synthetic VP8
+    frames of the layer's size, a keyframe on request."""
+    from libjitsi_tpu_torch.codecs import vpx
+
+    sizes = [bps // VIDEO_FPS // 8 for _, _, bps in VIDEO_LAYERS]
+    pool = np.random.default_rng(89).integers(0, 256, 1 << 16,
+                                              np.uint8).tobytes()
+
+    class Source:
+        def __init__(self, layer):
+            self.layer, self.enc = layer, None
+            self.w, self.h, _ = VIDEO_LAYERS[layer]
+
+        def frame(self, f: int, key: bool) -> tuple:
+            if not vpx_ok:
+                key = key or f == 0
+                size = sizes[self.layer] * (VIDEO_KEY_SCALE if key else 1)
+                off = (f * 977 + self.layer * 31) % (len(pool) - 50000)
+                return (bytes([0x10 if key else 0x11])
+                        + pool[off:off + size - 1], key)
+            if self.enc is None or key:
+                self.enc = vpx.VpxEncoder(self.w, self.h, "vp8")
+            y = ((np.add.outer(np.arange(self.h), np.arange(self.w)) * 2
+                  + f * 5) % 256).astype(np.uint8)
+            u = np.full((self.h // 2, self.w // 2), 90 + f, np.uint8)
+            v = np.full((self.h // 2, self.w // 2), 150 - f, np.uint8)
+            pkts = self.enc.encode(y, u, v)
+            return b"".join(p for p, _ in pkts), any(k for _, k in pkts)
+
+    return [Source(layer) for layer in range(3)]
+
+
+def video_stream_setup(torch, dev) -> dict:
+    """BASELINE config #4: a VideoMediaStream pair per simulcast layer
+    (720p30, three SSRCs) on two registries of the card, from the public
+    API (`media_service().create_media_stream("video")`), the receiver's
+    first stream tracking the layers (`set_simulcast_layers`); with
+    libavcodec, an H.264 pair beside them."""
+    import libjitsi_tpu_torch
+    from libjitsi_tpu_torch.codecs import avcodec, vpx
+    from libjitsi_tpu_torch.service.media_stream import StreamRegistry
+
+    svc = libjitsi_tpu_torch.media_service()
+    near, far = StreamRegistry(16, device=dev), StreamRegistry(16, device=dev)
+    ssrcs = [0x76000000 + 16 * layer for layer in range(3)]
+    pairs = [_vs_pair(svc, near, far, s, 91 + i) for i, s in enumerate(ssrcs)]
+    pairs[0][1].set_simulcast_layers(ssrcs)
+    h264_ok = avcodec.h264_available()
+    h264 = _vs_pair(svc, near, far, 0x76000100, 97) if h264_ok else None
+    vpx_ok = vpx.vpx_available()
+    emit("video_stream_feed", vp8="libvpx encodes" if vpx_ok
+         else "synthetic VP8 frames (libvpx not on this host)",
+         h264="libx264 encode, libavcodec decode" if h264_ok
+         else "no H.264 leg (libavcodec/libx264 not on this host)")
+    return dict(pairs=pairs, ssrcs=ssrcs, near=near, far=far, h264=h264,
+                vpx_ok=vpx_ok, sources=_vs_frames(vpx_ok))
+
+
+def _srtcp(stream, blob: bytes):
+    """A compound RTCP blob through the stream's registry's SRTCP table."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+
+    tx, _ = stream.registry.srtp_tables(stream.profile)
+    return tx.protect_rtcp(PacketBatch.from_payloads([blob],
+                                                     stream=[stream.sid]))
+
+
+def _unsrtcp(stream, wire) -> bytes:
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+
+    _, rx = stream.registry.srtp_tables(stream.profile)
+    dec, ok = rx.unprotect_rtcp(PacketBatch(
+        wire.data, wire.length, np.full(wire.batch_size, stream.sid,
+                                        np.int32)))
+    require(bool(np.asarray(ok).all()), "video_stream: an SRTCP packet "
+                                        "failed authentication")
+    return dec.to_bytes(0)
+
+
+def video_stream_run(torch, dev, setup) -> dict:
+    """One second of config #4 through `send` / `receive` (kernels C and
+    D): 30 frames a layer, each layer's frame packetized (`vp8.packetize`,
+    1,200-byte payloads) and sent by its pair, the receiver's
+    `SimulcastReceiver.ingest` and a `FrameAssembler` a layer on what
+    arrives; a PLI (layer 2, frame 10) and a FIR (layer 1, frame 20)
+    from the receivers, through SRTCP, make their senders' next frame a
+    keyframe; the H.264 pair sends the same second encoded by libx264."""
+    from libjitsi_tpu_torch.codecs import avcodec, h264, vp8
+    from libjitsi_tpu_torch.rtp import rtcp
+
+    pairs, sources = setup["pairs"], setup["sources"]
+    sent = [[] for _ in pairs]
+    got = [[] for _ in pairs]
+    fas = [vp8.FrameAssembler(max_pending=64) for _ in pairs]
+    main = pairs[0][1]
+    want_key = [False] * 3
+    times, fb, answered = [], [], {}
+    h264_out = None
+
+    def frame_time(f: int) -> None:
+        t0 = time.perf_counter()
+        for layer, (near, far) in enumerate(pairs):
+            frame, key = sources[layer].frame(f, want_key[layer])
+            if not frame:           # the encoder dropped the frame
+                continue
+            if want_key[layer]:
+                answered[layer] = key
+            want_key[layer] = False
+            sent[layer].append((frame, key))
+            pls = vp8.packetize(frame, picture_id=0x100 + f,
+                                max_payload=VIDEO_PAYLOAD)
+            wire = near.send(pls, pt=96, ts_step=0,
+                             marker=[0] * (len(pls) - 1) + [1])
+            near._tx_ts = (near._tx_ts + 3000) & 0xFFFFFFFF
+            dec, ok = far.receive(wire)
+            require(bool(np.asarray(ok).all()), f"video_stream: layer "
+                    f"{layer} frame {f} failed authentication")
+            main.simulcast.ingest(dec)
+            fas[layer].push_batch(dec)
+            got[layer] += fas[layer].pop_frames()
+        for layer, use_fir, at in ((2, False, 10), (1, True, 20)):
+            if f == at:
+                far = pairs[layer][1]
+                blob = rtcp.build_compound([far.request_keyframe(use_fir)])
+                pkts = pairs[layer][0].handle_rtcp(
+                    _unsrtcp(pairs[layer][0], _srtcp(far, blob)))
+                kinds = {type(p).__name__ for p in pkts}
+                fb.append((layer, sorted(kinds)))
+                want_key[layer] = bool({"Pli", "Fir"} & kinds)
+        times.append(time.perf_counter() - t0)
+
+    for f in range(VS_FRAMES - VS_PROFILED):
+        frame_time(f)
+    # the last frame times in one torch.profiler window, the busy share
+    # (a window of one 14 ms frame time held no device events on the
+    # H100)
+    prof = profiled_ticks(torch, lambda _i: [
+        frame_time(f) for f in range(VS_FRAMES - VS_PROFILED, VS_FRAMES)],
+        1)
+    if setup["h264"] is not None:
+        near, far = setup["h264"]
+        enc = avcodec.H264Encoder(640, 360, fps=VIDEO_FPS)
+        dec_v = avcodec.H264Decoder()
+        depack = h264.H264Depacketizer()
+        n_aus, decoded = 0, []
+        for f in range(VS_FRAMES):
+            y = ((np.add.outer(np.arange(360), np.arange(640)) + 3 * f)
+                 % 256).astype(np.uint8)
+            u = np.full((180, 320), 80 + f, np.uint8)
+            v = np.full((180, 320), 170 - f, np.uint8)
+            for au in enc.encode(y, u, v):
+                n_aus += 1
+                decoded += _h264_leg(near, far, depack, dec_v, au)
+        for au in enc.flush():
+            n_aus += 1
+            decoded += _h264_leg(near, far, depack, dec_v, au)
+        decoded += dec_v.flush()
+        h264_out = dict(access_units=n_aus, decoded=len(decoded),
+                        shape=list(decoded[0][0].shape) if decoded else None,
+                        keyframe_seen=depack.keyframe_seen)
+        enc.close()
+        dec_v.close()
+    return dict(sent=sent, got=got, times=times, feedback=fb,
+                answered=answered, vpx=setup["vpx_ok"], profile=prof,
+                simulcast=main.simulcast, h264=h264_out,
+                stats=[p[1].stats for p in pairs])
+
+
+def _h264_leg(near, far, depack, dec, au: bytes) -> list:
+    """One access unit through the H.264 pair: RFC 6184 payloads sent and
+    received (C, D), depacketized and decoded."""
+    from libjitsi_tpu_torch.codecs import h264
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+
+    pls = h264.packetize(h264.split_annexb(au), mtu=VIDEO_PAYLOAD)
+    wire = near.send(pls, pt=100, ts_step=0,
+                     marker=[0] * (len(pls) - 1) + [1])
+    near._tx_ts = (near._tx_ts + 3000) & 0xFFFFFFFF
+    back, ok = far.receive(wire)
+    require(bool(np.asarray(ok).all()), "video_stream: an H.264 packet "
+                                        "failed authentication")
+    off = rtp_header.parse(back).payload_off
+    nals = []
+    for i in range(back.batch_size):
+        nals += depack.push(back.to_bytes(i)[int(off[i]):])
+    return dec.decode(b"".join(b"\x00\x00\x00\x01" + n for n in nals))
+
+
+def _webm_blocks(blob: bytes) -> list:
+    """The SimpleBlocks of a WebM file, read back by walking its EBML
+    elements: (frame bytes, keyframe flag) in order."""
+    def vint(pos, keep_marker=False):
+        b = blob[pos]
+        n = 8 - b.bit_length() + 1
+        v = b if keep_marker else b & ((1 << (8 - n)) - 1)
+        for i in range(1, n):
+            v = (v << 8) | blob[pos + i]
+        return v, pos + n
+
+    out, pos = [], 0
+    containers = {0x18538067, 0x1F43B675}          # Segment, Cluster
+    while pos < len(blob):
+        eid, p = vint(pos, keep_marker=True)
+        size, p = vint(p)
+        if eid in containers:
+            pos = p
+            continue
+        if eid == 0xA3:                            # SimpleBlock
+            body = blob[p:p + size]
+            out.append((body[4:], bool(body[3] & 0x80)))
+        pos = p + size
+    return out
+
+
+def video_stream_check(torch, dev, run) -> None:
+    """Config #4's gates: every frame of every layer assembled equal to the
+    one sent, in order; the receiver's SimulcastReceiver counted every
+    frame a layer and saw each layer's keyframe; the PLI and the FIR each
+    reached its sender and made its next frame a keyframe; the top layer
+    written with WebmWriter reads back frame for frame; the H.264 leg
+    decoded every access unit."""
+    from libjitsi_tpu_torch.recording.webm import WebmWriter
+
+    for layer in range(3):
+        frames = [f for f, _ in run["sent"][layer]]
+        got = [d for _ts, _pid, _key, d in run["got"][layer]]
+        same = sum(a == b for a, b in zip(got, frames))
+        require(got == frames, f"video_stream: layer {layer} assembled "
+                f"{len(got)} frames, {same} equal, of {len(frames)} sent")
+        keys = [k for _, _, k, _ in run["got"][layer]]
+        require(keys == [k for _, k in run["sent"][layer]],
+                f"video_stream: layer {layer}'s keyframe flags differ")
+    sim = run["simulcast"]
+    require(sim.frames.tolist() == [len(s) for s in run["sent"]]
+            and bool(sim.keyframe_seen.all()),
+            f"video_stream: SimulcastReceiver counted {sim.frames.tolist()}")
+    require(run["feedback"] == [(2, ["Pli"]), (1, ["Fir"])],
+            f"video_stream: feedback {run['feedback']}")
+    require(run["answered"] == {2: True, 1: True},
+            f"video_stream: the frames after the PLI and the FIR were "
+            f"keyframes: {run['answered']}")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "layer2.webm")
+        w = WebmWriter(path, width=1280, height=720)
+        for ts, _pid, key, data in run["got"][2]:
+            w.write_frame(data, (ts - run["got"][2][0][0]) // 90, key)
+        w.close()
+        with open(path, "rb") as fh:
+            blocks = _webm_blocks(fh.read())
+    require(blocks == [(d, k) for _ts, _pid, k, d in run["got"][2]],
+            "video_stream: the WebM file does not read back frame for frame")
+    h = run["h264"]
+    if h is not None:
+        require(h["decoded"] == h["access_units"] == VS_FRAMES
+                and h["shape"] == [360, 640] and h["keyframe_seen"],
+                f"video_stream: the H.264 leg {h}")
+    times = np.array(run["times"]) * 1e3
+    emit("video_stream", frames_per_layer=VS_FRAMES,
+         layers=[f"{w}x{h_}" for w, h_, _ in VIDEO_LAYERS],
+         frame_bytes=[int(np.mean([len(f) for f, _ in s]))
+                      for s in run["sent"]],
+         frames_sent=[len(s) for s in run["sent"]],
+         packets_received=[st["rx_packets"] for st in run["stats"]],
+         frame_ms_p50=float(np.median(times)),
+         frame_ms_p99=float(np.percentile(times, 99)),
+         simulcast_frames=sim.frames.tolist(),
+         keyframes=[sum(k for _, k in s) for s in run["sent"]],
+         feedback=run["feedback"], webm_blocks=len(blocks), h264=h,
+         vp8_source="libvpx" if run["vpx"] else "synthetic",
+         device_idle_share=run["profile"]["device_idle_share"],
+         profile=run["profile"])
 
 
 if __name__ == "__main__":

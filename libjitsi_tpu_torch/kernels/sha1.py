@@ -57,12 +57,16 @@ def hmac_precompute_batch(keys: np.ndarray) -> np.ndarray:
         raise ValueError("batched HMAC keys must be <= one block (64B)")
     k = np.zeros((s, BLOCK), dtype=np.uint8)
     k[:, :kl] = keys
-    out = np.zeros((s, 2, 5), dtype=np.uint32)
-    for row, pad in enumerate((0x36, 0x5C)):
-        blk = (k ^ pad).astype(np.uint32).reshape(s, 16, 4)
-        w16 = ((blk[..., 0] << 24) | (blk[..., 1] << 16)
-               | (blk[..., 2] << 8) | blk[..., 3])
-        out[:, row] = _compress_blocks_np(_H0, w16)
+    # the ipad and opad blocks of every key in one compression pass (the
+    # pass's cost is mostly per call: a key install of a few rows)
+    blk = np.concatenate([k ^ 0x36, k ^ 0x5C]).astype(np.uint32).reshape(
+        2 * s, 16, 4)
+    w16 = ((blk[..., 0] << 24) | (blk[..., 1] << 16)
+           | (blk[..., 2] << 8) | blk[..., 3])
+    mid = _compress_blocks_np(_H0, w16)
+    out = np.empty((s, 2, 5), dtype=np.uint32)   # C order, for the kernels
+    out[:, 0] = mid[:s]
+    out[:, 1] = mid[s:]
     return out
 
 

@@ -10,8 +10,7 @@ can align audio and video that started at different times.
 
 Counterpart: `libjitsi_tpu/recording/recorder.py` (copied, with the
 port's imports: `io.pcap.RtpdumpWriter`, `rtp.stats.NTP_EPOCH_OFFSET`).
-Host only.  The VP8 WebM writer (`recording/webm.py`) waits for the
-video codecs (ROADMAP Queue 1, item 9).
+Host only.  The VP8 WebM writer is `recording/webm.py`.
 """
 
 from __future__ import annotations

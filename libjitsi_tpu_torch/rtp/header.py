@@ -61,6 +61,14 @@ def _u32_fixed(data, off: int):
 read_u32 = _u32_fixed
 
 
+def byte_at(data: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """Per-row single-byte gather: data [B, W], pos [B] -> int64 [B]
+    (clamped to the buffer; callers mask validity separately)."""
+    return np.take_along_axis(
+        data, np.clip(pos, 0, data.shape[1] - 1)[:, None].astype(np.int64),
+        axis=1)[:, 0].astype(np.int64)
+
+
 def parse(batch: PacketBatch) -> RtpHeaders:
     """Parse all RTP headers in the batch (vectorized, no per-packet loop)."""
     d = batch.data

@@ -50,9 +50,11 @@ package: SRTP tables, jitter rings, rows, codecs by name (G.722 and Opus
 resume with fresh codec state: `degraded_rows`), the recorded clock, TX
 counters, speaker scores and latched addresses.
 
-Not ported: the JAX bridge's `config` argument, the G.729 and iLBC legs
-(ROADMAP Queue 1, item 9, `NotImplementedError`), the mesh mode and
-sharded snapshots (item 12).
+G.729 and iLBC legs join receive-only, as in the JAX bridge: the mix
+toward them has no encoder and raises `RuntimeError` on the first send.
+
+Not ported: the JAX bridge's `config` argument, the mesh mode and sharded
+snapshots (ROADMAP Queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.rtp.dense_jitter import DenseJitterBank
 from libjitsi_tpu_torch.service.media_stream import StreamRegistry
 from libjitsi_tpu_torch.service.pump import (G711_LAWS, FrameCodec,
-                                             ReceiveBank, check_ported,
+                                             ReceiveBank,
                                              codec_from_name, g711_codec)
 from libjitsi_tpu_torch.transform.engine import TransformEngineChain
 from libjitsi_tpu_torch.transform.header_ext import CsrcAudioLevelEngine
@@ -171,7 +173,6 @@ class ConferenceBridge:
             raise ValueError(
                 f"codec ptime {codec.frame_samples * 1000.0 / codec.sample_rate:.1f} ms "
                 f"!= bridge ptime {self.ptime_ms} ms")
-        check_ported(codec)
         if ssrc in self._ssrc_of.values():
             # silently remapping would mute the existing participant
             raise ValueError(f"ssrc {ssrc:#x} already joined")

@@ -2,9 +2,7 @@
 
 Counterpart: `libjitsi_tpu/service/encodings.py` (copied).  Its
 availability probes are the JAX ones (ctypes loads of libopus, libspeex
-and libgsm), so both packages list the same encodings on one machine;
-the port's GSM and Speex coders are still to come (ROADMAP Queue 1,
-item 9), and a bridge leg that asks for one is refused.
+and libgsm), so both packages list the same encodings on one machine.
 
 Rebuilds `org.jitsi.impl.neomedia.codec.EncodingConfigurationImpl` (API
 `org.jitsi.service.neomedia.codec.EncodingConfiguration`) and the role of

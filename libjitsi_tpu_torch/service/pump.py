@@ -1,8 +1,8 @@
 """Media pumps, the codec legs and the dense many-stream receive plane.
 
 Counterpart: `libjitsi_tpu/service/pump.py` — `FrameCodec`, the G.711,
-G.722, Opus, GSM and Speex legs, `codec_from_name`, `SendPump`,
-`ReceivePump` and `ReceiveBank`.
+G.722, Opus, GSM and Speex legs, the G.729 and iLBC receive-only legs,
+`codec_from_name`, `SendPump`, `ReceivePump` and `ReceiveBank`.
 
 The pumps are the Processor-graph role, one host object a stream:
 `SendPump` reads a frame from an `AudioSource` (`device/`), encodes it and
@@ -17,7 +17,8 @@ and/or a mixer row (`AudioMixerMediaDevice`: kernel E at its `tick()`).
 The bank drives a `DenseJitterBank` from the MediaLoop's decrypted
 batches and decodes per tick: the G.711 rows of one law and frame width
 decode as ONE launch of kernel G (`kernels/g711.py`) on the bank's
-device; the stateful rows (G.722, Opus, GSM, Speex) decode one by one
+device; the stateful rows (G.722, Opus, GSM, Speex, G.729, iLBC) decode
+one by one
 through their host codecs, counting `decode_errors`.  Rows at another
 rate than the mixer's resample to the mixer clock on deposit, one launch
 of kernel R (`kernels/resample.py`) a same-rate group, inside a
@@ -26,9 +27,11 @@ kinds of row.  Each decode tick fills the bank's `jitter_hist` and
 `decode_delay_hist` over its active rows, and `register_metrics` exposes
 them with the per-stream counters.
 
-Not ported: the G.729 and iLBC receive legs (libavcodec, with the video
-codecs' binding), which raise `NotImplementedError` naming ROADMAP
-Queue 1, item 9 wherever a caller would reach them.
+The G.729 and iLBC legs decode on the system libavcodec
+(`codecs/audio_avcodec.py`); it has no encoder for them, so their
+`encode` raises `RuntimeError` (the gateway posture: reply legs use G.711
+or Opus), and a host whose libavcodec lacks the decoder refuses the leg
+with the JAX binding's `RuntimeError`.
 """
 
 from __future__ import annotations
@@ -49,22 +52,8 @@ from libjitsi_tpu_torch.rtp.dense_jitter import DenseJitterBank
 from libjitsi_tpu_torch.utils.metrics import Histogram
 
 G711_LAWS = {"PCMU": g711.ULAW, "PCMA": g711.ALAW}
-#: the codec legs the port lacks (by upper-case wire name)
-NOT_PORTED_CODECS = ("G729", "ILBC")
 #: the bank's row kinds: a G.711 law, or a stateful host codec
 STATEFUL = 2
-
-
-def not_ported_codec(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {name} codec leg is not ported yet (ROADMAP Queue 1, item 9)")
-
-
-def check_ported(codec: "FrameCodec") -> None:
-    """Refuse a leg whose codec the port does not have (G.729, iLBC), by
-    its wire name."""
-    if codec.name.upper() in NOT_PORTED_CODECS:
-        raise not_ported_codec(codec.name)
 
 
 @dataclasses.dataclass
@@ -162,6 +151,36 @@ def speex_codec(mode: str = "nb") -> FrameCodec:
         lambda b: dec.decode(b))
 
 
+def _no_encoder(name: str):
+    """Encode stub of a receive-only leg (libavcodec has no encoder)."""
+    def enc(pcm):
+        raise RuntimeError(
+            f"no {name} encoder on this host: receive-only leg "
+            "(ReceivePump/ReceiveBank); send with G.711/Opus instead")
+    return enc
+
+
+def g729_rx_codec(ptime_ms: int = 20) -> FrameCodec:
+    """G.729 receive-only leg, decoding on the system libavcodec.  RFC
+    3551: pt 18, 8 kHz, N x 10-byte frames a packet (+ an optional 2-byte
+    SID)."""
+    from libjitsi_tpu_torch.codecs.audio_avcodec import g729_decoder
+
+    dec = g729_decoder()
+    n = 8000 * ptime_ms // 1000
+    return FrameCodec("G729", 18, 8000, n, n, _no_encoder("G.729"),
+                      lambda b: dec.decode_payload(b))
+
+
+def ilbc_rx_codec() -> FrameCodec:
+    """iLBC (RFC 3952, mode=20) receive-only leg; see g729_rx_codec."""
+    from libjitsi_tpu_torch.codecs.audio_avcodec import ilbc_decoder
+
+    dec = ilbc_decoder()
+    return FrameCodec("iLBC", 97, 8000, 160, 160, _no_encoder("iLBC"),
+                      lambda b: dec.decode_payload(b))
+
+
 def codec_from_name(name: str, ptime_ms: int,
                     device: DeviceLike = None) -> FrameCodec:
     """Rebuild a codec leg from its wire name (snapshot restore).
@@ -183,8 +202,12 @@ def codec_from_name(name: str, ptime_ms: int,
         rate = name.split("/", 1)[1] if "/" in name else "8000"
         return speex_codec({"8000": "nb", "16000": "wb",
                             "32000": "uwb"}[rate])
-    if u in NOT_PORTED_CODECS:
-        raise not_ported_codec(name)
+    # receive-only legs must restore too: a snapshot that cannot be
+    # loaded again is worse than a refusal at snapshot time
+    if u == "G729":
+        return g729_rx_codec(ptime_ms)
+    if u == "ILBC":
+        return ilbc_rx_codec()
     raise ValueError(f"cannot rebuild codec {name!r} on restore")
 
 
@@ -381,7 +404,6 @@ class ReceiveBank:
                     f"codec ptime ({codec.frame_samples}/"
                     f"{codec.sample_rate}) != mixer ptime "
                     f"({self.mixer.frame_samples}/{self.mixer_rate})")
-        check_ported(codec)
         name = codec.name.upper()
         if name in G711_LAWS:
             self._kind[sid] = G711_LAWS[name]

@@ -51,6 +51,24 @@ every engine takes SO_TIMESTAMPNS stamps, and the receive-side GCC
 ingest engine (`io/udp.py`); `snapshot()` records `ingest_rings` and
 `engine_mode`; `restore()` takes them unless the caller passes its own.
 
+Video (`add_video_track`, `add_svc_track`, as in the JAX bridge): a
+sender's simulcast layers arrive as SSRCs of their own, each on an rx row
+of its own under the sender's keys (its BWE transport is the sender's
+row); an SVC track is one SSRC carrying every layer.  `_on_media` splits
+the video rows out before the audio fan-out, and `_forward_video` runs
+each receiver's `SimulcastForwarder` / `Vp9SvcForwarder` over them (host
+Python, a packet at a time), keeps the rewritten pre-SRTP copies in the
+track's cache for RTX, and protects every projection of the batch in one
+`tx_table.protect_rtp` [C].  Each receiver gets two tx rows a track under
+its leg keys: the projection and its RFC 4588 RTX stream, each an RFC
+3711 stream of its own.  Receivers' REMBs pick their layers
+(`_select_video_layers` in `emit_feedback`, which also sends the
+per-layer PLIs toward senders, to a video-only sender's layer address);
+a NACK for a projection comes back as RTX [C] (`_serve_video_nack`).
+Video receivers are scoped to the sender's conference (the JAX bridge
+attaches every endpoint of the bridge: ROADMAP Queue 3); a row with no
+leg keys gets no forwarder and no rows until its keys land.
+
 DTLS-SRTP joins (`add_endpoint_dtls`, as in the JAX bridge): the row is
 allocated and its SSRC mapped at once, a `control.dtls.DtlsAssociationTable`
 takes the loop's DTLS datagrams (`on_dtls`) and drives the handshake, and
@@ -62,8 +80,8 @@ fingerprint mismatch) is kept out of the routes and snapshots.
 JAX bridge scopes only `stage_endpoints` rows).
 
 Not ported, each raising `NotImplementedError` with its ROADMAP Queue 1
-item: video and SVC tracks with RTX encapsulation (item 9), mesh mode,
-cascade trunks, broadcast conferences and endpoint migration (item 12).
+item: mesh mode, cascade trunks, broadcast conferences and endpoint
+migration (item 12).
 The JAX bridge's `config` argument is not taken.
 """
 
@@ -84,9 +102,12 @@ from libjitsi_tpu_torch.rtp import ext as rtp_ext
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.rtp import rtcp
 from libjitsi_tpu_torch.service.media_stream import StreamRegistry
+from libjitsi_tpu_torch.sfu import rtx as rtx_mod
 from libjitsi_tpu_torch.sfu.cache import PacketCache
 from libjitsi_tpu_torch.sfu.recovery import RecoveryConfig, RecoveryController
 from libjitsi_tpu_torch.sfu.rtcp_termination import RtcpTermination
+from libjitsi_tpu_torch.sfu.simulcast import SimulcastForwarder
+from libjitsi_tpu_torch.sfu.svc import Vp9SvcForwarder
 from libjitsi_tpu_torch.sfu.translator import RtpTranslator
 from libjitsi_tpu_torch.transform.header_ext import AbsSendTimeEngine
 from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
@@ -96,6 +117,103 @@ from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue 1, item {item})")
+
+
+def _layer_for_bw(layer_bps, bw: float) -> int:
+    """Highest layer whose nominal rate fits the advertised bandwidth
+    (ascending rates; layer 0 always fits)."""
+    want = 0
+    for layer, bps in enumerate(layer_bps):
+        if bps <= bw:
+            want = layer
+    return want
+
+
+class _SvcTrack:
+    """One sender's VP9 SVC track: every layer in ONE SSRC, each
+    receiver gets a `Vp9SvcForwarder` projection (spatial/temporal
+    subsetting) instead of a simulcast stream pick.  Shares the
+    fan-out/RTX plumbing with `_VideoTrack` via the same duck surface
+    (fwd.forward, tx_sid/rtx_sid/rtx_seq, precache, out_ssrc)."""
+
+    def __init__(self, sender_sid: int, ssrc: int, svc_sid: int,
+                 layer_bps, rtx_pt: int):
+        self.sender_sid = sender_sid
+        self.out_ssrc = ssrc & 0xFFFFFFFF     # projection keeps the ssrc
+        self.rtx_ssrc = (ssrc ^ _VideoTrack.RTX_SSRC_XOR) & 0xFFFFFFFF
+        self.layer_sids = [svc_sid]
+        self.layer_ssrcs = [self.out_ssrc]    # teardown/feedback key
+        self.layer_bps = [float(b) for b in layer_bps]
+        self.rtx_pt = rtx_pt
+        self.fwd: Dict[int, object] = {}
+        self.rtx_seq: Dict[int, int] = {}
+        self.tx_sid: Dict[int, int] = {}
+        self.rtx_sid: Dict[int, int] = {}
+        self.precache = PacketCache()
+
+    def make_forwarder(self):
+        return Vp9SvcForwarder(initial_sid=0)
+
+    def select_layer(self, fwd, bw: float):
+        """Spatial-layer pick for `bw`; returns the SSRC to PLI when a
+        raise awaits a keyframe, else None."""
+        want = _layer_for_bw(self.layer_bps, bw)
+        if want != fwd.target_sid:
+            if fwd.request_layers(sid=want):
+                return self.out_ssrc
+        elif fwd.awaiting_keyframe:
+            return self.out_ssrc
+        return None
+
+
+class _VideoTrack:
+    """One sender's simulcast video track inside an SfuBridge.
+
+    Reference: `MediaStreamTrackDesc` + `RTPEncodingDesc` consumed by
+    `RTPTranslatorImpl` (SURVEY §2.3): L spatial layers arrive as
+    separate SSRCs; each receiver gets exactly one, projected through a
+    `SimulcastForwarder` into a single coherent stream.  Retransmissions
+    toward receivers ride RFC 4588 RTX streams (own SSRC = out_ssrc ^
+    "RTX", own SRTP row), served from a pre-SRTP cache of the rewritten
+    per-receiver packets.
+    """
+
+    RTX_SSRC_XOR = 0x00525458          # "RTX"
+
+    def __init__(self, sender_sid: int, out_ssrc: int, layer_ssrcs,
+                 layer_sids, layer_bps, rtx_pt: int):
+        self.sender_sid = sender_sid
+        self.out_ssrc = out_ssrc & 0xFFFFFFFF
+        self.rtx_ssrc = (out_ssrc ^ self.RTX_SSRC_XOR) & 0xFFFFFFFF
+        self.layer_ssrcs = [int(s) & 0xFFFFFFFF for s in layer_ssrcs]
+        self.layer_sids = list(layer_sids)
+        self.layer_bps = [float(b) for b in layer_bps]
+        self.rtx_pt = rtx_pt
+        self.fwd: Dict[int, SimulcastForwarder] = {}   # recv sid ->
+        self.rtx_seq: Dict[int, int] = {}              # recv sid ->
+        # dedicated SRTP tx rows per receiver: the projection and its
+        # RTX stream are each their own RTP stream (own SSRC, own seq
+        # space), so each gets its own row context — sharing the
+        # receiver's audio row would interleave independent seq spaces
+        # in one RFC 3711 index estimator
+        self.tx_sid: Dict[int, int] = {}               # recv sid ->
+        self.rtx_sid: Dict[int, int] = {}              # recv sid ->
+        self.precache = PacketCache()                  # pre-SRTP copies
+
+    def make_forwarder(self):
+        return SimulcastForwarder(self.layer_ssrcs,
+                                  out_ssrc=self.out_ssrc)
+
+    def select_layer(self, fwd, bw: float):
+        """Simulcast-layer pick for `bw`; returns the layer SSRC to PLI
+        while a switch awaits its keyframe, else None."""
+        want = _layer_for_bw(self.layer_bps, bw)
+        if want != fwd.target_layer:
+            if fwd.request_layer(want):
+                return self.layer_ssrcs[want]
+        elif fwd.awaiting_keyframe:
+            return self.layer_ssrcs[fwd.target_layer]
+        return None
 
 
 class SfuBridge:
@@ -140,6 +258,12 @@ class SfuBridge:
         # NACKs, budgeted NACK service, adaptive FEC on egress legs.
         # Transient, like the cache: a restored bridge re-learns it.
         self.recovery = RecoveryController(recovery_config)
+        # uplink SSRCs resolve to leg sids, video layers included, so
+        # nack_queued events land in the stream's flight ring
+        self.recovery.sid_of = self._sid_of_ssrc
+        # flight recorder slot (`utils/flight.FlightRecorder`), shared
+        # with self.recovery by whoever attaches it
+        self.flight = None
         self.loop = MediaLoop(
             UdpEngine(port=port, max_batch=4 * capacity,
                       kernel_timestamps=kernel_timestamps,
@@ -187,6 +311,8 @@ class SfuBridge:
         # conference scoping: sid -> conference id.  Rows without one
         # (direct add_endpoint) form one shared mesh.
         self._conf_of: Dict[int, int] = {}
+        # video: layer-row sid -> its track
+        self._video: Dict[int, object] = {}
 
     # ---------------------------------------------------------- endpoints
     def add_endpoint(self, ssrc: int, rx_key: Tuple[bytes, bytes],
@@ -206,6 +332,8 @@ class SfuBridge:
         self._rx_keys[sid] = tuple(rx_key)
         self._tx_keys[sid] = tuple(tx_key)
         self._rebuild_routes()
+        for track in self._tracks():
+            self._attach_video_receivers(track, [sid])
         return sid
 
     def remove_endpoint(self, sid: int) -> None:
@@ -243,6 +371,31 @@ class SfuBridge:
                 # left before its admit flipped live: drop held media
                 self._staged.discard(sid)
                 self.loop.discard_stream(sid)
+            # as a video sender: tear each track and its layer rows down
+            # (the SSRC unmap matters: a recycled row must not demux the
+            # old layer SSRCs and latch the departed sender's address).
+            # The receivers' rows go once a track: the JAX bridge releases
+            # them once a layer, so a 3-layer track's rows enter the free
+            # list three times (ROADMAP Queue 3).
+            for track in self._tracks():
+                if track.sender_sid != sid:
+                    continue
+                for lsid, lssrc in zip(track.layer_sids, track.layer_ssrcs):
+                    del self._video[lsid]
+                    self.registry.unmap_ssrc(lssrc)
+                    gone_ssrcs.append(lssrc)
+                    rx_rows.append(lsid)
+                    self._transport_of[lsid] = lsid
+                    self.loop.addr_ip[lsid] = 0
+                    self.loop.addr_port[lsid] = 0
+                    self.registry.release(lsid)
+                for d in (track.tx_sid, track.rtx_sid):
+                    for row in d.values():
+                        tx_rows.append(row)
+                        self.registry.release(row)
+            # as a video receiver: drop forwarders + projection/RTX rows
+            for track in self._tracks():
+                tx_rows += self._detach_video_receiver(track, sid)
             self.loop.addr_ip[sid] = 0
             self.loop.addr_port[sid] = 0
             self.stream_names.pop(sid, None)
@@ -315,6 +468,8 @@ class SfuBridge:
         self._quiesce_fanout()
         self._staged.difference_update(sids)
         self._rebuild_routes()
+        for track in self._tracks():
+            self._attach_video_receivers(track, sids)
         for sid in sids:
             self.loop.release_stream(sid)
 
@@ -351,6 +506,9 @@ class SfuBridge:
         if sid in self._tx_keys and sid not in self._staged:
             self._quiesce_fanout()
             self._rebuild_routes()
+        if self._video:
+            self._quiesce_fanout()
+            self._rescope_video(sid)
 
     # ------------------------------------------------------------- DTLS
     def add_endpoint_dtls(self, ssrc: int, role: str = "server",
@@ -384,6 +542,10 @@ class SfuBridge:
         self._quiesce_fanout()
         self._land_dtls_keys(sid, ep)
         self._rebuild_routes()
+        # video tracks created while this endpoint was mid-handshake
+        # attach now that its leg keys exist
+        for track in self._tracks():
+            self._attach_video_receivers(track, [sid])
 
     def stage_dtls_keys(self, sid: int, ep) -> None:
         """Staged landing for a completed DTLS handshake (a lifecycle
@@ -401,13 +563,242 @@ class SfuBridge:
         self._rx_keys[sid] = (rk, rsalt)
         self._tx_keys[sid] = (tk, tsalt)
 
+    def _sid_of_ssrc(self, ssrc: int) -> Optional[int]:
+        """Reverse of `_ssrc_of` (recovery's sid resolver): uplink
+        media SSRC -> sender leg sid, video layers included."""
+        ssrc = int(ssrc) & 0xFFFFFFFF
+        for sid, s in self._ssrc_of.items():
+            if s == ssrc:
+                return sid
+        for lsid, track in self._video.items():
+            li = track.layer_sids.index(lsid)
+            if track.layer_ssrcs[li] == ssrc:
+                return track.sender_sid
+        return None
+
+    # --------------------------------------------------------------- video
+    def add_video_track(self, sender_sid: int, layer_ssrcs,
+                        layer_bps, rtx_pt: int = 97) -> "_VideoTrack":
+        """Declare a joined endpoint's simulcast video track.
+
+        layer_ssrcs: the L spatial layers' SSRCs, low to high;
+        layer_bps: nominal bitrate of each layer (ascending) — layer
+        selection picks the highest layer whose rate fits the
+        receiver's advertised REMB.  Each layer gets its own SRTP row
+        (one row per SSRC: RFC 3711 contexts, replay windows and index
+        estimation are per-stream).  Reference: RTPEncodingDesc layers
+        under MediaStreamTrackDesc (SURVEY §2.3).
+        """
+        if sender_sid not in self._ssrc_of:
+            raise ValueError(f"sid {sender_sid} not joined")
+        if len(layer_ssrcs) != len(layer_bps):
+            raise ValueError("one nominal bitrate per layer")
+        self._quiesce_fanout()
+        layer_sids = self._add_layer_rows(sender_sid, layer_ssrcs)
+        track = _VideoTrack(sender_sid, self._ssrc_of[sender_sid],
+                            layer_ssrcs, layer_sids, layer_bps, rtx_pt)
+        for lsid in layer_sids:
+            self._video[lsid] = track
+        self._attach_video_receivers(track, list(self._ssrc_of))
+        return track
+
+    def add_svc_track(self, sender_sid: int, ssrc: int, layer_bps,
+                      rtx_pt: int = 97) -> "_SvcTrack":
+        """Declare a joined endpoint's VP9 SVC track: one SSRC carrying
+        every spatial layer; each receiver gets a per-receiver
+        `Vp9SvcForwarder` projection (layer subsetting) driven by its
+        REMB, with the same RTX/PLI plumbing as simulcast.  layer_bps:
+        nominal cumulative rate per spatial layer, ascending."""
+        if sender_sid not in self._ssrc_of:
+            raise ValueError(f"sid {sender_sid} not joined")
+        self._quiesce_fanout()
+        svc_sid, = self._add_layer_rows(sender_sid, [ssrc])
+        track = _SvcTrack(sender_sid, ssrc, svc_sid, layer_bps, rtx_pt)
+        self._video[svc_sid] = track
+        self._attach_video_receivers(track, list(self._ssrc_of))
+        return track
+
+    def _add_layer_rows(self, sender_sid: int, ssrcs) -> list:
+        """An rx row for each layer SSRC under the sender's keys, keyed in
+        one `add_streams` pass; GCC is per transport, so the rows feed
+        the sender's BWE row."""
+        lsids = []
+        for ssrc in ssrcs:
+            lsid = self.registry.alloc(self)
+            self.registry.map_ssrc(ssrc, lsid)
+            self._transport_of[lsid] = sender_sid
+            lsids.append(lsid)
+        mk, ms = self._rx_keys[sender_sid]
+        n = len(lsids)
+        self.rx_table.add_streams(
+            np.asarray(lsids, dtype=np.int64),
+            np.tile(np.frombuffer(mk, np.uint8), (n, 1)),
+            np.tile(np.frombuffer(ms, np.uint8), (n, 1)))
+        return lsids
+
+    def _tracks(self) -> list:
+        """Every video track once, in the order they were added."""
+        return list(dict.fromkeys(self._video.values()))
+
+    def _sees(self, track, recv_sid: int) -> bool:
+        """A receiver takes a track when it is another endpoint of the
+        sender's conference and holds leg keys (mid-DTLS rows attach when
+        their keys land)."""
+        return (recv_sid != track.sender_sid
+                and recv_sid in self._tx_keys
+                and self._conf_of.get(recv_sid, -1)
+                == self._conf_of.get(track.sender_sid, -1))
+
+    def _attach_video_receivers(self, track, recv_sids) -> None:
+        """A forwarder and two tx rows under each new receiver's leg
+        keys, the projection's and its RTX stream's (RFC 4588: RTX is its
+        own stream; RFC 3711: one index estimator per stream), keyed in
+        one `add_streams` pass."""
+        rows, keys = [], []
+        for r in recv_sids:
+            if r in track.fwd or not self._sees(track, r):
+                continue
+            track.fwd[r] = track.make_forwarder()
+            track.rtx_seq[r] = 0
+            for d in (track.tx_sid, track.rtx_sid):
+                d[r] = self.registry.alloc(self)
+                rows.append(d[r])
+                keys.append(self._tx_keys[r])
+        if rows:
+            self.tx_table.add_streams(
+                np.asarray(rows, dtype=np.int64),
+                np.stack([np.frombuffer(k[0], np.uint8) for k in keys]),
+                np.stack([np.frombuffer(k[1], np.uint8) for k in keys]))
+
+    def _detach_video_receiver(self, track, recv_sid: int) -> list:
+        """Drop a receiver's forwarder and release its projection and
+        RTX rows; returns the rows for the caller's `remove_streams`."""
+        track.fwd.pop(recv_sid, None)
+        track.rtx_seq.pop(recv_sid, None)
+        rows = []
+        for d in (track.tx_sid, track.rtx_sid):
+            row = d.pop(recv_sid, None)
+            if row is not None:
+                rows.append(row)
+                self.registry.release(row)
+        return rows
+
+    def _rescope_video(self, sid: int) -> None:
+        """After `set_conference`: the row's tracks re-pick their
+        receivers, and the row leaves or joins the other tracks."""
+        gone = []
+        for track in self._tracks():
+            if track.sender_sid == sid:
+                for r in list(track.fwd):
+                    if not self._sees(track, r):
+                        gone += self._detach_video_receiver(track, r)
+                self._attach_video_receivers(track, list(self._ssrc_of))
+            elif sid in track.fwd and not self._sees(track, sid):
+                gone += self._detach_video_receiver(track, sid)
+            else:
+                self._attach_video_receivers(track, [sid])
+        self.tx_table.remove_streams(gone)
+
+    def _forward_video(self, sub: PacketBatch, vrows: np.ndarray) -> None:
+        """Project video rows through each receiver's forwarder, cache
+        the pre-SRTP rewrites for RTX, protect all legs in one launch."""
+        lens = np.asarray(sub.length)
+        rows_of: Dict[int, list] = {}      # id(track) -> batch rows
+        tracks: Dict[int, object] = {}
+        for i in vrows:
+            t = self._video[int(sub.stream[i])]
+            rows_of.setdefault(id(t), []).append(int(i))
+            tracks[id(t)] = t
+        out_payloads: list = []
+        out_rows: list = []                # SRTP row per packet
+        out_addr: list = []                # receiver sid per packet
+        for key_, trows in rows_of.items():
+            track = tracks[key_]
+            tb = PacketBatch(sub.data[trows], lens[trows],
+                             sub.stream[trows])
+            for r, fwd in track.fwd.items():
+                if self.loop.addr_port[r] == 0:
+                    continue
+                pkts = fwd.forward(tb)
+                key = (r << 32) | track.out_ssrc
+                for p in pkts:
+                    seq = int.from_bytes(p[2:4], "big")
+                    track.precache.insert(key, seq, p, now=self._now)
+                out_payloads.extend(pkts)
+                out_rows.extend([track.tx_sid[r]] * len(pkts))
+                out_addr.extend([r] * len(pkts))
+        if not out_payloads:
+            return
+        wb = PacketBatch.from_payloads(out_payloads, stream=out_rows)
+        with self.loop.tracer.span("forward_chain"):
+            wire = self.tx_table.protect_rtp(wb)
+        addr = np.asarray(out_addr, dtype=np.int64)
+        with self.loop.tracer.span("egress"):
+            sent = self.loop.engine.send_batch(
+                wire, self.loop.addr_ip[addr], self.loop.addr_port[addr])
+            self.loop.note_journey_at(self.loop.journey_origin(), sent,
+                                    sids=addr)
+        self.forwarded += sent
+
+    def _select_video_layers(self) -> None:
+        """Keyframe-gated layer selection from receiver REMBs: pick the
+        highest layer whose nominal rate fits each receiver's advertised
+        bandwidth; a pending switch keeps a PLI request live upstream
+        until the target layer's keyframe arrives."""
+        for track in self._tracks():
+            for r, fwd in track.fwd.items():
+                bw = self._recv_bw.get(r)
+                if bw is None:
+                    continue
+                kf_ssrc = track.select_layer(fwd, bw)
+                if kf_ssrc is not None:
+                    self.rtcp_term.request_keyframe(kf_ssrc)
+
+    def _serve_video_nack(self, sid: int, nack: "rtcp.Nack") -> bool:
+        """NACKed video returns as proper RTX encapsulation (not a raw
+        replay): pre-SRTP copies from the track's cache, OSN spliced in,
+        RTX SSRC/PT/seq space, protected under the receiver's RTX row."""
+        for track in self._tracks():
+            if sid not in track.fwd or \
+                    nack.media_ssrc != track.out_ssrc:
+                continue
+            rtx_row = track.rtx_sid.get(sid)
+            if rtx_row is None:
+                return False
+            key = (sid << 32) | track.out_ssrc
+            copies, missing = track.precache.lookup_nack(
+                key, nack.lost_seqs, return_missing=True)
+            self.recovery.rtx_cache_miss += len(missing)
+            if not copies:
+                return True          # ours, but aged out of the cache
+            if not self.recovery.allow_rtx(
+                    sum(len(c) for c in copies), self._now):
+                return True          # over the retransmission budget
+            self.recovery.rtx_requests_served += len(copies)
+            b = PacketBatch.from_payloads(copies,
+                                          stream=[rtx_row] * len(copies))
+            out = rtx_mod.encapsulate_batch(b, track.rtx_ssrc,
+                                            track.rtx_pt,
+                                            track.rtx_seq[sid])
+            track.rtx_seq[sid] = (track.rtx_seq[sid]
+                                  + out.batch_size) & 0xFFFF
+            wire = self.tx_table.protect_rtp(out)
+            with self.loop.tracer.span("egress"):
+                sent = self.loop.engine.send_batch(
+                    wire, self.loop.addr_ip[sid],
+                    self.loop.addr_port[sid])
+                # NACK-arrival -> RTX-egress is this tick's journey
+                self.loop.note_journey_at(self.loop.journey_origin(),
+                                          sent, sids=[sid])
+            self.retransmitted += sent
+            if self.flight is not None:
+                self.flight.record("rtx_served", sid=sid,
+                                   ssrc=int(track.out_ssrc),
+                                   n=len(copies), rtx=True)
+            return True
+        return False
+
     # ------------------------------------------------ not ported entries
-    def add_video_track(self, *args, **kwargs):
-        raise _not_ported("simulcast video tracks and RTX", 9)
-
-    def add_svc_track(self, *args, **kwargs):
-        raise _not_ported("VP9 SVC tracks and RTX", 9)
-
     def attach_trunk(self, *args, **kwargs):
         raise _not_ported("cascade trunks", 12)
 
@@ -448,16 +839,30 @@ class SfuBridge:
         # the bridge's own abs-send-time, before the fan-out, so every
         # receiver leg can run receive-side GCC on its downlink
         sub, _ = self._ast.rtp_transformer.transform(sub)
+        idx_sel = idx[rows]
+        if self._video:
+            # video rows take the per-receiver projections, the rest the
+            # audio fan-out
+            vmask = np.isin(sub.stream, list(self._video.keys()))
+            if vmask.any():
+                self._forward_video(sub, np.nonzero(vmask)[0])
+                keep = np.nonzero(~vmask)[0]
+                if len(keep) == 0:
+                    return None
+                sub = PacketBatch(sub.data[keep],
+                                  np.asarray(sub.length)[keep],
+                                  sub.stream[keep])
+                idx_sel = idx_sel[keep]
         with loop.tracer.span("forward_chain"):
             if self.pipelined:
                 # the copies leave on a later tick: charge their journey
                 # to this one, when the packets arrived
                 with perf.phase("dispatch"):
-                    pend = self.translator.translate_async(sub, idx[rows])
+                    pend = self.translator.translate_async(sub, idx_sel)
                 self._pending_fanout.append((pend, loop.journey_origin()))
                 return None
             with perf.phase("device_compute"):
-                wire, recv = self.translator.translate(sub, idx[rows])
+                wire, recv = self.translator.translate(sub, idx_sel)
         self._emit_fanout(wire, recv)
         return None
 
@@ -571,8 +976,11 @@ class SfuBridge:
             self.rtcp_term.on_receiver_rtcp(sid, pkts)
             for p in pkts:
                 if isinstance(p, rtcp.Nack):
-                    self._serve_nack(sid, p)
+                    if not self._serve_video_nack(sid, p):
+                        self._serve_nack(sid, p)
                 elif isinstance(p, rtcp.Remb):
+                    # the receiver's downlink estimate drives its video
+                    # layer selection
                     self._recv_bw[sid] = float(p.bitrate_bps)
                 elif isinstance(p, (rtcp.ReceiverReport,
                                     rtcp.SenderReport)):
@@ -585,6 +993,9 @@ class SfuBridge:
         copies, missing = self.cache.lookup_nack(key, nack.lost_seqs,
                                                  return_missing=True)
         self.recovery.rtx_cache_miss += len(missing)
+        if missing and self.flight is not None:
+            self.flight.record("rtx_cache_miss", sid=sid,
+                               ssrc=int(nack.media_ssrc), n=len(missing))
         if not copies:
             return
         if not self.recovery.allow_rtx(sum(len(c) for c in copies),
@@ -596,6 +1007,9 @@ class SfuBridge:
                 out, self.loop.addr_ip[sid], self.loop.addr_port[sid])
         self.retransmitted += sent
         self.recovery.rtx_requests_served += len(copies)
+        if self.flight is not None:
+            self.flight.record("rtx_served", sid=sid,
+                               ssrc=int(nack.media_ssrc), n=len(copies))
 
     def emit_feedback(self, now: Optional[float] = None) -> int:
         """Drain RTCP termination toward each media sender: aggregated
@@ -612,20 +1026,40 @@ class SfuBridge:
             upstream = self.recovery.collect_upstream_nacks(now)
         for ssrc, seqs in upstream.items():
             self.rtcp_term.queue_nack(ssrc, seqs)
-        blobs, rows = [], []
+        tracks_of: Dict[int, list] = {}
+        if self._video:
+            self._select_video_layers()
+            for track in self._tracks():
+                tracks_of.setdefault(track.sender_sid, []).append(track)
+        blobs, rows, arows = [], [], []
         for sid, ssrc in list(self._ssrc_of.items()):
             own = self.own_estimate_bps(sid)
             fb = self.rtcp_term.make_sender_feedback(ssrc, now=now,
                                                      own_bps=own)
-            if self.loop.addr_port[sid] == 0 or not fb:
+            # video senders also get per-layer feedback (the PLIs that
+            # gate a pending layer switch are keyed by layer SSRC for
+            # simulcast, by the stream SSRC for SVC)
+            for track in tracks_of.get(sid, ()):
+                for lssrc in track.layer_ssrcs:
+                    fb += self.rtcp_term.make_sender_feedback(lssrc,
+                                                              now=now)
+            # a video-only sender latches addresses on its LAYER rows,
+            # not the primary sid: fall back so PLIs still reach it
+            arow = sid
+            if self.loop.addr_port[arow] == 0:
+                for track in tracks_of.get(sid, ()):
+                    arow = next((lr for lr in track.layer_sids
+                                 if self.loop.addr_port[lr] != 0), sid)
+            if self.loop.addr_port[arow] == 0 or not fb:
                 continue
             blobs.append(rtcp.build_compound(fb))
             rows.append(sid)
+            arows.append(arow)
         if not blobs:
             return 0
         wire = self.tx_table.protect_rtcp(
             PacketBatch.from_payloads(blobs, stream=rows))
-        addr = np.asarray(rows, dtype=np.int64)
+        addr = np.asarray(arows, dtype=np.int64)
         with self.loop.tracer.span("egress"):
             return self.loop.engine.send_batch(
                 wire, self.loop.addr_ip[addr], self.loop.addr_port[addr])
@@ -650,7 +1084,10 @@ class SfuBridge:
         format: SRTP indices and replay windows of both tables, the BWE
         bank, endpoint rows, keys and SSRCs, receiver REMBs, conference
         ids and latched addresses.  The caches and recovery state are
-        transient, as in the JAX bridge."""
+        transient, as in the JAX bridge, and so are video tracks: they
+        attach again through `add_video_track` / `add_svc_track`, their
+        forwarders re-anchoring on the next keyframe, and a restore
+        zeroes the latched addresses of their old rows."""
         self._quiesce_fanout()
         keyed = {sid: ssrc for sid, ssrc in self._ssrc_of.items()
                  if sid in self._tx_keys}

@@ -1,9 +1,8 @@
 """Typed stream API: audio and video specializations.
 
 Counterpart: `libjitsi_tpu/service/typed_streams.py` (`AudioMediaStream`,
-`VideoMediaStream`).  Simulcast layers need `codecs/vp8.py`, which the
-port does not have yet: `set_simulcast_layers` raises
-`NotImplementedError` naming ROADMAP Queue 1, item 9.
+`VideoMediaStream`, whose `set_simulcast_layers` builds a
+`codecs/vp8.SimulcastReceiver`).
 
 Mirrors the reference's `org.jitsi.service.neomedia.AudioMediaStream`
 (DTMF sending, per-stream audio-level listeners — backed by
@@ -81,13 +80,13 @@ class VideoMediaStream(MediaStream):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self.simulcast = None
+        self.simulcast = None  # SimulcastReceiver, set via set_layers
         self._fir_seq_n = 0
 
     def set_simulcast_layers(self, layer_ssrcs: Sequence[int]) -> None:
-        raise NotImplementedError(
-            "simulcast layers need codecs/vp8.py's SimulcastReceiver, not "
-            "ported yet (ROADMAP Queue 1, item 9)")
+        from libjitsi_tpu_torch.codecs.vp8 import SimulcastReceiver
+
+        self.simulcast = SimulcastReceiver(layer_ssrcs)
 
     def request_keyframe(self, use_fir: bool = False) -> bytes:
         """Build the PLI (or FIR) to send toward the remote sender

@@ -35,11 +35,14 @@ recovered packet re-enters the receiver's normal unprotect path and is
 still authenticated by SRTP — forged FEC cannot inject media, it can
 only fail auth.
 
-Counterpart: `libjitsi_tpu/sfu/recovery.py` (copied; host only):
+Counterpart: `libjitsi_tpu/sfu/recovery.py` (copied whole; host only):
 `RecoveryConfig`, `TokenBucket`, `NackScheduler`, `AdaptiveFecSender`,
-`RecoveryController` and `RecoveringReceiver` with its
-`register_metrics`.  Not copied: `RecoveryController.register_metrics`
-and the flight-recorder events.
+`RecoveryController` with its `register_metrics` and flight-recorder
+events (`flight`, `sid_of`, `_rec`: `nack_queued`, `nack_upstream`,
+`rtx_budget_drop`, `fec_shed`, `rtx_throttle`; the bridge records
+`rtx_served` and `rtx_cache_miss`), and `RecoveringReceiver` with its
+`register_metrics`.  The JAX module's `info` log lines of the two
+supervisor rungs are left out: the flight events carry the same.
 """
 
 from __future__ import annotations
@@ -311,6 +314,17 @@ class RecoveryController:
         self.rtx_budget_dropped = 0
         self.fec_shed = False
         self.rtx_throttled = False
+        # optional flight recorder (`utils/flight.FlightRecorder`):
+        # ladder transitions and NACK/RTX actions leave forensic events
+        self.flight = None
+        # optional ssrc -> leg sid resolver (the SfuBridge's): with it,
+        # nack_queued events land in the stream's own ring
+        self.sid_of = None
+
+    def _rec(self, kind: str, sid: Optional[int] = None,
+             **fields) -> None:
+        if self.flight is not None:
+            self.flight.record(kind, sid=sid, **fields)
 
     # ------------------------------------------------------------ uplink
     def observe_rx(self, ssrcs, seqs, now: float) -> None:
@@ -326,11 +340,18 @@ class RecoveryController:
             losses, advanced = tr.observe(int(seq))
             if losses:
                 self.nacks.on_losses(ssrc, losses, now)
+                sid = self.sid_of(ssrc) if self.sid_of is not None \
+                    else None
+                self._rec("nack_queued", sid=sid, ssrc=ssrc,
+                          n=len(losses))
             elif not advanced:
                 self.nacks.on_arrival(ssrc, int(seq))
 
     def collect_upstream_nacks(self, now: float) -> Dict[int, List[int]]:
         nacks, _expired = self.nacks.collect(now)
+        if nacks:
+            self._rec("nack_upstream", streams=len(nacks),
+                      seqs=sum(len(v) for v in nacks.values()))
         return nacks
 
     # ---------------------------------------------------------- downlink
@@ -347,6 +368,7 @@ class RecoveryController:
         if self.rtx_bucket.allow(nbytes, now):
             return True
         self.rtx_budget_dropped += 1
+        self._rec("rtx_budget_drop", nbytes=int(nbytes))
         return False
 
     def fec_active(self) -> bool:
@@ -391,6 +413,7 @@ class RecoveryController:
         """Escalation rung: FEC overhead is the first bandwidth shed."""
         self.fec_shed = shed
         self.fec.set_shed(shed)
+        self._rec("fec_shed", shed=bool(shed))
 
     def throttle_rtx(self, throttled: bool) -> None:
         """Escalation rung: shrink the retransmission budget before any
@@ -398,6 +421,41 @@ class RecoveryController:
         self.rtx_throttled = throttled
         self.rtx_bucket.set_scale(
             self.cfg.rtx_throttle_scale if throttled else 1.0)
+        self._rec("rtx_throttle", throttled=bool(throttled))
+
+    # --------------------------------------------------- observability
+    def register_metrics(self, registry, prefix: str = "recovery") -> None:
+        registry.register_counters(self, (
+            ("rtx_requests_served",
+             "NACKed packets retransmitted within budget"),
+            ("rtx_cache_miss",
+             "NACKed seqs not found in the retransmission cache"),
+            ("rtx_budget_dropped",
+             "NACK bursts dropped by the retransmission budget"),
+        ), prefix=prefix)
+        registry.register_counters(self.nacks, (
+            ("nacks_sent", "lost seqs NACKed upstream"),
+            ("nacks_suppressed_deadline",
+             "NACKs suppressed because playout would pass first"),
+            ("nacks_abandoned", "lost seqs given up after max attempts"),
+            ("recovered_late", "pending seqs recovered before abandon"),
+        ), prefix=prefix)
+        registry.register_scalar(
+            f"{prefix}_fec_packets_sent",
+            lambda: self.fec.fec_packets_sent,
+            help_="FEC packets emitted on egress legs", kind="counter")
+        registry.register_scalar(
+            f"{prefix}_fec_k", lambda: self.fec.k,
+            help_="current FEC group size (0 = off)")
+        registry.register_scalar(
+            f"{prefix}_loss_ewma", lambda: self.loss_ewma,
+            help_="smoothed reported loss rate driving the FEC ratio")
+        registry.register_scalar(
+            f"{prefix}_fec_shed", lambda: int(self.fec_shed),
+            help_="1 while the supervisor has shed FEC")
+        registry.register_scalar(
+            f"{prefix}_rtx_throttled", lambda: int(self.rtx_throttled),
+            help_="1 while the supervisor has shrunk the RTX budget")
 
 
 class RecoveringReceiver:

@@ -4,8 +4,8 @@ G.722: one stateful leg of each package (`g722_codec`) encodes and
 decodes three consecutive 20 ms frames; the bytes and the PCM must be
 equal, and so must the batched coders' at the three bit rates of the
 decoder.  `codec_from_name` rebuilds the same legs as JAX's for PCMU,
-PCMA, G722 and OPUS, and refuses GSM, Speex, G.729 and iLBC naming ROADMAP
-item 9.  The Opus cases run where the system libopus loads, as
+PCMA, G722 and OPUS, and GSM, Speex, G.729 and iLBC as the JAX package
+does, where their libraries load.  The Opus cases run where the system libopus loads, as
 `tests/test_codecs.py` does.  Tolerance: exact equality.
 """
 
@@ -86,11 +86,25 @@ def test_codec_from_name_matches_jax(name):
 @pytest.mark.parametrize("name", ["GSM", "speex", "speex/16000", "G729",
                                   "iLBC"])
 def test_codec_from_name_refuses_legs_not_ported(name):
-    """G.729 and iLBC are refused naming item 9; GSM and Speex are ported
-    and rebuild as the JAX legs do (where their libraries load)."""
+    """GSM, Speex, G.729 and iLBC rebuild as the JAX legs do where their
+    libraries load; G.729 and iLBC (libavcodec, receive-only) raise the
+    JAX binding's error where the decoder is missing (`RuntimeError`, or
+    `OSError` without libavcodec), as the JAX package does; a name
+    neither package knows is refused."""
     if name in ("G729", "iLBC"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            pump.codec_from_name(name, 20)
+        from libjitsi_tpu_torch.codecs.audio_avcodec import \
+            audio_decoder_available
+
+        if not audio_decoder_available(name.lower()):
+            for m in (pump, jpump):
+                with pytest.raises((RuntimeError, OSError)):
+                    m.codec_from_name(name, 20)
+        else:
+            p, j = pump.codec_from_name(name, 20), \
+                jpump.codec_from_name(name, 20)
+            for k in ("name", "pt", "sample_rate", "frame_samples",
+                      "ts_step"):
+                assert getattr(j, k) == getattr(p, k), (name, k)
     else:
         if not (gsm_available() if name == "GSM" else speex_available()):
             pytest.skip(f"no system library for {name}")

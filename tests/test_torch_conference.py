@@ -272,18 +272,15 @@ def test_stream_registry_hands_out_rows_like_jax():
 
 
 def test_bridge_refuses_what_is_not_ported():
-    """G.729 and iLBC legs are refused before a row is claimed; a leg at
-    another rate than the first joiner's (PCMU at 16 kHz, Opus at 48 kHz)
-    joins and resamples to the bridge clock, and a GSM leg joins as a
-    stateful row."""
-    bridge = ConferenceBridge(port=0, capacity=4, device="cpu")
+    """A leg whose ptime is not the bridge's and a second join of one SSRC
+    are refused; a leg at another rate than the first joiner's (PCMU at
+    16 kHz, Opus at 48 kHz) joins and resamples to the bridge clock, and
+    GSM, G.729 and iLBC legs join as stateful rows (the last two
+    receive-only, as in the JAX bridge)."""
+    bridge = ConferenceBridge(port=0, capacity=6, device="cpu")
     keys = _keys(0)
     try:
-        for name in ("G729", "iLBC"):
-            leg = FrameCodec(name, 97, 8000, 160, 160, None, None)
-            with pytest.raises(NotImplementedError, match="item 9"):
-                bridge.add_participant(1, *keys, codec=leg)
-        assert bridge.registry.free_slots == 4 and bridge._rate is None
+        assert bridge.registry.free_slots == 6 and bridge._rate is None
         bridge.add_participant(1, *keys)
         with pytest.raises(ValueError, match="ptime"):
             bridge.add_participant(2, *keys,
@@ -302,6 +299,10 @@ def test_bridge_refuses_what_is_not_ported():
         assert bridge.bank._kind[3] == 2            # a stateful row
         bridge.remove_participant(0)
         assert bridge.add_participant(4, *keys) == 0       # row recycled
+        for k, name in enumerate(("G729", "iLBC")):
+            leg = FrameCodec(name, 97, 8000, 160, 160, None, None)
+            assert bridge.add_participant(7 + k, *keys, codec=leg) == 4 + k
+            assert bridge.bank._kind[4 + k] == 2
     finally:
         bridge.close()
 

@@ -11,9 +11,13 @@ host I/O plane's `io.pcap` and `io.batching`, and the public stream
 API's `control`, `rtp.stats`, `bwe.*`, `transform.dtmf` / `red` and
 `service.*`, and the media graph's `io.tcp`, `rtp.jitter_buffer` and
 `device.*`, and the keying slice's `control.dtls`, `control.zrtp` and
-`recording` among them), and `chip_smoke.py` (with its paths over the
-io_uring engine, TCP and the pumps).  A second child refuses
-`cryptography` too: the keying controls import without it.
+`recording` among them, and the video plane's `codecs.vp8`, `vp9`,
+`h264`, `vpx`, `avcodec`, `audio_avcodec`, `sfu.rtx`, `simulcast`, `svc`
+and `recording.webm`), and `chip_smoke.py` (with its paths over the
+io_uring engine, TCP, the pumps and the video SFU).  A second child
+refuses `cryptography` too: the keying controls import without it.  A
+third makes libvpx and libavcodec fail to load: `codecs` and `sfu`
+import all the same, and the bindings report themselves unavailable.
 """
 
 import os
@@ -84,6 +88,12 @@ def test_port_imports_without_jax_or_the_jax_package():
     for mod in ("control.dtls", "control.zrtp", "recording",
                 "recording.recorder", "sfu.recovery"):
         assert f"libjitsi_tpu_torch.{mod}" in seen, mod
+    # the video plane and the libavcodec legs
+    for mod in ("codecs.vp8", "codecs.vp9", "codecs.h264", "codecs.vpx",
+                "codecs.avcodec", "codecs.audio_avcodec", "sfu.rtx",
+                "sfu.simulcast", "sfu.svc", "recording.webm",
+                "service.sfu_bridge"):
+        assert f"libjitsi_tpu_torch.{mod}" in seen, mod
 
 
 _NO_CRYPTOGRAPHY = r"""
@@ -130,5 +140,42 @@ def test_keying_controls_import_without_cryptography():
     ZRTP agrees by DH3k, and only an OpenSSL endpoint refuses."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _NO_CRYPTOGRAPHY], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.split()[-1] == "ok", out.stderr
+
+
+_NO_MEDIA_LIBS = r"""
+import ctypes, ctypes.util
+
+real_cdll = ctypes.CDLL.__init__
+
+def refuse(self, name, *a, **k):
+    if name and ("vpx" in str(name) or "avcodec" in str(name)
+                 or "avutil" in str(name)):
+        raise OSError("no such library: " + str(name))
+    real_cdll(self, name, *a, **k)
+
+ctypes.CDLL.__init__ = refuse
+from libjitsi_tpu_torch import codecs, sfu
+from libjitsi_tpu_torch.codecs import audio_avcodec, avcodec, vpx
+from libjitsi_tpu_torch.service import pump
+from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+assert not codecs.vpx_available() and not avcodec.h264_available()
+assert not audio_avcodec.audio_decoder_available("g729")
+try:
+    pump.codec_from_name("G729", 20)
+    raise SystemExit("a G.729 leg without libavcodec")
+except OSError:
+    pass
+print("ok")
+"""
+
+
+def test_video_plane_imports_without_libvpx_or_libavcodec():
+    """The bindings load their library at first use: without libvpx and
+    libavcodec the packages import, report the codecs unavailable, and a
+    G.729 leg raises the JAX binding's error."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _NO_MEDIA_LIBS], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.split()[-1] == "ok", out.stderr

@@ -25,8 +25,8 @@
   `slow` case runs the JAX stream whole.
 - `Direction` refusals, `close()`'s BYE and row recycling (stats rows
   reset), the Quick start on `device="cpu"` with the device layer, the
-  card default that raises without a card, and the refusals naming
-  ROADMAP item 9.
+  card default that raises without a card, and `VideoMediaStream`'s
+  keyframe requests and simulcast layers (`SimulcastReceiver.ingest`).
 
 Inputs come from numpy seeds.  Tolerance: exact equality.
 """
@@ -521,9 +521,35 @@ def test_video_stream_keyframe_requests_match_jax():
         blobs.append([v.request_keyframe(), v.request_keyframe(True),
                       v.request_keyframe(True)])
     assert blobs[0] == blobs[1]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        v = p_typed.VideoMediaStream(_registry(P, CM80))
+    # simulcast layers are taken: the same VP8 batch ingested by each
+    # package's SimulcastReceiver leaves the same per-layer bookkeeping
+    from libjitsi_tpu.codecs import vp8 as j_vp8
+    from libjitsi_tpu_torch.codecs import vp8 as p_vp8
+    from libjitsi_tpu_torch.rtp import header as p_rtp_header
+
+    pls, ssrcs = [], []
+    for k, ssrc in enumerate((1, 2, 3)):
+        for f in range(3):
+            frame = bytes([0 if f == 0 else 1, k]) * 40
+            for pl in p_vp8.packetize(frame, picture_id=200 * k + f,
+                                      max_payload=30, tl0picidx=f):
+                pls.append(pl)
+                ssrcs.append(ssrc)
+    n = len(pls)
+    wire = p_rtp_header.build(pls, list(range(n)), 0, ssrcs, [96] * n,
+                              stream=[0] * n).to_payloads()
+    got = []
+    for m, batch, vp8 in ((P, PacketBatch, p_vp8), (J, JaxBatch, j_vp8)):
+        v = m.typed.VideoMediaStream(_registry(m, CM80))
         v.set_simulcast_layers([1, 2, 3])
+        assert isinstance(v.simulcast, vp8.SimulcastReceiver)
+        desc = v.simulcast.ingest(batch.from_payloads(wire))
+        got.append((v.simulcast.last_picture_id.tolist(),
+                    v.simulcast.last_tl0.tolist(),
+                    v.simulcast.keyframe_seen.tolist(),
+                    v.simulcast.frames.tolist(), desc.picture_id.tolist(),
+                    v.simulcast.select_layer(5e5, [1e5, 4e5, 9e5])))
+    assert got[0] == got[1] and got[0][3] == [3, 3, 3]
 
 
 # --------------------------------------------------------- entry points

@@ -12,8 +12,8 @@ counter (decoded, lost, PLC, decode errors, the jitter buffer's lost,
 late and resets, the sink's samples) must be equal.  The three-party
 conference also holds the JAX test's own invariant: each capture is the
 exact clip of the other two parties' decoded frames.  GSM and Speex run
-where their system libraries load; the G.729 and iLBC legs are refused
-by the port (ROADMAP item 9) where the JAX package rebuilds them.
+where their system libraries load; the G.729 and iLBC legs rebuild on
+both packages' libavcodec bindings where it has their decoders.
 
 Tolerance: exact equality.
 """
@@ -333,12 +333,28 @@ def test_g722_pump_codec_is_stateful_across_frames():
 
 
 def test_codec_from_name_rebuilds_receive_only_legs():
-    """The port refuses G.729 and iLBC naming item 9 (the JAX package
-    rebuilds them on libavcodec); GSM and Speex rebuild on both with the
-    same geometry and code the same frame alike."""
+    """G.729 and iLBC rebuild on both packages' libavcodec bindings with
+    the same geometry, decode the same payload alike and refuse to encode
+    (or, where libavcodec lacks the decoder, both raise the JAX binding's
+    error); GSM and Speex rebuild on both with the same geometry and code
+    the same frame alike."""
+    from libjitsi_tpu_torch.codecs.audio_avcodec import \
+        audio_decoder_available
+
+    payload = {"G729": bytes(range(20)), "iLBC": bytes(range(38))}
     for name in ("G729", "iLBC"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            p_pump.codec_from_name(name, 20)
+        if not audio_decoder_available(name.lower()):
+            for m in (P, J):
+                with pytest.raises((RuntimeError, OSError)):
+                    m.pump.codec_from_name(name, 20)
+            continue
+        p, j = (m.pump.codec_from_name(name, 20) for m in (P, J))
+        assert (p.name, p.pt, p.sample_rate, p.frame_samples, p.ts_step) \
+            == (j.name, j.pt, j.sample_rate, j.frame_samples, j.ts_step)
+        assert np.array_equal(p.decode(payload[name]),
+                              j.decode(payload[name]))
+        with pytest.raises(RuntimeError, match="receive-only"):
+            p.encode(np.zeros(160, np.int16))
     names = (["GSM"] if gsm_available() else []) + \
         (["speex", "speex/16000", "speex/32000"] if speex_available()
          else [])

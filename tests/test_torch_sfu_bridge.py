@@ -326,14 +326,21 @@ def test_sfu_conference_scoping_and_staged_hold():
 
 
 def test_sfu_entry_points_not_ported_name_their_item():
-    sfu = SfuBridge(port=0, capacity=4, device="cpu")
-    for call, item in ((lambda: sfu.add_video_track(0, [1], [1e5]),
-                        "item 9"),
-                       (lambda: sfu.migrate_endpoints({0: 1}), "item 12"),
+    sfu = SfuBridge(port=0, capacity=16, device="cpu")
+    for call, item in ((lambda: sfu.migrate_endpoints({0: 1}), "item 12"),
                        (lambda: sfu.set_broadcast_speakers(1, []),
                         "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # the video tracks are taken: a joined sender's simulcast and SVC
+    # tracks, each attached to the other endpoint
+    with pytest.raises(ValueError, match="not joined"):
+        sfu.add_video_track(0, [1], [1e5])
+    a = sfu.add_endpoint(0x11, *_keys(0x11))
+    b = sfu.add_endpoint(0x22, *_keys(0x22))
+    assert list(sfu.add_video_track(a, [0x110, 0x111], [1e5, 1e6]).fwd) \
+        == [b]
+    assert list(sfu.add_svc_track(b, 0x220, [1e5, 1e6]).fwd) == [a]
     sfu.close()
     # the pipelined tick and the NULL, F8 and AEAD-GCM profiles are taken
     for kw in (dict(pipelined=True), dict(pipeline_depth=3),
