@@ -241,7 +241,64 @@ version:
                 read back; libvpx encodes where libvpx loads (else
                 synthetic frames), and an H.264 pair (libx264 encode,
                 libavcodec decode) where libavcodec does; it prints
-                which fed it.
+                which fed it;
+  sfu_lifecycle the operations plane on the sfu cell's width, in a child
+                process of this script (`--lifecycle-child`; the wire is
+                made here on the card first and handed over in a file),
+                so no kernel instance has launched before the
+                lifecycle's warm-ups: one `SfuBridge` (2,048 rows) under
+                `BridgeSupervisor` + `StreamLifecycleManager` +
+                `SloEngine(default_slos(1.0))` (a journey budget above
+                this host's tick) + `CapacityModel` +
+                `ObservabilityServer`; 1,089 endpoints join through
+                `request_join` in install waves of 64 between ticks and a
+                conference of 11 through `request_handshake` over
+                loopback DTLS (OpenSSL where `cryptography` is there);
+                each staged row scoped to its conference; 24 ticks (cut
+                from the sfu path's 30) of one Opus-sized packet an
+                endpoint, a late joiner's packets numbered from its
+                first; a seeded `ChurnModel` offers ~5% joins and leaves
+                from tick 2, and at least 40 churn joins are admitted, go
+                live and are heard both ways (a copy to them and of them
+                authenticated); at tick 5 one sender's next packet goes
+                along four times with its tag flipped, and the
+                supervisor convicts that sender alone and releases it
+                after its backoff; an RR from every endpoint at tick 7,
+                `emit_feedback` every 10 ticks; before tick 12 a
+                checkpoint, the bridge closed and `recover(...)` on a
+                fresh port on the card, whose snapshot equals the
+                checkpoint's (ROC and replay windows included; the
+                per-row BWE state and addresses on the endpoints' rows,
+                which `restore` resets elsewhere); then 10 ticks of a
+                GCM bridge of 1,100 endpoints with the keystream cache on
+                both tables (O between ticks), under the stock
+                `default_slos()`, whose 20 ms journey budget burns fast
+                at this tick: a join offered after its ticks is refused
+                `fast_burn`.  `assert_datapath_clean()`
+                (no first launch inside a tick window) and no OpenSSL
+                feed on the tick thread; every copy every receiver got
+                authenticates under its leg's key (a card table a (leg,
+                sender) pair; the DTLS legs' on the CPU under their
+                exported keys) and is what its sender sent; none crosses
+                a conference or echoes; both `/metrics` formats pass
+                `validate_exposition`, `/healthz` answers 200 and
+                `/debug/device` reports the card's bytes in use.  Prints
+                tick p50/p99, the health state, rungs and phase
+                attribution, admit-to-live, checkpoint and recover
+                seconds; then one conference of 11 under the same plane,
+                6 ticks recovered before tick 3, on the card and on the
+                CPU, every datagram equal (`sfu_lifecycle_hold`);
+  conference_supervised
+                the conference path's 256 PCMU participants under a
+                `BridgeSupervisor`: the deadline below the tick for 8
+                ticks, so the ladder walks recv_window, degrade and two
+                sheds of 8 by priority (the lower half first, newest sid
+                first, never the dominant speaker), then raised, so it
+                unwinds LIFO to level 0; a checkpoint before tick 18,
+                the bridge closed and `recover(..., ConferenceBridge)`
+                on the card, 4 more ticks (C, D, E, F, G); then 6 ticks
+                recovered before tick 3 on the card and on the CPU, mix
+                for mix equal.
 
 Then `exposition` renders the registry of every bridge and loop the run
 built (with the receive banks' metrics registered, and the batcher's),
@@ -570,6 +627,43 @@ SVC_LAYER_BPS = (200_000, 900_000, 3_400_000)  # cumulative per spatial
 SVC_TIDS = (0, 2, 1, 2)      # the temporal layers' picture pattern
 VS_FRAMES = 30               # video_stream: one second at 30 fps
 VS_PROFILED = 6              # its last frame times, under the profiler
+# the operations plane: sfu_lifecycle (run in a child process, so no
+# kernel instance has launched before the lifecycle's warm-ups) and
+# conference_supervised.  Ticks are cut to keep the two near 60 s on the
+# card; the widths are the sfu and conference cells'.
+LC_DTLS_CONF = SFU_CONFS - 1   # its 11 endpoints join by DTLS
+LC_SDES = LC_DTLS_CONF * SFU_SIZE   # 1,089 SDES endpoints
+LC_POOL = 64                   # endpoints the churn may add
+LC_CAPACITY = 2048             # bridge rows: 1,100 + churn headroom
+LC_WAVE = 64                   # install_batch: joins staged a window
+LC_TICKS = 24                  # the CM run; cut from the sfu path's 30
+LC_CKPT_TICK = 12              # checkpoint, close, recover before it
+LC_RR_TICK = 7                 # an RR from every live SDES endpoint
+LC_FEEDBACK = 10               # emit_feedback every 10 ticks
+LC_TAMPER = (5, 6)             # the tick a sender's forged copies go along
+LC_TAMPERED = 7                # that sender (conference 0)
+LC_FORGED = 4                  # forged copies a tick
+LC_CHURN_FROM = 2              # the churn starts at this tick
+# ChurnModel: ~5% of 1,100 joins and leaves over the run's 0.48 s
+LC_CHURN = dict(join_rate_hz=110.0, mean_hold_s=10.0, seed=31)
+LC_DEADLINE_MS = 5000.0        # the ladder stays down
+# the CM run's journey objective: a deployment's budget above this host's
+# supervised SFU tick (p50 274-288 ms, p99 515-605 ms on the card), on a
+# `packet_journey_seconds` bucket bound, so the churn's joins are judged
+# by the plane and not refused for the host's tick; the GCM run keeps
+# `default_slos()`'s 20 ms, and a join offered after its ticks must be
+# refused `fast_burn`
+LC_JOURNEY_BUDGET_S = 1.0
+LC_CHURN_MIN = 40              # churn joins admitted, live and heard
+LC_GCM_TICKS = 10
+LC_GCM_CACHE = dict(window=64, ks_bytes=256, pool=LC_CAPACITY)
+LC_HOLD_TICKS = 6              # the one-conference hold, recovered at 3
+CS_OVERLOAD = 8                # conference_supervised: overrun ticks
+CS_TICKS = 22                  # deadline raised at 8, level 0 by 16
+CS_CKPT_TICK = 18
+CS_SHED_STEP = 8
+CS_PRIORITY = 128              # participants below this index: priority 1
+CS_HOLD_TICKS = 6
 SOURCES = {
     "aes_encrypt": ("libjitsi_tpu_torch/csrc/aes_encrypt.cu",
                     "libjitsi_tpu/kernels/aes_bitsliced.py:548"),
@@ -677,7 +771,18 @@ PATHS = {"srtp_echo": ("srtp_protect_cm", "srtp_unprotect_cm"),
          "sfu_svc": ("srtp_protect_cm", "srtp_unprotect_cm",
                      "srtp_fanout_cm", "srtcp_protect_cm",
                      "srtcp_unprotect_cm"),
-         "video_stream": ("srtp_protect_cm", "srtp_unprotect_cm")}
+         "video_stream": ("srtp_protect_cm", "srtp_unprotect_cm"),
+         # C and M in the lifecycle's warm-ups, D / H / J in the ticks, I
+         # in emit_feedback, N's cached instance and O under GCM
+         "sfu_lifecycle": ("srtp_protect_cm", "srtp_unprotect_cm",
+                           "srtp_fanout_cm", "srtcp_protect_cm",
+                           "srtcp_unprotect_cm", "srtp_gcm_seal",
+                           "srtp_gcm_open", "srtp_gcm_seal_cached",
+                           "srtp_gcm_open_cached", "srtp_fanout_gcm",
+                           "gcm_ks_fill"),
+         "conference_supervised": ("srtp_protect_cm", "srtp_unprotect_cm",
+                                   "mix_minus", "g711_encode",
+                                   "g711_decode")}
 # the kernel instances a path must launch, as `_kernel_key` names them
 PATH_INSTANCES = {"stream_zrtp": ZRTP_INSTANCES}
 FANOUT_INSTANCES = ("srtp_fanout_null", "srtp_fanout_f8")
@@ -726,6 +831,8 @@ def main(argv=None) -> int:
                          "kernels, O, H-F8, K, L, R, I-NULL and J-NULL are "
                          "timed against this tree's in turns, and whose "
                          "SASS is compared with this tree's")
+    ap.add_argument("--lifecycle-child", metavar="WIRE",
+                    help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -734,6 +841,8 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if opts.lifecycle_child:
+        return lifecycle_child(torch, dev, opts.lifecycle_child)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -887,6 +996,22 @@ def main(argv=None) -> int:
     vs_in = video_stream_setup(torch, dev)
     vs = path("video_stream", video_stream_run, torch, dev, vs_in)
     video_stream_check(torch, dev, vs)
+    # the operations plane: the supervised, lifecycle-managed SFU runs in
+    # a child process (its wire made here first); the child resets its
+    # counts before its first join and hands them back
+    lc_run = sfu_lifecycle_run(torch, dev)
+    counts["sfu_lifecycle"] = lc_run["launches"]
+    emit("main_path_counts", path="sfu_lifecycle", process="child",
+         launches=lc_run["launches"], plain_calls=lc_run["plain_calls"],
+         instances=lc_run["instances"])
+    require(all(lc_run["launches"][k] > 0 for k in PATHS["sfu_lifecycle"]),
+            f"path sfu_lifecycle did not launch all of "
+            f"{PATHS['sfu_lifecycle']}")
+    require(sum(lc_run["plain_calls"].values()) == 0,
+            "a plain version ran on the sfu_lifecycle path")
+    cs = path("conference_supervised", conference_supervised_run, torch,
+              dev, setup)
+    conference_supervised_check(torch, dev, cs)
     exposition(torch)
     per_unit = {"srtp_echo": ("launches_per_table_batch",
                               table["launches_per_batch"]),
@@ -927,7 +1052,16 @@ def main(argv=None) -> int:
                 "sfu_video": ("launches_per_video_sfu_tick",
                               video["launches_per_tick"]),
                 "sfu_svc": ("launches_per_svc_sfu_tick",
-                            svc["launches_per_tick"])}
+                            svc["launches_per_tick"]),
+                # launches inside the bridge's ticks only; the off-tick
+                # ones (warm-ups, keystream fill, emit_feedback) apart
+                "sfu_lifecycle": ("launches_per_lifecycle_tick", {
+                    k: lc_run["tick_launches"].get(k, 0) / lc_run["ticks"]
+                    for k in lc_run["launches"]}),
+                "conference_supervised": (
+                    "launches_per_supervised_conference_tick", {
+                        k: v / CS_TICKS for k, v in
+                        counts["conference_supervised"].items()})}
     kernels = []
     for name, (src, ref) in SOURCES.items():
         r = rows[name]
@@ -938,6 +1072,10 @@ def main(argv=None) -> int:
                                  if name in PATHS[p]},
             **{key: per[name] for p, (key, per) in per_unit.items()
                if name in PATHS[p] and name in per},
+            **({"lifecycle_off_tick_launches":
+                lc_run["launches"][name]
+                - lc_run["tick_launches"].get(name, 0)}
+               if name in PATHS["sfu_lifecycle"] else {}),
             "main_path": any(name in k for k in PATHS.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
@@ -4813,9 +4951,9 @@ def _recorded_launch(fn):
 
     seen, orig = [], sk._gcm_launch
 
-    def rec(name, *args):
+    def rec(name, *args, **kw):
         seen.append((name, args))
-        orig(name, *args)
+        orig(name, *args, **kw)
 
     sk._gcm_launch = rec
     try:
@@ -9474,6 +9612,992 @@ def video_stream_check(torch, dev, run) -> None:
          device_idle_share=run["profile"]["device_idle_share"],
          profile=run["profile"])
 
+
+# ------------------------------------------------ the operations plane
+
+def _same(a, b) -> bool:
+    """Deep equality of two snapshots (dicts, sequences, arrays)."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and a.dtype == b.dtype \
+            and bool(np.array_equal(a, b))
+    return a == b
+
+
+def _same_restored(restored: dict, snap: dict) -> bool:
+    """An SfuBridge snapshot taken right after `restore` against the one
+    it rose from: every field equal (the SRTP tables' ROC and replay
+    windows included), except the per-row BWE state, its fed mask and
+    the latched addresses, which `restore` copies onto the endpoints'
+    rows only (other rows come back reset): those compare on the
+    endpoints' rows."""
+    rows = sorted(snap["ssrc_of"])
+    per_row = ("bwe", "bwe_fed", "addr_ip", "addr_port")
+
+    def rowwise(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(rowwise(a[k], b[k])
+                                                for k in a)
+        a, b = np.asarray(a), np.asarray(b)
+        if a.ndim and a.shape[0] == snap["capacity"]:
+            return _same(a[rows], b[rows])
+        return _same(a, b)
+
+    return (restored.keys() == snap.keys()
+            and all(rowwise(restored[k], snap[k]) if k in per_row
+                    else _same(restored[k], snap[k]) for k in snap))
+
+
+def _lifecycle_wire(torch, dev, profile: str, n: int, ticks: int, seed: int,
+                    rr_tick: int = -1) -> dict:
+    """Keys, SSRCs and every tick's wire of `n` SDES endpoints under
+    `profile` (made on the card's tables, before any count): one
+    Opus-sized packet an endpoint a tick with an abs-send-time extension,
+    and at `rr_tick` an RR from each."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.rtp import rtcp
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    rng = np.random.default_rng(seed)
+    salt = SrtpProfile[profile].master_salt_len
+    keys = {d: (rng.integers(0, 256, (n, 16), np.uint8),
+                rng.integers(0, 256, (n, salt), np.uint8))
+            for d in ("rx", "tx")}
+    ssrc = (0x61000000 + (seed << 20)
+            + rng.permutation(1 << 20)[:n]).astype(np.int64)
+    seq0 = rng.integers(0, 1 << 16, n)
+    seq0[::9] = 65536 - 6                     # these wrap within the run
+    up = SrtpStreamTable(n, SrtpProfile[profile], device=dev)
+    up.add_streams(np.arange(n), *keys["rx"])
+    data, length, pay, plen = [], [], [], []
+    for t in range(ticks):
+        lens = rng.integers(60, 161, n)
+        pl = [rng.integers(0, 256, int(k), np.uint8).tobytes()
+              for k in lens]
+        ast = int(round((1000.0 + 0.02 * t) * (1 << 18))) & 0xFFFFFF
+        ext = (0xBEDE, bytes([0x32]) + ast.to_bytes(3, "big"))
+        plain = rtp_header.build(pl, (seq0 + t) & 0xFFFF, t * 960,
+                                 ssrc.tolist(), 111, ext=[ext] * n,
+                                 stream=list(range(n)))
+        w = up.protect_rtp(plain)
+        data.append(w.data[:, :224].copy())
+        length.append(np.asarray(w.length).copy())
+        pp = np.zeros((n, 160), np.uint8)
+        for k, p in enumerate(pl):
+            pp[k, :len(p)] = np.frombuffer(p, np.uint8)
+        pay.append(pp)
+        plen.append(lens)
+    out = dict(rx_key=keys["rx"][0], rx_salt=keys["rx"][1],
+               tx_key=keys["tx"][0], tx_salt=keys["tx"][1], ssrc=ssrc,
+               seq0=seq0, data=np.stack(data), length=np.stack(length),
+               pay=np.stack(pay), plen=np.stack(plen))
+    if rr_tick >= 0:
+        blobs = [rtcp.build_compound([rtcp.build_rr(rtcp.ReceiverReport(
+            int(ssrc[k]), [rtcp.ReportBlock(
+                int(ssrc[(k + 1) % n]), 0, 0, int(seq0[(k + 1) % n]
+                                                  + rr_tick), 4, 0, 0)]))])
+            for k in range(n)]
+        rr = up.protect_rtcp(PacketBatch.from_payloads(
+            blobs, stream=list(range(n))))
+        out.update(rr_data=rr.data[:, :128].copy(),
+                   rr_length=np.asarray(rr.length).copy())
+    return out
+
+
+def sfu_lifecycle_setup(torch, dev, wire_dir: str) -> str:
+    """The clients' wire of the sfu_lifecycle path, made on the card in
+    this process and written for the child: the 1,089 SDES endpoints
+    and the churn's pool of 64 under AES-CM (LC_TICKS ticks, an RR at
+    LC_RR_TICK), and 1,100 endpoints under AEAD-GCM (LC_GCM_TICKS).
+    Returns the file."""
+    cm = _lifecycle_wire(torch, dev, "AES_CM_128_HMAC_SHA1_80",
+                         LC_SDES + LC_POOL, LC_TICKS + 1, 1, LC_RR_TICK)
+    gcm = _lifecycle_wire(torch, dev, GCM, SFU_N, LC_GCM_TICKS, 2)
+    path = os.path.join(wire_dir, "lifecycle_wire.npz")
+    np.savez(path, **{f"cm_{k}": v for k, v in cm.items()},
+             **{f"gcm_{k}": v for k, v in gcm.items()})
+    return path
+
+
+def sfu_lifecycle_run(torch, dev) -> dict:
+    """The sfu_lifecycle path: the wire made here, then a child process
+    of this script (`--lifecycle-child`) drives the supervised bridge
+    with its launch counts set to 0 before its first join; its lines are
+    relayed, and its last one carries the counts and the summary.  Fails
+    when the child fails."""
+    with tempfile.TemporaryDirectory() as wire_dir:
+        wire = sfu_lifecycle_setup(torch, dev, wire_dir)
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--lifecycle-child", wire], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        last = None
+        try:
+            for line in proc.stdout:
+                if line.startswith('{"lifecycle_child":'):
+                    last = json.loads(line)["lifecycle_child"]
+                    continue
+                print(line.rstrip("\n"), flush=True)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    require(rc == 0 and last is not None,
+            f"sfu_lifecycle: the child process failed (rc {rc})")
+    return last
+
+
+class _LcClients:
+    """The SDES endpoints' side of the sfu_lifecycle run: one client
+    socket for all (drained by a thread), the card-made wire of every
+    tick, and which endpoints send (committed and not left)."""
+
+    def __init__(self, w: dict, prefix: str):
+        import threading
+
+        from libjitsi_tpu_torch.io.udp import UdpEngine
+
+        self.w = {k[len(prefix):]: w[k] for k in w.files
+                  if k.startswith(prefix)}
+        self.n = len(self.w["ssrc"])
+        self.idx_of = {int(s): k for k, s in enumerate(self.w["ssrc"])}
+        self.engine = UdpEngine(port=0, bind_ip="127.0.0.1",
+                                max_batch=4096, rcvbuf=64 << 20)
+        self.got, self._stop = [], threading.Event()
+        self._th = threading.Thread(target=self._drain, daemon=True)
+        self._th.start()
+
+    def _drain(self):
+        while not self._stop.is_set():
+            b, _, _ = self.engine.recv_batch(timeout_ms=5)
+            self.got.extend(b.to_payloads())
+
+    def keys(self, k: int):
+        w = self.w
+        return ((w["rx_key"][k].tobytes(), w["rx_salt"][k].tobytes()),
+                (w["tx_key"][k].tobytes(), w["tx_salt"][k].tobytes()))
+
+    def batch(self, j, rows, rr: bool = False):
+        """Packet number `j` (a scalar or one a row) of each endpoint in
+        `rows`, or their RRs: an endpoint's packets are numbered from its
+        first send, so a late joiner starts at its seq0, ROC 0."""
+        from libjitsi_tpu_torch.core.packet import PacketBatch
+
+        rows = np.asarray(rows, np.int64)
+        if rr:
+            d, ln = self.w["rr_data"][rows], self.w["rr_length"][rows]
+        else:
+            j = np.broadcast_to(np.asarray(j, np.int64), rows.shape)
+            d, ln = self.w["data"][j, rows], self.w["length"][j, rows]
+        return PacketBatch(d, ln, np.zeros(len(rows), np.int32))
+
+    def close(self):
+        time.sleep(0.05)
+        self._stop.set()
+        self._th.join()
+        self.engine.close()
+
+
+def _lc_logged(bridge, log: list) -> None:
+    """Log every fan-out the bridge emits as (rows, lengths, each copy's
+    leg SSRC): legs are named by SSRC, since the churn recycles rows."""
+    emit_fanout = bridge._emit_fanout
+
+    def logged(wire, recv, origin=None):
+        ready = np.nonzero(bridge.loop.addr_port[recv] != 0)[0]
+        legs = np.array([bridge._ssrc_of.get(int(r), -1)
+                         for r in recv[ready]], np.int64)
+        log.append((wire.data[ready], np.asarray(wire.length)[ready],
+                    legs))
+        return emit_fanout(wire, recv, origin=origin)
+
+    bridge._emit_fanout = logged
+
+
+def _lc_count_ticks(bridge, into: dict) -> None:
+    """Add the launches made inside the bridge's ticks into `into`: the
+    rest of a lifecycle run's launches are off-tick (the warm-ups, the
+    keystream fill between ticks, `emit_feedback`)."""
+    from libjitsi_tpu_torch.kernels import build as kbuild
+
+    tick = bridge.tick
+
+    def counted(*args, **kw):
+        before = dict(kbuild.launches)
+        try:
+            return tick(*args, **kw)
+        finally:
+            for k, v in kbuild.launches.items():
+                into[k] = into.get(k, 0) + v - before[k]
+
+    bridge.tick = counted
+
+
+def _lc_supervise(bridge, cfg, lcfg, registry=None, sup=None,
+                  journey_budget_s=None):
+    """Wire a bridge's operations plane as a user does: supervisor, SLO
+    engine (`default_slos`, its journey budget `journey_budget_s` where
+    given), lifecycle manager and capacity model on the bridge's
+    registry (`sup` a recovered supervisor to attach to)."""
+    from libjitsi_tpu_torch.service.lifecycle import StreamLifecycleManager
+    from libjitsi_tpu_torch.service.supervisor import BridgeSupervisor
+    from libjitsi_tpu_torch.utils.capacity import CapacityModel
+    from libjitsi_tpu_torch.utils.slo import SloEngine, default_slos
+
+    reg = bridge.loop.metrics if registry is None else registry
+    slo = SloEngine(reg, default_slos() if journey_budget_s is None
+                    else default_slos(journey_budget_s))
+    if sup is None:
+        sup = BridgeSupervisor(bridge, cfg, metrics=reg, slo=slo)
+    else:
+        # a recovered plane's engine starts from the restored counters:
+        # `restore` brings back the per-stream ones (auth failures
+        # included) while the loop's histograms start empty, so a fresh
+        # engine's first window would count the whole run's failures
+        # against one tick's datagrams (the JAX engine reads the same)
+        for spec in slo.specs:
+            cum = slo._read(spec)
+            if cum is not None:
+                slo._last[spec.name] = cum
+        slo.flight = sup.flight
+        sup.slo = slo
+        sup.register_metrics(reg)
+    lc = StreamLifecycleManager(bridge, supervisor=sup, config=lcfg,
+                                metrics=reg)
+    CapacityModel().attach(sup, registry=reg)
+    return sup, lc
+
+
+def _lc_scope(bridge, conf_of: dict) -> None:
+    """Scope each staged row to its endpoint's conference before the
+    commit barrier flips it live.  Without placement the lifecycle plane
+    stages joins without a conference, as the JAX plane does (placement
+    is ROADMAP Queue 1 item 12), so the caller scopes them with the
+    port's `SfuBridge.set_conference`."""
+    for sid in list(bridge._staged):
+        if sid not in bridge._conf_of:
+            bridge.set_conference(sid, conf_of[bridge._ssrc_of[sid]])
+
+
+def _lc_tick(sup, sends, now: float, pump=None) -> tuple:
+    """One 20 ms tick of input: each (client, batch) sent in turn and the
+    supervised bridge ticked until it has taken it (at least one tick).
+    Returns (seconds, datagrams taken, supervised ticks)."""
+    secs, taken, n = 0.0, 0, 0
+    for client, batch in sends or [(None, None)]:
+        want = 0
+        if batch is not None and batch.batch_size:
+            client.send_batch(batch, "127.0.0.1", sup.bridge.port)
+            want = batch.batch_size
+        got = 0
+        for _ in range(400):
+            t0 = time.perf_counter()
+            got += sup.tick(now=now)["rx"]
+            secs += time.perf_counter() - t0
+            n += 1
+            if pump is not None:
+                pump()
+            if got >= want:
+                break
+        require(got >= want, f"lifecycle: the bridge took {got} of {want}")
+        taken += got
+    return secs, taken, n
+
+
+def _lc_dtls_join(bridge, lc, socks, kind, ssrc) -> dict:
+    """The DTLS conference's 11 joins through `request_handshake` over
+    loopback (the bridge as server, each peer on its own socket)."""
+    peers = {}
+    for k, s in enumerate(ssrc):
+        peer = kind("client")
+        ok, why, _retry = lc.request_handshake(
+            int(s), role="server", remote_fingerprint=peer.local_fingerprint,
+            remote_addr=socks.addr(k))
+        require(ok, f"lifecycle: DTLS join {k} refused: {why}")
+        sid = next(x for x, v in bridge._ssrc_of.items() if v == int(s))
+        peer.remote_fingerprint = bridge._dtls.pending[sid] \
+            .local_fingerprint
+        peers[k] = peer
+        socks.send(k, peer.handshake_packets(), bridge.port)
+    return peers
+
+
+def _lc_pump(socks, peers, port: int, media: dict) -> None:
+    """The DTLS peers' side between ticks: feed handshake datagrams,
+    send their replies, keep media copies (first byte 0x80-0xBF)."""
+    for k, peer in peers.items():
+        out = []
+        for d in socks.recv(k):
+            if 128 <= d[0] < 192:
+                media.setdefault(k, []).append(d)
+            elif not peer.complete:
+                out += peer.feed(d)
+        if out:
+            socks.send(k, out, port)
+
+
+def _lc_check_copies(torch, dev, setups, received, log, profile: str,
+                     ticks: int) -> dict:
+    """Every unique media copy the SDES client received: its leg (from
+    the fan-out log, by seq, SSRC and tag), authenticated under the
+    leg's key in a card table with a row per (leg, sender), and its
+    payload what the sender sent.  `setups` maps an endpoint index's
+    SSRC to its (keys, seq0, payloads) through `_LcClients`; copies of
+    the DTLS conference are checked by `_lc_check_dtls`.  No copy may
+    cross a conference (`conf_of` by SSRC) or echo."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+
+    cl, conf_of = setups
+    leg_of, cross, echo = {}, 0, 0
+    for data, length, legs in log:
+        snd = (data[:, 8].astype(np.int64) << 24 | data[:, 9].astype(
+            np.int64) << 16 | data[:, 10].astype(np.int64) << 8
+            | data[:, 11].astype(np.int64))
+        for i in range(len(legs)):
+            cross += int(conf_of.get(int(snd[i])) != conf_of.get(
+                int(legs[i])))
+            echo += int(snd[i] == legs[i])
+            pkt = data[i, :length[i]].tobytes()
+            leg_of[pkt[2:4] + pkt[8:12] + pkt[-TAG:]] = int(legs[i])
+    uniq = list(dict.fromkeys(p for p in received
+                              if not 192 <= p[1] <= 223))
+    pairs, streams, unknown = {}, [], 0
+    for p in uniq:
+        leg = leg_of.get(p[2:4] + p[8:12] + p[-TAG:])
+        snd = int.from_bytes(p[8:12], "big")
+        if leg is None or leg not in cl.idx_of:
+            unknown += 1
+            streams.append(-1)
+            continue
+        streams.append(pairs.setdefault((cl.idx_of[leg], snd), len(pairs)))
+    require(unknown == 0, f"lifecycle: {unknown} received copies the "
+                          "bridge never fanned out")
+    down = SrtpStreamTable(max(1, len(pairs)), SrtpProfile[profile],
+                           device=dev)
+    legs = np.array([leg for leg, _s in pairs], np.int64)
+    if len(pairs):
+        down.add_streams(np.arange(len(pairs)), cl.w["tx_key"][legs],
+                         cl.w["tx_salt"][legs])
+    batch = PacketBatch.from_payloads(uniq, capacity=224,
+                                      stream=streams)
+    # a leg that joined after its sender's seq wrapped first hears it at
+    # ROC 1: each row starts just below its first copy's index (the
+    # sender's seq0 + tick), as a receiver's context learns it
+    first = {}
+    for i, row in enumerate(streams):
+        first.setdefault(row, i)
+    hdr0 = rtp_header.parse(batch)
+    for row, i in first.items():
+        k = cl.idx_of[int(hdr0.ssrc[i])]
+        t = (int(hdr0.seq[i]) - int(cl.w["seq0"][k])) & 0xFFFF
+        down.rx_max[row] = int(cl.w["seq0"][k]) + t - 1
+    authed = 0
+    step = 8192
+    for lo in range(0, batch.batch_size, step):      # in arrival order
+        part = PacketBatch(batch.data[lo:lo + step],
+                           batch.length[lo:lo + step],
+                           batch.stream[lo:lo + step])
+        dec, ok = down.unprotect_rtp(part)
+        bad = [(int(legs[part.stream[i]]), int.from_bytes(
+            part.to_bytes(int(i))[8:12], "big"), int.from_bytes(
+            part.to_bytes(int(i))[2:4], "big"))
+            for i in np.nonzero(~ok)[0][:6]]
+        require(ok.all(), f"lifecycle: {int((~ok).sum())} received copies "
+                          "failed authentication under their leg's key "
+                          f"(leg, sender SSRC, seq: {bad})")
+        authed += int(ok.sum())
+        dh = rtp_header.parse(dec)
+        k = np.array([cl.idx_of[int(s)] for s in dh.ssrc], np.int64)
+        t = (dh.seq.astype(np.int64) - cl.w["seq0"][k]) & 0xFFFF
+        require(bool((t < ticks).all()), "lifecycle: a copy's seq is not "
+                                         "its sender's")
+        n_pay = np.asarray(dec.length) - HDR - 8
+        body = dec.data[:, HDR + 8:HDR + 8 + 160]
+        body = np.where(np.arange(160)[None, :] < n_pay[:, None], body, 0)
+        require(bool((n_pay == cl.w["plen"][t, k]).all()
+                     and (body == cl.w["pay"][t, k]).all()),
+                "lifecycle: a decrypted copy differs from what its sender "
+                "sent")
+    # every copy authenticated: an endpoint is heard as a leg and as a
+    # sender where some copy to it and some copy of it arrived
+    heard = ({leg for leg, _s in pairs}
+             & {cl.idx_of[snd] for _l, snd in pairs if snd in cl.idx_of})
+    return dict(copies_received=len(uniq), copies_authenticated=authed,
+                cross_conference=cross, self_echo=echo,
+                copies_logged=sum(len(x[2]) for x in log), heard=heard)
+
+
+def _lc_check_dtls(peers, media: dict, conf_ssrcs: dict) -> int:
+    """Every media copy a DTLS peer received opens under the keys its
+    own handshake exported (a CPU table a peer, a row per sender), and
+    comes from its conference.  Returns the copies."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+
+    total = 0
+    for k, pkts in media.items():
+        prof, _tk, _ts, rk, rs = peers[k].srtp_keys()
+        senders = sorted({int.from_bytes(p[8:12], "big") for p in pkts})
+        require(set(senders) <= conf_ssrcs[k], "lifecycle: a DTLS leg "
+                                               "heard another conference")
+        row = {s: i for i, s in enumerate(senders)}
+        tab = SrtpStreamTable(len(senders), prof, device="cpu")
+        for i in range(len(senders)):
+            tab.add_stream(i, rk, rs)
+        pkts = list(dict.fromkeys(pkts))
+        b = PacketBatch.from_payloads(pkts, capacity=224, stream=[
+            row[int.from_bytes(p[8:12], "big")] for p in pkts])
+        _dec, ok = tab.unprotect_rtp(b)
+        require(bool(ok.all()), f"lifecycle: DTLS leg {k}: "
+                                f"{int((~ok).sum())} copies failed "
+                                "authentication")
+        total += len(pkts)
+    return total
+
+
+def lifecycle_child(torch, dev, wire_path: str) -> int:
+    """The sfu_lifecycle path, run alone in this process (see
+    `sfu_lifecycle_run`).  Its last line carries the counts."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.kernels import build as kbuild
+    from libjitsi_tpu_torch.rtp import header as rtp_header
+    from libjitsi_tpu_torch.service.lifecycle import LifecycleConfig
+    from libjitsi_tpu_torch.service.obs_server import ObservabilityServer
+    from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+    from libjitsi_tpu_torch.service.supervisor import (BridgeSupervisor,
+                                                       SupervisorConfig)
+    from libjitsi_tpu_torch.transform.srtp.context import SrtpStreamTable
+    from libjitsi_tpu_torch.transform.srtp.policy import SrtpProfile
+    from libjitsi_tpu_torch.utils.compile_cache import compile_stats
+    from libjitsi_tpu_torch.utils.faults import ChurnModel
+    from libjitsi_tpu_torch.utils.metrics import validate_exposition
+
+    kbuild.library()
+    w = np.load(wire_path)
+    kind, kind_name = _dtls_kind()
+    cl = _LcClients(w, "cm_")
+    rng = np.random.default_rng(37)
+    dtls_ssrc = 0x7D000000 + np.arange(SFU_SIZE)
+    conf_of = {int(cl.w["ssrc"][k]): k // SFU_SIZE for k in range(LC_SDES)}
+    conf_of.update({int(cl.w["ssrc"][LC_SDES + j]): j % LC_DTLS_CONF
+                    for j in range(LC_POOL)})
+    conf_of.update({int(s): LC_DTLS_CONF for s in dtls_ssrc})
+    ckpt_dir = tempfile.mkdtemp()
+    cfg = SupervisorConfig(deadline_ms=LC_DEADLINE_MS, quarantine_window=50,
+                           quarantine_auth_threshold=LC_FORGED,
+                           quarantine_backoff_ticks=8,
+                           checkpoint_path=os.path.join(ckpt_dir, "ckpt"))
+    lcfg = LifecycleConfig(install_batch=LC_WAVE, max_pending=4096)
+    bridge = SfuBridge(capacity=LC_CAPACITY, device=dev)
+    bridge._dtls.endpoint_factory = kind
+    sup, lc = _lc_supervise(bridge, cfg, lcfg,
+                            journey_budget_s=LC_JOURNEY_BUDGET_S)
+    tick_launches: dict = {}
+    _lc_count_ticks(bridge, tick_launches)
+    obs = ObservabilityServer(bridge.loop.metrics, supervisor=sup).start()
+    log: list = []
+    _lc_logged(bridge, log)
+    socks = _Socks(SFU_SIZE)
+    cm = ChurnModel(**LC_CHURN)
+    kbuild.reset_counts()
+    compile0 = compile_stats().compile_events
+    # ---- the counted run: joins, churn, forgeries, checkpoint, recover
+    t_join = time.perf_counter()
+    for k in range(LC_SDES):
+        rk, tk = cl.keys(k)
+        ok, why = lc.request_join(int(cl.w["ssrc"][k]), rk, tk,
+                                  conference=k // SFU_SIZE)
+        require(ok, f"lifecycle: join {k} refused: {why}")
+    peers = _lc_dtls_join(bridge, lc, socks, kind, dtls_ssrc)
+    media, dtls_live, dtls_wire = {}, {}, {}
+    pool_next, joined, left = 0, set(range(LC_SDES)), set()
+    sent_n = np.zeros(cl.n, np.int64)         # packets each endpoint sent
+    live_at = None
+    ever_live: set = set()
+    base_ssrcs = {int(s) for s in cl.w["ssrc"][:LC_SDES]} | {
+        int(s) for s in dtls_ssrc}
+    dtls_tabs = {}
+    tick_s, sup_ticks, ckpt = [], 0, {}
+    lcs = [lc]
+
+    def pump():
+        _lc_scope(sup.bridge, conf_of)
+        _lc_pump(socks, peers, sup.bridge.port, media)
+
+    for t in range(LC_TICKS):
+        now = 1000.0 + 0.02 * t
+        if t == LC_CKPT_TICK:
+            t0 = time.perf_counter()
+            path = sup.save_checkpoint()
+            ckpt["save_s"] = time.perf_counter() - t0
+            blob = BridgeSupervisor.load_checkpoint(path)
+            sup.bridge.close()
+            t0 = time.perf_counter()
+            sup = BridgeSupervisor.recover(path, SfuBridge, port=0,
+                                           device=dev,
+                                           supervisor_config=cfg)
+            ckpt["recover_s"] = time.perf_counter() - t0
+            ckpt["equal"] = _same_restored(sup.bridge.snapshot(),
+                                           blob["snap"])
+            require(ckpt["equal"], "lifecycle: the recovered bridge's "
+                                   "snapshot differs from the checkpoint's")
+            sup.bridge._dtls.endpoint_factory = kind
+            sup, lc2 = _lc_supervise(sup.bridge, None, lcfg, sup=sup,
+                                     journey_budget_s=LC_JOURNEY_BUDGET_S)
+            _lc_count_ticks(sup.bridge, tick_launches)
+            ckpt["equal_after_reconcile"] = _same_restored(
+                sup.bridge.snapshot(), blob["snap"])
+            lcs.append(lc2)
+            lc = lc2
+            obs.supervisor, obs.metrics = sup, sup.bridge.loop.metrics
+            _lc_logged(sup.bridge, log)
+        b = sup.bridge
+        if t >= LC_CHURN_FROM:
+            joins, leaves = cm.step(0.02, now, len(joined - left))
+            for _ in range(joins):
+                if pool_next < LC_POOL:
+                    k = LC_SDES + pool_next
+                    pool_next += 1
+                    rk, tk = cl.keys(k)
+                    if lc.request_join(int(cl.w["ssrc"][k]), rk, tk,
+                                       conference=(k - LC_SDES)
+                                       % LC_DTLS_CONF)[0]:
+                        joined.add(k)
+            live = sorted(k for k in joined - left if k != LC_TAMPERED)
+            for k in rng.permutation(live)[:leaves]:
+                if lc.request_leave(ssrc=int(cl.w["ssrc"][k])):
+                    left.add(int(k))
+        committed = {v for s, v in b._ssrc_of.items() if s not in b._staged}
+        rows = [k for k in sorted(joined - left)
+                if int(cl.w["ssrc"][k]) in committed]
+        ever_live |= committed
+        gone = {int(cl.w["ssrc"][k]) for k in left}
+        if live_at is None and base_ssrcs - gone <= ever_live:
+            live_at = time.perf_counter() - t_join
+        sends = [(cl.engine, cl.batch(sent_n[part], part))
+                 for part in np.array_split(rows, SFU_BURSTS) if len(part)]
+        if LC_TAMPER[0] <= t < LC_TAMPER[1] and LC_TAMPERED in rows:
+            # the sender's next packet, its tag flipped: never seen, so
+            # it fails authentication (a seen one would fail replay)
+            forged = cl.batch(sent_n[LC_TAMPERED] + 1,
+                              [LC_TAMPERED] * LC_FORGED)
+            ln = np.asarray(forged.length)
+            forged.data[np.arange(LC_FORGED), ln - 1] ^= 0x5A
+            sends.append((cl.engine, forged))
+        if t == LC_RR_TICK:
+            rr_rows = [k for k in rows if k < LC_SDES]
+            sends.append((cl.engine, cl.batch(0, rr_rows, rr=True)))
+        sent_n[rows] += 1
+        for k, peer in peers.items():
+            if not peer.complete:
+                continue
+            sid = b._sid_of_ssrc(int(dtls_ssrc[k]))
+            if sid is None or sid in b._staged:
+                continue
+            if k not in dtls_tabs:
+                prof, tk_, ts_, _rk, _rs = peer.srtp_keys()
+                dtls_tabs[k] = SrtpStreamTable(1, prof, device="cpu")
+                dtls_tabs[k].add_stream(0, tk_, ts_)
+                dtls_live[k] = t
+            with _Uncounted(kbuild):
+                pl = [bytes([k, t]) * 40]
+                wire = dtls_tabs[k].protect_rtp(rtp_header.build(
+                    pl, [100 + t], [t * 960], [int(dtls_ssrc[k])], 111,
+                    stream=[0]))
+            socks.send(k, wire.to_payloads(), b.port)
+            dtls_wire[k] = dtls_wire.get(k, 0) + 1
+        secs, _taken, n = _lc_tick(sup, sends, now, pump)
+        tick_s.append(secs)
+        sup_ticks += n
+        if t % LC_FEEDBACK == LC_FEEDBACK - 1:
+            b.emit_feedback(now=now + 0.01)
+    # ---- then the same plane under GCM with the keystream cache
+    g = _LcClients(w, "gcm_")
+    gb = SfuBridge(capacity=LC_CAPACITY, profile=SrtpProfile[GCM],
+                   device=dev)
+    caches = [tab.enable_keystream_cache(**LC_GCM_CACHE)
+              for tab in (gb.rx_table, gb.tx_table)]
+    gsup, glc = _lc_supervise(gb, SupervisorConfig(
+        deadline_ms=LC_DEADLINE_MS), LifecycleConfig(install_batch=SFU_N,
+                                                     max_pending=4096))
+    _lc_count_ticks(gb, tick_launches)
+    glog: list = []
+    _lc_logged(gb, glog)
+    for k in range(SFU_N):
+        rk, tk = g.keys(k)
+        require(glc.request_join(int(g.w["ssrc"][k]), rk, tk,
+                                 conference=k // SFU_SIZE)[0],
+                "lifecycle: a GCM join was refused")
+    g_conf = {int(s): k // SFU_SIZE for k, s in enumerate(g.w["ssrc"])}
+    for _ in range(2):                       # stage, then commit
+        gsup.tick(now=2000.0)
+        _lc_scope(gb, g_conf)
+    fill0 = sum(c.filled_slots for c in caches)
+    gtick_s = []
+    for t in range(LC_GCM_TICKS):
+        sends = [(g.engine, g.batch(t, part)) for part in
+                 np.array_split(np.arange(SFU_N), SFU_BURSTS)]
+        gtick_s.append(_lc_tick(gsup, sends, 2000.02 + 0.02 * t,
+                                lambda: _lc_scope(gb, g_conf))[0])
+    launches = dict(kbuild.launches)
+    plain = dict(kbuild.plain_calls)
+    instances = dict(kbuild.instance_launches)
+    # ---- the checks, outside the counts
+    # the stock journey budget (20 ms) burns fast at this host's tick: a
+    # join offered now is refused, typed
+    late = glc.request_join(0x7E000000, *g.keys(0), conference=0)
+    require(late == (False, "fast_burn"), f"lifecycle: under "
+            f"default_slos() a join after the GCM ticks gave {late}, not "
+            "a typed fast_burn refusal")
+    for one in lcs + [glc]:
+        one.assert_datapath_clean()
+        require(one.tick_thread_handshake_feeds == 0,
+                "lifecycle: an OpenSSL feed ran on the tick thread")
+    require(len(dtls_live) == SFU_SIZE, f"lifecycle: {len(dtls_live)} of "
+                                        f"{SFU_SIZE} DTLS joins went live")
+    for _ in range(20):
+        pump()
+        time.sleep(0.01)
+    cl.close()
+    g.close()
+    with _Uncounted(kbuild):
+        counts = _lc_check_copies(torch, dev, (cl, conf_of), cl.got, log,
+                                  "AES_CM_128_HMAC_SHA1_80", LC_TICKS)
+        gcounts = _lc_check_copies(torch, dev, (g, g_conf), g.got, glog,
+                                   GCM, LC_GCM_TICKS)
+        conf_ssrcs = {k: {int(s) for s in dtls_ssrc} - {int(dtls_ssrc[k])}
+                      for k in peers}
+        dtls_copies = _lc_check_dtls(peers, media, conf_ssrcs)
+    require(counts["cross_conference"] == counts["self_echo"] == 0
+            and gcounts["cross_conference"] == gcounts["self_echo"] == 0,
+            f"lifecycle: copies crossed a conference or echoed: {counts}")
+    require(counts["copies_received"] > 0 and gcounts["copies_received"]
+            > 0 and dtls_copies > 0, "lifecycle: no media was forwarded")
+    heard = counts.pop("heard")
+    gcounts.pop("heard")
+    churn_in = sorted(k for k in joined if k >= LC_SDES)
+    churn_live = [k for k in churn_in if int(cl.w["ssrc"][k]) in ever_live]
+    churn_heard = [k for k in churn_live if k in heard]
+    require(len(churn_heard) >= LC_CHURN_MIN, f"lifecycle: of "
+            f"{cm.joins_offered} churn joins offered, {len(churn_in)} "
+            f"admitted, {len(churn_live)} went live and {len(churn_heard)} "
+            f"were heard both ways, fewer than {LC_CHURN_MIN} "
+            f"(refusals {[x.admit_rejected for x in lcs]})")
+    events = []
+    for one_sup in (lcs[0].supervisor, sup):
+        d = one_sup.flight.dump_all()
+        for evs in d["streams"].values():
+            events += [e for e in evs if e["kind"].startswith("quarantine")]
+    convicted = {e["sid"] for e in events if e["kind"] == "quarantine"}
+    released = {e["sid"] for e in events if e["kind"] == "quarantine_release"}
+    tampered_sid = lcs[0].bridge._sid_of_ssrc(
+        int(cl.w["ssrc"][LC_TAMPERED]))
+    require(convicted == released == {tampered_sid},
+            f"lifecycle: quarantine convicted {convicted} and released "
+            f"{released}, not the forging sender {tampered_sid} alone")
+    require(not sup.health()["quarantined"], "lifecycle: a sender is still "
+                                             "quarantined at the end")
+    import urllib.request
+
+    scrape = {}
+    for om in (False, True):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{obs.port}/metrics", headers={
+                "Accept": "application/openmetrics-text"} if om else {})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            text = r.read().decode()
+        errs = validate_exposition(text, openmetrics=om)
+        require(errs == [], f"lifecycle: /metrics (om={om}): {errs[:3]}")
+        scrape["openmetrics" if om else "text"] = len(text)
+    with urllib.request.urlopen(f"http://127.0.0.1:{obs.port}/healthz",
+                                timeout=10) as r:
+        require(r.status == 200, "lifecycle: /healthz did not answer 200")
+        health = json.loads(r.read())
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{obs.port}/debug/device", timeout=10) as r:
+        device_doc = json.loads(r.read())["devices"]
+    require(device_doc and device_doc[0]["device"] == str(sup.bridge.device)
+            and device_doc[0]["bytes_in_use"] > 0,
+            f"lifecycle: /debug/device: {device_doc}")
+    obs.stop()
+    hits = sum(c.hits for c in caches)
+    ran = launches if dev.type == "cuda" else plain   # a CPU rehearsal
+    require(ran.get("gcm_ks_fill", 0) > 0 and hits > 0,
+            "lifecycle: the GCM keystream cache was not filled between "
+            "ticks and hit")
+    secs = np.array(tick_s)
+    attribution = sup.phase_attribution()
+    emit("sfu_lifecycle", conferences=SFU_CONFS, endpoints=SFU_N,
+         sdes=LC_SDES, dtls=SFU_SIZE, dtls_endpoint=kind_name,
+         ticks=LC_TICKS, supervised_ticks=sup_ticks,
+         install_wave=LC_WAVE, admits=sum(x.admits for x in lcs),
+         evicts=sum(x.evicts for x in lcs),
+         churn_joins=len(churn_in), churn_joins_live=len(churn_live),
+         churn_joins_heard=len(churn_heard), churn_leaves=len(left),
+         journey_budget_s=LC_JOURNEY_BUDGET_S,
+         churn_offered=(cm.joins_offered, cm.leaves_offered),
+         admit_rejected=[x.admit_rejected for x in lcs],
+         gcm_admit_rejected=glc.admit_rejected,
+         gcm_slo_states={x.name: gsup.slo.state(x.name)
+                         for x in gsup.slo.specs},
+         slo_states=[{x.name: one.slo.state(x.name) for x in one.slo.specs}
+                     for one in (lcs[0].supervisor, sup)],
+         admit_to_live_s=live_at,
+         checkpoint_s=ckpt["save_s"], recover_s=ckpt["recover_s"],
+         recovered_snapshot_equal=ckpt["equal"],
+         recovered_snapshot_equal_after_reconcile=ckpt[
+             "equal_after_reconcile"],
+         quarantined_sid=tampered_sid,
+         tick_ms_p50=float(np.median(secs)) * 1e3,
+         tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+         gcm_tick_ms_p50=float(np.median(gtick_s)) * 1e3,
+         gcm_tick_ms_p99=float(np.percentile(gtick_s, 99)) * 1e3,
+         health_state=health["state"], level=health["level"],
+         rungs=health["rungs"], phase_attribution=attribution,
+         datapath_first_launches=sum(x.datapath_recompiles
+                                     for x in lcs + [glc]),
+         first_launches_in_run=compile_stats().compile_events - compile0,
+         tick_thread_handshake_feeds=0, copies=counts, gcm_copies=gcounts,
+         dtls_copies=dtls_copies, dtls_live_tick=dtls_live,
+         keystream=dict(hits=hits, misses=sum(c.misses for c in caches),
+                        filled_slots=sum(c.filled_slots for c in caches)
+                        - fill0,
+                        fill_seconds=sum(c.fill_seconds for c in caches)),
+         scrape_bytes=scrape, bytes_in_use=device_doc[0]["bytes_in_use"])
+    sup.bridge.close()
+    gb.close()
+    socks.close()
+    hold = {d: _lc_hold(torch, d, w) for d in (dev, torch.device("cpu"))}
+    differ = [t for t in range(LC_HOLD_TICKS)
+              if hold[dev][t] != hold[torch.device("cpu")][t]]
+    require(not differ and all(hold[dev]), f"lifecycle hold: the card's "
+            f"datagrams differ from the CPU run's at ticks {differ}")
+    emit("sfu_lifecycle_hold", endpoints=SFU_SIZE, ticks=LC_HOLD_TICKS,
+         recovered_before_tick=LC_HOLD_TICKS // 2,
+         datagrams=[len(x) for x in hold[dev]], equal_to_cpu=True)
+    print(json.dumps({"lifecycle_child": dict(
+        launches=launches, plain_calls=plain, instances=instances,
+        tick_launches=tick_launches,
+        ticks=LC_TICKS + LC_GCM_TICKS + 2)}), flush=True)
+    return 0
+
+
+def _lc_hold(torch, d, w) -> list:
+    """One conference (the first 11 SDES endpoints) under the supervisor
+    and the lifecycle plane on `d`: joined in one wave, 6 ticks of the
+    card-made wire, checkpointed, closed and recovered before tick 3.
+    Returns every datagram the bridges sent, tick by tick."""
+    from libjitsi_tpu_torch.core.packet import PacketBatch
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.service.lifecycle import LifecycleConfig
+    from libjitsi_tpu_torch.service.sfu_bridge import SfuBridge
+    from libjitsi_tpu_torch.service.supervisor import (BridgeSupervisor,
+                                                       SupervisorConfig)
+
+    cfg = SupervisorConfig(deadline_ms=LC_DEADLINE_MS)
+    lcfg = LifecycleConfig(install_batch=LC_WAVE)
+    bridge = SfuBridge(capacity=64, device=d)
+    sup, lc = _lc_supervise(bridge, cfg, lcfg)
+    n = SFU_SIZE
+    for k in range(n):
+        lc.request_join(int(w["cm_ssrc"][k]),
+                        (w["cm_rx_key"][k].tobytes(),
+                         w["cm_rx_salt"][k].tobytes()),
+                        (w["cm_tx_key"][k].tobytes(),
+                         w["cm_tx_salt"][k].tobytes()), conference=0)
+    lc.run_between_ticks()
+    lc.run_between_ticks()
+    out = []
+    with tempfile.TemporaryDirectory() as tmp, \
+            UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=256) as sink:
+        for t in range(LC_HOLD_TICKS):
+            if t == LC_HOLD_TICKS // 2:
+                path = sup.save_checkpoint(os.path.join(tmp, "hold"))
+                sup.bridge.close()
+                sup = BridgeSupervisor.recover(path, SfuBridge, device=d,
+                                               supervisor_config=cfg)
+                sup, lc = _lc_supervise(sup.bridge, None, lcfg, sup=sup)
+            sends = _Sends(sup.bridge)
+            sends.on = t
+            wire = PacketBatch(w["cm_data"][t, :n], w["cm_length"][t, :n],
+                               np.zeros(n, np.int32))
+            _lc_tick(sup, [(sink, wire)], 1000.0 + 0.02 * t)
+            sends.on = None
+            out.append(sends.ticks.get(t, []))
+            _drain(sink, 0)
+        sup.bridge.close()
+    return out
+
+
+# ------------------------------------------------ conference_supervised
+
+def _cs_ticks(sup, setup, ticks, client, res) -> None:
+    """Send each tick's wire and tick the supervised bridge (20 ms steps
+    of `now`), keeping the mixes that came back."""
+    n = CONF_PARTIES
+    for tick in ticks:
+        client.send_batch(setup["wires"][tick], "127.0.0.1",
+                          sup.bridge.port)
+        time.sleep(0.002)
+        t0 = time.perf_counter()
+        stats = sup.tick(now=1000.0 + 0.02 * tick)
+        res["tick_s"].append(time.perf_counter() - t0)
+        require(stats["rx"] == n, f"conference_supervised tick {tick}: rx "
+                                  f"{stats['rx']} of {n}")
+        res["replies"].append(sorted(_drain(client, stats["tx"])))
+        res["levels_seen"].append(sup.level)
+        res["degraded"].append(bool(sup.bridge.degraded))
+        res["dominant"].append(int(stats["dominant"]))
+
+
+def conference_supervised_run(torch, dev, setup) -> dict:
+    """The conference cell's 256 PCMU participants under a
+    BridgeSupervisor: the deadline below the measured tick for
+    CS_OVERLOAD ticks, so the ladder walks recv_window, degrade and two
+    sheds by priority; then raised, so it unwinds LIFO; a checkpoint
+    before tick CS_CKPT_TICK, the bridge closed and recovered on the
+    card (`recover(..., ConferenceBridge)`), and the rest of the ticks."""
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.service.bridge import ConferenceBridge
+    from libjitsi_tpu_torch.service.supervisor import (BridgeSupervisor,
+                                                       SupervisorConfig)
+
+    n = CONF_PARTIES
+    bridge = _keep("conference_supervised",
+                   ConferenceBridge(capacity=n, device=dev))
+    _conference_join(bridge, setup)
+    prios = {k: int(k < CS_PRIORITY) for k in range(n)}
+    tmp = tempfile.mkdtemp()
+    cfg = SupervisorConfig(deadline_ms=1e-6, overload_after=2,
+                           overload_exit=2, stall_after=1000,
+                           shed_step=CS_SHED_STEP,
+                           checkpoint_path=os.path.join(tmp, "conf.ckpt"))
+    sup = BridgeSupervisor(bridge, cfg, metrics=bridge.loop.metrics,
+                           priorities=prios)
+    res = dict(tick_s=[], replies=[], levels_seen=[], degraded=[],
+               dominant=[])
+    with UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=2 * n) as client:
+        _cs_ticks(sup, setup, range(CS_OVERLOAD), client, res)
+        res["peak"] = sup.health()
+        res["shed_order"] = list(sup._shed)
+        cfg.deadline_ms = 10_000.0
+        sup.watchdog.deadline_s = 10.0
+        _cs_ticks(sup, setup, range(CS_OVERLOAD, CS_CKPT_TICK), client, res)
+        res["unwound"] = sup.health()
+        events = [e for e in sup.flight.dump_all()["global"]
+                  if e["kind"].startswith("ladder_")]
+        t0 = time.perf_counter()
+        path = sup.save_checkpoint()
+        blob = BridgeSupervisor.load_checkpoint(path)
+        sup.bridge.close()
+        sup = BridgeSupervisor.recover(path, ConferenceBridge, device=dev,
+                                       supervisor_config=cfg)
+        res["recover_s"] = time.perf_counter() - t0
+        res["snapshot_equal"] = _same(sup.bridge.snapshot(), blob["snap"])
+        sup.priorities = prios
+        sup.register_metrics(_keep("conference_supervised recovered",
+                                   sup.bridge).loop.metrics)
+        _cs_ticks(sup, setup, range(CS_CKPT_TICK, CS_TICKS), client, res)
+    res.update(events=events, final=sup.health(), setup=setup,
+               recovered_ticks=sup.ticks)
+    sup.bridge.close()
+    return res
+
+
+def _cs_hold(torch, d, setup) -> list:
+    """The conference under a supervisor on `d`: ticks 0-2, a checkpoint,
+    the bridge closed and recovered on `d`, ticks 3-5; the mixes of each
+    tick."""
+    from libjitsi_tpu_torch.io.udp import UdpEngine
+    from libjitsi_tpu_torch.service.bridge import ConferenceBridge
+    from libjitsi_tpu_torch.service.supervisor import (BridgeSupervisor,
+                                                       SupervisorConfig)
+
+    n = CONF_PARTIES
+    bridge = ConferenceBridge(capacity=n, device=d)
+    _conference_join(bridge, setup)
+    cfg = SupervisorConfig(deadline_ms=LC_DEADLINE_MS)
+    sup = BridgeSupervisor(bridge, cfg)
+    res = dict(tick_s=[], replies=[], levels_seen=[], degraded=[],
+               dominant=[])
+    with tempfile.TemporaryDirectory() as tmp, \
+            UdpEngine(port=0, bind_ip="127.0.0.1", max_batch=2 * n) as client:
+        half = CS_HOLD_TICKS // 2
+        _cs_ticks(sup, setup, range(half), client, res)
+        path = sup.save_checkpoint(os.path.join(tmp, "hold"))
+        sup.bridge.close()
+        sup = BridgeSupervisor.recover(path, ConferenceBridge, device=d,
+                                       supervisor_config=cfg)
+        _cs_ticks(sup, setup, range(half, CS_HOLD_TICKS), client, res)
+        sup.bridge.close()
+    return res["replies"]
+
+
+def conference_supervised_check(torch, dev, run) -> None:
+    """Gates: the ladder walked recv_window, degrade and two sheds (the
+    lowest priority, newest sids first, never the dominant speaker) and
+    unwound LIFO to level 0; every shed sid restored; the recovered
+    bridge's snapshot equals the checkpoint's; and a 6-tick hold across
+    a recovery equals the same script on the CPU, mix for mix."""
+    up = [e["rung"] for e in run["events"]
+          if e["kind"] == "ladder_escalate"]
+    down = [e["rung"] for e in run["events"]
+            if e["kind"] == "ladder_deescalate"]
+    want = ["recv_window", "degrade", "shed_streams", "shed_streams"]
+    require(up == want and down == want[::-1],
+            f"conference_supervised: ladder up {up}, down {down}")
+    # the lowest priority, newest sid first; the dominant speaker of the
+    # moment is passed over
+    shed = run["shed_order"]
+    dominant = set(run["dominant"][:CS_OVERLOAD])
+    passed = [k for k in range(min(shed, default=0), CONF_PARTIES)
+              if k not in shed]
+    require(len(shed) == 2 * CS_SHED_STEP and shed == sorted(shed)[::-1]
+            and min(shed) >= CS_PRIORITY and set(passed) <= dominant,
+            f"conference_supervised: shed {shed}, passed over {passed} "
+            f"(dominant {sorted(dominant)})")
+    require(run["peak"]["level"] == 4 and run["peak"]["state"]
+            == "overloaded" and any(run["degraded"]),
+            f"conference_supervised: peak {run['peak']}")
+    require(run["unwound"]["level"] == 0 and not run["unwound"]["shed"]
+            and not run["degraded"][-1],
+            f"conference_supervised: not unwound: {run['unwound']}")
+    require(run["snapshot_equal"], "conference_supervised: the recovered "
+                                   "bridge's snapshot differs from the "
+                                   "checkpoint's")
+    t0 = time.perf_counter()
+    card = _cs_hold(torch, dev, run["setup"])
+    cpu = _cs_hold(torch, torch.device("cpu"), run["setup"])
+    hold_s = time.perf_counter() - t0
+    differ = [t for t in range(CS_HOLD_TICKS) if card[t] != cpu[t]]
+    require(not differ, f"conference_supervised hold: the card's mixes "
+                        f"differ from the CPU run's at ticks {differ}")
+    secs = np.array(run["tick_s"])
+    emit("conference_supervised", participants=CONF_PARTIES,
+         ticks=CS_TICKS, overrun_ticks=CS_OVERLOAD,
+         ladder_up=up, ladder_down=down, shed=shed,
+         peak_level=run["peak"]["level"], peak_state=run["peak"]["state"],
+         phase_attribution_bound=run["peak"]["bound"],
+         levels_by_tick=run["levels_seen"],
+         checkpoint_and_recover_s=run["recover_s"],
+         recovered_snapshot_equal=True,
+         final_state=run["final"]["state"], final_level=run["final"]["level"],
+         tick_ms_p50=float(np.median(secs)) * 1e3,
+         tick_ms_p99=float(np.percentile(secs, 99)) * 1e3,
+         hold_ticks=CS_HOLD_TICKS, hold_equal_to_cpu=True, hold_s=hold_s)
 
 if __name__ == "__main__":
     sys.exit(main())

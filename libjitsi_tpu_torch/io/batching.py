@@ -7,8 +7,8 @@ the port imports nothing of the JAX package.
 - **Backlog**: the window filled to the current cap, so the socket's
   queue is deeper than one window.  Waiting is then pure added latency:
   the window drops to poll mode (0 ms) and the cap opens to its base.
-- **SLO burn state**, read from any object with `.state()` (the SLO
-  engine is ROADMAP Queue 1, item 10): `fast_burn` drops the window and
+- **SLO burn state**, read from any object with `.state()` (the
+  `utils/slo.SloEngine`): `fast_burn` drops the window and
   halves the cap, so batches leave sooner; `slow_burn` holds the cap and
   halves the window.
 

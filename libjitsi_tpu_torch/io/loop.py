@@ -238,7 +238,7 @@ class MediaLoop:
         self.perf = PhaseProfiler(
             self.metrics, sample_every=phase_sample_every,
             inflight_fn=lambda: self._inflight_age(),
-            device=getattr(registry, "device", None))
+            device=getattr(registry, "device", None), tracer=self.tracer)
 
     # ------------------------------------------------------ drain rings
     @property

@@ -10,10 +10,14 @@ reused.  Nothing here runs at import: the CPU tests import every module
 of the port on a machine without `nvcc`.
 
 Launch accounting: every wrapper adds one to `launches[name]` where it
-launches its kernel (the SRTP wrappers also to `instance_launches` under
-the instance's AES rounds), and every plain PyTorch version adds one to
+launches its kernel (every wrapper of a kernel that runs AES, C, D, H,
+I, J, K, L, M, N and O, also to `instance_launches` under the
+instance's AES rounds), and every plain PyTorch version adds one to
 `plain_calls[name]` when it runs.  A run shows it went through the
 kernels by resetting both, driving its path, and reading them back.
+The first launch of each kernel and of each counted instance in the
+process, and the library's build or reuse, also feed
+`utils/compile_cache.compile_stats()` (a reset leaves those alone).
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import time
 from typing import Dict, Optional
 
 import torch
+
+from libjitsi_tpu_torch.utils.compile_cache import compile_stats
 
 KERNELS = ("aes_encrypt", "hmac_sha1", "srtp_protect_cm", "srtp_unprotect_cm",
            "mix_minus", "g711_encode", "g711_decode", "srtp_fanout_cm",
@@ -46,12 +52,24 @@ KERNELS = ("aes_encrypt", "hmac_sha1", "srtp_protect_cm", "srtp_unprotect_cm",
            # kernel R: the polyphase resampler (K13b)
            "resample")
 
-launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+class _LaunchCounts(dict):
+    """The launch counters; a count that rises reports the kernel's
+    launch to `compile_stats()`, whose first sight of it is a compile
+    event."""
+
+    def __setitem__(self, name: str, value: int) -> None:
+        if value > self.get(name, 0):
+            compile_stats().on_launch(name)
+        super().__setitem__(name, value)
+
+
+launches: Dict[str, int] = _LaunchCounts.fromkeys(KERNELS, 0)
 plain_calls: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-#: launches of each AES-rounds instance of the SRTP and SRTCP kernels (C,
-#: D, I, J, K, L and their NULL instances), keyed as "srtp_protect_cm
-#: nr=14": a wrapper counts its instance beside its kernel, where it
-#: launches
+#: launches of each AES-rounds instance of the SRTP, SRTCP, fan-out and
+#: GCM kernels (C, D, H, I, J, K, L, M, N, O and their NULL and GCM
+#: instances; not the cached GCM instances, which run no AES), keyed as
+#: "srtp_protect_cm nr=14": a wrapper counts its instance beside its
+#: kernel, where it launches
 instance_launches: Dict[str, int] = {}
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -151,6 +169,7 @@ def reset_counts() -> None:
 def count_instance(name: str, nr: int) -> None:
     key = f"{name} nr={nr}"
     instance_launches[key] = instance_launches.get(key, 0) + 1
+    compile_stats().on_launch(key)
 
 
 def _nvcc() -> str:
@@ -185,6 +204,7 @@ def build() -> str:
     key = h.hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"libljt_kernels_{key}.so")
     if os.path.exists(so):
+        compile_stats().on_build(False)
         return so
     t0 = time.perf_counter()
     work = os.path.join(BUILD_DIR, f"obj_{key}_{os.getpid()}")
@@ -216,6 +236,7 @@ def build() -> str:
     os.replace(tmp, so)            # atomic: concurrent builders agree
     shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
+    compile_stats().on_build(True, build_seconds)
     return so
 
 

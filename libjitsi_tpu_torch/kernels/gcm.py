@@ -250,3 +250,4 @@ def gcm_ks_fill(ks_tab, ek_tab, tab_rk, stream, iv12, slot) -> None:
             _k.stream_handle(dev))
         _k.check(rc, "gcm_ks_fill")
         _k.launches["gcm_ks_fill"] += 1
+        _k.count_instance("gcm_ks_fill", tab_rk.shape[1] - 1)

@@ -125,6 +125,10 @@ class ConferenceBridge:
         self.speaker = DominantSpeakerIdentification(
             capacity, on_change=self._speaker_changed)
         self.speaker_events: List[Tuple[int, int]] = []  # (tick, sid)
+        # overload degradation (set by a BridgeSupervisor rung): the tick
+        # skips speaker scoring and egress level stamping while media
+        # keeps flowing
+        self.degraded = False
         self.loop = MediaLoop(
             UdpEngine(port=port, max_batch=4 * capacity,
                       kernel_timestamps=kernel_timestamps),
@@ -275,8 +279,9 @@ class ConferenceBridge:
             sids, _frames = self.bank.tick(now=self._now)
         with record_function("mixer"):
             out, levels = self.mixer.mix()
-            self.speaker.levels(levels)
-            self._update_egress_levels(levels)
+            if not self.degraded:
+                self.speaker.levels(levels)
+                self._update_egress_levels(levels)
         tx = self._send_mixes(out)
         self.ticks += 1
         return {"rx": rx, "mixed": len(sids), "tx": tx,

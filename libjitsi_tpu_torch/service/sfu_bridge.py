@@ -323,7 +323,10 @@ class SfuBridge:
         self._quiesce_fanout()
         sid = self.registry.alloc(self)
         if name is not None:
+            # a display name is hostile input: the registry escapes it
+            # when it renders the stream's samples
             self.stream_names[sid] = name
+            self.loop.metrics.set_stream_name(sid, name)
         self.rx_table.add_stream(sid, *rx_key)
         self.tx_table.add_stream(sid, *tx_key)
         self.translator.add_receiver(sid, *tx_key)
@@ -399,6 +402,7 @@ class SfuBridge:
             self.loop.addr_ip[sid] = 0
             self.loop.addr_port[sid] = 0
             self.stream_names.pop(sid, None)
+            self.loop.metrics.set_stream_name(sid, None)
             self.registry.release(sid)
         self.rx_table.remove_streams(rx_rows)
         self.tx_table.remove_streams(tx_rows)
@@ -454,6 +458,7 @@ class SfuBridge:
             self._tx_keys[sid] = tuple(tx)
             if name is not None:
                 self.stream_names[sid] = name
+                self.loop.metrics.set_stream_name(sid, name)
             self.loop.hold_stream(sid)
             self._staged.add(sid)
         return sids

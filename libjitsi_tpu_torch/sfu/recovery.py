@@ -41,8 +41,8 @@ Counterpart: `libjitsi_tpu/sfu/recovery.py` (copied whole; host only):
 events (`flight`, `sid_of`, `_rec`: `nack_queued`, `nack_upstream`,
 `rtx_budget_drop`, `fec_shed`, `rtx_throttle`; the bridge records
 `rtx_served` and `rtx_cache_miss`), and `RecoveringReceiver` with its
-`register_metrics`.  The JAX module's `info` log lines of the two
-supervisor rungs are left out: the flight events carry the same.
+`register_metrics`, and the `info` log lines of the two supervisor
+rungs.
 """
 
 from __future__ import annotations
@@ -53,6 +53,10 @@ from typing import Dict, List, Optional, Tuple
 from libjitsi_tpu_torch.rtp import header as rtp_header
 from libjitsi_tpu_torch.rtp.loss import LossTracker
 from libjitsi_tpu_torch.transform.fec import FecReceiver, build_fec
+from libjitsi_tpu_torch.utils.logging import get_logger
+
+_log = get_logger("sfu.recovery")
+
 #: SSRC of a stream's FEC companion stream ("FEC" xor, like _VideoTrack's
 #: RTX_SSRC_XOR convention).
 FEC_SSRC_XOR = 0x00464543
@@ -414,6 +418,7 @@ class RecoveryController:
         self.fec_shed = shed
         self.fec.set_shed(shed)
         self._rec("fec_shed", shed=bool(shed))
+        _log.info("recovery_fec_shed", shed=shed)
 
     def throttle_rtx(self, throttled: bool) -> None:
         """Escalation rung: shrink the retransmission budget before any
@@ -422,6 +427,7 @@ class RecoveryController:
         self.rtx_bucket.set_scale(
             self.cfg.rtx_throttle_scale if throttled else 1.0)
         self._rec("rtx_throttle", throttled=bool(throttled))
+        _log.info("recovery_rtx_throttle", throttled=throttled)
 
     # --------------------------------------------------- observability
     def register_metrics(self, registry, prefix: str = "recovery") -> None:

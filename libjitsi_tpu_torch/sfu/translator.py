@@ -43,6 +43,14 @@ card from the leg's salt, the SSRC and the index.  The JAX translator
 has two paths that give the same bytes, a full-mesh one
 (`gcm_protect_fanout`, leg-major, flipped to packet-major after) and a
 general one; the port has one, which writes packet-major rows directly.
+
+`warmup_fanout(rows)` (the lifecycle plane's warm-up) launches H's
+instance for the profile at `rows` copies off the media path, reading
+row 0 of the live key tables and discarding the output, at the payload
+width the bridge is configured for and at the MTU width, with a bare
+header and with a one-byte header extension.  The port compiles nothing
+per shape: it pays the instance's first launch in the process and the
+first allocation of the buffers of that size.
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from libjitsi_tpu_torch.core.device import DeviceLike, resolve_device, to_device
-from libjitsi_tpu_torch.core.packet import PacketBatch
+from libjitsi_tpu_torch.core.packet import DEFAULT_CAPACITY, PacketBatch
 from libjitsi_tpu_torch.kernels.aes import expand_keys_batch
 from libjitsi_tpu_torch.kernels.sha1 import hmac_precompute_batch
 from libjitsi_tpu_torch.rtp import header as rtp_header
@@ -182,6 +190,32 @@ class RtpTranslator:
 
     def disconnect(self, sender_sid: int) -> None:
         self._routes.pop(sender_sid, None)
+
+    # ------------------------------------------------------------- warmup
+    def warmup_fanout(self, rows: int, payload_len: int = 160) -> None:
+        """Launch the fan-out for `rows` copies off the data path (see the
+        module docstring); the output is discarded."""
+        rows = max(1, int(rows))
+        tag = self.policy.auth_tag_len
+        widths = sorted({-(-(12 + payload_len + tag) // 16) * 16,
+                         DEFAULT_CAPACITY})
+        src = np.arange(rows, dtype=np.int64)
+        recv = np.zeros(rows, dtype=np.int64)
+        index = np.zeros(rows, dtype=np.int64)
+        for w in widths:
+            for ext in (False, True):
+                data = np.zeros((rows, w), dtype=np.uint8)
+                data[:, 0] = 0x90 if ext else 0x80
+                if ext:                  # one-word RFC 8285 extension
+                    data[:, 12:16] = (0xBE, 0xDE, 0, 1)
+                length = np.full(rows, min(12 + payload_len, w - tag),
+                                 dtype=np.int32)
+                batch = PacketBatch(data, length,
+                                    np.zeros(rows, dtype=np.int32))
+                hdr = rtp_header.parse(batch)
+                out, out_len = self._fanout_call(data, length, hdr, index,
+                                                 src, recv)
+                out_len.cpu()            # wait for the launch, off-tick
 
     def _device_tables(self):
         if self._dev is None:

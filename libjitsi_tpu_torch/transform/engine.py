@@ -17,9 +17,10 @@ virtual calls inverted into batched functions:
 Rows dropped by an earlier engine still flow through later engines (the
 batch keeps its shape) but their mask bit is off and the I/O layer discards
 them at scatter time; engines may use the mask to skip state updates.
-The JAX chain's per-engine drop counters and its handling of engines
-that change the batch size (fault injection, RED) are not part of this
-slice.
+An engine may change the batch size (fault injection duplicates rows):
+it then returns a mask for the new shape with the incoming mask folded
+in, and the chain takes that mask as it is (`_fold`).  The JAX chain's
+per-engine drop counters are not kept.
 
 Counterpart: `libjitsi_tpu/transform/engine.py`, with its dispatch-only
 seams: `transform_async` and `reverse_transform_async` hand the chain's
@@ -83,18 +84,26 @@ class _ChainTransformer(PacketTransformer):
     def __init__(self, transformers: Sequence[PacketTransformer]):
         self._ts = list(transformers)
 
+    @staticmethod
+    def _fold(mask, ok):
+        """An engine that changed the batch size returns a mask for the
+        new shape with the incoming mask already folded in."""
+        if ok.shape != mask.shape:
+            return ok.copy()
+        return mask & ok
+
     def transform(self, batch, mask=None):
         mask = _ones(batch) if mask is None else mask.copy()
         for t in self._ts:
             batch, ok = t.transform(batch, mask)
-            mask = mask & ok
+            mask = self._fold(mask, ok)
         return batch, mask
 
     def reverse_transform(self, batch, mask=None):
         mask = _ones(batch) if mask is None else mask.copy()
         for t in reversed(self._ts):
             batch, ok = t.reverse_transform(batch, mask)
-            mask = mask & ok
+            mask = self._fold(mask, ok)
         return batch, mask
 
     def transform_async(self, batch, mask=None):
@@ -105,14 +114,14 @@ class _ChainTransformer(PacketTransformer):
         mask = _ones(batch) if mask is None else mask.copy()
         for t in self._ts[:-1]:
             batch, ok = t.transform(batch, mask)
-            mask = mask & ok
+            mask = self._fold(mask, ok)
         if not self._ts:
             return _DonePending(batch), mask
         last = self._ts[-1]
         if hasattr(last, "transform_async"):
             return last.transform_async(batch, mask), mask
         batch, ok = last.transform(batch, mask)
-        return _DonePending(batch), mask & ok
+        return _DonePending(batch), self._fold(mask, ok)
 
     def reverse_transform_async(self, batch, mask=None):
         """Dispatch-only inbound pass, mirroring `transform_async`: the
@@ -184,10 +193,10 @@ class _PendingReverse:
     def result(self):
         if self._out is None:
             batch, ok = self._pend.result()
-            mask = self._mask & ok
+            mask = _ChainTransformer._fold(self._mask, ok)
             for t in reversed(self._chain._ts[:-1]):
                 batch, ok = t.reverse_transform(batch, mask)
-                mask = mask & ok
+                mask = _ChainTransformer._fold(mask, ok)
             self._out = (batch, mask)
             self._pend = self._chain = None
         return self._out

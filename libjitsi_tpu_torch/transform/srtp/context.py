@@ -55,6 +55,14 @@ allocator only for work queued after the kernels that read it.
 and `unprotect_rtcp` (`srtp.protect_rtcp`, `srtp.unprotect_rtcp`), so
 a profiler trace splits a call into host work, copies and kernels.
 
+`warmup_rtp` / `warmup_rtcp` (the lifecycle plane's warm-ups) run the
+RTP and SRTCP calls for a row class on a throwaway table of the same
+capacity, profile and device, so the live table's tx indices and replay
+windows are untouched.  The port compiles nothing per shape: what they
+pay in advance is each kernel instance's first launch in the process,
+the first allocation of the buffers a call of that size takes, and under
+a keystream cache the cached path's prime and fill.
+
 A "stream" row is one direction of one SSRC: use separate tables for tx
 and rx, as the reference keeps separate forward/reverse context maps.
 """
@@ -232,6 +240,69 @@ class SrtpStreamTable:
                                         ks_bytes=ks_bytes, pool=pool,
                                         debug=debug)
         return self._ks_cache
+
+    # -------------------------------------------------------------- warmup
+    def warmup_rtp(self, batch_size: int, packets_per_stream: int = 4,
+                   payload_len: int = 160) -> None:
+        """Run RTP protect and unprotect at `batch_size` rows off the
+        media path, on a throwaway table of the same shape and device
+        (the live table's state is untouched), so the data path meets
+        no first launch.  With a keystream cache it also runs the
+        cached twin: priming scratch caches launches O, and their hits
+        serve M's and N's cached instances.  (The JAX method also runs
+        the kernel registry's GCM provider measurement here; the port's
+        registry is ROADMAP Queue 1 item 11.)"""
+        scratch = SrtpStreamTable(self.capacity, self.profile, self.device)
+        n = max(1, min(self.capacity,
+                       batch_size // max(packets_per_stream, 1)))
+        rng = np.random.default_rng(0)
+        sids = np.arange(n)
+        mks = rng.integers(0, 256, (n, self.policy.enc_key_len),
+                           dtype=np.uint8)
+        mss = rng.integers(0, 256, (n, self.policy.salt_len),
+                           dtype=np.uint8)
+        scratch.add_streams(sids, mks, mss)
+        pp = -(-batch_size // n)
+        streams = np.repeat(sids, pp)[:batch_size]
+        seqs = segment_ranks(streams) + 1
+        pls = [b"\x00" * payload_len] * batch_size
+        b = rtp_header.build(pls, seqs.tolist(), [0] * batch_size,
+                             (0x4000 + streams).tolist(),
+                             [96] * batch_size, stream=streams.tolist())
+        wire = scratch.protect_rtp(b)
+        scratch.unprotect_rtp(wire)
+        src = self._ks_cache
+        if src is not None and pp < src.window:
+            # the cached twin; the rx leg runs on a second table with the
+            # same keys, since protect consumes the tx cache's slots
+            cw = dict(window=src.window, ks_bytes=src.ks_bytes,
+                      pool=src.pool)
+            ssrcs = 0x4000 + sids
+            ctx = scratch.enable_keystream_cache(**cw)
+            ctx.prime(sids, ssrcs)
+            b2 = rtp_header.build(pls, ((seqs + pp) & 0xFFFF).tolist(),
+                                  [0] * batch_size,
+                                  (0x4000 + streams).tolist(),
+                                  [96] * batch_size, stream=streams.tolist())
+            wire2 = scratch.protect_rtp(b2)
+            scratch_rx = SrtpStreamTable(self.capacity, self.profile,
+                                         self.device)
+            scratch_rx.add_streams(sids, mks, mss)
+            crx = scratch_rx.enable_keystream_cache(**cw)
+            crx.prime(sids, ssrcs, start=1 + pp)
+            scratch_rx.unprotect_rtp(wire2)
+
+    def warmup_rtcp(self, batch_size: int = 1) -> None:
+        """Run SRTCP protect and unprotect at `batch_size` rows (one empty
+        receiver report each) on a throwaway table, as `warmup_rtp`."""
+        scratch = SrtpStreamTable(self.capacity, self.profile, self.device)
+        scratch.add_stream(0, b"\x00" * self.policy.enc_key_len,
+                           b"\x00" * self.policy.salt_len)
+        blob = bytes([0x80, 201, 0, 1]) + (0x4000).to_bytes(4, "big")
+        b = PacketBatch.from_payloads([blob] * max(1, batch_size),
+                                      stream=[0] * max(1, batch_size))
+        wire = scratch.protect_rtcp(b)
+        scratch.unprotect_rtcp(wire)
 
     # ------------------------------------------------------ commit barrier
     def _commit_inflight_unprotect(self) -> None:

@@ -359,6 +359,7 @@ def srtp_fanout_protect(tab_rk, tab_mid, tab_salt, data, length,
                 payload_off.data_ptr(), _ptr(ssrc), index.data_ptr(), *tail)
         _k.check(rc, name)
         _k.launches[name] += 1
+        _k.count_instance(name, tab_rk.shape[1] - 1)
     return out, out_len
 
 
@@ -559,10 +560,14 @@ def _check_gcm_keys(tab_rk):
               tuple(tab_rk.shape))
 
 
-def _gcm_launch(name: str, *args) -> None:
+def _gcm_launch(name: str, *args, nr: int = 0) -> None:
+    """Launch a GCM kernel; `nr`, the AES rounds of an instance that runs
+    AES (0 for the cached instances, which run none), is counted too."""
     rc = getattr(_k.library(), "ljt_" + name)(*args)
     _k.check(rc, name)
     _k.launches[name] += 1
+    if nr:
+        _k.count_instance(name, nr)
 
 
 def srtp_gcm_protect(tab_rk, tab_gm, stream, data, length, aad_len, iv12
@@ -587,7 +592,8 @@ def srtp_gcm_protect(tab_rk, tab_gm, stream, data, length, aad_len, iv12
                     stream.data_ptr(), tab_rk.shape[0], data.data_ptr(),
                     length.data_ptr(), aad_len.data_ptr(), iv12.data_ptr(),
                     out.data_ptr(), out_len.data_ptr(), bsz, width,
-                    tab_rk.shape[1] - 1, _k.stream_handle(dev))
+                    tab_rk.shape[1] - 1, _k.stream_handle(dev),
+                    nr=tab_rk.shape[1] - 1)
     return out, out_len
 
 
@@ -612,7 +618,8 @@ def srtp_gcm_unprotect(tab_rk, tab_gm, stream, data, length, aad_len, iv12):
                     stream.data_ptr(), tab_rk.shape[0], data.data_ptr(),
                     length.data_ptr(), aad_len.data_ptr(), iv12.data_ptr(),
                     out.data_ptr(), mlen.data_ptr(), auth_ok.data_ptr(), bsz,
-                    width, tab_rk.shape[1] - 1, _k.stream_handle(dev))
+                    width, tab_rk.shape[1] - 1, _k.stream_handle(dev),
+                    nr=tab_rk.shape[1] - 1)
     return out, mlen, auth_ok
 
 
@@ -738,5 +745,6 @@ def srtp_fanout_gcm(tab_rk, tab_gm, tab_salt, data, length, payload_off,
                     ssrc.data_ptr(), index.data_ptr(), n_src,
                     src.data_ptr(), recv.data_ptr(), out.data_ptr(),
                     out_len.data_ptr(), n, width, tab_rk.shape[1] - 1,
-                    _k.stream_handle(dev))
+                    _k.stream_handle(dev),
+                    nr=tab_rk.shape[1] - 1)
     return out, out_len

@@ -1,14 +1,13 @@
 """Per-stream flight recorder: bounded rings of structured events.
 
-Counterpart: `libjitsi_tpu/utils/flight.py` `FlightRecorder`, the part
-the media loop calls: `record`, the loop's per-tick RTP header samples
-(`record_headers`, tail-biased for streams marked priority) and
-`mark_priority` (a journey that overflowed the top latency bucket), with
-`dump` to read a stream's ring back.  The JAX recorder's event kinds
-that mark a stream priority by themselves (NACK, RTX, FEC, handshake)
-come from modules the port's loop does not run, so `mark_priority` is
-the only way in.  Events are plain JSON-ready dicts
-with a monotone global sequence number; rings are bounded deques.
+Counterpart: `libjitsi_tpu/utils/flight.py` `FlightRecorder`, whole:
+`record`, the loop's per-tick RTP header samples (`record_headers`,
+tail-biased for streams marked priority), `mark_priority` (a journey
+that overflowed the top latency bucket) and the event kinds that mark a
+stream priority by themselves (`PRIORITY_KINDS`: NACK, RTX, FEC, a
+completed handshake, an adopted orphan), with `dump` / `dump_all` to
+read the rings back for a post-mortem.  Events are plain JSON-ready
+dicts with a monotone global sequence number; rings are bounded deques.
 """
 
 from __future__ import annotations
@@ -29,6 +28,18 @@ def _plain(value: Any) -> Any:
     if isinstance(value, np.ndarray):
         return value.tolist()
     return value
+
+
+#: every event carries seq (global monotone), t (monotonic clock), kind,
+#: and optionally sid / tick; the other keys are the kind's own
+EVENT_BASE_KEYS = ("seq", "t", "kind", "sid", "tick")
+
+#: events that mark their stream priority for the next header sample: a
+#: stream that just ran the NACK / RTX / FEC machinery, or was just keyed
+#: or adopted, is the one whose packet tail is worth keeping
+PRIORITY_KINDS = frozenset((
+    "nack_queued", "rtx_served", "rtx_cache_miss", "fec_sent",
+    "rtx_budget_drop", "handshake_complete", "orphan_adopted"))
 
 
 class FlightRecorder:
@@ -69,6 +80,8 @@ class FlightRecorder:
                 ring = self._streams[int(sid)] = deque(
                     maxlen=self.per_stream)
             ring.append(ev)
+            if kind in PRIORITY_KINDS:
+                self._priority.add(int(sid))
         return ev
 
     @staticmethod
@@ -110,3 +123,20 @@ class FlightRecorder:
             "events": [dict(e) for e in self._streams.get(int(sid), ())],
             "global": [dict(e) for e in self._global],
         }
+
+    def dump_all(self) -> dict:
+        return {
+            "streams": {int(s): [dict(e) for e in ring]
+                        for s, ring in self._streams.items()},
+            "global": [dict(e) for e in self._global],
+        }
+
+    def streams(self) -> List[int]:
+        return sorted(self._streams)
+
+    def clear(self, sid: Optional[int] = None) -> None:
+        if sid is None:
+            self._streams.clear()
+            self._global.clear()
+        else:
+            self._streams.pop(int(sid), None)

@@ -1,12 +1,14 @@
 """Structured, level-guarded, rate-limited logging for the media plane.
 
 Counterpart: `libjitsi_tpu/utils/logging.py` (`MediaLogger`,
-`get_logger`), as far as the media loop calls them (warnings).  One
-logger per subsystem,
-stream and batch identifiers carried as `k=v` fields, and a token bucket
-per (logger, event) site: at most `burst` records, then `rate_hz`, with
-the suppressed count carried on the next record, so a flood of bad
-packets cannot flood the log.  Loggers live under `libjitsi_tpu_torch`.
+`get_logger`, `configure`), whole.  One logger per subsystem, stream and
+batch identifiers carried as `k=v` fields, and a token bucket per
+(logger, event) site: at most `burst` records, then `rate_hz`, with the
+suppressed count carried on the next record, so a flood of bad packets
+cannot flood the log.  `debug_enabled` / `info_enabled` are the level
+guards a hot path reads before building fields.  Loggers live under
+`libjitsi_tpu_torch`; `configure` is the opt-in root set-up (library code
+never calls it).
 """
 
 from __future__ import annotations
@@ -36,9 +38,31 @@ class MediaLogger:
         self.burst = float(burst)
         self._sites: Dict[str, _Site] = {}
 
+    # ------------------------------------------------------- level guards
+    @property
+    def debug_enabled(self) -> bool:
+        return self._log.isEnabledFor(logging.DEBUG)
+
+    @property
+    def info_enabled(self) -> bool:
+        return self._log.isEnabledFor(logging.INFO)
+
+    # ------------------------------------------------------------ emitters
+    def debug(self, event: str, **fields) -> None:
+        if self._log.isEnabledFor(logging.DEBUG):
+            self._emit(logging.DEBUG, event, fields)
+
+    def info(self, event: str, **fields) -> None:
+        if self._log.isEnabledFor(logging.INFO):
+            self._emit(logging.INFO, event, fields)
+
     def warn(self, event: str, **fields) -> None:
         if self._log.isEnabledFor(logging.WARNING):
             self._emit(logging.WARNING, event, fields)
+
+    def error(self, event: str, **fields) -> None:
+        if self._log.isEnabledFor(logging.ERROR):
+            self._emit(logging.ERROR, event, fields)
 
     def _emit(self, level: int, event: str, fields: dict,
               now: Optional[float] = None) -> None:
@@ -75,3 +99,17 @@ def get_logger(subsystem: str, rate_hz: float = 10.0,
         lg.rate_hz = rate_hz
         lg.burst = float(burst)
     return lg
+
+
+def configure(level: int = logging.INFO, stream=None) -> None:
+    """Opt-in root set-up of the `libjitsi_tpu_torch` logger tree: its
+    level and one stream handler.  The tree stops propagating, so an
+    application's root handler does not print every record twice."""
+    root = logging.getLogger(_ROOT)
+    root.setLevel(level)
+    if not root.handlers:
+        h = logging.StreamHandler(stream)
+        h.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname).1s %(name)s %(message)s"))
+        root.addHandler(h)
+    root.propagate = False

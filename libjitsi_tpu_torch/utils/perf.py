@@ -23,12 +23,14 @@ dispatched so far and waits for it (and for the pending's own event,
 waits on an event recorded after the copies.  On the CPU the same calls
 are plain host timings of the copies and of `block_until_ready`.
 
-Results feed a `tick_phase_seconds{phase=...}` histogram family and
-`last_phases` / `phase_totals`.
-The JAX profiler also exports its compile-cache counters
-(`compile_stats`): the port compiles nothing on the data path (the
-kernels are built once, before the first launch), so that feed has no
-counterpart here.
+Results feed a `tick_phase_seconds{phase=...}` histogram family,
+`last_phases` / `phase_totals`, and the `PipelineTracer`'s phase ledger
+(`tracer=`; drained by the supervisor, so an escalation says host-bound
+or device-bound).  `classify_bound` and `host_share` read one split.
+The compile counters of `utils/compile_cache.py` ride on the same
+registry (`compile_cache_hits` / `_misses`: the kernel library reused or
+built; `compile_events`: first launches of kernel instances, a step
+mid-run means one landed on the data path).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from libjitsi_tpu_torch.utils.compile_cache import compile_stats
 from libjitsi_tpu_torch.utils.metrics import (MetricsRegistry,
                                               exponential_buckets)
 
@@ -47,8 +50,35 @@ from libjitsi_tpu_torch.utils.metrics import (MetricsRegistry,
 PHASES = ("host_python", "dispatch", "h2d_transfer", "device_compute",
           "d2h_transfer", "idle")
 
+#: phases owned by the host interpreter vs the device pipeline (the
+#: supervisor's host-bound vs device-bound classification)
+HOST_PHASES = ("host_python", "dispatch")
+DEVICE_PHASES = ("h2d_transfer", "device_compute", "d2h_transfer")
+
 #: 10 µs .. ~2.6 s per phase per tick
 PHASE_BUCKETS = tuple(exponential_buckets(1e-5, 4.0, 10))
+
+
+def classify_bound(phases: Dict[str, float]) -> str:
+    """"host" / "device" / "idle" / "unknown" for one phase split."""
+    if not phases:
+        return "unknown"
+    host = sum(phases.get(p, 0.0) for p in HOST_PHASES)
+    device = sum(phases.get(p, 0.0) for p in DEVICE_PHASES)
+    idle = phases.get("idle", 0.0)
+    total = host + device + idle
+    if total <= 0.0:
+        return "unknown"
+    return max((("host", host), ("device", device), ("idle", idle)),
+               key=lambda kv: kv[1])[0]
+
+
+def host_share(phases: Dict[str, float]) -> float:
+    """Fraction of the non-idle tick owned by the host (host_python +
+    dispatch over everything but idle)."""
+    host = sum(phases.get(p, 0.0) for p in HOST_PHASES)
+    busy = host + sum(phases.get(p, 0.0) for p in DEVICE_PHASES)
+    return host / busy if busy > 0.0 else 0.0
 
 
 class _PhaseSpan:
@@ -91,12 +121,15 @@ class PhaseProfiler:
     region; `probe_h2d(arrays)` and `fence(pending)` are the fenced
     probes of sampled ticks; `note_h2d` / `note_d2h` count transfer bytes
     every tick.  `device` is where the probes fence (None: the CPU);
-    `sample_every=0` disables fencing (byte counters stay live)."""
+    `sample_every=0` disables fencing (byte counters stay live);
+    `tracer` receives each sampled split (`merge_phases`)."""
 
     def __init__(self, metrics: MetricsRegistry, sample_every: int = 16,
                  inflight_fn: Optional[Callable[[], int]] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, tracer=None):
         self.metrics = metrics
+        self.tracer = tracer
+        self.stats = compile_stats()
         self.sample_every = int(sample_every)
         self.device = torch.device("cpu") if device is None else device
         self.sampled = False
@@ -135,6 +168,22 @@ class PhaseProfiler:
             "d2h_bytes_total", lambda: self.d2h_bytes,
             help_="bytes materialized device->host at the loop's egress "
                   "points", kind="counter")
+        metrics.register_scalar(
+            "compile_cache_hits", lambda: self.stats.hits,
+            help_="kernel-library builds found already built",
+            kind="counter")
+        metrics.register_scalar(
+            "compile_cache_misses", lambda: self.stats.misses,
+            help_="kernel-library builds compiled by nvcc",
+            kind="counter")
+        metrics.register_scalar(
+            "compile_events", lambda: self.stats.compile_events,
+            help_="first launches of kernel instances (a step here mid-run "
+                  "means one landed on the data path)", kind="counter")
+        metrics.register_scalar(
+            "compile_seconds_total", lambda: self.stats.compile_seconds,
+            help_="total seconds spent building the kernel library",
+            kind="counter")
         metrics.register_scalar(
             "dispatch_inflight_ticks",
             inflight_fn if inflight_fn is not None else (lambda: 0),
@@ -229,3 +278,5 @@ class PhaseProfiler:
         self.sampled_ticks += 1
         for p in PHASES:
             self.phase_hist.labels(p).observe(self._phases[p])
+        if self.tracer is not None:
+            self.tracer.merge_phases(self._phases)

@@ -13,8 +13,12 @@ API's `control`, `rtp.stats`, `bwe.*`, `transform.dtmf` / `red` and
 `device.*`, and the keying slice's `control.dtls`, `control.zrtp` and
 `recording` among them, and the video plane's `codecs.vp8`, `vp9`,
 `h264`, `vpx`, `avcodec`, `audio_avcodec`, `sfu.rtx`, `simulcast`, `svc`
-and `recording.webm`), and `chip_smoke.py` (with its paths over the
-io_uring engine, TCP, the pumps and the video SFU).  A second child
+and `recording.webm`, and the operations plane's `utils.health`,
+`faults`, `slo`, `capacity`, `compile_cache`, `profiling` and
+`service.supervisor`, `lifecycle`, `obs_server`), `chip_smoke.py` (with
+its paths over the io_uring engine, TCP, the pumps, the video SFU and the
+operations plane) and the scripts `scripts/torch_obs_smoke.py` and
+`scripts/torch_churn_soak.py`.  A second child
 refuses `cryptography` too: the keying controls import without it.  A
 third makes libvpx and libavcodec fail to load: `codecs` and `sfu`
 import all the same, and the bindings report themselves unavailable.
@@ -44,6 +48,13 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+# the operations plane's scripts (their `main` is not run)
+import importlib.util
+for script in ("torch_obs_smoke", "torch_churn_soak"):
+    spec = importlib.util.spec_from_file_location(
+        script, "scripts/" + script + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append("scripts." + script)
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
@@ -94,6 +105,13 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "sfu.simulcast", "sfu.svc", "recording.webm",
                 "service.sfu_bridge"):
         assert f"libjitsi_tpu_torch.{mod}" in seen, mod
+    # the operations plane and its scripts
+    for mod in ("utils.health", "utils.faults", "utils.slo",
+                "utils.capacity", "utils.compile_cache", "utils.profiling",
+                "service.supervisor", "service.lifecycle",
+                "service.obs_server"):
+        assert f"libjitsi_tpu_torch.{mod}" in seen, mod
+    assert {"scripts.torch_obs_smoke", "scripts.torch_churn_soak"} <= seen
 
 
 _NO_CRYPTOGRAPHY = r"""
